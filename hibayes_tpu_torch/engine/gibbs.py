@@ -1,0 +1,736 @@
+"""Individual-level MCMC engine: exact blocked Gibbs for the Bayesian alphabet.
+
+PyTorch port of hibayes_tpu/engine/gibbs.py for one device and one chain.
+The maths is the JAX engine's (reference: src/Bayes.cpp:477-917):
+
+    for each block b of B SNPs:
+        r0   = X_b' yadj
+        for j in 0..B-1:  rhs_j = r_local[j] + xpx_j g_j; draw g_j';
+                          r_local += (g_j - g_j') W_b[:, j]
+        yadj += X_b (g_b - g_b')
+
+with W_b = X_b' X_b precomputed.  The sweep runs in ops/blockgibbs.py:
+the CUDA kernels for tensors on a GPU, their plain versions on the CPU.
+
+Every random number of iteration ``it`` comes from an
+:class:`~hibayes_tpu_torch.engine.rng.IterNoise` keyed by (seed, it, stream
+id), the counterpart of the JAX engine's ``fold_in`` streams.  The loop is
+eager: state lives on the device, and the host reads it only for progress
+rows and at the end of the chain.
+"""
+
+from __future__ import annotations
+
+import time
+import warnings
+from dataclasses import dataclass
+from typing import NamedTuple
+
+import numpy as np
+import torch
+
+from ..ops import blockgibbs
+from .rng import (STREAM_COV, STREAM_FACTOR, STREAM_LAMBDA, STREAM_MU,
+                  STREAM_PI, STREAM_SNP_CHI, STREAM_SNP_U, STREAM_SNP_Z,
+                  STREAM_SNP_Z2, STREAM_VARG, STREAM_VE, IterNoise)
+
+MODEL_INDEX = {
+    "BayesRR": 1,
+    "BayesA": 2,
+    "BayesB": 3,
+    "BayesBpi": 3,
+    "BayesC": 4,
+    "BayesCpi": 4,
+    "BSLMM": 4,
+    "BayesL": 5,
+    "BayesR": 6,
+}
+
+
+@dataclass(frozen=True)
+class GibbsSpec:
+    """Static configuration of one chain; the fields of the JAX engine's
+    ``GibbsSpec``.  The port chooses kernel or plain sweep by the device of
+    the data, so ``use_pallas`` is kept only for parity and read nowhere."""
+
+    model: str
+    n: int                  # array row count (== n_real unless row-padded)
+    m: int                  # number of real SNPs
+    m_pad: int              # padded to a multiple of block
+    block: int
+    nc: int                 # fixed covariates
+    nlevels: tuple          # env random factor level counts
+    n_fold: int
+    niter: int
+    nburn: int
+    thin: int
+    nvar0: int              # monomorphic SNP count (vx == 0 among real SNPs)
+    nw: int = 0             # GWAS windows (0 = off)
+    n_real: int = 0         # real individuals when rows are padded; 0 = n
+    fixpi: bool = False
+    dfvara: float = 4.0
+    s2vara: float = 0.0
+    dfvare: float = -2.0
+    s2vare: float = 0.0
+    dfr: float = -1.0
+    s2r: float = 0.0
+    s2varg: float = 0.0
+    lambda_shape0: float = 1.1
+    lambda_rate0: float = 0.0
+    ne: int = 0
+    qe: int = 0
+    qe_pad: int = 0
+    use_bslmm: bool = False
+    vargl_strict_pos: bool = False
+    real_excl_nvar0: bool = False
+    reject_guard: bool = False
+    vary: float = 1.0
+    use_pallas: bool = False
+    seg_sizes: tuple = ()
+    seg_real: tuple = ()
+    resync_every: int = 256  # periodic f32 drift resync of yadj/u
+    shard_schedule: str = "turn"
+    merge_rounds: int = 1
+    emulate_shards: int = 0
+
+    def __post_init__(self):
+        if self.shard_schedule not in ("turn", "concurrent", "pipeline"):
+            raise ValueError(
+                f"shard_schedule must be 'turn', 'concurrent' or 'pipeline', "
+                f"got {self.shard_schedule!r}")
+        if self.merge_rounds < 1:
+            raise ValueError("merge_rounds must be >= 1")
+
+    @property
+    def model_index(self) -> int:
+        return MODEL_INDEX[self.model]
+
+    @property
+    def n_obs(self) -> int:
+        return self.n_real or self.n
+
+    @property
+    def row_padded(self) -> bool:
+        return bool(self.n_real) and self.n_real != self.n
+
+    @property
+    def nblocks(self) -> int:
+        return self.m_pad // self.block
+
+    @property
+    def n_records(self) -> int:
+        return (self.niter - self.nburn) // self.thin
+
+    @property
+    def niter_eff(self) -> int:
+        # the reference stops once n_records samples are kept (src/Bayes.cpp:916)
+        return self.nburn + self.n_records * self.thin
+
+
+class ChainState(NamedTuple):
+    """State of one chain.  ``it`` is a Python int; the rest are tensors on
+    the chain's device.  (The BSLMM and single-step fields of the JAX
+    ``ChainState`` arrive with those models.)"""
+
+    it: int
+    mu: torch.Tensor
+    beta: torch.Tensor       # (nc,)
+    estR: tuple              # per factor (nlev_i,)
+    vrtmp: torch.Tensor      # (nr,)
+    vr: torch.Tensor         # (nr,)
+    yadj: torch.Tensor       # (n,)
+    u: torch.Tensor          # (n,)
+    g: torch.Tensor          # (m_pad,)
+    varg: torch.Tensor
+    vargL: torch.Tensor      # (m_pad,) BayesL local variances (size 0 otherwise)
+    lambda2: torch.Tensor
+    pi: torch.Tensor         # (n_fold,)
+    vara_fold: torch.Tensor  # (n_fold,)
+    vara: torch.Tensor
+    vare: torch.Tensor
+    track: torch.Tensor      # (m_pad,) int32 mixture component of the last sweep
+    nzrate: torch.Tensor     # (m_pad,) PIP counters
+    wppa: torch.Tensor       # (nw,) window counters
+
+
+class GibbsData(NamedTuple):
+    """Device-resident inputs.  X_blocks is the genotype in block layout."""
+
+    y: torch.Tensor            # (n,)
+    X_blocks: torch.Tensor     # (nblocks, n, B) int8 or float
+    W_blocks: torch.Tensor     # (nblocks, B, B) block Gram matrices
+    xpx: torch.Tensor          # (m_pad,)
+    vx: torch.Tensor           # (m_pad,)
+    real: torch.Tensor         # (m_pad,) bool: real (non-padding) SNPs
+    C: torch.Tensor            # (n, nc)
+    cpc: torch.Tensor          # (nc,)
+    r_codes: tuple             # per factor (n,) int64
+    r_counts: tuple            # per factor (nlev_i,)
+    fold: torch.Tensor         # (n_fold,)
+    windindx0: torch.Tensor    # (m_pad,) int64 0-based window ids (pad -> nw)
+
+
+# ---------------------------------------------------------------------------
+# priors, data preparation, state
+# ---------------------------------------------------------------------------
+
+
+@dataclass
+class Priors:
+    """Resolved hyperparameters (reference defaulting: src/Bayes.cpp:319-363)."""
+
+    vary: float
+    vara: float
+    vare: float
+    dfvara: float
+    s2vara: float
+    dfvare: float
+    s2vare: float
+    varg: float
+    s2varg: float
+    dfr: float
+    s2r: float
+    vr_init: float
+    lambda2: float
+    lambda_rate0: float
+
+
+def resolve_priors(
+    y, sumvx, pi0, nr,
+    vg=None, dfvg=None, s2vg=None, ve=None, dfve=None, s2ve=None,
+    dfvr=None, s2vr=None, h2=0.5, shape0=1.1, vary=None,
+) -> Priors:
+    if vary is None:
+        vary = float(np.var(np.asarray(y, dtype=np.float64), ddof=1))
+    dfvara = 4.0 if dfvg is None else float(dfvg)
+    if dfvara <= 2:
+        raise ValueError("dfvg should not be less than 2.")
+    vara = ((dfvara - 2.0) / dfvara) * vary * h2 if vg is None else float(vg)
+    vare = vary * (1.0 - h2) / (nr + 1.0) if ve is None else float(ve)
+    dfvare = -2.0 if dfve is None else float(dfve)
+    s2vara = vara * (dfvara - 2.0) / dfvara if s2vg is None else float(s2vg)
+    denom = (1.0 - pi0) * float(sumvx)
+    varg = vara / denom
+    s2varg = s2vara / denom
+    s2vare = 0.0 if s2ve is None else float(s2ve)
+    dfr = -1.0 if dfvr is None else float(dfvr)
+    s2r = 0.0 if s2vr is None else float(s2vr)
+    vr_init = vary * (1.0 - h2) / (nr + 1.0)
+    R2 = (dfvara - 2.0) / dfvara
+    lambda2 = 2.0 * (1.0 - R2) / R2 * float(sumvx)
+    lambda_rate0 = (shape0 - 1.0) / lambda2
+    return Priors(
+        vary=vary, vara=vara, vare=vare, dfvara=dfvara, s2vara=s2vara,
+        dfvare=dfvare, s2vare=s2vare, varg=varg, s2varg=s2varg,
+        dfr=dfr, s2r=s2r, vr_init=vr_init,
+        lambda2=lambda2, lambda_rate0=lambda_rate0,
+    )
+
+
+GRAM_BATCH_BYTES = 1 << 30  # f32 genotype blocks cast at once for the Gram
+
+
+def pad_to_block(m: int, block: int) -> int:
+    return ((m + block - 1) // block) * block
+
+
+def _columns(M, c0: int, c1: int, dtype, device) -> torch.Tensor:
+    """Columns [c0, c1) of a numpy or torch genotype as a tensor on device."""
+    if isinstance(M, torch.Tensor):
+        return M[:, c0:c1].to(device=device, dtype=dtype)
+    return torch.from_numpy(np.ascontiguousarray(M[:, c0:c1])).to(
+        device=device, dtype=dtype)
+
+
+def prepare_gibbs_data(
+    y, M, *, C=None, r_codes=(), r_nlevels=(), fold=None, windindx=None, nw=0,
+    block=64, dtype=torch.float32, geno_dtype=None, pad_n="auto",
+    device="cpu",
+) -> GibbsData:
+    """Build the device-resident GibbsData (block layout, Gram matrices, stats).
+
+    Port of ``prepare_gibbs_data`` (hibayes_tpu/engine/gibbs.py:1871-2052)
+    without the BSLMM and single-step inputs.  ``M`` is an (n, m) numpy
+    array or torch tensor on any device; it is copied block by block into
+    ``X_blocks`` (nblocks, n, B) on ``device``.
+
+    geno_dtype="int8" stores the genotype as int8.  Its Gram matrices are
+    f32 products of integer codes, exact because every partial sum is an
+    integer below 4n < 2^24 (TF32 is off), taken over batches of blocks of
+    at most GRAM_BATCH_BYTES so that no f32 copy of the whole genotype
+    exists; xpx and vx come exactly from diag(W) and the column sums.
+
+    pad_n="auto" zero-pads the individual axis to a multiple of 512 for
+    n > 4096, as the JAX engine does, so arrays and statistics match it;
+    ``GibbsSpec.n`` is then the padded count and ``n_real`` the real one.
+    """
+    device = torch.device(device)
+    y_np = np.asarray(y)
+    n = int(y_np.shape[0])
+    n_real = n
+    if pad_n == "auto":
+        pad_n = n > 4096 and n % 512 != 0
+    if pad_n:
+        n = pad_to_block(n, 512)
+    y_t = torch.zeros((n,), dtype=dtype, device=device)
+    y_t[:n_real] = torch.as_tensor(y_np, dtype=dtype, device=device)
+    use_int8 = geno_dtype in ("int8", torch.int8, np.int8)
+    m = int(M.shape[1])
+    block = int(min(block, pad_to_block(m, 8)))
+    m_pad = pad_to_block(m, block)
+    nblocks = m_pad // block
+
+    if use_int8:
+        integer = (not M.dtype.is_floating_point if isinstance(M, torch.Tensor)
+                   else np.issubdtype(M.dtype, np.integer))
+        if not integer and not bool((M == M.round()).all()):
+            raise ValueError("geno_dtype='int8' requires integer genotype codes")
+        x_dtype = torch.int8
+    else:
+        x_dtype = dtype
+    X_blocks = torch.zeros((nblocks, n, block), dtype=x_dtype, device=device)
+    for b in range(nblocks):
+        c0, c1 = b * block, min(m, (b + 1) * block)
+        if c0 >= m:
+            break
+        X_blocks[b, :n_real, : c1 - c0] = _columns(M, c0, c1, x_dtype, device)
+
+    gram_dt = torch.float32 if use_int8 else dtype
+    W_blocks = torch.empty((nblocks, block, block), dtype=dtype, device=device)
+    s1 = torch.empty((nblocks, block), dtype=gram_dt, device=device)
+    xpx = torch.empty((nblocks, block), dtype=dtype, device=device)
+    vx = torch.empty((nblocks, block), dtype=dtype, device=device)
+    row_real = (torch.arange(n, device=device) < n_real)[None, :, None]
+    per = max(1, GRAM_BATCH_BYTES // (n * block * gram_dt.itemsize))
+    for b0 in range(0, nblocks, per):
+        b1 = min(nblocks, b0 + per)
+        Xf = X_blocks[b0:b1].to(gram_dt)
+        W_blocks[b0:b1] = torch.bmm(Xf.transpose(1, 2), Xf).to(dtype)
+        s1[b0:b1] = Xf.sum(dim=1)
+        if not use_int8:
+            # centred two-pass variance: exact 0 for monomorphic columns;
+            # padded rows are left out of the centring
+            xpx[b0:b1] = (Xf * Xf).sum(dim=1)
+            Mc = torch.where(row_real, Xf - s1[b0:b1, None, :] / n_real, 0.0)
+            vx[b0:b1] = (Mc * Mc).sum(dim=1) / (n_real - 1)
+    if use_int8:
+        # exact in float64: all integers < 2^53
+        s2 = torch.diagonal(W_blocks, dim1=1, dim2=2).to(torch.float64)
+        s1d = s1.to(torch.float64)
+        xpx = s2.to(dtype)
+        vx = ((s2 - s1d * s1d / n_real) / (n_real - 1)).to(dtype)
+    xpx = xpx.reshape(m_pad)
+    real = torch.arange(m_pad, device=device) < m
+    vx = torch.where(real, vx.reshape(m_pad), 0.0)
+
+    if C is None:
+        C_t = torch.zeros((n, 0), dtype=dtype, device=device)
+    else:
+        C_t = torch.zeros((n, np.asarray(C).shape[1]), dtype=dtype, device=device)
+        C_t[:n_real] = torch.as_tensor(np.asarray(C), dtype=dtype, device=device)
+    cpc = (C_t * C_t).sum(dim=0)
+
+    row_w = (torch.arange(n, device=device) < n_real).to(dtype)
+    codes_t, counts_t = [], []
+    for c, nl in zip(r_codes, r_nlevels):
+        ct = torch.zeros((n,), dtype=torch.int64, device=device)
+        ct[:n_real] = torch.as_tensor(np.asarray(c), dtype=torch.int64, device=device)
+        codes_t.append(ct)
+        # padded rows carry code 0 but must not inflate the level counts
+        counts_t.append(torch.zeros((int(nl),), dtype=dtype, device=device)
+                        .index_add_(0, ct, row_w))
+
+    fold_t = (torch.zeros((2,), dtype=dtype, device=device) if fold is None
+              else torch.as_tensor(np.asarray(fold), dtype=dtype, device=device))
+    wind0 = torch.full((m_pad,), nw if windindx is not None and nw else 0,
+                       dtype=torch.int64, device=device)
+    if windindx is not None and nw:
+        wind0[:m] = torch.as_tensor(np.asarray(windindx), dtype=torch.int64,
+                                    device=device) - 1
+    return GibbsData(
+        y=y_t, X_blocks=X_blocks, W_blocks=W_blocks, xpx=xpx, vx=vx,
+        real=real, C=C_t, cpc=cpc, r_codes=tuple(codes_t),
+        r_counts=tuple(counts_t), fold=fold_t, windindx0=wind0,
+    )
+
+
+def init_state(spec: GibbsSpec, data: GibbsData, priors: Priors, pi_init) -> ChainState:
+    dt = data.y.dtype
+    dev = data.y.device
+    n, m_pad = spec.n, spec.m_pad
+    nr = len(spec.nlevels)
+
+    def full(shape, v):
+        return torch.full(shape, float(v), dtype=dt, device=dev)
+
+    if spec.row_padded:
+        mu0 = data.y.sum() / spec.n_obs
+        yadj0 = torch.where(torch.arange(n, device=dev) < spec.n_obs,
+                            data.y - mu0, 0.0)
+    else:
+        mu0 = data.y.mean()
+        yadj0 = data.y - mu0
+    vara_fold = (priors.varg * data.fold
+                 if spec.n_fold > 2 or spec.model == "BayesR"
+                 else full((spec.n_fold,), 1.0))
+    return ChainState(
+        it=0,
+        mu=mu0,
+        beta=full((spec.nc,), 0.0),
+        estR=tuple(full((nl,), 0.0) for nl in spec.nlevels),
+        vrtmp=full((nr,), priors.vr_init),
+        vr=full((nr,), 0.0),
+        yadj=yadj0,
+        u=full((n,), 0.0),
+        g=full((m_pad,), 0.0),
+        varg=full((), priors.varg),
+        vargL=full((m_pad,) if spec.model_index == 5 else (0,), priors.varg),
+        lambda2=full((), priors.lambda2),
+        pi=torch.as_tensor(np.asarray(pi_init), dtype=dt, device=dev),
+        vara_fold=vara_fold,
+        vara=full((), priors.vara),
+        vare=full((), priors.vare),
+        track=torch.zeros((m_pad,), dtype=torch.int32, device=dev),
+        nzrate=full((m_pad,), 0.0),
+        wppa=full((spec.nw,), 0.0),
+    )
+
+
+def _snapshot(spec: GibbsSpec, state: ChainState) -> dict:
+    vt = state.vara + state.vare + state.vr.sum()
+    return {
+        "mu": state.mu,
+        "pi": state.pi,
+        "Vg": state.vara,
+        "Ve": state.vare,
+        "h2": state.vara / vt,
+        "alpha": state.g,
+        "beta": state.beta,
+        "Vr": state.vr,
+        "r": (torch.cat(state.estR) if state.estR
+              else torch.zeros((0,), dtype=state.g.dtype, device=state.g.device)),
+        "lambda": torch.sqrt(state.lambda2),
+    }
+
+
+def genotype_matmul(X_blocks, G, dtype) -> torch.Tensor:
+    """X @ G for X in block layout and G (nblocks * B, r), block by block, so
+    that no copy of the whole genotype in ``dtype`` ever exists."""
+    nblocks, n, B = X_blocks.shape
+    out = torch.zeros((n, G.shape[1]), dtype=dtype, device=X_blocks.device)
+    G = G.to(dtype)
+    for b in range(nblocks):
+        out.addmm_(X_blocks[b].to(dtype), G[b * B:(b + 1) * B])
+    return out
+
+
+# ---------------------------------------------------------------------------
+# one MCMC iteration
+# ---------------------------------------------------------------------------
+
+
+def alphabet_global_updates(spec: GibbsSpec, noise, g, track, real, fold,
+                            vargi_acc, vargR_acc, vargL, varg, pi, vara_fold,
+                            lambda2):
+    """Post-sweep model-level updates: marker variance, mixture proportions,
+    BayesL lambda (``alphabet_global_updates``, hibayes_tpu/engine/gibbs.py:455-516)."""
+    mi = spec.model_index
+    dt = g.dtype
+    m_real, nvar0 = spec.m, spec.nvar0
+    s2varg_df = spec.s2varg * spec.dfvara
+
+    if mi == 1:
+        chi = noise.chisq(STREAM_VARG, spec.dfvara + m_real - nvar0)
+        varg = (torch.dot(g, g) + s2varg_df) / chi
+    elif mi in (3, 4):
+        nnz = ((track == 1) & real).sum().to(dt)
+        if mi == 4:
+            chi = noise.chisq(STREAM_VARG, spec.dfvara + nnz)
+            varg = (vargi_acc + s2varg_df) / chi
+        if not spec.fixpi:
+            pi = noise.dirichlet(STREAM_PI, torch.stack([m_real - nvar0 - nnz, nnz]) + 1.0)
+    elif mi == 5:
+        rate = spec.lambda_rate0 + torch.where(real, vargL, 0.0).sum() / 2.0
+        lambda2 = noise.gamma(STREAM_LAMBDA, spec.lambda_shape0 + m_real - nvar0) / rate
+    elif mi == 6:
+        fold_num = torch.stack([((track == f) & real).sum().to(dt)
+                                for f in range(spec.n_fold)])
+        # reference semantics (Bayes.cpp:443-455): NnzSnp = m - #(track == 0
+        # over all m); pi counts subtract nvar0 from the zero fold
+        zero_all = fold_num[0] + (nvar0 if spec.real_excl_nvar0 else 0)
+        chi = noise.chisq(STREAM_VARG, spec.dfvara + (m_real - zero_all))
+        varg = (vargR_acc + s2varg_df) / chi
+        vara_fold = varg * fold
+        if not spec.real_excl_nvar0:
+            fold_num = torch.cat([fold_num[:1] - nvar0, fold_num[1:]])
+        if not spec.fixpi:
+            pi = noise.dirichlet(STREAM_PI, torch.clamp_min(fold_num, 0.0) + 1.0)
+    return varg, pi, vara_fold, lambda2
+
+
+def _segment_sum(values, codes, lengths):
+    """Per-level sums of ``values``, added in a fixed order.  index_add_
+    adds with atomics on a GPU, in an order that changes from run to run;
+    a chain must be reproducible for its seed.  ``lengths`` (int64) counts
+    every row of each level, padded rows included."""
+    order = torch.argsort(codes, stable=True)
+    return torch.segment_reduce(values[order], "sum", lengths=lengths)
+
+
+def _pre_sweep(spec: GibbsSpec, data: GibbsData, noise, state: ChainState) -> dict:
+    """Intercept, sequential covariates, environmental random effects, and
+    the sweep's constants and random numbers (hibayes_tpu/engine/gibbs.py:817-875,
+    951-1004).  Every draw comes from ``noise``."""
+    dt = data.y.dtype
+    dev = data.y.device
+    n, n_obs = spec.n, spec.n_obs
+    mu, beta, yadj, u = state.mu, state.beta, state.yadj, state.u
+    ve = state.vare
+    row_real = torch.arange(n, device=dev) < n_obs if spec.row_padded else None
+
+    # --- intercept (src/Bayes.cpp:480-482) ---
+    z = noise.normal(STREAM_MU, ())
+    delta = yadj.sum() / n_obs + torch.sqrt(ve / n_obs) * z
+    mu = mu + delta
+    # padded rows stay exactly zero (they feed sum(yadj) and yadj.yadj)
+    yadj = yadj - (torch.where(row_real, delta, 0.0) if spec.row_padded else delta)
+
+    # --- fixed covariates, sequential (src/Bayes.cpp:484-494) ---
+    if spec.nc:
+        z_cov = noise.normal(STREAM_COV, (spec.nc,))
+        new_beta = []
+        for i in range(spec.nc):
+            ci, cpci, bi_old = data.C[:, i], data.cpc[i], beta[i]
+            rhs = torch.dot(ci, yadj) + cpci * bi_old
+            bi = rhs / cpci + torch.sqrt(ve / cpci) * z_cov[i]
+            yadj = yadj + (bi_old - bi) * ci
+            new_beta.append(bi)
+        beta = torch.stack(new_beta)
+
+    # --- environmental random effects per factor (src/Bayes.cpp:496-516) ---
+    estR = []
+    vrtmp, vr = state.vrtmp.clone(), state.vr.clone()
+    for i, nlev in enumerate(spec.nlevels):
+        codes, counts, old = data.r_codes[i], data.r_counts[i], state.estR[i]
+        # padded rows carry code 0 (and yadj 0) but are not in the counts
+        lengths = counts.to(torch.int64)
+        if spec.row_padded:
+            lengths = torch.cat([lengths[:1] + (n - n_obs), lengths[1:]])
+        rhs = _segment_sum(yadj, codes, lengths) + counts * old
+        lhs = counts + ve / vrtmp[i]
+        zr = noise.normal(STREAM_FACTOR + 2 * i, (nlev,))
+        new = rhs / lhs + torch.sqrt(ve / lhs) * zr
+        upd = (old - new)[codes]
+        yadj = yadj + (torch.where(row_real, upd, 0.0) if spec.row_padded else upd)
+        chi = noise.chisq(STREAM_FACTOR + 2 * i + 1, nlev + spec.dfr)
+        vrtmp[i] = (torch.dot(new, new) + spec.s2r * spec.dfr) / chi
+        vr[i] = torch.var(new, correction=1)
+        estR.append(new)
+
+    # --- the sweep's random numbers; an unused stream is never drawn ---
+    m_pad = spec.m_pad
+    mi = spec.model_index
+    z_snp = noise.normal(STREAM_SNP_Z, (m_pad,))
+    if mi == 6:  # BayesR Gumbel-max fold selection: n_fold uniforms per SNP
+        u_snp = noise.uniform(STREAM_SNP_U, (m_pad, spec.n_fold))
+    elif mi in (3, 4, 5):
+        u_snp = noise.uniform(STREAM_SNP_U, (m_pad,))
+    else:
+        u_snp = torch.full((m_pad,), 0.5, dtype=dt, device=dev)
+    if mi in (2, 3):
+        chi_snp = noise.chisq(STREAM_SNP_CHI, spec.dfvara + 1.0, (m_pad,))
+    else:
+        chi_snp = torch.ones((m_pad,), dtype=dt, device=dev)
+    if mi == 5:
+        z2_snp = noise.normal(STREAM_SNP_Z2, (m_pad,))
+    else:
+        z2_snp = torch.zeros((m_pad,), dtype=dt, device=dev)
+
+    consts = {
+        "varg": state.varg,
+        "s2varg_df": torch.full((), spec.s2varg * spec.dfvara, dtype=dt, device=dev),
+        "logpi": torch.log(state.pi),
+        "lambda2": state.lambda2,
+        "vara_fold": state.vara_fold,
+        "fold": data.fold,
+    }
+    return {
+        "mu": mu, "beta": beta, "estR": tuple(estR), "vrtmp": vrtmp, "vr": vr,
+        "yadj": yadj, "u": u,
+        "consts": consts,
+        "vei": ve.expand(m_pad),
+        "vargL_in": (state.vargL if state.vargL.numel()
+                     else torch.zeros((m_pad,), dtype=dt, device=dev)),
+        "rnd": (z_snp, u_snp, chi_snp, z2_snp),
+    }
+
+
+def _run_sweep_k1(spec: GibbsSpec, data: GibbsData, pre: dict, g):
+    """Run the K-chain sweep as one chain (add and strip the K = 1 axis)."""
+    consts_b = {k: v.reshape((1,) + tuple(v.shape)) for k, v in pre["consts"].items()}
+    out = blockgibbs.sweep_mc(
+        spec, consts_b, data.X_blocks, data.W_blocks, data.xpx, data.vx,
+        pre["vei"][None], g[None], *(r[None] for r in pre["rnd"]),
+        pre["vargL_in"][None], pre["yadj"][None], pre["u"][None],
+    )
+    return tuple(o[0] for o in out)
+
+
+def _recompute_residuals(spec: GibbsSpec, data: GibbsData, mu, beta, estR, g):
+    """Exact recompute of (yadj, u) from the current effects: the periodic
+    f32 drift correction (hibayes_tpu/engine/gibbs.py:1674-1704)."""
+    dt = data.y.dtype
+    n = spec.n
+    pred = torch.zeros((n,), dtype=dt, device=data.y.device) + mu
+    if spec.nc:
+        pred = pred + data.C @ beta
+    for i in range(len(spec.nlevels)):
+        pred = pred + estR[i][data.r_codes[i]]
+    u_new = genotype_matmul(data.X_blocks, g[:, None], dt)[:, 0]
+    yadj_new = data.y - (pred + u_new)
+    if spec.row_padded:
+        yadj_new = torch.where(torch.arange(n, device=data.y.device) < spec.n_obs,
+                               yadj_new, 0.0)
+    return yadj_new, u_new
+
+
+def _post_sweep(spec: GibbsSpec, data: GibbsData, noise, state: ChainState,
+                pre: dict, sweep_out) -> ChainState:
+    """Model-level updates, Vg/Ve draws, PIP/WPPA counters, drift resync,
+    state assembly (hibayes_tpu/engine/gibbs.py:1707-1806)."""
+    dt = data.y.dtype
+    g, track, vargL_new, yadj, u, vargi_acc, vargR_acc = sweep_out
+    vargL = vargL_new if state.vargL.numel() else state.vargL
+    varg, pi, vara_fold, lambda2 = alphabet_global_updates(
+        spec, noise, g, track, data.real, data.fold, vargi_acc, vargR_acc,
+        vargL, state.varg, state.pi, state.vara_fold, state.lambda2,
+    )
+
+    # --- genetic + residual variances (src/Bayes.cpp:819-823) ---
+    if spec.row_padded:
+        su = u.sum()
+        vara = (torch.dot(u, u) - su * su / spec.n_obs) / (spec.n_obs - 1)
+    else:
+        vara = torch.var(u, correction=1)
+    chi_e = noise.chisq(STREAM_VE, spec.n_obs + spec.dfvare)
+    vare = (torch.dot(yadj, yadj) + spec.s2vare * spec.dfvare) / chi_e
+
+    # --- PIP / WPPA counters post burn-in (src/Bayes.cpp:826-845) ---
+    nzrate, wppa = state.nzrate, state.wppa
+    if state.it >= spec.nburn:
+        nz = (track > 0) & data.real
+        nzrate = nzrate + nz.to(dt)
+        if spec.nw:
+            win_any = torch.zeros((spec.nw + 1,), dtype=torch.int32, device=g.device)
+            win_any.scatter_reduce_(0, data.windindx0, nz.to(torch.int32), reduce="amax")
+            wppa = wppa + win_any[: spec.nw].to(dt)
+
+    mu, beta, estR = pre["mu"], pre["beta"], pre["estR"]
+    # --- periodic drift resync (f32 only; exact recompute of yadj and u) ---
+    if (spec.resync_every and dt == torch.float32
+            and state.it % spec.resync_every == spec.resync_every - 1):
+        yadj, u = _recompute_residuals(spec, data, mu, beta, estR, g)
+
+    return ChainState(
+        it=state.it + 1, mu=mu, beta=beta, estR=estR, vrtmp=pre["vrtmp"],
+        vr=pre["vr"], yadj=yadj, u=u, g=g, varg=varg, vargL=vargL,
+        lambda2=lambda2, pi=pi, vara_fold=vara_fold, vara=vara, vare=vare,
+        track=track, nzrate=nzrate, wppa=wppa,
+    )
+
+
+def _check_ported(spec: GibbsSpec, mesh) -> None:
+    """Raise for the configurations whose code paths are still to be ported
+    (ROADMAP.md, queue 1)."""
+    if mesh is not None or spec.emulate_shards > 1 or spec.shard_schedule != "turn":
+        raise NotImplementedError(
+            "meshes and shard schedules are not ported yet (ROADMAP queue 1, "
+            "items 13-14: multi-GPU and the concurrent schedule)")
+    if spec.use_bslmm:
+        raise NotImplementedError("BSLMM is not ported yet (ROADMAP queue 1, item 9)")
+    if spec.qe:
+        raise NotImplementedError(
+            "the single-step epsilon term is not ported yet (ROADMAP queue 1, item 12)")
+    if spec.reject_guard or spec.seg_sizes:
+        raise NotImplementedError(
+            "the summary-level engine is not ported yet (ROADMAP queue 1, items 10-11)")
+
+
+def one_iteration(spec: GibbsSpec, data: GibbsData, seed: int,
+                  state: ChainState, noise=None, mesh=None) -> ChainState:
+    """One MCMC iteration of one chain on one device: pre-sweep effects, the
+    SNP sweep at K = 1, global updates.  ``noise`` defaults to the port's
+    own streams for (seed, state.it)."""
+    _check_ported(spec, mesh)
+    if noise is None:
+        noise = IterNoise(seed, state.it, data.y.device, data.y.dtype)
+    pre = _pre_sweep(spec, data, noise, state)
+    sweep_out = _run_sweep_k1(spec, data, pre, state.g)
+    return _post_sweep(spec, data, noise, state, pre, sweep_out)
+
+
+# ---------------------------------------------------------------------------
+# running a chain
+# ---------------------------------------------------------------------------
+
+
+def _print_progress(spec: GibbsSpec, state: ChainState, eta_str: str) -> None:
+    # one host read per row: everything the row shows, stacked on the device
+    dt = state.vara.dtype
+    vals = torch.cat([(state.track > 0).sum().to(dt).reshape(1),
+                      state.vara.reshape(1), state.vare.reshape(1),
+                      state.pi.to(dt)]).tolist()
+    nnz = spec.m - spec.nvar0 if spec.model_index in (1, 2, 5) else int(vals[0])
+    vara, vare, pi = vals[1], vals[2], vals[3:]
+    pi_str = " ".join(f"{p:.4f}" for p in pi)
+    print(f" {state.it:>6d}  {nnz:>6d}  {pi_str}  Vg {vara:.4f}  Ve {vare:.4f}  "
+          f"h2 {vara / max(vara + vare, 1e-30):.4f}  {eta_str}")
+
+
+def run_chain(spec: GibbsSpec, data: GibbsData, priors: Priors, pi_init,
+              seed=666666, progress=False, chunk_records=0):
+    """Run the full chain; returns (final_state, samples dict, summaries dict).
+    The summaries hold pip, wppa, nzct and the chain's wall ``seconds``, taken
+    once the device has finished its iterations.
+
+    Samples are numpy arrays with a leading axis of n_records; alpha is cut
+    to the real m.  With ``progress``, a reference-style row (iter / NnzSnp /
+    pi / Vg / Ve / h2 / time left, src/Bayes.cpp:884-914) is printed every
+    ``chunk_records`` records (a tenth of the chain by default)."""
+    state = init_state(spec, data, priors, pi_init)
+    if chunk_records <= 0:
+        chunk_records = max(spec.n_records // 10, 1)
+    every = chunk_records * spec.thin
+    total = spec.niter_eff
+    snaps = []
+    t0 = time.time()
+    for done in range(1, total + 1):
+        state = one_iteration(spec, data, seed, state)
+        if done > spec.nburn and (done - spec.nburn) % spec.thin == 0:
+            snaps.append(_snapshot(spec, state))
+        if progress and (done % every == 0 or done == total):
+            sec = int((time.time() - t0) / done * (total - done))
+            _print_progress(spec, state,
+                            f"{sec // 3600:02d}h{sec % 3600 // 60:02d}m{sec % 60:02d}s")
+    if state.vare.is_cuda:
+        torch.cuda.synchronize(state.vare.device)
+    seconds = time.time() - t0
+    samples = ({k: torch.stack([s[k] for s in snaps]).cpu().numpy() for k in snaps[0]}
+               if snaps else {})
+    if not bool(torch.isfinite(state.vare)):
+        warnings.warn("chain diverged: residual variance is non-finite at the "
+                      "final iteration", UserWarning, stacklevel=2)
+
+    nzct = spec.n_records * spec.thin
+    # clamp PIP == 1 to (nzct-1)/nzct (src/Bayes.cpp:1030)
+    pip = state.nzrate / nzct
+    pip = torch.where(pip >= 1.0, (nzct - 1.0) / nzct, pip)
+    if spec.model_index in (1, 2, 5):
+        pip = torch.ones_like(pip)
+    wppa = state.wppa / nzct
+    wppa = torch.where(wppa >= 1.0, (nzct - 1.0) / nzct, wppa)
+    if samples:
+        samples["alpha"] = samples["alpha"][:, : spec.m]
+    extras = {"pip": pip[: spec.m].cpu().numpy(), "wppa": wppa.cpu().numpy(),
+              "nzct": nzct, "seconds": seconds}
+    return state, samples, extras
