@@ -1,9 +1,11 @@
 """Port types from the JAX package's, given as numpy arrays.
 
-``gibbs_data_from_numpy`` and ``chain_state_from_numpy`` take a JAX
-``GibbsData`` / ``ChainState`` (or any mapping or named tuple with the same
-field names) whose leaves are numpy arrays, so that a test can start both
-packages from the same state.  No JAX is imported here.
+``gibbs_data_from_numpy`` / ``chain_state_from_numpy`` (individual level)
+and ``sgibbs_data_from_numpy`` / ``s_chain_state_from_numpy`` (summary
+level) take a JAX ``GibbsData`` / ``ChainState`` / ``SGibbsData`` /
+``SChainState`` (or any mapping or named tuple with the same field names)
+whose leaves are numpy arrays, so that a test can start both packages from
+the same state.  No JAX is imported here.
 """
 
 from __future__ import annotations
@@ -12,6 +14,7 @@ import numpy as np
 import torch
 
 from .gibbs import ChainState, GibbsData
+from .sgibbs import SChainState, SGibbsData
 
 
 def _fields(obj) -> dict:
@@ -57,3 +60,30 @@ def chain_state_from_numpy(state, device="cpu") -> ChainState:
         track=_t(f["track"], device, torch.int32),
         **kw,
     )
+
+
+def sgibbs_data_from_numpy(data, device="cpu") -> SGibbsData:
+    f = _fields(data)
+    opt = {name: None if f.get(name) is None else _t(f[name], device, dt)
+           for name, dt in (("ld_tiles", None), ("ld_cols", torch.int32),
+                            ("ld_valid", torch.bool))}
+    return SGibbsData(
+        ld_segs=tuple(_t(s, device) for s in f["ld_segs"]),
+        xy=_t(f["xy"], device),
+        xpx=_t(f["xpx"], device),
+        vx=_t(f["vx"], device),
+        real=_t(f["real"], device, torch.bool),
+        varediff=_t(f["varediff"], device),
+        fold=_t(f["fold"], device),
+        windindx0=_t(f["windindx0"], device, torch.int64),
+        yy=_t(f["yy"], device),
+        **opt,
+    )
+
+
+def s_chain_state_from_numpy(state, device="cpu") -> SChainState:
+    f = _fields(state)
+    kw = {name: _t(f[name], device) for name in SChainState._fields
+          if name not in ("it", "track")}
+    return SChainState(it=int(np.asarray(f["it"])),
+                       track=_t(f["track"], device, torch.int32), **kw)

@@ -35,7 +35,9 @@ STREAM_EPSL_J = 11
 STREAM_EPSL_Z = 12
 STREAM_EPSL_CHI = 13
 STREAM_LAMBDA = 14
+STREAM_SNP_ZR = 15  # summary engine: retry normals of the rejection guard
 STREAM_FACTOR = 20  # factor i uses 20 + 2*i (normals) and 21 + 2*i (chisq)
+STREAM_S_VARA = 31  # summary engine: the chi-square of the Vg draw
 
 _MASK64 = (1 << 64) - 1
 

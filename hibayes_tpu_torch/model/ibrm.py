@@ -108,6 +108,17 @@ def _rows(M, mask: np.ndarray):
     return M[mask]
 
 
+def resolve_device(device) -> torch.device:
+    """The device an entry point runs on: "cuda" unless the caller names
+    another.  Without a CUDA device, only an explicit device="cpu" runs."""
+    device = torch.device("cuda" if device is None else device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            "no CUDA device is available; pass device='cpu' to run on the CPU "
+            "(the plain PyTorch versions of the kernels)")
+    return device
+
+
 def _compute_dtype(device: torch.device):
     # f64 on the CPU, as the JAX package's host product; f32 (TF32 off) on a GPU
     return torch.float64 if device.type == "cpu" else torch.float32
@@ -171,9 +182,10 @@ def ibrm(
     nchains=1,
     device=None,
 ) -> BlrMod:
-    """Fit one chain on ``device`` (default: the first GPU if there is one,
-    else the CPU; the header names it).  ``M`` is an (n, m) numpy array or
-    torch tensor on any device; integer genotypes are stored as int8."""
+    """Fit one chain on ``device`` (default "cuda"; the CPU only when asked
+    for with device="cpu"; the header names it).  ``M`` is an (n, m) numpy
+    array or torch tensor on any device; integer genotypes are stored as
+    int8."""
     if method not in METHODS:
         raise ValueError(f"unknown method '{method}'; choose from {METHODS}")
     if method == "BSLMM":
@@ -187,8 +199,7 @@ def ibrm(
         raise ValueError("no genotype data.")
     if M_id is None:
         raise ValueError("please assign the individuals id to 'M.id'.")
-    device = torch.device(device if device is not None
-                          else ("cuda" if torch.cuda.is_available() else "cpu"))
+    device = resolve_device(device)
     M_values = M if isinstance(M, torch.Tensor) else (
         M.values if hasattr(M, "values") else np.asarray(M))
     M_id = np.asarray(M_id).astype(str)

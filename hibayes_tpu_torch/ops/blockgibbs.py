@@ -12,23 +12,32 @@ does not depend on the sequential residual is computed before the sweep:
   phase C (``phase_c_mc``, torch ops): the order-independent rest
      (BayesL local variances, variance accumulators).
 
-Two kernels carry phase B (csrc/blockgibbs.cu):
+Two kernels carry phase B of the individual-level sweep (csrc/blockgibbs.cu):
 
 * ``block_draws``: the B draws of one block for K chains, given r0
   (replaces ``_s_block_draws``/``_kernel_s_block_t``);
 * ``sweep_mc``: the fused K-chain sweep over a range of blocks, with X int8
   or f32 (replaces ``sweep_mc_t``, ``sweep_mc_ti`` and ``sweep_mc_tc``).
 
-Each has a plain PyTorch version with the same contract
-(``block_draws_plain``, ``sweep_mc_plain``): loops over blocks and SNPs in
-Python with tensor ops across the K chains, in any float dtype.  A wrapper
-takes its plain version only for tensors on the CPU; for CUDA tensors it
-launches the kernel or raises.  Each wrapper counts its own launches in a
-plain integer attribute (``sweep_mc.launches``, ``block_draws.launches``),
-and each plain version its calls (``.calls``).  The library counts every
-launch of each CUDA kernel where it is made (:func:`kernel_launches`): a
-sweep over nbg blocks launches ``rows_kernel`` nbg + 1 times and
-``draws_kernel`` nbg times.
+Two carry the single-chain summary-level (sbrm) sweep (csrc/sgibbs.cu),
+whose state is r_hat instead of a residual:
+
+* ``sweep_s_segment``: one dense LD segment (replaces ``sweep_s_segment`` /
+  ``_kernel_s``);
+* ``sweep_s_tiled``: every tile row of a tiled sparse LD, with the SBayesS
+  rejection guard (replaces ``sweep_s_tiled`` / ``_kernel_s_tiled``).
+
+Each has a plain PyTorch version with the same contract (``*_plain``):
+loops over blocks and SNPs in Python with tensor ops (across the K chains
+for the individual-level ones), in any float dtype.  A wrapper takes its
+plain version only for tensors on the CPU; for CUDA tensors it launches the
+kernel or raises.  Each wrapper counts its own launches in a plain integer
+attribute (``.launches``), and each plain version its calls (``.calls``).
+The libraries count every launch of each CUDA kernel where it is made
+(:func:`kernel_launches`): a sweep over nbg blocks launches ``rows_kernel``
+nbg + 1 times and ``draws_kernel`` nbg times; a segment sweep over nb blocks
+``segment_draws`` and ``segment_update`` nb times each; a tiled sweep over
+nbr tile rows ``tiled_draws`` and ``tiled_scatter`` nbr times each.
 """
 
 from __future__ import annotations
@@ -46,6 +55,7 @@ POS_BIG = 1e30
 MAX_BLOCK = 128   # kernel limit: SNPs per block (csrc/draws.cuh kMaxBlock)
 MAX_FOLD = 8      # kernel limit: BayesR folds
 MIN_TILE_ROWS = 128  # rows one pass of a rows_kernel CTA covers (32 warps x 4)
+N_RETRY = 8       # pre-drawn candidates of the rejection guard (csrc/draws.cuh kRetry)
 
 
 def n_rows(spec) -> int:
@@ -205,9 +215,41 @@ def draw_from_vals(mi: int, nf: int, p, rhs, consts):
     return gi, ind
 
 
-def _draws_plain(spec, P_b, W_b, r0):
-    """B sequential draws: P_b (B, R, K), W_b (B, B), r0 (B, K).
-    Returns (gi, dg, track), each (B, K).
+def guard_draw(mi: int, nf: int, base: int, p, rhs, gi, track, vary):
+    """The SBayesS rejection guard on one draw, K chains (the kernel's
+    ``guard_draw``, csrc/draws.cuh; ``_kernel_s_tiled``,
+    hibayes_tpu/ops/blockgibbs.py:1672-1686): while gi^2 vx > vary with a
+    nonzero component, take the next pre-drawn candidate (BayesC:
+    rhs inv_v + sd z_t; BayesR: the drawn fold's), N_RETRY at most, else 0.
+    ``p`` holds the packed rows, then from index ``base`` the guard rows
+    (:func:`pack_retry_rows`).  Returns (gi, the (K,) mask of first draws
+    rejected)."""
+    vxj = p[base]
+    on = track > 0
+    rej = (gi * gi * vxj > vary) & on
+    first = rej
+    if not bool(rej.any()):   # the retries would leave every gi as it is
+        return gi, first
+    for t in range(N_RETRY):
+        if mi == 4:
+            cand = torch.addcmul(p[base + 1 + t], rhs, p[2])
+        else:
+            cand = torch.zeros_like(gi)
+            for f in range(1, nf):
+                cf = torch.addcmul(p[base + 1 + t * (nf - 1) + (f - 1)], rhs,
+                                   p[4 + 4 * (f - 1)])
+                cand = torch.where(track == f, cf, cand)
+        gi = torch.where(rej, cand, gi)
+        rej = (gi * gi * vxj > vary) & on
+    return torch.where(rej, torch.zeros_like(gi), gi), first
+
+
+def _draws_plain(spec, P_b, W_b, r0, vary=None):
+    """B sequential draws: P_b (B, R, K), W_b (B, B), r0 (B, K).  With
+    ``vary`` (a 0-d tensor), the rejection guard follows each draw and P_b
+    carries the guard rows.  Returns (gi, dg, track, rejected), the first
+    three (B, K), ``rejected`` the number of draws whose first candidate the
+    guard rejected.
 
     The rows are unbound into per-SNP views once per block, and r holds
     rhs_j = X_j' yadj + rg_j, so each draw is a handful of (K,) ops."""
@@ -219,12 +261,18 @@ def _draws_plain(spec, P_b, W_b, r0):
         "folds": torch.arange(nf, dtype=dt, device=dev).unbind(0),
     }
     rows = [row.unbind(0) for row in P_b.unbind(1)]   # rows[r][j]: (K,)
+    base = guard_base(spec)
     r = r0 + P_b[:, 0]
     rv = r.unbind(0)                                  # views, see the updates
     wcols = W_b.unsqueeze(2).unbind(0)                # (B, 1): W_b[j, :]
     gis, dgs, trs = [], [], []
+    rejected = 0
     for j in range(r0.shape[0]):
-        g_j, t_j = draw_from_vals(mi, nf, [row[j] for row in rows], rv[j], consts)
+        p_j = [row[j] for row in rows]
+        g_j, t_j = draw_from_vals(mi, nf, p_j, rv[j], consts)
+        if vary is not None:
+            g_j, first = guard_draw(mi, nf, base, p_j, rv[j], g_j, t_j, vary)
+            rejected += int(first.sum())
         d_j = rows[1][j] - g_j
         r.addcmul_(wcols[j], d_j)
         gis.append(g_j)
@@ -232,7 +280,7 @@ def _draws_plain(spec, P_b, W_b, r0):
         trs.append(t_j)
     track = (torch.zeros_like(r0) if trs[0] is None
              else torch.stack(trs).to(dt))
-    return torch.stack(gis), torch.stack(dgs), track
+    return torch.stack(gis), torch.stack(dgs), track, rejected
 
 
 # ---------------------------------------------------------------------------
@@ -263,14 +311,19 @@ def rows_per_tile(n: int, device) -> int:
 
 def kernel_launches() -> dict:
     """Launches of each CUDA kernel since :func:`reset_kernel_launches`,
-    counted in the library where each kernel is launched."""
+    counted in the libraries where each kernel is launched."""
     rows, draws = ctypes.c_longlong(), ctypes.c_longlong()
     build.library().hb_launch_counts(ctypes.byref(rows), ctypes.byref(draws))
-    return {"rows_kernel": rows.value, "draws_kernel": draws.value}
+    s = (ctypes.c_longlong * 4)()
+    build.library("sgibbs.cu").hb_s_launch_counts(s)
+    return {"rows_kernel": rows.value, "draws_kernel": draws.value,
+            "segment_draws": s[0], "segment_update": s[1],
+            "tiled_draws": s[2], "tiled_scatter": s[3]}
 
 
 def reset_kernel_launches() -> None:
     build.library().hb_reset_launch_counts()
+    build.library("sgibbs.cu").hb_s_reset_launch_counts()
 
 
 def _require_cuda(*tensors):
@@ -284,7 +337,7 @@ def _require_cuda(*tensors):
 def block_draws_plain(spec, logpi_row, P_b, W_b, r0):
     """Plain version of :func:`block_draws`, in the dtype of ``r0``."""
     block_draws_plain.calls += 1
-    _, dg, track = _draws_plain(spec, P_b.to(r0.dtype), W_b.to(r0.dtype), r0)
+    _, dg, track, _ = _draws_plain(spec, P_b.to(r0.dtype), W_b.to(r0.dtype), r0)
     return dg, track
 
 
@@ -349,8 +402,8 @@ def sweep_mc_plain(spec, consts_b, X_blocks, W_blocks, xpx, vx, vei_b, g_b,
     track = torch.empty((K, nbg * B), dtype=torch.int32, device=yadj.device)
     for b in range(nbg):
         Xb = X_blocks[off + b].to(dt)
-        gi, dg, tr = _draws_plain(spec, P_blocks[b], W_blocks[off + b].to(dt),
-                                  (yadj @ Xb).T)
+        gi, dg, tr, _ = _draws_plain(spec, P_blocks[b], W_blocks[off + b].to(dt),
+                                     (yadj @ Xb).T)
         delta = (Xb @ dg).T
         yadj += delta
         u -= delta
@@ -423,3 +476,203 @@ def sweep_mc(spec, consts_b, X_blocks, W_blocks, xpx, vx, vei_b, g_b, z_b,
 
 
 sweep_mc.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# summary-level (sbrm) sweeps: one chain, r_hat as the state
+# ---------------------------------------------------------------------------
+
+
+def guard_on(spec) -> bool:
+    """Whether the tiled sweep applies the rejection guard: SBayesS
+    semantics (``reject_guard``) for BayesC/Cpi and BayesR only."""
+    return bool(spec.reject_guard) and spec.model_index in (4, 6)
+
+
+def guard_base(spec) -> int:
+    """Index of the first guard row (vx), after the packed rows
+    (``_guard_base``, hibayes_tpu/ops/blockgibbs.py:1600-1607)."""
+    return n_rows(spec)
+
+
+def n_guard_rows(spec) -> int:
+    """Guard rows per SNP: vx, then N_RETRY (BayesC) or N_RETRY x (nf - 1)
+    (BayesR) candidate offsets."""
+    return 1 + N_RETRY * (1 if spec.model_index == 4 else spec.n_fold - 1)
+
+
+def pack_retry_rows(spec, consts_b, xpx, vx, vei_b, z_retry_b, dtype):
+    """Guard rows for K chains, (K, 1 + ..., m): [vx, sd z_1 .. sd z_NR]
+    (BayesC) or [vx, (sd_f z_1)_f .. (sd_f z_NR)_f] (BayesR, folds 1..nf-1).
+    Port of ``_pack_retry_rows`` (hibayes_tpu/ops/blockgibbs.py:1610-1632)
+    with the chain axis written out; ``z_retry_b`` is (K, N_RETRY, m)."""
+    mi = spec.model_index
+    x = xpx.to(dtype)[None, :]
+    ve = vei_b.to(dtype)
+    act = (vx > 0)[None, :]
+    zero = torch.zeros((), dtype=dtype, device=ve.device)
+    z = z_retry_b.to(dtype)
+    rows = [vx.to(dtype)[None, :].expand(ve.shape[0], -1)]
+    if mi == 4:
+        v = x + ve / consts_b["varg"].to(dtype)[:, None]
+        sd = torch.where(act, torch.sqrt(ve / v), zero)
+        rows += [sd * z[:, t] for t in range(N_RETRY)]
+    elif mi == 6:
+        sds = []
+        for f in range(1, spec.n_fold):
+            vara_f = torch.clamp_min(consts_b["vara_fold"][:, f].to(dtype), 1e-30)[:, None]
+            sds.append(torch.where(act, torch.sqrt(ve / (x + ve / vara_f)), zero))
+        rows += [sd * z[:, t] for t in range(N_RETRY) for sd in sds]
+    else:
+        raise ValueError("the rejection guard exists for BayesC/Cpi and BayesR only")
+    return torch.stack(rows, dim=1)
+
+
+def _summary_blocks(P, nb: int, B: int, dt):
+    """Packed rows (R, nb * B) -> (nb, B, R, 1): one chain's (B, R, K) tiles."""
+    return P.to(dt).reshape(P.shape[0], nb, B).permute(1, 2, 0).unsqueeze(-1)
+
+
+def sweep_s_segment_plain(spec, LD_seg, r_seg, P, n):
+    """Plain version of :func:`sweep_s_segment`, in the dtype of ``r_seg``."""
+    sweep_s_segment_plain.calls += 1
+    mc, B = LD_seg.shape[0], spec.block
+    dt = r_seg.dtype
+    LD = LD_seg.to(dt)
+    P_blocks = _summary_blocks(P, mc // B, B, dt)
+    r = r_seg.clone()
+    dg = torch.empty((mc,), dtype=dt, device=r.device)
+    track = torch.empty((mc,), dtype=dt, device=r.device)
+    for b in range(mc // B):
+        sl = slice(b * B, (b + 1) * B)
+        _, d, t, _ = _draws_plain(spec, P_blocks[b], n * LD[sl, sl], r[sl, None])
+        r += n * (LD[:, sl] @ d[:, 0])
+        dg[sl], track[sl] = d[:, 0], t[:, 0]
+    return dg, track.to(torch.int32), r
+
+
+sweep_s_segment_plain.calls = 0
+
+
+def sweep_s_segment(spec, LD_seg, r_seg, P, n):
+    """Single-chain summary sweep over one padded dense LD segment; the
+    contract of ``sweep_s_segment`` (hibayes_tpu/ops/blockgibbs.py:1207-1254).
+
+    LD_seg (mc, mc), mc a multiple of B; r_seg (mc,) the segment's r_hat;
+    P (R, mc) the segment's packed rows (:func:`pack_rows` of one chain).
+    Per block: B draws against n LD[block, block], then
+    r_seg += n LD[:, block] dg.  The JAX wrapper's ``consts`` carry only the
+    fold-0 logit, which the packed rows hold, so the port takes none.
+    Returns (dg (mc,), track (mc,) int32, r_seg_new (mc,))."""
+    if r_seg.device.type == "cpu":
+        return sweep_s_segment_plain(spec, LD_seg, r_seg, P, n)
+    _require_cuda(r_seg, LD_seg, P)
+    mc, B, R = LD_seg.shape[0], spec.block, n_rows(spec)
+    _check_kernel_shapes(spec, B, 1)
+    if LD_seg.dtype != F32 or r_seg.dtype != F32 or P.dtype != F32:
+        raise TypeError("sweep_s_segment: the kernel takes float32 (other "
+                        "float types run on the CPU)")
+    if (tuple(LD_seg.shape) != (mc, mc) or mc % B or tuple(r_seg.shape) != (mc,)
+            or tuple(P.shape) != (R, mc)):
+        raise ValueError(f"sweep_s_segment: LD {tuple(LD_seg.shape)}, r "
+                         f"{tuple(r_seg.shape)} and packed rows {tuple(P.shape)} "
+                         f"do not fit a segment of blocks of {B} with {R} rows")
+    if not LD_seg.is_contiguous() or LD_seg.data_ptr() % 16:
+        raise ValueError("sweep_s_segment: LD must be contiguous and 16-byte aligned")
+    lib = build.library("sgibbs.cu")
+    dev = r_seg.device
+    Pc = P.contiguous()
+    r = r_seg.clone(memory_format=torch.contiguous_format)
+    dg = torch.empty((mc,), dtype=F32, device=dev)
+    track = torch.empty((mc,), dtype=F32, device=dev)
+    code = lib.hb_sweep_s_segment(
+        LD_seg.data_ptr(), Pc.data_ptr(), mc, B, R, spec.model_index,
+        spec.n_fold, float(n), r.data_ptr(), dg.data_ptr(), track.data_ptr(),
+        torch.cuda.current_stream(dev).cuda_stream)
+    build.check(lib, code, "sweep_s_segment")
+    sweep_s_segment.launches += 1
+    return dg, track.to(torch.int32), r
+
+
+sweep_s_segment.launches = 0
+
+
+def sweep_s_tiled_plain(spec, tiles, cols, valid, r_hat, P, n):
+    """Plain version of :func:`sweep_s_tiled`, in the dtype of ``r_hat``."""
+    sweep_s_tiled_plain.calls += 1
+    nbr, K, B, _ = tiles.shape
+    dt, dev = r_hat.dtype, r_hat.device
+    vary = torch.tensor(spec.vary, dtype=dt, device=dev) if guard_on(spec) else None
+    P_blocks = _summary_blocks(P, nbr, B, dt)
+    r = r_hat.clone()
+    rb = r.view(nbr, B)
+    cols_l, valid_l = cols.tolist(), valid.tolist()
+    dg = torch.empty((nbr * B,), dtype=dt, device=dev)
+    track = torch.empty((nbr * B,), dtype=dt, device=dev)
+    rejected = 0
+    for i in range(nbr):
+        T = tiles[i].to(dt)
+        _, d, t, rej = _draws_plain(spec, P_blocks[i], n * T[0], rb[i, :, None], vary)
+        d = d[:, 0]
+        for k in range(K):
+            if valid_l[i][k]:   # invalid slots point at the own row: skipped
+                rb[cols_l[i][k]] += n * (d @ T[k])
+        dg[i * B:(i + 1) * B], track[i * B:(i + 1) * B] = d, t[:, 0]
+        rejected += rej
+    return dg, track.to(torch.int32), r, torch.tensor(rejected, device=dev)
+
+
+sweep_s_tiled_plain.calls = 0
+
+
+def sweep_s_tiled(spec, tiles, cols, valid, r_hat, P, n):
+    """Single-chain summary sweep over every tile row of a tiled sparse LD;
+    the contract of ``sweep_s_tiled`` (hibayes_tpu/ops/blockgibbs.py:1730-1792)
+    at row_base 0.
+
+    tiles (nbr, K, B, B) with the diagonal tile in slot 0; cols, valid
+    (nbr, K); r_hat (nbr * B,); P (R, nbr * B) the packed rows, followed by
+    the guard rows (:func:`pack_retry_rows`) when :func:`guard_on`.  Per tile
+    row i: B draws against n tiles[i, 0] (guarded), then for each valid slot
+    r_hat[block cols[i, k]] += n tiles[i, k]^T dg.  Returns (dg, track int32,
+    r_hat_new, rejected): ``rejected`` (a 0-d tensor) counts the draws whose
+    first candidate the guard rejected."""
+    if r_hat.device.type == "cpu":
+        return sweep_s_tiled_plain(spec, tiles, cols, valid, r_hat, P, n)
+    _require_cuda(r_hat, tiles, cols, valid, P)
+    nbr, K, B, _ = tiles.shape
+    _check_kernel_shapes(spec, B, 1)
+    guard = guard_on(spec)
+    R = n_rows(spec) + (n_guard_rows(spec) if guard else 0)
+    if tiles.dtype != F32 or r_hat.dtype != F32 or P.dtype != F32:
+        raise TypeError("sweep_s_tiled: the kernel takes float32 (other float "
+                        "types run on the CPU)")
+    if (tuple(tiles.shape) != (nbr, K, B, B) or tuple(cols.shape) != (nbr, K)
+            or tuple(valid.shape) != (nbr, K) or tuple(r_hat.shape) != (nbr * B,)
+            or tuple(P.shape) != (R, nbr * B)):
+        raise ValueError(f"sweep_s_tiled: tiles {tuple(tiles.shape)}, cols/valid "
+                         f"{tuple(cols.shape)}/{tuple(valid.shape)}, r_hat "
+                         f"{tuple(r_hat.shape)} and packed rows {tuple(P.shape)} "
+                         f"do not fit (R = {R})")
+    if not tiles.is_contiguous() or tiles.data_ptr() % 16:
+        raise ValueError("sweep_s_tiled: tiles must be contiguous and 16-byte aligned")
+    lib = build.library("sgibbs.cu")
+    dev = r_hat.device
+    cols_i = cols.to(torch.int32).contiguous()
+    valid_i = valid.to(torch.int32).contiguous()
+    Pc = P.contiguous()
+    r = r_hat.clone(memory_format=torch.contiguous_format)
+    dg = torch.empty((nbr * B,), dtype=F32, device=dev)
+    track = torch.empty((nbr * B,), dtype=F32, device=dev)
+    nrej = torch.empty((nbr,), dtype=torch.int32, device=dev)
+    code = lib.hb_sweep_s_tiled(
+        tiles.data_ptr(), cols_i.data_ptr(), valid_i.data_ptr(), nbr, K, B, R,
+        spec.model_index, spec.n_fold, int(guard), float(n), float(spec.vary),
+        Pc.data_ptr(), r.data_ptr(), dg.data_ptr(), track.data_ptr(),
+        nrej.data_ptr(), torch.cuda.current_stream(dev).cuda_stream)
+    build.check(lib, code, "sweep_s_tiled")
+    sweep_s_tiled.launches += 1
+    return dg, track.to(torch.int32), r, nrej.sum()
+
+
+sweep_s_tiled.launches = 0

@@ -1,10 +1,11 @@
 """Build and load the CUDA kernels of ``csrc/``.
 
-``nvcc`` compiles the sources into a shared library with a plain C interface
-(``-gencode arch=compute_90a,code=sm_90a``), loaded with ``ctypes``.  The
-build runs at first use, into ``build/`` inside the package directory; the
-library's name carries a hash of the sources, so an edited source is rebuilt.
-A missing compiler or a failed build raises: nothing falls back.
+``nvcc`` compiles each source into a shared library of its own with a plain C
+interface (``-gencode arch=compute_90a,code=sm_90a``), loaded with
+``ctypes``; the compilers of all sources run at once.  The build runs at
+first use, into ``build/`` inside the package directory; a library's name
+carries a hash of the sources, so an edited source is rebuilt.  A missing
+compiler or a failed build raises: nothing falls back.
 """
 
 from __future__ import annotations
@@ -19,7 +20,7 @@ from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent.parent / "build"
-SOURCES = ("blockgibbs.cu",)
+SOURCES = ("blockgibbs.cu", "sgibbs.cu")
 HEADERS = ("draws.cuh",)
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
@@ -45,46 +46,71 @@ def _digest() -> str:
     return h.hexdigest()[:12]
 
 
-def library_path() -> Path:
-    return BUILD_DIR / f"libhibayes_kernels_{_digest()}.so"
+def library_path(source: str = SOURCES[0]) -> Path:
+    return BUILD_DIR / f"libhibayes_{Path(source).stem}_{_digest()}.so"
 
 
-def build(verbose: bool = False) -> Path:
-    """Compile the kernels unless the library for these sources exists."""
-    out = library_path()
-    if out.exists():
-        return out
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = out.with_suffix(f".{os.getpid()}.tmp")
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), *(str(CSRC / s) for s in SOURCES)]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{proc.stderr}")
-    if verbose:
-        print(proc.stderr.strip())
-    os.replace(tmp, out)
-    return out
+def build(verbose: bool = False) -> list:
+    """Compile every source whose library for these sources is missing, one
+    nvcc per source, all started together.  Returns the library paths."""
+    todo = [s for s in SOURCES if not library_path(s).exists()]
+    if todo:
+        nvcc = _nvcc()
+        BUILD_DIR.mkdir(parents=True, exist_ok=True)
+        jobs = []
+        for src in todo:
+            tmp = library_path(src).with_suffix(f".{os.getpid()}.tmp")
+            cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(CSRC / src)]
+            jobs.append((src, tmp, subprocess.Popen(
+                cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)))
+        failed = []
+        for src, tmp, proc in jobs:
+            _, err = proc.communicate()
+            if proc.returncode != 0:
+                failed.append(f"{src} ({proc.returncode}):\n{err}")
+                continue
+            if verbose:
+                print(f"{src}:\n{err.strip()}")
+            os.replace(tmp, library_path(src))
+        if failed:
+            raise RuntimeError("nvcc failed: " + "\n".join(failed))
+    return [library_path(s) for s in SOURCES]
 
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
+_F = ctypes.c_float
 
 
 @functools.cache
-def library() -> ctypes.CDLL:
-    """The loaded kernel library (built on first use), argtypes declared."""
-    lib = ctypes.CDLL(str(build()))
+def library(source: str = SOURCES[0]) -> ctypes.CDLL:
+    """The loaded library of one source (all built on first use), argtypes
+    declared."""
+    build()
+    lib = ctypes.CDLL(str(library_path(source)))
     lib.hb_error_string.argtypes = [_I]
     lib.hb_error_string.restype = ctypes.c_char_p
-    lib.hb_block_draws.argtypes = [_P, _P, _P, _I, _I, _I, _I, _I, _P, _P, _P]
-    lib.hb_block_draws.restype = _I
-    lib.hb_sweep_mc.argtypes = [_P, _I, _P, _P, _I, _I, _I, _I, _I, _I, _I,
-                                _I, _I, _P, _P, _P, _P, _P, _P, _P]
-    lib.hb_sweep_mc.restype = _I
-    lib.hb_launch_counts.argtypes = [ctypes.POINTER(ctypes.c_longlong)] * 2
-    lib.hb_launch_counts.restype = None
-    lib.hb_reset_launch_counts.argtypes = []
-    lib.hb_reset_launch_counts.restype = None
+    if source == "blockgibbs.cu":
+        lib.hb_block_draws.argtypes = [_P, _P, _P, _I, _I, _I, _I, _I, _P, _P, _P]
+        lib.hb_block_draws.restype = _I
+        lib.hb_sweep_mc.argtypes = [_P, _I, _P, _P, _I, _I, _I, _I, _I, _I, _I,
+                                    _I, _I, _P, _P, _P, _P, _P, _P, _P]
+        lib.hb_sweep_mc.restype = _I
+        lib.hb_launch_counts.argtypes = [ctypes.POINTER(ctypes.c_longlong)] * 2
+        lib.hb_launch_counts.restype = None
+        lib.hb_reset_launch_counts.argtypes = []
+        lib.hb_reset_launch_counts.restype = None
+    else:
+        lib.hb_sweep_s_segment.argtypes = [_P, _P, _I, _I, _I, _I, _I, _F, _P,
+                                           _P, _P, _P]
+        lib.hb_sweep_s_segment.restype = _I
+        lib.hb_sweep_s_tiled.argtypes = [_P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
+                                         _F, _F, _P, _P, _P, _P, _P, _P]
+        lib.hb_sweep_s_tiled.restype = _I
+        lib.hb_s_launch_counts.argtypes = [ctypes.POINTER(ctypes.c_longlong)]
+        lib.hb_s_launch_counts.restype = None
+        lib.hb_s_reset_launch_counts.argtypes = []
+        lib.hb_s_reset_launch_counts.restype = None
     return lib
 
 

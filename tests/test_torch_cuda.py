@@ -9,7 +9,10 @@ import numpy as np
 import pytest
 import torch
 
+from hibayes_tpu_torch.data.ld import DenseLD
+from hibayes_tpu_torch.data.sparse_ld import TiledSparseLD, _tiled_matvec
 from hibayes_tpu_torch.engine import gibbs as TG
+from hibayes_tpu_torch.engine import sgibbs as TSG
 from hibayes_tpu_torch.engine.rng import IterNoise
 from hibayes_tpu_torch.ops import blockgibbs as TB
 from hibayes_tpu_torch.ops import build
@@ -118,7 +121,9 @@ def test_launch_counts(dev):
     before = (TB.sweep_mc.launches, TB.block_draws.launches)
     TB.sweep_mc(spec, *args)
     nbg = spec.nblocks
-    assert TB.kernel_launches() == {"rows_kernel": nbg + 1, "draws_kernel": nbg}
+    assert TB.kernel_launches() == {"rows_kernel": nbg + 1, "draws_kernel": nbg,
+                                    "segment_draws": 0, "segment_update": 0,
+                                    "tiled_draws": 0, "tiled_scatter": 0}
     assert (TB.sweep_mc.launches, TB.block_draws.launches) == (before[0] + 1, before[1])
 
 
@@ -191,3 +196,134 @@ def test_chain_is_reproducible(dev):
                      niter=30, nburn=10, verbose=False, device=dev) for _ in range(2)]
     np.testing.assert_array_equal(fits[0].g["gebv"], fits[1].g["gebv"])
     assert fits[0].Vg == fits[1].Vg and fits[0].Vr[0] == fits[1].Vr[0]
+
+
+# ---------------------------------------------------------------------------
+# summary-level sweeps
+# ---------------------------------------------------------------------------
+
+
+def _s_problem(model, layout, dev, m=600, rho=0.8):
+    """A summary problem on the card: LD rho^|i-j|, dense (B=64) or as tiles
+    of 128 in a 3-tile band (masked slots at the ends), statistics
+    BETA = LD b; a mid-run state and one iteration's packed rows."""
+    idx = torch.arange(m, device=dev, dtype=torch.float64)
+    R = (rho ** (idx[:, None] - idx[None, :]).abs()).float()
+    if layout == "dense":
+        ld, block = DenseLD(values=R), 64
+    else:
+        T, nbr = 128, -(-m // 128)
+        Rp = torch.zeros((nbr * T, nbr * T), device=dev)
+        Rp[:m, :m] = R
+        band = (idx[:, None] // T - idx[None, :] // T).abs() <= 1
+        Rp[:m, :m] *= band
+        ld = TiledSparseLD.from_dense(Rp[:m, :m].cpu().numpy(), tile=T, dtype=np.float32)
+        ld.tiles = torch.as_tensor(ld.tiles, device=dev)
+        block = T
+    rng = np.random.default_rng(4)
+    b = np.where(rng.random(m) < 0.05, rng.normal(0, 0.1, m), 0.0)
+    beta = (R.double() @ torch.as_tensor(b, device=dev)).cpu().numpy()
+    ss = np.column_stack([np.full(m, 0.3), beta, np.full(m, 0.01), np.full(m, 1e4)])
+    pi = (np.array([0.95, 0.02, 0.02, 0.01]) if model == "BayesR"
+          else np.array([0.0, 1.0]) if model in ("BayesRR", "BayesA", "BayesL")
+          else np.array([0.95, 0.05]))
+    fold = np.array([0.0, 1e-4, 1e-3, 1e-2]) if model == "BayesR" else None
+    data, n, vary, nvar0, seg_sizes, seg_real = TSG.prepare_sgibbs_data(
+        ss, ld, fold=fold, block=block, device=dev)
+    pr = TG.resolve_priors(None, float(ld.diag.sum()), pi[0], nr=0, vary=vary)
+    spec = TG.GibbsSpec(
+        model=model, n=n, m=m, m_pad=int(sum(seg_sizes)), block=block, nc=0,
+        nlevels=(), n_fold=len(pi), niter=10, nburn=5, thin=5, nvar0=nvar0,
+        dfvara=pr.dfvara, s2vara=pr.s2vara, dfvare=pr.dfvare, s2vare=pr.s2vare,
+        s2varg=pr.s2varg, lambda_rate0=pr.lambda_rate0, vargl_strict_pos=True,
+        real_excl_nvar0=True, reject_guard=layout == "tiled", vary=vary,
+        seg_sizes=seg_sizes, seg_real=seg_real)
+    gen = torch.Generator(device=dev).manual_seed(2)
+    g = torch.where((torch.rand(spec.m_pad, generator=gen, device=dev) < 0.2) & data.real,
+                    0.05 * torch.randn(spec.m_pad, generator=gen, device=dev), 0.0)
+    if layout == "dense":
+        ldg = data.ld_segs[0] @ g
+    else:
+        ldg = _tiled_matvec(data.ld_tiles, data.ld_cols, data.ld_valid, g)
+    st = TSG.init_s_state(spec, data, pr, pi)._replace(g=g, r_hat=data.xy - n * ldg, it=2)
+    P = TSG._s_pre_sweep(spec, data, IterNoise(3, 2, dev), st)["P"]
+    return spec, data, g, st.r_hat, P, ss, ld
+
+
+def _s_sweep(kind, spec, data, r, P):
+    if kind == "dense":
+        return TB.sweep_s_segment(spec, data.ld_segs[0], r, P, spec.n)
+    return TB.sweep_s_tiled(spec, data.ld_tiles, data.ld_cols, data.ld_valid, r, P,
+                            spec.n)
+
+
+@pytest.mark.parametrize("layout", ["dense", "tiled"])
+@pytest.mark.parametrize("model", MODELS)
+def test_summary_kernels_match_plain(model, layout, dev):
+    """Each summary sweep against its plain version at the kernel bar (r_hat
+    for the residual), and bit-identical on a second launch."""
+    spec, data, g, r, P, _, _ = _s_problem(model, layout, dev)
+    plain = (TB.sweep_s_segment_plain(spec, data.ld_segs[0], r, P, spec.n)
+             if layout == "dense" else
+             TB.sweep_s_tiled_plain(spec, data.ld_tiles, data.ld_cols, data.ld_valid,
+                                    r, P, spec.n))
+    out, again = _s_sweep(layout, spec, data, r, P), _s_sweep(layout, spec, data, r, P)
+    _assert_bar((g - plain[0], plain[1], None, plain[2]),
+                (g - out[0], out[1], None, out[2]))
+    assert all(torch.equal(a, b) for a, b in zip(out, again))
+    if layout == "tiled":
+        assert int(out[3]) == int(plain[3])
+
+
+def test_summary_launch_counts(dev):
+    """A segment sweep over nb blocks is nb segment_draws and nb
+    segment_update launches; a tiled sweep over nbr rows nbr tiled_draws and
+    nbr tiled_scatter launches; each wrapper counts one call."""
+    for layout, key in (("dense", "segment"), ("tiled", "tiled")):
+        spec, data, g, r, P, _, _ = _s_problem("BayesCpi", layout, dev)
+        TB.reset_kernel_launches()
+        before = (TB.sweep_s_segment.launches, TB.sweep_s_tiled.launches)
+        _s_sweep(layout, spec, data, r, P)
+        nb = spec.m_pad // spec.block
+        counts = TB.kernel_launches()
+        if key == "segment":
+            assert (counts["segment_draws"], counts["segment_update"]) == (nb, nb)
+            assert TB.sweep_s_segment.launches == before[0] + 1
+        else:
+            assert (counts["tiled_draws"], counts["tiled_scatter"]) == (nb, nb)
+            assert TB.sweep_s_tiled.launches == before[1] + 1
+        assert sum(counts.values()) == 2 * nb
+
+
+def test_summary_sweeps_refuse_bad_inputs(dev):
+    """float64 on the card raises TypeError (the kernels take float32), a
+    packed-row array of the wrong height raises ValueError, and sbrm refuses
+    dtype=float64 on the card."""
+    import hibayes_tpu_torch as htt
+
+    spec, data, g, r, P, ss, ld = _s_problem("BayesCpi", "tiled", dev)
+    with pytest.raises(TypeError, match="float32"):
+        _s_sweep("tiled", spec, data, r.double(), P)
+    with pytest.raises(ValueError, match="packed rows"):
+        _s_sweep("tiled", spec, data, r, P[:-1])
+    spec_d, data_d, _, r_d, P_d, _, _ = _s_problem("BayesCpi", "dense", dev)
+    with pytest.raises(TypeError, match="float32"):
+        _s_sweep("dense", spec_d, data_d._replace(ld_segs=(data_d.ld_segs[0].double(),)),
+                 r_d, P_d)
+    with pytest.raises(TypeError, match="float32"):
+        htt.sbrm(ss, ld, niter=20, nburn=10, dtype=torch.float64, verbose=False,
+                 device=dev)
+
+
+@pytest.mark.parametrize("layout", ["dense", "tiled"])
+def test_sbrm_chain_is_reproducible(layout, dev):
+    """One seed, one summary chain on the card: two fits agree bit for bit
+    (the scatter and update kernels own distinct rows; no atomics)."""
+    import hibayes_tpu_torch as htt
+
+    _, _, _, _, _, ss, ld = _s_problem("BayesR" if layout == "dense" else "BayesCpi",
+                                       layout, dev)
+    kw = dict(method="BayesCpi", niter=30, nburn=10, verbose=False, device=dev)
+    fits = [htt.sbrm(ss, ld.values if layout == "dense" else ld, **kw) for _ in range(2)]
+    np.testing.assert_array_equal(fits[0].alpha, fits[1].alpha)
+    assert fits[0].Vg == fits[1].Vg and np.isfinite(fits[0].h2)

@@ -70,6 +70,18 @@ def test_port_never_imports_jax():
         fit = ht.ibrm("T1 ~ (1|f)", data=data, M=M, M_id=ids, method="BayesR",
                       niter=12, nburn=6, thin=2, verbose=False, device="cpu")
         assert np.isfinite(fit.h2)
+        # sbrm on dense LD, on tiled LD (two tile rows of 128) and by CG
+        m = 256
+        R = 0.5 ** np.abs(np.arange(m)[:, None] - np.arange(m)[None, :])
+        R[np.abs(np.arange(m)[:, None] - np.arange(m)[None, :]) > 8] = 0.0
+        b = np.where(rng.random(m) < 0.05, rng.normal(0, 0.1, m), 0.0)
+        ss = np.column_stack([np.full(m, 0.3), R @ b, np.full(m, 0.01),
+                              np.full(m, 10000.0)])
+        tiled = ht.TiledSparseLD.from_dense(R, tile=128)
+        for ld, method in ((R, "BayesCpi"), (tiled, "BayesR"), (tiled, "CG")):
+            fit = ht.sbrm(ss, ld, method=method, niter=12, nburn=6, thin=2,
+                          verbose=False, device="cpu")
+            assert np.isfinite(fit.alpha).all() and np.isfinite(fit.h2)
         assert "jax" not in sys.modules, sorted(k for k in sys.modules if "jax" in k)
         print("no-jax-ok")
     """)

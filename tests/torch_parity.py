@@ -160,3 +160,88 @@ def assert_kernel_bar(ref, out, names=SWEEP_NAMES):
         np.testing.assert_allclose(
             o["yadj"], r["yadj"], rtol=0,
             atol=1e-4 * np.abs(r["yadj"]).max() + 1e-6)
+
+
+# ---------------------------------------------------------------------------
+# summary level (sbrm)
+# ---------------------------------------------------------------------------
+
+
+def s_sumstats(m, *, seed=21, n_panel=400, N=100_000, frac=0.05, scale=0.1,
+               copy_p=0.55, pruned=False):
+    """An LD panel with local LD and summary statistics consistent with it.
+
+    Genotypes of n_panel individuals where each SNP copies its left
+    neighbour with probability ``copy_p`` (adjacent r ~ copy_p, decaying
+    with distance); R their covariance.  Marginal effects of a GWAS of N
+    individuals: beta = (L b + R^(1/2) e / sqrt(N)) / diag(R), e ~ N(0, I),
+    b sparse (``frac`` nonzero, N(0, scale^2)), L the LD the sampler will
+    see: R, or with ``pruned`` the chi-square-pruned R (r^2 n_panel > 30,
+    as ldmat prunes).  Returns (ss (m, 4), R, the pruned R, b)."""
+    rng = np.random.default_rng(seed)
+    X = rng.binomial(2, 0.4, size=(n_panel, m)).astype(np.float64)
+    for j in range(1, m):
+        c = rng.random(n_panel) < copy_p
+        X[c, j] = X[c, j - 1]
+    Xc = X - X.mean(0)
+    R = Xc.T @ Xc / n_panel
+    d = np.sqrt(np.diag(R))
+    r = R / np.outer(d, d)
+    Rp = np.where((r * r * n_panel > 30.0) | np.eye(m, dtype=bool), R, 0.0)
+    b = np.where(rng.random(m) < frac, rng.normal(0, scale, m), 0.0)
+    L = np.linalg.cholesky(R + 1e-9 * np.eye(m))
+    beta = ((Rp if pruned else R) @ b + L @ rng.normal(size=m) / np.sqrt(N)) / np.diag(R)
+    se = np.sqrt(1.0 / (N * np.diag(R)))
+    maf = np.full(m, 0.4)
+    return np.column_stack([maf, beta, se, np.full(m, float(N))]), R, Rp, b
+
+
+def s_pi_fold(model):
+    if model == "BayesR":
+        return np.array([0.95, 0.02, 0.02, 0.01]), np.array([0.0, 1e-4, 1e-3, 1e-2])
+    if model in ("BayesRR", "BayesA", "BayesL"):
+        return np.array([0.0, 1.0]), None
+    return np.array([0.95, 0.05]), None
+
+
+def s_setup(model, layout, *, m, dtype=jnp.float64, block=64, seed=21, windows=True,
+            **kw):
+    """JAX summary data, priors and spec for one model on ``layout`` "dense"
+    (DenseLD, SBayesD semantics) or "tiled" (TiledSparseLD.from_scipy of the
+    pruned LD, tile 128, SBayesS semantics with the guard), and the port's
+    LD object of the same matrix."""
+    import scipy.sparse as sp
+
+    from hibayes_tpu.data.ld import DenseLD
+    from hibayes_tpu.data.sparse_ld import TiledSparseLD
+    from hibayes_tpu.engine import sgibbs as SG
+    from hibayes_tpu_torch.data import ld as TLD
+    from hibayes_tpu_torch.data import sparse_ld as TSLD
+
+    ss, R, Rp, b = s_sumstats(m, seed=seed, pruned=layout == "tiled", **kw)
+    if layout == "dense":
+        ld_j, ld_t = DenseLD(values=R), TLD.DenseLD(values=R)
+    else:
+        block = 128
+        ld_j = TiledSparseLD.from_scipy(sp.csr_matrix(Rp), tile=block)
+        ld_t = TSLD.TiledSparseLD.from_scipy(sp.csr_matrix(Rp), tile=block)
+    pi, fold = s_pi_fold(model)
+    nw, windindx = 0, None
+    if windows:
+        windindx = np.repeat(np.arange(1, m // 50 + 2), 50)[:m]
+        nw = int(windindx.max())
+    data, n_eff, vary, nvar0, seg_sizes, seg_real = SG.prepare_sgibbs_data(
+        ss, ld_j, fold=fold, windindx=windindx, nw=nw, block=block, dtype=dtype)
+    pr = G.resolve_priors(None, float(np.asarray(ld_j.diag).sum()), pi[0], nr=0,
+                          vary=vary)
+    spec = G.GibbsSpec(
+        model=model, n=n_eff, m=m, m_pad=int(sum(seg_sizes)), block=block,
+        nc=0, nlevels=(), n_fold=len(pi), niter=40, nburn=1, thin=5,
+        nvar0=nvar0, nw=nw, fixpi=False,
+        dfvara=pr.dfvara, s2vara=pr.s2vara, dfvare=pr.dfvare, s2vare=pr.s2vare,
+        s2varg=pr.s2varg, lambda_rate0=pr.lambda_rate0, vargl_strict_pos=True,
+        real_excl_nvar0=True, reject_guard=layout == "tiled", vary=vary,
+        seg_sizes=seg_sizes, seg_real=seg_real)
+    return dict(ss=ss, ld_j=ld_j, ld_t=ld_t, pi=pi, fold=fold,
+                windindx=windindx, nw=nw, block=block, data=data, pr=pr,
+                spec=spec)
