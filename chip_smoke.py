@@ -41,7 +41,23 @@ Phases, each printing as it goes:
      (0.9^|i-j|, m=32,768, 4.29 GB f32, block 64), BayesCpi through
      sweep_s_segment only, then method="CG" on the same LD against a direct
      solve on the card;
-  7. a JSON line of kernels, the nvidia-smi line, and the last line
+  7. ssbrm main path (the configuration of benchmarks/ssbrm_100k_pedigree.py
+     with m=100,000 SNPs): a 100,000-id pedigree (5,000 founders, parents
+     of each offspring drawn among all earlier ids), 20,000 genotyped,
+     5,000 genotyped and 5,000 non-genotyped phenotyped; genotypes dropped
+     down the pedigree on the card, h2=0.5 from 500 causal SNPs.  Checks
+     the epsilon sweep kernel against its plain version on the main path's
+     layout (qe=80,000 sites, blocks of 64; its first 16 blocks and the
+     whole sweep, a bit-identical second launch; torch.linalg.solve_triangular
+     on one block as the library yardstick) and sweep_mc at f32, B=64,
+     n=10,000; a torch.profiler split of an iteration at the main path's
+     shapes; two small ssbrm fits with one seed bit-identical and a small
+     direct-path fit; then hibayes_tpu_torch.ssbrm(impute="pcg",
+     method="BayesCpi"), niter=200, nburn=100, thin=5, through sweep_mc and
+     mme_sweep only, with its set-up split, finite GEBV of all 100,000 ids,
+     Veps and J, 0 < h2 < 1, and the GEBV accuracy of the non-genotyped
+     phenotyped ids against the truth;
+  8. a JSON line of kernels, the nvidia-smi line, and the last line
      {"ok": true, "device": {...}}.
 
 Any failed check raises, so the script exits non-zero and prints no result.
@@ -83,6 +99,15 @@ SBAYES_CORR_MIN = 0.7
 # is below 1e-6, so its error is at most 1e-6 / lambda_min(LD), 1.9e-5 for
 # AR(1) with rho=0.9 (lambda_min = (1 - rho) / (1 + rho)).
 CG_ERR_MAX = 2e-5
+# Accuracy bar of the ssbrm path: corr of the posterior-mean GEBV of the
+# 5,000 non-genotyped phenotyped ids with their simulated genetic values.
+# Each has its own record (h2 = 0.5: the record alone predicts at up to
+# sqrt(0.5) = 0.71) and genotypes imputed from genotyped relatives; it
+# measured 0.720 on an H100 (0.789 for the genotyped ids; PERF.md).  The
+# chain is deterministic for a seed; 0.6 leaves room for another card's
+# rounding, and a sweep that draws epsilon or the effects against the
+# wrong system loses most of the record's share.
+SSBRM_CORR_MIN = 0.6
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM device memory (hopper-kernels guide)
 F32_FLOPS = 67e12           # H100 SXM float32 outside the tensor cores
 
@@ -545,10 +570,13 @@ def time_segment(torch, TSG, TB, spec, data, pr, pi, errs):
     return t, {"sweep_s_segment": bound(b, 2.0 * mc * mc + 2.0 * B * mc)}
 
 
-def profile_iterations(torch, step, state, what, iters=3):
+def profile_iterations(torch, step, state, what, iters=3, split=None):
     """torch.profiler over ``iters`` iterations (``state = step(state)``)
     after one unprofiled warm-up: device time by kernel, and the device's
-    busy share of the profiled wall time.  Returns the final state."""
+    busy share of the profiled wall time.  With ``split`` (a dict), fills
+    in the ms per iteration of the SNP sweep's kernels (sweep_mc), the
+    epsilon sweep (mme_sweep) and the rest (torch).  Returns the final
+    state."""
     from torch.profiler import ProfilerActivity, profile
 
     state = step(state)
@@ -569,24 +597,32 @@ def profile_iterations(torch, step, state, what, iters=3):
     for name, (t, n) in sorted(kern.items(), key=lambda kv: -kv[1][0])[:8]:
         log(f"[profile {what}]   {t / 1e3:8.3f} ms/iter  {n:6d} calls  "
             f"{t / max(n, 1):8.2f} us/call  {name[:90]}")
+    if split is not None:
+        part = lambda *keys: sum(t for k, (t, _) in kern.items()
+                                 if any(x in k for x in keys)) / 1e3
+        split["sweep_mc"] = part("rows_kernel", "draws_kernel")
+        split["mme_sweep"] = part("mme_sweep_kernel")
+        split["torch"] = busy / 1e3 - split["sweep_mc"] - split["mme_sweep"]
+        split["wall"] = 1e3 * wall / iters
     return state
 
 
+KERNELS = ("sweep_mc", "block_draws", "sweep_s_segment", "sweep_s_tiled", "mme_sweep")
+PLAINS = ("sweep_mc_plain", "block_draws_plain", "sweep_s_segment_plain",
+          "sweep_s_tiled_plain", "mme_sweep_plain", "mme_block_draws_plain")
+
+
 def reset_counts(TB):
-    for f in (TB.sweep_mc, TB.block_draws, TB.sweep_s_segment, TB.sweep_s_tiled):
-        f.launches = 0
-    for f in (TB.sweep_mc_plain, TB.block_draws_plain, TB.sweep_s_segment_plain,
-              TB.sweep_s_tiled_plain):
-        f.calls = 0
+    for k in KERNELS:
+        getattr(TB, k).launches = 0
+    for k in PLAINS:
+        getattr(TB, k).calls = 0
     TB.reset_kernel_launches()
 
 
 def read_counts(TB):
-    return ({"sweep_mc": TB.sweep_mc.launches, "block_draws": TB.block_draws.launches,
-             "sweep_s_segment": TB.sweep_s_segment.launches,
-             "sweep_s_tiled": TB.sweep_s_tiled.launches, **TB.kernel_launches()},
-            TB.sweep_mc_plain.calls + TB.block_draws_plain.calls
-            + TB.sweep_s_segment_plain.calls + TB.sweep_s_tiled_plain.calls)
+    return ({**{k: getattr(TB, k).launches for k in KERNELS}, **TB.kernel_launches()},
+            sum(getattr(TB, k).calls for k in PLAINS))
 
 
 def expect_counts(got, plain, expect, what):
@@ -609,6 +645,209 @@ def check_fit(fit, b_true, what):
     return float(np.corrcoef(fit.alpha, b_true)[0, 1])
 
 
+# ---------------------------------------------------------------------------
+# single step (ssbrm)
+# ---------------------------------------------------------------------------
+
+
+def make_pedigree(nfound, nkid, seed):
+    """Founders, then offspring whose sire and dam are drawn among all
+    earlier ids (the rule of benchmarks/ssbrm_100k_pedigree.py).  Returns
+    ids, sires, dams (strings) and the parents' indices of the offspring."""
+    rng = np.random.default_rng(seed)
+    ids = np.array([f"F{i}" for i in range(nfound)] + [f"K{k}" for k in range(nkid)])
+    hi = nfound + np.arange(nkid)
+    s_par, d_par = rng.integers(0, hi), rng.integers(0, hi)
+    sires = np.concatenate([np.full(nfound, "0"), ids[s_par]])
+    dams = np.concatenate([np.full(nfound, "0"), ids[d_par]])
+    return ids, sires, dams, s_par, d_par
+
+
+def drop_genes(torch, nfound, s_par, d_par, m, rows, gen, dev, n_causal=500,
+               chunk=4096):
+    """Genotypes dropped down the pedigree on the card, column chunk by
+    column chunk and generation by generation: founders Binomial(2, p_j),
+    p_j ~ U(0.05, 0.5); each parent passes one allele, 1 with probability
+    (its genotype) / 2.  Returns the int8 genotype of ``rows`` (len(rows),
+    m) and the genetic values of every id from n_causal SNPs with N(0, 1)
+    effects, scaled to variance 0.5."""
+    nkid = len(s_par)
+    n = nfound + nkid
+    depth = np.zeros(n, np.int64)
+    for k in range(nkid):
+        depth[nfound + k] = 1 + max(depth[s_par[k]], depth[d_par[k]])
+    to_dev = lambda a: torch.as_tensor(a, device=dev)
+    waves = []
+    for g in range(1, int(depth.max()) + 1):
+        kids = np.flatnonzero(depth == g)
+        waves.append((to_dev(kids), to_dev(s_par[kids - nfound]), to_dev(d_par[kids - nfound])))
+    rows_t = to_dev(np.asarray(rows))
+    M = torch.empty((len(rows), m), dtype=torch.int8, device=dev)
+    causal = torch.randperm(m, generator=gen, device=dev)[:n_causal]
+    effect = torch.zeros(m, device=dev)
+    effect[causal] = torch.randn(n_causal, generator=gen, device=dev)
+    gv = torch.zeros(n, device=dev)
+    for c0 in range(0, m, chunk):
+        c = min(m, c0 + chunk) - c0
+        G = torch.empty((n, c), dtype=torch.int8, device=dev)
+        p = torch.rand(c, generator=gen, device=dev) * 0.45 + 0.05
+        G[:nfound] = ((torch.rand((nfound, c), generator=gen, device=dev) < p).to(torch.int8)
+                      + (torch.rand((nfound, c), generator=gen, device=dev) < p).to(torch.int8))
+        for kids, sp, dp in waves:
+            a = torch.rand((kids.numel(), c), generator=gen, device=dev) < G[sp] * 0.5
+            b = torch.rand((kids.numel(), c), generator=gen, device=dev) < G[dp] * 0.5
+            G[kids] = a.to(torch.int8) + b.to(torch.int8)
+        M[:, c0:c0 + c] = G[rows_t]
+        gv += G.float() @ effect[c0:c0 + c]
+    gv = (gv - gv.mean()) / gv.std() * np.sqrt(0.5)
+    return M, gv, int(depth.max())
+
+
+def ssbrm_layout(torch, TG, ids, sires, dams, geno, dev, T=64):
+    """The epsilon system of the ssbrm main path, built as ssbrm builds it:
+    A-inverse of the pedigree, its non-genotyped block in RCM order, packed
+    in blocks of T on the card.  Returns (layout, Ai_nn, ng_ids)."""
+    from hibayes_tpu_torch.data.pedigree import make_ainv, make_ped, rcm_permutation
+
+    ped_ids, s_idx, d_idx = make_ped(ids, sires, dams)
+    Ai = make_ainv(s_idx, d_idx).tocsr()
+    ng = np.flatnonzero(~np.isin(ped_ids, geno))
+    ng = ng[rcm_permutation(Ai[ng].tocsc()[:, ng])]
+    Ai_nn = Ai[ng].tocsc()[:, ng]
+    return TG._build_epsl_sparse(Ai_nn, T, torch.float32, dev)[0], Ai_nn, ped_ids[ng]
+
+
+def check_mme(torch, TG, TB, lay, counts, gen, dev, errs, nb=16):
+    """The epsilon sweep at the main path's layout: its first ``nb`` blocks
+    (the layout and vectors cut to them) and the whole sweep against the
+    plain version (the effects at the kernel bar, the residual where the
+    sweep leaves it), a bit-identical second launch, times, bounds, and
+    torch.linalg.solve_triangular on block 0 (the one library call that
+    computes a block's draws).  Returns (times, bounds)."""
+    nbr, T, _ = lay.diag_blocks.shape
+    qp = nbr * T
+    f = lambda *shape: torch.randn(shape, generator=gen, device=dev)
+    x, b, z = 0.3 * f(qp), f(qp), f(qp)
+    scale, ve = torch.tensor(0.7, device=dev), torch.tensor(1.3, device=dev)
+    res = b - scale * TG._epsl_matvec(lay, x) - counts * x
+    part = lay._replace(diag_blocks=lay.diag_blocks[:nb], blk_ptr=lay.blk_ptr[:nb + 1])
+    cut = lambda v: v[:nb * T]
+    runs = {nb: (part, cut(counts), scale, ve, cut(z), cut(x), res),
+            nbr: (lay, counts, scale, ve, z, x, res)}
+    worst = 0.0
+    for k, args in runs.items():
+        outs = [TB.mme_sweep(*args) for _ in range(2)]
+        ref = TB.mme_sweep_plain(*args)
+        torch.cuda.synchronize()
+        what = f"mme_sweep over {k} of {nbr} blocks of {T}"
+        xo, xr = outs[0][0].cpu().numpy(), ref[0].cpu().numpy()
+        err = float(np.abs(xo - xr).max())
+        if not err <= 5e-5 * float(np.abs(xr).max()):
+            raise AssertionError(f"{what}: max |x| error {err}")
+        ro, rr = outs[0][1].cpu().numpy(), ref[1].cpu().numpy()
+        rerr = float(np.abs(ro - rr).max())
+        if not rerr <= 1e-4 * float(np.abs(rr).max()) + 1e-6:
+            raise AssertionError(f"{what}: max residual error {rerr}")
+        if not all(torch.equal(a, c) for a, c in zip(*outs)):
+            raise AssertionError(f"{what}: two runs differ (not deterministic)")
+        worst = max(worst, err)
+        log(f"  ok {what}: max |x| error {err:.3g}, residual {rerr:.3g}")
+    errs["mme_sweep"] = worst
+    t = {"mme_sweep": cuda_ms(torch, lambda: TB.mme_sweep(*runs[nb]), 20),
+         "mme_sweep_plain": cuda_ms(torch, lambda: TB.mme_sweep_plain(*runs[nb]), 2),
+         "mme_sweep_full": cuda_ms(torch, lambda: TB.mme_sweep(*runs[nbr]), 5)}
+    # library yardstick: block 0's draws as one triangular solve,
+    # tril(Wb) dx = r + diag(Wb) noise, unit diagonal on padded sites
+    Wb, invd, noise = TB._block_constants(lay.diag_blocks[0].clone(), counts[:T], scale, ve,
+                                          z[:T])
+    ok = invd > 0
+    L = torch.tril(Wb) + torch.diag((~ok).float())
+    rhs = torch.where(ok, res[:T] + torch.diagonal(Wb) * noise, 0.0)[:, None]
+    dx_lib = torch.linalg.solve_triangular(L, rhs, upper=False)[:, 0]
+    dx_plain = TB.mme_block_draws_plain(Wb, res[:T], invd, noise)
+    lib_err = float((dx_lib - dx_plain).abs().max())
+    if not lib_err <= 1e-4 * float(dx_plain.abs().max()):
+        raise AssertionError(f"solve_triangular off the block draws by {lib_err}")
+    t["mme_library"] = cuda_ms(
+        torch, lambda: torch.linalg.solve_triangular(L, rhs, upper=False), 200)
+    log(f"  ok solve_triangular on block 0 (T={T}) matches the block draws to {lib_err:.3g}")
+
+    # bounds: each input read once, each output written once.  The kernel
+    # takes dense (T, T) diagonal blocks, as TPU kernel 10 does; the sweep's
+    # own work is their nonzeros.  bound_ms counts the nonzeros, 8 bytes
+    # each (value and in-block column, as for the triplets); the dense
+    # layout's bound is printed beside it.
+    def sweep_bound(k, dense):
+        u1 = int(lay.blk_ptr[k])
+        e1 = int(lay.row_ptr[u1])
+        rows = int(torch.unique(lay.urow[:u1]).numel())
+        D = lay.diag_blocks[:k]
+        nz = int((D != 0).sum())                     # diagonal-block nonzeros
+        nz_low = int((torch.tril(D, diagonal=-1) != 0).sum())
+        by = ((k * T * T * 4 if dense else 8 * nz) + 4 * 4 * k * T  # blocks; counts, z, x, res
+              + 4 * (k + 1) + 4 * 2 * u1 + 8 * e1       # blk_ptr, urow + row_ptr, entries
+              + 4 * 2 * rows + 4 * k * T)               # forward rows read and written; x out
+        # Wb and the site constants (the diagonal, 6 per site), 2 per
+        # strictly lower entry of a block, per triplet and per draw
+        low = k * T * (T - 1.0) / 2 if dense else nz_low
+        flops = (k * T * T if dense else nz) + k * 8.0 * T + 2.0 * low + 2.0 * e1
+        return bound(by, flops)
+
+    bounds = {key: sweep_bound(k, False) for key, k in (("mme_sweep", nb),
+                                                          ("mme_sweep_full", nbr))}
+    bounds["mme_sweep_full_dense_layout"] = sweep_bound(nbr, True)
+    log(f"  mme_sweep bounds over {nbr} blocks: nonzeros "
+        f"{bounds['mme_sweep_full'][0]:.6g} ms, dense (T, T) layout "
+        f"{bounds['mme_sweep_full_dense_layout'][0]:.6g} ms")
+    return t, bounds
+
+
+def check_sweep_ssbrm_shapes(torch, TG, TB, dev, gen, errs, n=10_000, B=64, nbg=16):
+    """sweep_mc at the ssbrm path's shapes: float32 dosages (the imputed
+    rows), B=64, n=10,000 rows (not padded), K=1, BayesCpi; held to the
+    bar and timed beside its plain version.  Returns (times, bounds)."""
+    X = 2.0 * torch.rand((n, nbg * B), generator=gen, device=dev)
+    y = (X[:, :32] @ (0.1 * torch.randn(32, generator=gen, device=dev))
+         + torch.randn(n, generator=gen, device=dev)).cpu().numpy()
+    # the ssbrm path's rows are never padded (the epsilon term refuses pad_n)
+    data = TG.prepare_gibbs_data(y, X, block=B, pad_n=False, device=dev)
+    spec, pr, pi = make_spec(TG, "BayesCpi", data, nbg * B, n)
+    args = sweep_args(torch, TG, spec, data, pr, pi, 1, seed=5)
+    errs["sweep_mc"] = max(errs["sweep_mc"], bar(
+        TB.sweep_mc_plain(spec, *args), TB.sweep_mc(spec, *args),
+        "sweep_mc at the ssbrm shapes (f32, B=64, n=10,000)"))
+    t = {"sweep_mc_ssbrm": cuda_ms(torch, lambda: TB.sweep_mc(spec, *args), 10),
+         "sweep_mc_ssbrm_plain": cuda_ms(torch, lambda: TB.sweep_mc_plain(spec, *args), 1)}
+    consts, X_b, W, xpx, vx, *per = args
+    by = nbytes(X_b, W, xpx, vx, *per) + 4 * nbg * B * 3 + nbytes(per[7], per[8])
+    return t, {"sweep_mc_ssbrm": bound(by, nbg * (4.0 * n * B + 2.0 * B * B))}
+
+
+def profile_ssbrm(torch, TG, lay, Ai_nn, ng_ids, y_ids, n_g, m, gen, dev):
+    """torch.profiler over iterations at the main path's shapes: n_g + ne
+    rows of float32 dosages (random here), m SNPs in blocks of 64, the
+    epsilon system of the main path.  Prints the split of an iteration's
+    device time between sweep_mc, the epsilon sweep and the torch ops."""
+    codes = np.flatnonzero(np.isin(ng_ids, y_ids))
+    ne = len(codes)
+    n = n_g + ne
+    X = 2.0 * torch.rand((n, m), generator=gen, device=dev)
+    y = torch.randn(n, generator=gen, device=dev).cpu().numpy()
+    yJ = np.concatenate([-np.ones(n_g), -np.random.default_rng(1).random(ne)])
+    data = TG.prepare_gibbs_data(y, X, epsl_yJ=yJ, epsl_A=Ai_nn, epsl_codes=codes,
+                                 qe=Ai_nn.shape[0], block=64, device=dev)
+    del X
+    spec, pr, pi = make_spec(TG, "BayesCpi", data, m, n)
+    spec = spec.__class__(**{**spec.__dict__, "ne": ne, "qe": Ai_nn.shape[0],
+                             "qe_pad": int(data.epsl_counts.shape[0])})
+    split = {}
+    profile_iterations(torch, lambda st: TG.one_iteration(spec, data, 1, st),
+                       TG.init_state(spec, data, pr, pi), "ssbrm", split=split)
+    log(f"[profile ssbrm] split per iteration: sweep_mc {split['sweep_mc']:.3f} ms, "
+        f"epsilon sweep {split['mme_sweep']:.3f} ms, torch ops {split['torch']:.3f} ms")
+    return split
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--n", type=int, default=50_000)
@@ -618,6 +857,10 @@ def main(argv=None) -> int:
     ap.add_argument("--seed", type=int, default=2024)
     ap.add_argument("--sm", type=int, default=500_000, help="SNPs of the tiled sbrm path")
     ap.add_argument("--dm", type=int, default=32_768, help="SNPs of the dense sbrm path")
+    ap.add_argument("--ss-ids", type=int, default=100_000,
+                    help="pedigree ids of the ssbrm path (5%% founders, 20%% genotyped, "
+                         "5%% + 5%% phenotyped)")
+    ap.add_argument("--ss-m", type=int, default=100_000, help="SNPs of the ssbrm path")
     args = ap.parse_args(argv)
 
     import torch
@@ -805,21 +1048,123 @@ def main(argv=None) -> int:
     if not cg_err <= CG_ERR_MAX:
         raise AssertionError(f"CG solution off the direct solve by {cg_err}")
     del LD64
+    torch.cuda.empty_cache()
 
-    # ---- 7. results ----
+    # ---- 7. ssbrm: pedigree, imputation, epsilon Gibbs ----
+    n_ids, ss_m = args.ss_ids, args.ss_m
+    nfound, n_g, n_ph = n_ids // 20, n_ids // 5, n_ids // 20
+    t0 = time.perf_counter()
+    ids, sires, dams, s_par, d_par = make_pedigree(nfound, n_ids - nfound, args.seed)
+    rng = np.random.default_rng(args.seed)
+    gi = np.sort(rng.choice(n_ids, n_g, replace=False))
+    others = np.setdiff1d(np.arange(n_ids), gi)
+    phe = np.concatenate([rng.choice(gi, n_ph, replace=False),
+                          rng.choice(others, n_ph, replace=False)])
+    Mg, gv, depth = drop_genes(torch, nfound, s_par, d_par, ss_m, gi, gen, dev)
+    y = (gv[torch.as_tensor(phe, device=dev)]
+         + np.sqrt(0.5) * torch.randn(len(phe), generator=gen, device=dev)).cpu().numpy()
+    torch.cuda.synchronize()
+    log(f"[7] pedigree of {n_ids} ids ({nfound} founders, {depth} generations), genotype "
+        f"{tuple(Mg.shape)} int8 dropped down it on the card in "
+        f"{time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    lay, Ai_nn, ng_ids = ssbrm_layout(torch, TG, ids, sires, dams, ids[gi], dev)
+    qp = lay.diag_blocks.shape[0] * lay.diag_blocks.shape[1]
+    codes = np.flatnonzero(np.isin(ng_ids, ids[phe]))
+    counts = torch.as_tensor(np.bincount(codes, minlength=qp), dtype=torch.float32,
+                             device=dev)
+    log(f"[7] epsilon system: qe={Ai_nn.shape[0]} sites, A-inverse(nn) nnz {Ai_nn.nnz}, "
+        f"{lay.diag_blocks.shape[0]} blocks of {lay.diag_blocks.shape[1]}, "
+        f"{lay.ent_val.numel()} forward triplets on {lay.urow.numel()} rows "
+        f"(host {time.perf_counter() - t0:.1f} s)")
+    errs["mme_sweep"] = 0.0
+    t_mme, b_mme = check_mme(torch, TG, TB, lay, counts, gen, dev, errs)
+    t_sw, b_sw = check_sweep_ssbrm_shapes(torch, TG, TB, dev, gen, errs)
+    times.update(t_mme, **t_sw)
+    bounds.update(b_mme, **b_sw)
+    log(f"[7] times (ms) on {smi}: {json.dumps({**t_mme, **t_sw})}; bounds "
+        f"{json.dumps({**b_mme, **b_sw})}")
+    profile_ssbrm(torch, TG, lay, Ai_nn, ng_ids, ids[phe], n_g, ss_m, gen, dev)
+    del lay
+    torch.cuda.empty_cache()
+
+    # two small fits with one seed, then the direct path
+    sids, ssir, sdam, _, _ = make_pedigree(150, 2850, args.seed + 1)
+    srng = np.random.default_rng(args.seed + 1)
+    sg = sids[np.sort(srng.choice(3000, 600, replace=False))]
+    sM = torch.randint(0, 3, (600, 2048), generator=gen, device=dev, dtype=torch.int8)
+    sphe = sids[srng.choice(3000, 900, replace=False)]
+    skw = dict(data={"id": sphe, "y": srng.normal(size=900)}, M=sM, M_id=sg,
+               pedigree={"id": sids, "sire": ssir, "dam": sdam}, niter=30, nburn=10,
+               seed=args.seed, device=dev, verbose=False)
+    small = [hibayes_tpu_torch.ssbrm("y ~ 1", impute="pcg", chunk_cols=512, **skw)
+             for _ in range(2)]
+    if not (np.array_equal(small[0].g["gebv"], small[1].g["gebv"])
+            and small[0].Veps == small[1].Veps):
+        raise AssertionError("two ssbrm fits with one seed differ: not reproducible")
+    direct = hibayes_tpu_torch.ssbrm("y ~ 1", impute="direct", **skw)
+    if not (np.isfinite(direct.g["gebv"]).all() and np.isfinite(direct.Veps)):
+        raise AssertionError("the direct-path ssbrm fit is not finite")
+    log(f"[7] two small ssbrm fits (3,000 ids, m=2048, pcg) with one seed are "
+        f"bit-identical; the direct path runs (Veps {direct.Veps:.4f})")
+
+    reset_counts(TB)
+    t0 = time.perf_counter()
+    fit = hibayes_tpu_torch.ssbrm(
+        "y ~ 1", data={"id": ids[phe], "y": y}, M=Mg, M_id=ids[gi],
+        pedigree={"id": ids, "sire": sires, "dam": dams}, method="BayesCpi",
+        niter=args.niter, nburn=args.nburn, thin=thin, impute="pcg", chunk_cols=2048,
+        seed=args.seed, device=dev, printfreq=50)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    e_launches, plain = read_counts(TB)
+    nb_e = -(-ss_m // 64)
+    expect_counts(e_launches, plain, {"sweep_mc": niter_eff, "mme_sweep": niter_eff,
+                                      "mme_sweep_kernel": niter_eff,
+                                      "rows_kernel": niter_eff * (nb_e + 1),
+                                      "draws_kernel": niter_eff * nb_e}, "7")
+    gebv = dict(zip(fit.g["id"], fit.g["gebv"]))
+    if len(gebv) != n_ids or not np.isfinite(fit.g["gebv"]).all():
+        raise AssertionError("GEBV of the wrong count or not finite")
+    for k in ("Veps", "J", "Vg", "Ve", "h2"):
+        if not np.isfinite(getattr(fit, k)):
+            raise AssertionError(f"ssbrm: {k} is not finite")
+    if not 0.0 < fit.h2 < 1.0:
+        raise AssertionError(f"ssbrm: h2 {fit.h2} outside (0, 1)")
+    ng_phe = np.setdiff1d(phe, gi)
+    gv_np = gv.cpu().numpy()
+    corr_s = float(np.corrcoef([gebv[i] for i in ids[ng_phe]], gv_np[ng_phe])[0, 1])
+    corr_g = float(np.corrcoef([gebv[i] for i in ids[gi]], gv_np[gi])[0, 1])
+    setup = fit.setup_seconds
+    log(f"[7] ssbrm BayesCpi {n_ids} ids x m={ss_m}: Vg {fit.Vg:.4f} Ve {fit.Ve:.4f} "
+        f"Veps {fit.Veps:.4f} J {fit.J:.4f} h2 {fit.h2:.4f}; GEBV corr with the truth "
+        f"{corr_s:.4f} on the {len(ng_phe)} non-genotyped phenotyped (bar "
+        f"{SSBRM_CORR_MIN}), {corr_g:.4f} on the {n_g} genotyped")
+    log(f"[7] wall {wall:.2f} s; set-up (s) pedigree {setup['pedigree']:.2f}, imputation "
+        f"{setup['imputation']:.2f}, prepare {setup['prepare']:.2f}; chain "
+        f"{fit.chain_seconds:.2f} s = {1e3 * fit.chain_seconds / niter_eff:.2f} ms/iter, "
+        f"{niter_eff * ss_m / fit.chain_seconds:.4g} SNP-updates/s on {smi}")
+    if not corr_s >= SSBRM_CORR_MIN:
+        raise AssertionError(f"ssbrm accuracy {corr_s} below {SSBRM_CORR_MIN}")
+    del Mg, fit
+
+    # ---- 8. results ----
     src = "hibayes_tpu_torch/csrc/blockgibbs.cu"
     ssrc = "hibayes_tpu_torch/csrc/sgibbs.cu"
 
-    def entry(name, source, replaces, n_launch, err, key, **extra):
+    def entry(name, source, replaces, n_launch, err, key, library_ms=None, **extra):
         b_ms, b_by = bounds[key]
         return {"name": name, "route": "cuda", "source": source, "replaces": replaces,
                 "launches": n_launch, "max_abs_err": err, "ms": times[key],
                 "plain_ms": times[key + "_plain"], "bound_ms": b_ms, "bound_by": b_by,
-                "library_ms": None, **extra}
+                "library_ms": library_ms, **extra}
 
     kernels = [
         entry("sweep_mc", src, "hibayes_tpu/ops/blockgibbs.py:642", launches["sweep_mc"],
-              errs["sweep_mc"], "sweep_mc", rows_kernel_launches=launches["rows_kernel"]),
+              errs["sweep_mc"], "sweep_mc", rows_kernel_launches=launches["rows_kernel"],
+              ssbrm_launches=e_launches["sweep_mc"], ssbrm_ms=times["sweep_mc_ssbrm"],
+              ssbrm_plain_ms=times["sweep_mc_ssbrm_plain"],
+              ssbrm_bound_ms=bounds["sweep_mc_ssbrm"][0]),
         entry("draws_kernel", src, "hibayes_tpu/ops/blockgibbs.py:1264",
               launches["draws_kernel"], errs["block_draws"], "block_draws"),
         entry("sweep_s_segment", ssrc, "hibayes_tpu/ops/blockgibbs.py:1141",
@@ -832,6 +1177,11 @@ def main(argv=None) -> int:
               tiled_scatter_launches=s_launches["tiled_scatter"],
               full_sweep_ms=times["sweep_s_tiled_full"],
               full_sweep_bound_ms=bounds["sweep_s_tiled_full"][0]),
+        entry("mme_sweep", "hibayes_tpu_torch/csrc/mme.cu", "hibayes_tpu/ops/blockgibbs.py:1805",
+              e_launches["mme_sweep"], errs["mme_sweep"], "mme_sweep",
+              library_ms=times["mme_library"], full_sweep_ms=times["mme_sweep_full"],
+              full_sweep_bound_ms=bounds["mme_sweep_full"][0],
+              full_sweep_dense_layout_bound_ms=bounds["mme_sweep_full_dense_layout"][0]),
     ]
     print(json.dumps({"kernels": kernels}))
     print(smi)

@@ -5,7 +5,10 @@ and ``sgibbs_data_from_numpy`` / ``s_chain_state_from_numpy`` (summary
 level) take a JAX ``GibbsData`` / ``ChainState`` / ``SGibbsData`` /
 ``SChainState`` (or any mapping or named tuple with the same field names)
 whose leaves are numpy arrays, so that a test can start both packages from
-the same state.  No JAX is imported here.
+the same state.  ``epsl_sparse_from_numpy`` regroups a JAX ``EpslSparse``
+into the port's layout; a JAX dense ``epsl_LHS_A`` (the direct path) is
+packed into it as ``prepare_gibbs_data`` packs one.  No JAX is imported
+here.
 """
 
 from __future__ import annotations
@@ -13,7 +16,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from .gibbs import ChainState, GibbsData
+from .gibbs import (MAX_EPSL_TILE, ChainState, EpslSparse, GibbsData, _build_epsl_sparse,
+                    _epsl_layout)
 from .sgibbs import SChainState, SGibbsData
 
 
@@ -25,15 +29,42 @@ def _t(x, device, dtype=None):
     return torch.as_tensor(np.array(x), device=device, dtype=dtype)
 
 
+def epsl_sparse_from_numpy(sp, device="cpu") -> EpslSparse:
+    """The port's EpslSparse from a JAX one (numpy leaves): the same
+    diagonal blocks, the padded per-block triplets without their padding
+    (which has row 0, never a forward row), grouped by row."""
+    f = _fields(sp)
+    blocks = np.array(f["diag_blocks"])
+    nbr, T, _ = blocks.shape
+    rows, cols, vals = (np.array(f[k]) for k in ("blk_rows", "blk_cols", "blk_vals"))
+    fwd = []
+    for i in range(nbr):
+        keep = rows[i] >= (i + 1) * T
+        fwd.append((rows[i][keep], cols[i][keep], vals[i][keep]))
+    coo = tuple(np.array(f[k]) for k in ("coo_rows", "coo_cols", "coo_vals"))
+    return _epsl_layout(blocks, fwd, coo, nbr * T, torch.as_tensor(blocks).dtype, device)
+
+
 def gibbs_data_from_numpy(data, device="cpu") -> GibbsData:
     f = _fields(data)
-    for name in ("K", "Kval", "epsl_yJ", "epsl_LHS_A", "epsl_codes", "epsl_counts"):
+    for name in ("K", "Kval"):
         if name in f and np.asarray(f[name]).size:
             raise NotImplementedError(
-                f"GibbsData.{name} is set: BSLMM and the single-step term are "
-                "not ported yet (ROADMAP queue 1, items 9 and 12)")
-    if f.get("epsl_sp") is not None:
-        raise NotImplementedError("sparse single-step term not ported yet")
+                f"GibbsData.{name} is set: BSLMM is not ported yet "
+                "(ROADMAP queue 1, item 9)")
+    dt = _t(f["y"], "cpu").dtype
+    sp = f.get("epsl_sp")
+    if sp is not None:
+        sp = epsl_sparse_from_numpy(sp, device)
+    elif np.asarray(f.get("epsl_LHS_A", ())).size:
+        import scipy.sparse as sps
+
+        tile = min(np.asarray(f["X_blocks"]).shape[2], MAX_EPSL_TILE)
+        sp, _ = _build_epsl_sparse(sps.csr_matrix(np.array(f["epsl_LHS_A"])), tile, dt,
+                                   device)
+    empty = lambda shape, t=dt: torch.zeros(shape, dtype=t, device=device)
+    opt = lambda name, shape, t=None: (_t(f[name], device, t) if name in f
+                                       else empty(shape, t or dt))
     return GibbsData(
         y=_t(f["y"], device),
         X_blocks=_t(f["X_blocks"], device),
@@ -47,6 +78,10 @@ def gibbs_data_from_numpy(data, device="cpu") -> GibbsData:
         r_counts=tuple(_t(c, device) for c in f["r_counts"]),
         fold=_t(f["fold"], device),
         windindx0=_t(f["windindx0"], device, torch.int64),
+        epsl_yJ=opt("epsl_yJ", (0,)),
+        epsl_codes=opt("epsl_codes", (0,), torch.int64),
+        epsl_counts=opt("epsl_counts", (0,)),
+        epsl_sp=sp,
     )
 
 

@@ -11,6 +11,10 @@ The maths is the JAX engine's (reference: src/Bayes.cpp:477-917):
 
 with W_b = X_b' X_b precomputed.  The sweep runs in ops/blockgibbs.py:
 the CUDA kernels for tensors on a GPU, their plain versions on the CPU.
+The single-step model adds a J covariate and an imputation-error term
+epsilon over the non-genotyped individuals, drawn site by site against
+scale A-inverse(nn) + diag(counts) (``blocked_mme_gibbs_sparse``, the
+CUDA epsilon sweep on a GPU).
 
 Every random number of iteration ``it`` comes from an
 :class:`~hibayes_tpu_torch.engine.rng.IterNoise` keyed by (seed, it, stream
@@ -29,10 +33,12 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
+from ..math.solvers import segment_matmul
 from ..ops import blockgibbs
-from .rng import (STREAM_COV, STREAM_FACTOR, STREAM_LAMBDA, STREAM_MU,
-                  STREAM_PI, STREAM_SNP_CHI, STREAM_SNP_U, STREAM_SNP_Z,
-                  STREAM_SNP_Z2, STREAM_VARG, STREAM_VE, IterNoise)
+from .rng import (STREAM_COV, STREAM_EPSL_CHI, STREAM_EPSL_J, STREAM_EPSL_Z,
+                  STREAM_FACTOR, STREAM_LAMBDA, STREAM_MU, STREAM_PI,
+                  STREAM_SNP_CHI, STREAM_SNP_U, STREAM_SNP_Z, STREAM_SNP_Z2,
+                  STREAM_VARG, STREAM_VE, IterNoise)
 
 MODEL_INDEX = {
     "BayesRR": 1,
@@ -129,8 +135,8 @@ class GibbsSpec:
 
 class ChainState(NamedTuple):
     """State of one chain.  ``it`` is a Python int; the rest are tensors on
-    the chain's device.  (The BSLMM and single-step fields of the JAX
-    ``ChainState`` arrive with those models.)"""
+    the chain's device.  (The BSLMM fields of the JAX ``ChainState`` arrive
+    with that model.)"""
 
     it: int
     mu: torch.Tensor
@@ -151,10 +157,36 @@ class ChainState(NamedTuple):
     track: torch.Tensor      # (m_pad,) int32 mixture component of the last sweep
     nzrate: torch.Tensor     # (m_pad,) PIP counters
     wppa: torch.Tensor       # (nw,) window counters
+    # single-step epsilon term
+    J_beta: torch.Tensor
+    epsl_estR: torch.Tensor  # (qe_pad,)
+    vepstmp: torch.Tensor
+    veps: torch.Tensor
+
+
+class EpslSparse(NamedTuple):
+    """Sparse A-inverse(nn) of the single-step epsilon Gibbs (the JAX
+    ``EpslSparse``, hibayes_tpu/engine/gibbs.py:257-273): dense (T, T)
+    diagonal blocks for the in-block site draws; per block the triplets of
+    A[rows below the block, block] (forward rows only: the sweep rebuilds
+    its residual each call, so rows of swept blocks are never read again),
+    grouped by target row for the kernel; and A row by row for the matvec.
+    All O(nnz)."""
+
+    diag_blocks: torch.Tensor  # (nbr, T, T)
+    blk_ptr: torch.Tensor      # (nbr + 1,) int32: block i's rows are urow[blk_ptr[i]:blk_ptr[i+1]]
+    urow: torch.Tensor         # (nu,) int32 global target row, ascending within a block
+    row_ptr: torch.Tensor      # (nu + 1,) int32: row u's entries are ent_*[row_ptr[u]:row_ptr[u+1]]
+    ent_col: torch.Tensor      # (nent,) int32 in-block column (0..T-1), ascending within a row
+    ent_val: torch.Tensor      # (nent,)
+    coo_cols: torch.Tensor     # (nnz,) int64, row-major order
+    coo_vals: torch.Tensor     # (nnz,)
+    coo_len: torch.Tensor      # (nbr * T,) int64 entries per row (0 on padded rows)
 
 
 class GibbsData(NamedTuple):
-    """Device-resident inputs.  X_blocks is the genotype in block layout."""
+    """Device-resident inputs.  X_blocks is the genotype in block layout.
+    The single-step fields have size 0 when the term is off."""
 
     y: torch.Tensor            # (n,)
     X_blocks: torch.Tensor     # (nblocks, n, B) int8 or float
@@ -168,6 +200,12 @@ class GibbsData(NamedTuple):
     r_counts: tuple            # per factor (nlev_i,)
     fold: torch.Tensor         # (n_fold,)
     windindx0: torch.Tensor    # (m_pad,) int64 0-based window ids (pad -> nw)
+    epsl_yJ: torch.Tensor      # (n,) J covariate
+    epsl_codes: torch.Tensor   # (ne,) int64 level of each imputed individual
+    epsl_counts: torch.Tensor  # (qe_pad,)
+    # A-inverse(nn), sparse (the scale path) or dense (the direct path),
+    # packed in diagonal blocks: the epsilon sweep's input
+    epsl_sp: EpslSparse | None = None
 
 
 # ---------------------------------------------------------------------------
@@ -228,6 +266,7 @@ def resolve_priors(
 
 
 GRAM_BATCH_BYTES = 1 << 30  # f32 genotype blocks cast at once for the Gram
+MAX_EPSL_TILE = 128         # sites per diagonal block of the epsilon system
 
 
 def pad_to_block(m: int, block: int) -> int:
@@ -244,15 +283,23 @@ def _columns(M, c0: int, c1: int, dtype, device) -> torch.Tensor:
 
 def prepare_gibbs_data(
     y, M, *, C=None, r_codes=(), r_nlevels=(), fold=None, windindx=None, nw=0,
+    epsl_yJ=None, epsl_A=None, epsl_codes=None, qe=0,
     block=64, dtype=torch.float32, geno_dtype=None, pad_n="auto",
     device="cpu",
 ) -> GibbsData:
     """Build the device-resident GibbsData (block layout, Gram matrices, stats).
 
     Port of ``prepare_gibbs_data`` (hibayes_tpu/engine/gibbs.py:1871-2052)
-    without the BSLMM and single-step inputs.  ``M`` is an (n, m) numpy
-    array or torch tensor on any device; it is copied block by block into
-    ``X_blocks`` (nblocks, n, B) on ``device``.
+    without the BSLMM inputs.  ``M`` is an (n, m) numpy array or torch
+    tensor on any device; it is copied block by block into ``X_blocks``
+    (nblocks, n, B) on ``device``.
+
+    The single-step term takes the J covariate ``epsl_yJ`` (n,), the
+    A-inverse(nn) ``epsl_A`` (qe, qe), dense or scipy sparse, and the level
+    ``epsl_codes`` (ne,) of the last ne rows.  Either is packed into
+    :class:`EpslSparse` with blocks of min(block, 128) sites.  A sparse A
+    (the scale path) pads the chain's qe sites to qe_pad; a dense one (the
+    direct path) keeps qe unpadded for the chain, as JAX's dense sweep does.
 
     geno_dtype="int8" stores the genotype as int8.  Its Gram matrices are
     f32 products of integer codes, exact because every partial sum is an
@@ -268,9 +315,12 @@ def prepare_gibbs_data(
     y_np = np.asarray(y)
     n = int(y_np.shape[0])
     n_real = n
+    epsilon = epsl_yJ is not None or epsl_A is not None
     if pad_n == "auto":
-        pad_n = n > 4096 and n % 512 != 0
+        pad_n = not epsilon and n > 4096 and n % 512 != 0
     if pad_n:
+        if epsilon:
+            raise ValueError("pad_n is not supported with BSLMM/epsilon terms")
         n = pad_to_block(n, 512)
     y_t = torch.zeros((n,), dtype=dtype, device=device)
     y_t[:n_real] = torch.as_tensor(y_np, dtype=dtype, device=device)
@@ -279,6 +329,18 @@ def prepare_gibbs_data(
     block = int(min(block, pad_to_block(m, 8)))
     m_pad = pad_to_block(m, block)
     nblocks = m_pad // block
+
+    epsl_sp, qe_pad = None, qe
+    if epsl_A is not None and qe:
+        import scipy.sparse as sps
+
+        etile = int(min(block, MAX_EPSL_TILE))
+        if sps.issparse(epsl_A):
+            epsl_sp, qe_pad = _build_epsl_sparse(epsl_A, etile, dtype, device)
+        else:
+            dense = np.asarray(epsl_A.cpu() if isinstance(epsl_A, torch.Tensor)
+                               else epsl_A, dtype=np.float64)
+            epsl_sp, _ = _build_epsl_sparse(sps.csr_matrix(dense), etile, dtype, device)
 
     if use_int8:
         integer = (not M.dtype.is_floating_point if isinstance(M, torch.Tensor)
@@ -347,11 +409,81 @@ def prepare_gibbs_data(
     if windindx is not None and nw:
         wind0[:m] = torch.as_tensor(np.asarray(windindx), dtype=torch.int64,
                                     device=device) - 1
+
+    def tensor(a, dt, shape):
+        return (torch.zeros(shape, dtype=dt, device=device) if a is None
+                else torch.as_tensor(np.asarray(a), dtype=dt, device=device))
+
+    codes_np = None if epsl_codes is None else np.asarray(epsl_codes, dtype=np.int64)
     return GibbsData(
         y=y_t, X_blocks=X_blocks, W_blocks=W_blocks, xpx=xpx, vx=vx,
         real=real, C=C_t, cpc=cpc, r_codes=tuple(codes_t),
         r_counts=tuple(counts_t), fold=fold_t, windindx0=wind0,
+        epsl_yJ=tensor(None if epsl_yJ is None else np.asarray(epsl_yJ, np.float64),
+                       dtype, (0,)),
+        epsl_codes=tensor(codes_np, torch.int64, (0,)),
+        epsl_counts=tensor(np.bincount(codes_np, minlength=qe_pad) if qe else None,
+                           dtype, (0,)),
+        epsl_sp=epsl_sp,
     )
+
+
+def _epsl_layout(diag_blocks, fwd, coo, qe_pad, dtype, device) -> EpslSparse:
+    """EpslSparse from host parts: ``diag_blocks`` (nbr, T, T); ``fwd`` per
+    block the forward triplets (global rows, in-block cols, vals); ``coo``
+    (rows, cols, vals) of the whole A in any order."""
+    urow, cnts, ecol, evals, blk_ptr = [], [], [], [], [0]
+    for r, c, v in fwd:
+        order = np.lexsort((c, r))
+        r, c, v = r[order], c[order], v[order]
+        u, cnt = np.unique(r, return_counts=True)
+        urow.append(u)
+        cnts.append(cnt)
+        ecol.append(c)
+        evals.append(v)
+        blk_ptr.append(blk_ptr[-1] + len(u))
+    cat = lambda parts, dt: (np.concatenate(parts).astype(dt) if parts
+                             else np.zeros((0,), dt))
+    row_ptr = np.concatenate([[0], np.cumsum(cat(cnts, np.int64))])
+    rows, cols, vals = (np.asarray(a) for a in coo)
+    order = np.lexsort((cols, rows))
+    as_t = lambda a, dt: torch.as_tensor(np.ascontiguousarray(a), dtype=dt, device=device)
+    i32 = torch.int32
+    return EpslSparse(
+        diag_blocks=as_t(diag_blocks, dtype),
+        blk_ptr=as_t(blk_ptr, i32), urow=as_t(cat(urow, np.int64), i32),
+        row_ptr=as_t(row_ptr, i32), ent_col=as_t(cat(ecol, np.int64), i32),
+        ent_val=as_t(cat(evals, np.float64), dtype),
+        coo_cols=as_t(cols[order], torch.int64), coo_vals=as_t(vals[order], dtype),
+        coo_len=as_t(np.bincount(rows, minlength=qe_pad), torch.int64),
+    )
+
+
+def _build_epsl_sparse(A, tile: int, dtype, device="cpu") -> tuple:
+    """Pack a scipy sparse symmetric A into :class:`EpslSparse`: zero-padded
+    (qe_pad = nbr * tile) dense diagonal blocks, the forward triplets of
+    A[:, block] per block, and A row by row.  Port of ``_build_epsl_sparse``
+    (hibayes_tpu/engine/gibbs.py:2055-2100): the same blocks and triplets,
+    with the triplets grouped by row instead of padded to the largest
+    block's count.  Returns (EpslSparse, qe_pad)."""
+    import scipy.sparse as sps
+
+    A = sps.csc_matrix(A)
+    q = A.shape[0]
+    nbr = -(-q // tile)
+    qe_pad = nbr * tile
+    diag_blocks = np.zeros((nbr, tile, tile), dtype=np.float64)
+    fwd = []
+    for i in range(nbr):
+        c0, c1 = i * tile, min(q, (i + 1) * tile)
+        blk = A[:, c0:c1].tocoo()
+        keep = blk.row >= c1
+        fwd.append((blk.row[keep], blk.col[keep], blk.data[keep]))
+        d = A[c0:c1, c0:c1].toarray()
+        diag_blocks[i, : d.shape[0], : d.shape[1]] = d
+    coo = A.tocoo()
+    return _epsl_layout(diag_blocks, fwd, (coo.row, coo.col, coo.data), qe_pad,
+                        dtype, device), qe_pad
 
 
 def init_state(spec: GibbsSpec, data: GibbsData, priors: Priors, pi_init) -> ChainState:
@@ -393,12 +525,16 @@ def init_state(spec: GibbsSpec, data: GibbsData, priors: Priors, pi_init) -> Cha
         track=torch.zeros((m_pad,), dtype=torch.int32, device=dev),
         nzrate=full((m_pad,), 0.0),
         wppa=full((spec.nw,), 0.0),
+        J_beta=full((), 0.0),
+        epsl_estR=full((spec.qe_pad or spec.qe,), 0.0),
+        vepstmp=full((), priors.vara),
+        veps=full((), priors.vara),
     )
 
 
 def _snapshot(spec: GibbsSpec, state: ChainState) -> dict:
     vt = state.vara + state.vare + state.vr.sum()
-    return {
+    snap = {
         "mu": state.mu,
         "pi": state.pi,
         "Vg": state.vara,
@@ -411,6 +547,11 @@ def _snapshot(spec: GibbsSpec, state: ChainState) -> dict:
               else torch.zeros((0,), dtype=state.g.dtype, device=state.g.device)),
         "lambda": torch.sqrt(state.lambda2),
     }
+    if spec.qe:
+        snap["Veps"] = state.veps
+        snap["J"] = state.J_beta
+        snap["epsilon"] = state.epsl_estR[: spec.qe]
+    return snap
 
 
 def genotype_matmul(X_blocks, G, dtype) -> torch.Tensor:
@@ -477,10 +618,72 @@ def _segment_sum(values, codes, lengths):
     return torch.segment_reduce(values[order], "sum", lengths=lengths)
 
 
+# ---------------------------------------------------------------------------
+# blocked single-site Gibbs for the single-step epsilon term
+# ---------------------------------------------------------------------------
+
+
+def _epsl_matvec(sp: EpslSparse, x):
+    """A @ x for the sparse A-inverse(nn), row by row (no atomics)."""
+    return segment_matmul(sp.coo_len, sp.coo_cols, sp.coo_vals, x)
+
+
+def blocked_mme_gibbs_sparse(sp: EpslSparse, counts, scale, x, b, ve, z):
+    """Single-site Gibbs sweep over LHS = scale A + diag(counts) for A in
+    the packed layout (``blocked_mme_gibbs_sparse``,
+    hibayes_tpu/engine/gibbs.py:576-654): per diagonal block, T in-block
+    draws (TPU kernel 10), then the block's forward triplets into the
+    residual.  The sweep is ``blockgibbs.mme_sweep``: one CUDA launch on a
+    GPU, its plain version on the CPU.  Zero-padded sites stay frozen.
+    Returns (x_new, A @ x_new); the matvec feeds the Veps quadratic form."""
+    res = b - scale * _epsl_matvec(sp, x) - counts * x
+    x_new, _ = blockgibbs.mme_sweep(sp, counts, scale, ve, z, x, res)
+    return x_new, _epsl_matvec(sp, x_new)
+
+
+def _epsilon_draw(spec: GibbsSpec, data: GibbsData, noise, J_beta, epsl_estR,
+                  vepstmp, yadj, u, ve):
+    """The single-step imputation-error term (hibayes_tpu/engine/gibbs.py:900-949,
+    src/Bayes.cpp:554-584): the J covariate, then epsilon | rest by
+    single-site Gibbs on (Z'Z + A-inverse(nn) ve / veps), then Veps.
+    Returns (J_beta, epsl_estR, vepstmp, yadj, u)."""
+    dev = yadj.device
+    n, ne, qe = spec.n, spec.ne, spec.qe
+    yJ = data.epsl_yJ
+    JtJ = torch.dot(yJ, yJ)
+    rhs = torch.dot(yJ, yadj) + JtJ * J_beta
+    J_new = rhs / JtJ + torch.sqrt(ve / JtJ) * noise.normal(STREAM_EPSL_J, ())
+    yadj = yadj + (J_beta - J_new) * yJ
+    u = u - (J_beta - J_new) * yJ
+    qe_p = spec.qe_pad or qe
+    lengths = data.epsl_counts.to(torch.int64)
+    rhs_e = (_segment_sum(yadj[n - ne:], data.epsl_codes, lengths)
+             + data.epsl_counts * epsl_estR)
+    scale = ve / vepstmp
+    # qe normals on the direct path, qe_pad with the padding frozen on the
+    # scale path (JAX's noise shapes); the layout pads a dense A's qe sites
+    # to whole blocks, where they stay frozen too
+    ze = noise.normal(STREAM_EPSL_Z, (qe_p,))
+    ze = torch.where(torch.arange(qe_p, device=dev) < qe, ze, 0.0)
+    sp = data.epsl_sp
+    pad = lambda v: torch.nn.functional.pad(v, (0, sp.coo_len.shape[0] - qe_p))
+    new_e, Ae = blocked_mme_gibbs_sparse(sp, pad(data.epsl_counts), scale, pad(epsl_estR),
+                                         pad(rhs_e), ve, pad(ze))
+    new_e = new_e[:qe_p]
+    quad = torch.dot(new_e, Ae[:qe_p])
+    diff_e = (epsl_estR - new_e)[data.epsl_codes]
+    yadj = torch.cat([yadj[: n - ne], yadj[n - ne:] + diff_e])
+    u = torch.cat([u[: n - ne], u[n - ne:] - diff_e])
+    chi = noise.chisq(STREAM_EPSL_CHI, spec.dfvara + qe)
+    vepstmp = (quad + spec.s2vara * spec.dfvara) / chi
+    return J_new, new_e, vepstmp, yadj, u
+
+
 def _pre_sweep(spec: GibbsSpec, data: GibbsData, noise, state: ChainState) -> dict:
-    """Intercept, sequential covariates, environmental random effects, and
-    the sweep's constants and random numbers (hibayes_tpu/engine/gibbs.py:817-875,
-    951-1004).  Every draw comes from ``noise``."""
+    """Intercept, sequential covariates, environmental random effects, the
+    single-step epsilon term, and the sweep's constants and random numbers
+    (hibayes_tpu/engine/gibbs.py:817-875, 900-1004).  Every draw comes from
+    ``noise``."""
     dt = data.y.dtype
     dev = data.y.device
     n, n_obs = spec.n, spec.n_obs
@@ -527,6 +730,14 @@ def _pre_sweep(spec: GibbsSpec, data: GibbsData, noise, state: ChainState) -> di
         vr[i] = torch.var(new, correction=1)
         estR.append(new)
 
+    # --- single-step imputation-error term (src/Bayes.cpp:554-584) ---
+    J_beta, epsl_estR, vepstmp, veps = (state.J_beta, state.epsl_estR,
+                                        state.vepstmp, state.veps)
+    if spec.qe:
+        J_beta, epsl_estR, vepstmp, yadj, u = _epsilon_draw(
+            spec, data, noise, J_beta, epsl_estR, vepstmp, yadj, u, ve)
+        veps = vepstmp
+
     # --- the sweep's random numbers; an unused stream is never drawn ---
     m_pad = spec.m_pad
     mi = spec.model_index
@@ -557,6 +768,7 @@ def _pre_sweep(spec: GibbsSpec, data: GibbsData, noise, state: ChainState) -> di
     return {
         "mu": mu, "beta": beta, "estR": tuple(estR), "vrtmp": vrtmp, "vr": vr,
         "yadj": yadj, "u": u,
+        "J_beta": J_beta, "epsl_estR": epsl_estR, "vepstmp": vepstmp, "veps": veps,
         "consts": consts,
         "vei": ve.expand(m_pad),
         "vargL_in": (state.vargL if state.vargL.numel()
@@ -576,9 +788,11 @@ def _run_sweep_k1(spec: GibbsSpec, data: GibbsData, pre: dict, g):
     return tuple(o[0] for o in out)
 
 
-def _recompute_residuals(spec: GibbsSpec, data: GibbsData, mu, beta, estR, g):
+def _recompute_residuals(spec: GibbsSpec, data: GibbsData, mu, beta, estR, g,
+                         J_beta=None, epsl_estR=None):
     """Exact recompute of (yadj, u) from the current effects: the periodic
-    f32 drift correction (hibayes_tpu/engine/gibbs.py:1674-1704)."""
+    f32 drift correction (hibayes_tpu/engine/gibbs.py:1674-1704).  ``u``
+    carries the J and epsilon terms too, as in the JAX engine."""
     dt = data.y.dtype
     n = spec.n
     pred = torch.zeros((n,), dtype=dt, device=data.y.device) + mu
@@ -587,6 +801,9 @@ def _recompute_residuals(spec: GibbsSpec, data: GibbsData, mu, beta, estR, g):
     for i in range(len(spec.nlevels)):
         pred = pred + estR[i][data.r_codes[i]]
     u_new = genotype_matmul(data.X_blocks, g[:, None], dt)[:, 0]
+    if spec.qe:
+        u_new = u_new + J_beta * data.epsl_yJ
+        u_new[n - spec.ne:] += epsl_estR[data.epsl_codes]
     yadj_new = data.y - (pred + u_new)
     if spec.row_padded:
         yadj_new = torch.where(torch.arange(n, device=data.y.device) < spec.n_obs,
@@ -629,13 +846,15 @@ def _post_sweep(spec: GibbsSpec, data: GibbsData, noise, state: ChainState,
     # --- periodic drift resync (f32 only; exact recompute of yadj and u) ---
     if (spec.resync_every and dt == torch.float32
             and state.it % spec.resync_every == spec.resync_every - 1):
-        yadj, u = _recompute_residuals(spec, data, mu, beta, estR, g)
+        yadj, u = _recompute_residuals(spec, data, mu, beta, estR, g,
+                                       pre["J_beta"], pre["epsl_estR"])
 
     return ChainState(
         it=state.it + 1, mu=mu, beta=beta, estR=estR, vrtmp=pre["vrtmp"],
         vr=pre["vr"], yadj=yadj, u=u, g=g, varg=varg, vargL=vargL,
         lambda2=lambda2, pi=pi, vara_fold=vara_fold, vara=vara, vare=vare,
-        track=track, nzrate=nzrate, wppa=wppa,
+        track=track, nzrate=nzrate, wppa=wppa, J_beta=pre["J_beta"],
+        epsl_estR=pre["epsl_estR"], vepstmp=pre["vepstmp"], veps=pre["veps"],
     )
 
 
@@ -648,9 +867,6 @@ def _check_ported(spec: GibbsSpec, mesh) -> None:
             "items 13-14: multi-GPU and the concurrent schedule)")
     if spec.use_bslmm:
         raise NotImplementedError("BSLMM is not ported yet (ROADMAP queue 1, item 9)")
-    if spec.qe:
-        raise NotImplementedError(
-            "the single-step epsilon term is not ported yet (ROADMAP queue 1, item 12)")
     if spec.reject_guard or spec.seg_sizes:
         raise NotImplementedError(
             "the summary-level engine is not ported yet (ROADMAP queue 1, items 10-11)")

@@ -1,8 +1,9 @@
-"""Conjugate gradient over an abstract matvec.
+"""Linear solvers over an abstract matvec: conjugate gradient and batched
+Jacobi-preconditioned CG, and the row-ordered sparse product they run on.
 
-Counterpart of ``conj_grad`` (hibayes_tpu/math/solvers.py:17-57; reference
-src/solver.cpp:54-117) as a torch loop with the same stopping rule.  The
-other solvers of that module come with ssbrm.
+Counterparts of hibayes_tpu/math/solvers.py (reference src/solver.cpp:3-117)
+as torch loops with the same stopping rules.  A loop reads its stopping
+test on the host once per iteration.
 """
 
 from __future__ import annotations
@@ -39,3 +40,54 @@ def conj_grad(matvec, b, lam=None, x0=None, tol=1e-6, maxiter=None):
         r2 = r2new
         it += 1
     return x, it, err
+
+
+def segment_matmul(lengths, cols, vals, X):
+    """A @ X for a sparse A given row by row: ``cols``/``vals`` hold the
+    entries of row 0, then row 1, ... (``lengths`` int64 counts per row, as
+    :func:`~hibayes_tpu_torch.data.pedigree.coo_device` returns them).  Each
+    row's products are summed in stored order by ``segment_reduce``, with no
+    atomics, so the result does not vary from run to run.  X is (n, ...);
+    memory O(nnz * X[0].numel())."""
+    G = X.index_select(0, cols)
+    G.mul_(vals.to(X.dtype).reshape((-1,) + (1,) * (X.dim() - 1)))
+    return torch.segment_reduce(G, "sum", lengths=lengths, axis=0)
+
+
+def pcg_batched(matvec, B, diag=None, tol=1e-8, maxiter=None):
+    """Jacobi-preconditioned CG over a batch of right-hand sides B (n, k),
+    the block variant of the reference's PCGm (src/solver.cpp:44-52).
+    ``matvec`` maps (n, k) -> (n, k) column-wise.  Per-column step sizes;
+    stops when every column's residual norm is <= ``tol`` relative to its
+    right-hand side's norm, or after ``maxiter`` (default n) steps.
+    Returns (X, iterations): iterations == maxiter means it stopped there."""
+    n, k = B.shape
+    maxiter = n if maxiter is None else maxiter
+    if diag is None:
+        minv = torch.ones((n, 1), dtype=B.dtype, device=B.device)
+    else:
+        d = torch.where(diag == 0, torch.full_like(diag, 1e-4), diag)
+        minv = (1.0 / d).reshape(n, 1).to(B.dtype)
+    bnorm = torch.clamp_min(torch.linalg.vector_norm(B, dim=0), 1e-30)
+    X = torch.zeros_like(B)
+    R = B - matvec(X)
+    Z = minv * R
+    P = Z.clone()
+    rz = (Z * R).sum(dim=0)
+    it = 0
+    while it < maxiter:
+        err = torch.linalg.vector_norm(R, dim=0) / bnorm
+        if not float(err.max()) > tol:
+            break
+        AP = matvec(P)
+        a = rz / torch.clamp_min((P * AP).sum(dim=0), 1e-300)
+        X.addcmul_(P, a)
+        R.addcmul_(AP, a, value=-1.0)
+        torch.mul(R, minv, out=Z)
+        rz1 = (Z * R).sum(dim=0)
+        beta = rz1 / torch.clamp_min(rz, 1e-300)
+        P.mul_(beta).add_(Z)
+        rz = rz1
+        it += 1
+    return X, it
+

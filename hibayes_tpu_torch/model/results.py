@@ -44,6 +44,7 @@ class BlrMod:
     Vb: float | None = None
     rhat: dict | None = None  # multi-chain Gelman-Rubin diagnostics
     chain_seconds: float | None = None  # wall time of the MCMC loop
+    setup_seconds: dict | None = None   # ssbrm: pedigree / imputation / prepare
     MCMCsamples: dict = field(default_factory=dict)
 
     # ------------------------------------------------------------------

@@ -27,6 +27,14 @@ whose state is r_hat instead of a residual:
 * ``sweep_s_tiled``: every tile row of a tiled sparse LD, with the SBayesS
   rejection guard (replaces ``sweep_s_tiled`` / ``_kernel_s_tiled``).
 
+One carries the single-step (ssbrm) epsilon sweep (csrc/mme.cu):
+
+* ``mme_sweep``: the T sequential site draws of every diagonal block of
+  scale A + diag(counts) and each block's forward scatter, in one launch
+  (replaces ``mme_block_draws`` / ``_kernel_mme_block`` with the scan
+  around it); ``mme_block_draws_plain`` keeps the TPU kernel's one-block
+  contract.
+
 Each has a plain PyTorch version with the same contract (``*_plain``):
 loops over blocks and SNPs in Python with tensor ops (across the K chains
 for the individual-level ones), in any float dtype.  A wrapper takes its
@@ -37,7 +45,8 @@ The libraries count every launch of each CUDA kernel where it is made
 (:func:`kernel_launches`): a sweep over nbg blocks launches ``rows_kernel``
 nbg + 1 times and ``draws_kernel`` nbg times; a segment sweep over nb blocks
 ``segment_draws`` and ``segment_update`` nb times each; a tiled sweep over
-nbr tile rows ``tiled_draws`` and ``tiled_scatter`` nbr times each.
+nbr tile rows ``tiled_draws`` and ``tiled_scatter`` nbr times each; an
+epsilon sweep ``mme_sweep_kernel`` once.
 """
 
 from __future__ import annotations
@@ -316,14 +325,17 @@ def kernel_launches() -> dict:
     build.library().hb_launch_counts(ctypes.byref(rows), ctypes.byref(draws))
     s = (ctypes.c_longlong * 4)()
     build.library("sgibbs.cu").hb_s_launch_counts(s)
+    e = ctypes.c_longlong()
+    build.library("mme.cu").hb_mme_launch_counts(ctypes.byref(e))
     return {"rows_kernel": rows.value, "draws_kernel": draws.value,
             "segment_draws": s[0], "segment_update": s[1],
-            "tiled_draws": s[2], "tiled_scatter": s[3]}
+            "tiled_draws": s[2], "tiled_scatter": s[3], "mme_sweep_kernel": e.value}
 
 
 def reset_kernel_launches() -> None:
     build.library().hb_reset_launch_counts()
     build.library("sgibbs.cu").hb_s_reset_launch_counts()
+    build.library("mme.cu").hb_mme_reset_launch_counts()
 
 
 def _require_cuda(*tensors):
@@ -676,3 +688,140 @@ def sweep_s_tiled(spec, tiles, cols, valid, r_hat, P, n):
 
 
 sweep_s_tiled.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# single-step (ssbrm) epsilon sweep
+# ---------------------------------------------------------------------------
+
+
+def _mme_draws(Wb, r, invd, noise):
+    """The T sequential site draws of one block: dx_j = r_j invd_j + noise_j
+    with r_j = r0_j - sum_{i<j} Wb[j, i] dx_i, kept as r -= Wb[:, j] dx_j
+    after each draw (``r`` is updated in place).  Each product and sum is
+    rounded on its own, in the kernel's order (csrc/mme.cu)."""
+    cols = Wb.unbind(1)
+    rv, iv, nv = r.unbind(0), invd.unbind(0), noise.unbind(0)
+    dx = []
+    for j in range(r.shape[0]):
+        d = rv[j] * iv[j] + nv[j]
+        r.sub_(cols[j] * d)
+        dx.append(d)
+    return torch.stack(dx)
+
+
+def mme_block_draws_plain(W, r0, invd, noise):
+    """Plain version of TPU kernel 10 (``mme_block_draws``,
+    hibayes_tpu/ops/blockgibbs.py:1830-1847), in the dtype of ``r0``: one
+    block's T sequential single-site draw deltas
+    dx_j = (r0_j - sum_{i<j} W[j, i] dx_i) invd_j + noise_j.  W (T, T);
+    r0, invd, noise (T,); padded sites carry invd = noise = 0, so dx = 0."""
+    mme_block_draws_plain.calls += 1
+    dt = r0.dtype
+    return _mme_draws(W.to(dt), r0.clone(), invd.to(dt), noise.to(dt))
+
+
+mme_block_draws_plain.calls = 0
+
+
+def _block_constants(Wd_i, cnt, scale, ve, z):
+    """Wb = scale Wd + diag(counts), and each site's invd and noise (0 where
+    the diagonal is not positive: padded sites stay frozen)."""
+    Wb = scale * Wd_i
+    Wb.diagonal().add_(cnt)
+    d = Wb.diagonal()
+    ok = d > 0
+    d_safe = torch.where(ok, d, torch.ones_like(d))
+    zero = torch.zeros_like(d)
+    invd = torch.where(ok, 1.0 / d_safe, zero)
+    noise = torch.where(ok, torch.sqrt(ve / d_safe) * z, zero)
+    return Wb, invd, noise
+
+
+def mme_sweep_plain(sp, counts, scale, ve, z, x, res):
+    """Plain version of :func:`mme_sweep`, in the dtype of ``res``."""
+    mme_sweep_plain.calls += 1
+    dt, dev = res.dtype, res.device
+    nbr, T, _ = sp.diag_blocks.shape
+    scale = torch.as_tensor(scale, dtype=dt, device=dev)
+    ve = torch.as_tensor(ve, dtype=dt, device=dev)
+    res = res.clone()
+    x_new = x.to(dt).clone()
+    blk_ptr, row_ptr = sp.blk_ptr.tolist(), sp.row_ptr.tolist()
+    for i in range(nbr):
+        sl = slice(i * T, (i + 1) * T)
+        Wb, invd, noise = _block_constants(sp.diag_blocks[i].to(dt), counts[sl].to(dt),
+                                           scale, ve, z[sl].to(dt))
+        dx = _mme_draws(Wb, res[sl].clone(), invd, noise)
+        x_new[sl] += dx
+        u0, u1 = blk_ptr[i], blk_ptr[i + 1]
+        if u1 > u0:
+            e0, e1 = row_ptr[u0], row_ptr[u1]
+            lengths = (sp.row_ptr[u0 + 1:u1 + 1] - sp.row_ptr[u0:u1]).to(torch.int64)
+            terms = sp.ent_val[e0:e1].to(dt) * dx[sp.ent_col[e0:e1].to(torch.int64)]
+            acc = torch.segment_reduce(terms, "sum", lengths=lengths)
+            rows = sp.urow[u0:u1].to(torch.int64)
+            res[rows] -= scale * acc
+    return x_new, res
+
+
+mme_sweep_plain.calls = 0
+
+
+def mme_sweep(sp, counts, scale, ve, z, x, res):
+    """The epsilon sweep of ``blocked_mme_gibbs_sparse``
+    (hibayes_tpu/engine/gibbs.py:576-654) after its residual: for each
+    diagonal block i in order, the T site draws of TPU kernel 10 against Wb = scale sp.diag_blocks[i] +
+    diag(counts), then res[row] -= scale sum_k A[row, k] dx_k over the
+    block's forward triplets.
+
+    ``sp`` holds the layout of :class:`~hibayes_tpu_torch.engine.gibbs.EpslSparse`
+    (diag_blocks (nbr, T, T); the triplets grouped by target row: blk_ptr,
+    urow, row_ptr, ent_col, ent_val).  counts, z, x (nbr T,); res the
+    residual b - (scale A + diag(counts)) x, long enough for every triplet
+    row; scale and ve 0-d tensors or floats.  Returns (x_new, res after the
+    sweep).  The sweep reads blk_ptr[0..nbr] only, so the first k blocks
+    alone are a layout with diag_blocks[:k] and blk_ptr[:k + 1], and
+    counts, z, x cut to k T.  On the card: float32 only, T <= 128, one
+    launch."""
+    if res.device.type == "cpu":
+        return mme_sweep_plain(sp, counts, scale, ve, z, x, res)
+    D = sp.diag_blocks
+    _require_cuda(res, D, counts, z, x, sp.ent_val)
+    nbr, T, _ = D.shape
+    if not (0 < T <= MAX_BLOCK and 0 < nbr and sp.blk_ptr.shape[0] > nbr):
+        raise ValueError(f"mme_sweep: blocks of {T} sites (at most {MAX_BLOCK}), "
+                         f"{nbr} blocks and {sp.blk_ptr.shape[0]} block pointers")
+    if any(t.dtype != F32 for t in (D, counts, z, x, res, sp.ent_val)):
+        raise TypeError("mme_sweep: the kernel takes float32 (other float types "
+                        "run on the CPU)")
+    q = nbr * T
+    if (tuple(D.shape) != (nbr, T, T) or any(t.shape != (q,) for t in (counts, z, x))
+            or res.dim() != 1 or res.shape[0] < q):
+        raise ValueError(f"mme_sweep: blocks {tuple(D.shape)}, counts/z/x "
+                         f"{tuple(counts.shape)}/{tuple(z.shape)}/{tuple(x.shape)} and "
+                         f"res {tuple(res.shape)} do not fit")
+    ints = (sp.blk_ptr, sp.urow, sp.row_ptr, sp.ent_col)
+    if any(t.dtype != torch.int32 or t.device != res.device for t in ints):
+        raise TypeError("mme_sweep: the triplet index arrays must be int32 on the card")
+    dev = res.device
+    scale_t = torch.as_tensor(scale, dtype=F32, device=dev).reshape(())
+    ve_t = torch.as_tensor(ve, dtype=F32, device=dev).reshape(())
+    Dc, cc, zc = D.contiguous(), counts.contiguous(), z.contiguous()
+    ic = [t.contiguous() for t in ints]
+    ev = sp.ent_val.contiguous()
+    x_in = x.contiguous()
+    x_new = x_in.clone()
+    r = res.clone(memory_format=torch.contiguous_format)
+    lib = build.library("mme.cu")
+    code = lib.hb_mme_sweep(
+        Dc.data_ptr(), cc.data_ptr(), scale_t.data_ptr(), ve_t.data_ptr(),
+        zc.data_ptr(), x_in.data_ptr(), x_new.data_ptr(), r.data_ptr(),
+        *(t.data_ptr() for t in ic), ev.data_ptr(), nbr, T,
+        torch.cuda.current_stream(dev).cuda_stream)
+    build.check(lib, code, "mme_sweep")
+    mme_sweep.launches += 1
+    return x_new, r
+
+
+mme_sweep.launches = 0

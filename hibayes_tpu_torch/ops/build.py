@@ -20,7 +20,7 @@ from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent.parent / "build"
-SOURCES = ("blockgibbs.cu", "sgibbs.cu")
+SOURCES = ("blockgibbs.cu", "sgibbs.cu", "mme.cu")
 HEADERS = ("draws.cuh",)
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
@@ -100,7 +100,7 @@ def library(source: str = SOURCES[0]) -> ctypes.CDLL:
         lib.hb_launch_counts.restype = None
         lib.hb_reset_launch_counts.argtypes = []
         lib.hb_reset_launch_counts.restype = None
-    else:
+    elif source == "sgibbs.cu":
         lib.hb_sweep_s_segment.argtypes = [_P, _P, _I, _I, _I, _I, _I, _F, _P,
                                            _P, _P, _P]
         lib.hb_sweep_s_segment.restype = _I
@@ -111,6 +111,13 @@ def library(source: str = SOURCES[0]) -> ctypes.CDLL:
         lib.hb_s_launch_counts.restype = None
         lib.hb_s_reset_launch_counts.argtypes = []
         lib.hb_s_reset_launch_counts.restype = None
+    else:
+        lib.hb_mme_sweep.argtypes = [_P] * 13 + [_I, _I, _P]
+        lib.hb_mme_sweep.restype = _I
+        lib.hb_mme_launch_counts.argtypes = [ctypes.POINTER(ctypes.c_longlong)]
+        lib.hb_mme_launch_counts.restype = None
+        lib.hb_mme_reset_launch_counts.argtypes = []
+        lib.hb_mme_reset_launch_counts.restype = None
     return lib
 
 

@@ -123,7 +123,8 @@ def test_launch_counts(dev):
     nbg = spec.nblocks
     assert TB.kernel_launches() == {"rows_kernel": nbg + 1, "draws_kernel": nbg,
                                     "segment_draws": 0, "segment_update": 0,
-                                    "tiled_draws": 0, "tiled_scatter": 0}
+                                    "tiled_draws": 0, "tiled_scatter": 0,
+                                    "mme_sweep_kernel": 0}
     assert (TB.sweep_mc.launches, TB.block_draws.launches) == (before[0] + 1, before[1])
 
 
@@ -327,3 +328,112 @@ def test_sbrm_chain_is_reproducible(layout, dev):
     fits = [htt.sbrm(ss, ld.values if layout == "dense" else ld, **kw) for _ in range(2)]
     np.testing.assert_array_equal(fits[0].alpha, fits[1].alpha)
     assert fits[0].Vg == fits[1].Vg and np.isfinite(fits[0].h2)
+
+
+# ---------------------------------------------------------------------------
+# single-step epsilon sweep
+# ---------------------------------------------------------------------------
+
+
+def _pedigree(nfound, nkid, seed):
+    rng = np.random.default_rng(seed)
+    ids = np.array([f"p{k}" for k in range(nfound + nkid)])
+    sires = np.array(["0"] * nfound + [ids[rng.integers(0, nfound + k)] for k in range(nkid)])
+    dams = np.array(["0"] * nfound + [ids[rng.integers(0, nfound + k)] for k in range(nkid)])
+    return ids, sires, dams
+
+
+def _mme_problem(T, dev, q=710, seed=3):
+    """The RCM-ordered A-inverse(nn) of a pedigree (q non-genotyped sites,
+    q not a multiple of T, so the last block has padded sites), packed in
+    blocks of T on the card, with counts, a right-hand side, normals and a
+    mid-run x; returns (layout, counts, scale, ve, z, x, res, q)."""
+    from hibayes_tpu_torch.data.pedigree import make_ainv, make_ped, rcm_permutation
+
+    rng = np.random.default_rng(seed)
+    ids, sires, dams = _pedigree(100, q + 150, seed)
+    _, s_idx, d_idx = make_ped(ids, sires, dams)
+    Ai = make_ainv(s_idx, d_idx).tocsr()
+    ng = np.sort(rng.choice(Ai.shape[0], q, replace=False))
+    nn = Ai[ng].tocsc()[:, ng]
+    perm = rcm_permutation(nn)
+    nn = nn[perm][:, perm]
+    sp_t, qp = TG._build_epsl_sparse(nn, T, torch.float32, dev)
+    assert q % T and qp > q
+    f = lambda a: torch.as_tensor(a, dtype=torch.float32, device=dev)
+    pad = lambda a: np.concatenate([a, np.zeros(qp - q)])
+    counts = f(pad(rng.integers(0, 3, q)))
+    z, x, b = (f(pad(rng.normal(0, s, q))) for s in (1.0, 0.3, 1.0))
+    scale, ve = f(0.7), f(1.3)
+    res = b - scale * TG._epsl_matvec(sp_t, x) - counts * x
+    return sp_t, counts, scale, ve, z, x, res, q
+
+
+@pytest.mark.parametrize("T", [64, 128, 20])
+def test_mme_sweep_matches_plain(T, dev):
+    """The epsilon sweep kernel against its plain version on the card (T=64
+    and 128, and 20, not a multiple of 8): effects within 5e-5 max|x| (the
+    kernel bar of chip_smoke.py), padded tail sites frozen, and a second
+    launch bit-identical.  Also its first 3 blocks alone (the layout and
+    vectors cut to them)."""
+    sp_t, counts, scale, ve, z, x, res, q = _mme_problem(T, dev)
+    outs = [TB.mme_sweep(sp_t, counts, scale, ve, z, x, res) for _ in range(2)]
+    ref = TB.mme_sweep_plain(sp_t, counts, scale, ve, z, x, res)
+    torch.cuda.synchronize()
+    xk, xp = outs[0][0].cpu().numpy(), ref[0].cpu().numpy()
+    np.testing.assert_allclose(xk, xp, rtol=0, atol=5e-5 * np.abs(xp).max())
+    assert (xk[q:] == 0).all() and not np.array_equal(xk[:q], x[:q].cpu().numpy())
+    assert all(torch.equal(a, b) for a, b in zip(*outs))
+    part = sp_t._replace(diag_blocks=sp_t.diag_blocks[:3], blk_ptr=sp_t.blk_ptr[:4])
+    args = (part, counts[:3 * T], scale, ve, z[:3 * T], x[:3 * T], res)
+    (xk3, rk3), (xp3, rp3) = (tuple(t.cpu().numpy() for t in f(*args))
+                              for f in (TB.mme_sweep, TB.mme_sweep_plain))
+    assert xk3.shape == (3 * T,)
+    np.testing.assert_allclose(xk3, xp3, rtol=0, atol=5e-5 * np.abs(xp3).max())
+    # the residual at chip_smoke.py's bar
+    np.testing.assert_allclose(rk3, rp3, rtol=0, atol=1e-4 * np.abs(rp3).max() + 1e-6)
+
+
+def test_mme_sweep_launch_count_and_refusals(dev):
+    """One sweep is one mme_sweep launch, counted by the library and by the
+    wrapper; float64 raises TypeError and a block of more than 128 sites
+    ValueError, before any launch."""
+    sp_t, counts, scale, ve, z, x, res, _ = _mme_problem(64, dev)
+    TB.mme_sweep(sp_t, counts, scale, ve, z, x, res)
+    TB.reset_kernel_launches()
+    before = TB.mme_sweep.launches
+    TB.mme_sweep(sp_t, counts, scale, ve, z, x, res)
+    counts_k = TB.kernel_launches()
+    assert counts_k["mme_sweep_kernel"] == 1 and sum(counts_k.values()) == 1
+    assert TB.mme_sweep.launches == before + 1
+    with pytest.raises(TypeError, match="float32"):
+        TB.mme_sweep(sp_t, counts, scale, ve, z, x, res.double())
+    big = sp_t._replace(diag_blocks=torch.zeros((1, 136, 136), device=dev))
+    with pytest.raises(ValueError, match="at most"):
+        TB.mme_sweep(big, counts[:136], scale, ve, z[:136], x[:136], res)
+    assert TB.kernel_launches()["mme_sweep_kernel"] == 1
+
+
+@pytest.mark.parametrize("impute", ["pcg", "direct"])
+def test_ssbrm_on_the_card_is_reproducible(impute, dev):
+    """ssbrm on the card (imputation, J and epsilon through mme_sweep, the
+    SNP sweep through sweep_mc): two fits with one seed agree bit for bit,
+    every GEBV is finite, and no plain sweep ran."""
+    import hibayes_tpu_torch as htt
+
+    rng = np.random.default_rng(12)
+    ids, sires, dams = _pedigree(150, 1350, 4)
+    gid = ids[np.sort(rng.choice(len(ids), 400, replace=False))]
+    M = rng.binomial(2, 0.3, size=(400, 300)).astype(np.int8)
+    phe = ids[rng.choice(len(ids), 600, replace=False)]
+    data = {"id": phe, "y": rng.normal(size=600)}
+    plain = TB.mme_sweep_plain.calls + TB.sweep_mc_plain.calls
+    fits = [htt.ssbrm("y ~ 1", data=data, M=torch.as_tensor(M, device=dev), M_id=gid,
+                      pedigree={"id": ids, "sire": sires, "dam": dams}, niter=30,
+                      nburn=10, verbose=False, impute=impute, chunk_cols=128, device=dev)
+            for _ in range(2)]
+    assert TB.mme_sweep_plain.calls + TB.sweep_mc_plain.calls == plain
+    np.testing.assert_array_equal(fits[0].g["gebv"], fits[1].g["gebv"])
+    assert fits[0].Veps == fits[1].Veps and fits[0].J == fits[1].J
+    assert len(fits[0].g["id"]) == 1500 and np.isfinite(fits[0].g["gebv"]).all()
+    assert np.isfinite(fits[0].Veps) and 0 < fits[0].h2 < 1

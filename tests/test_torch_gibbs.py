@@ -37,6 +37,9 @@ def test_prepare_gibbs_data_matches_jax(int8):
     assert s["spec"].row_padded and s["spec"].m % s["spec"].block
     for name in TG.GibbsData._fields:
         r, o = getattr(ref, name), getattr(out, name)
+        if o is None:   # epsl_sp: no single-step term here
+            assert r is None, name
+            continue
         if isinstance(o, tuple):
             assert len(r) == len(o)
             pairs = zip(r, o)
