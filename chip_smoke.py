@@ -13,13 +13,19 @@ Phases, each printing as it goes:
      sbrm: the dense segment sweep (m=1,000 AR(1) LD, B=64) and the tiled
      sweep (8 tile rows of 128 in a 5-tile band, so with masked slots; the
      guard on for BayesCpi and BayesR) for all six models, and one tiled
-     case with a lowered vary where the guard rejects draws (counted).  Bar:
-     at most 1% mixture draws flip, effects within 5e-5 max|g| where the
-     draws agree, residuals (r_hat) within 1e-4 max|.| when none flips; a
-     second kernel sweep on the same inputs must be bit-identical.  Then two
-     small ibrm fits with one seed must agree bit for bit; then each kernel
-     is held to the bar and timed beside its plain version at its main
-     path's shapes;
+     case with a lowered vary where the guard rejects draws (counted).
+     Chain batches: the K-chain rows kernel (sweep_mc at K >= 2, TPU kernel
+     2) at K in {2, 8, 64} x {int8, f32} x {BayesCpi, BayesR} and at
+     block_range=(2, 3), chains 0-7 of K=64 bit for bit the K=8 launch; the
+     K-chain segment sweep at K=4, each chain bit for bit its K=1 launch.
+     Bar: at most 1% mixture draws flip, effects within 5e-5 max|g| where
+     the draws agree, residuals (r_hat) within 1e-4 max|.| when none flips;
+     a second kernel sweep on the same inputs must be bit-identical.  Then
+     two small ibrm fits with one seed must agree bit for bit; then each
+     kernel is held to the bar and timed beside its plain version at its
+     main path's shapes, and sweep_mc at TPU kernels 8's and 2's own shapes
+     (K=1 at n=131,072; K=64 at n=4,096, with torch.matmul of its two
+     products as the library yardstick);
   4. ibrm main path: hibayes_tpu_torch.ibrm("y ~ x1 + (1|grp)",
      method="BayesR") on one chain at n=50,000 x m=65,536 (int8 genotype made
      on the card, h2=0.5 from 500 causal SNPs), niter=200, nburn=100,
@@ -27,6 +33,13 @@ Phases, each printing as it goes:
      kernel's launch count, kept by the library where it launches, is what
      the chain needs, and no plain version ran), finite 0 < h2 < 1, and the
      GEBV accuracy against the simulated truth;
+  4b. the same fit with nchains=4 (after a torch.profiler split of the
+     batch's iteration): launches through the K-chain rows kernel only,
+     every chain finite, R-hat(Ve), GEBV agreement of chains 0 and 1 and
+     pooled accuracy, each against its bar;
+  4c. ibrm("y ~ x1 + (1|grp)", method="BayesCpi", nchains=64) at n=4,096 x
+     m=65,536 (the JAX package's multi-chain configuration), with the same
+     checks, the profiler split and the host time of the 64 chains' noise;
   5. sbrm main path (the configuration of benchmarks/sbrm_tiled_500k.py):
      hibayes_tpu_torch.sbrm(method="BayesCpi") on one chain over a tiled
      LD of m=500,000 SNPs, tile 128, a 9-tile band of 0.9^|i-j| (2.30 GB of
@@ -39,7 +52,8 @@ Phases, each printing as it goes:
      over 3 iterations prints device time by kernel (so does phase 6);
   6. sbrm dense path: the same kind of statistics over a dense AR(1) LD
      (0.9^|i-j|, m=32,768, 4.29 GB f32, block 64), BayesCpi through
-     sweep_s_segment only, then method="CG" on the same LD against a direct
+     sweep_s_segment only, then (6b) the same fit with nchains=4 through the
+     K-chain segment sweep, then method="CG" on the same LD against a direct
      solve on the card;
   7. ssbrm main path (the configuration of benchmarks/ssbrm_100k_pedigree.py
      with m=100,000 SNPs): a 100,000-id pedigree (5,000 founders, parents
@@ -108,6 +122,41 @@ CG_ERR_MAX = 2e-5
 # rounding, and a sweep that draws epsilon or the effects against the
 # wrong system loses most of the record's share.
 SSBRM_CORR_MIN = 0.6
+# Multi-chain gates (phases 4b and 4c).  Split R-hat of Ve over the chains'
+# 20 kept records each cannot certify convergence here, so it bounds
+# divergence instead.  Ve's posterior is narrow (n = 4,096 or 50,000
+# residuals: a relative sd of 2.2% or 0.6%), and at m >> n the chains sit
+# a few percent apart in Ve for thousands of iterations, as the JAX
+# package's own chains do (scripts/chain_mixing.py reference: R-hat(Ve)
+# 1.41 for JAX, 1.22 for the port, 4 chains at n=512, m=8,192; rehearse:
+# 1.85 for this phase's recipe on the CPU; PERF.md).  Its windows
+# study on an H100 put R-hat(Ve) at 1.35-1.90 over 1,500 iterations of
+# phase 4c and 0.99-1.25 over 800 of phase 4b.  Its fault study (these
+# phases, chain seeds 2024 and 2025, sound and with each chain sweeping
+# against chain k+1's residual once or in every sweep; H100) does not let
+# R-hat(Ve) carry the check: sound 1.98-2.14 (4c) and 1.05-1.06 (4b);
+# once 2.59-2.70 and 1.06-1.13; always 1.01-1.02 and 1.92-1.96.  The bars
+# sit above every sound reading and catch a diverging batch; the GEBV
+# agreement of chains 0 and 1 below separates every planted fault.
+RHAT_VE_MAX_FLAGSHIP = 1.5
+RHAT_VE_MAX_MC64 = 2.5
+# The flagship's 4 chains: each is the phase-4 chain's recipe (GEBV
+# accuracy 0.977 on an H100), so the pooled accuracy keeps GEBV_CORR_MIN;
+# two chains' posterior-mean GEBV, each over 20 records, differ by Monte-
+# Carlo error only, and both sit within 0.977 of the truth: 0.95.  In the
+# fault study: sound 0.995; planted faults 0.31-0.88.
+FLAGSHIP_CHAINS_CORR_MIN = 0.95
+# 64 chains at n=4,096, m=65,536 (BayesCpi, 500 causal SNPs, h2=0.5): each
+# causal SNP explains ~1e-3 of the variance, a marginal z of ~2 at this n,
+# so a chain finds few of them and the accuracy is moderate.  A CPU
+# rehearsal of this recipe (scripts/chain_mixing.py rehearse: 2 chains,
+# 200 iterations, the plain sweep) measured GEBV accuracy 0.811 and 0.808
+# (pooled 0.817) and corr(chain 0, chain 1) 0.962.  The card draws another genotype from the
+# same recipe; 0.7 and 0.9 leave room for that and for Monte-Carlo error.
+# In the fault study: sound 0.958-0.959 and accuracy 0.778-0.779; planted
+# faults 0.0006-0.56 and 0.67-0.75, so the agreement bar catches them all.
+MC64_ACC_MIN = 0.7
+MC64_CHAINS_CORR_MIN = 0.9
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM device memory (hopper-kernels guide)
 F32_FLOPS = 67e12           # H100 SXM float32 outside the tensor cores
 
@@ -243,8 +292,16 @@ def host_ms(torch, fn):
 
 
 def cuda_ms(torch, fn, reps):
+    """Device ms per call of ``fn`` (CUDA events over ``reps`` calls), after
+    warm-up calls for at least 0.1 s: the card lowers its clocks while the
+    host runs a plain version, and a short timed loop right after one would
+    meet them low."""
+    t_end = time.perf_counter() + 0.1
     fn()
     torch.cuda.synchronize()
+    while time.perf_counter() < t_end:
+        fn()
+        torch.cuda.synchronize()
     t0, t1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
     t0.record()
     for _ in range(reps):
@@ -333,7 +390,23 @@ def time_kernels(torch, TG, TB, dev, M, y, B, errs, nbg=16):
     errs["sweep_mc"] = max(errs["sweep_mc"], bar(
         TB.sweep_mc_plain(*part, block_range=(0, nbg)),
         TB.sweep_mc(*part, block_range=(0, nbg)), "sweep_mc at the main path's shapes"))
+    # the K-chain rows kernel at phase 4b's shapes, where a tile spans several
+    # chunks of MC_CHUNK_ROWS rows (the smaller checks fit a tile in one)
+    args4 = sweep_args(torch, TG, spec, data, pr, pi, 4, seed=4)
+    per4 = args4[5:]
+    part4 = (spec, args4[0], X, W, xpx[cols], vx[cols], *(a[:, cols] for a in per4[:7]),
+             per4[7], per4[8])
+    out4, again4 = (TB.sweep_mc(*part4, block_range=(0, nbg)) for _ in range(2))
+    tile = TB.rows_per_tile(X.shape[1], X.device, 4)
+    what = (f"sweep_mc K=4 at the main path's shapes ({tile}-row tiles, "
+            f"{tile // TB.MC_CHUNK_ROWS} chunks each)")
+    errs["sweep_mc_k"] = max(errs["sweep_mc_k"], bar(
+        TB.sweep_mc_plain(*part4, block_range=(0, nbg)), out4, what))
+    if not all(torch.equal(a, b) for a, b in zip(out4, again4)):
+        raise AssertionError(f"{what}: two runs differ (not deterministic)")
+    log(f"  ok {what}")
     t = {}
+    t["sweep_mc_k4"] = cuda_ms(torch, lambda: TB.sweep_mc(*part4, block_range=(0, nbg)), 10)
     t["sweep_mc"] = cuda_ms(torch, lambda: TB.sweep_mc(*part, block_range=(0, nbg)), 10)
     t["sweep_mc_plain"] = cuda_ms(
         torch, lambda: TB.sweep_mc_plain(*part, block_range=(0, nbg)), 2)
@@ -358,8 +431,134 @@ def time_kernels(torch, TG, TB, dev, M, y, B, errs, nbg=16):
                    + 4 * m_loc * 3 + nb(per[7], per[8]))   # g, track, vargL; yadj, u out
     bounds = {"sweep_mc": bound(sweep_bytes, nbg * (4.0 * n_rows * B + 2.0 * B * B)),
               "block_draws": bound(nb(W[0], P_b, r0, logpi) + 2 * r0.numel() * 4,
-                                   2.0 * B * B * r0.shape[1])}
+                                   2.0 * B * B * r0.shape[1]),
+              "sweep_mc_k4": bound(nb(X[:nbg], W[:nbg], *part4[4:]) + 4 * 4 * m_loc * 3
+                                   + nb(per4[7], per4[8]),
+                                   nbg * 4 * (4.0 * n_rows * B + 2.0 * B * B))}
     return t, spec.n, bounds
+
+
+def chains(args, k0, k1):
+    """The sweep arguments (sweep_args) of chains k0 .. k1 - 1 of a batch."""
+    consts, X, W, xpx, vx, *per = args
+    return ({c: v[k0:k1] for c, v in consts.items()}, X, W, xpx, vx,
+            *(a[k0:k1] for a in per))
+
+
+def sweep_bound(args, B):
+    """(bound_ms, bound_by) of a K-chain sweep over all of X's blocks: X, W
+    and the per-SNP inputs read once, yadj and u (K, n) read and written,
+    g, track and vargL written; or 4 K n B float32 operations per block for
+    the two products and 2 K B^2 for the draws' corrections."""
+    consts, X, W, xpx, vx, *per = args
+    nbg, n = X.shape[0], X.shape[1]
+    K = per[7].shape[0]
+    by = nbytes(X, W, xpx, vx, *per) + 4 * K * nbg * B * 3 + nbytes(per[7], per[8])
+    return bound(by, nbg * K * (4.0 * n * B + 2.0 * B * B))
+
+
+def check_kernels_mc(torch, TG, TB, dev, errs, n=4096, m=1024, B=128):
+    """The K-chain rows kernel (sweep_mc at K >= 2, the port of TPU kernel
+    2) against its plain version: K in {2, 8, 64} x {int8, f32} x {BayesCpi,
+    BayesR}, each at the bar and bit-identical on a second launch; chains
+    0-7 of the K=64 launch and 0-1 of the K=8 launch bit for bit those of
+    the smaller launches on the same inputs (the kernel's sums do not depend
+    on K; the per-chain sums of phase C are torch reductions and are left
+    out); and block_range=(2, 3) at K=8."""
+    gen = torch.Generator(device=dev).manual_seed(17)
+    M = make_genotype(torch, n, m, gen, dev)
+    y = (M[:, :64].float() @ (0.1 * torch.randn(64, generator=gen, device=dev))
+         + torch.randn(n, generator=gen, device=dev)).cpu().numpy()
+    for x_int8 in (True, False):
+        for model in ("BayesCpi", "BayesR"):
+            fold = np.array([0.0, 1e-4, 1e-3, 1e-2]) if model == "BayesR" else None
+            data = TG.prepare_gibbs_data(
+                y, M if x_int8 else M.float(), block=B, fold=fold,
+                geno_dtype="int8" if x_int8 else None, device=dev)
+            spec, pr, pi = make_spec(TG, model, data, m, n)
+            all64 = sweep_args(torch, TG, spec, data, pr, pi, 64, seed=64)
+            outs = {}
+            for K in (2, 8, 64):
+                args = chains(all64, 0, K)
+                out = TB.sweep_mc(spec, *args)
+                ref = TB.sweep_mc_plain(spec, *args)
+                again = TB.sweep_mc(spec, *args)
+                torch.cuda.synchronize()
+                what = f"sweep_mc {model} {'int8' if x_int8 else 'f32'} K={K}"
+                errs["sweep_mc_k"] = max(errs["sweep_mc_k"], bar(ref, out, what))
+                if not all(torch.equal(a, b) for a, b in zip(out, again)):
+                    raise AssertionError(f"{what}: two runs differ (not deterministic)")
+                outs[K] = out
+                log(f"  ok {what}")
+            for small, big in ((8, 64), (2, 8)):
+                if not all(torch.equal(a[:small], b)
+                           for a, b in zip(outs[big][:5], outs[small][:5])):
+                    raise AssertionError(f"sweep_mc {model}: chains 0-{small - 1} of K={big} "
+                                         f"differ from the K={small} launch")
+            log(f"  ok sweep_mc {model}: chains 0-7 of K=64 and 0-1 of K=8 bit for bit "
+                f"the K=8 and K=2 launches")
+            if x_int8 and model == "BayesR":
+                off, nbg = 2, 3
+                consts, X, W, xpx, vx, *per = chains(all64, 0, 8)
+                cols = slice(off * B, (off + nbg) * B)
+                loc = [a[:, cols] for a in per[:7]]
+                out = TB.sweep_mc(spec, consts, X, W, xpx[cols], vx[cols], *loc,
+                                  per[7], per[8], block_range=(off, nbg))
+                ref = TB.sweep_mc_plain(
+                    spec, consts, X[off:off + nbg].contiguous(),
+                    W[off:off + nbg].contiguous(), xpx[cols], vx[cols], *loc,
+                    per[7], per[8])
+                errs["sweep_mc_k"] = max(errs["sweep_mc_k"],
+                                         bar(ref, out, "sweep_mc offset (2, 3) BayesR K=8"))
+                log("  ok sweep_mc block_range=(2, 3) BayesR int8 K=8")
+
+
+def time_k5(torch, TG, TB, dev, errs, B=128, nbg=16):
+    """Rows 2 and 8 of PERF.md's kernel table, each at its TPU kernel's own
+    shapes over nbg blocks, held to the bar and timed with CUDA events
+    beside its plain version.  Row 8 (sweep_chunked, X streamed in 2,048-row
+    chunks beyond kernel 1's VMEM reach): sweep_mc at K=1, n=131,072 =
+    64 x 2,048, int8, BayesR.  Row 2 (sweep_mc, K chains sharing X_b):
+    sweep_mc at K=64, n=4,096, int8, BayesCpi, with torch.matmul of its two
+    products per block, (K, n) x (n, B) and (K, B) x (B, n) in float32, as
+    the library yardstick (no PyTorch call computes the draws).  Row 1
+    (sweep, the X block VMEM-resident) is sweep_mc at K=1 at the main
+    path's n=50,176, which time_kernels times for row 3.  Returns (times,
+    bounds)."""
+    t, bounds = {}, {}
+    gen = torch.Generator(device=dev).manual_seed(23)
+    for key, n, K, model in (("k8", 131_072, 1, "BayesR"), ("k2", 4096, 64, "BayesCpi")):
+        m = nbg * B
+        M = make_genotype(torch, n, m, gen, dev)
+        y = (M[:, :64].float() @ (0.1 * torch.randn(64, generator=gen, device=dev))
+             + torch.randn(n, generator=gen, device=dev)).cpu().numpy()
+        fold = np.array([0.0, 1e-4, 1e-3, 1e-2]) if model == "BayesR" else None
+        data = TG.prepare_gibbs_data(y, M, block=B, fold=fold, geno_dtype="int8", device=dev)
+        del M
+        spec, pr, pi = make_spec(TG, model, data, m, n)
+        args = sweep_args(torch, TG, spec, data, pr, pi, K, seed=K)
+        what = f"sweep_mc K={K} at n={n}, B={B}, int8, {model}, {nbg} blocks"
+        errs["sweep_mc_" + key] = bar(TB.sweep_mc_plain(spec, *args),
+                                      TB.sweep_mc(spec, *args), what)
+        log(f"  ok {what}")
+        t["sweep_mc_" + key] = cuda_ms(torch, lambda: TB.sweep_mc(spec, *args), 10)
+        t["sweep_mc_" + key + "_plain"] = cuda_ms(torch, lambda: TB.sweep_mc_plain(spec, *args), 1)
+        bounds["sweep_mc_" + key] = sweep_bound(args, B)
+        if K > 1:
+            Xf = data.X_blocks.float()
+            yadj = args[12]
+            dg = 0.01 * torch.randn((K, B), generator=gen, device=dev)
+
+            def products():
+                for b in range(nbg):
+                    torch.matmul(yadj, Xf[b])
+                    torch.matmul(dg, Xf[b].T)
+
+            t["sweep_mc_k2_library"] = cuda_ms(torch, products, 10)
+            del Xf
+        del data, args
+        torch.cuda.empty_cache()
+    return t, bounds
 
 
 # ---------------------------------------------------------------------------
@@ -515,6 +714,40 @@ def check_s_kernels(torch, TG, TSG, TSLD, TB, dev, errs):
     return nrej_low
 
 
+def check_segment_mc(torch, TG, TSG, TB, dev, errs, K=4, m=1000):
+    """The K-chain segment sweep (sweep_s_segment over K chains, whose
+    draws are TPU kernel 7's) at K=4 against its plain version on a dense
+    AR(1) LD, BayesCpi and BayesR: the bar, a bit-identical second launch,
+    and each chain bit for bit a K=1 launch (the single-chain sweep) on
+    that chain's inputs."""
+    from hibayes_tpu_torch.data.ld import DenseLD
+
+    gen = torch.Generator(device=dev).manual_seed(13)
+    LD = ar1_ld(torch, m, dev)
+    ss, _ = summary_stats(torch, lambda v: LD @ v, m, m, gen, dev)
+    for model in ("BayesCpi", "BayesR"):
+        data, spec, pr, pi = s_setup(torch, TG, TSG, ss, DenseLD(values=LD), model, 64,
+                                     dev, False)
+        seg = data.ld_segs[0]
+        ins = [s_sweep_inputs(torch, TSG, spec, data, pr, pi, lambda v: seg @ v, seed=5 + k)
+               for k in range(K)]
+        g, r, P = (torch.stack(x) for x in zip(*ins))
+        outs = [TB.sweep_s_segment(spec, seg, r, P, spec.n) for _ in range(2)]
+        ref = TB.sweep_s_segment_plain(spec, seg, r, P, spec.n)
+        ones = [TB.sweep_s_segment(spec, seg, r[k], P[k], spec.n) for k in range(K)]
+        torch.cuda.synchronize()
+        what = f"sweep_s_segment {model} K={K}"
+        errs["sweep_s_segment_k"] = max(errs["sweep_s_segment_k"], bar(
+            (g - ref[0], ref[1], ref[2]), (g - outs[0][0], outs[0][1], outs[0][2]),
+            what, r_index=2))
+        if not all(torch.equal(a, b) for a, b in zip(*outs)):
+            raise AssertionError(f"{what}: two runs differ (not deterministic)")
+        for k, one in enumerate(ones):
+            if not all(torch.equal(a[k], b) for a, b in zip(outs[0], one)):
+                raise AssertionError(f"{what}: chain {k} differs from its K=1 launch")
+        log(f"  ok {what} (m={m}, B=64); each chain bit for bit its K=1 launch")
+
+
 def nbytes(*ts):
     return sum(t.numel() * t.element_size() for t in ts)
 
@@ -560,7 +793,27 @@ def time_segment(torch, TSG, TB, spec, data, pr, pi, errs):
     errs["sweep_s_segment"] = max(errs["sweep_s_segment"], bar(
         (g - ref[0], ref[1], ref[2]), (g - out[0], out[1], out[2]),
         "sweep_s_segment at the dense path's shapes", r_index=2))
-    t = {"sweep_s_segment": cuda_ms(torch, lambda: TB.sweep_s_segment(spec, seg, r, P, spec.n), 3),
+    # the K-chain segment sweep on the same segment: the bar, a bit-identical
+    # second launch, each chain bit for bit its K=1 launch
+    ins = [s_sweep_inputs(torch, TSG, spec, data, pr, pi, lambda v: seg @ v, 20 + k)
+           for k in range(4)]
+    g4, r4, P4 = (torch.stack(x) for x in zip(*ins))
+    outs = [TB.sweep_s_segment(spec, seg, r4, P4, spec.n) for _ in range(2)]
+    ref = TB.sweep_s_segment_plain(spec, seg, r4, P4, spec.n)
+    what = f"sweep_s_segment K=4 at the dense path's shapes (m={seg.shape[0]})"
+    errs["sweep_s_segment_k"] = max(errs["sweep_s_segment_k"], bar(
+        (g4 - ref[0], ref[1], ref[2]), (g4 - outs[0][0], outs[0][1], outs[0][2]),
+        what, r_index=2))
+    if not all(torch.equal(a, b) for a, b in zip(*outs)):
+        raise AssertionError(f"{what}: two runs differ (not deterministic)")
+    for k in range(4):
+        one = TB.sweep_s_segment(spec, seg, r4[k], P4[k], spec.n)
+        if not all(torch.equal(a[k], b) for a, b in zip(outs[0], one)):
+            raise AssertionError(f"{what}: chain {k} differs from its K=1 launch")
+    log(f"  ok {what}; each chain bit for bit its K=1 launch")
+    t = {"sweep_s_segment_k4": cuda_ms(
+             torch, lambda: TB.sweep_s_segment(spec, seg, r4, P4, spec.n), 3),
+         "sweep_s_segment": cuda_ms(torch, lambda: TB.sweep_s_segment(spec, seg, r, P, spec.n), 3),
          "sweep_s_segment_host": host_ms(
              torch, lambda: TB.sweep_s_segment(spec, seg, r, P, spec.n)),
          "sweep_s_segment_plain": cuda_ms(
@@ -574,9 +827,9 @@ def profile_iterations(torch, step, state, what, iters=3, split=None):
     """torch.profiler over ``iters`` iterations (``state = step(state)``)
     after one unprofiled warm-up: device time by kernel, and the device's
     busy share of the profiled wall time.  With ``split`` (a dict), fills
-    in the ms per iteration of the SNP sweep's kernels (sweep_mc), the
-    epsilon sweep (mme_sweep) and the rest (torch).  Returns the final
-    state."""
+    in the ms per iteration of the SNP sweep's kernels (sweep_mc: rows and
+    draws), the epsilon sweep (mme_sweep) and the rest (torch), and the
+    wall.  Returns the final state."""
     from torch.profiler import ProfilerActivity, profile
 
     state = step(state)
@@ -600,11 +853,123 @@ def profile_iterations(torch, step, state, what, iters=3, split=None):
     if split is not None:
         part = lambda *keys: sum(t for k, (t, _) in kern.items()
                                  if any(x in k for x in keys)) / 1e3
-        split["sweep_mc"] = part("rows_kernel", "draws_kernel")
+        split["rows"] = part("rows_kernel", "rows_mc_kernel")
+        split["draws"] = part("draws_kernel")
+        split["sweep_mc"] = split["rows"] + split["draws"]
         split["mme_sweep"] = part("mme_sweep_kernel")
         split["torch"] = busy / 1e3 - split["sweep_mc"] - split["mme_sweep"]
         split["wall"] = 1e3 * wall / iters
     return state
+
+
+def chain_gebv(fit, nchains, n_records):
+    """Posterior-mean GEBV of each chain of a pooled fit (chain-major records)."""
+    g = fit.MCMCsamples["g"]
+    return [g[:, k * n_records:(k + 1) * n_records].mean(axis=1) for k in range(nchains)]
+
+
+def ibrm_chains(torch, hibayes_tpu_torch, TB, M, data, gv, method, nchains, niter, nburn,
+                seed, smi, what, acc_min, corr_min, rhat_max, B=128):
+    """hibayes_tpu_torch.ibrm("y ~ x1 + (1|grp)", nchains=...) on the card:
+    the sweep through sweep_mc with the K-chain rows kernel only (launch
+    counts), every chain finite, R-hat(Ve) below ``rhat_max``, GEBV of
+    chains 0 and 1 correlated at ``corr_min`` or more, and the pooled GEBV's
+    accuracy against the truth at ``acc_min`` or more.  Prints ms/iter,
+    aggregate and per-chain SNP-updates/s, R-hat and the spread of the
+    chains' mean Ve.  Returns the fit's numbers."""
+    thin = 5
+    n_rec = (niter - nburn) // thin
+    niter_eff = nburn + n_rec * thin
+    m = M.shape[1]
+    reset_counts(TB)
+    t0 = time.perf_counter()
+    fit = hibayes_tpu_torch.ibrm(
+        "y ~ x1 + (1|grp)", data=data, M=M, M_id=data["id"], method=method,
+        niter=niter, nburn=nburn, thin=thin, block=B, seed=seed,
+        device=M.device, nchains=nchains, verbose=False)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches, plain = read_counts(TB)
+    nblocks = -(-m // B)
+    expect_counts(launches, plain, {"sweep_mc": niter_eff,
+                                    "rows_mc_kernel": niter_eff * (nblocks + 1),
+                                    "draws_kernel": niter_eff * nblocks}, what)
+    smp = fit.MCMCsamples
+    for k in ("mu", "Vg", "Ve", "h2", "alpha"):
+        per = smp[k].reshape((nchains, n_rec) + smp[k].shape[1:])
+        bad = [c for c in range(nchains) if not np.isfinite(per[c]).all()]
+        if bad:
+            raise AssertionError(f"{what}: chains {bad} have non-finite {k}")
+    gebv = chain_gebv(fit, nchains, n_rec)
+    gv_np = gv.cpu().numpy()
+    ve = smp["Ve"].reshape(nchains, n_rec).mean(axis=1)
+    corr01 = float(np.corrcoef(gebv[0], gebv[1])[0, 1])
+    acc = float(np.corrcoef(fit.g["gebv"], gv_np)[0, 1])
+    acc0 = float(np.corrcoef(gebv[0], gv_np)[0, 1])
+    sec = fit.chain_seconds
+    out = {"ms_per_iter": 1e3 * sec / niter_eff,
+           "snp_updates_per_s": nchains * m * niter_eff / sec,
+           "per_chain_snp_updates_per_s": m * niter_eff / sec,
+           "rhat_Vg": fit.rhat["Vg"], "rhat_Ve": fit.rhat["Ve"], "corr01": corr01,
+           "acc": acc, "acc0": acc0, "wall_s": wall, "launches": launches,
+           "ve_spread": float((ve.max() - ve.min()) / ve.mean())}
+    log(f"[{what}] ibrm {method} nchains={nchains} n={M.shape[0]} m={m}: Vg {fit.Vg:.4f} "
+        f"Ve {fit.Ve:.4f} h2 {fit.h2:.4f}; R-hat Vg {out['rhat_Vg']:.4f} Ve "
+        f"{out['rhat_Ve']:.4f} (bar {rhat_max}), chains' mean Ve within "
+        f"{100 * out['ve_spread']:.2f}% of each other; corr(GEBV chain 0, chain 1) "
+        f"{corr01:.4f} (bar {corr_min}); GEBV accuracy pooled {acc:.4f} (bar {acc_min}), "
+        f"chain 0 {acc0:.4f}")
+    log(f"[{what}] wall {wall:.2f} s; chain {sec:.2f} s = {out['ms_per_iter']:.2f} ms/iter, "
+        f"{out['snp_updates_per_s']:.4g} SNP-updates/s over {nchains} chains, "
+        f"{out['per_chain_snp_updates_per_s']:.4g} per chain on {smi}")
+    if not out["rhat_Ve"] < rhat_max:
+        raise AssertionError(f"{what}: R-hat(Ve) {out['rhat_Ve']} not below {rhat_max}")
+    if not corr01 >= corr_min:
+        raise AssertionError(f"{what}: chains 0 and 1 GEBV corr {corr01} below {corr_min}")
+    if not acc >= acc_min:
+        raise AssertionError(f"{what}: GEBV accuracy {acc} below {acc_min}")
+    return out
+
+
+def profile_chains(torch, TG, TB, M, y, nchains, model, smi, B=128):
+    """torch.profiler over iterations of a K-chain batch at a phase's
+    shapes (int8, no covariates): device time of the K-chain rows kernel,
+    the draws and the torch ops per iteration; and the host time to enqueue
+    a whole iteration, its pre-sweep (with the per-chain draws: the one
+    loop over chains), sweep and post-sweep, and the sweep's per-chain
+    random numbers alone."""
+    dev = M.device
+    n, m = M.shape
+    fold = np.array([0.0, 1e-4, 1e-3, 1e-2]) if model == "BayesR" else None
+    data = TG.prepare_gibbs_data(y, M, block=B, fold=fold, geno_dtype="int8", device=dev)
+    spec, pr, pi = make_spec(TG, model, data, m, n)
+    states = TG.stack_state(TG.init_state(spec, data, pr, pi), nchains)
+    split = {}
+    states = profile_iterations(torch, lambda ss: TG.one_iteration_batch(spec, data, 1, ss),
+                                states, f"ibrm {model} n={n} K={nchains}", split=split)
+    noise = TG.chain_noise(1, states.it, nchains, dev, torch.float32)
+    split["host_noise"] = host_ms(
+        torch, lambda: TG._sweep_noise(spec, noise, (nchains,), torch.float32, dev))
+    split["host_iteration"] = host_ms(
+        torch, lambda: TG.one_iteration_batch(spec, data, 1, states))
+    pre = {}
+    split["host_pre_sweep"] = host_ms(
+        torch, lambda: pre.update(TG._pre_sweep(spec, data, noise, states)))
+    sweep = lambda: TB.sweep_mc(spec, pre["consts"], data.X_blocks, data.W_blocks, data.xpx,
+                                data.vx, pre["vei"], states.g, *pre["rnd"], pre["vargL_in"],
+                                pre["yadj"], pre["u"])
+    split["host_sweep"] = host_ms(torch, sweep)
+    out = sweep()
+    split["host_post_sweep"] = host_ms(
+        torch, lambda: TG._post_sweep(spec, data, noise, states, pre, out))
+    log(f"[profile ibrm {model} n={n} K={nchains}] split per iteration on {smi}: rows_mc_kernel "
+        f"{split['rows']:.3f} ms, draws_kernel {split['draws']:.3f} ms, torch ops "
+        f"{split['torch']:.3f} ms (device); host enqueue of a whole iteration "
+        f"{split['host_iteration']:.3f} ms = pre-sweep {split['host_pre_sweep']:.3f} ms (of "
+        f"it the sweep's per-chain noise {split['host_noise']:.3f} ms) + sweep "
+        f"{split['host_sweep']:.3f} ms + post-sweep {split['host_post_sweep']:.3f} ms; "
+        f"wall {split['wall']:.3f} ms")
+    return split
 
 
 KERNELS = ("sweep_mc", "block_draws", "sweep_s_segment", "sweep_s_tiled", "mme_sweep")
@@ -861,6 +1226,8 @@ def main(argv=None) -> int:
                     help="pedigree ids of the ssbrm path (5%% founders, 20%% genotyped, "
                          "5%% + 5%% phenotyped)")
     ap.add_argument("--ss-m", type=int, default=100_000, help="SNPs of the ssbrm path")
+    ap.add_argument("--mc-m", type=int, default=65_536,
+                    help="SNPs of the multi-chain path (n=4,096)")
     args = ap.parse_args(argv)
 
     import torch
@@ -899,8 +1266,11 @@ def main(argv=None) -> int:
     # ---- 3. kernels vs plain ----
     t0 = time.perf_counter()
     errs = check_kernels(torch, TG, TB, dev, n=4096, m=1024, B=128)
-    errs.update(sweep_s_segment=0.0, sweep_s_tiled=0.0)
+    errs.update(sweep_s_segment=0.0, sweep_s_tiled=0.0, sweep_mc_k=0.0,
+                sweep_s_segment_k=0.0)
     nrej = check_s_kernels(torch, TG, TSG, TSLD, TB, dev, errs)
+    check_kernels_mc(torch, TG, TB, dev, errs)
+    check_segment_mc(torch, TG, TSG, TB, dev, errs)
     log(f"[3] kernel checks passed in {time.perf_counter() - t0:.1f} s: {errs}; "
         f"the guard rejected {nrej} first draws at the lowered vary")
 
@@ -925,6 +1295,13 @@ def main(argv=None) -> int:
     log(f"[3] kernels match their plain versions at n={args.n} too: {errs}")
     log(f"[3] times (ms) at n={args.n} (padded {n_rows}), B={B}, K=1, BayesR "
         f"int8 on {smi}: {json.dumps(times)}")
+    t_k5, b_k5 = time_k5(torch, TG, TB, dev, errs)
+    times.update(t_k5)
+    bounds.update(b_k5)
+    log(f"[3] TPU kernels 8 and 2 at their own shapes (sweep_mc K=1 at n=131,072; K=64 "
+        f"at n=4,096; 16 blocks of 128, int8): times (ms) on {smi}: {json.dumps(t_k5)}; "
+        f"bounds {json.dumps(b_k5)}; kernel 1 is sweep_mc at K=1 at n={n_rows} "
+        f"({times['sweep_mc']:.4f} ms, above)")
 
     # ---- 4. ibrm main path ----
     thin = 5
@@ -959,7 +1336,27 @@ def main(argv=None) -> int:
         f"ms/iter, {niter_eff * args.m / chain_s:.4g} SNP-updates/s on {smi}")
     if not corr >= GEBV_CORR_MIN:
         raise AssertionError(f"GEBV accuracy {corr} below {GEBV_CORR_MIN}")
-    del M, data, gv, fit
+    del fit
+
+    # ---- 4b. the flagship with 4 chains, to read R-hat ----
+    split4 = profile_chains(torch, TG, TB, M, data["y"], 4, "BayesR", smi, B)
+    flag = ibrm_chains(torch, hibayes_tpu_torch, TB, M, data, gv, "BayesR", 4, args.niter,
+                       args.nburn, args.seed, smi, "4b", GEBV_CORR_MIN,
+                       FLAGSHIP_CHAINS_CORR_MIN, RHAT_VE_MAX_FLAGSHIP, B)
+    del M, data, gv
+    torch.cuda.empty_cache()
+
+    # ---- 4c. 64 chains at the TPU's multi-chain configuration ----
+    t0 = time.perf_counter()
+    M, data, gv = simulate(torch, 4096, args.mc_m, gen, dev)
+    torch.cuda.synchronize()
+    log(f"[4c] genotype {tuple(M.shape)} int8 made on the card in "
+        f"{time.perf_counter() - t0:.1f} s")
+    split64 = profile_chains(torch, TG, TB, M, data["y"], 64, "BayesCpi", smi, B)
+    mc64 = ibrm_chains(torch, hibayes_tpu_torch, TB, M, data, gv, "BayesCpi", 64, args.niter,
+                       args.nburn, args.seed, smi, "4c", MC64_ACC_MIN, MC64_CHAINS_CORR_MIN,
+                       RHAT_VE_MAX_MC64, B)
+    del M, data, gv
     torch.cuda.empty_cache()
 
     # ---- 5. sbrm main path: tiled LD ----
@@ -1034,6 +1431,29 @@ def main(argv=None) -> int:
         f"ms/iter, {niter_eff * args.dm / fit.chain_seconds:.4g} SNP-updates/s on {smi}")
     if not corr_d >= SBAYES_CORR_MIN:
         raise AssertionError(f"sbrm dense accuracy {corr_d} below {SBAYES_CORR_MIN}")
+    del fit
+
+    # ---- 6b. the dense chain with 4 chains ----
+    reset_counts(TB)
+    fit = hibayes_tpu_torch.sbrm(ss, LD, method="BayesCpi", niter=args.niter,
+                                 nburn=args.nburn, thin=thin, seed=args.seed,
+                                 device=dev, nchains=4, verbose=False)
+    torch.cuda.synchronize()
+    d4_launches, plain = read_counts(TB)
+    expect_counts(d4_launches, plain, {"sweep_s_segment": niter_eff,
+                                       "segment_draws": niter_eff * nb_d,
+                                       "segment_update": niter_eff * nb_d}, "6b")
+    corr_d4 = check_fit(fit, b_true, "sbrm dense, 4 chains")
+    if not np.isfinite(fit.MCMCsamples["alpha"]).all():
+        raise AssertionError("sbrm dense, 4 chains: non-finite effects")
+    log(f"[6b] sbrm BayesCpi dense m={args.dm}, 4 chains: Vg {fit.Vg:.4f} Ve {fit.Ve:.4f} "
+        f"h2 {fit.h2:.4f}; R-hat Vg {fit.rhat['Vg']:.4f} Ve {fit.rhat['Ve']:.4f}; "
+        f"corr(alpha, b_true) {corr_d4:.4f} (bar {SBAYES_CORR_MIN}); chain "
+        f"{fit.chain_seconds:.2f} s = {1e3 * fit.chain_seconds / niter_eff:.2f} ms/iter, "
+        f"{4 * niter_eff * args.dm / fit.chain_seconds:.4g} SNP-updates/s over 4 chains "
+        f"on {smi}")
+    if not corr_d4 >= SBAYES_CORR_MIN:
+        raise AssertionError(f"sbrm dense 4-chain accuracy {corr_d4} below {SBAYES_CORR_MIN}")
     del fit
     t0 = time.perf_counter()
     cg = hibayes_tpu_torch.sbrm(ss, LD, method="CG", device=dev, verbose=False)
@@ -1159,18 +1579,36 @@ def main(argv=None) -> int:
                 "plain_ms": times[key + "_plain"], "bound_ms": b_ms, "bound_by": b_by,
                 "library_ms": library_ms, **extra}
 
+    l64 = mc64["launches"]
     kernels = [
+        entry("rows_mc_kernel", src, "hibayes_tpu/ops/blockgibbs.py:318",
+              l64["rows_mc_kernel"], errs["sweep_mc_k"], "sweep_mc_k2",
+              library_ms=times["sweep_mc_k2_library"], sweep_mc_launches=l64["sweep_mc"],
+              draws_kernel_launches=l64["draws_kernel"], timed="sweep_mc at K=64, n=4,096",
+              flagship_4_chains_rows_mc_launches=flag["launches"]["rows_mc_kernel"],
+              flagship_4_chains_ms=times["sweep_mc_k4"],
+              flagship_4_chains_bound_ms=bounds["sweep_mc_k4"][0],
+              k64_split_ms=split64, flagship_4_chains_split_ms=split4),
+        entry("sweep_mc_k1_for_kernel1", src, "hibayes_tpu/ops/blockgibbs.py:138",
+              launches["sweep_mc"], errs["sweep_mc"], "sweep_mc",
+              timed=f"sweep_mc at K=1, n={n_rows} (as row 3)"),
+        entry("sweep_mc_k1_for_kernel8", src, "hibayes_tpu/ops/blockgibbs.py:1371",
+              launches["sweep_mc"], errs["sweep_mc_k8"], "sweep_mc_k8",
+              timed="sweep_mc at K=1, n=131,072"),
         entry("sweep_mc", src, "hibayes_tpu/ops/blockgibbs.py:642", launches["sweep_mc"],
               errs["sweep_mc"], "sweep_mc", rows_kernel_launches=launches["rows_kernel"],
               ssbrm_launches=e_launches["sweep_mc"], ssbrm_ms=times["sweep_mc_ssbrm"],
               ssbrm_plain_ms=times["sweep_mc_ssbrm_plain"],
               ssbrm_bound_ms=bounds["sweep_mc_ssbrm"][0]),
         entry("draws_kernel", src, "hibayes_tpu/ops/blockgibbs.py:1264",
-              launches["draws_kernel"], errs["block_draws"], "block_draws"),
+              launches["draws_kernel"], errs["block_draws"], "block_draws",
+              segment_4_chains_draws_launches=d4_launches["segment_draws"]),
         entry("sweep_s_segment", ssrc, "hibayes_tpu/ops/blockgibbs.py:1141",
               d_launches["sweep_s_segment"], errs["sweep_s_segment"], "sweep_s_segment",
               segment_draws_launches=d_launches["segment_draws"],
-              segment_update_launches=d_launches["segment_update"]),
+              segment_update_launches=d_launches["segment_update"],
+              k4_launches=d4_launches["sweep_s_segment"],
+              k4_max_abs_err=errs["sweep_s_segment_k"], k4_ms=times["sweep_s_segment_k4"]),
         entry("sweep_s_tiled", ssrc, "hibayes_tpu/ops/blockgibbs.py:1635",
               s_launches["sweep_s_tiled"], errs["sweep_s_tiled"], "sweep_s_tiled",
               tiled_draws_launches=s_launches["tiled_draws"],

@@ -11,14 +11,18 @@
 //   hb_sweep_mc   <- _kernel_mc_t  / sweep_mc_t           (:642-764)
 //                    _kernel_mc_ti / sweep_mc_ti          (:777-909)
 //                    _kernel_mc_tc / sweep_mc_tc          (:937-1095)
+//                    _kernel_mc    / sweep_mc             (:318-523), K >= 2
+//                    and, at K = 1, the single-chain sweeps
+//                    _kernel         / sweep              (:138-315)
+//                    _kernel_chunked / sweep_chunked      (:1371-1589)
 //
 // The TPU sweeps keep a whole X block (n x B) in VMEM and carry yadj/u
 // across an in-order grid.  On Hopper a block has at most 227 KB of shared
 // memory (an int8 X block is 6.4 MB at n = 50,000) and CTAs run in no order,
 // so one sweep is a sequence of launches on one stream, two per SNP block:
 //
-//   rows_kernel   grid over row tiles of n, about one tile per SM (the
-//                 caller picks the tile size).  Applies the previous
+//   rows_kernel   (K = 1) grid over row tiles of n, about one tile per SM
+//                 (the caller picks the tile size).  Applies the previous
 //                 block's effect changes (yadj += X_{b-1} dg, u -= X_{b-1} dg)
 //                 to its rows, then writes its partial X_b' yadj (K, B).
 //                 Bound by device-memory latency: it streams X_{b-1}
@@ -26,6 +30,12 @@
 //                 of f32 or 4 bytes of int8 per lane per row, coalesced, four
 //                 rows in flight per warp, and each warp makes only a few
 //                 round trips to memory, so every SM must take part.
+//   rows_mc_kernel  (K >= 2, the port of _kernel_mc's two products) the
+//                 same work for K chains that share X: each CTA stages its
+//                 tile of X_{b-1} and X_b in shared memory, 32 rows at a time,
+//                 once, and serves up to 64 chains from there, so X crosses
+//                 memory once per sweep and not once per chain.  Float32 FMAs
+//                 on the CUDA cores (f32 means f32: no TF32).
 //   draws_kernel  one CTA per group of 8 chains.  Reduces the row-tile
 //                 partials in a fixed order (no atomics: a chain is
 //                 reproducible run to run), loads W_b (64 KB at B = 128) and
@@ -52,8 +62,20 @@ constexpr int kRowWarps = 32;
 constexpr int kRowThreads = kWarp * kRowWarps;
 constexpr int kRowUnroll = 4;   // rows in flight per warp (8 spills at 64 registers)
 
+// rows_mc_kernel: 8 warps; a CTA serves up to kMcChains chains (grid.y =
+// ceil(K / kMcChains)), warp w the chains w, w + 8, ... (at most
+// kMcChains / kMcWarps of them); a chunk is kMcRows rows, one per lane in
+// the residual update.
+constexpr int kMcWarps = 8;
+constexpr int kMcThreads = kWarp * kMcWarps;
+constexpr int kMcChains = 64;
+constexpr int kMcRows = kWarp;
+// (row, 4-column) pieces of one chunk of one X block each thread stages
+constexpr int kMcPieces = kMcRows * (kMaxBlock / 4) / kMcThreads;
+
 // Launches of each kernel, counted where it is launched (hb_launch_counts).
 long long g_rows_launches = 0;
+long long g_rows_mc_launches = 0;
 long long g_draws_launches = 0;
 
 __device__ __forceinline__ void load4(const int8_t* p, float v[4]) {
@@ -144,6 +166,197 @@ rows_kernel(const XT* __restrict__ Xprev, const float* __restrict__ dgprev,
     float s = 0.f;
     for (int w = 0; w < kRowWarps; ++w) s += red[w][c];
     partial[(static_cast<long long>(tile) * K + k) * B + c] = s;
+  }
+}
+
+// Shared memory of rows_mc_kernel, in floats: the previous block's dg of
+// the CTA's kc chains (kc, B); a chunk of X_{b-1} and of X_b as float
+// (kMcRows, B + 4 each: the pitch keeps the lanes' float4 reads of one
+// column group in distinct banks); the chunk's updated yadj (kc, kMcRows).
+// At kc = 64, B = 128: 32 KB + 2 x 16.5 KB + 8 KB = 74 KB of the 227 KB a
+// block may hold, whatever n: the chunk, not the tile, bounds it.
+inline size_t rows_mc_smem(int B, int kc) {
+  return sizeof(float) * (static_cast<size_t>(kc) * B + 2 * kMcRows * (B + 4) +
+                          static_cast<size_t>(kc) * kMcRows);
+}
+
+// Stage thread-owned pieces of rows [r0, r0 + kMcRows) of one X block
+// (zeros past row_end) into registers: piece p of this thread is
+// i = threadIdx.x + p * kMcThreads, row i / (B / 4), columns 4 (i % (B / 4)).
+template <typename XT>
+__device__ __forceinline__ void load_chunk(const XT* X, int r0, int row_end,
+                                           int B, float v[kMcPieces][4]) {
+  const int B4 = B / 4;
+#pragma unroll
+  for (int p = 0; p < kMcPieces; ++p) {
+    const int i = threadIdx.x + p * kMcThreads;
+    const int r = i / B4;
+    v[p][0] = v[p][1] = v[p][2] = v[p][3] = 0.f;
+    if (X != nullptr && r < kMcRows && r0 + r < row_end)
+      load4(X + static_cast<size_t>(r0 + r) * B + 4 * (i - r * B4), v[p]);
+  }
+}
+
+__device__ __forceinline__ void store_chunk(float* xs, int B,
+                                            const float v[kMcPieces][4]) {
+  const int B4 = B / 4;
+#pragma unroll
+  for (int p = 0; p < kMcPieces; ++p) {
+    const int i = threadIdx.x + p * kMcThreads;
+    const int r = i / B4;
+    if (r < kMcRows)
+      *reinterpret_cast<float4*>(xs + r * (B + 4) + 4 * (i - r * B4)) =
+          make_float4(v[p][0], v[p][1], v[p][2], v[p][3]);
+  }
+}
+
+// yadj and u (u == nullptr: zeros) of one row for each chain of the warp.
+template <int SLOTS>
+__device__ __forceinline__ void load_rows(const float* yadj, const float* u, int n,
+                                          int k0, int kc, int row, int row_end,
+                                          float y[SLOTS], float uu[SLOTS]) {
+  const int warp = threadIdx.x / kWarp;
+#pragma unroll
+  for (int s = 0; s < SLOTS; ++s) {
+    const int kk = warp + kMcWarps * s;
+    const long long at = static_cast<long long>(k0 + kk) * n + row;
+    const bool ok = kk < kc && row < row_end;
+    y[s] = ok ? yadj[at] : 0.f;
+    uu[s] = ok && u != nullptr ? u[at] : 0.f;
+  }
+}
+
+// grid (ntiles, ceil(K / kMcChains)), kMcThreads threads, dynamic shared
+// memory rows_mc_smem(B, min(K - k0, kMcChains)).  Tile t holds rows
+// [t * rows_per_tile, (t + 1) * rows_per_tile) of n, walked in chunks of
+// kMcRows rows; the next chunk's X is loaded into registers while the
+// current one is used.  Per chunk, for every chain k of the CTA:
+//   residual update (lane = row, warp w's chains): delta = X_{b-1}[row, :] .
+//     dg_{b-1}[k, :], summed over the columns in order; yadj += delta,
+//     u -= delta;
+//   partial (lane = 4 columns, warp w's chains): acc[k, c] += X_b[row, c]
+//     yadj[k, row], over the tile's rows in order.
+// Each sum runs in one thread in a fixed order that depends neither on K
+// nor on the other chains, so chain k of a K = 8 launch and of a K = 64
+// launch is bit for bit the same, and a chain is reproducible run to run.
+// Xprev == nullptr skips the residual update, Xcur == nullptr the partials.
+// SLOTS (1, 2, 4 or 8) is how many chains a warp serves, ceil(kc / 8)
+// rounded up to a power of two: a small batch issues no work for absent
+// chains.  A chain's arithmetic is the same whatever SLOTS.
+template <typename XT, int SLOTS>
+__global__ void __launch_bounds__(kMcThreads)
+rows_mc_kernel(const XT* __restrict__ Xprev, const float* __restrict__ dgprev,
+               long long dg_stride, const XT* __restrict__ Xcur, int n, int B,
+               int rows_per_tile, int K, float* __restrict__ yadj,
+               float* __restrict__ u, float* __restrict__ partial) {
+  extern __shared__ float smem[];
+  const int k0 = blockIdx.y * kMcChains;
+  const int kc = min(kMcChains, K - k0);
+  const int pitch = B + 4;
+  float* dgs = smem;                 // (kc, B)
+  float* xp = dgs + kc * B;          // (kMcRows, pitch)
+  float* xc = xp + kMcRows * pitch;  // (kMcRows, pitch)
+  float* ys = xc + kMcRows * pitch;  // (kc, kMcRows)
+  const int warp = threadIdx.x / kWarp;
+  const int lane = threadIdx.x % kWarp;
+  const int c0 = 4 * lane;
+  const bool prev = Xprev != nullptr;
+  const bool cur = Xcur != nullptr;
+  if (prev) {
+    for (int i = threadIdx.x; i < kc * B; i += blockDim.x) {
+      const int kk = i / B;
+      dgs[i] = dgprev[(k0 + kk) * dg_stride + (i - kk * B)];
+    }
+  }
+  const int row_begin = blockIdx.x * rows_per_tile;
+  const int row_end = min(n, row_begin + rows_per_tile);
+  float acc[SLOTS][4];
+  float pv[kMcPieces][4], cv[kMcPieces][4], yn[SLOTS], un[SLOTS];
+#pragma unroll
+  for (int s = 0; s < SLOTS; ++s) acc[s][0] = acc[s][1] = acc[s][2] = acc[s][3] = 0.f;
+
+  if (row_begin < row_end) {
+    load_chunk(Xprev, row_begin, row_end, B, pv);
+    load_chunk(Xcur, row_begin, row_end, B, cv);
+    load_rows<SLOTS>(yadj, prev ? u : nullptr, n, k0, kc, row_begin + lane, row_end, yn, un);
+  }
+  for (int r0 = row_begin; r0 < row_end; r0 += kMcRows) {
+    __syncthreads();   // the last chunk's X is read (and dgs is stored)
+    if (prev) store_chunk(xp, B, pv);
+    if (cur) store_chunk(xc, B, cv);
+    float y[SLOTS], uu[SLOTS];
+#pragma unroll
+    for (int s = 0; s < SLOTS; ++s) { y[s] = yn[s]; uu[s] = un[s]; }
+    __syncthreads();
+    if (r0 + kMcRows < row_end) {   // the next chunk's loads fly meanwhile
+      load_chunk(Xprev, r0 + kMcRows, row_end, B, pv);
+      load_chunk(Xcur, r0 + kMcRows, row_end, B, cv);
+      load_rows<SLOTS>(yadj, prev ? u : nullptr, n, k0, kc, r0 + kMcRows + lane, row_end, yn, un);
+    }
+    const int row = r0 + lane;
+    if (prev) {
+      float d[SLOTS];
+#pragma unroll
+      for (int s = 0; s < SLOTS; ++s) d[s] = 0.f;
+      const float* xr = xp + lane * pitch;
+      for (int c = 0; c < B; c += 4) {
+        const float4 x = *reinterpret_cast<const float4*>(xr + c);
+#pragma unroll
+        for (int s = 0; s < SLOTS; ++s) {
+          const int kk = warp + kMcWarps * s;
+          if (kk < kc) {
+            const float4 g = *reinterpret_cast<const float4*>(dgs + kk * B + c);
+            d[s] = fmaf(x.x, g.x, d[s]);
+            d[s] = fmaf(x.y, g.y, d[s]);
+            d[s] = fmaf(x.z, g.z, d[s]);
+            d[s] = fmaf(x.w, g.w, d[s]);
+          }
+        }
+      }
+#pragma unroll
+      for (int s = 0; s < SLOTS; ++s) {
+        const int kk = warp + kMcWarps * s;
+        if (kk < kc && row < row_end) {
+          const long long at = static_cast<long long>(k0 + kk) * n + row;
+          y[s] += d[s];
+          yadj[at] = y[s];
+          u[at] = uu[s] - d[s];
+        }
+      }
+    }
+#pragma unroll
+    for (int s = 0; s < SLOTS; ++s) {
+      const int kk = warp + kMcWarps * s;
+      if (kk < kc) ys[kk * kMcRows + lane] = y[s];
+    }
+    __syncwarp();   // a warp reads back only its own chains' yadj
+    if (cur && c0 < B) {
+      const int nr = min(kMcRows, row_end - r0);
+      for (int r = 0; r < nr; ++r) {
+        const float4 x = *reinterpret_cast<const float4*>(xc + r * pitch + c0);
+#pragma unroll
+        for (int s = 0; s < SLOTS; ++s) {
+          const int kk = warp + kMcWarps * s;
+          if (kk < kc) {
+            const float yr = ys[kk * kMcRows + r];
+            acc[s][0] = fmaf(x.x, yr, acc[s][0]);
+            acc[s][1] = fmaf(x.y, yr, acc[s][1]);
+            acc[s][2] = fmaf(x.z, yr, acc[s][2]);
+            acc[s][3] = fmaf(x.w, yr, acc[s][3]);
+          }
+        }
+      }
+    }
+    __syncwarp();
+  }
+  if (partial == nullptr || c0 >= B) return;
+#pragma unroll
+  for (int s = 0; s < SLOTS; ++s) {
+    const int kk = warp + kMcWarps * s;
+    if (kk < kc)
+      *reinterpret_cast<float4*>(
+          partial + (static_cast<long long>(blockIdx.x) * K + k0 + kk) * B + c0) =
+          make_float4(acc[s][0], acc[s][1], acc[s][2], acc[s][3]);
   }
 }
 
@@ -293,16 +506,39 @@ cudaError_t sweep(const XT* X, const float* W, const float* P, int off,
   const int ntiles = (n + rows_per_tile - 1) / rows_per_tile;
   const size_t xblk = static_cast<size_t>(n) * B;
   const long long m_loc = static_cast<long long>(nbg) * B;
-  const dim3 rows_grid(ntiles, K);
+  // K = 1: the single-chain rows kernel; K >= 2: the K-chain one, which
+  // reads each X tile once for all chains.  One kernel for every batch size
+  // keeps chain k's sums the same whatever K.  rows_kernel on a (tiles, K)
+  // grid was faster at K = 4, n = 50,176 and slower at K = 64, n = 4,096
+  // (scripts/sweep_routes.py, PERF.md): at small K most of the K-chain
+  // kernel's warps idle (warp w serves chains w, w + 8, ...).
+  const bool mc = K > 1;
+  const dim3 rows_grid(ntiles, mc ? (K + kMcChains - 1) / kMcChains : 1);
+  const int kc = K < kMcChains ? K : kMcChains;
+  const size_t mc_smem = rows_mc_smem(B, kc);
+  const int per_warp = (kc + kMcWarps - 1) / kMcWarps;
+  void (*rows_mc)(const XT*, const float*, long long, const XT*, int, int, int, int,
+                  float*, float*, float*) =
+      per_warp <= 1 ? rows_mc_kernel<XT, 1> : per_warp <= 2 ? rows_mc_kernel<XT, 2>
+      : per_warp <= 4 ? rows_mc_kernel<XT, 4> : rows_mc_kernel<XT, 8>;
+  if (mc) {
+    const cudaError_t e = cudaFuncSetAttribute(
+        rows_mc, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(mc_smem));
+    if (e != cudaSuccess) return e;
+  }
   for (int b = 0; b <= nbg; ++b) {
     const XT* Xp = b > 0 ? X + static_cast<size_t>(off + b - 1) * xblk : nullptr;
     const XT* Xc = b < nbg ? X + static_cast<size_t>(off + b) * xblk : nullptr;
     const float* dgp = b > 0 ? dg_out + static_cast<long long>(b - 1) * B : nullptr;
-    rows_kernel<XT><<<rows_grid, kRowThreads, 0, stream>>>(
-        Xp, dgp, m_loc, Xc, n, B, rows_per_tile, yadj, u,
-        Xc != nullptr ? partial : nullptr);
+    float* part = Xc != nullptr ? partial : nullptr;
+    if (mc)
+      rows_mc<<<rows_grid, kMcThreads, mc_smem, stream>>>(
+          Xp, dgp, m_loc, Xc, n, B, rows_per_tile, K, yadj, u, part);
+    else
+      rows_kernel<XT><<<rows_grid, kRowThreads, 0, stream>>>(
+          Xp, dgp, m_loc, Xc, n, B, rows_per_tile, yadj, u, part);
     cudaError_t e = cudaGetLastError();
-    if (e == cudaSuccess) ++g_rows_launches;
+    if (e == cudaSuccess) ++(mc ? g_rows_mc_launches : g_rows_launches);
     if (e != cudaSuccess || b == nbg) return e;
     const long long lb = static_cast<long long>(b) * B;
     const DrawArgs a{partial, ntiles,
@@ -323,13 +559,17 @@ const char* hb_error_string(int code) {
   return cudaGetErrorString(static_cast<cudaError_t>(code));
 }
 
-// Launches of rows_kernel and draws_kernel since the last reset.
-void hb_launch_counts(long long* rows, long long* draws) {
+// Launches of rows_kernel, rows_mc_kernel and draws_kernel since the last
+// reset.
+void hb_launch_counts(long long* rows, long long* rows_mc, long long* draws) {
   *rows = hb::g_rows_launches;
+  *rows_mc = hb::g_rows_mc_launches;
   *draws = hb::g_draws_launches;
 }
 
-void hb_reset_launch_counts() { hb::g_rows_launches = hb::g_draws_launches = 0; }
+void hb_reset_launch_counts() {
+  hb::g_rows_launches = hb::g_rows_mc_launches = hb::g_draws_launches = 0;
+}
 
 // One block of B sequential draws for K chains.
 //   r0t (K, B) = X_b' yadj per chain; W (B, B); P (B, R, K)

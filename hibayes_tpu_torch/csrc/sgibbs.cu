@@ -7,6 +7,9 @@
 //
 // They replace the TPU kernels of hibayes_tpu/ops/blockgibbs.py:
 //   hb_sweep_s_segment <- _kernel_s / sweep_s_segment        (:1141-1254)
+//                         at K = 1, and for K >= 2 chains the segment
+//                         sweep sweep_s_segment_t (:1325-1362), whose draws
+//                         are _kernel_s_block_t (:1264-1322)
 //   hb_sweep_s_tiled   <- _kernel_s_tiled / sweep_s_tiled     (:1635-1792)
 //
 // The chain state is r_hat, the adjusted X'y.  Per block b of B SNPs the
@@ -15,14 +18,16 @@
 // r_hat in VMEM across an in-order grid.  CTAs run in no order here, so a
 // sweep is one C loop on one stream, two launches per block:
 //
-//   s_draws_kernel   one CTA: loads the B x B Gram block scaled by n and the
-//                    block's packed rows into shared memory, then warp 0
-//                    runs the B dependent draws (draws.cuh), with the
-//                    rejection guard for the tiled sweep.
-//   seg_update_kernel  (dense segment) r_seg[i] += n sum_j LD[i, bB + j] dg_j
-//                    for every row i of the segment: many CTAs, four rows
-//                    per warp, each CTA owning distinct rows, so no atomics
-//                    and a fixed summation order.
+//   s_draws_kernel   one CTA per 8 chains (the tiled sweep has one chain):
+//                    loads the B x B Gram block scaled by n and its chains'
+//                    packed rows into shared memory, then warp w runs chain
+//                    w's B dependent draws (draws.cuh), with the rejection
+//                    guard for the tiled sweep.
+//   seg_update_kernel  (dense segment) r_seg[k, i] += n sum_j LD[i, bB + j]
+//                    dg[k, j] for every row i of the segment and every chain
+//                    k: many CTAs, four rows per warp, each CTA owning
+//                    distinct rows, so no atomics and a fixed summation
+//                    order; the LD column block is read once for all chains.
 //   tiled_scatter_kernel  (tiled LD) one CTA per stored slot of the tile row:
 //                    r_hat[block cols[i, k]] += n tiles[i, k]^T dg.  Within
 //                    a row the valid column blocks are distinct, so no two
@@ -66,7 +71,8 @@
 
 namespace hb {
 
-constexpr int kSDrawThreads = 256;   // 8 warps load the Gram block; warp 0 draws
+constexpr int kSDrawThreads = 256;   // 8 warps load the Gram block; one per chain draws
+constexpr int kSChainsPerCta = kSDrawThreads / kWarp;
 constexpr int kUpdWarps = 8;
 constexpr int kUpdThreads = kWarp * kUpdWarps;
 constexpr int kUpdRows = 4;          // rows in flight per warp
@@ -106,21 +112,25 @@ cudaError_t launch(bool overlap, void (*kernel)(P...), int grid, int threads,
   return e != cudaSuccess ? e : cudaGetLastError();
 }
 
-// One block of B draws.  W: the block's B x B Gram rows with row stride ldw
-// (unscaled LD), scaled by n on load.  P: packed rows (R, m); the block's
-// SNPs are columns col0 .. col0 + B - 1, as are its entries of r, dg and tr.
-// nrej (may be null) gets the count of draws whose first candidate the
-// guard rejected.
+// One block of B draws for each of K chains.  W: the block's B x B Gram
+// rows with row stride ldw (unscaled LD), scaled by n on load.  P: packed
+// rows (K, R, m); the block's SNPs are columns col0 .. col0 + B - 1, as are
+// its entries of r, dg and tr (K, m).  CTA c serves chains 8c .. 8c + 7,
+// warp w chain 8c + w.  nrej (may be null; one chain) gets the count of
+// draws whose first candidate the guard rejected.
 template <int MI, int NF, bool GUARD>
 __global__ void __launch_bounds__(kSDrawThreads)
 s_draws_kernel(const float* __restrict__ W, long long ldw, float n,
                const float* __restrict__ P, long long m, long long col0, int B,
-               const float* __restrict__ r, float vary, float* __restrict__ dg_out,
-               float* __restrict__ tr_out, int* __restrict__ nrej) {
+               int K, const float* __restrict__ r, float vary,
+               float* __restrict__ dg_out, float* __restrict__ tr_out,
+               int* __restrict__ nrej) {
   constexpr int R = row_stride(MI, NF, GUARD);
   extern __shared__ float smem[];
+  const int k0 = blockIdx.x * kSChainsPerCta;
+  const int kc = min(kSChainsPerCta, K - k0);
   float* Ws = smem;           // B * B
-  float* Ps = Ws + B * B;     // B * R, SNP-major
+  float* Ps = Ws + B * B;     // kc * B * R, chain-major, SNP-major within
   const int B4 = B / 4;
   for (int i = threadIdx.x; i < B * B4; i += blockDim.x) {
     const int a = i / B4, c = 4 * (i - a * B4);
@@ -128,41 +138,48 @@ s_draws_kernel(const float* __restrict__ W, long long ldw, float n,
     w.x *= n; w.y *= n; w.z *= n; w.w *= n;
     *reinterpret_cast<float4*>(Ws + a * B + c) = w;
   }
-  for (int i = threadIdx.x; i < B * R; i += blockDim.x) {
-    const int row = i / B, j = i - row * B;
-    Ps[j * R + row] = P[row * m + col0 + j];
+  for (int i = threadIdx.x; i < kc * B * R; i += blockDim.x) {
+    const int kk = i / (B * R), rest = i - kk * B * R;
+    const int row = rest / B, j = rest - row * B;
+    Ps[kk * B * R + j * R + row] =
+        P[(static_cast<long long>(k0 + kk) * R + row) * m + col0 + j];
   }
   __syncthreads();
-  if (threadIdx.x >= kWarp) return;
+  const int warp = threadIdx.x / kWarp;
+  if (warp >= kc) return;
   wait_previous();   // the previous update of r is visible from here
   release_next();
-  const int lane = threadIdx.x;
+  const int lane = threadIdx.x % kWarp;
+  const long long kb = static_cast<long long>(k0 + warp) * m + col0;
   float rr[kSlots], gi[kSlots], dg[kSlots], tr[kSlots];
 #pragma unroll
   for (int s = 0; s < kSlots; ++s) {
     const int i = lane + kWarp * s;
-    rr[s] = i < B ? r[col0 + i] : 0.f;
+    rr[s] = i < B ? r[kb + i] : 0.f;
     gi[s] = dg[s] = tr[s] = 0.f;
   }
-  const int rej = warp_block_draws<MI, NF, GUARD>(B, Ws, Ps, rr, gi, dg, tr, vary);
+  const int rej = warp_block_draws<MI, NF, GUARD>(B, Ws, Ps + warp * B * R, rr, gi, dg,
+                                                  tr, vary);
 #pragma unroll
   for (int s = 0; s < kSlots; ++s) {
     const int j = lane + kWarp * s;
     if (j < B) {
-      dg_out[col0 + j] = dg[s];
-      tr_out[col0 + j] = tr[s];
+      dg_out[kb + j] = dg[s];
+      tr_out[kb + j] = tr[s];
     }
   }
   if (nrej != nullptr && lane == 0) *nrej = rej;
 }
 
-// r[i] += n * sum_j LD[i, col0 + j] dg[col0 + j] for i in [0, mc).  Warp w of
-// CTA c takes rows (c * kUpdWarps + w) * kUpdRows + v, v < kUpdRows, all
-// loads in flight together (before the wait for the draws); lane l owns
-// columns 4l .. 4l + 3 (B <= 128).
+// r[k, i] += n * sum_j LD[i, col0 + j] dg[k, col0 + j] for i in [0, mc) and
+// each chain k < K (r, dg (K, mc)).  Warp w of CTA c takes rows
+// (c * kUpdWarps + w) * kUpdRows + v, v < kUpdRows, all loads in flight
+// together (before the wait for the draws) and kept in registers for every
+// chain; lane l owns columns 4l .. 4l + 3 (B <= 128).  A chain's sums do
+// not depend on K.
 __global__ void __launch_bounds__(kUpdThreads)
 seg_update_kernel(const float* __restrict__ LD, long long mc, long long col0,
-                  int B, float n, const float* __restrict__ dg,
+                  int B, int K, float n, const float* __restrict__ dg,
                   float* __restrict__ r) {
   release_next();
   const int warp = threadIdx.x / kWarp;
@@ -178,21 +195,24 @@ seg_update_kernel(const float* __restrict__ LD, long long mc, long long col0,
       x[v] = *reinterpret_cast<const float4*>(LD + (row0 + v) * mc + col0 + c0);
   }
   wait_previous();   // dg of this block is visible from here
-  float4 d = make_float4(0.f, 0.f, 0.f, 0.f);
-  if (owns) d = *reinterpret_cast<const float4*>(dg + col0 + c0);
-  float part[kUpdRows];
-#pragma unroll
-  for (int v = 0; v < kUpdRows; ++v)
-    part[v] = x[v].x * d.x + x[v].y * d.y + x[v].z * d.z + x[v].w * d.w;
-  for (int o = kWarp / 2; o > 0; o >>= 1) {
+  for (int k = 0; k < K; ++k) {
+    const long long kb = static_cast<long long>(k) * mc;
+    float4 d = make_float4(0.f, 0.f, 0.f, 0.f);
+    if (owns) d = *reinterpret_cast<const float4*>(dg + kb + col0 + c0);
+    float part[kUpdRows];
 #pragma unroll
     for (int v = 0; v < kUpdRows; ++v)
-      part[v] += __shfl_down_sync(0xffffffffu, part[v], o);
-  }
-  if (lane == 0) {
+      part[v] = x[v].x * d.x + x[v].y * d.y + x[v].z * d.z + x[v].w * d.w;
+    for (int o = kWarp / 2; o > 0; o >>= 1) {
 #pragma unroll
-    for (int v = 0; v < kUpdRows; ++v)
-      if (row0 + v < mc) r[row0 + v] += n * part[v];
+      for (int v = 0; v < kUpdRows; ++v)
+        part[v] += __shfl_down_sync(0xffffffffu, part[v], o);
+    }
+    if (lane == 0) {
+#pragma unroll
+      for (int v = 0; v < kUpdRows; ++v)
+        if (row0 + v < mc) r[kb + row0 + v] += n * part[v];
+    }
   }
 }
 
@@ -249,37 +269,42 @@ inline bool block_ok(int B, int mi, int nf) {
          nf >= 2 && nf <= kMaxFold;
 }
 
+// Shared memory of s_draws_kernel for kc chains per CTA (into *smem), set
+// as the kernel's limit.
 template <int MI, int NF, bool GUARD>
-cudaError_t set_draw_smem(int B) {
-  const size_t smem = sizeof(float) * static_cast<size_t>(B) * (B + row_stride(MI, NF, GUARD));
+cudaError_t set_draw_smem(int B, int kc, size_t* smem) {
+  *smem = sizeof(float) * static_cast<size_t>(B) *
+          (B + static_cast<size_t>(kc) * row_stride(MI, NF, GUARD));
   return cudaFuncSetAttribute(s_draws_kernel<MI, NF, GUARD>,
                               cudaFuncAttributeMaxDynamicSharedMemorySize,
-                              static_cast<int>(smem));
+                              static_cast<int>(*smem));
 }
 
 struct SegArgs {
   const float* LD;
   const float* P;
-  int mc, B;
+  int mc, B, K;
   float n;
   float *r, *dg, *tr;
 };
 
 template <int MI, int NF, bool GUARD>
 cudaError_t seg_sweep(const SegArgs& a, cudaStream_t stream) {
-  cudaError_t e = set_draw_smem<MI, NF, GUARD>(a.B);
+  size_t smem;
+  cudaError_t e = set_draw_smem<MI, NF, GUARD>(
+      a.B, a.K < kSChainsPerCta ? a.K : kSChainsPerCta, &smem);
   if (e != cudaSuccess) return e;
-  const size_t smem = sizeof(float) * static_cast<size_t>(a.B) * (a.B + row_stride(MI, NF, GUARD));
   const long long mc = a.mc;
+  const int draw_grid = (a.K + kSChainsPerCta - 1) / kSChainsPerCta;
   const int upd_grid = static_cast<int>((mc + kUpdWarps * kUpdRows - 1) / (kUpdWarps * kUpdRows));
   for (long long col0 = 0; col0 < mc; col0 += a.B) {
-    e = launch(col0 > 0, s_draws_kernel<MI, NF, GUARD>, 1, kSDrawThreads, smem, stream,
-               a.LD + col0 * mc + col0, mc, a.n, a.P, mc, col0, a.B,
+    e = launch(col0 > 0, s_draws_kernel<MI, NF, GUARD>, draw_grid, kSDrawThreads, smem,
+               stream, a.LD + col0 * mc + col0, mc, a.n, a.P, mc, col0, a.B, a.K,
                static_cast<const float*>(a.r), 0.f, a.dg, a.tr, static_cast<int*>(nullptr));
     if (e != cudaSuccess) return e;
     ++g_seg_draws;
     e = launch(true, seg_update_kernel, upd_grid, kUpdThreads, 0, stream, a.LD, mc,
-               col0, a.B, a.n, static_cast<const float*>(a.dg), a.r);
+               col0, a.B, a.K, a.n, static_cast<const float*>(a.dg), a.r);
     if (e != cudaSuccess) return e;
     ++g_seg_update;
   }
@@ -299,16 +324,16 @@ struct TiledArgs {
 
 template <int MI, int NF, bool GUARD>
 cudaError_t tiled_sweep(const TiledArgs& a, cudaStream_t stream) {
-  cudaError_t e = set_draw_smem<MI, NF, GUARD>(a.B);
+  size_t smem;
+  cudaError_t e = set_draw_smem<MI, NF, GUARD>(a.B, 1, &smem);
   if (e != cudaSuccess) return e;
-  const size_t smem = sizeof(float) * static_cast<size_t>(a.B) * (a.B + row_stride(MI, NF, GUARD));
   const long long m_pad = static_cast<long long>(a.nbr) * a.B;
   const long long row_elems = static_cast<long long>(a.K) * a.B * a.B;
   for (int i = 0; i < a.nbr; ++i) {
     const float* Ti = a.tiles + i * row_elems;   // slot 0: the diagonal tile
     const long long col0 = static_cast<long long>(i) * a.B;
     e = launch(i > 0, s_draws_kernel<MI, NF, GUARD>, 1, kSDrawThreads, smem, stream,
-               Ti, static_cast<long long>(a.B), a.n, a.P, m_pad, col0, a.B,
+               Ti, static_cast<long long>(a.B), a.n, a.P, m_pad, col0, a.B, 1,
                static_cast<const float*>(a.r_hat), a.vary, a.dg, a.tr, a.nrej + i);
     if (e != cudaSuccess) return e;
     ++g_tiled_draws;
@@ -394,16 +419,16 @@ void hb_s_reset_launch_counts() {
   hb::g_seg_draws = hb::g_seg_update = hb::g_tiled_draws = hb::g_tiled_scatter = 0;
 }
 
-// Sweep one dense LD segment.  LD (mc, mc) row-major; P (R, mc) packed rows;
-// r (mc,) updated in place; dg, track (mc,) outputs.  mc % B == 0; LD, P, r
-// and dg 16-byte aligned.
+// Sweep one dense LD segment for K chains.  LD (mc, mc) row-major; P
+// (K, R, mc) packed rows; r (K, mc) updated in place; dg, track (K, mc)
+// outputs.  mc % B == 0; LD, P, r and dg 16-byte aligned.
 int hb_sweep_s_segment(const float* LD, const float* P, int mc, int B, int R,
-                       int mi, int nf, float n, float* r, float* dg,
+                       int K, int mi, int nf, float n, float* r, float* dg,
                        float* track, void* stream) {
-  if (!hb::block_ok(B, mi, nf) || mc <= 0 || mc % B != 0 ||
+  if (!hb::block_ok(B, mi, nf) || mc <= 0 || mc % B != 0 || K <= 0 ||
       R != hb::packed_rows(mi, nf))
     return cudaErrorInvalidValue;
-  const hb::SegArgs a{LD, P, mc, B, n, r, dg, track};
+  const hb::SegArgs a{LD, P, mc, B, K, n, r, dg, track};
   return hb::dispatch<hb::SegSweep>(a, mi, nf, false, static_cast<cudaStream_t>(stream));
 }
 

@@ -5,7 +5,9 @@ and ``sgibbs_data_from_numpy`` / ``s_chain_state_from_numpy`` (summary
 level) take a JAX ``GibbsData`` / ``ChainState`` / ``SGibbsData`` /
 ``SChainState`` (or any mapping or named tuple with the same field names)
 whose leaves are numpy arrays, so that a test can start both packages from
-the same state.  ``epsl_sparse_from_numpy`` regroups a JAX ``EpslSparse``
+the same state.  A state with a leading chain axis (a batch of the JAX
+``run_chains``) converts to the port's batch: ``it`` is then one int, which
+every chain must share.  ``epsl_sparse_from_numpy`` regroups a JAX ``EpslSparse``
 into the port's layout; a JAX dense ``epsl_LHS_A`` (the direct path) is
 packed into it as ``prepare_gibbs_data`` packs one.  No JAX is imported
 here.
@@ -27,6 +29,14 @@ def _fields(obj) -> dict:
 
 def _t(x, device, dtype=None):
     return torch.as_tensor(np.array(x), device=device, dtype=dtype)
+
+
+def _iteration(it) -> int:
+    """The one iteration count of a chain or a batch of chains."""
+    its = np.asarray(it).reshape(-1)
+    if its.size == 0 or (its != its[0]).any():
+        raise ValueError(f"the chains of a batch must share the iteration, got {its}")
+    return int(its[0])
 
 
 def epsl_sparse_from_numpy(sp, device="cpu") -> EpslSparse:
@@ -90,7 +100,7 @@ def chain_state_from_numpy(state, device="cpu") -> ChainState:
     kw = {name: _t(f[name], device) for name in ChainState._fields
           if name not in ("it", "estR", "track")}
     return ChainState(
-        it=int(np.asarray(f["it"])),
+        it=_iteration(f["it"]),
         estR=tuple(_t(e, device) for e in f["estR"]),
         track=_t(f["track"], device, torch.int32),
         **kw,
@@ -120,5 +130,5 @@ def s_chain_state_from_numpy(state, device="cpu") -> SChainState:
     f = _fields(state)
     kw = {name: _t(f[name], device) for name in SChainState._fields
           if name not in ("it", "track")}
-    return SChainState(it=int(np.asarray(f["it"])),
+    return SChainState(it=_iteration(f["it"]),
                        track=_t(f["track"], device, torch.int32), **kw)

@@ -1,6 +1,7 @@
 """Individual-level MCMC engine: exact blocked Gibbs for the Bayesian alphabet.
 
-PyTorch port of hibayes_tpu/engine/gibbs.py for one device and one chain.
+PyTorch port of hibayes_tpu/engine/gibbs.py for one device: one chain
+(``run_chain``) or a batch of K chains (``run_chains``) with split R-hat.
 The maths is the JAX engine's (reference: src/Bayes.cpp:477-917):
 
     for each block b of B SNPs:
@@ -18,9 +19,17 @@ CUDA epsilon sweep on a GPU).
 
 Every random number of iteration ``it`` comes from an
 :class:`~hibayes_tpu_torch.engine.rng.IterNoise` keyed by (seed, it, stream
-id), the counterpart of the JAX engine's ``fold_in`` streams.  The loop is
-eager: state lives on the device, and the host reads it only for progress
-rows and at the end of the chain.
+id), the counterpart of the JAX engine's ``fold_in`` streams; chain k of a
+batch has its own, keyed by (seed, k, it, stream id).  The loop is eager:
+state lives on the device, and the host reads it only for progress rows
+and at the end of the chain.
+
+One iteration's functions take one chain's state, or a batch's: the same
+fields with a leading chain axis (``it`` stays one Python int, shared by
+all chains) and ``noise`` a list of one IterNoise per chain.  A batch's
+tensor ops run over all chains at once; the one loop over chains draws
+each chain's numbers from its own streams (:func:`_draw`).  The K chains
+share each genotype block in the sweep (``blockgibbs.sweep_mc``).
 """
 
 from __future__ import annotations
@@ -533,7 +542,7 @@ def init_state(spec: GibbsSpec, data: GibbsData, priors: Priors, pi_init) -> Cha
 
 
 def _snapshot(spec: GibbsSpec, state: ChainState) -> dict:
-    vt = state.vara + state.vare + state.vr.sum()
+    vt = state.vara + state.vare + state.vr.sum(-1)
     snap = {
         "mu": state.mu,
         "pi": state.pi,
@@ -543,8 +552,9 @@ def _snapshot(spec: GibbsSpec, state: ChainState) -> dict:
         "alpha": state.g,
         "beta": state.beta,
         "Vr": state.vr,
-        "r": (torch.cat(state.estR) if state.estR
-              else torch.zeros((0,), dtype=state.g.dtype, device=state.g.device)),
+        "r": (torch.cat(state.estR, dim=-1) if state.estR
+              else torch.zeros(tuple(state.mu.shape) + (0,), dtype=state.g.dtype,
+                               device=state.g.device)),
         "lambda": torch.sqrt(state.lambda2),
     }
     if spec.qe:
@@ -566,56 +576,114 @@ def genotype_matmul(X_blocks, G, dtype) -> torch.Tensor:
 
 
 # ---------------------------------------------------------------------------
-# one MCMC iteration
+# one MCMC iteration, of one chain or a batch (draws and reductions over the
+# last axis)
 # ---------------------------------------------------------------------------
+
+
+def chain_noise(seed: int, it: int, nchains: int, device, dtype) -> list:
+    """The IterNoise of iteration ``it`` of chains 0 .. nchains - 1."""
+    return [IterNoise(seed, it, device, dtype, chain=k) for k in range(nchains)]
+
+
+def _draw(noise, draw, *per_chain):
+    """``draw(noise, *per_chain)`` for one chain.  For a batch (``noise`` a
+    list of IterNoise), each chain's draw from its own streams with its own
+    row of each ``per_chain`` tensor, stacked on a leading chain axis."""
+    if isinstance(noise, (list, tuple)):
+        return torch.stack([draw(nz, *(a[k] for a in per_chain))
+                            for k, nz in enumerate(noise)])
+    return draw(noise, *per_chain)
+
+
+def _dot(a, b):
+    """a . b over the last axis.  One chain: ``torch.dot``.  A batch: an
+    elementwise product and a sum over the last axis, which torch may still
+    order by K (in f32 on the CPU, K=5 against K=2, for short rows), so a batch's
+    chain matches another batch size's to rounding, not always bit for bit."""
+    if a.dim() == 1 and b.dim() == 1:
+        return torch.dot(a, b)
+    return (a * b).sum(-1)
+
+
+def _var(x):
+    """Sample variance over the last axis (correction 1), chain by chain."""
+    if x.dim() == 1:
+        return torch.var(x, correction=1)
+    c = x - x.mean(-1, keepdim=True)
+    return (c * c).sum(-1) / (x.shape[-1] - 1)
 
 
 def alphabet_global_updates(spec: GibbsSpec, noise, g, track, real, fold,
                             vargi_acc, vargR_acc, vargL, varg, pi, vara_fold,
                             lambda2):
     """Post-sweep model-level updates: marker variance, mixture proportions,
-    BayesL lambda (``alphabet_global_updates``, hibayes_tpu/engine/gibbs.py:455-516)."""
+    BayesL lambda (``alphabet_global_updates``, hibayes_tpu/engine/gibbs.py:455-516),
+    for one chain or a batch."""
     mi = spec.model_index
     dt = g.dtype
     m_real, nvar0 = spec.m, spec.nvar0
     s2varg_df = spec.s2varg * spec.dfvara
 
     if mi == 1:
-        chi = noise.chisq(STREAM_VARG, spec.dfvara + m_real - nvar0)
-        varg = (torch.dot(g, g) + s2varg_df) / chi
+        chi = _draw(noise, lambda nz: nz.chisq(STREAM_VARG, spec.dfvara + m_real - nvar0))
+        varg = (_dot(g, g) + s2varg_df) / chi
     elif mi in (3, 4):
-        nnz = ((track == 1) & real).sum().to(dt)
+        nnz = ((track == 1) & real).sum(-1).to(dt)
         if mi == 4:
-            chi = noise.chisq(STREAM_VARG, spec.dfvara + nnz)
+            chi = _draw(noise, lambda nz, k: nz.chisq(STREAM_VARG, spec.dfvara + k), nnz)
             varg = (vargi_acc + s2varg_df) / chi
         if not spec.fixpi:
-            pi = noise.dirichlet(STREAM_PI, torch.stack([m_real - nvar0 - nnz, nnz]) + 1.0)
+            pi = _draw(noise, lambda nz, k: nz.dirichlet(
+                STREAM_PI, torch.stack([m_real - nvar0 - k, k]) + 1.0), nnz)
     elif mi == 5:
-        rate = spec.lambda_rate0 + torch.where(real, vargL, 0.0).sum() / 2.0
-        lambda2 = noise.gamma(STREAM_LAMBDA, spec.lambda_shape0 + m_real - nvar0) / rate
+        rate = spec.lambda_rate0 + torch.where(real, vargL, 0.0).sum(-1) / 2.0
+        lambda2 = _draw(noise, lambda nz: nz.gamma(
+            STREAM_LAMBDA, spec.lambda_shape0 + m_real - nvar0)) / rate
     elif mi == 6:
-        fold_num = torch.stack([((track == f) & real).sum().to(dt)
-                                for f in range(spec.n_fold)])
+        fold_num = torch.stack([((track == f) & real).sum(-1).to(dt)
+                                for f in range(spec.n_fold)], dim=-1)
         # reference semantics (Bayes.cpp:443-455): NnzSnp = m - #(track == 0
         # over all m); pi counts subtract nvar0 from the zero fold
-        zero_all = fold_num[0] + (nvar0 if spec.real_excl_nvar0 else 0)
-        chi = noise.chisq(STREAM_VARG, spec.dfvara + (m_real - zero_all))
+        zero_all = fold_num[..., 0] + (nvar0 if spec.real_excl_nvar0 else 0)
+        chi = _draw(noise, lambda nz, z: nz.chisq(STREAM_VARG, spec.dfvara + (m_real - z)),
+                    zero_all)
         varg = (vargR_acc + s2varg_df) / chi
-        vara_fold = varg * fold
+        vara_fold = varg[..., None] * fold
         if not spec.real_excl_nvar0:
-            fold_num = torch.cat([fold_num[:1] - nvar0, fold_num[1:]])
+            fold_num = torch.cat([fold_num[..., :1] - nvar0, fold_num[..., 1:]], dim=-1)
         if not spec.fixpi:
-            pi = noise.dirichlet(STREAM_PI, torch.clamp_min(fold_num, 0.0) + 1.0)
+            pi = _draw(noise, lambda nz, f: nz.dirichlet(
+                STREAM_PI, torch.clamp_min(f, 0.0) + 1.0), fold_num)
     return varg, pi, vara_fold, lambda2
 
 
+def pip_counters(spec: GibbsSpec, data, state, track):
+    """PIP / WPPA counters after burn-in (src/Bayes.cpp:826-845); ``data``
+    and ``state`` of either engine, one chain or a batch."""
+    nzrate, wppa = state.nzrate, state.wppa
+    if state.it >= spec.nburn:
+        nz = (track > 0) & data.real
+        nzrate = nzrate + nz.to(nzrate.dtype)
+        if spec.nw:
+            lead = tuple(track.shape[:-1])
+            win_any = torch.zeros(lead + (spec.nw + 1,), dtype=torch.int32,
+                                  device=track.device)
+            win_any.scatter_reduce_(-1, data.windindx0.expand(lead + data.windindx0.shape),
+                                    nz.to(torch.int32), reduce="amax")
+            wppa = wppa + win_any[..., : spec.nw].to(wppa.dtype)
+    return nzrate, wppa
+
+
 def _segment_sum(values, codes, lengths):
-    """Per-level sums of ``values``, added in a fixed order.  index_add_
-    adds with atomics on a GPU, in an order that changes from run to run;
-    a chain must be reproducible for its seed.  ``lengths`` (int64) counts
-    every row of each level, padded rows included."""
+    """Per-level sums of ``values`` over its last axis, added in a fixed
+    order.  index_add_ adds with atomics on a GPU, in an order that changes
+    from run to run; a chain must be reproducible for its seed.  ``lengths``
+    (int64) counts every row of each level, padded rows included."""
     order = torch.argsort(codes, stable=True)
-    return torch.segment_reduce(values[order], "sum", lengths=lengths)
+    if values.dim() == 1:
+        return torch.segment_reduce(values[order], "sum", lengths=lengths)
+    return torch.segment_reduce(values[:, order].T, "sum", lengths=lengths).T
 
 
 # ---------------------------------------------------------------------------
@@ -679,36 +747,63 @@ def _epsilon_draw(spec: GibbsSpec, data: GibbsData, noise, J_beta, epsl_estR,
     return J_new, new_e, vepstmp, yadj, u
 
 
+def _sweep_noise(spec: GibbsSpec, noise, lead: tuple, dt, dev) -> tuple:
+    """The sweep's random numbers (z, u, chi, z2), each ``lead + (m_pad,)``
+    (BayesR's u ``lead + (m_pad, n_fold)``); an unused stream is never
+    drawn."""
+    m_pad = spec.m_pad
+    mi = spec.model_index
+    full = lambda v: torch.full(lead + (m_pad,), v, dtype=dt, device=dev)
+    z_snp = _draw(noise, lambda nz: nz.normal(STREAM_SNP_Z, (m_pad,)))
+    if mi == 6:  # BayesR Gumbel-max fold selection: n_fold uniforms per SNP
+        u_snp = _draw(noise, lambda nz: nz.uniform(STREAM_SNP_U, (m_pad, spec.n_fold)))
+    elif mi in (3, 4, 5):
+        u_snp = _draw(noise, lambda nz: nz.uniform(STREAM_SNP_U, (m_pad,)))
+    else:
+        u_snp = full(0.5)
+    if mi in (2, 3):
+        chi_snp = _draw(noise, lambda nz: nz.chisq(STREAM_SNP_CHI, spec.dfvara + 1.0, (m_pad,)))
+    else:
+        chi_snp = full(1.0)
+    if mi == 5:
+        z2_snp = _draw(noise, lambda nz: nz.normal(STREAM_SNP_Z2, (m_pad,)))
+    else:
+        z2_snp = full(0.0)
+    return z_snp, u_snp, chi_snp, z2_snp
+
+
 def _pre_sweep(spec: GibbsSpec, data: GibbsData, noise, state: ChainState) -> dict:
     """Intercept, sequential covariates, environmental random effects, the
     single-step epsilon term, and the sweep's constants and random numbers
-    (hibayes_tpu/engine/gibbs.py:817-875, 900-1004).  Every draw comes from
-    ``noise``."""
+    (hibayes_tpu/engine/gibbs.py:817-875, 900-1004), for one chain or a
+    batch.  Every draw comes from ``noise``."""
     dt = data.y.dtype
     dev = data.y.device
     n, n_obs = spec.n, spec.n_obs
     mu, beta, yadj, u = state.mu, state.beta, state.yadj, state.u
     ve = state.vare
+    lead = tuple(mu.shape)   # () for one chain, (K,) for a batch
     row_real = torch.arange(n, device=dev) < n_obs if spec.row_padded else None
 
     # --- intercept (src/Bayes.cpp:480-482) ---
-    z = noise.normal(STREAM_MU, ())
-    delta = yadj.sum() / n_obs + torch.sqrt(ve / n_obs) * z
+    z = _draw(noise, lambda nz: nz.normal(STREAM_MU, ()))
+    delta = yadj.sum(-1) / n_obs + torch.sqrt(ve / n_obs) * z
     mu = mu + delta
     # padded rows stay exactly zero (they feed sum(yadj) and yadj.yadj)
-    yadj = yadj - (torch.where(row_real, delta, 0.0) if spec.row_padded else delta)
+    yadj = yadj - (torch.where(row_real, delta[..., None], 0.0) if spec.row_padded
+                   else delta[..., None])
 
     # --- fixed covariates, sequential (src/Bayes.cpp:484-494) ---
     if spec.nc:
-        z_cov = noise.normal(STREAM_COV, (spec.nc,))
+        z_cov = _draw(noise, lambda nz: nz.normal(STREAM_COV, (spec.nc,)))
         new_beta = []
         for i in range(spec.nc):
-            ci, cpci, bi_old = data.C[:, i], data.cpc[i], beta[i]
-            rhs = torch.dot(ci, yadj) + cpci * bi_old
-            bi = rhs / cpci + torch.sqrt(ve / cpci) * z_cov[i]
-            yadj = yadj + (bi_old - bi) * ci
+            ci, cpci, bi_old = data.C[:, i], data.cpc[i], beta[..., i]
+            rhs = _dot(ci, yadj) + cpci * bi_old
+            bi = rhs / cpci + torch.sqrt(ve / cpci) * z_cov[..., i]
+            yadj = yadj + (bi_old - bi)[..., None] * ci
             new_beta.append(bi)
-        beta = torch.stack(new_beta)
+        beta = torch.stack(new_beta, dim=-1)
 
     # --- environmental random effects per factor (src/Bayes.cpp:496-516) ---
     estR = []
@@ -720,14 +815,14 @@ def _pre_sweep(spec: GibbsSpec, data: GibbsData, noise, state: ChainState) -> di
         if spec.row_padded:
             lengths = torch.cat([lengths[:1] + (n - n_obs), lengths[1:]])
         rhs = _segment_sum(yadj, codes, lengths) + counts * old
-        lhs = counts + ve / vrtmp[i]
-        zr = noise.normal(STREAM_FACTOR + 2 * i, (nlev,))
-        new = rhs / lhs + torch.sqrt(ve / lhs) * zr
-        upd = (old - new)[codes]
+        lhs = counts + ve[..., None] / vrtmp[..., i, None]
+        zr = _draw(noise, lambda nz: nz.normal(STREAM_FACTOR + 2 * i, (nlev,)))
+        new = rhs / lhs + torch.sqrt(ve[..., None] / lhs) * zr
+        upd = (old - new)[..., codes]
         yadj = yadj + (torch.where(row_real, upd, 0.0) if spec.row_padded else upd)
-        chi = noise.chisq(STREAM_FACTOR + 2 * i + 1, nlev + spec.dfr)
-        vrtmp[i] = (torch.dot(new, new) + spec.s2r * spec.dfr) / chi
-        vr[i] = torch.var(new, correction=1)
+        chi = _draw(noise, lambda nz: nz.chisq(STREAM_FACTOR + 2 * i + 1, nlev + spec.dfr))
+        vrtmp[..., i] = (_dot(new, new) + spec.s2r * spec.dfr) / chi
+        vr[..., i] = _var(new)
         estR.append(new)
 
     # --- single-step imputation-error term (src/Bayes.cpp:554-584) ---
@@ -738,42 +833,25 @@ def _pre_sweep(spec: GibbsSpec, data: GibbsData, noise, state: ChainState) -> di
             spec, data, noise, J_beta, epsl_estR, vepstmp, yadj, u, ve)
         veps = vepstmp
 
-    # --- the sweep's random numbers; an unused stream is never drawn ---
+    # --- the sweep's random numbers and constants ---
     m_pad = spec.m_pad
-    mi = spec.model_index
-    z_snp = noise.normal(STREAM_SNP_Z, (m_pad,))
-    if mi == 6:  # BayesR Gumbel-max fold selection: n_fold uniforms per SNP
-        u_snp = noise.uniform(STREAM_SNP_U, (m_pad, spec.n_fold))
-    elif mi in (3, 4, 5):
-        u_snp = noise.uniform(STREAM_SNP_U, (m_pad,))
-    else:
-        u_snp = torch.full((m_pad,), 0.5, dtype=dt, device=dev)
-    if mi in (2, 3):
-        chi_snp = noise.chisq(STREAM_SNP_CHI, spec.dfvara + 1.0, (m_pad,))
-    else:
-        chi_snp = torch.ones((m_pad,), dtype=dt, device=dev)
-    if mi == 5:
-        z2_snp = noise.normal(STREAM_SNP_Z2, (m_pad,))
-    else:
-        z2_snp = torch.zeros((m_pad,), dtype=dt, device=dev)
-
     consts = {
         "varg": state.varg,
-        "s2varg_df": torch.full((), spec.s2varg * spec.dfvara, dtype=dt, device=dev),
+        "s2varg_df": torch.full(lead, spec.s2varg * spec.dfvara, dtype=dt, device=dev),
         "logpi": torch.log(state.pi),
         "lambda2": state.lambda2,
         "vara_fold": state.vara_fold,
-        "fold": data.fold,
+        "fold": data.fold.expand(lead + tuple(data.fold.shape)),
     }
     return {
         "mu": mu, "beta": beta, "estR": tuple(estR), "vrtmp": vrtmp, "vr": vr,
         "yadj": yadj, "u": u,
         "J_beta": J_beta, "epsl_estR": epsl_estR, "vepstmp": vepstmp, "veps": veps,
         "consts": consts,
-        "vei": ve.expand(m_pad),
+        "vei": ve[..., None].expand(lead + (m_pad,)),
         "vargL_in": (state.vargL if state.vargL.numel()
-                     else torch.zeros((m_pad,), dtype=dt, device=dev)),
-        "rnd": (z_snp, u_snp, chi_snp, z2_snp),
+                     else torch.zeros(lead + (m_pad,), dtype=dt, device=dev)),
+        "rnd": _sweep_noise(spec, noise, lead, dt, dev),
     }
 
 
@@ -791,16 +869,20 @@ def _run_sweep_k1(spec: GibbsSpec, data: GibbsData, pre: dict, g):
 def _recompute_residuals(spec: GibbsSpec, data: GibbsData, mu, beta, estR, g,
                          J_beta=None, epsl_estR=None):
     """Exact recompute of (yadj, u) from the current effects: the periodic
-    f32 drift correction (hibayes_tpu/engine/gibbs.py:1674-1704).  ``u``
-    carries the J and epsilon terms too, as in the JAX engine."""
+    f32 drift correction (hibayes_tpu/engine/gibbs.py:1674-1704), for one
+    chain or a batch.  ``u`` carries the J and epsilon terms too, as in the
+    JAX engine."""
     dt = data.y.dtype
     n = spec.n
-    pred = torch.zeros((n,), dtype=dt, device=data.y.device) + mu
+    pred = torch.zeros(tuple(mu.shape) + (n,), dtype=dt, device=data.y.device) + mu[..., None]
     if spec.nc:
-        pred = pred + data.C @ beta
+        pred = pred + (data.C @ beta if beta.dim() == 1 else beta @ data.C.T)
     for i in range(len(spec.nlevels)):
-        pred = pred + estR[i][data.r_codes[i]]
-    u_new = genotype_matmul(data.X_blocks, g[:, None], dt)[:, 0]
+        pred = pred + estR[i][..., data.r_codes[i]]
+    if g.dim() == 1:
+        u_new = genotype_matmul(data.X_blocks, g[:, None], dt)[:, 0]
+    else:
+        u_new = genotype_matmul(data.X_blocks, g.T, dt).T
     if spec.qe:
         u_new = u_new + J_beta * data.epsl_yJ
         u_new[n - spec.ne:] += epsl_estR[data.epsl_codes]
@@ -814,7 +896,9 @@ def _recompute_residuals(spec: GibbsSpec, data: GibbsData, mu, beta, estR, g,
 def _post_sweep(spec: GibbsSpec, data: GibbsData, noise, state: ChainState,
                 pre: dict, sweep_out) -> ChainState:
     """Model-level updates, Vg/Ve draws, PIP/WPPA counters, drift resync,
-    state assembly (hibayes_tpu/engine/gibbs.py:1707-1806)."""
+    state assembly (hibayes_tpu/engine/gibbs.py:1707-1806), for one chain or
+    a batch (``_post_sweep_batch``, :2442-2469): every chain shares the
+    iteration counter, so the resync is one predicate for all of them."""
     dt = data.y.dtype
     g, track, vargL_new, yadj, u, vargi_acc, vargR_acc = sweep_out
     vargL = vargL_new if state.vargL.numel() else state.vargL
@@ -825,22 +909,14 @@ def _post_sweep(spec: GibbsSpec, data: GibbsData, noise, state: ChainState,
 
     # --- genetic + residual variances (src/Bayes.cpp:819-823) ---
     if spec.row_padded:
-        su = u.sum()
-        vara = (torch.dot(u, u) - su * su / spec.n_obs) / (spec.n_obs - 1)
+        su = u.sum(-1)
+        vara = (_dot(u, u) - su * su / spec.n_obs) / (spec.n_obs - 1)
     else:
-        vara = torch.var(u, correction=1)
-    chi_e = noise.chisq(STREAM_VE, spec.n_obs + spec.dfvare)
-    vare = (torch.dot(yadj, yadj) + spec.s2vare * spec.dfvare) / chi_e
+        vara = _var(u)
+    chi_e = _draw(noise, lambda nz: nz.chisq(STREAM_VE, spec.n_obs + spec.dfvare))
+    vare = (_dot(yadj, yadj) + spec.s2vare * spec.dfvare) / chi_e
 
-    # --- PIP / WPPA counters post burn-in (src/Bayes.cpp:826-845) ---
-    nzrate, wppa = state.nzrate, state.wppa
-    if state.it >= spec.nburn:
-        nz = (track > 0) & data.real
-        nzrate = nzrate + nz.to(dt)
-        if spec.nw:
-            win_any = torch.zeros((spec.nw + 1,), dtype=torch.int32, device=g.device)
-            win_any.scatter_reduce_(0, data.windindx0, nz.to(torch.int32), reduce="amax")
-            wppa = wppa + win_any[: spec.nw].to(dt)
+    nzrate, wppa = pip_counters(spec, data, state, track)
 
     mu, beta, estR = pre["mu"], pre["beta"], pre["estR"]
     # --- periodic drift resync (f32 only; exact recompute of yadj and u) ---
@@ -858,7 +934,7 @@ def _post_sweep(spec: GibbsSpec, data: GibbsData, noise, state: ChainState,
     )
 
 
-def _check_ported(spec: GibbsSpec, mesh) -> None:
+def _check_ported(spec: GibbsSpec, mesh, nchains: int = 1) -> None:
     """Raise for the configurations whose code paths are still to be ported
     (ROADMAP.md, queue 1)."""
     if mesh is not None or spec.emulate_shards > 1 or spec.shard_schedule != "turn":
@@ -870,6 +946,10 @@ def _check_ported(spec: GibbsSpec, mesh) -> None:
     if spec.reject_guard or spec.seg_sizes:
         raise NotImplementedError(
             "the summary-level engine is not ported yet (ROADMAP queue 1, items 10-11)")
+    if nchains > 1 and spec.qe:
+        raise NotImplementedError(
+            "single-step chains in a batch are not ported yet: the epsilon sweep "
+            "(mme_sweep) runs one chain (ROADMAP queue 1, item 6)")
 
 
 def one_iteration(spec: GibbsSpec, data: GibbsData, seed: int,
@@ -885,8 +965,27 @@ def one_iteration(spec: GibbsSpec, data: GibbsData, seed: int,
     return _post_sweep(spec, data, noise, state, pre, sweep_out)
 
 
+def one_iteration_batch(spec: GibbsSpec, data: GibbsData, seed: int,
+                        states: ChainState, noise=None, mesh=None) -> ChainState:
+    """One iteration of K chains (``one_iteration_batch``,
+    hibayes_tpu/engine/gibbs.py:2382-2439, without a mesh): ``states`` holds
+    a leading chain axis.  The pre- and post-sweep run as tensor ops over
+    all chains; the sweep is ``blockgibbs.sweep_mc`` over the K chains,
+    which share each genotype block.  ``noise`` defaults to each chain's
+    own streams (:func:`chain_noise`); a test may pass any list of K."""
+    K = int(states.mu.shape[0])
+    _check_ported(spec, mesh, K)
+    if noise is None:
+        noise = chain_noise(seed, states.it, K, data.y.device, data.y.dtype)
+    pre = _pre_sweep(spec, data, noise, states)
+    sweep_out = blockgibbs.sweep_mc(
+        spec, pre["consts"], data.X_blocks, data.W_blocks, data.xpx, data.vx,
+        pre["vei"], states.g, *pre["rnd"], pre["vargL_in"], pre["yadj"], pre["u"])
+    return _post_sweep(spec, data, noise, states, pre, sweep_out)
+
+
 # ---------------------------------------------------------------------------
-# running a chain
+# running a chain or a batch of chains
 # ---------------------------------------------------------------------------
 
 
@@ -903,17 +1002,24 @@ def _print_progress(spec: GibbsSpec, state: ChainState, eta_str: str) -> None:
           f"h2 {vara / max(vara + vare, 1e-30):.4f}  {eta_str}")
 
 
-def run_chain(spec: GibbsSpec, data: GibbsData, priors: Priors, pi_init,
-              seed=666666, progress=False, chunk_records=0):
-    """Run the full chain; returns (final_state, samples dict, summaries dict).
-    The summaries hold pip, wppa, nzct and the chain's wall ``seconds``, taken
-    once the device has finished its iterations.
+def stack_state(state, nchains: int):
+    """``nchains`` copies of one chain's state (either engine's) on a
+    leading chain axis; ``it`` stays one int."""
+    rep = lambda t: t.expand((nchains,) + tuple(t.shape)).clone()
+    return state._replace(**{
+        name: tuple(rep(e) for e in v) if isinstance(v, tuple) else rep(v)
+        for name, v in state._asdict().items() if name != "it"})
 
-    Samples are numpy arrays with a leading axis of n_records; alpha is cut
-    to the real m.  With ``progress``, a reference-style row (iter / NnzSnp /
-    pi / Vg / Ve / h2 / time left, src/Bayes.cpp:884-914) is printed every
-    ``chunk_records`` records (a tenth of the chain by default)."""
-    state = init_state(spec, data, priors, pi_init)
+
+def run_loop(spec, state, step, snapshot, progress=False, chunk_records=0):
+    """Burn-in, thinning and records of one chain or a batch (either
+    engine): ``state = step(state)`` niter_eff times, ``snapshot(state)``
+    kept every ``thin`` iterations after burn-in.  With ``progress``, a
+    reference-style row (iter / NnzSnp / pi / Vg / Ve / h2 / time left,
+    src/Bayes.cpp:884-914) every ``chunk_records`` records (a tenth of the
+    chain by default).  Returns (state, samples, seconds): numpy samples
+    with a leading records axis, and the wall time once the device has
+    finished."""
     if chunk_records <= 0:
         chunk_records = max(spec.n_records // 10, 1)
     every = chunk_records * spec.thin
@@ -921,9 +1027,9 @@ def run_chain(spec: GibbsSpec, data: GibbsData, priors: Priors, pi_init,
     snaps = []
     t0 = time.time()
     for done in range(1, total + 1):
-        state = one_iteration(spec, data, seed, state)
+        state = step(state)
         if done > spec.nburn and (done - spec.nburn) % spec.thin == 0:
-            snaps.append(_snapshot(spec, state))
+            snaps.append(snapshot(state))
         if progress and (done % every == 0 or done == total):
             sec = int((time.time() - t0) / done * (total - done))
             _print_progress(spec, state,
@@ -933,20 +1039,142 @@ def run_chain(spec: GibbsSpec, data: GibbsData, priors: Priors, pi_init,
     seconds = time.time() - t0
     samples = ({k: torch.stack([s[k] for s in snaps]).cpu().numpy() for k in snaps[0]}
                if snaps else {})
-    if not bool(torch.isfinite(state.vare)):
-        warnings.warn("chain diverged: residual variance is non-finite at the "
-                      "final iteration", UserWarning, stacklevel=2)
+    return state, samples, seconds
 
+
+def posterior_rates(spec: GibbsSpec, state):
+    """PIP and WPPA from the final counters (one chain or a batch): PIP == 1
+    clamped to (nzct - 1) / nzct (src/Bayes.cpp:1030), 1 for the models
+    without a mixture.  Returns (pip, wppa, nzct)."""
     nzct = spec.n_records * spec.thin
-    # clamp PIP == 1 to (nzct-1)/nzct (src/Bayes.cpp:1030)
     pip = state.nzrate / nzct
     pip = torch.where(pip >= 1.0, (nzct - 1.0) / nzct, pip)
     if spec.model_index in (1, 2, 5):
         pip = torch.ones_like(pip)
     wppa = state.wppa / nzct
     wppa = torch.where(wppa >= 1.0, (nzct - 1.0) / nzct, wppa)
+    return pip, wppa, nzct
+
+
+def run_chain(spec: GibbsSpec, data: GibbsData, priors: Priors, pi_init,
+              seed=666666, progress=False, chunk_records=0):
+    """Run the full chain; returns (final_state, samples dict, summaries dict).
+    The summaries hold pip, wppa, nzct and the chain's wall ``seconds``, taken
+    once the device has finished its iterations.
+
+    Samples are numpy arrays with a leading axis of n_records; alpha is cut
+    to the real m.  With ``progress``, a reference-style row is printed
+    every ``chunk_records`` records (:func:`run_loop`)."""
+    state, samples, seconds = run_loop(
+        spec, init_state(spec, data, priors, pi_init),
+        lambda st: one_iteration(spec, data, seed, st), lambda st: _snapshot(spec, st),
+        progress, chunk_records)
+    if not bool(torch.isfinite(state.vare)):
+        warnings.warn("chain diverged: residual variance is non-finite at the "
+                      "final iteration", UserWarning, stacklevel=2)
+    pip, wppa, nzct = posterior_rates(spec, state)
     if samples:
         samples["alpha"] = samples["alpha"][:, : spec.m]
     extras = {"pip": pip[: spec.m].cpu().numpy(), "wppa": wppa.cpu().numpy(),
               "nzct": nzct, "seconds": seconds}
     return state, samples, extras
+
+
+def check_chain_options(nchains: int, mesh, checkpoint_path, progress) -> None:
+    """Raise for the options of a chain batch that are still to be ported."""
+    if nchains < 1:
+        raise ValueError(f"nchains must be at least 1, got {nchains}")
+    if mesh is not None:
+        raise NotImplementedError(
+            "a mesh is not ported yet (ROADMAP queue 1, item 13: multi-GPU)")
+    if checkpoint_path is not None or progress:
+        raise NotImplementedError(
+            "checkpoints and progress rows of a chain batch (its segmented "
+            "run) are not ported yet (ROADMAP queue 1, item 7)")
+
+
+def batch_results(spec, states, samples, extras_real, seconds):
+    """The summaries of a chain batch: divergence warning, records per
+    chain (nchains, n_records, ...), PIP and WPPA averaged over chains, the
+    split R-hat of every sampled parameter.  ``extras_real`` (a numpy index
+    of the real SNPs, or a slice) cuts the per-SNP arrays."""
+    bad = ~torch.isfinite(states.vare)
+    if bool(bad.any()):
+        warnings.warn(f"{int(bad.sum())}/{bad.numel()} chains diverged (non-finite "
+                      "residual variance at the final iteration)", UserWarning,
+                      stacklevel=3)
+    samples = {k: np.swapaxes(v, 0, 1) for k, v in samples.items()}
+    samples["alpha"] = samples["alpha"][:, :, extras_real]
+    pip, wppa, nzct = posterior_rates(spec, states)
+    extras = {"pip": pip.mean(0).cpu().numpy()[extras_real],
+              "wppa": wppa.mean(0).cpu().numpy(), "nzct": nzct,
+              "rhat": rhat_diagnostics(samples), "seconds": seconds}
+    return samples, extras
+
+
+def run_chains(spec: GibbsSpec, data: GibbsData, priors: Priors, pi_init,
+               seed=666666, nchains=4, mesh=None, checkpoint_path=None,
+               progress=False, chunk_records=0):
+    """Run ``nchains`` independent chains (chain k on the streams of (seed,
+    k), identical data and priors) as one batch; the counterpart of
+    ``run_chains`` (hibayes_tpu/engine/gibbs.py:2512-2590) on one device.
+    Returns (states, samples, extras): samples with leading axes (nchains,
+    n_records, ...); extras with pip and wppa averaged over chains, nzct,
+    the split R-hat of every sampled parameter (``rhat``) and the wall
+    ``seconds`` once the device has finished.  One chain runs
+    :func:`run_chain` (chain 0's streams are the single chain's), with the
+    chain axis added."""
+    check_chain_options(nchains, mesh, checkpoint_path, progress)
+    if nchains == 1:
+        state, samples, extras = run_chain(spec, data, priors, pi_init, seed=seed)
+        samples = {k: v[None] for k, v in samples.items()}
+        return (stack_state(state, 1), samples,
+                {**extras, "rhat": rhat_diagnostics(samples)})
+    _check_ported(spec, mesh, nchains)
+    states, samples, seconds = run_loop(
+        spec, stack_state(init_state(spec, data, priors, pi_init), nchains),
+        lambda ss: one_iteration_batch(spec, data, seed, ss),
+        lambda ss: _snapshot(spec, ss))
+    samples, extras = batch_results(spec, states, samples, slice(0, spec.m), seconds)
+    return states, samples, extras
+
+
+def rhat_diagnostics(samples, max_entries=256) -> dict:
+    """Split-R-hat per sampled parameter (``rhat_diagnostics``,
+    hibayes_tpu/engine/gibbs.py:2593-2614): scalars directly, vector
+    parameters (alpha, GEBV-like traces) as the MAX split-R-hat over
+    ``max_entries`` evenly-subsampled entries.  ``samples`` holds numpy
+    arrays of shape (nchains, n_records, ...)."""
+    out = {}
+    for k, v in samples.items():
+        nd = getattr(v, "ndim", 0)
+        if nd == 2:
+            out[k] = gelman_rubin(np.asarray(v))
+        elif nd == 3 and v.shape[2] > 0 and v.shape[1] >= 4:
+            idx = np.unique(
+                np.linspace(0, v.shape[2] - 1, min(v.shape[2], max_entries))
+                .astype(int)
+            )
+            sub = np.asarray(v[:, :, idx], dtype=np.float64)
+            vals = [gelman_rubin(sub[:, :, j]) for j in range(sub.shape[2])]
+            vals = [r for r in vals if np.isfinite(r)]
+            out[k] = float(max(vals)) if vals else float("nan")
+    return out
+
+
+def gelman_rubin(chains: np.ndarray) -> float:
+    """Split-R-hat over (nchains, n_records) scalar samples (``gelman_rubin``,
+    hibayes_tpu/engine/gibbs.py:2617-2630)."""
+    x = np.asarray(chains, dtype=np.float64)
+    if x.ndim != 2 or x.shape[1] < 4:
+        return float("nan")
+    half = x.shape[1] // 2
+    splits = np.concatenate([x[:, :half], x[:, half: 2 * half]], axis=0)
+    k, n_ = splits.shape
+    means = splits.mean(axis=1)
+    w = splits.var(axis=1, ddof=1).mean()
+    b = n_ * means.var(ddof=1)
+    if w <= 0:
+        return float("nan")
+    var_plus = (n_ - 1) / n_ * w + b / n_
+    return float(np.sqrt(var_plus / w))

@@ -6,6 +6,12 @@ so skipping an unused stream leaves the others unchanged and a resumed chain
 is bit-identical.  The port keeps the same registry: each (seed, iteration,
 stream id) triple is hashed into the seed of its own ``torch.Generator``.
 
+A batch of chains (``run_chains``) gives chain k the streams of (seed, k,
+iteration, stream id), the counterpart of ``jax.random.split(PRNGKey(seed),
+nchains)`` (hibayes_tpu/engine/gibbs.py:2522-2523): a chain's numbers depend
+on its index alone, not on how many chains run beside it.  Chain 0 hashes
+as a single chain does.
+
 All draws of one iteration go through an :class:`IterNoise`.  Its three
 primitive methods (``normal``, ``uniform``, ``gamma``) take the stream id and
 the same shape and parameters the JAX engine passes to ``jax.random``, so a
@@ -50,31 +56,40 @@ def _mix64(x: int) -> int:
     return x ^ (x >> 31)
 
 
-def stream_seed(seed: int, it: int, stream: int) -> int:
-    """63-bit generator seed for one (seed, iteration, stream id) triple."""
+_CHAIN_SALT = 0x6A09E667F3BCC909   # keeps chain words apart from iteration words
+
+
+def stream_seed(seed: int, it: int, stream: int, chain: int = 0) -> int:
+    """63-bit generator seed for one (seed, chain, iteration, stream id);
+    chain 0 is the single chain's (seed, iteration, stream id)."""
     h = _mix64(int(seed) & _MASK64)
+    if chain:
+        h = _mix64(h ^ _mix64(_CHAIN_SALT ^ (int(chain) & _MASK64)))
     h = _mix64(h ^ (int(it) & _MASK64))
     h = _mix64(h ^ (int(stream) & _MASK64))
     return h >> 1
 
 
-def stream_generator(seed: int, it: int, stream: int, device) -> torch.Generator:
+def stream_generator(seed: int, it: int, stream: int, device,
+                     chain: int = 0) -> torch.Generator:
     gen = torch.Generator(device=torch.device(device))
-    gen.manual_seed(stream_seed(seed, it, stream))
+    gen.manual_seed(stream_seed(seed, it, stream, chain))
     return gen
 
 
 class IterNoise:
-    """The random numbers of one iteration, one generator per stream id."""
+    """The random numbers of one iteration of chain ``chain``, one generator
+    per stream id."""
 
-    def __init__(self, seed: int, it: int, device, dtype=torch.float32):
+    def __init__(self, seed: int, it: int, device, dtype=torch.float32, chain: int = 0):
         self.seed = int(seed)
         self.it = int(it)
         self.device = torch.device(device)
         self.dtype = dtype
+        self.chain = int(chain)
 
     def _gen(self, stream: int) -> torch.Generator:
-        return stream_generator(self.seed, self.it, stream, self.device)
+        return stream_generator(self.seed, self.it, stream, self.device, self.chain)
 
     def normal(self, stream: int, shape=()) -> torch.Tensor:
         return torch.randn(shape, generator=self._gen(stream),

@@ -1,4 +1,5 @@
-"""Summary-level MCMC engine (SBayes) over LD matrices: one chain, one device.
+"""Summary-level MCMC engine (SBayes) over LD matrices: one device, one chain
+or (on dense and block-segment LD) a batch of K chains.
 
 PyTorch port of hibayes_tpu/engine/sgibbs.py (reference: src/SBayesD.cpp,
 src/SBayesS.cpp).  The chain state is ``r_hat``, the adjusted X'y vector;
@@ -17,12 +18,13 @@ SBayesS semantics are carried by ``varediff`` (per-SNP residual inflation,
 SBayesS.cpp:131-141) and the guard.
 
 Every random number of iteration ``it`` comes from an
-:class:`~hibayes_tpu_torch.engine.rng.IterNoise`, as in engine/gibbs.py.
+:class:`~hibayes_tpu_torch.engine.rng.IterNoise`, as in engine/gibbs.py;
+an iteration's functions take one chain's state or a batch's (a leading
+chain axis, ``noise`` a list of one IterNoise per chain), as there.
 """
 
 from __future__ import annotations
 
-import time
 import warnings
 from typing import NamedTuple
 
@@ -33,7 +35,9 @@ from ..data.ld import BlockDiagLD, as_numpy
 from ..data.sparse_ld import TiledSparseLD, _tensor
 from ..math.distributions import inv_gaussian_from
 from ..ops import blockgibbs
-from .gibbs import _print_progress, alphabet_global_updates, pad_to_block
+from .gibbs import (_dot, _draw, alphabet_global_updates, batch_results, chain_noise,
+                    check_chain_options, pad_to_block, pip_counters, posterior_rates,
+                    rhat_diagnostics, run_loop, stack_state)
 from .rng import (STREAM_S_VARA, STREAM_SNP_CHI, STREAM_SNP_U, STREAM_SNP_Z,
                   STREAM_SNP_Z2, STREAM_SNP_ZR, STREAM_VE, IterNoise)
 
@@ -197,9 +201,14 @@ def _s_snapshot(spec, state: SChainState) -> dict:
     }
 
 
-def _check_ported(spec, data: SGibbsData, mesh=None) -> None:
+def _check_ported(spec, data: SGibbsData, mesh=None, nchains: int = 1) -> None:
     """Raise for the summary configurations whose code paths are still to
     be ported (ROADMAP.md, queue 1)."""
+    if nchains > 1 and data.ld_tiles is not None:
+        raise NotImplementedError(
+            "a chain batch on a tiled LD is not ported yet: the JAX package runs "
+            "it as vmapped single chains through the XLA scan with _reject_redraw, "
+            "whose guard has no kernel here (ROADMAP queue 1, item 6 with item 16)")
     if mesh is not None or spec.emulate_shards > 1 or spec.shard_schedule != "turn":
         raise NotImplementedError(
             "meshes and shard schedules are not ported yet (ROADMAP queue 1, "
@@ -218,46 +227,51 @@ def _check_ported(spec, data: SGibbsData, mesh=None) -> None:
 
 def _s_pre_sweep(spec, data: SGibbsData, noise, state: SChainState) -> dict:
     """The sweep's random numbers, constants and packed rows
-    (hibayes_tpu/engine/sgibbs.py:197-241 and the packing of :268-281)."""
+    (hibayes_tpu/engine/sgibbs.py:197-241 and the packing of :268-281), for
+    one chain (P (R, m_pad)) or a batch (P (K, R, m_pad))."""
     dt, dev = data.xy.dtype, data.xy.device
     m_pad, mi = spec.m_pad, spec.model_index
-    z_snp = noise.normal(STREAM_SNP_Z, (m_pad,))
+    lead = tuple(state.vara.shape)
+    full = lambda v: torch.full(lead + (m_pad,), v, dtype=dt, device=dev)
+    z_snp = _draw(noise, lambda nz: nz.normal(STREAM_SNP_Z, (m_pad,)))
     if mi == 6:  # BayesR Gumbel-max fold selection: n_fold uniforms per SNP
-        u_snp = noise.uniform(STREAM_SNP_U, (m_pad, spec.n_fold))
+        u_snp = _draw(noise, lambda nz: nz.uniform(STREAM_SNP_U, (m_pad, spec.n_fold)))
     elif mi in (3, 4, 5) or spec.reject_guard:
-        u_snp = noise.uniform(STREAM_SNP_U, (m_pad,))
+        u_snp = _draw(noise, lambda nz: nz.uniform(STREAM_SNP_U, (m_pad,)))
     else:
-        u_snp = torch.full((m_pad,), 0.5, dtype=dt, device=dev)
+        u_snp = full(0.5)
     if mi in (2, 3):
-        chi_snp = noise.chisq(STREAM_SNP_CHI, spec.dfvara + 1.0, (m_pad,))
+        chi_snp = _draw(noise, lambda nz: nz.chisq(STREAM_SNP_CHI, spec.dfvara + 1.0, (m_pad,)))
     else:
-        chi_snp = torch.ones((m_pad,), dtype=dt, device=dev)
+        chi_snp = full(1.0)
     if mi == 5:
-        z2_snp = noise.normal(STREAM_SNP_Z2, (m_pad,))
+        z2_snp = _draw(noise, lambda nz: nz.normal(STREAM_SNP_Z2, (m_pad,)))
     else:
-        z2_snp = torch.zeros((m_pad,), dtype=dt, device=dev)
+        z2_snp = full(0.0)
 
     # per-SNP residual variance varediff * vara + vare (SBayesS.cpp:285);
     # varediff == 0 for dense LD reduces it to vare (SBayesD semantics)
-    vei = data.varediff * state.vara + state.vare
+    vei = data.varediff * state.vara[..., None] + state.vare[..., None]
+    chains = (lambda v: v) if lead else (lambda v: v[None])   # the pack's chain axis
     consts_b = {
-        "varg": state.varg[None],
-        "s2varg_df": torch.full((1,), spec.s2varg * spec.dfvara, dtype=dt, device=dev),
-        "logpi": torch.log(state.pi)[None],
-        "lambda2": state.lambda2[None],
-        "vara_fold": state.vara_fold[None],
-        "fold": data.fold[None],
+        "varg": chains(state.varg),
+        "s2varg_df": torch.full(lead or (1,), spec.s2varg * spec.dfvara, dtype=dt,
+                                device=dev),
+        "logpi": chains(torch.log(state.pi)),
+        "lambda2": chains(state.lambda2),
+        "vara_fold": chains(state.vara_fold),
+        "fold": data.fold.expand((lead or (1,)) + tuple(data.fold.shape)),
     }
     vargL_full = (state.vargL if state.vargL.numel()
-                  else torch.zeros((m_pad,), dtype=dt, device=dev))
-    P = blockgibbs.pack_rows(spec, consts_b, data.xpx, data.vx, vei[None],
-                             state.g[None], z_snp[None], u_snp[None],
-                             chi_snp[None], vargL_full[None], dt)
+                  else torch.zeros(lead + (m_pad,), dtype=dt, device=dev))
+    P = blockgibbs.pack_rows(spec, consts_b, data.xpx, data.vx, chains(vei),
+                             chains(state.g), chains(z_snp), chains(u_snp),
+                             chains(chi_snp), chains(vargL_full), dt)
     if data.ld_tiles is not None and blockgibbs.guard_on(spec):
         z_retry = noise.normal(STREAM_SNP_ZR, (blockgibbs.N_RETRY, m_pad))
         P = torch.cat([P, blockgibbs.pack_retry_rows(
             spec, consts_b, data.xpx, data.vx, vei[None], z_retry[None], dt)], dim=1)
-    return {"P": P[0], "vei": vei, "vargL_full": vargL_full,
+    return {"P": P if lead else P[0], "vei": vei, "vargL_full": vargL_full,
             "rnd": (z_snp, u_snp, chi_snp, z2_snp)}
 
 
@@ -269,14 +283,15 @@ def _s_sweep_accums(spec, data: SGibbsData, state: SChainState, vei, g, track,
     dt, dev = data.xy.dtype, data.xy.device
     mi = spec.model_index
     zero = torch.zeros((), dtype=dt, device=dev)
-    vargi_acc = torch.where(track == 1, g * g, zero).sum() if mi == 4 else zero
+    vargi_acc = torch.where(track == 1, g * g, zero).sum(-1) if mi == 4 else zero
     if mi == 6:
         ffold = data.fold[track.long()]
-        vargR_acc = torch.where(track > 0, g * g / torch.clamp_min(ffold, 1e-30), zero).sum()
+        vargR_acc = torch.where(track > 0, g * g / torch.clamp_min(ffold, 1e-30),
+                                zero).sum(-1)
     else:
         vargR_acc = zero
     if mi == 5 and state.vargL.numel():
-        lam2 = state.lambda2
+        lam2 = state.lambda2[..., None]
         mu_ig = torch.sqrt(vei) * torch.sqrt(lam2) / torch.clamp_min(torch.abs(g), 1e-30)
         vargi = 1.0 / inv_gaussian_from(z2_snp, u_snp, mu_ig, lam2)
         ok = (vargi > 0) if spec.vargl_strict_pos else (vargi >= 0)
@@ -292,27 +307,18 @@ def _s_finish(spec, data: SGibbsData, noise, state: SChainState, g, track,
     draws from quadratic forms in r_hat with the negative-Ve guard
     (SBayesD.cpp:458-468), PIP/WPPA counters
     (``_s_finish``, hibayes_tpu/engine/sgibbs.py:686-723)."""
-    dt = data.xy.dtype
     n = spec.n
     varg, pi, vara_fold, lambda2 = alphabet_global_updates(
         spec, noise, g, track, data.real, data.fold, vargi_acc, vargR_acc,
         vargL if state.vargL.numel() else torch.zeros_like(g),
         state.varg, state.pi, state.vara_fold, state.lambda2,
     )
-    chi_a = noise.chisq(STREAM_S_VARA, n + spec.dfvara)
-    vara = (torch.dot(g, data.xy - r_hat) + spec.s2vara * spec.dfvara) / chi_a
-    chi_e = noise.chisq(STREAM_VE, n + spec.dfvare)
-    vare = (data.yy - torch.dot(g, data.xy + r_hat) + spec.s2vare * spec.dfvare) / chi_e
+    chi_a = _draw(noise, lambda nz: nz.chisq(STREAM_S_VARA, n + spec.dfvara))
+    vara = (_dot(g, data.xy - r_hat) + spec.s2vara * spec.dfvara) / chi_a
+    chi_e = _draw(noise, lambda nz: nz.chisq(STREAM_VE, n + spec.dfvare))
+    vare = (data.yy - _dot(g, data.xy + r_hat) + spec.s2vare * spec.dfvare) / chi_e
     vare = torch.where(vare < 0, 0.5 * vara, vare)
-
-    nzrate, wppa = state.nzrate, state.wppa
-    if state.it >= spec.nburn:
-        nz = (track > 0) & data.real
-        nzrate = nzrate + nz.to(dt)
-        if spec.nw:
-            win_any = torch.zeros((spec.nw + 1,), dtype=torch.int32, device=g.device)
-            win_any.scatter_reduce_(0, data.windindx0, nz.to(torch.int32), reduce="amax")
-            wppa = wppa + win_any[: spec.nw].to(dt)
+    nzrate, wppa = pip_counters(spec, data, state, track)
     return SChainState(
         it=state.it + 1, r_hat=r_hat, g=g, varg=varg, vargL=vargL,
         lambda2=lambda2, pi=pi, vara_fold=vara_fold, vara=vara, vare=vare,
@@ -328,6 +334,23 @@ def one_s_iteration(spec, data: SGibbsData, seed: int, state: SChainState,
     _check_ported(spec, data, mesh)
     if noise is None:
         noise = IterNoise(seed, state.it, data.xy.device, data.xy.dtype)
+    return _s_iteration(spec, data, noise, state)
+
+
+def one_s_iteration_batch(spec, data: SGibbsData, seed: int, states: SChainState,
+                          noise=None) -> SChainState:
+    """One summary iteration of K chains on dense or block-segment LD
+    (``one_s_iteration_batch``, hibayes_tpu/engine/sgibbs.py:732-838):
+    ``states`` holds a leading chain axis; each segment is one K-chain
+    ``sweep_s_segment``.  ``noise`` defaults to each chain's own streams."""
+    K = int(states.vara.shape[0])
+    _check_ported(spec, data, None, K)
+    if noise is None:
+        noise = chain_noise(seed, states.it, K, data.xy.device, data.xy.dtype)
+    return _s_iteration(spec, data, noise, states)
+
+
+def _s_iteration(spec, data: SGibbsData, noise, state: SChainState) -> SChainState:
     pre = _s_pre_sweep(spec, data, noise, state)
     P = pre["P"]
     if data.ld_tiles is not None:
@@ -337,10 +360,10 @@ def one_s_iteration(spec, data: SGibbsData, seed: int, state: SChainState,
         parts, off = [], 0
         for seg, mc in zip(data.ld_segs, spec.seg_sizes):
             sl = slice(off, off + mc)
-            parts.append(blockgibbs.sweep_s_segment(spec, seg, state.r_hat[sl],
-                                                    P[:, sl], spec.n))
+            parts.append(blockgibbs.sweep_s_segment(spec, seg, state.r_hat[..., sl],
+                                                    P[..., sl], spec.n))
             off += mc
-        dg, track, r_hat = (torch.cat(x) for x in zip(*parts))
+        dg, track, r_hat = (torch.cat(x, dim=-1) for x in zip(*parts))
     g = state.g - dg.to(state.g.dtype)
     _, u_snp, _, z2_snp = pre["rnd"]
     vargi_acc, vargR_acc, vargL = _s_sweep_accums(
@@ -365,40 +388,42 @@ def run_s_chain(spec, data: SGibbsData, priors, pi_init, seed=666666,
     checkpoints.  ``extras`` holds pip, wppa, nzct and the chain's wall
     ``seconds``, taken once the device has finished its iterations."""
     _check_ported(spec, data, mesh)
-    state = init_s_state(spec, data, priors, pi_init)
-    if chunk_records <= 0:
-        chunk_records = max(spec.n_records // 10, 1)
-    every = chunk_records * spec.thin
-    total = spec.niter_eff
-    snaps = []
-    t0 = time.time()
-    for done in range(1, total + 1):
-        state = one_s_iteration(spec, data, seed, state)
-        if done > spec.nburn and (done - spec.nburn) % spec.thin == 0:
-            snaps.append(_s_snapshot(spec, state))
-        if progress and (done % every == 0 or done == total):
-            sec = int((time.time() - t0) / done * (total - done))
-            _print_progress(spec, state,
-                            f"{sec // 3600:02d}h{sec % 3600 // 60:02d}m{sec % 60:02d}s")
-    if state.vare.is_cuda:
-        torch.cuda.synchronize(state.vare.device)
-    seconds = time.time() - t0
-    samples = ({k: torch.stack([s[k] for s in snaps]).cpu().numpy() for k in snaps[0]}
-               if snaps else {})
+    state, samples, seconds = run_loop(
+        spec, init_s_state(spec, data, priors, pi_init),
+        lambda st: one_s_iteration(spec, data, seed, st), lambda st: _s_snapshot(spec, st),
+        progress, chunk_records)
     if not bool(torch.isfinite(state.vare)):
         warnings.warn("chain diverged: residual variance is non-finite at the "
                       "final iteration", UserWarning, stacklevel=2)
-
-    nzct = spec.n_records * spec.thin
-    pip = state.nzrate / nzct
-    pip = torch.where(pip >= 1.0, (nzct - 1.0) / nzct, pip)
-    if spec.model_index in (1, 2, 5):
-        pip = torch.ones_like(pip)
-    wppa = state.wppa / nzct
-    wppa = torch.where(wppa >= 1.0, (nzct - 1.0) / nzct, wppa)
+    pip, wppa, nzct = posterior_rates(spec, state)
     real_cols = segment_unpad_index(spec)
     if samples:
         samples["alpha"] = samples["alpha"][:, real_cols]
     extras = {"pip": as_numpy(pip)[real_cols], "wppa": as_numpy(wppa),
               "nzct": nzct, "seconds": seconds}
     return state, samples, extras
+
+
+def run_s_chains(spec, data: SGibbsData, priors, pi_init, seed=666666, nchains=4,
+                 checkpoint_path=None, progress=False, chunk_records=0, mesh=None):
+    """Run ``nchains`` independent summary chains as one batch on dense or
+    block-segment LD (``run_s_chains``, hibayes_tpu/engine/sgibbs.py:874-927,
+    without checkpoints).  Returns (states, samples, extras) as
+    :func:`~hibayes_tpu_torch.engine.gibbs.run_chains`: samples (nchains,
+    n_records, ...), pip and wppa averaged over chains, ``rhat`` and the wall
+    ``seconds``.  One chain runs :func:`run_s_chain`, with the chain axis
+    added."""
+    check_chain_options(nchains, mesh, checkpoint_path, progress)
+    if nchains == 1:
+        state, samples, extras = run_s_chain(spec, data, priors, pi_init, seed=seed)
+        samples = {k: v[None] for k, v in samples.items()}
+        return (stack_state(state, 1), samples,
+                {**extras, "rhat": rhat_diagnostics(samples)})
+    _check_ported(spec, data, mesh, nchains)
+    states, samples, seconds = run_loop(
+        spec, stack_state(init_s_state(spec, data, priors, pi_init), nchains),
+        lambda ss: one_s_iteration_batch(spec, data, seed, ss),
+        lambda ss: _s_snapshot(spec, ss))
+    samples, extras = batch_results(spec, states, samples, segment_unpad_index(spec),
+                                    seconds)
+    return states, samples, extras

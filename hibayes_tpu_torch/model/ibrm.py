@@ -1,9 +1,10 @@
 """`ibrm`: individual-level Bayesian regression (y = Xb + Rr + Ma + e).
 
-PyTorch port of hibayes_tpu/model/ibrm.py for one chain on one device:
-id alignment, formula parsing, NA masking, GWAS windows, iteration and
-prior defaults, the phenotyped / unphenotyped split, the chain, and GEBV and
-WPPA assembly (reference: R/bayes.r:121-320).  Every method but BSLMM.
+PyTorch port of hibayes_tpu/model/ibrm.py on one device, for one chain or
+a batch of chains with R-hat: id alignment, formula parsing, NA masking,
+GWAS windows, iteration and prior defaults, the phenotyped / unphenotyped
+split, the chain, and GEBV and WPPA assembly (reference: R/bayes.r:121-320).
+Every method but BSLMM.
 """
 
 from __future__ import annotations
@@ -182,17 +183,16 @@ def ibrm(
     nchains=1,
     device=None,
 ) -> BlrMod:
-    """Fit one chain on ``device`` (default "cuda"; the CPU only when asked
-    for with device="cpu"; the header names it).  ``M`` is an (n, m) numpy
-    array or torch tensor on any device; integer genotypes are stored as
-    int8."""
+    """Fit on ``device`` (default "cuda"; the CPU only when asked for with
+    device="cpu"; the header names it).  ``M`` is an (n, m) numpy array or
+    torch tensor on any device; integer genotypes are stored as int8.
+    ``nchains > 1`` runs that many chains as one batch (``run_chains``):
+    the summaries pool every chain's records and ``rhat`` holds each
+    parameter's split R-hat."""
     if method not in METHODS:
         raise ValueError(f"unknown method '{method}'; choose from {METHODS}")
     if method == "BSLMM":
         raise NotImplementedError("BSLMM is not ported yet (ROADMAP queue 1, item 9)")
-    if nchains != 1:
-        raise NotImplementedError(
-            "multi-chain runs are not ported yet (ROADMAP queue 1, item 6)")
     if data is None:
         raise ValueError("no data assigned.")
     if M is None:
@@ -251,23 +251,38 @@ def ibrm(
 
     if verbose:
         _print_header(spec, pr, Pi, fold, method, n, m, nc, nlevels, nw, device)
-    # reference UX: per-printfreq progress rows (Bayes.cpp:884-914)
-    progress = progress or (verbose and printfreq > 0)
-    chunk_records = max(int(printfreq) // max(thin, 1), 1) if printfreq else 0
-    state, samples, extras = G.run_chain(
-        spec, gdata, pr, Pi, seed=seed, progress=progress,
-        chunk_records=chunk_records,
-    )
+    if nchains > 1:
+        state, samples, extras = G.run_chains(spec, gdata, pr, Pi, seed=seed,
+                                              nchains=nchains, progress=progress)
+        samples = pool_chains(samples)
+    else:
+        # reference UX: per-printfreq progress rows (Bayes.cpp:884-914)
+        progress = progress or (verbose and printfreq > 0)
+        chunk_records = max(int(printfreq) // max(thin, 1), 1) if printfreq else 0
+        state, samples, extras = G.run_chain(
+            spec, gdata, pr, Pi, seed=seed, progress=progress,
+            chunk_records=chunk_records,
+        )
     elapsed = extras["seconds"]
     if verbose:
-        print(f"MCMC finished: {spec.niter_eff} iterations in {elapsed:.1f}s "
-              f"({spec.niter_eff * m / max(elapsed, 1e-9):.3g} SNP-updates/s "
-              f"on {device})")
+        print(f"MCMC finished: {spec.niter_eff} iterations of {nchains} chain(s) in "
+              f"{elapsed:.1f}s ({nchains * spec.niter_eff * m / max(elapsed, 1e-9):.3g} "
+              f"SNP-updates/s on {device})")
 
-    return _assemble_results(
+    res = _assemble_results(
         method, formula, spec, samples, extras, mf, y, M_id, keep, gdata, Mp,
         windinfo, model_desc=f"Individual level Bayesian model fit by [{method}]",
     )
+    res.rhat = extras.get("rhat")
+    return res
+
+
+def pool_chains(samples: dict) -> dict:
+    """(nchains, n_records, ...) records -> (nchains * n_records, ...) for
+    the summaries (the chain and record counts given explicitly: -1 is
+    ambiguous for an empty parameter)."""
+    return {k: v.reshape((v.shape[0] * v.shape[1],) + v.shape[2:])
+            for k, v in samples.items()}
 
 
 def _print_header(spec, pr, Pi, fold, method, n, m, nc, nlevels, nw, device):

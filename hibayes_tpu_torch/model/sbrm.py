@@ -1,7 +1,8 @@
 """`sbrm`: summary-level Bayesian regression over LD matrices.
 
-PyTorch port of hibayes_tpu/model/sbrm.py for one chain on one device
-(reference front end: R/sbayes.r:101-239): LD-type dispatch (dense ->
+PyTorch port of hibayes_tpu/model/sbrm.py on one device, for one chain
+or (on dense and block-segment LD) a batch of chains with R-hat (reference
+front end: R/sbayes.r:101-239): LD-type dispatch (dense ->
 SBayesD semantics; chi-square-pruned, chromosome-block or tiled -> SBayesS
 semantics with varediff inflation and the rejection guard), windows,
 defaults, and the conjugate-gradient solver (method="CG", src/cg.cpp).
@@ -23,7 +24,7 @@ from ..data.sumstats import sumstat_matrix
 from ..engine import gibbs as G
 from ..engine import sgibbs as SG
 from ..math.solvers import conj_grad
-from .ibrm import _resolve_windows, resolve_device, resolve_iteration_defaults
+from .ibrm import _resolve_windows, pool_chains, resolve_device, resolve_iteration_defaults
 from .results import BlrMod
 
 S_METHODS = (
@@ -93,11 +94,14 @@ def sbrm(
     merge_rounds=1,
     device=None,
 ) -> BlrMod:
-    """Fit one summary-level chain on ``device`` (default "cuda"; the CPU
-    only when asked for with device="cpu").  ``ldm`` is a DenseLD,
-    SparseLD, BlockDiagLD or TiledSparseLD, a scipy sparse matrix, or a
-    square numpy array or torch tensor (a tensor on the card is used in
-    place).  On the card the sweep kernels take float32 only."""
+    """Fit summary-level chains on ``device`` (default "cuda"; the CPU only
+    when asked for with device="cpu").  ``ldm`` is a DenseLD, SparseLD,
+    BlockDiagLD or TiledSparseLD, a scipy sparse matrix, or a square numpy
+    array or torch tensor (a tensor on the card is used in place).  On the
+    card the sweep kernels take float32 only.  ``nchains > 1`` runs that
+    many chains as one batch on a dense LD (``run_s_chains``): the
+    summaries pool every chain's records and ``rhat`` holds each
+    parameter's split R-hat."""
     if method not in S_METHODS:
         raise ValueError(f"unknown method '{method}'; choose from {S_METHODS}")
     device = resolve_device(device)
@@ -115,16 +119,17 @@ def sbrm(
     if method == "CG":
         return _fit_cg(ss, ld, lambda_, verbose, device)
 
-    if nchains != 1:
-        raise NotImplementedError(
-            "sbrm(nchains>1) is not ported yet: its route is the K-chain "
-            "segment sweep sweep_s_segment_t (ROADMAP queue 1, item 6)")
     if mesh is not None or shard_schedule != "turn" or merge_rounds != 1:
         raise NotImplementedError(
             "meshes and shard schedules are not ported yet (ROADMAP queue 1, item 13)")
     if checkpoint is not None:
         raise NotImplementedError(
             "checkpoint/resume is not ported yet (ROADMAP queue 1, item 7)")
+    if nchains > 1 and isinstance(ld, TiledSparseLD):
+        raise NotImplementedError(
+            "sbrm(nchains>1) on a tiled LD is not ported yet: the JAX package runs "
+            "it as vmapped single chains through the XLA scan with _reject_redraw, "
+            "whose guard has no kernel here (ROADMAP queue 1, item 6 with item 16)")
     if device.type == "cuda" and dtype != torch.float32:
         raise TypeError("on the card the sbrm sweep kernels take float32 only")
 
@@ -163,15 +168,20 @@ def sbrm(
         print(f"    Phenotypic var {vary:.5f}")
         print(f"    Total iterations {niter}, burn-in {nburn}")
         print(f"    Device {device}")
-    progress = progress or (verbose and printfreq > 0)
-    chunk_records = max(int(printfreq) // max(thin, 1), 1) if printfreq else 0
-    state, samples, extras = SG.run_s_chain(
-        spec, data, pr, Pi, seed=seed, progress=progress, chunk_records=chunk_records)
+    if nchains > 1:
+        state, samples, extras = SG.run_s_chains(spec, data, pr, Pi, seed=seed,
+                                                 nchains=nchains, progress=progress)
+        samples = pool_chains(samples)
+    else:
+        progress = progress or (verbose and printfreq > 0)
+        chunk_records = max(int(printfreq) // max(thin, 1), 1) if printfreq else 0
+        state, samples, extras = SG.run_s_chain(
+            spec, data, pr, Pi, seed=seed, progress=progress, chunk_records=chunk_records)
     elapsed = extras["seconds"]
     if verbose:
-        print(f"MCMC finished: {spec.niter_eff} iterations in {elapsed:.1f}s "
-              f"({spec.niter_eff * m / max(elapsed, 1e-9):.3g} SNP-updates/s "
-              f"on {device})")
+        print(f"MCMC finished: {spec.niter_eff} iterations of {nchains} chain(s) in "
+              f"{elapsed:.1f}s ({nchains * spec.niter_eff * m / max(elapsed, 1e-9):.3g} "
+              f"SNP-updates/s on {device})")
 
     s = dict(samples)
     gwas = None
@@ -189,6 +199,7 @@ def sbrm(
         alpha=s["alpha"].mean(axis=0),
         pip=np.asarray(extras["pip"]),
         gwas=gwas,
+        rhat=extras.get("rhat"),
         chain_seconds=elapsed,
         MCMCsamples=s,
     )

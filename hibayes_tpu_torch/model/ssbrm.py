@@ -122,7 +122,8 @@ def ssbrm(
         raise ValueError(f"unknown method '{method}'")
     if nchains != 1:
         raise NotImplementedError(
-            "ssbrm(nchains>1) is not ported yet (ROADMAP queue 1, item 6)")
+            "ssbrm(nchains>1) is not ported yet: its epsilon sweep (mme_sweep) "
+            "would run over K chains (ROADMAP queue 1, item 6)")
     if mesh is not None:
         raise NotImplementedError(
             "meshes are not ported yet (ROADMAP queue 1, item 13)")

@@ -17,13 +17,24 @@ Two kernels carry phase B of the individual-level sweep (csrc/blockgibbs.cu):
 * ``block_draws``: the B draws of one block for K chains, given r0
   (replaces ``_s_block_draws``/``_kernel_s_block_t``);
 * ``sweep_mc``: the fused K-chain sweep over a range of blocks, with X int8
-  or f32 (replaces ``sweep_mc_t``, ``sweep_mc_ti`` and ``sweep_mc_tc``).
+  or f32 (replaces ``sweep_mc_t``, ``sweep_mc_ti`` and ``sweep_mc_tc``, and
+  ``sweep_mc`` / ``_kernel_mc``: at K >= 2 its rows kernel reads each tile
+  of X once for all chains).
 
-Two carry the single-chain summary-level (sbrm) sweep (csrc/sgibbs.cu),
-whose state is r_hat instead of a residual:
+The JAX engine also has two single-chain sweeps for when no transposed
+kernel fits the TPU's VMEM: ``sweep`` / ``_kernel`` (the X block resident)
+and ``sweep_chunked`` / ``_kernel_chunked`` (X streamed in chunks of 2,048
+rows).  Their layouts are VMEM choices; here ``sweep_mc`` streams X in row
+tiles for any n, so their counterpart is ``sweep_mc`` at K = 1: the port's
+``one_iteration`` always sweeps through it (``_run_sweep_k1``) and has no
+fallback branch.  tests/test_torch_k5.py holds both TPU kernels to it.
 
-* ``sweep_s_segment``: one dense LD segment (replaces ``sweep_s_segment`` /
-  ``_kernel_s``);
+Two carry the summary-level (sbrm) sweep (csrc/sgibbs.cu), whose state is
+r_hat instead of a residual:
+
+* ``sweep_s_segment``: one dense LD segment for one or K chains (replaces
+  ``sweep_s_segment`` / ``_kernel_s``, and ``sweep_s_segment_t`` with its
+  draws ``_kernel_s_block_t`` for K chains);
 * ``sweep_s_tiled``: every tile row of a tiled sparse LD, with the SBayesS
   rejection guard (replaces ``sweep_s_tiled`` / ``_kernel_s_tiled``).
 
@@ -43,7 +54,8 @@ kernel or raises.  Each wrapper counts its own launches in a plain integer
 attribute (``.launches``), and each plain version its calls (``.calls``).
 The libraries count every launch of each CUDA kernel where it is made
 (:func:`kernel_launches`): a sweep over nbg blocks launches ``rows_kernel``
-nbg + 1 times and ``draws_kernel`` nbg times; a segment sweep over nb blocks
+(one chain) or ``rows_mc_kernel`` (K >= 2 chains) nbg + 1 times and
+``draws_kernel`` nbg times; a segment sweep over nb blocks
 ``segment_draws`` and ``segment_update`` nb times each; a tiled sweep over
 nbr tile rows ``tiled_draws`` and ``tiled_scatter`` nbr times each; an
 epsilon sweep ``mme_sweep_kernel`` once.
@@ -64,6 +76,7 @@ POS_BIG = 1e30
 MAX_BLOCK = 128   # kernel limit: SNPs per block (csrc/draws.cuh kMaxBlock)
 MAX_FOLD = 8      # kernel limit: BayesR folds
 MIN_TILE_ROWS = 128  # rows one pass of a rows_kernel CTA covers (32 warps x 4)
+MC_CHUNK_ROWS = 32   # rows a rows_mc_kernel CTA stages at a time (one per lane)
 N_RETRY = 8       # pre-drawn candidates of the rejection guard (csrc/draws.cuh kRetry)
 
 
@@ -308,26 +321,31 @@ def _check_kernel_shapes(spec, B: int, K: int):
         raise ValueError("no chains")
 
 
-def rows_per_tile(n: int, device) -> int:
-    """Rows of n per CTA of the sweep's rows_kernel: about one tile per SM.
+def rows_per_tile(n: int, device, K: int = 1) -> int:
+    """Rows of n per CTA of the sweep's rows kernel: about one tile per SM.
     Each warp makes only a few round trips to memory, so the kernel is bound
     by their latency and every SM must take part (NVIDIA H100 80GB HBM3,
     132 SMs, 700 W, n=50,176: 512-row tiles took 19.5 us per block and
-    384-row tiles 10.6 us; PERF.md)."""
+    384-row tiles 10.6 us; PERF.md).  The K-chain kernel walks its tile in
+    chunks of MC_CHUNK_ROWS rows, so its tiles are a multiple of that."""
     sms = torch.cuda.get_device_properties(device).multi_processor_count
-    return max(MIN_TILE_ROWS, -(-n // sms))
+    if K == 1:
+        return max(MIN_TILE_ROWS, -(-n // sms))
+    return -(-n // (sms * MC_CHUNK_ROWS)) * MC_CHUNK_ROWS
 
 
 def kernel_launches() -> dict:
     """Launches of each CUDA kernel since :func:`reset_kernel_launches`,
     counted in the libraries where each kernel is launched."""
-    rows, draws = ctypes.c_longlong(), ctypes.c_longlong()
-    build.library().hb_launch_counts(ctypes.byref(rows), ctypes.byref(draws))
+    rows, rows_mc, draws = ctypes.c_longlong(), ctypes.c_longlong(), ctypes.c_longlong()
+    build.library().hb_launch_counts(ctypes.byref(rows), ctypes.byref(rows_mc),
+                                     ctypes.byref(draws))
     s = (ctypes.c_longlong * 4)()
     build.library("sgibbs.cu").hb_s_launch_counts(s)
     e = ctypes.c_longlong()
     build.library("mme.cu").hb_mme_launch_counts(ctypes.byref(e))
-    return {"rows_kernel": rows.value, "draws_kernel": draws.value,
+    return {"rows_kernel": rows.value, "rows_mc_kernel": rows_mc.value,
+            "draws_kernel": draws.value,
             "segment_draws": s[0], "segment_update": s[1],
             "tiled_draws": s[2], "tiled_scatter": s[3], "mme_sweep_kernel": e.value}
 
@@ -399,7 +417,10 @@ def sweep_mc_plain(spec, consts_b, X_blocks, W_blocks, xpx, vx, vei_b, g_b,
                    z_b, u_b, chi_b, z2_b, vargL_b, yadj_b, u_vec_b,
                    block_range=None):
     """Plain version of :func:`sweep_mc`, in the dtype of ``yadj_b``.  On the
-    CPU it takes the role of the JAX engine's ``_sweep_xla``."""
+    CPU it takes the role of the JAX engine's ``_sweep_xla``.  At K >= 2 a
+    chain's products are an elementwise product and a sum of its own: a
+    matrix product over the chain batch may sum in an order that depends on
+    K, and chain k must not depend on the other chains."""
     sweep_mc_plain.calls += 1
     nb_tot, n, B = X_blocks.shape
     off, nbg = block_range if block_range is not None else (0, nb_tot)
@@ -414,9 +435,9 @@ def sweep_mc_plain(spec, consts_b, X_blocks, W_blocks, xpx, vx, vei_b, g_b,
     track = torch.empty((K, nbg * B), dtype=torch.int32, device=yadj.device)
     for b in range(nbg):
         Xb = X_blocks[off + b].to(dt)
-        gi, dg, tr, _ = _draws_plain(spec, P_blocks[b], W_blocks[off + b].to(dt),
-                                     (yadj @ Xb).T)
-        delta = (Xb @ dg).T
+        r0 = (yadj @ Xb).T if K == 1 else (yadj[:, :, None] * Xb).sum(1).T
+        gi, dg, tr, _ = _draws_plain(spec, P_blocks[b], W_blocks[off + b].to(dt), r0)
+        delta = (Xb @ dg).T if K == 1 else (Xb * dg.T[:, None, :]).sum(2)
         yadj += delta
         u -= delta
         g_new[:, b * B:(b + 1) * B] = gi.T
@@ -473,7 +494,7 @@ def sweep_mc(spec, consts_b, X_blocks, W_blocks, xpx, vx, vei_b, g_b, z_b,
     g_new = torch.empty((K, m_loc), dtype=F32, device=dev)
     dg = torch.empty((K, m_loc), dtype=F32, device=dev)
     track_f = torch.empty((K, m_loc), dtype=F32, device=dev)
-    tile = rows_per_tile(n, dev)
+    tile = rows_per_tile(n, dev, K)
     partial = torch.empty((-(-n // tile), K, B), dtype=F32, device=dev)
     code = lib.hb_sweep_mc(
         X_blocks.data_ptr(), int(X_blocks.dtype == torch.int8), W.data_ptr(),
@@ -546,20 +567,34 @@ def _summary_blocks(P, nb: int, B: int, dt):
 
 
 def sweep_s_segment_plain(spec, LD_seg, r_seg, P, n):
-    """Plain version of :func:`sweep_s_segment`, in the dtype of ``r_seg``."""
+    """Plain version of :func:`sweep_s_segment`, in the dtype of ``r_seg``.
+    With K chains each chain's update is an elementwise product and a sum
+    of its own, so that it does not depend on the other chains."""
     sweep_s_segment_plain.calls += 1
     mc, B = LD_seg.shape[0], spec.block
     dt = r_seg.dtype
     LD = LD_seg.to(dt)
-    P_blocks = _summary_blocks(P, mc // B, B, dt)
+    if r_seg.dim() == 1:   # one chain: the single-chain sweep's products, unchanged
+        P_blocks = _summary_blocks(P, mc // B, B, dt)
+        r = r_seg.clone()
+        dg = torch.empty((mc,), dtype=dt, device=r.device)
+        track = torch.empty((mc,), dtype=dt, device=r.device)
+        for b in range(mc // B):
+            sl = slice(b * B, (b + 1) * B)
+            _, d, t, _ = _draws_plain(spec, P_blocks[b], n * LD[sl, sl], r[sl, None])
+            r += n * (LD[:, sl] @ d[:, 0])
+            dg[sl], track[sl] = d[:, 0], t[:, 0]
+        return dg, track.to(torch.int32), r
+    K = r_seg.shape[0]
+    P_blocks = to_block_layout(P.to(dt), mc // B, B)          # (nb, B, R, K)
     r = r_seg.clone()
-    dg = torch.empty((mc,), dtype=dt, device=r.device)
-    track = torch.empty((mc,), dtype=dt, device=r.device)
+    dg = torch.empty((K, mc), dtype=dt, device=r.device)
+    track = torch.empty((K, mc), dtype=dt, device=r.device)
     for b in range(mc // B):
         sl = slice(b * B, (b + 1) * B)
-        _, d, t, _ = _draws_plain(spec, P_blocks[b], n * LD[sl, sl], r[sl, None])
-        r += n * (LD[:, sl] @ d[:, 0])
-        dg[sl], track[sl] = d[:, 0], t[:, 0]
+        _, d, t, _ = _draws_plain(spec, P_blocks[b], n * LD[sl, sl], r[:, sl].T)
+        r += n * (LD[:, sl] * d.T[:, None, :]).sum(2)
+        dg[:, sl], track[:, sl] = d.T, t.T
     return dg, track.to(torch.int32), r
 
 
@@ -567,25 +602,30 @@ sweep_s_segment_plain.calls = 0
 
 
 def sweep_s_segment(spec, LD_seg, r_seg, P, n):
-    """Single-chain summary sweep over one padded dense LD segment; the
-    contract of ``sweep_s_segment`` (hibayes_tpu/ops/blockgibbs.py:1207-1254).
+    """Summary sweep of one or K chains over one padded dense LD segment;
+    the contract of ``sweep_s_segment`` (hibayes_tpu/ops/blockgibbs.py:1207-1254)
+    for one chain and of ``sweep_s_segment_t`` (:1325-1362) for K.
 
-    LD_seg (mc, mc), mc a multiple of B; r_seg (mc,) the segment's r_hat;
-    P (R, mc) the segment's packed rows (:func:`pack_rows` of one chain).
-    Per block: B draws against n LD[block, block], then
-    r_seg += n LD[:, block] dg.  The JAX wrapper's ``consts`` carry only the
-    fold-0 logit, which the packed rows hold, so the port takes none.
-    Returns (dg (mc,), track (mc,) int32, r_seg_new (mc,))."""
+    LD_seg (mc, mc), mc a multiple of B; r_seg (mc,) or (K, mc) the
+    segment's r_hat; P (R, mc) or (K, R, mc) the segment's packed rows
+    (:func:`pack_rows`).  Per block: each chain's B draws against
+    n LD[block, block], then r_seg += n LD[:, block] dg.  The JAX wrapper's
+    ``consts`` carry only the fold-0 logit, which the packed rows hold, so
+    the port takes none.  Returns (dg, track int32, r_seg_new), each (mc,)
+    or (K, mc) as r_seg."""
     if r_seg.device.type == "cpu":
         return sweep_s_segment_plain(spec, LD_seg, r_seg, P, n)
     _require_cuda(r_seg, LD_seg, P)
+    chains = r_seg.dim() == 2
     mc, B, R = LD_seg.shape[0], spec.block, n_rows(spec)
-    _check_kernel_shapes(spec, B, 1)
+    K = r_seg.shape[0] if chains else 1
+    _check_kernel_shapes(spec, B, K)
     if LD_seg.dtype != F32 or r_seg.dtype != F32 or P.dtype != F32:
         raise TypeError("sweep_s_segment: the kernel takes float32 (other "
                         "float types run on the CPU)")
-    if (tuple(LD_seg.shape) != (mc, mc) or mc % B or tuple(r_seg.shape) != (mc,)
-            or tuple(P.shape) != (R, mc)):
+    lead = (K,) if chains else ()
+    if (tuple(LD_seg.shape) != (mc, mc) or mc % B or tuple(r_seg.shape) != lead + (mc,)
+            or tuple(P.shape) != lead + (R, mc)):
         raise ValueError(f"sweep_s_segment: LD {tuple(LD_seg.shape)}, r "
                          f"{tuple(r_seg.shape)} and packed rows {tuple(P.shape)} "
                          f"do not fit a segment of blocks of {B} with {R} rows")
@@ -595,10 +635,10 @@ def sweep_s_segment(spec, LD_seg, r_seg, P, n):
     dev = r_seg.device
     Pc = P.contiguous()
     r = r_seg.clone(memory_format=torch.contiguous_format)
-    dg = torch.empty((mc,), dtype=F32, device=dev)
-    track = torch.empty((mc,), dtype=F32, device=dev)
+    dg = torch.empty(lead + (mc,), dtype=F32, device=dev)
+    track = torch.empty(lead + (mc,), dtype=F32, device=dev)
     code = lib.hb_sweep_s_segment(
-        LD_seg.data_ptr(), Pc.data_ptr(), mc, B, R, spec.model_index,
+        LD_seg.data_ptr(), Pc.data_ptr(), mc, B, R, K, spec.model_index,
         spec.n_fold, float(n), r.data_ptr(), dg.data_ptr(), track.data_ptr(),
         torch.cuda.current_stream(dev).cuda_stream)
     build.check(lib, code, "sweep_s_segment")

@@ -96,13 +96,13 @@ def library(source: str = SOURCES[0]) -> ctypes.CDLL:
         lib.hb_sweep_mc.argtypes = [_P, _I, _P, _P, _I, _I, _I, _I, _I, _I, _I,
                                     _I, _I, _P, _P, _P, _P, _P, _P, _P]
         lib.hb_sweep_mc.restype = _I
-        lib.hb_launch_counts.argtypes = [ctypes.POINTER(ctypes.c_longlong)] * 2
+        lib.hb_launch_counts.argtypes = [ctypes.POINTER(ctypes.c_longlong)] * 3
         lib.hb_launch_counts.restype = None
         lib.hb_reset_launch_counts.argtypes = []
         lib.hb_reset_launch_counts.restype = None
     elif source == "sgibbs.cu":
-        lib.hb_sweep_s_segment.argtypes = [_P, _P, _I, _I, _I, _I, _I, _F, _P,
-                                           _P, _P, _P]
+        lib.hb_sweep_s_segment.argtypes = [_P, _P, _I, _I, _I, _I, _I, _I, _F,
+                                           _P, _P, _P, _P]
         lib.hb_sweep_s_segment.restype = _I
         lib.hb_sweep_s_tiled.argtypes = [_P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
                                          _F, _F, _P, _P, _P, _P, _P, _P]

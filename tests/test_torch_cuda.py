@@ -29,7 +29,7 @@ def dev():
     return torch.device("cuda")
 
 
-def _inputs(model, dev, K=2, n=300, m=80, B=16, int8=True):
+def _inputs(model, dev, K=2, n=300, m=80, B=16, int8=True, pad_n="auto"):
     """Batched sweep inputs for K chains on the card: each chain a sparse
     random effect vector and its own pre-sweep noise."""
     rng = np.random.default_rng(3)
@@ -43,7 +43,7 @@ def _inputs(model, dev, K=2, n=300, m=80, B=16, int8=True):
               else np.array([0.95, 0.05]))
     data = TG.prepare_gibbs_data(y, M if int8 else M.astype(np.float32), block=B,
                                  fold=fold, geno_dtype="int8" if int8 else None,
-                                 device=dev)
+                                 pad_n=pad_n, device=dev)
     pr = TG.resolve_priors(y, float(data.vx.sum()), pi[0], nr=0)
     spec = TG.GibbsSpec(
         model=model, n=n, m=m, m_pad=int(data.xpx.shape[0]), block=B, nc=0,
@@ -113,19 +113,116 @@ def test_sweep_and_draw_kernels_match_plain(model, int8, dev):
 
 def test_launch_counts(dev):
     """Each wrapper counts its own calls and the library each kernel launch:
-    a sweep over nbg blocks is nbg + 1 rows_kernel and nbg draws_kernel
-    launches, and does not count as a block_draws call."""
-    spec, args = _inputs("BayesCpi", dev, K=2)
-    TB.sweep_mc(spec, *args)
-    TB.reset_kernel_launches()
-    before = (TB.sweep_mc.launches, TB.block_draws.launches)
-    TB.sweep_mc(spec, *args)
-    nbg = spec.nblocks
-    assert TB.kernel_launches() == {"rows_kernel": nbg + 1, "draws_kernel": nbg,
-                                    "segment_draws": 0, "segment_update": 0,
-                                    "tiled_draws": 0, "tiled_scatter": 0,
-                                    "mme_sweep_kernel": 0}
-    assert (TB.sweep_mc.launches, TB.block_draws.launches) == (before[0] + 1, before[1])
+    a sweep over nbg blocks is nbg + 1 rows_kernel (one chain) or
+    rows_mc_kernel (K >= 2) and nbg draws_kernel launches, and does not
+    count as a block_draws call."""
+    for K, rows in ((2, "rows_mc_kernel"), (1, "rows_kernel")):
+        spec, args = _inputs("BayesCpi", dev, K=K)
+        TB.sweep_mc(spec, *args)
+        TB.reset_kernel_launches()
+        before = (TB.sweep_mc.launches, TB.block_draws.launches)
+        TB.sweep_mc(spec, *args)
+        nbg = spec.nblocks
+        want = {"rows_kernel": 0, "rows_mc_kernel": 0, "draws_kernel": nbg,
+                "segment_draws": 0, "segment_update": 0, "tiled_draws": 0,
+                "tiled_scatter": 0, "mme_sweep_kernel": 0}
+        want[rows] = nbg + 1
+        assert TB.kernel_launches() == want
+        assert (TB.sweep_mc.launches, TB.block_draws.launches) == (before[0] + 1, before[1])
+
+
+@pytest.mark.parametrize("int8", [True, False], ids=["int8", "f32"])
+@pytest.mark.parametrize("model", ["BayesCpi", "BayesR"])
+def test_k_chain_rows_kernel_matches_plain(model, int8, dev):
+    """sweep_mc at K=2 and K=8 (the K-chain rows kernel) against its plain
+    version at the kernel bar, and over an offset block range; a second
+    launch is bit-identical."""
+    for K in (2, 8):
+        spec, args = _inputs(model, dev, K=K, int8=int8)
+        out = TB.sweep_mc(spec, *args)
+        _assert_bar(TB.sweep_mc_plain(spec, *args), out)
+        assert all(torch.equal(a, b) for a, b in zip(out, TB.sweep_mc(spec, *args)))
+    consts, X, W, xpx, vx, *per = args
+    B, off, nbg = spec.block, 1, 3
+    cols = slice(off * B, (off + nbg) * B)
+    loc = [a[:, cols] for a in per[:7]]
+    out = TB.sweep_mc(spec, consts, X, W, xpx[cols], vx[cols], *loc, per[7], per[8],
+                      block_range=(off, nbg))
+    ref = TB.sweep_mc_plain(spec, consts, X[off:off + nbg], W[off:off + nbg], xpx[cols],
+                            vx[cols], *loc, per[7], per[8])
+    _assert_bar(ref, out)
+
+
+def test_k_chain_rows_kernel_chain_does_not_depend_on_k(dev):
+    """Chains 0-1 of a K=8 sweep are bit for bit a K=2 sweep of the same
+    chains (the kernel's sums do not depend on K; phase C's per-chain sums,
+    torch reductions, are left out), at n not a multiple of a tile."""
+    spec, args8 = _inputs("BayesR", dev, K=8, n=1000)
+    consts, X, W, xpx, vx, *per = args8
+    args2 = ({k: v[:2] for k, v in consts.items()}, X, W, xpx, vx, *(a[:2] for a in per))
+    out8, out2 = TB.sweep_mc(spec, *args8), TB.sweep_mc(spec, *args2)
+    for a, b in zip(out8[:5], out2[:5]):
+        assert torch.equal(a[:2], b)
+
+
+@pytest.mark.parametrize("int8", [True, False], ids=["int8", "f32"])
+def test_k_chain_rows_kernel_tiles_of_several_chunks(int8, dev):
+    """At n=9,001 (B=128) a K-chain tile spans several chunks of 32 rows and
+    the last tile is ragged, so the kernel's walk from chunk to chunk (the
+    next chunk's X and yadj loaded while this one is used) is held to the
+    plain sweep at K=2 and K=8, bit-identical on a second launch.  The rows
+    are left unpadded (ibrm pads them to a multiple of 512)."""
+    n = 9001
+    for K in (2, 8):
+        tile = TB.rows_per_tile(n, dev, K)
+        assert tile >= 2 * TB.MC_CHUNK_ROWS and n % tile
+        spec, args = _inputs("BayesR", dev, K=K, n=n, m=512, B=128, int8=int8,
+                             pad_n=False)
+        out = TB.sweep_mc(spec, *args)
+        _assert_bar(TB.sweep_mc_plain(spec, *args), out)
+        assert all(torch.equal(a, b) for a, b in zip(out, TB.sweep_mc(spec, *args)))
+
+
+@pytest.mark.parametrize("model", ["BayesCpi", "BayesR"])
+def test_k_chain_segment_sweep(model, dev):
+    """sweep_s_segment over K=4 chains against its plain version at the
+    kernel bar, bit-identical on a second launch; each chain bit for bit
+    the single-chain sweep (K=1) of its inputs."""
+    spec, data, g, r, P, _, _ = _s_problem(model, "dense", dev)
+    gen = torch.Generator(device=dev).manual_seed(9)
+    scale = 1.0 + 0.1 * torch.rand((4, 1), generator=gen, device=dev)
+    g4, r4 = g[None] * scale, r[None] * scale
+    P4 = P[None].expand(4, -1, -1).contiguous()
+    seg = data.ld_segs[0]
+    out = TB.sweep_s_segment(spec, seg, r4, P4, spec.n)
+    plain = TB.sweep_s_segment_plain(spec, seg, r4, P4, spec.n)
+    _assert_bar((g4 - plain[0], plain[1], None, plain[2]), (g4 - out[0], out[1], None, out[2]))
+    assert all(torch.equal(a, b) for a, b in zip(out, TB.sweep_s_segment(spec, seg, r4, P4,
+                                                                         spec.n)))
+    for k in range(4):
+        one = TB.sweep_s_segment(spec, seg, r4[k], P4[k], spec.n)
+        assert all(torch.equal(a[k], b) for a, b in zip(out, one))
+
+
+def test_chain_batches_on_the_card(dev):
+    """ibrm and sbrm with nchains=3 on the card: rhat for Vg and Ve, the
+    records of every chain, and two fits with one seed bit for bit."""
+    import hibayes_tpu_torch as htt
+
+    rng = np.random.default_rng(5)
+    n, m = 600, 256
+    M = rng.binomial(2, 0.3, size=(n, m)).astype(np.int8)
+    ids = np.array([f"i{k}" for k in range(n)])
+    data = {"id": ids, "T1": M[:, :10] @ rng.normal(0, 0.3, 10) + rng.normal(size=n)}
+    fits = [htt.ibrm("T1 ~ 1", data=data, M=M, M_id=ids, method="BayesCpi", niter=40,
+                     nburn=20, nchains=3, verbose=False, device=dev) for _ in range(2)]
+    np.testing.assert_array_equal(fits[0].g["gebv"], fits[1].g["gebv"])
+    assert np.isfinite(fits[0].rhat["Vg"]) and np.isfinite(fits[0].rhat["Ve"])
+    assert fits[0].MCMCsamples["alpha"].shape == (3 * 4, m)
+    spec, data_s, g, r, P, ss, ld = _s_problem("BayesCpi", "dense", dev)
+    fit = htt.sbrm(ss, ld, method="BayesCpi", niter=40, nburn=20, nchains=3,
+                   verbose=False, device=dev)
+    assert np.isfinite(fit.rhat["Ve"]) and fit.MCMCsamples["alpha"].shape == (3 * 4, 600)
 
 
 def test_cuda_tensor_without_library_raises(monkeypatch, tmp_path, dev):

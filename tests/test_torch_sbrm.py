@@ -83,9 +83,13 @@ def _refusal_inputs():
     (dict(checkpoint="ck.npz"), "item 7"),
 ])
 def test_sbrm_refuses_what_is_not_ported(kw, item):
-    ss, R, _ = _refusal_inputs()
+    """Chain batches run on a dense LD (tests/test_torch_multichain.py); on a
+    tiled LD they wait for the guarded scan kernel, which the message names
+    beside item 6."""
+    ss, R, Rp = _refusal_inputs()
+    ld = ht.TiledSparseLD.from_scipy(sp.csr_matrix(Rp), tile=128) if "nchains" in kw else R
     with pytest.raises(NotImplementedError, match=item):
-        ht.sbrm(ss, R, niter=20, nburn=10, verbose=False, device="cpu", **kw)
+        ht.sbrm(ss, ld, niter=20, nburn=10, verbose=False, device="cpu", **kw)
 
 
 @pytest.mark.parametrize("layout", ["sparse", "blockdiag", "tile64"])

@@ -162,6 +162,30 @@ def assert_kernel_bar(ref, out, names=SWEEP_NAMES):
             atol=1e-4 * np.abs(r["yadj"]).max() + 1e-6)
 
 
+def stack_states(states):
+    """JAX states (or any pytrees) stacked on a leading chain axis."""
+    return jax.tree_util.tree_map(lambda *xs: jnp.stack(xs), *states)
+
+
+def assert_state_fields(ref, out, fields, spread=None):
+    """Every field to rtol 1e-9 (atol 1e-9 of the field's scale); where
+    ``spread`` names a field, each entry may also differ by as much as the
+    reference differs from itself there."""
+    for name in fields:
+        r, o = getattr(ref, name), getattr(out, name)
+        for a, b in (zip(r, o) if isinstance(o, tuple) else [(r, o)]):
+            a, b = np.asarray(a), b.numpy()
+            assert a.shape == b.shape, name
+            if name == "track":
+                np.testing.assert_array_equal(b, a)
+                continue
+            tol = 1e-9 * (np.abs(a).max() if a.size else 0) + 1e-9 * np.abs(a)
+            if spread is not None and name in spread:
+                tol = tol + spread[name]
+            bad = ~(np.abs(b - a) <= tol)
+            assert not bad.any(), (name, np.argwhere(bad)[:5], a[bad][:5], b[bad][:5])
+
+
 # ---------------------------------------------------------------------------
 # summary level (sbrm)
 # ---------------------------------------------------------------------------
