@@ -25,7 +25,12 @@ Phases, each printing as it goes:
      kernel is held to the bar and timed beside its plain version at its
      main path's shapes, and sweep_mc at TPU kernels 8's and 2's own shapes
      (K=1 at n=131,072; K=64 at n=4,096, with torch.matmul of its two
-     products as the library yardstick);
+     products as the library yardstick, and so at phase 4b's K=4); the
+     K-chain sweep's time split per block from its kernels' timer stamps
+     (rows launch, W and row loads, wait, reduction of the partials, draw
+     chain); the draw chain alone per block of 128 (BayesR with 4 folds
+     here, BayesCpi with and without the guard in phase 5), the floor of
+     both redesigned kernels;
   4. ibrm main path: hibayes_tpu_torch.ibrm("y ~ x1 + (1|grp)",
      method="BayesR") on one chain at n=50,000 x m=65,536 (int8 genotype made
      on the card, h2=0.5 from 500 causal SNPs), niter=200, nburn=100,
@@ -46,8 +51,9 @@ Phases, each printing as it goes:
      f32 tiles built on the card), BETA = LD b_true with b_true 1% nonzero
      N(0, 0.05^2), SE = 1/sqrt(50,000), N = 50,000; sparse semantics, so the
      guard is on; niter=200, nburn=100, thin=5.  Checks that the sweep ran
-     through sweep_s_tiled only, with the launch counts the chain needs and
-     no plain call, finite Vg, Ve and 0 < h2 < 1, and the accuracy of the
+     through sweep_s_tiled only, one tiled_sweep launch per sweep and no
+     plain call (the full sweep's time split per tile row from the drawer's
+     clock stamps is printed with the kernel times), finite Vg, Ve and 0 < h2 < 1, and the accuracy of the
      posterior-mean effects against b_true; before the chain, torch.profiler
      over 3 iterations prints device time by kernel (so does phase 6);
   6. sbrm dense path: the same kind of statistics over a dense AR(1) LD
@@ -80,6 +86,7 @@ Any failed check raises, so the script exits non-zero and prints no result.
 from __future__ import annotations
 
 import argparse
+import gc
 import json
 import os
 import subprocess
@@ -295,7 +302,9 @@ def cuda_ms(torch, fn, reps):
     """Device ms per call of ``fn`` (CUDA events over ``reps`` calls), after
     warm-up calls for at least 0.1 s: the card lowers its clocks while the
     host runs a plain version, and a short timed loop right after one would
-    meet them low."""
+    meet them low.  Python's cyclic garbage collector is held off during
+    the timed calls: this process holds many objects, and a collection in
+    the loop would time the collector (on the host), not the calls."""
     t_end = time.perf_counter() + 0.1
     fn()
     torch.cuda.synchronize()
@@ -303,12 +312,89 @@ def cuda_ms(torch, fn, reps):
         fn()
         torch.cuda.synchronize()
     t0, t1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    gc.collect()
+    gc.disable()
+    try:
+        t0.record()
+        for _ in range(reps):
+            fn()
+        t1.record()
+        torch.cuda.synchronize()
+    finally:
+        gc.enable()
+    return t0.elapsed_time(t1) / reps
+
+
+def chain_us(torch, TB, spec, W, Pb, r0, vary=None, reps=400):
+    """The draw chain's own latency per block of B draws (one warp, W and
+    the packed rows already in shared memory, each block depending on the
+    one before): CUDA events around one launch of ``reps`` blocks, after a
+    warm-up launch.  Returns (us per block, clock cycles per block)."""
+    TB.chain_latency(spec, W, Pb, r0, 10, vary)
+    t0, t1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
     t0.record()
-    for _ in range(reps):
-        fn()
+    cycles = TB.chain_latency(spec, W, Pb, r0, reps, vary)
     t1.record()
     torch.cuda.synchronize()
-    return t0.elapsed_time(t1) / reps
+    return 1e3 * t0.elapsed_time(t1) / reps, int(cycles) / reps
+
+
+def sweep_split(torch, TB, spec, part, nbg):
+    """Where a K-chain sweep's time goes, per block (us, means over the
+    blocks), from the timer stamps of the first CTA of each launch
+    (sweep_mc(stamps=...)): the rows launch from its start to its wait
+    (its first X chunks in flight, then the draws before it) and on to its
+    end; the draws launch's W and packed-row load, its wait for the rows
+    launch (the other rows CTAs and the hand-off), the reduction of the
+    partials, the draw chain; the block's period; and, at K >= 2, the rows
+    CTA's first chunk: its wait for the chunk and the barrier, the next
+    chunk's copies issued, the residual update, the second barrier, the
+    partials."""
+    st = torch.zeros(16 * (nbg + 1), dtype=torch.int64, device=part[2].device)
+    TB.sweep_mc(*part, block_range=(0, nbg), stamps=st)
+    torch.cuda.synchronize()
+    s = st.view(nbg + 1, 16).cpu().numpy().astype(np.float64)
+    b, nxt = s[:nbg] / 1e3, s[1:] / 1e3
+    mean = lambda x: round(float(np.mean(x)), 3)
+    out = {"rows_start_to_wait_us": mean(b[:, 1] - b[:, 0]),
+           "rows_cta0_work_us": mean(b[:, 2] - b[:, 1]),
+           "draws_load_us": mean(b[:, 4] - b[:, 3]),
+           "draws_wait_us": mean(b[:, 5] - b[:, 4]),
+           "draws_reduce_us": mean(b[:, 6] - b[:, 5]),
+           "draws_chain_us": mean(b[:, 7] - b[:, 6]),
+           "draws_end_to_next_rows_us": mean(nxt[:, 1] - b[:, 7]),
+           "block_period_us": mean(nxt[:, 1] - b[:, 1])}
+    c = s[1:nbg, 8:15]   # blocks with both X blocks (a residual update)
+    if c[:, -1].all():
+        ns = (s[1:nbg, 2] - s[1:nbg, 1]) / (c[:, 6] - c[:, 0])
+        d = np.diff(c, axis=1) * ns[:, None] / 1e3
+        for k, name in enumerate(("chunk0_wait_us", "chunk0_issue_us", "chunk0_residual_us",
+                                  "chunk0_barrier_us", "chunk0_partials_us",
+                                  "later_chunks_us")):
+            out[name] = mean(d[:, k])
+    return out
+
+
+def tiled_split(torch, TB, spec, args):
+    """Where the one-launch tiled sweep's time goes, per tile row (us, means
+    over the rows), from the drawer's clock64 stamps (sweep_s_tiled(stamps=
+    ...)), converted with its own %globaltimer: the draw chain with its
+    guard, the wait for the next row's staging that the chain did not hide,
+    and the drawer's own contribution to block i + 1."""
+    nbr = args[0].shape[0]
+    st = torch.zeros(4 * nbr + 4, dtype=torch.int64, device=args[0].device)
+    TB.sweep_s_tiled(spec, *args, stamps=st)
+    torch.cuda.synchronize()
+    s = st.cpu().numpy().astype(np.float64)
+    ns_per_cycle = (s[4 * nbr + 1] - s[4 * nbr]) / (s[4 * nbr + 3] - s[4 * nbr + 2])
+    rows = s[:4 * nbr].reshape(nbr, 4) * ns_per_cycle / 1e3
+    mean = lambda x: round(float(np.mean(x)), 3)
+    return {"chain_us": mean(rows[:, 1] - rows[:, 0]),
+            "staging_wait_us": mean(rows[:, 2] - rows[:, 1]),
+            "own_contribution_us": mean(rows[:, 3] - rows[:, 2]),
+            "row_us": mean(np.diff(rows[:, 0])),
+            "sweep_ms": round((s[4 * nbr + 1] - s[4 * nbr]) / 1e6, 4),
+            "sm_clock_ghz": round(1.0 / ns_per_cycle, 3)}
 
 
 # ---------------------------------------------------------------------------
@@ -391,15 +477,16 @@ def time_kernels(torch, TG, TB, dev, M, y, B, errs, nbg=16):
         TB.sweep_mc_plain(*part, block_range=(0, nbg)),
         TB.sweep_mc(*part, block_range=(0, nbg)), "sweep_mc at the main path's shapes"))
     # the K-chain rows kernel at phase 4b's shapes, where a tile spans several
-    # chunks of MC_CHUNK_ROWS rows (the smaller checks fit a tile in one)
+    # chunks (the smaller checks fit a tile in one)
     args4 = sweep_args(torch, TG, spec, data, pr, pi, 4, seed=4)
     per4 = args4[5:]
     part4 = (spec, args4[0], X, W, xpx[cols], vx[cols], *(a[:, cols] for a in per4[:7]),
              per4[7], per4[8])
     out4, again4 = (TB.sweep_mc(*part4, block_range=(0, nbg)) for _ in range(2))
     tile = TB.rows_per_tile(X.shape[1], X.device, 4)
+    _, tr, rb, _ = TB.rows_mc_shape(4, tile)
     what = (f"sweep_mc K=4 at the main path's shapes ({tile}-row tiles, "
-            f"{tile // TB.MC_CHUNK_ROWS} chunks each)")
+            f"chunks of {32 * tr * rb} rows)")
     errs["sweep_mc_k"] = max(errs["sweep_mc_k"], bar(
         TB.sweep_mc_plain(*part4, block_range=(0, nbg)), out4, what))
     if not all(torch.equal(a, b) for a, b in zip(out4, again4)):
@@ -407,7 +494,22 @@ def time_kernels(torch, TG, TB, dev, M, y, B, errs, nbg=16):
     log(f"  ok {what}")
     t = {}
     t["sweep_mc_k4"] = cuda_ms(torch, lambda: TB.sweep_mc(*part4, block_range=(0, nbg)), 10)
+    t["sweep_mc_k4_split"] = sweep_split(torch, TB, spec, part4, nbg)
+    # torch.matmul of the K=4 sweep's two products per block, (4, n) x (n, B)
+    # and (4, B) x (B, n) in float32: the library yardstick at this K
+    Xf = X[:nbg].float()
+    dg4 = 0.01 * torch.randn((4, B), device=X.device)
+    y4 = per4[7]
+
+    def products():
+        for b in range(nbg):
+            torch.matmul(y4, Xf[b])
+            torch.matmul(dg4, Xf[b].T)
+
+    t["sweep_mc_k4_library"] = cuda_ms(torch, products, 10)
+    del Xf
     t["sweep_mc"] = cuda_ms(torch, lambda: TB.sweep_mc(*part, block_range=(0, nbg)), 10)
+    t["sweep_mc_split"] = sweep_split(torch, TB, spec, part, nbg)
     t["sweep_mc_plain"] = cuda_ms(
         torch, lambda: TB.sweep_mc_plain(*part, block_range=(0, nbg)), 2)
     t["sweep_full"] = cuda_ms(torch, lambda: TB.sweep_mc(spec, *args), 3)
@@ -424,6 +526,9 @@ def time_kernels(torch, TG, TB, dev, M, y, B, errs, nbg=16):
     t["block_draws"] = cuda_ms(torch, lambda: TB.block_draws(spec, logpi, P_b, W[0], r0), 50)
     t["block_draws_plain"] = cuda_ms(
         torch, lambda: TB.block_draws_plain(spec, logpi, P_b, W[0], r0), 3)
+    # the BayesR (4 folds) draw chain alone, on this block's W and rows
+    t["chain_bayesr_us"], t["chain_bayesr_cycles"] = chain_us(
+        torch, TB, spec, W[0], P_b[:, :, 0].contiguous(), r0[:, 0].contiguous())
     # bounds of the timed calls: each input read once, each output written once
     nb = lambda *ts: sum(x.numel() * x.element_size() for x in ts)
     n_rows, m_loc = X.shape[1], nbg * B
@@ -542,6 +647,8 @@ def time_k5(torch, TG, TB, dev, errs, B=128, nbg=16):
                                       TB.sweep_mc(spec, *args), what)
         log(f"  ok {what}")
         t["sweep_mc_" + key] = cuda_ms(torch, lambda: TB.sweep_mc(spec, *args), 10)
+        if K > 1:
+            t["sweep_mc_" + key + "_split"] = sweep_split(torch, TB, spec, (spec, *args), nbg)
         t["sweep_mc_" + key + "_plain"] = cuda_ms(torch, lambda: TB.sweep_mc_plain(spec, *args), 1)
         bounds["sweep_mc_" + key] = sweep_bound(args, B)
         if K > 1:
@@ -555,6 +662,10 @@ def time_k5(torch, TG, TB, dev, errs, B=128, nbg=16):
                     torch.matmul(dg, Xf[b].T)
 
             t["sweep_mc_k2_library"] = cuda_ms(torch, products, 10)
+            # host time to enqueue each: where it nears the device time, the
+            # host bounds the 16-block loop
+            t["sweep_mc_k2_host"] = host_ms(torch, lambda: TB.sweep_mc(spec, *args))
+            t["sweep_mc_k2_library_host"] = host_ms(torch, products)
             del Xf
         del data, args
         torch.cuda.empty_cache()
@@ -769,10 +880,21 @@ def time_tiled(torch, TSG, TB, spec, data, pr, pi, ld, errs, rows=16):
         (g[:mp] - ref[0], ref[1], ref[2]), (g[:mp] - out[0], out[1], out[2]),
         f"sweep_s_tiled at the main path's shapes ({rows} rows)", r_index=2))
     full = (data.ld_tiles, data.ld_cols, data.ld_valid, r, P, spec.n)
+    # the BayesCpi draw chain alone, with and without the guard, on the
+    # first tile row's Gram block and rows
+    B = T
+    Wn = spec.n * data.ld_tiles[0, 0]
+    Pg = P[:, :B].T.contiguous()
+    chain = {"chain_bayescpi_guard": chain_us(torch, TB, spec, Wn, Pg, r[:B], spec.vary),
+             "chain_bayescpi": chain_us(torch, TB, spec, Wn,
+                                        Pg[:, :TB.n_rows(spec)].contiguous(), r[:B])}
     t = {"sweep_s_tiled": cuda_ms(torch, lambda: TB.sweep_s_tiled(sub, *args), 10),
          "sweep_s_tiled_plain": cuda_ms(torch, lambda: TB.sweep_s_tiled_plain(sub, *args), 1),
          "sweep_s_tiled_full": cuda_ms(torch, lambda: TB.sweep_s_tiled(spec, *full), 3),
-         "sweep_s_tiled_full_host": host_ms(torch, lambda: TB.sweep_s_tiled(spec, *full))}
+         "sweep_s_tiled_full_host": host_ms(torch, lambda: TB.sweep_s_tiled(spec, *full)),
+         "sweep_s_tiled_split": tiled_split(torch, TB, spec, full)}
+    for key, (us, cyc) in chain.items():
+        t[key + "_us"], t[key + "_cycles"] = us, cyc
     nvalid = int(args[2].sum())
     b = (nvalid * T * T * 4 + nbytes(*args[1:5]) + 4 * mp * 3 + 4 * rows)
     flops = 2.0 * T * T * (nvalid + rows)
@@ -1373,6 +1495,11 @@ def main(argv=None) -> int:
     bounds.update(b_tiled)
     log(f"[5] sweep_s_tiled matches its plain version at the main path's shapes; "
         f"times (ms) on {smi}: {json.dumps(t_tiled)}; bounds {json.dumps(b_tiled)}")
+    log(f"[5] draw chain alone, per block of {B} draws in one warp, on {smi}: BayesR "
+        f"(4 folds) {times['chain_bayesr_us']:.3f} us ({times['chain_bayesr_cycles']:.0f} "
+        f"cycles), BayesCpi {times['chain_bayescpi_us']:.3f} us "
+        f"({times['chain_bayescpi_cycles']:.0f}), BayesCpi with the guard "
+        f"{times['chain_bayescpi_guard_us']:.3f} us ({times['chain_bayescpi_guard_cycles']:.0f})")
     profile_iterations(torch, lambda st: TSG.one_s_iteration(sspec, sdata, 1, st),
                        TSG.init_s_state(sspec, sdata, spr, spi), "sbrm tiled")
     del sdata
@@ -1383,8 +1510,7 @@ def main(argv=None) -> int:
     torch.cuda.synchronize()
     s_launches, plain = read_counts(TB)
     expect_counts(s_launches, plain, {"sweep_s_tiled": niter_eff,
-                                      "tiled_draws": niter_eff * tld.nbr,
-                                      "tiled_scatter": niter_eff * tld.nbr}, "5")
+                                      "tiled_sweep": niter_eff}, "5")
     corr_t = check_fit(fit, b_true, "sbrm tiled")
     log(f"[5] sbrm BayesCpi tiled m={args.sm}: Vg {fit.Vg:.4f} Ve {fit.Ve:.4f} "
         f"h2 {fit.h2:.4f}, corr(alpha, b_true) {corr_t:.4f} (bar {SBAYES_CORR_MIN}); "
@@ -1588,7 +1714,12 @@ def main(argv=None) -> int:
               flagship_4_chains_rows_mc_launches=flag["launches"]["rows_mc_kernel"],
               flagship_4_chains_ms=times["sweep_mc_k4"],
               flagship_4_chains_bound_ms=bounds["sweep_mc_k4"][0],
-              k64_split_ms=split64, flagship_4_chains_split_ms=split4),
+              k64_split_ms=split64, flagship_4_chains_split_ms=split4,
+              flagship_4_chains_library_ms=times["sweep_mc_k4_library"],
+              k64_block_split_us=times["sweep_mc_k2_split"],
+              flagship_4_chains_block_split_us=times["sweep_mc_k4_split"],
+              chain_us_per_block={"BayesR_4_folds": times["chain_bayesr_us"],
+                                  "BayesCpi": times["chain_bayescpi_us"]}),
         entry("sweep_mc_k1_for_kernel1", src, "hibayes_tpu/ops/blockgibbs.py:138",
               launches["sweep_mc"], errs["sweep_mc"], "sweep_mc",
               timed=f"sweep_mc at K=1, n={n_rows} (as row 3)"),
@@ -1611,10 +1742,12 @@ def main(argv=None) -> int:
               k4_max_abs_err=errs["sweep_s_segment_k"], k4_ms=times["sweep_s_segment_k4"]),
         entry("sweep_s_tiled", ssrc, "hibayes_tpu/ops/blockgibbs.py:1635",
               s_launches["sweep_s_tiled"], errs["sweep_s_tiled"], "sweep_s_tiled",
-              tiled_draws_launches=s_launches["tiled_draws"],
-              tiled_scatter_launches=s_launches["tiled_scatter"],
+              tiled_sweep_launches=s_launches["tiled_sweep"],
               full_sweep_ms=times["sweep_s_tiled_full"],
-              full_sweep_bound_ms=bounds["sweep_s_tiled_full"][0]),
+              full_sweep_bound_ms=bounds["sweep_s_tiled_full"][0],
+              full_sweep_split=times["sweep_s_tiled_split"],
+              chain_us_per_block={"BayesCpi": times["chain_bayescpi_us"],
+                                  "BayesCpi_guard": times["chain_bayescpi_guard_us"]}),
         entry("mme_sweep", "hibayes_tpu_torch/csrc/mme.cu", "hibayes_tpu/ops/blockgibbs.py:1805",
               e_launches["mme_sweep"], errs["mme_sweep"], "mme_sweep",
               library_ms=times["mme_library"], full_sweep_ms=times["mme_sweep_full"],

@@ -125,7 +125,10 @@ __device__ __forceinline__ bool guard_draw(const float* p, float rhs, float tr,
 
 // The B sequential draws of one chain, run by one whole warp.
 //   r[s]  in: r_local[lane + 32 s] = X_b' yadj at block start
-//   Ws    (B, B) Gram block in shared memory, row-major (symmetric)
+//   Ws    (B, B) Gram block in shared memory, row-major (symmetric); with
+//         SCALE its entries are multiplied by wscale where they are read
+//         (the same float32 product as a block scaled beforehand, off the
+//         chain: the Gram row is read ahead of the draw)
 //   Ps    (B, R) packed rows of this chain in shared memory,
 //         R = row_stride(MI, NF, GUARD)
 //   vary  the guard's bound (read only with GUARD)
@@ -139,11 +142,11 @@ __device__ __forceinline__ bool guard_draw(const float* p, float rhs, float tr,
 // and one multiply-add.  Eight draws are unrolled at a time, so the
 // packed-row and Gram-row loads of the next draws, which do not depend on
 // the chain, start ahead of it.
-template <int MI, int NF, bool GUARD = false>
+template <int MI, int NF, bool GUARD = false, bool SCALE = false>
 __device__ __forceinline__ int warp_block_draws(
     int B, const float* Ws, const float* Ps, float r[kSlots],
     float gi_out[kSlots], float dg_out[kSlots], float tr_out[kSlots],
-    float vary = 0.f) {
+    float vary = 0.f, float wscale = 1.f) {
   static_assert(!GUARD || MI == 4 || MI == 6, "the guard is for BayesC and BayesR");
   constexpr int R = row_stride(MI, NF, GUARD);
   const int lane = threadIdx.x % kWarp;
@@ -158,7 +161,8 @@ __device__ __forceinline__ int warp_block_draws(
       if (j >= B) break;  // uniform across the warp
       const float* p = Ps + j * R;
       const float* wrow = Ws + j * B;
-      const float rhs = (j > 0 ? v + dg_prev * wrow[j - 1] : v) + p[0];
+      const float w_prev = j > 0 ? (SCALE ? wscale * wrow[j - 1] : wrow[j - 1]) : 0.f;
+      const float rhs = (j > 0 ? v + dg_prev * w_prev : v) + p[0];
       float v_next;
       if (jj + 1 < kWarp)
         v_next = __shfl_sync(0xffffffffu, r[s], jj + 1);
@@ -171,7 +175,7 @@ __device__ __forceinline__ int warp_block_draws(
 #pragma unroll
       for (int t = 0; t < kSlots; ++t) {
         const int i = lane + kWarp * t;
-        if (i < B) r[t] += dg * wrow[i];
+        if (i < B) r[t] += dg * (SCALE ? wscale * wrow[i] : wrow[i]);
       }
       if (lane == jj) {
         gi_out[s] = gi;

@@ -56,15 +56,19 @@ The libraries count every launch of each CUDA kernel where it is made
 (:func:`kernel_launches`): a sweep over nbg blocks launches ``rows_kernel``
 (one chain) or ``rows_mc_kernel`` (K >= 2 chains) nbg + 1 times and
 ``draws_kernel`` nbg times; a segment sweep over nb blocks
-``segment_draws`` and ``segment_update`` nb times each; a tiled sweep over
-nbr tile rows ``tiled_draws`` and ``tiled_scatter`` nbr times each; an
-epsilon sweep ``mme_sweep_kernel`` once.
+``segment_draws`` and ``segment_update`` nb times each; a tiled sweep
+``tiled_sweep`` once (one persistent launch for every tile row, in the
+order of :func:`tiled_schedule`); an epsilon sweep ``mme_sweep_kernel``
+once.
 """
 
 from __future__ import annotations
 
 import ctypes
+import weakref
+from dataclasses import dataclass, field
 
+import numpy as np
 import torch
 
 from ..math.distributions import inv_gaussian_from
@@ -76,7 +80,8 @@ POS_BIG = 1e30
 MAX_BLOCK = 128   # kernel limit: SNPs per block (csrc/draws.cuh kMaxBlock)
 MAX_FOLD = 8      # kernel limit: BayesR folds
 MIN_TILE_ROWS = 128  # rows one pass of a rows_kernel CTA covers (32 warps x 4)
-MC_CHUNK_ROWS = 32   # rows a rows_mc_kernel CTA stages at a time (one per lane)
+MC_CHUNK_ROWS = 32   # rows_mc_kernel tiles are a multiple of this (chunks of 32 or 64 rows)
+MC_CHAINS = 64       # chains a rows_mc_kernel CTA serves (csrc/blockgibbs.cu kMcChains)
 N_RETRY = 8       # pre-drawn candidates of the rejection guard (csrc/draws.cuh kRetry)
 
 
@@ -105,13 +110,12 @@ def pack_rows(spec, consts_b, xpx, vx, vei_b, g_b, z_b, u_b, chi_b, vargL_b,
     g = g_b.to(dt)
     z = z_b.to(dt)
     rg = x * g
-    zero = torch.zeros((), dtype=dt, device=g.device)
     s2varg_df = consts_b["s2varg_df"].to(dt)[:, None]
 
     def cond_coeffs(varg):
         v = x + ve / varg
-        inv_v = torch.where(act, 1.0 / v, zero)
-        sz = torch.where(act, torch.sqrt(ve / v) * z, zero)
+        inv_v = torch.where(act, 1.0 / v, 0.0)
+        sz = torch.where(act, torch.sqrt(ve / v) * z, 0.0)
         return v, inv_v, sz
 
     if mi == 1:
@@ -130,29 +134,27 @@ def pack_rows(spec, consts_b, xpx, vx, vei_b, g_b, z_b, u_b, chi_b, vargL_b,
         logpi = consts_b["logpi"].to(dt)
         dlogpi = (logpi[:, 1] - logpi[:, 0])[:, None]
         thresh = 2.0 * v * ve * (Lu + 0.5 * logdetV - dlogpi)
-        thresh = torch.where(act, thresh, torch.full((), POS_BIG, dtype=dt,
-                                                     device=g.device))
+        thresh = torch.where(act, thresh, POS_BIG)
         rows = [rg, g, inv_v, sz, thresh]
     elif mi == 5:
         v = x + 1.0 / vargL_b.to(dt)
-        inv_v = torch.where(act, 1.0 / v, zero)
-        sz = torch.where(act, torch.sqrt(ve / v) * z, zero)
+        inv_v = torch.where(act, 1.0 / v, 0.0)
+        sz = torch.where(act, torch.sqrt(ve / v) * z, 0.0)
         rows = [rg, g, inv_v, sz]
     else:  # BayesR: Gumbel-max fold draw, the Gumbels folded into A_f
         ut = torch.clamp_min(u_b.to(dt).transpose(1, 2), 1e-12)  # (K, nf, m)
         gum = -torch.log(-torch.log(ut))
         logpi = consts_b["logpi"].to(dt)
         vara_fold = consts_b["vara_fold"].to(dt)
-        neg_big = torch.full((), NEG_BIG, dtype=dt, device=g.device)
         rows = [rg, g]
         for f in range(1, spec.n_fold):
             vara_f = torch.clamp_min(vara_fold[:, f], 1e-30)[:, None]
             vf = x + ve / vara_f
             A_f = -0.5 * torch.log(vara_f * x / ve + 1.0) + logpi[:, f, None]
-            A_f = torch.where(act, A_f + gum[:, f], neg_big)
+            A_f = torch.where(act, A_f + gum[:, f], NEG_BIG)
             B_f = 0.5 / (vf * ve)
-            ivf = torch.where(act, 1.0 / vf, zero)
-            szf = torch.where(act, torch.sqrt(ve / vf) * z, zero)
+            ivf = torch.where(act, 1.0 / vf, 0.0)
+            szf = torch.where(act, torch.sqrt(ve / vf) * z, 0.0)
             rows += [A_f, B_f, ivf, szf]
         rows.append(logpi[:, 0, None] + gum[:, 0])  # fold-0 Gumbel logit
     return torch.stack(rows, dim=1)
@@ -172,16 +174,15 @@ def phase_c_mc(spec, consts_b, vx, vei_b, g_new, track, u_b, z2_b, vargL_b,
     mi = spec.model_index
     K = g_new.shape[0]
     dt = g_new.dtype
-    zero = torch.zeros((), dtype=dt, device=g_new.device)
     act = (vx > 0)[None, :]
     if mi == 4:
-        vargi_acc = torch.where(track == 1, g_new * g_new, zero).sum(dim=1)
+        vargi_acc = torch.where(track == 1, g_new * g_new, 0.0).sum(dim=1)
     else:
         vargi_acc = torch.zeros((K,), dtype=dt, device=g_new.device)
     if mi == 6:
         ffold = torch.gather(consts_b["fold"].to(dt), 1, track.long())
         vargR_acc = torch.where(
-            track > 0, g_new * g_new / torch.clamp_min(ffold, 1e-30), zero
+            track > 0, g_new * g_new / torch.clamp_min(ffold, 1e-30), 0.0
         ).sum(dim=1)
     else:
         vargR_acc = torch.zeros((K,), dtype=dt, device=g_new.device)
@@ -322,16 +323,37 @@ def _check_kernel_shapes(spec, B: int, K: int):
 
 
 def rows_per_tile(n: int, device, K: int = 1) -> int:
-    """Rows of n per CTA of the sweep's rows kernel: about one tile per SM.
-    Each warp makes only a few round trips to memory, so the kernel is bound
-    by their latency and every SM must take part (NVIDIA H100 80GB HBM3,
-    132 SMs, 700 W, n=50,176: 512-row tiles took 19.5 us per block and
-    384-row tiles 10.6 us; PERF.md).  The K-chain kernel walks its tile in
-    chunks of MC_CHUNK_ROWS rows, so its tiles are a multiple of that."""
-    sms = torch.cuda.get_device_properties(device).multi_processor_count
+    """Rows of n per CTA of the sweep's rows kernel: about one tile per SM
+    (``device`` a CUDA device, or its SM count).  Each warp makes only a few
+    round trips to memory, so the kernel is bound by their latency and every
+    SM must take part (NVIDIA H100 80GB HBM3, 132 SMs, 700 W, n=50,176:
+    512-row tiles took 19.5 us per block and 384-row tiles 10.6 us;
+    PERF.md).  The K-chain kernel's tiles are a multiple of MC_CHUNK_ROWS
+    rows and the same for every K >= 2: a chain's partial sums follow the
+    tiling, so it must not depend on K."""
+    sms = (device if isinstance(device, int)
+           else torch.cuda.get_device_properties(device).multi_processor_count)
     if K == 1:
         return max(MIN_TILE_ROWS, -(-n // sms))
     return -(-n // (sms * MC_CHUNK_ROWS)) * MC_CHUNK_ROWS
+
+
+def rows_mc_shape(K: int, tile: int) -> tuple:
+    """Register-tile shape (TK, TR, RB, TC) of the K-chain rows kernel for a
+    batch of K >= 2 chains over tiles of ``tile`` rows (csrc/blockgibbs.cu
+    rows_mc_kernel): a warp's residual task is TK chains x TR rows a lane
+    (RB row blocks of 32 TR rows in a chunk), its partial task TK chains x
+    TC columns a lane.  At K <= 4 a task is one chain and half the chunk's
+    rows or columns, so every warp has work; above, TK is the power of two
+    that gives each of the 8 warps one block of chains, two rows a lane (one
+    when a tile holds at most 32 rows).  The shape decides which thread
+    sums what, never the order of a sum."""
+    kc = min(K, MC_CHAINS)
+    one = tile <= MC_CHUNK_ROWS
+    if kc <= 4:
+        return (1, 1, 1 if one else 2, 2)
+    tk = next(t for t in (1, 2, 4, 8) if 8 * t >= kc)
+    return (tk, 1 if one else 2, 1, 4)
 
 
 def kernel_launches() -> dict:
@@ -340,14 +362,14 @@ def kernel_launches() -> dict:
     rows, rows_mc, draws = ctypes.c_longlong(), ctypes.c_longlong(), ctypes.c_longlong()
     build.library().hb_launch_counts(ctypes.byref(rows), ctypes.byref(rows_mc),
                                      ctypes.byref(draws))
-    s = (ctypes.c_longlong * 4)()
+    s = (ctypes.c_longlong * 3)()
     build.library("sgibbs.cu").hb_s_launch_counts(s)
     e = ctypes.c_longlong()
     build.library("mme.cu").hb_mme_launch_counts(ctypes.byref(e))
     return {"rows_kernel": rows.value, "rows_mc_kernel": rows_mc.value,
             "draws_kernel": draws.value,
             "segment_draws": s[0], "segment_update": s[1],
-            "tiled_draws": s[2], "tiled_scatter": s[3], "mme_sweep_kernel": e.value}
+            "tiled_sweep": s[2], "mme_sweep_kernel": e.value}
 
 
 def reset_kernel_launches() -> None:
@@ -450,7 +472,8 @@ sweep_mc_plain.calls = 0
 
 
 def sweep_mc(spec, consts_b, X_blocks, W_blocks, xpx, vx, vei_b, g_b, z_b,
-             u_b, chi_b, z2_b, vargL_b, yadj_b, u_vec_b, block_range=None):
+             u_b, chi_b, z2_b, vargL_b, yadj_b, u_vec_b, block_range=None,
+             stamps=None):
     """Fused K-chain sweep; the contract of ``sweep_mc_t``
     (hibayes_tpu/ops/blockgibbs.py:695-764).
 
@@ -458,6 +481,10 @@ def sweep_mc(spec, consts_b, X_blocks, W_blocks, xpx, vx, vei_b, g_b, z_b,
     inputs are (m,) shared or (K, m) per chain, m = nbg * B; yadj_b, u_vec_b
     (K, n).  ``block_range=(off, nbg)`` sweeps blocks [off, off + nbg) of X
     and W (indexed globally) while the per-SNP inputs are the local slice.
+    ``stamps`` (measurement only, on the card): an int64 tensor of at least
+    16 (nbg + 1) entries that gets, for each block, %globaltimer ns at the
+    stages of its launches and clock64 through the K-chain rows kernel's
+    first chunk (csrc/blockgibbs.cu kStamps).
     Returns (g_new, track, vargL_new, yadj, u, vargi_acc, vargR_acc)."""
     if X_blocks.device.type == "cpu":
         return sweep_mc_plain(spec, consts_b, X_blocks, W_blocks, xpx, vx,
@@ -496,11 +523,17 @@ def sweep_mc(spec, consts_b, X_blocks, W_blocks, xpx, vx, vei_b, g_b, z_b,
     track_f = torch.empty((K, m_loc), dtype=F32, device=dev)
     tile = rows_per_tile(n, dev, K)
     partial = torch.empty((-(-n // tile), K, B), dtype=F32, device=dev)
+    if stamps is not None and (stamps.dtype != torch.int64 or stamps.device != dev
+                               or stamps.numel() < 16 * (nbg + 1)):
+        raise ValueError("sweep_mc: stamps must be int64 on the card, 16 per block + 16")
     code = lib.hb_sweep_mc(
         X_blocks.data_ptr(), int(X_blocks.dtype == torch.int8), W.data_ptr(),
-        P_blocks.data_ptr(), off, nbg, n, tile, B, P.shape[1], K, spec.model_index,
+        P_blocks.data_ptr(), off, nbg, n, tile,
+        *(rows_mc_shape(K, tile) if K > 1 else (0, 0, 0, 0)), B, P.shape[1], K,
+        spec.model_index,
         spec.n_fold, yadj.data_ptr(), u.data_ptr(), g_new.data_ptr(),
         dg.data_ptr(), track_f.data_ptr(), partial.data_ptr(),
+        None if stamps is None else stamps.data_ptr(),
         torch.cuda.current_stream(dev).cuda_stream)
     build.check(lib, code, "sweep_mc")
     sweep_mc.launches += 1
@@ -649,6 +682,100 @@ def sweep_s_segment(spec, LD_seg, r_seg, P, n):
 sweep_s_segment.launches = 0
 
 
+@dataclass
+class TiledSchedule:
+    """The order of the tiled sweep's contributions, built on the host once
+    per layout (:func:`tiled_schedule`), and its counters on each device.
+
+    A contribution is a valid slot (i, k): r_hat[block cols[i, k]] += n
+    tiles[i, k]^T dg_i.  ``need[i]`` contributions reach block i from rows
+    before i: row i's draws wait for them.  ``nxt[i]`` is row i's slot whose
+    block is i + 1 (-1: none), which the kernel's drawer applies itself;
+    ``items`` (nitems, 4) = (row, slot, target block, sequence number) are
+    the other valid slots, row by row, and a contribution's sequence number
+    is its place, by row, among the contributions to its block: it lands
+    after every earlier one.  ``total[t]`` contributions reach block t."""
+
+    need: np.ndarray
+    nxt: np.ndarray
+    items: np.ndarray
+    total: np.ndarray
+    _state: dict = field(default_factory=dict, repr=False)
+
+    @property
+    def nbr(self) -> int:
+        return int(self.need.shape[0])
+
+    def device_state(self, dev):
+        """The schedule's tensors and counters on ``dev`` (made, zeroed,
+        once) and the next sweep's epoch: sweep e starts with cnt[t] = e
+        total[t] and publishes row flags e + 1, so nothing is reset between
+        sweeps."""
+        key = str(dev)
+        if key not in self._state:
+            i32 = lambda a: torch.as_tensor(np.ascontiguousarray(a, dtype=np.int32), device=dev)
+            self._state[key] = {
+                "need": i32(self.need), "nxt": i32(self.nxt), "total": i32(self.total),
+                "items": i32(self.items.reshape(-1, 4)),
+                "cnt": torch.zeros(self.nbr, dtype=torch.int32, device=dev),
+                "flags": torch.zeros(self.nbr, dtype=torch.int32, device=dev),
+                "epoch": 0}
+        return self._state[key]
+
+    def forget(self, dev) -> None:
+        """Drop the counters on ``dev`` (after a failed sweep)."""
+        self._state.pop(str(dev), None)
+
+
+def tiled_schedule(cols, valid) -> TiledSchedule:
+    """The contribution order of the tiled sweep for a layout's (nbr, K)
+    ``cols`` and ``valid`` (tensors or arrays; bands, bands with gaps and
+    columns that are not a band alike).  Invalid slots (which point at their
+    own row's block) carry no contribution.  Raises if a valid slot points
+    outside the blocks or two valid slots of a row at one block."""
+    as_np = lambda a: (a.detach().cpu().numpy() if isinstance(a, torch.Tensor)
+                       else np.asarray(a))
+    cols, valid = as_np(cols).astype(np.int64), as_np(valid).astype(bool)
+    if cols.ndim != 2 or cols.shape != valid.shape:
+        raise ValueError(f"cols {cols.shape} and valid {valid.shape} must be one (nbr, K) shape")
+    nbr = cols.shape[0]
+    rows, slots = np.nonzero(valid)          # row-major: the sweep's order
+    tgt = cols[rows, slots]
+    if ((tgt < 0) | (tgt >= nbr)).any():
+        raise ValueError("a valid slot points outside the tile rows' blocks")
+    if np.unique(rows * nbr + tgt).size != tgt.size:
+        raise ValueError("two valid slots of one tile row point at one block")
+    order = np.lexsort((rows, tgt))          # by block, then by row
+    t_sorted = tgt[order]
+    seq = np.empty_like(tgt)
+    seq[order] = np.arange(tgt.size) - np.searchsorted(t_sorted, t_sorted, side="left")
+    need = np.bincount(tgt[rows < tgt], minlength=nbr)
+    nxt = np.full(nbr, -1, dtype=np.int64)
+    is_next = tgt == rows + 1
+    nxt[rows[is_next]] = slots[is_next]
+    # the drawer's contribution is the last one block i + 1 waits for
+    assert (seq[is_next] == need[tgt[is_next]] - 1).all()
+    items = np.stack([rows, slots, tgt, seq], axis=1)[~is_next]
+    return TiledSchedule(need=need, nxt=nxt, items=items,
+                         total=np.bincount(tgt, minlength=nbr))
+
+
+# the schedule of each layout's cols tensor (by identity), with weak
+# references to it and its valid tensor and both tensors' versions: a sweep
+# over the same layout reuses it; an entry goes with its cols tensor
+_SCHEDULES = {}
+
+
+def _layout_schedule(cols, valid) -> TiledSchedule:
+    versions = (cols._version, valid._version)
+    hit = _SCHEDULES.get(id(cols))
+    if hit is None or hit[0]() is not cols or hit[1]() is not valid or hit[2] != versions:
+        hit = (weakref.ref(cols), weakref.ref(valid), versions, tiled_schedule(cols, valid))
+        _SCHEDULES[id(cols)] = hit
+        weakref.finalize(cols, _SCHEDULES.pop, id(cols), None)
+    return hit[3]
+
+
 def sweep_s_tiled_plain(spec, tiles, cols, valid, r_hat, P, n):
     """Plain version of :func:`sweep_s_tiled`, in the dtype of ``r_hat``."""
     sweep_s_tiled_plain.calls += 1
@@ -677,7 +804,7 @@ def sweep_s_tiled_plain(spec, tiles, cols, valid, r_hat, P, n):
 sweep_s_tiled_plain.calls = 0
 
 
-def sweep_s_tiled(spec, tiles, cols, valid, r_hat, P, n):
+def sweep_s_tiled(spec, tiles, cols, valid, r_hat, P, n, stamps=None):
     """Single-chain summary sweep over every tile row of a tiled sparse LD;
     the contract of ``sweep_s_tiled`` (hibayes_tpu/ops/blockgibbs.py:1730-1792)
     at row_base 0.
@@ -688,7 +815,16 @@ def sweep_s_tiled(spec, tiles, cols, valid, r_hat, P, n):
     row i: B draws against n tiles[i, 0] (guarded), then for each valid slot
     r_hat[block cols[i, k]] += n tiles[i, k]^T dg.  Returns (dg, track int32,
     r_hat_new, rejected): ``rejected`` (a 0-d tensor) counts the draws whose
-    first candidate the guard rejected."""
+    first candidate the guard rejected.
+
+    On the card the sweep is one launch that applies the contributions in
+    the order of :func:`tiled_schedule` of cols and valid, built at the
+    first sweep over these two tensors (anew if either is changed in
+    place) and kept with its counters for the sweeps after it.  ``stamps`` (measurement only): an int64 tensor of at
+    least 4 nbr + 4 entries that gets the drawer's clock64 at four points of
+    each row (before its draws, after them, after the barrier that waits for
+    the next row's loads, after its own contribution), then %globaltimer ns
+    and clock64 at the sweep's start and end."""
     if r_hat.device.type == "cpu":
         return sweep_s_tiled_plain(spec, tiles, cols, valid, r_hat, P, n)
     _require_cuda(r_hat, tiles, cols, valid, P)
@@ -708,26 +844,56 @@ def sweep_s_tiled(spec, tiles, cols, valid, r_hat, P, n):
                          f"do not fit (R = {R})")
     if not tiles.is_contiguous() or tiles.data_ptr() % 16:
         raise ValueError("sweep_s_tiled: tiles must be contiguous and 16-byte aligned")
+    schedule = _layout_schedule(cols, valid)
+    if stamps is not None and (stamps.dtype != torch.int64 or stamps.numel() < 4 * nbr + 4):
+        raise ValueError("sweep_s_tiled: stamps must be int64, 4 per row + 4")
     lib = build.library("sgibbs.cu")
     dev = r_hat.device
-    cols_i = cols.to(torch.int32).contiguous()
-    valid_i = valid.to(torch.int32).contiguous()
+    st = schedule.device_state(dev)
     Pc = P.contiguous()
     r = r_hat.clone(memory_format=torch.contiguous_format)
     dg = torch.empty((nbr * B,), dtype=F32, device=dev)
     track = torch.empty((nbr * B,), dtype=F32, device=dev)
     nrej = torch.empty((nbr,), dtype=torch.int32, device=dev)
     code = lib.hb_sweep_s_tiled(
-        tiles.data_ptr(), cols_i.data_ptr(), valid_i.data_ptr(), nbr, K, B, R,
-        spec.model_index, spec.n_fold, int(guard), float(n), float(spec.vary),
-        Pc.data_ptr(), r.data_ptr(), dg.data_ptr(), track.data_ptr(),
-        nrej.data_ptr(), torch.cuda.current_stream(dev).cuda_stream)
+        tiles.data_ptr(), nbr, K, B, R, spec.model_index, spec.n_fold, int(guard),
+        float(n), float(spec.vary), Pc.data_ptr(), r.data_ptr(), dg.data_ptr(),
+        track.data_ptr(), nrej.data_ptr(), st["need"].data_ptr(), st["nxt"].data_ptr(),
+        st["items"].data_ptr(), st["items"].shape[0], st["total"].data_ptr(),
+        st["cnt"].data_ptr(), st["flags"].data_ptr(), st["epoch"] & 0xFFFFFFFF,
+        None if stamps is None else stamps.data_ptr(),
+        torch.cuda.current_stream(dev).cuda_stream)
+    if code != 0:
+        schedule.forget(dev)
     build.check(lib, code, "sweep_s_tiled")
+    st["epoch"] += 1
     sweep_s_tiled.launches += 1
     return dg, track.to(torch.int32), r, nrej.sum()
 
 
 sweep_s_tiled.launches = 0
+
+
+def chain_latency(spec, W_b, P_b, r0, reps, vary=None):
+    """Measurement only: ``reps`` blocks of B draws (one chain, one warp)
+    back to back on the card, each starting from r0 and depending on the
+    one before; W_b (B, B), P_b (B, R) with R the packed rows (and the
+    guard rows when ``vary`` is given).  Returns the clock64 cycles of the
+    whole run (a 0-d int64 tensor); time the call with CUDA events for
+    seconds."""
+    _require_cuda(W_b, P_b, r0)
+    B, R = P_b.shape
+    guard = vary is not None
+    lib = build.library("sgibbs.cu")
+    out = torch.empty((B,), dtype=F32, device=r0.device)
+    cycles = torch.zeros((), dtype=torch.int64, device=r0.device)
+    W, P, r = (t.to(F32).contiguous() for t in (W_b, P_b, r0))
+    code = lib.hb_chain_latency(W.data_ptr(), P.data_ptr(), r.data_ptr(), B, R,
+                                spec.model_index, spec.n_fold, int(guard),
+                                float(vary or 0.0), int(reps), out.data_ptr(),
+                                cycles.data_ptr(), torch.cuda.current_stream(r0.device).cuda_stream)
+    build.check(lib, code, "chain_latency")
+    return cycles
 
 
 # ---------------------------------------------------------------------------

@@ -21,7 +21,7 @@ from pathlib import Path
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent.parent / "build"
 SOURCES = ("blockgibbs.cu", "sgibbs.cu", "mme.cu")
-HEADERS = ("draws.cuh",)
+HEADERS = ("draws.cuh", "pdl.cuh")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -93,8 +93,7 @@ def library(source: str = SOURCES[0]) -> ctypes.CDLL:
     if source == "blockgibbs.cu":
         lib.hb_block_draws.argtypes = [_P, _P, _P, _I, _I, _I, _I, _I, _P, _P, _P]
         lib.hb_block_draws.restype = _I
-        lib.hb_sweep_mc.argtypes = [_P, _I, _P, _P, _I, _I, _I, _I, _I, _I, _I,
-                                    _I, _I, _P, _P, _P, _P, _P, _P, _P]
+        lib.hb_sweep_mc.argtypes = [_P, _I, _P, _P] + [_I] * 13 + [_P] * 8
         lib.hb_sweep_mc.restype = _I
         lib.hb_launch_counts.argtypes = [ctypes.POINTER(ctypes.c_longlong)] * 3
         lib.hb_launch_counts.restype = None
@@ -104,9 +103,13 @@ def library(source: str = SOURCES[0]) -> ctypes.CDLL:
         lib.hb_sweep_s_segment.argtypes = [_P, _P, _I, _I, _I, _I, _I, _I, _F,
                                            _P, _P, _P, _P]
         lib.hb_sweep_s_segment.restype = _I
-        lib.hb_sweep_s_tiled.argtypes = [_P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
-                                         _F, _F, _P, _P, _P, _P, _P, _P]
+        lib.hb_sweep_s_tiled.argtypes = [_P, _I, _I, _I, _I, _I, _I, _I, _F, _F,
+                                         _P, _P, _P, _P, _P, _P, _P, _P, _I, _P,
+                                         _P, _P, ctypes.c_uint, _P, _P]
         lib.hb_sweep_s_tiled.restype = _I
+        lib.hb_chain_latency.argtypes = [_P, _P, _P, _I, _I, _I, _I, _I, _F, _I,
+                                         _P, _P, _P]
+        lib.hb_chain_latency.restype = _I
         lib.hb_s_launch_counts.argtypes = [ctypes.POINTER(ctypes.c_longlong)]
         lib.hb_s_launch_counts.restype = None
         lib.hb_s_reset_launch_counts.argtypes = []

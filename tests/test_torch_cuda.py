@@ -5,6 +5,8 @@ the GPU machine (which has none) without the JAX conftest:
     python -m pytest --noconftest -m gpu tests/test_torch_cuda.py -q
 """
 
+import dataclasses
+
 import numpy as np
 import pytest
 import torch
@@ -124,8 +126,8 @@ def test_launch_counts(dev):
         TB.sweep_mc(spec, *args)
         nbg = spec.nblocks
         want = {"rows_kernel": 0, "rows_mc_kernel": 0, "draws_kernel": nbg,
-                "segment_draws": 0, "segment_update": 0, "tiled_draws": 0,
-                "tiled_scatter": 0, "mme_sweep_kernel": 0}
+                "segment_draws": 0, "segment_update": 0, "tiled_sweep": 0,
+                "mme_sweep_kernel": 0}
         want[rows] = nbg + 1
         assert TB.kernel_launches() == want
         assert (TB.sweep_mc.launches, TB.block_draws.launches) == (before[0] + 1, before[1])
@@ -375,8 +377,8 @@ def test_summary_kernels_match_plain(model, layout, dev):
 
 def test_summary_launch_counts(dev):
     """A segment sweep over nb blocks is nb segment_draws and nb
-    segment_update launches; a tiled sweep over nbr rows nbr tiled_draws and
-    nbr tiled_scatter launches; each wrapper counts one call."""
+    segment_update launches; a tiled sweep over any number of rows is one
+    tiled_sweep launch; each wrapper counts one call."""
     for layout, key in (("dense", "segment"), ("tiled", "tiled")):
         spec, data, g, r, P, _, _ = _s_problem("BayesCpi", layout, dev)
         TB.reset_kernel_launches()
@@ -387,10 +389,11 @@ def test_summary_launch_counts(dev):
         if key == "segment":
             assert (counts["segment_draws"], counts["segment_update"]) == (nb, nb)
             assert TB.sweep_s_segment.launches == before[0] + 1
+            assert sum(counts.values()) == 2 * nb
         else:
-            assert (counts["tiled_draws"], counts["tiled_scatter"]) == (nb, nb)
+            assert counts["tiled_sweep"] == 1 and nb > 1
             assert TB.sweep_s_tiled.launches == before[1] + 1
-        assert sum(counts.values()) == 2 * nb
+            assert sum(counts.values()) == 1
 
 
 def test_summary_sweeps_refuse_bad_inputs(dev):
@@ -534,3 +537,136 @@ def test_ssbrm_on_the_card_is_reproducible(impute, dev):
     assert fits[0].Veps == fits[1].Veps and fits[0].J == fits[1].J
     assert len(fits[0].g["id"]) == 1500 and np.isfinite(fits[0].g["gebv"]).all()
     assert np.isfinite(fits[0].Veps) and 0 < fits[0].h2 < 1
+
+
+# ---------------------------------------------------------------------------
+# the redesigned K-chain rows kernel and the persistent tiled sweep
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("n", [4096, 9001, 50_176])
+@pytest.mark.parametrize("K", [2, 3, 4, 5, 8, 64])
+def test_k_chain_sweep_shapes(K, n, dev):
+    """sweep_mc at K chains against its plain version at the kernel bar, over
+    the whole range and an offset block range, bit-identical on a second
+    launch; n=9,001 leaves the last tile ragged and its chunk partial."""
+    spec, args = _inputs("BayesR" if K % 2 else "BayesCpi", dev, K=K, n=n, m=384, B=128,
+                         pad_n=False)
+    out = TB.sweep_mc(spec, *args)
+    _assert_bar(TB.sweep_mc_plain(spec, *args), out)
+    assert all(torch.equal(a, b) for a, b in zip(out, TB.sweep_mc(spec, *args)))
+    consts, X, W, xpx, vx, *per = args
+    B, off, nbg = spec.block, 1, 2
+    cols = slice(off * B, (off + nbg) * B)
+    loc = [a[:, cols] for a in per[:7]]
+    out = TB.sweep_mc(spec, consts, X, W, xpx[cols], vx[cols], *loc, per[7], per[8],
+                      block_range=(off, nbg))
+    ref = TB.sweep_mc_plain(spec, consts, X[off:off + nbg], W[off:off + nbg], xpx[cols],
+                            vx[cols], *loc, per[7], per[8])
+    _assert_bar(ref, out)
+
+
+@pytest.mark.parametrize("n", [4096, 9001])
+def test_k_chain_sweep_chains_0_7_of_64(n, dev):
+    """Chains 0-7 of a K=64 sweep are bit for bit a K=8 sweep of the same
+    chains, and chains 0-3 of K=8 a K=4 sweep's (another register-tile
+    shape), for the kernel's outputs (phase C's per-chain sums, torch
+    reductions, left out)."""
+    spec, args64 = _inputs("BayesCpi", dev, K=64, n=n, m=256, B=128, pad_n=False)
+    consts, X, W, xpx, vx, *per = args64
+    sub = lambda k: ({c: v[:k] for c, v in consts.items()}, X, W, xpx, vx,
+                     *(a[:k] for a in per))
+    out = {K: TB.sweep_mc(spec, *(args64 if K == 64 else sub(K))) for K in (64, 8, 4)}
+    for big, small in ((64, 8), (8, 4)):
+        for a, b in zip(out[big][:5], out[small][:5]):
+            assert torch.equal(a[:small], b)
+
+
+def _tiled_layout(data, kind, dev, seed=0):
+    """cols/valid of a summary problem's 3-tile band made into a band with
+    gaps (some off-diagonal slots masked) or columns that are not a band
+    (each row's off-diagonal slots point at random other blocks); the tiles
+    stay.  Invalid slots point at the row's own block."""
+    rng = np.random.default_rng(seed)
+    cols = data.ld_cols.cpu().numpy().copy()
+    valid = data.ld_valid.cpu().numpy().copy()
+    nbr, K = cols.shape
+    rows = np.arange(nbr)[:, None].repeat(K, 1)
+    if kind == "gaps":
+        valid[:, 1:] &= rng.random((nbr, K - 1)) < 0.6
+    elif kind == "nonband":
+        for i in range(nbr):
+            others = rng.permutation(np.delete(np.arange(nbr), i))[:K - 1]
+            cols[i, 1:] = others
+            valid[i, 1:] = rng.random(K - 1) < 0.8
+    cols = np.where(valid, cols, rows)
+    return (torch.as_tensor(cols, dtype=torch.int32, device=dev),
+            torch.as_tensor(valid, device=dev))
+
+
+@pytest.mark.parametrize("guard", [True, False], ids=["guard", "noguard"])
+@pytest.mark.parametrize("kind", ["band", "gaps", "nonband"])
+@pytest.mark.parametrize("model", ["BayesCpi", "BayesR"])
+def test_tiled_sweep_layouts(model, kind, guard, dev):
+    """The one-launch tiled sweep against its plain version at the kernel bar
+    on a band, a band with gaps and columns that are not a band, with the
+    guard on and off; the guard's rejection counts equal the plain
+    version's; a second launch is bit-identical; one tiled_sweep launch."""
+    spec, data, g, r, P, _, _ = _s_problem(model, "tiled", dev, m=1500)
+    cols, valid = ((data.ld_cols, data.ld_valid) if kind == "band"
+                   else _tiled_layout(data, kind, dev))
+    if not guard:
+        spec = dataclasses.replace(spec, reject_guard=False)
+        P = P[:TB.n_rows(spec)].contiguous()
+    assert TB.guard_on(spec) == guard
+    args = (spec, data.ld_tiles, cols, valid, r, P, spec.n)
+    TB.reset_kernel_launches()
+    out = TB.sweep_s_tiled(*args)
+    assert TB.kernel_launches()["tiled_sweep"] == 1
+    plain = TB.sweep_s_tiled_plain(*args)
+    _assert_bar((g - plain[0], plain[1], None, plain[2]), (g - out[0], out[1], None, out[2]))
+    assert int(out[3]) == int(plain[3])
+    again = TB.sweep_s_tiled(*args)
+    assert all(torch.equal(a, b) for a, b in zip(out, again))
+
+
+def test_tiled_sweep_guard_fires(dev):
+    """At a lowered vary the guard rejects draws: the kernel's count equals
+    the plain version's where no draw flips, over many sweeps of one
+    schedule (its counters run on from epoch to epoch)."""
+    spec, data, g, r, P, _, _ = _s_problem("BayesCpi", "tiled", dev, m=1500)
+    spec = dataclasses.replace(spec, vary=spec.vary * 1e-3)
+    args = (spec, data.ld_tiles, data.ld_cols, data.ld_valid, r, P, spec.n)
+    outs = [TB.sweep_s_tiled(*args) for _ in range(5)]
+    plain = TB.sweep_s_tiled_plain(*args)
+    assert int(plain[3]) > 0
+    _assert_bar((g - plain[0], plain[1], None, plain[2]),
+                (g - outs[0][0], outs[0][1], None, outs[0][2]))
+    assert int(outs[0][3]) == int(plain[3])
+    for o in outs[1:]:
+        assert all(torch.equal(a, b) for a, b in zip(outs[0], o))
+
+
+def test_chain_latency_and_stamps(dev):
+    """The measurement entry points run: the draw chain alone, and the
+    stamps of a K-chain and a tiled sweep, ordered in time."""
+    spec, data, g, r, P, _, _ = _s_problem("BayesCpi", "tiled", dev)
+    B = spec.block
+    W = spec.n * data.ld_tiles[0, 0]
+    Pb = P[:, :B].T.contiguous()
+    cyc = TB.chain_latency(spec, W, Pb, r[:B], reps=10, vary=spec.vary)
+    assert int(cyc) > 0
+    stamps = torch.zeros(4 * (spec.m_pad // B) + 4, dtype=torch.int64, device=dev)
+    TB.sweep_s_tiled(spec, data.ld_tiles, data.ld_cols, data.ld_valid, r, P, spec.n,
+                     stamps=stamps)
+    st = stamps.cpu().numpy()
+    nbr = spec.m_pad // B
+    rows = st[:4 * nbr].reshape(nbr, 4)
+    assert (np.diff(rows, axis=1) >= 0).all() and st[4 * nbr + 1] > st[4 * nbr]
+    spec_i, args = _inputs("BayesCpi", dev, K=4, n=2000, m=256, B=128)
+    nbg = spec_i.nblocks
+    stamps = torch.zeros(16 * (nbg + 1), dtype=torch.int64, device=dev)
+    TB.sweep_mc(spec_i, *args, stamps=stamps)
+    st = stamps.cpu().numpy().reshape(nbg + 1, 16)
+    assert (st[:nbg, 3:8] > 0).all() and (np.diff(st[:nbg, 3:8], axis=1) >= 0).all()
+    assert (np.diff(st[:nbg, 8:15], axis=1) >= 0).all()
