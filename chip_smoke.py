@@ -25,12 +25,14 @@ Phases, each printing as it goes:
      kernel is held to the bar and timed beside its plain version at its
      main path's shapes, and sweep_mc at TPU kernels 8's and 2's own shapes
      (K=1 at n=131,072; K=64 at n=4,096, with torch.matmul of its two
-     products as the library yardstick, and so at phase 4b's K=4); the
-     K-chain sweep's time split per block from its kernels' timer stamps
-     (rows launch, W and row loads, wait, reduction of the partials, draw
-     chain); the draw chain alone per block of 128 (BayesR with 4 folds
-     here, BayesCpi with and without the guard in phase 5), the floor of
-     both redesigned kernels;
+     products as the library yardstick, and so at phase 4b's K=4); each
+     sweep's time split per block from its timer stamps (K >= 2: rows
+     launch, W and row loads, wait, reduction of the partials, draw chain;
+     one chain, the persistent sweep1 launch: the drawer's wait for the
+     partials and for W, the chain, the hand-offs and the rows CTAs' work);
+     the draw chain alone per block of 128, in us and cycles a draw (BayesR
+     with 4 folds here, BayesCpi with and without the guard in phase 5),
+     the floor of every sweep;
   4. ibrm main path: hibayes_tpu_torch.ibrm("y ~ x1 + (1|grp)",
      method="BayesR") on one chain at n=50,000 x m=65,536 (int8 genotype made
      on the card, h2=0.5 from 500 causal SNPs), niter=200, nburn=100,
@@ -340,22 +342,41 @@ def chain_us(torch, TB, spec, W, Pb, r0, vary=None, reps=400):
 
 
 def sweep_split(torch, TB, spec, part, nbg):
-    """Where a K-chain sweep's time goes, per block (us, means over the
-    blocks), from the timer stamps of the first CTA of each launch
-    (sweep_mc(stamps=...)): the rows launch from its start to its wait
-    (its first X chunks in flight, then the draws before it) and on to its
-    end; the draws launch's W and packed-row load, its wait for the rows
-    launch (the other rows CTAs and the hand-off), the reduction of the
-    partials, the draw chain; the block's period; and, at K >= 2, the rows
-    CTA's first chunk: its wait for the chunk and the barrier, the next
-    chunk's copies issued, the residual update, the second barrier, the
-    partials."""
+    """Where a sweep's time goes, per block (us, means over the blocks),
+    from its timer stamps (sweep_mc(stamps=...)).  One chain (the persistent
+    sweep1 launch): the drawer's wait for block b's partials and their sum,
+    its wait for W_b, the draw chain, its own row work after it; the first
+    rows CTA's start after dg_b is published (the hand-off), its row work
+    (the correction yadj += X_b dg_b, then the partials of X_{b+1}), the hand-off of its partials to the drawer's sum; the block's period.
+    K >= 2 chains: the rows launch from its start to its wait (its first X
+    chunks in flight, then the draws before it) and on to its end; the
+    draws launch's W and packed-row load, its wait for the rows launch (the
+    other rows CTAs and the hand-off), the reduction of the partials, the
+    draw chain; the block's period; and the rows CTA's first chunk: its
+    wait for the chunk and the barrier, the next chunk's copies issued, the
+    residual update, the second barrier, the partials."""
     st = torch.zeros(16 * (nbg + 1), dtype=torch.int64, device=part[2].device)
     TB.sweep_mc(*part, block_range=(0, nbg), stamps=st)
     torch.cuda.synchronize()
     s = st.view(nbg + 1, 16).cpu().numpy().astype(np.float64)
     b, nxt = s[:nbg] / 1e3, s[1:] / 1e3
     mean = lambda x: round(float(np.mean(x)), 3)
+    if part[-2].shape[0] == 1:
+        return {"drawer_partials_wait_us": mean(b[:, 1] - b[:, 0]),
+                "drawer_flags_us": mean(b[:, 5] - b[:, 0]),
+                "drawer_w_wait_us": mean(b[:, 2] - b[:, 1]),
+                "chain_us": mean(b[:, 3] - b[:, 2]),
+                "chain_draws_us": mean(b[:, 6] - b[:, 2]),
+                "drawer_own_rows_us": mean(b[:, 4] - b[:, 3]),
+                "dg_to_rows_start_us": mean(nxt[:, 9] - b[:, 3]),
+                "rows_work_us": mean(nxt[:, 10] - nxt[:, 9]),
+                "rows_correction_us": mean(nxt[:, 11] - nxt[:, 9]),
+                "rows_partials_us": mean(nxt[:, 10] - nxt[:, 11]),
+                "rows_partials_formed_us": mean(nxt[:-1, 12] - nxt[:-1, 11]),
+                "rows_partials_summed_us": mean(nxt[:-1, 13] - nxt[:-1, 12]),
+                "rows_publish_us": mean(nxt[:-1, 10] - nxt[:-1, 13]),
+                "rows_to_partials_summed_us": mean(b[1:, 1] - b[1:, 10]),
+                "block_period_us": mean(np.diff(b[:, 0]))}
     out = {"rows_start_to_wait_us": mean(b[:, 1] - b[:, 0]),
            "rows_cta0_work_us": mean(b[:, 2] - b[:, 1]),
            "draws_load_us": mean(b[:, 4] - b[:, 3]),
@@ -647,8 +668,7 @@ def time_k5(torch, TG, TB, dev, errs, B=128, nbg=16):
                                       TB.sweep_mc(spec, *args), what)
         log(f"  ok {what}")
         t["sweep_mc_" + key] = cuda_ms(torch, lambda: TB.sweep_mc(spec, *args), 10)
-        if K > 1:
-            t["sweep_mc_" + key + "_split"] = sweep_split(torch, TB, spec, (spec, *args), nbg)
+        t["sweep_mc_" + key + "_split"] = sweep_split(torch, TB, spec, (spec, *args), nbg)
         t["sweep_mc_" + key + "_plain"] = cuda_ms(torch, lambda: TB.sweep_mc_plain(spec, *args), 1)
         bounds["sweep_mc_" + key] = sweep_bound(args, B)
         if K > 1:
@@ -975,9 +995,10 @@ def profile_iterations(torch, step, state, what, iters=3, split=None):
     if split is not None:
         part = lambda *keys: sum(t for k, (t, _) in kern.items()
                                  if any(x in k for x in keys)) / 1e3
-        split["rows"] = part("rows_kernel", "rows_mc_kernel")
+        split["rows"] = part("rows_mc_kernel")
         split["draws"] = part("draws_kernel")
-        split["sweep_mc"] = split["rows"] + split["draws"]
+        split["sweep1"] = part("sweep1_kernel")
+        split["sweep_mc"] = split["rows"] + split["draws"] + split["sweep1"]
         split["mme_sweep"] = part("mme_sweep_kernel")
         split["torch"] = busy / 1e3 - split["sweep_mc"] - split["mme_sweep"]
         split["wall"] = 1e3 * wall / iters
@@ -1437,10 +1458,7 @@ def main(argv=None) -> int:
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches, plain = read_counts(TB)
-    nblocks = -(-args.m // B)
-    expect_counts(launches, plain, {"sweep_mc": niter_eff,
-                                    "rows_kernel": niter_eff * (nblocks + 1),
-                                    "draws_kernel": niter_eff * nblocks}, "4")
+    expect_counts(launches, plain, {"sweep_mc": niter_eff, "sweep1": niter_eff}, "4")
     for k in ("Vg", "Ve", "h2"):
         if not np.isfinite(getattr(fit, k)):
             raise AssertionError(f"{k} is not finite")
@@ -1497,9 +1515,11 @@ def main(argv=None) -> int:
         f"times (ms) on {smi}: {json.dumps(t_tiled)}; bounds {json.dumps(b_tiled)}")
     log(f"[5] draw chain alone, per block of {B} draws in one warp, on {smi}: BayesR "
         f"(4 folds) {times['chain_bayesr_us']:.3f} us ({times['chain_bayesr_cycles']:.0f} "
-        f"cycles), BayesCpi {times['chain_bayescpi_us']:.3f} us "
-        f"({times['chain_bayescpi_cycles']:.0f}), BayesCpi with the guard "
-        f"{times['chain_bayescpi_guard_us']:.3f} us ({times['chain_bayescpi_guard_cycles']:.0f})")
+        f"cycles, {times['chain_bayesr_cycles'] / B:.1f} a draw), BayesCpi "
+        f"{times['chain_bayescpi_us']:.3f} us ({times['chain_bayescpi_cycles']:.0f}, "
+        f"{times['chain_bayescpi_cycles'] / B:.1f} a draw), BayesCpi with the guard "
+        f"{times['chain_bayescpi_guard_us']:.3f} us ({times['chain_bayescpi_guard_cycles']:.0f}, "
+        f"{times['chain_bayescpi_guard_cycles'] / B:.1f} a draw)")
     profile_iterations(torch, lambda st: TSG.one_s_iteration(sspec, sdata, 1, st),
                        TSG.init_s_state(sspec, sdata, spr, spi), "sbrm tiled")
     del sdata
@@ -1664,11 +1684,9 @@ def main(argv=None) -> int:
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     e_launches, plain = read_counts(TB)
-    nb_e = -(-ss_m // 64)
     expect_counts(e_launches, plain, {"sweep_mc": niter_eff, "mme_sweep": niter_eff,
                                       "mme_sweep_kernel": niter_eff,
-                                      "rows_kernel": niter_eff * (nb_e + 1),
-                                      "draws_kernel": niter_eff * nb_e}, "7")
+                                      "sweep1": niter_eff}, "7")
     gebv = dict(zip(fit.g["id"], fit.g["gebv"]))
     if len(gebv) != n_ids or not np.isfinite(fit.g["gebv"]).all():
         raise AssertionError("GEBV of the wrong count or not finite")
@@ -1720,20 +1738,29 @@ def main(argv=None) -> int:
               flagship_4_chains_block_split_us=times["sweep_mc_k4_split"],
               chain_us_per_block={"BayesR_4_folds": times["chain_bayesr_us"],
                                   "BayesCpi": times["chain_bayescpi_us"]}),
-        entry("sweep_mc_k1_for_kernel1", src, "hibayes_tpu/ops/blockgibbs.py:138",
-              launches["sweep_mc"], errs["sweep_mc"], "sweep_mc",
+        entry("sweep1_kernel_for_kernel1", src, "hibayes_tpu/ops/blockgibbs.py:138",
+              launches["sweep1"], errs["sweep_mc"], "sweep_mc",
               timed=f"sweep_mc at K=1, n={n_rows} (as row 3)"),
-        entry("sweep_mc_k1_for_kernel8", src, "hibayes_tpu/ops/blockgibbs.py:1371",
-              launches["sweep_mc"], errs["sweep_mc_k8"], "sweep_mc_k8",
-              timed="sweep_mc at K=1, n=131,072"),
-        entry("sweep_mc", src, "hibayes_tpu/ops/blockgibbs.py:642", launches["sweep_mc"],
-              errs["sweep_mc"], "sweep_mc", rows_kernel_launches=launches["rows_kernel"],
-              ssbrm_launches=e_launches["sweep_mc"], ssbrm_ms=times["sweep_mc_ssbrm"],
+        entry("sweep1_kernel_for_kernel8", src, "hibayes_tpu/ops/blockgibbs.py:1371",
+              launches["sweep1"], errs["sweep_mc_k8"], "sweep_mc_k8",
+              timed="sweep_mc at K=1, n=131,072",
+              block_split_us=times["sweep_mc_k8_split"]),
+        entry("sweep1_kernel", src, "hibayes_tpu/ops/blockgibbs.py:642", launches["sweep1"],
+              errs["sweep_mc"], "sweep_mc", sweep_mc_launches=launches["sweep_mc"],
+              block_split_us=times["sweep_mc_split"],
+              full_sweep_ms=times["sweep_full"],
+              chain_cycles_per_draw={"BayesR_4_folds": times["chain_bayesr_cycles"] / B},
+              ssbrm_launches=e_launches["sweep1"], ssbrm_ms=times["sweep_mc_ssbrm"],
               ssbrm_plain_ms=times["sweep_mc_ssbrm_plain"],
               ssbrm_bound_ms=bounds["sweep_mc_ssbrm"][0]),
         entry("draws_kernel", src, "hibayes_tpu/ops/blockgibbs.py:1264",
-              launches["draws_kernel"], errs["block_draws"], "block_draws",
-              segment_4_chains_draws_launches=d4_launches["segment_draws"]),
+              flag["launches"]["draws_kernel"], errs["block_draws"], "block_draws",
+              launches_from="phase 4b (4 chains; one chain sweeps through sweep1_kernel)",
+              segment_4_chains_draws_launches=d4_launches["segment_draws"],
+              chain_cycles_per_draw={
+                  "BayesR_4_folds": times["chain_bayesr_cycles"] / B,
+                  "BayesCpi": times["chain_bayescpi_cycles"] / B,
+                  "BayesCpi_guard": times["chain_bayescpi_guard_cycles"] / B}),
         entry("sweep_s_segment", ssrc, "hibayes_tpu/ops/blockgibbs.py:1141",
               d_launches["sweep_s_segment"], errs["sweep_s_segment"], "sweep_s_segment",
               segment_draws_launches=d_launches["segment_draws"],
@@ -1754,6 +1781,9 @@ def main(argv=None) -> int:
               full_sweep_bound_ms=bounds["mme_sweep_full"][0],
               full_sweep_dense_layout_bound_ms=bounds["mme_sweep_full_dense_layout"][0]),
     ]
+    idle = [k["name"] for k in kernels if not k["launches"]]
+    if idle:
+        raise AssertionError(f"kernels not launched on their main path: {idle}")
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,

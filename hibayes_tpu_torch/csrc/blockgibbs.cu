@@ -18,21 +18,51 @@
 //
 // The TPU sweeps keep a whole X block (n x B) in VMEM and carry yadj/u
 // across an in-order grid.  On Hopper a block has at most 227 KB of shared
-// memory (an int8 X block is 6.4 MB at n = 50,000) and CTAs run in no order,
-// so one sweep is a sequence of launches on one stream, two per SNP block:
+// memory (an int8 X block is 6.4 MB at n = 50,000) and CTAs run in no order.
 //
-//   rows_kernel   (K = 1) grid over row tiles of n, about one tile per SM
-//                 (the caller picks the tile size).  Applies the previous
-//                 block's effect changes (yadj += X_{b-1} dg, u -= X_{b-1} dg)
-//                 to its rows, then writes its partial X_b' yadj (K, B).
-//                 Bound by device-memory latency: it streams X_{b-1}
-//                 (usually still in the 50 MB L2) and X_b once each, 16 bytes
-//                 of f32 or 4 bytes of int8 per lane per row, coalesced, four
-//                 rows in flight per warp, and each warp makes only a few
-//                 round trips to memory, so every SM must take part.
-//   rows_mc_kernel  (K >= 2, the port of _kernel_mc's two products) the
-//                 same work for K chains that share X, X read once for all
-//                 chains.  Its bound is X's bytes at small K (an int8 block
+// One chain (K = 1) is one persistent launch a sweep, sweep1_kernel: a
+// grid no larger than the CTAs the card holds at once (checked with the
+// occupancy API), ordered by release/acquire flags whose values run on
+// across sweeps by an epoch; a wait of 10 s traps instead of hanging the
+// card (pdl.cuh).  The rows of n are cut into the row tiles the caller
+// picks (about one per SM), and each CTA owns some of them for the whole
+// sweep, keeping their yadj and u in shared memory.
+//   - CTA 0, the drawer: warp 0 runs block b's B draws (draws.cuh) and
+//     publishes dg_b; meanwhile the other warps stage the packed rows
+//     P_{b+1}, and one thread has the copy engine bring W_{b+1} (64 KB at
+//     B = 128) into the other half of a double buffer (cp.async.bulk and
+//     an mbarrier), or, where the drawer needs that room for its own row
+//     tile, into the one buffer once the chain is done (it lands under the
+//     row work).  Then it waits for block b+1's row-tile partials and sums
+//     them in a fixed order (warp w the tiles w, w + 8, ... in order, the
+//     eight sums in warp order).
+//   - every CTA with tiles (the drawer too, when the tiles outnumber the
+//     other CTAs): once dg_b is published, applies yadj += X_b dg_b,
+//     u -= X_b dg_b to its rows (a row a thread pair), then writes its
+//     tiles' partials X_{b+1}' yadj (a warp a row class, a lane a column
+//     group), each published by a flag.  X_b and X_{b+1} are staged in
+//     shared memory under the chain (cp.async, 16-byte units rotated by
+//     the row so both access patterns spread over the banks) where two
+//     tiles fit; where one fits it holds X_b and X_{b+1} is read from
+//     global memory after an L2 prefetch.
+// Bound: the dependent draw chain (one warp, B draws) plus, per block, two
+// flag hand-offs and a row tile's work from shared memory; X moves at
+// 3.35 TB/s under the chain.  Every sum is the one the two-launch design
+// this replaced formed, in its order: a row's correction is a lane's four
+// columns then a shuffle tree over the warp (here evaluated by the thread
+// pair, the same tree); a tile's partial is, for each of 32 row classes
+// (row mod 32 within the tile, that design's warps), a sum over the
+// class's rows in order, then the 32 added in class order; so the outputs
+// are bit for bit the same.
+//
+// K >= 2 chains are a sequence of launches on one stream, two per SNP
+// block:
+//   rows_mc_kernel  (K >= 2, the port of _kernel_mc's two products) grid
+//                 over row tiles of n (the caller picks the tile size):
+//                 applies the previous block's effect changes (yadj +=
+//                 X_{b-1} dg, u -= X_{b-1} dg) to its rows, then writes its
+//                 partial X_b' yadj (K, B), X read once for all chains.
+//                 Its bound is X's bytes at small K (an int8 block
 //                 of 6.4 MB, 1.9 us at 3.35 TB/s for K = 4, n = 50,176) and
 //                 the float32 FMAs at large K (4 K n B: 2.0 us at 67 TFLOP/s
 //                 for K = 64, n = 4,096); the first design, which staged one
@@ -64,25 +94,24 @@
 //                 atomics, and an order that depends on the tile count
 //                 alone), and one warp runs the B sequential draws
 //                 (draws.cuh).  Bound by the latency of that dependent chain.
+//                 block_draws launches it too.
 //
-// At K >= 2 every launch of a sweep but the first overlaps the one before
-// it (programmatic dependent launch, pdl.cuh): a rows launch puts its
-// first X chunks in flight, a draws launch loads W_b and the packed rows,
-// and only then does each wait for the launch before it and read dg, yadj
-// or the partials.  A rows launch lets the next draws launch start at
-// once, so W_b arrives while the draws before still run their chain (when
-// device memory is idle); a draws launch lets the next rows launch start
-// once its own wait is over.  At K = 1 the launches are ordinary: a
-// rows_kernel CTA takes all of an SM's registers, so the draws launch
-// could not start beside it, and overlap measured slower (PERF.md).
+// Every launch of a K >= 2 sweep but the first overlaps the one before it
+// (programmatic dependent launch, pdl.cuh): a rows launch puts its first X
+// chunks in flight, a draws launch loads W_b and the packed rows, and only
+// then does each wait for the launch before it and read dg, yadj or the
+// partials.  A rows launch lets the next draws launch start at once, so W_b
+// arrives while the draws before still run their chain (when device memory
+// is idle); a draws launch lets the next rows launch start once its own
+// wait is over.  A last rows launch applies the final block's changes.
 //
-// A last rows launch applies the final block's changes.  X and W are
-// indexed by the GLOBAL block off + b; the packed rows and outputs by the
-// local b (sweep_mc_tc reads W by the local block, a TPU-side fault this
-// port does not copy).  Any n is taken: the ragged last tile is masked here.
+// X and W are indexed by the GLOBAL block off + b; the packed rows and
+// outputs by the local b (sweep_mc_tc reads W by the local block, a
+// TPU-side fault this port does not copy).  Any n is taken: the ragged last
+// tile is masked here.
 //
-// With a stamps buffer (measurement only) the first CTA of each launch
-// records %globaltimer at its stages (hb_sweep_mc).
+// With a stamps buffer (measurement only) the kernels record %globaltimer
+// (and clock64) at their stages (hb_sweep_mc).
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -94,9 +123,15 @@ namespace hb {
 
 constexpr int kDrawWarps = 8;
 constexpr int kDrawThreads = kWarp * kDrawWarps;
-constexpr int kRowWarps = 32;
-constexpr int kRowThreads = kWarp * kRowWarps;
-constexpr int kRowUnroll = 4;   // rows in flight per warp (8 spills at 64 registers)
+
+// sweep1_kernel: 8 warps a CTA; a tile's rows fall in 32 classes (row mod
+// 32 within the tile: the warps of the two-launch design it replaced, whose
+// sums it keeps), warp w taking classes 4w .. 4w + 3.
+constexpr int kS1Warps = 8;
+constexpr int kS1Threads = kWarp * kS1Warps;
+constexpr int kS1Classes = 32;
+constexpr int kS1PerWarp = kS1Classes / kS1Warps;
+constexpr int kS1BarFloats = 4;   // the drawer's two mbarriers
 
 // rows_mc_kernel: 8 warps; a CTA serves up to kMcChains chains (grid.y =
 // ceil(K / kMcChains)).
@@ -104,16 +139,24 @@ constexpr int kMcWarps = 8;
 constexpr int kMcThreads = kWarp * kMcWarps;
 constexpr int kMcChains = 64;
 
-// Stamps per block in the stamps buffer, %globaltimer ns: rows launch
-// (start, after its wait, end), draws launch (start, W and P loaded, after
-// its wait, partials summed, draws done); then clock64 of rows_mc_kernel's
-// first CTA: after its wait, and through its first chunk after the first
-// barrier, after the next chunk's copies are issued, after the residual
-// update, after the second barrier and after the partials; at its end.
+// Stamps per block in the stamps buffer.  K >= 2, %globaltimer ns: rows
+// launch (start, after its wait, end), draws launch (start, W and P loaded,
+// after its wait, partials summed, draws done); then clock64 of
+// rows_mc_kernel's first CTA: after its wait, and through its first chunk
+// after the first barrier, after the next chunk's copies are issued, after
+// the residual update, after the second barrier and after the partials; at
+// its end.  K = 1 (sweep1_kernel), %globaltimer ns, record b: the drawer
+// before it waits for block b's partials (0), once they are summed (1),
+// once W_b has landed, as the chain starts (2), once dg_b is published
+// (3), after its own row work of step b + 1 (4), once warp 0's tiles are
+// published (5), after the chain's draws (6); CTA 1 at step b: before
+// its wait for dg_{b-1} (8), once dg and its X tile are in (9), after its
+// correction yadj += X_{b-1} dg_{b-1} (11), after its first tile's
+// partials are formed (12) and written (13), once they are published (10).
 constexpr int kStamps = 16;
 
 // Launches of each kernel, counted where it is launched (hb_launch_counts).
-long long g_rows_launches = 0;
+long long g_sweep1_launches = 0;
 long long g_rows_mc_launches = 0;
 long long g_draws_launches = 0;
 
@@ -127,111 +170,6 @@ __device__ __forceinline__ void load4(const float* p, float v[4]) {
   v[0] = c.x; v[1] = c.y; v[2] = c.z; v[3] = c.w;
 }
 
-__device__ __forceinline__ void stamp(long long* s, int i) {
-  if (s != nullptr) s[i] = global_ns();
-}
-
-__device__ __forceinline__ void stamp_clock(long long* s, int i) {
-  if (s != nullptr) s[i] = clock64();
-}
-
-// grid (ntiles, K), kRowThreads threads; tile t holds rows [t * rows_per_tile,
-// (t + 1) * rows_per_tile) of n.  A warp takes kRowUnroll rows at a time
-// (all their loads in flight together); lane l owns columns 4l .. 4l+3.
-// Xprev == nullptr skips the residual update, Xcur == nullptr the partials.
-// Launched as an ordinary launch (no overlap: a CTA takes all of an SM's
-// registers, so no draws CTA could start beside it).
-template <typename XT>
-__global__ void __launch_bounds__(kRowThreads)
-rows_kernel(const XT* __restrict__ Xprev, const float* __restrict__ dgprev,
-            long long dg_stride, const XT* __restrict__ Xcur, int n, int B,
-            int rows_per_tile, float* __restrict__ yadj,
-            float* __restrict__ u, float* __restrict__ partial, long long* stamps) {
-  __shared__ float red[kRowWarps][kMaxBlock];
-  long long* st = blockIdx.x == 0 && blockIdx.y == 0 && threadIdx.x == 0 ? stamps : nullptr;
-  stamp(st, 0);
-  stamp(st, 1);
-  const int tile = blockIdx.x;
-  const int k = blockIdx.y;
-  const int K = gridDim.y;
-  const int warp = threadIdx.x / kWarp;
-  const int lane = threadIdx.x % kWarp;
-  const int c0 = 4 * lane;
-  const bool owns = c0 < B;
-
-  float dgp[4] = {0.f, 0.f, 0.f, 0.f};
-  if (Xprev != nullptr && owns) {
-    for (int q = 0; q < 4; ++q) dgp[q] = dgprev[k * dg_stride + c0 + q];
-  }
-  float acc[4] = {0.f, 0.f, 0.f, 0.f};
-  float* yk = yadj + static_cast<long long>(k) * n;
-  float* uk = u + static_cast<long long>(k) * n;
-  const int row_end = min(n, (tile + 1) * rows_per_tile);
-  for (int row0 = tile * rows_per_tile + warp; row0 < row_end;
-       row0 += kRowWarps * kRowUnroll) {
-    float ya[kRowUnroll], ua[kRowUnroll], part[kRowUnroll], xc[kRowUnroll][4];
-#pragma unroll
-    for (int v = 0; v < kRowUnroll; ++v) {
-      const int row = row0 + v * kRowWarps;
-      const bool ok = row < row_end;
-      ya[v] = ok ? yk[row] : 0.f;
-      ua[v] = ok && Xprev != nullptr ? uk[row] : 0.f;
-      part[v] = 0.f;
-      for (int q = 0; q < 4; ++q) xc[v][q] = 0.f;
-      if (ok && owns) {
-        const size_t at = static_cast<size_t>(row) * B + c0;
-        if (Xprev != nullptr) {
-          float xp[4];
-          load4(Xprev + at, xp);
-          part[v] = xp[0] * dgp[0] + xp[1] * dgp[1] + xp[2] * dgp[2] + xp[3] * dgp[3];
-        }
-        if (Xcur != nullptr) load4(Xcur + at, xc[v]);
-      }
-    }
-    if (Xprev != nullptr) {
-      for (int o = kWarp / 2; o > 0; o >>= 1) {
-#pragma unroll
-        for (int v = 0; v < kRowUnroll; ++v)
-          part[v] += __shfl_down_sync(0xffffffffu, part[v], o);
-      }
-#pragma unroll
-      for (int v = 0; v < kRowUnroll; ++v) {
-        const int row = row0 + v * kRowWarps;
-        const float delta = __shfl_sync(0xffffffffu, part[v], 0);
-        ya[v] += delta;
-        if (lane == 0 && row < row_end) {
-          yk[row] = ya[v];
-          uk[row] = ua[v] - delta;
-        }
-      }
-    }
-#pragma unroll
-    for (int v = 0; v < kRowUnroll; ++v)
-      for (int q = 0; q < 4; ++q) acc[q] += xc[v][q] * ya[v];
-  }
-  if (partial != nullptr) {
-    if (owns) {
-      for (int q = 0; q < 4; ++q) red[warp][c0 + q] = acc[q];
-    }
-    __syncthreads();
-    for (int c = threadIdx.x; c < B; c += blockDim.x) {
-      float s = 0.f;
-      for (int w = 0; w < kRowWarps; ++w) s += red[w][c];
-      partial[(static_cast<long long>(tile) * K + k) * B + c] = s;
-    }
-  }
-  stamp(st, 2);
-}
-
-
-// ---------------------------------------------------------------------------
-// rows_mc_kernel
-// ---------------------------------------------------------------------------
-
-// Chunks of X a rows_mc_kernel CTA keeps in flight: int8 chunks are small.
-template <typename XT>
-__host__ __device__ constexpr int mc_stages() { return sizeof(XT) == 1 ? 3 : 2; }
-
 // Four int8 values of one 32-bit word as exact floats: each byte, its sign
 // bit flipped, becomes the low mantissa byte of 2^23 + 128 + x (a byte
 // permute), and one add takes 2^23 + 128 away.  Two full-rate instructions
@@ -240,6 +178,488 @@ __device__ __forceinline__ float byte_float(unsigned w, int i) {
   return __int_as_float(static_cast<int>(__byte_perm(w ^ 0x80808080u, 0x4B000000u,
                                                      0x7440u | i))) - 8388736.f;
 }
+
+__device__ __forceinline__ void stamp(long long* s, int i) {
+  if (s != nullptr) s[i] = global_ns();
+}
+
+__device__ __forceinline__ void stamp_clock(long long* s, int i) {
+  if (s != nullptr) s[i] = clock64();
+}
+
+// ---------------------------------------------------------------------------
+// sweep1_kernel: one chain, one persistent launch a sweep
+// ---------------------------------------------------------------------------
+
+// Shared memory of a sweep1_kernel CTA, in bytes: the drawer's part (CTA 0
+// only: two mbarriers, wb buffers of W_b (wb B B), the packed rows
+// double-buffered at padded_stride (2 B RP), the eight warps' partial sums
+// (8 B)); then, for a CTA with T row tiles of rpt rows, yadj and u of its
+// rows (each padded to 4 floats), dg of the block before (B), the 32 row
+// classes' sums (32 B) and nb X tile buffers per tile
+// (ops/blockgibbs.py:sweep1_smem mirrors it).
+struct S1Layout {
+  size_t draw_bytes, yu_floats, tile_bytes, total;
+};
+
+__host__ __device__ inline S1Layout s1_layout(int B, int RP, int rpt, int xbytes, int T,
+                                              int nb, bool drawer, int wb) {
+  S1Layout L;
+  L.draw_bytes = drawer ? sizeof(float) * (kS1BarFloats + static_cast<size_t>(wb) * B * B +
+                                           2 * static_cast<size_t>(B) * RP + kS1Warps * B)
+                        : 0;
+  L.yu_floats = (static_cast<size_t>(T) * rpt + 3) / 4 * 4;
+  L.tile_bytes = static_cast<size_t>(rpt) * B * xbytes;
+  L.total = L.draw_bytes +
+            (T > 0 ? sizeof(float) * (2 * L.yu_floats + static_cast<size_t>(kS1Classes + 1) * B) +
+                         static_cast<size_t>(T) * nb * L.tile_bytes
+                   : 0);
+  return L;
+}
+
+template <typename XT>
+struct Sweep1Args {
+  const XT* X;        // (nb_tot, n, B)
+  const float* W;     // (nb_tot, B, B)
+  const float* P;     // (nbg, B, R) packed rows
+  int off, nbg, n, B, rpt, ntiles;
+  float *yadj, *u;    // (n,), updated
+  float *g_out, *dg_out, *tr_out;   // (nbg B,)
+  float* partial;     // (ntiles, B)
+  unsigned* flags;    // [0] dg published; [1 + t] tile t's partials published
+  unsigned epoch;     // this sweep publishes epoch + s + 1 for step s
+  int nb0, nbr;       // X tile buffers a tile of the drawer / of another CTA has
+  int wb;             // buffers of W: 2, W_{b+1} lands under block b's chain;
+                      // 1, after it (the drawer then has room for its tile's X)
+  long long* stamps;  // measurement only (null in use)
+};
+
+// A row tile of X as the row work reads it: in global memory as stored, or
+// in shared memory where, when a row's bytes are a multiple of 16 (int8
+// with B % 16 == 0, or float32), each row is U units of 16 bytes and unit u
+// of row r sits at (u + r) mod U.  So a warp whose lanes read one unit of
+// 32 consecutive rows (the correction, a row a thread) and a warp whose
+// lanes read one row (the partials, a column group a lane) both spread
+// over the banks.  Column group l is columns 4l .. 4l + 3.
+template <typename XT>
+struct S1Tile {
+  const unsigned char* base;   // row 0
+  int rb;                      // bytes a row: B sizeof(XT)
+  int U;                       // 16-byte units a row, or 0 (rows not a multiple of 16 bytes)
+  bool rot;                    // units rotated by the row (a tile in shared memory)
+
+  // the stored place of unit u of a row whose rotation is rm (= r mod U)
+  __device__ __forceinline__ int pos(int u, int rm) const {
+    if (!rot) return u;
+    const int p = u + rm;
+    return p >= U ? p - U : p;
+  }
+  // column group l of row r (rotation rm) as four exact floats
+  __device__ __forceinline__ void group(int r, int rm, int l, float x[4]) const {
+    const unsigned char* row = base + static_cast<size_t>(r) * rb;
+    if constexpr (sizeof(XT) == 1) {
+      const int at = U > 0 ? 16 * pos(l >> 2, rm) + 4 * (l & 3) : 4 * l;
+      const unsigned w = *reinterpret_cast<const unsigned*>(row + at);
+      x[0] = byte_float(w, 0); x[1] = byte_float(w, 1);
+      x[2] = byte_float(w, 2); x[3] = byte_float(w, 3);
+    } else {
+      const float4 v = *reinterpret_cast<const float4*>(row + 16 * pos(l, rm));
+      x[0] = v.x; x[1] = v.y; x[2] = v.z; x[3] = v.w;
+    }
+  }
+};
+
+// The row tiles of one CTA: t_first, t_first + G, ..., T of them, each with
+// yadj and u in shared memory and nb buffers of X: 2, X_s and X_{s-1} both
+// in shared memory, alternating by step; 1, X_{s-1} (the correction's) in
+// shared memory, X_s (the partials') read from global memory after an L2
+// prefetch under the chain; 0, both read from global memory.
+template <typename XT>
+struct S1Rows {
+  int t_first, T, nb, G;
+  float *ys, *us, *dgs, *red;
+  unsigned char* xbuf;
+  size_t tile_bytes;
+
+  __device__ unsigned char* buf(int k, int parity) const {
+    return xbuf + (static_cast<size_t>(k) * nb + (nb == 2 ? parity : 0)) * tile_bytes;
+  }
+};
+
+__device__ __forceinline__ void prefetch_l2(const void* p) {
+  asm volatile("prefetch.global.L2 [%0];" ::"l"(p));
+}
+
+// Tile k of the CTA (rows r0 .. r0 + nr) of local block sb: in global memory.
+template <typename XT>
+__device__ __forceinline__ const unsigned char* s1_global(const Sweep1Args<XT>& a, int sb,
+                                                          int r0) {
+  return reinterpret_cast<const unsigned char*>(
+      a.X + (static_cast<size_t>(a.off + sb) * a.n + r0) * a.B);
+}
+
+// After step s (s = -1 before the first): the X tiles the next step reads
+// start on their way under the chain.  nb 2: X_{s+1} into the free buffer;
+// nb 1: X_s into the buffer (the next correction's) and X_{s+1} into L2;
+// nb 0: X_{s+1} into L2.  Copies into shared memory go by cp.async (16
+// bytes to the rotated place, or 4 bytes as stored), one commit group.
+template <typename XT>
+__device__ __forceinline__ void s1_stage(const Sweep1Args<XT>& a, const S1Rows<XT>& w, int s) {
+  const int rb = a.B * static_cast<int>(sizeof(XT));
+  const int U = rb % 16 == 0 ? rb / 16 : 0;
+  const int into = w.nb == 2 ? s + 1 : s;   // the block copied into shared memory
+  const bool copy = w.nb >= 1 && into >= 0 && into < a.nbg;
+  const bool l2 = w.nb <= 1 && s + 1 < a.nbg;
+  for (int k = 0; k < w.T; ++k) {
+    const int r0 = (w.t_first + k * w.G) * a.rpt;
+    const int nr = min(a.rpt, a.n - r0);
+    if (copy) {
+      const unsigned char* src = s1_global(a, into, r0);
+      unsigned char* dst = w.buf(k, into & 1);
+      if (U > 0) {
+        for (int e = threadIdx.x; e < nr * U; e += kS1Threads) {
+          const int r = e / U, u = e - r * U;
+          const int p = u + r % U;
+          cp_async16(dst + r * rb + 16 * (p >= U ? p - U : p), src + r * rb + 16 * u);
+        }
+      } else {
+        for (int e = 4 * threadIdx.x; e < nr * rb; e += 4 * kS1Threads) cp_async4(dst + e, src + e);
+      }
+    }
+    if (l2) {
+      const unsigned char* src = s1_global(a, s + 1, r0);
+      for (int e = 128 * threadIdx.x; e < nr * rb; e += 128 * kS1Threads) prefetch_l2(src + e);
+    }
+  }
+  cp_async_commit();
+}
+
+// The warp-per-row design's shuffle tree over a row's 32 column-group
+// products p(l), as one thread evaluates it: T(l, 16) = p(l) + p(l + 16),
+// T(l, o) = T(l, 2o) + T(l + o, 2o), the row's correction T(0, 1).  Each
+// leaf is formed where it is needed, so no array of 32 stays live.
+template <int L, int O, typename F>
+__device__ __forceinline__ float s1_tree(const F& p) {
+  if constexpr (O == kWarp / 2) {
+    const float a = p(L);
+    return a + p(L + O);
+  } else {
+    const float a = s1_tree<L, 2 * O>(p);
+    return a + s1_tree<L + O, 2 * O>(p);
+  }
+}
+
+// yadj += X dg, u -= X dg on a tile's rows, two threads a row: the row's
+// column groups' products x0 d0 + x1 d1 + x2 d2 + x3 d3 (0 past B), the
+// even groups' half of the shuffle tree of the warp-per-row design
+// (s1_tree) in one thread and the odd groups' in its neighbour, then their
+// sum: the same sums in the same order.  dgs holds dg in shared memory.
+template <typename XT>
+__device__ __forceinline__ void s1_correct(const S1Tile<XT>& X, float* yk, float* uk, int nr,
+                                           int B, const float* dgs) {
+  const int ng = B / 4;
+  const int h = threadIdx.x & 1;
+  for (int r0 = 0; r0 < nr; r0 += kS1Threads / 2) {   // uniform across the warp
+    const int r = r0 + threadIdx.x / 2;
+    const int rc = r < nr ? r : nr - 1;
+    const int rm = X.rot ? rc % X.U : 0;
+    const auto p = [&](int l) {   // branch-free: column group l + h of the row
+      const int lh = l + h;
+      const int lg = lh < ng ? lh : 0;
+      float x[4];
+      X.group(rc, rm, lg, x);
+      const float4 d = *reinterpret_cast<const float4*>(dgs + 4 * lg);
+      const float v = x[0] * d.x + x[1] * d.y + x[2] * d.z + x[3] * d.w;
+      return lh < ng ? v : 0.f;
+    };
+    const float half = s1_tree<0, 2>(p);   // T(h, 2)
+    const float delta = half + __shfl_down_sync(0xffffffffu, half, 1);
+    if (h == 0 && r < nr) {
+      yk[r] = yk[r] + delta;
+      uk[r] = uk[r] - delta;
+    }
+  }
+}
+
+// The tile's partials X' yadj by row class: warp w takes the classes
+// w, w + 8, w + 16, w + 24, lane l the column group l; acc[k][q] sums
+// X[r, 4l + q] yadj[r] over class w + 8k's rows in order.  Each class's
+// row rotation steps along with its rows (the last group's rows past the
+// tile read row nr - 1 and add nothing).
+template <typename XT>
+__device__ __forceinline__ void s1_partials(const S1Tile<XT>& X, const float* yk, int nr, int B,
+                                            float acc[kS1PerWarp][4]) {
+  const int warp = threadIdx.x / kWarp;
+  const int lane = threadIdx.x % kWarp;
+  if (4 * lane >= B) return;
+  const int step = X.rot ? kS1Classes % X.U : 0;
+  int rm[kS1PerWarp];
+#pragma unroll
+  for (int k = 0; k < kS1PerWarp; ++k) rm[k] = X.rot ? (warp + kS1Warps * k) % X.U : 0;
+#pragma unroll 2
+  for (int g0 = 0; g0 < nr; g0 += kS1Classes) {
+    float x[kS1PerWarp][4], y[kS1PerWarp];
+#pragma unroll
+    for (int k = 0; k < kS1PerWarp; ++k) {   // every load of the group first
+      const int r = g0 + warp + kS1Warps * k;
+      const int rc = r < nr ? r : nr - 1;
+      X.group(rc, rm[k], lane, x[k]);
+      y[k] = yk[rc];
+    }
+#pragma unroll
+    for (int k = 0; k < kS1PerWarp; ++k) {
+      if (g0 + warp + kS1Warps * k < nr) {
+#pragma unroll
+        for (int q = 0; q < 4; ++q) acc[k][q] += x[k][q] * y[k];
+      }
+      rm[k] += step;
+      if (X.rot && rm[k] >= X.U) rm[k] -= X.U;
+    }
+  }
+}
+
+// Step s of a CTA's row tiles (s = 0 .. nbg): once dg_{s-1} is published,
+// yadj += X_{s-1} dg_{s-1}, u -= X_{s-1} dg_{s-1} on its rows (s > 0); then
+// each tile's partial X_s' yadj (s < nbg), its 32 row classes added in
+// order, published by the tile's flag; then the next step's X tiles are
+// staged.  Row r of a tile is in class r mod 32, the warp of the two-launch
+// design this replaced that summed it, so every sum is that design's.  All
+// threads of the CTA call it.
+template <typename XT>
+__device__ __forceinline__ void s1_rows_step(const Sweep1Args<XT>& a, const S1Rows<XT>& w, int s,
+                             long long* st) {
+  const int B = a.B;
+  const int warp = threadIdx.x / kWarp;
+  const int lane = threadIdx.x % kWarp;
+  const int c0 = 4 * lane;
+  const int rb = B * static_cast<int>(sizeof(XT));
+  const int U = rb % 16 == 0 ? rb / 16 : 0;
+  if (st != nullptr && threadIdx.x == 0) st[s * kStamps + 8] = global_ns();
+  if (s > 0 && threadIdx.x == 0) spin_acquire(a.flags, a.epoch + s);   // dg_{s-1} published
+  cp_async_wait<0>();
+  __syncthreads();   // dg_{s-1} visible; this step's X tiles landed
+  if (st != nullptr && threadIdx.x == 0) st[s * kStamps + 9] = global_ns();
+  if (s > 0) {
+    for (int i = threadIdx.x; i < B; i += kS1Threads)
+      w.dgs[i] = __ldcg(a.dg_out + static_cast<long long>(s - 1) * B + i);
+    __syncthreads();
+    for (int k = 0; k < w.T; ++k) {
+      const int r0 = (w.t_first + k * w.G) * a.rpt;
+      const S1Tile<XT> Xp = w.nb >= 1 ? S1Tile<XT>{w.buf(k, (s - 1) & 1), rb, U, U > 0}
+                                      : S1Tile<XT>{s1_global(a, s - 1, r0), rb, U, false};
+      s1_correct(Xp, w.ys + k * a.rpt, w.us + k * a.rpt, min(a.rpt, a.n - r0), B, w.dgs);
+    }
+    __syncthreads();   // yadj of every row updated
+  }
+  if (st != nullptr && threadIdx.x == 0) st[s * kStamps + 11] = global_ns();
+  if (s < a.nbg) {
+    for (int k = 0; k < w.T; ++k) {
+      const int t = w.t_first + k * w.G;
+      const int r0 = t * a.rpt;
+      const S1Tile<XT> Xc = w.nb == 2 ? S1Tile<XT>{w.buf(k, s & 1), rb, U, U > 0}
+                                      : S1Tile<XT>{s1_global(a, s, r0), rb, U, false};
+      float acc[kS1PerWarp][4];
+#pragma unroll
+      for (int v = 0; v < kS1PerWarp; ++v)
+#pragma unroll
+        for (int q = 0; q < 4; ++q) acc[v][q] = 0.f;
+      s1_partials(Xc, w.ys + k * a.rpt, min(a.rpt, a.n - r0), B, acc);
+      if (st != nullptr && threadIdx.x == 0 && k == 0) st[s * kStamps + 12] = global_ns();
+      if (c0 < B) {
+#pragma unroll
+        for (int v = 0; v < kS1PerWarp; ++v)
+#pragma unroll
+          for (int q = 0; q < 4; ++q) w.red[(warp + kS1Warps * v) * B + c0 + q] = acc[v][q];
+      }
+      __syncthreads();
+      for (int c = threadIdx.x; c < B; c += kS1Threads) {
+        float sum = 0.f;
+#pragma unroll 8
+        for (int r = 0; r < kS1Classes; ++r) sum += w.red[r * B + c];
+        a.partial[static_cast<long long>(t) * B + c] = sum;
+      }
+      __syncthreads();   // the partial written; red free again
+      if (st != nullptr && threadIdx.x == 0 && k == 0) st[s * kStamps + 13] = global_ns();
+      if (threadIdx.x == 0) publish(a.flags + 1 + t, a.epoch + s + 1);
+    }
+  }
+  __syncthreads();   // every X buffer of this step read
+  if (st != nullptr && threadIdx.x == 0) st[s * kStamps + 10] = global_ns();
+  s1_stage(a, w, s);
+}
+
+// grid G <= the CTAs the card holds at once (every CTA resident, so the
+// flag waits cannot deadlock; one CTA an SM, so the registers are not held
+// to what two would leave), kS1Threads threads, dynamic shared memory
+// the larger s1_layout of CTA 0 and of the others.  CTA c owns the row
+// tiles t = c - 1 (mod G); CTA 0 draws.
+template <typename XT, int MI, int NF>
+__global__ void __launch_bounds__(kS1Threads, 1) sweep1_kernel(Sweep1Args<XT> a) {
+  constexpr int R = packed_rows(MI, NF);
+  constexpr int RP = padded_stride(R);
+  extern __shared__ __align__(16) unsigned char s1_smem[];
+  const int B = a.B;
+  const int G = gridDim.x;
+  const bool drawer = blockIdx.x == 0;
+  const int warp = threadIdx.x / kWarp;
+  const int lane = threadIdx.x % kWarp;
+  S1Rows<XT> w;
+  w.G = G;
+  w.t_first = (blockIdx.x + G - 1) % G;
+  w.T = w.t_first < a.ntiles ? (a.ntiles - 1 - w.t_first) / G + 1 : 0;
+  w.nb = drawer ? a.nb0 : a.nbr;
+  const S1Layout L = s1_layout(B, RP, a.rpt, sizeof(XT), w.T, w.nb, drawer, a.wb);
+  w.ys = reinterpret_cast<float*>(s1_smem + L.draw_bytes);
+  w.us = w.ys + L.yu_floats;
+  w.dgs = w.us + L.yu_floats;
+  w.red = w.dgs + B;
+  w.xbuf = reinterpret_cast<unsigned char*>(w.red + kS1Classes * B);
+  w.tile_bytes = L.tile_bytes;
+  long long* st_rows = blockIdx.x == 1 || G == 1 ? a.stamps : nullptr;
+
+  // the drawer's buffers
+  uint64_t* bar = reinterpret_cast<uint64_t*>(s1_smem);
+  float* Wb = reinterpret_cast<float*>(s1_smem) + kS1BarFloats;   // + buf B B
+  float* Pb = Wb + a.wb * B * B;                                  // + buf B RP
+  float* red8 = Pb + 2 * B * RP;
+  const unsigned w_bytes = static_cast<unsigned>(sizeof(float)) * B * B;
+  // W_sb into buffer sb mod wb, its arrival counted on that buffer's mbarrier
+  auto stage_w = [&](int sb) {   // one thread
+    fence_async();   // the buffer was last read by generic loads
+    const int q = sb % a.wb;
+    mbar_expect(bar + q, w_bytes);
+    bulk_copy(Wb + q * B * B, a.W + static_cast<size_t>(a.off + sb) * B * B, w_bytes, bar + q);
+  };
+  auto stage_p = [&](int sb, int t0, int nt) {   // packed rows at padded_stride
+    float* dst = Pb + (sb & 1) * B * RP;
+    const float* src = a.P + static_cast<size_t>(sb) * B * R;
+    for (int e = t0; e < B * R; e += nt) {
+      const int j = e / R;
+      cp_async4(dst + j * RP + e - j * R, src + e);
+    }
+    cp_async_commit();
+  };
+
+  if (drawer) {
+    if (threadIdx.x == 0) {
+      mbar_init(bar);
+      mbar_init(bar + 1);
+      stage_w(0);
+    }
+    stage_p(0, threadIdx.x, kS1Threads);
+  }
+  for (int i = threadIdx.x; i < w.T * a.rpt; i += kS1Threads) {
+    const int row = (w.t_first + (i / a.rpt) * G) * a.rpt + i % a.rpt;
+    if (row < a.n) {
+      w.ys[i] = a.yadj[row];
+      w.us[i] = a.u[row];
+    }
+  }
+  if (w.T > 0) s1_stage(a, w, -1);   // X_0's tiles on their way
+  // (s1_rows_step waits for the copies and synchronises first)
+  if (w.T > 0) s1_rows_step(a, w, 0, st_rows);
+  else {
+    cp_async_wait<0>();
+    __syncthreads();
+  }
+  if (drawer) {
+    long long* st = a.stamps != nullptr && threadIdx.x == 0 ? a.stamps : nullptr;
+    const int c0 = 4 * lane;
+    for (int s = 0; s < a.nbg; ++s) {
+      long long* sb = st != nullptr ? st + s * kStamps : nullptr;
+      stamp(sb, 0);
+      // block s's partials, warp w the tiles w, w + 8, ... in order; lane l
+      // waits for the flag of the warp's (l + 1)-th tile
+      float4 acc = make_float4(0.f, 0.f, 0.f, 0.f);
+      for (int t0 = warp; t0 < a.ntiles; t0 += kS1Warps * kWarp) {
+        const int t = t0 + kS1Warps * lane;
+        if (t < a.ntiles) spin_acquire(a.flags + 1 + t, a.epoch + s + 1);
+        __syncwarp();   // every tile this warp sums is published
+        if (t0 == 0) stamp(sb, 5);
+        const int tend = min(a.ntiles, t0 + kS1Warps * kWarp);
+        if (c0 < B) {
+          // sixteen tiles' loads in flight at a time, added in tile order
+          for (int tb = t0; tb < tend; tb += 16 * kS1Warps) {
+            float4 x[16];
+#pragma unroll
+            for (int i = 0; i < 16; ++i) {
+              const int tt = tb + i * kS1Warps;
+              if (tt < tend)
+                x[i] = __ldcg(reinterpret_cast<const float4*>(
+                    a.partial + static_cast<long long>(tt) * B + c0));
+            }
+#pragma unroll
+            for (int i = 0; i < 16; ++i) {
+              if (tb + i * kS1Warps < tend) {
+                acc.x += x[i].x; acc.y += x[i].y; acc.z += x[i].z; acc.w += x[i].w;
+              }
+            }
+          }
+        }
+      }
+      if (c0 < B) *reinterpret_cast<float4*>(red8 + warp * B + c0) = acc;
+      __syncthreads();
+      stamp(sb, 1);
+      if (warp == 0) {
+        float r[kSlots], gi[kSlots], dg[kSlots], tr[kSlots];
+#pragma unroll
+        for (int q = 0; q < kSlots; ++q) {
+          const int i = kSlots * lane + q;
+          float sum = 0.f;
+          if (i < B)
+            for (int v = 0; v < kS1Warps; ++v) sum += red8[v * B + i];
+          r[q] = sum;
+          gi[q] = dg[q] = tr[q] = 0.f;
+        }
+        mbar_wait(bar + s % a.wb, (s / a.wb) & 1);   // W_s has landed
+        stamp(sb, 2);
+        warp_block_draws<MI, NF>(B, Wb + (s % a.wb) * B * B, Pb + (s & 1) * B * RP, r, gi, dg,
+                                 tr);
+        stamp(sb, 6);
+        const long long lb = static_cast<long long>(s) * B;
+#pragma unroll
+        for (int q = 0; q < kSlots; ++q) {
+          const int j = kSlots * lane + q;
+          if (j < B) {
+            a.g_out[lb + j] = gi[q];
+            a.dg_out[lb + j] = dg[q];
+            a.tr_out[lb + j] = tr[q];
+          }
+        }
+        __syncwarp();
+        if (lane == 0) publish(a.flags, a.epoch + s + 1);
+        stamp(sb, 3);
+      } else if (s + 1 < a.nbg) {
+        // under the chain: W_{s+1} by the copy engine, P_{s+1} by cp.async
+        if (threadIdx.x == kWarp && a.wb == 2) stage_w(s + 1);
+        stage_p(s + 1, threadIdx.x - kWarp, kS1Threads - kWarp);
+        cp_async_wait<0>();
+      }
+      __syncthreads();   // dg_s published; P_{s+1} staged
+      if (a.wb == 1 && s + 1 < a.nbg && threadIdx.x == kWarp) stage_w(s + 1);
+      if (w.T > 0) s1_rows_step(a, w, s + 1, nullptr);
+      stamp(sb, 4);
+    }
+  } else {
+    for (int s = 1; s <= a.nbg; ++s) s1_rows_step(a, w, s, st_rows);
+  }
+  __syncthreads();
+  for (int i = threadIdx.x; i < w.T * a.rpt; i += kS1Threads) {
+    const int row = (w.t_first + (i / a.rpt) * G) * a.rpt + i % a.rpt;
+    if (row < a.n) {
+      a.yadj[row] = w.ys[i];
+      a.u[row] = w.us[i];
+    }
+  }
+}
+
+// ---------------------------------------------------------------------------
+// rows_mc_kernel
+// ---------------------------------------------------------------------------
+
+// Chunks of X a rows_mc_kernel CTA keeps in flight: int8 chunks are small.
+template <typename XT>
+__host__ __device__ constexpr int mc_stages() { return sizeof(XT) == 1 ? 3 : 2; }
 
 __device__ __forceinline__ void smem4(const int8_t* p, float v[4]) {
   const unsigned w = *reinterpret_cast<const unsigned*>(p);
@@ -526,8 +946,9 @@ rows_mc_kernel(const XT* __restrict__ Xprev, const float* __restrict__ dgprev,
 // draws_kernel
 // ---------------------------------------------------------------------------
 
+// R packed rows a SNP, staged at padded_stride(R).
 inline size_t draws_smem(int B, int R) {
-  return sizeof(float) * (static_cast<size_t>(B) * B + static_cast<size_t>(B) * R +
+  return sizeof(float) * (static_cast<size_t>(B) * B + static_cast<size_t>(B) * padded_stride(R) +
                           static_cast<size_t>(kDrawWarps) * B);
 }
 
@@ -535,7 +956,8 @@ inline size_t draws_smem(int B, int R) {
 // draws_smem(B, R).  partial (ntiles, K, B) holds X_b' yadj in row-tile
 // pieces: warp w sums the chain's tiles w, w + 8, ... (lane l columns
 // 4l .. 4l+3) and warp 0 adds the eight sums in warp order, a fixed order.
-// P (B, R, K) holds the packed rows of this block; W (B, B) its Gram.
+// P (B, R, K) holds the packed rows of this block (staged at
+// padded_stride(R) floats a SNP); W (B, B) its Gram.
 // Outputs (any may be null) go to out[j * sj + k * sk].  W and P are loaded
 // before the wait for the launch before (none of the sweep writes them).
 template <int MI, int NF>
@@ -545,11 +967,12 @@ draws_kernel(const float* __restrict__ partial, int ntiles,
              int K, float* gi_out, float* dg_out, float* tr_out, long long sj,
              long long sk, long long* stamps) {
   constexpr int R = packed_rows(MI, NF);
-  extern __shared__ float smem[];
+  constexpr int RP = padded_stride(R);
+  extern __shared__ __align__(16) float smem[];
   const int k = blockIdx.x;
-  float* Ws = smem;        // B * B
-  float* Ps = Ws + B * B;  // B * R
-  float* red = Ps + B * R; // kDrawWarps * B
+  float* Ws = smem;         // B * B
+  float* Ps = Ws + B * B;   // B * RP
+  float* red = Ps + B * RP; // kDrawWarps * B
   const int warp = threadIdx.x / kWarp;
   const int lane = threadIdx.x % kWarp;
   long long* st = k == 0 && threadIdx.x == 0 ? stamps : nullptr;
@@ -563,8 +986,10 @@ draws_kernel(const float* __restrict__ partial, int ntiles,
   } else {
     for (int i = threadIdx.x; i < B * B; i += blockDim.x) Ws[i] = W[i];
   }
-  for (int i = threadIdx.x; i < B * R; i += blockDim.x)
-    Ps[i] = P[static_cast<long long>(i) * K + k];
+  for (int i = threadIdx.x; i < B * R; i += blockDim.x) {
+    const int j = i / R;
+    Ps[j * RP + i - j * R] = P[static_cast<long long>(i) * K + k];
+  }
   stamp(st, 4);
   wait_previous();   // the partials of this block are visible
   release_next();
@@ -586,7 +1011,7 @@ draws_kernel(const float* __restrict__ partial, int ntiles,
   float r[kSlots], gi[kSlots], dg[kSlots], tr[kSlots];
 #pragma unroll
   for (int s = 0; s < kSlots; ++s) {
-    const int i = lane + kWarp * s;
+    const int i = kSlots * lane + s;
     float acc = 0.f;
     if (i < B)
       for (int w = 0; w < kDrawWarps; ++w) acc += red[w * B + i];
@@ -597,7 +1022,7 @@ draws_kernel(const float* __restrict__ partial, int ntiles,
   warp_block_draws<MI, NF>(B, Ws, Ps, r, gi, dg, tr);
 #pragma unroll
   for (int s = 0; s < kSlots; ++s) {
-    const int j = lane + kWarp * s;
+    const int j = kSlots * lane + s;
     if (j >= B) continue;
     const long long o = j * sj + k * sk;
     if (gi_out != nullptr) gi_out[o] = gi[s];
@@ -703,56 +1128,101 @@ RowsFn<XT> rows_mc_instance(int tk, int tr, int rb, int tc) {
   }
 }
 
+// Tiles of CTA c of a grid of G (the row tiles t = c - 1 mod G).
+inline int s1_tiles(int c, int G, int ntiles) {
+  const int t = (c + G - 1) % G;
+  return t < ntiles ? (ntiles - 1 - t) / G + 1 : 0;
+}
+
+template <typename XT, int MI, int NF>
+cudaError_t sweep1_launch(const Sweep1Args<XT>& a, int grid, cudaStream_t stream) {
+  constexpr int RP = padded_stride(packed_rows(MI, NF));
+  int dev = 0, sms = 0, optin = 0, per_sm = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e == cudaSuccess) e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (e == cudaSuccess)
+    e = cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
+  if (e != cudaSuccess) return e;
+  const int xb = static_cast<int>(sizeof(XT));
+  const size_t s0 =
+      s1_layout(a.B, RP, a.rpt, xb, s1_tiles(0, grid, a.ntiles), a.nb0, true, a.wb).total;
+  const size_t s1 = grid > 1 ? s1_layout(a.B, RP, a.rpt, xb, s1_tiles(1, grid, a.ntiles),
+                                         a.nbr, false, a.wb).total
+                             : 0;
+  const size_t smem = s0 > s1 ? s0 : s1;
+  if (smem > static_cast<size_t>(optin)) return cudaErrorInvalidValue;
+  e = set_smem<sweep1_kernel<XT, MI, NF>>(smem);
+  if (e == cudaSuccess)
+    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, sweep1_kernel<XT, MI, NF>,
+                                                      kS1Threads, smem);
+  if (e != cudaSuccess) return e;
+  if (static_cast<long long>(per_sm) * sms < grid) return cudaErrorCooperativeLaunchTooLarge;
+  sweep1_kernel<XT, MI, NF><<<grid, kS1Threads, smem, stream>>>(a);
+  e = cudaGetLastError();
+  if (e == cudaSuccess) ++g_sweep1_launches;
+  return e;
+}
+
 template <typename XT>
-cudaError_t sweep(const XT* X, const float* W, const float* P, int off,
-                  int nbg, int n, int rows_per_tile, const int shape[4], int B,
-                  int R, int K, int mi, int nf, float* yadj, float* u, float* g_out,
-                  float* dg_out, float* tr_out, float* partial, long long* stamps,
-                  cudaStream_t stream) {
+cudaError_t sweep1(const Sweep1Args<XT>& a, int grid, int mi, int nf, cudaStream_t s) {
+  switch (mi) {
+    case 1: return sweep1_launch<XT, 1, 2>(a, grid, s);
+    case 2: return sweep1_launch<XT, 2, 2>(a, grid, s);
+    case 3: return sweep1_launch<XT, 3, 2>(a, grid, s);
+    case 4: return sweep1_launch<XT, 4, 2>(a, grid, s);
+    case 5: return sweep1_launch<XT, 5, 2>(a, grid, s);
+    default: break;
+  }
+  switch (nf) {
+    case 2: return sweep1_launch<XT, 6, 2>(a, grid, s);
+    case 3: return sweep1_launch<XT, 6, 3>(a, grid, s);
+    case 4: return sweep1_launch<XT, 6, 4>(a, grid, s);
+    case 5: return sweep1_launch<XT, 6, 5>(a, grid, s);
+    case 6: return sweep1_launch<XT, 6, 6>(a, grid, s);
+    case 7: return sweep1_launch<XT, 6, 7>(a, grid, s);
+    case 8: return sweep1_launch<XT, 6, 8>(a, grid, s);
+    default: return cudaErrorInvalidValue;
+  }
+}
+
+// The K >= 2 sweep: per block a rows_mc_kernel launch and a draws_kernel
+// launch (one CTA per chain), overlapped, then a last rows launch.
+template <typename XT>
+cudaError_t sweep_mc_launches(const XT* X, const float* W, const float* P, int off,
+                              int nbg, int n, int rows_per_tile, const int shape[4], int B,
+                              int R, int K, int mi, int nf, float* yadj, float* u,
+                              float* g_out, float* dg_out, float* tr_out, float* partial,
+                              long long* stamps, cudaStream_t stream) {
   const int ntiles = (n + rows_per_tile - 1) / rows_per_tile;
   const size_t xblk = static_cast<size_t>(n) * B;
   const long long m_loc = static_cast<long long>(nbg) * B;
-  // K = 1: the single-chain rows kernel; K >= 2: the K-chain one, which
-  // reads each X tile once for all chains.  One kernel for every batch size
-  // keeps chain k's sums the same whatever K.
-  const bool mc = K > 1;
-  const dim3 rows_grid(ntiles, mc ? (K + kMcChains - 1) / kMcChains : 1);
+  // one kernel for every batch size keeps chain k's sums the same whatever K
+  const dim3 rows_grid(ntiles, (K + kMcChains - 1) / kMcChains);
   const int kc = K < kMcChains ? K : kMcChains;
-  RowsFn<XT> rows_mc = mc ? rows_mc_instance<XT>(shape[0], shape[1], shape[2], shape[3])
-                          : nullptr;
-  if (mc && rows_mc == nullptr) return cudaErrorInvalidValue;
+  RowsFn<XT> rows_mc = rows_mc_instance<XT>(shape[0], shape[1], shape[2], shape[3]);
+  if (rows_mc == nullptr) return cudaErrorInvalidValue;
   const int chunk_rows = kWarp * shape[1] * shape[2];
-  const size_t mc_smem =
-      mc ? rows_mc_smem(B, kc, chunk_rows, mc_stages<XT>(), sizeof(XT)) : 0;
-  if (mc) {
-    const cudaError_t e = cudaFuncSetAttribute(
-        rows_mc, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(mc_smem));
-    if (e != cudaSuccess) return e;
-  }
+  const size_t mc_smem = rows_mc_smem(B, kc, chunk_rows, mc_stages<XT>(), sizeof(XT));
+  cudaError_t e = cudaFuncSetAttribute(rows_mc, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                       static_cast<int>(mc_smem));
+  if (e != cudaSuccess) return e;
   for (int b = 0; b <= nbg; ++b) {
     const XT* Xp = b > 0 ? X + static_cast<size_t>(off + b - 1) * xblk : nullptr;
     const XT* Xc = b < nbg ? X + static_cast<size_t>(off + b) * xblk : nullptr;
     const float* dgp = b > 0 ? dg_out + static_cast<long long>(b - 1) * B : nullptr;
     float* part = Xc != nullptr ? partial : nullptr;
     long long* sb = stamps != nullptr ? stamps + static_cast<long long>(b) * kStamps : nullptr;
-    // the first launch of the sweep is ordinary: it follows pack_rows.  At
-    // K = 1 every launch is: a rows CTA takes all of an SM's registers, so
-    // no draws CTA could start beside it, and overlapped launches measured
-    // slower there (PERF.md)
-    const bool overlap = mc && b > 0;
-    cudaError_t e =
-        mc ? launch(overlap, rows_mc, rows_grid, kMcThreads, mc_smem, stream, Xp, dgp, m_loc,
-                    Xc, n, B, rows_per_tile, K, yadj, u, part, sb)
-           : launch(false, rows_kernel<XT>, rows_grid, kRowThreads, 0, stream, Xp, dgp,
-                    m_loc, Xc, n, B, rows_per_tile, yadj, u, part, sb);
-    if (e == cudaSuccess) ++(mc ? g_rows_mc_launches : g_rows_launches);
+    // the first launch of the sweep is ordinary: it follows pack_rows
+    e = launch(b > 0, rows_mc, rows_grid, kMcThreads, mc_smem, stream, Xp, dgp, m_loc, Xc, n,
+               B, rows_per_tile, K, yadj, u, part, sb);
+    if (e == cudaSuccess) ++g_rows_mc_launches;
     if (e != cudaSuccess || b == nbg) return e;
     const long long lb = static_cast<long long>(b) * B;
     const DrawArgs a{partial, ntiles,
                      W + static_cast<size_t>(off + b) * B * B,
                      P + static_cast<size_t>(b) * B * R * K, B, R, K,
                      g_out + lb, dg_out + lb, tr_out + lb, 1, m_loc, sb};
-    e = launch_draws(a, mi, nf, mc, stream);
+    e = launch_draws(a, mi, nf, true, stream);
     if (e != cudaSuccess) return e;
   }
   return cudaSuccess;
@@ -766,16 +1236,16 @@ const char* hb_error_string(int code) {
   return cudaGetErrorString(static_cast<cudaError_t>(code));
 }
 
-// Launches of rows_kernel, rows_mc_kernel and draws_kernel since the last
-// reset.
-void hb_launch_counts(long long* rows, long long* rows_mc, long long* draws) {
-  *rows = hb::g_rows_launches;
+// Launches of sweep1_kernel, rows_mc_kernel and draws_kernel since the
+// last reset.
+void hb_launch_counts(long long* sweep1, long long* rows_mc, long long* draws) {
+  *sweep1 = hb::g_sweep1_launches;
   *rows_mc = hb::g_rows_mc_launches;
   *draws = hb::g_draws_launches;
 }
 
 void hb_reset_launch_counts() {
-  hb::g_rows_launches = hb::g_rows_mc_launches = hb::g_draws_launches = 0;
+  hb::g_sweep1_launches = hb::g_rows_mc_launches = hb::g_draws_launches = 0;
 }
 
 // One block of B sequential draws for K chains.
@@ -792,27 +1262,50 @@ int hb_block_draws(const float* r0t, const float* W, const float* P, int B,
 // Fused K-chain sweep over blocks [off, off + nbg) of X (nb_tot, n, B) and
 // W (nb_tot, B, B).  P (nbg, B, R, K) packed rows; yadj, u (K, n) updated in
 // place; g_out, dg_out, track (K, nbg * B) outputs; partial is scratch of
-// ceil(n / rows_per_tile) * K * B floats.  At K >= 2, (tk, tr, rb, tc) is
-// rows_mc_kernel's register-tile shape (rows_mc_instance).  stamps
-// (measurement only; null in use): nbg + 1 records of hb::kStamps
-// %globaltimer values.
+// ceil(n / rows_per_tile) * K * B floats.
+// K = 1: one sweep1_kernel launch of `grid` CTAs; nb0 and nbr are the X
+// tile buffers of the drawer's and the other CTAs' tiles, wb the drawer's
+// buffers of W (ops/blockgibbs.py:sweep1_plan), flags (1 + ceil(n / rows_per_tile)
+// unsigned, 16-byte aligned) the launch's flags, whose values this sweep
+// takes from epoch + 1 to epoch + nbg.
+// K >= 2: (tk, tr, rb, tc) is rows_mc_kernel's register-tile shape
+// (rows_mc_instance).
+// stamps (measurement only; null in use): nbg + 1 records of hb::kStamps.
 int hb_sweep_mc(const void* X, int x_int8, const float* W, const float* P,
                 int off, int nbg, int n, int rows_per_tile, int tk, int tr,
                 int rb, int tc, int B, int R, int K, int mi, int nf, float* yadj,
                 float* u, float* g_out, float* dg_out, float* track, float* partial,
+                unsigned* flags, unsigned epoch, int grid, int nb0, int nbr, int wb,
                 long long* stamps, void* stream) {
   if (!hb::shapes_ok(B, R, K, mi, nf) || n <= 0 || rows_per_tile <= 0 ||
       off < 0 || nbg < 0)
     return cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int shape[4] = {tk, tr, rb, tc};
+  if (K == 1) {
+    if (grid < 1 || flags == nullptr || nb0 < 0 || nb0 > 2 || nbr < 0 || nbr > 2 || wb < 1 ||
+        wb > 2)
+      return cudaErrorInvalidValue;
+    if (nbg == 0) return cudaSuccess;   // nothing to sweep
+    const int ntiles = (n + rows_per_tile - 1) / rows_per_tile;
+    if (x_int8) {
+      const hb::Sweep1Args<int8_t> a{static_cast<const int8_t*>(X), W, P, off, nbg, n, B,
+                                     rows_per_tile, ntiles, yadj, u, g_out, dg_out, track,
+                                     partial, flags, epoch, nb0, nbr, wb, stamps};
+      return hb::sweep1(a, grid, mi, nf, s);
+    }
+    const hb::Sweep1Args<float> a{static_cast<const float*>(X), W, P, off, nbg, n, B,
+                                  rows_per_tile, ntiles, yadj, u, g_out, dg_out, track,
+                                  partial, flags, epoch, nb0, nbr, wb, stamps};
+    return hb::sweep1(a, grid, mi, nf, s);
+  }
   if (x_int8)
-    return hb::sweep(static_cast<const int8_t*>(X), W, P, off, nbg, n,
-                     rows_per_tile, shape, B, R, K, mi, nf, yadj, u, g_out, dg_out,
-                     track, partial, stamps, s);
-  return hb::sweep(static_cast<const float*>(X), W, P, off, nbg, n,
-                   rows_per_tile, shape, B, R, K, mi, nf, yadj, u, g_out, dg_out,
-                   track, partial, stamps, s);
+    return hb::sweep_mc_launches(static_cast<const int8_t*>(X), W, P, off, nbg, n,
+                                 rows_per_tile, shape, B, R, K, mi, nf, yadj, u, g_out,
+                                 dg_out, track, partial, stamps, s);
+  return hb::sweep_mc_launches(static_cast<const float*>(X), W, P, off, nbg, n,
+                               rows_per_tile, shape, B, R, K, mi, nf, yadj, u, g_out,
+                               dg_out, track, partial, stamps, s);
 }
 
 }  // extern "C"

@@ -9,13 +9,23 @@
 // What bounds it on the card: latency.  The B draws of a block form one
 // dependent chain (draw j reads every earlier draw's correction through the
 // Gram block), so no amount of parallel hardware shortens it.  The design
-// keeps the chain inside one warp: lane l holds r_local[l + 32 s] in
-// registers, draw j takes its rhs with one shuffle from the owning lane,
-// every lane evaluates the draw redundantly (no broadcast needed), and the
-// correction r_local += dg_j * W_b[j, :] is one 4-wide register axpy per
-// lane reading a conflict-free shared-memory row.  No __syncthreads sits on
-// the chain.  The model and fold count are template parameters, so each
-// draw is straight-line code.
+// keeps the chain inside one warp and keeps every load off it:
+//   - lane l owns SNPs 4l .. 4l+3 (r_local in registers), so draw j's Gram
+//     row is one conflict-free 16-byte shared load a lane from the
+//     row-major block every caller stages, and the correction
+//     r_local += dg_j * W_b[j, :] one 4-wide register axpy;
+//   - every lane evaluates the draw redundantly (no broadcast needed), with
+//     draw j's rhs taken by one shuffle from lane j >> 2, slot j & 3 (a
+//     compile-time slot under the loop's 4-way unroll);
+//   - the packed rows are staged at a stride padded to 4 floats and read as
+//     float4; a register ring holds the packed row, the Gram-row slice and
+//     W[j, j-1] of the next two draws, loaded two draws ahead, so no shared
+//     load sits between two draws;
+//   - the SBayesS guard's predicate is part of the common path; its retries
+//     run out of line (a warp-uniform branch, taken rarely) and stop at the
+//     first accepted candidate.
+// No __syncthreads sits on the chain.  The model and fold count are template
+// parameters, so each draw is straight-line code.
 #pragma once
 
 #include <cuda_runtime.h>
@@ -24,7 +34,7 @@ namespace hb {
 
 constexpr int kWarp = 32;
 constexpr int kMaxBlock = 128;                 // SNPs per block (4 per lane)
-constexpr int kSlots = kMaxBlock / kWarp;
+constexpr int kSlots = kMaxBlock / kWarp;      // SNPs a lane owns: kSlots l + s
 constexpr int kMaxFold = 8;                    // BayesR folds -> R <= 31
 constexpr int kRetry = 8;                      // guard retries (N_RETRY)
 
@@ -40,10 +50,16 @@ __host__ __device__ constexpr int guard_rows(int mi, int nf) {
   return mi == 4 ? 1 + kRetry : (mi == 6 ? 1 + kRetry * (nf - 1) : 0);
 }
 
-// Rows per SNP in shared memory: the packed rows, and the guard rows with GUARD.
+// Rows per SNP: the packed rows, and the guard rows with GUARD.
 __host__ __device__ constexpr int row_stride(int mi, int nf, bool guard) {
   return packed_rows(mi, nf) + (guard ? guard_rows(mi, nf) : 0);
 }
+
+// Floats per SNP where the rows are staged in shared memory: row_stride
+// rounded up to 4, so each SNP's rows start 16-byte aligned and a draw
+// reads them as float4 (ops/blockgibbs.py:padded_stride).  The padding is
+// never read as a value.
+__host__ __device__ constexpr int padded_stride(int r) { return (r + 3) & ~3; }
 
 // One draw over the SNP's packed row p (the R values _pack_rows builds:
 // rg, g_old, then per model).  rhs = X_j' yadj_current + rg.  Returns the
@@ -89,98 +105,122 @@ __device__ __forceinline__ float draw_one(const float* p, float rhs,
   }
 }
 
-// The SBayesS rejection guard on one draw (_kernel_s_tiled :1672-1686): a
-// draw with gi^2 vx > vary and a nonzero component takes the next of the
-// kRetry pre-drawn candidates (BayesC: rhs inv_v + sd z_t; BayesR: the
-// candidate of the drawn fold) until one passes, else 0.  Every lane holds
-// the same values, so the branch is uniform across the warp.  Returns
-// whether the first draw was rejected.
+// The SBayesS rejection guard's retries (_kernel_s_tiled :1672-1686) for a
+// draw whose first candidate was rejected (gi^2 vx > vary with a nonzero
+// component): the kRetry pre-drawn candidates in turn (BayesC:
+// rhs inv_v + sd z_t; BayesR: the candidate of the drawn fold tr), the
+// first that passes, else 0.  The kernel this ports runs all kRetry and
+// keeps a candidate once one passes, so stopping there gives the same gi.
+// Out of line: the common path pays only for the predicate.  p is the
+// SNP's staged rows (the guard rows from packed_rows on).
 template <int MI, int NF>
-__device__ __forceinline__ bool guard_draw(const float* p, float rhs, float tr,
-                                           float vary, float* gi) {
+__device__ __noinline__ float guard_retry(const float* p, float rhs, float tr,
+                                          float vary, float vxj) {
   const float* pg = p + packed_rows(MI, NF);
-  const float vxj = pg[0];
-  const bool on = tr > 0.f;
-  bool rej = (*gi * *gi * vxj > vary) && on;
-  const bool first = rej;
-  if (rej) {
+#pragma unroll 1
+  for (int t = 0; t < kRetry; ++t) {
+    float cand = 0.f;
+    if constexpr (MI == 4) {
+      cand = rhs * p[2] + pg[1 + t];
+    } else {
 #pragma unroll
-    for (int t = 0; t < kRetry; ++t) {
-      float cand = 0.f;
-      if constexpr (MI == 4) {
-        cand = rhs * p[2] + pg[1 + t];
-      } else {
-#pragma unroll
-        for (int f = 1; f < NF; ++f)
-          if (tr == static_cast<float>(f))
-            cand = rhs * p[4 + 4 * (f - 1)] + pg[1 + t * (NF - 1) + (f - 1)];
-      }
-      if (rej) *gi = cand;
-      rej = (*gi * *gi * vxj > vary) && on;
+      for (int f = 1; f < NF; ++f)
+        if (tr == static_cast<float>(f))
+          cand = rhs * p[4 + 4 * (f - 1)] + pg[1 + t * (NF - 1) + (f - 1)];
     }
-    if (rej) *gi = 0.f;
+    if (!(cand * cand * vxj > vary)) return cand;
   }
-  return first;
+  return 0.f;
 }
 
 // The B sequential draws of one chain, run by one whole warp.
-//   r[s]  in: r_local[lane + 32 s] = X_b' yadj at block start
-//   Ws    (B, B) Gram block in shared memory, row-major (symmetric); with
-//         SCALE its entries are multiplied by wscale where they are read
-//         (the same float32 product as a block scaled beforehand, off the
-//         chain: the Gram row is read ahead of the draw)
-//   Ps    (B, R) packed rows of this chain in shared memory,
-//         R = row_stride(MI, NF, GUARD)
+//   r[s]  in: r_local[kSlots lane + s] = X_b' yadj at block start
+//   Ws    (B, B) Gram block in shared memory, row-major (symmetric),
+//         16-byte aligned; with SCALE its entries are multiplied by wscale
+//         where they are read (the same float32 product as a block scaled
+//         beforehand, off the chain: the Gram row is read ahead of the draw)
+//   Ps    (B, padded_stride(R)) rows of this chain in shared memory, 16-byte
+//         aligned, R = row_stride(MI, NF, GUARD)
 //   vary  the guard's bound (read only with GUARD)
-// On return lane l holds, for j = l + 32 s: gi[s], dg[s] = g_old - gi,
-// tr[s] (the mixture component).  Returns the number of draws whose first
-// candidate the guard rejected (0 without GUARD).
+// B is a multiple of 4.  On return lane l holds, for j = kSlots l + s:
+// gi[s], dg[s] = g_old - gi, tr[s] (the mixture component).  Returns the
+// number of draws whose first candidate the guard rejected (0 without
+// GUARD).
 //
 // The shuffle that fetches draw j+1's r_local runs beside draw j: it reads
 // r_local before dg_j is folded in, and draw j+1 adds dg_j * W[j+1, j]
 // itself, so the chain from one draw to the next is the draw's arithmetic
-// and one multiply-add.  Eight draws are unrolled at a time, so the
-// packed-row and Gram-row loads of the next draws, which do not depend on
-// the chain, start ahead of it.
+// and one multiply-add.  Every float operation, its operands and its order
+// are those of the lane-strided design this replaced (lane l owning
+// l + 32 s), so the outputs are bit for bit the same.
 template <int MI, int NF, bool GUARD = false, bool SCALE = false>
 __device__ __forceinline__ int warp_block_draws(
     int B, const float* Ws, const float* Ps, float r[kSlots],
     float gi_out[kSlots], float dg_out[kSlots], float tr_out[kSlots],
     float vary = 0.f, float wscale = 1.f) {
   static_assert(!GUARD || MI == 4 || MI == 6, "the guard is for BayesC and BayesR");
-  constexpr int R = row_stride(MI, NF, GUARD);
+  static_assert(kSlots == 4, "a lane owns one float4 of a Gram row");
+  constexpr int R = packed_rows(MI, NF);
+  constexpr int RP = padded_stride(row_stride(MI, NF, GUARD));
+  constexpr int NV = (R + (GUARD ? 1 : 0) + 3) / 4;   // float4s a draw reads
+  constexpr int D = 2;                                // ring depth (draws ahead)
   const int lane = threadIdx.x % kWarp;
+  const int c0 = kSlots * lane;
+  const bool owns = c0 < B;
+  float4 pv[D][NV], wv[D];
+  float wp[D];
+  // draw j's packed row, Gram-row slice and W[j, j - 1] into ring slot q
+  auto fetch = [&](int q, int j) {
+    const float4* p4 = reinterpret_cast<const float4*>(Ps + j * RP);
+#pragma unroll
+    for (int v = 0; v < NV; ++v) pv[q][v] = p4[v];
+    const float* wrow = Ws + j * B;
+    wv[q] = owns ? *reinterpret_cast<const float4*>(wrow + c0) : make_float4(0.f, 0.f, 0.f, 0.f);
+    wp[q] = wrow[j > 0 ? j - 1 : 0];
+  };
+  fetch(0, 0);
+  fetch(1, B > 1 ? 1 : 0);
   float v = __shfl_sync(0xffffffffu, r[0], 0);  // r_local[0]
   float dg_prev = 0.f;
   int nrej = 0;
+#pragma unroll 1
+  for (int j0 = 0; j0 < B; j0 += kSlots) {
 #pragma unroll
-  for (int s = 0; s < kSlots; ++s) {
-#pragma unroll 8
-    for (int jj = 0; jj < kWarp; ++jj) {
-      const int j = s * kWarp + jj;
-      if (j >= B) break;  // uniform across the warp
-      const float* p = Ps + j * R;
-      const float* wrow = Ws + j * B;
-      const float w_prev = j > 0 ? (SCALE ? wscale * wrow[j - 1] : wrow[j - 1]) : 0.f;
+    for (int jj = 0; jj < kSlots; ++jj) {
+      const int j = j0 + jj;
+      const int q = jj % D;
+      float p[4 * NV];
+#pragma unroll
+      for (int e = 0; e < NV; ++e) {
+        p[4 * e] = pv[q][e].x; p[4 * e + 1] = pv[q][e].y;
+        p[4 * e + 2] = pv[q][e].z; p[4 * e + 3] = pv[q][e].w;
+      }
+      const float4 w4 = wv[q];
+      const float w_prev = SCALE ? wscale * wp[q] : wp[q];
+      fetch(q, j + D < B ? j + D : B - 1);   // ahead of the chain
       const float rhs = (j > 0 ? v + dg_prev * w_prev : v) + p[0];
-      float v_next;
-      if (jj + 1 < kWarp)
-        v_next = __shfl_sync(0xffffffffu, r[s], jj + 1);
-      else
-        v_next = __shfl_sync(0xffffffffu, r[s + 1 < kSlots ? s + 1 : s], 0);
+      // draw j + 1's r_local, before dg_j is folded in (lane (j+1) >> 2 holds it)
+      const float v_next = __shfl_sync(0xffffffffu, r[(jj + 1) % kSlots], (j + 1) >> 2);
       float tr;
       float gi = draw_one<MI, NF>(p, rhs, &tr);
-      if constexpr (GUARD) nrej += guard_draw<MI, NF>(p, rhs, tr, vary, &gi);
-      const float dg = p[1] - gi;
-#pragma unroll
-      for (int t = 0; t < kSlots; ++t) {
-        const int i = lane + kWarp * t;
-        if (i < B) r[t] += dg * (SCALE ? wscale * wrow[i] : wrow[i]);
+      if constexpr (GUARD) {
+        const float vxj = p[R];
+        if ((gi * gi * vxj > vary) && tr > 0.f) {   // uniform: every lane holds the same values
+          gi = guard_retry<MI, NF>(Ps + j * RP, rhs, tr, vary, vxj);
+          ++nrej;
+        }
       }
-      if (lane == jj) {
-        gi_out[s] = gi;
-        dg_out[s] = dg;
-        tr_out[s] = tr;
+      const float dg = p[1] - gi;
+      if constexpr (SCALE) {
+        r[0] += dg * (wscale * w4.x); r[1] += dg * (wscale * w4.y);
+        r[2] += dg * (wscale * w4.z); r[3] += dg * (wscale * w4.w);
+      } else {
+        r[0] += dg * w4.x; r[1] += dg * w4.y; r[2] += dg * w4.z; r[3] += dg * w4.w;
+      }
+      if (lane == (j >> 2)) {
+        gi_out[jj] = gi;
+        dg_out[jj] = dg;
+        tr_out[jj] = tr;
       }
       v = v_next;
       dg_prev = dg;

@@ -156,4 +156,18 @@ __device__ __forceinline__ void await(const unsigned* p, unsigned target) {
   __threadfence();
 }
 
+// Spin until *p has reached `target` (modulo 2^32) by acquire loads, with
+// await's 10 s trap but without its sleeps and trailing fence, for a
+// reader on the critical path: the acquire orders this thread's later
+// loads, the other threads read after a barrier with it (__syncwarp or
+// __syncthreads), and what they read after the flag is read from L2
+// (__ldcg).
+__device__ __forceinline__ void spin_acquire(const unsigned* p, unsigned target) {
+  long long t0 = 0;
+  while (static_cast<int>(load_acquire(p) - target) < 0) {
+    if (t0 == 0) t0 = global_ns();
+    else if (global_ns() - t0 > 10000000000LL) __trap();
+  }
+}
+
 }  // namespace hb

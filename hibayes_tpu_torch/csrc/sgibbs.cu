@@ -62,7 +62,7 @@
 // three barriers.
 //
 // The packed rows are read in the (R, m) layout that pack_rows returns and
-// transposed into shared memory.
+// transposed into shared memory, each SNP's rows at padded_stride (draws.cuh).
 //
 // Rounding: the TPU kernels scale inside the draw, dg * n * w (:1179,
 // :1693); here a draw adds dg * (n * w), with n * w formed once on load
@@ -100,11 +100,12 @@ s_draws_kernel(const float* __restrict__ W, long long ldw, float n,
                int K, const float* __restrict__ r, float* __restrict__ dg_out,
                float* __restrict__ tr_out) {
   constexpr int R = packed_rows(MI, NF);
-  extern __shared__ float smem[];
+  constexpr int RP = padded_stride(R);
+  extern __shared__ __align__(16) float smem[];
   const int k0 = blockIdx.x * kSChainsPerCta;
   const int kc = min(kSChainsPerCta, K - k0);
   float* Ws = smem;           // B * B
-  float* Ps = Ws + B * B;     // kc * B * R, chain-major, SNP-major within
+  float* Ps = Ws + B * B;     // kc * B * RP, chain-major, SNP-major within
   const int B4 = B / 4;
   for (int i = threadIdx.x; i < B * B4; i += blockDim.x) {
     const int a = i / B4, c = 4 * (i - a * B4);
@@ -115,7 +116,7 @@ s_draws_kernel(const float* __restrict__ W, long long ldw, float n,
   for (int i = threadIdx.x; i < kc * B * R; i += blockDim.x) {
     const int kk = i / (B * R), rest = i - kk * B * R;
     const int row = rest / B, j = rest - row * B;
-    Ps[kk * B * R + j * R + row] =
+    Ps[kk * B * RP + j * RP + row] =
         P[(static_cast<long long>(k0 + kk) * R + row) * m + col0 + j];
   }
   __syncthreads();
@@ -128,14 +129,14 @@ s_draws_kernel(const float* __restrict__ W, long long ldw, float n,
   float rr[kSlots], gi[kSlots], dg[kSlots], tr[kSlots];
 #pragma unroll
   for (int s = 0; s < kSlots; ++s) {
-    const int i = lane + kWarp * s;
+    const int i = kSlots * lane + s;
     rr[s] = i < B ? r[kb + i] : 0.f;
     gi[s] = dg[s] = tr[s] = 0.f;
   }
-  warp_block_draws<MI, NF>(B, Ws, Ps + warp * B * R, rr, gi, dg, tr);
+  warp_block_draws<MI, NF>(B, Ws, Ps + warp * B * RP, rr, gi, dg, tr);
 #pragma unroll
   for (int s = 0; s < kSlots; ++s) {
-    const int j = lane + kWarp * s;
+    const int j = kSlots * lane + s;
     if (j < B) {
       dg_out[kb + j] = dg[s];
       tr_out[kb + j] = tr[s];
@@ -198,7 +199,7 @@ inline bool block_ok(int B, int mi, int nf) {
 template <int MI, int NF>
 cudaError_t set_draw_smem(int B, int kc, size_t* smem) {
   *smem = sizeof(float) * static_cast<size_t>(B) *
-          (B + static_cast<size_t>(kc) * packed_rows(MI, NF));
+          (B + static_cast<size_t>(kc) * padded_stride(packed_rows(MI, NF)));
   return cudaFuncSetAttribute(s_draws_kernel<MI, NF>,
                               cudaFuncAttributeMaxDynamicSharedMemorySize,
                               static_cast<int>(*smem));
@@ -330,16 +331,17 @@ __device__ __forceinline__ void apply_tile(const TiledArgs& a, const float4 x[kT
   if (threadIdx.x == 0) publish(a.cnt + t, base + seq + 1);
 }
 
-// Row i's packed rows into Pd (SNP-major) by threads t0, t0 + nt, ...:
-// cp.async, one commit group.
+// Row i's packed rows into Pd (SNP-major, padded_stride(R) floats a SNP)
+// by threads t0, t0 + nt, ...: cp.async, one commit group.
 template <int R>
 __device__ __forceinline__ void stage_rows(const TiledArgs& a, int i, float* Pd, int t0,
                                            int nt) {
+  constexpr int RP = padded_stride(R);
   const int B = a.B;
   const long long m = static_cast<long long>(a.nbr) * B;
   for (int e = t0; e < B * R; e += nt) {
     const int row = e / B, j = e - row * B;
-    cp_async4(Pd + j * R + row, a.P + row * m + static_cast<long long>(i) * B + j);
+    cp_async4(Pd + j * RP + row, a.P + row * m + static_cast<long long>(i) * B + j);
   }
   cp_async_commit();
 }
@@ -351,11 +353,12 @@ constexpr int kBarFloats = 8;
 // Shared memory of the tiled sweep in floats: the mbarriers, red (8 x
 // kMaxBlock), dgs, and the drawer's r_hat of the row it draws and of the
 // next (kMaxBlock each), for every CTA; the drawer's two diagonal tiles,
-// the tile (i, i + 1) when staged, and two rows' packed rows.
+// the tile (i, i + 1) when staged, and two rows' packed rows (R rows a SNP
+// at padded_stride(R)).
 inline size_t tiled_smem(int B, int R, bool stage_next) {
   return sizeof(float) * (kBarFloats + (kTiledWarps + 3) * kMaxBlock +
                           static_cast<size_t>(B) * B * (stage_next ? 3 : 2) +
-                          2 * static_cast<size_t>(B) * R);
+                          2 * static_cast<size_t>(B) * padded_stride(R));
 }
 
 // CTA 0, the drawer, walks the tile rows in order.  For row i, warp 0 runs
@@ -374,6 +377,7 @@ inline size_t tiled_smem(int B, int R, bool stage_next) {
 template <int MI, int NF, bool GUARD>
 __device__ __forceinline__ void drawer(const TiledArgs& a, float* sm) {
   constexpr int R = row_stride(MI, NF, GUARD);
+  constexpr int RP = padded_stride(R);
   const int B = a.B;
   const unsigned tile_bytes = static_cast<unsigned>(sizeof(float)) * B * B;
   const int warp = threadIdx.x / kWarp;
@@ -388,9 +392,9 @@ __device__ __forceinline__ void drawer(const TiledArgs& a, float* sm) {
   // pointers, so their loads stay shared-memory loads
   float* Wd0 = rpre + kMaxBlock;   // + buf B * B
   float* Tn = Wd0 + 2 * B * B;
-  float* Pd0 = Tn + (a.stage_next ? B * B : 0);   // + buf B * R
+  float* Pd0 = Tn + (a.stage_next ? B * B : 0);   // + buf B * RP
   auto Wd = [&](int buf) { return Wd0 + buf * B * B; };
-  auto Pd = [&](int buf) { return Pd0 + buf * B * R; };
+  auto Pd = [&](int buf) { return Pd0 + buf * B * RP; };
   const float* tiles = a.tiles;
   auto tile = [&](int i, int k) { return tiles + (static_cast<long long>(i) * a.K + k) * B * B; };
   long long* st = a.stamps;
@@ -423,7 +427,7 @@ __device__ __forceinline__ void drawer(const TiledArgs& a, float* sm) {
       float rr[kSlots], gi[kSlots], dg[kSlots], tr[kSlots];
 #pragma unroll
       for (int s = 0; s < kSlots; ++s) {
-        const int j = lane + kWarp * s;
+        const int j = kSlots * lane + s;
         rr[s] = j < B ? rcur[j] : 0.f;
         gi[s] = dg[s] = tr[s] = 0.f;
       }
@@ -431,7 +435,7 @@ __device__ __forceinline__ void drawer(const TiledArgs& a, float* sm) {
                                                             tr, a.vary, a.n);
 #pragma unroll
       for (int s = 0; s < kSlots; ++s) {
-        const int j = lane + kWarp * s;
+        const int j = kSlots * lane + s;
         if (j < B) {
           a.dg[kb + j] = dg[s];
           a.tr[kb + j] = tr[s];
@@ -562,18 +566,22 @@ chain_kernel(const float* __restrict__ W, const float* __restrict__ P,
              const float* __restrict__ r0, int B, int reps, float vary,
              float* __restrict__ out, long long* cycles) {
   constexpr int R = row_stride(MI, NF, GUARD);
+  constexpr int RP = padded_stride(R);
   extern __shared__ __align__(16) float sm[];
   float* Ws = sm;
   float* Ps = Ws + B * B;
   for (int e = threadIdx.x; e < B * B; e += blockDim.x) Ws[e] = W[e];
-  for (int e = threadIdx.x; e < B * R; e += blockDim.x) Ps[e] = P[e];
+  for (int e = threadIdx.x; e < B * R; e += blockDim.x) {
+    const int j = e / R;
+    Ps[j * RP + e - j * R] = P[e];
+  }
   __syncthreads();
   if (threadIdx.x >= kWarp) return;
   const int lane = threadIdx.x;
   float r0v[kSlots], rr[kSlots], gi[kSlots], dg[kSlots], tr[kSlots];
 #pragma unroll
   for (int s = 0; s < kSlots; ++s) {
-    const int j = lane + kWarp * s;
+    const int j = kSlots * lane + s;
     r0v[s] = j < B ? r0[j] : 0.f;
     dg[s] = gi[s] = tr[s] = 0.f;
   }
@@ -587,7 +595,7 @@ chain_kernel(const float* __restrict__ W, const float* __restrict__ P,
   const long long t1 = clock64();
 #pragma unroll
   for (int s = 0; s < kSlots; ++s) {
-    const int j = lane + kWarp * s;
+    const int j = kSlots * lane + s;
     if (j < B) out[j] = dg[s] + static_cast<float>(rej);
   }
   if (lane == 0) *cycles = t1 - t0;
@@ -606,7 +614,7 @@ struct ChainArgs {
 template <int MI, int NF, bool GUARD>
 cudaError_t chain_run(const ChainArgs& a, cudaStream_t stream) {
   const size_t smem = sizeof(float) * static_cast<size_t>(a.B) *
-                      (a.B + row_stride(MI, NF, GUARD));
+                      (a.B + padded_stride(row_stride(MI, NF, GUARD)));
   cudaError_t e = cudaFuncSetAttribute(chain_kernel<MI, NF, GUARD>,
                                        cudaFuncAttributeMaxDynamicSharedMemorySize,
                                        static_cast<int>(smem));

@@ -945,7 +945,9 @@ def _check_ported(spec: GibbsSpec, mesh, nchains: int = 1) -> None:
         raise NotImplementedError("BSLMM is not ported yet (ROADMAP queue 1, item 9)")
     if spec.reject_guard or spec.seg_sizes:
         raise NotImplementedError(
-            "the summary-level engine is not ported yet (ROADMAP queue 1, items 10-11)")
+            "a summary-level spec (reject_guard or seg_sizes) runs on the summary "
+            "engine, engine/sgibbs.py (run_s_chain / run_s_chains), not on the "
+            "individual-level one")
     if nchains > 1 and spec.qe:
         raise NotImplementedError(
             "single-step chains in a batch are not ported yet: the epsilon sweep "

@@ -174,13 +174,20 @@ def ibrm(
     ve=None,
     dfve=None,
     s2ve=None,
+    lambda_=0.0,
     printfreq=100,
     seed=666666,
+    threads=0,
     verbose=True,
     block=64,
     dtype=torch.float32,
+    checkpoint=None,
     progress=False,
     nchains=1,
+    mesh=None,
+    shard_schedule="turn",
+    merge_rounds=1,
+    emulate_shards=0,
     device=None,
 ) -> BlrMod:
     """Fit on ``device`` (default "cuda"; the CPU only when asked for with
@@ -188,11 +195,24 @@ def ibrm(
     torch tensor on any device; integer genotypes are stored as int8.
     ``nchains > 1`` runs that many chains as one batch (``run_chains``):
     the summaries pool every chain's records and ``rhat`` holds each
-    parameter's split R-hat."""
+    parameter's split R-hat.  The keywords are the JAX package's:
+    ``threads`` (its host codec threads) is accepted and unused;
+    ``lambda_`` (BSLMM's GRM ridge), ``checkpoint`` and the mesh keywords
+    (``mesh``, ``shard_schedule``, ``merge_rounds``, ``emulate_shards``)
+    raise NotImplementedError away from their defaults until ported."""
     if method not in METHODS:
         raise ValueError(f"unknown method '{method}'; choose from {METHODS}")
-    if method == "BSLMM":
-        raise NotImplementedError("BSLMM is not ported yet (ROADMAP queue 1, item 9)")
+    if method == "BSLMM" or lambda_ != 0.0:
+        raise NotImplementedError("BSLMM (and its lambda_) is not ported yet "
+                                  "(ROADMAP queue 1, item 9)")
+    if checkpoint is not None:
+        raise NotImplementedError(
+            "checkpoint/resume is not ported yet (ROADMAP queue 1, item 7)")
+    if (mesh is not None or shard_schedule != "turn" or merge_rounds != 1
+            or emulate_shards > 1):
+        raise NotImplementedError(
+            "meshes and shard schedules are not ported yet (ROADMAP queue 1, "
+            "items 13-14)")
     if data is None:
         raise ValueError("no data assigned.")
     if M is None:

@@ -83,6 +83,7 @@ def sbrm(
     s2ve=None,
     printfreq=100,
     seed=666666,
+    threads=0,
     verbose=True,
     block=64,
     dtype=torch.float32,
@@ -101,7 +102,8 @@ def sbrm(
     card the sweep kernels take float32 only.  ``nchains > 1`` runs that
     many chains as one batch on a dense LD (``run_s_chains``): the
     summaries pool every chain's records and ``rhat`` holds each
-    parameter's split R-hat."""
+    parameter's split R-hat.  ``threads`` (the JAX package's host codec
+    threads) is accepted and unused."""
     if method not in S_METHODS:
         raise ValueError(f"unknown method '{method}'; choose from {S_METHODS}")
     device = resolve_device(device)

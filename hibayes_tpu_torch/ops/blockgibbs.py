@@ -53,9 +53,10 @@ plain version only for tensors on the CPU; for CUDA tensors it launches the
 kernel or raises.  Each wrapper counts its own launches in a plain integer
 attribute (``.launches``), and each plain version its calls (``.calls``).
 The libraries count every launch of each CUDA kernel where it is made
-(:func:`kernel_launches`): a sweep over nbg blocks launches ``rows_kernel``
-(one chain) or ``rows_mc_kernel`` (K >= 2 chains) nbg + 1 times and
-``draws_kernel`` nbg times; a segment sweep over nb blocks
+(:func:`kernel_launches`): a one-chain sweep over nbg blocks is one
+persistent ``sweep1`` launch (:func:`sweep1_plan`); a K-chain sweep (K >= 2)
+launches ``rows_mc_kernel`` nbg + 1 times and ``draws_kernel`` nbg times;
+``block_draws`` launches ``draws_kernel`` once; a segment sweep over nb blocks
 ``segment_draws`` and ``segment_update`` nb times each; a tiled sweep
 ``tiled_sweep`` once (one persistent launch for every tile row, in the
 order of :func:`tiled_schedule`); an epsilon sweep ``mme_sweep_kernel``
@@ -79,10 +80,28 @@ NEG_BIG = -1e30
 POS_BIG = 1e30
 MAX_BLOCK = 128   # kernel limit: SNPs per block (csrc/draws.cuh kMaxBlock)
 MAX_FOLD = 8      # kernel limit: BayesR folds
-MIN_TILE_ROWS = 128  # rows one pass of a rows_kernel CTA covers (32 warps x 4)
+MIN_TILE_ROWS = 128  # least rows of a one-chain row tile (32 row classes x 4)
 MC_CHUNK_ROWS = 32   # rows_mc_kernel tiles are a multiple of this (chunks of 32 or 64 rows)
 MC_CHAINS = 64       # chains a rows_mc_kernel CTA serves (csrc/blockgibbs.cu kMcChains)
 N_RETRY = 8       # pre-drawn candidates of the rejection guard (csrc/draws.cuh kRetry)
+S1_THREADS = 256     # threads of a sweep1_kernel CTA (csrc/blockgibbs.cu kS1Threads)
+S1_CLASSES = 32      # row classes of a one-chain row tile (kS1Classes)
+SMEM_OPTIN = 232_448  # shared memory a CTA may take on an H100 (227 KB)
+
+
+def padded_stride(r: int) -> int:
+    """Floats per SNP where the kernels stage ``r`` packed (and guard) rows
+    in shared memory: ``r`` rounded up to 4, so a draw reads its rows as
+    float4 (csrc/draws.cuh padded_stride)."""
+    return -(-r // 4) * 4
+
+
+def snp_owner(j: int) -> tuple:
+    """(lane, slot) of the warp that holds SNP ``j``'s r_local, Gram-row
+    slice and outputs in the draw chain (csrc/draws.cuh warp_block_draws):
+    lane l owns SNPs 4l .. 4l + 3, so a Gram row is one 16-byte load a
+    lane."""
+    return j // 4, j % 4
 
 
 def n_rows(spec) -> int:
@@ -323,14 +342,13 @@ def _check_kernel_shapes(spec, B: int, K: int):
 
 
 def rows_per_tile(n: int, device, K: int = 1) -> int:
-    """Rows of n per CTA of the sweep's rows kernel: about one tile per SM
-    (``device`` a CUDA device, or its SM count).  Each warp makes only a few
-    round trips to memory, so the kernel is bound by their latency and every
-    SM must take part (NVIDIA H100 80GB HBM3, 132 SMs, 700 W, n=50,176:
-    512-row tiles took 19.5 us per block and 384-row tiles 10.6 us;
-    PERF.md).  The K-chain kernel's tiles are a multiple of MC_CHUNK_ROWS
-    rows and the same for every K >= 2: a chain's partial sums follow the
-    tiling, so it must not depend on K."""
+    """Rows of n per row tile of the sweep: about one tile per SM
+    (``device`` a CUDA device, or its SM count), so every SM takes part in
+    each block's row work.  A chain's partial sums follow the tiling, so
+    the one-chain sweep keeps the tiling of the two-launch sweep it
+    replaced (its outputs are bit for bit that sweep's).  The K-chain kernel's tiles are a multiple of
+    MC_CHUNK_ROWS rows and the same for every K >= 2, so that they do not
+    depend on K."""
     sms = (device if isinstance(device, int)
            else torch.cuda.get_device_properties(device).multi_processor_count)
     if K == 1:
@@ -356,17 +374,87 @@ def rows_mc_shape(K: int, tile: int) -> tuple:
     return (tk, 1 if one else 2, 1, 4)
 
 
+def sweep1_tiles(c: int, grid: int, ntiles: int) -> range:
+    """Row tiles that CTA ``c`` of a one-chain sweep of ``grid`` CTAs owns
+    for the whole sweep: t = c - 1 (mod grid).  CTA 0, the drawer, owns the
+    tiles the other CTAs leave (csrc/blockgibbs.cu sweep1_kernel)."""
+    return range((c + grid - 1) % grid, ntiles, grid)
+
+
+def sweep1_smem(B: int, R: int, rpt: int, xbytes: int, T: int, nb: int, drawer: bool,
+                wb: int = 2) -> int:
+    """Shared memory bytes of a sweep1_kernel CTA (csrc/blockgibbs.cu
+    s1_layout): the drawer's two mbarriers, ``wb`` buffers of W, the packed
+    rows double-buffered at padded_stride and eight warps' sums; for T row
+    tiles of ``rpt`` rows, yadj and u of its rows (each padded to 4
+    floats), dg of the block before, the 32 row classes' sums and ``nb`` X
+    tile buffers a tile."""
+    draw = 4 * (4 + wb * B * B + 2 * B * padded_stride(R) + 8 * B) if drawer else 0
+    yu = -(-(T * rpt) // 4) * 4
+    rows = 4 * (2 * yu + (S1_CLASSES + 1) * B) + T * nb * rpt * B * xbytes if T > 0 else 0
+    return draw + rows
+
+
+def sweep1_plan(n: int, B: int, R: int, xbytes: int, sms: int,
+                optin: int = SMEM_OPTIN) -> dict:
+    """The persistent one-chain sweep's launch: the parent's row tiles
+    (:func:`rows_per_tile` at K = 1: about one per SM), a grid of one CTA
+    per tile plus the drawer, at most one CTA per SM (every CTA must be
+    resident); and how many X buffers each tile gets in shared memory
+    (``nbr`` for the other CTAs' tiles, ``nb0`` for the drawer's): 2 holds
+    X_b and X_{b+1} (the correction's and the partials'), 1 holds X_b (the
+    correction's) and reads X_{b+1} from global memory after an L2
+    prefetch, 0 reads both from global memory.  The drawer keeps two
+    buffers of W (``wb``: W_{b+1} lands under block b's chain) unless one
+    buffer lets its own tile hold more X (W_{b+1} then lands under the row
+    work that follows the chain).  Returns rpt, ntiles, grid, nb0, nbr, wb
+    and smem (bytes a CTA)."""
+    rpt = rows_per_tile(n, sms, 1)
+    ntiles = -(-n // rpt)
+    grid = min(1 + ntiles, sms)
+    t0 = len(sweep1_tiles(0, grid, ntiles))
+    tc = len(sweep1_tiles(1, grid, ntiles)) if grid > 1 else 0
+    def buffers(T, drawer, wb=2):
+        return next((nb for nb in (2, 1) if sweep1_smem(B, R, rpt, xbytes, T, nb, drawer, wb)
+                     <= optin), 0)
+
+    nbr = buffers(tc, False)
+    nb0, wb = max((buffers(t0, True, wb), wb) for wb in (2, 1))
+    smem = max(sweep1_smem(B, R, rpt, xbytes, t0, nb0, True, wb),
+               sweep1_smem(B, R, rpt, xbytes, tc, nbr, False) if grid > 1 else 0)
+    if smem > optin:
+        raise ValueError(f"sweep_mc: a one-chain sweep at n={n}, B={B} needs {smem} bytes "
+                         f"of shared memory a CTA, more than the {optin} the card has")
+    return {"rpt": rpt, "ntiles": ntiles, "grid": grid, "nb0": nb0, "nbr": nbr, "wb": wb,
+            "smem": smem}
+
+
+# the flags of the one-chain sweep on each device: 1 + ntiles unsigned
+# counters (dg published; each tile's partials) whose values run on across
+# sweeps, and the next sweep's epoch (it publishes epoch + 1 .. epoch + nbg)
+_SWEEP1_FLAGS = {}
+
+
+def _sweep1_flags(dev, ntiles: int) -> dict:
+    st = _SWEEP1_FLAGS.get(str(dev))
+    if st is None or st["flags"].numel() < 1 + ntiles:
+        st = {"flags": torch.zeros(1 + max(ntiles, 256), dtype=torch.int32, device=dev),
+              "epoch": 0}
+        _SWEEP1_FLAGS[str(dev)] = st
+    return st
+
+
 def kernel_launches() -> dict:
     """Launches of each CUDA kernel since :func:`reset_kernel_launches`,
     counted in the libraries where each kernel is launched."""
-    rows, rows_mc, draws = ctypes.c_longlong(), ctypes.c_longlong(), ctypes.c_longlong()
-    build.library().hb_launch_counts(ctypes.byref(rows), ctypes.byref(rows_mc),
+    sweep1, rows_mc, draws = ctypes.c_longlong(), ctypes.c_longlong(), ctypes.c_longlong()
+    build.library().hb_launch_counts(ctypes.byref(sweep1), ctypes.byref(rows_mc),
                                      ctypes.byref(draws))
     s = (ctypes.c_longlong * 3)()
     build.library("sgibbs.cu").hb_s_launch_counts(s)
     e = ctypes.c_longlong()
     build.library("mme.cu").hb_mme_launch_counts(ctypes.byref(e))
-    return {"rows_kernel": rows.value, "rows_mc_kernel": rows_mc.value,
+    return {"sweep1": sweep1.value, "rows_mc_kernel": rows_mc.value,
             "draws_kernel": draws.value,
             "segment_draws": s[0], "segment_update": s[1],
             "tiled_sweep": s[2], "mme_sweep_kernel": e.value}
@@ -481,10 +569,16 @@ def sweep_mc(spec, consts_b, X_blocks, W_blocks, xpx, vx, vei_b, g_b, z_b,
     inputs are (m,) shared or (K, m) per chain, m = nbg * B; yadj_b, u_vec_b
     (K, n).  ``block_range=(off, nbg)`` sweeps blocks [off, off + nbg) of X
     and W (indexed globally) while the per-SNP inputs are the local slice.
+    On the card one chain (K = 1) is one persistent launch of
+    ``sweep1_kernel`` (:func:`sweep1_plan`; its flags run on across sweeps
+    on each device, so two one-chain sweeps must not run at once on one
+    device); K >= 2 chains two launches a block.
     ``stamps`` (measurement only, on the card): an int64 tensor of at least
     16 (nbg + 1) entries that gets, for each block, %globaltimer ns at the
-    stages of its launches and clock64 through the K-chain rows kernel's
-    first chunk (csrc/blockgibbs.cu kStamps).
+    stages of the sweep (csrc/blockgibbs.cu kStamps: at K = 1 the drawer's
+    wait for the partials, the chain and the first rows CTA's wait and work;
+    at K >= 2 the launches' stages and clock64 through the K-chain rows
+    kernel's first chunk).
     Returns (g_new, track, vargL_new, yadj, u, vargi_acc, vargR_acc)."""
     if X_blocks.device.type == "cpu":
         return sweep_mc_plain(spec, consts_b, X_blocks, W_blocks, xpx, vx,
@@ -522,20 +616,35 @@ def sweep_mc(spec, consts_b, X_blocks, W_blocks, xpx, vx, vei_b, g_b, z_b,
     dg = torch.empty((K, m_loc), dtype=F32, device=dev)
     track_f = torch.empty((K, m_loc), dtype=F32, device=dev)
     tile = rows_per_tile(n, dev, K)
-    partial = torch.empty((-(-n // tile), K, B), dtype=F32, device=dev)
+    ntiles = -(-n // tile)
+    partial = torch.empty((ntiles, K, B), dtype=F32, device=dev)
     if stamps is not None and (stamps.dtype != torch.int64 or stamps.device != dev
                                or stamps.numel() < 16 * (nbg + 1)):
         raise ValueError("sweep_mc: stamps must be int64 on the card, 16 per block + 16")
+    if K == 1:
+        props = torch.cuda.get_device_properties(dev)
+        plan = sweep1_plan(n, B, P.shape[1], X_blocks.element_size(),
+                           props.multi_processor_count,
+                           getattr(props, "shared_memory_per_block_optin", SMEM_OPTIN))
+        fl = _sweep1_flags(dev, ntiles)
+        one = (fl["flags"].data_ptr(), fl["epoch"] & 0xFFFFFFFF, plan["grid"], plan["nb0"],
+               plan["nbr"], plan["wb"])
+    else:
+        fl, one = None, (None, 0, 0, 0, 0, 0)
     code = lib.hb_sweep_mc(
         X_blocks.data_ptr(), int(X_blocks.dtype == torch.int8), W.data_ptr(),
         P_blocks.data_ptr(), off, nbg, n, tile,
         *(rows_mc_shape(K, tile) if K > 1 else (0, 0, 0, 0)), B, P.shape[1], K,
         spec.model_index,
         spec.n_fold, yadj.data_ptr(), u.data_ptr(), g_new.data_ptr(),
-        dg.data_ptr(), track_f.data_ptr(), partial.data_ptr(),
+        dg.data_ptr(), track_f.data_ptr(), partial.data_ptr(), *one,
         None if stamps is None else stamps.data_ptr(),
         torch.cuda.current_stream(dev).cuda_stream)
+    if code != 0 and fl is not None:
+        _SWEEP1_FLAGS.pop(str(dev), None)
     build.check(lib, code, "sweep_mc")
+    if fl is not None:
+        fl["epoch"] += nbg
     sweep_mc.launches += 1
     return phase_c_mc(spec, consts_b, vx, vei_b, g_new,
                       track_f.to(torch.int32), u_b, z2_b, vargL_b, yadj, u)

@@ -20,19 +20,25 @@ SNPs of an int8 genotype, and the tiled summary sweep
     k1_n131k    K=1, n=131,072, BayesR     (row 8)
     draws       block_draws, one block of 128 BayesR draws of k1_n50k (row 7)
     tiled_256   one chain, BayesCpi with the guard, 256 tile rows of 128 in
-                a 9-tile band of 0.9^|i-j| (row 9)
+                a 9-tile band of 0.9^|i-j| (row 9), and
+    tiled_256_guard_fires  the same at vary lowered 1,000-fold, so the
+                guard's retries run (its rejection count is hashed too)
     segment_32k the dense segment sweep of phase 6, m=32,768 AR(1) LD, B=64
                 (row 6)
 
 and, at K=4 and K=64, ``*_matmul``: torch.matmul of the sweep's two
 products per block, (K, n) x (n, B) and (K, B) x (B, n) in float32, the
-library yardstick (the same torch code under either root).
+library yardstick (the same torch code under either root).  The draw chain
+alone (``blockgibbs.chain_latency``, one warp, 400 blocks of 128 back to
+back) on k1_n50k's first block (BayesR, 4 folds) and tiled_256's first tile
+row (BayesCpi, without and with the guard) is reported in clock cycles a
+draw.
 
 The inputs are made from fixed seeds with chip_smoke.py's helpers (taken
 from this script's own checkout), so both trees sweep the same numbers.
 Prints one JSON line: the label, the card, ms per sweep for each case (CUDA
-events, the mean of --reps sweeps after a warm-up) in --rounds rounds, and
-a SHA-256 of each case's outputs.
+events, the mean of --reps sweeps after a warm-up) in --rounds rounds, the
+chain's cycles a draw in each round, and a SHA-256 of each case's outputs.
 """
 
 from __future__ import annotations
@@ -82,7 +88,7 @@ def main(argv=None) -> int:
     cs = _chip_smoke()
     dev = torch.device("cuda", 0)
     B = 128
-    runs, digests = {}, {}
+    runs, digests, chains = {}, {}, {}
     for key, n, K, model, nblocks in CASES:
         m = nblocks * B
         gen = torch.Generator(device=dev).manual_seed(31)
@@ -114,6 +120,8 @@ def main(argv=None) -> int:
                 h.update(t.float().cpu().numpy().tobytes())
             digests["draws"] = h.hexdigest()[:16]
             runs["draws"] = lambda dargs=dargs: TB.block_draws(*dargs)
+            chains["chain_bayesr"] = (spec, W[0], P_b[:, :, 0].contiguous(),
+                                      r0[:, 0].contiguous(), None)
         if K > 1 and nblocks == 16:
             Xf = data.X_blocks.float()
             dg = 0.01 * torch.randn((K, B), generator=gen, device=dev)
@@ -141,6 +149,20 @@ def main(argv=None) -> int:
         h.update(t.float().cpu().numpy().tobytes())
     digests["tiled_256"] = h.hexdigest()[:16]
     runs["tiled_256"] = lambda full=full: TB.sweep_s_tiled(sspec, *full)
+    low = sspec.__class__(**{**sspec.__dict__, "vary": sspec.vary * 1e-3})
+    out = TB.sweep_s_tiled(low, *full)
+    torch.cuda.synchronize()
+    if int(out[3]) == 0:
+        raise AssertionError("tiled_256_guard_fires: the guard did not fire")
+    h = hashlib.sha256()
+    for t in out:
+        h.update(t.float().cpu().numpy().tobytes())
+    digests["tiled_256_guard_fires"] = h.hexdigest()[:16]
+    runs["tiled_256_guard_fires"] = lambda full=full: TB.sweep_s_tiled(low, *full)
+    Wn = sspec.n * sdata.ld_tiles[0, 0]
+    Pg = P[:, :B].T.contiguous()
+    chains["chain_bayescpi"] = (sspec, Wn, Pg[:, :TB.n_rows(sspec)].contiguous(), r[:B], None)
+    chains["chain_bayescpi_guard"] = (sspec, Wn, Pg, r[:B], sspec.vary)
     del tld, sdata
     # the dense segment sweep of phase 6
     from hibayes_tpu_torch.data.ld import DenseLD
@@ -161,11 +183,14 @@ def main(argv=None) -> int:
     digests["segment_32k"] = h.hexdigest()[:16]
     runs["segment_32k"] = lambda seg=seg, r=r, P=P: TB.sweep_s_segment(dspec, seg, r, P, dspec.n)
     times = {key: [] for key in runs}
+    cycles = {key: [] for key in chains}
     for _ in range(args.rounds):
         for key, fn in runs.items():
             times[key].append(cs.cuda_ms(torch, fn, args.reps))
+        for key, (cspec, W0, P0, r0, vary) in chains.items():
+            cycles[key].append(cs.chain_us(torch, TB, cspec, W0, P0, r0, vary)[1] / B)
     print(json.dumps({"label": args.label, "card": cs.smi_line(), "ms": times,
-                      "sha256": digests}), flush=True)
+                      "cycles_per_draw": cycles, "sha256": digests}), flush=True)
     return 0
 
 

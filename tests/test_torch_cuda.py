@@ -115,20 +115,23 @@ def test_sweep_and_draw_kernels_match_plain(model, int8, dev):
 
 def test_launch_counts(dev):
     """Each wrapper counts its own calls and the library each kernel launch:
-    a sweep over nbg blocks is nbg + 1 rows_kernel (one chain) or
-    rows_mc_kernel (K >= 2) and nbg draws_kernel launches, and does not
-    count as a block_draws call."""
-    for K, rows in ((2, "rows_mc_kernel"), (1, "rows_kernel")):
+    a sweep over nbg blocks is one sweep1 launch (one chain, the whole
+    sweep) or nbg + 1 rows_mc_kernel and nbg draws_kernel launches (K >= 2),
+    and does not count as a block_draws call."""
+    for K in (2, 1):
         spec, args = _inputs("BayesCpi", dev, K=K)
         TB.sweep_mc(spec, *args)
         TB.reset_kernel_launches()
         before = (TB.sweep_mc.launches, TB.block_draws.launches)
         TB.sweep_mc(spec, *args)
         nbg = spec.nblocks
-        want = {"rows_kernel": 0, "rows_mc_kernel": 0, "draws_kernel": nbg,
+        want = {"sweep1": 0, "rows_mc_kernel": 0, "draws_kernel": 0,
                 "segment_draws": 0, "segment_update": 0, "tiled_sweep": 0,
                 "mme_sweep_kernel": 0}
-        want[rows] = nbg + 1
+        if K == 1:
+            want["sweep1"] = 1
+        else:
+            want.update(rows_mc_kernel=nbg + 1, draws_kernel=nbg)
         assert TB.kernel_launches() == want
         assert (TB.sweep_mc.launches, TB.block_draws.launches) == (before[0] + 1, before[1])
 
@@ -670,3 +673,110 @@ def test_chain_latency_and_stamps(dev):
     st = stamps.cpu().numpy().reshape(nbg + 1, 16)
     assert (st[:nbg, 3:8] > 0).all() and (np.diff(st[:nbg, 3:8], axis=1) >= 0).all()
     assert (np.diff(st[:nbg, 8:15], axis=1) >= 0).all()
+
+
+# ---------------------------------------------------------------------------
+# the persistent one-chain sweep and the redesigned draw chain
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("model", ["BayesCpi", "BayesR"])
+@pytest.mark.parametrize("B", [64, 128])
+@pytest.mark.parametrize("int8", [True, False], ids=["int8", "f32"])
+@pytest.mark.parametrize("n", [4096, 9001, 50_176, 131_072])
+def test_one_chain_sweep_shapes(n, int8, B, model, dev):
+    """sweep_mc at K = 1 (one sweep1 launch) against its plain version at the
+    kernel bar, over the whole range and an offset block range, and
+    bit-identical on a second launch; n=9,001 unpadded leaves the last row
+    tile ragged; at n=50,176 the drawer owns a tile, at n=131,072 X_b is
+    read again from global memory."""
+    spec, args = _inputs(model, dev, K=1, n=n, m=384, B=B, int8=int8, pad_n=False)
+    TB.reset_kernel_launches()
+    out = TB.sweep_mc(spec, *args)
+    assert TB.kernel_launches()["sweep1"] == 1
+    _assert_bar(TB.sweep_mc_plain(spec, *args), out)
+    assert all(torch.equal(a, b) for a, b in zip(out, TB.sweep_mc(spec, *args)))
+    consts, X, W, xpx, vx, *per = args
+    off, nbg = 1, 2
+    cols = slice(off * B, (off + nbg) * B)
+    loc = [a[:, cols] for a in per[:7]]
+    out = TB.sweep_mc(spec, consts, X, W, xpx[cols], vx[cols], *loc, per[7], per[8],
+                      block_range=(off, nbg))
+    ref = TB.sweep_mc_plain(spec, consts, X[off:off + nbg], W[off:off + nbg], xpx[cols],
+                            vx[cols], *loc, per[7], per[8])
+    _assert_bar(ref, out)
+    assert all(torch.equal(a, b) for a, b in zip(out, TB.sweep_mc(
+        spec, consts, X, W, xpx[cols], vx[cols], *loc, per[7], per[8],
+        block_range=(off, nbg))))
+
+
+def test_one_chain_sweeps_of_other_shapes_in_turn(dev):
+    """The one-chain sweep's flags run on from sweep to sweep (by an epoch)
+    and are made anew for a larger tile count: sweeps at n=4,096, 50,176 and
+    4,096 again, each repeated, give their first launch's outputs bit for
+    bit."""
+    cases = [_inputs("BayesR", dev, K=1, n=n, m=256, B=128, pad_n=False)
+             for n in (4096, 50_176)]
+    first = [TB.sweep_mc(spec, *args) for spec, args in cases]
+    for i in (0, 1, 0, 1, 0):
+        spec, args = cases[i]
+        for _ in range(2):
+            assert all(torch.equal(a, b) for a, b in zip(first[i], TB.sweep_mc(spec, *args)))
+
+
+@pytest.mark.parametrize("B", [4, 64, 128])
+@pytest.mark.parametrize("model", MODELS)
+def test_block_draws_under_the_new_chain(model, B, dev):
+    """block_draws (draws_kernel, one CTA a chain) at blocks of 4, 64 and 128
+    SNPs (lanes that own no SNP, and every lane owning four) against its
+    plain version at the bar, bit-identical on a second launch."""
+    spec, args = _inputs(model, dev, K=3, n=700, m=2 * B, B=B, pad_n=False)
+    consts, X, W, xpx, vx, *per = args
+    P = TB.pack_rows(spec, consts, xpx, vx, per[0], per[1], per[2], per[3], per[4], per[6],
+                     torch.float32)
+    P_b = TB.to_block_layout(P, spec.nblocks, B)[1].contiguous()
+    r0 = (per[7] @ X[1].float()).T.contiguous()
+    logpi = consts["logpi"][:, :1].T.contiguous()
+    dg_k, tr_k = TB.block_draws(spec, logpi, P_b, W[1], r0)
+    dg_p, tr_p = TB.block_draws_plain(spec, logpi, P_b, W[1], r0)
+    g_old = P_b[:, 1, :]
+    _assert_bar((g_old - dg_p, tr_p), (g_old - dg_k, tr_k))
+    again = TB.block_draws(spec, logpi, P_b, W[1], r0)
+    assert torch.equal(dg_k, again[0]) and torch.equal(tr_k, again[1])
+
+
+@pytest.mark.parametrize("model", ["BayesCpi", "BayesR"])
+def test_guard_out_of_line_path(model, dev):
+    """At a lowered vary the guard's retries (the chain's out-of-line path)
+    run: the tiled sweep's count of first draws rejected equals the plain
+    version's and is positive, the outputs meet the bar, and a second launch
+    is bit-identical; the draw chain alone runs the same path."""
+    spec, data, g, r, P, _, _ = _s_problem(model, "tiled", dev, m=1500)
+    spec = dataclasses.replace(spec, vary=spec.vary * 1e-3)
+    args = (spec, data.ld_tiles, data.ld_cols, data.ld_valid, r, P, spec.n)
+    out, again = TB.sweep_s_tiled(*args), TB.sweep_s_tiled(*args)
+    plain = TB.sweep_s_tiled_plain(*args)
+    assert int(plain[3]) > 0
+    assert int(out[3]) == int(plain[3])
+    _assert_bar((g - plain[0], plain[1], None, plain[2]),
+                (g - out[0], out[1], None, out[2]))
+    assert all(torch.equal(a, b) for a, b in zip(out, again))
+    B = spec.block
+    cyc = TB.chain_latency(spec, spec.n * data.ld_tiles[0, 0], P[:, :B].T.contiguous(),
+                           r[:B], reps=4, vary=spec.vary)
+    assert int(cyc) > 0
+
+
+def test_one_chain_sweep_stamps(dev):
+    """The one-chain sweep's stamps (drawer: partials waited for and summed,
+    chain started and dg published; the first rows CTA: waited for dg,
+    worked) are ordered in time, block after block."""
+    spec, args = _inputs("BayesR", dev, K=1, n=9001, m=512, B=128, pad_n=False)
+    nbg = spec.nblocks
+    stamps = torch.zeros(16 * (nbg + 1), dtype=torch.int64, device=dev)
+    TB.sweep_mc(spec, *args, stamps=stamps)
+    st = stamps.cpu().numpy().reshape(nbg + 1, 16)
+    assert (st[:nbg, 0:5] > 0).all() and (np.diff(st[:nbg, 0:5], axis=1) >= 0).all()
+    assert (np.diff(st[:, 8:11], axis=1) >= 0).all()
+    assert (np.diff(st[:nbg, 0]) > 0).all()
+    assert (st[1:, 9] >= st[:nbg, 3]).all()   # a row step starts after dg is published

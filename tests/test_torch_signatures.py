@@ -1,0 +1,78 @@
+"""The port's entry points against the JAX package's, on the CPU: the same
+keywords in the same order (plus ``device``), the unported ones refused
+with their ROADMAP item, and refusals that cite only work still to do."""
+
+import inspect
+
+import numpy as np
+import pytest
+import torch
+
+import hibayes_tpu as hj
+import hibayes_tpu_torch as ht
+from hibayes_tpu_torch.engine import gibbs as TG
+
+torch.set_num_threads(2)
+
+
+@pytest.mark.parametrize("name", ["ibrm", "sbrm", "ssbrm"])
+def test_entry_point_keywords_match_the_reference(name):
+    """Every keyword of hibayes_tpu's entry point, in its order; the port
+    adds only ``device``, last."""
+    ref = list(inspect.signature(getattr(hj, name)).parameters)
+    port = list(inspect.signature(getattr(ht, name)).parameters)
+    assert port == ref + ["device"]
+
+
+def _ibrm_data(n=60, m=40, seed=0):
+    rng = np.random.default_rng(seed)
+    M = rng.binomial(2, 0.3, size=(n, m)).astype(np.int8)
+    y = M @ rng.normal(0, 0.1, m) + rng.normal(0, 1, n)
+    ids = np.array([f"i{k}" for k in range(n)])
+    return M, {"id": ids, "T1": y}, ids
+
+
+@pytest.mark.parametrize("kw,item", [
+    ({"lambda_": 0.5}, "item 9"),
+    ({"checkpoint": "fit.ckpt"}, "item 7"),
+    ({"mesh": object()}, "items 13-14"),
+    ({"shard_schedule": "concurrent"}, "items 13-14"),
+    ({"merge_rounds": 2}, "items 13-14"),
+    ({"emulate_shards": 2}, "items 13-14"),
+], ids=["lambda_", "checkpoint", "mesh", "shard_schedule", "merge_rounds",
+        "emulate_shards"])
+def test_ibrm_refuses_unported_keywords_by_item(kw, item):
+    M, data, ids = _ibrm_data()
+    with pytest.raises(NotImplementedError, match=item):
+        ht.ibrm("T1~1", data=data, M=M, M_id=ids, niter=10, nburn=5, device="cpu", **kw)
+
+
+def test_threads_is_accepted_and_unused():
+    """``threads`` (the JAX package's host codec threads) changes nothing:
+    ibrm and sbrm fits with and without it are bit for bit the same."""
+    M, data, ids = _ibrm_data()
+    kw = dict(data=data, M=M, M_id=ids, niter=20, nburn=10, seed=3, verbose=False,
+              device="cpu")
+    a = ht.ibrm("T1~1", threads=4, **kw)
+    b = ht.ibrm("T1~1", **kw)
+    np.testing.assert_array_equal(a.g["gebv"], b.g["gebv"])
+    m = 64
+    R = 0.5 ** np.abs(np.arange(m)[:, None] - np.arange(m)[None, :])
+    beta = R @ np.where(np.arange(m) % 9 == 0, 0.1, 0.0)
+    ss = np.column_stack([np.full(m, .3), beta, np.full(m, .01), np.full(m, 1e4)])
+    skw = dict(method="BayesCpi", niter=20, nburn=10, seed=3, verbose=False, device="cpu")
+    np.testing.assert_array_equal(ht.sbrm(ss, R, threads=4, **skw).alpha,
+                                  ht.sbrm(ss, R, **skw).alpha)
+
+
+def test_summary_spec_refusal_names_the_summary_engine():
+    """A summary-level spec that reaches the individual-level engine is
+    sent to engine/sgibbs.py; the refusal no longer calls the summary
+    engine (ROADMAP items 10-11, done) unported."""
+    spec = TG.GibbsSpec(model="BayesCpi", n=10, m=8, m_pad=8, block=8, nc=0, nlevels=(),
+                        n_fold=2, niter=2, nburn=1, thin=1, nvar0=0, reject_guard=True)
+    with pytest.raises(NotImplementedError) as e:
+        TG._check_ported(spec, None)
+    msg = str(e.value)
+    assert "engine/sgibbs.py" in msg
+    assert "not ported" not in msg and "10-11" not in msg
