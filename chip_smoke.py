@@ -60,9 +60,11 @@ Phases, each printing as it goes:
      over 3 iterations prints device time by kernel (so does phase 6);
   6. sbrm dense path: the same kind of statistics over a dense AR(1) LD
      (0.9^|i-j|, m=32,768, 4.29 GB f32, block 64), BayesCpi through
-     sweep_s_segment only, then (6b) the same fit with nchains=4 through the
-     K-chain segment sweep, then method="CG" on the same LD against a direct
-     solve on the card;
+     sweep_s_segment only (one persistent segment_sweep launch a sweep;
+     timed at one and 4 chains beside torch.mv / torch.mm of the update's
+     whole product, its time split per block from its stamps), then (6b)
+     the same fit with nchains=4 through the K-chain segment sweep, then
+     method="CG" on the same LD against a direct solve on the card;
   7. ssbrm main path (the configuration of benchmarks/ssbrm_100k_pedigree.py
      with m=100,000 SNPs): a 100,000-id pedigree (5,000 founders, parents
      of each offspring drawn among all earlier ids), 20,000 genotyped,
@@ -71,7 +73,9 @@ Phases, each printing as it goes:
      the epsilon sweep kernel against its plain version on the main path's
      layout (qe=80,000 sites, blocks of 64; its first 16 blocks and the
      whole sweep, a bit-identical second launch; torch.linalg.solve_triangular
-     on one block as the library yardstick) and sweep_mc at f32, B=64,
+     on one block as the library yardstick; timed with the L2 warm and
+     cold, split per block from its stamps, the layout's rows by target
+     block, and the epsilon chain alone in cycles a draw) and sweep_mc at f32, B=64,
      n=10,000; a torch.profiler split of an iteration at the main path's
      shapes; two small ssbrm fits with one seed bit-identical and a small
      direct-path fit; then hibayes_tpu_torch.ssbrm(impute="pcg",
@@ -327,6 +331,28 @@ def cuda_ms(torch, fn, reps):
     return t0.elapsed_time(t1) / reps
 
 
+def cold_ms(torch, fn, reps, flush_bytes=128 << 20):
+    """Device ms per call of ``fn`` with a cold L2, as the chain finds it
+    after another kernel has streamed its data: before each call a buffer
+    larger than the card's 50 MB L2 is overwritten, then the device sleeps
+    while the host enqueues the call, and CUDA events time the call alone;
+    the mean over ``reps`` calls."""
+    buf = torch.empty(flush_bytes // 4, dtype=torch.float32, device="cuda")
+    fn()
+    torch.cuda.synchronize()
+    ev = []
+    for _ in range(reps):
+        buf.fill_(1.0)
+        torch.cuda._sleep(2_000_000)
+        t0, t1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        t0.record()
+        fn()
+        t1.record()
+        ev.append((t0, t1))
+    torch.cuda.synchronize()
+    return float(np.mean([a.elapsed_time(b) for a, b in ev]))
+
+
 def chain_us(torch, TB, spec, W, Pb, r0, vary=None, reps=400):
     """The draw chain's own latency per block of B draws (one warp, W and
     the packed rows already in shared memory, each block depending on the
@@ -415,6 +441,74 @@ def tiled_split(torch, TB, spec, args):
             "own_contribution_us": mean(rows[:, 3] - rows[:, 2]),
             "row_us": mean(np.diff(rows[:, 0])),
             "sweep_ms": round((s[4 * nbr + 1] - s[4 * nbr]) / 1e6, 4),
+            "sm_clock_ghz": round(1.0 / ns_per_cycle, 3)}
+
+
+def mme_split(torch, TB, args):
+    """Where the one-CTA epsilon sweep's time goes, per block (us, means
+    over the blocks), from its clock64 stamps (mme_sweep(stamps=...)),
+    converted with its own %globaltimer: the drawer's chain, its sums of
+    the block's terms to the next block's rows, its wait at the phase's
+    barrier (for the other warps) until the next chain starts; when the
+    scatter of a block's other terms, warp 3's residual load and the
+    loader's staging end, after the chain of their phase starts (negative:
+    before; the scatter of block b runs in phase b + 1); the period."""
+    nbr = args[0].diag_blocks.shape[0]
+    st = torch.zeros(6 * (nbr + 1) + 4, dtype=torch.int64, device=args[-1].device)
+    TB.mme_sweep(*args, stamps=st)
+    torch.cuda.synchronize()
+    s = st.cpu().numpy().astype(np.float64)
+    e = 6 * (nbr + 1)
+    ns_per_cycle = (s[e + 1] - s[e]) / (s[e + 3] - s[e + 2])
+    b = s[:6 * nbr].reshape(nbr, 6) * ns_per_cycle / 1e3
+    mean = lambda x: round(float(np.mean(x)), 4)
+    return {"chain_us": mean(b[:, 1] - b[:, 0]),
+            "near_terms_us": mean(b[:, 2] - b[:, 1]),
+            "drawer_wait_us": mean(b[1:, 0] - b[:-1, 2]),
+            "scatter_end_after_chain_start_us": mean(b[:-1, 3] - b[1:, 0]),
+            "residual_load_end_after_chain_start_us": mean(b[:, 4] - b[:, 0]),
+            "staging_end_after_chain_start_us": mean(b[:, 5] - b[:, 0]),
+            "block_us": mean(np.diff(b[:, 0])),
+            "sweep_ms": round((s[e + 1] - s[e]) / 1e6, 4),
+            "sm_clock_ghz": round(1.0 / ns_per_cycle, 3)}
+
+
+def segment_split(torch, TB, spec, seg, r, P):
+    """Where the persistent segment sweep's time goes, per block (us, means
+    over the blocks), from its clock64 stamps (sweep_s_segment(stamps=...)):
+    the first drawer CTA's chain up to the barrier after it (dg published,
+    the next block staged; of it the first warp's draws, its dg stores and
+    flag, the wait for the others and the staging), the issue of the next
+    block's copies, its own contribution to the next block (the
+    Gram block's scaling and the sums), its wait for the next block's row
+    owners, the snapshot's load; the first row-owner CTA's pass over the
+    block once dg is seen (of it: dg into shared memory, its first warp's
+    wait for its tile and that tile's sums) and its wait for the next
+    block's dg; the period."""
+    nb = seg.shape[0] // spec.block
+    st = torch.zeros(12 * nb + 4, dtype=torch.int64, device=seg.device)
+    TB.sweep_s_segment(spec, seg, r, P, spec.n, stamps=st)
+    torch.cuda.synchronize()
+    s = st.cpu().numpy().astype(np.float64)
+    e = 12 * nb
+    ns_per_cycle = (s[e + 1] - s[e]) / (s[e + 3] - s[e + 2])
+    b = s[:e].reshape(nb, 12) * ns_per_cycle / 1e3
+    mean = lambda x: round(float(np.mean(x)), 4)
+    return {"chain_us": mean(b[:, 1] - b[:, 0]),
+            "draws_us": mean(b[:, 10] - b[:, 0]),
+            "draws_to_published_us": mean(b[:, 11] - b[:, 10]),
+            "published_to_barrier_us": mean(b[:, 1] - b[:, 11]),
+            "next_block_issue_us": mean(b[1:, 0] - b[:-1, 4]),
+            "own_contribution_us": mean(b[:-1, 2] - b[:-1, 1]),
+            "owners_wait_us": mean(b[:-1, 3] - b[:-1, 2]),
+            "snapshot_us": mean(b[:-1, 4] - b[:-1, 3]),
+            "owner_pass_us": mean(b[:, 6] - b[:, 5]),
+            "owner_dg_load_us": mean(b[:, 7] - b[:, 5]),
+            "owner_tile_wait_us": mean(b[:, 8] - b[:, 7]),
+            "owner_tile_sums_us": mean(b[:, 9] - b[:, 8]),
+            "owner_dg_wait_us": mean(b[1:, 5] - b[:-1, 6]),
+            "block_us": mean(np.diff(b[:, 0])),
+            "sweep_ms": round((s[e + 1] - s[e]) / 1e6, 4),
             "sm_clock_ghz": round(1.0 / ns_per_cycle, 3)}
 
 
@@ -953,16 +1047,29 @@ def time_segment(torch, TSG, TB, spec, data, pr, pi, errs):
         if not all(torch.equal(a[k], b) for a, b in zip(outs[0], one)):
             raise AssertionError(f"{what}: chain {k} differs from its K=1 launch")
     log(f"  ok {what}; each chain bit for bit its K=1 launch")
+    # library yardstick: the update's whole product as one call, n LD dg
+    # (torch.mv; torch.mm for the 4 chains), on the sweep's own dg
+    dg1, dg4 = out[0], outs[0][0]
+    lib = (torch.mv(seg, dg1), torch.mm(seg, dg4.T))
+    torch.cuda.synchronize()
+    if not (torch.isfinite(lib[0]).all() and torch.isfinite(lib[1]).all()):
+        raise AssertionError("torch.mv of the segment is not finite")
     t = {"sweep_s_segment_k4": cuda_ms(
              torch, lambda: TB.sweep_s_segment(spec, seg, r4, P4, spec.n), 3),
          "sweep_s_segment": cuda_ms(torch, lambda: TB.sweep_s_segment(spec, seg, r, P, spec.n), 3),
          "sweep_s_segment_host": host_ms(
              torch, lambda: TB.sweep_s_segment(spec, seg, r, P, spec.n)),
          "sweep_s_segment_plain": cuda_ms(
-             torch, lambda: TB.sweep_s_segment_plain(spec, seg, r, P, spec.n), 1)}
+             torch, lambda: TB.sweep_s_segment_plain(spec, seg, r, P, spec.n), 1),
+         "sweep_s_segment_library": cuda_ms(torch, lambda: torch.mv(seg, dg1), 5),
+         "sweep_s_segment_k4_library": cuda_ms(torch, lambda: torch.mm(seg, dg4.T), 5),
+         "sweep_s_segment_split": segment_split(torch, TB, spec, seg, r, P),
+         "sweep_s_segment_k4_split": segment_split(torch, TB, spec, seg, r4, P4)}
     mc, B = seg.shape[0], spec.block
     b = nbytes(seg, r, P) + 4 * mc * 3
-    return t, {"sweep_s_segment": bound(b, 2.0 * mc * mc + 2.0 * B * mc)}
+    b4 = nbytes(seg, r4, P4) + 4 * 4 * mc * 3
+    return t, {"sweep_s_segment": bound(b, 2.0 * mc * mc + 2.0 * B * mc),
+               "sweep_s_segment_k4": bound(b4, 4 * (2.0 * mc * mc + 2.0 * B * mc))}
 
 
 def profile_iterations(torch, step, state, what, iters=3, split=None):
@@ -1263,7 +1370,30 @@ def check_mme(torch, TG, TB, lay, counts, gen, dev, errs, nb=16):
     errs["mme_sweep"] = worst
     t = {"mme_sweep": cuda_ms(torch, lambda: TB.mme_sweep(*runs[nb]), 20),
          "mme_sweep_plain": cuda_ms(torch, lambda: TB.mme_sweep_plain(*runs[nb]), 2),
-         "mme_sweep_full": cuda_ms(torch, lambda: TB.mme_sweep(*runs[nbr]), 5)}
+         "mme_sweep_full": cuda_ms(torch, lambda: TB.mme_sweep(*runs[nbr]), 5),
+         "mme_sweep_cold": cold_ms(torch, lambda: TB.mme_sweep(*runs[nb]), 10),
+         "mme_sweep_full_cold": cold_ms(torch, lambda: TB.mme_sweep(*runs[nbr]), 5),
+         "mme_sweep_split": mme_split(torch, TB, runs[nbr])}
+    # the epsilon chain alone (one warp, block 0 staged), cycles a draw,
+    # and its time a block from CUDA events around one launch of 400
+    TB.mme_chain_latency(lay.diag_blocks[0], counts[:T], z[:T], scale, ve, res[:T], 10)
+    e0, e1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    e0.record()
+    cyc = TB.mme_chain_latency(lay.diag_blocks[0], counts[:T], z[:T], scale, ve, res[:T], 400)
+    e1.record()
+    torch.cuda.synchronize()
+    t["mme_chain_cycles_per_draw"] = int(cyc) / 400 / T
+    t["mme_chain_us_per_block"] = 1e3 * e0.elapsed_time(e1) / 400
+    t["mme_chain_floor_ms"] = nbr * t["mme_chain_us_per_block"] / 1e3
+    plan = TB.mme_plan(lay, nbr).host
+    d = plan["dist"]
+    t["mme_target_distance_rows"] = {"1": int(d[1]), "2": int(d[2]), "3-19": int(d[3:20].sum()),
+                                     ">=20": int(d[20:].sum()), "max": int(len(d) - 1)}
+    log(f"  mme_sweep plan over {nbr} blocks: forward rows by target-block distance "
+        f"{t['mme_target_distance_rows']}; {plan['near_rows']} rows to the next block "
+        f"(the drawer's), {plan['two_rows']} two blocks on, {plan['far_rows_n']} further; "
+        f"at most {plan['ncap']} entries a block to the next")
+
     # library yardstick: block 0's draws as one triangular solve,
     # tril(Wb) dx = r + diag(Wb) noise, unit diagonal on padded sites
     Wb, invd, noise = TB._block_constants(lay.diag_blocks[0].clone(), counts[:T], scale, ve,
@@ -1306,7 +1436,11 @@ def check_mme(torch, TG, TB, lay, counts, gen, dev, errs, nb=16):
     bounds["mme_sweep_full_dense_layout"] = sweep_bound(nbr, True)
     log(f"  mme_sweep bounds over {nbr} blocks: nonzeros "
         f"{bounds['mme_sweep_full'][0]:.6g} ms, dense (T, T) layout "
-        f"{bounds['mme_sweep_full_dense_layout'][0]:.6g} ms")
+        f"{bounds['mme_sweep_full_dense_layout'][0]:.6g} ms; the epsilon chain alone "
+        f"{t['mme_chain_cycles_per_draw']:.2f} cycles a draw, "
+        f"{t['mme_chain_us_per_block']:.3f} us a block of {T}: a latency floor of "
+        f"{t['mme_chain_floor_ms']:.4f} ms a sweep; split per block "
+        f"{json.dumps(t['mme_sweep_split'])}")
     return t, bounds
 
 
@@ -1566,10 +1700,8 @@ def main(argv=None) -> int:
                                  device=dev, printfreq=50)
     torch.cuda.synchronize()
     d_launches, plain = read_counts(TB)
-    nb_d = -(-args.dm // 64)
     expect_counts(d_launches, plain, {"sweep_s_segment": niter_eff,
-                                      "segment_draws": niter_eff * nb_d,
-                                      "segment_update": niter_eff * nb_d}, "6")
+                                      "segment_sweep": niter_eff}, "6")
     corr_d = check_fit(fit, b_true, "sbrm dense")
     log(f"[6] sbrm BayesCpi dense m={args.dm}: Vg {fit.Vg:.4f} Ve {fit.Ve:.4f} "
         f"h2 {fit.h2:.4f}, corr(alpha, b_true) {corr_d:.4f} (bar {SBAYES_CORR_MIN}); "
@@ -1587,8 +1719,7 @@ def main(argv=None) -> int:
     torch.cuda.synchronize()
     d4_launches, plain = read_counts(TB)
     expect_counts(d4_launches, plain, {"sweep_s_segment": niter_eff,
-                                       "segment_draws": niter_eff * nb_d,
-                                       "segment_update": niter_eff * nb_d}, "6b")
+                                       "segment_sweep": niter_eff}, "6b")
     corr_d4 = check_fit(fit, b_true, "sbrm dense, 4 chains")
     if not np.isfinite(fit.MCMCsamples["alpha"]).all():
         raise AssertionError("sbrm dense, 4 chains: non-finite effects")
@@ -1756,17 +1887,21 @@ def main(argv=None) -> int:
         entry("draws_kernel", src, "hibayes_tpu/ops/blockgibbs.py:1264",
               flag["launches"]["draws_kernel"], errs["block_draws"], "block_draws",
               launches_from="phase 4b (4 chains; one chain sweeps through sweep1_kernel)",
-              segment_4_chains_draws_launches=d4_launches["segment_draws"],
+              segment_draw_chains_in="segment_sweep (phases 6 and 6b)",
               chain_cycles_per_draw={
                   "BayesR_4_folds": times["chain_bayesr_cycles"] / B,
                   "BayesCpi": times["chain_bayescpi_cycles"] / B,
                   "BayesCpi_guard": times["chain_bayescpi_guard_cycles"] / B}),
-        entry("sweep_s_segment", ssrc, "hibayes_tpu/ops/blockgibbs.py:1141",
-              d_launches["sweep_s_segment"], errs["sweep_s_segment"], "sweep_s_segment",
-              segment_draws_launches=d_launches["segment_draws"],
-              segment_update_launches=d_launches["segment_update"],
-              k4_launches=d4_launches["sweep_s_segment"],
-              k4_max_abs_err=errs["sweep_s_segment_k"], k4_ms=times["sweep_s_segment_k4"]),
+        entry("segment_sweep", ssrc, "hibayes_tpu/ops/blockgibbs.py:1141",
+              d_launches["segment_sweep"], errs["sweep_s_segment"], "sweep_s_segment",
+              library_ms=times["sweep_s_segment_library"],
+              sweep_s_segment_launches=d_launches["sweep_s_segment"],
+              block_split_us=times["sweep_s_segment_split"],
+              k4_launches=d4_launches["segment_sweep"],
+              k4_max_abs_err=errs["sweep_s_segment_k"], k4_ms=times["sweep_s_segment_k4"],
+              k4_bound_ms=bounds["sweep_s_segment_k4"][0],
+              k4_library_ms=times["sweep_s_segment_k4_library"],
+              k4_block_split_us=times["sweep_s_segment_k4_split"]),
         entry("sweep_s_tiled", ssrc, "hibayes_tpu/ops/blockgibbs.py:1635",
               s_launches["sweep_s_tiled"], errs["sweep_s_tiled"], "sweep_s_tiled",
               tiled_sweep_launches=s_launches["tiled_sweep"],
@@ -1775,11 +1910,18 @@ def main(argv=None) -> int:
               full_sweep_split=times["sweep_s_tiled_split"],
               chain_us_per_block={"BayesCpi": times["chain_bayescpi_us"],
                                   "BayesCpi_guard": times["chain_bayescpi_guard_us"]}),
-        entry("mme_sweep", "hibayes_tpu_torch/csrc/mme.cu", "hibayes_tpu/ops/blockgibbs.py:1805",
-              e_launches["mme_sweep"], errs["mme_sweep"], "mme_sweep",
-              library_ms=times["mme_library"], full_sweep_ms=times["mme_sweep_full"],
+        entry("mme_sweep_kernel", "hibayes_tpu_torch/csrc/mme.cu",
+              "hibayes_tpu/ops/blockgibbs.py:1805",
+              e_launches["mme_sweep_kernel"], errs["mme_sweep"], "mme_sweep",
+              library_ms=times["mme_library"], mme_sweep_launches=e_launches["mme_sweep"],
+              cold_ms=times["mme_sweep_cold"], full_sweep_ms=times["mme_sweep_full"],
+              full_sweep_cold_ms=times["mme_sweep_full_cold"],
               full_sweep_bound_ms=bounds["mme_sweep_full"][0],
-              full_sweep_dense_layout_bound_ms=bounds["mme_sweep_full_dense_layout"][0]),
+              full_sweep_dense_layout_bound_ms=bounds["mme_sweep_full_dense_layout"][0],
+              chain_cycles_per_draw=times["mme_chain_cycles_per_draw"],
+              chain_latency_floor_ms=times["mme_chain_floor_ms"],
+              block_split_us=times["mme_sweep_split"],
+              target_distance_rows=times["mme_target_distance_rows"]),
     ]
     idle = [k["name"] for k in kernels if not k["launches"]]
     if idle:

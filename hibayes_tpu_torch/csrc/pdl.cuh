@@ -114,6 +114,41 @@ __device__ __forceinline__ void mbar_wait(uint64_t* bar, unsigned parity) {
       "}\n" ::"r"(smem_addr(bar)), "r"(parity) : "memory");
 }
 
+// Ask the copy engine to bring `bytes` at src into L2 (a hint: nothing is
+// written to shared memory and nothing waits for it).  Both a multiple of 16.
+__device__ __forceinline__ void bulk_prefetch_l2(const void* src, unsigned bytes) {
+  asm volatile("cp.async.bulk.prefetch.L2.global [%0], %1;" ::"l"(src), "r"(bytes) : "memory");
+}
+
+// Prefetch the whole of [p, p + bytes) into L2 in 64 KB pieces, where p is
+// 16-byte aligned (a trailing part under 16 bytes is left to the loads).
+__device__ __forceinline__ void prefetch_l2(const void* p, long long bytes) {
+  if (p == nullptr || (reinterpret_cast<uintptr_t>(p) & 15) != 0) return;
+  const char* c = static_cast<const char*>(p);
+  for (long long o = 0; o + 16 <= bytes; o += 65536) {
+    const long long left = bytes - o;
+    bulk_prefetch_l2(c + o, static_cast<unsigned>((left < 65536 ? left : 65536) & ~15LL));
+  }
+}
+
+// Bring the 128-byte line at p into L2 (a hint, one instruction a line).
+__device__ __forceinline__ void prefetch_line_l2(const void* p) {
+  asm volatile("prefetch.global.L2 [%0];" ::"l"(p));
+}
+
+// Named barriers between warps of one CTA (ids 1-15; id 0 is
+// __syncthreads).  `threads` counts every thread that arrives or waits, a
+// multiple of 32.  A producer arrives (and goes on); a consumer waits until
+// all have arrived, and then sees the shared and global writes the
+// producers made before they arrived.
+__device__ __forceinline__ void bar_arrive(int id, int threads) {
+  asm volatile("bar.arrive %0, %1;" ::"r"(id), "r"(threads) : "memory");
+}
+
+__device__ __forceinline__ void bar_sync(int id, int threads) {
+  asm volatile("bar.sync %0, %1;" ::"r"(id), "r"(threads) : "memory");
+}
+
 // Flags between the CTAs of one grid, at device scope.  A writer makes its
 // data visible to the whole CTA's threads' stores first (__syncthreads, then
 // one thread calls publish); a reader's one thread spins in await, then the

@@ -17,23 +17,26 @@
 // then add n * LD[:, block] dg to r_hat (SBayesD.cpp:264-267), carrying
 // r_hat in VMEM across an in-order grid.  CTAs run in no order here.
 //
-// The dense segment sweep is one C loop on one stream, two launches per
-// block:
-//   s_draws_kernel   one CTA per 8 chains: loads the B x B Gram block scaled
-//                    by n and its chains' packed rows into shared memory,
-//                    then warp w runs chain w's B dependent draws
-//                    (draws.cuh).
-//   seg_update_kernel  r_seg[k, i] += n sum_j LD[i, bB + j] dg[k, j] for
-//                    every row i of the segment and every chain k: many
-//                    CTAs, four rows per warp, each CTA owning distinct
-//                    rows, so no atomics and a fixed summation order; the
-//                    LD column block is read once for all chains.
-// Every launch but the first may start while the one before it still runs
-// (programmatic dependent launch, pdl.cuh): each first loads what no
-// earlier launch of the sweep writes (the Gram block, the packed rows, the
-// segment's LD rows), then waits, and only then reads r_hat or dg.  A draw
-// launch lets its successor start once its own wait is over; an update
-// launch at once.
+// The dense segment sweep is one persistent launch (seg_sweep_kernel), a
+// grid no larger than the CTAs that fit on the card at once:
+//   drawer CTAs, one per 8 chains (fewer where B = 128 leaves no room):
+//     warp w draws chain w's block b (draws.cuh) against the Gram block
+//     n LD[b, b] staged in shared memory, dg_b is published (a release
+//     flag), and the CTA itself adds n LD[b + 1, b] dg_b to r of block
+//     b + 1 (staged under block b's chain), so that block b + 1 waits only
+//     for the owners of its rows to have finished block b - 1;
+//   row-owner CTAs: each warp owns a fixed range of rows for the whole
+//     sweep, a lane a row at a time, the CTA keeps r of its rows in shared
+//     memory, streams LD[its rows, block b] through double-buffered
+//     cp.async tiles under the wait for dg_b, and applies every block to
+//     every row it owns in block order; the LD column block is read once
+//     for all chains.
+// Both form a row's sum alike (row_sum: one thread forms the products and
+// the shuffle tree of the two-launch update kernel this replaced, in that
+// tree's order), so the drawer's redundant
+// copy for block b + 1's rows is bit for bit the owners', and every output
+// is that kernel's.  The flags run on across sweeps (an epoch), so
+// nothing is reset between sweeps.
 //
 // The tiled sweep is one persistent launch (tiled_sweep_kernel): a grid no
 // larger than the CTAs that fit on the card at once.  CTA 0, the drawer,
@@ -55,11 +58,12 @@
 // m = 500,000 band moves 2.34 GB, 0.70 ms at 3.35 TB/s; a dense segment of
 // m = 32,768 4.3 GB, 1.28 ms) but the dependent draw chain of each block:
 // B draws in one warp, 128 a block, which no amount of parallel hardware
-// shortens (its latency alone: hb_chain_latency, PERF.md).  The segment
-// sweep hides each launch's loads behind the chain before it; the tiled
-// sweep also takes the launches and every hand-off off the chain, which
-// leaves per row the chain, the product of one tile in shared memory and
-// three barriers.
+// shortens (its latency alone: hb_chain_latency, PERF.md).  Both sweeps
+// take the launches and the hand-offs off the chain: the segment sweep
+// leaves per block the longer of the chain with the drawer's own
+// contribution and the owners' pass over LD[:, block b] (8 MB at m =
+// 32,768, B = 64); the tiled sweep per row the chain, the product of one
+// tile in shared memory and three barriers.
 //
 // The packed rows are read in the (R, m) layout that pack_rows returns and
 // transposed into shared memory, each SNP's rows at padded_stride (draws.cuh).
@@ -79,114 +83,375 @@
 
 namespace hb {
 
-constexpr int kSDrawThreads = 256;   // 8 warps load the Gram block; one per chain draws
-constexpr int kSChainsPerCta = kSDrawThreads / kWarp;
-constexpr int kUpdWarps = 8;
-constexpr int kUpdThreads = kWarp * kUpdWarps;
-constexpr int kUpdRows = 4;          // rows in flight per warp
+constexpr int kSegThreads = 256;
+constexpr int kSegWarps = kSegThreads / kWarp;
+constexpr int kSegChains = kSegWarps;  // chains a drawer CTA can draw (a warp each)
+constexpr int kTiles = 3;              // row tiles in flight a row-owner warp
+constexpr int kSegStamps = 12;         // stamps a block
 
 // Launches of each kernel, counted where it is launched (hb_s_launch_counts).
-long long g_seg_draws = 0, g_seg_update = 0, g_tiled_sweep = 0;
+long long g_segment_sweep = 0, g_tiled_sweep = 0;
 
-// One block of B draws for each of K chains.  W: the block's B x B Gram
-// rows with row stride ldw (unscaled LD), scaled by n on load.  P: packed
-// rows (K, R, m); the block's SNPs are columns col0 .. col0 + B - 1, as are
-// its entries of r, dg and tr (K, m).  CTA c serves chains 8c .. 8c + 7,
-// warp w chain 8c + w.
+// Inputs of the persistent segment sweep (csrc comment at seg_sweep_kernel;
+// the plan is ops/blockgibbs.py:segment_plan).
+struct SegArgs {
+  const float* LD;     // (mc, mc) row-major
+  const float* P;      // (K, R, mc) packed rows
+  int mc, B, K;
+  float n;
+  float *r, *dg, *tr;  // (K, mc): r in place; dg, tr out
+  float* snap;         // (2, K, B) scratch: r of a block two ahead, from its owners
+  unsigned* flags;     // K chain flags, then nown owner flags; run on by the epoch
+  unsigned epoch;
+  int ndraw, cpc;      // drawer CTAs, chains a drawer CTA
+  int nown, rw;        // row-owner CTAs, rows a row-owner warp
+  int kch;             // chains a row-owner pass
+  int trows;           // rows of a row-owner tile: one a lane (32, or 16 at B = 128)
+  int lds;             // row stride of the drawer's tile LD[b + 1, b] (B, or B + 4)
+  long long* stamps;   // measurement only (null in use)
+};
+
+// One row's sum sum_c x[c] d[c] over a row slice of B <= 128 columns, by
+// one thread, as the two-launch update kernel this replaced formed it
+// across a warp: the partial of "lane" l over columns 4l .. 4l + 3 (the
+// same products and sums; zero past B), then that kernel's shuffle tree
+// over the 32 partials, level by level (p_i + p_{i+16}, then + the sum
+// 8 on, 4, 2, 1), so the value is bit for bit that tree's in its lane 0.
+// x: the row's slice as float4s (zero past B), d in shared memory,
+// 16-byte aligned.
+__device__ __forceinline__ float row_sum(const float4 (&x)[kWarp], const float* d, int B) {
+  float a[16];
+#pragma unroll
+  for (int l = 0; l < 16; ++l) {
+    float lo = 0.f, hi = 0.f;
+    if (4 * l < B) {
+      const float4 dv = *reinterpret_cast<const float4*>(d + 4 * l);
+      lo = x[l].x * dv.x + x[l].y * dv.y + x[l].z * dv.z + x[l].w * dv.w;
+    }
+    if (4 * (l + 16) < B) {
+      const float4 dv = *reinterpret_cast<const float4*>(d + 4 * (l + 16));
+      hi = x[l + 16].x * dv.x + x[l + 16].y * dv.y + x[l + 16].z * dv.z + x[l + 16].w * dv.w;
+    }
+    a[l] = lo + hi;
+  }
+#pragma unroll
+  for (int l = 0; l < 8; ++l) a[l] += a[l + 8];
+#pragma unroll
+  for (int l = 0; l < 4; ++l) a[l] += a[l + 4];
+  a[0] += a[2];
+  a[1] += a[3];
+  return a[0] + a[1];
+}
+
+// A row slice of B floats in shared memory (16-byte aligned) as float4s.
+__device__ __forceinline__ void load_row(const float* p, int B, float4 (&x)[kWarp]) {
+#pragma unroll
+  for (int l = 0; l < kWarp; ++l)
+    x[l] = 4 * l < B ? *reinterpret_cast<const float4*>(p + 4 * l)
+                     : make_float4(0.f, 0.f, 0.f, 0.f);
+}
+
+// Shared memory of a drawer CTA in floats: two Gram blocks, the tile
+// LD[b + 1, b] at row stride lds, two blocks of packed rows for cpc
+// chains, and (cpc B each) dg of the block drawn, r of the block to draw,
+// the drawer's contribution's sums and r of block 1 as it starts.
+__host__ __device__ inline long long seg_draw_floats(int B, int RP, int cpc, int lds) {
+  return 2LL * B * B + static_cast<long long>(B) * lds + 2LL * cpc * B * RP + 4LL * cpc * B;
+}
+
+// Shared memory of a row-owner CTA in floats: each warp's kTiles row tiles
+// (trows x (B + 4)), dg of one block for kch chains, and r of the CTA's
+// rows for kch chains.
+__host__ __device__ inline long long seg_own_floats(int B, int rw, int kch, int trows) {
+  return static_cast<long long>(kSegWarps) * kTiles * trows * (B + 4) +
+         static_cast<long long>(kch) * B + static_cast<long long>(kSegWarps) * rw * kch;
+}
+
+// A drawer CTA: chains k0 .. k0 + kc - 1, warp w chain k0 + w.  For block
+// b it draws (draws.cuh, against n LD[b, b] staged and scaled), writes dg
+// and track, and each warp publishes its chain's dg_b (flag epoch + b +
+// 1).  Then, while the row owners apply dg_b to every row, it forms r of
+// block b + 1 itself:
+// r after block b - 1 (its owners' snapshot, or r as the sweep began for
+// block 1) plus n LD[b + 1, b] dg_b (row_sum, a thread a row and chain),
+// so that block b + 1 draws as soon as its owners have finished block
+// b - 1.  Block b + 1's Gram block, the tile LD[b + 1, b] and its packed
+// rows land (cp.async, issued by the warps that draw no chain, from L2,
+// where they were prefetched two blocks ahead) under block b's chain.
 template <int MI, int NF>
-__global__ void __launch_bounds__(kSDrawThreads)
-s_draws_kernel(const float* __restrict__ W, long long ldw, float n,
-               const float* __restrict__ P, long long m, long long col0, int B,
-               int K, const float* __restrict__ r, float* __restrict__ dg_out,
-               float* __restrict__ tr_out) {
+__device__ __forceinline__ void seg_drawer(const SegArgs& a, float* sm) {
   constexpr int R = packed_rows(MI, NF);
   constexpr int RP = padded_stride(R);
-  extern __shared__ __align__(16) float smem[];
-  const int k0 = blockIdx.x * kSChainsPerCta;
-  const int kc = min(kSChainsPerCta, K - k0);
-  float* Ws = smem;           // B * B
-  float* Ps = Ws + B * B;     // kc * B * RP, chain-major, SNP-major within
+  const int B = a.B, cpc = a.cpc, lds = a.lds;
+  const long long mc = a.mc;
+  const int nb = a.mc / B;
+  const int k0 = blockIdx.x * cpc;
+  const int kc = min(cpc, a.K - k0);
+  const int tid = threadIdx.x, warp = tid / kWarp, lane = tid % kWarp;
   const int B4 = B / 4;
-  for (int i = threadIdx.x; i < B * B4; i += blockDim.x) {
-    const int a = i / B4, c = 4 * (i - a * B4);
-    float4 w = *reinterpret_cast<const float4*>(W + a * ldw + c);
-    w.x *= n; w.y *= n; w.z *= n; w.w *= n;
-    *reinterpret_cast<float4*>(Ws + a * B + c) = w;
-  }
-  for (int i = threadIdx.x; i < kc * B * R; i += blockDim.x) {
-    const int kk = i / (B * R), rest = i - kk * B * R;
-    const int row = rest / B, j = rest - row * B;
-    Ps[kk * B * RP + j * RP + row] =
-        P[(static_cast<long long>(k0 + kk) * R + row) * m + col0 + j];
-  }
-  __syncthreads();
-  const int warp = threadIdx.x / kWarp;
-  if (warp >= kc) return;
-  wait_previous();   // the previous update of r is visible from here
-  release_next();
-  const int lane = threadIdx.x % kWarp;
-  const long long kb = static_cast<long long>(k0 + warp) * m + col0;
-  float rr[kSlots], gi[kSlots], dg[kSlots], tr[kSlots];
-#pragma unroll
-  for (int s = 0; s < kSlots; ++s) {
-    const int i = kSlots * lane + s;
-    rr[s] = i < B ? r[kb + i] : 0.f;
-    gi[s] = dg[s] = tr[s] = 0.f;
-  }
-  warp_block_draws<MI, NF>(B, Ws, Ps + warp * B * RP, rr, gi, dg, tr);
-#pragma unroll
-  for (int s = 0; s < kSlots; ++s) {
-    const int j = kSlots * lane + s;
-    if (j < B) {
-      dg_out[kb + j] = dg[s];
-      tr_out[kb + j] = tr[s];
+  float* G0 = sm;                       // + (b & 1) B B
+  float* Ls = G0 + 2 * B * B;           // B rows at stride lds
+  float* P0 = Ls + B * lds;             // + (b & 1) cpc B RP
+  float* dgs = P0 + 2 * cpc * B * RP;   // (kc, B)
+  float* rr = dgs + cpc * B;            // (kc, B): r of the block to draw
+  float* ps = rr + cpc * B;             // (kc, B): the contribution's sums
+  float* r1 = ps + cpc * B;             // (kc, B): r of block 1 as the sweep began
+  long long* st = blockIdx.x == 0 ? a.stamps : nullptr;
+  // the threads that stage: the warps that draw no chain, or all when each
+  // draws one (then before their chains)
+  const int s0 = kc < kSegWarps ? kc * kWarp : 0;
+  const int sn = kSegThreads - s0;
+  const bool stager = tid >= s0;
+  auto stage = [&](int b) {   // block b's Gram block, LD[b, b - 1] and packed rows
+    const long long row0 = static_cast<long long>(b) * B;
+    float* G = G0 + (b & 1) * B * B;
+    for (int e = tid - s0; e < B * B4; e += sn) {
+      const int i = e / B4, c = 4 * (e - i * B4);
+      cp_async16(G + i * B + c, a.LD + (row0 + i) * mc + row0 + c);
+      if (b > 0) cp_async16(Ls + i * lds + c, a.LD + (row0 + i) * mc + row0 - B + c);
     }
+    float* Pd = P0 + (b & 1) * cpc * B * RP;
+    for (int e = tid - s0; e < kc * B * R; e += sn) {
+      const int kk = e / (B * R), rest = e - kk * B * R;
+      const int row = rest / B, j = rest - row * B;
+      cp_async4(Pd + kk * B * RP + j * RP + row,
+                a.P + (static_cast<long long>(k0 + kk) * R + row) * mc + row0 + j);
+    }
+    cp_async_commit();
+  };
+  auto scale = [&](int b) {   // the Gram block times n, in place (as the parent staged it)
+    float4* G = reinterpret_cast<float4*>(G0 + (b & 1) * B * B);
+    for (int e = tid; e < B * B4; e += kSegThreads) {
+      float4 w = G[e];
+      w.x *= a.n; w.y *= a.n; w.z *= a.n; w.w *= a.n;
+      G[e] = w;
+    }
+  };
+  if (st != nullptr && tid == 0) {
+    st[kSegStamps * nb] = global_ns();
+    st[kSegStamps * nb + 2] = clock64();
+  }
+  if (stager) stage(0);
+  for (int e = tid; e < kc * B; e += kSegThreads) {
+    const int kk = e / B, j = e - kk * B;
+    const long long base = static_cast<long long>(k0 + kk) * mc;
+    rr[e] = __ldcg(a.r + base + j);
+    if (nb > 1) r1[e] = __ldcg(a.r + base + B + j);
+  }
+  cp_async_wait<0>();
+  __syncthreads();
+  scale(0);
+  __syncthreads();
+  // L2 prefetch of what stage(b) copies, issued two blocks ahead: the
+  // copies then hit L2 under the chain, however busy the row owners keep
+  // device memory
+  auto prefetch = [&](int b) {   // 128-byte lines: rows of block b, columns of b - 1 and b
+    const long long row0 = static_cast<long long>(b) * B;
+    const int lpr = (2 * B + 31) / 32;   // lines a row
+    for (int e = tid - s0; e < B * lpr; e += sn)
+      prefetch_line_l2(a.LD + (row0 + e / lpr) * mc + row0 - B + 32 * (e % lpr));
+    const int lpp = (B + 31) / 32;
+    for (int e = tid - s0; e < kc * R * lpp; e += sn)
+      prefetch_line_l2(a.P + static_cast<long long>(k0 * R + e / lpp) * mc + row0 + 32 * (e % lpp));
+  };
+  if (nb > 2 && stager) prefetch(2);
+  for (int b = 0; b < nb; ++b) {
+    const long long col0 = static_cast<long long>(b) * B;
+    if (stager) {
+      if (b + 1 < nb) stage(b + 1);
+      if (b + 3 < nb) prefetch(b + 3);
+    }
+    if (st != nullptr && tid == 0) st[kSegStamps * b] = clock64();
+    if (warp < kc) {
+      const long long kb = static_cast<long long>(k0 + warp) * mc + col0;
+      float rv[kSlots], gi[kSlots], dg[kSlots], tr[kSlots];
+#pragma unroll
+      for (int s = 0; s < kSlots; ++s) {
+        const int j = kSlots * lane + s;
+        rv[s] = j < B ? rr[warp * B + j] : 0.f;
+        gi[s] = dg[s] = tr[s] = 0.f;
+      }
+      warp_block_draws<MI, NF>(B, G0 + (b & 1) * B * B, P0 + (b & 1) * cpc * B * RP + warp * B * RP,
+                               rv, gi, dg, tr);
+      if (st != nullptr && tid == 0) st[kSegStamps * b + 10] = clock64();
+#pragma unroll
+      for (int s = 0; s < kSlots; ++s) {
+        const int j = kSlots * lane + s;
+        if (j < B) {
+          a.dg[kb + j] = dg[s];
+          a.tr[kb + j] = tr[s];
+          dgs[warp * B + j] = dg[s];
+        }
+      }
+      __syncwarp();
+      if (lane == 0) publish(a.flags + k0 + warp, a.epoch + b + 1);   // dg_b of this chain
+      if (st != nullptr && tid == 0) st[kSegStamps * b + 11] = clock64();
+    }
+    cp_async_wait<0>();
+    __syncthreads();   // dg of every chain in dgs and global memory; block b + 1 staged
+    if (st != nullptr && tid == 0) st[kSegStamps * b + 1] = clock64();
+    if (b + 1 == nb) break;
+    scale(b + 1);
+    // n LD[b + 1, b] dg_b: thread q the row q % B of chain q / B
+    for (int q = tid; q < kc * B; q += kSegThreads) {
+      const int kk = q / B, i = q - kk * B;
+      float4 x[kWarp];
+      load_row(Ls + i * lds, B, x);
+      ps[q] = row_sum(x, dgs + kk * B, B);
+    }
+    if (st != nullptr && tid == 0) st[kSegStamps * b + 2] = clock64();
+    if (b + 1 >= 2 && tid == 0) {   // the owners of block b + 1's rows have finished block b - 1
+      const long long lo = static_cast<long long>(b + 1) * B, hi = lo + B - 1;
+      const int rows_cta = kSegWarps * a.rw;
+      for (int o = static_cast<int>(lo / rows_cta); o <= static_cast<int>(hi / rows_cta); ++o)
+        await(a.flags + a.K + o, a.epoch + b);
+    }
+    __syncthreads();
+    if (st != nullptr && tid == 0) st[kSegStamps * b + 3] = clock64();
+    const float* snap = a.snap + (static_cast<long long>((b + 1) & 1) * a.K + k0) * B;
+    for (int e = tid; e < kc * B; e += kSegThreads)
+      rr[e] = (b + 1 >= 2 ? __ldcg(snap + e) : r1[e]) + a.n * ps[e];
+    __syncthreads();   // rr holds r of block b + 1
+    if (st != nullptr && tid == 0) st[kSegStamps * b + 4] = clock64();
+  }
+  if (st != nullptr && tid == 0) {
+    st[kSegStamps * nb + 1] = global_ns();
+    st[kSegStamps * nb + 3] = clock64();
   }
 }
 
-// r[k, i] += n * sum_j LD[i, col0 + j] dg[k, col0 + j] for i in [0, mc) and
-// each chain k < K (r, dg (K, mc)).  Warp w of CTA c takes rows
-// (c * kUpdWarps + w) * kUpdRows + v, v < kUpdRows, all loads in flight
-// together (before the wait for the draws) and kept in registers for every
-// chain; lane l owns columns 4l .. 4l + 3 (B <= 128).  A chain's sums do
-// not depend on K.
-__global__ void __launch_bounds__(kUpdThreads)
-seg_update_kernel(const float* __restrict__ LD, long long mc, long long col0,
-                  int B, int K, float n, const float* __restrict__ dg,
-                  float* __restrict__ r) {
-  release_next();
-  const int warp = threadIdx.x / kWarp;
-  const int lane = threadIdx.x % kWarp;
-  const int c0 = 4 * lane;
-  const bool owns = c0 < B;
-  const long long row0 = (static_cast<long long>(blockIdx.x) * kUpdWarps + warp) * kUpdRows;
-  float4 x[kUpdRows];
-#pragma unroll
-  for (int v = 0; v < kUpdRows; ++v) {
-    x[v] = make_float4(0.f, 0.f, 0.f, 0.f);
-    if (owns && row0 + v < mc)
-      x[v] = *reinterpret_cast<const float4*>(LD + (row0 + v) * mc + col0 + c0);
-  }
-  wait_previous();   // dg of this block is visible from here
-  for (int k = 0; k < K; ++k) {
-    const long long kb = static_cast<long long>(k) * mc;
-    float4 d = make_float4(0.f, 0.f, 0.f, 0.f);
-    if (owns) d = *reinterpret_cast<const float4*>(dg + kb + col0 + c0);
-    float part[kUpdRows];
-#pragma unroll
-    for (int v = 0; v < kUpdRows; ++v)
-      part[v] = x[v].x * d.x + x[v].y * d.y + x[v].z * d.z + x[v].w * d.w;
-    for (int o = kWarp / 2; o > 0; o >>= 1) {
-#pragma unroll
-      for (int v = 0; v < kUpdRows; ++v)
-        part[v] += __shfl_down_sync(0xffffffffu, part[v], o);
+// A row-owner CTA: warp w owns rows (o 8 + w) rw .. + rw for the whole
+// sweep, and the CTA keeps r of its rows in shared memory (kch chains at a
+// time).  For each block b it waits for dg_b (every chain's flag); then
+// each warp adds n LD[row, block b] dg_b to each of its rows and chains,
+// in block order, a lane a row (row_sum), its LD rows streamed in tiles of
+// trows rows (one block's columns, rows padded to B + 4 floats, so the
+// lanes' reads spread over the banks) through kTiles buffers (cp.async,
+// kTiles - 1 tiles ahead, across blocks); the rows of block b + 2 go to the
+// snapshot too, for the drawer.  The CTA publishes "block b done" (flag
+// epoch + b + 1) once all its warps are through.  With K > kch each pass
+// over a block takes kch chains, and r of the CTA's rows goes back to
+// global memory between passes.
+__device__ __forceinline__ void seg_owner(const SegArgs& a, float* sm) {
+  const int B = a.B, K = a.K, rw = a.rw, kch = a.kch, TR = a.trows;
+  const int ldr = B + 4;
+  const long long mc = a.mc;
+  const int nb = a.mc / B;
+  const int o = blockIdx.x - a.ndraw;
+  const int tid = threadIdx.x, warp = tid / kWarp, lane = tid % kWarp;
+  const int B4 = B / 4;
+  const int rows_cta = kSegWarps * rw;
+  const long long crow0 = static_cast<long long>(o) * rows_cta;   // the CTA's first row
+  const long long wrow0 = crow0 + static_cast<long long>(warp) * rw;
+  float* ring = sm + warp * kTiles * TR * ldr;
+  float* dgs = sm + kSegWarps * kTiles * TR * ldr;   // (kch, B)
+  float* rs = dgs + kch * B;                          // (rows_cta, kch)
+  const int nch = (K + kch - 1) / kch;
+  const int tpw = (rw + TR - 1) / TR;                 // tiles a warp per pass
+  const long long total = static_cast<long long>(nb) * nch * tpw;
+  long long* st = (o == 0 && a.stamps != nullptr) ? a.stamps : nullptr;
+  auto issue = [&](long long s) {   // tile s of the warp's stream into its buffer
+    if (s < total) {
+      const long long pass = s / tpw;
+      const int g = static_cast<int>(s - pass * tpw);
+      const long long b = pass / nch;
+      float* U = ring + static_cast<int>(s % kTiles) * TR * ldr;
+      for (int e = lane; e < TR * B4; e += kWarp) {
+        const int v = e / B4, c = 4 * (e - v * B4);
+        const int lr = g * TR + v;
+        const long long row = wrow0 + lr;
+        if (lr < rw && row < mc) cp_async16(U + v * ldr + c, a.LD + row * mc + b * B + c);
+      }
     }
-    if (lane == 0) {
-#pragma unroll
-      for (int v = 0; v < kUpdRows; ++v)
-        if (row0 + v < mc) r[kb + row0 + v] += n * part[v];
+    cp_async_commit();
+  };
+  auto chunk_r = [&](int ch, bool load) {   // r of the CTA's rows, chains of pass ch
+    const int kq0 = ch * kch, kq = min(kch, K - kq0);
+    for (int e = tid; e < rows_cta * kq; e += kSegThreads) {
+      const int kk = e / rows_cta, lr = e - kk * rows_cta;
+      const long long row = crow0 + lr;
+      if (row >= mc) continue;
+      float* g = a.r + static_cast<long long>(kq0 + kk) * mc + row;
+      if (load) rs[lr * kch + kk] = __ldcg(g);
+      else __stcg(g, rs[lr * kch + kk]);
+    }
+  };
+  for (int q = 0; q < kTiles - 1; ++q) issue(q);
+  chunk_r(0, true);
+  long long s = 0;
+  for (int b = 0; b < nb; ++b) {
+    for (int ch = 0; ch < nch; ++ch) {
+      __syncthreads();   // every warp is through the pass before (dgs and rs free)
+      if (ch == 0 && tid == 0 && b > 0) {
+        publish(a.flags + K + o, a.epoch + b);   // block b - 1 done
+        if (st != nullptr) st[kSegStamps * (b - 1) + 6] = clock64();
+      }
+      // the pass's first copies, before the wait for dg_b: a full memory
+      // pipe holds them back at issue, and the wait absorbs that
+      __syncwarp();      // the buffer issue() refills was read by every lane
+      issue(s + kTiles - 1);
+      if (ch == 0) {
+        if (tid == 0) {
+          for (int c = 0; c < K; ++c) await(a.flags + c, a.epoch + b + 1);
+          if (st != nullptr) st[kSegStamps * b + 5] = clock64();
+        }
+        __syncthreads();   // dg_b of every chain is published
+      }
+      if (nch > 1 && (b > 0 || ch > 0)) {
+        chunk_r(ch == 0 ? nch - 1 : ch - 1, false);
+        __syncthreads();
+        chunk_r(ch, true);
+      }
+      const int kq0 = ch * kch, kq = min(kch, K - kq0);
+      for (int e = tid; e < kq * B; e += kSegThreads) {
+        const int kk = e / B, j = e - kk * B;
+        dgs[e] = __ldcg(a.dg + static_cast<long long>(kq0 + kk) * mc +
+                        static_cast<long long>(b) * B + j);
+      }
+      __syncthreads();   // dg_b of the pass's chains in dgs
+      if (st != nullptr && tid == 0 && ch == 0) st[kSegStamps * b + 7] = clock64();
+      const long long two = static_cast<long long>(b + 2) * B;
+      for (int g = 0; g < tpw; ++g, ++s) {
+        if (g > 0) {
+          __syncwarp();
+          issue(s + kTiles - 1);
+        }
+        cp_async_wait<kTiles - 1>();
+        __syncwarp();    // tile s has landed, every lane's part of it
+        if (st != nullptr && tid == 0 && ch == 0 && g == 0) st[kSegStamps * b + 8] = clock64();
+        const int lr = warp * rw + g * TR + lane;   // the lane's row, within the CTA
+        const long long row = crow0 + lr;
+        if (lane >= TR || g * TR + lane >= rw || row >= mc) continue;
+        float4 x[kWarp];   // the lane's row, read once for every chain
+        load_row(ring + static_cast<int>(s % kTiles) * TR * ldr + lane * ldr, B, x);
+        const bool snap = b + 2 < nb && row >= two && row < two + B;
+        for (int kk = 0; kk < kq; ++kk) {
+          float& rv = rs[lr * kch + kk];
+          rv += a.n * row_sum(x, dgs + kk * B, B);
+          if (snap)
+            a.snap[(static_cast<long long>((b + 2) & 1) * K + kq0 + kk) * B + (row - two)] = rv;
+        }
+        if (st != nullptr && tid == 0 && ch == 0 && g == 0) st[kSegStamps * b + 9] = clock64();
+      }
     }
   }
+  __syncthreads();
+  chunk_r(nch - 1, false);
+  if (tid == 0) {
+    publish(a.flags + K + o, a.epoch + nb);
+    if (st != nullptr) st[kSegStamps * (nb - 1) + 6] = clock64();
+  }
+}
+
+// The dense segment sweep, one persistent launch: CTAs 0 .. ndraw - 1 draw
+// (seg_drawer), the others own rows (seg_owner).  Grid no larger than the
+// CTAs that fit on the card at once (every CTA resident, so the flag waits
+// cannot deadlock).
+template <int MI, int NF>
+__global__ void __launch_bounds__(kSegThreads, 1) seg_sweep_kernel(SegArgs a) {
+  extern __shared__ __align__(16) float sm[];
+  if (static_cast<int>(blockIdx.x) < a.ndraw) seg_drawer<MI, NF>(a, sm);
+  else seg_owner(a, sm);
 }
 
 inline bool block_ok(int B, int mi, int nf) {
@@ -194,46 +459,28 @@ inline bool block_ok(int B, int mi, int nf) {
          nf >= 2 && nf <= kMaxFold;
 }
 
-// Shared memory of s_draws_kernel for kc chains per CTA (into *smem), set
-// as the kernel's limit.
-template <int MI, int NF>
-cudaError_t set_draw_smem(int B, int kc, size_t* smem) {
-  *smem = sizeof(float) * static_cast<size_t>(B) *
-          (B + static_cast<size_t>(kc) * padded_stride(packed_rows(MI, NF)));
-  return cudaFuncSetAttribute(s_draws_kernel<MI, NF>,
-                              cudaFuncAttributeMaxDynamicSharedMemorySize,
-                              static_cast<int>(*smem));
-}
-
-struct SegArgs {
-  const float* LD;
-  const float* P;
-  int mc, B, K;
-  float n;
-  float *r, *dg, *tr;
-};
-
 template <int MI, int NF, bool GUARD>
 cudaError_t seg_sweep(const SegArgs& a, cudaStream_t stream) {
-  size_t smem;
-  cudaError_t e = set_draw_smem<MI, NF>(
-      a.B, a.K < kSChainsPerCta ? a.K : kSChainsPerCta, &smem);
+  constexpr int RP = padded_stride(packed_rows(MI, NF));
+  const long long fl = seg_draw_floats(a.B, RP, a.cpc, a.lds);
+  const long long fo = seg_own_floats(a.B, a.rw, a.kch, a.trows);
+  const size_t smem = sizeof(float) * static_cast<size_t>(fl > fo ? fl : fo);
+  int dev = 0, sms = 0, per_sm = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e == cudaSuccess) e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (e == cudaSuccess)
+    e = cudaFuncSetAttribute(seg_sweep_kernel<MI, NF>,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
+  if (e == cudaSuccess)
+    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, seg_sweep_kernel<MI, NF>,
+                                                      kSegThreads, smem);
   if (e != cudaSuccess) return e;
-  const long long mc = a.mc;
-  const int draw_grid = (a.K + kSChainsPerCta - 1) / kSChainsPerCta;
-  const int upd_grid = static_cast<int>((mc + kUpdWarps * kUpdRows - 1) / (kUpdWarps * kUpdRows));
-  for (long long col0 = 0; col0 < mc; col0 += a.B) {
-    e = launch(col0 > 0, s_draws_kernel<MI, NF>, draw_grid, kSDrawThreads, smem,
-               stream, a.LD + col0 * mc + col0, mc, a.n, a.P, mc, col0, a.B, a.K,
-               static_cast<const float*>(a.r), a.dg, a.tr);
-    if (e != cudaSuccess) return e;
-    ++g_seg_draws;
-    e = launch(true, seg_update_kernel, upd_grid, kUpdThreads, 0, stream, a.LD, mc,
-               col0, a.B, a.K, a.n, static_cast<const float*>(a.dg), a.r);
-    if (e != cudaSuccess) return e;
-    ++g_seg_update;
-  }
-  return cudaSuccess;
+  const long long grid = static_cast<long long>(a.ndraw) + a.nown;
+  if (grid > static_cast<long long>(per_sm) * sms) return cudaErrorCooperativeLaunchTooLarge;
+  seg_sweep_kernel<MI, NF><<<static_cast<int>(grid), kSegThreads, smem, stream>>>(a);
+  e = cudaGetLastError();
+  if (e == cudaSuccess) ++g_segment_sweep;
+  return e;
 }
 
 // ---------------------------------------------------------------------------
@@ -690,28 +937,39 @@ const char* hb_error_string(int code) {
   return cudaGetErrorString(static_cast<cudaError_t>(code));
 }
 
-// Launches since the last reset: segment draws, segment updates, tiled
-// sweeps.
+// Launches since the last reset: segment sweeps, tiled sweeps.
 void hb_s_launch_counts(long long* out) {
-  out[0] = hb::g_seg_draws;
-  out[1] = hb::g_seg_update;
-  out[2] = hb::g_tiled_sweep;
+  out[0] = hb::g_segment_sweep;
+  out[1] = hb::g_tiled_sweep;
 }
 
-void hb_s_reset_launch_counts() {
-  hb::g_seg_draws = hb::g_seg_update = hb::g_tiled_sweep = 0;
-}
+void hb_s_reset_launch_counts() { hb::g_segment_sweep = hb::g_tiled_sweep = 0; }
 
-// Sweep one dense LD segment for K chains.  LD (mc, mc) row-major; P
-// (K, R, mc) packed rows; r (K, mc) updated in place; dg, track (K, mc)
-// outputs.  mc % B == 0; LD, P, r and dg 16-byte aligned.
+// Sweep one dense LD segment for K chains in one launch.  LD (mc, mc)
+// row-major; P (K, R, mc) packed rows; r (K, mc) updated in place; dg,
+// track (K, mc) outputs; snap (2, K, B) scratch.  The plan
+// (ops/blockgibbs.py:segment_plan): ndraw drawer CTAs of cpc chains, nown
+// row-owner CTAs of 8 warps, each warp rw rows in tiles of trows, kch
+// chains a row-owner pass, the drawer's tile at row stride lds.  flags
+// (K chains', then nown row owners') run on across sweeps: this sweep
+// publishes epoch + 1 .. epoch + mc / B.  mc % B == 0; LD, P, r
+// and dg 16-byte aligned.  A grid that cannot be resident at once is
+// refused (cudaErrorCooperativeLaunchTooLarge).  stamps (measurement only;
+// null in use): 12 values a block (hb::seg_drawer, hb::seg_owner), then
+// %globaltimer ns and clock64 at the drawer's start and end.
 int hb_sweep_s_segment(const float* LD, const float* P, int mc, int B, int R,
                        int K, int mi, int nf, float n, float* r, float* dg,
-                       float* track, void* stream) {
+                       float* track, float* snap, unsigned* flags, unsigned epoch,
+                       int ndraw, int cpc, int nown, int rw, int kch, int trows, int lds,
+                       long long* stamps, void* stream) {
   if (!hb::block_ok(B, mi, nf) || mc <= 0 || mc % B != 0 || K <= 0 ||
-      R != hb::packed_rows(mi, nf))
+      R != hb::packed_rows(mi, nf) || cpc < 1 || cpc > hb::kSegChains ||
+      ndraw != (K + cpc - 1) / cpc || rw < 1 || nown < 1 ||
+      static_cast<long long>(nown) * hb::kSegWarps * rw < mc || kch < 1 || trows < 1 ||
+      trows > hb::kWarp || (lds != B && lds != B + 4))
     return cudaErrorInvalidValue;
-  const hb::SegArgs a{LD, P, mc, B, K, n, r, dg, track};
+  const hb::SegArgs a{LD, P, mc, B, K, n, r, dg, track, snap, flags, epoch,
+                      ndraw, cpc, nown, rw, kch, trows, lds, stamps};
   return hb::dispatch<hb::SegSweep>(a, mi, nf, false, static_cast<cudaStream_t>(stream));
 }
 

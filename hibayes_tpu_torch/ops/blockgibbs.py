@@ -56,11 +56,11 @@ The libraries count every launch of each CUDA kernel where it is made
 (:func:`kernel_launches`): a one-chain sweep over nbg blocks is one
 persistent ``sweep1`` launch (:func:`sweep1_plan`); a K-chain sweep (K >= 2)
 launches ``rows_mc_kernel`` nbg + 1 times and ``draws_kernel`` nbg times;
-``block_draws`` launches ``draws_kernel`` once; a segment sweep over nb blocks
-``segment_draws`` and ``segment_update`` nb times each; a tiled sweep
-``tiled_sweep`` once (one persistent launch for every tile row, in the
+``block_draws`` launches ``draws_kernel`` once; a segment sweep, one or K
+chains, ``segment_sweep`` once (one persistent launch, :func:`segment_plan`);
+a tiled sweep ``tiled_sweep`` once (one persistent launch for every tile row, in the
 order of :func:`tiled_schedule`); an epsilon sweep ``mme_sweep_kernel``
-once.
+once (ordered by :func:`mme_plan`).
 """
 
 from __future__ import annotations
@@ -450,14 +450,13 @@ def kernel_launches() -> dict:
     sweep1, rows_mc, draws = ctypes.c_longlong(), ctypes.c_longlong(), ctypes.c_longlong()
     build.library().hb_launch_counts(ctypes.byref(sweep1), ctypes.byref(rows_mc),
                                      ctypes.byref(draws))
-    s = (ctypes.c_longlong * 3)()
+    s = (ctypes.c_longlong * 2)()
     build.library("sgibbs.cu").hb_s_launch_counts(s)
     e = ctypes.c_longlong()
     build.library("mme.cu").hb_mme_launch_counts(ctypes.byref(e))
     return {"sweep1": sweep1.value, "rows_mc_kernel": rows_mc.value,
-            "draws_kernel": draws.value,
-            "segment_draws": s[0], "segment_update": s[1],
-            "tiled_sweep": s[2], "mme_sweep_kernel": e.value}
+            "draws_kernel": draws.value, "segment_sweep": s[0],
+            "tiled_sweep": s[1], "mme_sweep_kernel": e.value}
 
 
 def reset_kernel_launches() -> None:
@@ -743,7 +742,86 @@ def sweep_s_segment_plain(spec, LD_seg, r_seg, P, n):
 sweep_s_segment_plain.calls = 0
 
 
-def sweep_s_segment(spec, LD_seg, r_seg, P, n):
+SEG_WARPS = 8         # warps of a segment-sweep CTA (csrc/sgibbs.cu kSegWarps)
+SEG_TILES = 3         # row tiles in flight a row-owner warp (kTiles)
+
+
+def segment_tile_rows(B: int) -> int:
+    """Rows of a row-owner warp's tile, one a lane: 32, or 16 at B > 64 so
+    that SEG_TILES tiles a warp fit in shared memory."""
+    return 32 if B <= 64 else 16
+
+
+def segment_smem(B: int, RP: int, cpc: int, rw: int, kch: int, lds: int) -> tuple:
+    """Shared memory bytes of the segment sweep's drawer CTA (two Gram
+    blocks, the tile LD[b + 1, b] at row stride lds, two blocks of packed
+    rows at stride RP for cpc chains, four (cpc, B) buffers) and of a
+    row-owner CTA (each warp's SEG_TILES tiles of segment_tile_rows(B) rows
+    at stride B + 4, dg of one block for kch chains, r of its 8 rw rows for
+    kch chains); csrc/sgibbs.cu seg_draw_floats, seg_own_floats."""
+    draw = 4 * (2 * B * B + B * lds + 2 * cpc * B * RP + 4 * cpc * B)
+    own = 4 * (SEG_WARPS * SEG_TILES * segment_tile_rows(B) * (B + 4) + kch * B
+               + SEG_WARPS * rw * kch)
+    return draw, own
+
+
+def segment_plan(mc: int, B: int, K: int, R: int, sms: int,
+                 optin: int = SMEM_OPTIN) -> dict:
+    """The persistent segment sweep's launch for a segment of mc rows,
+    blocks of B, K chains, R packed rows: drawer CTAs of cpc chains (8, or
+    fewer where their shared memory would not fit), the drawer's tile
+    LD[b + 1, b] at row stride lds (B + 4, so that its threads' reads
+    spread over the banks, where that fits, else B), row-owner CTAs of 8
+    warps, each warp rw rows (a multiple of 4, so that the owners fill the
+    SMs the drawers leave) in tiles of segment_tile_rows(B), and kch chains
+    a row-owner pass (all K where they fit, else as many as fit).  At most
+    one CTA an SM.  Returns cpc, ndraw, rw, nown, kch, trows, lds and smem
+    (bytes a CTA); raises if no split fits."""
+    RP = padded_stride(R)
+    cpc = next((c for c in (8, 4, 2, 1) if segment_smem(B, RP, c, 4, 1, B)[0] <= optin), None)
+    if cpc is None:
+        raise ValueError(f"sweep_s_segment: blocks of {B} do not fit a drawer CTA")
+    lds = B + 4 if segment_smem(B, RP, cpc, 4, 1, B + 4)[0] <= optin else B
+    ndraw = -(-K // cpc)
+    room = sms - ndraw
+    if room < 1:
+        raise ValueError(f"sweep_s_segment: {K} chains take {ndraw} drawer CTAs, "
+                         f"{sms} SMs leave none for the rows")
+    rw = -(-mc // (room * SEG_WARPS))
+    rw = -(-rw // 4) * 4
+    nown = -(-(-(-mc // rw)) // SEG_WARPS)
+    tiles = segment_smem(B, RP, cpc, rw, 0, lds)[1]
+    kch = min(K, (optin - tiles) // (4 * (B + SEG_WARPS * rw)))
+    if kch < 1:
+        raise ValueError(f"sweep_s_segment: {rw} rows a warp at blocks of {B} do not "
+                         f"fit a row-owner CTA")
+    draw, own = segment_smem(B, RP, cpc, rw, kch, lds)
+    return {"cpc": cpc, "ndraw": ndraw, "rw": rw, "nown": nown, "kch": kch,
+            "trows": segment_tile_rows(B), "lds": lds, "smem": max(draw, own)}
+
+
+def segment_rows(o: int, w: int, rw: int, mc: int) -> range:
+    """Rows that warp w of row-owner CTA o owns for the whole segment sweep
+    (csrc/sgibbs.cu seg_owner)."""
+    r0 = (o * SEG_WARPS + w) * rw
+    return range(min(r0, mc), min(r0 + rw, mc))
+
+
+# the flags of the segment sweep on each device: each chain's and each
+# row-owner CTA's progress, values that run on across sweeps, and the next
+# sweep's epoch (it publishes epoch + 1 .. epoch + nb)
+_SEGMENT_FLAGS = {}
+
+
+def _segment_flags(dev, n: int) -> dict:
+    st = _SEGMENT_FLAGS.get(str(dev))
+    if st is None or st["flags"].numel() < n:
+        st = {"flags": torch.zeros(max(n, 256), dtype=torch.int32, device=dev), "epoch": 0}
+        _SEGMENT_FLAGS[str(dev)] = st
+    return st
+
+
+def sweep_s_segment(spec, LD_seg, r_seg, P, n, stamps=None):
     """Summary sweep of one or K chains over one padded dense LD segment;
     the contract of ``sweep_s_segment`` (hibayes_tpu/ops/blockgibbs.py:1207-1254)
     for one chain and of ``sweep_s_segment_t`` (:1325-1362) for K.
@@ -754,7 +832,20 @@ def sweep_s_segment(spec, LD_seg, r_seg, P, n):
     n LD[block, block], then r_seg += n LD[:, block] dg.  The JAX wrapper's
     ``consts`` carry only the fold-0 logit, which the packed rows hold, so
     the port takes none.  Returns (dg, track int32, r_seg_new), each (mc,)
-    or (K, mc) as r_seg."""
+    or (K, mc) as r_seg.
+
+    On the card the sweep is one persistent launch (:func:`segment_plan`;
+    its flags, per device, run on by an epoch: two segment sweeps must not
+    run at once on one device).  ``stamps`` (measurement only): an int64
+    tensor of at least 12 (mc / B) + 4 entries that gets, per block, the
+    first drawer CTA's clock64 at the chain's start, after the barrier that
+    follows its chains (dg published, the next block staged), after its
+    contribution's sums, after the wait for the rows' owners and with r of
+    the next block ready; the first row-owner CTA's once dg is seen, once
+    the block is applied, after dg is loaded into shared memory, and its
+    first warp's after its tile's wait and after its tile's sums; the
+    first drawer warp's after its draws and after it published dg; then
+    %globaltimer ns and clock64 at the drawer's start and end."""
     if r_seg.device.type == "cpu":
         return sweep_s_segment_plain(spec, LD_seg, r_seg, P, n)
     _require_cuda(r_seg, LD_seg, P)
@@ -773,17 +864,32 @@ def sweep_s_segment(spec, LD_seg, r_seg, P, n):
                          f"do not fit a segment of blocks of {B} with {R} rows")
     if not LD_seg.is_contiguous() or LD_seg.data_ptr() % 16:
         raise ValueError("sweep_s_segment: LD must be contiguous and 16-byte aligned")
+    nb = mc // B
+    if stamps is not None and (stamps.dtype != torch.int64 or stamps.device != r_seg.device
+                               or stamps.numel() < 12 * nb + 4):
+        raise ValueError("sweep_s_segment: stamps must be int64 on the card, 12 per block + 4")
     lib = build.library("sgibbs.cu")
     dev = r_seg.device
+    props = torch.cuda.get_device_properties(dev)
+    plan = segment_plan(mc, B, K, R, props.multi_processor_count,
+                        getattr(props, "shared_memory_per_block_optin", SMEM_OPTIN))
+    fl = _segment_flags(dev, K + plan["nown"])
     Pc = P.contiguous()
     r = r_seg.clone(memory_format=torch.contiguous_format)
     dg = torch.empty(lead + (mc,), dtype=F32, device=dev)
     track = torch.empty(lead + (mc,), dtype=F32, device=dev)
+    snap = torch.empty((2, K, B), dtype=F32, device=dev)
     code = lib.hb_sweep_s_segment(
         LD_seg.data_ptr(), Pc.data_ptr(), mc, B, R, K, spec.model_index,
         spec.n_fold, float(n), r.data_ptr(), dg.data_ptr(), track.data_ptr(),
+        snap.data_ptr(), fl["flags"].data_ptr(), fl["epoch"] & 0xFFFFFFFF, plan["ndraw"],
+        plan["cpc"], plan["nown"], plan["rw"], plan["kch"], plan["trows"], plan["lds"],
+        None if stamps is None else stamps.data_ptr(),
         torch.cuda.current_stream(dev).cuda_stream)
+    if code != 0:
+        _SEGMENT_FLAGS.pop(str(dev), None)
     build.check(lib, code, "sweep_s_segment")
+    fl["epoch"] += nb
     sweep_s_segment.launches += 1
     return dg, track.to(torch.int32), r
 
@@ -1083,7 +1189,154 @@ def mme_sweep_plain(sp, counts, scale, ve, z, x, res):
 mme_sweep_plain.calls = 0
 
 
-def mme_sweep(sp, counts, scale, ve, z, x, res):
+MME_RECORD_HEAD = 8   # ints of an epsilon record before its row pointers (csrc/mme.cu kRecHead)
+
+
+def mme_tile(T: int) -> int:
+    """The epsilon kernel's slot width for blocks of T sites: 32, 64 or 128,
+    the least >= T (a lane owns TM / 32 sites; csrc/mme.cu mme_chain)."""
+    if not 0 < T <= MAX_BLOCK:
+        raise ValueError(f"mme_sweep: blocks of {T} sites (at most {MAX_BLOCK})")
+    return 32 if T <= 32 else (64 if T <= 64 else 128)
+
+
+def mme_site_owner(k: int, TM: int) -> tuple:
+    """(lane, slot) of the drawer warp that holds site k's residual and dx
+    in the epsilon chain (csrc/mme.cu mme_chain): lane l owns sites
+    S l .. S l + S - 1, S = TM / 32."""
+    S = TM // 32
+    return k // S, k % S
+
+
+def mme_plan_host(blk_ptr, urow, row_ptr, ent_col, ent_val, nbr: int, T: int) -> dict:
+    """The epsilon sweep's host plan for diagonal blocks 0 .. nbr - 1 of a
+    layout (numpy or CPU tensors: blk_ptr, urow, row_ptr, ent_col; ent_val
+    float32).  Each forward row u of block i (target block tb = urow[u] // T)
+    goes to one of three groups:
+
+    * near (tb = i + 1 < nbr): the drawer sums its terms right after block
+      i's draws and subtracts them from block i + 1's residual before its
+      draws; packed in block i's record by target site k = urow[u] - tb T:
+      ``nptr`` (TM + 1 offsets) and the (column, value bits) pairs;
+    * two on (tb = i + 2 < nbr) and far (every other row, those past the
+      swept blocks too): applied by the scatter warps in the phase after
+      block i's draws, the former to block i + 2's residual in shared
+      memory (a mask in the record), the latter to res in global memory;
+      listed in ``far_rows`` as (row, first entry, end entry, tb or -1),
+      block i's at rec[i, 0] .. rec[i, 1].
+
+    Every row keeps its entries in stored order and each target its source
+    blocks in sweep order.  Returns rec (nbr, RI) int32, far_rows (n, 4)
+    int32 (at least one row), TM, RI, ncap (the most near entries of a
+    block), dist (rows by target-block distance) and the counts of near,
+    two-on and far rows."""
+    as_np = lambda a: (a.detach().cpu().numpy() if isinstance(a, torch.Tensor)
+                       else np.asarray(a))
+    TM = mme_tile(T)
+    bp = as_np(blk_ptr).astype(np.int64)[:nbr + 1]
+    urow, row_ptr = as_np(urow).astype(np.int64), as_np(row_ptr).astype(np.int64)
+    ent_col = as_np(ent_col).astype(np.int64)
+    ent_bits = np.ascontiguousarray(as_np(ent_val), dtype=np.float32).view(np.int32)
+    if bp.shape[0] != nbr + 1 or (np.diff(bp) < 0).any():
+        raise ValueError("mme_plan: blk_ptr must rise over nbr + 1 entries")
+    u = np.arange(bp[0], bp[nbr])
+    src = np.searchsorted(bp, u, side="right") - 1
+    tgt = urow[u]
+    tb = tgt // T
+    if (tb <= src).any():
+        raise ValueError("mme_plan: a triplet row is not below its block (forward rows only)")
+    e0, e1 = row_ptr[u], row_ptr[u + 1]
+    if (e1 < e0).any() or (ent_col[e0.min(initial=0):e1.max(initial=0)] >= T).any():
+        raise ValueError("mme_plan: row pointers must rise and columns lie in the block")
+    dist = tb - src
+    near = (dist == 1) & (tb < nbr)
+    two = (dist == 2) & (tb < nbr)
+    far = ~near
+    # the scatter's rows, block by block in stored order
+    fu = np.flatnonzero(far)
+    far_rows = np.stack([tgt[fu], e0[fu], e1[fu], np.where(two[fu], tb[fu], -1)], axis=1)
+    fr_ptr = np.concatenate([[0], np.cumsum(np.bincount(src[fu], minlength=nbr))])
+    # the near rows' entries per block, by target site
+    nu = np.flatnonzero(near)
+    ns, nk, nlen = src[nu], tgt[nu] - tb[nu] * T, e1[nu] - e0[nu]
+    per_block = np.bincount(ns, weights=nlen, minlength=nbr).astype(np.int64)
+    ncap = max(2, int(per_block.max(initial=0)))
+    ncap += ncap % 2
+    ent0 = MME_RECORD_HEAD + -(-(TM + 1) // 4) * 4
+    RI = -(-(ent0 + 2 * ncap) // 4) * 4
+    rec = np.zeros((nbr, RI), dtype=np.int64)
+    rec[:, 0], rec[:, 1] = fr_ptr[:-1], fr_ptr[1:]
+    cnt = np.zeros((nbr, TM), dtype=np.int64)
+    cnt[ns, nk] = nlen
+    rec[:, MME_RECORD_HEAD + 1:MME_RECORD_HEAD + TM + 1] = np.cumsum(cnt, axis=1)
+    total = int(nlen.sum())
+    if total:
+        first = np.concatenate([[0], np.cumsum(nlen)[:-1]])
+        eidx = np.repeat(e0[nu] - first, nlen) + np.arange(total)
+        blk = np.repeat(ns, nlen)
+        pos = np.arange(total) - np.concatenate([[0], np.cumsum(per_block)[:-1]])[blk]
+        rec[blk, ent0 + 2 * pos] = ent_col[eidx]
+        rec[blk, ent0 + 2 * pos + 1] = ent_bits[eidx]
+    tu = np.flatnonzero(two)
+    k2 = tgt[tu] - tb[tu] * T
+    mask = np.zeros((nbr, 4), dtype=np.uint32)
+    np.bitwise_or.at(mask, (src[tu], k2 // 32), (np.uint32(1) << (k2 % 32).astype(np.uint32)))
+    rec[:, 4:8] = mask.view(np.int32)
+    if far_rows.shape[0] == 0:
+        far_rows = np.zeros((1, 4), dtype=np.int64)
+    return {"rec": rec.astype(np.int32), "far_rows": far_rows.astype(np.int32), "TM": TM,
+            "RI": RI, "ncap": ncap, "dist": np.bincount(dist, minlength=2),
+            "near_rows": int(near.sum()), "two_rows": int(two.sum()),
+            "far_rows_n": int(far.sum() - two.sum()),
+            "max_row": int(tgt.max(initial=-1))}
+
+
+@dataclass
+class MmePlan:
+    """The epsilon sweep's plan of one layout cut to nbr blocks
+    (:func:`mme_plan`): the host plan's fields and its device tensors."""
+
+    host: dict
+    Dt: torch.Tensor        # (nbr, TM, TM): Dt[i, j, k] = diag_blocks[i, k, j], zero past T
+    rec: torch.Tensor       # (nbr, RI) int32
+    far_rows: torch.Tensor  # (n, 4) int32
+    ent: torch.Tensor       # (nent, 2) int32: (column, value bits) of every triplet
+
+
+# the plan of each layout (by the identity of its tensors and the blocks
+# swept), with weak references to them and their versions: a sweep over the
+# same layout reuses it; an entry goes with its diagonal blocks
+_MME_PLANS = {}
+
+
+def mme_plan(sp, nbr: int) -> MmePlan:
+    """The plan of layout ``sp`` swept over blocks 0 .. nbr - 1, built on
+    the first sweep (anew if one of its tensors is changed in place) and
+    kept for the sweeps after it."""
+    ts = (sp.diag_blocks, sp.blk_ptr, sp.urow, sp.row_ptr, sp.ent_col, sp.ent_val)
+    key = tuple(id(t) for t in ts) + (nbr,)
+    versions = tuple(t._version for t in ts)
+    hit = _MME_PLANS.get(key)
+    if hit is not None and all(r() is t for r, t in zip(hit[0], ts)) and hit[1] == versions:
+        return hit[2]
+    T = sp.diag_blocks.shape[1]
+    host = mme_plan_host(sp.blk_ptr, sp.urow, sp.row_ptr, sp.ent_col, sp.ent_val, nbr, T)
+    dev, TM = sp.diag_blocks.device, host["TM"]
+    Dt = torch.zeros((nbr, TM, TM), dtype=F32, device=dev)
+    Dt[:, :T, :T] = sp.diag_blocks[:nbr].transpose(1, 2)
+    ent = torch.stack([sp.ent_col.to(torch.int32), sp.ent_val.contiguous().view(torch.int32)],
+                      dim=1).contiguous()
+    if ent.shape[0] == 0:
+        ent = torch.zeros((1, 2), dtype=torch.int32, device=dev)
+    plan = MmePlan(host=host, Dt=Dt,
+                   rec=torch.as_tensor(host["rec"], device=dev),
+                   far_rows=torch.as_tensor(host["far_rows"], device=dev), ent=ent)
+    _MME_PLANS[key] = (tuple(weakref.ref(t) for t in ts), versions, plan)
+    weakref.finalize(sp.diag_blocks, _MME_PLANS.pop, key, None)
+    return plan
+
+
+def mme_sweep(sp, counts, scale, ve, z, x, res, stamps=None):
     """The epsilon sweep of ``blocked_mme_gibbs_sparse``
     (hibayes_tpu/engine/gibbs.py:576-654) after its residual: for each
     diagonal block i in order, the T site draws of TPU kernel 10 against Wb = scale sp.diag_blocks[i] +
@@ -1098,7 +1351,12 @@ def mme_sweep(sp, counts, scale, ve, z, x, res):
     sweep).  The sweep reads blk_ptr[0..nbr] only, so the first k blocks
     alone are a layout with diag_blocks[:k] and blk_ptr[:k + 1], and
     counts, z, x cut to k T.  On the card: float32 only, T <= 128, one
-    launch."""
+    launch, ordered by :func:`mme_plan` of the layout (built at the first
+    sweep over it).  ``stamps`` (measurement only): an int64 tensor of at
+    least 6 (nbr + 1) + 4 entries that gets clock64 stamps per block (its
+    chain's start and end and the drawer's end, the end of its scatter, and
+    the ends of warp 3's and the loader's work in its phase), then
+    %globaltimer ns and clock64 at the sweep's start and end."""
     if res.device.type == "cpu":
         return mme_sweep_plain(sp, counts, scale, ve, z, x, res)
     D = sp.diag_blocks
@@ -1119,20 +1377,35 @@ def mme_sweep(sp, counts, scale, ve, z, x, res):
     ints = (sp.blk_ptr, sp.urow, sp.row_ptr, sp.ent_col)
     if any(t.dtype != torch.int32 or t.device != res.device for t in ints):
         raise TypeError("mme_sweep: the triplet index arrays must be int32 on the card")
+    if stamps is not None and (stamps.dtype != torch.int64 or stamps.device != res.device
+                               or stamps.numel() < 6 * (nbr + 1) + 4):
+        raise ValueError("mme_sweep: stamps must be int64 on the card, 6 per block + 10")
     dev = res.device
+    plan = mme_plan(sp, nbr)
+    if plan.host["max_row"] >= res.shape[0]:
+        raise ValueError(f"mme_sweep: a triplet row ({plan.host['max_row']}) lies past "
+                         f"res ({res.shape[0]})")
+    lib = build.library("mme.cu")
+    RI = plan.host["RI"]
+    optin = getattr(torch.cuda.get_device_properties(dev), "shared_memory_per_block_optin",
+                    SMEM_OPTIN)
+    if lib.hb_mme_smem_bytes(T, RI) > optin:
+        raise ValueError(f"mme_sweep: a block couples to the next through "
+                         f"{plan.host['ncap']} entries; with blocks of {T} its staging "
+                         f"needs {lib.hb_mme_smem_bytes(T, RI)} bytes of shared memory, "
+                         f"more than the card's {optin}")
     scale_t = torch.as_tensor(scale, dtype=F32, device=dev).reshape(())
     ve_t = torch.as_tensor(ve, dtype=F32, device=dev).reshape(())
-    Dc, cc, zc = D.contiguous(), counts.contiguous(), z.contiguous()
-    ic = [t.contiguous() for t in ints]
-    ev = sp.ent_val.contiguous()
+    cc, zc = counts.contiguous(), z.contiguous()
     x_in = x.contiguous()
-    x_new = x_in.clone()
+    x_new = torch.empty_like(x_in)
     r = res.clone(memory_format=torch.contiguous_format)
-    lib = build.library("mme.cu")
     code = lib.hb_mme_sweep(
-        Dc.data_ptr(), cc.data_ptr(), scale_t.data_ptr(), ve_t.data_ptr(),
-        zc.data_ptr(), x_in.data_ptr(), x_new.data_ptr(), r.data_ptr(),
-        *(t.data_ptr() for t in ic), ev.data_ptr(), nbr, T,
+        plan.Dt.data_ptr(), plan.rec.data_ptr(), plan.far_rows.data_ptr(),
+        plan.ent.data_ptr(), cc.data_ptr(), scale_t.data_ptr(), ve_t.data_ptr(),
+        zc.data_ptr(), x_in.data_ptr(), x_new.data_ptr(), r.data_ptr(), r.shape[0],
+        plan.far_rows.shape[0], plan.ent.shape[0], nbr, T, RI,
+        None if stamps is None else stamps.data_ptr(),
         torch.cuda.current_stream(dev).cuda_stream)
     build.check(lib, code, "mme_sweep")
     mme_sweep.launches += 1
@@ -1140,3 +1413,25 @@ def mme_sweep(sp, counts, scale, ve, z, x, res):
 
 
 mme_sweep.launches = 0
+
+
+def mme_chain_latency(W, counts, z, scale, ve, r0, reps):
+    """Measurement only: ``reps`` chains of one diagonal block's T draws
+    (one warp, the block staged as the sweep stages it) back to back on the
+    card, each from r0 and depending on the one before; W (T, T) the raw
+    block of A, counts, z, r0 (T,).  Returns the clock64 cycles of the
+    whole run (a 0-d int64 tensor)."""
+    _require_cuda(W, counts, z, r0)
+    T = W.shape[0]
+    mme_tile(T)
+    dev = r0.device
+    lib = build.library("mme.cu")
+    out = torch.empty((T,), dtype=F32, device=dev)
+    cycles = torch.zeros((), dtype=torch.int64, device=dev)
+    Wc, cc, zc, rc = (t.to(F32).contiguous() for t in (W, counts, z, r0))
+    sc, vc = (torch.as_tensor(v, dtype=F32, device=dev).reshape(()) for v in (scale, ve))
+    code = lib.hb_mme_chain_latency(Wc.data_ptr(), cc.data_ptr(), zc.data_ptr(), sc.data_ptr(),
+                                    vc.data_ptr(), rc.data_ptr(), T, int(reps), out.data_ptr(),
+                                    cycles.data_ptr(), torch.cuda.current_stream(dev).cuda_stream)
+    build.check(lib, code, "mme_chain_latency")
+    return cycles

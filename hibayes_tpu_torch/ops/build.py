@@ -102,7 +102,8 @@ def library(source: str = SOURCES[0]) -> ctypes.CDLL:
         lib.hb_reset_launch_counts.restype = None
     elif source == "sgibbs.cu":
         lib.hb_sweep_s_segment.argtypes = [_P, _P, _I, _I, _I, _I, _I, _I, _F,
-                                           _P, _P, _P, _P]
+                                           _P, _P, _P, _P, _P, ctypes.c_uint,
+                                           _I, _I, _I, _I, _I, _I, _I, _P, _P]
         lib.hb_sweep_s_segment.restype = _I
         lib.hb_sweep_s_tiled.argtypes = [_P, _I, _I, _I, _I, _I, _I, _I, _F, _F,
                                          _P, _P, _P, _P, _P, _P, _P, _P, _I, _P,
@@ -116,8 +117,13 @@ def library(source: str = SOURCES[0]) -> ctypes.CDLL:
         lib.hb_s_reset_launch_counts.argtypes = []
         lib.hb_s_reset_launch_counts.restype = None
     else:
-        lib.hb_mme_sweep.argtypes = [_P] * 13 + [_I, _I, _P]
+        _L = ctypes.c_longlong
+        lib.hb_mme_sweep.argtypes = [_P] * 11 + [_L, _L, _L, _I, _I, _I, _P, _P]
         lib.hb_mme_sweep.restype = _I
+        lib.hb_mme_smem_bytes.argtypes = [_I, _I]
+        lib.hb_mme_smem_bytes.restype = _L
+        lib.hb_mme_chain_latency.argtypes = [_P] * 6 + [_I, _I, _P, _P, _P]
+        lib.hb_mme_chain_latency.restype = _I
         lib.hb_mme_launch_counts.argtypes = [ctypes.POINTER(ctypes.c_longlong)]
         lib.hb_mme_launch_counts.restype = None
         lib.hb_mme_reset_launch_counts.argtypes = []

@@ -24,15 +24,23 @@ SNPs of an int8 genotype, and the tiled summary sweep
     tiled_256_guard_fires  the same at vary lowered 1,000-fold, so the
                 guard's retries run (its rejection count is hashed too)
     segment_32k the dense segment sweep of phase 6, m=32,768 AR(1) LD, B=64
-                (row 6)
+                (row 6), and
+    segment_32k_k4  the same segment with 4 chains (phase 6b's sweep)
+    mme_80k     the epsilon sweep of phase 7 (row 10): the RCM-ordered
+                A-inverse(nn) of its 100,000-id pedigree, 80,000 sites in
+                1,250 blocks of 64, timed with the L2 cold (a 128 MB buffer
+                overwritten before each sweep, chip_smoke.cold_ms)
 
 and, at K=4 and K=64, ``*_matmul``: torch.matmul of the sweep's two
 products per block, (K, n) x (n, B) and (K, B) x (B, n) in float32, the
-library yardstick (the same torch code under either root).  The draw chain
+library yardstick (the same torch code under either root); beside the
+segment cases ``segment_32k_mv`` and ``segment_32k_k4_mm``, torch.mv and
+torch.mm of the update's whole product n LD dg.  The draw chain
 alone (``blockgibbs.chain_latency``, one warp, 400 blocks of 128 back to
 back) on k1_n50k's first block (BayesR, 4 folds) and tiled_256's first tile
 row (BayesCpi, without and with the guard) is reported in clock cycles a
-draw.
+draw, and so is the epsilon chain alone (``blockgibbs.mme_chain_latency``,
+400 chains of mme_80k's first block) where the tree has it.
 
 The inputs are made from fixed seeds with chip_smoke.py's helpers (taken
 from this script's own checkout), so both trees sweep the same numbers.
@@ -182,13 +190,63 @@ def main(argv=None) -> int:
         h.update(t.float().cpu().numpy().tobytes())
     digests["segment_32k"] = h.hexdigest()[:16]
     runs["segment_32k"] = lambda seg=seg, r=r, P=P: TB.sweep_s_segment(dspec, seg, r, P, dspec.n)
-    times = {key: [] for key in runs}
+    ins = [cs.s_sweep_inputs(torch, TSG, dspec, ddata, dpr, dpi, lambda v: seg @ v, 20 + k)
+           for k in range(4)]
+    r4, P4 = (torch.stack(x) for x in list(zip(*ins))[1:])
+    out4 = TB.sweep_s_segment(dspec, seg, r4, P4, dspec.n)
+    torch.cuda.synchronize()
+    h = hashlib.sha256()
+    for t in out4:
+        h.update(t.float().cpu().numpy().tobytes())
+    digests["segment_32k_k4"] = h.hexdigest()[:16]
+    runs["segment_32k_k4"] = lambda: TB.sweep_s_segment(dspec, seg, r4, P4, dspec.n)
+    dg1, dg4 = out[0], out4[0]
+    runs["segment_32k_mv"] = lambda: torch.mv(seg, dg1)
+    runs["segment_32k_k4_mm"] = lambda: torch.mm(seg, dg4.T)
+    del ddata
+    # the epsilon sweep of phase 7, its L2 cold
+    n_ids = 100_000
+    nfound, n_g, n_ph = n_ids // 20, n_ids // 5, n_ids // 20
+    ids, sires, dams, _, _ = cs.make_pedigree(nfound, n_ids - nfound, 2024)
+    prng = np.random.default_rng(2024)
+    gi = np.sort(prng.choice(n_ids, n_g, replace=False))
+    others = np.setdiff1d(np.arange(n_ids), gi)
+    phe = np.concatenate([prng.choice(gi, n_ph, replace=False),
+                          prng.choice(others, n_ph, replace=False)])
+    lay, _, ng_ids = cs.ssbrm_layout(torch, TG, ids, sires, dams, ids[gi], dev)
+    nbr, T, _ = lay.diag_blocks.shape
+    qp = nbr * T
+    codes = np.flatnonzero(np.isin(ng_ids, ids[phe]))
+    counts = torch.as_tensor(np.bincount(codes, minlength=qp), dtype=torch.float32, device=dev)
+    egen = torch.Generator(device=dev).manual_seed(41)
+    f = lambda: torch.randn(qp, generator=egen, device=dev)
+    x, b, z = 0.3 * f(), f(), f()
+    scale, ve = torch.tensor(0.7, device=dev), torch.tensor(1.3, device=dev)
+    res = b - scale * TG._epsl_matvec(lay, x) - counts * x
+    margs = (lay, counts, scale, ve, z, x, res)
+    out = TB.mme_sweep(*margs)
+    torch.cuda.synchronize()
+    h = hashlib.sha256()
+    for t in out:
+        h.update(t.float().cpu().numpy().tobytes())
+    digests["mme_80k"] = h.hexdigest()[:16]
+    cold = {"mme_80k": lambda: TB.mme_sweep(*margs)}
+    if hasattr(TB, "mme_chain_latency"):
+        mchain = (lay.diag_blocks[0], counts[:T], z[:T], scale, ve, res[:T])
+    times = {key: [] for key in (*runs, *cold)}
     cycles = {key: [] for key in chains}
+    if hasattr(TB, "mme_chain_latency"):
+        cycles["mme_chain"] = []
     for _ in range(args.rounds):
         for key, fn in runs.items():
             times[key].append(cs.cuda_ms(torch, fn, args.reps))
+        for key, fn in cold.items():
+            times[key].append(cs.cold_ms(torch, fn, max(2, args.reps // 4)))
         for key, (cspec, W0, P0, r0, vary) in chains.items():
             cycles[key].append(cs.chain_us(torch, TB, cspec, W0, P0, r0, vary)[1] / B)
+        if "mme_chain" in cycles:
+            TB.mme_chain_latency(*mchain, 10)
+            cycles["mme_chain"].append(int(TB.mme_chain_latency(*mchain, 400)) / 400 / T)
     print(json.dumps({"label": args.label, "card": cs.smi_line(), "ms": times,
                       "cycles_per_draw": cycles, "sha256": digests}), flush=True)
     return 0

@@ -126,8 +126,7 @@ def test_launch_counts(dev):
         TB.sweep_mc(spec, *args)
         nbg = spec.nblocks
         want = {"sweep1": 0, "rows_mc_kernel": 0, "draws_kernel": 0,
-                "segment_draws": 0, "segment_update": 0, "tiled_sweep": 0,
-                "mme_sweep_kernel": 0}
+                "segment_sweep": 0, "tiled_sweep": 0, "mme_sweep_kernel": 0}
         if K == 1:
             want["sweep1"] = 1
         else:
@@ -379,9 +378,9 @@ def test_summary_kernels_match_plain(model, layout, dev):
 
 
 def test_summary_launch_counts(dev):
-    """A segment sweep over nb blocks is nb segment_draws and nb
-    segment_update launches; a tiled sweep over any number of rows is one
-    tiled_sweep launch; each wrapper counts one call."""
+    """A segment sweep over any number of blocks is one segment_sweep
+    launch; a tiled sweep over any number of rows is one tiled_sweep
+    launch; each wrapper counts one call."""
     for layout, key in (("dense", "segment"), ("tiled", "tiled")):
         spec, data, g, r, P, _, _ = _s_problem("BayesCpi", layout, dev)
         TB.reset_kernel_launches()
@@ -390,9 +389,9 @@ def test_summary_launch_counts(dev):
         nb = spec.m_pad // spec.block
         counts = TB.kernel_launches()
         if key == "segment":
-            assert (counts["segment_draws"], counts["segment_update"]) == (nb, nb)
+            assert counts["segment_sweep"] == 1 and nb > 1
             assert TB.sweep_s_segment.launches == before[0] + 1
-            assert sum(counts.values()) == 2 * nb
+            assert sum(counts.values()) == 1
         else:
             assert counts["tiled_sweep"] == 1 and nb > 1
             assert TB.sweep_s_tiled.launches == before[1] + 1
@@ -780,3 +779,161 @@ def test_one_chain_sweep_stamps(dev):
     assert (np.diff(st[:, 8:11], axis=1) >= 0).all()
     assert (np.diff(st[:nbg, 0]) > 0).all()
     assert (st[1:, 9] >= st[:nbg, 3]).all()   # a row step starts after dg is published
+
+
+# ---------------------------------------------------------------------------
+# the redesigned epsilon sweep and the persistent segment sweep
+# ---------------------------------------------------------------------------
+
+
+def _coupled_layout(T, dev, q=None, seed=5):
+    """An epsilon layout whose blocks couple to the next, the one after and
+    blocks far ahead, with blocks that couple to none, and in-block bands
+    (tests/test_torch_sweep_plans.py builds the same on the CPU)."""
+    from tests.test_torch_sweep_plans import _coupled
+
+    import scipy.sparse as sps
+
+    q = q or 9 * T - 5
+    band = sps.diags([np.full(q - 1, -0.1), np.full(q - 2, -0.05)], [1, 2])
+    A = _coupled(q, T, (1, 2, 7), seed=seed, empty=(2, 5)) + band + band.T
+    sp_t, qp = TG._build_epsl_sparse(A, T, torch.float32, dev)
+    rng = np.random.default_rng(seed)
+    f = lambda a: torch.as_tensor(a, dtype=torch.float32, device=dev)
+    pad = lambda a: np.concatenate([a, np.zeros(qp - q)])
+    counts = f(pad(rng.integers(0, 3, q)))
+    z, x, b = (f(pad(rng.normal(0, s, q))) for s in (1.0, 0.3, 1.0))
+    scale, ve = f(0.7), f(1.3)
+    res = b - scale * TG._epsl_matvec(sp_t, x) - counts * x
+    return sp_t, counts, scale, ve, z, x, res, q
+
+
+@pytest.mark.parametrize("kind", ["pedigree", "coupled"])
+@pytest.mark.parametrize("T", [20, 64, 128])
+def test_mme_sweep_layouts(T, kind, dev):
+    """The epsilon sweep on a pedigree's RCM-ordered layout and on one whose
+    blocks couple 1, 2 and 7 blocks ahead (and some to none): against its
+    plain version at the bar (x within 5e-5 max|x|, res within 1e-4
+    max|res|), bit-identical on a second launch, over the whole layout and
+    its first 4 blocks alone."""
+    prob = _mme_problem(T, dev) if kind == "pedigree" else _coupled_layout(T, dev)
+    sp_t, counts, scale, ve, z, x, res, q = prob
+    for cut in (None, 4):
+        lay, a = sp_t, (counts, scale, ve, z, x, res)
+        if cut is not None:
+            lay = sp_t._replace(diag_blocks=sp_t.diag_blocks[:cut], blk_ptr=sp_t.blk_ptr[:cut + 1])
+            a = (counts[:cut * T], scale, ve, z[:cut * T], x[:cut * T], res)
+        outs = [TB.mme_sweep(lay, *a) for _ in range(2)]
+        ref = TB.mme_sweep_plain(lay, *a)
+        torch.cuda.synchronize()
+        assert all(torch.equal(u, v) for u, v in zip(*outs))
+        xk, xp = outs[0][0].cpu().numpy(), ref[0].cpu().numpy()
+        np.testing.assert_allclose(xk, xp, rtol=0, atol=5e-5 * np.abs(xp).max())
+        rk, rp = outs[0][1].cpu().numpy(), ref[1].cpu().numpy()
+        np.testing.assert_allclose(rk, rp, rtol=0, atol=1e-4 * np.abs(rp).max() + 1e-6)
+
+
+def test_mme_chain_latency_and_stamps(dev):
+    """The epsilon sweep's measurement hooks run: the chain alone returns
+    cycles, and the stamps of a sweep are filled and ordered in time."""
+    sp_t, counts, scale, ve, z, x, res, _ = _mme_problem(64, dev)
+    T = 64
+    cyc = TB.mme_chain_latency(sp_t.diag_blocks[0], counts[:T], z[:T], scale, ve, res[:T], 10)
+    assert int(cyc) > 0
+    nbr = sp_t.diag_blocks.shape[0]
+    st = torch.zeros(6 * (nbr + 1) + 4, dtype=torch.int64, device=dev)
+    out = TB.mme_sweep(sp_t, counts, scale, ve, z, x, res, stamps=st)
+    assert all(torch.equal(u, v) for u, v in zip(out, TB.mme_sweep(sp_t, counts, scale, ve,
+                                                                    z, x, res)))
+    s = st.cpu().numpy()
+    b = s[:6 * nbr].reshape(nbr, 6)
+    assert (b[:, :3] > 0).all() and (np.diff(b[:, :3], axis=1) >= 0).all()
+    assert (np.diff(b[:, 0]) > 0).all() and s[6 * (nbr + 1) + 1] > s[6 * (nbr + 1)]
+
+
+def _segment_problem(B, K, dev, m=1000, seed=3):
+    spec, data, g, r, P, _, _ = _s_problem("BayesCpi" if K % 2 else "BayesR", "dense", dev,
+                                           m=m)
+    spec = dataclasses.replace(spec, block=B) if B != spec.block else spec
+    seg = data.ld_segs[0]
+    mc = seg.shape[0]
+    if mc % B:
+        raise AssertionError("the segment must hold whole blocks")
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    scale = 1.0 + 0.1 * torch.rand((K, 1), generator=gen, device=dev)
+    return spec, seg, g[None] * scale, r[None] * scale, P[None].expand(K, -1, -1).contiguous()
+
+
+@pytest.mark.parametrize("K", [1, 2, 4, 8, 9])
+@pytest.mark.parametrize("B", [64, 128])
+def test_segment_sweep_shapes(B, K, dev):
+    """The persistent segment sweep at B in {64, 128} and K in {1, 2, 4, 8,
+    9} (one and two drawer CTAs; BayesCpi at odd K, BayesR at even):
+    against its plain version at the bar, bit-identical on a second launch,
+    and chain k bit for bit its K=1 launch."""
+    spec, seg, g, r, P = _segment_problem(B, K, dev, m=1024 if B == 128 else 1000)
+    out = TB.sweep_s_segment(spec, seg, r, P, spec.n)
+    plain = TB.sweep_s_segment_plain(spec, seg, r, P, spec.n)
+    _assert_bar((g - plain[0], plain[1], None, plain[2]), (g - out[0], out[1], None, out[2]))
+    assert all(torch.equal(a, b) for a, b in zip(out, TB.sweep_s_segment(spec, seg, r, P,
+                                                                        spec.n)))
+    for k in range(K):
+        one = TB.sweep_s_segment(spec, seg, r[k], P[k], spec.n)
+        assert all(torch.equal(a[k], b) for a, b in zip(out, one))
+
+
+@pytest.mark.parametrize("B", [64, 128])
+def test_segment_sweep_passes_over_chains(B, dev, monkeypatch):
+    """Where shared memory holds r of the row owners' rows for fewer chains
+    than the batch (a plan with 4 chains a pass, as 64 chains at B=128 and
+    m=32,768 need), each block takes several passes, r of the owners' rows
+    going back to global memory between them: 9 chains in 3 passes, chain
+    k still bit for bit its K=1 launch, and the bar against the plain
+    version."""
+    plan = TB.segment_plan
+    monkeypatch.setattr(TB, "segment_plan", lambda *a, **k: {**plan(*a, **k), "kch": 4})
+    K = 9
+    spec, seg, g, r, P = _segment_problem(B, K, dev, m=1024)
+    out = TB.sweep_s_segment(spec, seg, r, P, spec.n)
+    plain = TB.sweep_s_segment_plain(spec, seg, r, P, spec.n)
+    _assert_bar((g - plain[0], plain[1], None, plain[2]), (g - out[0], out[1], None, out[2]))
+    for k in (0, 4, 8):
+        one = TB.sweep_s_segment(spec, seg, r[k], P[k], spec.n)
+        assert all(torch.equal(a[k], b) for a, b in zip(out, one))
+
+
+def test_segment_sweep_refuses_a_grid_not_resident(dev):
+    """A grid larger than the CTAs the card holds at once is refused before
+    it runs (cudaErrorCooperativeLaunchTooLarge), never run in parts."""
+    spec, seg, g, r, P = _segment_problem(64, 1, dev)
+    mc, B = seg.shape[0], 64
+    lib = build.library("sgibbs.cu")
+    props = torch.cuda.get_device_properties(dev)
+    sms = props.multi_processor_count
+    TB.reset_kernel_launches()
+    fl = torch.zeros(4 * sms + 8, dtype=torch.int32, device=dev)
+    rr, dg, tr = r[0].clone(), torch.empty_like(r[0]), torch.empty_like(r[0])
+    snap = torch.empty((2, 1, B), device=dev)
+    code = lib.hb_sweep_s_segment(
+        seg.data_ptr(), P[0].data_ptr(), mc, B, TB.n_rows(spec), 1, spec.model_index,
+        spec.n_fold, float(spec.n), rr.data_ptr(), dg.data_ptr(), tr.data_ptr(),
+        snap.data_ptr(), fl.data_ptr(), 0, 1, 8, 4 * sms, 4, 1, 32, B + 4, None,
+        torch.cuda.current_stream(dev).cuda_stream)
+    assert code != 0 and "too many blocks" in lib.hb_error_string(code).decode()
+    assert TB.kernel_launches()["segment_sweep"] == 0
+
+
+def test_segment_sweep_stamps(dev):
+    """The segment sweep's stamps are filled and ordered in time."""
+    spec, seg, g, r, P = _segment_problem(64, 1, dev)
+    nb = seg.shape[0] // 64
+    st = torch.zeros(12 * nb + 4, dtype=torch.int64, device=dev)
+    out = TB.sweep_s_segment(spec, seg, r[0], P[0], spec.n, stamps=st)
+    assert all(torch.equal(a, b) for a, b in zip(out, TB.sweep_s_segment(spec, seg, r[0], P[0],
+                                                                        spec.n)))
+    s = st.cpu().numpy()
+    b = s[:12 * nb].reshape(nb, 12)
+    assert (np.diff(b[:-1, :5], axis=1) >= 0).all() and (np.diff(b[:, 0]) > 0).all()
+    assert (np.diff(b[:, [0, 10, 11, 1]], axis=1) >= 0).all()
+    assert (np.diff(b[:, [5, 7, 8, 9, 6]], axis=1) >= 0).all() and s[12 * nb + 1] > s[12 * nb]
+
