@@ -18,6 +18,11 @@ Phases, each printing as it goes:
      2) at K in {2, 8, 64} x {int8, f32} x {BayesCpi, BayesR} and at
      block_range=(2, 3), chains 0-7 of K=64 bit for bit the K=8 launch; the
      K-chain segment sweep at K=4, each chain bit for bit its K=1 launch.
+     The SBayesS guard on the segment sweep (BayesCpi and BayesR, K=1 and
+     K=4, on a pruned m=1,000 LD, at the chain's vary and at a lowered
+     vary where it rejects; its counts equal the plain version's) and the
+     tiled sweep at tile 64 for all six models (and BayesCpi at a lowered
+     vary).
      Bar: at most 1% mixture draws flip, effects within 5e-5 max|g| where
      the draws agree, residuals (r_hat) within 1e-4 max|.| when none flips;
      a second kernel sweep on the same inputs must be bit-identical.  Then
@@ -83,7 +88,29 @@ Phases, each printing as it goes:
      mme_sweep only, with its set-up split, finite GEBV of all 100,000 ids,
      Veps and J, 0 < h2 < 1, and the GEBV accuracy of the non-genotyped
      phenotyped ids against the truth;
-  8. a JSON line of kernels, the nvidia-smi line, and the last line
+  8. the README quick start from PLINK files: a cohort of n=50,000 x
+     m=65,536 (16 chromosomes of 4,096 SNPs, LD decaying along each: every
+     haplotype a Markov chain; h2=0.5 from 500 causal SNPs, a covariate and
+     a 20-level factor) made on the card and written with encode_bed_bytes
+     (.bed 0.82 GB, .bim, .fam, .phe) into a directory under build/ that is
+     removed at the end; read_plink (the decode path, seconds and GB/s
+     printed; bit for bit the written genotype) and read_pheno; ibrm("y ~
+     x1 + (1|grp)", method="BayesCpi", map=, windsize=1e6) through sweep1
+     only, its GEBV accuracy against its bar; the cohort's marginal
+     regressions (y adjusted for the covariate and the factor) written as a
+     COJO .ma and read back with read_sumstat; ldmat on the card as a
+     BlockDiagLD (ldchr=False), a TiledSparseLD (chisq 30, tiled, tile 64,
+     per chromosome, the device path) and a SparseLD of chromosome 1 (chisq
+     30; its dense float64 store is m^2, 34 GB at the whole m), each with
+     its seconds, and the exact int8 Gram of one chromosome timed against
+     the int8 peak; the guarded segment sweep (one and 4 chains) and the
+     tile-64 tiled sweep against their plain versions at these shapes and
+     timed; sbrm BayesCpi on each layout through the kernels only (one
+     segment_sweep a chromosome and iteration, one tiled_sweep an
+     iteration), finite Vg/Ve, 0 < h2 < 1, the accuracy of X alpha against
+     the simulated genetic values (chromosome 1's part for the SparseLD),
+     and the guard's counts (first draws rejected, all 8 candidates failed);
+  9. a JSON line of kernels, the nvidia-smi line, and the last line
      {"ok": true, "device": {...}}.
 
 Any failed check raises, so the script exits non-zero and prints no result.
@@ -95,8 +122,10 @@ import argparse
 import gc
 import json
 import os
+import shutil
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -176,6 +205,31 @@ F32_FLOPS = 67e12           # H100 SXM float32 outside the tensor cores
 MODELS = ["BayesRR", "BayesA", "BayesBpi", "BayesCpi", "BayesL", "BayesR"]
 
 
+# Phase 8, the README quick start.  The cohort's haplotypes copy the
+# previous SNP's allele with probability QS_RHO, so r decays as about
+# 0.9^d along a chromosome; at n = 50,000 the chi-square rule r^2 n > 30
+# (the JAX package's LD benchmark's, benchmarks/ldmat_tiled_200k.py) keeps
+# SNPs up to about 35 apart and lets a null pair through with probability
+# 4e-8 (under one a chromosome of 4,096 SNPs).
+QS_RHO = 0.9
+QS_CHISQ = 30.0
+
+# Accuracy bars of the quick start: ibrm's GEBV accuracy measured 0.982 on
+# an H100 (500 causal SNPs at n = 50,000, as phase 4, here with LD and
+# blocks of 64); sbrm's accuracy of X alpha against the simulated genetic
+# values 0.972 on the BlockDiagLD and 0.969 on the tile-64 TiledSparseLD
+# (the statistics are the cohort's own marginal regressions, the LD its
+# own, so the summary fit is nearly the individual one), 0.966 for
+# chromosome 1's SparseLD against chromosome 1's part of g (about 31 causal
+# SNPs: fewer effects, a noisier correlation; 0.949 on another cohort of
+# the same recipe).  The chains are
+# deterministic for a seed; 0.9, 0.9 and 0.85 leave room for another
+# card's rounding, and a sweep that draws against the wrong LD rows or
+# guard rows falls far below.
+QS_GEBV_CORR_MIN = 0.9
+QS_SBRM_CORR_MIN = {"blockdiag": 0.9, "sparse": 0.85, "tiled": 0.9}
+
+
 def log(msg: str) -> None:
     print(msg, flush=True)
 
@@ -209,9 +263,19 @@ def simulate(torch, n, m, gen, dev, n_causal=500):
     h2 = 0.5 from n_causal SNPs, a covariate and a 20-level factor.
     Returns (M, the ibrm data dict, the true genetic values gv)."""
     M = make_genotype(torch, n, m, gen, dev)
+    return (M, *phenotype(torch, M, gen, dev, n_causal)[:2])
+
+
+def phenotype(torch, M, gen, dev, n_causal=500):
+    """y = gv + 0.3 x1 + grp + e for a genotype M on the card, h2 = 0.5 from
+    n_causal SNPs.  Returns (the ibrm data dict, gv, the causal SNPs and
+    their effects b: gv = M[:, causal] b - mean)."""
+    n, m = M.shape
     causal = torch.randperm(m, generator=gen, device=dev)[:n_causal]
-    gv = M[:, causal].float() @ torch.randn(causal.numel(), generator=gen, device=dev)
-    gv = (gv - gv.mean()) / gv.std() * np.sqrt(0.5)
+    b = torch.randn(causal.numel(), generator=gen, device=dev)
+    gv = M[:, causal].float() @ b
+    sd = gv.std()
+    gv = (gv - gv.mean()) / sd * np.sqrt(0.5)
     x1 = torch.randn(n, generator=gen, device=dev)
     grp = torch.randint(0, 20, (n,), generator=gen, device=dev)
     grp_eff = 0.3 * torch.randn(20, generator=gen, device=dev)
@@ -219,7 +283,7 @@ def simulate(torch, n, m, gen, dev, n_causal=500):
     data = {"id": np.array([f"id{i}" for i in range(n)]), "y": y.cpu().numpy(),
             "x1": x1.cpu().numpy(),
             "grp": np.array([f"g{k}" for k in grp.cpu().numpy()])}
-    return M, data, gv
+    return data, gv, causal, b / sd * np.sqrt(0.5)
 
 
 def make_spec(TG, model, data, m, n_real, niter=10, nburn=5):
@@ -622,6 +686,9 @@ def time_kernels(torch, TG, TB, dev, M, y, B, errs, nbg=16):
             torch.matmul(dg4, Xf[b].T)
 
     t["sweep_mc_k4_library"] = cuda_ms(torch, products, 10)
+    # and at K=1 (rows 1, 3, 4, 5 of PERF.md's table): torch.mv of X_b' r
+    # and X_b dg per block on a float32 copy of the int8 blocks
+    t["sweep_mc_library"] = cuda_ms(torch, mv_products(torch, Xf, per[7][0], B), 10)
     del Xf
     t["sweep_mc"] = cuda_ms(torch, lambda: TB.sweep_mc(*part, block_range=(0, nbg)), 10)
     t["sweep_mc_split"] = sweep_split(torch, TB, spec, part, nbg)
@@ -656,6 +723,21 @@ def time_kernels(torch, TG, TB, dev, M, y, B, errs, nbg=16):
                                    + nb(per4[7], per4[8]),
                                    nbg * 4 * (4.0 * n_rows * B + 2.0 * B * B))}
     return t, spec.n, bounds
+
+
+def mv_products(torch, Xf, r, B):
+    """The one-chain sweep's two products per block as torch.mv calls,
+    X_b' r (n -> B) and X_b dg (B -> n), on float32 blocks Xf (nbg, n, B):
+    the library yardstick of the fused one-chain sweep (no PyTorch call
+    computes its draws)."""
+    dg = 0.01 * torch.ones(B, device=Xf.device)
+
+    def products():
+        for b in range(Xf.shape[0]):
+            torch.mv(Xf[b].T, r)
+            torch.mv(Xf[b], dg)
+
+    return products
 
 
 def chains(args, k0, k1):
@@ -765,6 +847,10 @@ def time_k5(torch, TG, TB, dev, errs, B=128, nbg=16):
         t["sweep_mc_" + key + "_split"] = sweep_split(torch, TB, spec, (spec, *args), nbg)
         t["sweep_mc_" + key + "_plain"] = cuda_ms(torch, lambda: TB.sweep_mc_plain(spec, *args), 1)
         bounds["sweep_mc_" + key] = sweep_bound(args, B)
+        if K == 1:
+            Xf = data.X_blocks.float()
+            t["sweep_mc_k8_library"] = cuda_ms(torch, mv_products(torch, Xf, args[12][0], B), 10)
+            del Xf
         if K > 1:
             Xf = data.X_blocks.float()
             yadj = args[12]
@@ -973,14 +1059,115 @@ def check_segment_mc(torch, TG, TSG, TB, dev, errs, K=4, m=1000):
         log(f"  ok {what} (m={m}, B=64); each chain bit for bit its K=1 launch")
 
 
+def pruned_ld(torch, TLD, m, dev, rho=0.9, width=24):
+    """SparseLD of rho^|i-j| with the entries farther than ``width`` from
+    the diagonal zeroed (its nonzeros per column), values on the card."""
+    LD = ar1_ld(torch, m, dev, rho)
+    i = torch.arange(m, device=dev)
+    far = (i[:, None] - i[None, :]).abs() > width
+    LD[far] = 0.0
+    return TLD.SparseLD(values=LD, nnz_col=(~far).sum(0).cpu().numpy())
+
+
+def guarded_case(torch, TSG, TB, spec, seg, g, r, P, what, errs, key, expect_fire):
+    """One guarded segment sweep (one chain, or K with a leading axis)
+    against its plain version: the bar, a bit-identical second launch, the
+    guard's counts (first draws rejected, candidates exhausted) equal to
+    the plain version's, and for K chains each chain bit for bit its K=1
+    launch.  Returns the counts."""
+    lead = tuple(r.shape[:-1])
+    tal = [torch.zeros(lead + (2,), dtype=torch.int64, device=r.device) for _ in range(3)]
+    outs = [TB.sweep_s_segment(spec, seg, r, P, spec.n, tally=tal[i]) for i in range(2)]
+    ref = TB.sweep_s_segment_plain(spec, seg, r, P, spec.n, tally=tal[2])
+    torch.cuda.synchronize()
+    errs[key] = max(errs[key], bar((g - ref[0], ref[1], ref[2]),
+                                   (g - outs[0][0], outs[0][1], outs[0][2]), what, r_index=2))
+    if not all(torch.equal(a, b) for a, b in zip(*outs)):
+        raise AssertionError(f"{what}: two runs differ (not deterministic)")
+    if not (torch.equal(tal[0], tal[1]) and torch.equal(tal[0], tal[2])):
+        raise AssertionError(f"{what}: guard counts {tal[0].tolist()}, again "
+                             f"{tal[1].tolist()}, plain {tal[2].tolist()}")
+    counts = tal[0].reshape(-1, 2).sum(0).tolist()
+    if expect_fire and counts[0] == 0:
+        raise AssertionError(f"{what}: the guard did not fire")
+    for k in range(lead[0] if lead else 0):
+        one = TB.sweep_s_segment(spec, seg, r[k], P[k], spec.n)
+        if not all(torch.equal(a[k], b) for a, b in zip(outs[0], one)):
+            raise AssertionError(f"{what}: chain {k} differs from its K=1 launch")
+    log(f"  ok {what}: guard counts per chain {tal[0].reshape(-1, 2).tolist()} "
+        f"(first draws rejected, all 8 candidates failed)")
+    return counts
+
+
+def check_guard_kernels(torch, TG, TSG, TLD, TSLD, TB, dev, errs, m=1000, K=4):
+    """The new instances of this port's summary sweeps against their plain
+    versions: the guarded segment sweep (SBayesS semantics on a pruned
+    LD, B=64) for BayesCpi and BayesR at K=1 and K=4, at the chain's vary
+    and at a lowered vary where the guard rejects (counted), each chain of
+    K=4 bit for bit its K=1 launch; and the tiled sweep at tile 64 (16
+    tile rows of a 5-tile band, masked slots) for all six models, the guard
+    on for BayesCpi and BayesR, and at a lowered vary for BayesCpi.
+    Returns the guard counts of the lowered-vary cases."""
+    gen = torch.Generator(device=dev).manual_seed(19)
+    sld = pruned_ld(torch, TLD, m, dev)
+    ss, _ = summary_stats(torch, lambda v: sld.values @ v, m, m, gen, dev)
+    fired = {}
+    for model in ("BayesCpi", "BayesR"):
+        data, spec0, pr, pi = s_setup(torch, TG, TSG, ss, sld, model, 64, dev, True)
+        seg = data.ld_segs[0]
+        ins = [s_sweep_inputs(torch, TSG, spec0, data, pr, pi, lambda v: seg @ v, seed=30 + k)
+               for k in range(K)]
+        for vary in (None, 2e-4):
+            spec = spec0 if vary is None else spec0.__class__(**{**spec0.__dict__, "vary": vary})
+            for kc in (1, K):
+                g, r, P = ins[0] if kc == 1 else (torch.stack(x) for x in zip(*ins))
+                what = (f"sweep_s_segment guarded {model} K={kc}"
+                        + ("" if vary is None else f" vary={vary}"))
+                c = guarded_case(torch, TSG, TB, spec, seg, g, r, P, what, errs,
+                                 "sweep_s_segment_guard", vary is not None)
+                if vary is not None:
+                    fired[what] = c
+    tld = banded_ld(torch, TSLD, m, dev, T=64, K=5)
+    ss_t, _ = summary_stats(torch, tiled_matvec(torch, tld), m, tld.m_pad, gen, dev)
+    for model in MODELS:
+        for vary in ((None, 2e-4) if model == "BayesCpi" else (None,)):
+            data, spec, pr, pi = s_setup(torch, TG, TSG, ss_t, tld, model, 64, dev, True)
+            if vary is not None:
+                spec = spec.__class__(**{**spec.__dict__, "vary": vary})
+            args = (data.ld_tiles, data.ld_cols, data.ld_valid)
+            g, r, P = s_sweep_inputs(torch, TSG, spec, data, pr, pi, tiled_matvec(torch, tld),
+                                     seed=7)
+            tal = [torch.zeros(2, dtype=torch.int64, device=dev) for _ in range(3)]
+            outs = [TB.sweep_s_tiled(spec, *args, r, P, spec.n, tally=tal[i]) for i in range(2)]
+            ref = TB.sweep_s_tiled_plain(spec, *args, r, P, spec.n, tally=tal[2])
+            torch.cuda.synchronize()
+            what = f"sweep_s_tiled tile 64 {model}" + ("" if vary is None else f" vary={vary}")
+            errs["sweep_s_tiled64"] = max(errs["sweep_s_tiled64"], bar(
+                (g - ref[0], ref[1], ref[2]), (g - outs[0][0], outs[0][1], outs[0][2]),
+                what, r_index=2))
+            if not all(torch.equal(a, b) for a, b in zip(*outs)):
+                raise AssertionError(f"{what}: two runs differ (not deterministic)")
+            if not (torch.equal(tal[0], tal[1]) and torch.equal(tal[0], tal[2])):
+                raise AssertionError(f"{what}: guard counts {tal[0].tolist()}, plain "
+                                     f"{tal[2].tolist()}")
+            if vary is not None:
+                if int(tal[0][0]) == 0:
+                    raise AssertionError(f"{what}: the guard did not fire")
+                fired[what] = tal[0].tolist()
+            log(f"  ok {what} ({tld.nbr} tile rows, guard "
+                f"{'on' if TB.guard_on(spec) else 'off'}, counts {tal[0].tolist()})")
+    return fired
+
+
 def nbytes(*ts):
     return sum(t.numel() * t.element_size() for t in ts)
 
 
-def time_tiled(torch, TSG, TB, spec, data, pr, pi, ld, errs, rows=16):
+def time_tiled(torch, TSG, TB, spec, data, pr, pi, ld, errs, rows=16, key="sweep_s_tiled"):
     """The tiled sweep at the main path's shapes: the first ``rows`` tile rows
-    (slots past them masked), kernel against plain, held to the bar and
-    timed; and the kernel over every tile row.  Returns (times, bounds)."""
+    (slots past them masked), kernel against plain, held to the bar (into
+    ``errs[key]``) and timed; and the kernel over every tile row.  Returns
+    (times, bounds)."""
     T = spec.block
     g, r, P = s_sweep_inputs(torch, TSG, spec, data, pr, pi, tiled_matvec(torch, ld), 9)
     mp = rows * T
@@ -990,9 +1177,9 @@ def time_tiled(torch, TSG, TB, spec, data, pr, pi, ld, errs, rows=16):
     args = (data.ld_tiles[:rows], cols, data.ld_valid[:rows] & (cols < rows),
             r[:mp].contiguous(), P[:, :mp].contiguous(), spec.n)
     out, ref = TB.sweep_s_tiled(sub, *args), TB.sweep_s_tiled_plain(sub, *args)
-    errs["sweep_s_tiled"] = max(errs["sweep_s_tiled"], bar(
+    errs[key] = max(errs[key], bar(
         (g[:mp] - ref[0], ref[1], ref[2]), (g[:mp] - out[0], out[1], out[2]),
-        f"sweep_s_tiled at the main path's shapes ({rows} rows)", r_index=2))
+        f"sweep_s_tiled at the main path's shapes ({rows} rows of {T})", r_index=2))
     full = (data.ld_tiles, data.ld_cols, data.ld_valid, r, P, spec.n)
     # the BayesCpi draw chain alone, with and without the guard, on the
     # first tile row's Gram block and rows
@@ -1070,6 +1257,349 @@ def time_segment(torch, TSG, TB, spec, data, pr, pi, errs):
     b4 = nbytes(seg, r4, P4) + 4 * 4 * mc * 3
     return t, {"sweep_s_segment": bound(b, 2.0 * mc * mc + 2.0 * B * mc),
                "sweep_s_segment_k4": bound(b4, 4 * (2.0 * mc * mc + 2.0 * B * mc))}
+
+
+# ---------------------------------------------------------------------------
+# the README quick start (phase 8)
+# ---------------------------------------------------------------------------
+
+
+def ld_genotype(torch, n, m, nchr, gen, dev, rho=QS_RHO):
+    """(n, m) int8 genotypes with LD that decays along each of nchr equal
+    chromosomes: each of an individual's two haplotypes is a Markov chain
+    along its chromosome, SNP j keeping SNP j - 1's allele with
+    probability rho and else drawing a fresh one, A1 with probability
+    p_j ~ U(0.05, 0.5) (so r between SNPs d apart is about rho^d).  Made on
+    the card, all chromosomes and both haplotypes a step at a time."""
+    mc = m // nchr
+    p = (torch.rand(m, generator=gen, device=dev) * 0.45 + 0.05).view(nchr, mc)
+    M = torch.empty((n, nchr, mc), dtype=torch.int8, device=dev)
+    h = torch.rand((2, n, nchr), generator=gen, device=dev) < p[:, 0]
+    M[:, :, 0] = h.sum(0)
+    for j in range(1, mc):
+        keep = torch.rand((2, n, nchr), generator=gen, device=dev) < rho
+        fresh = torch.rand((2, n, nchr), generator=gen, device=dev) < p[:, j]
+        h = torch.where(keep, h, fresh)
+        M[:, :, j] = h.sum(0)
+    return M.view(n, m)
+
+
+def write_fileset(Mh, data, nchr, stem, encode_bed_bytes, threads=8, chunk=2048):
+    """<stem>.bed/.bim/.fam of the genotype Mh (numpy int8, n x m; the
+    .bed encoded by encode_bed_bytes in column chunks on ``threads``
+    threads: each SNP's bytes stand alone) and <stem>.phe (id y x1 grp)."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    n, m = Mh.shape
+    mc = m // nchr
+    with ThreadPoolExecutor(threads) as ex, open(stem + ".bed", "wb") as f:
+        f.write(b"\x6c\x1b\x01")
+        for part in ex.map(lambda c: encode_bed_bytes(Mh[:, c:c + chunk])[3:],
+                           range(0, m, chunk)):
+            f.write(part)
+    with open(stem + ".bim", "w") as f:
+        f.write("".join(f"{1 + j // mc}\trs{j}\t0\t{1000 * (1 + j % mc)}\tA\tG\n"
+                        for j in range(m)))
+    with open(stem + ".fam", "w") as f:
+        f.write("".join(f"{i}\t{i}\t0\t0\t1\t-9\n" for i in data["id"]))
+    with open(stem + ".phe", "w") as f:
+        f.write("id y x1 grp\n")
+        f.write("".join(f"{i} {float(y)!r} {float(x)!r} {g}\n"
+                        for i, y, x, g in zip(data["id"], data["y"], data["x1"], data["grp"])))
+
+
+def marginal_stats(torch, M, y, snps, chunk=4096):
+    """The cohort's marginal regressions of y on each SNP (float64 on the
+    card): the COJO columns SNP A1 A2 MAF BETA SE P NMISS as a dict."""
+    n, m = M.shape
+    yc = torch.as_tensor(y - y.mean(), dtype=torch.float64, device=M.device)
+    yy = float(yc @ yc)
+    beta, se, maf = (torch.empty(m, dtype=torch.float64, device=M.device) for _ in range(3))
+    for c0 in range(0, m, chunk):
+        X = M[:, c0:c0 + chunk].double()
+        s = X.sum(0)
+        sxx = (X * X).sum(0) - s * s / n
+        sxy = X.T @ yc
+        beta[c0:c0 + chunk] = sxy / sxx
+        se[c0:c0 + chunk] = torch.sqrt((yy - sxy * sxy / sxx) / (n - 2) / sxx)
+        f = s / (2 * n)
+        maf[c0:c0 + chunk] = torch.minimum(f, 1 - f)
+    p = torch.special.erfc((beta / se).abs() / np.sqrt(2.0))
+    return {"SNP": snps, "A1": np.full(m, "A"), "A2": np.full(m, "G"),
+            "MAF": maf.cpu().numpy(), "BETA": beta.cpu().numpy(), "SE": se.cpu().numpy(),
+            "P": p.cpu().numpy(), "NMISS": np.full(m, float(n))}
+
+
+def write_ma(path, st):
+    with open(path, "w") as f:
+        f.write(" ".join(st) + "\n")
+        cols = [st[k] for k in st]
+        f.write("".join(" ".join(v if isinstance(v, str) else repr(float(v)) for v in row)
+                        + "\n" for row in zip(*cols)))
+
+
+def predict(torch, M, alpha, chunk=8192):
+    """M alpha on the card (M int8 on the card, alpha numpy)."""
+    a = torch.as_tensor(alpha, dtype=torch.float32, device=M.device)
+    out = torch.zeros(M.shape[0], dtype=torch.float32, device=M.device)
+    for c0 in range(0, M.shape[1], chunk):
+        out += M[:, c0:c0 + chunk].float() @ a[c0:c0 + chunk]
+    return out
+
+
+def corr(a, b) -> float:
+    return float(np.corrcoef(np.asarray(a, np.float64), np.asarray(b, np.float64))[0, 1])
+
+
+def time_guarded_segment(torch, TSG, TB, spec, data, pr, pi, errs):
+    """The guarded segment sweep over phase 8's first chromosome block
+    (B=64), one chain and 4, held to the bar and timed beside its plain
+    version and torch.mv / torch.mm of the update's whole product on the
+    sweep's own dg.  Returns (times, bounds)."""
+    seg = data.ld_segs[0]
+    mc = seg.shape[0]
+    sub = spec.__class__(**{**spec.__dict__, "m_pad": mc, "seg_sizes": (mc,),
+                            "seg_real": (spec.seg_real[0],)})
+    mv = segments_matvec(torch, data, spec)
+    ins = [s_sweep_inputs(torch, TSG, spec, data, pr, pi, mv, 40 + k) for k in range(4)]
+    ins = [(g[:mc], r[:mc].contiguous(), P[:, :mc].contiguous()) for g, r, P in ins]
+    g, r, P = ins[0]
+    g4, r4, P4 = (torch.stack(x) for x in zip(*ins))
+    guarded_case(torch, TSG, TB, sub, seg, g, r, P,
+                 f"sweep_s_segment guarded at phase 8's shapes (m={mc}, B=64)", errs,
+                 "sweep_s_segment_guard", False)
+    guarded_case(torch, TSG, TB, sub, seg, g4, r4, P4,
+                 f"sweep_s_segment guarded K=4 at phase 8's shapes (m={mc}, B=64)", errs,
+                 "sweep_s_segment_guard", False)
+    dg1 = TB.sweep_s_segment(sub, seg, r, P, sub.n)[0]
+    dg4 = TB.sweep_s_segment(sub, seg, r4, P4, sub.n)[0]
+    t = {"seg_guard": cuda_ms(torch, lambda: TB.sweep_s_segment(sub, seg, r, P, sub.n), 10),
+         "seg_guard_plain": cuda_ms(
+             torch, lambda: TB.sweep_s_segment_plain(sub, seg, r, P, sub.n), 1),
+         "seg_guard_k4": cuda_ms(torch, lambda: TB.sweep_s_segment(sub, seg, r4, P4, sub.n), 10),
+         "seg_guard_k4_plain": cuda_ms(
+             torch, lambda: TB.sweep_s_segment_plain(sub, seg, r4, P4, sub.n), 1),
+         "seg_guard_library": cuda_ms(torch, lambda: torch.mv(seg, dg1), 10),
+         "seg_guard_k4_library": cuda_ms(torch, lambda: torch.mm(seg, dg4.T), 10),
+         "seg_guard_split": segment_split(torch, TB, sub, seg, r, P)}
+    B = sub.block
+    return t, {"seg_guard": bound(nbytes(seg, r, P) + 4 * mc * 3, 2.0 * mc * mc + 2.0 * B * mc),
+               "seg_guard_k4": bound(nbytes(seg, r4, P4) + 4 * 4 * mc * 3,
+                                     4 * (2.0 * mc * mc + 2.0 * B * mc))}
+
+
+def check_sweep_qs(torch, TG, TB, dev, M, y, errs, B=64, nbg=16):
+    """sweep_mc at the shapes phase 8's ibrm call gives it: the int8
+    genotype of the quick start's first nbg blocks of B=64 SNPs, n=50,000
+    rows (padded as ibrm pads them), K=1, BayesCpi; held to the bar (into
+    ``errs["sweep_mc_qs"]``), bit-identical on a second launch, and timed
+    beside its plain version.  Returns (times, bounds)."""
+    n = M.shape[0]
+    data = TG.prepare_gibbs_data(y, M[:, :nbg * B], block=B, geno_dtype="int8", device=dev)
+    spec, pr, pi = make_spec(TG, "BayesCpi", data, nbg * B, n)
+    args = sweep_args(torch, TG, spec, data, pr, pi, 1, seed=6)
+    out, again = (TB.sweep_mc(spec, *args) for _ in range(2))
+    what = f"sweep_mc at phase 8's ibrm shapes (int8, B={B}, n={spec.n}, {nbg} blocks)"
+    errs["sweep_mc_qs"] = max(errs["sweep_mc_qs"], bar(TB.sweep_mc_plain(spec, *args), out, what))
+    if not all(torch.equal(a, b) for a, b in zip(out, again)):
+        raise AssertionError(f"{what}: two runs differ (not deterministic)")
+    log(f"  ok {what}")
+    t = {"sweep_mc_qs": cuda_ms(torch, lambda: TB.sweep_mc(spec, *args), 10),
+         "sweep_mc_qs_plain": cuda_ms(torch, lambda: TB.sweep_mc_plain(spec, *args), 1)}
+    consts, X_b, W, xpx, vx, *per = args
+    by = nbytes(X_b, W, xpx, vx, *per) + 4 * nbg * B * 3 + nbytes(per[7], per[8])
+    return t, {"sweep_mc_qs": bound(by, nbg * (4.0 * spec.n * B + 2.0 * B * B))}
+
+
+def segments_matvec(torch, data, spec):
+    """LD v over a segment layout's blocks (v padded like the layout)."""
+    def mv(v):
+        parts, off = [], 0
+        for seg, mc in zip(data.ld_segs, spec.seg_sizes):
+            parts.append(seg @ v[off:off + mc])
+            off += mc
+        return torch.cat(parts)
+    return mv
+
+
+def quickstart(torch, ht, TG, TSG, TB, dev, gen, args, smi, errs, thin):
+    """Phase 8: the README quick start on the port from PLINK files at
+    n x m (args.qs_n, args.qs_m, args.qs_chr chromosomes).  Returns
+    (results, times, bounds)."""
+    from hibayes_tpu_torch.data import ld as TLD
+    from hibayes_tpu_torch.data.plink import encode_bed_bytes
+    from hibayes_tpu_torch.data.sumstats import sumstat_matrix
+    from hibayes_tpu_torch.native import bed_codec
+
+    n, m, nchr = args.qs_n, args.qs_m, args.qs_chr
+    mc = m // nchr
+    niter_eff = args.nburn + ((args.niter - args.nburn) // thin) * thin
+    res, times, bounds = {}, {}, {}
+    t0 = time.perf_counter()
+    M = ld_genotype(torch, n, m, nchr, gen, dev)
+    data, gv, causal, b = phenotype(torch, M, gen, dev)
+    torch.cuda.synchronize()
+    log(f"[8] genotype {tuple(M.shape)} int8 with LD (rho {QS_RHO}) on {nchr} chromosomes "
+        f"and the phenotype made on the card in {time.perf_counter() - t0:.1f} s")
+    root = os.path.dirname(os.path.abspath(__file__))
+    os.makedirs(os.path.join(root, "build"), exist_ok=True)
+    tmp = tempfile.mkdtemp(prefix="quickstart_", dir=os.path.join(root, "build"))
+    try:
+        stem = os.path.join(tmp, "cohort")
+        t0 = time.perf_counter()
+        Mh = M.cpu().numpy()
+        write_fileset(Mh, data, nchr, stem, encode_bed_bytes)
+        bed_bytes = os.path.getsize(stem + ".bed")
+        log(f"[8] PLINK fileset written in {time.perf_counter() - t0:.1f} s: .bed "
+            f"{bed_bytes / 1e9:.3f} GB, .bim, .fam, .phe")
+
+        # -- read_plink, read_pheno --
+        t0 = time.perf_counter()
+        path = "native (g++ codec, OpenMP)" if bed_codec.available() else "numpy"
+        bed = ht.read_plink(stem)
+        t_read = time.perf_counter() - t0
+        if not np.array_equal(bed["geno"].values, Mh):
+            raise AssertionError("read_plink: the decoded genotype differs from the written one")
+        del Mh
+        pheno = ht.read_pheno(stem + ".phe")
+        if not np.array_equal(pheno["y"], data["y"].astype(np.float64)):
+            raise AssertionError("read_pheno: y differs from the written phenotype")
+        res["read_s"] = t_read
+        log(f"[8] read_plink {n} x {m} through the {path} path in {t_read:.2f} s "
+            f"({bed_bytes / t_read / 1e9:.3f} GB/s of .bed), bit for bit the written "
+            f"genotype; read_pheno: {len(pheno)} columns")
+
+        # -- the one-chain sweep at the ibrm call's shapes, then the call --
+        t_s, b_s = check_sweep_qs(torch, TG, TB, dev, M, data["y"], errs)
+        times.update(t_s)
+        bounds.update(b_s)
+        reset_counts(TB)
+        fit = ht.ibrm("y ~ x1 + (1|grp)", data=pheno, M=bed["geno"].values,
+                      M_id=bed["fam"][1], method="BayesCpi", map=bed["map"], windsize=1e6,
+                      niter=args.niter, nburn=args.nburn, thin=thin, seed=args.seed,
+                      device=dev, printfreq=50)
+        torch.cuda.synchronize()
+        launches, plain = read_counts(TB)
+        expect_counts(launches, plain, {"sweep_mc": niter_eff, "sweep1": niter_eff}, "8 ibrm")
+        for k in ("Vg", "Ve", "h2"):
+            if not np.isfinite(getattr(fit, k)):
+                raise AssertionError(f"phase 8 ibrm: {k} is not finite")
+        if not 0.0 < fit.h2 < 1.0:
+            raise AssertionError(f"phase 8 ibrm: h2 {fit.h2} outside (0, 1)")
+        wppa = np.asarray(fit.gwas["WPPA"])
+        if not (np.isfinite(wppa).all() and ((wppa >= 0) & (wppa <= 1)).all()):
+            raise AssertionError("phase 8 ibrm: WPPA not in [0, 1]")
+        acc = corr(fit.g["gebv"], gv.cpu().numpy())
+        res.update(ibrm_launches=launches, ibrm_acc=acc,
+                   ibrm_ms=1e3 * fit.chain_seconds / niter_eff)
+        log(f"[8] ibrm BayesCpi y ~ x1 + (1|grp), windsize 1e6 ({wppa.size} windows): "
+            f"Vg {fit.Vg:.4f} Ve {fit.Ve:.4f} h2 {fit.h2:.4f}, GEBV corr {acc:.4f} (bar "
+            f"{QS_GEBV_CORR_MIN}); chain {fit.chain_seconds:.2f} s = "
+            f"{res['ibrm_ms']:.2f} ms/iter on {smi}")
+        if not acc >= QS_GEBV_CORR_MIN:
+            raise AssertionError(f"phase 8 ibrm accuracy {acc} below {QS_GEBV_CORR_MIN}")
+        del fit
+
+        # -- summary statistics of the cohort: marginal regressions on y
+        # adjusted for the covariate and the factor, written as COJO --
+        Z = np.column_stack([np.ones(n), pheno["x1"],
+                             (pheno["grp"][:, None] == np.unique(pheno["grp"])[None, 1:])])
+        y_adj = pheno["y"] - Z @ np.linalg.lstsq(Z, pheno["y"], rcond=None)[0]
+        write_ma(stem + ".ma", marginal_stats(torch, M, y_adj, bed["map"]["SNP"]))
+        ss = ht.read_sumstat(stem + ".ma")
+
+        # -- ldmat, each layout, and the Gram's rate --
+        lds = {}
+        for key, kw in (("blockdiag", dict(map=bed["map"], ldchr=False)),
+                        ("tiled", dict(map=bed["map"], chisq=QS_CHISQ, tiled=True)),
+                        ("sparse", dict(chisq=QS_CHISQ))):
+            geno = bed["geno"] if key != "sparse" else bed["geno"].values[:, :mc]
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            lds[key] = ht.ldmat(geno, device=dev, **kw)
+            torch.cuda.synchronize()
+            res[f"ldmat_{key}_s"] = time.perf_counter() - t0
+        tl = lds["tiled"]
+        XT = torch.zeros((mc, -(-n // 8) * 8), dtype=torch.int8, device=dev)
+        XT[:, :n] = M[:, :mc].T
+        gram = cuda_ms(torch, lambda: TLD._int_mm(XT, XT), 3)
+        tops = 2.0 * n * mc * mc / (gram * 1e-3) / 1e12
+        del XT
+        res.update(gram_ms=gram, gram_tops=tops, tiles=tl.n_tiles, k_max=tl.k_max)
+        log(f"[8] ldmat on the card: BlockDiagLD ({nchr} blocks of {mc}) "
+            f"{res['ldmat_blockdiag_s']:.2f} s; TiledSparseLD (chisq {QS_CHISQ}, tile "
+            f"{tl.tile}, per chromosome, device path) {res['ldmat_tiled_s']:.2f} s: "
+            f"{tl.nbr} rows x {tl.k_max} slots, {tl.n_tiles} tiles "
+            f"({tl.tiles.numel() * 4 / 1e9:.3f} GB f32); SparseLD of chromosome 1 "
+            f"(chisq {QS_CHISQ}) {res['ldmat_sparse_s']:.2f} s, "
+            f"{int(lds['sparse'].nnz_col.sum())} nonzeros of {mc * mc}")
+        log(f"[8] the exact int8 Gram of one chromosome (torch._int_mm, {mc} x {n} by "
+            f"{n} x {mc}): {gram:.3f} ms, {tops:.1f} TOP/s of the 1,979 TOP/s int8 dense "
+            f"peak ({100 * tops / 1979:.1f}%) on {smi}")
+
+        # -- the new kernel instances at these shapes --
+        bdata, bspec, bpr, bpi = s_setup(torch, TG, TSG, sumstat_matrix(ss), lds["blockdiag"],
+                                        "BayesCpi", 64, dev, True)
+        t_g, b_g = time_guarded_segment(torch, TSG, TB, bspec, bdata, bpr, bpi, errs)
+        times.update(t_g)
+        bounds.update(b_g)
+        del bdata
+        tdata, tspec, tpr, tpi = s_setup(torch, TG, TSG, sumstat_matrix(ss), tl, "BayesCpi",
+                                        tl.tile, dev, True)
+        t_t, b_t = time_tiled(torch, TSG, TB, tspec, tdata, tpr, tpi, tl, errs,
+                              key="sweep_s_tiled64")
+        ren = lambda k: k.replace("sweep_s_tiled", "tiled64").replace("chain_", "tiled64_chain_")
+        times.update({ren(k): v for k, v in t_t.items()})
+        bounds.update({ren(k): v for k, v in b_t.items()})
+        del tdata
+        log(f"[8] times (ms) of the guarded segment sweep and the tile-64 tiled sweep on "
+            f"{smi}: {json.dumps({**t_g, **{ren(k): v for k, v in t_t.items()}})}; bounds "
+            f"{json.dumps({**b_g, **{ren(k): v for k, v in b_t.items()}})}")
+
+        # -- sbrm BayesCpi on each layout --
+        gv_np = gv.cpu().numpy()
+        on1 = causal < mc
+        gv1 = (M[:, causal[on1]].float() @ b[on1]).cpu().numpy()
+        for key in ("blockdiag", "sparse", "tiled"):
+            ld = lds[key]
+            sub = ss if key != "sparse" else {k: v[:mc] for k, v in ss.items()}
+            reset_counts(TB)
+            fit = ht.sbrm(sub, ld, method="BayesCpi", niter=args.niter, nburn=args.nburn,
+                          thin=thin, seed=args.seed, device=dev, printfreq=0,
+                          verbose=False)
+            torch.cuda.synchronize()
+            got, plain = read_counts(TB)
+            if key == "tiled":
+                want = {"sweep_s_tiled": niter_eff, "tiled_sweep": niter_eff}
+            else:
+                nseg = nchr if key == "blockdiag" else 1
+                want = {"sweep_s_segment": nseg * niter_eff, "segment_sweep": nseg * niter_eff}
+            expect_counts(got, plain, want, f"8 sbrm {key}")
+            for k in ("Vg", "Ve", "h2"):
+                if not np.isfinite(getattr(fit, k)):
+                    raise AssertionError(f"phase 8 sbrm {key}: {k} is not finite")
+            if not 0.0 < fit.h2 < 1.0:
+                raise AssertionError(f"phase 8 sbrm {key}: h2 {fit.h2} outside (0, 1)")
+            if fit.alpha.shape != (ld.m,) or not np.isfinite(fit.alpha).all():
+                raise AssertionError(f"phase 8 sbrm {key}: effects of the wrong shape")
+            pred = predict(torch, M[:, :ld.m], fit.alpha).cpu().numpy()
+            a = corr(pred, gv_np if key != "sparse" else gv1)
+            rej, exh = (int(x) for x in fit.guard[0])
+            res[f"sbrm_{key}"] = {"launches": got, "acc": a, "guard": [rej, exh],
+                                  "ms": 1e3 * fit.chain_seconds / niter_eff}
+            log(f"[8] sbrm BayesCpi on the {key} LD (m={ld.m}): Vg {fit.Vg:.4f} Ve "
+                f"{fit.Ve:.4f} h2 {fit.h2:.4f}; corr(X alpha, g) {a:.4f} (bar "
+                f"{QS_SBRM_CORR_MIN[key]}{'; chromosome 1 part of g' if key == 'sparse' else ''}); "
+                f"guard: {rej} first draws rejected, {exh} of them with all 8 candidates "
+                f"failed, over {niter_eff} sweeps of {ld.m} SNPs; chain "
+                f"{fit.chain_seconds:.2f} s = {res[f'sbrm_{key}']['ms']:.2f} ms/iter on {smi}")
+            if not a >= QS_SBRM_CORR_MIN[key]:
+                raise AssertionError(f"phase 8 sbrm {key} accuracy {a} below "
+                                     f"{QS_SBRM_CORR_MIN[key]}")
+            del fit
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    return res, times, bounds
 
 
 def profile_iterations(torch, step, state, what, iters=3, split=None):
@@ -1505,6 +2035,9 @@ def main(argv=None) -> int:
     ap.add_argument("--ss-m", type=int, default=100_000, help="SNPs of the ssbrm path")
     ap.add_argument("--mc-m", type=int, default=65_536,
                     help="SNPs of the multi-chain path (n=4,096)")
+    ap.add_argument("--qs-n", type=int, default=50_000, help="individuals of phase 8")
+    ap.add_argument("--qs-m", type=int, default=65_536, help="SNPs of phase 8")
+    ap.add_argument("--qs-chr", type=int, default=16, help="chromosomes of phase 8")
     args = ap.parse_args(argv)
 
     import torch
@@ -1548,8 +2081,13 @@ def main(argv=None) -> int:
     nrej = check_s_kernels(torch, TG, TSG, TSLD, TB, dev, errs)
     check_kernels_mc(torch, TG, TB, dev, errs)
     check_segment_mc(torch, TG, TSG, TB, dev, errs)
+    from hibayes_tpu_torch.data import ld as TLD
+
+    errs.update(sweep_s_segment_guard=0.0, sweep_s_tiled64=0.0, sweep_mc_qs=0.0)
+    fired = check_guard_kernels(torch, TG, TSG, TLD, TSLD, TB, dev, errs)
     log(f"[3] kernel checks passed in {time.perf_counter() - t0:.1f} s: {errs}; "
-        f"the guard rejected {nrej} first draws at the lowered vary")
+        f"the guard rejected {nrej} first draws at the lowered vary (tile 128); "
+        f"guarded segment and tile-64 counts at the lowered vary {json.dumps(fired)}")
 
     B = 128
     gen = torch.Generator(device=dev).manual_seed(args.seed)
@@ -1843,7 +2381,15 @@ def main(argv=None) -> int:
         raise AssertionError(f"ssbrm accuracy {corr_s} below {SSBRM_CORR_MIN}")
     del Mg, fit
 
-    # ---- 8. results ----
+    # ---- 8. the README quick start from PLINK files ----
+    torch.cuda.empty_cache()
+    qs, t_qs, b_qs = quickstart(torch, hibayes_tpu_torch, TG, TSG, TB, dev, gen, args, smi,
+                                errs, thin)
+    times.update(t_qs)
+    bounds.update(b_qs)
+    torch.cuda.empty_cache()
+
+    # ---- 9. results ----
     src = "hibayes_tpu_torch/csrc/blockgibbs.cu"
     ssrc = "hibayes_tpu_torch/csrc/sgibbs.cu"
 
@@ -1871,13 +2417,22 @@ def main(argv=None) -> int:
                                   "BayesCpi": times["chain_bayescpi_us"]}),
         entry("sweep1_kernel_for_kernel1", src, "hibayes_tpu/ops/blockgibbs.py:138",
               launches["sweep1"], errs["sweep_mc"], "sweep_mc",
+              library_ms=times["sweep_mc_library"],
               timed=f"sweep_mc at K=1, n={n_rows} (as row 3)"),
         entry("sweep1_kernel_for_kernel8", src, "hibayes_tpu/ops/blockgibbs.py:1371",
               launches["sweep1"], errs["sweep_mc_k8"], "sweep_mc_k8",
+              library_ms=times["sweep_mc_k8_library"],
               timed="sweep_mc at K=1, n=131,072",
               block_split_us=times["sweep_mc_k8_split"]),
         entry("sweep1_kernel", src, "hibayes_tpu/ops/blockgibbs.py:642", launches["sweep1"],
-              errs["sweep_mc"], "sweep_mc", sweep_mc_launches=launches["sweep_mc"],
+              errs["sweep_mc"], "sweep_mc", library_ms=times["sweep_mc_library"],
+              library="torch.mv of X_b' r and X_b dg, 16 blocks, float32 copy of the int8 blocks",
+              sweep_mc_launches=launches["sweep_mc"],
+              quickstart_ibrm_launches=qs["ibrm_launches"]["sweep1"],
+              quickstart_max_abs_err=errs["sweep_mc_qs"], quickstart_ms=times["sweep_mc_qs"],
+              quickstart_plain_ms=times["sweep_mc_qs_plain"],
+              quickstart_bound_ms=bounds["sweep_mc_qs"][0],
+              quickstart_timed="phase 8's int8 genotype, B=64, 16 blocks, BayesCpi, K=1",
               block_split_us=times["sweep_mc_split"],
               full_sweep_ms=times["sweep_full"],
               chain_cycles_per_draw={"BayesR_4_folds": times["chain_bayesr_cycles"] / B},
@@ -1902,6 +2457,29 @@ def main(argv=None) -> int:
               k4_bound_ms=bounds["sweep_s_segment_k4"][0],
               k4_library_ms=times["sweep_s_segment_k4_library"],
               k4_block_split_us=times["sweep_s_segment_k4_split"]),
+        entry("segment_sweep_guarded", ssrc, "hibayes_tpu/ops/blockgibbs.py:1141",
+              qs["sbrm_blockdiag"]["launches"]["segment_sweep"]
+              + qs["sbrm_sparse"]["launches"]["segment_sweep"],
+              errs["sweep_s_segment_guard"], "seg_guard",
+              library_ms=times["seg_guard_library"],
+              timed="phase 8's first chromosome block, BayesCpi, SBayesS guard",
+              replaces_also="hibayes_tpu/engine/sgibbs.py:309 (the guarded XLA scan)",
+              blockdiag_launches=qs["sbrm_blockdiag"]["launches"]["segment_sweep"],
+              sparse_launches=qs["sbrm_sparse"]["launches"]["segment_sweep"],
+              guard_counts={k: qs["sbrm_" + k]["guard"] for k in ("blockdiag", "sparse")},
+              block_split_us=times["seg_guard_split"], k4_ms=times["seg_guard_k4"],
+              k4_plain_ms=times["seg_guard_k4_plain"], k4_bound_ms=bounds["seg_guard_k4"][0],
+              k4_library_ms=times["seg_guard_k4_library"]),
+        entry("tiled_sweep_tile64", ssrc, "hibayes_tpu/ops/blockgibbs.py:1635",
+              qs["sbrm_tiled"]["launches"]["tiled_sweep"], errs["sweep_s_tiled64"], "tiled64",
+              timed="phase 8's tiled LD, first 16 tile rows of 64",
+              guard_counts=qs["sbrm_tiled"]["guard"],
+              full_sweep_ms=times["tiled64_full"],
+              full_sweep_bound_ms=bounds["tiled64_full"][0],
+              full_sweep_split=times["tiled64_split"],
+              chain_us_per_block_of_64={"BayesCpi": times["tiled64_chain_bayescpi_us"],
+                                        "BayesCpi_guard":
+                                            times["tiled64_chain_bayescpi_guard_us"]}),
         entry("sweep_s_tiled", ssrc, "hibayes_tpu/ops/blockgibbs.py:1635",
               s_launches["sweep_s_tiled"], errs["sweep_s_tiled"], "sweep_s_tiled",
               tiled_sweep_launches=s_launches["tiled_sweep"],

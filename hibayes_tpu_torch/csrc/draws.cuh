@@ -4,7 +4,8 @@
 // _draw_from_vals, hibayes_tpu/ops/blockgibbs.py:537-639), used by the
 // Hopper kernels in blockgibbs.cu and sgibbs.cu.  With GUARD it also applies
 // the SBayesS rejection guard of the tiled summary kernel
-// (_kernel_s_tiled, hibayes_tpu/ops/blockgibbs.py:1672-1686).
+// (_kernel_s_tiled, hibayes_tpu/ops/blockgibbs.py:1672-1686), which the
+// summary sweeps run on every SBayesS layout (tiled and dense segments).
 //
 // What bounds it on the card: latency.  The B draws of a block form one
 // dependent chain (draw j reads every earlier draw's correction through the
@@ -112,10 +113,11 @@ __device__ __forceinline__ float draw_one(const float* p, float rhs,
 // first that passes, else 0.  The kernel this ports runs all kRetry and
 // keeps a candidate once one passes, so stopping there gives the same gi.
 // Out of line: the common path pays only for the predicate.  p is the
-// SNP's staged rows (the guard rows from packed_rows on).
+// SNP's staged rows (the guard rows from packed_rows on).  Returns {gi,
+// 1 when all kRetry candidates failed (gi = 0), else 0}.
 template <int MI, int NF>
-__device__ __noinline__ float guard_retry(const float* p, float rhs, float tr,
-                                          float vary, float vxj) {
+__device__ __noinline__ float2 guard_retry(const float* p, float rhs, float tr,
+                                           float vary, float vxj) {
   const float* pg = p + packed_rows(MI, NF);
 #pragma unroll 1
   for (int t = 0; t < kRetry; ++t) {
@@ -128,10 +130,15 @@ __device__ __noinline__ float guard_retry(const float* p, float rhs, float tr,
         if (tr == static_cast<float>(f))
           cand = rhs * p[4 + 4 * (f - 1)] + pg[1 + t * (NF - 1) + (f - 1)];
     }
-    if (!(cand * cand * vxj > vary)) return cand;
+    if (!(cand * cand * vxj > vary)) return make_float2(cand, 0.f);
   }
-  return 0.f;
+  return make_float2(0.f, 1.f);
 }
+
+// warp_block_draws returns rejected + (exhausted << kExhaustShift): the
+// draws whose first candidate the guard rejected, and of those the ones
+// whose kRetry candidates all failed (B <= kMaxBlock keeps both below 2^16).
+constexpr int kExhaustShift = 16;
 
 // The B sequential draws of one chain, run by one whole warp.
 //   r[s]  in: r_local[kSlots lane + s] = X_b' yadj at block start
@@ -144,8 +151,8 @@ __device__ __noinline__ float guard_retry(const float* p, float rhs, float tr,
 //   vary  the guard's bound (read only with GUARD)
 // B is a multiple of 4.  On return lane l holds, for j = kSlots l + s:
 // gi[s], dg[s] = g_old - gi, tr[s] (the mixture component).  Returns the
-// number of draws whose first candidate the guard rejected (0 without
-// GUARD).
+// number of draws whose first candidate the guard rejected, plus those
+// whose every candidate failed shifted by kExhaustShift (0 without GUARD).
 //
 // The shuffle that fetches draw j+1's r_local runs beside draw j: it reads
 // r_local before dg_j is folded in, and draw j+1 adds dg_j * W[j+1, j]
@@ -182,7 +189,7 @@ __device__ __forceinline__ int warp_block_draws(
   fetch(1, B > 1 ? 1 : 0);
   float v = __shfl_sync(0xffffffffu, r[0], 0);  // r_local[0]
   float dg_prev = 0.f;
-  int nrej = 0;
+  int nrej = 0, nexh = 0;
 #pragma unroll 1
   for (int j0 = 0; j0 < B; j0 += kSlots) {
 #pragma unroll
@@ -206,8 +213,10 @@ __device__ __forceinline__ int warp_block_draws(
       if constexpr (GUARD) {
         const float vxj = p[R];
         if ((gi * gi * vxj > vary) && tr > 0.f) {   // uniform: every lane holds the same values
-          gi = guard_retry<MI, NF>(Ps + j * RP, rhs, tr, vary, vxj);
+          const float2 rc = guard_retry<MI, NF>(Ps + j * RP, rhs, tr, vary, vxj);
+          gi = rc.x;
           ++nrej;
+          nexh += rc.y != 0.f;
         }
       }
       const float dg = p[1] - gi;
@@ -226,7 +235,7 @@ __device__ __forceinline__ int warp_block_draws(
       dg_prev = dg;
     }
   }
-  return nrej;
+  return nrej + (nexh << kExhaustShift);
 }
 
 }  // namespace hb

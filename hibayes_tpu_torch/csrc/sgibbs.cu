@@ -11,6 +11,12 @@
 //                         sweep sweep_s_segment_t (:1325-1362), whose draws
 //                         are _kernel_s_block_t (:1264-1322)
 //   hb_sweep_s_tiled   <- _kernel_s_tiled / sweep_s_tiled     (:1635-1792)
+// and, with the SBayesS guard, the XLA scan the JAX package runs for
+// reject_guard specs on chi-square-pruned and per-chromosome LD
+// (hibayes_tpu/engine/sgibbs.py:309-372, engine/gibbs.py:311-331): the
+// segment sweep draws with the tiled kernel's guard rule (8 pre-drawn
+// candidates, the first that passes, else 0) instead of the scan's up to
+// 100 redraws; the two differ only where all 8 candidates fail.
 //
 // The chain state is r_hat, the adjusted X'y.  Per block b of B SNPs the
 // TPU kernels draw B effects against the Gram rows n * LD[block, block],
@@ -96,9 +102,10 @@ long long g_segment_sweep = 0, g_tiled_sweep = 0;
 // the plan is ops/blockgibbs.py:segment_plan).
 struct SegArgs {
   const float* LD;     // (mc, mc) row-major
-  const float* P;      // (K, R, mc) packed rows
+  const float* P;      // (K, R, mc) packed rows (and the guard rows with GUARD)
   int mc, B, K;
-  float n;
+  float n, vary;       // vary: the guard's bound (read only with GUARD)
+  int* nrej;           // (K, mc / B) per chain and block: the guard's counts (with GUARD)
   float *r, *dg, *tr;  // (K, mc): r in place; dg, tr out
   float* snap;         // (2, K, B) scratch: r of a block two ahead, from its owners
   unsigned* flags;     // K chain flags, then nown owner flags; run on by the epoch
@@ -178,9 +185,11 @@ __host__ __device__ inline long long seg_own_floats(int B, int rw, int kch, int 
 // b - 1.  Block b + 1's Gram block, the tile LD[b + 1, b] and its packed
 // rows land (cp.async, issued by the warps that draw no chain, from L2,
 // where they were prefetched two blocks ahead) under block b's chain.
-template <int MI, int NF>
+// With GUARD the draws apply the SBayesS guard (draws.cuh) and each warp
+// writes its chain's counts for the block to nrej.
+template <int MI, int NF, bool GUARD>
 __device__ __forceinline__ void seg_drawer(const SegArgs& a, float* sm) {
-  constexpr int R = packed_rows(MI, NF);
+  constexpr int R = row_stride(MI, NF, GUARD);
   constexpr int RP = padded_stride(R);
   const int B = a.B, cpc = a.cpc, lds = a.lds;
   const long long mc = a.mc;
@@ -271,8 +280,10 @@ __device__ __forceinline__ void seg_drawer(const SegArgs& a, float* sm) {
         rv[s] = j < B ? rr[warp * B + j] : 0.f;
         gi[s] = dg[s] = tr[s] = 0.f;
       }
-      warp_block_draws<MI, NF>(B, G0 + (b & 1) * B * B, P0 + (b & 1) * cpc * B * RP + warp * B * RP,
-                               rv, gi, dg, tr);
+      const int rej = warp_block_draws<MI, NF, GUARD>(
+          B, G0 + (b & 1) * B * B, P0 + (b & 1) * cpc * B * RP + warp * B * RP, rv, gi, dg, tr,
+          a.vary);
+      if (GUARD && lane == 0) a.nrej[static_cast<long long>(k0 + warp) * nb + b] = rej;
       if (st != nullptr && tid == 0) st[kSegStamps * b + 10] = clock64();
 #pragma unroll
       for (int s = 0; s < kSlots; ++s) {
@@ -447,10 +458,10 @@ __device__ __forceinline__ void seg_owner(const SegArgs& a, float* sm) {
 // (seg_drawer), the others own rows (seg_owner).  Grid no larger than the
 // CTAs that fit on the card at once (every CTA resident, so the flag waits
 // cannot deadlock).
-template <int MI, int NF>
+template <int MI, int NF, bool GUARD>
 __global__ void __launch_bounds__(kSegThreads, 1) seg_sweep_kernel(SegArgs a) {
   extern __shared__ __align__(16) float sm[];
-  if (static_cast<int>(blockIdx.x) < a.ndraw) seg_drawer<MI, NF>(a, sm);
+  if (static_cast<int>(blockIdx.x) < a.ndraw) seg_drawer<MI, NF, GUARD>(a, sm);
   else seg_owner(a, sm);
 }
 
@@ -461,7 +472,7 @@ inline bool block_ok(int B, int mi, int nf) {
 
 template <int MI, int NF, bool GUARD>
 cudaError_t seg_sweep(const SegArgs& a, cudaStream_t stream) {
-  constexpr int RP = padded_stride(packed_rows(MI, NF));
+  constexpr int RP = padded_stride(row_stride(MI, NF, GUARD));
   const long long fl = seg_draw_floats(a.B, RP, a.cpc, a.lds);
   const long long fo = seg_own_floats(a.B, a.rw, a.kch, a.trows);
   const size_t smem = sizeof(float) * static_cast<size_t>(fl > fo ? fl : fo);
@@ -469,15 +480,15 @@ cudaError_t seg_sweep(const SegArgs& a, cudaStream_t stream) {
   cudaError_t e = cudaGetDevice(&dev);
   if (e == cudaSuccess) e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
   if (e == cudaSuccess)
-    e = cudaFuncSetAttribute(seg_sweep_kernel<MI, NF>,
+    e = cudaFuncSetAttribute(seg_sweep_kernel<MI, NF, GUARD>,
                              cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
   if (e == cudaSuccess)
-    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, seg_sweep_kernel<MI, NF>,
+    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, seg_sweep_kernel<MI, NF, GUARD>,
                                                       kSegThreads, smem);
   if (e != cudaSuccess) return e;
   const long long grid = static_cast<long long>(a.ndraw) + a.nown;
   if (grid > static_cast<long long>(per_sm) * sms) return cudaErrorCooperativeLaunchTooLarge;
-  seg_sweep_kernel<MI, NF><<<static_cast<int>(grid), kSegThreads, smem, stream>>>(a);
+  seg_sweep_kernel<MI, NF, GUARD><<<static_cast<int>(grid), kSegThreads, smem, stream>>>(a);
   e = cudaGetLastError();
   if (e == cudaSuccess) ++g_segment_sweep;
   return e;
@@ -946,8 +957,11 @@ void hb_s_launch_counts(long long* out) {
 void hb_s_reset_launch_counts() { hb::g_segment_sweep = hb::g_tiled_sweep = 0; }
 
 // Sweep one dense LD segment for K chains in one launch.  LD (mc, mc)
-// row-major; P (K, R, mc) packed rows; r (K, mc) updated in place; dg,
-// track (K, mc) outputs; snap (2, K, B) scratch.  The plan
+// row-major; P (K, R, mc) packed rows (with the guard rows when guard); r
+// (K, mc) updated in place; dg, track (K, mc) outputs; snap (2, K, B)
+// scratch; with guard (BayesC/Cpi, BayesR) the SBayesS guard at vary, its
+// counts per chain and block into nrej (K, mc / B; draws.cuh
+// warp_block_draws).  The plan
 // (ops/blockgibbs.py:segment_plan): ndraw drawer CTAs of cpc chains, nown
 // row-owner CTAs of 8 warps, each warp rw rows in tiles of trows, kch
 // chains a row-owner pass, the drawer's tile at row stride lds.  flags
@@ -958,25 +972,30 @@ void hb_s_reset_launch_counts() { hb::g_segment_sweep = hb::g_tiled_sweep = 0; }
 // null in use): 12 values a block (hb::seg_drawer, hb::seg_owner), then
 // %globaltimer ns and clock64 at the drawer's start and end.
 int hb_sweep_s_segment(const float* LD, const float* P, int mc, int B, int R,
-                       int K, int mi, int nf, float n, float* r, float* dg,
+                       int K, int mi, int nf, int guard, float n, float vary, int* nrej,
+                       float* r, float* dg,
                        float* track, float* snap, unsigned* flags, unsigned epoch,
                        int ndraw, int cpc, int nown, int rw, int kch, int trows, int lds,
                        long long* stamps, void* stream) {
+  const bool g = guard != 0;
   if (!hb::block_ok(B, mi, nf) || mc <= 0 || mc % B != 0 || K <= 0 ||
-      R != hb::packed_rows(mi, nf) || cpc < 1 || cpc > hb::kSegChains ||
+      (g && ((mi != 4 && mi != 6) || nrej == nullptr)) ||
+      R != hb::row_stride(mi, nf, g) || cpc < 1 || cpc > hb::kSegChains ||
       ndraw != (K + cpc - 1) / cpc || rw < 1 || nown < 1 ||
       static_cast<long long>(nown) * hb::kSegWarps * rw < mc || kch < 1 || trows < 1 ||
       trows > hb::kWarp || (lds != B && lds != B + 4))
     return cudaErrorInvalidValue;
-  const hb::SegArgs a{LD, P, mc, B, K, n, r, dg, track, snap, flags, epoch,
+  const hb::SegArgs a{LD, P, mc, B, K, n, vary, nrej, r, dg, track, snap, flags, epoch,
                       ndraw, cpc, nown, rw, kch, trows, lds, stamps};
-  return hb::dispatch<hb::SegSweep>(a, mi, nf, false, static_cast<cudaStream_t>(stream));
+  return hb::dispatch<hb::SegSweep>(a, mi, nf, g, static_cast<cudaStream_t>(stream));
 }
 
 // Sweep every tile row of a tiled LD in one launch.  tiles (nbr, K, B, B),
 // the diagonal tile in slot 0; P (R, nbr * B) packed rows (with the guard
 // rows when guard); r_hat (nbr * B,) updated in place; dg, track (nbr * B,)
-// and nrej (nbr,) outputs.  The schedule (need, nxt, total (nbr,); items
+// and nrej (nbr,) outputs (nrej: the guard's counts of each row,
+// draws.cuh warp_block_draws).  Any B <= kMaxBlock that is a multiple of
+// 4 (tiles of 64 or 128): the tile-row loops skip rows past B.  The schedule (need, nxt, total (nbr,); items
 // (nitems, 4): row, slot, target block, sequence number) and the counters
 // cnt, flags (nbr,) with this sweep's epoch are hb::TiledArgs'.  stamps
 // (measurement only; null in use): 4 nbr + 4 values, see hb::drawer.

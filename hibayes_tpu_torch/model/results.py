@@ -45,6 +45,7 @@ class BlrMod:
     rhat: dict | None = None  # multi-chain Gelman-Rubin diagnostics
     chain_seconds: float | None = None  # wall time of the MCMC loop
     setup_seconds: dict | None = None   # ssbrm: pedigree / imputation / prepare
+    guard: np.ndarray | None = None     # sbrm SBayesS guard, per chain: rejected, all 8 failed
     MCMCsamples: dict = field(default_factory=dict)
 
     # ------------------------------------------------------------------

@@ -7,10 +7,14 @@ SBayesD semantics; chi-square-pruned, chromosome-block or tiled -> SBayesS
 semantics with varediff inflation and the rejection guard), windows,
 defaults, and the conjugate-gradient solver (method="CG", src/cg.cpp).
 
-MCMC runs on DenseLD (the dense segment sweep) and on TiledSparseLD (the
-tiled sweep with its 8-retry guard).  MCMC on SparseLD and BlockDiagLD,
-whose guard is the JAX package's per-SNP ``_reject_redraw`` scan, is not
-ported yet; "CG" runs on all four.
+MCMC runs on DenseLD, SparseLD and BlockDiagLD (the dense segment sweep,
+one segment per chromosome block; one chain or a batch) and on
+TiledSparseLD (the tiled sweep, any tile up to 128 that is a multiple of 4;
+one chain).  Every layout but DenseLD applies the SBayesS rejection guard
+by the rule of the JAX package's tiled kernel (8 pre-drawn candidates); the
+JAX package's per-SNP scan on SparseLD and BlockDiagLD redraws up to 100
+times, and the two differ only where all 8 candidates fail (counted in
+``BlrMod.guard``).  "CG" runs on all four.
 """
 
 from __future__ import annotations
@@ -100,9 +104,11 @@ def sbrm(
     BlockDiagLD or TiledSparseLD, a scipy sparse matrix, or a square numpy
     array or torch tensor (a tensor on the card is used in place).  On the
     card the sweep kernels take float32 only.  ``nchains > 1`` runs that
-    many chains as one batch on a dense LD (``run_s_chains``): the
-    summaries pool every chain's records and ``rhat`` holds each
-    parameter's split R-hat.  ``threads`` (the JAX package's host codec
+    many chains as one batch on a dense, pruned or block-diagonal LD
+    (``run_s_chains``): the summaries pool every chain's records and
+    ``rhat`` holds each parameter's split R-hat.  ``guard`` holds each
+    chain's guard counts (draws whose first candidate was rejected, and of
+    those the ones whose 8 candidates all failed).  ``threads`` (the JAX package's host codec
     threads) is accepted and unused."""
     if method not in S_METHODS:
         raise ValueError(f"unknown method '{method}'; choose from {S_METHODS}")
@@ -130,8 +136,8 @@ def sbrm(
     if nchains > 1 and isinstance(ld, TiledSparseLD):
         raise NotImplementedError(
             "sbrm(nchains>1) on a tiled LD is not ported yet: the JAX package runs "
-            "it as vmapped single chains through the XLA scan with _reject_redraw, "
-            "whose guard has no kernel here (ROADMAP queue 1, item 6 with item 16)")
+            "it as vmapped single chains through its guarded XLA scan "
+            "(ROADMAP queue 1, item 6)")
     if device.type == "cuda" and dtype != torch.float32:
         raise TypeError("on the card the sbrm sweep kernels take float32 only")
 
@@ -203,6 +209,7 @@ def sbrm(
         gwas=gwas,
         rhat=extras.get("rhat"),
         chain_seconds=elapsed,
+        guard=np.asarray(extras["guard"]).reshape(nchains, 2),
         MCMCsamples=s,
     )
 

@@ -265,13 +265,13 @@ def guard_draw(mi: int, nf: int, base: int, p, rhs, gi, track, vary):
     rhs inv_v + sd z_t; BayesR: the drawn fold's), N_RETRY at most, else 0.
     ``p`` holds the packed rows, then from index ``base`` the guard rows
     (:func:`pack_retry_rows`).  Returns (gi, the (K,) mask of first draws
-    rejected)."""
+    rejected, the (K,) mask of draws whose every candidate failed)."""
     vxj = p[base]
     on = track > 0
     rej = (gi * gi * vxj > vary) & on
     first = rej
     if not bool(rej.any()):   # the retries would leave every gi as it is
-        return gi, first
+        return gi, first, rej
     for t in range(N_RETRY):
         if mi == 4:
             cand = torch.addcmul(p[base + 1 + t], rhs, p[2])
@@ -283,15 +283,16 @@ def guard_draw(mi: int, nf: int, base: int, p, rhs, gi, track, vary):
                 cand = torch.where(track == f, cf, cand)
         gi = torch.where(rej, cand, gi)
         rej = (gi * gi * vxj > vary) & on
-    return torch.where(rej, torch.zeros_like(gi), gi), first
+    return torch.where(rej, torch.zeros_like(gi), gi), first, rej
 
 
-def _draws_plain(spec, P_b, W_b, r0, vary=None):
+def _draws_plain(spec, P_b, W_b, r0, vary=None, counts=None):
     """B sequential draws: P_b (B, R, K), W_b (B, B), r0 (B, K).  With
     ``vary`` (a 0-d tensor), the rejection guard follows each draw and P_b
-    carries the guard rows.  Returns (gi, dg, track, rejected), the first
-    three (B, K), ``rejected`` the number of draws whose first candidate the
-    guard rejected.
+    carries the guard rows.  Returns (gi, dg, track), each (B, K);
+    ``counts`` (optional, (K, 2) int64) gets per chain the draws whose first
+    candidate the guard rejected and the ones whose every candidate failed
+    added.
 
     The rows are unbound into per-SNP views once per block, and r holds
     rhs_j = X_j' yadj + rg_j, so each draw is a handful of (K,) ops."""
@@ -308,13 +309,13 @@ def _draws_plain(spec, P_b, W_b, r0, vary=None):
     rv = r.unbind(0)                                  # views, see the updates
     wcols = W_b.unsqueeze(2).unbind(0)                # (B, 1): W_b[j, :]
     gis, dgs, trs = [], [], []
-    rejected = 0
     for j in range(r0.shape[0]):
         p_j = [row[j] for row in rows]
         g_j, t_j = draw_from_vals(mi, nf, p_j, rv[j], consts)
         if vary is not None:
-            g_j, first = guard_draw(mi, nf, base, p_j, rv[j], g_j, t_j, vary)
-            rejected += int(first.sum())
+            g_j, first, exhausted = guard_draw(mi, nf, base, p_j, rv[j], g_j, t_j, vary)
+            if counts is not None and bool(first.any()):
+                counts += torch.stack([first, exhausted], dim=1)
         d_j = rows[1][j] - g_j
         r.addcmul_(wcols[j], d_j)
         gis.append(g_j)
@@ -322,7 +323,7 @@ def _draws_plain(spec, P_b, W_b, r0, vary=None):
         trs.append(t_j)
     track = (torch.zeros_like(r0) if trs[0] is None
              else torch.stack(trs).to(dt))
-    return torch.stack(gis), torch.stack(dgs), track, rejected
+    return torch.stack(gis), torch.stack(dgs), track
 
 
 # ---------------------------------------------------------------------------
@@ -476,7 +477,7 @@ def _require_cuda(*tensors):
 def block_draws_plain(spec, logpi_row, P_b, W_b, r0):
     """Plain version of :func:`block_draws`, in the dtype of ``r0``."""
     block_draws_plain.calls += 1
-    _, dg, track, _ = _draws_plain(spec, P_b.to(r0.dtype), W_b.to(r0.dtype), r0)
+    _, dg, track = _draws_plain(spec, P_b.to(r0.dtype), W_b.to(r0.dtype), r0)
     return dg, track
 
 
@@ -545,7 +546,7 @@ def sweep_mc_plain(spec, consts_b, X_blocks, W_blocks, xpx, vx, vei_b, g_b,
     for b in range(nbg):
         Xb = X_blocks[off + b].to(dt)
         r0 = (yadj @ Xb).T if K == 1 else (yadj[:, :, None] * Xb).sum(1).T
-        gi, dg, tr, _ = _draws_plain(spec, P_blocks[b], W_blocks[off + b].to(dt), r0)
+        gi, dg, tr = _draws_plain(spec, P_blocks[b], W_blocks[off + b].to(dt), r0)
         delta = (Xb @ dg).T if K == 1 else (Xb * dg.T[:, None, :]).sum(2)
         yadj += delta
         u -= delta
@@ -658,9 +659,24 @@ sweep_mc.launches = 0
 
 
 def guard_on(spec) -> bool:
-    """Whether the tiled sweep applies the rejection guard: SBayesS
-    semantics (``reject_guard``) for BayesC/Cpi and BayesR only."""
+    """Whether the summary sweeps apply the rejection guard: SBayesS
+    semantics (``reject_guard``: chi-square-pruned, per-chromosome or tiled
+    LD) for BayesC/Cpi and BayesR only."""
     return bool(spec.reject_guard) and spec.model_index in (4, 6)
+
+
+def summary_rows(spec) -> int:
+    """Rows per SNP of a summary sweep's packed rows: :func:`n_rows`, and
+    the guard rows (:func:`n_guard_rows`) when :func:`guard_on`."""
+    return n_rows(spec) + (n_guard_rows(spec) if guard_on(spec) else 0)
+
+
+def _tally(tally, guard) -> None:
+    """Add a sweep's guard counts ((K, 2) or (2,): first draws rejected,
+    draws whose every candidate failed) into ``tally`` (the same shape,
+    int64), when one is given."""
+    if tally is not None:
+        tally += guard.to(device=tally.device, dtype=tally.dtype).reshape(tally.shape)
 
 
 def guard_base(spec) -> int:
@@ -707,7 +723,7 @@ def _summary_blocks(P, nb: int, B: int, dt):
     return P.to(dt).reshape(P.shape[0], nb, B).permute(1, 2, 0).unsqueeze(-1)
 
 
-def sweep_s_segment_plain(spec, LD_seg, r_seg, P, n):
+def sweep_s_segment_plain(spec, LD_seg, r_seg, P, n, tally=None):
     """Plain version of :func:`sweep_s_segment`, in the dtype of ``r_seg``.
     With K chains each chain's update is an elementwise product and a sum
     of its own, so that it does not depend on the other chains."""
@@ -715,6 +731,11 @@ def sweep_s_segment_plain(spec, LD_seg, r_seg, P, n):
     mc, B = LD_seg.shape[0], spec.block
     dt = r_seg.dtype
     LD = LD_seg.to(dt)
+    K = r_seg.shape[0] if r_seg.dim() == 2 else 1
+    guard = torch.zeros((K, 2), dtype=torch.int64, device=r_seg.device)
+    # the guard's bound and counts, passed only when it is on
+    gd = ((torch.tensor(spec.vary, dtype=dt, device=r_seg.device), guard)
+          if guard_on(spec) else ())
     if r_seg.dim() == 1:   # one chain: the single-chain sweep's products, unchanged
         P_blocks = _summary_blocks(P, mc // B, B, dt)
         r = r_seg.clone()
@@ -722,20 +743,21 @@ def sweep_s_segment_plain(spec, LD_seg, r_seg, P, n):
         track = torch.empty((mc,), dtype=dt, device=r.device)
         for b in range(mc // B):
             sl = slice(b * B, (b + 1) * B)
-            _, d, t, _ = _draws_plain(spec, P_blocks[b], n * LD[sl, sl], r[sl, None])
+            _, d, t = _draws_plain(spec, P_blocks[b], n * LD[sl, sl], r[sl, None], *gd)
             r += n * (LD[:, sl] @ d[:, 0])
             dg[sl], track[sl] = d[:, 0], t[:, 0]
+        _tally(tally, guard[0])
         return dg, track.to(torch.int32), r
-    K = r_seg.shape[0]
     P_blocks = to_block_layout(P.to(dt), mc // B, B)          # (nb, B, R, K)
     r = r_seg.clone()
     dg = torch.empty((K, mc), dtype=dt, device=r.device)
     track = torch.empty((K, mc), dtype=dt, device=r.device)
     for b in range(mc // B):
         sl = slice(b * B, (b + 1) * B)
-        _, d, t, _ = _draws_plain(spec, P_blocks[b], n * LD[sl, sl], r[:, sl].T)
+        _, d, t = _draws_plain(spec, P_blocks[b], n * LD[sl, sl], r[:, sl].T, *gd)
         r += n * (LD[:, sl] * d.T[:, None, :]).sum(2)
         dg[:, sl], track[:, sl] = d.T, t.T
+    _tally(tally, guard)
     return dg, track.to(torch.int32), r
 
 
@@ -821,15 +843,32 @@ def _segment_flags(dev, n: int) -> dict:
     return st
 
 
-def sweep_s_segment(spec, LD_seg, r_seg, P, n, stamps=None):
+EXHAUST_SHIFT = 16   # the kernels' guard counts: rejected + (exhausted << 16) (draws.cuh)
+
+
+def _guard_counts(nrej) -> torch.Tensor:
+    """The kernels' encoded guard counts (..., rows) -> (..., 2) int64:
+    first draws rejected, draws whose every candidate failed."""
+    c = nrej.to(torch.int64)
+    return torch.stack([(c & ((1 << EXHAUST_SHIFT) - 1)).sum(-1),
+                        (c >> EXHAUST_SHIFT).sum(-1)], dim=-1)
+
+
+def sweep_s_segment(spec, LD_seg, r_seg, P, n, stamps=None, tally=None):
     """Summary sweep of one or K chains over one padded dense LD segment;
     the contract of ``sweep_s_segment`` (hibayes_tpu/ops/blockgibbs.py:1207-1254)
     for one chain and of ``sweep_s_segment_t`` (:1325-1362) for K.
 
     LD_seg (mc, mc), mc a multiple of B; r_seg (mc,) or (K, mc) the
     segment's r_hat; P (R, mc) or (K, R, mc) the segment's packed rows
-    (:func:`pack_rows`).  Per block: each chain's B draws against
-    n LD[block, block], then r_seg += n LD[:, block] dg.  The JAX wrapper's
+    (:func:`pack_rows`), followed by the guard rows (:func:`pack_retry_rows`)
+    when :func:`guard_on`.  Per block: each chain's B draws against
+    n LD[block, block] (with SBayesS semantics for BayesC/Cpi and BayesR,
+    each followed by the rejection guard at ``spec.vary``: the tiled
+    sweep's rule, :func:`guard_draw`), then r_seg += n LD[:, block] dg.
+    ``tally`` (optional, int64 (2,) or (K, 2) on r_seg's device) gets each
+    chain's guard counts added: draws whose first candidate was rejected,
+    and those whose every candidate failed.  The JAX wrapper's
     ``consts`` carry only the fold-0 logit, which the packed rows hold, so
     the port takes none.  Returns (dg, track int32, r_seg_new), each (mc,)
     or (K, mc) as r_seg.
@@ -847,10 +886,11 @@ def sweep_s_segment(spec, LD_seg, r_seg, P, n, stamps=None):
     first drawer warp's after its draws and after it published dg; then
     %globaltimer ns and clock64 at the drawer's start and end."""
     if r_seg.device.type == "cpu":
-        return sweep_s_segment_plain(spec, LD_seg, r_seg, P, n)
+        return sweep_s_segment_plain(spec, LD_seg, r_seg, P, n, tally)
     _require_cuda(r_seg, LD_seg, P)
     chains = r_seg.dim() == 2
-    mc, B, R = LD_seg.shape[0], spec.block, n_rows(spec)
+    guard = guard_on(spec)
+    mc, B, R = LD_seg.shape[0], spec.block, summary_rows(spec)
     K = r_seg.shape[0] if chains else 1
     _check_kernel_shapes(spec, B, K)
     if LD_seg.dtype != F32 or r_seg.dtype != F32 or P.dtype != F32:
@@ -879,9 +919,11 @@ def sweep_s_segment(spec, LD_seg, r_seg, P, n, stamps=None):
     dg = torch.empty(lead + (mc,), dtype=F32, device=dev)
     track = torch.empty(lead + (mc,), dtype=F32, device=dev)
     snap = torch.empty((2, K, B), dtype=F32, device=dev)
+    nrej = torch.empty((K, nb) if guard else (0,), dtype=torch.int32, device=dev)
     code = lib.hb_sweep_s_segment(
         LD_seg.data_ptr(), Pc.data_ptr(), mc, B, R, K, spec.model_index,
-        spec.n_fold, float(n), r.data_ptr(), dg.data_ptr(), track.data_ptr(),
+        spec.n_fold, int(guard), float(n), float(spec.vary),
+        nrej.data_ptr() if guard else None, r.data_ptr(), dg.data_ptr(), track.data_ptr(),
         snap.data_ptr(), fl["flags"].data_ptr(), fl["epoch"] & 0xFFFFFFFF, plan["ndraw"],
         plan["cpc"], plan["nown"], plan["rw"], plan["kch"], plan["trows"], plan["lds"],
         None if stamps is None else stamps.data_ptr(),
@@ -891,6 +933,8 @@ def sweep_s_segment(spec, LD_seg, r_seg, P, n, stamps=None):
     build.check(lib, code, "sweep_s_segment")
     fl["epoch"] += nb
     sweep_s_segment.launches += 1
+    if guard:
+        _tally(tally, _guard_counts(nrej) if chains else _guard_counts(nrej)[0])
     return dg, track.to(torch.int32), r
 
 
@@ -991,7 +1035,7 @@ def _layout_schedule(cols, valid) -> TiledSchedule:
     return hit[3]
 
 
-def sweep_s_tiled_plain(spec, tiles, cols, valid, r_hat, P, n):
+def sweep_s_tiled_plain(spec, tiles, cols, valid, r_hat, P, n, tally=None):
     """Plain version of :func:`sweep_s_tiled`, in the dtype of ``r_hat``."""
     sweep_s_tiled_plain.calls += 1
     nbr, K, B, _ = tiles.shape
@@ -1003,23 +1047,23 @@ def sweep_s_tiled_plain(spec, tiles, cols, valid, r_hat, P, n):
     cols_l, valid_l = cols.tolist(), valid.tolist()
     dg = torch.empty((nbr * B,), dtype=dt, device=dev)
     track = torch.empty((nbr * B,), dtype=dt, device=dev)
-    rejected = 0
+    guard = torch.zeros((1, 2), dtype=torch.int64, device=dev)
     for i in range(nbr):
         T = tiles[i].to(dt)
-        _, d, t, rej = _draws_plain(spec, P_blocks[i], n * T[0], rb[i, :, None], vary)
+        _, d, t = _draws_plain(spec, P_blocks[i], n * T[0], rb[i, :, None], vary, guard)
         d = d[:, 0]
         for k in range(K):
             if valid_l[i][k]:   # invalid slots point at the own row: skipped
                 rb[cols_l[i][k]] += n * (d @ T[k])
         dg[i * B:(i + 1) * B], track[i * B:(i + 1) * B] = d, t[:, 0]
-        rejected += rej
-    return dg, track.to(torch.int32), r, torch.tensor(rejected, device=dev)
+    _tally(tally, guard[0])
+    return dg, track.to(torch.int32), r, torch.tensor(int(guard[0, 0]), device=dev)
 
 
 sweep_s_tiled_plain.calls = 0
 
 
-def sweep_s_tiled(spec, tiles, cols, valid, r_hat, P, n, stamps=None):
+def sweep_s_tiled(spec, tiles, cols, valid, r_hat, P, n, stamps=None, tally=None):
     """Single-chain summary sweep over every tile row of a tiled sparse LD;
     the contract of ``sweep_s_tiled`` (hibayes_tpu/ops/blockgibbs.py:1730-1792)
     at row_base 0.
@@ -1030,7 +1074,10 @@ def sweep_s_tiled(spec, tiles, cols, valid, r_hat, P, n, stamps=None):
     row i: B draws against n tiles[i, 0] (guarded), then for each valid slot
     r_hat[block cols[i, k]] += n tiles[i, k]^T dg.  Returns (dg, track int32,
     r_hat_new, rejected): ``rejected`` (a 0-d tensor) counts the draws whose
-    first candidate the guard rejected.
+    first candidate the guard rejected; ``tally`` (optional, int64 (2,))
+    gets that count and the count of draws whose every candidate failed
+    added.  Any tile B <= 128 that is a multiple of 4 (64 or 128 from
+    ``ldmat``).
 
     On the card the sweep is one launch that applies the contributions in
     the order of :func:`tiled_schedule` of cols and valid, built at the
@@ -1041,12 +1088,12 @@ def sweep_s_tiled(spec, tiles, cols, valid, r_hat, P, n, stamps=None):
     the next row's loads, after its own contribution), then %globaltimer ns
     and clock64 at the sweep's start and end."""
     if r_hat.device.type == "cpu":
-        return sweep_s_tiled_plain(spec, tiles, cols, valid, r_hat, P, n)
+        return sweep_s_tiled_plain(spec, tiles, cols, valid, r_hat, P, n, tally)
     _require_cuda(r_hat, tiles, cols, valid, P)
     nbr, K, B, _ = tiles.shape
     _check_kernel_shapes(spec, B, 1)
     guard = guard_on(spec)
-    R = n_rows(spec) + (n_guard_rows(spec) if guard else 0)
+    R = summary_rows(spec)
     if tiles.dtype != F32 or r_hat.dtype != F32 or P.dtype != F32:
         raise TypeError("sweep_s_tiled: the kernel takes float32 (other float "
                         "types run on the CPU)")
@@ -1083,7 +1130,9 @@ def sweep_s_tiled(spec, tiles, cols, valid, r_hat, P, n, stamps=None):
     build.check(lib, code, "sweep_s_tiled")
     st["epoch"] += 1
     sweep_s_tiled.launches += 1
-    return dg, track.to(torch.int32), r, nrej.sum()
+    counts = _guard_counts(nrej)
+    _tally(tally, counts)
+    return dg, track.to(torch.int32), r, counts[0]
 
 
 sweep_s_tiled.launches = 0

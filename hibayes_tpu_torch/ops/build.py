@@ -101,8 +101,8 @@ def library(source: str = SOURCES[0]) -> ctypes.CDLL:
         lib.hb_reset_launch_counts.argtypes = []
         lib.hb_reset_launch_counts.restype = None
     elif source == "sgibbs.cu":
-        lib.hb_sweep_s_segment.argtypes = [_P, _P, _I, _I, _I, _I, _I, _I, _F,
-                                           _P, _P, _P, _P, _P, ctypes.c_uint,
+        lib.hb_sweep_s_segment.argtypes = [_P, _P, _I, _I, _I, _I, _I, _I, _I, _F,
+                                           _F, _P, _P, _P, _P, _P, _P, ctypes.c_uint,
                                            _I, _I, _I, _I, _I, _I, _I, _P, _P]
         lib.hb_sweep_s_segment.restype = _I
         lib.hb_sweep_s_tiled.argtypes = [_P, _I, _I, _I, _I, _I, _I, _I, _F, _F,

@@ -305,16 +305,18 @@ def test_chain_is_reproducible(dev):
 # ---------------------------------------------------------------------------
 
 
-def _s_problem(model, layout, dev, m=600, rho=0.8):
+def _s_problem(model, layout, dev, m=600, rho=0.8, guard=False, tile=128):
     """A summary problem on the card: LD rho^|i-j|, dense (B=64) or as tiles
-    of 128 in a 3-tile band (masked slots at the ends), statistics
-    BETA = LD b; a mid-run state and one iteration's packed rows."""
+    of ``tile`` in a 3-tile band (masked slots at the ends), statistics
+    BETA = LD b; a mid-run state and one iteration's packed rows.  SBayesS
+    semantics (the guard's rows packed) for tiles, and with ``guard`` for
+    the dense segment too."""
     idx = torch.arange(m, device=dev, dtype=torch.float64)
     R = (rho ** (idx[:, None] - idx[None, :]).abs()).float()
     if layout == "dense":
         ld, block = DenseLD(values=R), 64
     else:
-        T, nbr = 128, -(-m // 128)
+        T, nbr = tile, -(-m // tile)
         Rp = torch.zeros((nbr * T, nbr * T), device=dev)
         Rp[:m, :m] = R
         band = (idx[:, None] // T - idx[None, :] // T).abs() <= 1
@@ -338,7 +340,7 @@ def _s_problem(model, layout, dev, m=600, rho=0.8):
         nlevels=(), n_fold=len(pi), niter=10, nburn=5, thin=5, nvar0=nvar0,
         dfvara=pr.dfvara, s2vara=pr.s2vara, dfvare=pr.dfvare, s2vare=pr.s2vare,
         s2varg=pr.s2varg, lambda_rate0=pr.lambda_rate0, vargl_strict_pos=True,
-        real_excl_nvar0=True, reject_guard=layout == "tiled", vary=vary,
+        real_excl_nvar0=True, reject_guard=layout == "tiled" or guard, vary=vary,
         seg_sizes=seg_sizes, seg_real=seg_real)
     gen = torch.Generator(device=dev).manual_seed(2)
     g = torch.where((torch.rand(spec.m_pad, generator=gen, device=dev) < 0.2) & data.real,
@@ -916,7 +918,7 @@ def test_segment_sweep_refuses_a_grid_not_resident(dev):
     snap = torch.empty((2, 1, B), device=dev)
     code = lib.hb_sweep_s_segment(
         seg.data_ptr(), P[0].data_ptr(), mc, B, TB.n_rows(spec), 1, spec.model_index,
-        spec.n_fold, float(spec.n), rr.data_ptr(), dg.data_ptr(), tr.data_ptr(),
+        spec.n_fold, 0, float(spec.n), 0.0, None, rr.data_ptr(), dg.data_ptr(), tr.data_ptr(),
         snap.data_ptr(), fl.data_ptr(), 0, 1, 8, 4 * sms, 4, 1, 32, B + 4, None,
         torch.cuda.current_stream(dev).cuda_stream)
     assert code != 0 and "too many blocks" in lib.hb_error_string(code).decode()
@@ -937,3 +939,184 @@ def test_segment_sweep_stamps(dev):
     assert (np.diff(b[:, [0, 10, 11, 1]], axis=1) >= 0).all()
     assert (np.diff(b[:, [5, 7, 8, 9, 6]], axis=1) >= 0).all() and s[12 * nb + 1] > s[12 * nb]
 
+
+
+# ---------------------------------------------------------------------------
+# the SBayesS guard on the segment sweep, tiles of 64, and sbrm on every
+# layout ldmat makes
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("K", [1, 4])
+@pytest.mark.parametrize("low", [False, True], ids=["vary", "lowvary"])
+@pytest.mark.parametrize("model", ["BayesCpi", "BayesR"])
+def test_guarded_segment_sweep(model, low, K, dev):
+    """The segment sweep with the SBayesS guard (GUARD instance) against its
+    plain version: the bar, a bit-identical second launch, the guard's
+    counts per chain (first draws rejected, all 8 candidates failed) equal
+    to the plain version's, firing at a lowered vary, and chain k bit for
+    bit its K=1 launch."""
+    spec, data, g, r, P, _, _ = _s_problem(model, "dense", dev, m=1000, guard=True)
+    assert TB.guard_on(spec) and P.shape[0] == TB.summary_rows(spec)
+    if low:
+        spec = dataclasses.replace(spec, vary=spec.vary * 1e-3)
+    seg = data.ld_segs[0]
+    if K > 1:
+        scale = 1.0 + 0.1 * torch.rand((K, 1), generator=torch.Generator(device=dev)
+                                       .manual_seed(5), device=dev)
+        g, r, P = g[None] * scale, r[None] * scale, P[None].expand(K, -1, -1).contiguous()
+    lead = (K,) if K > 1 else ()
+    tal = [torch.zeros(lead + (2,), dtype=torch.int64, device=dev) for _ in range(3)]
+    out = TB.sweep_s_segment(spec, seg, r, P, spec.n, tally=tal[0])
+    plain = TB.sweep_s_segment_plain(spec, seg, r, P, spec.n, tally=tal[1])
+    again = TB.sweep_s_segment(spec, seg, r, P, spec.n, tally=tal[2])
+    _assert_bar((g - plain[0], plain[1], None, plain[2]), (g - out[0], out[1], None, out[2]))
+    assert all(torch.equal(a, b) for a, b in zip(out, again))
+    assert torch.equal(tal[0], tal[1]) and torch.equal(tal[0], tal[2])
+    assert (int(tal[0][..., 0].sum()) > 0) == low
+    for k in range(K if K > 1 else 0):
+        one = TB.sweep_s_segment(spec, seg, r[k], P[k], spec.n)
+        assert all(torch.equal(a[k], b) for a, b in zip(out, one))
+
+
+@pytest.mark.parametrize("model", MODELS)
+def test_tiled_sweep_tile64(model, dev):
+    """The tiled sweep at tile 64 (the tile ldmat(tiled=True) makes) for all
+    six models, the guard on for BayesCpi and BayesR: the bar against its
+    plain version, equal guard counts, a bit-identical second launch."""
+    spec, data, g, r, P, _, _ = _s_problem(model, "tiled", dev, m=1000, tile=64)
+    assert spec.block == 64
+    args = (spec, data.ld_tiles, data.ld_cols, data.ld_valid, r, P, spec.n)
+    tal = [torch.zeros(2, dtype=torch.int64, device=dev) for _ in range(2)]
+    out = TB.sweep_s_tiled(*args, tally=tal[0])
+    plain = TB.sweep_s_tiled_plain(*args, tally=tal[1])
+    _assert_bar((g - plain[0], plain[1], None, plain[2]), (g - out[0], out[1], None, out[2]))
+    assert torch.equal(tal[0], tal[1]) and int(out[3]) == int(plain[3])
+    assert all(torch.equal(a, b) for a, b in zip(out, TB.sweep_s_tiled(*args)))
+
+
+def test_sbrm_on_ldmat_layouts(dev):
+    """read_plink's genotype -> ldmat on the card (BlockDiagLD, SparseLD,
+    tile-64 TiledSparseLD) -> sbrm through the kernels only: one
+    segment_sweep a segment and iteration, one tiled_sweep an iteration;
+    two chains on the BlockDiagLD; finite fits."""
+    import hibayes_tpu_torch as htt
+
+    rng = np.random.default_rng(0)
+    n, m = 800, 512
+    X = rng.binomial(2, 0.3, size=(n, m)).astype(np.int8)
+    for j in range(1, m):
+        c = rng.random(n) < 0.7
+        X[c, j] = X[c, j - 1]
+    mp = {"SNP": np.array([f"s{j}" for j in range(m)]), "Chr": np.repeat(["1", "2"], m // 2),
+          "Pos": np.arange(m) * 1000}
+    b = np.where(rng.random(m) < 0.05, rng.normal(0, 0.2, m), 0.0)
+    y = (X - X.mean(0)) @ b + rng.normal(0, 1, n)
+    Xc = X - X.mean(0)
+    beta = Xc.T @ (y - y.mean()) / (Xc ** 2).sum(0)
+    se = np.sqrt(np.var(y) / (Xc ** 2).sum(0))
+    ss = np.column_stack([np.full(m, 0.3), beta, se, np.full(m, float(n))])
+    lds = {"blockdiag": (htt.ldmat(X, map=mp, ldchr=False, device=dev), 2),
+           "sparse": (htt.ldmat(X, chisq=30.0, device=dev), 1),
+           "tiled": (htt.ldmat(X, map=mp, chisq=30.0, tiled=True, device=dev), 0)}
+    for key, (ld, nseg) in lds.items():
+        for nchains in ((1, 2) if key == "blockdiag" else (1,)):
+            TB.reset_kernel_launches()
+            fit = htt.sbrm(ss, ld, method="BayesCpi", niter=20, nburn=10, thin=2,
+                           nchains=nchains, verbose=False, device=dev)
+            counts = TB.kernel_launches()
+            if nseg:
+                assert counts["segment_sweep"] == nseg * 20, (key, counts)
+            else:
+                assert counts["tiled_sweep"] == 20 and ld.tile == 64, (key, counts)
+            assert np.isfinite([fit.Vg, fit.Ve]).all() and fit.guard.shape == (nchains, 2)
+
+
+def _ld_cohort(n=203, m=150, seed=0):
+    """An int8 cohort whose SNPs copy their left neighbour with probability
+    0.6 (LD that decays along each chromosome), its map of three
+    chromosomes, and a GWAS panel of other individuals over 70 of the SNPs
+    (another order, two SNPs the reference lacks).  n = 203 is not a
+    multiple of 8: the int8 product pads its contraction axis."""
+    def geno(n, seed):
+        rng = np.random.default_rng(seed)
+        X = rng.binomial(2, rng.uniform(0.1, 0.5, m), (n, m)).astype(np.int8)
+        for j in range(1, m):
+            c = rng.random(n) < 0.6
+            X[c, j] = X[c, j - 1]
+        return X
+
+    mp = {"SNP": np.array([f"s{i}" for i in range(m)]),
+          "Chr": np.repeat(["1", "2", "3"], (60, 50, 40)), "Pos": np.arange(m) * 1000}
+    pick = np.random.default_rng(seed + 4).permutation(m)[:70]
+    Xg = geno(157, seed + 3)
+    gmap = {"SNP": np.concatenate([mp["SNP"][pick], ["x1", "x2"]]), "Chr": np.ones(72, str),
+            "Pos": np.arange(72)}
+    return geno(n, seed), mp, np.concatenate([Xg[:, pick], Xg[:, :2]], axis=1), gmap
+
+
+LD_KINDS = {
+    "dense": dict(),
+    "sparse": dict(chisq=10.0),
+    "blockdiag": dict(map=True),
+    "blockdiag_chisq": dict(map=True, chisq=10.0),
+    "dense_overlay": dict(overlay=True, ldchr=True, map=True),
+    "sparse_overlay": dict(overlay=True, ldchr=True, map=True, chisq=5.0),
+    "blockdiag_overlay": dict(overlay=True, map=True, chisq=10.0),
+}
+
+
+@pytest.mark.parametrize("kind", list(LD_KINDS))
+def test_ldmat_on_the_card_equals_the_cpu(kind, dev):
+    """ldmat on the card (the int8 Gram through torch._int_mm, float64
+    centring and chi-square mask) against ldmat on the CPU on one int8
+    cohort: every layout's float64 values, nonzero counts and diagonal bit
+    for bit."""
+    from hibayes_tpu_torch.data.ld import as_numpy, ldmat
+
+    X, mp, Xg, gmap = _ld_cohort()
+    kw = dict(LD_KINDS[kind])
+    if kw.pop("map", False):
+        kw["map"] = mp
+    if kw.pop("overlay", False):
+        kw["gwas_geno"], kw["gwas_map"] = Xg, gmap
+    on_cpu, on_card = ldmat(X, device="cpu", **kw), ldmat(X, device=dev, **kw)
+    assert type(on_cpu) is type(on_card)
+    if hasattr(on_cpu, "blocks"):
+        assert list(on_cpu.sizes) == list(on_card.sizes)
+        assert (on_cpu.nnz_col is None) == (on_card.nnz_col is None)
+        pairs = list(zip(on_cpu.blocks, on_card.blocks))
+    else:
+        pairs = [(on_cpu.values, on_card.values)]
+    for a, b in pairs:
+        assert isinstance(b, torch.Tensor) and b.device.type == "cuda" and b.dtype == torch.float64
+        np.testing.assert_array_equal(as_numpy(b), as_numpy(a))
+    np.testing.assert_array_equal(on_card.nnz_per_col(), on_cpu.nnz_per_col())
+    np.testing.assert_array_equal(on_card.diag, on_cpu.diag)
+
+
+@pytest.mark.parametrize("path", ["device", "host"])
+def test_tiled_ldmat_on_the_card_equals_the_cpu(path, dev):
+    """ldmat(tiled=True) on the card against the CPU on one int8 cohort,
+    tile 64 per chromosome: the device path (float32 store, tiles selected
+    and assembled on the card) with the same tile indices, masks and
+    counts and tiles within 1e-6; the host path (float64 store) bit for
+    bit."""
+    from hibayes_tpu_torch.data.ld import as_numpy, ldmat
+
+    X, mp, _, _ = _ld_cohort(m=300)
+    mp = {"SNP": np.array([f"s{i}" for i in range(300)]),
+          "Chr": np.repeat(["1", "2", "3"], (130, 100, 70)), "Pos": np.arange(300) * 1000}
+    kw = dict(map=mp, chisq=10.0, tiled=True, tile=64, stripe=128,
+              dtype=torch.float32 if path == "device" else torch.float64)
+    on_cpu, on_card = ldmat(X, device="cpu", **kw), ldmat(X, device=dev, **kw)
+    assert on_cpu.tile == on_card.tile == 64 and on_cpu.m == on_card.m
+    np.testing.assert_array_equal(as_numpy(on_card.col_idx), as_numpy(on_cpu.col_idx))
+    np.testing.assert_array_equal(as_numpy(on_card.valid), as_numpy(on_cpu.valid))
+    np.testing.assert_array_equal(on_card.nnz_col, on_cpu.nnz_col)
+    if path == "device":
+        assert isinstance(on_card.tiles, torch.Tensor) and on_card.tiles.device.type == "cuda"
+        np.testing.assert_allclose(as_numpy(on_card.tiles), as_numpy(on_cpu.tiles),
+                                   rtol=0, atol=1e-6)
+    else:
+        np.testing.assert_array_equal(as_numpy(on_card.tiles), as_numpy(on_cpu.tiles))

@@ -96,6 +96,33 @@ def test_port_never_imports_jax():
                            niter=12, nburn=6, thin=2, verbose=False, impute=impute,
                            device="cpu")
             assert np.isfinite(fit.g["gebv"]).all() and np.isfinite(fit.Veps)
+        # the README's quick start: a PLINK fileset read, LD in every layout,
+        # and the guarded sbrm on the segment and tile-64 layouts
+        import os, tempfile
+        from hibayes_tpu_torch.data.plink import encode_bed_bytes
+        tmp = tempfile.mkdtemp()
+        G = rng.binomial(2, 0.3, size=(90, 64)).astype(np.int8)
+        G[:, 1::2] = G[:, 0::2]
+        open(os.path.join(tmp, "q.bed"), "wb").write(encode_bed_bytes(G))
+        open(os.path.join(tmp, "q.bim"), "w").write("".join(
+            f"{1 + j // 32}\\tM{j}\\t0\\t{j + 1}\\tA\\tG\\n" for j in range(64)))
+        open(os.path.join(tmp, "q.fam"), "w").write("".join(
+            f"F{i}\\tI{i}\\t0\\t0\\t1\\t-9\\n" for i in range(90)))
+        bed = ht.read_plink(os.path.join(tmp, "q"))
+        assert (bed["geno"].values == G).all()
+        ss = np.column_stack([np.full(64, 0.3), rng.normal(0, 0.05, 64),
+                              np.full(64, 0.1), np.full(64, 90.0)])
+        lds = [ht.ldmat(bed["geno"], device="cpu"),
+               ht.ldmat(bed["geno"], chisq=5.0, device="cpu"),
+               ht.ldmat(bed["geno"], map=bed["map"], ldchr=False, device="cpu"),
+               ht.ldmat(bed["geno"], map=bed["map"], chisq=5.0, tiled=True,
+                        device="cpu")]
+        assert [type(x).__name__ for x in lds] == [
+            "DenseLD", "SparseLD", "BlockDiagLD", "TiledSparseLD"]
+        for ld in lds[1:]:
+            fit = ht.sbrm(ss, ld, method="BayesCpi", niter=12, nburn=6, thin=2,
+                          verbose=False, device="cpu")
+            assert np.isfinite(fit.alpha).all() and fit.guard.shape == (1, 2)
         bad = sorted(k for k in sys.modules
                      if k.split(".")[0] in ("jax", "jaxlib", "hibayes_tpu"))
         assert not bad, bad

@@ -98,8 +98,9 @@ def test_sbrm_nchains_on_the_cpu():
 
 
 def test_tiled_batches_still_raise():
-    """Chain batches on a tiled LD raise, naming item 16."""
+    """Chain batches on a tiled LD raise, naming item 6 (segment layouts
+    with the guard now run batches)."""
     ss, _, Rp, _ = s_sumstats(256, pruned=True)
-    with pytest.raises(NotImplementedError, match="item 16"):
+    with pytest.raises(NotImplementedError, match="item 6"):
         ht.sbrm(ss, ht.TiledSparseLD.from_scipy(sp.csr_matrix(Rp), tile=128),
                 niter=20, nburn=10, nchains=2, verbose=False, device="cpu")

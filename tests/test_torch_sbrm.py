@@ -83,9 +83,8 @@ def _refusal_inputs():
     (dict(checkpoint="ck.npz"), "item 7"),
 ])
 def test_sbrm_refuses_what_is_not_ported(kw, item):
-    """Chain batches run on a dense LD (tests/test_torch_multichain.py); on a
-    tiled LD they wait for the guarded scan kernel, which the message names
-    beside item 6."""
+    """Chain batches run on dense and segment LD (tests/test_torch_multichain.py);
+    on a tiled LD they still raise, naming item 6."""
     ss, R, Rp = _refusal_inputs()
     ld = ht.TiledSparseLD.from_scipy(sp.csr_matrix(Rp), tile=128) if "nchains" in kw else R
     with pytest.raises(NotImplementedError, match=item):
@@ -94,9 +93,10 @@ def test_sbrm_refuses_what_is_not_ported(kw, item):
 
 @pytest.mark.parametrize("layout", ["sparse", "blockdiag", "tile64"])
 def test_sbrm_refuses_mcmc_on_guarded_scan_layouts(layout):
-    """SparseLD and BlockDiagLD (and a tiled LD whose tile is not a multiple
-    of 128) take the JAX package's per-SNP scan with its 100-redraw guard,
-    which is not ported: MCMC raises; CG runs."""
+    """SparseLD and BlockDiagLD (the segment sweep with the guard) and a
+    tiled LD of tile 64 (the tiled sweep at B=64) now run MCMC, as CG does;
+    what is still refused is a tiled LD whose tile the tiled sweep cannot
+    take (not a multiple of 4), naming item 16."""
     ss, R, Rp = _refusal_inputs()
     if layout == "sparse":
         ld = ht.SparseLD.from_scipy(sp.csr_matrix(Rp))
@@ -104,8 +104,11 @@ def test_sbrm_refuses_mcmc_on_guarded_scan_layouts(layout):
         ld = ht.BlockDiagLD(blocks=[R[:128, :128], R[128:, 128:]], sizes=[128, 128])
     else:
         ld = ht.TiledSparseLD.from_scipy(sp.csr_matrix(Rp), tile=64)
+    fit = ht.sbrm(ss, ld, niter=20, nburn=10, verbose=False, device="cpu")
+    assert np.isfinite([fit.Vg, fit.Ve]).all() and fit.guard.shape == (1, 2)
     with pytest.raises(NotImplementedError, match="item 16"):
-        ht.sbrm(ss, ld, niter=20, nburn=10, verbose=False, device="cpu")
+        ht.sbrm(ss, ht.TiledSparseLD.from_scipy(sp.csr_matrix(Rp), tile=10),
+                niter=20, nburn=10, verbose=False, device="cpu")
     fit = ht.sbrm(ss, ld, method="CG", lambda_=0.2, verbose=False, device="cpu")
     assert np.isfinite(fit.alpha).all()
 

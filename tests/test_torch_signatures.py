@@ -24,6 +24,25 @@ def test_entry_point_keywords_match_the_reference(name):
     assert port == ref + ["device"]
 
 
+@pytest.mark.parametrize("name,extra", [("read_plink", []), ("read_pheno", []),
+                                        ("ldmat", ["device"]),
+                                        ("build_tiled_ld", ["device"])])
+def test_io_and_ld_keywords_match_the_reference(name, extra):
+    """The host I/O and LD construction take the JAX package's keywords in
+    its order; ldmat and build_tiled_ld add only ``device``, last."""
+    ref = list(inspect.signature(getattr(hj, name)).parameters)
+    port = list(inspect.signature(getattr(ht, name)).parameters)
+    assert port == ref + extra
+
+
+def test_all_covers_the_reference():
+    """Every public name of hibayes_tpu is public in the port, ``plot``
+    (loaded lazily) included."""
+    assert set(hj.__all__) <= set(ht.__all__)
+    for name in hj.__all__:
+        assert getattr(ht, name) is not None, name
+
+
 def _ibrm_data(n=60, m=40, seed=0):
     rng = np.random.default_rng(seed)
     M = rng.binomial(2, 0.3, size=(n, m)).astype(np.int8)

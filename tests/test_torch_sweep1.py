@@ -116,7 +116,7 @@ def _int_draws(spec, P_b, W_b, r0, vary=None):
         r += W_b[j][:, None] * d
         dgs.append(d)
     dg = torch.stack(dgs)
-    return P_b[:, 1] - dg, dg, torch.zeros_like(r0), 0
+    return P_b[:, 1] - dg, dg, torch.zeros_like(r0)
 
 
 def _emulate_sweep1(spec, args, plan, rng, block_range=None, wait_dg=True):
@@ -183,7 +183,7 @@ def _emulate_sweep1(spec, args, plan, rng, block_range=None, wait_dg=True):
         r0 = torch.zeros(B, dtype=dt)
         for v in sums:
             r0 = r0 + v
-        gi, dg, tr, _ = TB._draws_plain(spec, P_blocks[s], W_blocks[off + s].to(dt), r0[:, None])
+        gi, dg, tr = TB._draws_plain(spec, P_blocks[s], W_blocks[off + s].to(dt), r0[:, None])
         sl = slice(s * B, (s + 1) * B)
         g_new[sl], dg_buf[sl], track[sl] = gi[:, 0], dg[:, 0], tr[:, 0]
         dg_flag = s + 1

@@ -175,7 +175,7 @@ def _emulate(spec, tiles, cols, valid, r_hat, P, n, sched, rng):
     rb = r.view(nbr, B)
     dg = torch.empty((nbr * B,), dtype=dt)
     track = torch.empty((nbr * B,), dtype=dt)
-    rejected = 0
+    guard = torch.zeros((1, 2), dtype=torch.int64)
     items = [tuple(x) for x in sched.items.tolist()]
     items += [(i, int(k), i + 1, int(sched.need[i + 1]) - 1)
               for i, k in enumerate(sched.nxt) if k >= 0]
@@ -186,10 +186,9 @@ def _emulate(spec, tiles, cols, valid, r_hat, P, n, sched, rng):
         if next_row < nbr and cnt[next_row] == sched.need[next_row]:
             i = next_row
             T = tiles[i].to(dt)
-            _, d, t, rej = TB._draws_plain(spec, P_blocks[i], n * T[0], rb[i, :, None], vary)
+            _, d, t = TB._draws_plain(spec, P_blocks[i], n * T[0], rb[i, :, None], vary, guard)
             dgs[i] = d[:, 0]
             dg[i * B:(i + 1) * B], track[i * B:(i + 1) * B] = d[:, 0], t[:, 0]
-            rejected += rej
             next_row += 1
             continue
         ready = [x for x in items if x[0] in dgs and cnt[x[2]] == x[3]]
@@ -199,7 +198,7 @@ def _emulate(spec, tiles, cols, valid, r_hat, P, n, sched, rng):
         rb[tgt] += n * (dgs[row] @ tiles[row, k].to(dt))
         cnt[tgt] += 1
     np.testing.assert_array_equal(cnt, sched.total)
-    return dg, track.to(torch.int32), r, torch.tensor(rejected)
+    return dg, track.to(torch.int32), r, guard[0, 0]
 
 
 @pytest.mark.parametrize("guard", [True, False], ids=["guard", "noguard"])

@@ -231,22 +231,34 @@ def s_pi_fold(model):
 def s_setup(model, layout, *, m, dtype=jnp.float64, block=64, seed=21, windows=True,
             **kw):
     """JAX summary data, priors and spec for one model on ``layout`` "dense"
-    (DenseLD, SBayesD semantics) or "tiled" (TiledSparseLD.from_scipy of the
-    pruned LD, tile 128, SBayesS semantics with the guard), and the port's
-    LD object of the same matrix."""
+    (DenseLD, SBayesD semantics), "tiled" (TiledSparseLD.from_scipy of the
+    pruned LD, tile 128), "tiled64" (the same at tile 64), "sparse"
+    (SparseLD of the pruned LD) or "blockdiag" (BlockDiagLD of three
+    diagonal blocks of the LD), the last four with SBayesS semantics and the
+    guard, and the port's LD object of the same matrix."""
     import scipy.sparse as sp
 
-    from hibayes_tpu.data.ld import DenseLD
+    from hibayes_tpu.data.ld import BlockDiagLD, DenseLD, SparseLD
     from hibayes_tpu.data.sparse_ld import TiledSparseLD
     from hibayes_tpu.engine import sgibbs as SG
     from hibayes_tpu_torch.data import ld as TLD
     from hibayes_tpu_torch.data import sparse_ld as TSLD
 
-    ss, R, Rp, b = s_sumstats(m, seed=seed, pruned=layout == "tiled", **kw)
+    pruned = layout in ("tiled", "tiled64", "sparse")
+    ss, R, Rp, b = s_sumstats(m, seed=seed, pruned=pruned, **kw)
     if layout == "dense":
         ld_j, ld_t = DenseLD(values=R), TLD.DenseLD(values=R)
+    elif layout == "sparse":
+        ld_j = SparseLD.from_scipy(sp.csr_matrix(Rp))
+        ld_t = TLD.SparseLD.from_scipy(sp.csr_matrix(Rp))
+    elif layout == "blockdiag":
+        cuts = [0, m // 3, 2 * m // 3, m]
+        blocks = [R[a:c, a:c] for a, c in zip(cuts[:-1], cuts[1:])]
+        sizes = [c - a for a, c in zip(cuts[:-1], cuts[1:])]
+        ld_j = BlockDiagLD(blocks=blocks, sizes=sizes)
+        ld_t = TLD.BlockDiagLD(blocks=blocks, sizes=sizes)
     else:
-        block = 128
+        block = 128 if layout == "tiled" else 64
         ld_j = TiledSparseLD.from_scipy(sp.csr_matrix(Rp), tile=block)
         ld_t = TSLD.TiledSparseLD.from_scipy(sp.csr_matrix(Rp), tile=block)
     pi, fold = s_pi_fold(model)
@@ -264,7 +276,7 @@ def s_setup(model, layout, *, m, dtype=jnp.float64, block=64, seed=21, windows=T
         nvar0=nvar0, nw=nw, fixpi=False,
         dfvara=pr.dfvara, s2vara=pr.s2vara, dfvare=pr.dfvare, s2vare=pr.s2vare,
         s2varg=pr.s2varg, lambda_rate0=pr.lambda_rate0, vargl_strict_pos=True,
-        real_excl_nvar0=True, reject_guard=layout == "tiled", vary=vary,
+        real_excl_nvar0=True, reject_guard=layout != "dense", vary=vary,
         seg_sizes=seg_sizes, seg_real=seg_real)
     return dict(ss=ss, ld_j=ld_j, ld_t=ld_t, pi=pi, fold=fold,
                 windindx=windindx, nw=nw, block=block, data=data, pr=pr,
