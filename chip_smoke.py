@@ -110,8 +110,25 @@ Phases, each printing as it goes:
      iteration), finite Vg/Ve, 0 < h2 < 1, the accuracy of X alpha against
      the simulated genetic values (chromosome 1's part for the SparseLD),
      and the guard's counts (first draws rejected, all 8 candidates failed);
-  9. a JSON line of kernels, the nvidia-smi line, and the last line
-     {"ok": true, "device": {...}}.
+  9. checkpoints, the command line and BSLMM.  (9a) on phase 8's fileset,
+     ``python -m hibayes_tpu_torch ibrm`` (the quick start's call, 400
+     iterations, --checkpoint, --quiet) in a subprocess, killed with SIGKILL
+     once its checkpoint is past burn-in and run again: its TSVs byte for
+     byte those of an uninterrupted ibrm in this process (through sweep1
+     only), each process's read_plink seconds and the resumed chain's
+     ms/iter printed; a kill that races the end of the chain fails.  (9b)
+     ibrm("y ~ x1 + (1|grp)", method="BSLMM") at n=20,000 x m=65,536 (int8,
+     rows not padded), one chain: sweep1 against its plain version at
+     these shapes first; the GRM's exact int8 product (TOP/s against the
+     int8 peak), make_grm and its eigh, and the polygenic block's three
+     n x n products timed on their own; the fit through sweep1 only, Va and
+     Vb, and its GEBV accuracy against its bar.  (9c) a resume on each
+     engine at small sizes (an ibrm batch of 4, sbrm on a tiled LD, sbrm on
+     a BlockDiagLD batch of 4 with the guard firing, ssbrm): killed after a
+     checkpoint past burn-in and run again, bit for bit the uninterrupted
+     run, each iteration's kernels launched once over the two runs;
+ 10. a JSON line of kernels, the whole run's seconds, the nvidia-smi line,
+     and the last line {"ok": true, "device": {...}}.
 
 Any failed check raises, so the script exits non-zero and prints no result.
 """
@@ -1388,27 +1405,30 @@ def time_guarded_segment(torch, TSG, TB, spec, data, pr, pi, errs):
                                      4 * (2.0 * mc * mc + 2.0 * B * mc))}
 
 
-def check_sweep_qs(torch, TG, TB, dev, M, y, errs, B=64, nbg=16):
-    """sweep_mc at the shapes phase 8's ibrm call gives it: the int8
-    genotype of the quick start's first nbg blocks of B=64 SNPs, n=50,000
-    rows (padded as ibrm pads them), K=1, BayesCpi; held to the bar (into
-    ``errs["sweep_mc_qs"]``), bit-identical on a second launch, and timed
-    beside its plain version.  Returns (times, bounds)."""
+def check_sweep_qs(torch, TG, TB, dev, M, y, errs, B=64, nbg=16, key="sweep_mc_qs",
+                   pad_n="auto", label="phase 8's ibrm"):
+    """sweep_mc at the shapes an ibrm call gives it: the int8 genotype's
+    first nbg blocks of B=64 SNPs, all its rows (padded as ibrm pads them,
+    or with ``pad_n=False`` not, as BSLMM's ibrm keeps them), K=1,
+    BayesCpi; held to the bar (into ``errs[key]``), bit-identical on a
+    second launch, and timed beside its plain version.  Returns (times,
+    bounds)."""
     n = M.shape[0]
-    data = TG.prepare_gibbs_data(y, M[:, :nbg * B], block=B, geno_dtype="int8", device=dev)
+    data = TG.prepare_gibbs_data(y, M[:, :nbg * B], block=B, geno_dtype="int8", pad_n=pad_n,
+                                 device=dev)
     spec, pr, pi = make_spec(TG, "BayesCpi", data, nbg * B, n)
     args = sweep_args(torch, TG, spec, data, pr, pi, 1, seed=6)
     out, again = (TB.sweep_mc(spec, *args) for _ in range(2))
-    what = f"sweep_mc at phase 8's ibrm shapes (int8, B={B}, n={spec.n}, {nbg} blocks)"
-    errs["sweep_mc_qs"] = max(errs["sweep_mc_qs"], bar(TB.sweep_mc_plain(spec, *args), out, what))
+    what = f"sweep_mc at {label} shapes (int8, B={B}, n={spec.n}, {nbg} blocks)"
+    errs[key] = max(errs[key], bar(TB.sweep_mc_plain(spec, *args), out, what))
     if not all(torch.equal(a, b) for a, b in zip(out, again)):
         raise AssertionError(f"{what}: two runs differ (not deterministic)")
     log(f"  ok {what}")
-    t = {"sweep_mc_qs": cuda_ms(torch, lambda: TB.sweep_mc(spec, *args), 10),
-         "sweep_mc_qs_plain": cuda_ms(torch, lambda: TB.sweep_mc_plain(spec, *args), 1)}
+    t = {key: cuda_ms(torch, lambda: TB.sweep_mc(spec, *args), 10),
+         key + "_plain": cuda_ms(torch, lambda: TB.sweep_mc_plain(spec, *args), 1)}
     consts, X_b, W, xpx, vx, *per = args
     by = nbytes(X_b, W, xpx, vx, *per) + 4 * nbg * B * 3 + nbytes(per[7], per[8])
-    return t, {"sweep_mc_qs": bound(by, nbg * (4.0 * spec.n * B + 2.0 * B * B))}
+    return t, {key: bound(by, nbg * (4.0 * spec.n * B + 2.0 * B * B))}
 
 
 def segments_matvec(torch, data, spec):
@@ -1422,10 +1442,12 @@ def segments_matvec(torch, data, spec):
     return mv
 
 
-def quickstart(torch, ht, TG, TSG, TB, dev, gen, args, smi, errs, thin):
+def quickstart(torch, ht, TG, TSG, TB, dev, gen, args, smi, errs, thin, after=None):
     """Phase 8: the README quick start on the port from PLINK files at
-    n x m (args.qs_n, args.qs_m, args.qs_chr chromosomes).  Returns
-    (results, times, bounds)."""
+    n x m (args.qs_n, args.qs_m, args.qs_chr chromosomes).  ``after(stem,
+    bed, pheno)`` runs on the fileset before it is removed (phase 9a);
+    its result is ``results["after"]``.  Returns (results, times,
+    bounds)."""
     from hibayes_tpu_torch.data import ld as TLD
     from hibayes_tpu_torch.data.plink import encode_bed_bytes
     from hibayes_tpu_torch.data.sumstats import sumstat_matrix
@@ -1597,9 +1619,370 @@ def quickstart(torch, ht, TG, TSG, TB, dev, gen, args, smi, errs, thin):
                 raise AssertionError(f"phase 8 sbrm {key} accuracy {a} below "
                                      f"{QS_SBRM_CORR_MIN[key]}")
             del fit
+        if after is not None:
+            del lds, tl, ld, M
+            torch.cuda.empty_cache()
+            res["after"] = after(stem, bed, pheno)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
     return res, times, bounds
+
+
+# ---------------------------------------------------------------------------
+# phase 9: the command line killed and resumed, BSLMM, a resume on each engine
+# ---------------------------------------------------------------------------
+
+# Phase 9a's CLI chain: the CLI keeps ibrm's default printfreq (100), so it
+# saves at iterations 100 (the end of burn-in), 200, 300 and 400; the kill
+# comes once the checkpoint reports 200 or 300, a save past burn-in before
+# the end.
+CLI_NITER, CLI_NBURN = 400, 100
+
+# Phase 9b, BSLMM at the flagship's width m = 65,536 with n cut to 20,000:
+# the GRM is a dense n x n matrix (1.6 GB in float32 at 20,000; 10 GB at
+# 50,000) and its eigh is O(n^3).  Accuracy bar: the polygenic term alone
+# (GBLUP) would reach about sqrt(n h2 / (n h2 + m)) = 0.36 here; each of
+# the 500 causal SNPs explains 1e-3 of the variance, a marginal z of about
+# 4.5 at this n, so the sparse part finds most of them: phase 4c's BayesCpi
+# at n = 4,096 (z about 2) reached 0.81.  0.7 leaves room for the shorter
+# chain and Monte-Carlo error; a sweep or a polygenic draw against the
+# wrong residual falls far below.
+BSLMM_GEBV_CORR_MIN = 0.7
+
+
+class Killed(Exception):
+    """Stands for a process killed once a checkpoint is written."""
+
+
+def read_meta(path):
+    """The iteration a checkpoint's meta file reports, or None while it is
+    missing or being written."""
+    try:
+        with open(path + ".meta.json") as f:
+            return int(json.load(f)["it"])
+    except (OSError, ValueError, KeyError):
+        return None
+
+
+def output_line(path, start):
+    for line in open(path).read().splitlines():
+        if line.startswith(start):
+            return line
+    raise AssertionError(f"no line starting {start!r} in {path}:\n{open(path).read()[-2000:]}")
+
+
+def cli_resume(torch, ht, TB, dev, stem, bed, pheno, args, smi, thin):
+    """Phase 9a: ``python -m hibayes_tpu_torch ibrm`` (the quick start's call,
+    --checkpoint, --quiet) on phase 8's fileset, killed with SIGKILL once
+    its checkpoint reports an iteration past burn-in, then run again to the
+    end.  Its .alpha/.gebv/.var/.gwas files must equal, byte for byte, what
+    the CLI's writer makes of an uninterrupted ibrm with the same arguments
+    in this process on the genotype phase 8 read.  Returns its numbers."""
+    import signal
+
+    from hibayes_tpu_torch import cli
+
+    t_start = time.perf_counter()
+    root = os.path.dirname(os.path.abspath(__file__))
+    work = os.path.join(os.path.dirname(stem), "cli")
+    os.makedirs(work)
+    ck, out = os.path.join(work, "ck"), os.path.join(work, "fit")
+    niter_eff = CLI_NBURN + ((CLI_NITER - CLI_NBURN) // thin) * thin
+    argv = [sys.executable, "-u", "-m", "hibayes_tpu_torch", "ibrm", "--bfile", stem,
+            "--pheno", stem + ".phe", "--formula", "y ~ x1 + (1|grp)", "--method", "BayesCpi",
+            "--windsize", "1e6", "--niter", str(CLI_NITER), "--nburn", str(CLI_NBURN),
+            "--thin", str(thin), "--seed", str(args.seed), "--checkpoint", ck, "--quiet",
+            "--out-prefix", out, "--device", dev.type]
+    env = {**os.environ, "PYTHONPATH": root}
+
+    def start(k):
+        with open(os.path.join(work, f"run{k}.out"), "w") as fo, \
+                open(os.path.join(work, f"run{k}.err"), "w") as fe:
+            return subprocess.Popen(argv, cwd=root, env=env, stdout=fo, stderr=fe)
+
+    def err_tail(k):
+        return open(os.path.join(work, f"run{k}.err")).read()[-3000:]
+
+    t0 = time.perf_counter()
+    proc = start(1)
+    try:
+        while True:
+            it = read_meta(ck)
+            if it is not None and it > CLI_NBURN:
+                if it >= niter_eff:
+                    raise AssertionError(
+                        f"phase 9a: the kill raced the end of the chain: the first checkpoint "
+                        f"past burn-in seen reports iteration {it} of {niter_eff}")
+                proc.send_signal(signal.SIGKILL)
+                break
+            if proc.poll() is not None:
+                raise AssertionError(
+                    f"phase 9a: the first CLI run ended (exit {proc.returncode}) before a "
+                    f"checkpoint past burn-in was seen:\n{err_tail(1)}")
+            if time.perf_counter() - t0 > 900:
+                raise AssertionError("phase 9a: no checkpoint past burn-in within 900 s")
+            time.sleep(0.02)
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+        proc.wait()
+    t_first = time.perf_counter() - t0
+    it_saved = read_meta(ck)
+    if proc.returncode != -signal.SIGKILL or it_saved >= niter_eff or os.path.exists(
+            out + ".alpha.tsv"):
+        raise AssertionError(
+            f"phase 9a: the kill raced the end of the chain (exit {proc.returncode}, "
+            f"checkpoint at iteration {it_saved} of {niter_eff}): nothing would be resumed")
+    log(f"[9a] CLI ibrm killed (SIGKILL) after {t_first:.1f} s with its checkpoint at "
+        f"iteration {it_saved} of {niter_eff} (burn-in {CLI_NBURN})")
+    t0 = time.perf_counter()
+    proc = start(2)
+    rc = proc.wait(timeout=900)
+    t_second = time.perf_counter() - t0
+    if rc != 0:
+        raise AssertionError(f"phase 9a: the resumed CLI run exited {rc}:\n{err_tail(2)}")
+    o1, o2 = (os.path.join(work, f"run{k}.out") for k in (1, 2))
+    output_line(o2, f"checkpoint {ck}: resuming at iteration {it_saved}")
+    reads = [float(output_line(o, "read_plink").split(" in ")[1].split()[0]) for o in (o1, o2)]
+    chain_s = float(output_line(o2, "chain ").split()[1])
+    if read_meta(ck) != niter_eff:
+        raise AssertionError(f"phase 9a: the resumed run's checkpoint ends at {read_meta(ck)}")
+
+    reset_counts(TB)
+    fit = ht.ibrm("y ~ x1 + (1|grp)", data=pheno, M=bed["geno"].values, M_id=bed["fam"][1],
+                  method="BayesCpi", map=bed["map"], windsize=1e6, windnum=None,
+                  niter=CLI_NITER, nburn=CLI_NBURN, thin=thin, seed=args.seed, verbose=False,
+                  device=dev)
+    torch.cuda.synchronize()
+    launches, plain = read_counts(TB)
+    expect_counts(launches, plain, {"sweep_mc": niter_eff, "sweep1": niter_eff},
+                  "9a uninterrupted ibrm")
+    ref = os.path.join(work, "ref")
+    cli.save_fit(fit, ref, map_=bed["map"])
+    for suffix in (".alpha.tsv", ".gebv.tsv", ".var.tsv", ".gwas.tsv"):
+        a, b = open(out + suffix, "rb").read(), open(ref + suffix, "rb").read()
+        if a != b:
+            raise AssertionError(f"phase 9a: the resumed CLI run's {suffix} differs from the "
+                                 f"uninterrupted run's ({len(a)} and {len(b)} bytes)")
+    res = {"read_s": reads, "killed_at": it_saved, "first_run_s": t_first,
+           "second_run_s": t_second, "resumed_chain_s": chain_s,
+           "resumed_ms_per_iter": 1e3 * chain_s / (niter_eff - it_saved),
+           "uninterrupted_ms_per_iter": 1e3 * fit.chain_seconds / niter_eff,
+           "launches": launches, "wall_s": time.perf_counter() - t_start}
+    log(f"[9a] resumed CLI run: read_plink {reads[0]:.2f} s and {reads[1]:.2f} s in the two "
+        f"processes; the resumed chain ran iterations {it_saved}-{niter_eff} in {chain_s:.2f} s "
+        f"= {res['resumed_ms_per_iter']:.2f} ms/iter (the uninterrupted run in this process "
+        f"{res['uninterrupted_ms_per_iter']:.2f}); its .alpha/.gebv/.var/.gwas files equal the "
+        f"uninterrupted run's byte for byte; processes {t_first:.1f} s and {t_second:.1f} s "
+        f"on {smi}")
+    return res
+
+
+def bslmm(torch, ht, TG, TB, dev, gen, args, smi, errs, thin):
+    """Phase 9b: ibrm("y ~ x1 + (1|grp)", method="BSLMM") at n=args.bs_n x
+    m=args.m (int8 on the card, h2=0.5 from 500 causal SNPs), one chain:
+    sweep1 held against its plain version at BSLMM's own shapes (rows not
+    padded) first; the GRM's exact int8 product, the GRM and its eigh and
+    the polygenic block's three n x n products timed on their own; the fit
+    through sweep1 only, finite Va, Vb >= 0, and its GEBV accuracy.
+    Returns (results, times, bounds)."""
+    from hibayes_tpu_torch.data import ld as TLD
+    from hibayes_tpu_torch.math.grm import make_grm
+
+    n, m = args.bs_n, args.m
+    niter_eff = args.nburn + ((args.niter - args.nburn) // thin) * thin
+    t0 = time.perf_counter()
+    M, data, gv = simulate(torch, n, m, gen, dev)
+    torch.cuda.synchronize()
+    log(f"[9b] genotype {tuple(M.shape)} int8 and the phenotype made on the card in "
+        f"{time.perf_counter() - t0:.1f} s")
+    errs["sweep_mc_bslmm"] = 0.0
+    times, bounds = check_sweep_qs(torch, TG, TB, dev, M, data["y"], errs,
+                                   key="sweep_mc_bslmm", pad_n=False, label="BSLMM's ibrm")
+    gram = cuda_ms(torch, lambda: TLD._int_mm(M, M), 3)
+    tops = 2.0 * n * n * m / (gram * 1e-3) / 1e12
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    G = make_grm(M, device=dev)
+    torch.cuda.synchronize()
+    grm_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    vals, K = torch.linalg.eigh(G)
+    torch.cuda.synchronize()
+    eigh_s = time.perf_counter() - t0
+    del G, vals
+    v = torch.randn((3, n), generator=gen, device=dev)
+    times["bslmm_products"] = cuda_ms(torch, lambda: (v[0] @ K, v[1] @ K.T, v[2] @ K), 5)
+    bounds["bslmm_products"] = bound(3 * (K.numel() * 4 + 2 * n * 4), 3 * 2.0 * n * n)
+    del K, v
+    torch.cuda.empty_cache()
+    log(f"[9b] the GRM's exact int8 product (torch._int_mm, {n} x {m} by {m} x {n}): "
+        f"{gram:.3f} ms, {tops:.1f} TOP/s of the 1,979 TOP/s int8 dense peak "
+        f"({100 * tops / 1979:.1f}%); make_grm (product, mean corrections, scaling) "
+        f"{grm_s:.2f} s; eigh of the {n} x {n} float32 GRM {eigh_s:.2f} s; the polygenic "
+        f"block's three n x n products {times['bslmm_products']:.3f} ms (bound "
+        f"{bounds['bslmm_products'][0]:.3f} ms, 3 x {4 * n * n / 1e9:.2f} GB over 3.35 TB/s) "
+        f"on {smi}")
+    reset_counts(TB)
+    t0 = time.perf_counter()
+    fit = ht.ibrm("y ~ x1 + (1|grp)", data=data, M=M, M_id=data["id"], method="BSLMM",
+                  niter=args.niter, nburn=args.nburn, thin=thin, seed=args.seed, device=dev,
+                  verbose=False)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches, plain = read_counts(TB)
+    expect_counts(launches, plain, {"sweep_mc": niter_eff, "sweep1": niter_eff}, "9b BSLMM")
+    for k in ("Vg", "Ve", "h2", "Va", "Vb"):
+        if not np.isfinite(getattr(fit, k)):
+            raise AssertionError(f"phase 9b BSLMM: {k} is not finite")
+    if not (fit.Va >= 0 and fit.Vb >= 0 and 0.0 < fit.h2 < 1.0):
+        raise AssertionError(f"phase 9b BSLMM: Va {fit.Va}, Vb {fit.Vb}, h2 {fit.h2}")
+    gebv = fit.g["gebv"]
+    if gebv.shape != (n,) or not np.isfinite(gebv).all():
+        raise AssertionError("phase 9b BSLMM: GEBV of the wrong shape or not finite")
+    acc = corr(gebv, gv.cpu().numpy())
+    ms = 1e3 * fit.chain_seconds / niter_eff
+    res = {"launches": launches, "acc": acc, "ms_per_iter": ms, "wall_s": wall,
+           "gram_ms": gram, "gram_tops": tops, "make_grm_s": grm_s, "eigh_s": eigh_s,
+           "products_share": times["bslmm_products"] / ms, "Va": fit.Va, "Vb": fit.Vb}
+    log(f"[9b] ibrm BSLMM n={n} m={m}: Vg {fit.Vg:.4f} Va {fit.Va:.4f} Vb {fit.Vb:.4f} "
+        f"Ve {fit.Ve:.4f} h2 {fit.h2:.4f}; GEBV corr {acc:.4f} (bar {BSLMM_GEBV_CORR_MIN}); "
+        f"wall {wall:.1f} s (set-up with the GRM and its eigh included); chain "
+        f"{fit.chain_seconds:.2f} s = {ms:.2f} ms/iter, the three n x n products "
+        f"{100 * res['products_share']:.1f}% of it, on {smi}")
+    if not acc >= BSLMM_GEBV_CORR_MIN:
+        raise AssertionError(f"phase 9b BSLMM accuracy {acc} below {BSLMM_GEBV_CORR_MIN}")
+    return res, times, bounds
+
+
+def resume_case(torch, TB, what, run, nburn, want):
+    """One chain or batch on the card (``run(checkpoint)`` returns its
+    records, GEBV and guard counts as numpy arrays): uninterrupted, then
+    with a checkpoint, killed once a save is past burn-in and run again.
+    Both equal bit for bit; each run launches its kernels ``want`` times:
+    the killed and the resumed run together do each iteration once."""
+    from hibayes_tpu_torch.engine import checkpoint as CK
+
+    reset_counts(TB)
+    full = run(None)
+    torch.cuda.synchronize()
+    got, plain = read_counts(TB)
+    expect_counts(got, plain, want, f"9c {what}, uninterrupted")
+    ck = os.path.join(tempfile.mkdtemp(prefix="resume_"), "ck")
+    real = CK.save_checkpoint
+
+    def save_then_die(path, state, samples):
+        real(path, state, samples)
+        if read_meta(path) > nburn:
+            raise Killed()
+
+    reset_counts(TB)
+    CK.save_checkpoint = save_then_die
+    try:
+        run(ck)
+        raise AssertionError(f"phase 9c {what}: no checkpoint past burn-in was saved")
+    except Killed:
+        pass
+    finally:
+        CK.save_checkpoint = real
+    killed_at = read_meta(ck)
+    resumed = run(ck)
+    torch.cuda.synchronize()
+    got, plain = read_counts(TB)
+    expect_counts(got, plain, want, f"9c {what}, killed and resumed")
+    shutil.rmtree(os.path.dirname(ck), ignore_errors=True)
+    if full.keys() != resumed.keys():
+        raise AssertionError(f"phase 9c {what}: other records after the resume")
+    for k in full:
+        if not np.array_equal(full[k], resumed[k], equal_nan=True):
+            raise AssertionError(f"phase 9c {what}: {k} differs after the resume at "
+                                 f"iteration {killed_at}")
+    log(f"[9c] {what}: killed after its checkpoint at iteration {killed_at} and resumed: "
+        f"every record{', the GEBV' if 'gebv' in full else ''}"
+        f"{' and the guard counts ' + str(full['guard'].tolist()) if 'guard' in full else ''} "
+        f"bit for bit the uninterrupted run's")
+    return {"killed_at": killed_at, "launches": got,
+            **({"guard": full["guard"].tolist()} if "guard" in full else {})}
+
+
+def resumes(torch, ht, TG, TSG, TLD, TSLD, TB, dev, gen, args):
+    """Phase 9c: a resume on each engine at small sizes on the card
+    (n=args.rs_n, m=args.rs_m): an ibrm batch of 4, sbrm on a tiled LD of
+    m SNPs, sbrm on a BlockDiagLD of two blocks of m/8 with 4 chains and a
+    lowered vary so that the guard fires (its counts are carried), and
+    ssbrm on a 3,000-id pedigree.  Returns each case's numbers."""
+    out = {}
+    kw = dict(niter=60, nburn=20, thin=5, seed=args.seed, verbose=False, device=dev)
+    niter_eff = 60
+    n, m = args.rs_n, args.rs_m
+
+    # ibrm, a batch of 4 chains (BayesR, a covariate and a factor), B=128
+    M, data, _ = simulate(torch, n, m, gen, dev)
+    nb = -(-m // 128)
+
+    def ibrm_run(ck):
+        fit = ht.ibrm("y ~ x1 + (1|grp)", data=data, M=M, M_id=data["id"], method="BayesR",
+                      block=128, nchains=4, checkpoint=ck, **kw)
+        return {**fit.MCMCsamples, "gebv": fit.g["gebv"]}
+
+    out["ibrm_4_chains"] = resume_case(
+        torch, TB, f"ibrm BayesR, 4 chains, n={n} m={m}", ibrm_run, 20,
+        {"sweep_mc": niter_eff, "rows_mc_kernel": niter_eff * (nb + 1),
+         "draws_kernel": niter_eff * nb})
+    del M, data
+
+    # sbrm on a tiled LD (tiles of 128 in a 9-tile band)
+    tld = banded_ld(torch, TSLD, m, dev)
+    ss, _ = summary_stats(torch, tiled_matvec(torch, tld), m, tld.m_pad, gen, dev)
+
+    def tiled_run(ck):
+        fit = ht.sbrm(ss, tld, method="BayesCpi", printfreq=20, checkpoint=ck, **kw)
+        return {**fit.MCMCsamples, "guard": fit.guard}
+
+    out["sbrm_tiled"] = resume_case(torch, TB, f"sbrm BayesCpi, tiled LD m={m}", tiled_run,
+                                    20, {"sweep_s_tiled": niter_eff, "tiled_sweep": niter_eff})
+    del tld
+
+    # sbrm on a BlockDiagLD of two AR(1) blocks, 4 chains, the guard firing
+    mb = m // 8
+    A = ar1_ld(torch, mb, dev)
+    bld = TLD.BlockDiagLD(blocks=[A, A.clone()], sizes=[mb, mb])
+    ss, _ = summary_stats(torch, lambda v: torch.cat([A @ v[:mb], A @ v[mb:]]), 2 * mb,
+                          2 * mb, gen, dev)
+    sdata, spec, pr, pi = s_setup(torch, TG, TSG, ss, bld, "BayesCpi", 64, dev, True)
+    spec = spec.__class__(**{**spec.__dict__, "niter": 60, "nburn": 20, "thin": 5,
+                             "vary": 2e-4})
+
+    def blockdiag_run(ck):
+        _, smp, ex = TSG.run_s_chains(spec, sdata, pr, pi, seed=args.seed, nchains=4,
+                                      checkpoint_path=ck, chunk_records=2)
+        return {**smp, "guard": ex["guard"]}
+
+    out["sbrm_blockdiag_4_chains"] = resume_case(
+        torch, TB, f"sbrm BayesCpi, BlockDiagLD (2 blocks of {mb}), 4 chains, vary 2e-4",
+        blockdiag_run, 20, {"sweep_s_segment": 2 * niter_eff, "segment_sweep": 2 * niter_eff})
+    if not np.asarray(out["sbrm_blockdiag_4_chains"]["guard"])[:, 0].sum() > 0:
+        raise AssertionError("phase 9c: the guard did not fire on the BlockDiagLD batch")
+    del A, bld, sdata
+
+    # ssbrm: 3,000 ids, 600 genotyped, m=2,048, imputation by PCG
+    sids, ssir, sdam, _, _ = make_pedigree(150, 2850, args.seed + 2)
+    srng = np.random.default_rng(args.seed + 2)
+    sg = sids[np.sort(srng.choice(3000, 600, replace=False))]
+    sM = torch.randint(0, 3, (600, 2048), generator=gen, device=dev, dtype=torch.int8)
+    sphe = sids[srng.choice(3000, 900, replace=False)]
+    sy = srng.normal(size=900)
+
+    def ssbrm_run(ck):
+        fit = ht.ssbrm("y ~ 1", data={"id": sphe, "y": sy}, M=sM, M_id=sg,
+                       pedigree={"id": sids, "sire": ssir, "dam": sdam}, impute="pcg",
+                       chunk_cols=512, printfreq=20, checkpoint=ck, **kw)
+        return {**fit.MCMCsamples, "gebv": fit.g["gebv"]}
+
+    out["ssbrm"] = resume_case(torch, TB, "ssbrm BayesCpi, 3,000 ids, m=2,048", ssbrm_run, 20,
+                               {"sweep_mc": niter_eff, "sweep1": niter_eff,
+                                "mme_sweep": niter_eff, "mme_sweep_kernel": niter_eff})
+    return out
 
 
 def profile_iterations(torch, step, state, what, iters=3, split=None):
@@ -2038,7 +2421,13 @@ def main(argv=None) -> int:
     ap.add_argument("--qs-n", type=int, default=50_000, help="individuals of phase 8")
     ap.add_argument("--qs-m", type=int, default=65_536, help="SNPs of phase 8")
     ap.add_argument("--qs-chr", type=int, default=16, help="chromosomes of phase 8")
+    ap.add_argument("--bs-n", type=int, default=20_000,
+                    help="individuals of phase 9's BSLMM fit (m is --m)")
+    ap.add_argument("--rs-n", type=int, default=4096, help="individuals of phase 9c's ibrm")
+    ap.add_argument("--rs-m", type=int, default=8192,
+                    help="SNPs of phase 9c's ibrm and tiled LD (the BlockDiagLD: 2 x m/8)")
     args = ap.parse_args(argv)
+    t_main = time.perf_counter()
 
     import torch
 
@@ -2381,15 +2770,32 @@ def main(argv=None) -> int:
         raise AssertionError(f"ssbrm accuracy {corr_s} below {SSBRM_CORR_MIN}")
     del Mg, fit
 
-    # ---- 8. the README quick start from PLINK files ----
+    # ---- 8. the README quick start from PLINK files, and on its fileset
+    # 9a: the command line killed and resumed ----
     torch.cuda.empty_cache()
-    qs, t_qs, b_qs = quickstart(torch, hibayes_tpu_torch, TG, TSG, TB, dev, gen, args, smi,
-                                errs, thin)
+    qs, t_qs, b_qs = quickstart(
+        torch, hibayes_tpu_torch, TG, TSG, TB, dev, gen, args, smi, errs, thin,
+        after=lambda stem, bed, pheno: cli_resume(torch, hibayes_tpu_torch, TB, dev, stem, bed,
+                                                  pheno, args, smi, thin))
+    cli_res = qs["after"]
     times.update(t_qs)
     bounds.update(b_qs)
     torch.cuda.empty_cache()
 
-    # ---- 9. results ----
+    # ---- 9b. BSLMM at n=20,000 x m=65,536; 9c. a resume on each engine ----
+    t0 = time.perf_counter()
+    bs, t_bs, b_bs = bslmm(torch, hibayes_tpu_torch, TG, TB, dev, gen, args, smi, errs, thin)
+    times.update(t_bs)
+    bounds.update(b_bs)
+    torch.cuda.empty_cache()
+    t9b = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    rs = resumes(torch, hibayes_tpu_torch, TG, TSG, TLD, TSLD, TB, dev, gen, args)
+    t9c = time.perf_counter() - t0
+    log(f"[9] phase 9 took {cli_res['wall_s'] + t9b + t9c:.1f} s: 9a {cli_res['wall_s']:.1f}, "
+        f"9b {t9b:.1f}, 9c {t9c:.1f}; the whole run so far {time.perf_counter() - t_main:.1f} s")
+
+    # ---- 10. results ----
     src = "hibayes_tpu_torch/csrc/blockgibbs.cu"
     ssrc = "hibayes_tpu_torch/csrc/sgibbs.cu"
 
@@ -2414,7 +2820,8 @@ def main(argv=None) -> int:
               k64_block_split_us=times["sweep_mc_k2_split"],
               flagship_4_chains_block_split_us=times["sweep_mc_k4_split"],
               chain_us_per_block={"BayesR_4_folds": times["chain_bayesr_us"],
-                                  "BayesCpi": times["chain_bayescpi_us"]}),
+                                  "BayesCpi": times["chain_bayescpi_us"]},
+              resumed_ibrm_4_chains_launches=rs["ibrm_4_chains"]["launches"]["rows_mc_kernel"]),
         entry("sweep1_kernel_for_kernel1", src, "hibayes_tpu/ops/blockgibbs.py:138",
               launches["sweep1"], errs["sweep_mc"], "sweep_mc",
               library_ms=times["sweep_mc_library"],
@@ -2438,10 +2845,18 @@ def main(argv=None) -> int:
               chain_cycles_per_draw={"BayesR_4_folds": times["chain_bayesr_cycles"] / B},
               ssbrm_launches=e_launches["sweep1"], ssbrm_ms=times["sweep_mc_ssbrm"],
               ssbrm_plain_ms=times["sweep_mc_ssbrm_plain"],
-              ssbrm_bound_ms=bounds["sweep_mc_ssbrm"][0]),
+              ssbrm_bound_ms=bounds["sweep_mc_ssbrm"][0],
+              bslmm_launches=bs["launches"]["sweep1"],
+              bslmm_max_abs_err=errs["sweep_mc_bslmm"], bslmm_ms=times["sweep_mc_bslmm"],
+              bslmm_plain_ms=times["sweep_mc_bslmm_plain"],
+              bslmm_bound_ms=bounds["sweep_mc_bslmm"][0],
+              bslmm_timed=f"BSLMM's int8 genotype, B=64, n={args.bs_n} not padded, 16 blocks, K=1",
+              cli_uninterrupted_launches=cli_res["launches"]["sweep1"],
+              resumed_ssbrm_launches=rs["ssbrm"]["launches"]["sweep1"]),
         entry("draws_kernel", src, "hibayes_tpu/ops/blockgibbs.py:1264",
               flag["launches"]["draws_kernel"], errs["block_draws"], "block_draws",
               launches_from="phase 4b (4 chains; one chain sweeps through sweep1_kernel)",
+              resumed_ibrm_4_chains_launches=rs["ibrm_4_chains"]["launches"]["draws_kernel"],
               segment_draw_chains_in="segment_sweep (phases 6 and 6b)",
               chain_cycles_per_draw={
                   "BayesR_4_folds": times["chain_bayesr_cycles"] / B,
@@ -2469,7 +2884,10 @@ def main(argv=None) -> int:
               guard_counts={k: qs["sbrm_" + k]["guard"] for k in ("blockdiag", "sparse")},
               block_split_us=times["seg_guard_split"], k4_ms=times["seg_guard_k4"],
               k4_plain_ms=times["seg_guard_k4_plain"], k4_bound_ms=bounds["seg_guard_k4"][0],
-              k4_library_ms=times["seg_guard_k4_library"]),
+              k4_library_ms=times["seg_guard_k4_library"],
+              resumed_blockdiag_4_chains_launches=rs["sbrm_blockdiag_4_chains"]["launches"][
+                  "segment_sweep"],
+              resumed_blockdiag_4_chains_guard=rs["sbrm_blockdiag_4_chains"]["guard"]),
         entry("tiled_sweep_tile64", ssrc, "hibayes_tpu/ops/blockgibbs.py:1635",
               qs["sbrm_tiled"]["launches"]["tiled_sweep"], errs["sweep_s_tiled64"], "tiled64",
               timed="phase 8's tiled LD, first 16 tile rows of 64",
@@ -2487,7 +2905,8 @@ def main(argv=None) -> int:
               full_sweep_bound_ms=bounds["sweep_s_tiled_full"][0],
               full_sweep_split=times["sweep_s_tiled_split"],
               chain_us_per_block={"BayesCpi": times["chain_bayescpi_us"],
-                                  "BayesCpi_guard": times["chain_bayescpi_guard_us"]}),
+                                  "BayesCpi_guard": times["chain_bayescpi_guard_us"]},
+              resumed_launches=rs["sbrm_tiled"]["launches"]["tiled_sweep"]),
         entry("mme_sweep_kernel", "hibayes_tpu_torch/csrc/mme.cu",
               "hibayes_tpu/ops/blockgibbs.py:1805",
               e_launches["mme_sweep_kernel"], errs["mme_sweep"], "mme_sweep",
@@ -2499,12 +2918,14 @@ def main(argv=None) -> int:
               chain_cycles_per_draw=times["mme_chain_cycles_per_draw"],
               chain_latency_floor_ms=times["mme_chain_floor_ms"],
               block_split_us=times["mme_sweep_split"],
-              target_distance_rows=times["mme_target_distance_rows"]),
+              target_distance_rows=times["mme_target_distance_rows"],
+              resumed_launches=rs["ssbrm"]["launches"]["mme_sweep_kernel"]),
     ]
     idle = [k["name"] for k in kernels if not k["launches"]]
     if idle:
         raise AssertionError(f"kernels not launched on their main path: {idle}")
     print(json.dumps({"kernels": kernels}))
+    log(f"[10] the whole run took {time.perf_counter() - t_main:.1f} s")
     print(smi)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,
                                              "count": torch.cuda.device_count()}}))

@@ -3,11 +3,13 @@
 Runs the hibayes surface on one NVIDIA Hopper GPU: PLINK ingestion
 (`read_plink`, `read_pheno`), LD construction on the card (`ldmat`,
 `build_tiled_ld`), individual-level Bayesian regression (`ibrm`, every
-method but BSLMM, one chain or a batch), summary-level regression over
-every LD layout (`sbrm`, MCMC and its CG solver) and single-chain
-single-step regression with a pedigree (`ssbrm`), through hand-written
+method with BSLMM's GRM eigenbasis from `math/grm.py`, one chain or a
+batch), summary-level regression over every LD layout (`sbrm`, MCMC and
+its CG solver) and single-chain single-step regression with a pedigree
+(`ssbrm`), every chain resumable from a checkpoint, through hand-written
 CUDA kernels for the SNP and epsilon sweeps (csrc/), and on the CPU
-through their plain PyTorch versions.
+through their plain PyTorch versions; `python -m hibayes_tpu_torch` runs
+them as batch jobs (cli.py).
 The JAX package ``hibayes_tpu`` stays the reference; this package never
 imports it, nor JAX.
 

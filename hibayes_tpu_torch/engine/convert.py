@@ -9,8 +9,12 @@ the same state.  A state with a leading chain axis (a batch of the JAX
 ``run_chains``) converts to the port's batch: ``it`` is then one int, which
 every chain must share.  ``epsl_sparse_from_numpy`` regroups a JAX ``EpslSparse``
 into the port's layout; a JAX dense ``epsl_LHS_A`` (the direct path) is
-packed into it as ``prepare_gibbs_data`` packs one.  No JAX is imported
-here.
+packed into it as ``prepare_gibbs_data`` packs one.  BSLMM's GRM
+eigenbasis ``K``/``Kval`` is carried across as it is: eigenvectors are
+unique only up to sign (and within a repeated eigenvalue up to a basis),
+and the polygenic draw's noise term K (sqrt(lambda) z) depends on that
+choice, so a parity test must share JAX's rather than recompute it.  No
+JAX is imported here.
 """
 
 from __future__ import annotations
@@ -57,11 +61,6 @@ def epsl_sparse_from_numpy(sp, device="cpu") -> EpslSparse:
 
 def gibbs_data_from_numpy(data, device="cpu") -> GibbsData:
     f = _fields(data)
-    for name in ("K", "Kval"):
-        if name in f and np.asarray(f[name]).size:
-            raise NotImplementedError(
-                f"GibbsData.{name} is set: BSLMM is not ported yet "
-                "(ROADMAP queue 1, item 9)")
     dt = _t(f["y"], "cpu").dtype
     sp = f.get("epsl_sp")
     if sp is not None:
@@ -88,6 +87,8 @@ def gibbs_data_from_numpy(data, device="cpu") -> GibbsData:
         r_counts=tuple(_t(c, device) for c in f["r_counts"]),
         fold=_t(f["fold"], device),
         windindx0=_t(f["windindx0"], device, torch.int64),
+        K=opt("K", (0, 0)),
+        Kval=opt("Kval", (0,)),
         epsl_yJ=opt("epsl_yJ", (0,)),
         epsl_codes=opt("epsl_codes", (0,), torch.int64),
         epsl_counts=opt("epsl_counts", (0,)),

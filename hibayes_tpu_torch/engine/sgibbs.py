@@ -41,8 +41,8 @@ from ..data.sparse_ld import TiledSparseLD, _tensor
 from ..math.distributions import inv_gaussian_from
 from ..ops import blockgibbs
 from .gibbs import (_dot, _draw, alphabet_global_updates, batch_results, chain_noise,
-                    check_chain_options, pad_to_block, pip_counters, posterior_rates,
-                    rhat_diagnostics, run_loop, stack_state)
+                    check_chain_options, contiguous_state, pad_to_block, pip_counters,
+                    posterior_rates, rhat_diagnostics, run_loop, stack_state)
 from .rng import (STREAM_S_VARA, STREAM_SNP_CHI, STREAM_SNP_U, STREAM_SNP_Z,
                   STREAM_SNP_Z2, STREAM_SNP_ZR, STREAM_VE, IterNoise)
 
@@ -320,11 +320,11 @@ def _s_finish(spec, data: SGibbsData, noise, state: SChainState, g, track,
     vare = (data.yy - _dot(g, data.xy + r_hat) + spec.s2vare * spec.dfvare) / chi_e
     vare = torch.where(vare < 0, 0.5 * vara, vare)
     nzrate, wppa = pip_counters(spec, data, state, track)
-    return SChainState(
+    return contiguous_state(SChainState(
         it=state.it + 1, r_hat=r_hat, g=g, varg=varg, vargL=vargL,
         lambda2=lambda2, pi=pi, vara_fold=vara_fold, vara=vara, vare=vare,
         track=track, nzrate=nzrate, wppa=wppa,
-    )
+    ))
 
 
 def one_s_iteration(spec, data: SGibbsData, seed: int, state: SChainState,
@@ -388,19 +388,21 @@ def segment_unpad_index(spec) -> np.ndarray:
 
 
 def run_s_chain(spec, data: SGibbsData, priors, pi_init, seed=666666,
-                progress=False, chunk_records=0, mesh=None):
+                progress=False, chunk_records=0, mesh=None, checkpoint_path=None):
     """Run one summary chain; returns (final_state, samples, extras), as
-    ``run_s_chain`` (hibayes_tpu/engine/sgibbs.py:1011-1062) without
-    checkpoints.  ``extras`` holds pip, wppa, nzct, the chain's wall
-    ``seconds``, taken once the device has finished its iterations, and
-    ``guard``: the guard's counts over the chain (first draws rejected,
-    draws whose every candidate failed; zeros without the guard)."""
+    ``run_s_chain`` (hibayes_tpu/engine/sgibbs.py:1011-1062).  ``extras``
+    holds pip, wppa, nzct, the chain's wall ``seconds``, taken once the
+    device has finished its iterations, and ``guard``: the guard's counts
+    over the chain (first draws rejected, draws whose every candidate
+    failed; zeros without the guard).  ``checkpoint_path`` saves and
+    resumes the chain with its guard counts (:func:`~.gibbs.run_loop`)."""
     _check_ported(spec, data, mesh)
     tally = torch.zeros((2,), dtype=torch.int64, device=data.xy.device)
     state, samples, seconds = run_loop(
         spec, init_s_state(spec, data, priors, pi_init),
         lambda st: one_s_iteration(spec, data, seed, st, tally=tally),
-        lambda st: _s_snapshot(spec, st), progress, chunk_records)
+        lambda st: _s_snapshot(spec, st), progress, chunk_records, checkpoint_path,
+        carry={"tally": tally})
     if not bool(torch.isfinite(state.vare)):
         warnings.warn("chain diverged: residual variance is non-finite at the "
                       "final iteration", UserWarning, stacklevel=2)
@@ -417,15 +419,17 @@ def run_s_chains(spec, data: SGibbsData, priors, pi_init, seed=666666, nchains=4
                  checkpoint_path=None, progress=False, chunk_records=0, mesh=None):
     """Run ``nchains`` independent summary chains as one batch on dense,
     chi-square-pruned or block-segment LD (``run_s_chains``,
-    hibayes_tpu/engine/sgibbs.py:874-927, without checkpoints).  Returns
-    (states, samples, extras) as
-    :func:`~hibayes_tpu_torch.engine.gibbs.run_chains`: samples (nchains,
-    n_records, ...), pip and wppa averaged over chains, ``rhat``, the wall
-    ``seconds`` and ``guard`` (nchains, 2), each chain's guard counts.  One
-    chain runs :func:`run_s_chain`, with the chain axis added."""
-    check_chain_options(nchains, mesh, checkpoint_path, progress)
+    hibayes_tpu/engine/sgibbs.py:874-927).  Returns (states, samples,
+    extras) as :func:`~hibayes_tpu_torch.engine.gibbs.run_chains`: samples
+    (nchains, n_records, ...), pip and wppa averaged over chains, ``rhat``,
+    the wall ``seconds`` and ``guard`` (nchains, 2), each chain's guard
+    counts, which a checkpoint carries.  One chain runs :func:`run_s_chain`,
+    with the chain axis added."""
+    check_chain_options(nchains, mesh)
     if nchains == 1:
-        state, samples, extras = run_s_chain(spec, data, priors, pi_init, seed=seed)
+        state, samples, extras = run_s_chain(spec, data, priors, pi_init, seed=seed,
+                                             progress=progress, chunk_records=chunk_records,
+                                             checkpoint_path=checkpoint_path)
         samples = {k: v[None] for k, v in samples.items()}
         return (stack_state(state, 1), samples,
                 {**extras, "rhat": rhat_diagnostics(samples), "guard": extras["guard"][None]})
@@ -434,7 +438,8 @@ def run_s_chains(spec, data: SGibbsData, priors, pi_init, seed=666666, nchains=4
     states, samples, seconds = run_loop(
         spec, stack_state(init_s_state(spec, data, priors, pi_init), nchains),
         lambda ss: one_s_iteration_batch(spec, data, seed, ss, tally=tally),
-        lambda ss: _s_snapshot(spec, ss))
+        lambda ss: _s_snapshot(spec, ss), progress, chunk_records, checkpoint_path,
+        carry={"tally": tally})
     samples, extras = batch_results(spec, states, samples, segment_unpad_index(spec),
                                     seconds)
     return states, samples, {**extras, "guard": as_numpy(tally)}

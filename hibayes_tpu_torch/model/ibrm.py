@@ -4,7 +4,7 @@ PyTorch port of hibayes_tpu/model/ibrm.py on one device, for one chain or
 a batch of chains with R-hat: id alignment, formula parsing, NA masking,
 GWAS windows, iteration and prior defaults, the phenotyped / unphenotyped
 split, the chain, and GEBV and WPPA assembly (reference: R/bayes.r:121-320).
-Every method but BSLMM.
+Every method, BSLMM included (its GRM eigenbasis from math/grm.py).
 """
 
 from __future__ import annotations
@@ -14,6 +14,7 @@ import torch
 
 from ..data.windows import build_windows
 from ..engine import gibbs as G
+from ..math.grm import make_grm
 from .formula import build_model_frame
 from .results import BlrMod
 
@@ -197,17 +198,14 @@ def ibrm(
     the summaries pool every chain's records and ``rhat`` holds each
     parameter's split R-hat.  The keywords are the JAX package's:
     ``threads`` (its host codec threads) is accepted and unused;
-    ``lambda_`` (BSLMM's GRM ridge), ``checkpoint`` and the mesh keywords
-    (``mesh``, ``shard_schedule``, ``merge_rounds``, ``emulate_shards``)
-    raise NotImplementedError away from their defaults until ported."""
+    ``lambda_`` is BSLMM's GRM ridge; ``checkpoint`` (a path prefix) saves
+    the chain or batch after every ``printfreq`` iterations (a tenth of the
+    records for a batch) and resumes it from there, bit for bit; the mesh
+    keywords (``mesh``, ``shard_schedule``, ``merge_rounds``,
+    ``emulate_shards``) raise NotImplementedError away from their defaults
+    until ported."""
     if method not in METHODS:
         raise ValueError(f"unknown method '{method}'; choose from {METHODS}")
-    if method == "BSLMM" or lambda_ != 0.0:
-        raise NotImplementedError("BSLMM (and its lambda_) is not ported yet "
-                                  "(ROADMAP queue 1, item 9)")
-    if checkpoint is not None:
-        raise NotImplementedError(
-            "checkpoint/resume is not ported yet (ROADMAP queue 1, item 7)")
     if (mesh is not None or shard_schedule != "turn" or merge_rounds != 1
             or emulate_shards > 1):
         raise NotImplementedError(
@@ -246,11 +244,16 @@ def ibrm(
     else:
         fixpi = method in ("BayesB", "BayesC")
 
+    use_bslmm = method == "BSLMM"
+    K = Kval = None
+    if use_bslmm:
+        Kval, K = make_grm(M_phen, lambda_=lambda_, eigen=True, dtype=dtype, device=device)
+
     nc = mf.X.shape[1] if mf.X is not None else 0
     nlevels = tuple(int(len(lv)) for lv in mf.R_levels)
     gdata = G.prepare_gibbs_data(
         y, M_phen, C=mf.X, r_codes=tuple(mf.R_codes), r_nlevels=nlevels,
-        fold=fold, windindx=windindx, nw=nw, block=block, dtype=dtype,
+        fold=fold, windindx=windindx, nw=nw, K=K, Kval=Kval, block=block, dtype=dtype,
         geno_dtype="int8" if _is_integer(M_phen) else None, device=device,
     )
     vx = gdata.vx.cpu().numpy()
@@ -267,13 +270,15 @@ def ibrm(
         thin=thin, nvar0=nvar0, nw=nw, fixpi=fixpi,
         dfvara=pr.dfvara, s2vara=pr.s2vara, dfvare=pr.dfvare, s2vare=pr.s2vare,
         dfr=pr.dfr, s2r=pr.s2r, s2varg=pr.s2varg, lambda_rate0=pr.lambda_rate0,
+        use_bslmm=use_bslmm,
     )
 
     if verbose:
         _print_header(spec, pr, Pi, fold, method, n, m, nc, nlevels, nw, device)
     if nchains > 1:
         state, samples, extras = G.run_chains(spec, gdata, pr, Pi, seed=seed,
-                                              nchains=nchains, progress=progress)
+                                              nchains=nchains, progress=progress,
+                                              checkpoint_path=checkpoint)
         samples = pool_chains(samples)
     else:
         # reference UX: per-printfreq progress rows (Bayes.cpp:884-914)
@@ -281,7 +286,7 @@ def ibrm(
         chunk_records = max(int(printfreq) // max(thin, 1), 1) if printfreq else 0
         state, samples, extras = G.run_chain(
             spec, gdata, pr, Pi, seed=seed, progress=progress,
-            chunk_records=chunk_records,
+            chunk_records=chunk_records, checkpoint_path=checkpoint,
         )
     elapsed = extras["seconds"]
     if verbose:
@@ -291,7 +296,8 @@ def ibrm(
 
     res = _assemble_results(
         method, formula, spec, samples, extras, mf, y, M_id, keep, gdata, Mp,
-        windinfo, model_desc=f"Individual level Bayesian model fit by [{method}]",
+        windinfo, sumvx=float(vx.sum()),
+        model_desc=f"Individual level Bayesian model fit by [{method}]",
     )
     res.rhat = extras.get("rhat")
     return res
@@ -327,10 +333,36 @@ def _print_header(spec, pr, Pi, fold, method, n, m, nc, nlevels, nw, device):
     print(f"    Device {device}")
 
 
+def bslmm_snp_effects(gdata: G.GibbsData, n: int, m: int, k_mean, sumvx: float):
+    """BSLMM's posterior-mean polygenic effect k (n,) mapped into SNP space
+    (reference src/Bayes.cpp:955-969), by the JAX package's pseudo-inverse
+    rule (hibayes_tpu/model/ibrm.py:319-330): eigenvalues below 1e-6 of the
+    largest are dropped, Kg = (K' k) / Kval / sum(vx), and the effects are
+    M' (K Kg), centred.  M' is applied on the device from the chain's int8
+    blocks (``genotype_rmatmul``); no float copy of the genotype is made.
+    Returns (m,) float64."""
+    cdt = _compute_dtype(gdata.X_blocks.device)
+    K = gdata.K.to(cdt)
+    Kv = gdata.Kval.to(torch.float64)
+    cutoff = 1e-6 * Kv.max()
+    inv_Kv = torch.where(Kv > cutoff, 1.0 / torch.clamp_min(Kv, cutoff), 0.0).to(cdt)
+    k = torch.as_tensor(k_mean, dtype=cdt, device=K.device)
+    Kg = (k @ K) * inv_Kv / sumvx
+    ghat = G.genotype_rmatmul(gdata.X_blocks[:, :n], K @ Kg, cdt)[:m]
+    ghat = ghat.to(torch.float64).cpu().numpy()
+    return ghat - ghat.mean()
+
+
 def _assemble_results(method, formula, spec, samples, extras, mf, y, M_id,
-                      keep, gdata, Mp, windinfo, model_desc=""):
+                      keep, gdata, Mp, windinfo, sumvx=1.0, model_desc=""):
     s = dict(samples)
     alpha_s = s["alpha"]  # (records, m)
+    if method == "BSLMM" and "k_estR" in s:
+        # the polygenic effect folded into every effect sample, as the JAX
+        # package does
+        alpha_s = alpha_s + bslmm_snp_effects(gdata, len(y), spec.m,
+                                              s["k_estR"].mean(axis=0), sumvx)[None, :]
+        s["alpha"] = alpha_s
     alpha = alpha_s.mean(axis=0)
     mu = float(s["mu"].mean())
     pi_mean = s["pi"].mean(axis=0)
@@ -387,6 +419,8 @@ def _assemble_results(method, formula, spec, samples, extras, mf, y, M_id,
         e={"id": M_id[keep], "e": e},
         pip=np.asarray(extras["pip"]),
         gwas=gwas,
+        Va=float(s["Va"].mean()) if "Va" in s else None,
+        Vb=float(s["Vb"].mean()) if "Vb" in s else None,
         chain_seconds=extras["seconds"],
         MCMCsamples=s,
     )

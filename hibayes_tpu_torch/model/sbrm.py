@@ -108,7 +108,10 @@ def sbrm(
     (``run_s_chains``): the summaries pool every chain's records and
     ``rhat`` holds each parameter's split R-hat.  ``guard`` holds each
     chain's guard counts (draws whose first candidate was rejected, and of
-    those the ones whose 8 candidates all failed).  ``threads`` (the JAX package's host codec
+    those the ones whose 8 candidates all failed).  ``checkpoint`` (a path
+    prefix) saves the chain or batch, with those counts, after every
+    ``printfreq`` iterations (a tenth of the records for a batch) and
+    resumes it from there, bit for bit.  ``threads`` (the JAX package's host codec
     threads) is accepted and unused."""
     if method not in S_METHODS:
         raise ValueError(f"unknown method '{method}'; choose from {S_METHODS}")
@@ -130,9 +133,6 @@ def sbrm(
     if mesh is not None or shard_schedule != "turn" or merge_rounds != 1:
         raise NotImplementedError(
             "meshes and shard schedules are not ported yet (ROADMAP queue 1, item 13)")
-    if checkpoint is not None:
-        raise NotImplementedError(
-            "checkpoint/resume is not ported yet (ROADMAP queue 1, item 7)")
     if nchains > 1 and isinstance(ld, TiledSparseLD):
         raise NotImplementedError(
             "sbrm(nchains>1) on a tiled LD is not ported yet: the JAX package runs "
@@ -178,13 +178,15 @@ def sbrm(
         print(f"    Device {device}")
     if nchains > 1:
         state, samples, extras = SG.run_s_chains(spec, data, pr, Pi, seed=seed,
-                                                 nchains=nchains, progress=progress)
+                                                 nchains=nchains, progress=progress,
+                                                 checkpoint_path=checkpoint)
         samples = pool_chains(samples)
     else:
         progress = progress or (verbose and printfreq > 0)
         chunk_records = max(int(printfreq) // max(thin, 1), 1) if printfreq else 0
         state, samples, extras = SG.run_s_chain(
-            spec, data, pr, Pi, seed=seed, progress=progress, chunk_records=chunk_records)
+            spec, data, pr, Pi, seed=seed, progress=progress, chunk_records=chunk_records,
+            checkpoint_path=checkpoint)
     elapsed = extras["seconds"]
     if verbose:
         print(f"MCMC finished: {spec.niter_eff} iterations of {nchains} chain(s) in "

@@ -115,7 +115,12 @@ def ssbrm(
     A-inverse (RCM-ordered diagonal blocks and triplets), so no dense
     (n_ng, n_g) or (qe, qe) matrix exists; "auto" takes "pcg" when
     n_ng * n_g exceeds 2^24.  ``setup_seconds`` of the result splits the
-    set-up into pedigree, imputation and data preparation."""
+    set-up into pedigree, imputation and data preparation.
+
+    ``checkpoint`` (a path prefix) saves the chain after every
+    ``printfreq`` iterations and resumes it from there, bit for bit; the
+    set-up (pedigree, imputation) is redone on resume, as in the JAX
+    package, and only the chain resumes."""
     if method == "BSLMM":
         raise ValueError("BSLMM is not supported for the single-step model.")
     if method not in METHODS:
@@ -127,9 +132,6 @@ def ssbrm(
     if mesh is not None:
         raise NotImplementedError(
             "meshes are not ported yet (ROADMAP queue 1, item 13)")
-    if checkpoint is not None:
-        raise NotImplementedError(
-            "checkpoint/resume is not ported yet (ROADMAP queue 1, item 7)")
     if data is None:
         raise ValueError("no data assigned.")
     if M is None:
@@ -337,6 +339,7 @@ def ssbrm(
     chunk_records = max(int(printfreq) // max(thin, 1), 1) if printfreq else 0
     state, samples, extras = G.run_chain(
         spec, gdata, pr, Pi, seed=seed, progress=progress, chunk_records=chunk_records,
+        checkpoint_path=checkpoint,
     )
     elapsed = extras["seconds"]
     if verbose:

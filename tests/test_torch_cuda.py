@@ -1120,3 +1120,237 @@ def test_tiled_ldmat_on_the_card_equals_the_cpu(path, dev):
                                    rtol=0, atol=1e-6)
     else:
         np.testing.assert_array_equal(as_numpy(on_card.tiles), as_numpy(on_cpu.tiles))
+
+
+# ---------------------------------------------------------------------------
+# checkpoint and resume, BSLMM, the GRM and the command line on the card
+# ---------------------------------------------------------------------------
+
+
+class _Killed(Exception):
+    pass
+
+
+def _kill_after(monkeypatch, saves):
+    """The ``saves``-th checkpoint is written, then the run dies."""
+    from hibayes_tpu_torch.engine import checkpoint as CK
+
+    real, count = CK.save_checkpoint, [0]
+
+    def save(path, state, samples):
+        real(path, state, samples)
+        count[0] += 1
+        if count[0] == saves:
+            raise _Killed()
+
+    monkeypatch.setattr(CK, "save_checkpoint", save)
+
+
+def _resume_case(case, dev, tmp_path):
+    """(fit function taking checkpoint=, description) of one engine at a
+    small size on the card: 100 iterations, burn-in 40, a checkpoint every
+    20 iterations (printfreq 20, thin 5)."""
+    import hibayes_tpu_torch as htt
+
+    rng = np.random.default_rng(11)
+    kw = dict(niter=100, nburn=40, thin=5, printfreq=20, verbose=False, device=dev,
+              seed=3)
+    if case.startswith("ibrm"):
+        n, m = 600, 300
+        M = rng.binomial(2, 0.3, size=(n, m)).astype(np.int8)
+        ids = np.array([f"i{k}" for k in range(n)])
+        data = {"id": ids, "y": M[:, :10] @ rng.normal(0, 0.3, 10) + rng.normal(size=n),
+                "f": rng.choice(["a", "b", "c"], n)}
+        nch = 4 if case == "ibrm_batch" else 1
+        return lambda ck: htt.ibrm("y ~ (1|f)", data=data, M=M, M_id=ids, method="BayesR",
+                                   nchains=nch, checkpoint=ck, **kw)
+    if case.startswith("sbrm"):
+        layout = "tiled" if case == "sbrm_tiled" else "dense"
+        _, _, _, _, _, ss, ld = _s_problem("BayesCpi", layout, dev, tile=64)
+        if case == "sbrm_blockdiag_batch":
+            from hibayes_tpu_torch.data.ld import BlockDiagLD
+
+            V = ld.values
+            ld = BlockDiagLD(blocks=[V[:300, :300].contiguous(), V[300:, 300:].contiguous()],
+                             sizes=[300, 300])
+        nch = 4 if case == "sbrm_blockdiag_batch" else 1
+        return lambda ck: htt.sbrm(ss, ld, method="BayesCpi", nchains=nch, checkpoint=ck,
+                                   **kw)
+    ids = np.array([f"p{k}" for k in range(600)])
+    par = [rng.integers(0, max(k, 1), 2) for k in range(600)]
+    sire = np.array(["0" if k < 60 else ids[p[0]] for k, p in enumerate(par)])
+    dam = np.array(["0" if k < 60 else ids[p[1]] for k, p in enumerate(par)])
+    gid = ids[rng.choice(600, 200, replace=False)]
+    Mg = rng.binomial(2, 0.3, (200, 100)).astype(np.int8)
+    phe = ids[rng.choice(600, 300, replace=False)]
+    y = rng.normal(size=300)
+    return lambda ck: htt.ssbrm("y ~ 1", data={"id": phe, "y": y}, M=Mg,
+                                M_id=gid, pedigree={"id": ids, "sire": sire, "dam": dam},
+                                impute="pcg", chunk_cols=32, checkpoint=ck, **kw)
+
+
+@pytest.mark.parametrize("case", ["ibrm", "ibrm_batch", "sbrm_tiled", "sbrm_blockdiag_batch",
+                                  "ssbrm"])
+def test_resume_on_the_card_is_bit_identical(case, dev, tmp_path, monkeypatch):
+    """Each engine on the card, one chain and a batch: a fit killed after its
+    fourth checkpoint (iteration 80, past burn-in) and run again equals the
+    uninterrupted fit bit for bit: every record, the GEBV, the guard's
+    counts."""
+    fit = _resume_case(case, dev, tmp_path)
+    full = fit(None)
+    ck = str(tmp_path / "ck")
+    _kill_after(monkeypatch, 4)
+    with pytest.raises(_Killed):
+        fit(ck)
+    monkeypatch.undo()
+    resumed = fit(ck)
+    assert resumed.MCMCsamples.keys() == full.MCMCsamples.keys()
+    for k in full.MCMCsamples:
+        np.testing.assert_array_equal(resumed.MCMCsamples[k], full.MCMCsamples[k], err_msg=k)
+    if full.g is not None:
+        np.testing.assert_array_equal(resumed.g["gebv"], full.g["gebv"])
+    if full.guard is not None:
+        np.testing.assert_array_equal(resumed.guard, full.guard)
+
+
+def _bslmm_problem(dev, n=500, m=1024):
+    from hibayes_tpu_torch.math.grm import make_grm
+
+    rng = np.random.default_rng(12)
+    M = rng.binomial(2, rng.uniform(0.1, 0.5, m), size=(n, m)).astype(np.int8)
+    b = rng.normal(0, 0.03, m)
+    b[rng.choice(m, 5, replace=False)] = rng.normal(0, 0.8, 5)
+    y = M @ b + rng.normal(0, 1, n)
+    Kval, K = make_grm(M, eigen=True, device=dev)
+    data = TG.prepare_gibbs_data(y, M, K=K, Kval=Kval, block=64, geno_dtype="int8",
+                                 device=dev)
+    pi = np.array([0.95, 0.05])
+    pr = TG.resolve_priors(y, float(data.vx.sum()), pi[0], nr=0)
+    spec = TG.GibbsSpec(
+        model="BSLMM", n=n, m=m, m_pad=int(data.xpx.shape[0]), block=64, nc=0,
+        nlevels=(), n_fold=2, niter=40, nburn=20, thin=5,
+        nvar0=int((data.vx[:m] == 0).sum()), dfvara=pr.dfvara, s2vara=pr.s2vara,
+        dfvare=pr.dfvare, s2vare=pr.s2vare, s2varg=pr.s2varg,
+        lambda_rate0=pr.lambda_rate0, use_bslmm=True)
+    return M, y, spec, data, pr, pi
+
+
+@pytest.mark.parametrize("K", [1, 4])
+def test_bslmm_on_the_card_against_its_plain_version(K, dev, monkeypatch):
+    """BSLMM on the card (n=500 rows, not padded; int8, B=64), one chain and
+    a batch of 4: an iteration from a mid-run state through the kernels
+    against the same iteration with the plain sweep, at the kernel bar
+    (at most 1% of the mixture draws flip, effects within 5e-5 max|g|
+    where they agree; with no flip the polygenic term and its variance
+    within 1e-4); then the entry point through the kernels only."""
+    import hibayes_tpu_torch as htt
+
+    M, y, spec, data, pr, pi = _bslmm_problem(dev)
+    state = TG.init_state(spec, data, pr, pi)
+    step = TG.one_iteration
+    if K > 1:
+        state, step = TG.stack_state(state, K), TG.one_iteration_batch
+    for _ in range(5):
+        state = step(spec, data, 1, state)
+    kern = step(spec, data, 1, state)
+    monkeypatch.setattr(TB, "sweep_mc", TB.sweep_mc_plain)
+    plain = step(spec, data, 1, state)
+    monkeypatch.undo()
+    agree = (kern.track == plain.track)
+    assert float(agree.float().mean()) >= 0.99
+    scale = float(plain.g.abs().max())
+    assert float((kern.g - plain.g)[agree].abs().max()) <= 5e-5 * scale
+    if bool(agree.all()):
+        for name in ("k_estR", "yadj"):
+            a, b = getattr(kern, name), getattr(plain, name)
+            assert float((a - b).abs().max()) <= 1e-4 * float(b.abs().max()) + 1e-6, name
+        torch.testing.assert_close(kern.vbtmp, plain.vbtmp, rtol=1e-4, atol=0)
+    ids = np.array([f"i{k}" for k in range(len(y))])
+    TB.reset_kernel_launches()
+    calls = TB.sweep_mc_plain.calls
+    fit = htt.ibrm("y ~ 1", data={"id": ids, "y": y}, M=M, M_id=ids, method="BSLMM",
+                   niter=40, nburn=20, nchains=K, verbose=False, device=dev)
+    assert TB.sweep_mc_plain.calls == calls
+    launches = TB.kernel_launches()
+    assert launches["sweep1" if K == 1 else "draws_kernel"] > 0
+    assert np.isfinite([fit.Va, fit.Vb]).all() and fit.Va >= 0 and fit.Vb >= 0
+    assert np.isfinite(fit.g["gebv"]).all()
+
+
+@pytest.mark.parametrize("n,m", [(333, 2050), (1000, 3000)])
+def test_make_grm_on_the_card_equals_the_cpu(n, m, dev):
+    """The exact int8 product MM' on the card equals the CPU's; the GRM in
+    float32 agrees with the CPU's to float32 rounding (1e-5 of the
+    largest entry: the mean corrections sum in other orders).  The card's
+    eigenvalues of G + 0.2 I are those of its own G to float32 rounding
+    (1e-5 of the largest, against a float64 eigh of the same matrix: two
+    GRMs rounded apart differ most in the centred null direction) and its
+    eigenvectors rebuild the matrix.  At n=333 the card's float32 eigh
+    would take cuSOLVER's Jacobi solver (1.2e-4 off); make_grm solves that
+    size in float64."""
+    from hibayes_tpu_torch.data.ld import _int_mm
+    from hibayes_tpu_torch.math.grm import make_grm
+
+    rng = np.random.default_rng(13)
+    M = rng.binomial(2, 0.3, size=(n, m)).astype(np.int8)
+    Mt = torch.as_tensor(M)
+    assert torch.equal(_int_mm(Mt.to(dev), Mt.to(dev)).cpu(), _int_mm(Mt, Mt))
+    G_card, G_cpu = make_grm(M, device=dev), make_grm(M)
+    assert G_card.device.type == "cuda" and G_card.dtype == torch.float32
+    scale = float(G_cpu.abs().max())
+    assert float((G_card.cpu() - G_cpu).abs().max()) <= 1e-5 * scale
+    v_card, K_card = make_grm(M, lambda_=0.2, eigen=True, device=dev)
+    eye = torch.eye(n, device=dev)
+    v_ref = torch.linalg.eigvalsh((G_card + 0.2 * eye).double()).cpu()
+    assert v_card.dtype == torch.float32
+    assert float((v_card.cpu().double() - v_ref).abs().max()) <= 1e-5 * float(v_ref.abs().max())
+    rec = (K_card * v_card) @ K_card.T
+    assert float((rec - G_card - 0.2 * eye).abs().max()) <= 1e-4 * scale
+
+
+def test_cli_subprocess_on_the_card(dev, tmp_path):
+    """``python -m hibayes_tpu_torch ibrm`` on the card writes, byte for byte,
+    what ibrm on the card writes through the CLI's writer in this process;
+    ``ldmat --by-chr`` writes its npz."""
+    import os
+    import subprocess
+    import sys
+
+    import hibayes_tpu_torch as htt
+    from hibayes_tpu_torch import cli
+    from hibayes_tpu_torch.data.plink import encode_bed_bytes
+
+    rng = np.random.default_rng(14)
+    n, m = 500, 256
+    X = rng.binomial(2, 0.3, size=(n, m)).astype(np.int8)
+    stem = str(tmp_path / "c")
+    open(stem + ".bed", "wb").write(encode_bed_bytes(X))
+    open(stem + ".bim", "w").write("".join(f"{1 + 2 * j // m}\tM{j}\t0\t{1000 * (j + 1)}\tA\tG\n"
+                                           for j in range(m)))
+    open(stem + ".fam", "w").write("".join(f"F{i}\tI{i}\t0\t0\t1\t-9\n" for i in range(n)))
+    y = X[:, :10] @ rng.normal(0, 0.3, 10) + rng.normal(size=n)
+    open(stem + ".phe", "w").write("id y\n" + "".join(f"I{i} {float(v)!r}\n"
+                                                       for i, v in enumerate(y)))
+    out = str(tmp_path / "fit")
+    repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    args = ["ibrm", "--bfile", stem, "--pheno", stem + ".phe", "--formula", "y ~ 1",
+            "--niter", "60", "--nburn", "20", "--quiet", "--out-prefix", out,
+            "--checkpoint", str(tmp_path / "ck")]
+    proc = subprocess.run([sys.executable, "-m", "hibayes_tpu_torch", *args], cwd=repo,
+                          env={**os.environ, "PYTHONPATH": repo}, capture_output=True,
+                          text=True, timeout=600)
+    assert proc.returncode == 0, proc.stderr
+    bed = htt.read_plink(stem)
+    fit = htt.ibrm("y ~ 1", data=htt.read_pheno(stem + ".phe"), M=bed["geno"].values,
+                   M_id=bed["fam"][1], niter=60, nburn=20, verbose=False, device=dev)
+    cli.save_fit(fit, str(tmp_path / "api"), map_=bed["map"])
+    for suffix in (".alpha.tsv", ".gebv.tsv", ".var.tsv"):
+        assert open(out + suffix, "rb").read() == open(str(tmp_path / "api") + suffix,
+                                                       "rb").read(), suffix
+    proc = subprocess.run([sys.executable, "-m", "hibayes_tpu_torch", "ldmat", "--bfile", stem,
+                           "--out", str(tmp_path / "ld.npz"), "--by-chr"], cwd=repo,
+                          env={**os.environ, "PYTHONPATH": repo}, capture_output=True,
+                          text=True, timeout=600)
+    assert proc.returncode == 0, proc.stderr
+    with np.load(str(tmp_path / "ld.npz")) as z:
+        assert str(z["kind"]) == "blockdiag" and z["block_0"].shape == (128, 128)

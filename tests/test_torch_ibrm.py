@@ -60,7 +60,7 @@ def test_posterior_gebv_agrees_with_jax():
 
 def test_port_never_imports_jax():
     code = textwrap.dedent("""
-        import sys
+        import os, sys
         import numpy as np
         import hibayes_tpu_torch as ht
         rng = np.random.default_rng(0)
@@ -70,6 +70,19 @@ def test_port_never_imports_jax():
         fit = ht.ibrm("T1 ~ (1|f)", data=data, M=M, M_id=ids, method="BayesR",
                       niter=12, nburn=6, thin=2, verbose=False, device="cpu")
         assert np.isfinite(fit.h2)
+        # the command line (python -m hibayes_tpu_torch runs cli.main), the
+        # checkpoint module and the GRM; a BSLMM fit and a checkpointed fit
+        import tempfile
+        import hibayes_tpu_torch.cli, hibayes_tpu_torch.engine.checkpoint
+        import hibayes_tpu_torch.math.grm
+        assert callable(hibayes_tpu_torch.cli.main)
+        fit = ht.ibrm("T1 ~ 1", data=data, M=M, M_id=ids, method="BSLMM", lambda_=0.1,
+                      niter=12, nburn=6, thin=2, verbose=False, device="cpu")
+        assert np.isfinite(fit.Vb)
+        ck = os.path.join(tempfile.mkdtemp(), "ck")
+        fit = ht.ibrm("T1 ~ 1", data=data, M=M, M_id=ids, niter=12, nburn=6, thin=2,
+                      checkpoint=ck, verbose=False, device="cpu")
+        assert os.path.exists(ck + ".npz")
         # sbrm on dense LD, on tiled LD (two tile rows of 128) and by CG
         m = 256
         R = 0.5 ** np.abs(np.arange(m)[:, None] - np.arange(m)[None, :])

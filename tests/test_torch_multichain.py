@@ -6,6 +6,7 @@ and the entry points.  The summary-level batches are in
 tests/test_torch_multichain_sbrm.py."""
 
 import functools
+import os
 
 import jax
 import jax.numpy as jnp
@@ -148,12 +149,17 @@ def test_batch_resync_in_f32():
                                        atol=1e-5 * float(want.abs().max()))
 
 
-def test_run_chains_refuses_what_is_not_ported():
+def test_run_chains_refuses_what_is_not_ported(tmp_path, capsys):
+    """A mesh is still refused, naming item 13.  A batch's checkpoint and
+    progress rows (item 7) now run: the checkpoint is written and the rows
+    show chain 0 of 2."""
     spec, data, pr, pi = _chain_setup()
-    for kw, item in ((dict(checkpoint_path="ck.npz"), "item 7"),
-                     (dict(progress=True), "item 7"), (dict(mesh=object()), "item 13")):
-        with pytest.raises(NotImplementedError, match=item):
-            TG.run_chains(spec, data, pr, pi, nchains=2, **kw)
+    with pytest.raises(NotImplementedError, match="item 13"):
+        TG.run_chains(spec, data, pr, pi, nchains=2, mesh=object())
+    ck = str(tmp_path / "ck")
+    TG.run_chains(spec, data, pr, pi, nchains=2, checkpoint_path=ck, progress=True)
+    assert os.path.exists(ck + ".npz") and os.path.exists(ck + ".meta.json")
+    assert "[chain 1/2]" in capsys.readouterr().out
 
 
 def test_ibrm_nchains_on_the_cpu():

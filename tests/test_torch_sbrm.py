@@ -80,7 +80,6 @@ def _refusal_inputs():
     (dict(nchains=2), "item 6"),
     (dict(mesh=object()), "item 13"),
     (dict(shard_schedule="concurrent"), "item 13"),
-    (dict(checkpoint="ck.npz"), "item 7"),
 ])
 def test_sbrm_refuses_what_is_not_ported(kw, item):
     """Chain batches run on dense and segment LD (tests/test_torch_multichain.py);

@@ -1,8 +1,11 @@
 """The port's entry points against the JAX package's, on the CPU: the same
 keywords in the same order (plus ``device``), the unported ones refused
-with their ROADMAP item, and refusals that cite only work still to do."""
+with their ROADMAP item, the ported ones reaching the engine, and
+refusals that cite only work still to do."""
 
 import inspect
+import json
+import os
 
 import numpy as np
 import pytest
@@ -60,10 +63,35 @@ def _ibrm_data(n=60, m=40, seed=0):
     ({"emulate_shards": 2}, "items 13-14"),
 ], ids=["lambda_", "checkpoint", "mesh", "shard_schedule", "merge_rounds",
         "emulate_shards"])
-def test_ibrm_refuses_unported_keywords_by_item(kw, item):
+def test_ibrm_refuses_unported_keywords_by_item(kw, item, tmp_path, monkeypatch):
+    """The mesh keywords are refused, naming items 13-14.  ``lambda_`` (item
+    9, BSLMM) and ``checkpoint`` (item 7) are ported: the keyword reaches
+    the engine.  A BSLMM fit with lambda_=0.5 runs on the ridged GRM (its
+    eigenvalues, all at least 0.5, in the chain's data); checkpoint= writes
+    <path>.npz with the finished chain."""
     M, data, ids = _ibrm_data()
+    fit_kw = dict(data=data, M=M, M_id=ids, niter=20, nburn=10, verbose=False, device="cpu")
+    if "lambda_" in kw:
+        seen = {}
+        real = TG.prepare_gibbs_data
+
+        def spy(*a, **k):
+            seen["Kval"] = k["Kval"]
+            return real(*a, **k)
+
+        monkeypatch.setattr(TG, "prepare_gibbs_data", spy)
+        fit = ht.ibrm("T1~1", method="BSLMM", **kw, **fit_kw)
+        assert float(seen["Kval"].min()) >= 0.5 - 1e-5
+        assert np.isfinite(fit.Vb) and np.isfinite(fit.Va)
+        return
+    if "checkpoint" in kw:
+        ck = str(tmp_path / kw["checkpoint"])
+        ht.ibrm("T1~1", checkpoint=ck, **fit_kw)
+        assert os.path.exists(ck + ".npz")
+        assert json.load(open(ck + ".meta.json"))["it"] == 20
+        return
     with pytest.raises(NotImplementedError, match=item):
-        ht.ibrm("T1~1", data=data, M=M, M_id=ids, niter=10, nburn=5, device="cpu", **kw)
+        ht.ibrm("T1~1", **fit_kw, **kw)
 
 
 def test_threads_is_accepted_and_unused():

@@ -423,15 +423,15 @@ def test_ssbrm_ne0_large_n_row_padding():
 
 
 def test_ssbrm_refusals():
-    """BSLMM is refused as in JAX (ValueError); multi-chain, meshes and
-    checkpoints are not ported (NotImplementedError, citing ROADMAP items
-    6, 13 and 7); without a card, device=None raises."""
+    """BSLMM is refused as in JAX (ValueError); multi-chain and meshes are
+    not ported (NotImplementedError, citing ROADMAP items 6 and 13);
+    without a card, device=None raises.  (Checkpoints are ported:
+    tests/test_torch_checkpoint.py.)"""
     prob = _ss_problem(nkid=120, n_g=60, m=20, n_pg=30, n_pn=40)
     kw = {k: prob[k] for k in ("data", "M", "M_id", "pedigree")}
     with pytest.raises(ValueError, match="BSLMM"):
         htt.ssbrm("y~1", method="BSLMM", device="cpu", **kw)
-    for extra, item in (({"nchains": 2}, "item 6"), ({"mesh": object()}, "item 13"),
-                        ({"checkpoint": "x.npz"}, "item 7")):
+    for extra, item in (({"nchains": 2}, "item 6"), ({"mesh": object()}, "item 13")):
         with pytest.raises(NotImplementedError, match=item):
             htt.ssbrm("y~1", device="cpu", **extra, **kw)
     if not torch.cuda.is_available():
