@@ -22,7 +22,12 @@ Phases, each printing as it goes:
      K=4, on a pruned m=1,000 LD, at the chain's vary and at a lowered
      vary where it rejects; its counts equal the plain version's) and the
      tiled sweep at tile 64 for all six models (and BayesCpi at a lowered
-     vary).
+     vary).  The K-chain tiled sweep at K=4 (a drawer CTA a chain, each
+     tile read once for all chains) for all six models at tiles of 128 and
+     64, the guard on, and BayesCpi and BayesR at a lowered vary where it
+     rejects (each chain's counts equal the plain version's); the K-chain
+     epsilon sweep at K=4 (a CTA a chain) on a 3,000-id pedigree's layout;
+     each chain of both bit for bit its K=1 launch.
      Bar: at most 1% mixture draws flip, effects within 5e-5 max|g| where
      the draws agree, residuals (r_hat) within 1e-4 max|.| when none flips;
      a second kernel sweep on the same inputs must be bit-identical.  Then
@@ -37,7 +42,8 @@ Phases, each printing as it goes:
      partials and for W, the chain, the hand-offs and the rows CTAs' work);
      the draw chain alone per block of 128, in us and cycles a draw (BayesR
      with 4 folds here, BayesCpi with and without the guard in phase 5),
-     the floor of every sweep;
+     the floor of every sweep; the K=4 tiled and epsilon sweeps at their
+     main paths' shapes (phases 5 and 7), timed beside K=1;
   4. ibrm main path: hibayes_tpu_torch.ibrm("y ~ x1 + (1|grp)",
      method="BayesR") on one chain at n=50,000 x m=65,536 (int8 genotype made
      on the card, h2=0.5 from 500 causal SNPs), niter=200, nburn=100,
@@ -127,8 +133,21 @@ Phases, each printing as it goes:
      a BlockDiagLD batch of 4 with the guard firing, ssbrm): killed after a
      checkpoint past burn-in and run again, bit for bit the uninterrupted
      run, each iteration's kernels launched once over the two runs;
- 10. a JSON line of kernels, the whole run's seconds, the nvidia-smi line,
-     and the last line {"ok": true, "device": {...}}.
+ 10. chain batches of ssbrm and of sbrm on tiled LD, each run beside the
+     phase whose data it reuses.  (10b, after phase 5) sbrm(method=
+     "BayesCpi", nchains=4) on phase 5's m=500,000 tiled LD: one K-chain
+     tiled_sweep launch an iteration and no plain call, each chain's guard
+     counts, each chain's and the pooled accuracy against b_true, R-hat(Vg),
+     ms/iter beside phase 5's.  (10a, after phase 7) ssbrm(impute="pcg",
+     method="BayesCpi", chunk_cols=2048, nchains=4) on phase 7's cohort
+     (its imputation redone): through sweep_mc's K-chain rows and draws
+     kernels and one K-chain mme_sweep_kernel launch an iteration only,
+     every chain finite, R-hat(Ve), the GEBV agreement of chains 0 and 1,
+     the pooled accuracy, ms/iter and the set-up split.  (10c, in 9c) an
+     ssbrm batch of 4 and a tiled-LD batch of 4 killed and resumed bit for
+     bit.  Then a JSON line of kernels, each phase's seconds and the whole
+     run's, the nvidia-smi line, and the last line {"ok": true, "device":
+     {...}}.
 
 Any failed check raises, so the script exits non-zero and prints no result.
 """
@@ -216,6 +235,24 @@ FLAGSHIP_CHAINS_CORR_MIN = 0.95
 # faults 0.0006-0.56 and 0.67-0.75, so the agreement bar catches them all.
 MC64_ACC_MIN = 0.7
 MC64_CHAINS_CORR_MIN = 0.9
+# Phase 10a, ssbrm with 4 chains on phase 7's cohort: each chain is phase
+# 7's recipe (accuracy 0.708 on the non-genotyped phenotyped on an H100),
+# so the pooled accuracy keeps SSBRM_CORR_MIN.  As in phase 4c, m = 100,000
+# SNPs against n = 10,000 records lets the chains sit apart in Ve over 20
+# records each, so R-hat(Ve) bounds divergence at 4c's bar.  Two chains'
+# posterior-mean GEBV, each over 20 records, differ by Monte-Carlo error;
+# the gate reads the 25,000 ids with a genotype or a record (an id with
+# neither has an epsilon drawn from the pedigree's prior alone, whose
+# 20-record mean is mostly noise; printed beside it).  0.9 sits below two
+# sound chains and above a chain that sweeps against the wrong system.
+RHAT_VE_MAX_SSBRM_CHAINS = 2.5
+SSBRM_CHAINS_CORR_MIN = 0.9
+# Phase 10b, sbrm with 4 chains on phase 5's tiled LD: each chain is phase
+# 5's recipe (accuracy 0.787 on an H100), so each chain's and the pooled
+# accuracy keep SBAYES_CORR_MIN.  Its Ve sits at the negative-Ve guard's
+# 0.5 Vg (SBAYES_CORR_MIN's note), so R-hat(Vg), over 20 records a chain,
+# bounds divergence at the bar of phase 4c.
+RHAT_MAX_TILED_CHAINS = 2.5
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM device memory (hopper-kernels guide)
 F32_FLOPS = 67e12           # H100 SXM float32 outside the tensor cores
 
@@ -1176,14 +1213,129 @@ def check_guard_kernels(torch, TG, TSG, TLD, TSLD, TB, dev, errs, m=1000, K=4):
     return fired
 
 
+def check_tiled_mc(torch, TG, TSG, TSLD, TB, dev, errs, K=4, m=1000):
+    """The K-chain tiled sweep (one launch: a drawer CTA a chain, each tile
+    read once for all chains) at K=4 against its plain version, all six
+    models at tiles of 128 and 64 (8 and 16 tile rows of a 5-tile band,
+    masked slots), the guard on for BayesCpi and BayesR, and BayesCpi and
+    BayesR at a lowered vary where it rejects: each chain at the bar, its
+    guard counts equal to the plain version's, each chain bit for bit its
+    K=1 launch, a second launch bit-identical.  Returns the lowered-vary
+    cases' counts per chain."""
+    gen = torch.Generator(device=dev).manual_seed(23)
+    fired = {}
+    for T in (128, 64):
+        tld = banded_ld(torch, TSLD, m, dev, T=T, K=5)
+        mv = tiled_matvec(torch, tld)
+        ss_t, _ = summary_stats(torch, mv, m, tld.m_pad, gen, dev)
+        for model in MODELS:
+            data, spec0, pr, pi = s_setup(torch, TG, TSG, ss_t, tld, model, T, dev, True)
+            ins = [s_sweep_inputs(torch, TSG, spec0, data, pr, pi, mv, seed=40 + k)
+                   for k in range(K)]
+            g, r, P = (torch.stack(x) for x in zip(*ins))
+            lay = (data.ld_tiles, data.ld_cols, data.ld_valid)
+            low = (None, 2e-4) if model in ("BayesCpi", "BayesR") else (None,)
+            for vary in low:
+                spec = (spec0 if vary is None
+                        else spec0.__class__(**{**spec0.__dict__, "vary": vary}))
+                what = (f"sweep_s_tiled K={K} tile {T} {model}"
+                        + ("" if vary is None else f" vary={vary}"))
+                tal = [torch.zeros((K, 2), dtype=torch.int64, device=dev) for _ in range(3)]
+                outs = [TB.sweep_s_tiled(spec, *lay, r, P, spec.n, tally=tal[i])
+                        for i in range(2)]
+                ref = TB.sweep_s_tiled_plain(spec, *lay, r, P, spec.n, tally=tal[2])
+                torch.cuda.synchronize()
+                errs["sweep_s_tiled_k"] = max(errs["sweep_s_tiled_k"], bar(
+                    (g - ref[0], ref[1], ref[2]), (g - outs[0][0], outs[0][1], outs[0][2]),
+                    what, r_index=2))
+                if not all(torch.equal(a, b) for a, b in zip(*outs)):
+                    raise AssertionError(f"{what}: two runs differ (not deterministic)")
+                if not (torch.equal(tal[0], tal[1]) and torch.equal(tal[0], tal[2])):
+                    raise AssertionError(f"{what}: guard counts {tal[0].tolist()}, plain "
+                                         f"{tal[2].tolist()}")
+                for k in range(K):
+                    one = TB.sweep_s_tiled(spec, *lay, r[k], P[k], spec.n)
+                    if not all(torch.equal(a[k], b) for a, b in zip(outs[0], one)):
+                        raise AssertionError(f"{what}: chain {k} differs from its K=1 launch")
+                if vary is not None:
+                    if int(tal[0][:, 0].sum()) == 0:
+                        raise AssertionError(f"{what}: the guard did not fire")
+                    fired[what] = tal[0].tolist()
+                log(f"  ok {what} ({tld.nbr} tile rows; each chain bit for bit its K=1 "
+                    f"launch; guard {'on' if TB.guard_on(spec) else 'off'}, counts per "
+                    f"chain {tal[0].tolist()})")
+    return fired
+
+
+def mme_chains_inputs(torch, TG, lay, counts, gen, dev, K):
+    """K chains' inputs of an epsilon sweep over layout ``lay``: each its own
+    x, right-hand side, normals, scale and ve, and the residual
+    b - (scale A + diag(counts)) x.  Returns (scale, ve, z, x, res)."""
+    qp = lay.diag_blocks.shape[0] * lay.diag_blocks.shape[1]
+    f = lambda *shape: torch.randn(shape, generator=gen, device=dev)
+    x, b, z = 0.3 * f(K, qp), f(K, qp), f(K, qp)
+    kf = torch.arange(K, device=dev, dtype=torch.float32)
+    scale, ve = 0.7 * (1 + 0.2 * kf), 1.3 * (1 + 0.3 * kf)
+    res = b - scale[:, None] * TG._epsl_matvec(lay, x) - counts * x
+    return scale, ve, z, x, res.contiguous()
+
+
+def check_mme_case(torch, TB, args, what, errs, key):
+    """One K-chain epsilon sweep against its plain version: the effects of
+    every chain at the kernel bar (5e-5 of max |x|), the residual at 1e-4;
+    a second launch bit-identical; each chain bit for bit its K=1 launch."""
+    lay, counts, scale, ve, z, x, res = args
+    outs = [TB.mme_sweep(*args) for _ in range(2)]
+    ref = TB.mme_sweep_plain(*args)
+    torch.cuda.synchronize()
+    xo, xr = outs[0][0].cpu().numpy(), ref[0].cpu().numpy()
+    err = float(np.abs(xo - xr).max())
+    if not err <= 5e-5 * float(np.abs(xr).max()):
+        raise AssertionError(f"{what}: max |x| error {err}")
+    ro, rr = outs[0][1].cpu().numpy(), ref[1].cpu().numpy()
+    rerr = float(np.abs(ro - rr).max())
+    if not rerr <= 1e-4 * float(np.abs(rr).max()) + 1e-6:
+        raise AssertionError(f"{what}: max residual error {rerr}")
+    if not all(torch.equal(a, c) for a, c in zip(*outs)):
+        raise AssertionError(f"{what}: two runs differ (not deterministic)")
+    for k in range(x.shape[0]):
+        one = TB.mme_sweep(lay, counts, scale[k], ve[k], z[k], x[k], res[k])
+        if not (torch.equal(outs[0][0][k], one[0]) and torch.equal(outs[0][1][k], one[1])):
+            raise AssertionError(f"{what}: chain {k} differs from its K=1 launch")
+    errs[key] = max(errs[key], err)
+    log(f"  ok {what}: max |x| error {err:.3g}, residual {rerr:.3g}; each chain bit for "
+        f"bit its K=1 launch")
+
+
+def check_mme_mc(torch, TG, TB, dev, errs, K=4):
+    """The K-chain epsilon sweep (one launch, a CTA a chain) at K=4 on a
+    small pedigree layout (3,000 ids, 600 genotyped: 2,400 sites in blocks
+    of 64, RCM order) against its plain version (check_mme_case)."""
+    gen = torch.Generator(device=dev).manual_seed(29)
+    ids, sires, dams, _, _ = make_pedigree(150, 2850, 29)
+    geno = ids[np.sort(np.random.default_rng(29).choice(3000, 600, replace=False))]
+    lay, Ai_nn, _ = ssbrm_layout(torch, TG, ids, sires, dams, geno, dev)
+    nbr, T, _ = lay.diag_blocks.shape
+    q = Ai_nn.shape[0]
+    codes = np.random.default_rng(30).choice(q, 900)
+    counts = torch.as_tensor(np.bincount(codes, minlength=nbr * T), dtype=torch.float32,
+                             device=dev)
+    args = (lay, counts) + mme_chains_inputs(torch, TG, lay, counts, gen, dev, K)
+    check_mme_case(torch, TB, args, f"mme_sweep K={K} over {nbr} blocks of {T} "
+                   f"({q} sites)", errs, "mme_sweep_k")
+
+
 def nbytes(*ts):
     return sum(t.numel() * t.element_size() for t in ts)
 
 
-def time_tiled(torch, TSG, TB, spec, data, pr, pi, ld, errs, rows=16, key="sweep_s_tiled"):
+def time_tiled(torch, TSG, TB, spec, data, pr, pi, ld, errs, rows=16, key="sweep_s_tiled",
+               K=None):
     """The tiled sweep at the main path's shapes: the first ``rows`` tile rows
     (slots past them masked), kernel against plain, held to the bar (into
-    ``errs[key]``) and timed; and the kernel over every tile row.  Returns
+    ``errs[key]``) and timed; and the kernel over every tile row.  With
+    ``K``, the same at K chains (phase 10b's batch; each chain bit for bit
+    its K=1 launch; into ``errs[key + "_k"]``), timed beside K=1.  Returns
     (times, bounds)."""
     T = spec.block
     g, r, P = s_sweep_inputs(torch, TSG, spec, data, pr, pi, tiled_matvec(torch, ld), 9)
@@ -1211,16 +1363,46 @@ def time_tiled(torch, TSG, TB, spec, data, pr, pi, ld, errs, rows=16, key="sweep
          "sweep_s_tiled_full": cuda_ms(torch, lambda: TB.sweep_s_tiled(spec, *full), 3),
          "sweep_s_tiled_full_host": host_ms(torch, lambda: TB.sweep_s_tiled(spec, *full)),
          "sweep_s_tiled_split": tiled_split(torch, TB, spec, full)}
-    for key, (us, cyc) in chain.items():
-        t[key + "_us"], t[key + "_cycles"] = us, cyc
-    nvalid = int(args[2].sum())
-    b = (nvalid * T * T * 4 + nbytes(*args[1:5]) + 4 * mp * 3 + 4 * rows)
-    flops = 2.0 * T * T * (nvalid + rows)
-    nvalid_all = int(data.ld_valid.sum())
-    b_full = (nvalid_all * T * T * 4 + nbytes(*full[1:5]) + 4 * spec.m_pad * 3
-              + 4 * data.ld_cols.shape[0])
-    return t, {"sweep_s_tiled": bound(b, flops),
-               "sweep_s_tiled_full": bound(b_full, 2.0 * T * T * (nvalid_all + data.ld_cols.shape[0]))}
+    for k, (us, cyc) in chain.items():
+        t[k + "_us"], t[k + "_cycles"] = us, cyc
+
+    def bounds_at(kc, a):
+        # the tiles once; each chain's r_hat and packed rows read, its
+        # r_hat, dg and track written, its guard counts; each chain's
+        # products (the tiles' and the diagonal tiles' draws)
+        n_rows, nv, mpad = a[0].shape[0], int(a[2].sum()), a[3].shape[-1]
+        b = nv * T * T * 4 + nbytes(*a[1:5]) + kc * (4 * mpad * 3 + 4 * n_rows)
+        return bound(b, kc * 2.0 * T * T * (nv + n_rows))
+
+    bnd = {"sweep_s_tiled": bounds_at(1, args), "sweep_s_tiled_full": bounds_at(1, full)}
+    if K:
+        ins = [s_sweep_inputs(torch, TSG, spec, data, pr, pi, tiled_matvec(torch, ld), 9 + k)
+               for k in range(K)]
+        gK, rK, PK = (torch.stack(x) for x in zip(*ins))
+        kargs = args[:3] + (rK[:, :mp].contiguous(), PK[:, :, :mp].contiguous(), spec.n)
+        kfull = full[:3] + (rK, PK, spec.n)
+        out, ref = TB.sweep_s_tiled(sub, *kargs), TB.sweep_s_tiled_plain(sub, *kargs)
+        errs[key + "_k"] = max(errs[key + "_k"], bar(
+            (gK[:, :mp] - ref[0], ref[1], ref[2]), (gK[:, :mp] - out[0], out[1], out[2]),
+            f"sweep_s_tiled K={K} at the main path's shapes ({rows} rows of {T})",
+            r_index=2))
+        for k in range(K):
+            one = TB.sweep_s_tiled(sub, *kargs[:3], kargs[3][k], kargs[4][k], spec.n)
+            if not all(torch.equal(a[k], b) for a, b in zip(out, one)):
+                raise AssertionError(f"sweep_s_tiled K={K}: chain {k} differs from its K=1 "
+                                     f"launch at the main path's shapes")
+        kk = f"sweep_s_tiled_k{K}"
+        t.update({kk: cuda_ms(torch, lambda: TB.sweep_s_tiled(sub, *kargs), 10),
+                  kk + "_plain": cuda_ms(torch, lambda: TB.sweep_s_tiled_plain(sub, *kargs), 1),
+                  kk + "_full": cuda_ms(torch, lambda: TB.sweep_s_tiled(spec, *kfull), 3),
+                  kk + "_full_host": host_ms(torch, lambda: TB.sweep_s_tiled(spec, *kfull)),
+                  kk + "_split": tiled_split(torch, TB, spec, kfull)})
+        bnd[kk] = bounds_at(K, kargs)
+        bnd[kk + "_full"] = bounds_at(K, kfull)
+        log(f"  ok sweep_s_tiled K={K} at the main path's shapes: each chain bit for bit its "
+            f"K=1 launch; full sweep K={K} {t[kk + '_full']:.4f} ms against K=1 "
+            f"{t['sweep_s_tiled_full']:.4f} ms")
+    return t, bnd
 
 
 def time_segment(torch, TSG, TB, spec, data, pr, pi, errs):
@@ -1906,11 +2088,12 @@ def resume_case(torch, TB, what, run, nburn, want):
 
 
 def resumes(torch, ht, TG, TSG, TLD, TSLD, TB, dev, gen, args):
-    """Phase 9c: a resume on each engine at small sizes on the card
-    (n=args.rs_n, m=args.rs_m): an ibrm batch of 4, sbrm on a tiled LD of
-    m SNPs, sbrm on a BlockDiagLD of two blocks of m/8 with 4 chains and a
-    lowered vary so that the guard fires (its counts are carried), and
-    ssbrm on a 3,000-id pedigree.  Returns each case's numbers."""
+    """Phase 9c (and 10c): a resume on each engine at small sizes on the
+    card (n=args.rs_n, m=args.rs_m): an ibrm batch of 4, sbrm on a tiled LD
+    of m SNPs with one chain and with 4, sbrm on a BlockDiagLD of two blocks
+    of m/8 with 4 chains and a lowered vary so that the guard fires (its
+    counts are carried), and ssbrm on a 3,000-id pedigree with one chain
+    and with 4.  Returns each case's numbers."""
     out = {}
     kw = dict(niter=60, nburn=20, thin=5, seed=args.seed, verbose=False, device=dev)
     niter_eff = 60
@@ -1941,6 +2124,14 @@ def resumes(torch, ht, TG, TSG, TLD, TSLD, TB, dev, gen, args):
 
     out["sbrm_tiled"] = resume_case(torch, TB, f"sbrm BayesCpi, tiled LD m={m}", tiled_run,
                                     20, {"sweep_s_tiled": niter_eff, "tiled_sweep": niter_eff})
+
+    def tiled4_run(ck):
+        fit = ht.sbrm(ss, tld, method="BayesCpi", nchains=4, checkpoint=ck, **kw)
+        return {**fit.MCMCsamples, "guard": fit.guard}
+
+    out["sbrm_tiled_4_chains"] = resume_case(
+        torch, TB, f"sbrm BayesCpi, tiled LD m={m}, 4 chains", tiled4_run, 20,
+        {"sweep_s_tiled": niter_eff, "tiled_sweep": niter_eff})
     del tld
 
     # sbrm on a BlockDiagLD of two AR(1) blocks, 4 chains, the guard firing
@@ -1982,6 +2173,18 @@ def resumes(torch, ht, TG, TSG, TLD, TSLD, TB, dev, gen, args):
     out["ssbrm"] = resume_case(torch, TB, "ssbrm BayesCpi, 3,000 ids, m=2,048", ssbrm_run, 20,
                                {"sweep_mc": niter_eff, "sweep1": niter_eff,
                                 "mme_sweep": niter_eff, "mme_sweep_kernel": niter_eff})
+
+    def ssbrm4_run(ck):
+        fit = ht.ssbrm("y ~ 1", data={"id": sphe, "y": sy}, M=sM, M_id=sg,
+                       pedigree={"id": sids, "sire": ssir, "dam": sdam}, impute="pcg",
+                       chunk_cols=512, nchains=4, checkpoint=ck, **kw)
+        return {**fit.MCMCsamples, "gebv": fit.g["gebv"]}
+
+    nbs = 2048 // 64
+    out["ssbrm_4_chains"] = resume_case(
+        torch, TB, "ssbrm BayesCpi, 4 chains, 3,000 ids, m=2,048", ssbrm4_run, 20,
+        {"sweep_mc": niter_eff, "rows_mc_kernel": niter_eff * (nbs + 1),
+         "draws_kernel": niter_eff * nbs, "mme_sweep": niter_eff, "mme_sweep_kernel": niter_eff})
     return out
 
 
@@ -2023,6 +2226,121 @@ def profile_iterations(torch, step, state, what, iters=3, split=None):
         split["torch"] = busy / 1e3 - split["sweep_mc"] - split["mme_sweep"]
         split["wall"] = 1e3 * wall / iters
     return state
+
+
+def per_chain(fit, key, nchains, n_rec):
+    """The records of ``key`` of a pooled fit, (nchains, n_records, ...)."""
+    v = fit.MCMCsamples[key]
+    return v.reshape((nchains, n_rec) + v.shape[1:])
+
+
+def ssbrm_chains(torch, ht, TB, inputs, ids, gi, phe, gv, nchains, args, niter_eff, thin,
+                 smi, ms1, times):
+    """Phase 10a: ssbrm(impute="pcg", method="BayesCpi", nchains=...) on
+    phase 7's cohort through the K-chain rows and draws kernels and one
+    K-chain epsilon launch an iteration only (launch counts, no plain call);
+    every chain finite, R-hat(Ve), the GEBV agreement of chains 0 and 1 and
+    the pooled accuracy of the non-genotyped phenotyped ids, each against
+    its bar.  Prints ms/iter beside phase 7's one chain, the set-up split
+    and the epsilon sweep's time at K beside K=1 (check_mme, phase 7)."""
+    n_rec = (args.niter - args.nburn) // thin
+    m = inputs["M"].shape[1]
+    nb = -(-m // 64)
+    reset_counts(TB)
+    t0 = time.perf_counter()
+    fit = ht.ssbrm("y ~ 1", **inputs, method="BayesCpi", niter=args.niter, nburn=args.nburn,
+                   thin=thin, impute="pcg", chunk_cols=2048, seed=args.seed,
+                   device=inputs["M"].device, nchains=nchains, verbose=False)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches, plain = read_counts(TB)
+    expect_counts(launches, plain, {"sweep_mc": niter_eff,
+                                    "rows_mc_kernel": niter_eff * (nb + 1),
+                                    "draws_kernel": niter_eff * nb, "mme_sweep": niter_eff,
+                                    "mme_sweep_kernel": niter_eff}, "10a")
+    for k in ("mu", "Vg", "Ve", "h2", "alpha", "Veps", "J", "epsilon"):
+        per = per_chain(fit, k, nchains, n_rec)
+        bad = [c for c in range(nchains) if not np.isfinite(per[c]).all()]
+        if bad:
+            raise AssertionError(f"10a: chains {bad} have non-finite {k}")
+    gebv = dict(zip(fit.g["id"], fit.g["gebv"]))
+    ng_phe = np.setdiff1d(phe, gi)
+    gv_np = gv.cpu().numpy()
+    acc = float(np.corrcoef([gebv[i] for i in ids[ng_phe]], gv_np[ng_phe])[0, 1])
+    g01 = chain_gebv(fit, nchains, n_rec)
+    pos = {v: i for i, v in enumerate(fit.g["id"])}
+    held = np.array([pos[i] for i in ids[np.union1d(gi, phe)]])   # ids with data
+    corr01 = float(np.corrcoef(g01[0][held], g01[1][held])[0, 1])
+    corr01_all = float(np.corrcoef(g01[0], g01[1])[0, 1])
+    sec, setup = fit.chain_seconds, fit.setup_seconds
+    out = {"ms_per_iter": 1e3 * sec / niter_eff, "rhat_Ve": fit.rhat["Ve"],
+           "rhat_Veps": fit.rhat["Veps"], "corr01": corr01, "corr01_all": corr01_all,
+           "acc": acc, "wall_s": wall, "launches": launches, "setup_s": setup}
+    log(f"[10a] ssbrm BayesCpi nchains={nchains}, {len(ids)} ids x m={m}: Vg {fit.Vg:.4f} "
+        f"Ve {fit.Ve:.4f} Veps {fit.Veps:.4f} J {fit.J:.4f} h2 {fit.h2:.4f}; R-hat Ve "
+        f"{fit.rhat['Ve']:.4f} (bar {RHAT_VE_MAX_SSBRM_CHAINS}), Veps {fit.rhat['Veps']:.4f}, "
+        f"J {fit.rhat['J']:.4f}; corr(GEBV chain 0, chain 1) {corr01:.4f} on the "
+        f"{len(held)} genotyped or phenotyped ids (bar {SSBRM_CHAINS_CORR_MIN}), "
+        f"{corr01_all:.4f} on all; pooled GEBV accuracy on the {len(ng_phe)} non-genotyped "
+        f"phenotyped {acc:.4f} (bar {SSBRM_CORR_MIN})")
+    log(f"[10a] wall {wall:.2f} s; set-up (s) pedigree {setup['pedigree']:.2f}, imputation "
+        f"{setup['imputation']:.2f}, prepare {setup['prepare']:.2f}; chain {sec:.2f} s = "
+        f"{out['ms_per_iter']:.2f} ms/iter against phase 7's one chain {ms1:.2f}; the epsilon "
+        f"sweep at K={nchains} {times[f'mme_sweep_k{nchains}_full']:.4f} ms against K=1 "
+        f"{times['mme_sweep_full']:.4f} ms on {smi}")
+    if not fit.rhat["Ve"] < RHAT_VE_MAX_SSBRM_CHAINS:
+        raise AssertionError(f"10a: R-hat(Ve) {fit.rhat['Ve']} not below "
+                             f"{RHAT_VE_MAX_SSBRM_CHAINS}")
+    if not corr01 >= SSBRM_CHAINS_CORR_MIN:
+        raise AssertionError(f"10a: chains 0 and 1 GEBV corr {corr01} below "
+                             f"{SSBRM_CHAINS_CORR_MIN}")
+    if not acc >= SSBRM_CORR_MIN:
+        raise AssertionError(f"10a: pooled accuracy {acc} below {SSBRM_CORR_MIN}")
+    return out
+
+
+def tiled_chains(torch, ht, TB, ss, tld, b_true, nchains, args, niter_eff, thin, smi, ms1):
+    """Phase 10b: sbrm(method="BayesCpi", nchains=...) on phase 5's tiled LD
+    (the guard on) through one K-chain tiled launch an iteration only; each
+    chain finite with its guard counts (rejected, all 8 candidates failed),
+    each chain's and the pooled accuracy against b_true and R-hat(Vg),
+    against their bars.  Prints ms/iter beside phase 5's one chain."""
+    n_rec = (args.niter - args.nburn) // thin
+    reset_counts(TB)
+    t0 = time.perf_counter()
+    fit = ht.sbrm(ss, tld, method="BayesCpi", fold=np.array([0.0, 1.0]), niter=args.niter,
+                  nburn=args.nburn, thin=thin, seed=args.seed, device=tld.tiles.device,
+                  nchains=nchains, verbose=False)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches, plain = read_counts(TB)
+    expect_counts(launches, plain, {"sweep_s_tiled": niter_eff, "tiled_sweep": niter_eff},
+                  "10b")
+    corr = check_fit(fit, b_true, "10b")
+    alpha = per_chain(fit, "alpha", nchains, n_rec)
+    if not np.isfinite(alpha).all():
+        raise AssertionError("10b: non-finite effects")
+    accs = [float(np.corrcoef(alpha[c].mean(0), b_true)[0, 1]) for c in range(nchains)]
+    guard = np.asarray(fit.guard)
+    if guard.shape != (nchains, 2) or (guard < 0).any() or (guard[:, 1] > guard[:, 0]).any():
+        raise AssertionError(f"10b: guard counts {guard.tolist()}")
+    out = {"ms_per_iter": 1e3 * fit.chain_seconds / niter_eff, "rhat_Vg": fit.rhat["Vg"],
+           "rhat_Ve": fit.rhat["Ve"], "acc": corr, "acc_per_chain": accs, "wall_s": wall,
+           "launches": launches, "guard": guard.tolist()}
+    log(f"[10b] sbrm BayesCpi tiled m={tld.m}, {nchains} chains: Vg {fit.Vg:.4f} Ve "
+        f"{fit.Ve:.4f} h2 {fit.h2:.4f}; R-hat Vg {fit.rhat['Vg']:.4f} (bar "
+        f"{RHAT_MAX_TILED_CHAINS}) Ve {fit.rhat['Ve']:.4f}; corr(alpha, b_true) pooled "
+        f"{corr:.4f}, per chain {[round(a, 4) for a in accs]} (bar {SBAYES_CORR_MIN}); guard "
+        f"counts per chain (rejected, all 8 failed) {guard.tolist()}")
+    log(f"[10b] wall {wall:.2f} s; chain {fit.chain_seconds:.2f} s = {out['ms_per_iter']:.2f} "
+        f"ms/iter against phase 5's one chain {ms1:.2f}, "
+        f"{nchains * niter_eff * tld.m / fit.chain_seconds:.4g} SNP-updates/s over "
+        f"{nchains} chains on {smi}")
+    if not fit.rhat["Vg"] < RHAT_MAX_TILED_CHAINS:
+        raise AssertionError(f"10b: R-hat(Vg) {fit.rhat['Vg']} not below {RHAT_MAX_TILED_CHAINS}")
+    if not min(accs + [corr]) >= SBAYES_CORR_MIN:
+        raise AssertionError(f"10b: accuracy {corr}, per chain {accs}, below {SBAYES_CORR_MIN}")
+    return out
 
 
 def chain_gebv(fit, nchains, n_records):
@@ -2245,13 +2563,16 @@ def ssbrm_layout(torch, TG, ids, sires, dams, geno, dev, T=64):
     return TG._build_epsl_sparse(Ai_nn, T, torch.float32, dev)[0], Ai_nn, ped_ids[ng]
 
 
-def check_mme(torch, TG, TB, lay, counts, gen, dev, errs, nb=16):
+def check_mme(torch, TG, TB, lay, counts, gen, dev, errs, nb=16, K=4):
     """The epsilon sweep at the main path's layout: its first ``nb`` blocks
     (the layout and vectors cut to them) and the whole sweep against the
     plain version (the effects at the kernel bar, the residual where the
     sweep leaves it), a bit-identical second launch, times, bounds, and
     torch.linalg.solve_triangular on block 0 (the one library call that
-    computes a block's draws).  Returns (times, bounds)."""
+    computes a block's draws); then the same at K chains (phase 10a's
+    batch: each chain bit for bit its K=1 launch), timed beside K=1, with
+    a batched solve_triangular of one block a chain.  Returns (times,
+    bounds)."""
     nbr, T, _ = lay.diag_blocks.shape
     qp = nbr * T
     f = lambda *shape: torch.randn(shape, generator=gen, device=dev)
@@ -2308,45 +2629,73 @@ def check_mme(torch, TG, TB, lay, counts, gen, dev, errs, nb=16):
         f"at most {plan['ncap']} entries a block to the next")
 
     # library yardstick: block 0's draws as one triangular solve,
-    # tril(Wb) dx = r + diag(Wb) noise, unit diagonal on padded sites
-    Wb, invd, noise = TB._block_constants(lay.diag_blocks[0].clone(), counts[:T], scale, ve,
-                                          z[:T])
-    ok = invd > 0
-    L = torch.tril(Wb) + torch.diag((~ok).float())
-    rhs = torch.where(ok, res[:T] + torch.diagonal(Wb) * noise, 0.0)[:, None]
-    dx_lib = torch.linalg.solve_triangular(L, rhs, upper=False)[:, 0]
-    dx_plain = TB.mme_block_draws_plain(Wb, res[:T], invd, noise)
-    lib_err = float((dx_lib - dx_plain).abs().max())
-    if not lib_err <= 1e-4 * float(dx_plain.abs().max()):
-        raise AssertionError(f"solve_triangular off the block draws by {lib_err}")
-    t["mme_library"] = cuda_ms(
-        torch, lambda: torch.linalg.solve_triangular(L, rhs, upper=False), 200)
+    # tril(Wb) dx = r + diag(Wb) noise, unit diagonal on padded sites (a
+    # batch of one block a chain for K chains)
+    def tri(sc, vv, zz, rr):
+        Wb, invd, noise = TB._block_constants(lay.diag_blocks[0].clone(), counts[:T],
+                                              sc.reshape(-1, 1, 1), vv.reshape(-1, 1),
+                                              zz.reshape(-1, T))
+        ok = invd > 0
+        L = torch.tril(Wb) + torch.diag_embed((~ok).float())
+        rhs = torch.where(ok, rr.reshape(-1, T) + torch.diagonal(Wb, dim1=-2, dim2=-1) * noise,
+                          0.0)[..., None]
+        dx_lib = torch.linalg.solve_triangular(L, rhs, upper=False)[..., 0]
+        dx_plain = TB._mme_draws(Wb, rr.reshape(-1, T).clone(), invd, noise)
+        lib_err = float((dx_lib - dx_plain).abs().max())
+        if not lib_err <= 1e-4 * float(dx_plain.abs().max()):
+            raise AssertionError(f"solve_triangular off the block draws by {lib_err}")
+        ms = cuda_ms(torch, lambda: torch.linalg.solve_triangular(L, rhs, upper=False), 200)
+        return ms, lib_err
+
+    t["mme_library"], lib_err = tri(scale, ve, z[:T], res[:T])
     log(f"  ok solve_triangular on block 0 (T={T}) matches the block draws to {lib_err:.3g}")
+
+    # K chains: phase 10a's batch, each chain its own x, z, residual, scale, ve
+    sc, vv, zK, xK, rK = mme_chains_inputs(torch, TG, lay, counts, gen, dev, K)
+    kruns = {nb: (part, cut(counts), sc, vv, zK[:, :nb * T], xK[:, :nb * T], rK),
+             nbr: (lay, counts, sc, vv, zK, xK, rK)}
+    for k, args in kruns.items():
+        check_mme_case(torch, TB, args, f"mme_sweep K={K} over {k} of {nbr} blocks of {T}",
+                       errs, "mme_sweep_k")
+    t.update({f"mme_sweep_k{K}": cuda_ms(torch, lambda: TB.mme_sweep(*kruns[nb]), 20),
+              f"mme_sweep_k{K}_plain": cuda_ms(torch, lambda: TB.mme_sweep_plain(*kruns[nb]), 1),
+              f"mme_sweep_k{K}_full": cuda_ms(torch, lambda: TB.mme_sweep(*kruns[nbr]), 5),
+              f"mme_sweep_k{K}_full_cold": cold_ms(torch, lambda: TB.mme_sweep(*kruns[nbr]),
+                                                   5)})
+    t[f"mme_k{K}_library"], lib_err = tri(sc, vv, zK[:, :T], rK[:, :T])
+    log(f"  ok batched solve_triangular on block 0 of {K} chains matches the block draws "
+        f"to {lib_err:.3g}; mme_sweep over {nbr} blocks: K={K} "
+        f"{t[f'mme_sweep_k{K}_full']:.4f} ms against K=1 {t['mme_sweep_full']:.4f} ms "
+        f"(L2 cold {t[f'mme_sweep_k{K}_full_cold']:.4f} against {t['mme_sweep_full_cold']:.4f})")
 
     # bounds: each input read once, each output written once.  The kernel
     # takes dense (T, T) diagonal blocks, as TPU kernel 10 does; the sweep's
     # own work is their nonzeros.  bound_ms counts the nonzeros, 8 bytes
     # each (value and in-block column, as for the triplets); the dense
     # layout's bound is printed beside it.
-    def sweep_bound(k, dense):
+    def sweep_bound(k, dense, chains=1):
         u1 = int(lay.blk_ptr[k])
         e1 = int(lay.row_ptr[u1])
         rows = int(torch.unique(lay.urow[:u1]).numel())
         D = lay.diag_blocks[:k]
         nz = int((D != 0).sum())                     # diagonal-block nonzeros
         nz_low = int((torch.tril(D, diagonal=-1) != 0).sum())
-        by = ((k * T * T * 4 if dense else 8 * nz) + 4 * 4 * k * T  # blocks; counts, z, x, res
+        # the layout and counts once; each chain's z, x, res of its blocks,
+        # its forward rows read and written and its x out
+        by = ((k * T * T * 4 if dense else 8 * nz) + 4 * k * T   # blocks; counts
               + 4 * (k + 1) + 4 * 2 * u1 + 8 * e1       # blk_ptr, urow + row_ptr, entries
-              + 4 * 2 * rows + 4 * k * T)               # forward rows read and written; x out
+              + chains * (4 * 3 * k * T + 4 * 2 * rows + 4 * k * T))
         # Wb and the site constants (the diagonal, 6 per site), 2 per
-        # strictly lower entry of a block, per triplet and per draw
+        # strictly lower entry of a block, per triplet and per draw, a chain
         low = k * T * (T - 1.0) / 2 if dense else nz_low
-        flops = (k * T * T if dense else nz) + k * 8.0 * T + 2.0 * low + 2.0 * e1
+        flops = chains * ((k * T * T if dense else nz) + k * 8.0 * T + 2.0 * low + 2.0 * e1)
         return bound(by, flops)
 
     bounds = {key: sweep_bound(k, False) for key, k in (("mme_sweep", nb),
                                                           ("mme_sweep_full", nbr))}
     bounds["mme_sweep_full_dense_layout"] = sweep_bound(nbr, True)
+    bounds[f"mme_sweep_k{K}"] = sweep_bound(nb, False, K)
+    bounds[f"mme_sweep_k{K}_full"] = sweep_bound(nbr, False, K)
     log(f"  mme_sweep bounds over {nbr} blocks: nonzeros "
         f"{bounds['mme_sweep_full'][0]:.6g} ms, dense (T, T) layout "
         f"{bounds['mme_sweep_full_dense_layout'][0]:.6g} ms; the epsilon chain alone "
@@ -2428,6 +2777,11 @@ def main(argv=None) -> int:
                     help="SNPs of phase 9c's ibrm and tiled LD (the BlockDiagLD: 2 x m/8)")
     args = ap.parse_args(argv)
     t_main = time.perf_counter()
+    phase_s, t_phase = {}, [t_main]
+
+    def mark(name):   # the seconds of the phase that ends here
+        phase_s[name] = round(time.perf_counter() - t_phase[0], 1)
+        t_phase[0] = time.perf_counter()
 
     import torch
 
@@ -2461,6 +2815,7 @@ def main(argv=None) -> int:
         build.library(src)
     log(f"[2] kernels built in {time.perf_counter() - t0:.2f} s: "
         f"{[p.name for p in libs]}")
+    mark("1-2")
 
     # ---- 3. kernels vs plain ----
     t0 = time.perf_counter()
@@ -2474,9 +2829,13 @@ def main(argv=None) -> int:
 
     errs.update(sweep_s_segment_guard=0.0, sweep_s_tiled64=0.0, sweep_mc_qs=0.0)
     fired = check_guard_kernels(torch, TG, TSG, TLD, TSLD, TB, dev, errs)
+    errs.update(sweep_s_tiled_k=0.0, mme_sweep_k=0.0)
+    fired_k = check_tiled_mc(torch, TG, TSG, TSLD, TB, dev, errs)
+    check_mme_mc(torch, TG, TB, dev, errs)
     log(f"[3] kernel checks passed in {time.perf_counter() - t0:.1f} s: {errs}; "
         f"the guard rejected {nrej} first draws at the lowered vary (tile 128); "
-        f"guarded segment and tile-64 counts at the lowered vary {json.dumps(fired)}")
+        f"guarded segment and tile-64 counts at the lowered vary {json.dumps(fired)}; "
+        f"K-chain tiled counts per chain at the lowered vary {json.dumps(fired_k)}")
 
     B = 128
     gen = torch.Generator(device=dev).manual_seed(args.seed)
@@ -2506,6 +2865,8 @@ def main(argv=None) -> int:
         f"at n=4,096; 16 blocks of 128, int8): times (ms) on {smi}: {json.dumps(t_k5)}; "
         f"bounds {json.dumps(b_k5)}; kernel 1 is sweep_mc at K=1 at n={n_rows} "
         f"({times['sweep_mc']:.4f} ms, above)")
+
+    mark("3")
 
     # ---- 4. ibrm main path ----
     thin = 5
@@ -2538,6 +2899,7 @@ def main(argv=None) -> int:
     if not corr >= GEBV_CORR_MIN:
         raise AssertionError(f"GEBV accuracy {corr} below {GEBV_CORR_MIN}")
     del fit
+    mark("4")
 
     # ---- 4b. the flagship with 4 chains, to read R-hat ----
     split4 = profile_chains(torch, TG, TB, M, data["y"], 4, "BayesR", smi, B)
@@ -2546,6 +2908,7 @@ def main(argv=None) -> int:
                        FLAGSHIP_CHAINS_CORR_MIN, RHAT_VE_MAX_FLAGSHIP, B)
     del M, data, gv
     torch.cuda.empty_cache()
+    mark("4b")
 
     # ---- 4c. 64 chains at the TPU's multi-chain configuration ----
     t0 = time.perf_counter()
@@ -2559,6 +2922,7 @@ def main(argv=None) -> int:
                        RHAT_VE_MAX_MC64, B)
     del M, data, gv
     torch.cuda.empty_cache()
+    mark("4c")
 
     # ---- 5. sbrm main path: tiled LD ----
     t0 = time.perf_counter()
@@ -2569,7 +2933,7 @@ def main(argv=None) -> int:
         f"{tld.n_tiles} tiles, {tld.tiles.numel() * 4 / 1e9:.3f} GB f32, and the "
         f"statistics made on the card in {time.perf_counter() - t0:.1f} s")
     sdata, sspec, spr, spi = s_setup(torch, TG, TSG, ss, tld, "BayesCpi", 128, dev, True)
-    t_tiled, b_tiled = time_tiled(torch, TSG, TB, sspec, sdata, spr, spi, tld, errs)
+    t_tiled, b_tiled = time_tiled(torch, TSG, TB, sspec, sdata, spr, spi, tld, errs, K=4)
     times.update(t_tiled)
     bounds.update(b_tiled)
     log(f"[5] sweep_s_tiled matches its plain version at the main path's shapes; "
@@ -2599,7 +2963,15 @@ def main(argv=None) -> int:
         f"ms/iter, {niter_eff * args.sm / fit.chain_seconds:.4g} SNP-updates/s on {smi}")
     if not corr_t >= SBAYES_CORR_MIN:
         raise AssertionError(f"sbrm tiled accuracy {corr_t} below {SBAYES_CORR_MIN}")
-    del tld, fit
+    mark("5")
+
+    # ---- 10b. the tiled chain with 4 chains (phase 5's LD and statistics) ----
+    ms5 = 1e3 * fit.chain_seconds / niter_eff
+    del fit
+    tiled4 = tiled_chains(torch, hibayes_tpu_torch, TB, ss, tld, b_true, 4, args, niter_eff,
+                          thin, smi, ms5)
+    mark("10b")
+    del tld
     torch.cuda.empty_cache()
 
     # ---- 6. sbrm dense path, then CG ----
@@ -2673,6 +3045,7 @@ def main(argv=None) -> int:
         raise AssertionError(f"CG solution off the direct solve by {cg_err}")
     del LD64
     torch.cuda.empty_cache()
+    mark("6-6b")
 
     # ---- 7. ssbrm: pedigree, imputation, epsilon Gibbs ----
     n_ids, ss_m = args.ss_ids, args.ss_m
@@ -2768,7 +3141,18 @@ def main(argv=None) -> int:
         f"{niter_eff * ss_m / fit.chain_seconds:.4g} SNP-updates/s on {smi}")
     if not corr_s >= SSBRM_CORR_MIN:
         raise AssertionError(f"ssbrm accuracy {corr_s} below {SSBRM_CORR_MIN}")
-    del Mg, fit
+    ms7 = 1e3 * fit.chain_seconds / niter_eff
+    del fit
+    torch.cuda.empty_cache()
+    mark("7")
+
+    # ---- 10a. the ssbrm path with 4 chains (phase 7's cohort) ----
+    ss4 = ssbrm_chains(torch, hibayes_tpu_torch, TB, dict(
+        data={"id": ids[phe], "y": y}, M=Mg, M_id=ids[gi],
+        pedigree={"id": ids, "sire": sires, "dam": dams}), ids, gi, phe, gv, 4, args,
+        niter_eff, thin, smi, ms7, times)
+    del Mg
+    mark("10a")
 
     # ---- 8. the README quick start from PLINK files, and on its fileset
     # 9a: the command line killed and resumed ----
@@ -2781,6 +3165,7 @@ def main(argv=None) -> int:
     times.update(t_qs)
     bounds.update(b_qs)
     torch.cuda.empty_cache()
+    mark("8-9a")
 
     # ---- 9b. BSLMM at n=20,000 x m=65,536; 9c. a resume on each engine ----
     t0 = time.perf_counter()
@@ -2789,9 +3174,11 @@ def main(argv=None) -> int:
     bounds.update(b_bs)
     torch.cuda.empty_cache()
     t9b = time.perf_counter() - t0
+    mark("9b")
     t0 = time.perf_counter()
     rs = resumes(torch, hibayes_tpu_torch, TG, TSG, TLD, TSLD, TB, dev, gen, args)
     t9c = time.perf_counter() - t0
+    mark("9c")
     log(f"[9] phase 9 took {cli_res['wall_s'] + t9b + t9c:.1f} s: 9a {cli_res['wall_s']:.1f}, "
         f"9b {t9b:.1f}, 9c {t9c:.1f}; the whole run so far {time.perf_counter() - t_main:.1f} s")
 
@@ -2821,7 +3208,8 @@ def main(argv=None) -> int:
               flagship_4_chains_block_split_us=times["sweep_mc_k4_split"],
               chain_us_per_block={"BayesR_4_folds": times["chain_bayesr_us"],
                                   "BayesCpi": times["chain_bayescpi_us"]},
-              resumed_ibrm_4_chains_launches=rs["ibrm_4_chains"]["launches"]["rows_mc_kernel"]),
+              resumed_ibrm_4_chains_launches=rs["ibrm_4_chains"]["launches"]["rows_mc_kernel"],
+              ssbrm_4_chains_launches=ss4["launches"]["rows_mc_kernel"]),
         entry("sweep1_kernel_for_kernel1", src, "hibayes_tpu/ops/blockgibbs.py:138",
               launches["sweep1"], errs["sweep_mc"], "sweep_mc",
               library_ms=times["sweep_mc_library"],
@@ -2920,12 +3308,38 @@ def main(argv=None) -> int:
               block_split_us=times["mme_sweep_split"],
               target_distance_rows=times["mme_target_distance_rows"],
               resumed_launches=rs["ssbrm"]["launches"]["mme_sweep_kernel"]),
+        entry("tiled_sweep_k_chains", ssrc, "hibayes_tpu/ops/blockgibbs.py:1635",
+              tiled4["launches"]["tiled_sweep"], errs["sweep_s_tiled_k"], "sweep_s_tiled_k4",
+              timed="phase 5's tiled LD, first 16 tile rows of 128, K=4 chains, BayesCpi, guard",
+              launches_from="phase 10b (sbrm, 4 chains, m=500,000)",
+              k1_ms=times["sweep_s_tiled"], full_sweep_ms=times["sweep_s_tiled_k4_full"],
+              full_sweep_k1_ms=times["sweep_s_tiled_full"],
+              full_sweep_bound_ms=bounds["sweep_s_tiled_k4_full"][0],
+              full_sweep_host_ms=times["sweep_s_tiled_k4_full_host"],
+              full_sweep_split=times["sweep_s_tiled_k4_split"],
+              ms_per_iter=tiled4["ms_per_iter"], guard_counts=tiled4["guard"],
+              resumed_launches=rs["sbrm_tiled_4_chains"]["launches"]["tiled_sweep"]),
+        entry("mme_sweep_kernel_k_chains", "hibayes_tpu_torch/csrc/mme.cu",
+              "hibayes_tpu/ops/blockgibbs.py:1805",
+              ss4["launches"]["mme_sweep_kernel"], errs["mme_sweep_k"], "mme_sweep_k4",
+              library_ms=times["mme_k4_library"],
+              library="torch.linalg.solve_triangular, batched: block 0 of each of 4 chains",
+              timed="phase 7's layout, first 16 blocks of 64, K=4 chains",
+              launches_from="phase 10a (ssbrm, 4 chains, qe=80,000)",
+              k1_ms=times["mme_sweep"], full_sweep_ms=times["mme_sweep_k4_full"],
+              full_sweep_cold_ms=times["mme_sweep_k4_full_cold"],
+              full_sweep_k1_ms=times["mme_sweep_full"],
+              full_sweep_bound_ms=bounds["mme_sweep_k4_full"][0],
+              chain_latency_floor_ms=times["mme_chain_floor_ms"],
+              ms_per_iter=ss4["ms_per_iter"],
+              resumed_launches=rs["ssbrm_4_chains"]["launches"]["mme_sweep_kernel"]),
     ]
     idle = [k["name"] for k in kernels if not k["launches"]]
     if idle:
         raise AssertionError(f"kernels not launched on their main path: {idle}")
     print(json.dumps({"kernels": kernels}))
-    log(f"[10] the whole run took {time.perf_counter() - t_main:.1f} s")
+    log(f"[10] seconds by phase: {json.dumps(phase_s)}; the whole run took "
+        f"{time.perf_counter() - t_main:.1f} s")
     print(smi)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,
                                              "count": torch.cuda.device_count()}}))

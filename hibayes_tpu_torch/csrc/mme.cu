@@ -53,12 +53,21 @@
 // per layout (ops/blockgibbs.py:mme_plan).  Every input is prefetched into
 // L2 when the sweep starts.
 //
+// A batch of K chains is one launch of K CTAs, CTA k running the program
+// above on chain k's z, x, res, scale and ve.  The plan (Dt, rec,
+// far_rows, ent) and counts are shared and read-only; CTA 0 alone
+// prefetches them into L2.  The sweep is latency-bound, so each chain
+// keeps its own SM (one CTA an SM: K <= 132 chains run side by side at
+// about one chain's time, more run in waves); no CTA waits on another.
+//
 // Rounding: each product and sum is rounded on its own (__fmul_rn,
 // __fadd_rn: no fused multiply-add), with the operands and in the order of
 // the plain version (ops/blockgibbs.py:mme_sweep_plain) and of the
 // single-CTA kernel this replaced: a site's residual takes its terms draw
 // by draw, a row's scatter sum its entries in stored order and its blocks
-// in sweep order, so x_new and res are bit for bit that kernel's.
+// in sweep order, so x_new and res are bit for bit that kernel's, and
+// chain k of a K-chain launch is bit for bit a one-chain launch on chain
+// k's inputs.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -102,12 +111,26 @@ struct MmeArgs {
   const float* x_in;
   float* x_out;
   float* res;
-  const float* scale_p;
-  const float* ve_p;
+  const float* scale_p;  // one a chain
+  const float* ve_p;     // one a chain
   long long res_len, n_far, n_ent;
   int nbr, T, RI;
   long long* stamps;     // measurement only (null in use)
 };
+
+// Chain k's arguments: its z, x_in, x_out (nbr T each), res (res_len),
+// scale and ve; chain 0 alone keeps the stamps.
+__device__ __forceinline__ MmeArgs chain_args(MmeArgs a, int k) {
+  const long long q = static_cast<long long>(a.nbr) * a.T;
+  a.z += k * q;
+  a.x_in += k * q;
+  a.x_out += k * q;
+  a.res += k * a.res_len;
+  a.scale_p += k;
+  a.ve_p += k;
+  if (k != 0) a.stamps = nullptr;
+  return a;
+}
 
 // Shared memory of one slot in floats: the block (TM x TM), the per-site
 // constants (TM float4), the record, counts and z.
@@ -228,8 +251,10 @@ __device__ __forceinline__ void prepare_block(float* Wt, float4* cs, const float
 }
 
 template <int TM>
-__global__ void __launch_bounds__(kThreads, 1) mme_sweep_kernel(MmeArgs a) {
+__global__ void __launch_bounds__(kThreads, 1) mme_sweep_kernel(MmeArgs args) {
   constexpr int S = TM / kWarp;
+  const MmeArgs a = chain_args(args, blockIdx.x);
+  const bool shared_pf = blockIdx.x == 0;   // the one CTA that prefetches the plan
   extern __shared__ __align__(16) float sm[];
   const int T = a.T, nbr = a.nbr, RI = a.RI;
   const int SF = slot_floats(TM, a.RI);
@@ -296,12 +321,14 @@ __global__ void __launch_bounds__(kThreads, 1) mme_sweep_kernel(MmeArgs a) {
     issue(1);
     if (lane == 0) {
       prefetch_l2(a.res, 4 * a.res_len);
-      prefetch_l2(a.Dt, 4LL * nbr * TM * TM);
-      prefetch_l2(a.far_rows, 16 * a.n_far);
-      prefetch_l2(a.ent, 8 * a.n_ent);
-      prefetch_l2(a.rec, 4LL * nbr * RI);
+      if (shared_pf) {
+        prefetch_l2(a.Dt, 4LL * nbr * TM * TM);
+        prefetch_l2(a.far_rows, 16 * a.n_far);
+        prefetch_l2(a.ent, 8 * a.n_ent);
+        prefetch_l2(a.rec, 4LL * nbr * RI);
+        prefetch_l2(a.counts, 4LL * nbr * T);
+      }
       prefetch_l2(a.x_in, 4LL * nbr * T);
-      prefetch_l2(a.counts, 4LL * nbr * T);
       prefetch_l2(a.z, 4LL * nbr * T);
     }
     prepare(0);
@@ -495,13 +522,13 @@ mme_chain_kernel(const float* __restrict__ W, const float* __restrict__ counts,
 inline int tile_of(int T) { return T <= 32 ? 32 : (T <= 64 ? 64 : 128); }
 
 template <int TM>
-cudaError_t sweep_tm(const MmeArgs& a, cudaStream_t stream) {
+cudaError_t sweep_tm(const MmeArgs& a, int chains, cudaStream_t stream) {
   const size_t smem = sizeof(float) * static_cast<size_t>(mme_smem_floats(TM, a.RI));
   cudaError_t e = cudaFuncSetAttribute(mme_sweep_kernel<TM>,
                                        cudaFuncAttributeMaxDynamicSharedMemorySize,
                                        static_cast<int>(smem));
   if (e != cudaSuccess) return e;
-  mme_sweep_kernel<TM><<<1, kThreads, smem, stream>>>(a);
+  mme_sweep_kernel<TM><<<chains, kThreads, smem, stream>>>(a);
   return cudaGetLastError();
 }
 
@@ -538,24 +565,25 @@ long long hb_mme_smem_bytes(int T, int RI) {
   return static_cast<long long>(sizeof(float)) * hb::mme_smem_floats(hb::tile_of(T), RI);
 }
 
-// Sweep diagonal blocks 0 .. nbr - 1 of the epsilon system in order, in one
-// launch.  Dt (nbr, TM, TM) the transposed diagonal blocks of A, zero past
-// T (TM = 32, 64 or 128, the least >= T); rec (nbr, RI) the blocks'
-// records; far_rows (n_far, 4) and ent (n_ent, 2) the scatter's rows and
-// every triplet's (column, value bits) (all from the plan,
-// ops/blockgibbs.py:mme_plan); counts, z, x_in, x_out (nbr T,); res
-// (res_len,) the residual b - LHS x, updated in place; scale, ve one float
-// each on the device.  stamps (measurement only; null in use): 6 clock64
+// Sweep diagonal blocks 0 .. nbr - 1 of the epsilon system in order for
+// `chains` chains, in one launch (a CTA a chain).  Dt (nbr, TM, TM) the
+// transposed diagonal blocks of A, zero past T (TM = 32, 64 or 128, the
+// least >= T); rec (nbr, RI) the blocks' records; far_rows (n_far, 4) and
+// ent (n_ent, 2) the scatter's rows and every triplet's (column, value
+// bits) (all from the plan, ops/blockgibbs.py:mme_plan); counts (nbr T,),
+// shared; per chain: z, x_in, x_out (chains, nbr T); res (chains, res_len)
+// the residual b - LHS x, updated in place; scale, ve (chains,) on the
+// device.  stamps (measurement only; null in use; chain 0's): 6 clock64
 // values a phase (nbr + 1 phases: the chain's start and end, the drawer's
 // end, the scatter's, warp 3's and the loader's), then %globaltimer ns and
 // clock64 at the sweep's start and end.
 int hb_mme_sweep(const float* Dt, const int* rec, const int* far_rows, const int* ent,
                  const float* counts, const float* scale, const float* ve, const float* z,
                  const float* x_in, float* x_out, float* res, long long res_len,
-                 long long n_far, long long n_ent, int nbr, int T, int RI,
+                 long long n_far, long long n_ent, int nbr, int T, int RI, int chains,
                  long long* stamps, void* stream) {
   if (T < 1 || T > hb::kMaxT || nbr < 1 || RI < hb::near_ent(hb::tile_of(T)) || RI % 4 != 0 ||
-      res_len < static_cast<long long>(nbr) * T)
+      res_len < static_cast<long long>(nbr) * T || chains < 1)
     return cudaErrorInvalidValue;
   const hb::MmeArgs a{Dt, rec, reinterpret_cast<const int4*>(far_rows),
                       reinterpret_cast<const int2*>(ent), counts, z, x_in, x_out, res,
@@ -563,9 +591,9 @@ int hb_mme_sweep(const float* Dt, const int* rec, const int* far_rows, const int
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   cudaError_t e;
   switch (hb::tile_of(T)) {
-    case 32: e = hb::sweep_tm<32>(a, s); break;
-    case 64: e = hb::sweep_tm<64>(a, s); break;
-    default: e = hb::sweep_tm<128>(a, s); break;
+    case 32: e = hb::sweep_tm<32>(a, chains, s); break;
+    case 64: e = hb::sweep_tm<64>(a, chains, s); break;
+    default: e = hb::sweep_tm<128>(a, chains, s); break;
   }
   if (e == cudaSuccess) ++hb::g_mme_sweep;
   return e;

@@ -58,7 +58,14 @@
 // sweep order, so every sum is the same run to run; the order comes from a
 // schedule the host builds once from cols and valid
 // (ops/blockgibbs.py:tiled_schedule), and the counters run on across
-// sweeps (an epoch), so nothing is reset between sweeps.
+// sweeps (an epoch), so nothing is reset between sweeps.  A batch of K
+// chains is one launch too: CTAs 0 .. K - 1 are one drawer each (chain k's
+// r_hat, packed rows, dg and counts), and every other CTA applies each of
+// its contributions to all K chains from one read of its tile, chain by
+// chain, each once that chain's row is published and in that chain's
+// turn on the block.  The counters and flags are per chain (K x nbr), so
+// chain k of a K-chain launch is bit for bit a one-chain launch on chain
+// k's inputs, and the tiles are read once a sweep, not K times.
 //
 // What bounds them on this card: not device memory (the tiled sweep of the
 // m = 500,000 band moves 2.34 GB, 0.70 ms at 3.35 TB/s; a dense segment of
@@ -510,10 +517,12 @@ constexpr int kTileRows = kMaxBlock / kTiledWarps;   // rows of a tile per warp
 // reach block t in a sweep.  cnt[t] counts the contributions that have
 // landed on block t and flags[i] says that row i's dg is published; both
 // run on across sweeps: sweep `epoch` starts with cnt[t] = epoch total[t]
-// and publishes flags[i] = epoch + 1.
+// and publishes flags[i] = epoch + 1.  With `chains` chains, P, r_hat,
+// dg, tr, nrej, cnt and flags hold one chain after another
+// (chain_args); the tiles and the schedule are shared.
 struct TiledArgs {
   const float* tiles;
-  int nbr, K, B;
+  int nbr, K, B, chains;
   float n, vary;
   const float* P;
   float *r_hat, *dg, *tr;
@@ -529,6 +538,21 @@ struct TiledArgs {
   int stage_next;     // the drawer stages tile (i, i + 1) in shared memory
   long long* stamps;  // measurement only (null in use)
 };
+
+// Chain c's arguments: its packed rows (R, nbr B), r_hat, dg, tr (nbr B),
+// nrej, cnt and flags (nbr); chain 0 alone keeps the stamps.
+__device__ __forceinline__ TiledArgs chain_args(TiledArgs a, int c, int R) {
+  const long long m = static_cast<long long>(a.nbr) * a.B;
+  a.P += c * R * m;
+  a.r_hat += c * m;
+  a.dg += c * m;
+  a.tr += c * m;
+  a.nrej += static_cast<long long>(c) * a.nbr;
+  a.cnt += static_cast<long long>(c) * a.nbr;
+  a.flags += static_cast<long long>(c) * a.nbr;
+  if (c != 0) a.stamps = nullptr;
+  return a;
+}
 
 // The tile rows a = warp + 8 t of T (B x B, row-major; shared or global
 // memory), columns 4 lane .. 4 lane + 3, zeros outside.
@@ -759,34 +783,45 @@ __device__ __forceinline__ void drawer(const TiledArgs& a, float* sm) {
   }
 }
 
-// CTAs 1 .. G-1 apply the other contributions: CTA c takes items c - 1,
-// c - 1 + (G - 1), ... in order.  Each loads its tile into registers, waits
-// for the row's dg, then applies it in its block's turn.
+// CTAs C .. G-1 (C = a.chains) apply the other contributions: CTA c takes
+// items c - C, c - C + (G - C), ... in order.  Each loads its tile into
+// registers once, then for each chain in turn waits for that chain's row
+// dg and applies it in its block's turn.  Each wait is for an earlier row
+// (of a drawer, or of an item before this one in some CTA's order), so no
+// wait can close a cycle.
+template <int R>
 __device__ __forceinline__ void scatterer(const TiledArgs& a, float* sm) {
   float* red = sm;
   float* dgs = red + kTiledWarps * kMaxBlock;
   const int B = a.B;
   const unsigned done = a.epoch + 1;
-  for (int w = blockIdx.x - 1; w < a.nitems; w += gridDim.x - 1) {
+  const int C = a.chains;
+  for (int w = blockIdx.x - C; w < a.nitems; w += gridDim.x - C) {
     const int4 it = a.items[w];   // row, slot, target block, sequence number
     float4 x[kTileRows];
     tile_rows(a.tiles + (static_cast<long long>(it.x) * a.K + it.y) * B * B, B, x);
-    if (threadIdx.x == 0) await(a.flags + it.x, done);
-    __syncthreads();   // dg of row it.x is published; the last item's red is read
-    if (threadIdx.x < B) dgs[threadIdx.x] = __ldcg(a.dg + static_cast<long long>(it.x) * B + threadIdx.x);
-    __syncthreads();
-    apply_tile(a, x, dgs, red, it.z, static_cast<unsigned>(it.w));
+    for (int c = 0; c < C; ++c) {
+      const TiledArgs ac = chain_args(a, c, R);
+      if (threadIdx.x == 0) await(ac.flags + it.x, done);
+      __syncthreads();   // dg of row it.x is published; the last item's red is read
+      if (threadIdx.x < B)
+        dgs[threadIdx.x] = __ldcg(ac.dg + static_cast<long long>(it.x) * B + threadIdx.x);
+      __syncthreads();
+      apply_tile(ac, x, dgs, red, it.z, static_cast<unsigned>(it.w));
+    }
   }
 }
 
 // grid G <= the CTAs that fit on the card at once (every CTA resident, so
 // the flag waits cannot deadlock), kTiledThreads threads, dynamic shared
-// memory tiled_smem.
+// memory tiled_smem: CTAs 0 .. chains - 1 draw, one chain each.
 template <int MI, int NF, bool GUARD>
 __global__ void __launch_bounds__(kTiledThreads) tiled_sweep_kernel(TiledArgs a) {
+  constexpr int R = row_stride(MI, NF, GUARD);
   extern __shared__ __align__(16) float sm[];
-  if (blockIdx.x == 0) drawer<MI, NF, GUARD>(a, sm);
-  else scatterer(a, sm);
+  if (static_cast<int>(blockIdx.x) < a.chains)
+    drawer<MI, NF, GUARD>(chain_args(a, blockIdx.x, R), sm);
+  else scatterer<R>(a, sm);
 }
 
 template <int MI, int NF, bool GUARD>
@@ -806,7 +841,9 @@ cudaError_t tiled_sweep(TiledArgs a, cudaStream_t stream) {
                                                       kTiledThreads, smem);
   if (e != cudaSuccess) return e;
   const long long resident = static_cast<long long>(per_sm) * sms;
-  const long long grid = 1 + (a.nitems < sms - 1 ? a.nitems : sms - 1);
+  const long long spare = sms - a.chains;   // item CTAs: one an SM left, at least one
+  const long long grid =
+      a.chains + (a.nitems == 0 ? 0 : (a.nitems < spare ? a.nitems : (spare > 1 ? spare : 1)));
   if (grid > resident) return cudaErrorCooperativeLaunchTooLarge;
   tiled_sweep_kernel<MI, NF, GUARD><<<static_cast<int>(grid), kTiledThreads, smem, stream>>>(a);
   e = cudaGetLastError();
@@ -990,27 +1027,31 @@ int hb_sweep_s_segment(const float* LD, const float* P, int mc, int B, int R,
   return hb::dispatch<hb::SegSweep>(a, mi, nf, g, static_cast<cudaStream_t>(stream));
 }
 
-// Sweep every tile row of a tiled LD in one launch.  tiles (nbr, K, B, B),
-// the diagonal tile in slot 0; P (R, nbr * B) packed rows (with the guard
-// rows when guard); r_hat (nbr * B,) updated in place; dg, track (nbr * B,)
-// and nrej (nbr,) outputs (nrej: the guard's counts of each row,
-// draws.cuh warp_block_draws).  Any B <= kMaxBlock that is a multiple of
-// 4 (tiles of 64 or 128): the tile-row loops skip rows past B.  The schedule (need, nxt, total (nbr,); items
-// (nitems, 4): row, slot, target block, sequence number) and the counters
-// cnt, flags (nbr,) with this sweep's epoch are hb::TiledArgs'.  stamps
-// (measurement only; null in use): 4 nbr + 4 values, see hb::drawer.
-int hb_sweep_s_tiled(const float* tiles, int nbr, int K, int B, int R, int mi,
+// Sweep every tile row of a tiled LD for `chains` chains in one launch.
+// tiles (nbr, K, B, B), the diagonal tile in slot 0; per chain: P (chains,
+// R, nbr * B) packed rows (with the guard rows when guard); r_hat (chains,
+// nbr * B) updated in place; dg, track (chains, nbr * B) and nrej (chains,
+// nbr) outputs (nrej: the guard's counts of each row, draws.cuh
+// warp_block_draws).  Any B <= kMaxBlock that is a multiple of 4 (tiles
+// of 64 or 128): the tile-row loops skip rows past B.  The schedule (need,
+// nxt, total (nbr,); items (nitems, 4): row, slot, target block, sequence
+// number), shared by the chains, and the counters cnt, flags (chains,
+// nbr) with this sweep's epoch are hb::TiledArgs'.  A grid of the chains'
+// drawers and at least one item CTA that cannot be resident at once is
+// refused (cudaErrorCooperativeLaunchTooLarge).  stamps (measurement only;
+// null in use; chain 0's): 4 nbr + 4 values, see hb::drawer.
+int hb_sweep_s_tiled(const float* tiles, int nbr, int K, int B, int R, int chains, int mi,
                      int nf, int guard, float n, float vary, const float* P,
                      float* r_hat, float* dg, float* track, int* nrej,
                      const int* need, const int* nxt, const int* items, int nitems,
                      const int* total, unsigned* cnt, unsigned* flags, unsigned epoch,
                      long long* stamps, void* stream) {
   const bool g = guard != 0;
-  if (!hb::block_ok(B, mi, nf) || nbr <= 0 || K <= 0 || nitems < 0 ||
+  if (!hb::block_ok(B, mi, nf) || nbr <= 0 || K <= 0 || nitems < 0 || chains < 1 ||
       (g && mi != 4 && mi != 6) || R != hb::row_stride(mi, nf, g))
     return cudaErrorInvalidValue;
-  const hb::TiledArgs a{tiles, nbr, K, B, n, vary, P, r_hat, dg, track, nrej, need, nxt,
-                        reinterpret_cast<const int4*>(items), nitems, total, cnt, flags,
+  const hb::TiledArgs a{tiles, nbr, K, B, chains, n, vary, P, r_hat, dg, track, nrej, need,
+                        nxt, reinterpret_cast<const int4*>(items), nitems, total, cnt, flags,
                         epoch, 0, stamps};
   return hb::dispatch<hb::TiledSweep>(a, mi, nf, g, static_cast<cudaStream_t>(stream));
 }

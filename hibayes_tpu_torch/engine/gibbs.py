@@ -580,7 +580,7 @@ def _snapshot(spec: GibbsSpec, state: ChainState) -> dict:
     if spec.qe:
         snap["Veps"] = state.veps
         snap["J"] = state.J_beta
-        snap["epsilon"] = state.epsl_estR[: spec.qe]
+        snap["epsilon"] = state.epsl_estR[..., : spec.qe]
     return snap
 
 
@@ -723,8 +723,11 @@ def _segment_sum(values, codes, lengths):
 
 
 def _epsl_matvec(sp: EpslSparse, x):
-    """A @ x for the sparse A-inverse(nn), row by row (no atomics)."""
-    return segment_matmul(sp.coo_len, sp.coo_cols, sp.coo_vals, x)
+    """A @ x for the sparse A-inverse(nn), row by row (no atomics), for one
+    chain's x (q,) or a batch's (K, q)."""
+    if x.dim() == 1:
+        return segment_matmul(sp.coo_len, sp.coo_cols, sp.coo_vals, x)
+    return segment_matmul(sp.coo_len, sp.coo_cols, sp.coo_vals, x.T).T
 
 
 def blocked_mme_gibbs_sparse(sp: EpslSparse, counts, scale, x, b, ve, z):
@@ -734,8 +737,9 @@ def blocked_mme_gibbs_sparse(sp: EpslSparse, counts, scale, x, b, ve, z):
     draws (TPU kernel 10), then the block's forward triplets into the
     residual.  The sweep is ``blockgibbs.mme_sweep``: one CUDA launch on a
     GPU, its plain version on the CPU.  Zero-padded sites stay frozen.
+    One chain, or a batch (x, b, z (K, q); scale, ve (K,)).
     Returns (x_new, A @ x_new); the matvec feeds the Veps quadratic form."""
-    res = b - scale * _epsl_matvec(sp, x) - counts * x
+    res = b - scale[..., None] * _epsl_matvec(sp, x) - counts * x
     x_new, _ = blockgibbs.mme_sweep(sp, counts, scale, ve, z, x, res)
     return x_new, _epsl_matvec(sp, x_new)
 
@@ -744,36 +748,39 @@ def _epsilon_draw(spec: GibbsSpec, data: GibbsData, noise, J_beta, epsl_estR,
                   vepstmp, yadj, u, ve):
     """The single-step imputation-error term (hibayes_tpu/engine/gibbs.py:900-949,
     src/Bayes.cpp:554-584): the J covariate, then epsilon | rest by
-    single-site Gibbs on (Z'Z + A-inverse(nn) ve / veps), then Veps.
-    Returns (J_beta, epsl_estR, vepstmp, yadj, u)."""
+    single-site Gibbs on (Z'Z + A-inverse(nn) ve / veps), then Veps, for one
+    chain or a batch (each chain's draws from its own streams; the epsilon
+    sweep over all chains at once).  Returns (J_beta, epsl_estR, vepstmp,
+    yadj, u)."""
     dev = yadj.device
     n, ne, qe = spec.n, spec.ne, spec.qe
     yJ = data.epsl_yJ
     JtJ = torch.dot(yJ, yJ)
-    rhs = torch.dot(yJ, yadj) + JtJ * J_beta
-    J_new = rhs / JtJ + torch.sqrt(ve / JtJ) * noise.normal(STREAM_EPSL_J, ())
-    yadj = yadj + (J_beta - J_new) * yJ
-    u = u - (J_beta - J_new) * yJ
+    rhs = _dot(yJ, yadj) + JtJ * J_beta
+    J_new = rhs / JtJ + torch.sqrt(ve / JtJ) * _draw(
+        noise, lambda nz: nz.normal(STREAM_EPSL_J, ()))
+    yadj = yadj + (J_beta - J_new)[..., None] * yJ
+    u = u - (J_beta - J_new)[..., None] * yJ
     qe_p = spec.qe_pad or qe
     lengths = data.epsl_counts.to(torch.int64)
-    rhs_e = (_segment_sum(yadj[n - ne:], data.epsl_codes, lengths)
+    rhs_e = (_segment_sum(yadj[..., n - ne:], data.epsl_codes, lengths)
              + data.epsl_counts * epsl_estR)
     scale = ve / vepstmp
     # qe normals on the direct path, qe_pad with the padding frozen on the
     # scale path (JAX's noise shapes); the layout pads a dense A's qe sites
     # to whole blocks, where they stay frozen too
-    ze = noise.normal(STREAM_EPSL_Z, (qe_p,))
+    ze = _draw(noise, lambda nz: nz.normal(STREAM_EPSL_Z, (qe_p,)))
     ze = torch.where(torch.arange(qe_p, device=dev) < qe, ze, 0.0)
     sp = data.epsl_sp
     pad = lambda v: torch.nn.functional.pad(v, (0, sp.coo_len.shape[0] - qe_p))
     new_e, Ae = blocked_mme_gibbs_sparse(sp, pad(data.epsl_counts), scale, pad(epsl_estR),
                                          pad(rhs_e), ve, pad(ze))
-    new_e = new_e[:qe_p]
-    quad = torch.dot(new_e, Ae[:qe_p])
-    diff_e = (epsl_estR - new_e)[data.epsl_codes]
-    yadj = torch.cat([yadj[: n - ne], yadj[n - ne:] + diff_e])
-    u = torch.cat([u[: n - ne], u[n - ne:] - diff_e])
-    chi = noise.chisq(STREAM_EPSL_CHI, spec.dfvara + qe)
+    new_e = new_e[..., :qe_p]
+    quad = _dot(new_e, Ae[..., :qe_p])
+    diff_e = (epsl_estR - new_e)[..., data.epsl_codes]
+    yadj = torch.cat([yadj[..., : n - ne], yadj[..., n - ne:] + diff_e], dim=-1)
+    u = torch.cat([u[..., : n - ne], u[..., n - ne:] - diff_e], dim=-1)
+    chi = _draw(noise, lambda nz: nz.chisq(STREAM_EPSL_CHI, spec.dfvara + qe))
     vepstmp = (quad + spec.s2vara * spec.dfvara) / chi
     return J_new, new_e, vepstmp, yadj, u
 
@@ -944,8 +951,8 @@ def _recompute_residuals(spec: GibbsSpec, data: GibbsData, mu, beta, estR, g,
     if spec.use_bslmm:
         u_new = u_new + k_estR
     if spec.qe:
-        u_new = u_new + J_beta * data.epsl_yJ
-        u_new[n - spec.ne:] += epsl_estR[data.epsl_codes]
+        u_new = u_new + J_beta[..., None] * data.epsl_yJ
+        u_new[..., n - spec.ne:] += epsl_estR[..., data.epsl_codes]
     yadj_new = data.y - (pred + u_new)
     if spec.row_padded:
         yadj_new = torch.where(torch.arange(n, device=data.y.device) < spec.n_obs,
@@ -1007,7 +1014,7 @@ def contiguous_state(state):
         for name, v in state._asdict().items() if name != "it"})
 
 
-def _check_ported(spec: GibbsSpec, mesh, nchains: int = 1) -> None:
+def _check_ported(spec: GibbsSpec, mesh) -> None:
     """Raise for the configurations whose code paths are still to be ported
     (ROADMAP.md, queue 1)."""
     if mesh is not None or spec.emulate_shards > 1 or spec.shard_schedule != "turn":
@@ -1019,10 +1026,6 @@ def _check_ported(spec: GibbsSpec, mesh, nchains: int = 1) -> None:
             "a summary-level spec (reject_guard or seg_sizes) runs on the summary "
             "engine, engine/sgibbs.py (run_s_chain / run_s_chains), not on the "
             "individual-level one")
-    if nchains > 1 and spec.qe:
-        raise NotImplementedError(
-            "single-step chains in a batch are not ported yet: the epsilon sweep "
-            "(mme_sweep) runs one chain (ROADMAP queue 1, item 6)")
 
 
 def one_iteration(spec: GibbsSpec, data: GibbsData, seed: int,
@@ -1044,10 +1047,11 @@ def one_iteration_batch(spec: GibbsSpec, data: GibbsData, seed: int,
     hibayes_tpu/engine/gibbs.py:2382-2439, without a mesh): ``states`` holds
     a leading chain axis.  The pre- and post-sweep run as tensor ops over
     all chains; the sweep is ``blockgibbs.sweep_mc`` over the K chains,
-    which share each genotype block.  ``noise`` defaults to each chain's
+    which share each genotype block, and the single-step epsilon term's
+    sweep one ``blockgibbs.mme_sweep`` over them.  ``noise`` defaults to each chain's
     own streams (:func:`chain_noise`); a test may pass any list of K."""
     K = int(states.mu.shape[0])
-    _check_ported(spec, mesh, K)
+    _check_ported(spec, mesh)
     if noise is None:
         noise = chain_noise(seed, states.it, K, data.y.device, data.y.dtype)
     pre = _pre_sweep(spec, data, noise, states)
@@ -1259,7 +1263,7 @@ def run_chains(spec: GibbsSpec, data: GibbsData, priors: Priors, pi_init,
         samples = {k: v[None] for k, v in samples.items()}
         return (stack_state(state, 1), samples,
                 {**extras, "rhat": rhat_diagnostics(samples)})
-    _check_ported(spec, mesh, nchains)
+    _check_ported(spec, mesh)
     states, samples, seconds = run_loop(
         spec, stack_state(init_state(spec, data, priors, pi_init), nchains),
         lambda ss: one_iteration_batch(spec, data, seed, ss),

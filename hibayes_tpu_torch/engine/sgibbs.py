@@ -1,5 +1,5 @@
 """Summary-level MCMC engine (SBayes) over LD matrices: one device, one chain
-or (on dense and block-segment LD) a batch of K chains.
+or a batch of K chains.
 
 PyTorch port of hibayes_tpu/engine/sgibbs.py (reference: src/SBayesD.cpp,
 src/SBayesS.cpp).  The chain state is ``r_hat``, the adjusted X'y vector;
@@ -18,7 +18,8 @@ layout but DenseLD) are carried by ``varediff`` (per-SNP residual
 inflation, SBayesS.cpp:131-141) and the rejection guard, which both sweeps
 apply by the rule of the JAX package's tiled kernel: 8 pre-drawn candidates
 (stream 15), the first that passes, else 0.  The JAX package runs its
-segment layouts through an XLA scan that redraws up to 100 times
+segment layouts, and its chain batches on tiled LD (vmapped single
+chains), through an XLA scan that redraws up to 100 times
 (``_reject_redraw``); the two rules differ only where all 8 candidates
 fail, which the sweeps count (``tally``).
 
@@ -206,14 +207,9 @@ def _s_snapshot(spec, state: SChainState) -> dict:
     }
 
 
-def _check_ported(spec, data: SGibbsData, mesh=None, nchains: int = 1) -> None:
+def _check_ported(spec, data: SGibbsData, mesh=None) -> None:
     """Raise for the summary configurations whose code paths are still to
     be ported (ROADMAP.md, queue 1)."""
-    if nchains > 1 and data.ld_tiles is not None:
-        raise NotImplementedError(
-            "a chain batch on a tiled LD is not ported yet: the JAX package runs "
-            "it as vmapped single chains through its guarded XLA scan "
-            "(ROADMAP queue 1, item 6)")
     if mesh is not None or spec.emulate_shards > 1 or spec.shard_schedule != "turn":
         raise NotImplementedError(
             "meshes and shard schedules are not ported yet (ROADMAP queue 1, "
@@ -342,13 +338,16 @@ def one_s_iteration(spec, data: SGibbsData, seed: int, state: SChainState,
 
 def one_s_iteration_batch(spec, data: SGibbsData, seed: int, states: SChainState,
                           noise=None, tally=None) -> SChainState:
-    """One summary iteration of K chains on dense, chi-square-pruned or
-    block-segment LD (``one_s_iteration_batch``,
+    """One summary iteration of K chains (``one_s_iteration_batch``,
     hibayes_tpu/engine/sgibbs.py:732-838): ``states`` holds a leading chain
-    axis; each segment is one K-chain ``sweep_s_segment``.  ``noise``
-    defaults to each chain's own streams; ``tally`` is (K, 2)."""
+    axis; each segment is one K-chain ``sweep_s_segment``, a tiled LD one
+    K-chain ``sweep_s_tiled`` (where the JAX package runs vmapped single
+    chains through its guarded XLA scan, which redraws up to 100 times: the
+    port keeps its 8-candidate guard, whose exhausted draws ``tally``
+    counts).  ``noise`` defaults to each chain's own streams; ``tally`` is
+    (K, 2)."""
     K = int(states.vara.shape[0])
-    _check_ported(spec, data, None, K)
+    _check_ported(spec, data)
     if noise is None:
         noise = chain_noise(seed, states.it, K, data.xy.device, data.xy.dtype)
     return _s_iteration(spec, data, noise, states, tally)
@@ -417,9 +416,8 @@ def run_s_chain(spec, data: SGibbsData, priors, pi_init, seed=666666,
 
 def run_s_chains(spec, data: SGibbsData, priors, pi_init, seed=666666, nchains=4,
                  checkpoint_path=None, progress=False, chunk_records=0, mesh=None):
-    """Run ``nchains`` independent summary chains as one batch on dense,
-    chi-square-pruned or block-segment LD (``run_s_chains``,
-    hibayes_tpu/engine/sgibbs.py:874-927).  Returns (states, samples,
+    """Run ``nchains`` independent summary chains as one batch on any LD
+    layout (``run_s_chains``, hibayes_tpu/engine/sgibbs.py:874-927).  Returns (states, samples,
     extras) as :func:`~hibayes_tpu_torch.engine.gibbs.run_chains`: samples
     (nchains, n_records, ...), pip and wppa averaged over chains, ``rhat``,
     the wall ``seconds`` and ``guard`` (nchains, 2), each chain's guard
@@ -433,7 +431,7 @@ def run_s_chains(spec, data: SGibbsData, priors, pi_init, seed=666666, nchains=4
         samples = {k: v[None] for k, v in samples.items()}
         return (stack_state(state, 1), samples,
                 {**extras, "rhat": rhat_diagnostics(samples), "guard": extras["guard"][None]})
-    _check_ported(spec, data, mesh, nchains)
+    _check_ported(spec, data, mesh)
     tally = torch.zeros((nchains, 2), dtype=torch.int64, device=data.xy.device)
     states, samples, seconds = run_loop(
         spec, stack_state(init_s_state(spec, data, priors, pi_init), nchains),

@@ -1,16 +1,16 @@
 """`sbrm`: summary-level Bayesian regression over LD matrices.
 
 PyTorch port of hibayes_tpu/model/sbrm.py on one device, for one chain
-or (on dense and block-segment LD) a batch of chains with R-hat (reference
+or a batch of chains with R-hat (reference
 front end: R/sbayes.r:101-239): LD-type dispatch (dense ->
 SBayesD semantics; chi-square-pruned, chromosome-block or tiled -> SBayesS
 semantics with varediff inflation and the rejection guard), windows,
 defaults, and the conjugate-gradient solver (method="CG", src/cg.cpp).
 
 MCMC runs on DenseLD, SparseLD and BlockDiagLD (the dense segment sweep,
-one segment per chromosome block; one chain or a batch) and on
-TiledSparseLD (the tiled sweep, any tile up to 128 that is a multiple of 4;
-one chain).  Every layout but DenseLD applies the SBayesS rejection guard
+one segment per chromosome block) and on TiledSparseLD (the tiled sweep,
+any tile up to 128 that is a multiple of 4), one chain or a batch.  Every
+layout but DenseLD applies the SBayesS rejection guard
 by the rule of the JAX package's tiled kernel (8 pre-drawn candidates); the
 JAX package's per-SNP scan on SparseLD and BlockDiagLD redraws up to 100
 times, and the two differ only where all 8 candidates fail (counted in
@@ -104,8 +104,7 @@ def sbrm(
     BlockDiagLD or TiledSparseLD, a scipy sparse matrix, or a square numpy
     array or torch tensor (a tensor on the card is used in place).  On the
     card the sweep kernels take float32 only.  ``nchains > 1`` runs that
-    many chains as one batch on a dense, pruned or block-diagonal LD
-    (``run_s_chains``): the summaries pool every chain's records and
+    many chains as one batch on any LD layout (``run_s_chains``): the summaries pool every chain's records and
     ``rhat`` holds each parameter's split R-hat.  ``guard`` holds each
     chain's guard counts (draws whose first candidate was rejected, and of
     those the ones whose 8 candidates all failed).  ``checkpoint`` (a path
@@ -133,11 +132,6 @@ def sbrm(
     if mesh is not None or shard_schedule != "turn" or merge_rounds != 1:
         raise NotImplementedError(
             "meshes and shard schedules are not ported yet (ROADMAP queue 1, item 13)")
-    if nchains > 1 and isinstance(ld, TiledSparseLD):
-        raise NotImplementedError(
-            "sbrm(nchains>1) on a tiled LD is not ported yet: the JAX package runs "
-            "it as vmapped single chains through its guarded XLA scan "
-            "(ROADMAP queue 1, item 6)")
     if device.type == "cuda" and dtype != torch.float32:
         raise TypeError("on the card the sbrm sweep kernels take float32 only")
 

@@ -2,7 +2,7 @@
 
 y = Xb + Rr + M a + J j + U eps + e over genotyped AND non-genotyped
 individuals (reference: R/ssbayes.r:115-351).  PyTorch port of
-hibayes_tpu/model/ssbrm.py for one chain on one device: MAF filter,
+hibayes_tpu/model/ssbrm.py for one chain or a chain batch on one device: MAF filter,
 pedigree merge and ordering, Henderson A-inverse, the imputation operator
 (a dense direct solve, or matrix-free batched PCG at scale), genotype
 imputation, the J covariate, the chain with the epsilon term, and GEBV for
@@ -26,7 +26,7 @@ from ..data.pedigree import (ImputationOperator, make_ainv, make_ped,
 from ..engine import gibbs as G
 from .formula import build_model_frame
 from .ibrm import (METHODS, _block_products, _compute_dtype, _genotype_products,
-                   _print_header, _resolve_windows, resolve_device,
+                   _print_header, _resolve_windows, pool_chains, resolve_device,
                    resolve_iteration_defaults)
 from .results import BlrMod
 
@@ -101,7 +101,7 @@ def ssbrm(
     progress=False,
     device=None,
 ) -> BlrMod:
-    """Fit one single-step chain on ``device`` (default "cuda"; the CPU only
+    """Fit single-step chains on ``device`` (default "cuda"; the CPU only
     when asked for with device="cpu").  ``M`` (n_g, m) is a numpy array or a
     torch tensor on any device; ``pedigree`` a dict of (id, sire, dam)
     columns or an (n, 3) array.  ``dtype`` defaults to float32 on a GPU
@@ -117,18 +117,18 @@ def ssbrm(
     n_ng * n_g exceeds 2^24.  ``setup_seconds`` of the result splits the
     set-up into pedigree, imputation and data preparation.
 
-    ``checkpoint`` (a path prefix) saves the chain after every
-    ``printfreq`` iterations and resumes it from there, bit for bit; the
-    set-up (pedigree, imputation) is redone on resume, as in the JAX
-    package, and only the chain resumes."""
+    ``nchains > 1`` runs that many chains as one batch (``run_chains``),
+    the epsilon term of every chain in one sweep: the summaries, GEBV and
+    epsilon pool every chain's records and ``rhat`` holds each parameter's
+    split R-hat.  ``checkpoint`` (a path prefix) saves the chain after
+    every ``printfreq`` iterations (a batch after a tenth of its records)
+    and resumes it from there, bit for bit; the set-up (pedigree,
+    imputation) is redone on resume, as in the JAX package, and only the
+    chain resumes."""
     if method == "BSLMM":
         raise ValueError("BSLMM is not supported for the single-step model.")
     if method not in METHODS:
         raise ValueError(f"unknown method '{method}'")
-    if nchains != 1:
-        raise NotImplementedError(
-            "ssbrm(nchains>1) is not ported yet: its epsilon sweep (mme_sweep) "
-            "would run over K chains (ROADMAP queue 1, item 6)")
     if mesh is not None:
         raise NotImplementedError(
             "meshes are not ported yet (ROADMAP queue 1, item 13)")
@@ -335,17 +335,23 @@ def ssbrm(
         print(f"    Observations with genotype {n - ne}")
         print(f"    Observations with imputed genotype {ne}")
         print("    Set-up seconds: " + ", ".join(f"{k} {v:.2f}" for k, v in setup.items()))
-    progress = progress or (verbose and printfreq > 0)
-    chunk_records = max(int(printfreq) // max(thin, 1), 1) if printfreq else 0
-    state, samples, extras = G.run_chain(
-        spec, gdata, pr, Pi, seed=seed, progress=progress, chunk_records=chunk_records,
-        checkpoint_path=checkpoint,
-    )
+    if nchains > 1:
+        state, samples, extras = G.run_chains(spec, gdata, pr, Pi, seed=seed,
+                                              nchains=nchains, progress=progress,
+                                              checkpoint_path=checkpoint)
+        samples = pool_chains(samples)
+    else:
+        progress = progress or (verbose and printfreq > 0)
+        chunk_records = max(int(printfreq) // max(thin, 1), 1) if printfreq else 0
+        state, samples, extras = G.run_chain(
+            spec, gdata, pr, Pi, seed=seed, progress=progress, chunk_records=chunk_records,
+            checkpoint_path=checkpoint,
+        )
     elapsed = extras["seconds"]
     if verbose:
-        print(f"MCMC finished: {spec.niter_eff} iterations in {elapsed:.1f}s "
-              f"({spec.niter_eff * m / max(elapsed, 1e-9):.3g} SNP-updates/s "
-              f"on {device})")
+        print(f"MCMC finished: {spec.niter_eff} iterations of {nchains} chain(s) in "
+              f"{elapsed:.1f}s ({nchains * spec.niter_eff * m / max(elapsed, 1e-9):.3g} "
+              f"SNP-updates/s on {device})")
 
     # assemble: GEBV for ALL pedigree ids = [J; Jn] J + [M; Mn] alpha (+ eps)
     s = dict(samples)
@@ -395,7 +401,7 @@ def ssbrm(
         gwas = dict(windinfo)
         gwas["WPPA"] = np.asarray(extras["wppa"])
 
-    return BlrMod(
+    res = BlrMod(
         call=f"{formula} + J + M[pedigree]",
         model_desc=f"Single-step Bayesian model fit by [{method}]",
         method=method,
@@ -422,3 +428,5 @@ def ssbrm(
         setup_seconds=setup,
         MCMCsamples=s,
     )
+    res.rhat = extras.get("rhat")
+    return res

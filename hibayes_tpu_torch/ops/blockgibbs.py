@@ -36,15 +36,17 @@ r_hat instead of a residual:
   ``sweep_s_segment`` / ``_kernel_s``, and ``sweep_s_segment_t`` with its
   draws ``_kernel_s_block_t`` for K chains);
 * ``sweep_s_tiled``: every tile row of a tiled sparse LD, with the SBayesS
-  rejection guard (replaces ``sweep_s_tiled`` / ``_kernel_s_tiled``).
+  rejection guard, for one or K chains (replaces ``sweep_s_tiled`` /
+  ``_kernel_s_tiled``, and the vmapped scan of the JAX package's tiled
+  batches).
 
 One carries the single-step (ssbrm) epsilon sweep (csrc/mme.cu):
 
 * ``mme_sweep``: the T sequential site draws of every diagonal block of
   scale A + diag(counts) and each block's forward scatter, in one launch
-  (replaces ``mme_block_draws`` / ``_kernel_mme_block`` with the scan
-  around it); ``mme_block_draws_plain`` keeps the TPU kernel's one-block
-  contract.
+  for one or K chains (replaces ``mme_block_draws`` / ``_kernel_mme_block``
+  with the scan around it); ``mme_block_draws_plain`` keeps the TPU
+  kernel's one-block contract.
 
 Each has a plain PyTorch version with the same contract (``*_plain``):
 loops over blocks and SNPs in Python with tensor ops (across the K chains
@@ -58,9 +60,10 @@ persistent ``sweep1`` launch (:func:`sweep1_plan`); a K-chain sweep (K >= 2)
 launches ``rows_mc_kernel`` nbg + 1 times and ``draws_kernel`` nbg times;
 ``block_draws`` launches ``draws_kernel`` once; a segment sweep, one or K
 chains, ``segment_sweep`` once (one persistent launch, :func:`segment_plan`);
-a tiled sweep ``tiled_sweep`` once (one persistent launch for every tile row, in the
-order of :func:`tiled_schedule`); an epsilon sweep ``mme_sweep_kernel``
-once (ordered by :func:`mme_plan`).
+a tiled sweep, one or K chains, ``tiled_sweep`` once (one persistent
+launch for every tile row, in the order of :func:`tiled_schedule`); an
+epsilon sweep, one or K chains, ``mme_sweep_kernel`` once (ordered by
+:func:`mme_plan`).
 """
 
 from __future__ import annotations
@@ -965,25 +968,27 @@ class TiledSchedule:
     def nbr(self) -> int:
         return int(self.need.shape[0])
 
-    def device_state(self, dev):
-        """The schedule's tensors and counters on ``dev`` (made, zeroed,
-        once) and the next sweep's epoch: sweep e starts with cnt[t] = e
-        total[t] and publishes row flags e + 1, so nothing is reset between
-        sweeps."""
-        key = str(dev)
+    def device_state(self, dev, chains: int = 1):
+        """The schedule's tensors and the counters of a sweep of ``chains``
+        chains on ``dev`` (made, zeroed, once for each chain count: a batch
+        never shares the one-chain sweep's counters) and the next sweep's
+        epoch: sweep e starts with cnt[c, t] = e total[t] and publishes row
+        flags e + 1, so nothing is reset between sweeps."""
+        key = (str(dev), chains)
         if key not in self._state:
             i32 = lambda a: torch.as_tensor(np.ascontiguousarray(a, dtype=np.int32), device=dev)
             self._state[key] = {
                 "need": i32(self.need), "nxt": i32(self.nxt), "total": i32(self.total),
                 "items": i32(self.items.reshape(-1, 4)),
-                "cnt": torch.zeros(self.nbr, dtype=torch.int32, device=dev),
-                "flags": torch.zeros(self.nbr, dtype=torch.int32, device=dev),
+                "cnt": torch.zeros((chains, self.nbr), dtype=torch.int32, device=dev),
+                "flags": torch.zeros((chains, self.nbr), dtype=torch.int32, device=dev),
                 "epoch": 0}
         return self._state[key]
 
-    def forget(self, dev) -> None:
-        """Drop the counters on ``dev`` (after a failed sweep)."""
-        self._state.pop(str(dev), None)
+    def forget(self, dev, chains: int = 1) -> None:
+        """Drop the counters of ``chains`` chains on ``dev`` (after a failed
+        sweep)."""
+        self._state.pop((str(dev), chains), None)
 
 
 def tiled_schedule(cols, valid) -> TiledSchedule:
@@ -1036,61 +1041,79 @@ def _layout_schedule(cols, valid) -> TiledSchedule:
 
 
 def sweep_s_tiled_plain(spec, tiles, cols, valid, r_hat, P, n, tally=None):
-    """Plain version of :func:`sweep_s_tiled`, in the dtype of ``r_hat``."""
+    """Plain version of :func:`sweep_s_tiled`, in the dtype of ``r_hat``:
+    one chain, or C chains drawn side by side (each chain's draws
+    elementwise, each contribution a product of its own), chain c bit for
+    bit the one-chain call on chain c's inputs."""
     sweep_s_tiled_plain.calls += 1
     nbr, K, B, _ = tiles.shape
     dt, dev = r_hat.dtype, r_hat.device
+    one = r_hat.dim() == 1
     vary = torch.tensor(spec.vary, dtype=dt, device=dev) if guard_on(spec) else None
-    P_blocks = _summary_blocks(P, nbr, B, dt)
-    r = r_hat.clone()
-    rb = r.view(nbr, B)
+    P_blocks = to_block_layout((P[None] if one else P).to(dt), nbr, B)   # (nbr, B, R, C)
+    r = (r_hat[None] if one else r_hat).clone()
+    C = r.shape[0]
+    rb = r.view(C, nbr, B)
     cols_l, valid_l = cols.tolist(), valid.tolist()
-    dg = torch.empty((nbr * B,), dtype=dt, device=dev)
-    track = torch.empty((nbr * B,), dtype=dt, device=dev)
-    guard = torch.zeros((1, 2), dtype=torch.int64, device=dev)
+    dg = torch.empty((C, nbr * B), dtype=dt, device=dev)
+    track = torch.empty((C, nbr * B), dtype=dt, device=dev)
+    guard = torch.zeros((C, 2), dtype=torch.int64, device=dev)
     for i in range(nbr):
         T = tiles[i].to(dt)
-        _, d, t = _draws_plain(spec, P_blocks[i], n * T[0], rb[i, :, None], vary, guard)
-        d = d[:, 0]
+        _, d, t = _draws_plain(spec, P_blocks[i], n * T[0], rb[:, i].T, vary, guard)
+        d = d.T.contiguous()   # (C, B): each chain's dg a contiguous row
         for k in range(K):
             if valid_l[i][k]:   # invalid slots point at the own row: skipped
-                rb[cols_l[i][k]] += n * (d @ T[k])
-        dg[i * B:(i + 1) * B], track[i * B:(i + 1) * B] = d, t[:, 0]
-    _tally(tally, guard[0])
-    return dg, track.to(torch.int32), r, torch.tensor(int(guard[0, 0]), device=dev)
+                for c in range(C):
+                    rb[c, cols_l[i][k]] += n * (d[c] @ T[k])
+        dg[:, i * B:(i + 1) * B], track[:, i * B:(i + 1) * B] = d, t.T
+    _tally(tally, guard[0] if one else guard)
+    if one:
+        return dg[0], track[0].to(torch.int32), r[0], guard[0, 0].clone()
+    return dg, track.to(torch.int32), r, guard[:, 0].clone()
 
 
 sweep_s_tiled_plain.calls = 0
 
 
 def sweep_s_tiled(spec, tiles, cols, valid, r_hat, P, n, stamps=None, tally=None):
-    """Single-chain summary sweep over every tile row of a tiled sparse LD;
-    the contract of ``sweep_s_tiled`` (hibayes_tpu/ops/blockgibbs.py:1730-1792)
-    at row_base 0.
+    """Summary sweep of one chain or a batch of C chains over every tile row
+    of a tiled sparse LD; the contract of ``sweep_s_tiled``
+    (hibayes_tpu/ops/blockgibbs.py:1730-1792) at row_base 0, for each
+    chain.
 
     tiles (nbr, K, B, B) with the diagonal tile in slot 0; cols, valid
-    (nbr, K); r_hat (nbr * B,); P (R, nbr * B) the packed rows, followed by
-    the guard rows (:func:`pack_retry_rows`) when :func:`guard_on`.  Per tile
-    row i: B draws against n tiles[i, 0] (guarded), then for each valid slot
+    (nbr, K); r_hat (nbr * B,), or (C, nbr * B) for C chains; P (R, nbr * B)
+    (or (C, R, nbr * B)) the packed rows, followed by the guard rows
+    (:func:`pack_retry_rows`) when :func:`guard_on`.  Per tile row i: B
+    draws against n tiles[i, 0] (guarded), then for each valid slot
     r_hat[block cols[i, k]] += n tiles[i, k]^T dg.  Returns (dg, track int32,
-    r_hat_new, rejected): ``rejected`` (a 0-d tensor) counts the draws whose
-    first candidate the guard rejected; ``tally`` (optional, int64 (2,))
-    gets that count and the count of draws whose every candidate failed
-    added.  Any tile B <= 128 that is a multiple of 4 (64 or 128 from
-    ``ldmat``).
+    r_hat_new, rejected), each with r_hat's leading chain axis:
+    ``rejected`` (0-d, or (C,)) counts the draws whose first candidate the
+    guard rejected; ``tally`` (optional, int64 (2,) or (C, 2)) gets that
+    count and the count of draws whose every candidate failed added.  Any
+    tile B <= 128 that is a multiple of 4 (64 or 128 from ``ldmat``).
 
     On the card the sweep is one launch that applies the contributions in
     the order of :func:`tiled_schedule` of cols and valid, built at the
     first sweep over these two tensors (anew if either is changed in
-    place) and kept with its counters for the sweeps after it.  ``stamps`` (measurement only): an int64 tensor of at
-    least 4 nbr + 4 entries that gets the drawer's clock64 at four points of
-    each row (before its draws, after them, after the barrier that waits for
-    the next row's loads, after its own contribution), then %globaltimer ns
-    and clock64 at the sweep's start and end."""
+    place) and kept with its counters (per chain count) for the sweeps
+    after it.  A batch is the same launch with a drawer CTA per chain and
+    each contribution's tile read once for all chains; chain c is bit for
+    bit a one-chain launch on chain c's inputs.  The grid (the drawers and
+    at least one CTA for the contributions) must be resident at once: a
+    batch too large for the card raises.  ``stamps`` (measurement only;
+    chain 0's): an int64 tensor of at least 4 nbr + 4 entries that gets the
+    drawer's clock64 at four points of each row (before its draws, after
+    them, after the barrier that waits for the next row's loads, after its
+    own contribution), then %globaltimer ns and clock64 at the sweep's
+    start and end."""
     if r_hat.device.type == "cpu":
         return sweep_s_tiled_plain(spec, tiles, cols, valid, r_hat, P, n, tally)
     _require_cuda(r_hat, tiles, cols, valid, P)
     nbr, K, B, _ = tiles.shape
+    lead = tuple(r_hat.shape[:-1])
+    C = r_hat.shape[0] if lead else 1
     _check_kernel_shapes(spec, B, 1)
     guard = guard_on(spec)
     R = summary_rows(spec)
@@ -1098,8 +1121,9 @@ def sweep_s_tiled(spec, tiles, cols, valid, r_hat, P, n, stamps=None, tally=None
         raise TypeError("sweep_s_tiled: the kernel takes float32 (other float "
                         "types run on the CPU)")
     if (tuple(tiles.shape) != (nbr, K, B, B) or tuple(cols.shape) != (nbr, K)
-            or tuple(valid.shape) != (nbr, K) or tuple(r_hat.shape) != (nbr * B,)
-            or tuple(P.shape) != (R, nbr * B)):
+            or tuple(valid.shape) != (nbr, K) or r_hat.dim() > 2
+            or tuple(r_hat.shape) != lead + (nbr * B,)
+            or tuple(P.shape) != lead + (R, nbr * B)):
         raise ValueError(f"sweep_s_tiled: tiles {tuple(tiles.shape)}, cols/valid "
                          f"{tuple(cols.shape)}/{tuple(valid.shape)}, r_hat "
                          f"{tuple(r_hat.shape)} and packed rows {tuple(P.shape)} "
@@ -1111,14 +1135,14 @@ def sweep_s_tiled(spec, tiles, cols, valid, r_hat, P, n, stamps=None, tally=None
         raise ValueError("sweep_s_tiled: stamps must be int64, 4 per row + 4")
     lib = build.library("sgibbs.cu")
     dev = r_hat.device
-    st = schedule.device_state(dev)
+    st = schedule.device_state(dev, C)
     Pc = P.contiguous()
     r = r_hat.clone(memory_format=torch.contiguous_format)
-    dg = torch.empty((nbr * B,), dtype=F32, device=dev)
-    track = torch.empty((nbr * B,), dtype=F32, device=dev)
-    nrej = torch.empty((nbr,), dtype=torch.int32, device=dev)
+    dg = torch.empty(lead + (nbr * B,), dtype=F32, device=dev)
+    track = torch.empty(lead + (nbr * B,), dtype=F32, device=dev)
+    nrej = torch.empty(lead + (nbr,), dtype=torch.int32, device=dev)
     code = lib.hb_sweep_s_tiled(
-        tiles.data_ptr(), nbr, K, B, R, spec.model_index, spec.n_fold, int(guard),
+        tiles.data_ptr(), nbr, K, B, R, C, spec.model_index, spec.n_fold, int(guard),
         float(n), float(spec.vary), Pc.data_ptr(), r.data_ptr(), dg.data_ptr(),
         track.data_ptr(), nrej.data_ptr(), st["need"].data_ptr(), st["nxt"].data_ptr(),
         st["items"].data_ptr(), st["items"].shape[0], st["total"].data_ptr(),
@@ -1126,13 +1150,13 @@ def sweep_s_tiled(spec, tiles, cols, valid, r_hat, P, n, stamps=None, tally=None
         None if stamps is None else stamps.data_ptr(),
         torch.cuda.current_stream(dev).cuda_stream)
     if code != 0:
-        schedule.forget(dev)
+        schedule.forget(dev, C)
     build.check(lib, code, "sweep_s_tiled")
     st["epoch"] += 1
     sweep_s_tiled.launches += 1
     counts = _guard_counts(nrej)
     _tally(tally, counts)
-    return dg, track.to(torch.int32), r, counts[0]
+    return dg, track.to(torch.int32), r, counts[..., 0]
 
 
 sweep_s_tiled.launches = 0
@@ -1168,16 +1192,18 @@ def chain_latency(spec, W_b, P_b, r0, reps, vary=None):
 def _mme_draws(Wb, r, invd, noise):
     """The T sequential site draws of one block: dx_j = r_j invd_j + noise_j
     with r_j = r0_j - sum_{i<j} Wb[j, i] dx_i, kept as r -= Wb[:, j] dx_j
-    after each draw (``r`` is updated in place).  Each product and sum is
+    after each draw (``r`` is updated in place).  Wb (..., T, T) and r,
+    invd, noise (..., T): one chain, or a batch on a leading axis, each
+    chain's arithmetic elementwise and its own.  Each product and sum is
     rounded on its own, in the kernel's order (csrc/mme.cu)."""
-    cols = Wb.unbind(1)
-    rv, iv, nv = r.unbind(0), invd.unbind(0), noise.unbind(0)
+    cols = Wb.unbind(-1)
+    rv, iv, nv = r.unbind(-1), invd.unbind(-1), noise.unbind(-1)
     dx = []
-    for j in range(r.shape[0]):
+    for j in range(r.shape[-1]):
         d = rv[j] * iv[j] + nv[j]
-        r.sub_(cols[j] * d)
+        r.sub_(cols[j] * d[..., None])
         dx.append(d)
-    return torch.stack(dx)
+    return torch.stack(dx, dim=-1)
 
 
 def mme_block_draws_plain(W, r0, invd, noise):
@@ -1196,10 +1222,11 @@ mme_block_draws_plain.calls = 0
 
 def _block_constants(Wd_i, cnt, scale, ve, z):
     """Wb = scale Wd + diag(counts), and each site's invd and noise (0 where
-    the diagonal is not positive: padded sites stay frozen)."""
+    the diagonal is not positive: padded sites stay frozen); scale (K, 1, 1),
+    ve (K, 1) and z (K, T) for K chains give (K, T, T) and (K, T)."""
     Wb = scale * Wd_i
-    Wb.diagonal().add_(cnt)
-    d = Wb.diagonal()
+    Wb.diagonal(dim1=-2, dim2=-1).add_(cnt)
+    d = Wb.diagonal(dim1=-2, dim2=-1)
     ok = d > 0
     d_safe = torch.where(ok, d, torch.ones_like(d))
     zero = torch.zeros_like(d)
@@ -1209,30 +1236,37 @@ def _block_constants(Wd_i, cnt, scale, ve, z):
 
 
 def mme_sweep_plain(sp, counts, scale, ve, z, x, res):
-    """Plain version of :func:`mme_sweep`, in the dtype of ``res``."""
+    """Plain version of :func:`mme_sweep`, in the dtype of ``res``: one
+    chain, or K chains drawn side by side (each chain's draws elementwise,
+    its scatter sums on their own), chain k bit for bit the one-chain call
+    on chain k's inputs."""
     mme_sweep_plain.calls += 1
     dt, dev = res.dtype, res.device
     nbr, T, _ = sp.diag_blocks.shape
-    scale = torch.as_tensor(scale, dtype=dt, device=dev)
-    ve = torch.as_tensor(ve, dtype=dt, device=dev)
-    res = res.clone()
-    x_new = x.to(dt).clone()
+    one = res.dim() == 1
+    res = (res[None] if one else res).clone()
+    x_new = (x[None] if one else x).to(dt).clone()
+    z = z[None] if one else z
+    K = res.shape[0]
+    scale = torch.as_tensor(scale, dtype=dt, device=dev).reshape(K)
+    ve = torch.as_tensor(ve, dtype=dt, device=dev).reshape(K, 1)
     blk_ptr, row_ptr = sp.blk_ptr.tolist(), sp.row_ptr.tolist()
     for i in range(nbr):
         sl = slice(i * T, (i + 1) * T)
         Wb, invd, noise = _block_constants(sp.diag_blocks[i].to(dt), counts[sl].to(dt),
-                                           scale, ve, z[sl].to(dt))
-        dx = _mme_draws(Wb, res[sl].clone(), invd, noise)
-        x_new[sl] += dx
+                                           scale[:, None, None], ve, z[:, sl].to(dt))
+        dx = _mme_draws(Wb, res[:, sl].clone(), invd, noise)
+        x_new[:, sl] += dx
         u0, u1 = blk_ptr[i], blk_ptr[i + 1]
         if u1 > u0:
             e0, e1 = row_ptr[u0], row_ptr[u1]
             lengths = (sp.row_ptr[u0 + 1:u1 + 1] - sp.row_ptr[u0:u1]).to(torch.int64)
-            terms = sp.ent_val[e0:e1].to(dt) * dx[sp.ent_col[e0:e1].to(torch.int64)]
-            acc = torch.segment_reduce(terms, "sum", lengths=lengths)
+            terms = sp.ent_val[e0:e1].to(dt) * dx[:, sp.ent_col[e0:e1].to(torch.int64)]
             rows = sp.urow[u0:u1].to(torch.int64)
-            res[rows] -= scale * acc
-    return x_new, res
+            for k in range(K):
+                res[k, rows] -= scale[k] * torch.segment_reduce(terms[k], "sum",
+                                                                lengths=lengths)
+    return (x_new[0], res[0]) if one else (x_new, res)
 
 
 mme_sweep_plain.calls = 0
@@ -1387,25 +1421,29 @@ def mme_plan(sp, nbr: int) -> MmePlan:
 
 def mme_sweep(sp, counts, scale, ve, z, x, res, stamps=None):
     """The epsilon sweep of ``blocked_mme_gibbs_sparse``
-    (hibayes_tpu/engine/gibbs.py:576-654) after its residual: for each
-    diagonal block i in order, the T site draws of TPU kernel 10 against Wb = scale sp.diag_blocks[i] +
-    diag(counts), then res[row] -= scale sum_k A[row, k] dx_k over the
-    block's forward triplets.
+    (hibayes_tpu/engine/gibbs.py:576-654) after its residual, for one chain
+    or a batch of K: for each diagonal block i in order, the T site draws
+    of TPU kernel 10 against Wb = scale sp.diag_blocks[i] + diag(counts),
+    then res[row] -= scale sum_k A[row, k] dx_k over the block's forward
+    triplets.
 
     ``sp`` holds the layout of :class:`~hibayes_tpu_torch.engine.gibbs.EpslSparse`
     (diag_blocks (nbr, T, T); the triplets grouped by target row: blk_ptr,
-    urow, row_ptr, ent_col, ent_val).  counts, z, x (nbr T,); res the
-    residual b - (scale A + diag(counts)) x, long enough for every triplet
-    row; scale and ve 0-d tensors or floats.  Returns (x_new, res after the
-    sweep).  The sweep reads blk_ptr[0..nbr] only, so the first k blocks
-    alone are a layout with diag_blocks[:k] and blk_ptr[:k + 1], and
-    counts, z, x cut to k T.  On the card: float32 only, T <= 128, one
-    launch, ordered by :func:`mme_plan` of the layout (built at the first
-    sweep over it).  ``stamps`` (measurement only): an int64 tensor of at
-    least 6 (nbr + 1) + 4 entries that gets clock64 stamps per block (its
-    chain's start and end and the drawer's end, the end of its scatter, and
-    the ends of warp 3's and the loader's work in its phase), then
-    %globaltimer ns and clock64 at the sweep's start and end."""
+    urow, row_ptr, ent_col, ent_val), shared by the chains, as ``counts``
+    (nbr T,) is.  One chain: z, x (nbr T,); res the residual b - (scale A +
+    diag(counts)) x, long enough for every triplet row; scale and ve 0-d
+    tensors or floats.  K chains: z, x (K, nbr T), res (K, L), scale and ve
+    (K,).  Returns (x_new, res after the sweep), shaped as x and res.  The
+    sweep reads blk_ptr[0..nbr] only, so the first k blocks alone are a
+    layout with diag_blocks[:k] and blk_ptr[:k + 1], and counts, z, x cut
+    to k T.  On the card: float32 only, T <= 128, one launch (a CTA a
+    chain, each chain bit for bit a one-chain launch on its inputs),
+    ordered by :func:`mme_plan` of the layout (built at the first sweep
+    over it).  ``stamps`` (measurement only; chain 0's): an int64 tensor of
+    at least 6 (nbr + 1) + 4 entries that gets clock64 stamps per block
+    (its chain's start and end and the drawer's end, the end of its
+    scatter, and the ends of warp 3's and the loader's work in its phase),
+    then %globaltimer ns and clock64 at the sweep's start and end."""
     if res.device.type == "cpu":
         return mme_sweep_plain(sp, counts, scale, ve, z, x, res)
     D = sp.diag_blocks
@@ -1418,8 +1456,10 @@ def mme_sweep(sp, counts, scale, ve, z, x, res, stamps=None):
         raise TypeError("mme_sweep: the kernel takes float32 (other float types "
                         "run on the CPU)")
     q = nbr * T
-    if (tuple(D.shape) != (nbr, T, T) or any(t.shape != (q,) for t in (counts, z, x))
-            or res.dim() != 1 or res.shape[0] < q):
+    lead = tuple(res.shape[:-1])
+    K = res.shape[0] if lead else 1
+    if (tuple(D.shape) != (nbr, T, T) or counts.shape != (q,) or res.dim() > 2
+            or any(t.shape != lead + (q,) for t in (z, x)) or res.shape[-1] < q):
         raise ValueError(f"mme_sweep: blocks {tuple(D.shape)}, counts/z/x "
                          f"{tuple(counts.shape)}/{tuple(z.shape)}/{tuple(x.shape)} and "
                          f"res {tuple(res.shape)} do not fit")
@@ -1431,9 +1471,9 @@ def mme_sweep(sp, counts, scale, ve, z, x, res, stamps=None):
         raise ValueError("mme_sweep: stamps must be int64 on the card, 6 per block + 10")
     dev = res.device
     plan = mme_plan(sp, nbr)
-    if plan.host["max_row"] >= res.shape[0]:
+    if plan.host["max_row"] >= res.shape[-1]:
         raise ValueError(f"mme_sweep: a triplet row ({plan.host['max_row']}) lies past "
-                         f"res ({res.shape[0]})")
+                         f"res ({res.shape[-1]})")
     lib = build.library("mme.cu")
     RI = plan.host["RI"]
     optin = getattr(torch.cuda.get_device_properties(dev), "shared_memory_per_block_optin",
@@ -1443,8 +1483,8 @@ def mme_sweep(sp, counts, scale, ve, z, x, res, stamps=None):
                          f"{plan.host['ncap']} entries; with blocks of {T} its staging "
                          f"needs {lib.hb_mme_smem_bytes(T, RI)} bytes of shared memory, "
                          f"more than the card's {optin}")
-    scale_t = torch.as_tensor(scale, dtype=F32, device=dev).reshape(())
-    ve_t = torch.as_tensor(ve, dtype=F32, device=dev).reshape(())
+    scale_t = torch.as_tensor(scale, dtype=F32, device=dev).reshape(lead).contiguous()
+    ve_t = torch.as_tensor(ve, dtype=F32, device=dev).reshape(lead).contiguous()
     cc, zc = counts.contiguous(), z.contiguous()
     x_in = x.contiguous()
     x_new = torch.empty_like(x_in)
@@ -1452,8 +1492,8 @@ def mme_sweep(sp, counts, scale, ve, z, x, res, stamps=None):
     code = lib.hb_mme_sweep(
         plan.Dt.data_ptr(), plan.rec.data_ptr(), plan.far_rows.data_ptr(),
         plan.ent.data_ptr(), cc.data_ptr(), scale_t.data_ptr(), ve_t.data_ptr(),
-        zc.data_ptr(), x_in.data_ptr(), x_new.data_ptr(), r.data_ptr(), r.shape[0],
-        plan.far_rows.shape[0], plan.ent.shape[0], nbr, T, RI,
+        zc.data_ptr(), x_in.data_ptr(), x_new.data_ptr(), r.data_ptr(), r.shape[-1],
+        plan.far_rows.shape[0], plan.ent.shape[0], nbr, T, RI, K,
         None if stamps is None else stamps.data_ptr(),
         torch.cuda.current_stream(dev).cuda_stream)
     build.check(lib, code, "mme_sweep")

@@ -105,7 +105,7 @@ def library(source: str = SOURCES[0]) -> ctypes.CDLL:
                                            _F, _P, _P, _P, _P, _P, _P, ctypes.c_uint,
                                            _I, _I, _I, _I, _I, _I, _I, _P, _P]
         lib.hb_sweep_s_segment.restype = _I
-        lib.hb_sweep_s_tiled.argtypes = [_P, _I, _I, _I, _I, _I, _I, _I, _F, _F,
+        lib.hb_sweep_s_tiled.argtypes = [_P, _I, _I, _I, _I, _I, _I, _I, _I, _F, _F,
                                          _P, _P, _P, _P, _P, _P, _P, _P, _I, _P,
                                          _P, _P, ctypes.c_uint, _P, _P]
         lib.hb_sweep_s_tiled.restype = _I
@@ -118,7 +118,7 @@ def library(source: str = SOURCES[0]) -> ctypes.CDLL:
         lib.hb_s_reset_launch_counts.restype = None
     else:
         _L = ctypes.c_longlong
-        lib.hb_mme_sweep.argtypes = [_P] * 11 + [_L, _L, _L, _I, _I, _I, _P, _P]
+        lib.hb_mme_sweep.argtypes = [_P] * 11 + [_L, _L, _L, _I, _I, _I, _I, _P, _P]
         lib.hb_mme_sweep.restype = _I
         lib.hb_mme_smem_bytes.argtypes = [_I, _I]
         lib.hb_mme_smem_bytes.restype = _L

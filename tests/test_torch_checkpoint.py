@@ -162,12 +162,14 @@ LOW_VARY = 4.5e-3
 
 
 @pytest.mark.parametrize("dt", list(DTYPES))
-@pytest.mark.parametrize("layout,nchains", [("dense", 1), ("tiled64", 1), ("blockdiag", 2)])
+@pytest.mark.parametrize("layout,nchains", [("dense", 1), ("tiled64", 1), ("blockdiag", 2),
+                                            ("tiled64", 2)])
 def test_summary_segmented_and_resume(layout, nchains, dt, tmp_path, monkeypatch):
     """Segmented equals unsegmented, and a run killed after its third save
     (iteration 30, two records) and resumed equals the uninterrupted run,
     guard counts included: on tile-64 and BlockDiagLD the guard fires at a
-    lowered vary, so the counts carried across the kill are not zero."""
+    lowered vary, so the counts carried across the kill are not zero (a
+    batch's per chain)."""
     spec, data, pr, pi = summary_setup(layout, dt, None if layout == "dense" else LOW_VARY)
     run = lambda **kw: TSG.run_s_chains(spec, data, pr, pi, seed=5, nchains=nchains, **kw)
     full = run()
@@ -219,6 +221,29 @@ def test_ssbrm_checkpoint_resume(dt, tmp_path, monkeypatch):
             np.testing.assert_array_equal(fit.MCMCsamples[k], plain.MCMCsamples[k], err_msg=k)
         np.testing.assert_array_equal(fit.g["gebv"], plain.g["gebv"])
         assert fit.Veps == plain.Veps
+
+
+def test_ssbrm_batch_checkpoint_resume(tmp_path, monkeypatch):
+    """An ssbrm batch of 3 chains (float64): a fit killed after its fourth
+    save (iteration 28, past burn-in: a batch saves every tenth of its
+    records, two of 20) and
+    resumed, its set-up redone, equals the uninterrupted batch bit for bit,
+    each chain's records, the pooled GEBV and R-hat."""
+    kw = {**_ssbrm_kw(np.random.default_rng(6)), "nchains": 3, "niter": 100, "nburn": 20,
+          "thin": 4}
+    plain = ht.ssbrm("y~1", **kw)
+    ck = str(tmp_path / "ssck3")
+    kill_after(monkeypatch, 4)
+    with pytest.raises(Killed):
+        ht.ssbrm("y~1", checkpoint=ck, **kw)
+    monkeypatch.undo()
+    assert json.load(open(ck + ".meta.json"))["it"] == 28
+    fit = ht.ssbrm("y~1", checkpoint=ck, **kw)
+    for k in plain.MCMCsamples:
+        np.testing.assert_array_equal(fit.MCMCsamples[k], plain.MCMCsamples[k], err_msg=k)
+    np.testing.assert_array_equal(fit.g["gebv"], plain.g["gebv"])
+    np.testing.assert_equal(fit.rhat, plain.rhat)   # nan where a trace is flat
+    assert fit.MCMCsamples["Veps"].shape == (3 * 20,)
 
 
 # ---------------------------------------------------------- files and checks

@@ -518,6 +518,35 @@ def test_mme_sweep_launch_count_and_refusals(dev):
     assert TB.kernel_launches()["mme_sweep_kernel"] == 1
 
 
+@pytest.mark.parametrize("T", [64, 20])
+def test_k_chain_mme_sweep(T, dev):
+    """The K-chain epsilon sweep (K=4, a CTA a chain) in one launch: each
+    chain bit for bit its K=1 launch on its own z, x, residual, scale and
+    ve; against the batched plain version at the kernel bar; a second
+    launch bit-identical; padded sites frozen."""
+    sp_t, counts, scale, ve, z, x, res, q = _mme_problem(T, dev)
+    K = 4
+    f = torch.arange(K, device=dev, dtype=torch.float32)
+    Z = torch.stack([z.roll(3 * k) for k in range(K)])
+    Z[:, q:] = 0
+    X = x[None] * (1 + 0.1 * f[:, None])
+    Rs = res[None] * (1 - 0.05 * f[:, None])
+    S, V = scale * (1 + 0.2 * f), ve * (1 + 0.3 * f)
+    TB.reset_kernel_launches()
+    out = TB.mme_sweep(sp_t, counts, S, V, Z, X, Rs)
+    assert TB.kernel_launches()["mme_sweep_kernel"] == 1
+    assert out[0].shape == X.shape and out[1].shape == Rs.shape
+    again = TB.mme_sweep(sp_t, counts, S, V, Z, X, Rs)
+    assert all(torch.equal(a, b) for a, b in zip(out, again))
+    plain = TB.mme_sweep_plain(sp_t, counts, S, V, Z, X, Rs)
+    for k in range(K):
+        one = TB.mme_sweep(sp_t, counts, S[k], V[k], Z[k], X[k], Rs[k])
+        assert torch.equal(out[0][k], one[0]) and torch.equal(out[1][k], one[1])
+        xk, xp = out[0][k].cpu().numpy(), plain[0][k].cpu().numpy()
+        np.testing.assert_allclose(xk, xp, rtol=0, atol=5e-5 * np.abs(xp).max())
+        assert (xk[q:] == 0).all()
+
+
 @pytest.mark.parametrize("impute", ["pcg", "direct"])
 def test_ssbrm_on_the_card_is_reproducible(impute, dev):
     """ssbrm on the card (imputation, J and epsilon through mme_sweep, the
@@ -649,6 +678,52 @@ def test_tiled_sweep_guard_fires(dev):
     assert int(outs[0][3]) == int(plain[3])
     for o in outs[1:]:
         assert all(torch.equal(a, b) for a, b in zip(outs[0], o))
+
+
+@pytest.mark.parametrize("low", [False, True], ids=["vary", "lowvary"])
+@pytest.mark.parametrize("tile", [64, 128])
+@pytest.mark.parametrize("model", ["BayesCpi", "BayesR", "BayesL"])
+def test_k_chain_tiled_sweep(model, tile, low, dev):
+    """The K-chain tiled sweep (K=4: a drawer CTA a chain, each tile read
+    once for all chains) in one launch: each chain bit for bit its K=1
+    launch on its own r_hat and packed rows; against the batched plain
+    version at the kernel bar, the guard's counts per chain equal the plain
+    version's (at the chain's vary and a lowered one where it rejects); a
+    second launch bit-identical."""
+    spec, data, g, r, P, _, _ = _s_problem(model, "tiled", dev, m=1500, tile=tile)
+    if low:
+        spec = dataclasses.replace(spec, vary=spec.vary * 1e-3)
+    K = 4
+    st = TSG.init_s_state(spec, data, *_s_priors_pi(spec, data, model))._replace(
+        g=g, r_hat=r, it=2)
+    Ps = torch.stack([P] + [TSG._s_pre_sweep(spec, data, IterNoise(4 + k, 2, dev), st)["P"]
+                            for k in range(K - 1)])
+    Rs = r[None].expand(K, -1).contiguous()
+    lay = (data.ld_tiles, data.ld_cols, data.ld_valid)
+    TB.reset_kernel_launches()
+    tally = torch.zeros((K, 2), dtype=torch.int64, device=dev)
+    out = TB.sweep_s_tiled(spec, *lay, Rs, Ps, spec.n, tally=tally)
+    assert TB.kernel_launches()["tiled_sweep"] == 1
+    again = TB.sweep_s_tiled(spec, *lay, Rs, Ps, spec.n)
+    assert all(torch.equal(a, b) for a, b in zip(out, again))
+    p_tally = torch.zeros((K, 2), dtype=torch.int64, device=dev)
+    plain = TB.sweep_s_tiled_plain(spec, *lay, Rs, Ps, spec.n, tally=p_tally)
+    for k in range(K):
+        one = TB.sweep_s_tiled(spec, *lay, Rs[k], Ps[k], spec.n)
+        assert all(torch.equal(a[k], b) for a, b in zip(out, one))
+        _assert_bar((g - plain[0][k], plain[1][k], None, plain[2][k]),
+                    (g - out[0][k], out[1][k], None, out[2][k]))
+    assert torch.equal(tally, p_tally)
+    if low and TB.guard_on(spec):
+        assert int(tally[:, 0].sum()) > 0
+
+
+def _s_priors_pi(spec, data, model):
+    pi = (np.array([0.95, 0.02, 0.02, 0.01]) if model == "BayesR"
+          else np.array([0.0, 1.0]) if model in ("BayesRR", "BayesA", "BayesL")
+          else np.array([0.95, 0.05]))
+    pr = TG.resolve_priors(None, float(data.vx.sum()), pi[0], nr=0, vary=spec.vary)
+    return pr, pi
 
 
 def test_chain_latency_and_stamps(dev):

@@ -180,11 +180,15 @@ def test_ibrm_nchains_on_the_cpu():
 
 
 def test_ssbrm_batches_still_raise():
-    """ssbrm chain batches raise, naming their item."""
+    """An ssbrm chain batch runs (the epsilon term of both chains in one
+    sweep): each chain's records pooled, R-hat of Veps and J, finite
+    epsilon of every non-genotyped id."""
     rng = np.random.default_rng(0)
     ids = np.array([f"p{k}" for k in range(40)])
-    with pytest.raises(NotImplementedError, match="item 6"):
-        ht.ssbrm("y ~ 1", data={"id": ids, "y": rng.normal(size=40)},
-                 M=rng.binomial(2, 0.3, (20, 8)).astype(np.int8), M_id=ids[:20],
-                 pedigree={"id": ids, "sire": np.full(40, "0"), "dam": np.full(40, "0")},
-                 niter=20, nburn=10, nchains=2, verbose=False, device="cpu")
+    fit = ht.ssbrm("y ~ 1", data={"id": ids, "y": rng.normal(size=40)},
+                   M=rng.binomial(2, 0.3, (20, 8)).astype(np.int8), M_id=ids[:20],
+                   pedigree={"id": ids, "sire": np.full(40, "0"), "dam": np.full(40, "0")},
+                   niter=40, nburn=20, nchains=2, verbose=False, device="cpu")
+    assert fit.MCMCsamples["Veps"].shape == (2 * 4,)
+    assert fit.MCMCsamples["epsilon"].shape == (2 * 4, 20)
+    assert {"Veps", "J"} <= set(fit.rhat) and np.isfinite(fit.epsilon["epsilon"]).all()

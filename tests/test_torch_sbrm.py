@@ -77,15 +77,20 @@ def _refusal_inputs():
 
 
 @pytest.mark.parametrize("kw,item", [
-    (dict(nchains=2), "item 6"),
+    (dict(nchains=2), None),
     (dict(mesh=object()), "item 13"),
     (dict(shard_schedule="concurrent"), "item 13"),
 ])
 def test_sbrm_refuses_what_is_not_ported(kw, item):
-    """Chain batches run on dense and segment LD (tests/test_torch_multichain.py);
-    on a tiled LD they still raise, naming item 6."""
+    """Meshes and shard schedules raise, naming item 13; a chain batch runs
+    on every layout, a tiled LD included (item None: the fit runs, with
+    each chain's guard counts)."""
     ss, R, Rp = _refusal_inputs()
     ld = ht.TiledSparseLD.from_scipy(sp.csr_matrix(Rp), tile=128) if "nchains" in kw else R
+    if item is None:
+        fit = ht.sbrm(ss, ld, niter=20, nburn=10, verbose=False, device="cpu", **kw)
+        assert fit.guard.shape == (2, 2) and np.isfinite([fit.Vg, fit.Ve]).all()
+        return
     with pytest.raises(NotImplementedError, match=item):
         ht.sbrm(ss, ld, niter=20, nburn=10, verbose=False, device="cpu", **kw)
 

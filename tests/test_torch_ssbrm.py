@@ -423,17 +423,16 @@ def test_ssbrm_ne0_large_n_row_padding():
 
 
 def test_ssbrm_refusals():
-    """BSLMM is refused as in JAX (ValueError); multi-chain and meshes are
-    not ported (NotImplementedError, citing ROADMAP items 6 and 13);
-    without a card, device=None raises.  (Checkpoints are ported:
-    tests/test_torch_checkpoint.py.)"""
+    """BSLMM is refused as in JAX (ValueError); meshes are not ported
+    (NotImplementedError, citing ROADMAP item 13); without a card,
+    device=None raises.  (Checkpoints and chain batches are ported:
+    tests/test_torch_checkpoint.py, tests/test_torch_multichain_ssbrm.py.)"""
     prob = _ss_problem(nkid=120, n_g=60, m=20, n_pg=30, n_pn=40)
     kw = {k: prob[k] for k in ("data", "M", "M_id", "pedigree")}
     with pytest.raises(ValueError, match="BSLMM"):
         htt.ssbrm("y~1", method="BSLMM", device="cpu", **kw)
-    for extra, item in (({"nchains": 2}, "item 6"), ({"mesh": object()}, "item 13")):
-        with pytest.raises(NotImplementedError, match=item):
-            htt.ssbrm("y~1", device="cpu", **extra, **kw)
+    with pytest.raises(NotImplementedError, match="item 13"):
+        htt.ssbrm("y~1", device="cpu", mesh=object(), **kw)
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="no CUDA device"):
             htt.ssbrm("y~1", niter=20, nburn=10, **kw)

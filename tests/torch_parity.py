@@ -232,7 +232,8 @@ def s_setup(model, layout, *, m, dtype=jnp.float64, block=64, seed=21, windows=T
             **kw):
     """JAX summary data, priors and spec for one model on ``layout`` "dense"
     (DenseLD, SBayesD semantics), "tiled" (TiledSparseLD.from_scipy of the
-    pruned LD, tile 128), "tiled64" (the same at tile 64), "sparse"
+    pruned LD, tile 128), "tiled64" and "tiled16" (the same at tiles of 64
+    and 16), "sparse"
     (SparseLD of the pruned LD) or "blockdiag" (BlockDiagLD of three
     diagonal blocks of the LD), the last four with SBayesS semantics and the
     guard, and the port's LD object of the same matrix."""
@@ -244,7 +245,7 @@ def s_setup(model, layout, *, m, dtype=jnp.float64, block=64, seed=21, windows=T
     from hibayes_tpu_torch.data import ld as TLD
     from hibayes_tpu_torch.data import sparse_ld as TSLD
 
-    pruned = layout in ("tiled", "tiled64", "sparse")
+    pruned = layout in ("tiled", "tiled64", "tiled16", "sparse")
     ss, R, Rp, b = s_sumstats(m, seed=seed, pruned=pruned, **kw)
     if layout == "dense":
         ld_j, ld_t = DenseLD(values=R), TLD.DenseLD(values=R)
@@ -258,7 +259,7 @@ def s_setup(model, layout, *, m, dtype=jnp.float64, block=64, seed=21, windows=T
         ld_j = BlockDiagLD(blocks=blocks, sizes=sizes)
         ld_t = TLD.BlockDiagLD(blocks=blocks, sizes=sizes)
     else:
-        block = 128 if layout == "tiled" else 64
+        block = {"tiled": 128, "tiled16": 16}.get(layout, 64)
         ld_j = TiledSparseLD.from_scipy(sp.csr_matrix(Rp), tile=block)
         ld_t = TSLD.TiledSparseLD.from_scipy(sp.csr_matrix(Rp), tile=block)
     pi, fold = s_pi_fold(model)
