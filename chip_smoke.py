@@ -27,7 +27,14 @@ Phases, each printing as it goes:
      64, the guard on, and BayesCpi and BayesR at a lowered vary where it
      rejects (each chain's counts equal the plain version's); the K-chain
      epsilon sweep at K=4 (a CTA a chain) on a 3,000-id pedigree's layout;
-     each chain of both bit for bit its K=1 launch.
+     each chain of both bit for bit its K=1 launch.  The shapes the kernels
+     do not take as they are: sweep_mc and block_draws at blocks of 30,
+     192, 250 and 256 (run as sub-blocks of at most 128, pad slots at 30
+     and 250) and at 12 and 16 BayesR folds (the draw chain's run-time
+     fold instance), the dense segment sweep at those blocks, the guarded
+     segment and tiled sweeps at 12 and 16 folds, and the tiled sweep on
+     stores of tiles of 10 and 256 (re-tiled to 12 and 128), one chain
+     and four.
      Bar: at most 1% mixture draws flip, effects within 5e-5 max|g| where
      the draws agree, residuals (r_hat) within 1e-4 max|.| when none flips;
      a second kernel sweep on the same inputs must be bit-identical.  Then
@@ -143,11 +150,24 @@ Phases, each printing as it goes:
      (its imputation redone): through sweep_mc's K-chain rows and draws
      kernels and one K-chain mme_sweep_kernel launch an iteration only,
      every chain finite, R-hat(Ve), the GEBV agreement of chains 0 and 1,
-     the pooled accuracy, ms/iter and the set-up split.  (10c, in 9c) an
+     the pooled accuracy, the pooled Veps against phase 7's one chain,
+     ms/iter and the set-up split.  (10c, in 9c) an
      ssbrm batch of 4 and a tiled-LD batch of 4 killed and resumed bit for
-     bit.  Then a JSON line of kernels, each phase's seconds and the whole
-     run's, the nvidia-smi line, and the last line {"ok": true, "device":
-     {...}}.
+     bit;
+ 11. every block, fold count, tile and chain count.  (11a, after phase 4)
+     ibrm BayesR on phase 4's cohort at blocks of 256 and (11b) with 12
+     folds for 50 iterations, each through sweep1 only, its sweep timed
+     beside its plain version first, GEBV accuracy against its bar and
+     ms/iter beside phase 4's; (11c, after 10b) sbrm BayesCpi on phase 5's
+     statistics with the LD stored in tiles of 256 and re-tiled, through
+     one tiled_sweep launch an iteration, accuracy against phase 5's bar;
+     (11d) 160 chains of that fit, 20 iterations, in groups of chains (a
+     launch each), each group's first chain bit for bit its K=1 launch;
+     (11e, in phase 7) where 10a's K=4 iteration spends its time by CUDA
+     time (hibayes_tpu_torch.utils.device_trace and annotate), and (in 9c)
+     each resume's checkpoint saves timed by PhaseTimer.  Then a JSON line
+     of kernels, each phase's seconds and the whole run's, the nvidia-smi
+     line, and the last line {"ok": true, "device": {...}}.
 
 Any failed check raises, so the script exits non-zero and prints no result.
 """
@@ -247,6 +267,17 @@ MC64_CHAINS_CORR_MIN = 0.9
 # sound chains and above a chain that sweeps against the wrong system.
 RHAT_VE_MAX_SSBRM_CHAINS = 2.5
 SSBRM_CHAINS_CORR_MIN = 0.9
+# Phase 10a's pooled Veps against phase 7's one chain on the same cohort.
+# Split R-hat cannot gate J or Veps here: over 20 records a chain the JAX
+# package's own ssbrm(nchains=4) reads R-hat of J 2.96-3.40 and of Veps
+# 2.53-3.77 on a small cohort of this shape (scripts/chain_mixing.py
+# ssbrm_reference; the port 2.79-5.07 and 2.60-4.90), and this phase 2.70
+# and 2.04.  The fault study (chain_mixing.py fault 10a: each chain's
+# epsilon swept once against another chain's residual) leaves R-hat(Ve)
+# and the chains' agreement above their bars (1.25-1.31, 0.905-0.929) but
+# doubles the pooled Veps (0.531-0.533 against 0.233 sound, two seeds);
+# a sound batch read 0.98 of phase 7's one chain.  0.25 sits between.
+SSBRM_CHAINS_VEPS_REL_MAX = 0.25
 # Phase 10b, sbrm with 4 chains on phase 5's tiled LD: each chain is phase
 # 5's recipe (accuracy 0.787 on an H100), so each chain's and the pooled
 # accuracy keep SBAYES_CORR_MIN.  Its Ve sits at the negative-Ve guard's
@@ -340,16 +371,20 @@ def phenotype(torch, M, gen, dev, n_causal=500):
     return data, gv, causal, b / sd * np.sqrt(0.5)
 
 
-def make_spec(TG, model, data, m, n_real, niter=10, nburn=5):
-    nf = 4 if model == "BayesR" else 2
-    pi = (np.array([0.95, 0.02, 0.02, 0.01]) if nf == 4
-          else np.array([0.0, 1.0]) if model in ("BayesRR", "BayesA", "BayesL")
-          else np.array([0.95, 0.05]))
+def make_spec(TG, model, data, m, n_real, niter=10, nburn=5, nf=4):
+    """The spec, priors and pi of one chain (BayesR with nf folds, whose
+    variances are the data's)."""
+    if model == "BayesR":
+        pi = fold_prior(nf)[0]
+    else:
+        nf = 2
+        pi = (np.array([0.0, 1.0]) if model in ("BayesRR", "BayesA", "BayesL")
+              else np.array([0.95, 0.05]))
     vx = data.vx.cpu().numpy()
     pr = TG.resolve_priors(data.y[:n_real].cpu().numpy(), float(vx.sum()), pi[0], nr=0)
     spec = TG.GibbsSpec(
         model=model, n=int(data.y.shape[0]), n_real=n_real, m=m,
-        m_pad=int(data.xpx.shape[0]), block=int(data.X_blocks.shape[2]),
+        m_pad=int(data.xpx.shape[0]), block=data.block,
         nc=0, nlevels=(), n_fold=nf, niter=niter, nburn=nburn, thin=5,
         nvar0=int((vx[:m] == 0).sum()), dfvara=pr.dfvara, s2vara=pr.s2vara,
         dfvare=pr.dfvare, s2vare=pr.s2vare, s2varg=pr.s2varg,
@@ -372,7 +407,7 @@ def sweep_args(torch, TG, spec, data, pr, pi, K, seed):
         g = torch.where(nz & data.real, 0.02 * torch.randn(
             spec.m_pad, generator=gen, device=dev), 0.0)
         st = state0._replace(g=g, yadj=state0.yadj - TG.genotype_matmul(
-            data.X_blocks, g[:, None], torch.float32)[:, 0])
+            data.X_blocks, g[:, None], torch.float32, data.block)[:, 0])
         pre = TG._pre_sweep(spec, data, IterNoise(seed, k, dev), st)
         consts.append(pre["consts"])
         for name, v in zip(cols, (pre["vei"], g, *pre["rnd"], pre["vargL_in"],
@@ -986,12 +1021,15 @@ def tiled_matvec(torch, ld):
     return lambda v: _tiled_matvec(ld.tiles, cols, valid, v)
 
 
-def s_setup(torch, TG, TSG, ss, ld, model, block, dev, sparse):
-    """Data, spec, priors and pi of one summary chain, as sbrm builds them."""
-    fold = np.array([0.0, 1e-4, 1e-3, 1e-2]) if model == "BayesR" else np.array([0.0, 1.0])
-    pi = (np.array([0.95, 0.02, 0.02, 0.01]) if model == "BayesR"
-          else np.array([0.0, 1.0]) if model in ("BayesRR", "BayesA", "BayesL")
-          else np.array([0.95, 0.05]))
+def s_setup(torch, TG, TSG, ss, ld, model, block, dev, sparse, nf=4):
+    """Data, spec, priors and pi of one summary chain, as sbrm builds them
+    (BayesR with nf folds)."""
+    if model == "BayesR":
+        pi, fold = fold_prior(nf)
+    else:
+        fold = np.array([0.0, 1.0])
+        pi = (np.array([0.0, 1.0]) if model in ("BayesRR", "BayesA", "BayesL")
+              else np.array([0.95, 0.05]))
     data, n_eff, vary, nvar0, seg_sizes, seg_real = TSG.prepare_sgibbs_data(
         ss, ld, fold=fold, block=block, dtype=torch.float32, device=dev)
     pr = TG.resolve_priors(None, float(ld.diag.sum()), pi[0], nr=0, vary=vary)
@@ -2044,7 +2082,9 @@ def resume_case(torch, TB, what, run, nburn, want):
     Both equal bit for bit; each run launches its kernels ``want`` times:
     the killed and the resumed run together do each iteration once."""
     from hibayes_tpu_torch.engine import checkpoint as CK
+    from hibayes_tpu_torch.utils import PhaseTimer
 
+    timer, saves = PhaseTimer(), [0]
     reset_counts(TB)
     full = run(None)
     torch.cuda.synchronize()
@@ -2053,8 +2093,13 @@ def resume_case(torch, TB, what, run, nburn, want):
     ck = os.path.join(tempfile.mkdtemp(prefix="resume_"), "ck")
     real = CK.save_checkpoint
 
+    def timed_save(path, state, samples):   # a save's wall, the host copies included
+        with timer.phase("save"):
+            real(path, state, samples)
+        saves[0] += 1
+
     def save_then_die(path, state, samples):
-        real(path, state, samples)
+        timed_save(path, state, samples)
         if read_meta(path) > nburn:
             raise Killed()
 
@@ -2068,7 +2113,11 @@ def resume_case(torch, TB, what, run, nburn, want):
     finally:
         CK.save_checkpoint = real
     killed_at = read_meta(ck)
-    resumed = run(ck)
+    CK.save_checkpoint = timed_save
+    try:
+        resumed = run(ck)
+    finally:
+        CK.save_checkpoint = real
     torch.cuda.synchronize()
     got, plain = read_counts(TB)
     expect_counts(got, plain, want, f"9c {what}, killed and resumed")
@@ -2082,8 +2131,11 @@ def resume_case(torch, TB, what, run, nburn, want):
     log(f"[9c] {what}: killed after its checkpoint at iteration {killed_at} and resumed: "
         f"every record{', the GEBV' if 'gebv' in full else ''}"
         f"{' and the guard counts ' + str(full['guard'].tolist()) if 'guard' in full else ''} "
-        f"bit for bit the uninterrupted run's")
-    return {"killed_at": killed_at, "launches": got,
+        f"bit for bit the uninterrupted run's; {saves[0]} saves took "
+        f"{timer.phases.get('save', 0.0):.4f} s (PhaseTimer), "
+        f"{1e3 * timer.phases.get('save', 0.0) / max(saves[0], 1):.2f} ms a save")
+    return {"killed_at": killed_at, "launches": got, "saves": saves[0],
+            "save_s": timer.phases.get("save", 0.0),
             **({"guard": full["guard"].tolist()} if "guard" in full else {})}
 
 
@@ -2235,14 +2287,15 @@ def per_chain(fit, key, nchains, n_rec):
 
 
 def ssbrm_chains(torch, ht, TB, inputs, ids, gi, phe, gv, nchains, args, niter_eff, thin,
-                 smi, ms1, times):
+                 smi, ms1, times, veps1):
     """Phase 10a: ssbrm(impute="pcg", method="BayesCpi", nchains=...) on
     phase 7's cohort through the K-chain rows and draws kernels and one
     K-chain epsilon launch an iteration only (launch counts, no plain call);
     every chain finite, R-hat(Ve), the GEBV agreement of chains 0 and 1 and
     the pooled accuracy of the non-genotyped phenotyped ids, each against
-    its bar.  Prints ms/iter beside phase 7's one chain, the set-up split
-    and the epsilon sweep's time at K beside K=1 (check_mme, phase 7)."""
+    its bar, and the pooled Veps against phase 7's one chain's ``veps1``.
+    Prints ms/iter beside phase 7's one chain, the set-up split and the
+    epsilon sweep's time at K beside K=1 (check_mme, phase 7)."""
     n_rec = (args.niter - args.nburn) // thin
     m = inputs["M"].shape[1]
     nb = -(-m // 64)
@@ -2273,16 +2326,19 @@ def ssbrm_chains(torch, ht, TB, inputs, ids, gi, phe, gv, nchains, args, niter_e
     corr01 = float(np.corrcoef(g01[0][held], g01[1][held])[0, 1])
     corr01_all = float(np.corrcoef(g01[0], g01[1])[0, 1])
     sec, setup = fit.chain_seconds, fit.setup_seconds
+    veps_rel = abs(fit.Veps / veps1 - 1.0)
     out = {"ms_per_iter": 1e3 * sec / niter_eff, "rhat_Ve": fit.rhat["Ve"],
            "rhat_Veps": fit.rhat["Veps"], "corr01": corr01, "corr01_all": corr01_all,
-           "acc": acc, "wall_s": wall, "launches": launches, "setup_s": setup}
+           "acc": acc, "wall_s": wall, "launches": launches, "setup_s": setup,
+           "veps_rel": veps_rel}
     log(f"[10a] ssbrm BayesCpi nchains={nchains}, {len(ids)} ids x m={m}: Vg {fit.Vg:.4f} "
         f"Ve {fit.Ve:.4f} Veps {fit.Veps:.4f} J {fit.J:.4f} h2 {fit.h2:.4f}; R-hat Ve "
         f"{fit.rhat['Ve']:.4f} (bar {RHAT_VE_MAX_SSBRM_CHAINS}), Veps {fit.rhat['Veps']:.4f}, "
         f"J {fit.rhat['J']:.4f}; corr(GEBV chain 0, chain 1) {corr01:.4f} on the "
         f"{len(held)} genotyped or phenotyped ids (bar {SSBRM_CHAINS_CORR_MIN}), "
         f"{corr01_all:.4f} on all; pooled GEBV accuracy on the {len(ng_phe)} non-genotyped "
-        f"phenotyped {acc:.4f} (bar {SSBRM_CORR_MIN})")
+        f"phenotyped {acc:.4f} (bar {SSBRM_CORR_MIN}); Veps {veps_rel:.4f} off phase 7's "
+        f"{veps1:.4f} (bar {SSBRM_CHAINS_VEPS_REL_MAX})")
     log(f"[10a] wall {wall:.2f} s; set-up (s) pedigree {setup['pedigree']:.2f}, imputation "
         f"{setup['imputation']:.2f}, prepare {setup['prepare']:.2f}; chain {sec:.2f} s = "
         f"{out['ms_per_iter']:.2f} ms/iter against phase 7's one chain {ms1:.2f}; the epsilon "
@@ -2296,6 +2352,9 @@ def ssbrm_chains(torch, ht, TB, inputs, ids, gi, phe, gv, nchains, args, niter_e
                              f"{SSBRM_CHAINS_CORR_MIN}")
     if not acc >= SSBRM_CORR_MIN:
         raise AssertionError(f"10a: pooled accuracy {acc} below {SSBRM_CORR_MIN}")
+    if not veps_rel <= SSBRM_CHAINS_VEPS_REL_MAX:
+        raise AssertionError(f"10a: Veps {fit.Veps} is {veps_rel:.3f} off phase 7's {veps1} "
+                             f"(bar {SSBRM_CHAINS_VEPS_REL_MAX})")
     return out
 
 
@@ -2549,6 +2608,25 @@ def drop_genes(torch, nfound, s_par, d_par, m, rows, gen, dev, n_causal=500,
     return M, gv, int(depth.max())
 
 
+def ssbrm_cohort(torch, n_ids, m, seed, gen, dev):
+    """Phase 7's cohort: a pedigree of n_ids ids (5% founders), 20%
+    genotyped (m SNPs dropped down the pedigree on the card, h2=0.5 from 500
+    causal SNPs), 5% genotyped and 5% non-genotyped phenotyped.  Returns
+    (ids, sires, dams, genotyped rows, phenotyped rows, genotype, true
+    genetic values, y, generations)."""
+    nfound, n_g, n_ph = n_ids // 20, n_ids // 5, n_ids // 20
+    ids, sires, dams, s_par, d_par = make_pedigree(nfound, n_ids - nfound, seed)
+    rng = np.random.default_rng(seed)
+    gi = np.sort(rng.choice(n_ids, n_g, replace=False))
+    others = np.setdiff1d(np.arange(n_ids), gi)
+    phe = np.concatenate([rng.choice(gi, n_ph, replace=False),
+                          rng.choice(others, n_ph, replace=False)])
+    Mg, gv, depth = drop_genes(torch, nfound, s_par, d_par, m, gi, gen, dev)
+    y = (gv[torch.as_tensor(phe, device=dev)]
+         + np.sqrt(0.5) * torch.randn(len(phe), generator=gen, device=dev)).cpu().numpy()
+    return ids, sires, dams, gi, phe, Mg, gv, y, depth
+
+
 def ssbrm_layout(torch, TG, ids, sires, dams, geno, dev, T=64):
     """The epsilon system of the ssbrm main path, built as ssbrm builds it:
     A-inverse of the pedigree, its non-genotyped block in RCM order, packed
@@ -2752,6 +2830,508 @@ def profile_ssbrm(torch, TG, lay, Ai_nn, ng_ids, y_ids, n_g, m, gen, dev):
     return split
 
 
+# ---------------------------------------------------------------------------
+# any block, fold count, tile and chain count (phases 3 and 11)
+# ---------------------------------------------------------------------------
+
+# Phase 11 (the shapes the JAX package runs and the kernels take as
+# sub-blocks, with the run-time fold count, re-tiled, or in groups of
+# chains).  11a is phase 4's cohort and recipe at blocks of 256: the same
+# sampler in another blocking (exact for any blocking), so its GEBV
+# accuracy keeps phase 4's bar, GEBV_CORR_MIN.  11b is the cohort at 12
+# folds (variances log-spaced 1e-5 .. 1e-2 of Vg per SNP) for 50 iterations,
+# 30 of them burn-in: phase 4's chain reaches 0.97 within its first 100
+# iterations on this cohort (every causal SNP a marginal z of about 10),
+# and a draw that reads the wrong packed rows (a fold's logit or slab
+# mixed up) drops the effects or blows them up; 0.85 leaves room for the
+# shorter chain.  11c is phase 5's LD and statistics in tiles of 256
+# (band of 0.9^|i-j| as in phase 5: entries past 5 x 128 SNPs apart are
+# below 1e-20 either way), re-tiled to 128: phase 5's bar SBAYES_CORR_MIN.
+# 11d runs 160 chains of that fit for 20 iterations in groups of chains:
+# each chain's sweep is bit for bit its K=1 launch (checked on one sweep of
+# every group's first chain and chain 0), and every chain's effects finite.
+BAYESR12_CORR_MIN = 0.85
+GROUPED_CHAINS = 160
+
+
+def fold_prior(nf):
+    """BayesR's pi and fold variances: the four folds of the other phases,
+    or nf folds with variances log-spaced from 1e-5 to 1e-2."""
+    if nf == 4:
+        return np.array([0.95, 0.02, 0.02, 0.01]), np.array([0.0, 1e-4, 1e-3, 1e-2])
+    return (np.array([0.95] + [0.05 / (nf - 1)] * (nf - 1)),
+            np.concatenate([[0.0], np.logspace(-5, -2, nf - 1)]))
+
+
+def same(outs, what):
+    """Two launches on one input must be bit-identical."""
+    import torch
+
+    if not all(torch.equal(a, b) for a, b in zip(*outs)):
+        raise AssertionError(f"{what}: two runs differ (not deterministic)")
+
+
+def ibrm_case(torch, TG, TB, M, y, n, m, model, B, K, nf, errs, key, seed):
+    """sweep_mc (and block_draws at one block) at blocks of B with nf
+    folds, K chains, against the plain versions at the bar, the kernel
+    bit-identical twice.  Returns (spec, args)."""
+    pi, fold = fold_prior(nf) if model == "BayesR" else (None, None)
+    data = TG.prepare_gibbs_data(y, M, block=B, fold=fold, geno_dtype="int8", device=M.device)
+    spec, pr, pi = make_spec(TG, model, data, m, n, nf=nf)
+    args = sweep_args(torch, TG, spec, data, pr, pi, K, seed=seed)
+    outs = [TB.sweep_mc(spec, *args) for _ in range(2)]
+    ref = TB.sweep_mc_plain(spec, *args)
+    sb = TB.mc_layout(spec, data.X_blocks)
+    what = (f"sweep_mc {model} B={B} ({sb.S} sub-blocks of {sb.W}) folds={spec.n_fold} "
+            f"K={K}")
+    errs[key] = max(errs.get(key, 0.0), bar(ref, outs[0], what))
+    same(outs, what)
+    consts, X, _, xpx, vx, *per = args
+    P = TB.pack_rows(spec, consts, xpx, vx, per[0], per[1], per[2], per[3], per[4], per[6],
+                     torch.float32)
+    b = min(1, spec.nblocks - 1)
+    P_b = TB.to_block_layout(P, spec.nblocks, B)[b].contiguous()
+    # block b's B columns (its sub-blocks side by side) and their Gram:
+    # integer sums below 2^24, exact in f32
+    Xb = X[b * sb.S:(b + 1) * sb.S].float().permute(1, 0, 2).reshape(X.shape[1], -1)[:, :B]
+    Wb = (Xb.T @ Xb).contiguous()
+    r0 = (per[7] @ Xb).T.contiguous()
+    logpi = consts["logpi"][:, :1].T.contiguous()
+    g_old = P_b[:, 1, :]
+    dg_k, tr_k = TB.block_draws(spec, logpi, P_b, Wb, r0)
+    dg_p, tr_p = TB.block_draws_plain(spec, logpi, P_b, Wb, r0)
+    errs["block_draws_shapes"] = max(errs.get("block_draws_shapes", 0.0), bar(
+        (g_old - dg_p, tr_p), (g_old - dg_k, tr_k), "block_draws " + what))
+    log(f"  ok {what}, and block_draws")
+    return spec, args
+
+
+def summary_case(torch, TB, spec, lay, ins, what, errs, key, fire=False):
+    """A summary sweep (``lay`` a dense segment, or the (tiles, cols, valid)
+    of a tiled LD) against its plain version for one chain and for the
+    stacked chains of ``ins`` [(g, r, P)]: the bar, bit-identical twice,
+    the guard's counts equal to the plain version's, each chain of the
+    batch bit for bit its K=1 launch."""
+    dense = not isinstance(lay, tuple)
+    run = ((lambda r, P: TB.sweep_s_segment(spec, lay, r, P, spec.n)) if dense else
+           (lambda r, P, **kw: TB.sweep_s_tiled(spec, *lay, r, P, spec.n, **kw)))
+    plain = ((lambda r, P: TB.sweep_s_segment_plain(spec, lay, r, P, spec.n)) if dense else
+             (lambda r, P: TB.sweep_s_tiled_plain(spec, *lay, r, P, spec.n)))
+    g, r, P = (torch.stack(x) for x in zip(*ins))
+    K = g.shape[0]
+    fired = 0
+    for gg, rr, PP, label in ((g[0], r[0], P[0], "K=1"), (g, r, P, f"K={K}")):
+        outs = [run(rr, PP) for _ in range(2)]
+        ref = plain(rr, PP)
+        torch.cuda.synchronize()
+        w = f"{what} {label}"
+        errs[key] = max(errs.get(key, 0.0), bar(
+            (gg - ref[0], ref[1], ref[2]), (gg - outs[0][0], outs[0][1], outs[0][2]), w,
+            r_index=2))
+        same(outs, w)
+        if not dense:
+            if not torch.equal(outs[0][3], ref[3]):
+                raise AssertionError(f"{w}: guard counts {outs[0][3].tolist()}, plain "
+                                     f"{ref[3].tolist()}")
+            fired += int(outs[0][3].sum())
+    batch = run(r, P)
+    for k in range(K if r.device.type == "cuda" else 0):   # a kernel's property
+        if not all(torch.equal(a[k], b) for a, b in zip(batch, run(r[k], P[k]))):
+            raise AssertionError(f"{what}: chain {k} differs from its K=1 launch")
+    if fire and not fired:
+        raise AssertionError(f"{what}: the guard did not fire")
+    log(f"  ok {what}: K=1 and K={K} against the plain version, each chain bit for bit "
+        f"its K=1 launch" + (f"; {fired} first draws rejected" if not dense else ""))
+    return fired
+
+
+def check_shapes(torch, TG, TSG, TLD, TSLD, TB, dev, errs, n=4096, m=1024):
+    """Phase 3's checks of the shapes the kernels do not take as they are:
+    sweep_mc and block_draws at blocks of 30, 192, 250 and 256 (sub-blocks
+    of 32, 96, 128 and 128, with pad slots at 30 and 250), BayesR one chain
+    and BayesCpi four, and at 12 and 16 folds (the draw chain's run-time
+    fold instance) at blocks of 128; the dense segment sweep at those
+    blocks; the guarded segment and tiled sweeps at 12 and 16 folds (rows
+    of 136 and 184 floats a SNP, the tiled sweep re-tiled to 64); the tiled
+    sweep on stores of tiles of 10 and 256 (re-tiled to 12 and 128) at a
+    lowered vary where the guard rejects.  Each against its plain version
+    at the bar, bit-identical twice, and each chain of a batch bit for bit
+    its K=1 launch.  Returns the guard's first-draw rejections per case."""
+    from hibayes_tpu_torch.data.ld import DenseLD
+
+    gen = torch.Generator(device=dev).manual_seed(19)
+    M = make_genotype(torch, n, m, gen, dev)
+    y = (M[:, :64].float() @ (0.1 * torch.randn(64, generator=gen, device=dev))
+         + torch.randn(n, generator=gen, device=dev)).cpu().numpy()
+    for B in (30, 192, 250, 256):
+        for model, K in (("BayesR", 1), ("BayesCpi", 4)):
+            ibrm_case(torch, TG, TB, M, y, n, m, model, B, K, 4, errs, "sweep_mc_shapes", K)
+    for nf in (12, 16):
+        for K in (1, 4):
+            ibrm_case(torch, TG, TB, M, y, n, m, "BayesR", 128, K, nf, errs, "sweep_mc_folds",
+                      K + nf)
+    del M
+    sm = 1000
+    LD = ar1_ld(torch, sm, dev)
+    ss, _ = summary_stats(torch, lambda v: LD @ v, sm, sm, gen, dev)
+    for B in (30, 192, 250, 256):
+        data, spec, pr, pi = s_setup(torch, TG, TSG, ss, DenseLD(values=LD), "BayesCpi", B,
+                                     dev, False)
+        seg = data.ld_segs[0]
+        ins = [s_sweep_inputs(torch, TSG, spec, data, pr, pi, lambda v: seg @ v, seed=5 + k)
+               for k in range(4)]
+        sb = TB.segment_sub_blocks(spec, B)
+        summary_case(torch, TB, spec, seg, ins,
+                     f"sweep_s_segment B={B} ({sb.S} sub-blocks of {sb.W})", errs,
+                     "sweep_s_segment_shapes")
+    fired = {}
+    sld = pruned_ld(torch, TLD, sm, dev)
+    ss_p, _ = summary_stats(torch, lambda v: sld.values @ v, sm, sm, gen, dev)
+    tld = banded_ld(torch, TSLD, sm, dev, K=5)
+    ss_t, _ = summary_stats(torch, tiled_matvec(torch, tld), sm, tld.m_pad, gen, dev)
+    for nf in (12, 16):
+        data, spec, pr, pi = s_setup(torch, TG, TSG, ss_p, sld, "BayesR", 64, dev, True, nf=nf)
+        seg = data.ld_segs[0]
+        ins = [s_sweep_inputs(torch, TSG, spec, data, pr, pi, lambda v: seg @ v, seed=7 + k)
+               for k in range(4)]
+        summary_case(torch, TB, spec, seg, ins, f"sweep_s_segment guarded BayesR {nf} folds",
+                     errs, "seg_folds")
+        data, spec, pr, pi = s_setup(torch, TG, TSG, ss_t, tld, "BayesR", 128, dev, True, nf=nf)
+        lay = (data.ld_tiles, data.ld_cols, data.ld_valid)
+        ins = [s_sweep_inputs(torch, TSG, spec, data, pr, pi, tiled_matvec(torch, tld),
+                              seed=9 + k) for k in range(4)]
+        sb = TB.tiled_sub_blocks(spec, 128)
+        fired[f"folds{nf}"] = summary_case(
+            torch, TB, spec, lay, ins,
+            f"sweep_s_tiled BayesR {nf} folds (re-tiled to {sb.W})", errs, "tiled_folds")
+    for T, K_band in ((10, 9), (256, 3)):
+        tl = banded_ld(torch, TSLD, 1500, dev, T=T, K=K_band)
+        ss_T, _ = summary_stats(torch, tiled_matvec(torch, tl), 1500, tl.m_pad, gen, dev)
+        data, spec, pr, pi = s_setup(torch, TG, TSG, ss_T, tl, "BayesCpi", T, dev, True)
+        spec = spec.__class__(**{**spec.__dict__, "vary": 2e-4})
+        lay = (data.ld_tiles, data.ld_cols, data.ld_valid)
+        ins = [s_sweep_inputs(torch, TSG, spec, data, pr, pi, tiled_matvec(torch, tl),
+                              seed=11 + k) for k in range(4)]
+        sb = TB.tiled_sub_blocks(spec, T)
+        fired[f"tile{T}"] = summary_case(
+            torch, TB, spec, lay, ins, f"sweep_s_tiled tile {T} (re-tiled to {sb.W}), vary 2e-4",
+            errs, "tiled_retiled", fire=True)
+    return fired
+
+
+def time_sweep_shape(torch, TG, TB, dev, M, y, B, nf, errs, key, nbg=16):
+    """sweep_mc at K=1 on the main path's genotype (phase 4's cohort) at
+    blocks of B with nf BayesR folds, its first nbg blocks: the bar against
+    its plain version (into errs[key]), device times of the kernel and the
+    plain version, torch.mv of the two products per block as the library
+    yardstick, the bound, and the full sweep.  Returns (times, bounds)."""
+    n, m = M.shape
+    pi, fold = fold_prior(nf)
+    data = TG.prepare_gibbs_data(y, M, block=B, fold=fold, geno_dtype="int8", device=dev)
+    spec, pr, pi = make_spec(TG, "BayesR", data, m, n, nf=nf)
+    args = sweep_args(torch, TG, spec, data, pr, pi, 1, seed=5)
+    consts, X, W, xpx, vx, *per = args
+    nbg = min(nbg, spec.nblocks)
+    cols = slice(0, nbg * B)
+    part = (spec, consts, X, W, xpx[cols], vx[cols], *(a[:, cols] for a in per[:7]),
+            per[7], per[8])
+    outs = [TB.sweep_mc(*part, block_range=(0, nbg)) for _ in range(2)]
+    what = f"sweep_mc at phase 4's shapes, B={B}, {nf} folds"
+    errs[key] = max(errs.get(key, 0.0), bar(TB.sweep_mc_plain(*part, block_range=(0, nbg)),
+                                            outs[0], what))
+    same(outs, what)
+    t = {key: cuda_ms(torch, lambda: TB.sweep_mc(*part, block_range=(0, nbg)), 10),
+         key + "_plain": cuda_ms(torch, lambda: TB.sweep_mc_plain(*part, block_range=(0, nbg)),
+                                 2),
+         key + "_full": cuda_ms(torch, lambda: TB.sweep_mc(spec, *args), 3)}
+    sb = TB.mc_layout(spec, X)   # X and W hold nbg S sub-blocks of W
+    nbk = nbg * sb.S
+    Xf = X[:nbk].float()
+    t[key + "_library"] = cuda_ms(torch, mv_products(torch, Xf, per[7][0], sb.W), 10)
+    del Xf
+    if B <= TB.MAX_BLOCK:   # the draw chain alone on block 0 (cycles a draw)
+        P = TB.pack_rows(spec, consts, xpx, vx, per[0], per[1], per[2], per[3], per[4],
+                         per[6], torch.float32)
+        P_b = TB.to_block_layout(P, spec.nblocks, B)[0]
+        r0 = (per[7] @ X[0].float()).T
+        us, cyc = chain_us(torch, TB, spec, W[0], P_b[:, :, 0].contiguous(),
+                           r0[:, 0].contiguous())
+        t[key + "_chain_us"], t[key + "_chain_cycles_per_draw"] = us, cyc / B
+    R = TB.n_rows(spec)
+    m_loc = nbg * B
+    by = (nbytes(X[:nbk], W[:nbk], xpx[cols], vx[cols]) + 4 * R * m_loc + 4 * m_loc * 3
+          + 2 * nbytes(per[7], per[8]))
+    bounds = {key: bound(by, nbk * (4.0 * X.shape[1] * sb.W + 2.0 * sb.W * sb.W))}
+    log(f"  ok {what}: {t[key]:.4f} ms (plain {t[key + '_plain']:.1f}, torch.mv "
+        f"{t[key + '_library']:.4f}, bound {bounds[key][0]:.4f}); the full sweep "
+        f"{t[key + '_full']:.3f} ms")
+    return t, bounds
+
+
+def flagship_shapes(torch, ht, TG, TB, dev, M, data, gv, args, niter_eff, thin, smi, ms4,
+                    errs):
+    """Phases 11a and 11b on phase 4's cohort: ibrm BayesR at blocks of
+    256 (the kernels' sub-blocks of 128) for phase 4's iterations, and at
+    12 folds for 50 iterations (30 burn-in), each through sweep1 only (one
+    launch an iteration, no plain call), finite, its GEBV accuracy against
+    its bar, ms/iter beside phase 4's; with each sweep timed beside its
+    plain version at these shapes first.  Returns (numbers, times, bounds)."""
+    times, bounds, out = {}, {}, {}
+    for key, B, nf in (("sweep_mc_b256", 256, 4), ("sweep_mc_f12", 128, 12)):
+        t, b = time_sweep_shape(torch, TG, TB, dev, M, data["y"], B, nf, errs, key)
+        times.update(t)
+        bounds.update(b)
+    gvn = gv.cpu().numpy()
+    for what, B, nf, niter, nburn, bar_min in (("11a", 256, 4, args.niter, args.nburn,
+                                                GEBV_CORR_MIN),
+                                               ("11b", 128, 12, 50, 30, BAYESR12_CORR_MIN)):
+        pi, fold = fold_prior(nf) if nf != 4 else (None, None)   # 4: phase 4's defaults
+        n_eff = nburn + ((niter - nburn) // thin) * thin
+        reset_counts(TB)
+        fit = ht.ibrm("y ~ x1 + (1|grp)", data=data, M=M, M_id=data["id"], method="BayesR",
+                      Pi=pi, fold=fold, niter=niter, nburn=nburn, thin=thin, block=B,
+                      seed=args.seed, device=dev, verbose=False)
+        torch.cuda.synchronize()
+        launches, plain = read_counts(TB)
+        expect_counts(launches, plain, {"sweep_mc": n_eff, "sweep1": n_eff}, what)
+        for k in ("Vg", "Ve", "h2"):
+            if not np.isfinite(getattr(fit, k)):
+                raise AssertionError(f"{what}: {k} is not finite")
+        gebv = fit.g["gebv"]
+        if gebv.shape != gvn.shape or not np.isfinite(gebv).all():
+            raise AssertionError(f"{what}: GEBV of the wrong shape or not finite")
+        acc = float(np.corrcoef(gebv, gvn)[0, 1])
+        ms = 1e3 * fit.chain_seconds / n_eff
+        out[what] = {"ms_per_iter": ms, "acc": acc, "launches": launches, "h2": fit.h2}
+        log(f"[{what}] ibrm BayesR, blocks of {B}, {nf} folds, n={M.shape[0]} m={M.shape[1]}, "
+            f"{niter} iterations: h2 {fit.h2:.4f}, GEBV corr {acc:.4f} (bar {bar_min}); "
+            f"chain {fit.chain_seconds:.2f} s = {ms:.2f} ms/iter against phase 4's blocks of "
+            f"128, 4 folds {ms4:.2f} on {smi}")
+        if not acc >= bar_min:
+            raise AssertionError(f"{what}: GEBV accuracy {acc} below {bar_min}")
+        del fit
+    return out, times, bounds
+
+
+def tiled_shapes(torch, ht, TSLD, TSG, TG, TB, dev, ss, b_true, args, thin, smi, ms5, errs):
+    """Phases 11c and 11d on phase 5's statistics: the band stored in tiles
+    of 256 (built on the card), re-tiled to 128 by the sweep; the tiled
+    sweep on it against its plain version (16 rows of 256) and timed; sbrm
+    BayesCpi through one tiled_sweep launch an iteration only, accuracy
+    against SBAYES_CORR_MIN, ms/iter beside phase 5's; then 160 chains for
+    20 iterations, in groups of chains (a launch each), every chain finite,
+    and one sweep on the fit's final states whose every group's first chain
+    and chain 0 are bit for bit their K=1 launches."""
+    t0 = time.perf_counter()
+    tld = banded_ld(torch, TSLD, args.sm, dev, T=256, K=5)
+    torch.cuda.synchronize()
+    log(f"[11c] tiled LD m={args.sm} in tiles of 256: {tld.nbr} tile rows x {tld.k_max} slots, "
+        f"{tld.tiles.numel() * 4 / 1e9:.3f} GB f32, made on the card in "
+        f"{time.perf_counter() - t0:.1f} s")
+    sdata, sspec, spr, spi = s_setup(torch, TG, TSG, ss, tld, "BayesCpi", 256, dev, True)
+    lay = (sdata.ld_tiles, sdata.ld_cols, sdata.ld_valid)
+    t0 = time.perf_counter()
+    sb = TB.tiled_sub_blocks(sspec, 256)
+    TB.sub_block_tiles(*lay, sb)
+    torch.cuda.synchronize()
+    t_retile = time.perf_counter() - t0
+    g, r, P = s_sweep_inputs(torch, TSG, sspec, sdata, spr, spi, tiled_matvec(torch, tld), 5)
+    rows = 16
+    part = (sdata.ld_tiles[:rows].contiguous(), sdata.ld_cols[:rows],
+            sdata.ld_valid[:rows] & (sdata.ld_cols[:rows] < rows))
+    cut = rows * 256
+    pr_ = P[:, :cut].contiguous()
+    outs = [TB.sweep_s_tiled(sspec, *part, r[:cut].contiguous(), pr_, sspec.n)
+            for _ in range(2)]
+    ref = TB.sweep_s_tiled_plain(sspec, *part, r[:cut].contiguous(), pr_, sspec.n)
+    what = "sweep_s_tiled at 11c's shapes (16 rows of 256, re-tiled to 128)"
+    errs["tiled256"] = bar((g[:cut] - ref[0], ref[1], ref[2]),
+                           (g[:cut] - outs[0][0], outs[0][1], outs[0][2]), what, r_index=2)
+    same(outs, what)
+    times = {"tiled256": cuda_ms(torch, lambda: TB.sweep_s_tiled(
+                 sspec, *part, r[:cut].contiguous(), pr_, sspec.n), 10),
+             "tiled256_plain": cuda_ms(torch, lambda: TB.sweep_s_tiled_plain(
+                 sspec, *part, r[:cut].contiguous(), pr_, sspec.n), 1),
+             "tiled256_full": cuda_ms(torch, lambda: TB.sweep_s_tiled(
+                 sspec, *lay, r, P, sspec.n), 3),
+             "retile_s": t_retile}
+    R = TB.summary_rows(sspec)
+    nv = int(part[2].sum())
+    bounds = {"tiled256": bound(nv * 256 * 256 * 4 + 4 * cut * (R + 4),
+                                2.0 * nv * 256 * 256),
+              "tiled256_full": bound(int(sdata.ld_valid.sum()) * 256 * 256 * 4
+                                     + 4 * tld.m_pad * (R + 4),
+                                     2.0 * int(sdata.ld_valid.sum()) * 256 * 256)}
+    log(f"  ok {what}: {times['tiled256']:.4f} ms (plain {times['tiled256_plain']:.1f}), the "
+        f"full sweep {times['tiled256_full']:.3f} ms, re-tiling once {t_retile:.2f} s")
+    del sdata
+    n_eff = args.nburn + ((args.niter - args.nburn) // thin) * thin
+    reset_counts(TB)
+    fit = ht.sbrm(ss, tld, method="BayesCpi", fold=np.array([0.0, 1.0]), niter=args.niter,
+                  nburn=args.nburn, thin=thin, seed=args.seed, device=dev, verbose=False)
+    torch.cuda.synchronize()
+    launches, plain = read_counts(TB)
+    expect_counts(launches, plain, {"sweep_s_tiled": n_eff, "tiled_sweep": n_eff}, "11c")
+    acc = check_fit(fit, b_true, "11c")
+    ms = 1e3 * fit.chain_seconds / n_eff
+    log(f"[11c] sbrm BayesCpi on the tile-256 LD m={args.sm}: h2 {fit.h2:.4f}, corr(alpha, "
+        f"b_true) {acc:.4f} (bar {SBAYES_CORR_MIN}); chain {fit.chain_seconds:.2f} s = "
+        f"{ms:.2f} ms/iter against phase 5's tiles of 128 {ms5:.2f} on {smi}")
+    if not acc >= SBAYES_CORR_MIN:
+        raise AssertionError(f"11c: accuracy {acc} below {SBAYES_CORR_MIN}")
+    out = {"11c": {"ms_per_iter": ms, "acc": acc, "launches": launches}}
+    del fit
+    # 11d: a batch larger than the card holds drawers at once
+    C, niter, nburn = GROUPED_CHAINS, 20, 10
+    n_eff = nburn + ((niter - nburn) // thin) * thin
+    reset_counts(TB)
+    fit = ht.sbrm(ss, tld, method="BayesCpi", fold=np.array([0.0, 1.0]), niter=niter,
+                  nburn=nburn, thin=thin, seed=args.seed, device=dev, nchains=C,
+                  verbose=False)
+    torch.cuda.synchronize()
+    launches, plain = read_counts(TB)
+    sdata, sspec, spr, spi = s_setup(torch, TG, TSG, ss, tld, "BayesCpi", 256, dev, True)
+    ck, vk = TB.sub_block_tiles(sdata.ld_tiles, sdata.ld_cols, sdata.ld_valid, sb)[1:]
+    G = TB.tiled_group(sspec, sb.W, TB._layout_schedule(ck, vk).items.shape[0])
+    groups = TB._chain_groups(C, G)
+    expect_counts(launches, plain, {"sweep_s_tiled": n_eff * len(groups),
+                                    "tiled_sweep": n_eff * len(groups)}, "11d")
+    alpha = per_chain(fit, "alpha", C, (niter - nburn) // thin)
+    if not np.isfinite(alpha).all() or np.asarray(fit.guard).shape != (C, 2):
+        raise AssertionError("11d: non-finite effects or guard counts of the wrong shape")
+    ms = 1e3 * fit.chain_seconds / n_eff
+    accs = [float(np.corrcoef(alpha[c].mean(0), b_true)[0, 1]) for c in (0, C - 1)]
+    # one sweep of all C chains from C distinct states, against K=1 launches
+    ins = [s_sweep_inputs(torch, TSG, sspec, sdata, spr, spi, tiled_matvec(torch, tld), 30 + k)
+           for k in range(2)]
+    rs = torch.stack([ins[k % 2][1] * (1.0 + 1e-3 * k) for k in range(C)])
+    Ps = torch.stack([ins[k % 2][2] for k in range(C)])
+    lay = (sdata.ld_tiles, sdata.ld_cols, sdata.ld_valid)
+    reset_counts(TB)
+    batch = TB.sweep_s_tiled(sspec, *lay, rs, Ps, sspec.n)
+    got, _ = read_counts(TB)
+    if got["tiled_sweep"] != len(groups):
+        raise AssertionError(f"11d: {got['tiled_sweep']} launches for {len(groups)} groups")
+    firsts = sorted({0, C - 1, *(g_.start for g_ in groups)})
+    for k in firsts:
+        one = TB.sweep_s_tiled(sspec, *lay, rs[k], Ps[k], sspec.n)
+        if not all(torch.equal(a[k], b) for a, b in zip(batch, one)):
+            raise AssertionError(f"11d: chain {k} of the grouped launches differs from its "
+                                 f"K=1 launch")
+    times["tiled_grouped_full"] = cuda_ms(torch, lambda: TB.sweep_s_tiled(
+        sspec, *lay, rs, Ps, sspec.n), 1)
+    # the bar and the times on the first 16 rows of 256, all C chains
+    gs = torch.stack([ins[k % 2][0][:cut] for k in range(C)])
+    rc, Pc = rs[:, :cut].contiguous(), Ps[:, :, :cut].contiguous()
+    outs = [TB.sweep_s_tiled(sspec, *part, rc, Pc, sspec.n) for _ in range(2)]
+    ref = TB.sweep_s_tiled_plain(sspec, *part, rc, Pc, sspec.n)
+    what = f"sweep_s_tiled at 11d's shapes ({C} chains, 16 rows of 256)"
+    errs["tiled_grouped"] = bar((gs - ref[0], ref[1], ref[2]),
+                                (gs - outs[0][0], outs[0][1], outs[0][2]), what, r_index=2)
+    same(outs, what)
+    times["tiled_grouped"] = cuda_ms(torch, lambda: TB.sweep_s_tiled(
+        sspec, *part, rc, Pc, sspec.n), 5)
+    times["tiled_grouped_plain"] = cuda_ms(torch, lambda: TB.sweep_s_tiled_plain(
+        sspec, *part, rc, Pc, sspec.n), 1)
+    bounds["tiled_grouped"] = bound(nv * 256 * 256 * 4 + C * 4 * cut * (R + 4),
+                                    C * 2.0 * nv * 256 * 256)
+    bounds["tiled_grouped_full"] = bound(
+        int(sdata.ld_valid.sum()) * 256 * 256 * 4 + C * 4 * tld.m_pad * (R + 4),
+        C * 2.0 * int(sdata.ld_valid.sum()) * 256 * 256)
+    log(f"  ok {what}: {times['tiled_grouped']:.4f} ms (plain "
+        f"{times['tiled_grouped_plain']:.1f}); one grouped sweep of the whole LD "
+        f"{times['tiled_grouped_full']:.3f} ms for {C} chains")
+    out["11d"] = {"ms_per_iter": ms, "launches": launches, "groups": [g_.stop - g_.start
+                                                                      for g_ in groups],
+                  "acc_chain0": accs[0], "acc_last": accs[1], "checked_chains": firsts}
+    log(f"[11d] sbrm BayesCpi, {C} chains, {niter} iterations on the tile-256 LD: "
+        f"{len(groups)} groups of {out['11d']['groups']} chains (at most {G} a launch), "
+        f"{launches['tiled_sweep']} tiled_sweep launches; chains {firsts} of one grouped "
+        f"sweep bit for bit their K=1 launches; accuracy chain 0 {accs[0]:.4f}, chain "
+        f"{C - 1} {accs[1]:.4f} after {niter} iterations; chain {fit.chain_seconds:.2f} s = "
+        f"{ms:.2f} ms/iter, {C * n_eff * args.sm / fit.chain_seconds:.4g} SNP-updates/s over "
+        f"{C} chains on {smi}")
+    return out, times, bounds
+
+
+def profile_ssbrm_batch(torch, TG, Ai_nn, ng_ids, y_ids, n_g, m, gen, dev, K=4):
+    """Phase 11e: where 10a's K-chain iteration spends its time, by the
+    port's profiling helpers: device_trace (torch.profiler) over 3
+    iterations of K chains at 10a's shapes (n_g + ne rows of float32
+    dosages, random here; blocks of 64; the epsilon system of phase 7),
+    each iteration's pre-sweep, sweep and post-sweep as annotate ranges;
+    CUDA time per iteration of the rows kernel, the draws kernel, the
+    epsilon kernel and the torch ops, and the ranges' host times."""
+    from hibayes_tpu_torch.ops import blockgibbs as TB
+    from hibayes_tpu_torch.utils import annotate, device_trace
+
+    codes = np.flatnonzero(np.isin(ng_ids, y_ids))
+    ne = len(codes)
+    n = n_g + ne
+    X = 2.0 * torch.rand((n, m), generator=gen, device=dev)
+    y = torch.randn(n, generator=gen, device=dev).cpu().numpy()
+    yJ = np.concatenate([-np.ones(n_g), -np.random.default_rng(1).random(ne)])
+    data = TG.prepare_gibbs_data(y, X, epsl_yJ=yJ, epsl_A=Ai_nn, epsl_codes=codes,
+                                 qe=Ai_nn.shape[0], block=64, device=dev)
+    del X
+    spec, pr, pi = make_spec(TG, "BayesCpi", data, m, n)
+    spec = spec.__class__(**{**spec.__dict__, "ne": ne, "qe": Ai_nn.shape[0],
+                             "qe_pad": int(data.epsl_counts.shape[0])})
+    states = TG.stack_state(TG.init_state(spec, data, pr, pi), K)
+
+    def step(st):
+        noise = TG.chain_noise(1, st.it, K, dev, data.y.dtype)
+        with annotate("pre_sweep"):
+            pre = TG._pre_sweep(spec, data, noise, st)
+        with annotate("sweep"):
+            out = TB.sweep_mc(spec, pre["consts"], data.X_blocks, data.W_blocks, data.xpx,
+                              data.vx, pre["vei"], st.g, *pre["rnd"], pre["vargL_in"],
+                              pre["yadj"], pre["u"])
+        with annotate("post_sweep"):
+            return TG._post_sweep(spec, data, noise, st, pre, out)
+
+    states = step(states)
+    torch.cuda.synchronize()
+    iters = 3
+    logdir = tempfile.mkdtemp(prefix="profile_10a_")
+    try:
+        with device_trace(logdir) as prof:
+            t0 = time.perf_counter()
+            for _ in range(iters):
+                states = step(states)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        trace_mb = os.path.getsize(os.path.join(logdir, "trace.json")) / 1e6
+    finally:
+        shutil.rmtree(logdir, ignore_errors=True)
+    dev_ms, host_ms = {}, {}
+    ranges = ("pre_sweep", "sweep", "post_sweep")
+    for e in prof.key_averages():
+        if e.key in ranges:   # the annotations (their device spans would count twice)
+            if e.cpu_time_total > 0:
+                host_ms[e.key] = e.cpu_time_total / 1e3 / iters
+            continue
+        t = getattr(e, "self_device_time_total", 0) or 0
+        if t > 0:
+            dev_ms[e.key] = dev_ms.get(e.key, 0.0) + t / 1e3 / iters
+    part = lambda key: sum(v for k, v in dev_ms.items() if key in k)
+    split = {"rows_mc_kernel": part("rows_mc_kernel"), "draws_kernel": part("draws_kernel"),
+             "mme_sweep_kernel": part("mme_sweep_kernel")}
+    split["torch_ops"] = sum(dev_ms.values()) - sum(split.values())
+    split["device_busy"] = sum(dev_ms.values())
+    split["wall"] = 1e3 * wall / iters
+    split["host_ranges"] = host_ms
+    split["trace_mb"] = trace_mb
+    log(f"[11e] 10a's iteration at K={K} (n={n}, m={m}, qe={Ai_nn.shape[0]}), device_trace "
+        f"over {iters} iterations, ms per iteration by CUDA time: rows_mc_kernel "
+        f"{split['rows_mc_kernel']:.3f}, draws_kernel {split['draws_kernel']:.3f}, "
+        f"mme_sweep_kernel {split['mme_sweep_kernel']:.3f}, torch ops "
+        f"{split['torch_ops']:.3f}; device busy {split['device_busy']:.3f} of a "
+        f"{split['wall']:.3f} ms wall; host time of the annotated ranges "
+        f"{json.dumps({k: round(v, 3) for k, v in host_ms.items()})}; trace {trace_mb:.1f} MB")
+    return split
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--n", type=int, default=50_000)
@@ -2832,10 +3412,12 @@ def main(argv=None) -> int:
     errs.update(sweep_s_tiled_k=0.0, mme_sweep_k=0.0)
     fired_k = check_tiled_mc(torch, TG, TSG, TSLD, TB, dev, errs)
     check_mme_mc(torch, TG, TB, dev, errs)
+    fired_shapes = check_shapes(torch, TG, TSG, TLD, TSLD, TB, dev, errs)
     log(f"[3] kernel checks passed in {time.perf_counter() - t0:.1f} s: {errs}; "
         f"the guard rejected {nrej} first draws at the lowered vary (tile 128); "
         f"guarded segment and tile-64 counts at the lowered vary {json.dumps(fired)}; "
-        f"K-chain tiled counts per chain at the lowered vary {json.dumps(fired_k)}")
+        f"K-chain tiled counts per chain at the lowered vary {json.dumps(fired_k)}; "
+        f"re-tiled and many-fold tiled first draws rejected {json.dumps(fired_shapes)}")
 
     B = 128
     gen = torch.Generator(device=dev).manual_seed(args.seed)
@@ -2900,6 +3482,15 @@ def main(argv=None) -> int:
         raise AssertionError(f"GEBV accuracy {corr} below {GEBV_CORR_MIN}")
     del fit
     mark("4")
+
+    # ---- 11a, 11b. the flagship at blocks of 256 and with 12 folds ----
+    flag11, t11, b11 = flagship_shapes(torch, hibayes_tpu_torch, TG, TB, dev, M, data, gv,
+                                       args, niter_eff, thin, smi,
+                                       1e3 * chain_s / niter_eff, errs)
+    times.update(t11)
+    bounds.update(b11)
+    torch.cuda.empty_cache()
+    mark("11a-11b")
 
     # ---- 4b. the flagship with 4 chains, to read R-hat ----
     split4 = profile_chains(torch, TG, TB, M, data["y"], 4, "BayesR", smi, B)
@@ -2973,6 +3564,14 @@ def main(argv=None) -> int:
     mark("10b")
     del tld
     torch.cuda.empty_cache()
+
+    # ---- 11c, 11d. phase 5's LD in tiles of 256; 160 chains in groups ----
+    tiled11, t11c, b11c = tiled_shapes(torch, hibayes_tpu_torch, TSLD, TSG, TG, TB, dev, ss,
+                                       b_true, args, thin, smi, ms5, errs)
+    times.update(t11c)
+    bounds.update(b11c)
+    torch.cuda.empty_cache()
+    mark("11c-11d")
 
     # ---- 6. sbrm dense path, then CG ----
     t0 = time.perf_counter()
@@ -3049,17 +3648,10 @@ def main(argv=None) -> int:
 
     # ---- 7. ssbrm: pedigree, imputation, epsilon Gibbs ----
     n_ids, ss_m = args.ss_ids, args.ss_m
-    nfound, n_g, n_ph = n_ids // 20, n_ids // 5, n_ids // 20
+    nfound, n_g = n_ids // 20, n_ids // 5
     t0 = time.perf_counter()
-    ids, sires, dams, s_par, d_par = make_pedigree(nfound, n_ids - nfound, args.seed)
-    rng = np.random.default_rng(args.seed)
-    gi = np.sort(rng.choice(n_ids, n_g, replace=False))
-    others = np.setdiff1d(np.arange(n_ids), gi)
-    phe = np.concatenate([rng.choice(gi, n_ph, replace=False),
-                          rng.choice(others, n_ph, replace=False)])
-    Mg, gv, depth = drop_genes(torch, nfound, s_par, d_par, ss_m, gi, gen, dev)
-    y = (gv[torch.as_tensor(phe, device=dev)]
-         + np.sqrt(0.5) * torch.randn(len(phe), generator=gen, device=dev)).cpu().numpy()
+    ids, sires, dams, gi, phe, Mg, gv, y, depth = ssbrm_cohort(torch, n_ids, ss_m, args.seed,
+                                                                gen, dev)
     torch.cuda.synchronize()
     log(f"[7] pedigree of {n_ids} ids ({nfound} founders, {depth} generations), genotype "
         f"{tuple(Mg.shape)} int8 dropped down it on the card in "
@@ -3083,6 +3675,9 @@ def main(argv=None) -> int:
         f"{json.dumps({**b_mme, **b_sw})}")
     profile_ssbrm(torch, TG, lay, Ai_nn, ng_ids, ids[phe], n_g, ss_m, gen, dev)
     del lay
+    torch.cuda.empty_cache()
+    split10a = profile_ssbrm_batch(torch, TG, Ai_nn, ng_ids, ids[phe], n_g, ss_m,
+                                   torch.Generator(device=dev).manual_seed(23), dev)
     torch.cuda.empty_cache()
 
     # two small fits with one seed, then the direct path
@@ -3142,6 +3737,7 @@ def main(argv=None) -> int:
     if not corr_s >= SSBRM_CORR_MIN:
         raise AssertionError(f"ssbrm accuracy {corr_s} below {SSBRM_CORR_MIN}")
     ms7 = 1e3 * fit.chain_seconds / niter_eff
+    veps7 = fit.Veps
     del fit
     torch.cuda.empty_cache()
     mark("7")
@@ -3150,7 +3746,7 @@ def main(argv=None) -> int:
     ss4 = ssbrm_chains(torch, hibayes_tpu_torch, TB, dict(
         data={"id": ids[phe], "y": y}, M=Mg, M_id=ids[gi],
         pedigree={"id": ids, "sire": sires, "dam": dams}), ids, gi, phe, gv, 4, args,
-        niter_eff, thin, smi, ms7, times)
+        niter_eff, thin, smi, ms7, times, veps7)
     del Mg
     mark("10a")
 
@@ -3332,7 +3928,47 @@ def main(argv=None) -> int:
               full_sweep_bound_ms=bounds["mme_sweep_k4_full"][0],
               chain_latency_floor_ms=times["mme_chain_floor_ms"],
               ms_per_iter=ss4["ms_per_iter"],
-              resumed_launches=rs["ssbrm_4_chains"]["launches"]["mme_sweep_kernel"]),
+              resumed_launches=rs["ssbrm_4_chains"]["launches"]["mme_sweep_kernel"],
+              split_10a_ms=split10a),
+        entry("sweep1_kernel_blocks_of_256", src, "hibayes_tpu/ops/blockgibbs.py:642",
+              flag11["11a"]["launches"]["sweep1"], errs["sweep_mc_b256"], "sweep_mc_b256",
+              library_ms=times["sweep_mc_b256_library"],
+              library="torch.mv of X_b' r and X_b dg, 16 blocks of 256, float32 copy",
+              timed="phase 4's genotype at blocks of 256 (sub-blocks of 128), 16 blocks, "
+                    "BayesR, K=1",
+              launches_from="phase 11a", full_sweep_ms=times["sweep_mc_b256_full"],
+              ms_per_iter=flag11["11a"]["ms_per_iter"],
+              shapes_max_abs_err={"sweep_mc": errs["sweep_mc_shapes"],
+                                  "block_draws": errs["block_draws_shapes"],
+                                  "segment": errs["sweep_s_segment_shapes"]}),
+        entry("sweep1_kernel_12_folds", src, "hibayes_tpu/ops/blockgibbs.py:1264",
+              flag11["11b"]["launches"]["sweep1"], errs["sweep_mc_f12"], "sweep_mc_f12",
+              library_ms=times["sweep_mc_f12_library"],
+              library="torch.mv of X_b' r and X_b dg, 16 blocks of 128, float32 copy",
+              timed="phase 4's genotype, BayesR with 12 folds (the run-time fold instance), "
+                    "16 blocks of 128, K=1",
+              launches_from="phase 11b", full_sweep_ms=times["sweep_mc_f12_full"],
+              ms_per_iter=flag11["11b"]["ms_per_iter"],
+              chain_us_per_block=times["sweep_mc_f12_chain_us"],
+              chain_cycles_per_draw=times["sweep_mc_f12_chain_cycles_per_draw"],
+              folds_max_abs_err={"sweep_mc": errs["sweep_mc_folds"],
+                                 "segment_guarded": errs["seg_folds"],
+                                 "tiled_guarded": errs["tiled_folds"]}),
+        entry("tiled_sweep_tile256", ssrc, "hibayes_tpu/ops/blockgibbs.py:1635",
+              tiled11["11c"]["launches"]["tiled_sweep"], errs["tiled256"], "tiled256",
+              timed="phase 5's LD in tiles of 256, re-tiled to 128, first 16 rows of 256",
+              launches_from="phase 11c", full_sweep_ms=times["tiled256_full"],
+              full_sweep_bound_ms=bounds["tiled256_full"][0], retile_s=times["retile_s"],
+              ms_per_iter=tiled11["11c"]["ms_per_iter"],
+              retiled_max_abs_err=errs["tiled_retiled"]),
+        entry("tiled_sweep_grouped", ssrc, "hibayes_tpu/ops/blockgibbs.py:1635",
+              tiled11["11d"]["launches"]["tiled_sweep"], errs["tiled_grouped"],
+              "tiled_grouped",
+              timed=f"{GROUPED_CHAINS} chains in groups on 11c's LD, first 16 rows of 256",
+              launches_from="phase 11d", groups=tiled11["11d"]["groups"],
+              full_sweep_ms=times["tiled_grouped_full"],
+              full_sweep_bound_ms=bounds["tiled_grouped_full"][0],
+              ms_per_iter=tiled11["11d"]["ms_per_iter"]),
     ]
     idle = [k["name"] for k in kernels if not k["launches"]]
     if idle:

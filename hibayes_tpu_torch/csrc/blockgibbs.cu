@@ -232,6 +232,7 @@ struct Sweep1Args {
   int wb;             // buffers of W: 2, W_{b+1} lands under block b's chain;
                       // 1, after it (the drawer then has room for its tile's X)
   long long* stamps;  // measurement only (null in use)
+  int nf;             // BayesR folds (read by the NF = kRuntimeFold instance)
 };
 
 // A row tile of X as the row work reads it: in global memory as stored, or
@@ -495,8 +496,8 @@ __device__ __forceinline__ void s1_rows_step(const Sweep1Args<XT>& a, const S1Ro
 // tiles t = c - 1 (mod G); CTA 0 draws.
 template <typename XT, int MI, int NF>
 __global__ void __launch_bounds__(kS1Threads, 1) sweep1_kernel(Sweep1Args<XT> a) {
-  constexpr int R = packed_rows(MI, NF);
-  constexpr int RP = padded_stride(R);
+  const int R = packed_rows(MI, NF == kRuntimeFold ? a.nf : NF);
+  const int RP = padded_stride(R);
   extern __shared__ __align__(16) unsigned char s1_smem[];
   const int B = a.B;
   const int G = gridDim.x;
@@ -614,7 +615,7 @@ __global__ void __launch_bounds__(kS1Threads, 1) sweep1_kernel(Sweep1Args<XT> a)
         mbar_wait(bar + s % a.wb, (s / a.wb) & 1);   // W_s has landed
         stamp(sb, 2);
         warp_block_draws<MI, NF>(B, Wb + (s % a.wb) * B * B, Pb + (s & 1) * B * RP, r, gi, dg,
-                                 tr);
+                                 tr, 0.f, 1.f, a.nf);
         stamp(sb, 6);
         const long long lb = static_cast<long long>(s) * B;
 #pragma unroll
@@ -965,9 +966,9 @@ __global__ void __launch_bounds__(kDrawThreads)
 draws_kernel(const float* __restrict__ partial, int ntiles,
              const float* __restrict__ W, const float* __restrict__ P, int B,
              int K, float* gi_out, float* dg_out, float* tr_out, long long sj,
-             long long sk, long long* stamps) {
-  constexpr int R = packed_rows(MI, NF);
-  constexpr int RP = padded_stride(R);
+             long long sk, long long* stamps, int nf) {
+  const int R = packed_rows(MI, NF == kRuntimeFold ? nf : NF);
+  const int RP = padded_stride(R);
   extern __shared__ __align__(16) float smem[];
   const int k = blockIdx.x;
   float* Ws = smem;         // B * B
@@ -1019,7 +1020,7 @@ draws_kernel(const float* __restrict__ partial, int ntiles,
     gi[s] = dg[s] = tr[s] = 0.f;
   }
   stamp(st, 6);
-  warp_block_draws<MI, NF>(B, Ws, Ps, r, gi, dg, tr);
+  warp_block_draws<MI, NF>(B, Ws, Ps, r, gi, dg, tr, 0.f, 1.f, nf);
 #pragma unroll
   for (int s = 0; s < kSlots; ++s) {
     const int j = kSlots * lane + s;
@@ -1032,9 +1033,12 @@ draws_kernel(const float* __restrict__ partial, int ntiles,
   stamp(st, 7);
 }
 
+// Any fold count: BayesR above kMaxFold folds runs the NF = kRuntimeFold
+// instance (the caller fits its rows in shared memory: ops/blockgibbs.py
+// kernel_width).
 inline bool shapes_ok(int B, int R, int K, int mi, int nf) {
   return B > 0 && B <= kMaxBlock && B % 4 == 0 && K > 0 && mi >= 1 &&
-         mi <= 6 && nf >= 2 && nf <= kMaxFold && R == packed_rows(mi, nf);
+         mi <= 6 && nf >= 2 && (mi == 6 || nf <= kMaxFold) && R == packed_rows(mi, nf);
 }
 
 struct DrawArgs {
@@ -1046,6 +1050,7 @@ struct DrawArgs {
   float *gi, *dg, *tr;
   long long sj, sk;
   long long* stamps;
+  int nf;
 };
 
 // Raise a kernel's dynamic shared memory limit to `smem` on the current
@@ -1074,7 +1079,7 @@ cudaError_t launch_draws_t(const DrawArgs& a, bool overlap, cudaStream_t stream)
   if (e != cudaSuccess) return e;
   e = launch(overlap, draws_kernel<MI, NF>, dim3(a.K), kDrawThreads, smem, stream,
              a.partial, a.ntiles, a.W, a.P, a.B, a.K, a.gi, a.dg, a.tr, a.sj, a.sk,
-             a.stamps);
+             a.stamps, a.nf);
   if (e == cudaSuccess) ++g_draws_launches;
   return e;
 }
@@ -1097,7 +1102,7 @@ inline cudaError_t launch_draws(const DrawArgs& a, int mi, int nf, bool overlap,
     case 6: return launch_draws_t<6, 6>(a, overlap, s);
     case 7: return launch_draws_t<6, 7>(a, overlap, s);
     case 8: return launch_draws_t<6, 8>(a, overlap, s);
-    default: return cudaErrorInvalidValue;
+    default: return launch_draws_t<6, kRuntimeFold>(a, overlap, s);
   }
 }
 
@@ -1136,7 +1141,7 @@ inline int s1_tiles(int c, int G, int ntiles) {
 
 template <typename XT, int MI, int NF>
 cudaError_t sweep1_launch(const Sweep1Args<XT>& a, int grid, cudaStream_t stream) {
-  constexpr int RP = padded_stride(packed_rows(MI, NF));
+  const int RP = padded_stride(packed_rows(MI, NF == kRuntimeFold ? a.nf : NF));
   int dev = 0, sms = 0, optin = 0, per_sm = 0;
   cudaError_t e = cudaGetDevice(&dev);
   if (e == cudaSuccess) e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
@@ -1181,7 +1186,7 @@ cudaError_t sweep1(const Sweep1Args<XT>& a, int grid, int mi, int nf, cudaStream
     case 6: return sweep1_launch<XT, 6, 6>(a, grid, s);
     case 7: return sweep1_launch<XT, 6, 7>(a, grid, s);
     case 8: return sweep1_launch<XT, 6, 8>(a, grid, s);
-    default: return cudaErrorInvalidValue;
+    default: return sweep1_launch<XT, 6, kRuntimeFold>(a, grid, s);
   }
 }
 
@@ -1221,7 +1226,7 @@ cudaError_t sweep_mc_launches(const XT* X, const float* W, const float* P, int o
     const DrawArgs a{partial, ntiles,
                      W + static_cast<size_t>(off + b) * B * B,
                      P + static_cast<size_t>(b) * B * R * K, B, R, K,
-                     g_out + lb, dg_out + lb, tr_out + lb, 1, m_loc, sb};
+                     g_out + lb, dg_out + lb, tr_out + lb, 1, m_loc, sb, nf};
     e = launch_draws(a, mi, nf, true, stream);
     if (e != cudaSuccess) return e;
   }
@@ -1255,7 +1260,7 @@ int hb_block_draws(const float* r0t, const float* W, const float* P, int B,
                    int R, int K, int mi, int nf, float* dg, float* track,
                    void* stream) {
   if (!hb::shapes_ok(B, R, K, mi, nf)) return cudaErrorInvalidValue;
-  const hb::DrawArgs a{r0t, 1, W, P, B, R, K, nullptr, dg, track, K, 1, nullptr};
+  const hb::DrawArgs a{r0t, 1, W, P, B, R, K, nullptr, dg, track, K, 1, nullptr, nf};
   return hb::launch_draws(a, mi, nf, false, static_cast<cudaStream_t>(stream));
 }
 
@@ -1291,12 +1296,12 @@ int hb_sweep_mc(const void* X, int x_int8, const float* W, const float* P,
     if (x_int8) {
       const hb::Sweep1Args<int8_t> a{static_cast<const int8_t*>(X), W, P, off, nbg, n, B,
                                      rows_per_tile, ntiles, yadj, u, g_out, dg_out, track,
-                                     partial, flags, epoch, nb0, nbr, wb, stamps};
+                                     partial, flags, epoch, nb0, nbr, wb, stamps, nf};
       return hb::sweep1(a, grid, mi, nf, s);
     }
     const hb::Sweep1Args<float> a{static_cast<const float*>(X), W, P, off, nbg, n, B,
                                   rows_per_tile, ntiles, yadj, u, g_out, dg_out, track,
-                                  partial, flags, epoch, nb0, nbr, wb, stamps};
+                                  partial, flags, epoch, nb0, nbr, wb, stamps, nf};
     return hb::sweep1(a, grid, mi, nf, s);
   }
   if (x_int8)

@@ -26,7 +26,10 @@
 //     run out of line (a warp-uniform branch, taken rarely) and stop at the
 //     first accepted candidate.
 // No __syncthreads sits on the chain.  The model and fold count are template
-// parameters, so each draw is straight-line code.
+// parameters, so each draw is straight-line code.  BayesR with more than
+// kMaxFold folds runs one more instance, NF = 0, that takes the fold count
+// at run time and spreads each draw's folds over the lanes, a fold a lane,
+// its rows loaded one draw ahead (warp_block_draws_rt): the same draws.
 #pragma once
 
 #include <cuda_runtime.h>
@@ -36,7 +39,8 @@ namespace hb {
 constexpr int kWarp = 32;
 constexpr int kMaxBlock = 128;                 // SNPs per block (4 per lane)
 constexpr int kSlots = kMaxBlock / kWarp;      // SNPs a lane owns: kSlots l + s
-constexpr int kMaxFold = 8;                    // BayesR folds -> R <= 31
+constexpr int kMaxFold = 8;                    // BayesR folds compiled in (R <= 31)
+constexpr int kRuntimeFold = 0;                // NF of the instance that takes nf at run time
 constexpr int kRetry = 8;                      // guard retries (N_RETRY)
 
 // Packed rows per SNP (ops/blockgibbs.py:n_rows).
@@ -117,13 +121,17 @@ __device__ __forceinline__ float draw_one(const float* p, float rhs,
 // 1 when all kRetry candidates failed (gi = 0), else 0}.
 template <int MI, int NF>
 __device__ __noinline__ float2 guard_retry(const float* p, float rhs, float tr,
-                                           float vary, float vxj) {
-  const float* pg = p + packed_rows(MI, NF);
+                                           float vary, float vxj, int nf = NF) {
+  const int nfr = NF == kRuntimeFold ? nf : NF;
+  const float* pg = p + packed_rows(MI, nfr);
 #pragma unroll 1
   for (int t = 0; t < kRetry; ++t) {
     float cand = 0.f;
     if constexpr (MI == 4) {
       cand = rhs * p[2] + pg[1 + t];
+    } else if constexpr (NF == kRuntimeFold) {
+      const int f = static_cast<int>(tr);   // the drawn fold, 1 .. nf - 1
+      cand = rhs * p[4 + 4 * (f - 1)] + pg[1 + t * (nfr - 1) + (f - 1)];
     } else {
 #pragma unroll
       for (int f = 1; f < NF; ++f)
@@ -140,6 +148,138 @@ __device__ __noinline__ float2 guard_retry(const float* p, float rhs, float tr,
 // whose kRetry candidates all failed (B <= kMaxBlock keeps both below 2^16).
 constexpr int kExhaustShift = 16;
 
+// A logit's order as an unsigned key: the larger float, the larger key, -0
+// and +0 one key (float comparison holds them equal); NaN takes key 0,
+// below every number, since a NaN logit never passes draw_one's strict '>'.
+__device__ __forceinline__ unsigned order_key(float x) {
+  unsigned b = __float_as_uint(x);
+  if (b == 0x80000000u) b = 0u;
+  return x != x ? 0u : ((b & 0x80000000u) ? ~b : (b | 0x80000000u));
+}
+
+// What a draw of the run-time fold chain reads, loaded one draw ahead.
+struct RtRows {
+  float2 fa, fb;   // this lane's fold: its logit's two rows, its effect's two
+  float p0, p1;    // rg, g_old
+  float l0;        // fold 0's logit
+  float vx;        // the guard's vx (with GUARD)
+  float4 w4;       // this lane's slice of the Gram row
+  float wp;        // W[j, j - 1]
+};
+
+// warp_block_draws for the NF = kRuntimeFold instance (BayesR with nf folds
+// at run time).  Lanes own the same SNPs and the chain between draws is
+// warp_block_draws', but a draw's folds are spread over the lanes: lane l
+// evaluates fold l + 1 (and l + 33, l + 65, ... above 33 folds) from its
+// own packed-row values, loaded one draw ahead with the draw's other
+// values, and the warp takes the largest logit, the lowest fold among equal
+// ones, by two reductions (__reduce_max_sync of order_key, then
+// __reduce_min_sync of the folds that hold it); fold 0 keeps the draw
+// unless that logit beats its own.  Each logit and effect is draw_one's
+// float expression, and the fold chosen is draw_one's (the first strict
+// maximum over folds 0 .. nf - 1), so the outputs are those of the serial
+// scan in draw_one, whatever nf.
+template <int MI, bool GUARD, bool SCALE>
+__device__ __forceinline__ int warp_block_draws_rt(
+    int B, int nf, const float* Ws, const float* Ps, float r[kSlots],
+    float gi_out[kSlots], float dg_out[kSlots], float tr_out[kSlots], float vary,
+    float wscale) {
+  constexpr unsigned kAll = 0xffffffffu;
+  constexpr int kNone = 0x7fffffff;
+  const int R = packed_rows(MI, nf);
+  const int RP = padded_stride(row_stride(MI, nf, GUARD));
+  const int lane = threadIdx.x % kWarp;
+  const int c0 = kSlots * lane;
+  const bool owns = c0 < B;
+  const bool folds = lane + 1 < nf;   // the lane evaluates fold lane + 1
+  const int of = 2 + 4 * lane;        // its rows in a SNP's packed row (8-byte aligned)
+  const int o0 = 2 + 4 * (nf - 1);    // fold 0's logit
+  auto fetch = [&](int j) {
+    const float* p = Ps + j * RP;
+    RtRows x;
+    x.fa = folds ? *reinterpret_cast<const float2*>(p + of) : make_float2(0.f, 0.f);
+    x.fb = folds ? *reinterpret_cast<const float2*>(p + of + 2) : make_float2(0.f, 0.f);
+    x.p0 = p[0];
+    x.p1 = p[1];
+    x.l0 = p[o0];
+    x.vx = GUARD ? p[R] : 0.f;
+    const float* wrow = Ws + j * B;
+    x.w4 = owns ? *reinterpret_cast<const float4*>(wrow + c0) : make_float4(0.f, 0.f, 0.f, 0.f);
+    x.wp = wrow[j > 0 ? j - 1 : 0];
+    return x;
+  };
+  RtRows nx = fetch(0);
+  float v = __shfl_sync(kAll, r[0], 0);  // r_local[0]
+  float dg_prev = 0.f;
+  int nrej = 0, nexh = 0;
+#pragma unroll 1
+  for (int j0 = 0; j0 < B; j0 += kSlots) {
+#pragma unroll
+    for (int jj = 0; jj < kSlots; ++jj) {
+      const int j = j0 + jj;
+      const RtRows c = nx;
+      nx = fetch(j + 1 < B ? j + 1 : j);   // ahead of the chain
+      const float w_prev = SCALE ? wscale * c.wp : c.wp;
+      const float rhs = (j > 0 ? v + dg_prev * w_prev : v) + c.p0;
+      const float v_next = __shfl_sync(kAll, r[(jj + 1) % kSlots], (j + 1) >> 2);
+      const float q = rhs * rhs;
+      // this lane's folds: the largest logit, the lowest fold among equal ones
+      unsigned key = 0u;
+      int fold = kNone;
+      float s = 0.f, g = 0.f;
+      if (folds) {
+        s = c.fa.x + c.fa.y * q;
+        g = rhs * c.fb.x + c.fb.y;
+        key = order_key(s);
+        fold = lane + 1;
+#pragma unroll 1
+        for (int f = lane + 1 + kWarp; f < nf; f += kWarp) {
+          const float* pf = Ps + j * RP + 2 + 4 * (f - 1);
+          const float sf = pf[0] + pf[1] * q;
+          const unsigned kf = order_key(sf);
+          if (kf > key) {
+            key = kf;
+            fold = f;
+            s = sf;
+            g = rhs * pf[2] + pf[3];
+          }
+        }
+      }
+      const unsigned kmax = __reduce_max_sync(kAll, key);
+      const int w = __reduce_min_sync(kAll, key == kmax ? fold : kNone);
+      const float sw = __shfl_sync(kAll, s, (w - 1) & (kWarp - 1));
+      const float gw = __shfl_sync(kAll, g, (w - 1) & (kWarp - 1));
+      const bool take = sw > c.l0 + 0.f * rhs;   // fold 0's logit, as draw_one's
+      float gi = take ? gw : 0.f;
+      const float tr = take ? static_cast<float>(w) : 0.f;
+      if constexpr (GUARD) {
+        if ((gi * gi * c.vx > vary) && tr > 0.f) {   // uniform across the warp
+          const float2 rc = guard_retry<MI, kRuntimeFold>(Ps + j * RP, rhs, tr, vary, c.vx, nf);
+          gi = rc.x;
+          ++nrej;
+          nexh += rc.y != 0.f;
+        }
+      }
+      const float dg = c.p1 - gi;
+      const float4 w4 = c.w4;
+      if constexpr (SCALE) {
+        r[0] += dg * (wscale * w4.x); r[1] += dg * (wscale * w4.y);
+        r[2] += dg * (wscale * w4.z); r[3] += dg * (wscale * w4.w);
+      } else {
+        r[0] += dg * w4.x; r[1] += dg * w4.y; r[2] += dg * w4.z; r[3] += dg * w4.w;
+      }
+      if (lane == (j >> 2)) {
+        gi_out[jj] = gi;
+        dg_out[jj] = dg;
+        tr_out[jj] = tr;
+      }
+      v = v_next;
+      dg_prev = dg;
+    }
+  }
+  return nrej + (nexh << kExhaustShift);
+}
+
 // The B sequential draws of one chain, run by one whole warp.
 //   r[s]  in: r_local[kSlots lane + s] = X_b' yadj at block start
 //   Ws    (B, B) Gram block in shared memory, row-major (symmetric),
@@ -149,6 +289,7 @@ constexpr int kExhaustShift = 16;
 //   Ps    (B, padded_stride(R)) rows of this chain in shared memory, 16-byte
 //         aligned, R = row_stride(MI, NF, GUARD)
 //   vary  the guard's bound (read only with GUARD)
+//   nf    the fold count, read only by the NF = kRuntimeFold instance
 // B is a multiple of 4.  On return lane l holds, for j = kSlots l + s:
 // gi[s], dg[s] = g_old - gi, tr[s] (the mixture component).  Returns the
 // number of draws whose first candidate the guard rejected, plus those
@@ -164,9 +305,14 @@ template <int MI, int NF, bool GUARD = false, bool SCALE = false>
 __device__ __forceinline__ int warp_block_draws(
     int B, const float* Ws, const float* Ps, float r[kSlots],
     float gi_out[kSlots], float dg_out[kSlots], float tr_out[kSlots],
-    float vary = 0.f, float wscale = 1.f) {
+    float vary = 0.f, float wscale = 1.f, int nf = NF) {
   static_assert(!GUARD || MI == 4 || MI == 6, "the guard is for BayesC and BayesR");
   static_assert(kSlots == 4, "a lane owns one float4 of a Gram row");
+  static_assert(NF != kRuntimeFold || MI == 6, "only BayesR takes a fold count at run time");
+  if constexpr (NF == kRuntimeFold) {
+    return warp_block_draws_rt<MI, GUARD, SCALE>(B, nf, Ws, Ps, r, gi_out, dg_out, tr_out,
+                                                 vary, wscale);
+  } else {
   constexpr int R = packed_rows(MI, NF);
   constexpr int RP = padded_stride(row_stride(MI, NF, GUARD));
   constexpr int NV = (R + (GUARD ? 1 : 0) + 3) / 4;   // float4s a draw reads
@@ -236,6 +382,7 @@ __device__ __forceinline__ int warp_block_draws(
     }
   }
   return nrej + (nexh << kExhaustShift);
+  }
 }
 
 }  // namespace hb

@@ -123,6 +123,7 @@ struct SegArgs {
   int trows;           // rows of a row-owner tile: one a lane (32, or 16 at B = 128)
   int lds;             // row stride of the drawer's tile LD[b + 1, b] (B, or B + 4)
   long long* stamps;   // measurement only (null in use)
+  int nf;              // BayesR folds (read by the NF = kRuntimeFold instance)
 };
 
 // One row's sum sum_c x[c] d[c] over a row slice of B <= 128 columns, by
@@ -196,8 +197,8 @@ __host__ __device__ inline long long seg_own_floats(int B, int rw, int kch, int 
 // writes its chain's counts for the block to nrej.
 template <int MI, int NF, bool GUARD>
 __device__ __forceinline__ void seg_drawer(const SegArgs& a, float* sm) {
-  constexpr int R = row_stride(MI, NF, GUARD);
-  constexpr int RP = padded_stride(R);
+  const int R = row_stride(MI, NF == kRuntimeFold ? a.nf : NF, GUARD);
+  const int RP = padded_stride(R);
   const int B = a.B, cpc = a.cpc, lds = a.lds;
   const long long mc = a.mc;
   const int nb = a.mc / B;
@@ -289,7 +290,7 @@ __device__ __forceinline__ void seg_drawer(const SegArgs& a, float* sm) {
       }
       const int rej = warp_block_draws<MI, NF, GUARD>(
           B, G0 + (b & 1) * B * B, P0 + (b & 1) * cpc * B * RP + warp * B * RP, rv, gi, dg, tr,
-          a.vary);
+          a.vary, 1.f, a.nf);
       if (GUARD && lane == 0) a.nrej[static_cast<long long>(k0 + warp) * nb + b] = rej;
       if (st != nullptr && tid == 0) st[kSegStamps * b + 10] = clock64();
 #pragma unroll
@@ -472,14 +473,17 @@ __global__ void __launch_bounds__(kSegThreads, 1) seg_sweep_kernel(SegArgs a) {
   else seg_owner(a, sm);
 }
 
+// Any fold count: BayesR above kMaxFold folds runs the NF = kRuntimeFold
+// instance (the caller fits its rows in shared memory: ops/blockgibbs.py
+// kernel_width).
 inline bool block_ok(int B, int mi, int nf) {
   return B > 0 && B <= kMaxBlock && B % 4 == 0 && mi >= 1 && mi <= 6 &&
-         nf >= 2 && nf <= kMaxFold;
+         nf >= 2 && (mi == 6 || nf <= kMaxFold);
 }
 
 template <int MI, int NF, bool GUARD>
 cudaError_t seg_sweep(const SegArgs& a, cudaStream_t stream) {
-  constexpr int RP = padded_stride(row_stride(MI, NF, GUARD));
+  const int RP = padded_stride(row_stride(MI, NF == kRuntimeFold ? a.nf : NF, GUARD));
   const long long fl = seg_draw_floats(a.B, RP, a.cpc, a.lds);
   const long long fo = seg_own_floats(a.B, a.rw, a.kch, a.trows);
   const size_t smem = sizeof(float) * static_cast<size_t>(fl > fo ? fl : fo);
@@ -537,6 +541,7 @@ struct TiledArgs {
   unsigned epoch;
   int stage_next;     // the drawer stages tile (i, i + 1) in shared memory
   long long* stamps;  // measurement only (null in use)
+  int nf;             // BayesR folds (read by the NF = kRuntimeFold instance)
 };
 
 // Chain c's arguments: its packed rows (R, nbr B), r_hat, dg, tr (nbr B),
@@ -615,10 +620,9 @@ __device__ __forceinline__ void apply_tile(const TiledArgs& a, const float4 x[kT
 
 // Row i's packed rows into Pd (SNP-major, padded_stride(R) floats a SNP)
 // by threads t0, t0 + nt, ...: cp.async, one commit group.
-template <int R>
-__device__ __forceinline__ void stage_rows(const TiledArgs& a, int i, float* Pd, int t0,
-                                           int nt) {
-  constexpr int RP = padded_stride(R);
+__device__ __forceinline__ void stage_rows(const TiledArgs& a, int R, int i, float* Pd,
+                                           int t0, int nt) {
+  const int RP = padded_stride(R);
   const int B = a.B;
   const long long m = static_cast<long long>(a.nbr) * B;
   for (int e = t0; e < B * R; e += nt) {
@@ -658,8 +662,8 @@ inline size_t tiled_smem(int B, int R, bool stage_next) {
 // before the draws, after them, after the first barrier, after the last.
 template <int MI, int NF, bool GUARD>
 __device__ __forceinline__ void drawer(const TiledArgs& a, float* sm) {
-  constexpr int R = row_stride(MI, NF, GUARD);
-  constexpr int RP = padded_stride(R);
+  const int R = row_stride(MI, NF == kRuntimeFold ? a.nf : NF, GUARD);
+  const int RP = padded_stride(R);
   const int B = a.B;
   const unsigned tile_bytes = static_cast<unsigned>(sizeof(float)) * B * B;
   const int warp = threadIdx.x / kWarp;
@@ -692,7 +696,7 @@ __device__ __forceinline__ void drawer(const TiledArgs& a, float* sm) {
     bulk_copy(Wd(0), tile(0, 0), tile_bytes, bar);
     await(a.cnt, base(0) + a.need[0]);
   }
-  stage_rows<R>(a, 0, Pd(0), threadIdx.x, kTiledThreads);
+  stage_rows(a, R, 0, Pd(0), threadIdx.x, kTiledThreads);
   cp_async_wait<0>();
   __syncthreads();
   if (threadIdx.x < B) rcur[threadIdx.x] = __ldcg(a.r_hat + threadIdx.x);
@@ -714,7 +718,7 @@ __device__ __forceinline__ void drawer(const TiledArgs& a, float* sm) {
         gi[s] = dg[s] = tr[s] = 0.f;
       }
       const int rej = warp_block_draws<MI, NF, GUARD, true>(B, Wd(cur), Pd(cur), rr, gi, dg,
-                                                            tr, a.vary, a.n);
+                                                            tr, a.vary, a.n, a.nf);
 #pragma unroll
       for (int s = 0; s < kSlots; ++s) {
         const int j = kSlots * lane + s;
@@ -746,7 +750,7 @@ __device__ __forceinline__ void drawer(const TiledArgs& a, float* sm) {
         }
       }
       if (!last) {
-        stage_rows<R>(a, i + 1, Pd(cur ^ 1), threadIdx.x - kWarp, kTiledThreads - kWarp);
+        stage_rows(a, R, i + 1, Pd(cur ^ 1), threadIdx.x - kWarp, kTiledThreads - kWarp);
         if (warp == 1) {
           if (lane == 0)
             await(a.cnt + i + 1, base(i + 1) + a.need[i + 1] - (nx >= 0 ? 1 : 0));
@@ -789,8 +793,7 @@ __device__ __forceinline__ void drawer(const TiledArgs& a, float* sm) {
 // dg and applies it in its block's turn.  Each wait is for an earlier row
 // (of a drawer, or of an item before this one in some CTA's order), so no
 // wait can close a cycle.
-template <int R>
-__device__ __forceinline__ void scatterer(const TiledArgs& a, float* sm) {
+__device__ __forceinline__ void scatterer(const TiledArgs& a, int R, float* sm) {
   float* red = sm;
   float* dgs = red + kTiledWarps * kMaxBlock;
   const int B = a.B;
@@ -817,30 +820,50 @@ __device__ __forceinline__ void scatterer(const TiledArgs& a, float* sm) {
 // memory tiled_smem: CTAs 0 .. chains - 1 draw, one chain each.
 template <int MI, int NF, bool GUARD>
 __global__ void __launch_bounds__(kTiledThreads) tiled_sweep_kernel(TiledArgs a) {
-  constexpr int R = row_stride(MI, NF, GUARD);
+  const int R = row_stride(MI, NF == kRuntimeFold ? a.nf : NF, GUARD);
   extern __shared__ __align__(16) float sm[];
   if (static_cast<int>(blockIdx.x) < a.chains)
     drawer<MI, NF, GUARD>(chain_args(a, blockIdx.x, R), sm);
-  else scatterer<R>(a, sm);
+  else scatterer(a, R, sm);
+}
+
+// The tiled sweep's launch at tiles of B with R rows a SNP: whether the
+// drawer stages the tile (i, i + 1), its shared memory, the SM count and
+// the CTAs the card holds at once.
+struct TiledFit {
+  int stage_next, sms;
+  size_t smem;
+  long long resident;
+};
+
+template <int MI, int NF, bool GUARD>
+cudaError_t tiled_fit(int B, int R, TiledFit* f) {
+  int dev = 0, optin = 0, per_sm = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e == cudaSuccess) e = cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
+  if (e == cudaSuccess) e = cudaDeviceGetAttribute(&f->sms, cudaDevAttrMultiProcessorCount, dev);
+  if (e != cudaSuccess) return e;
+  f->stage_next = tiled_smem(B, R, true) <= static_cast<size_t>(optin);
+  f->smem = tiled_smem(B, R, f->stage_next);
+  e = cudaFuncSetAttribute(tiled_sweep_kernel<MI, NF, GUARD>,
+                           cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(f->smem));
+  if (e == cudaSuccess)
+    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, tiled_sweep_kernel<MI, NF, GUARD>,
+                                                      kTiledThreads, f->smem);
+  f->resident = static_cast<long long>(per_sm) * f->sms;
+  return e;
 }
 
 template <int MI, int NF, bool GUARD>
 cudaError_t tiled_sweep(TiledArgs a, cudaStream_t stream) {
-  constexpr int R = row_stride(MI, NF, GUARD);
-  int dev = 0, optin = 0, sms = 0, per_sm = 0;
-  cudaError_t e = cudaGetDevice(&dev);
-  if (e == cudaSuccess) e = cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
-  if (e == cudaSuccess) e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  const int R = row_stride(MI, NF == kRuntimeFold ? a.nf : NF, GUARD);
+  TiledFit f;
+  cudaError_t e = tiled_fit<MI, NF, GUARD>(a.B, R, &f);
   if (e != cudaSuccess) return e;
-  a.stage_next = tiled_smem(a.B, R, true) <= static_cast<size_t>(optin);
-  const size_t smem = tiled_smem(a.B, R, a.stage_next);
-  e = cudaFuncSetAttribute(tiled_sweep_kernel<MI, NF, GUARD>,
-                           cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
-  if (e == cudaSuccess)
-    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, tiled_sweep_kernel<MI, NF, GUARD>,
-                                                      kTiledThreads, smem);
-  if (e != cudaSuccess) return e;
-  const long long resident = static_cast<long long>(per_sm) * sms;
+  a.stage_next = f.stage_next;
+  const size_t smem = f.smem;
+  const long long sms = f.sms;
+  const long long resident = f.resident;
   const long long spare = sms - a.chains;   // item CTAs: one an SM left, at least one
   const long long grid =
       a.chains + (a.nitems == 0 ? 0 : (a.nitems < spare ? a.nitems : (spare > 1 ? spare : 1)));
@@ -859,9 +882,9 @@ template <int MI, int NF, bool GUARD>
 __global__ void __launch_bounds__(kTiledThreads)
 chain_kernel(const float* __restrict__ W, const float* __restrict__ P,
              const float* __restrict__ r0, int B, int reps, float vary,
-             float* __restrict__ out, long long* cycles) {
-  constexpr int R = row_stride(MI, NF, GUARD);
-  constexpr int RP = padded_stride(R);
+             float* __restrict__ out, long long* cycles, int nf) {
+  const int R = row_stride(MI, NF == kRuntimeFold ? nf : NF, GUARD);
+  const int RP = padded_stride(R);
   extern __shared__ __align__(16) float sm[];
   float* Ws = sm;
   float* Ps = Ws + B * B;
@@ -885,7 +908,7 @@ chain_kernel(const float* __restrict__ W, const float* __restrict__ P,
   for (int rep = 0; rep < reps; ++rep) {
 #pragma unroll
     for (int s = 0; s < kSlots; ++s) rr[s] = r0v[s] + 0.f * dg[s];
-    rej += warp_block_draws<MI, NF, GUARD>(B, Ws, Ps, rr, gi, dg, tr, vary);
+    rej += warp_block_draws<MI, NF, GUARD>(B, Ws, Ps, rr, gi, dg, tr, vary, 1.f, nf);
   }
   const long long t1 = clock64();
 #pragma unroll
@@ -904,23 +927,26 @@ struct ChainArgs {
   float vary;
   float* out;
   long long* cycles;
+  int nf;
 };
 
 template <int MI, int NF, bool GUARD>
 cudaError_t chain_run(const ChainArgs& a, cudaStream_t stream) {
   const size_t smem = sizeof(float) * static_cast<size_t>(a.B) *
-                      (a.B + padded_stride(row_stride(MI, NF, GUARD)));
+                      (a.B + padded_stride(row_stride(MI, NF == kRuntimeFold ? a.nf : NF,
+                                                      GUARD)));
   cudaError_t e = cudaFuncSetAttribute(chain_kernel<MI, NF, GUARD>,
                                        cudaFuncAttributeMaxDynamicSharedMemorySize,
                                        static_cast<int>(smem));
   if (e != cudaSuccess) return e;
   chain_kernel<MI, NF, GUARD><<<1, kTiledThreads, smem, stream>>>(
-      a.W, a.P, a.r0, a.B, a.reps, a.vary, a.out, a.cycles);
+      a.W, a.P, a.r0, a.B, a.reps, a.vary, a.out, a.cycles, a.nf);
   return cudaGetLastError();
 }
 
-// Model dispatch: models 1-5 have two folds; BayesR 2..kMaxFold; the guard
-// exists for BayesC (4) and BayesR (6) only.
+// Model dispatch: models 1-5 have two folds; BayesR 2..kMaxFold compiled
+// in, more folds the NF = kRuntimeFold instance; the guard exists for
+// BayesC (4) and BayesR (6) only.
 template <template <int, int, bool> class F, typename A>
 cudaError_t dispatch(const A& a, int mi, int nf, bool guard, cudaStream_t s) {
   if (guard) {
@@ -933,7 +959,8 @@ cudaError_t dispatch(const A& a, int mi, int nf, bool guard, cudaStream_t s) {
       case 6: return F<6, 6, true>::run(a, s);
       case 7: return F<6, 7, true>::run(a, s);
       case 8: return F<6, 8, true>::run(a, s);
-      default: return cudaErrorInvalidValue;
+      case -1: return cudaErrorInvalidValue;
+      default: return F<6, kRuntimeFold, true>::run(a, s);
     }
   }
   switch (mi) {
@@ -952,7 +979,7 @@ cudaError_t dispatch(const A& a, int mi, int nf, bool guard, cudaStream_t s) {
     case 6: return F<6, 6, false>::run(a, s);
     case 7: return F<6, 7, false>::run(a, s);
     case 8: return F<6, 8, false>::run(a, s);
-    default: return cudaErrorInvalidValue;
+    default: return F<6, kRuntimeFold, false>::run(a, s);
   }
 }
 
@@ -967,6 +994,23 @@ template <int MI, int NF, bool GUARD>
 struct TiledSweep {
   static cudaError_t run(const TiledArgs& a, cudaStream_t s) {
     return tiled_sweep<MI, NF, GUARD>(a, s);
+  }
+};
+
+// The CTAs of the tiled sweep the card holds at once (hb_tiled_resident).
+struct ResidentArgs {
+  int B, nf;
+  long long* out;
+};
+
+template <int MI, int NF, bool GUARD>
+struct TiledResident {
+  static cudaError_t run(const ResidentArgs& a, cudaStream_t) {
+    TiledFit f;
+    const cudaError_t e =
+        tiled_fit<MI, NF, GUARD>(a.B, row_stride(MI, NF == kRuntimeFold ? a.nf : NF, GUARD), &f);
+    if (e == cudaSuccess) *a.out = f.resident;
+    return e;
   }
 };
 
@@ -1023,7 +1067,7 @@ int hb_sweep_s_segment(const float* LD, const float* P, int mc, int B, int R,
       trows > hb::kWarp || (lds != B && lds != B + 4))
     return cudaErrorInvalidValue;
   const hb::SegArgs a{LD, P, mc, B, K, n, vary, nrej, r, dg, track, snap, flags, epoch,
-                      ndraw, cpc, nown, rw, kch, trows, lds, stamps};
+                      ndraw, cpc, nown, rw, kch, trows, lds, stamps, nf};
   return hb::dispatch<hb::SegSweep>(a, mi, nf, g, static_cast<cudaStream_t>(stream));
 }
 
@@ -1052,8 +1096,18 @@ int hb_sweep_s_tiled(const float* tiles, int nbr, int K, int B, int R, int chain
     return cudaErrorInvalidValue;
   const hb::TiledArgs a{tiles, nbr, K, B, chains, n, vary, P, r_hat, dg, track, nrej, need,
                         nxt, reinterpret_cast<const int4*>(items), nitems, total, cnt, flags,
-                        epoch, 0, stamps};
+                        epoch, 0, stamps, nf};
   return hb::dispatch<hb::TiledSweep>(a, mi, nf, g, static_cast<cudaStream_t>(stream));
+}
+
+// The CTAs of a tiled sweep at tiles of B the card holds at once, into
+// *out: a launch of `chains` drawers and at least one item CTA needs
+// chains + 1 of them (ops/blockgibbs.py runs a larger batch in groups).
+int hb_tiled_resident(int B, int mi, int nf, int guard, long long* out) {
+  const bool g = guard != 0;
+  if (!hb::block_ok(B, mi, nf) || (g && mi != 4 && mi != 6)) return cudaErrorInvalidValue;
+  const hb::ResidentArgs a{B, nf, out};
+  return hb::dispatch<hb::TiledResident>(a, mi, nf, g, nullptr);
 }
 
 // The draw chain alone (measurement): reps blocks of B draws back to back
@@ -1065,7 +1119,7 @@ int hb_chain_latency(const float* W, const float* P, const float* r0, int B, int
   if (!hb::block_ok(B, mi, nf) || reps <= 0 || (g && mi != 4 && mi != 6) ||
       R != hb::row_stride(mi, nf, g))
     return cudaErrorInvalidValue;
-  const hb::ChainArgs a{W, P, r0, B, reps, vary, out, cycles};
+  const hb::ChainArgs a{W, P, r0, B, reps, vary, out, cycles, nf};
   return hb::dispatch<hb::ChainRun>(a, mi, nf, g, static_cast<cudaStream_t>(stream));
 }
 

@@ -9,7 +9,8 @@ the same state.  A state with a leading chain axis (a batch of the JAX
 ``run_chains``) converts to the port's batch: ``it`` is then one int, which
 every chain must share.  ``epsl_sparse_from_numpy`` regroups a JAX ``EpslSparse``
 into the port's layout; a JAX dense ``epsl_LHS_A`` (the direct path) is
-packed into it as ``prepare_gibbs_data`` packs one.  BSLMM's GRM
+packed into it as ``prepare_gibbs_data`` packs one, and the genotype is laid
+out in the sub-blocks that ``prepare_gibbs_data`` lays it out in.  BSLMM's GRM
 eigenbasis ``K``/``Kval`` is carried across as it is: eigenvectors are
 unique only up to sign (and within a repeated eigenvalue up to a basis),
 and the polygenic draw's noise term K (sqrt(lambda) z) depends on that
@@ -22,8 +23,9 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from ..ops.blockgibbs import sub_block_genotype
 from .gibbs import (MAX_EPSL_TILE, ChainState, EpslSparse, GibbsData, _build_epsl_sparse,
-                    _epsl_layout)
+                    _epsl_layout, genotype_layout)
 from .sgibbs import SChainState, SGibbsData
 
 
@@ -74,10 +76,14 @@ def gibbs_data_from_numpy(data, device="cpu") -> GibbsData:
     empty = lambda shape, t=dt: torch.zeros(shape, dtype=t, device=device)
     opt = lambda name, shape, t=None: (_t(f[name], device, t) if name in f
                                        else empty(shape, t or dt))
+    X, W = _t(f["X_blocks"], device), _t(f["W_blocks"], device)
+    B = int(X.shape[2])
+    X, W = sub_block_genotype(X, W, genotype_layout(B, int(X.shape[1]), X.element_size(),
+                                                    int(np.asarray(f["fold"]).shape[0])))
     return GibbsData(
         y=_t(f["y"], device),
-        X_blocks=_t(f["X_blocks"], device),
-        W_blocks=_t(f["W_blocks"], device),
+        X_blocks=X,
+        W_blocks=W,
         xpx=_t(f["xpx"], device),
         vx=_t(f["vx"], device),
         real=_t(f["real"], device, torch.bool),
@@ -92,6 +98,7 @@ def gibbs_data_from_numpy(data, device="cpu") -> GibbsData:
         epsl_yJ=opt("epsl_yJ", (0,)),
         epsl_codes=opt("epsl_codes", (0,), torch.int64),
         epsl_counts=opt("epsl_counts", (0,)),
+        block=B,
         epsl_sp=sp,
     )
 

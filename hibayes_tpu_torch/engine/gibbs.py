@@ -200,12 +200,15 @@ class EpslSparse(NamedTuple):
 
 
 class GibbsData(NamedTuple):
-    """Device-resident inputs.  X_blocks is the genotype in block layout.
-    The BSLMM and single-step fields have size 0 when the term is off."""
+    """Device-resident inputs.  X_blocks is the genotype in blocks of B =
+    ``block``, each laid out as the S sub-blocks of W SNPs that the sweeps
+    take (:func:`genotype_layout`, ``blockgibbs.SubBlocks.of(block, W)``;
+    S = 1 and W = B where they take B as it is).  The BSLMM and single-step
+    fields have size 0 when the term is off."""
 
     y: torch.Tensor            # (n,)
-    X_blocks: torch.Tensor     # (nblocks, n, B) int8 or float
-    W_blocks: torch.Tensor     # (nblocks, B, B) block Gram matrices
+    X_blocks: torch.Tensor     # (nblocks S, n, W) int8 or float, pad columns 0
+    W_blocks: torch.Tensor     # (nblocks S, W, W) each sub-block's Gram matrix
     xpx: torch.Tensor          # (m_pad,)
     vx: torch.Tensor           # (m_pad,)
     real: torch.Tensor         # (m_pad,) bool: real (non-padding) SNPs
@@ -220,6 +223,7 @@ class GibbsData(NamedTuple):
     epsl_yJ: torch.Tensor      # (n,) J covariate
     epsl_codes: torch.Tensor   # (ne,) int64 level of each imputed individual
     epsl_counts: torch.Tensor  # (qe_pad,)
+    block: int                 # B: SNPs a block (spec.block)
     # A-inverse(nn), sparse (the scale path) or dense (the direct path),
     # packed in diagonal blocks: the epsilon sweep's input
     epsl_sp: EpslSparse | None = None
@@ -308,7 +312,9 @@ def prepare_gibbs_data(
 
     Port of ``prepare_gibbs_data`` (hibayes_tpu/engine/gibbs.py:1871-2052).
     ``M`` is an (n, m) numpy array or torch tensor on any device; it is
-    copied block by block into ``X_blocks`` (nblocks, n, B) on ``device``.
+    copied block by block into ``X_blocks`` on ``device``, each block of B
+    as the sub-blocks the sweeps take (:func:`genotype_layout`), and the
+    Gram matrices are those of the sub-blocks.
 
     BSLMM takes the GRM's eigenvectors ``K`` (n, n) and eigenvalues
     ``Kval`` (n,) (:func:`~hibayes_tpu_torch.math.grm.make_grm` with
@@ -370,22 +376,24 @@ def prepare_gibbs_data(
         x_dtype = torch.int8
     else:
         x_dtype = dtype
-    X_blocks = torch.zeros((nblocks, n, block), dtype=x_dtype, device=device)
-    for b in range(nblocks):
-        c0, c1 = b * block, min(m, (b + 1) * block)
-        if c0 >= m:
-            break
-        X_blocks[b, :n_real, : c1 - c0] = _columns(M, c0, c1, x_dtype, device)
+    sb = genotype_layout(block, n, x_dtype.itemsize, 2 if fold is None else len(fold))
+    nbk, W = nblocks * sb.S, sb.W
+    X_blocks = torch.zeros((nbk, n, W), dtype=x_dtype, device=device)
+    for k in range(nbk):
+        c0 = (k // sb.S) * block + (k % sb.S) * W
+        c1 = min(m, (k // sb.S) * block + min(block, (k % sb.S + 1) * W))
+        if c0 < c1:
+            X_blocks[k, :n_real, : c1 - c0] = _columns(M, c0, c1, x_dtype, device)
 
     gram_dt = torch.float32 if use_int8 else dtype
-    W_blocks = torch.empty((nblocks, block, block), dtype=dtype, device=device)
-    s1 = torch.empty((nblocks, block), dtype=gram_dt, device=device)
-    xpx = torch.empty((nblocks, block), dtype=dtype, device=device)
-    vx = torch.empty((nblocks, block), dtype=dtype, device=device)
+    W_blocks = torch.empty((nbk, W, W), dtype=dtype, device=device)
+    s1 = torch.empty((nbk, W), dtype=gram_dt, device=device)
+    xpx = torch.empty((nbk, W), dtype=dtype, device=device)
+    vx = torch.empty((nbk, W), dtype=dtype, device=device)
     row_real = (torch.arange(n, device=device) < n_real)[None, :, None]
-    per = max(1, GRAM_BATCH_BYTES // (n * block * gram_dt.itemsize))
-    for b0 in range(0, nblocks, per):
-        b1 = min(nblocks, b0 + per)
+    per = max(1, GRAM_BATCH_BYTES // (n * W * gram_dt.itemsize))
+    for b0 in range(0, nbk, per):
+        b1 = min(nbk, b0 + per)
         Xf = X_blocks[b0:b1].to(gram_dt)
         W_blocks[b0:b1] = torch.bmm(Xf.transpose(1, 2), Xf).to(dtype)
         s1[b0:b1] = Xf.sum(dim=1)
@@ -401,9 +409,9 @@ def prepare_gibbs_data(
         s1d = s1.to(torch.float64)
         xpx = s2.to(dtype)
         vx = ((s2 - s1d * s1d / n_real) / (n_real - 1)).to(dtype)
-    xpx = xpx.reshape(m_pad)
+    xpx = sb.gather(xpx.reshape(nbk * W))
     real = torch.arange(m_pad, device=device) < m
-    vx = torch.where(real, vx.reshape(m_pad), 0.0)
+    vx = torch.where(real, sb.gather(vx.reshape(nbk * W)), 0.0)
 
     if C is None:
         C_t = torch.zeros((n, 0), dtype=dtype, device=device)
@@ -445,8 +453,18 @@ def prepare_gibbs_data(
         epsl_codes=tensor(codes_np, torch.int64, (0,)),
         epsl_counts=tensor(np.bincount(codes_np, minlength=qe_pad) if qe else None,
                            dtype, (0,)),
+        block=block,
         epsl_sp=epsl_sp,
     )
+
+
+def genotype_layout(block: int, n: int, xbytes: int, n_fold: int):
+    """The sub-blocks (ops/blockgibbs.py:SubBlocks) in which a genotype of n
+    rows of ``xbytes`` bytes in blocks of ``block`` is laid out: those the
+    sweeps take at the most packed rows a SNP of any model with ``n_fold``
+    folds (:func:`~hibayes_tpu_torch.ops.blockgibbs.genotype_rows`), so
+    that one layout serves every model.  The same on every device."""
+    return blockgibbs.mc_sub_blocks(blockgibbs.genotype_rows(n_fold), n, block, xbytes)
 
 
 def _epsl_layout(diag_blocks, fwd, coo, qe_pad, dtype, device) -> EpslSparse:
@@ -584,25 +602,27 @@ def _snapshot(spec: GibbsSpec, state: ChainState) -> dict:
     return snap
 
 
-def genotype_rmatmul(X_blocks, w, dtype) -> torch.Tensor:
-    """X' w (nblocks * B,) for X in block layout and w (n,), block by
-    block, so that no copy of the whole genotype in ``dtype`` ever exists."""
-    nblocks, n, B = X_blocks.shape
-    out = torch.empty((nblocks, B), dtype=dtype, device=X_blocks.device)
+def genotype_rmatmul(X_blocks, w, dtype, block: int) -> torch.Tensor:
+    """X' w (nblocks * B,) for X in the layout of ``prepare_gibbs_data``
+    (blocks of ``block``) and w (n,), block by block, so that no copy of the
+    whole genotype in ``dtype`` ever exists."""
+    nbk, n, W = X_blocks.shape
+    out = torch.empty((nbk, W), dtype=dtype, device=X_blocks.device)
     w = w.to(dtype)
-    for b in range(nblocks):
+    for b in range(nbk):
         out[b] = X_blocks[b].to(dtype).T @ w
-    return out.reshape(nblocks * B)
+    return blockgibbs.SubBlocks.of(block, W).gather(out.reshape(nbk * W))
 
 
-def genotype_matmul(X_blocks, G, dtype) -> torch.Tensor:
-    """X @ G for X in block layout and G (nblocks * B, r), block by block, so
-    that no copy of the whole genotype in ``dtype`` ever exists."""
-    nblocks, n, B = X_blocks.shape
+def genotype_matmul(X_blocks, G, dtype, block: int) -> torch.Tensor:
+    """X @ G for X in the layout of ``prepare_gibbs_data`` (blocks of
+    ``block``) and G (nblocks * B, r), block by block, so that no copy of
+    the whole genotype in ``dtype`` ever exists."""
+    nbk, n, W = X_blocks.shape
     out = torch.zeros((n, G.shape[1]), dtype=dtype, device=X_blocks.device)
-    G = G.to(dtype)
-    for b in range(nblocks):
-        out.addmm_(X_blocks[b].to(dtype), G[b * B:(b + 1) * B])
+    G = blockgibbs.SubBlocks.of(block, W).spread(G.to(dtype).T).T
+    for b in range(nbk):
+        out.addmm_(X_blocks[b].to(dtype), G[b * W:(b + 1) * W])
     return out
 
 
@@ -945,9 +965,9 @@ def _recompute_residuals(spec: GibbsSpec, data: GibbsData, mu, beta, estR, g,
     for i in range(len(spec.nlevels)):
         pred = pred + estR[i][..., data.r_codes[i]]
     if g.dim() == 1:
-        u_new = genotype_matmul(data.X_blocks, g[:, None], dt)[:, 0]
+        u_new = genotype_matmul(data.X_blocks, g[:, None], dt, data.block)[:, 0]
     else:
-        u_new = genotype_matmul(data.X_blocks, g.T, dt).T
+        u_new = genotype_matmul(data.X_blocks, g.T, dt, data.block).T
     if spec.use_bslmm:
         u_new = u_new + k_estR
     if spec.qe:

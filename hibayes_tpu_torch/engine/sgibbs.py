@@ -214,12 +214,6 @@ def _check_ported(spec, data: SGibbsData, mesh=None) -> None:
         raise NotImplementedError(
             "meshes and shard schedules are not ported yet (ROADMAP queue 1, "
             "items 13-14)")
-    if data.ld_tiles is not None and (spec.block % 4 or spec.block > blockgibbs.MAX_BLOCK):
-        raise NotImplementedError(
-            f"a tiled LD with tile {spec.block} runs the JAX package's guarded "
-            "per-SNP scan; the port's tiled sweep takes tiles of at most "
-            f"{blockgibbs.MAX_BLOCK} that are a multiple of 4 (ROADMAP queue 1, "
-            "item 16)")
 
 
 def _s_pre_sweep(spec, data: SGibbsData, noise, state: SChainState) -> dict:

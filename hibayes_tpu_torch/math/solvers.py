@@ -1,5 +1,6 @@
-"""Linear solvers over an abstract matvec: conjugate gradient and batched
-Jacobi-preconditioned CG, and the row-ordered sparse product they run on.
+"""Linear solvers over an abstract matvec: conjugate gradient, Jacobi-
+preconditioned CG (one right-hand side with an explicit or a probed
+diagonal, or a batch), and the row-ordered sparse product they run on.
 
 Counterparts of hibayes_tpu/math/solvers.py (reference src/solver.cpp:3-117)
 as torch loops with the same stopping rules.  A loop reads its stopping
@@ -40,6 +41,55 @@ def conj_grad(matvec, b, lam=None, x0=None, tol=1e-6, maxiter=None):
         r2 = r2new
         it += 1
     return x, it, err
+
+
+def estimate_diag(matvec, m, nprobes=16, gen=None, device="cpu", dtype=torch.float64):
+    """Stochastic estimate of diag(A) from ``nprobes`` Rademacher probes v
+    (Bekas et al.): E[v * A v] = diag(A), one matvec a probe.  ``gen``
+    defaults to a generator seeded 0 on ``device``."""
+    if gen is None:
+        gen = torch.Generator(device=device).manual_seed(0)
+    probes = 2.0 * torch.randint(0, 2, (nprobes, m), generator=gen, device=device,
+                                 dtype=dtype) - 1.0
+    av = torch.stack([matvec(v) for v in probes])
+    return (probes * av).mean(dim=0)
+
+
+def pcg_with_diag(matvec, b, diag, x0=None, tol=1e-6, maxiter=None):
+    """Jacobi-preconditioned CG (solver.cpp:3-42) with the operator's
+    diagonal ``diag`` (None: no preconditioner; zeros taken as 1e-4).
+    Iterates while the residual norm is > ``tol`` and fewer than
+    ``maxiter`` (default len(b)) steps were taken.  Returns (x, iterations)."""
+    m = b.shape[0]
+    maxiter = m if maxiter is None else maxiter
+    if diag is None:
+        minv = torch.ones_like(b)
+    else:
+        minv = 1.0 / torch.where(diag == 0, torch.full_like(diag, 1e-4), diag).to(b.dtype)
+    x = torch.zeros_like(b) if x0 is None else x0.clone()
+    r = b - matvec(x)
+    z = minv * r
+    p = z
+    it = 0
+    while float(torch.linalg.vector_norm(r)) > tol and it < maxiter:
+        ap = matvec(p)
+        a = torch.dot(r, z) / torch.dot(p, ap)
+        x = x + a * p
+        r1 = r - a * ap
+        z1 = minv * r1
+        p = z1 + (torch.dot(z1, r1) / torch.dot(z, r)) * p
+        r, z = r1, z1
+        it += 1
+    return x, it
+
+
+def pcg(matvec, b, x0=None, tol=1e-6, maxiter=None, nprobes=16):
+    """Jacobi-preconditioned CG whose diagonal is :func:`estimate_diag`'s
+    probe estimate (non-positive entries taken as 1); callers with an
+    explicit diagonal use :func:`pcg_with_diag`.  Returns (x, iterations)."""
+    diag = estimate_diag(matvec, b.shape[0], nprobes=nprobes, device=b.device, dtype=b.dtype)
+    diag = torch.where(diag > 0, diag, torch.ones_like(diag))
+    return pcg_with_diag(matvec, b, diag, x0=x0, tol=tol, maxiter=maxiter)
 
 
 def segment_matmul(lengths, cols, vals, X):

@@ -145,12 +145,12 @@ def _genotype_products(M, A: np.ndarray, device) -> np.ndarray:
 
 def _block_products(gdata: G.GibbsData, n: int, A: np.ndarray) -> np.ndarray:
     """X_phen @ A.T from the chain's own block-layout genotype, A (r, m)."""
-    nblocks, _, B = gdata.X_blocks.shape
     device = gdata.X_blocks.device
     cdt = _compute_dtype(device)
-    Gm = torch.zeros((nblocks * B, A.shape[0]), dtype=cdt, device=device)
+    Gm = torch.zeros((gdata.xpx.shape[0], A.shape[0]), dtype=cdt, device=device)
     Gm[: A.shape[1]] = torch.as_tensor(np.asarray(A).T, dtype=cdt, device=device)
-    return G.genotype_matmul(gdata.X_blocks, Gm, cdt)[:n].to(torch.float64).cpu().numpy()
+    return (G.genotype_matmul(gdata.X_blocks, Gm, cdt, gdata.block)[:n]
+            .to(torch.float64).cpu().numpy())
 
 
 def ibrm(
@@ -265,7 +265,7 @@ def ibrm(
     )
     spec = G.GibbsSpec(
         model=method, n=int(gdata.y.shape[0]), n_real=n,
-        m=m, m_pad=int(gdata.xpx.shape[0]), block=int(gdata.X_blocks.shape[2]),
+        m=m, m_pad=int(gdata.xpx.shape[0]), block=gdata.block,
         nc=nc, nlevels=nlevels, n_fold=len(Pi), niter=niter, nburn=nburn,
         thin=thin, nvar0=nvar0, nw=nw, fixpi=fixpi,
         dfvara=pr.dfvara, s2vara=pr.s2vara, dfvare=pr.dfvare, s2vare=pr.s2vare,
@@ -348,7 +348,7 @@ def bslmm_snp_effects(gdata: G.GibbsData, n: int, m: int, k_mean, sumvx: float):
     inv_Kv = torch.where(Kv > cutoff, 1.0 / torch.clamp_min(Kv, cutoff), 0.0).to(cdt)
     k = torch.as_tensor(k_mean, dtype=cdt, device=K.device)
     Kg = (k @ K) * inv_Kv / sumvx
-    ghat = G.genotype_rmatmul(gdata.X_blocks[:, :n], K @ Kg, cdt)[:m]
+    ghat = G.genotype_rmatmul(gdata.X_blocks[:, :n], K @ Kg, cdt, gdata.block)[:m]
     ghat = ghat.to(torch.float64).cpu().numpy()
     return ghat - ghat.mean()
 

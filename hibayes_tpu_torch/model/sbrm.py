@@ -9,7 +9,8 @@ defaults, and the conjugate-gradient solver (method="CG", src/cg.cpp).
 
 MCMC runs on DenseLD, SparseLD and BlockDiagLD (the dense segment sweep,
 one segment per chromosome block) and on TiledSparseLD (the tiled sweep,
-any tile up to 128 that is a multiple of 4), one chain or a batch.  Every
+any tile: other tiles than it takes are re-tiled,
+ops/blockgibbs.py:sub_block_tiles), one chain or a batch.  Every
 layout but DenseLD applies the SBayesS rejection guard
 by the rule of the JAX package's tiled kernel (8 pre-drawn candidates); the
 JAX package's per-SNP scan on SparseLD and BlockDiagLD redraws up to 100

@@ -317,7 +317,7 @@ def ssbrm(
         # the rows: array sizes use the padded count, statistics the real one
         model=method, n=int(gdata.y.shape[0]), n_real=n,
         m=m, m_pad=int(gdata.xpx.shape[0]),
-        block=int(gdata.X_blocks.shape[2]),
+        block=gdata.block,
         nc=nc, nlevels=nlevels, n_fold=len(Pi), niter=niter, nburn=nburn, thin=thin,
         nvar0=nvar0, nw=nw, fixpi=fixpi,
         dfvara=pr.dfvara, s2vara=pr.s2vara, dfvare=pr.dfvare, s2vare=pr.s2vare,

@@ -81,8 +81,8 @@ from . import build
 F32 = torch.float32
 NEG_BIG = -1e30
 POS_BIG = 1e30
-MAX_BLOCK = 128   # kernel limit: SNPs per block (csrc/draws.cuh kMaxBlock)
-MAX_FOLD = 8      # kernel limit: BayesR folds
+MAX_BLOCK = 128   # SNPs of a kernel's block (csrc/draws.cuh kMaxBlock): wider blocks run as sub-blocks
+H100_SMS = 132    # SMs of the card whose limits choose the kernels' width, on every device
 MIN_TILE_ROWS = 128  # least rows of a one-chain row tile (32 row classes x 4)
 MC_CHUNK_ROWS = 32   # rows_mc_kernel tiles are a multiple of this (chunks of 32 or 64 rows)
 MC_CHAINS = 64       # chains a rows_mc_kernel CTA serves (csrc/blockgibbs.cu kMcChains)
@@ -334,15 +334,278 @@ def _draws_plain(spec, P_b, W_b, r0, vary=None, counts=None):
 # ---------------------------------------------------------------------------
 
 
-def _check_kernel_shapes(spec, B: int, K: int):
-    if not (0 < B <= MAX_BLOCK and B % 4 == 0):
-        raise ValueError(f"the CUDA sweep needs a block of at most {MAX_BLOCK} "
-                         f"SNPs and a multiple of 4, got {B}")
-    if spec.n_fold > MAX_FOLD:
-        raise ValueError(f"the CUDA sweep takes at most {MAX_FOLD} folds, "
-                         f"got {spec.n_fold}")
-    if K < 1:
-        raise ValueError("no chains")
+# ---------------------------------------------------------------------------
+# sub-blocks: the width the kernels see, for any block, fold count and tile
+# ---------------------------------------------------------------------------
+
+
+@dataclass(frozen=True)
+class SubBlocks:
+    """How the sweeps run a block of B SNPs (a tile of B, for tiled LD): as
+    S consecutive sub-blocks of W SNPs, W <= MAX_BLOCK a multiple of 4 and
+    S W >= B, the S W - B slots after the block's last SNP inert (zero
+    genotype, Gram or LD; packed rows that draw 0, :func:`inert_rows`).
+
+    The blocked update is exact for any blocking
+    (hibayes_tpu/engine/gibbs.py:10-21): sub-block s starts from the
+    residual (or r_hat) after sub-block s - 1, so every SNP draws from the
+    same numbers in the same order as in the block of B; only the rounding
+    of the corrections differs.  The spec's block keeps setting m_pad, the
+    block count, the packing and every output's shape: only the width the
+    kernels see changes.  The choice depends on B and the rows a SNP alone
+    (:func:`kernel_width`), so the plain versions on the CPU run the route
+    the card runs.  S = 1 and W = B where the kernels take B as it is."""
+
+    B: int
+    S: int
+    W: int
+
+    @classmethod
+    def of(cls, B: int, W: int) -> "SubBlocks":
+        """The sub-blocks of width W of a block of B (the fewest that hold
+        it: :func:`kernel_width` never picks more)."""
+        return cls(B, -(-B // W), W)
+
+    @property
+    def same(self) -> bool:
+        return self.S == 1 and self.W == self.B
+
+    @property
+    def span(self) -> int:
+        return self.S * self.W
+
+    def spread(self, t, fill=0.0):
+        """Per-SNP values (..., nb B) in the kernels' layout (..., nb S W),
+        the pad slots set to ``fill`` (a number, or a tensor that broadcasts
+        over (..., nb, S W - B), e.g. (R, 1, 1) a packed row)."""
+        if self.span == self.B:
+            return t
+        lead, nb = tuple(t.shape[:-1]), t.shape[-1] // self.B
+        out = torch.empty(lead + (nb, self.span), dtype=t.dtype, device=t.device)
+        out[..., self.B:] = fill
+        out[..., :self.B] = t.reshape(lead + (nb, self.B))
+        return out.reshape(lead + (nb * self.span,))
+
+    def gather(self, t):
+        """The inverse of :meth:`spread`: the real slots of (..., nb S W)."""
+        if self.span == self.B:
+            return t
+        lead, nb = tuple(t.shape[:-1]), t.shape[-1] // self.span
+        return t.reshape(lead + (nb, self.span))[..., :self.B].reshape(lead + (nb * self.B,))
+
+
+def kernel_width(B: int, fits, what: str) -> SubBlocks:
+    """The sub-blocks of a block of B: the fewest sub-blocks S (from
+    ceil(B / MAX_BLOCK) up) of W = ceil(B / S) rounded up to 4 for which
+    ``fits(W)`` (the kernel's shared memory at W, from the H100's limits).
+    A block of at most MAX_BLOCK that is a multiple of 4 and fits stays as
+    it is.  Raises where not even 4 SNPs a sub-block fit (a BayesR fold
+    count whose rows overflow shared memory; ROADMAP queue 3, item 25)."""
+    S = max(1, -(-B // MAX_BLOCK))
+    while True:
+        W = -(-B // S)
+        W += -W % 4
+        if fits(W):
+            return SubBlocks(B, S, W)
+        if W <= 4:
+            raise ValueError(f"{what}: the packed rows of one SNP do not fit the kernel's "
+                             "shared memory even at sub-blocks of 4 SNPs (ROADMAP queue 3, "
+                             "item 25)")
+        S += 1
+
+
+def inert_rows(spec, rows: int, dtype, device) -> torch.Tensor:
+    """Packed-row values (rows,) of a pad slot: g 0 whatever its residual
+    (RR/A/L: inv_v = sd = 0; B/C: the threshold POS_BIG; R: every fold's
+    logit NEG_BIG under the fold-0 logit 0), and guard rows of zeros (vx =
+    0: never rejected)."""
+    v = torch.zeros((rows,), dtype=dtype, device=device)
+    mi = spec.model_index
+    if mi in (3, 4):
+        v[4] = POS_BIG
+    elif mi == 6:
+        v[2:2 + 4 * (spec.n_fold - 1):4] = NEG_BIG
+    return v
+
+
+def _spread_rows(spec, sb, P):
+    """Packed rows (..., R, nb B) in the kernels' layout, pads inert."""
+    if sb.span == sb.B:
+        return P
+    fill = inert_rows(spec, P.shape[-2], P.dtype, P.device)
+    return sb.spread(P, fill[:, None, None])
+
+
+def draws_smem(B: int, R: int) -> int:
+    """Shared memory bytes of a draws_kernel CTA (csrc/blockgibbs.cu
+    draws_smem): the Gram block, the packed rows at padded_stride and eight
+    warps' sums."""
+    return 4 * (B * B + B * padded_stride(R) + 8 * B)
+
+
+def tiled_smem(B: int, R: int, stage_next: bool = False) -> int:
+    """Shared memory bytes of a tiled-sweep CTA (csrc/sgibbs.cu tiled_smem)."""
+    return 4 * (8 + 11 * MAX_BLOCK + B * B * (3 if stage_next else 2)
+                + 2 * B * padded_stride(R))
+
+
+def mc_fits(R: int, n: int, W: int, xbytes: int) -> bool:
+    """Whether the individual-level sweeps take sub-blocks of W SNPs of R
+    packed rows over n rows of X of ``xbytes`` bytes: W <= MAX_BLOCK a
+    multiple of 4, and the one-chain sweep's plan (:func:`sweep1_plan`)
+    and the K-chain draws both fit at W."""
+    if W > MAX_BLOCK or W % 4:
+        return False
+    try:
+        sweep1_plan(n, W, R, xbytes, H100_SMS)
+    except ValueError:
+        return False
+    return draws_smem(W, R) <= SMEM_OPTIN
+
+
+def mc_sub_blocks(R: int, n: int, B: int, xbytes: int) -> SubBlocks:
+    """The sub-blocks in which ``prepare_gibbs_data`` lays out a genotype in
+    blocks of B (:func:`mc_fits` at R rows a SNP)."""
+    return kernel_width(B, lambda W: mc_fits(R, n, W, xbytes), "sweep_mc")
+
+
+def genotype_rows(n_fold: int) -> int:
+    """The most packed rows a SNP of any model with ``n_fold`` folds (BayesR's
+    at n_fold >= 2): the rows by which a genotype's layout is chosen, so
+    that every model's sweeps take it."""
+    return max(5, 3 + 4 * (max(n_fold, 2) - 1))
+
+
+def mc_layout(spec, X_blocks) -> SubBlocks:
+    """The sub-blocks of a genotype X (nb S, n, W) laid out for blocks of
+    spec.block (``prepare_gibbs_data``, :func:`sub_block_genotype`); raises
+    where the sweeps do not take W at the spec's rows."""
+    _, n, W = X_blocks.shape
+    sb = SubBlocks.of(spec.block, W)
+    if not mc_fits(n_rows(spec), n, W, X_blocks.element_size()):
+        raise ValueError(
+            f"sweep_mc: a genotype of width {W} for blocks of {spec.block} is not one the "
+            f"kernels take at {n_rows(spec)} packed rows a SNP: lay it out with "
+            "prepare_gibbs_data or sub_block_genotype (a fold count whose rows overflow "
+            "shared memory even at 4 SNPs: ROADMAP queue 3, item 25)")
+    return sb
+
+
+def segment_sub_blocks(spec, B: int) -> SubBlocks:
+    """The segment sweep's sub-blocks: a drawer CTA of one chain fits at W."""
+    RP = padded_stride(summary_rows(spec))
+    return kernel_width(B, lambda W: max(segment_smem(W, RP, 1, 4, 1, W)) <= SMEM_OPTIN,
+                        "sweep_s_segment")
+
+
+def tiled_sub_blocks(spec, B: int) -> SubBlocks:
+    """The tiled sweep's tiles: its CTA fits at tiles of W."""
+    R = summary_rows(spec)
+    return kernel_width(B, lambda W: tiled_smem(W, R) <= SMEM_OPTIN, "sweep_s_tiled")
+
+
+# the kernels' layout of each segment and tile store (by the identity and
+# version of its tensors): made at the first sweep over it and kept for the
+# sweeps after it; an entry goes with any of its tensors
+_LAYOUTS = {}
+
+
+def _layout(tensors, sb: SubBlocks, make):
+    key = tuple(id(t) for t in tensors) + (sb,)
+    versions = tuple(t._version for t in tensors)
+    hit = _LAYOUTS.get(key)
+    if hit is not None and all(r() is t for r, t in zip(hit[0], tensors)) and hit[1] == versions:
+        return hit[2]
+    out = make()
+    _LAYOUTS[key] = (tuple(weakref.ref(t) for t in tensors), versions, out)
+    for t in tensors:
+        weakref.finalize(t, _LAYOUTS.pop, key, None)
+    return out
+
+
+def sub_block_genotype(X_blocks, W_blocks, sb: SubBlocks) -> tuple:
+    """A genotype in blocks of B (nb, n, B) and its Gram blocks (nb, B, B)
+    in the sweeps' layout, as ``prepare_gibbs_data`` makes it: (nb S, n, W)
+    and each sub-block's diagonal Gram block (nb S, W, W), the pad columns
+    zero.  The inputs themselves where S = 1 and W = B; else a copy (for a
+    genotype made elsewhere, e.g. the JAX package's)."""
+    if sb.same:
+        return X_blocks, W_blocks
+    nb, n, B = X_blocks.shape
+    Xk = torch.zeros((nb * sb.S, n, sb.W), dtype=X_blocks.dtype, device=X_blocks.device)
+    Wk = torch.zeros((nb * sb.S, sb.W, sb.W), dtype=W_blocks.dtype, device=W_blocks.device)
+    Xv, Wv = Xk.view(nb, sb.S, n, sb.W), Wk.view(nb, sb.S, sb.W, sb.W)
+    for s in range(sb.S):
+        c0, c1 = s * sb.W, min(B, (s + 1) * sb.W)
+        Xv[:, s, :, :c1 - c0] = X_blocks[:, :, c0:c1]
+        Wv[:, s, :c1 - c0, :c1 - c0] = W_blocks[:, c0:c1, c0:c1]
+    return Xk, Wk
+
+
+def sub_block_segment(LD_seg, sb: SubBlocks):
+    """A dense LD segment (nb B, nb B) in the kernels' layout (nb S W, nb S
+    W), pad rows and columns zero: the segment itself where S W = B (its
+    blocks of B are then S blocks of W as stored); else a copy made once."""
+    if sb.span == sb.B:
+        return LD_seg
+
+    def make():
+        nb = LD_seg.shape[0] // sb.B
+        out = torch.zeros((nb * sb.span,) * 2, dtype=LD_seg.dtype, device=LD_seg.device)
+        out.view(nb, sb.span, nb, sb.span)[:, :sb.B, :, :sb.B] = LD_seg.view(nb, sb.B, nb, sb.B)
+        return out
+
+    return _layout((LD_seg,), sb, make)
+
+
+def sub_block_tiles(tiles, cols, valid, sb: SubBlocks) -> tuple:
+    """A tile store of tiles of B (nbr, K, B, B) re-tiled into tiles of W:
+    (nbr S, K S, W, W) with cols and valid (nbr S, K S).  Tile row (i, a)
+    (rows a W .. a W + W - 1 of row i) takes sub-tile (a, b) of each slot k
+    of row i, in slot order with its diagonal sub-tile (a, a) first, at
+    block cols[i, k] S + b, valid as the slot; invalid slots point at their
+    own row.  The same SNP order, the same LD entries; pad rows and columns
+    zero.  Made once per store (:func:`_layout`)."""
+    if sb.same:
+        return tiles, cols, valid
+
+    def make():
+        nbr, K, B, _ = tiles.shape
+        S, W, span = sb.S, sb.W, sb.span
+        dev = tiles.device
+        if span != B:
+            tp = torch.zeros((nbr, K, span, span), dtype=tiles.dtype, device=dev)
+            tp[:, :, :B, :B] = tiles
+        else:
+            tp = tiles
+        t6 = tp.view(nbr, K, S, W, S, W)
+        out = torch.empty((nbr, S, K * S, W, W), dtype=tiles.dtype, device=dev)
+        c = cols.to(device=dev, dtype=torch.int64)
+        v = valid.to(device=dev, dtype=torch.bool)
+        own = torch.arange(nbr, device=dev)[:, None] * S
+        cols_k = torch.empty((nbr, S, K * S), dtype=torch.int64, device=dev)
+        valid_k = torch.empty((nbr, S, K * S), dtype=torch.bool, device=dev)
+        for a in range(S):
+            slots = [(0, a)] + [(k, b) for k in range(K) for b in range(S) if (k, b) != (0, a)]
+            for q, (k, b) in enumerate(slots):
+                out[:, a, q] = t6[:, k, a, :, b, :]
+                valid_k[:, a, q] = v[:, k]
+                cols_k[:, a, q] = torch.where(v[:, k], c[:, k] * S + b, own[:, 0] + a)
+        return (out.reshape(nbr * S, K * S, W, W).contiguous(),
+                cols_k.reshape(nbr * S, K * S).to(cols.dtype),
+                valid_k.reshape(nbr * S, K * S).to(valid.dtype))
+
+    return _layout((tiles, cols, valid), sb, make)
+
+
+def _chain_groups(C: int, G: int) -> list:
+    """Slices of C chains, in order, in the fewest groups of at most G,
+    their sizes at most one apart: a launch of fewer drawers leaves more
+    SMs to the CTAs that serve them."""
+    ng = -(-C // max(1, G))
+    size, extra = divmod(C, ng)
+    ends = [(g + 1) * size + min(g + 1, extra) for g in range(ng)]
+    return [slice(a, b) for a, b in zip([0] + ends[:-1], ends)]
 
 
 def rows_per_tile(n: int, device, K: int = 1) -> int:
@@ -477,33 +740,53 @@ def _require_cuda(*tensors):
             raise ValueError("tensors on different devices")
 
 
+def _sub_block_draws(spec, P_b, W_b, r0, sb: SubBlocks, draw):
+    """One block's B draws for K chains as ``sb``'s sub-blocks: sub-block
+    s draws (``draw(P_s, W_ss, r_s)`` -> (dg, track), each (W, K)) from
+    r_s = r0_s + W[s, :s] dg[:s], the corrections of every earlier
+    sub-block, as the block's own draws add them one by one."""
+    B, K = r0.shape
+    dt, dev, span, W = r0.dtype, r0.device, sb.span, sb.W
+    Pp = inert_rows(spec, P_b.shape[1], P_b.dtype, dev)[None, :, None].repeat(span, 1, K)
+    Pp[:B] = P_b
+    Wp = torch.zeros((span, span), dtype=W_b.dtype, device=dev)
+    Wp[:B, :B] = W_b
+    rp = torch.zeros((span, K), dtype=dt, device=dev)
+    rp[:B] = r0
+    dg = torch.empty((span, K), dtype=dt, device=dev)
+    track = torch.empty((span, K), dtype=dt, device=dev)
+    for s in range(sb.S):
+        sl = slice(s * W, (s + 1) * W)
+        r_s = rp[sl] if s == 0 else rp[sl] + Wp[sl, :s * W].to(dt) @ dg[:s * W]
+        dg[sl], track[sl] = draw(Pp[sl].contiguous(), Wp[sl, sl].contiguous(), r_s.contiguous())
+    return dg[:B], track[:B]
+
+
+def block_sub_blocks(spec, B: int) -> SubBlocks:
+    """:func:`block_draws`' sub-blocks: the draws kernel fits at W."""
+    R = n_rows(spec)
+    return kernel_width(B, lambda W: draws_smem(W, R) <= SMEM_OPTIN, "block_draws")
+
+
 def block_draws_plain(spec, logpi_row, P_b, W_b, r0):
-    """Plain version of :func:`block_draws`, in the dtype of ``r0``."""
+    """Plain version of :func:`block_draws`, in the dtype of ``r0``, by the
+    same sub-blocks."""
     block_draws_plain.calls += 1
-    _, dg, track = _draws_plain(spec, P_b.to(r0.dtype), W_b.to(r0.dtype), r0)
-    return dg, track
+    dt = r0.dtype
+    draw = lambda P, W, r: _draws_plain(spec, P.to(dt), W.to(dt), r)[1:]
+    sb = block_sub_blocks(spec, r0.shape[0])
+    if sb.same:
+        return draw(P_b, W_b, r0)
+    return _sub_block_draws(spec, P_b, W_b, r0, sb, draw)
 
 
 block_draws_plain.calls = 0
 
 
-def block_draws(spec, logpi_row, P_b, W_b, r0):
-    """(dg, track) of one block of B sequential draws for K chains:
-    r0 (B, K) = X_b' yadj, W_b (B, B), P_b (B, R, K) from :func:`pack_rows`.
-    ``logpi_row`` (1, K) completes the contract of ``_s_block_draws``; the
-    draws read the fold-0 logit from the packed rows, as there."""
-    if r0.device.type == "cpu":
-        return block_draws_plain(spec, logpi_row, P_b, W_b, r0)
-    _require_cuda(r0, W_b, P_b)
+def _block_draws_launch(spec, P_b, W_b, r0):
+    lib = build.library()
     B, K = r0.shape
     R = P_b.shape[1]
-    _check_kernel_shapes(spec, B, K)
-    if (tuple(W_b.shape) != (B, B) or tuple(P_b.shape) != (B, R, K)
-            or tuple(logpi_row.shape) != (1, K) or R != n_rows(spec)):
-        raise ValueError("block_draws: inconsistent shapes")
-    if r0.dtype != F32 or W_b.dtype != F32 or P_b.dtype != F32:
-        raise TypeError("block_draws: the kernel takes float32")
-    lib = build.library()
     r0t = r0.t().contiguous()
     W = W_b.contiguous()
     P = P_b.contiguous()
@@ -518,6 +801,30 @@ def block_draws(spec, logpi_row, P_b, W_b, r0):
     return dg, track
 
 
+def block_draws(spec, logpi_row, P_b, W_b, r0):
+    """(dg, track) of one block of B sequential draws for K chains:
+    r0 (B, K) = X_b' yadj, W_b (B, B), P_b (B, R, K) from :func:`pack_rows`.
+    ``logpi_row`` (1, K) completes the contract of ``_s_block_draws``; the
+    draws read the fold-0 logit from the packed rows, as there.  Any B and
+    fold count: a block the kernel does not take as it is runs as
+    sub-blocks (:func:`block_sub_blocks`), a launch each."""
+    if r0.device.type == "cpu":
+        return block_draws_plain(spec, logpi_row, P_b, W_b, r0)
+    _require_cuda(r0, W_b, P_b)
+    B, K = r0.shape
+    R = P_b.shape[1]
+    if (tuple(W_b.shape) != (B, B) or tuple(P_b.shape) != (B, R, K)
+            or tuple(logpi_row.shape) != (1, K) or R != n_rows(spec) or K < 1):
+        raise ValueError("block_draws: inconsistent shapes")
+    if r0.dtype != F32 or W_b.dtype != F32 or P_b.dtype != F32:
+        raise TypeError("block_draws: the kernel takes float32")
+    sb = block_sub_blocks(spec, B)
+    if sb.same:
+        return _block_draws_launch(spec, P_b, W_b, r0)
+    return _sub_block_draws(spec, P_b, W_b, r0, sb,
+                            lambda P, W, r: _block_draws_launch(spec, P, W, r))
+
+
 block_draws.launches = 0
 
 
@@ -529,34 +836,36 @@ block_draws.launches = 0
 def sweep_mc_plain(spec, consts_b, X_blocks, W_blocks, xpx, vx, vei_b, g_b,
                    z_b, u_b, chi_b, z2_b, vargL_b, yadj_b, u_vec_b,
                    block_range=None):
-    """Plain version of :func:`sweep_mc`, in the dtype of ``yadj_b``.  On the
-    CPU it takes the role of the JAX engine's ``_sweep_xla``.  At K >= 2 a
-    chain's products are an elementwise product and a sum of its own: a
-    matrix product over the chain batch may sum in an order that depends on
-    K, and chain k must not depend on the other chains."""
+    """Plain version of :func:`sweep_mc`, in the dtype of ``yadj_b``, by the
+    same sub-blocks (:func:`mc_layout`).  On the CPU it takes the role of
+    the JAX engine's ``_sweep_xla``.  At K >= 2 a chain's products are an
+    elementwise product and a sum of its own: a matrix product over the
+    chain batch may sum in an order that depends on K, and chain k must not
+    depend on the other chains."""
     sweep_mc_plain.calls += 1
-    nb_tot, n, B = X_blocks.shape
-    off, nbg = block_range if block_range is not None else (0, nb_tot)
+    sb = mc_layout(spec, X_blocks)
+    off, nbg = block_range if block_range is not None else (0, X_blocks.shape[0] // sb.S)
     dt = yadj_b.dtype
     K = yadj_b.shape[0]
-    P = pack_rows(spec, consts_b, xpx, vx, vei_b, g_b, z_b, u_b, chi_b,
-                  vargL_b, dt)
-    P_blocks = to_block_layout(P, nbg, B)
+    P = _spread_rows(spec, sb, pack_rows(spec, consts_b, xpx, vx, vei_b, g_b, z_b, u_b,
+                                         chi_b, vargL_b, dt))
+    Bk, nbk, offk = sb.W, nbg * sb.S, off * sb.S
+    P_blocks = to_block_layout(P, nbk, Bk)
     yadj = yadj_b.clone()
     u = u_vec_b.to(dt).clone()
-    g_new = torch.empty((K, nbg * B), dtype=dt, device=yadj.device)
-    track = torch.empty((K, nbg * B), dtype=torch.int32, device=yadj.device)
-    for b in range(nbg):
-        Xb = X_blocks[off + b].to(dt)
+    g_new = torch.empty((K, nbk * Bk), dtype=dt, device=yadj.device)
+    track = torch.empty((K, nbk * Bk), dtype=torch.int32, device=yadj.device)
+    for b in range(nbk):
+        Xb = X_blocks[offk + b].to(dt)
         r0 = (yadj @ Xb).T if K == 1 else (yadj[:, :, None] * Xb).sum(1).T
-        gi, dg, tr = _draws_plain(spec, P_blocks[b], W_blocks[off + b].to(dt), r0)
+        gi, dg, tr = _draws_plain(spec, P_blocks[b], W_blocks[offk + b].to(dt), r0)
         delta = (Xb @ dg).T if K == 1 else (Xb * dg.T[:, None, :]).sum(2)
         yadj += delta
         u -= delta
-        g_new[:, b * B:(b + 1) * B] = gi.T
-        track[:, b * B:(b + 1) * B] = tr.T.to(torch.int32)
-    return phase_c_mc(spec, consts_b, vx, vei_b, g_new, track, u_b, z2_b,
-                      vargL_b, yadj, u)
+        g_new[:, b * Bk:(b + 1) * Bk] = gi.T
+        track[:, b * Bk:(b + 1) * Bk] = tr.T.to(torch.int32)
+    return phase_c_mc(spec, consts_b, vx, vei_b, sb.gather(g_new), sb.gather(track), u_b,
+                      z2_b, vargL_b, yadj, u)
 
 
 sweep_mc_plain.calls = 0
@@ -568,16 +877,21 @@ def sweep_mc(spec, consts_b, X_blocks, W_blocks, xpx, vx, vei_b, g_b, z_b,
     """Fused K-chain sweep; the contract of ``sweep_mc_t``
     (hibayes_tpu/ops/blockgibbs.py:695-764).
 
-    X_blocks (nb_tot, n, B) int8 or f32, W_blocks (nb_tot, B, B); per-SNP
-    inputs are (m,) shared or (K, m) per chain, m = nbg * B; yadj_b, u_vec_b
-    (K, n).  ``block_range=(off, nbg)`` sweeps blocks [off, off + nbg) of X
-    and W (indexed globally) while the per-SNP inputs are the local slice.
+    X_blocks (nb_tot S, n, W) int8 or f32 and W_blocks (nb_tot S, W, W), the
+    genotype and its Gram blocks in blocks of B = spec.block as S
+    sub-blocks of W (``prepare_gibbs_data``'s layout, :func:`mc_layout`;
+    S = 1 and W = B where the kernels take B as it is); per-SNP inputs are
+    (m,) shared or (K, m) per chain, m = nbg * B; yadj_b, u_vec_b (K, n).
+    ``block_range=(off, nbg)`` sweeps blocks [off, off + nbg) of X and W
+    (indexed globally, in blocks of B) while the per-SNP inputs are the
+    local slice.  Any B and fold count: the kernels sweep each block as its
+    sub-blocks, the same SNPs in the same order.
     On the card one chain (K = 1) is one persistent launch of
     ``sweep1_kernel`` (:func:`sweep1_plan`; its flags run on across sweeps
     on each device, so two one-chain sweeps must not run at once on one
-    device); K >= 2 chains two launches a block.
+    device); K >= 2 chains two launches a (sub-)block.
     ``stamps`` (measurement only, on the card): an int64 tensor of at least
-    16 (nbg + 1) entries that gets, for each block, %globaltimer ns at the
+    16 (nbg S + 1) entries that gets, for each kernel block, %globaltimer ns at the
     stages of the sweep (csrc/blockgibbs.cu kStamps: at K = 1 the drawer's
     wait for the partials, the chain and the first rows CTA's wait and work;
     at K >= 2 the launches' stages and clock64 through the K-chain rows
@@ -588,10 +902,13 @@ def sweep_mc(spec, consts_b, X_blocks, W_blocks, xpx, vx, vei_b, g_b, z_b,
                               vei_b, g_b, z_b, u_b, chi_b, z2_b, vargL_b,
                               yadj_b, u_vec_b, block_range=block_range)
     _require_cuda(X_blocks, W_blocks, yadj_b, u_vec_b, g_b)
-    nb_tot, n, B = X_blocks.shape
+    sb = mc_layout(spec, X_blocks)
+    nbk, n, Bk = X_blocks.shape
+    nb_tot, B = nbk // sb.S, sb.B
     off, nbg = block_range if block_range is not None else (0, nb_tot)
     K = yadj_b.shape[0]
-    _check_kernel_shapes(spec, B, K)
+    if K < 1:
+        raise ValueError("sweep_mc: no chains")
     if not (0 <= off and off + nbg <= nb_tot):
         raise ValueError(f"block_range {block_range} outside {nb_tot} blocks")
     if X_blocks.dtype not in (torch.int8, F32):
@@ -600,17 +917,18 @@ def sweep_mc(spec, consts_b, X_blocks, W_blocks, xpx, vx, vei_b, g_b, z_b,
         raise TypeError("sweep_mc: the kernel takes float32 W and residuals")
     if not X_blocks.is_contiguous() or X_blocks.data_ptr() % 16:
         raise ValueError("sweep_mc: X_blocks must be contiguous and 16-byte aligned")
-    if (tuple(W_blocks.shape) != (nb_tot, B, B) or tuple(yadj_b.shape) != (K, n)
+    if (nbk % sb.S or tuple(W_blocks.shape) != (nbk, Bk, Bk) or tuple(yadj_b.shape) != (K, n)
             or tuple(u_vec_b.shape) != (K, n)):
         raise ValueError("sweep_mc: W, yadj or u do not match X and the chains")
     lib = build.library()
-    m_loc = nbg * B
     P = pack_rows(spec, consts_b, xpx, vx, vei_b, g_b, z_b, u_b, chi_b,
                   vargL_b, F32)
-    if tuple(P.shape) != (K, n_rows(spec), m_loc):
+    if tuple(P.shape) != (K, n_rows(spec), nbg * B):
         raise ValueError(f"sweep_mc: packed rows {tuple(P.shape)}, expected "
-                         f"{(K, n_rows(spec), m_loc)} for block_range {block_range}")
-    P_blocks = to_block_layout(P, nbg, B)
+                         f"{(K, n_rows(spec), nbg * B)} for block_range {block_range}")
+    nbg, off = nbg * sb.S, off * sb.S
+    m_loc = nbg * Bk
+    P_blocks = to_block_layout(_spread_rows(spec, sb, P), nbg, Bk)
     W = W_blocks.contiguous()
     yadj = yadj_b.contiguous().clone()
     u = u_vec_b.to(F32).contiguous().clone()
@@ -620,13 +938,13 @@ def sweep_mc(spec, consts_b, X_blocks, W_blocks, xpx, vx, vei_b, g_b, z_b,
     track_f = torch.empty((K, m_loc), dtype=F32, device=dev)
     tile = rows_per_tile(n, dev, K)
     ntiles = -(-n // tile)
-    partial = torch.empty((ntiles, K, B), dtype=F32, device=dev)
+    partial = torch.empty((ntiles, K, Bk), dtype=F32, device=dev)
     if stamps is not None and (stamps.dtype != torch.int64 or stamps.device != dev
                                or stamps.numel() < 16 * (nbg + 1)):
         raise ValueError("sweep_mc: stamps must be int64 on the card, 16 per block + 16")
     if K == 1:
         props = torch.cuda.get_device_properties(dev)
-        plan = sweep1_plan(n, B, P.shape[1], X_blocks.element_size(),
+        plan = sweep1_plan(n, Bk, P.shape[1], X_blocks.element_size(),
                            props.multi_processor_count,
                            getattr(props, "shared_memory_per_block_optin", SMEM_OPTIN))
         fl = _sweep1_flags(dev, ntiles)
@@ -637,7 +955,7 @@ def sweep_mc(spec, consts_b, X_blocks, W_blocks, xpx, vx, vei_b, g_b, z_b,
     code = lib.hb_sweep_mc(
         X_blocks.data_ptr(), int(X_blocks.dtype == torch.int8), W.data_ptr(),
         P_blocks.data_ptr(), off, nbg, n, tile,
-        *(rows_mc_shape(K, tile) if K > 1 else (0, 0, 0, 0)), B, P.shape[1], K,
+        *(rows_mc_shape(K, tile) if K > 1 else (0, 0, 0, 0)), Bk, P.shape[1], K,
         spec.model_index,
         spec.n_fold, yadj.data_ptr(), u.data_ptr(), g_new.data_ptr(),
         dg.data_ptr(), track_f.data_ptr(), partial.data_ptr(), *one,
@@ -649,8 +967,8 @@ def sweep_mc(spec, consts_b, X_blocks, W_blocks, xpx, vx, vei_b, g_b, z_b,
     if fl is not None:
         fl["epoch"] += nbg
     sweep_mc.launches += 1
-    return phase_c_mc(spec, consts_b, vx, vei_b, g_new,
-                      track_f.to(torch.int32), u_b, z2_b, vargL_b, yadj, u)
+    return phase_c_mc(spec, consts_b, vx, vei_b, sb.gather(g_new),
+                      sb.gather(track_f).to(torch.int32), u_b, z2_b, vargL_b, yadj, u)
 
 
 sweep_mc.launches = 0
@@ -727,11 +1045,19 @@ def _summary_blocks(P, nb: int, B: int, dt):
 
 
 def sweep_s_segment_plain(spec, LD_seg, r_seg, P, n, tally=None):
-    """Plain version of :func:`sweep_s_segment`, in the dtype of ``r_seg``.
-    With K chains each chain's update is an elementwise product and a sum
-    of its own, so that it does not depend on the other chains."""
+    """Plain version of :func:`sweep_s_segment`, in the dtype of ``r_seg``,
+    by the same sub-blocks (:func:`segment_sub_blocks`).  With K chains each
+    chain's update is an elementwise product and a sum of its own, so that
+    it does not depend on the other chains."""
     sweep_s_segment_plain.calls += 1
-    mc, B = LD_seg.shape[0], spec.block
+    sb = segment_sub_blocks(spec, spec.block)
+    out = _segment_plain(spec, sb.W, sub_block_segment(LD_seg, sb), sb.spread(r_seg),
+                         _spread_rows(spec, sb, P), n, tally)
+    return tuple(sb.gather(t) for t in out)
+
+
+def _segment_plain(spec, B, LD_seg, r_seg, P, n, tally):
+    mc = LD_seg.shape[0]
     dt = r_seg.dtype
     LD = LD_seg.to(dt)
     K = r_seg.shape[0] if r_seg.dim() == 2 else 1
@@ -876,9 +1202,14 @@ def sweep_s_segment(spec, LD_seg, r_seg, P, n, stamps=None, tally=None):
     the port takes none.  Returns (dg, track int32, r_seg_new), each (mc,)
     or (K, mc) as r_seg.
 
+    Any B and fold count: the kernel sees the blocks as the sub-blocks of
+    :func:`segment_sub_blocks` (the segment itself where they tile it, else
+    a copy with inert pad rows made once per segment).
     On the card the sweep is one persistent launch (:func:`segment_plan`;
     its flags, per device, run on by an epoch: two segment sweeps must not
-    run at once on one device).  ``stamps`` (measurement only): an int64
+    run at once on one device); a batch whose drawers would leave no SM for
+    the rows runs in groups of chains (:func:`segment_group`), a launch
+    each.  ``stamps`` (the first group's) (measurement only): an int64
     tensor of at least 12 (mc / B) + 4 entries that gets, per block, the
     first drawer CTA's clock64 at the chain's start, after the barrier that
     follows its chains (dg published, the next block staged), after its
@@ -892,35 +1223,73 @@ def sweep_s_segment(spec, LD_seg, r_seg, P, n, stamps=None, tally=None):
         return sweep_s_segment_plain(spec, LD_seg, r_seg, P, n, tally)
     _require_cuda(r_seg, LD_seg, P)
     chains = r_seg.dim() == 2
-    guard = guard_on(spec)
     mc, B, R = LD_seg.shape[0], spec.block, summary_rows(spec)
     K = r_seg.shape[0] if chains else 1
-    _check_kernel_shapes(spec, B, K)
     if LD_seg.dtype != F32 or r_seg.dtype != F32 or P.dtype != F32:
         raise TypeError("sweep_s_segment: the kernel takes float32 (other "
                         "float types run on the CPU)")
     lead = (K,) if chains else ()
     if (tuple(LD_seg.shape) != (mc, mc) or mc % B or tuple(r_seg.shape) != lead + (mc,)
-            or tuple(P.shape) != lead + (R, mc)):
+            or tuple(P.shape) != lead + (R, mc) or K < 1):
         raise ValueError(f"sweep_s_segment: LD {tuple(LD_seg.shape)}, r "
                          f"{tuple(r_seg.shape)} and packed rows {tuple(P.shape)} "
                          f"do not fit a segment of blocks of {B} with {R} rows")
     if not LD_seg.is_contiguous() or LD_seg.data_ptr() % 16:
         raise ValueError("sweep_s_segment: LD must be contiguous and 16-byte aligned")
-    nb = mc // B
+    sb = segment_sub_blocks(spec, B)
+    LDk = sub_block_segment(LD_seg, sb)
+    rk, Pk = sb.spread(r_seg), _spread_rows(spec, sb, P)
+    mck, Bk = LDk.shape[0], sb.W
+    nb = mck // Bk
     if stamps is not None and (stamps.dtype != torch.int64 or stamps.device != r_seg.device
                                or stamps.numel() < 12 * nb + 4):
         raise ValueError("sweep_s_segment: stamps must be int64 on the card, 12 per block + 4")
-    lib = build.library("sgibbs.cu")
     dev = r_seg.device
     props = torch.cuda.get_device_properties(dev)
-    plan = segment_plan(mc, B, K, R, props.multi_processor_count,
-                        getattr(props, "shared_memory_per_block_optin", SMEM_OPTIN))
+    sms = props.multi_processor_count
+    optin = getattr(props, "shared_memory_per_block_optin", SMEM_OPTIN)
+    G = segment_group(mck, Bk, K, R, sms, optin)
+    if not chains:
+        out = _segment_launch(spec, LDk, rk[None], Pk[None], n, Bk, G, sms, optin, stamps,
+                              tally if tally is None else tally[None])
+        return tuple(sb.gather(t[0]) for t in out)
+    parts = [_segment_launch(spec, LDk, rk[g], Pk[g], n, Bk, min(G, g.stop - g.start), sms,
+                             optin, stamps if g.start == 0 else None,
+                             None if tally is None else tally[g])
+             for g in _chain_groups(K, G)]
+    return tuple(sb.gather(torch.cat(t, dim=0)) for t in zip(*parts))
+
+
+def segment_group(mc: int, B: int, K: int, R: int, sms: int, optin: int = SMEM_OPTIN) -> int:
+    """The most chains of a segment sweep's launch (at most K) for which
+    :func:`segment_plan` fits the card: a batch whose drawer CTAs would
+    leave no SM for the rows runs in groups of that many chains, a launch
+    each, in order."""
+    G = K
+    while True:
+        try:
+            segment_plan(mc, B, G, R, sms, optin)
+            return G
+        except ValueError:
+            if G == 1:
+                raise
+            G = -(-G // 2)
+
+
+def _segment_launch(spec, LD_seg, r_seg, P, n, B, K, sms, optin, stamps, tally):
+    """One launch of the segment sweep for K chains (r_seg (K, mc), P (K, R,
+    mc)) at blocks of B; returns (dg, track int32, r), each (K, mc)."""
+    guard = guard_on(spec)
+    mc, R = LD_seg.shape[0], P.shape[1]
+    nb = mc // B
+    lib = build.library("sgibbs.cu")
+    dev = r_seg.device
+    plan = segment_plan(mc, B, K, R, sms, optin)
     fl = _segment_flags(dev, K + plan["nown"])
     Pc = P.contiguous()
     r = r_seg.clone(memory_format=torch.contiguous_format)
-    dg = torch.empty(lead + (mc,), dtype=F32, device=dev)
-    track = torch.empty(lead + (mc,), dtype=F32, device=dev)
+    dg = torch.empty((K, mc), dtype=F32, device=dev)
+    track = torch.empty((K, mc), dtype=F32, device=dev)
     snap = torch.empty((2, K, B), dtype=F32, device=dev)
     nrej = torch.empty((K, nb) if guard else (0,), dtype=torch.int32, device=dev)
     code = lib.hb_sweep_s_segment(
@@ -937,7 +1306,7 @@ def sweep_s_segment(spec, LD_seg, r_seg, P, n, stamps=None, tally=None):
     fl["epoch"] += nb
     sweep_s_segment.launches += 1
     if guard:
-        _tally(tally, _guard_counts(nrej) if chains else _guard_counts(nrej)[0])
+        _tally(tally, _guard_counts(nrej))
     return dg, track.to(torch.int32), r
 
 
@@ -1041,11 +1410,20 @@ def _layout_schedule(cols, valid) -> TiledSchedule:
 
 
 def sweep_s_tiled_plain(spec, tiles, cols, valid, r_hat, P, n, tally=None):
-    """Plain version of :func:`sweep_s_tiled`, in the dtype of ``r_hat``:
-    one chain, or C chains drawn side by side (each chain's draws
-    elementwise, each contribution a product of its own), chain c bit for
-    bit the one-chain call on chain c's inputs."""
+    """Plain version of :func:`sweep_s_tiled`, in the dtype of ``r_hat``, on
+    the same tiles (:func:`tiled_sub_blocks`): one chain, or C chains drawn
+    side by side (each chain's draws elementwise, each contribution a
+    product of its own), chain c bit for bit the one-chain call on chain c's
+    inputs."""
     sweep_s_tiled_plain.calls += 1
+    sb = tiled_sub_blocks(spec, tiles.shape[2])
+    tk, ck, vk = sub_block_tiles(tiles, cols, valid, sb)
+    dg, track, r, rej = _tiled_plain(spec, tk, ck, vk, sb.spread(r_hat),
+                                     _spread_rows(spec, sb, P), n, tally)
+    return sb.gather(dg), sb.gather(track), sb.gather(r), rej
+
+
+def _tiled_plain(spec, tiles, cols, valid, r_hat, P, n, tally):
     nbr, K, B, _ = tiles.shape
     dt, dev = r_hat.dtype, r_hat.device
     one = r_hat.dim() == 1
@@ -1092,7 +1470,10 @@ def sweep_s_tiled(spec, tiles, cols, valid, r_hat, P, n, stamps=None, tally=None
     ``rejected`` (0-d, or (C,)) counts the draws whose first candidate the
     guard rejected; ``tally`` (optional, int64 (2,) or (C, 2)) gets that
     count and the count of draws whose every candidate failed added.  Any
-    tile B <= 128 that is a multiple of 4 (64 or 128 from ``ldmat``).
+    tile and fold count: the kernel sweeps the store re-tiled into the
+    tiles of :func:`tiled_sub_blocks` (the store itself where it takes B as
+    it is: 64 or 128 from ``ldmat``; else :func:`sub_block_tiles`, made
+    once per store), the same SNPs in the same order.
 
     On the card the sweep is one launch that applies the contributions in
     the order of :func:`tiled_schedule` of cols and valid, built at the
@@ -1101,27 +1482,27 @@ def sweep_s_tiled(spec, tiles, cols, valid, r_hat, P, n, stamps=None, tally=None
     after it.  A batch is the same launch with a drawer CTA per chain and
     each contribution's tile read once for all chains; chain c is bit for
     bit a one-chain launch on chain c's inputs.  The grid (the drawers and
-    at least one CTA for the contributions) must be resident at once: a
-    batch too large for the card raises.  ``stamps`` (measurement only;
+    at least one CTA for the contributions) must be resident at once, so a
+    batch larger than that runs in groups of
+    chains, a launch each, in order (:func:`tiled_group`), which changes
+    no number.  ``stamps`` (measurement only;
     chain 0's): an int64 tensor of at least 4 nbr + 4 entries that gets the
     drawer's clock64 at four points of each row (before its draws, after
     them, after the barrier that waits for the next row's loads, after its
     own contribution), then %globaltimer ns and clock64 at the sweep's
-    start and end."""
+    start and end, nbr the rows of the re-tiled store."""
     if r_hat.device.type == "cpu":
         return sweep_s_tiled_plain(spec, tiles, cols, valid, r_hat, P, n, tally)
     _require_cuda(r_hat, tiles, cols, valid, P)
     nbr, K, B, _ = tiles.shape
     lead = tuple(r_hat.shape[:-1])
     C = r_hat.shape[0] if lead else 1
-    _check_kernel_shapes(spec, B, 1)
-    guard = guard_on(spec)
     R = summary_rows(spec)
     if tiles.dtype != F32 or r_hat.dtype != F32 or P.dtype != F32:
         raise TypeError("sweep_s_tiled: the kernel takes float32 (other float "
                         "types run on the CPU)")
     if (tuple(tiles.shape) != (nbr, K, B, B) or tuple(cols.shape) != (nbr, K)
-            or tuple(valid.shape) != (nbr, K) or r_hat.dim() > 2
+            or tuple(valid.shape) != (nbr, K) or r_hat.dim() > 2 or C < 1
             or tuple(r_hat.shape) != lead + (nbr * B,)
             or tuple(P.shape) != lead + (R, nbr * B)):
         raise ValueError(f"sweep_s_tiled: tiles {tuple(tiles.shape)}, cols/valid "
@@ -1130,17 +1511,53 @@ def sweep_s_tiled(spec, tiles, cols, valid, r_hat, P, n, stamps=None, tally=None
                          f"do not fit (R = {R})")
     if not tiles.is_contiguous() or tiles.data_ptr() % 16:
         raise ValueError("sweep_s_tiled: tiles must be contiguous and 16-byte aligned")
-    schedule = _layout_schedule(cols, valid)
-    if stamps is not None and (stamps.dtype != torch.int64 or stamps.numel() < 4 * nbr + 4):
+    sb = tiled_sub_blocks(spec, B)
+    tk, ck, vk = sub_block_tiles(tiles, cols, valid, sb)
+    schedule = _layout_schedule(ck, vk)
+    if stamps is not None and (stamps.dtype != torch.int64
+                               or stamps.numel() < 4 * tk.shape[0] + 4):
         raise ValueError("sweep_s_tiled: stamps must be int64, 4 per row + 4")
+    rk, Pk = sb.spread(r_hat), _spread_rows(spec, sb, P)
+    G = tiled_group(spec, sb.W, schedule.items.shape[0])
+    if not lead:
+        out = _tiled_launch(spec, tk, schedule, rk[None], Pk[None], n, stamps,
+                            tally if tally is None else tally[None])
+        dg, track, r, counts = (t[0] for t in out)
+    else:
+        parts = [_tiled_launch(spec, tk, schedule, rk[g], Pk[g], n,
+                               stamps if g.start == 0 else None,
+                               None if tally is None else tally[g])
+                 for g in _chain_groups(C, G)]
+        dg, track, r, counts = (torch.cat(t, dim=0) for t in zip(*parts))
+    return sb.gather(dg), sb.gather(track), sb.gather(r), counts[..., 0]
+
+
+def tiled_group(spec, B: int, nitems: int) -> int:
+    """The most chains of one tiled-sweep launch at tiles of B on this
+    card: the CTAs it holds at once (``hb_tiled_resident``), less the one
+    item CTA when the layout has contributions to scatter."""
+    lib = build.library("sgibbs.cu")
+    out = ctypes.c_longlong()
+    code = lib.hb_tiled_resident(B, spec.model_index, spec.n_fold, int(guard_on(spec)),
+                                 ctypes.byref(out))
+    build.check(lib, code, "tiled_group")
+    return max(1, out.value - (1 if nitems else 0))
+
+
+def _tiled_launch(spec, tiles, schedule, r_hat, P, n, stamps, tally):
+    """One launch of the tiled sweep for C chains (r_hat (C, m), P (C, R,
+    m)); returns (dg, track int32, r_hat, guard counts (C, 2))."""
+    nbr, K, B, _ = tiles.shape
+    C, R = r_hat.shape[0], P.shape[1]
+    guard = guard_on(spec)
     lib = build.library("sgibbs.cu")
     dev = r_hat.device
     st = schedule.device_state(dev, C)
     Pc = P.contiguous()
     r = r_hat.clone(memory_format=torch.contiguous_format)
-    dg = torch.empty(lead + (nbr * B,), dtype=F32, device=dev)
-    track = torch.empty(lead + (nbr * B,), dtype=F32, device=dev)
-    nrej = torch.empty(lead + (nbr,), dtype=torch.int32, device=dev)
+    dg = torch.empty((C, nbr * B), dtype=F32, device=dev)
+    track = torch.empty((C, nbr * B), dtype=F32, device=dev)
+    nrej = torch.empty((C, nbr), dtype=torch.int32, device=dev)
     code = lib.hb_sweep_s_tiled(
         tiles.data_ptr(), nbr, K, B, R, C, spec.model_index, spec.n_fold, int(guard),
         float(n), float(spec.vary), Pc.data_ptr(), r.data_ptr(), dg.data_ptr(),
@@ -1156,7 +1573,7 @@ def sweep_s_tiled(spec, tiles, cols, valid, r_hat, P, n, stamps=None, tally=None
     sweep_s_tiled.launches += 1
     counts = _guard_counts(nrej)
     _tally(tally, counts)
-    return dg, track.to(torch.int32), r, counts[..., 0]
+    return dg, track.to(torch.int32), r, counts
 
 
 sweep_s_tiled.launches = 0

@@ -112,6 +112,8 @@ def library(source: str = SOURCES[0]) -> ctypes.CDLL:
         lib.hb_chain_latency.argtypes = [_P, _P, _P, _I, _I, _I, _I, _I, _F, _I,
                                          _P, _P, _P]
         lib.hb_chain_latency.restype = _I
+        lib.hb_tiled_resident.argtypes = [_I, _I, _I, _I, ctypes.POINTER(ctypes.c_longlong)]
+        lib.hb_tiled_resident.restype = _I
         lib.hb_s_launch_counts.argtypes = [ctypes.POINTER(ctypes.c_longlong)]
         lib.hb_s_launch_counts.restype = None
         lib.hb_s_reset_launch_counts.argtypes = []

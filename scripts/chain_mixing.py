@@ -5,7 +5,8 @@ multi-chain phases.  Four studies:
     python3 scripts/chain_mixing.py rehearse     # CPU, about 15 minutes
     python3 scripts/chain_mixing.py reference    # CPU, needs the JAX package
     python3 scripts/chain_mixing.py windows      # on the card
-    python3 scripts/chain_mixing.py fault        # on the card, about 3 minutes
+    python3 scripts/chain_mixing.py ssbrm_reference   # CPU, needs the JAX package
+    python3 scripts/chain_mixing.py fault [PHASE ...] # on the card: 4c 4b 10a 10b
 
 rehearse: chip_smoke.py phase 4c's recipe (BayesCpi, n=4,096, m=65,536,
   B=128, 500 causal SNPs, h2=0.5, 200 iterations, burn-in 100, thin 5) on
@@ -25,6 +26,15 @@ fault: phases 4c and 4b as chip_smoke.py runs them (the same genotypes and
   residual; "always", every sweep does.  One JSON line per run with the
   numbers the gates read (split R-hat of Ve and Vg, corr of chains 0 and
   1's GEBV, pooled accuracy), so each bar can sit between sound and faulty.
+  Phases 10a (ssbrm, 4 chains, on phase 7's cohort: the fault in the
+  epsilon sweep, each chain k drawing epsilon against chain k+1's
+  residual) and 10b (sbrm, 4 chains, on phase 5's tiled LD: each chain k
+  sweeping against chain k+1's r_hat) likewise, with their gates' numbers
+  (R-hat of Ve, Veps and J and the GEBV agreement on the ids with data;
+  R-hat of Vg and each chain's accuracy).  Default: every phase.
+ssbrm_reference: split R-hat of J, Veps and Ve from the JAX package's
+  ssbrm(nchains=4) and the port's on one small cohort of phase 10a's shape
+  (fault 23 in ROADMAP.md).
 """
 
 from __future__ import annotations
@@ -99,6 +109,41 @@ def reference(niter=400):
               f"{np.round(np.asarray(smp['Ve']).mean(1), 4).tolist()}", flush=True)
 
 
+def ssbrm_reference(niter=200, nburn=100, nchains=4):
+    """Split R-hat of J, Veps and Ve from the JAX package's ssbrm(nchains=4)
+    and the port's on one small cohort of phase 10a's shape (m >> records,
+    most ids without a genotype): 4,000 ids, 800 genotyped (m=4,000), 200
+    genotyped and 200 non-genotyped phenotyped, 200 iterations, burn-in
+    100, thin 5 (20 records a chain, as 10a), chain seeds 1-3."""
+    os.environ.setdefault("JAX_PLATFORMS", "cpu")
+    import torch
+
+    import hibayes_tpu_torch as htt
+    from hibayes_tpu.model.ssbrm import ssbrm as jax_ssbrm
+    from tests.test_torch_ssbrm import _ss_problem
+
+    torch.set_num_threads(4)
+    prob = _ss_problem(seed=11, nfound=200, nkid=3800, n_g=800, m=4000, n_causal=40,
+                       n_pg=200, n_pn=200)
+    keys = ("data", "M", "M_id", "pedigree")
+    kw = dict(method="BayesCpi", niter=niter, nburn=nburn, thin=5, verbose=False,
+              impute="pcg", chunk_cols=256, nchains=nchains)
+    n_rec = (niter - nburn) // 5
+    for seed in (1, 2, 3):
+        for name, run in (("JAX", lambda: jax_ssbrm("y~1", **{k: prob[k] for k in keys},
+                                                    seed=seed, **kw)),
+                          ("port", lambda: htt.ssbrm("y~1", **{k: prob[k] for k in keys},
+                                                     seed=seed, device="cpu", **kw))):
+            t0 = time.time()
+            fit = run()
+            means = {k: np.round(np.asarray(fit.MCMCsamples[k]).reshape(nchains, n_rec)
+                                 .mean(1), 4).tolist() for k in ("J", "Veps", "Ve")}
+            print("ssbrm_reference", json.dumps({
+                "package": name, "seed": seed, "seconds": round(time.time() - t0, 1),
+                **{f"rhat_{k}": float(fit.rhat[k]) for k in ("J", "Veps", "Ve", "Vg")},
+                "chain_means": means}), flush=True)
+
+
 def windows(w=20):
     import torch
 
@@ -145,7 +190,22 @@ def windows(w=20):
                             "windows": rows(fit, 4, 200)}), flush=True)
 
 
-def fault(niter=200, nburn=100, at=100):
+def _planted(fn, index, kind, at):
+    """``fn`` with argument ``index`` (a chain batch's state) rolled by one
+    chain, at its call ``at`` ("once") or at every call ("always"): chain k
+    then sweeps against chain k+1's state."""
+    calls = [0]
+
+    def wrapped(*a, **kw):
+        if kind == "always" or calls[0] == at:
+            a = a[:index] + (a[index].roll(-1, 0),) + a[index + 1:]
+        calls[0] += 1
+        return fn(*a, **kw)
+    wrapped.launches = fn.launches   # the wrapper counts through this name
+    return wrapped
+
+
+def fault(phases=("4c", "4b", "10a", "10b"), niter=200, nburn=100, at=100):
     import torch
 
     import chip_smoke as cs
@@ -155,49 +215,100 @@ def fault(niter=200, nburn=100, at=100):
     dev = torch.device("cuda")
     print(cs.smi_line(), flush=True)
     gen = torch.Generator(device=dev).manual_seed(2024)
-    cs.simulate(torch, 4096, 1024, gen, dev)   # chip_smoke.py's draws before phase 4
-    flagship = cs.simulate(torch, 50_000, 65536, gen, dev)
-    mc64 = cs.simulate(torch, 4096, 65536, gen, dev)
-    sound = TB.sweep_mc
-
-    def planted(kind):
-        calls = [0]
-
-        def sweep_mc(spec, *a, **kw):
-            if kind == "always" or calls[0] == at:
-                a = a[:12] + (a[12].roll(-1, 0),) + a[13:]   # yadj of chain k + 1
-            calls[0] += 1
-            return sound(spec, *a, **kw)
-        sweep_mc.launches = sound.launches   # the wrapper counts through this name
-        return sweep_mc
-
     n_rec = (niter - nburn) // 5
+    sound = {k: getattr(TB, k) for k in ("sweep_mc", "mme_sweep", "sweep_s_tiled")}
+    faulty = {"4c": ("sweep_mc", 13), "4b": ("sweep_mc", 13), "10a": ("mme_sweep", 6),
+              "10b": ("sweep_s_tiled", 4)}
+
+    def runs(what):
+        for seed in (2024, 2025):
+            for kind in ("none", "once", "always"):
+                name, index = faulty[what]
+                for k, fn in sound.items():
+                    setattr(TB, k, fn)
+                if kind != "none":
+                    setattr(TB, name, _planted(sound[name], index, kind, at))
+                yield seed, kind
+
+    def line(what, seed, kind, **nums):
+        print(what, json.dumps({"seed": seed, "fault": kind, **nums}), flush=True)
+
     try:
-        for what, (M, data, gv), method, K in (("4c", mc64, "BayesCpi", 64),
-                                               ("4b", flagship, "BayesR", 4)):
-            gvn = gv.cpu().numpy()
-            for seed in (2024, 2025):
-                for kind in ("none", "once", "always"):
-                    TB.sweep_mc = sound if kind == "none" else planted(kind)
+        if "4c" in phases or "4b" in phases:
+            cs.simulate(torch, 4096, 1024, gen, dev)   # chip_smoke.py's draws before phase 4
+            flagship = cs.simulate(torch, 50_000, 65536, gen, dev)
+            mc64 = cs.simulate(torch, 4096, 65536, gen, dev)
+            for what, (M, data, gv), method, K in (("4c", mc64, "BayesCpi", 64),
+                                                   ("4b", flagship, "BayesR", 4)):
+                if what not in phases:
+                    continue
+                gvn = gv.cpu().numpy()
+                for seed, kind in runs(what):
                     fit = htt.ibrm("y ~ x1 + (1|grp)", data=data, M=M, M_id=data["id"],
                                    method=method, niter=niter, nburn=nburn, thin=5,
                                    block=128, seed=seed, device=dev, nchains=K,
                                    verbose=False)
                     g0, g1 = cs.chain_gebv(fit, K, n_rec)[:2]
                     ve = fit.MCMCsamples["Ve"].reshape(K, n_rec).mean(axis=1)
-                    print(what, json.dumps({
-                        "seed": seed, "fault": kind, "rhat_Ve": fit.rhat["Ve"],
-                        "rhat_Vg": fit.rhat["Vg"],
-                        "corr01": float(np.corrcoef(g0, g1)[0, 1]),
-                        "acc": float(np.corrcoef(fit.g["gebv"], gvn)[0, 1]),
-                        "ve_spread": float((ve.max() - ve.min()) / ve.mean()),
-                        "finite": bool(np.isfinite(fit.MCMCsamples["g"]).all()),
-                        "Ve": fit.Ve, "h2": fit.h2}), flush=True)
+                    line(what, seed, kind, rhat_Ve=fit.rhat["Ve"], rhat_Vg=fit.rhat["Vg"],
+                         corr01=float(np.corrcoef(g0, g1)[0, 1]),
+                         acc=float(np.corrcoef(fit.g["gebv"], gvn)[0, 1]),
+                         ve_spread=float((ve.max() - ve.min()) / ve.mean()),
+                         finite=bool(np.isfinite(fit.MCMCsamples["g"]).all()),
+                         Ve=fit.Ve, h2=fit.h2)
                     del fit
+            del flagship, mc64
+            torch.cuda.empty_cache()
+        if "10b" in phases:
+            from hibayes_tpu_torch.data import sparse_ld as TSLD
+
+            tld = cs.banded_ld(torch, TSLD, 500_000, dev)
+            ss, b_true = cs.summary_stats(torch, cs.tiled_matvec(torch, tld), 500_000,
+                                          tld.m_pad, gen, dev)
+            for seed, kind in runs("10b"):
+                fit = htt.sbrm(ss, tld, method="BayesCpi", fold=np.array([0.0, 1.0]),
+                               niter=niter, nburn=nburn, thin=5, seed=seed, device=dev,
+                               nchains=4, verbose=False)
+                alpha = cs.per_chain(fit, "alpha", 4, n_rec)
+                line("10b", seed, kind, rhat_Vg=fit.rhat["Vg"], rhat_Ve=fit.rhat["Ve"],
+                     acc=float(np.corrcoef(fit.alpha, b_true)[0, 1]),
+                     acc_per_chain=[float(np.corrcoef(alpha[c].mean(0), b_true)[0, 1])
+                                    for c in range(4)],
+                     finite=bool(np.isfinite(alpha).all()), guard=np.asarray(fit.guard).tolist())
+                del fit
+            del tld
+            torch.cuda.empty_cache()
+        if "10a" in phases:
+            ids, sires, dams, gi, phe, Mg, gv, y, _ = cs.ssbrm_cohort(
+                torch, 100_000, 100_000, 2024, gen, dev)
+            gvn = gv.cpu().numpy()
+            ng_phe = np.setdiff1d(phe, gi)
+            for seed, kind in runs("10a"):
+                fit = htt.ssbrm("y ~ 1", data={"id": ids[phe], "y": y}, M=Mg, M_id=ids[gi],
+                                pedigree={"id": ids, "sire": sires, "dam": dams},
+                                method="BayesCpi", niter=niter, nburn=nburn, thin=5,
+                                impute="pcg", chunk_cols=2048, seed=seed, device=dev,
+                                nchains=4, verbose=False)
+                gebv = dict(zip(fit.g["id"], fit.g["gebv"]))
+                pos = {v: i for i, v in enumerate(fit.g["id"])}
+                held = np.array([pos[i] for i in ids[np.union1d(gi, phe)]])
+                g01 = cs.chain_gebv(fit, 4, n_rec)
+                line("10a", seed, kind, rhat_Ve=fit.rhat["Ve"], rhat_Veps=fit.rhat["Veps"],
+                     rhat_J=fit.rhat["J"],
+                     corr01=float(np.corrcoef(g01[0][held], g01[1][held])[0, 1]),
+                     corr01_all=float(np.corrcoef(g01[0], g01[1])[0, 1]),
+                     acc=float(np.corrcoef([gebv[i] for i in ids[ng_phe]], gvn[ng_phe])[0, 1]),
+                     finite=bool(np.isfinite(fit.MCMCsamples["epsilon"]).all()),
+                     Veps=fit.Veps, J=fit.J, imputation_s=fit.setup_seconds["imputation"])
+                del fit
     finally:
-        TB.sweep_mc = sound
+        for k, fn in sound.items():
+            setattr(TB, k, fn)
 
 
 if __name__ == "__main__":
-    {"rehearse": rehearse, "reference": reference, "windows": windows,
-     "fault": fault}[sys.argv[1]]()
+    if sys.argv[1] == "fault" and len(sys.argv) > 2:
+        fault(tuple(sys.argv[2:]))
+    else:
+        {"rehearse": rehearse, "reference": reference, "ssbrm_reference": ssbrm_reference,
+         "windows": windows, "fault": fault}[sys.argv[1]]()

@@ -220,3 +220,26 @@ def test_shard_options_are_refused(files, capsys):
     assert "--shard-schedule pipeline needs --shards > 1" in capsys.readouterr().err
     with pytest.raises(NotImplementedError, match="items 13-14"):
         cli.main(base + ["--shards", "2"])
+
+
+@pytest.mark.parametrize("tile", [256, 10])
+def test_sbrm_tiled_at_any_tile_writes_the_jax_cli_files(tile, files, tmp_path):
+    """``sbrm --tiled --tile 256`` (and 10) runs: the tiled sweep takes the
+    store re-tiled into tiles of 128 (and 12), and the CLI writes the JAX
+    CLI's files with its columns, the same SNPs in the same order, finite
+    effects and variances."""
+    args = ["sbrm", "--sumstat", files + ".ma", "--bfile", files, "--tiled", "--chisq", "5",
+            "--tile", str(tile), "--method", "BayesCpi", "--niter", "40", "--nburn", "20",
+            "--seed", "7", "--quiet"]
+    jp, tp = str(tmp_path / "jax"), str(tmp_path / "port")
+    assert jax_main(args + ["--out-prefix", jp]) == 0
+    assert cli.main(args + ["--out-prefix", tp, "--device", "cpu"]) == 0
+    assert written(jp) == written(tp) == [".alpha.tsv", ".var.tsv"]
+    for suffix in written(tp):
+        (hj, rj), (ht_, rt) = table(jp + suffix), table(tp + suffix)
+        assert ht_ == hj and len(rt) == len(rj), suffix
+        for c in ("SNP", "param"):
+            if c in hj:
+                assert [r[hj.index(c)] for r in rt] == [r[hj.index(c)] for r in rj]
+    _, rows = table(tp + ".var.tsv")
+    assert rows and all(np.isfinite(float(v)) for r in rows for v in r[1:])

@@ -31,14 +31,23 @@ def dev():
     return torch.device("cuda")
 
 
-def _inputs(model, dev, K=2, n=300, m=80, B=16, int8=True, pad_n="auto"):
+def _fold_prior(nf):
+    """BayesR's pi and fold variances with nf folds (tests/torch_parity.py's)."""
+    if nf == 4:
+        return np.array([0.95, 0.02, 0.02, 0.01]), np.array([0.0, 1e-4, 1e-3, 1e-2])
+    return (np.array([0.95] + [0.05 / (nf - 1)] * (nf - 1)),
+            np.concatenate([[0.0], np.logspace(-5, -2, nf - 1)]))
+
+
+def _inputs(model, dev, K=2, n=300, m=80, B=16, int8=True, pad_n="auto", nf=4):
     """Batched sweep inputs for K chains on the card: each chain a sparse
-    random effect vector and its own pre-sweep noise."""
+    random effect vector and its own pre-sweep noise; BayesR with nf
+    folds."""
     rng = np.random.default_rng(3)
     M = rng.binomial(2, 0.3, size=(n, m)).astype(np.int8)
     y = M @ rng.normal(0, 0.1, m) + rng.normal(0, 1, n)
     if model == "BayesR":
-        nf, pi, fold = 4, np.array([0.95, 0.02, 0.02, 0.01]), np.array([0.0, 1e-4, 1e-3, 1e-2])
+        pi, fold = _fold_prior(nf)
     else:
         nf, fold = 2, None
         pi = (np.array([0.0, 1.0]) if model in ("BayesRR", "BayesA", "BayesL")
@@ -61,7 +70,7 @@ def _inputs(model, dev, K=2, n=300, m=80, B=16, int8=True, pad_n="auto"):
                         & data.real,
                         0.05 * torch.randn(spec.m_pad, generator=gen, device=dev), 0.0)
         st = st0._replace(g=g, yadj=st0.yadj - TG.genotype_matmul(
-            data.X_blocks, g[:, None], torch.float32)[:, 0])
+            data.X_blocks, g[:, None], torch.float32, data.block)[:, 0])
         pre = TG._pre_sweep(spec, data, IterNoise(7, k, dev), st)
         consts.append(pre["consts"])
         for c, v in zip(cols, (pre["vei"], g, *pre["rnd"], pre["vargL_in"],
@@ -305,16 +314,16 @@ def test_chain_is_reproducible(dev):
 # ---------------------------------------------------------------------------
 
 
-def _s_problem(model, layout, dev, m=600, rho=0.8, guard=False, tile=128):
-    """A summary problem on the card: LD rho^|i-j|, dense (B=64) or as tiles
-    of ``tile`` in a 3-tile band (masked slots at the ends), statistics
-    BETA = LD b; a mid-run state and one iteration's packed rows.  SBayesS
-    semantics (the guard's rows packed) for tiles, and with ``guard`` for
-    the dense segment too."""
+def _s_problem(model, layout, dev, m=600, rho=0.8, guard=False, tile=128, block=64, nf=4):
+    """A summary problem on the card: LD rho^|i-j|, dense (blocks of
+    ``block``) or as tiles of ``tile`` in a 3-tile band (masked slots at the
+    ends), statistics BETA = LD b; a mid-run state and one iteration's
+    packed rows (BayesR with nf folds).  SBayesS semantics (the guard's rows
+    packed) for tiles, and with ``guard`` for the dense segment too."""
     idx = torch.arange(m, device=dev, dtype=torch.float64)
     R = (rho ** (idx[:, None] - idx[None, :]).abs()).float()
     if layout == "dense":
-        ld, block = DenseLD(values=R), 64
+        ld = DenseLD(values=R)
     else:
         T, nbr = tile, -(-m // tile)
         Rp = torch.zeros((nbr * T, nbr * T), device=dev)
@@ -328,10 +337,9 @@ def _s_problem(model, layout, dev, m=600, rho=0.8, guard=False, tile=128):
     b = np.where(rng.random(m) < 0.05, rng.normal(0, 0.1, m), 0.0)
     beta = (R.double() @ torch.as_tensor(b, device=dev)).cpu().numpy()
     ss = np.column_stack([np.full(m, 0.3), beta, np.full(m, 0.01), np.full(m, 1e4)])
-    pi = (np.array([0.95, 0.02, 0.02, 0.01]) if model == "BayesR"
-          else np.array([0.0, 1.0]) if model in ("BayesRR", "BayesA", "BayesL")
-          else np.array([0.95, 0.05]))
-    fold = np.array([0.0, 1e-4, 1e-3, 1e-2]) if model == "BayesR" else None
+    pi, fold = (_fold_prior(nf) if model == "BayesR"
+                else (np.array([0.0, 1.0]) if model in ("BayesRR", "BayesA", "BayesL")
+                      else np.array([0.95, 0.05]), None))
     data, n, vary, nvar0, seg_sizes, seg_real = TSG.prepare_sgibbs_data(
         ss, ld, fold=fold, block=block, device=dev)
     pr = TG.resolve_priors(None, float(ld.diag.sum()), pi[0], nr=0, vary=vary)
@@ -1429,3 +1437,212 @@ def test_cli_subprocess_on_the_card(dev, tmp_path):
     assert proc.returncode == 0, proc.stderr
     with np.load(str(tmp_path / "ld.npz")) as z:
         assert str(z["kind"]) == "blockdiag" and z["block_0"].shape == (128, 128)
+
+
+# ---------------------------------------------------------------------------
+# any block, fold count, tile and chain count (sub-blocks, the run-time fold
+# instance, re-tiled stores, groups of chains)
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("K", [1, 3])
+@pytest.mark.parametrize("int8", [True, False], ids=["int8", "f32"])
+@pytest.mark.parametrize("B", [30, 192, 250, 256])
+def test_sub_block_sweeps_match_plain(B, int8, K, dev):
+    """sweep_mc at blocks of 30, 192, 250 and 256 (two sub-blocks above
+    128, pad slots at 30 and 250), one chain and K=3: against its plain
+    version at the kernel bar, bit-identical on a second launch; one
+    sweep1 launch at K=1, nbg S + 1 rows and nbg S draws launches at K=3;
+    block_draws by the same sub-blocks against its plain version."""
+    spec, args = _inputs("BayesR" if K == 1 else "BayesCpi", dev, K=K, n=1000, m=600,
+                         B=B, int8=int8)
+    sb = TB.mc_layout(spec, args[1])
+    assert not sb.same and sb == TB.mc_sub_blocks(TB.n_rows(spec), 1000, B, 1 if int8 else 4)
+    TB.reset_kernel_launches()
+    out = TB.sweep_mc(spec, *args)
+    nbk = spec.nblocks * sb.S
+    want = ({"sweep1": 1} if K == 1 else {"rows_mc_kernel": nbk + 1, "draws_kernel": nbk})
+    assert {k: v for k, v in TB.kernel_launches().items() if v} == want
+    _assert_bar(TB.sweep_mc_plain(spec, *args), out)
+    assert all(torch.equal(a, b) for a, b in zip(out, TB.sweep_mc(spec, *args)))
+    consts, X, W, xpx, vx, *per = args
+    P = TB.pack_rows(spec, consts, xpx, vx, per[0], per[1], per[2], per[3], per[4], per[6],
+                     torch.float32)
+    P_b = TB.to_block_layout(P, spec.nblocks, B)[1].contiguous()
+    Xb, Wb = _whole_block(spec, X, 1)
+    r0 = (per[7] @ Xb).T.contiguous()
+    logpi = consts["logpi"][:, :1].T.contiguous()
+    g_old = P_b[:, 1, :]
+    dg_k, tr_k = TB.block_draws(spec, logpi, P_b, Wb, r0)
+    dg_p, tr_p = TB.block_draws_plain(spec, logpi, P_b, Wb, r0)
+    _assert_bar((g_old - dg_p, tr_p), (g_old - dg_k, tr_k))
+
+
+def _whole_block(spec, X, b):
+    """Block b's B columns of a genotype in the sweeps' layout (its
+    sub-blocks side by side, float32) and their Gram (integer sums, exact
+    in float32): block_draws' inputs."""
+    sb = TB.mc_layout(spec, X)
+    Xb = X[b * sb.S:(b + 1) * sb.S].float().permute(1, 0, 2).reshape(X.shape[1], -1)
+    Xb = Xb[:, :spec.block]
+    return Xb, (Xb.T @ Xb).contiguous()
+
+
+@pytest.mark.parametrize("nf", [12, 16, 40])
+def test_many_folds_match_plain(nf, dev):
+    """BayesR with 12, 16 and 40 folds (the draw chain's run-time fold
+    instance; at 40 a lane evaluates two folds, and the rows narrow every
+    sweep's sub-blocks) on every kernel: sweep_mc at one chain and K=2,
+    block_draws, the guarded segment sweep and the guarded tiled sweep,
+    each against its plain version at the bar and bit-identical on a second
+    launch."""
+    for K in (1, 2):
+        spec, args = _inputs("BayesR", dev, K=K, n=2000, m=512, B=128, nf=nf)
+        out = TB.sweep_mc(spec, *args)
+        _assert_bar(TB.sweep_mc_plain(spec, *args), out)
+        assert all(torch.equal(a, b) for a, b in zip(out, TB.sweep_mc(spec, *args)))
+    consts, X, W, xpx, vx, *per = args
+    P = TB.pack_rows(spec, consts, xpx, vx, per[0], per[1], per[2], per[3], per[4], per[6],
+                     torch.float32)
+    P_b = TB.to_block_layout(P, spec.nblocks, 128)[0].contiguous()
+    Xb, Wb = _whole_block(spec, X, 0)
+    r0 = (per[7] @ Xb).T.contiguous()
+    logpi = consts["logpi"][:, :1].T.contiguous()
+    dg_k, tr_k = TB.block_draws(spec, logpi, P_b, Wb, r0)
+    dg_p, tr_p = TB.block_draws_plain(spec, logpi, P_b, Wb, r0)
+    _assert_bar((P_b[:, 1] - dg_p, tr_p), (P_b[:, 1] - dg_k, tr_k))
+    for layout in ("dense", "tiled"):
+        spec, data, g, r, P, _, _ = _s_problem("BayesR", layout, dev, m=1000, guard=True,
+                                               nf=nf)
+        assert spec.n_fold == nf and TB.guard_on(spec)
+        plain = (TB.sweep_s_segment_plain(spec, data.ld_segs[0], r, P, spec.n)
+                 if layout == "dense" else
+                 TB.sweep_s_tiled_plain(spec, data.ld_tiles, data.ld_cols, data.ld_valid,
+                                        r, P, spec.n))
+        out, again = _s_sweep(layout, spec, data, r, P), _s_sweep(layout, spec, data, r, P)
+        _assert_bar((g - plain[0], plain[1], None, plain[2]),
+                    (g - out[0], out[1], None, out[2]))
+        assert all(torch.equal(a, b) for a, b in zip(out, again))
+
+
+@pytest.mark.parametrize("K", [1, 3])
+@pytest.mark.parametrize("B", [30, 192, 250, 256])
+def test_segment_sub_blocks_match_plain(B, K, dev):
+    """The dense segment sweep at blocks of 30, 192, 250 and 256 (the
+    segment as stored at 192 and 256, a copy with pad rows at 30 and 250),
+    one chain and K=3: against its plain version at the bar, one launch,
+    bit-identical on a second launch, chain k bit for bit its K=1 launch."""
+    spec, data, g, r, P, _, _ = _s_problem("BayesCpi", "dense", dev, m=1000, block=B)
+    seg = data.ld_segs[0]
+    if K > 1:
+        scale = 1.0 + 0.1 * torch.arange(K, device=dev, dtype=torch.float32)[:, None]
+        g, r, P = g[None] * scale, r[None] * scale, P[None].expand(K, -1, -1).contiguous()
+    TB.reset_kernel_launches()
+    out = TB.sweep_s_segment(spec, seg, r, P, spec.n)
+    assert TB.kernel_launches()["segment_sweep"] == 1
+    plain = TB.sweep_s_segment_plain(spec, seg, r, P, spec.n)
+    _assert_bar((g - plain[0], plain[1], None, plain[2]), (g - out[0], out[1], None, out[2]))
+    assert all(torch.equal(a, b) for a, b in zip(out, TB.sweep_s_segment(spec, seg, r, P,
+                                                                        spec.n)))
+    for k in range(1 if K == 1 else K):
+        if K > 1:
+            one = TB.sweep_s_segment(spec, seg, r[k], P[k], spec.n)
+            assert all(torch.equal(a[k], b) for a, b in zip(out, one))
+
+
+@pytest.mark.parametrize("model", ["BayesCpi", "BayesR"])
+@pytest.mark.parametrize("tile", [10, 256])
+def test_retiled_sweep_matches_plain(tile, model, dev):
+    """The tiled sweep on stores of tiles of 10 (re-tiled to 12, pad slots)
+    and 256 (re-tiled to 128), the guard on at a lowered vary: against its
+    plain version at the bar with equal rejection counts, bit-identical on
+    a second launch; a K=4 batch in one launch, each chain bit for bit its
+    K=1 launch."""
+    spec, data, g, r, P, _, _ = _s_problem(model, "tiled", dev, m=1500, tile=tile)
+    spec = dataclasses.replace(spec, vary=spec.vary * 1e-3)
+    lay = (data.ld_tiles, data.ld_cols, data.ld_valid)
+    assert not TB.tiled_sub_blocks(spec, tile).same
+    out = TB.sweep_s_tiled(spec, *lay, r, P, spec.n)
+    plain = TB.sweep_s_tiled_plain(spec, *lay, r, P, spec.n)
+    _assert_bar((g - plain[0], plain[1], None, plain[2]), (g - out[0], out[1], None, out[2]))
+    assert int(out[3]) == int(plain[3]) and int(plain[3]) > 0
+    assert all(torch.equal(a, b) for a, b in zip(out, TB.sweep_s_tiled(spec, *lay, r, P,
+                                                                      spec.n)))
+    K = 4
+    Rs = r[None] * (1.0 + 0.05 * torch.arange(K, device=dev, dtype=torch.float32)[:, None])
+    Ps = P[None].expand(K, -1, -1).contiguous()
+    TB.reset_kernel_launches()
+    batch = TB.sweep_s_tiled(spec, *lay, Rs, Ps, spec.n)
+    assert TB.kernel_launches()["tiled_sweep"] == 1
+    for k in range(K):
+        one = TB.sweep_s_tiled(spec, *lay, Rs[k], Ps[k], spec.n)
+        assert all(torch.equal(a[k], b) for a, b in zip(batch, one))
+
+
+def test_tiled_batch_larger_than_the_card_runs_in_groups(dev, monkeypatch):
+    """A tiled batch of more chains than the card holds drawer CTAs at once
+    (160 at tiles of 128 with the guard) runs in groups, a launch each:
+    each chain bit for bit its K=1 launch, and a batch in groups of 3
+    bit for bit the batch in one launch."""
+    spec, data, g, r, P, _, _ = _s_problem("BayesCpi", "tiled", dev, m=1500)
+    lay = (data.ld_tiles, data.ld_cols, data.ld_valid)
+    sched = TB._layout_schedule(data.ld_cols, data.ld_valid)
+    G = TB.tiled_group(spec, 128, sched.items.shape[0])
+    C = 160
+    assert G < C
+    Rs = r[None] * (1.0 + 0.001 * torch.arange(C, device=dev, dtype=torch.float32)[:, None])
+    Ps = P[None].expand(C, -1, -1).contiguous()
+    TB.reset_kernel_launches()
+    tally = torch.zeros((C, 2), dtype=torch.int64, device=dev)
+    out = TB.sweep_s_tiled(spec, *lay, Rs, Ps, spec.n, tally=tally)
+    assert TB.kernel_launches()["tiled_sweep"] == -(-C // G)
+    for k in (0, G - 1, G, C - 1):
+        t1 = torch.zeros(2, dtype=torch.int64, device=dev)
+        one = TB.sweep_s_tiled(spec, *lay, Rs[k], Ps[k], spec.n, tally=t1)
+        assert all(torch.equal(a[k], b) for a, b in zip(out, one))
+        assert torch.equal(tally[k], t1)
+    monkeypatch.setattr(TB, "tiled_group", lambda *a: 3)
+    TB.reset_kernel_launches()
+    few = TB.sweep_s_tiled(spec, *lay, Rs[:7], Ps[:7], spec.n)
+    assert TB.kernel_launches()["tiled_sweep"] == 3
+    assert all(torch.equal(a[:7], b) for a, b in zip(out, few))
+
+
+def test_segment_batch_larger_than_the_card_runs_in_groups(dev):
+    """A segment batch whose drawer CTAs would leave no SM for the rows
+    (1,100 chains at 8 a drawer) runs in groups, a launch each; each chain
+    bit for bit its K=1 launch."""
+    spec, seg, g, r, P = _segment_problem(64, 1, dev)
+    C = 1100
+    Rs = r * (1.0 + 1e-4 * torch.arange(C, device=dev, dtype=torch.float32)[:, None])
+    Ps = P.expand(C, -1, -1).contiguous()
+    props = torch.cuda.get_device_properties(dev)
+    G = TB.segment_group(seg.shape[0], 64, C, TB.summary_rows(spec),
+                         props.multi_processor_count)
+    assert G < C
+    TB.reset_kernel_launches()
+    out = TB.sweep_s_segment(spec, seg, Rs, Ps, spec.n)
+    assert TB.kernel_launches()["segment_sweep"] == -(-C // G)
+    for k in (0, G, C - 1):
+        one = TB.sweep_s_segment(spec, seg, Rs[k], Ps[k], spec.n)
+        assert all(torch.equal(a[k], b) for a, b in zip(out, one))
+
+
+def test_device_trace_records_cuda_kernels(dev, tmp_path):
+    """device_trace on the card records the CUDA kernels a sweep launches
+    (by CUDA time in its totals) and the annotated phase."""
+    from hibayes_tpu_torch.utils import annotate, device_trace
+
+    spec, args = _inputs("BayesCpi", dev, K=1, n=1000, m=256, B=64)
+    TB.sweep_mc(spec, *args)
+    with device_trace(tmp_path) as prof:
+        with annotate("sweep-phase"):
+            TB.sweep_mc(spec, *args)
+    keys = {e.key: e for e in prof.key_averages()}
+    assert "sweep-phase" in keys
+    kernels = [k for k in keys if "sweep1_kernel" in k]
+    assert kernels, sorted(keys)[:40]
+    dev_us = [getattr(keys[k], "device_time_total", getattr(keys[k], "cuda_time_total", 0))
+              for k in kernels]
+    assert max(dev_us) > 0
+    assert (tmp_path / "trace.json").exists()

@@ -98,9 +98,10 @@ def test_sbrm_refuses_what_is_not_ported(kw, item):
 @pytest.mark.parametrize("layout", ["sparse", "blockdiag", "tile64"])
 def test_sbrm_refuses_mcmc_on_guarded_scan_layouts(layout):
     """SparseLD and BlockDiagLD (the segment sweep with the guard) and a
-    tiled LD of tile 64 (the tiled sweep at B=64) now run MCMC, as CG does;
-    what is still refused is a tiled LD whose tile the tiled sweep cannot
-    take (not a multiple of 4), naming item 16."""
+    tiled LD of tile 64 (the tiled sweep at B=64) run MCMC, as CG does.
+    The name is from when these layouts were refused; nothing is refused
+    any more (tiles the tiled sweep does not take as they are:
+    :func:`test_sbrm_runs_mcmc_on_retiled_tiles`)."""
     ss, R, Rp = _refusal_inputs()
     if layout == "sparse":
         ld = ht.SparseLD.from_scipy(sp.csr_matrix(Rp))
@@ -110,11 +111,21 @@ def test_sbrm_refuses_mcmc_on_guarded_scan_layouts(layout):
         ld = ht.TiledSparseLD.from_scipy(sp.csr_matrix(Rp), tile=64)
     fit = ht.sbrm(ss, ld, niter=20, nburn=10, verbose=False, device="cpu")
     assert np.isfinite([fit.Vg, fit.Ve]).all() and fit.guard.shape == (1, 2)
-    with pytest.raises(NotImplementedError, match="item 16"):
-        ht.sbrm(ss, ht.TiledSparseLD.from_scipy(sp.csr_matrix(Rp), tile=10),
-                niter=20, nburn=10, verbose=False, device="cpu")
     fit = ht.sbrm(ss, ld, method="CG", lambda_=0.2, verbose=False, device="cpu")
     assert np.isfinite(fit.alpha).all()
+
+
+@pytest.mark.parametrize("tile", [10, 256])
+def test_sbrm_runs_mcmc_on_retiled_tiles(tile):
+    """Tiled LDs of tiles the tiled sweep does not take as they are, 10 (not
+    a multiple of 4) and 256 (above 128), run MCMC, re-tiled for it
+    (ops/blockgibbs.py:sub_block_tiles); tests/test_torch_shapes_sbrm.py
+    holds them to the JAX package."""
+    ss, _, Rp = _refusal_inputs()
+    fit = ht.sbrm(ss, ht.TiledSparseLD.from_scipy(sp.csr_matrix(Rp), tile=tile),
+                  niter=20, nburn=10, verbose=False, device="cpu")
+    assert np.isfinite([fit.Vg, fit.Ve]).all() and fit.alpha.shape == (Rp.shape[0],)
+    assert fit.guard.shape == (1, 2)
 
 
 def test_entry_points_need_a_gpu_unless_told_cpu(monkeypatch):

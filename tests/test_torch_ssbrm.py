@@ -235,15 +235,16 @@ def test_mme_sweep_plain_matches_jax_sweeps():
 # ---------------------------------------------------------------------------
 
 
-def _ss_setup(model, layout, seed=6):
+def _ss_setup(model, layout, seed=6, block=16, m=40):
     """JAX data, spec and a mid-run state of a single-step chain: 100
-    genotyped and 70 imputed phenotyped rows, m=40 SNPs (one monomorphic),
+    genotyped and 70 imputed phenotyped rows, m=40 SNPs (one monomorphic)
+    in blocks of 16 (or ``m`` in blocks of ``block``),
     a covariate and a 4-level factor, qe=310 sites from a 400-id pedigree's
     A-inverse(nn) (sparse, tile 16, or dense), and a state with sparse g,
     J_beta, epsilon and residuals consistent with them."""
     rng = np.random.default_rng(seed)
     nn, _ = _partition(50, 350, n_g=90, seed=seed)
-    qe, n_g, ne, m = nn.shape[0], 100, 70, 40
+    qe, n_g, ne = nn.shape[0], 100, 70
     M = rng.binomial(2, 0.3, (n_g + ne, m)).astype(np.float64)
     M[n_g:] = rng.uniform(0, 2, (ne, m))       # imputed dosages
     M[:, 3] = 1.0
@@ -260,11 +261,12 @@ def _ss_setup(model, layout, seed=6):
     data = G.prepare_gibbs_data(
         y, M, C=C, r_codes=(fcodes,), r_nlevels=(4,), fold=fold, epsl_yJ=yJ,
         epsl_A=nn if layout == "sparse" else nn.toarray(), epsl_codes=codes, qe=qe,
-        block=16, dtype=jnp.float64)
+        block=block, dtype=jnp.float64)
     pr = G.resolve_priors(y, float(np.asarray(data.vx).sum()), pi[0], nr=1)
     qe_pad = int(data.epsl_counts.shape[0])
     spec = G.GibbsSpec(
-        model=model, n=n, m=m, m_pad=int(data.xpx.shape[0]), block=16, nc=1,
+        model=model, n=n, m=m, m_pad=int(data.xpx.shape[0]),
+        block=int(data.X_blocks.shape[2]), nc=1,
         nlevels=(4,), n_fold=nf, niter=40, nburn=0, thin=5,
         nvar0=int((np.asarray(data.vx)[:m] == 0).sum()),
         dfvara=pr.dfvara, s2vara=pr.s2vara, dfvare=pr.dfvare, s2vare=pr.s2vare,

@@ -428,7 +428,7 @@ def _emulate_segment(LD, r0, P, n, B, plan, rng, wait=True):
     snap = torch.zeros((2, K, B), dtype=r0.dtype)
     drawn = [0] * ndraw                  # blocks each drawer has published
     done = [0] * nown                    # blocks each owner CTA has applied
-    spec = types.SimpleNamespace(block=B, reject_guard=False)
+    spec = types.SimpleNamespace(block=B, reject_guard=False, model_index=4, n_fold=2)
     Pb = TB.to_block_layout(P, nb, B)     # (nb, B, R, K)
     rows_cta = TB.SEG_WARPS * rw
 
@@ -498,7 +498,7 @@ def test_emulated_segment_order_equals_plain_sweep(K, mc, B, sms, monkeypatch):
     for one and several drawer CTAs and row owners of one or many blocks."""
     monkeypatch.setattr(TB, "_draws_plain", _int_draws)
     LD, r0, P, n = _segment_inputs(K, mc, B)
-    spec = types.SimpleNamespace(block=B, reject_guard=False)
+    spec = types.SimpleNamespace(block=B, reject_guard=False, model_index=4, n_fold=2)
     ref = TB.sweep_s_segment_plain(spec, LD, r0, P, n)
     plan = TB.segment_plan(mc, B, K, 5, sms)
     plan = {**plan, "cpc": min(plan["cpc"], 4)}
@@ -513,7 +513,8 @@ def test_emulation_catches_a_drawer_that_does_not_wait(monkeypatch):
     through gives other outputs in some order: the emulation can tell."""
     monkeypatch.setattr(TB, "_draws_plain", _int_draws)
     LD, r0, P, n = _segment_inputs(2, 96, 8)
-    ref = TB.sweep_s_segment_plain(types.SimpleNamespace(block=8, reject_guard=False),
+    ref = TB.sweep_s_segment_plain(types.SimpleNamespace(block=8, reject_guard=False,
+                                                         model_index=4, n_fold=2),
                                    LD, r0, P, n)
     plan = TB.segment_plan(96, 8, 2, 5, 6)
     differ = 0

@@ -55,17 +55,26 @@ def tt(x):
     return torch.from_numpy(np.array(x))
 
 
+def fold_prior(nf):
+    """BayesR's pi and fold variances: the usual four folds, or ``nf``
+    folds with log-spaced variances from 1e-5 to 1e-2."""
+    if nf == 4:
+        return np.array([0.95, 0.02, 0.02, 0.01]), np.array([0.0, 1e-4, 1e-3, 1e-2])
+    return (np.array([0.95] + [0.05 / (nf - 1)] * (nf - 1)),
+            np.concatenate([[0.0], np.logspace(-5, -2, nf - 1)]))
+
+
 def model_setup(model, *, n, m, B, dtype=jnp.float32, int8=True, seed=4,
-                nc=0, nfactor=0, windows=False, warm=1):
+                nc=0, nfactor=0, windows=False, warm=1, nf=4):
     """JAX data, priors, spec and a state after ``warm`` plain JAX iterations
-    for one model on synthetic genotypes (one SNP monomorphic)."""
+    for one model on synthetic genotypes (one SNP monomorphic); BayesR with
+    ``nf`` folds."""
     rng = np.random.default_rng(seed)
     M = rng.binomial(2, rng.uniform(0.1, 0.5, m), size=(n, m)).astype(np.int8)
     M[:, 3] = 1  # monomorphic
     y = M.astype(np.float64) @ rng.normal(0, 0.1, m) + rng.normal(0, 1, n)
     if model == "BayesR":
-        nf, pi = 4, np.array([0.95, 0.02, 0.02, 0.01])
-        fold = np.array([0.0, 1e-4, 1e-3, 1e-2])
+        pi, fold = fold_prior(nf)
     else:
         nf, fold = 2, None
         pi = (np.array([0.0, 1.0]) if model in ("BayesRR", "BayesA", "BayesL")
@@ -220,20 +229,19 @@ def s_sumstats(m, *, seed=21, n_panel=400, N=100_000, frac=0.05, scale=0.1,
     return np.column_stack([maf, beta, se, np.full(m, float(N))]), R, Rp, b
 
 
-def s_pi_fold(model):
+def s_pi_fold(model, nf=4):
     if model == "BayesR":
-        return np.array([0.95, 0.02, 0.02, 0.01]), np.array([0.0, 1e-4, 1e-3, 1e-2])
+        return fold_prior(nf)
     if model in ("BayesRR", "BayesA", "BayesL"):
         return np.array([0.0, 1.0]), None
     return np.array([0.95, 0.05]), None
 
 
 def s_setup(model, layout, *, m, dtype=jnp.float64, block=64, seed=21, windows=True,
-            **kw):
+            nf=4, **kw):
     """JAX summary data, priors and spec for one model on ``layout`` "dense"
     (DenseLD, SBayesD semantics), "tiled" (TiledSparseLD.from_scipy of the
-    pruned LD, tile 128), "tiled64" and "tiled16" (the same at tiles of 64
-    and 16), "sparse"
+    pruned LD, tile 128), "tiledT" (the same at tiles of T), "sparse"
     (SparseLD of the pruned LD) or "blockdiag" (BlockDiagLD of three
     diagonal blocks of the LD), the last four with SBayesS semantics and the
     guard, and the port's LD object of the same matrix."""
@@ -245,7 +253,7 @@ def s_setup(model, layout, *, m, dtype=jnp.float64, block=64, seed=21, windows=T
     from hibayes_tpu_torch.data import ld as TLD
     from hibayes_tpu_torch.data import sparse_ld as TSLD
 
-    pruned = layout in ("tiled", "tiled64", "tiled16", "sparse")
+    pruned = layout.startswith("tiled") or layout == "sparse"
     ss, R, Rp, b = s_sumstats(m, seed=seed, pruned=pruned, **kw)
     if layout == "dense":
         ld_j, ld_t = DenseLD(values=R), TLD.DenseLD(values=R)
@@ -259,10 +267,10 @@ def s_setup(model, layout, *, m, dtype=jnp.float64, block=64, seed=21, windows=T
         ld_j = BlockDiagLD(blocks=blocks, sizes=sizes)
         ld_t = TLD.BlockDiagLD(blocks=blocks, sizes=sizes)
     else:
-        block = {"tiled": 128, "tiled16": 16}.get(layout, 64)
+        block = int(layout[5:] or 128)
         ld_j = TiledSparseLD.from_scipy(sp.csr_matrix(Rp), tile=block)
         ld_t = TSLD.TiledSparseLD.from_scipy(sp.csr_matrix(Rp), tile=block)
-    pi, fold = s_pi_fold(model)
+    pi, fold = s_pi_fold(model, nf)
     nw, windindx = 0, None
     if windows:
         windindx = np.repeat(np.arange(1, m // 50 + 2), 50)[:m]
