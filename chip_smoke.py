@@ -165,9 +165,32 @@ Phases, each printing as it goes:
      launch each), each group's first chain bit for bit its K=1 launch;
      (11e, in phase 7) where 10a's K=4 iteration spends its time by CUDA
      time (hibayes_tpu_torch.utils.device_trace and annotate), and (in 9c)
-     each resume's checkpoint saves timed by PhaseTimer.  Then a JSON line
-     of kernels, each phase's seconds and the whole run's, the nvidia-smi
-     line, and the last line {"ok": true, "device": {...}}.
+     each resume's checkpoint saves timed by PhaseTimer;
+ 12. multi-GPU (hibayes_tpu_torch.parallel).  (In phase 5) the tiled sweep
+     at a row_base: every shard of 2 and of 4 of a 64-row store against
+     the plain version at the bar, bit-identical twice, timed, and shard 1
+     of 2 of phase 5's store timed.  (12a, after 9c) the flagship with 4
+     chains and the ring pipeline emulated on 4 shards: one sweep (16
+     sweep1 launches) whose group 0 is held to the one-device K=1 sweep,
+     then ibrm(nchains=4, shard_schedule="pipeline", emulate_shards=4) for
+     50 iterations, each chain's GEBV accuracy against phase 4's bar.
+     (12b) two ranks spawned here (NCCL with a card each where there are
+     two, else gloo with both on cuda:0, time-slicing it), each running
+     rank12: (vi) its rows of phase 8's fileset by load_plink_host_sharded,
+     bit for bit the whole read's; (i) the flagship on (1, 2), turn: one
+     iteration at the bar against one device, then phase 4's recipe
+     through ibrm(mesh=) with its GEBV bar; (ii) on (2, 1), the ind hybrid:
+     one iteration at the bar, ms/iter; (iii) 4 chains on (1, 2), the ring
+     pipeline: one iteration bit for bit 12a's emulation at 2 shards,
+     ms/iter; (iv) phase 5's LD recipe (m rounded up to even tile rows) on
+     (1, 2) through the tiled sweep at each rank's row_base: one sweep at
+     the bar with equal guard counts, then sbrm(mesh=) with phase 5's
+     accuracy bar; (v) a small ssbrm (the epsilon term on) on both meshes,
+     3 iterations, finite Ve.  Each run prints ms/iter and its share in
+     collectives; each kernel of each run must launch; a failed rank
+     fails the run.  Then a JSON line of kernels, each phase's seconds and
+     the whole run's, the nvidia-smi line, and the last line {"ok": true,
+     "device": {...}}.
 
 Any failed check raises, so the script exits non-zero and prints no result.
 """
@@ -3332,6 +3355,434 @@ def profile_ssbrm_batch(torch, TG, Ai_nn, ng_ids, y_ids, n_g, m, gen, dev, K=4):
     return split
 
 
+# ---------------------------------------------------------------------------
+# phase 12: multi-GPU (parallel/), the pipeline emulation, kernel 9 at a row_base
+# ---------------------------------------------------------------------------
+
+# Phase 12's ranks: two processes joined by torch.distributed, NCCL with a
+# card each where there are two cards, else gloo with both on cuda:0 (NCCL
+# refuses two ranks on one device).  Two ranks on one card time-slice it:
+# their times say nothing of a two-card machine.
+MESH_RANKS = 2
+MESH_SEED = 1212          # the flagship cohort of phase 12, made alike on every rank
+PIPE_ITERS = 50           # 12a: iterations of the 4-chain pipeline emulation
+RANK_ITERS = 10           # 12b (iii): iterations timed on the ranks
+HYBRID_ITERS = 3          # 12b (ii): a block's all_reduce crosses gloo between processes
+RANK_TIMEOUT_S = 600      # the spawn's limit: a rank that hangs fails the run
+# 12a's chains after PIPE_ITERS iterations (half burn-in): each chain is
+# phase 4's recipe in another block order, so its GEBV accuracy keeps phase
+# 4's bar (11b measured 0.93-0.97 after 50 iterations of a chain of this
+# cohort's recipe).
+PIPE_GEBV_CORR_MIN = GEBV_CORR_MIN
+
+
+def flagship12(torch, dev, args):
+    """Phase 12's flagship cohort (phase 4's recipe, seed MESH_SEED), the
+    same on every rank and in the parent."""
+    gen = torch.Generator(device=dev).manual_seed(MESH_SEED)
+    return simulate(torch, args.n, args.m, gen, dev)
+
+
+def flagship12_chain(torch, TG, M, y, dev, K, B=128, schedule="turn", emulate=0):
+    """The flagship's data, spec (BayesR, nblocks a multiple of the ranks),
+    priors, pi and a mid-run state of K chains (one chain: no chain axis)
+    made from the engine's own iteration 0."""
+    data = TG.prepare_gibbs_data(y, M, block=B, geno_dtype="int8", device=dev,
+                                 fold=fold_prior(4)[1], nblocks_multiple=MESH_RANKS)
+    spec, pr, pi = make_spec(TG, "BayesR", data, M.shape[1], M.shape[0])
+    spec = spec.__class__(**{**spec.__dict__, "shard_schedule": schedule,
+                             "emulate_shards": emulate, "resync_every": 0})
+    st = TG.init_state(spec, data, pr, pi)
+    if K > 1:
+        st = TG.stack_state(st, K)
+        st = TG.one_iteration_batch(spec.__class__(**{**spec.__dict__,
+                                                      "shard_schedule": "turn",
+                                                      "emulate_shards": 0}),
+                                    data, MESH_SEED, st)
+    else:
+        st = TG.one_iteration(spec, data, MESH_SEED, st)
+    return data, spec, pr, pi, st
+
+
+def state_bar(ref, out, what):
+    """The kernel bar between two chain states (one chain, or chain by
+    chain): effects and mixture draws, residuals when none flips."""
+    many = ref.g.dim() > 1
+    errs = [bar((ref.g[k], ref.track[k], None, ref.yadj[k]),
+                (out.g[k], out.track[k], None, out.yadj[k]), f"{what} chain {k}")
+            for k in range(ref.g.shape[0])] if many else [
+        bar((ref.g, ref.track, None, ref.yadj), (out.g, out.track, None, out.yadj), what)]
+    return max(errs)
+
+
+def pipeline_emulation(torch, ht, TG, TB, dev, args, smi, errs):
+    """12a: the flagship with 4 chains and emulate_shards=4 on one card.  One
+    sweep from the same inputs (16 sweep1 launches, three of four with an
+    offset block range): group 0's chain against the one-device K=1 sweep,
+    bit for bit where the kernel sums alike, else at the kernel bar; then
+    PIPE_ITERS iterations through ibrm: ms/iter and each chain's GEBV
+    accuracy.  Also the emulation at emulate_shards=2 on 12b(iii)'s inputs,
+    which the ranks' pipeline must equal bit for bit.  Returns its
+    results."""
+    M, data, gv = flagship12(torch, dev, args)
+    gd, spec, pr, pi, st = flagship12_chain(torch, TG, M, data["y"], dev, 4, emulate=4,
+                                            schedule="pipeline")
+    ins = sweep_args(torch, TG, spec, gd, pr, pi, 4, 12)
+    reset_counts(TB)
+    emu = TG._sweep_pipeline_emu_mc(spec, *ins)
+    torch.cuda.synchronize()
+    launches, plain = read_counts(TB)
+    if launches["sweep1"] != 16 or plain:
+        raise AssertionError(f"12a: the emulation's sweep made {launches} launches, "
+                             f"{plain} plain calls; expected 16 sweep1")
+    one = TB.sweep_mc(spec, {k: v[:1] for k, v in ins[0].items()}, *ins[1:5],
+                      *(a[:1] for a in ins[5:]))
+    names = ("g", "track", "vargL", "yadj", "u")
+    same = all(torch.equal(a[:1], b) for a, b in zip(emu[:5], one[:5]))
+    errs["pipeline_group0"] = bar((one[0][0], one[1][0], None, one[3][0]),
+                                  (emu[0][0], emu[1][0], None, emu[3][0]),
+                                  "12a group 0 against the one-device sweep")
+    diff = {nm: float((a[:1].double() - b.double()).abs().max())
+            for nm, a, b in zip(names, emu[:5], one[:5])}
+    log(f"[12a] one emulated sweep (4 chains, emulate_shards=4): {launches['sweep1']} sweep1 "
+        f"launches; group 0 bit for bit the one-device K=1 sweep: {same} (max |diff| "
+        f"{json.dumps(diff)})")
+    spec2 = spec.__class__(**{**spec.__dict__, "emulate_shards": 2})
+    emu2 = TG.one_iteration_batch(spec2, gd, MESH_SEED, st)
+    ref2 = {k: getattr(emu2, k).cpu().numpy() for k in ("g", "track", "yadj", "u", "vare")}
+    t_emu = cuda_ms(torch, lambda: TG._sweep_pipeline_emu_mc(spec, *ins), 3)
+    t_one = cuda_ms(torch, lambda: TB.sweep_mc(spec, {k: v[:1] for k, v in ins[0].items()},
+                                               *ins[1:5], *(a[:1] for a in ins[5:])), 3)
+    del ins, gd, st, emu, emu2
+    torch.cuda.empty_cache()
+    reset_counts(TB)
+    fit = ht.ibrm("y ~ x1 + (1|grp)", data=data, M=M, M_id=data["id"], method="BayesR",
+                  niter=PIPE_ITERS, nburn=PIPE_ITERS // 2, thin=5, block=128, nchains=4,
+                  shard_schedule="pipeline", emulate_shards=4, seed=args.seed, device=dev,
+                  verbose=False)
+    torch.cuda.synchronize()
+    launches, plain = read_counts(TB)
+    expect_counts(launches, plain, {"sweep_mc": 16 * PIPE_ITERS, "sweep1": 16 * PIPE_ITERS},
+                  "12a")
+    n_rec = (PIPE_ITERS - PIPE_ITERS // 2) // 5
+    gvn = gv.cpu().numpy()
+    accs = [corr(g, gvn) for g in chain_gebv(fit, 4, n_rec)]
+    ms = 1e3 * fit.chain_seconds / PIPE_ITERS
+    log(f"[12a] ibrm BayesR 4 chains, pipeline emulated on 4 shards, {PIPE_ITERS} "
+        f"iterations: {ms:.2f} ms/iter on {smi}; GEBV accuracy per chain "
+        f"{[round(a, 4) for a in accs]} (bar {PIPE_GEBV_CORR_MIN}); one emulated sweep "
+        f"{t_emu:.3f} ms against one chain's one-device sweep {t_one:.3f} ms")
+    if not min(accs) >= PIPE_GEBV_CORR_MIN:
+        raise AssertionError(f"12a: a chain's GEBV accuracy {min(accs)} below "
+                             f"{PIPE_GEBV_CORR_MIN}")
+    del fit, M, data, gv
+    torch.cuda.empty_cache()
+    return {"launches_one_sweep": 16, "group0_bit_for_bit": same, "group0_diff": diff,
+            "ms_per_iter": ms, "gebv_acc": accs, "sweep_ms": t_emu, "one_chain_sweep_ms": t_one,
+            "emulate2": ref2}
+
+
+def row_base_kernel(torch, TSLD, TSG, TG, TB, dev, errs, sspec, sdata, spr, spi, tld):
+    """The tiled sweep at a row_base: a store of 64 tile rows of phase 5's
+    recipe swept as each shard of 2 and of 4 against the whole r_hat, the
+    kernel against the plain version at the bar (guard counts equal) and
+    bit-identical on a second launch; then timed on the last shard of 4
+    beside its plain version, and on shard 1 of 2 of phase 5's own store.
+    Returns (times, bounds)."""
+    small = banded_ld(torch, TSLD, 64 * 128, dev)
+    ss, _ = summary_stats(torch, tiled_matvec(torch, small), small.m, small.m_pad,
+                          torch.Generator(device=dev).manual_seed(77), dev)
+    data, spec, pr, pi = s_setup(torch, TG, TSG, ss, small, "BayesCpi", 128, dev, True)
+    g, r, P = s_sweep_inputs(torch, TSG, spec, data, pr, pi, tiled_matvec(torch, small), 5)
+    T, nbr = spec.block, data.ld_tiles.shape[0]
+    shard_err, rej = {}, {}
+    for S in (2, 4):
+        nl = nbr // S
+        for k in range(S):
+            b0 = k * nl
+            rows = slice(b0, b0 + nl)
+            a = (data.ld_tiles[rows].contiguous(), data.ld_cols[rows].contiguous(),
+                 data.ld_valid[rows].contiguous(), r, P[:, b0 * T:(b0 + nl) * T].contiguous(),
+                 spec.n)
+            out = TB.sweep_s_tiled(spec, *a, row_base=b0)
+            again = TB.sweep_s_tiled(spec, *a, row_base=b0)
+            ref = TB.sweep_s_tiled_plain(spec, *a, row_base=b0)
+            if not all(torch.equal(x, y) for x, y in zip(out, again)):
+                raise AssertionError(f"tiled sweep at row_base {b0}: a second launch differs")
+            if int(out[3]) != int(ref[3]):
+                raise AssertionError(f"tiled sweep at row_base {b0}: guard counts "
+                                     f"{int(out[3])} against {int(ref[3])}")
+            gk = g[b0 * T:(b0 + nl) * T]
+            shard_err[f"{k}/{S}"] = bar((gk - ref[0], ref[1], ref[2]),
+                                        (gk - out[0], out[1], out[2]),
+                                        f"tiled sweep, shard {k} of {S}", r_index=2)
+            rej[f"{k}/{S}"] = int(out[3])
+    errs["tiled_row_base"] = max(shard_err.values())
+    log(f"  ok tiled sweep at a row_base, every shard of 2 and of 4 (64 tile rows of 128): "
+        f"max |g| error {json.dumps(shard_err)}; first draws rejected {json.dumps(rej)}; "
+        f"each bit-identical on a second launch")
+    b0, nl = 48, 16
+    rows = slice(b0, b0 + nl)
+    a = (data.ld_tiles[rows].contiguous(), data.ld_cols[rows].contiguous(),
+         data.ld_valid[rows].contiguous(), r, P[:, b0 * T:].contiguous(), spec.n)
+    t = {"tiled_row_base": cuda_ms(torch, lambda: TB.sweep_s_tiled(spec, *a, row_base=b0), 10),
+         "tiled_row_base_plain": cuda_ms(
+             torch, lambda: TB.sweep_s_tiled_plain(spec, *a, row_base=b0), 1)}
+    nv = int(a[2].sum())
+    bnd = {"tiled_row_base": bound(nv * T * T * 4 + nbytes(*a[1:5]) + 4 * (r.numel() * 2
+                                                                         + 2 * nl * T + nl),
+                                   2.0 * T * T * (nv + nl))}
+    # shard 1 of 2 of phase 5's store, the whole r_hat
+    g5, r5, P5 = s_sweep_inputs(torch, TSG, sspec, sdata, spr, spi, tiled_matvec(torch, tld), 9)
+    nbr5 = sdata.ld_tiles.shape[0]
+    h = nbr5 // 2
+    rows = slice(h, nbr5)
+    a5 = (sdata.ld_tiles[rows], sdata.ld_cols[rows].contiguous(),
+          sdata.ld_valid[rows].contiguous(), r5, P5[:, h * T:].contiguous(), sspec.n)
+    t["tiled_row_base_shard"] = cuda_ms(torch, lambda: TB.sweep_s_tiled(sspec, *a5, row_base=h),
+                                        3)
+    nv5 = int(a5[2].sum())
+    bnd["tiled_row_base_shard"] = bound(
+        nv5 * T * T * 4 + nbytes(*a5[1:5]) + 4 * (r5.numel() * 2 + 2 * (nbr5 - h) * T),
+        2.0 * T * T * (nv5 + nbr5 - h))
+    log(f"  tiled sweep at a row_base, times (ms): 16 rows at row_base 48 "
+        f"{t['tiled_row_base']:.4f} (plain {t['tiled_row_base_plain']:.1f}); shard 1 of 2 of "
+        f"phase 5's store ({nbr5 - h} rows at row_base {h}) {t['tiled_row_base_shard']:.4f}; "
+        f"bounds {json.dumps(bnd)}")
+    return t, bnd
+
+
+def mesh_ranks(torch, args, after8, emu12a):
+    """12b: MESH_RANKS processes (spawned here) run the port's mesh paths
+    (rank12); a rank that fails fails the run.  Returns rank 0's results
+    with every rank's launch counts."""
+    import torch.multiprocessing as mp
+
+    backend = "nccl" if torch.cuda.device_count() >= MESH_RANKS else "gloo"
+    root = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build")
+    os.makedirs(root, exist_ok=True)
+    tmp = tempfile.mkdtemp(prefix="mesh_", dir=root)
+    try:
+        init = "file://" + os.path.join(tmp, "rendezvous")
+        payload = {"args": vars(args), "backend": backend, "init": init, "out": tmp,
+                   "fileset": after8, "emu2": emu12a}
+        log(f"[12b] {MESH_RANKS} ranks, backend {backend}, "
+            f"{'a card each' if backend == 'nccl' else 'both on cuda:0 (time-sliced)'}")
+        ctx = mp.start_processes(rank12, args=(MESH_RANKS, payload), nprocs=MESH_RANKS,
+                                 join=False, start_method="spawn")
+        t_end = time.time() + RANK_TIMEOUT_S
+        try:
+            while not ctx.join(timeout=max(1.0, t_end - time.time())):
+                if time.time() > t_end:
+                    raise AssertionError(f"12b: the ranks did not end in {RANK_TIMEOUT_S} s")
+        finally:
+            for p in ctx.processes:
+                if p.is_alive():
+                    p.kill()
+        import pickle
+
+        res = []
+        for r in range(MESH_RANKS):
+            with open(os.path.join(tmp, f"rank{r}.pkl"), "rb") as f:
+                res.append(pickle.load(f))
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    out = res[0]
+    out["launches_all_ranks"] = {
+        k: {name: sum(r["launches"][k][name] for r in res) for name in res[0]["launches"][k]}
+        for k in res[0]["launches"]}
+    out["backend"] = backend
+    return out
+
+
+def rank12(rank, world, payload):
+    """One rank of 12b: (vi) its rows of phase 8's fileset, then (i)-(v)
+    on the meshes (1, 2) and (2, 1).  Writes its results to
+    <out>/rank<r>.pkl; raises (so the spawn fails) on any failed check."""
+    import pickle
+
+    import torch
+    import torch.distributed as dist
+
+    sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    import hibayes_tpu_torch as ht
+    from hibayes_tpu_torch.data import sparse_ld as TSLD
+    from hibayes_tpu_torch.engine import gibbs as TG
+    from hibayes_tpu_torch.engine import sgibbs as TSG
+    from hibayes_tpu_torch.ops import blockgibbs as TB
+    from hibayes_tpu_torch.parallel import distributed as D
+    from hibayes_tpu_torch.parallel.mesh import gather_state, make_mesh
+
+    args = argparse.Namespace(**payload["args"])
+    backend = payload["backend"]
+    dev = torch.device("cuda", rank if backend == "nccl" else 0)
+    torch.cuda.set_device(dev)
+    world_, me = D.init_multihost(payload["init"], world, rank, backend=backend)
+    assert (world_, me) == (world, rank)
+    m12, m21 = make_mesh(shape=(1, world), device=dev), make_mesh(shape=(world, 1), device=dev)
+    lead = rank == 0
+    say = (lambda msg: log(msg)) if lead else (lambda msg: None)
+    res, launches, thin = {}, {}, 5
+    niter_eff = args.nburn + ((args.niter - args.nburn) // thin) * thin
+
+    def run(what, fn):
+        """fn() with the launch counts from 0 and the collectives timed."""
+        reset_counts(TB)
+        D.reset_collective_timer(timed=True)
+        torch.cuda.synchronize()
+        dist.barrier()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches[what] = read_counts(TB)[0]
+        coll = D.COLLECTIVES["seconds"]
+        D.reset_collective_timer(timed=False)
+        return out, wall, coll
+
+    # (vi) this rank's rows of phase 8's fileset
+    import hashlib
+
+    t0 = time.perf_counter()
+    fs, local = D.load_plink_host_sharded(payload["fileset"]["stem"], m21)
+    r0, rc = D.process_row_range(payload["fileset"]["n"], m21)
+    digest = hashlib.sha256(np.ascontiguousarray(fs["geno"].values).tobytes()).hexdigest()
+    if digest != payload["fileset"]["rows_sha256"][rank] or local.shape[0] != rc:
+        raise AssertionError(f"12b(vi) rank {rank}: rows {r0}..{r0 + rc} differ from "
+                             "phase 8's whole read")
+    del fs, local
+    say(f"[12b] (vi) load_plink_host_sharded: each rank's rows of phase 8's fileset bit "
+        f"for bit the whole read's ({time.perf_counter() - t0:.1f} s)")
+
+    # (i) the flagship on (1, 2), turn, one chain
+    M, data, gv = flagship12(torch, dev, args)
+    gd, spec, pr, pi, st = flagship12_chain(torch, TG, M, data["y"], dev, 1)
+    ref = TG.one_iteration(spec, gd, MESH_SEED, st)
+    out, wall, coll = run("i_one", lambda: gather_state(
+        TG.one_iteration(spec, gd, MESH_SEED, st, mesh=m12), m12, spec.n))
+    err_i = state_bar(ref, out, "12b(i) one iteration on (1, 2)")
+    fit, wall, coll = run("i", lambda: ht.ibrm(
+        "y ~ x1 + (1|grp)", data=data, M=M, M_id=data["id"], method="BayesR",
+        niter=args.niter, nburn=args.nburn, thin=thin, block=128, seed=args.seed,
+        device=dev, verbose=False, mesh=m12))
+    acc = corr(fit.g["gebv"], gv.cpu().numpy())
+    res["i"] = {"max_abs_err": err_i, "ms_per_iter": 1e3 * fit.chain_seconds / niter_eff,
+                "collective_share": coll / max(fit.chain_seconds, 1e-9), "gebv_acc": acc}
+    say(f"[12b] (i) flagship on (1, 2), turn: one iteration at the bar against one device "
+        f"(max |g| error {err_i:.3g}); {niter_eff} iterations {res['i']['ms_per_iter']:.2f} "
+        f"ms/iter, collectives {100 * res['i']['collective_share']:.1f}% of it; GEBV "
+        f"accuracy {acc:.4f} (bar {GEBV_CORR_MIN}) on {smi_line()}")
+    if not acc >= GEBV_CORR_MIN:
+        raise AssertionError(f"12b(i): GEBV accuracy {acc} below {GEBV_CORR_MIN}")
+    del fit
+
+    # (ii) the flagship on (2, 1), the ind hybrid
+    out, wall, coll = run("ii_one", lambda: gather_state(
+        TG.one_iteration(spec, gd, MESH_SEED, st, mesh=m21), m21, spec.n))
+    err_ii = state_bar(ref, out, "12b(ii) one iteration on (2, 1)")
+
+    def iters(mesh, sp, s0, k):
+        s = s0
+        for _ in range(k):
+            s = (TG.one_iteration_batch if s.g.dim() > 1 else TG.one_iteration)(
+                sp, gd, MESH_SEED, s, mesh=mesh)
+        return s
+
+    from hibayes_tpu_torch.parallel.mesh import shard_state
+
+    _, wall, coll = run("ii", lambda: iters(m21, spec, shard_state(st, m21, spec.n),
+                                            HYBRID_ITERS))
+    res["ii"] = {"max_abs_err": err_ii, "ms_per_iter": 1e3 * wall / HYBRID_ITERS,
+                 "collective_share": coll / wall}
+    say(f"[12b] (ii) flagship on (2, 1), the ind hybrid (draws_kernel a block, r0 summed "
+        f"over ind): one iteration at the bar (max |g| error {err_ii:.3g}); "
+        f"{res['ii']['ms_per_iter']:.2f} ms/iter, collectives "
+        f"{100 * res['ii']['collective_share']:.1f}%")
+    del gd, st, ref, out
+
+    # (iii) the flagship on (1, 2), the ring pipeline, 4 chains
+    gd, spec4, pr, pi, st4 = flagship12_chain(torch, TG, M, data["y"], dev, 4,
+                                              schedule="pipeline")
+    out, wall, coll = run("iii_one", lambda: gather_state(
+        TG.one_iteration_batch(spec4, gd, MESH_SEED, st4, mesh=m12), m12, spec4.n))
+    emu = payload["emu2"]
+    same = {k: bool(np.array_equal(getattr(out, k).cpu().numpy(), emu[k])) for k in emu}
+    if not all(same.values()):
+        raise AssertionError(f"12b(iii): the pipeline on 2 ranks is not 12a's emulation "
+                             f"at emulate_shards=2 bit for bit: {same}")
+    _, wall, coll = run("iii", lambda: iters(m12, spec4, st4, RANK_ITERS))
+    res["iii"] = {"bit_for_bit_emulation": True, "ms_per_iter": 1e3 * wall / RANK_ITERS,
+                  "collective_share": coll / wall}
+    say(f"[12b] (iii) flagship 4 chains on (1, 2), ring pipeline: one iteration bit for bit "
+        f"12a's emulation at emulate_shards=2; {res['iii']['ms_per_iter']:.2f} ms/iter, "
+        f"collectives {100 * res['iii']['collective_share']:.1f}%")
+    del gd, st4, out, M, data, gv
+    torch.cuda.empty_cache()
+
+    # (iv) phase 5's LD on (1, 2), turn, kernel 9 at its row_base: its
+    # recipe at the nearest m whose tile rows the ranks divide (500,224 for
+    # 500,000: 3,908 rows of 128), as the JAX package shards only then
+    sm = -(-args.sm // (128 * world)) * 128 * world
+    tld = banded_ld(torch, TSLD, sm, dev)
+    ss, b_true = summary_stats(torch, tiled_matvec(torch, tld), sm, tld.m_pad,
+                               torch.Generator(device=dev).manual_seed(MESH_SEED), dev)
+    sdata, sspec, spr, spi = s_setup(torch, TG, TSG, ss, tld, "BayesCpi", 128, dev, True)
+    g, r, P = s_sweep_inputs(torch, TSG, sspec, sdata, spr, spi, tiled_matvec(torch, tld), 9)
+    one = TB.sweep_s_tiled(sspec, sdata.ld_tiles, sdata.ld_cols, sdata.ld_valid, r, P, sspec.n)
+    part = TSG._on_mesh(sdata, m12)[0]
+    tally = torch.zeros(2, dtype=torch.int64, device=dev)
+    (dg, tr, rh), wall, coll = run("iv_one", lambda: TSG._tiled_sweep_snp_sharded(
+        sspec, part, r, P, m12, tally))
+    err_iv = bar((g - one[0], one[1], one[2]), (g - dg, tr, rh), "12b(iv) one sweep on (1, 2)",
+                 r_index=2)
+    if int(tally[0]) != int(one[3]):
+        raise AssertionError(f"12b(iv): guard counts {int(tally[0])} on the mesh against "
+                             f"{int(one[3])} on one device")
+    del part, one, g, r, P, dg, tr, rh
+    fit, wall, coll = run("iv", lambda: ht.sbrm(
+        ss, tld, method="BayesCpi", fold=np.array([0.0, 1.0]), niter=args.niter,
+        nburn=args.nburn, thin=thin, seed=args.seed, device=dev, verbose=False, mesh=m12))
+    acc = check_fit(fit, b_true, "12b(iv) sbrm on (1, 2)")
+    res["iv"] = {"max_abs_err": err_iv, "guard_rejected": int(tally[0]),
+                 "ms_per_iter": 1e3 * fit.chain_seconds / niter_eff,
+                 "collective_share": coll / max(fit.chain_seconds, 1e-9), "acc": acc}
+    say(f"[12b] (iv) sbrm tiled m={sm} on (1, 2), turn (tiled sweep at row_base 0 and "
+        f"{tld.nbr // world}): one sweep at the bar against one device (max |g| error "
+        f"{err_iv:.3g}, guard counts equal: {int(tally[0])}); "
+        f"{res['iv']['ms_per_iter']:.2f} ms/iter, collectives "
+        f"{100 * res['iv']['collective_share']:.1f}%; accuracy {acc:.4f} (bar {SBAYES_CORR_MIN})")
+    if not acc >= SBAYES_CORR_MIN:
+        raise AssertionError(f"12b(iv): accuracy {acc} below {SBAYES_CORR_MIN}")
+    del fit, sdata, tld
+    torch.cuda.empty_cache()
+
+    # (v) a small ssbrm, the epsilon term on, on (2, 1) and (1, 2)
+    sids, ssir, sdam, _, _ = make_pedigree(150, 2850, args.seed + 1)
+    srng = np.random.default_rng(args.seed + 1)
+    sg = sids[np.sort(srng.choice(3000, 600, replace=False))]
+    sM = torch.randint(0, 3, (600, 2048), generator=torch.Generator(device=dev).manual_seed(5),
+                       device=dev, dtype=torch.int8)
+    sphe = sids[srng.choice(3000, 900, replace=False)]
+    skw = dict(data={"id": sphe, "y": srng.normal(size=900)}, M=sM, M_id=sg,
+               pedigree={"id": sids, "sire": ssir, "dam": sdam}, niter=3, nburn=1, thin=1,
+               seed=args.seed, device=dev, verbose=False, impute="pcg", chunk_cols=512)
+    res["v"] = {}
+    for shape, mesh in (("2x1", m21), ("1x2", m12)):
+        fit, wall, coll = run(f"v_{shape}", lambda mesh=mesh: ht.ssbrm("y ~ 1", mesh=mesh, **skw))
+        vare = fit.MCMCsamples["Ve"]
+        if not (np.isfinite(vare).all() and np.isfinite(fit.Veps)):
+            raise AssertionError(f"12b(v) ssbrm on {shape}: vare {vare}, Veps {fit.Veps}")
+        res["v"][shape] = {"vare": [float(v) for v in vare], "Veps": float(fit.Veps),
+                           "s": wall}
+    say(f"[12b] (v) ssbrm (3,000 ids, 600 genotyped, m=2048, the epsilon term on), 3 "
+        f"iterations on (2, 1) and (1, 2): finite vare {json.dumps(res['v'])}")
+    res["launches"] = launches
+    with open(os.path.join(payload["out"], f"rank{rank}.pkl"), "wb") as f:
+        pickle.dump(res, f)
+    dist.barrier()
+    dist.destroy_process_group()
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--n", type=int, default=50_000)
@@ -3529,6 +3980,10 @@ def main(argv=None) -> int:
     bounds.update(b_tiled)
     log(f"[5] sweep_s_tiled matches its plain version at the main path's shapes; "
         f"times (ms) on {smi}: {json.dumps(t_tiled)}; bounds {json.dumps(b_tiled)}")
+    t_rb, b_rb = row_base_kernel(torch, TSLD, TSG, TG, TB, dev, errs, sspec, sdata, spr, spi,
+                                 tld)
+    times.update(t_rb)
+    bounds.update(b_rb)
     log(f"[5] draw chain alone, per block of {B} draws in one warp, on {smi}: BayesR "
         f"(4 folds) {times['chain_bayesr_us']:.3f} us ({times['chain_bayesr_cycles']:.0f} "
         f"cycles, {times['chain_bayesr_cycles'] / B:.1f} a draw), BayesCpi "
@@ -3753,11 +4208,30 @@ def main(argv=None) -> int:
     # ---- 8. the README quick start from PLINK files, and on its fileset
     # 9a: the command line killed and resumed ----
     torch.cuda.empty_cache()
+    os.makedirs(os.path.join(os.path.dirname(os.path.abspath(__file__)), "build"),
+                exist_ok=True)
+    kept = tempfile.mkdtemp(prefix="fileset_", dir=os.path.join(
+        os.path.dirname(os.path.abspath(__file__)), "build"))
+
+    def after8(stem, bed, pheno):
+        # phase 12b(vi) reads this fileset again: its files are linked into
+        # another directory (no copy) with the whole read's rows by rank
+        import hashlib
+
+        for ext in (".bed", ".bim", ".fam"):
+            os.link(stem + ext, os.path.join(kept, "cohort" + ext))
+        vals = bed["geno"].values
+        per = -(-vals.shape[0] // MESH_RANKS)
+        keep = {"stem": os.path.join(kept, "cohort"), "n": int(vals.shape[0]),
+                "rows_sha256": [hashlib.sha256(np.ascontiguousarray(
+                    vals[r * per:(r + 1) * per]).tobytes()).hexdigest()
+                    for r in range(MESH_RANKS)]}
+        return cli_resume(torch, hibayes_tpu_torch, TB, dev, stem, bed, pheno, args, smi,
+                          thin), keep
+
     qs, t_qs, b_qs = quickstart(
-        torch, hibayes_tpu_torch, TG, TSG, TB, dev, gen, args, smi, errs, thin,
-        after=lambda stem, bed, pheno: cli_resume(torch, hibayes_tpu_torch, TB, dev, stem, bed,
-                                                  pheno, args, smi, thin))
-    cli_res = qs["after"]
+        torch, hibayes_tpu_torch, TG, TSG, TB, dev, gen, args, smi, errs, thin, after=after8)
+    cli_res, fileset12 = qs["after"]
     times.update(t_qs)
     bounds.update(b_qs)
     torch.cuda.empty_cache()
@@ -3777,6 +4251,27 @@ def main(argv=None) -> int:
     mark("9c")
     log(f"[9] phase 9 took {cli_res['wall_s'] + t9b + t9c:.1f} s: 9a {cli_res['wall_s']:.1f}, "
         f"9b {t9b:.1f}, 9c {t9c:.1f}; the whole run so far {time.perf_counter() - t_main:.1f} s")
+
+    # ---- 12. multi-GPU: the pipeline emulated on one card, then ranks ----
+    gc.collect()
+    torch.cuda.empty_cache()
+    pipe = pipeline_emulation(torch, hibayes_tpu_torch, TG, TB, dev, args, smi, errs)
+    mark("12a")
+    try:
+        mesh12 = mesh_ranks(torch, args, fileset12, pipe.pop("emulate2"))
+    finally:
+        shutil.rmtree(kept, ignore_errors=True)
+    want12 = {"i": ("sweep1",), "ii": ("draws_kernel",), "iii": ("rows_mc_kernel",
+                                                                  "draws_kernel"),
+              "iv": ("tiled_sweep",), "v_2x1": ("draws_kernel", "mme_sweep_kernel"),
+              "v_1x2": ("sweep1", "mme_sweep_kernel")}
+    for run_, names in want12.items():
+        got = mesh12["launches_all_ranks"][run_]
+        if not all(got[k] > 0 for k in names):
+            raise AssertionError(f"12b({run_}): kernels {names} not launched: {got}")
+    log(f"[12b] launches by run, summed over the ranks: "
+        f"{json.dumps(mesh12['launches_all_ranks'])}")
+    mark("12b")
 
     # ---- 10. results ----
     src = "hibayes_tpu_torch/csrc/blockgibbs.cu"
@@ -3970,6 +4465,20 @@ def main(argv=None) -> int:
               full_sweep_bound_ms=bounds["tiled_grouped_full"][0],
               ms_per_iter=tiled11["11d"]["ms_per_iter"]),
     ]
+    kernels.append(entry(
+        "tiled_sweep_row_base", ssrc, "hibayes_tpu/ops/blockgibbs.py:1641",
+        mesh12["launches_all_ranks"]["iv"]["tiled_sweep"], errs["tiled_row_base"],
+        "tiled_row_base",
+        timed="16 tile rows of 128 at row_base 48 of a 64-row store (phase 5's recipe), "
+              "BayesCpi, guard",
+        launches_from=f"phase 12b(iv) (sbrm on (1, 2), {mesh12['backend']}, "
+                      f"{MESH_RANKS} ranks)",
+        shard_max_abs_err=errs["tiled_row_base"],
+        shard_of_phase5_ms=times["tiled_row_base_shard"],
+        shard_of_phase5_bound_ms=bounds["tiled_row_base_shard"][0],
+        mesh_ms_per_iter=mesh12["iv"]["ms_per_iter"],
+        mesh_collective_share=mesh12["iv"]["collective_share"]))
+    log(f"[12] results: 12a {json.dumps(pipe)}; 12b {json.dumps({k: mesh12[k] for k in ('i', 'ii', 'iii', 'iv', 'v')})}")
     idle = [k["name"] for k in kernels if not k["launches"]]
     if idle:
         raise AssertionError(f"kernels not launched on their main path: {idle}")

@@ -16,10 +16,14 @@ started again with the same arguments resumes from there.
 Two deviations: ``--device`` (default cuda; cpu runs the kernels' plain
 versions) names the device every entry point runs on; and a shard
 schedule other than ``turn`` with ``--shards 1`` is refused, where the JAX
-CLI silently runs the plain sweep.  ``--shards`` above 1 is not ported
-(ROADMAP queue 1, items 13-14).  Besides the JAX CLI's lines, each fitting
-run prints the read_plink seconds, the iteration it resumes at, and the
-chain's seconds.
+CLI silently runs the plain sweep.  ``ibrm --shards S`` runs on S cards
+under ``torchrun --nproc-per-node S -m hibayes_tpu_torch ibrm --shards S
+...``: every rank joins the process group (parallel/distributed.py,
+``env://``), the fit runs on a (1, S) mesh (``make_mesh(shape=(1, S))``,
+as the JAX CLI's) and rank 0 alone prints and writes the files; the
+``concurrent`` schedule is not ported (ROADMAP queue 1, item 14).
+Besides the JAX CLI's lines, each fitting run prints the read_plink
+seconds, the iteration it resumes at, and the chain's seconds.
 """
 
 from __future__ import annotations
@@ -123,8 +127,8 @@ def _parser():
     p_i.add_argument("--formula", required=True)
     p_i.add_argument("--nchains", type=int, default=1)
     p_i.add_argument("--shards", type=int, default=1,
-                     help="SNP-axis model-parallel shards (devices); not ported "
-                          "(ROADMAP queue 1, items 13-14)")
+                     help="SNP-axis model-parallel shards (devices, one rank each: "
+                          "run under torchrun --nproc-per-node SHARDS)")
     p_i.add_argument("--shard-schedule", default="turn",
                      choices=("turn", "pipeline", "concurrent"),
                      help="m-MP sweep schedule across --shards devices; with one "
@@ -179,16 +183,38 @@ def save_ld(ld, out):
         np.savez(out, kind=type(ld).__name__, values=as_numpy(ld.values))
 
 
+def _shard_mesh(shards: int, device: str):
+    """The (1, shards) mesh of an ``ibrm --shards`` run under torchrun, or
+    None for one shard.  Raises where the process group is not ``shards``
+    ranks (one rank a card)."""
+    if shards <= 1:
+        return None
+    from .parallel.distributed import init_multihost
+    from .parallel.mesh import make_mesh
+
+    backend = "nccl" if device.startswith("cuda") else "gloo"
+    world, _ = init_multihost(backend=backend)
+    if world != shards:
+        raise RuntimeError(
+            f"--shards {shards} needs {shards} ranks, one a device: run it as torchrun "
+            f"--nproc-per-node {shards} -m hibayes_tpu_torch ibrm --shards {shards} ... "
+            f"(this process group has {world})")
+    dev = None if device.startswith("cuda") else "cpu"
+    return make_mesh(shards, shape=(1, shards), device=dev)
+
+
 def main(argv=None):
     ap = _parser()
     a = ap.parse_args(argv)
     if getattr(a, "shards", 1) == 1 and getattr(a, "shard_schedule", "turn") != "turn":
         ap.error(f"--shard-schedule {a.shard_schedule} needs --shards > 1; with one shard "
                  "only 'turn' runs (the JAX CLI runs the plain sweep there silently)")
-    if getattr(a, "shards", 1) > 1:
+    if getattr(a, "shard_schedule", "turn") == "concurrent":
         raise NotImplementedError(
-            "--shards > 1 (the SNP-sharded sweep across devices) is not ported yet "
-            "(ROADMAP queue 1, items 13-14)")
+            "--shard-schedule concurrent is not ported yet (ROADMAP queue 1, item 14: "
+            "the relaxed concurrent schedule)")
+    mesh = _shard_mesh(getattr(a, "shards", 1), a.device)
+    lead = mesh is None or mesh.rank == 0
 
     if a.cmd == "ldmat":
         binr = ht.read_plink(a.bfile)
@@ -203,8 +229,9 @@ def main(argv=None):
     t0 = time.perf_counter()
     binr = ht.read_plink(a.bfile)
     n, m = binr["geno"].values.shape
-    print(f"read_plink {a.bfile}: {n} x {m} in {time.perf_counter() - t0!r} s")
-    if a.checkpoint and os.path.exists(a.checkpoint + ".meta.json"):
+    if lead:
+        print(f"read_plink {a.bfile}: {n} x {m} in {time.perf_counter() - t0!r} s")
+    if lead and a.checkpoint and os.path.exists(a.checkpoint + ".meta.json"):
         with open(a.checkpoint + ".meta.json") as f:
             print(f"checkpoint {a.checkpoint}: resuming at iteration {json.load(f)['it']}")
     verbose = not a.quiet
@@ -215,6 +242,9 @@ def main(argv=None):
 
     if a.cmd == "ibrm":
         pheno = ht.read_pheno(a.pheno)
+        if mesh is not None:
+            common.update(mesh=mesh, shard_schedule=a.shard_schedule,
+                          device=str(mesh.device))
         fit = ht.ibrm(a.formula, data=pheno, M=binr["geno"].values,
                       M_id=binr["fam"][1], nchains=a.nchains, **common)
     elif a.cmd == "sbrm":
@@ -230,6 +260,8 @@ def main(argv=None):
                        M_id=binr["fam"][1],
                        pedigree={"id": pid, "sire": ps, "dam": pd_},
                        maf=a.maf, impute=a.impute, **common)
+    if not lead:
+        return 0
     print(f"chain {fit.chain_seconds!r} s")
 
     save_fit(fit, a.out_prefix, map_=binr["map"])

@@ -233,6 +233,10 @@ struct Sweep1Args {
                       // 1, after it (the drawer then has room for its tile's X)
   long long* stamps;  // measurement only (null in use)
   int nf;             // BayesR folds (read by the NF = kRuntimeFold instance)
+  // the packed rows in global memory, SNP-major at padded_stride(R) (nbg B,
+  // RP), read there by the draws (through L2) instead of staged in shared
+  // memory: where one SNP's rows overflow it; null: staged from P
+  const float* Pg;
 };
 
 // A row tile of X as the row work reads it: in global memory as stored, or
@@ -498,6 +502,8 @@ template <typename XT, int MI, int NF>
 __global__ void __launch_bounds__(kS1Threads, 1) sweep1_kernel(Sweep1Args<XT> a) {
   const int R = packed_rows(MI, NF == kRuntimeFold ? a.nf : NF);
   const int RP = padded_stride(R);
+  const bool rows_smem = !rows_may_be_global<NF>() || a.Pg == nullptr;
+  const int RS = rows_smem ? RP : 0;   // floats a SNP's rows take in shared memory
   extern __shared__ __align__(16) unsigned char s1_smem[];
   const int B = a.B;
   const int G = gridDim.x;
@@ -509,7 +515,7 @@ __global__ void __launch_bounds__(kS1Threads, 1) sweep1_kernel(Sweep1Args<XT> a)
   w.t_first = (blockIdx.x + G - 1) % G;
   w.T = w.t_first < a.ntiles ? (a.ntiles - 1 - w.t_first) / G + 1 : 0;
   w.nb = drawer ? a.nb0 : a.nbr;
-  const S1Layout L = s1_layout(B, RP, a.rpt, sizeof(XT), w.T, w.nb, drawer, a.wb);
+  const S1Layout L = s1_layout(B, RS, a.rpt, sizeof(XT), w.T, w.nb, drawer, a.wb);
   w.ys = reinterpret_cast<float*>(s1_smem + L.draw_bytes);
   w.us = w.ys + L.yu_floats;
   w.dgs = w.us + L.yu_floats;
@@ -522,7 +528,7 @@ __global__ void __launch_bounds__(kS1Threads, 1) sweep1_kernel(Sweep1Args<XT> a)
   uint64_t* bar = reinterpret_cast<uint64_t*>(s1_smem);
   float* Wb = reinterpret_cast<float*>(s1_smem) + kS1BarFloats;   // + buf B B
   float* Pb = Wb + a.wb * B * B;                                  // + buf B RP
-  float* red8 = Pb + 2 * B * RP;
+  float* red8 = Pb + 2 * B * RS;
   const unsigned w_bytes = static_cast<unsigned>(sizeof(float)) * B * B;
   // W_sb into buffer sb mod wb, its arrival counted on that buffer's mbarrier
   auto stage_w = [&](int sb) {   // one thread
@@ -534,7 +540,7 @@ __global__ void __launch_bounds__(kS1Threads, 1) sweep1_kernel(Sweep1Args<XT> a)
   auto stage_p = [&](int sb, int t0, int nt) {   // packed rows at padded_stride
     float* dst = Pb + (sb & 1) * B * RP;
     const float* src = a.P + static_cast<size_t>(sb) * B * R;
-    for (int e = t0; e < B * R; e += nt) {
+    for (int e = t0; rows_smem && e < B * R; e += nt) {
       const int j = e / R;
       cp_async4(dst + j * RP + e - j * R, src + e);
     }
@@ -614,8 +620,15 @@ __global__ void __launch_bounds__(kS1Threads, 1) sweep1_kernel(Sweep1Args<XT> a)
         }
         mbar_wait(bar + s % a.wb, (s / a.wb) & 1);   // W_s has landed
         stamp(sb, 2);
-        warp_block_draws<MI, NF>(B, Wb + (s % a.wb) * B * B, Pb + (s & 1) * B * RP, r, gi, dg,
-                                 tr, 0.f, 1.f, a.nf);
+        // two call sites, so that the shared-memory one keeps its rows'
+        // loads shared-memory loads (a pointer that may be either is generic)
+        if (rows_smem)
+          warp_block_draws<MI, NF>(B, Wb + (s % a.wb) * B * B, Pb + (s & 1) * B * RP, r, gi,
+                                   dg, tr, 0.f, 1.f, a.nf);
+        else
+          warp_block_draws<MI, NF>(B, Wb + (s % a.wb) * B * B,
+                                   a.Pg + static_cast<long long>(s) * B * RP, r, gi, dg, tr,
+                                   0.f, 1.f, a.nf);
         stamp(sb, 6);
         const long long lb = static_cast<long long>(s) * B;
 #pragma unroll
@@ -947,7 +960,7 @@ rows_mc_kernel(const XT* __restrict__ Xprev, const float* __restrict__ dgprev,
 // draws_kernel
 // ---------------------------------------------------------------------------
 
-// R packed rows a SNP, staged at padded_stride(R).
+// R packed rows a SNP, staged at padded_stride(R) (R 0: none staged).
 inline size_t draws_smem(int B, int R) {
   return sizeof(float) * (static_cast<size_t>(B) * B + static_cast<size_t>(B) * padded_stride(R) +
                           static_cast<size_t>(kDrawWarps) * B);
@@ -958,7 +971,9 @@ inline size_t draws_smem(int B, int R) {
 // pieces: warp w sums the chain's tiles w, w + 8, ... (lane l columns
 // 4l .. 4l+3) and warp 0 adds the eight sums in warp order, a fixed order.
 // P (B, R, K) holds the packed rows of this block (staged at
-// padded_stride(R) floats a SNP); W (B, B) its Gram.
+// padded_stride(R) floats a SNP), or Pg (non-null) them SNP-major at
+// padded_stride(R), chain k's at Pg + k pg_stride, read there (through
+// L2) by the draws; W (B, B) its Gram.
 // Outputs (any may be null) go to out[j * sj + k * sk].  W and P are loaded
 // before the wait for the launch before (none of the sweep writes them).
 template <int MI, int NF>
@@ -966,14 +981,16 @@ __global__ void __launch_bounds__(kDrawThreads)
 draws_kernel(const float* __restrict__ partial, int ntiles,
              const float* __restrict__ W, const float* __restrict__ P, int B,
              int K, float* gi_out, float* dg_out, float* tr_out, long long sj,
-             long long sk, long long* stamps, int nf) {
+             long long sk, long long* stamps, int nf, const float* __restrict__ Pg,
+             long long pg_stride) {
   const int R = packed_rows(MI, NF == kRuntimeFold ? nf : NF);
   const int RP = padded_stride(R);
+  const int RS = !rows_may_be_global<NF>() || Pg == nullptr ? RP : 0;
   extern __shared__ __align__(16) float smem[];
   const int k = blockIdx.x;
   float* Ws = smem;         // B * B
-  float* Ps = Ws + B * B;   // B * RP
-  float* red = Ps + B * RP; // kDrawWarps * B
+  float* Ps = Ws + B * B;   // B * RS
+  float* red = Ps + B * RS; // kDrawWarps * B
   const int warp = threadIdx.x / kWarp;
   const int lane = threadIdx.x % kWarp;
   long long* st = k == 0 && threadIdx.x == 0 ? stamps : nullptr;
@@ -987,7 +1004,7 @@ draws_kernel(const float* __restrict__ partial, int ntiles,
   } else {
     for (int i = threadIdx.x; i < B * B; i += blockDim.x) Ws[i] = W[i];
   }
-  for (int i = threadIdx.x; i < B * R; i += blockDim.x) {
+  for (int i = threadIdx.x; RS > 0 && i < B * R; i += blockDim.x) {
     const int j = i / R;
     Ps[j * RP + i - j * R] = P[static_cast<long long>(i) * K + k];
   }
@@ -1020,7 +1037,10 @@ draws_kernel(const float* __restrict__ partial, int ntiles,
     gi[s] = dg[s] = tr[s] = 0.f;
   }
   stamp(st, 6);
-  warp_block_draws<MI, NF>(B, Ws, Ps, r, gi, dg, tr, 0.f, 1.f, nf);
+  if (RS > 0)   // two call sites: the shared-memory one keeps shared-memory loads
+    warp_block_draws<MI, NF>(B, Ws, Ps, r, gi, dg, tr, 0.f, 1.f, nf);
+  else
+    warp_block_draws<MI, NF>(B, Ws, Pg + k * pg_stride, r, gi, dg, tr, 0.f, 1.f, nf);
 #pragma unroll
   for (int s = 0; s < kSlots; ++s) {
     const int j = kSlots * lane + s;
@@ -1051,6 +1071,8 @@ struct DrawArgs {
   long long sj, sk;
   long long* stamps;
   int nf;
+  const float* Pg;      // null, or the rows in global memory (draws_kernel)
+  long long pg_stride;  // chain stride of Pg in floats
 };
 
 // Raise a kernel's dynamic shared memory limit to `smem` on the current
@@ -1074,12 +1096,12 @@ cudaError_t set_smem(size_t smem) {
 
 template <int MI, int NF>
 cudaError_t launch_draws_t(const DrawArgs& a, bool overlap, cudaStream_t stream) {
-  const size_t smem = draws_smem(a.B, a.R);
+  const size_t smem = draws_smem(a.B, !rows_may_be_global<NF>() || a.Pg == nullptr ? a.R : 0);
   cudaError_t e = set_smem<draws_kernel<MI, NF>>(smem);
   if (e != cudaSuccess) return e;
   e = launch(overlap, draws_kernel<MI, NF>, dim3(a.K), kDrawThreads, smem, stream,
              a.partial, a.ntiles, a.W, a.P, a.B, a.K, a.gi, a.dg, a.tr, a.sj, a.sk,
-             a.stamps, a.nf);
+             a.stamps, a.nf, a.Pg, a.pg_stride);
   if (e == cudaSuccess) ++g_draws_launches;
   return e;
 }
@@ -1141,7 +1163,9 @@ inline int s1_tiles(int c, int G, int ntiles) {
 
 template <typename XT, int MI, int NF>
 cudaError_t sweep1_launch(const Sweep1Args<XT>& a, int grid, cudaStream_t stream) {
-  const int RP = padded_stride(packed_rows(MI, NF == kRuntimeFold ? a.nf : NF));
+  const int RP = rows_may_be_global<NF>() && a.Pg != nullptr
+                     ? 0
+                     : padded_stride(packed_rows(MI, NF == kRuntimeFold ? a.nf : NF));
   int dev = 0, sms = 0, optin = 0, per_sm = 0;
   cudaError_t e = cudaGetDevice(&dev);
   if (e == cudaSuccess) e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
@@ -1197,7 +1221,8 @@ cudaError_t sweep_mc_launches(const XT* X, const float* W, const float* P, int o
                               int nbg, int n, int rows_per_tile, const int shape[4], int B,
                               int R, int K, int mi, int nf, float* yadj, float* u,
                               float* g_out, float* dg_out, float* tr_out, float* partial,
-                              long long* stamps, cudaStream_t stream) {
+                              long long* stamps, const float* Pg, cudaStream_t stream) {
+  const long long RP = padded_stride(R);
   const int ntiles = (n + rows_per_tile - 1) / rows_per_tile;
   const size_t xblk = static_cast<size_t>(n) * B;
   const long long m_loc = static_cast<long long>(nbg) * B;
@@ -1226,7 +1251,8 @@ cudaError_t sweep_mc_launches(const XT* X, const float* W, const float* P, int o
     const DrawArgs a{partial, ntiles,
                      W + static_cast<size_t>(off + b) * B * B,
                      P + static_cast<size_t>(b) * B * R * K, B, R, K,
-                     g_out + lb, dg_out + lb, tr_out + lb, 1, m_loc, sb, nf};
+                     g_out + lb, dg_out + lb, tr_out + lb, 1, m_loc, sb, nf,
+                     Pg == nullptr ? nullptr : Pg + lb * RP, m_loc * RP};
     e = launch_draws(a, mi, nf, true, stream);
     if (e != cudaSuccess) return e;
   }
@@ -1255,12 +1281,15 @@ void hb_reset_launch_counts() {
 
 // One block of B sequential draws for K chains.
 //   r0t (K, B) = X_b' yadj per chain; W (B, B); P (B, R, K)
-//   dg, track (B, K) outputs.
+//   dg, track (B, K) outputs.  Pg (null, or the rows (K, B,
+//   padded_stride(R)) SNP-major): the draws read them there.
 int hb_block_draws(const float* r0t, const float* W, const float* P, int B,
                    int R, int K, int mi, int nf, float* dg, float* track,
-                   void* stream) {
-  if (!hb::shapes_ok(B, R, K, mi, nf)) return cudaErrorInvalidValue;
-  const hb::DrawArgs a{r0t, 1, W, P, B, R, K, nullptr, dg, track, K, 1, nullptr, nf};
+                   const float* Pg, void* stream) {
+  if (!hb::shapes_ok(B, R, K, mi, nf) || (Pg != nullptr && !hb::global_rows_ok(mi, nf)))
+    return cudaErrorInvalidValue;
+  const hb::DrawArgs a{r0t, 1, W, P, B, R, K, nullptr, dg, track, K, 1, nullptr, nf, Pg,
+                       static_cast<long long>(B) * hb::padded_stride(R)};
   return hb::launch_draws(a, mi, nf, false, static_cast<cudaStream_t>(stream));
 }
 
@@ -1276,14 +1305,16 @@ int hb_block_draws(const float* r0t, const float* W, const float* P, int B,
 // K >= 2: (tk, tr, rb, tc) is rows_mc_kernel's register-tile shape
 // (rows_mc_instance).
 // stamps (measurement only; null in use): nbg + 1 records of hb::kStamps.
+// Pg (null, or the packed rows (K, nbg * B, padded_stride(R)) SNP-major):
+// the draws read the rows there instead of staging P in shared memory.
 int hb_sweep_mc(const void* X, int x_int8, const float* W, const float* P,
                 int off, int nbg, int n, int rows_per_tile, int tk, int tr,
                 int rb, int tc, int B, int R, int K, int mi, int nf, float* yadj,
                 float* u, float* g_out, float* dg_out, float* track, float* partial,
                 unsigned* flags, unsigned epoch, int grid, int nb0, int nbr, int wb,
-                long long* stamps, void* stream) {
+                long long* stamps, const float* Pg, void* stream) {
   if (!hb::shapes_ok(B, R, K, mi, nf) || n <= 0 || rows_per_tile <= 0 ||
-      off < 0 || nbg < 0)
+      off < 0 || nbg < 0 || (Pg != nullptr && !hb::global_rows_ok(mi, nf)))
     return cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int shape[4] = {tk, tr, rb, tc};
@@ -1296,21 +1327,21 @@ int hb_sweep_mc(const void* X, int x_int8, const float* W, const float* P,
     if (x_int8) {
       const hb::Sweep1Args<int8_t> a{static_cast<const int8_t*>(X), W, P, off, nbg, n, B,
                                      rows_per_tile, ntiles, yadj, u, g_out, dg_out, track,
-                                     partial, flags, epoch, nb0, nbr, wb, stamps, nf};
+                                     partial, flags, epoch, nb0, nbr, wb, stamps, nf, Pg};
       return hb::sweep1(a, grid, mi, nf, s);
     }
     const hb::Sweep1Args<float> a{static_cast<const float*>(X), W, P, off, nbg, n, B,
                                   rows_per_tile, ntiles, yadj, u, g_out, dg_out, track,
-                                  partial, flags, epoch, nb0, nbr, wb, stamps, nf};
+                                  partial, flags, epoch, nb0, nbr, wb, stamps, nf, Pg};
     return hb::sweep1(a, grid, mi, nf, s);
   }
   if (x_int8)
     return hb::sweep_mc_launches(static_cast<const int8_t*>(X), W, P, off, nbg, n,
                                  rows_per_tile, shape, B, R, K, mi, nf, yadj, u, g_out,
-                                 dg_out, track, partial, stamps, s);
+                                 dg_out, track, partial, stamps, Pg, s);
   return hb::sweep_mc_launches(static_cast<const float*>(X), W, P, off, nbg, n,
                                rows_per_tile, shape, B, R, K, mi, nf, yadj, u, g_out,
-                               dg_out, track, partial, stamps, s);
+                               dg_out, track, partial, stamps, Pg, s);
 }
 
 }  // extern "C"

@@ -43,6 +43,19 @@ constexpr int kMaxFold = 8;                    // BayesR folds compiled in (R <=
 constexpr int kRuntimeFold = 0;                // NF of the instance that takes nf at run time
 constexpr int kRetry = 8;                      // guard retries (N_RETRY)
 
+// Whether a kernel instance may read the packed rows from global memory
+// (its Pg argument): only the run-time fold instance, the one whose rows
+// can overflow shared memory; every compiled-fold instance keeps its code
+// free of that path (the shared-memory draws as they were).
+template <int NF>
+__host__ __device__ constexpr bool rows_may_be_global() { return NF == kRuntimeFold; }
+
+// Whether a launch may pass its rows in global memory: it runs the
+// run-time fold instance (BayesR above kMaxFold folds).
+__host__ __device__ constexpr bool global_rows_ok(int mi, int nf) {
+  return mi == 6 && nf > kMaxFold;
+}
+
 // Packed rows per SNP (ops/blockgibbs.py:n_rows).
 __host__ __device__ constexpr int packed_rows(int mi, int nf) {
   return (mi == 3 || mi == 4) ? 5 : (mi == 6 ? 3 + 4 * (nf - 1) : 4);

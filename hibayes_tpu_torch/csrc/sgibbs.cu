@@ -124,6 +124,10 @@ struct SegArgs {
   int lds;             // row stride of the drawer's tile LD[b + 1, b] (B, or B + 4)
   long long* stamps;   // measurement only (null in use)
   int nf;              // BayesR folds (read by the NF = kRuntimeFold instance)
+  // the packed rows in global memory, SNP-major at padded_stride(R) (K, mc,
+  // RP), read there by the draws (through L2) instead of staged in shared
+  // memory: where one SNP's rows overflow it; null: staged from P
+  const float* Pg;
 };
 
 // One row's sum sum_c x[c] d[c] over a row slice of B <= 128 columns, by
@@ -168,8 +172,9 @@ __device__ __forceinline__ void load_row(const float* p, int B, float4 (&x)[kWar
 
 // Shared memory of a drawer CTA in floats: two Gram blocks, the tile
 // LD[b + 1, b] at row stride lds, two blocks of packed rows for cpc
-// chains, and (cpc B each) dg of the block drawn, r of the block to draw,
-// the drawer's contribution's sums and r of block 1 as it starts.
+// chains (RP 0 where the draws read them from global memory), and (cpc B
+// each) dg of the block drawn, r of the block to draw, the drawer's
+// contribution's sums and r of block 1 as it starts.
 __host__ __device__ inline long long seg_draw_floats(int B, int RP, int cpc, int lds) {
   return 2LL * B * B + static_cast<long long>(B) * lds + 2LL * cpc * B * RP + 4LL * cpc * B;
 }
@@ -199,6 +204,8 @@ template <int MI, int NF, bool GUARD>
 __device__ __forceinline__ void seg_drawer(const SegArgs& a, float* sm) {
   const int R = row_stride(MI, NF == kRuntimeFold ? a.nf : NF, GUARD);
   const int RP = padded_stride(R);
+  const bool rows_smem = !rows_may_be_global<NF>() || a.Pg == nullptr;
+  const int RS = rows_smem ? RP : 0;   // floats a SNP's rows take in shared memory
   const int B = a.B, cpc = a.cpc, lds = a.lds;
   const long long mc = a.mc;
   const int nb = a.mc / B;
@@ -209,7 +216,7 @@ __device__ __forceinline__ void seg_drawer(const SegArgs& a, float* sm) {
   float* G0 = sm;                       // + (b & 1) B B
   float* Ls = G0 + 2 * B * B;           // B rows at stride lds
   float* P0 = Ls + B * lds;             // + (b & 1) cpc B RP
-  float* dgs = P0 + 2 * cpc * B * RP;   // (kc, B)
+  float* dgs = P0 + 2 * cpc * B * RS;   // (kc, B)
   float* rr = dgs + cpc * B;            // (kc, B): r of the block to draw
   float* ps = rr + cpc * B;             // (kc, B): the contribution's sums
   float* r1 = ps + cpc * B;             // (kc, B): r of block 1 as the sweep began
@@ -228,7 +235,7 @@ __device__ __forceinline__ void seg_drawer(const SegArgs& a, float* sm) {
       if (b > 0) cp_async16(Ls + i * lds + c, a.LD + (row0 + i) * mc + row0 - B + c);
     }
     float* Pd = P0 + (b & 1) * cpc * B * RP;
-    for (int e = tid - s0; e < kc * B * R; e += sn) {
+    for (int e = tid - s0; rows_smem && e < kc * B * R; e += sn) {
       const int kk = e / (B * R), rest = e - kk * B * R;
       const int row = rest / B, j = rest - row * B;
       cp_async4(Pd + kk * B * RP + j * RP + row,
@@ -268,7 +275,7 @@ __device__ __forceinline__ void seg_drawer(const SegArgs& a, float* sm) {
     for (int e = tid - s0; e < B * lpr; e += sn)
       prefetch_line_l2(a.LD + (row0 + e / lpr) * mc + row0 - B + 32 * (e % lpr));
     const int lpp = (B + 31) / 32;
-    for (int e = tid - s0; e < kc * R * lpp; e += sn)
+    for (int e = tid - s0; rows_smem && e < kc * R * lpp; e += sn)
       prefetch_line_l2(a.P + static_cast<long long>(k0 * R + e / lpp) * mc + row0 + 32 * (e % lpp));
   };
   if (nb > 2 && stager) prefetch(2);
@@ -288,9 +295,16 @@ __device__ __forceinline__ void seg_drawer(const SegArgs& a, float* sm) {
         rv[s] = j < B ? rr[warp * B + j] : 0.f;
         gi[s] = dg[s] = tr[s] = 0.f;
       }
-      const int rej = warp_block_draws<MI, NF, GUARD>(
-          B, G0 + (b & 1) * B * B, P0 + (b & 1) * cpc * B * RP + warp * B * RP, rv, gi, dg, tr,
-          a.vary, 1.f, a.nf);
+      // two call sites: the shared-memory one keeps shared-memory loads
+      const int rej =
+          rows_smem
+              ? warp_block_draws<MI, NF, GUARD>(B, G0 + (b & 1) * B * B,
+                                                P0 + (b & 1) * cpc * B * RP + warp * B * RP, rv,
+                                                gi, dg, tr, a.vary, 1.f, a.nf)
+              : warp_block_draws<MI, NF, GUARD>(
+                    B, G0 + (b & 1) * B * B,
+                    a.Pg + (static_cast<long long>(k0 + warp) * mc + col0) * RP, rv, gi, dg, tr,
+                    a.vary, 1.f, a.nf);
       if (GUARD && lane == 0) a.nrej[static_cast<long long>(k0 + warp) * nb + b] = rej;
       if (st != nullptr && tid == 0) st[kSegStamps * b + 10] = clock64();
 #pragma unroll
@@ -484,7 +498,8 @@ inline bool block_ok(int B, int mi, int nf) {
 template <int MI, int NF, bool GUARD>
 cudaError_t seg_sweep(const SegArgs& a, cudaStream_t stream) {
   const int RP = padded_stride(row_stride(MI, NF == kRuntimeFold ? a.nf : NF, GUARD));
-  const long long fl = seg_draw_floats(a.B, RP, a.cpc, a.lds);
+  const bool rows_smem = !rows_may_be_global<NF>() || a.Pg == nullptr;
+  const long long fl = seg_draw_floats(a.B, rows_smem ? RP : 0, a.cpc, a.lds);
   const long long fo = seg_own_floats(a.B, a.rw, a.kch, a.trows);
   const size_t smem = sizeof(float) * static_cast<size_t>(fl > fo ? fl : fo);
   int dev = 0, sms = 0, per_sm = 0;
@@ -508,6 +523,12 @@ cudaError_t seg_sweep(const SegArgs& a, cudaStream_t stream) {
 // ---------------------------------------------------------------------------
 // the tiled sweep: one persistent launch
 // ---------------------------------------------------------------------------
+//
+// A launch sweeps nbr tile rows, global rows rb .. rb + nbr - 1 of a store
+// of nb rows (the SNP-sharded sweep gives each rank a shard of the rows;
+// one device: rb 0, nb = nbr).  r_hat, the schedule's targets, total and
+// cnt run over the nb global blocks; the rows' P, dg, tr, nrej, need, nxt
+// and flags are the shard's own.
 
 constexpr int kTiledWarps = 8;
 constexpr int kTiledThreads = kWarp * kTiledWarps;
@@ -523,10 +544,12 @@ constexpr int kTileRows = kMaxBlock / kTiledWarps;   // rows of a tile per warp
 // run on across sweeps: sweep `epoch` starts with cnt[t] = epoch total[t]
 // and publishes flags[i] = epoch + 1.  With `chains` chains, P, r_hat,
 // dg, tr, nrej, cnt and flags hold one chain after another
-// (chain_args); the tiles and the schedule are shared.
+// (chain_args); the tiles and the schedule are shared.  Rows and items'
+// rows are local (row i is global block rb + i); targets, r_hat, total
+// and cnt are global (nb blocks).
 struct TiledArgs {
   const float* tiles;
-  int nbr, K, B, chains;
+  int nbr, rb, nb, K, B, chains;
   float n, vary;
   const float* P;
   float *r_hat, *dg, *tr;
@@ -542,6 +565,11 @@ struct TiledArgs {
   int stage_next;     // the drawer stages tile (i, i + 1) in shared memory
   long long* stamps;  // measurement only (null in use)
   int nf;             // BayesR folds (read by the NF = kRuntimeFold instance)
+  // the packed rows in global memory, SNP-major at padded_stride(R) (chains,
+  // nbr B, RP), read there by the draws (through L2) instead of staged in
+  // shared memory: where one SNP's rows overflow it (BayesR with hundreds
+  // of folds and the guard); null: staged from P
+  const float* Pg;
 };
 
 // Chain c's arguments: its packed rows (R, nbr B), r_hat, dg, tr (nbr B),
@@ -549,11 +577,12 @@ struct TiledArgs {
 __device__ __forceinline__ TiledArgs chain_args(TiledArgs a, int c, int R) {
   const long long m = static_cast<long long>(a.nbr) * a.B;
   a.P += c * R * m;
-  a.r_hat += c * m;
+  if (a.Pg != nullptr) a.Pg += c * m * padded_stride(R);
+  a.r_hat += c * static_cast<long long>(a.nb) * a.B;
   a.dg += c * m;
   a.tr += c * m;
   a.nrej += static_cast<long long>(c) * a.nbr;
-  a.cnt += static_cast<long long>(c) * a.nbr;
+  a.cnt += static_cast<long long>(c) * a.nb;
   a.flags += static_cast<long long>(c) * a.nbr;
   if (c != 0) a.stamps = nullptr;
   return a;
@@ -640,11 +669,11 @@ constexpr int kBarFloats = 8;
 // kMaxBlock), dgs, and the drawer's r_hat of the row it draws and of the
 // next (kMaxBlock each), for every CTA; the drawer's two diagonal tiles,
 // the tile (i, i + 1) when staged, and two rows' packed rows (R rows a SNP
-// at padded_stride(R)).
-inline size_t tiled_smem(int B, int R, bool stage_next) {
+// at padded_stride(R)) unless the draws read them from global memory.
+inline size_t tiled_smem(int B, int R, bool stage_next, bool rows_smem = true) {
   return sizeof(float) * (kBarFloats + (kTiledWarps + 3) * kMaxBlock +
                           static_cast<size_t>(B) * B * (stage_next ? 3 : 2) +
-                          2 * static_cast<size_t>(B) * padded_stride(R));
+                          (rows_smem ? 2 * static_cast<size_t>(B) * padded_stride(R) : 0));
 }
 
 // CTA 0, the drawer, walks the tile rows in order.  For row i, warp 0 runs
@@ -668,6 +697,7 @@ __device__ __forceinline__ void drawer(const TiledArgs& a, float* sm) {
   const unsigned tile_bytes = static_cast<unsigned>(sizeof(float)) * B * B;
   const int warp = threadIdx.x / kWarp;
   const int lane = threadIdx.x % kWarp;
+  const bool rows_smem = !rows_may_be_global<NF>() || a.Pg == nullptr;
   uint64_t* bar = reinterpret_cast<uint64_t*>(sm);   // W buffers 0 and 1, then Tn
   float* red = sm + kBarFloats;
   float* dgs = red + kTiledWarps * kMaxBlock;
@@ -685,6 +715,7 @@ __device__ __forceinline__ void drawer(const TiledArgs& a, float* sm) {
   auto tile = [&](int i, int k) { return tiles + (static_cast<long long>(i) * a.K + k) * B * B; };
   long long* st = a.stamps;
   const unsigned done = a.epoch + 1;
+  const int rb = a.rb;   // row i is global block rb + i
   auto base = [&](int t) { return a.epoch * static_cast<unsigned>(a.total[t]); };
   if (st != nullptr && threadIdx.x == 0) {
     st[4 * a.nbr] = global_ns();
@@ -694,12 +725,13 @@ __device__ __forceinline__ void drawer(const TiledArgs& a, float* sm) {
     for (int q = 0; q < 3; ++q) mbar_init(bar + q);
     mbar_expect(bar, tile_bytes);
     bulk_copy(Wd(0), tile(0, 0), tile_bytes, bar);
-    await(a.cnt, base(0) + a.need[0]);
+    await(a.cnt + rb, base(rb) + a.need[0]);
   }
-  stage_rows(a, R, 0, Pd(0), threadIdx.x, kTiledThreads);
+  if (rows_smem) stage_rows(a, R, 0, Pd(0), threadIdx.x, kTiledThreads);
   cp_async_wait<0>();
   __syncthreads();
-  if (threadIdx.x < B) rcur[threadIdx.x] = __ldcg(a.r_hat + threadIdx.x);
+  if (threadIdx.x < B)
+    rcur[threadIdx.x] = __ldcg(a.r_hat + static_cast<long long>(rb) * B + threadIdx.x);
   __syncthreads();
   unsigned tn_uses = 0;
   for (int i = 0; i < a.nbr; ++i) {
@@ -717,8 +749,13 @@ __device__ __forceinline__ void drawer(const TiledArgs& a, float* sm) {
         rr[s] = j < B ? rcur[j] : 0.f;
         gi[s] = dg[s] = tr[s] = 0.f;
       }
-      const int rej = warp_block_draws<MI, NF, GUARD, true>(B, Wd(cur), Pd(cur), rr, gi, dg,
-                                                            tr, a.vary, a.n, a.nf);
+      // two call sites, so that the shared-memory one keeps its rows' loads
+      // shared-memory loads (a pointer that may be either is a generic load)
+      const int rej =
+          rows_smem ? warp_block_draws<MI, NF, GUARD, true>(B, Wd(cur), Pd(cur), rr, gi, dg, tr,
+                                                            a.vary, a.n, a.nf)
+                    : warp_block_draws<MI, NF, GUARD, true>(B, Wd(cur), a.Pg + kb * RP, rr, gi,
+                                                            dg, tr, a.vary, a.n, a.nf);
 #pragma unroll
       for (int s = 0; s < kSlots; ++s) {
         const int j = kSlots * lane + s;
@@ -746,17 +783,18 @@ __device__ __forceinline__ void drawer(const TiledArgs& a, float* sm) {
         }
         if (i > 0) {
           publish(a.flags + i - 1, done);
-          if (a.nxt[i - 1] >= 0) publish(a.cnt + i, base(i) + a.need[i]);
+          if (a.nxt[i - 1] >= 0) publish(a.cnt + rb + i, base(rb + i) + a.need[i]);
         }
       }
       if (!last) {
-        stage_rows(a, R, i + 1, Pd(cur ^ 1), threadIdx.x - kWarp, kTiledThreads - kWarp);
+        if (rows_smem)
+          stage_rows(a, R, i + 1, Pd(cur ^ 1), threadIdx.x - kWarp, kTiledThreads - kWarp);
         if (warp == 1) {
           if (lane == 0)
-            await(a.cnt + i + 1, base(i + 1) + a.need[i + 1] - (nx >= 0 ? 1 : 0));
+            await(a.cnt + rb + i + 1, base(rb + i + 1) + a.need[i + 1] - (nx >= 0 ? 1 : 0));
           __syncwarp();
           for (int c = lane; c < B; c += kWarp)
-            rpre[c] = __ldcg(a.r_hat + static_cast<long long>(i + 1) * B + c);
+            rpre[c] = __ldcg(a.r_hat + static_cast<long long>(rb + i + 1) * B + c);
         }
         cp_async_wait<0>();
       }
@@ -772,7 +810,7 @@ __device__ __forceinline__ void drawer(const TiledArgs& a, float* sm) {
       if (threadIdx.x < B) {
         const float v = rpre[threadIdx.x] + a.n * tile_sum(red, threadIdx.x);
         rcur[threadIdx.x] = v;
-        __stcg(a.r_hat + static_cast<long long>(i + 1) * B + threadIdx.x, v);
+        __stcg(a.r_hat + static_cast<long long>(rb + i + 1) * B + threadIdx.x, v);
       }
     } else if (!last && threadIdx.x < B) {
       rcur[threadIdx.x] = rpre[threadIdx.x];
@@ -837,14 +875,14 @@ struct TiledFit {
 };
 
 template <int MI, int NF, bool GUARD>
-cudaError_t tiled_fit(int B, int R, TiledFit* f) {
+cudaError_t tiled_fit(int B, int R, TiledFit* f, bool rows_smem = true) {
   int dev = 0, optin = 0, per_sm = 0;
   cudaError_t e = cudaGetDevice(&dev);
   if (e == cudaSuccess) e = cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
   if (e == cudaSuccess) e = cudaDeviceGetAttribute(&f->sms, cudaDevAttrMultiProcessorCount, dev);
   if (e != cudaSuccess) return e;
-  f->stage_next = tiled_smem(B, R, true) <= static_cast<size_t>(optin);
-  f->smem = tiled_smem(B, R, f->stage_next);
+  f->stage_next = tiled_smem(B, R, true, rows_smem) <= static_cast<size_t>(optin);
+  f->smem = tiled_smem(B, R, f->stage_next, rows_smem);
   e = cudaFuncSetAttribute(tiled_sweep_kernel<MI, NF, GUARD>,
                            cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(f->smem));
   if (e == cudaSuccess)
@@ -858,7 +896,8 @@ template <int MI, int NF, bool GUARD>
 cudaError_t tiled_sweep(TiledArgs a, cudaStream_t stream) {
   const int R = row_stride(MI, NF == kRuntimeFold ? a.nf : NF, GUARD);
   TiledFit f;
-  cudaError_t e = tiled_fit<MI, NF, GUARD>(a.B, R, &f);
+  cudaError_t e = tiled_fit<MI, NF, GUARD>(a.B, R, &f,
+                                           !rows_may_be_global<NF>() || a.Pg == nullptr);
   if (e != cudaSuccess) return e;
   a.stage_next = f.stage_next;
   const size_t smem = f.smem;
@@ -999,7 +1038,7 @@ struct TiledSweep {
 
 // The CTAs of the tiled sweep the card holds at once (hb_tiled_resident).
 struct ResidentArgs {
-  int B, nf;
+  int B, nf, rows_smem;
   long long* out;
 };
 
@@ -1008,7 +1047,8 @@ struct TiledResident {
   static cudaError_t run(const ResidentArgs& a, cudaStream_t) {
     TiledFit f;
     const cudaError_t e =
-        tiled_fit<MI, NF, GUARD>(a.B, row_stride(MI, NF == kRuntimeFold ? a.nf : NF, GUARD), &f);
+        tiled_fit<MI, NF, GUARD>(a.B, row_stride(MI, NF == kRuntimeFold ? a.nf : NF, GUARD), &f,
+                                 !rows_may_be_global<NF>() || a.rows_smem != 0);
     if (e == cudaSuccess) *a.out = f.resident;
     return e;
   }
@@ -1051,62 +1091,74 @@ void hb_s_reset_launch_counts() { hb::g_segment_sweep = hb::g_tiled_sweep = 0; }
 // and dg 16-byte aligned.  A grid that cannot be resident at once is
 // refused (cudaErrorCooperativeLaunchTooLarge).  stamps (measurement only;
 // null in use): 12 values a block (hb::seg_drawer, hb::seg_owner), then
-// %globaltimer ns and clock64 at the drawer's start and end.
+// %globaltimer ns and clock64 at the drawer's start and end.  Pg (null, or
+// the packed rows (K, mc, padded_stride(R)) SNP-major): the draws read the
+// rows there instead of staging P in shared memory (the plan sized for no
+// rows in shared memory).
 int hb_sweep_s_segment(const float* LD, const float* P, int mc, int B, int R,
                        int K, int mi, int nf, int guard, float n, float vary, int* nrej,
                        float* r, float* dg,
                        float* track, float* snap, unsigned* flags, unsigned epoch,
                        int ndraw, int cpc, int nown, int rw, int kch, int trows, int lds,
-                       long long* stamps, void* stream) {
+                       long long* stamps, const float* Pg, void* stream) {
   const bool g = guard != 0;
   if (!hb::block_ok(B, mi, nf) || mc <= 0 || mc % B != 0 || K <= 0 ||
       (g && ((mi != 4 && mi != 6) || nrej == nullptr)) ||
       R != hb::row_stride(mi, nf, g) || cpc < 1 || cpc > hb::kSegChains ||
       ndraw != (K + cpc - 1) / cpc || rw < 1 || nown < 1 ||
       static_cast<long long>(nown) * hb::kSegWarps * rw < mc || kch < 1 || trows < 1 ||
-      trows > hb::kWarp || (lds != B && lds != B + 4))
+      trows > hb::kWarp || (lds != B && lds != B + 4) ||
+      (Pg != nullptr && !hb::global_rows_ok(mi, nf)))
     return cudaErrorInvalidValue;
   const hb::SegArgs a{LD, P, mc, B, K, n, vary, nrej, r, dg, track, snap, flags, epoch,
-                      ndraw, cpc, nown, rw, kch, trows, lds, stamps, nf};
+                      ndraw, cpc, nown, rw, kch, trows, lds, stamps, nf, Pg};
   return hb::dispatch<hb::SegSweep>(a, mi, nf, g, static_cast<cudaStream_t>(stream));
 }
 
-// Sweep every tile row of a tiled LD for `chains` chains in one launch.
-// tiles (nbr, K, B, B), the diagonal tile in slot 0; per chain: P (chains,
-// R, nbr * B) packed rows (with the guard rows when guard); r_hat (chains,
-// nbr * B) updated in place; dg, track (chains, nbr * B) and nrej (chains,
-// nbr) outputs (nrej: the guard's counts of each row, draws.cuh
-// warp_block_draws).  Any B <= kMaxBlock that is a multiple of 4 (tiles
-// of 64 or 128): the tile-row loops skip rows past B.  The schedule (need,
-// nxt, total (nbr,); items (nitems, 4): row, slot, target block, sequence
-// number), shared by the chains, and the counters cnt, flags (chains,
-// nbr) with this sweep's epoch are hb::TiledArgs'.  A grid of the chains'
+// Sweep tile rows row_base .. row_base + nbr - 1 of a tiled LD of nb tile
+// rows (all of them: row_base 0, nb = nbr) for `chains` chains in one
+// launch.  tiles (nbr, K, B, B) the rows' tiles, the diagonal tile in slot
+// 0; per chain: P (chains, R, nbr * B) packed rows (with the guard rows
+// when guard); r_hat (chains, nb * B) updated in place; dg, track (chains,
+// nbr * B) and nrej (chains, nbr) outputs (nrej: the guard's counts of
+// each row, draws.cuh warp_block_draws).  Any B <= kMaxBlock that is a
+// multiple of 4 (tiles of 64 or 128): the tile-row loops skip rows past
+// B.  The schedule (need, nxt (nbr,); total (nb,); items (nitems, 4): row,
+// slot, target block, sequence number), shared by the chains, and the
+// counters cnt (chains, nb), flags (chains, nbr) with this sweep's epoch
+// are hb::TiledArgs'.  A grid of the chains'
 // drawers and at least one item CTA that cannot be resident at once is
 // refused (cudaErrorCooperativeLaunchTooLarge).  stamps (measurement only;
-// null in use; chain 0's): 4 nbr + 4 values, see hb::drawer.
-int hb_sweep_s_tiled(const float* tiles, int nbr, int K, int B, int R, int chains, int mi,
+// null in use; chain 0's): 4 nbr + 4 values, see hb::drawer.  Pg (null, or
+// the packed rows (chains, nbr * B, padded_stride(R)) SNP-major): the draws
+// read the rows there instead of staging P in shared memory.
+int hb_sweep_s_tiled(const float* tiles, int nbr, int row_base, int nb, int K, int B, int R,
+                     int chains, int mi,
                      int nf, int guard, float n, float vary, const float* P,
                      float* r_hat, float* dg, float* track, int* nrej,
                      const int* need, const int* nxt, const int* items, int nitems,
                      const int* total, unsigned* cnt, unsigned* flags, unsigned epoch,
-                     long long* stamps, void* stream) {
+                     long long* stamps, const float* Pg, void* stream) {
   const bool g = guard != 0;
-  if (!hb::block_ok(B, mi, nf) || nbr <= 0 || K <= 0 || nitems < 0 || chains < 1 ||
-      (g && mi != 4 && mi != 6) || R != hb::row_stride(mi, nf, g))
+  if (!hb::block_ok(B, mi, nf) || nbr <= 0 || row_base < 0 || nb < row_base + nbr ||
+      K <= 0 || nitems < 0 || chains < 1 || (g && mi != 4 && mi != 6) ||
+      R != hb::row_stride(mi, nf, g) || (Pg != nullptr && !hb::global_rows_ok(mi, nf)))
     return cudaErrorInvalidValue;
-  const hb::TiledArgs a{tiles, nbr, K, B, chains, n, vary, P, r_hat, dg, track, nrej, need,
+  const hb::TiledArgs a{tiles, nbr, row_base, nb, K, B, chains, n, vary, P, r_hat, dg, track,
+                        nrej, need,
                         nxt, reinterpret_cast<const int4*>(items), nitems, total, cnt, flags,
-                        epoch, 0, stamps, nf};
+                        epoch, 0, stamps, nf, Pg};
   return hb::dispatch<hb::TiledSweep>(a, mi, nf, g, static_cast<cudaStream_t>(stream));
 }
 
 // The CTAs of a tiled sweep at tiles of B the card holds at once, into
 // *out: a launch of `chains` drawers and at least one item CTA needs
-// chains + 1 of them (ops/blockgibbs.py runs a larger batch in groups).
-int hb_tiled_resident(int B, int mi, int nf, int guard, long long* out) {
+// chains + 1 of them (ops/blockgibbs.py runs a larger batch in groups);
+// rows_smem 0: the packed rows read from global memory (Pg).
+int hb_tiled_resident(int B, int mi, int nf, int guard, int rows_smem, long long* out) {
   const bool g = guard != 0;
   if (!hb::block_ok(B, mi, nf) || (g && mi != 4 && mi != 6)) return cudaErrorInvalidValue;
-  const hb::ResidentArgs a{B, nf, out};
+  const hb::ResidentArgs a{B, nf, rows_smem, out};
   return hb::dispatch<hb::TiledResident>(a, mi, nf, g, nullptr);
 }
 

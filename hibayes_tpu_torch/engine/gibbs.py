@@ -44,6 +44,7 @@ import torch
 
 from ..math.solvers import segment_matmul
 from ..ops import blockgibbs
+from ..parallel.distributed import all_gather, axis_sum, barrier, broadcast, ring_hop
 from . import checkpoint
 from .rng import (STREAM_BSLMM_CHI, STREAM_BSLMM_Z, STREAM_COV, STREAM_EPSL_CHI,
                   STREAM_EPSL_J, STREAM_EPSL_Z, STREAM_FACTOR, STREAM_LAMBDA, STREAM_MU,
@@ -306,7 +307,7 @@ def prepare_gibbs_data(
     y, M, *, C=None, r_codes=(), r_nlevels=(), fold=None, windindx=None, nw=0,
     K=None, Kval=None, epsl_yJ=None, epsl_A=None, epsl_codes=None, qe=0,
     block=64, dtype=torch.float32, geno_dtype=None, pad_n="auto",
-    device="cpu",
+    device="cpu", nblocks_multiple=1,
 ) -> GibbsData:
     """Build the device-resident GibbsData (block layout, Gram matrices, stats).
 
@@ -336,6 +337,10 @@ def prepare_gibbs_data(
     pad_n="auto" zero-pads the individual axis to a multiple of 512 for
     n > 4096, as the JAX engine does, so arrays and statistics match it;
     ``GibbsSpec.n`` is then the padded count and ``n_real`` the real one.
+
+    ``nblocks_multiple`` pads the block count to a multiple of it with
+    all-zero blocks (vx 0: never active), as a SNP-sharded mesh or the
+    pipeline emulation needs the shards to divide the blocks.
     """
     device = torch.device(device)
     y_np = np.asarray(y)
@@ -355,6 +360,9 @@ def prepare_gibbs_data(
     block = int(min(block, pad_to_block(m, 8)))
     m_pad = pad_to_block(m, block)
     nblocks = m_pad // block
+    if nblocks_multiple > 1:
+        nblocks = -(-nblocks // int(nblocks_multiple)) * int(nblocks_multiple)
+        m_pad = nblocks * block
 
     epsl_sp, qe_pad = None, qe
     if epsl_A is not None and qe:
@@ -525,16 +533,48 @@ def _build_epsl_sparse(A, tile: int, dtype, device="cpu") -> tuple:
                         dtype, device), qe_pad
 
 
-def init_state(spec: GibbsSpec, data: GibbsData, priors: Priors, pi_init) -> ChainState:
+def rows_cut(spec: GibbsSpec, data: GibbsData) -> bool:
+    """Whether ``data`` holds a part of the individuals (this rank's, on an
+    ind mesh: parallel/mesh.py:shard_gibbs_data)."""
+    return int(data.y.shape[0]) != spec.n
+
+
+def local_rows(spec: GibbsSpec, data: GibbsData, mesh=None) -> tuple:
+    """(first row, rows) of the individuals ``data`` holds: all of them, or
+    this rank's part on ``mesh``."""
+    if not rows_cut(spec, data):
+        return 0, spec.n
+    return mesh.row_range(spec.n)
+
+
+def local_blocks(spec: GibbsSpec, data: GibbsData, mesh=None) -> tuple:
+    """(first block, blocks) of the SNP blocks ``data`` holds: all of them,
+    or this rank's part on a snp mesh."""
+    S = blockgibbs.SubBlocks.of(spec.block, data.X_blocks.shape[2]).S
+    nbl = int(data.X_blocks.shape[0]) // S
+    if nbl == spec.nblocks:
+        return 0, nbl
+    return mesh.index("snp") * nbl, nbl
+
+
+def init_state(spec: GibbsSpec, data: GibbsData, priors: Priors, pi_init,
+               mesh=None) -> ChainState:
+    """The initial state; on a mesh (``data`` this rank's part, ``mesh``
+    its mesh) this rank's part of it."""
     dt = data.y.dtype
     dev = data.y.device
-    n, m_pad = spec.n, spec.m_pad
+    m_pad = spec.m_pad
+    r0, n = local_rows(spec, data, mesh)
     nr = len(spec.nlevels)
 
     def full(shape, v):
         return torch.full(shape, float(v), dtype=dt, device=dev)
 
-    if spec.row_padded:
+    if rows_cut(spec, data):
+        mu0 = axis_sum(data.y.sum(), mesh, "ind") / spec.n_obs
+        yadj0 = torch.where(torch.arange(r0, r0 + n, device=dev) < spec.n_obs,
+                            data.y - mu0, 0.0)
+    elif spec.row_padded:
         mu0 = data.y.sum() / spec.n_obs
         yadj0 = torch.where(torch.arange(n, device=dev) < spec.n_obs,
                             data.y - mu0, 0.0)
@@ -575,7 +615,7 @@ def init_state(spec: GibbsSpec, data: GibbsData, priors: Priors, pi_init) -> Cha
     )
 
 
-def _snapshot(spec: GibbsSpec, state: ChainState) -> dict:
+def _snapshot(spec: GibbsSpec, state: ChainState, mesh=None) -> dict:
     vt = state.vara + state.vare + state.vr.sum(-1)
     snap = {
         "mu": state.mu,
@@ -594,7 +634,8 @@ def _snapshot(spec: GibbsSpec, state: ChainState) -> dict:
     if spec.use_bslmm:
         snap["Va"] = state.va
         snap["Vb"] = state.vb
-        snap["k_estR"] = state.k_estR
+        snap["k_estR"] = (state.k_estR if mesh is None
+                          else all_gather(state.k_estR, mesh, "ind", total=spec.n))
     if spec.qe:
         snap["Veps"] = state.veps
         snap["J"] = state.J_beta
@@ -765,25 +806,35 @@ def blocked_mme_gibbs_sparse(sp: EpslSparse, counts, scale, x, b, ve, z):
 
 
 def _epsilon_draw(spec: GibbsSpec, data: GibbsData, noise, J_beta, epsl_estR,
-                  vepstmp, yadj, u, ve):
+                  vepstmp, yadj, u, ve, mesh=None):
     """The single-step imputation-error term (hibayes_tpu/engine/gibbs.py:900-949,
     src/Bayes.cpp:554-584): the J covariate, then epsilon | rest by
     single-site Gibbs on (Z'Z + A-inverse(nn) ve / veps), then Veps, for one
     chain or a batch (each chain's draws from its own streams; the epsilon
-    sweep over all chains at once).  Returns (J_beta, epsl_estR, vepstmp,
-    yadj, u)."""
+    sweep over all chains at once).  On an ind mesh J's sums and the per-site
+    sums of the non-genotyped rows (the last ne) are summed over the axis and
+    the sweep runs replicated.  Returns (J_beta, epsl_estR, vepstmp, yadj, u)."""
     dev = yadj.device
     n, ne, qe = spec.n, spec.ne, spec.qe
+    r0, nr = local_rows(spec, data, mesh)
+    isum = lambda x: axis_sum(x, mesh, "ind")
     yJ = data.epsl_yJ
-    JtJ = torch.dot(yJ, yJ)
-    rhs = _dot(yJ, yadj) + JtJ * J_beta
+    JtJ = isum(torch.dot(yJ, yJ))
+    rhs = isum(_dot(yJ, yadj)) + JtJ * J_beta
     J_new = rhs / JtJ + torch.sqrt(ve / JtJ) * _draw(
         noise, lambda nz: nz.normal(STREAM_EPSL_J, ()))
     yadj = yadj + (J_beta - J_new)[..., None] * yJ
     u = u - (J_beta - J_new)[..., None] * yJ
     qe_p = spec.qe_pad or qe
-    lengths = data.epsl_counts.to(torch.int64)
-    rhs_e = (_segment_sum(yadj[..., n - ne:], data.epsl_codes, lengths)
+    # this part's non-genotyped rows: local rows t0 .. nr, codes from c0
+    t0 = min(max(n - ne - r0, 0), nr)
+    c0 = r0 + t0 - (n - ne)
+    codes = data.epsl_codes[c0:c0 + nr - t0]
+    if rows_cut(spec, data):
+        lengths = torch.bincount(codes, minlength=data.epsl_counts.shape[0])
+    else:
+        lengths = data.epsl_counts.to(torch.int64)
+    rhs_e = (isum(_segment_sum(yadj[..., t0:], codes, lengths))
              + data.epsl_counts * epsl_estR)
     scale = ve / vepstmp
     # qe normals on the direct path, qe_pad with the padding frozen on the
@@ -797,28 +848,32 @@ def _epsilon_draw(spec: GibbsSpec, data: GibbsData, noise, J_beta, epsl_estR,
                                          pad(rhs_e), ve, pad(ze))
     new_e = new_e[..., :qe_p]
     quad = _dot(new_e, Ae[..., :qe_p])
-    diff_e = (epsl_estR - new_e)[..., data.epsl_codes]
-    yadj = torch.cat([yadj[..., : n - ne], yadj[..., n - ne:] + diff_e], dim=-1)
-    u = torch.cat([u[..., : n - ne], u[..., n - ne:] - diff_e], dim=-1)
+    diff_e = (epsl_estR - new_e)[..., codes]
+    yadj = torch.cat([yadj[..., :t0], yadj[..., t0:] + diff_e], dim=-1)
+    u = torch.cat([u[..., :t0], u[..., t0:] - diff_e], dim=-1)
     chi = _draw(noise, lambda nz: nz.chisq(STREAM_EPSL_CHI, spec.dfvara + qe))
     vepstmp = (quad + spec.s2vara * spec.dfvara) / chi
     return J_new, new_e, vepstmp, yadj, u
 
 
-def _bslmm_draw(spec: GibbsSpec, data: GibbsData, noise, k_estR, vbtmp, yadj, u, ve):
+def _bslmm_draw(spec: GibbsSpec, data: GibbsData, noise, k_estR, vbtmp, yadj, u, ve,
+                mesh=None):
     """BSLMM's polygenic term k | rest in the eigenbasis K diag(Kval) K' of
     the GRM, then its variance (hibayes_tpu/engine/gibbs.py:876-898), for
     one chain or a batch: a row vector times K (or K') is one product over
     the chain axis.  The GRM products stay library products, as XLA's are
-    in the JAX package.  Returns (k_estR, vbtmp, yadj, u)."""
+    in the JAX package.  On an ind mesh a rank holds K's rows of its
+    individuals, and the products over individuals are summed over the
+    axis.  Returns (k_estR, vbtmp, yadj, u)."""
     n = spec.n
+    isum = lambda x: axis_sum(x, mesh, "ind")
     vec = ve[..., None]
     eigval = torch.clamp_min((data.Kval * vec) / (data.Kval + vec / vbtmp[..., None]), 0.0)
-    proj = (yadj + k_estR) @ data.K                 # K' (yadj + k), per chain
+    proj = isum((yadj + k_estR) @ data.K)           # K' (yadj + k), per chain
     zk = _draw(noise, lambda nz: nz.normal(STREAM_BSLMM_Z, (n,)))
     k_new = ((eigval / vec) * proj + torch.sqrt(eigval) * zk) @ data.K.T
     diff = k_estR - k_new
-    Kg = k_new @ data.K
+    Kg = isum(k_new @ data.K)
     quad = _dot(Kg, Kg / data.Kval)
     chi = _draw(noise, lambda nz: nz.chisq(STREAM_BSLMM_CHI, spec.dfvara + n))
     vbtmp = (quad + spec.s2vara * spec.dfvara) / chi
@@ -850,25 +905,31 @@ def _sweep_noise(spec: GibbsSpec, noise, lead: tuple, dt, dev) -> tuple:
     return z_snp, u_snp, chi_snp, z2_snp
 
 
-def _pre_sweep(spec: GibbsSpec, data: GibbsData, noise, state: ChainState) -> dict:
+def _pre_sweep(spec: GibbsSpec, data: GibbsData, noise, state: ChainState,
+               mesh=None) -> dict:
     """Intercept, sequential covariates, environmental random effects, the
     single-step epsilon term, and the sweep's constants and random numbers
     (hibayes_tpu/engine/gibbs.py:817-875, 900-1004), for one chain or a
-    batch.  Every draw comes from ``noise``."""
+    batch.  Every draw comes from ``noise``.  On an ind mesh every sum over
+    individuals is summed over the axis."""
     dt = data.y.dtype
     dev = data.y.device
-    n, n_obs = spec.n, spec.n_obs
+    n_obs = spec.n_obs
+    r0, n = local_rows(spec, data, mesh)
+    isum = lambda x: axis_sum(x, mesh, "ind")
     mu, beta, yadj, u = state.mu, state.beta, state.yadj, state.u
     ve = state.vare
     lead = tuple(mu.shape)   # () for one chain, (K,) for a batch
-    row_real = torch.arange(n, device=dev) < n_obs if spec.row_padded else None
+    cut = rows_cut(spec, data)
+    padded = spec.row_padded or cut
+    row_real = torch.arange(r0, r0 + n, device=dev) < n_obs if padded else None
 
     # --- intercept (src/Bayes.cpp:480-482) ---
     z = _draw(noise, lambda nz: nz.normal(STREAM_MU, ()))
-    delta = yadj.sum(-1) / n_obs + torch.sqrt(ve / n_obs) * z
+    delta = isum(yadj.sum(-1)) / n_obs + torch.sqrt(ve / n_obs) * z
     mu = mu + delta
     # padded rows stay exactly zero (they feed sum(yadj) and yadj.yadj)
-    yadj = yadj - (torch.where(row_real, delta[..., None], 0.0) if spec.row_padded
+    yadj = yadj - (torch.where(row_real, delta[..., None], 0.0) if padded
                    else delta[..., None])
 
     # --- fixed covariates, sequential (src/Bayes.cpp:484-494) ---
@@ -877,7 +938,7 @@ def _pre_sweep(spec: GibbsSpec, data: GibbsData, noise, state: ChainState) -> di
         new_beta = []
         for i in range(spec.nc):
             ci, cpci, bi_old = data.C[:, i], data.cpc[i], beta[..., i]
-            rhs = _dot(ci, yadj) + cpci * bi_old
+            rhs = isum(_dot(ci, yadj)) + cpci * bi_old
             bi = rhs / cpci + torch.sqrt(ve / cpci) * z_cov[..., i]
             yadj = yadj + (bi_old - bi)[..., None] * ci
             new_beta.append(bi)
@@ -889,15 +950,18 @@ def _pre_sweep(spec: GibbsSpec, data: GibbsData, noise, state: ChainState) -> di
     for i, nlev in enumerate(spec.nlevels):
         codes, counts, old = data.r_codes[i], data.r_counts[i], state.estR[i]
         # padded rows carry code 0 (and yadj 0) but are not in the counts
-        lengths = counts.to(torch.int64)
-        if spec.row_padded:
-            lengths = torch.cat([lengths[:1] + (n - n_obs), lengths[1:]])
-        rhs = _segment_sum(yadj, codes, lengths) + counts * old
+        if cut:
+            lengths = torch.bincount(codes, minlength=nlev)
+        else:
+            lengths = counts.to(torch.int64)
+            if spec.row_padded:
+                lengths = torch.cat([lengths[:1] + (n - n_obs), lengths[1:]])
+        rhs = isum(_segment_sum(yadj, codes, lengths)) + counts * old
         lhs = counts + ve[..., None] / vrtmp[..., i, None]
         zr = _draw(noise, lambda nz: nz.normal(STREAM_FACTOR + 2 * i, (nlev,)))
         new = rhs / lhs + torch.sqrt(ve[..., None] / lhs) * zr
         upd = (old - new)[..., codes]
-        yadj = yadj + (torch.where(row_real, upd, 0.0) if spec.row_padded else upd)
+        yadj = yadj + (torch.where(row_real, upd, 0.0) if padded else upd)
         chi = _draw(noise, lambda nz: nz.chisq(STREAM_FACTOR + 2 * i + 1, nlev + spec.dfr))
         vrtmp[..., i] = (_dot(new, new) + spec.s2r * spec.dfr) / chi
         vr[..., i] = _var(new)
@@ -906,7 +970,8 @@ def _pre_sweep(spec: GibbsSpec, data: GibbsData, noise, state: ChainState) -> di
     # --- BSLMM polygenic block draw in the GRM eigenbasis (src/Bayes.cpp:518-552) ---
     k_estR, vbtmp, va, vb = state.k_estR, state.vbtmp, state.va, state.vb
     if spec.use_bslmm:
-        k_estR, vbtmp, yadj, u = _bslmm_draw(spec, data, noise, k_estR, vbtmp, yadj, u, ve)
+        k_estR, vbtmp, yadj, u = _bslmm_draw(spec, data, noise, k_estR, vbtmp, yadj, u, ve,
+                                             mesh)
         vb = vbtmp
 
     # --- single-step imputation-error term (src/Bayes.cpp:554-584) ---
@@ -914,7 +979,7 @@ def _pre_sweep(spec: GibbsSpec, data: GibbsData, noise, state: ChainState) -> di
                                         state.vepstmp, state.veps)
     if spec.qe:
         J_beta, epsl_estR, vepstmp, yadj, u = _epsilon_draw(
-            spec, data, noise, J_beta, epsl_estR, vepstmp, yadj, u, ve)
+            spec, data, noise, J_beta, epsl_estR, vepstmp, yadj, u, ve, mesh)
         veps = vepstmp
 
     # --- the sweep's random numbers and constants ---
@@ -940,53 +1005,278 @@ def _pre_sweep(spec: GibbsSpec, data: GibbsData, noise, state: ChainState) -> di
     }
 
 
-def _run_sweep_k1(spec: GibbsSpec, data: GibbsData, pre: dict, g):
+# ---------------------------------------------------------------------------
+# the sweep of one iteration, on one device or on a mesh
+# ---------------------------------------------------------------------------
+
+
+def snp_shard_count(nblocks: int, mesh) -> int:
+    """Shards of the SNP-block axis a mesh provides (1 = not sharded)."""
+    if mesh is None:
+        return 1
+    s = mesh.size("snp")
+    return s if s > 1 and nblocks % s == 0 else 1
+
+
+def ind_shard_count(mesh) -> int:
+    """Shards of the individual axis a mesh provides (1 = not sharded)."""
+    return 1 if mesh is None else mesh.size("ind")
+
+
+def hybrid_draws_supported(spec: GibbsSpec, dt) -> bool:
+    """Whether the draws kernel (``blockgibbs.block_draws``, TPU kernel 7)
+    takes the blocks of the ind-sharded sweep on the card: float32 and no
+    rejection guard (any block: it runs wider ones as sub-blocks).  The
+    sweep calls ``block_draws`` whatever this says: on CPU tensors that is
+    the plain version, and on the card it refuses what the kernel does not
+    take, as the one-device sweep does."""
+    return dt == torch.float32 and not spec.reject_guard
+
+
+def _sweep_ind_hybrid_mc(spec: GibbsSpec, consts_b, X_blocks, W_blocks, xpx, vx, vei_b,
+                         g_b, z_b, u_b, chi_b, z2_b, vargL_b, yadj_b, u_vec_b, *, mesh,
+                         block_range=None):
+    """K-chain sweep on an ind-sharded mesh (``_sweep_ind_hybrid_mc``,
+    hibayes_tpu/engine/gibbs.py:1063-1136): ``blockgibbs.sweep_blocks``
+    with, per kernel (sub-)block, this rank's r0 = X_b' yadj (a library
+    product, as XLA's in the JAX package) summed over ``ind``, the B draws
+    by ``block_draws`` (TPU kernel 7) replicated on every rank of the axis,
+    and this rank's yadj += X_b dg.  ``block_range`` as in ``sweep_mc``.
+    Returns sweep_mc's outputs."""
+    logpi_row = consts_b["logpi"][:, :1].T.to(yadj_b.dtype)
+    return blockgibbs.sweep_blocks(
+        spec, consts_b, X_blocks, W_blocks, xpx, vx, vei_b, g_b, z_b, u_b, chi_b, z2_b,
+        vargL_b, yadj_b, u_vec_b,
+        lambda P, W, r: (None, *blockgibbs.block_draws(spec, logpi_row, P, W, r)),
+        block_range, lambda r: axis_sum(r, mesh, "ind"))
+
+
+def _sweep_local_blocks(spec, consts_b, X, W, xpx, vx, per_chain, yadj, u, mesh,
+                        block_range=None):
+    """Sweep the SNP blocks this rank holds (or ``block_range`` of them) for
+    K chains against (yadj, u): the unit of the turn and pipeline
+    schedules (``_sweep_local_blocks``, hibayes_tpu/engine/gibbs.py:1139).
+    ``per_chain`` = (vei, g, z, u, chi, z2, vargL), each (K, m_loc[, nf]).
+    ``sweep_mc`` (TPU kernels 1-5, 8 at K = 1; kernel 2 at K >= 2), or the
+    ind hybrid on a 2-D mesh."""
+    if ind_shard_count(mesh) > 1:
+        return _sweep_ind_hybrid_mc(spec, consts_b, X, W, xpx, vx, *per_chain, yadj, u,
+                                    mesh=mesh, block_range=block_range)
+    return blockgibbs.sweep_mc(spec, consts_b, X, W, xpx, vx, *per_chain, yadj, u,
+                               block_range=block_range)
+
+
+def _rows_of(consts_b, rsel):
+    return {k: v[rsel] for k, v in consts_b.items()}
+
+
+def _sweep_pipeline_emu_mc(spec: GibbsSpec, consts_b, X_blocks, W_blocks, xpx, vx, vei_b,
+                           g_b, z_b, u_b, chi_b, z2_b, vargL_b, yadj_b, u_vec_b):
+    """One-device emulation of the ring-pipeline schedule
+    (``_sweep_pipeline_emu_mc``, hibayes_tpu/engine/gibbs.py:1347-1431):
+    chain group c (batch rows [c Kg, (c + 1) Kg)) sweeps the S =
+    ``spec.emulate_shards`` shards' block ranges in the order c, c + 1, ...,
+    c + S - 1 with its residual carried on, per chain exactly the
+    distributed ring.  Each range is ``sweep_mc(..., block_range=(b0,
+    nbg))`` on the whole genotype, which the sweep's capability flag
+    ``block_range_in_place`` says it takes without a copy of X (where the
+    JAX engine tests the kernel function's identity).  Group 0 runs the
+    blocks in their order: its draws and residuals are the one-device
+    sweep's."""
+    nb = spec.nblocks
+    K = yadj_b.shape[0]
+    S = spec.emulate_shards
+    if K % S:
+        raise ValueError(f"pipeline emulation needs nchains ({K}) to be a multiple of "
+                         f"emulate_shards ({S})")
+    if nb % S:
+        raise ValueError(f"emulate_shards ({S}) must divide the {nb} SNP blocks "
+                         "(prepare_gibbs_data(nblocks_multiple=...))")
+    dt = yadj_b.dtype
+    Kg, nbg = K // S, nb // S
+    mg = nbg * spec.block
+    sweep = blockgibbs.sweep_mc
+    if not getattr(sweep, "block_range_in_place", False):
+        raise TypeError("the pipeline emulation needs a sweep that takes block_range in place")
+    outs = []
+    for c in range(S):
+        rsel = slice(c * Kg, (c + 1) * Kg)
+        consts_c = _rows_of(consts_b, rsel)
+        ya, uu = yadj_b[rsel], u_vec_b[rsel]
+        vi = torch.zeros((Kg,), dtype=dt, device=ya.device)
+        vR = torch.zeros((Kg,), dtype=dt, device=ya.device)
+        pieces = [None] * S
+        for t in range(S):
+            sblk = (c + t) % S
+            sl = slice(sblk * mg, (sblk + 1) * mg)
+            per = tuple(a[rsel, sl] for a in (vei_b, g_b, z_b, u_b, chi_b, z2_b, vargL_b))
+            gn, tr, vl, ya, uu, vi_s, vR_s = sweep(
+                spec, consts_c, X_blocks, W_blocks, xpx[sl], vx[sl], *per, ya, uu,
+                block_range=(sblk * nbg, nbg))
+            vi = vi + vi_s.to(dt)
+            vR = vR + vR_s.to(dt)
+            pieces[sblk] = (gn.to(dt), tr.to(torch.int32), vl.to(dt))
+        outs.append(tuple(torch.cat([p[i] for p in pieces], dim=1) for i in range(3))
+                    + (ya, uu, vi, vR))
+    return tuple(torch.cat([o[i] for o in outs], dim=0) for i in range(7))
+
+
+def _sweep_snp_sharded_mc(spec: GibbsSpec, data: GibbsData, consts_b, rnd_b, vei_b, g_b,
+                          vargL_b, yadj_b, u_vec_b, mesh):
+    """The exact SNP-sharded sweep for K chains (``_sweep_snp_sharded_mc``,
+    hibayes_tpu/engine/gibbs.py:1434-1671), its turn and ring-pipeline
+    schedules.  Rank s of the ``snp`` axis holds SNP blocks [s nb/S,
+    (s + 1) nb/S) of X and W (``shard_gibbs_data``).
+
+    turn: in turn t the rank of snp index t sweeps its blocks for all K
+    chains (:func:`_sweep_local_blocks`), the others wait; then (yadj, u)
+    reach every rank of the axis by a broadcast from that rank.  The JAX
+    package merges with ya + psum(ya2 - ya); the broadcast is one
+    collective of the same size and hands every rank the owner's values bit
+    for bit, so every rank's residual is the one-device sweep's.
+
+    pipeline: chain group c (rows [c Kg, (c + 1) Kg), Kg = K / S) homes at
+    rank c; in each of S turns every rank sweeps the group it holds over
+    its own blocks, then the group's rows (yadj, u, the variance sums) take
+    one hop of the ring to the next rank; after S hops each is home.  All
+    ranks work every turn; a chain visits the shards in the order c, c +
+    1, ... (group 0 in the blocks' own order).  It does not compose with an
+    ind axis, and K must be a multiple of S (the JAX package's refusals).
+
+    g, track and vargL of the shards are then gathered over the axis on
+    every rank.  Returns sweep_mc's outputs for the K chains."""
+    S = mesh.size("snp")
+    s = mesh.index("snp")
+    K = yadj_b.shape[0]
+    dt = yadj_b.dtype
+    m_loc = spec.m_pad // S
+    sl = slice(s * m_loc, (s + 1) * m_loc)
+    per = tuple(a[:, sl] for a in (vei_b, g_b) + tuple(rnd_b) + (vargL_b,))
+    xpx, vx = data.xpx[sl], data.vx[sl]
+    if spec.shard_schedule == "pipeline":
+        if ind_shard_count(mesh) > 1:
+            raise ValueError("shard_schedule='pipeline' does not compose with an "
+                             "ind-sharded mesh; use a pure m-MP mesh (1, S)")
+        if K % S:
+            raise ValueError(f"shard_schedule='pipeline' needs nchains ({K}) to be a "
+                             f"multiple of the {S} SNP shards (chains ring-rotate in "
+                             f"groups of nchains/S)")
+        Kg = K // S
+        home = slice(s * Kg, (s + 1) * Kg)
+        ya, uu = yadj_b[home], u_vec_b[home]
+        vi = torch.zeros((Kg,), dtype=dt, device=ya.device)
+        vR = torch.zeros((Kg,), dtype=dt, device=ya.device)
+        g_cur = per[1].to(dt).clone()
+        tr_cur = torch.zeros((K, m_loc), dtype=torch.int32, device=ya.device)
+        vl_cur = per[6].to(dt).clone()
+        for t in range(S):
+            c = (s - t) % S   # the group this rank holds in turn t
+            rsel = slice(c * Kg, (c + 1) * Kg)
+            gn, tr, vl, ya, uu, vi_s, vR_s = blockgibbs.sweep_mc(
+                spec, _rows_of(consts_b, rsel), data.X_blocks, data.W_blocks, xpx, vx,
+                *(a[rsel] for a in per), ya, uu)
+            g_cur[rsel], tr_cur[rsel], vl_cur[rsel] = gn.to(dt), tr, vl.to(dt)
+            vi, vR = vi + vi_s.to(dt), vR + vR_s.to(dt)
+            ya, uu, vi, vR = ring_hop((ya, uu, vi, vR), mesh, "snp")
+        gat = lambda x, d: all_gather(x, mesh, "snp", dim=d)
+        return (gat(g_cur, 1), gat(tr_cur, 1), gat(vl_cur, 1), gat(ya, 0), gat(uu, 0),
+                gat(vi, 0), gat(vR, 0))
+    ya, uu = yadj_b, u_vec_b.to(dt)
+    for t in range(S):
+        if t == s:
+            gn, tr, vl, ya, uu, vi, vR = _sweep_local_blocks(
+                spec, consts_b, data.X_blocks, data.W_blocks, xpx, vx, per, ya, uu, mesh)
+        ya = broadcast(ya, mesh, "snp", t)
+        uu = broadcast(uu, mesh, "snp", t)
+    gat = lambda x: all_gather(x, mesh, "snp", dim=1)
+    return (gat(gn.to(dt)), gat(tr), gat(vl.to(dt)), ya, uu,
+            axis_sum(vi.to(dt), mesh, "snp"), axis_sum(vR.to(dt), mesh, "snp"))
+
+
+def _sweep(spec: GibbsSpec, data: GibbsData, pre: dict, g, mesh=None):
+    """The SNP sweep of a batch of K chains (``pre`` and ``g`` with a
+    leading chain axis), by the mesh and the spec's schedule: the SNP-sharded
+    turn or ring pipeline, the one-device pipeline emulation
+    (``emulate_shards``), the ind-sharded hybrid, or ``sweep_mc``."""
+    args = (spec, pre["consts"], data.X_blocks, data.W_blocks, data.xpx, data.vx,
+            pre["vei"], g, *pre["rnd"], pre["vargL_in"], pre["yadj"], pre["u"])
+    if snp_shard_count(spec.nblocks, mesh) > 1:
+        return _sweep_snp_sharded_mc(spec, data, pre["consts"], pre["rnd"], pre["vei"], g,
+                                     pre["vargL_in"], pre["yadj"], pre["u"], mesh)
+    if spec.shard_schedule == "pipeline" and spec.emulate_shards > 1:
+        if ind_shard_count(mesh) > 1:
+            raise ValueError("shard_schedule='pipeline' does not compose with an "
+                             "ind-sharded mesh")
+        return _sweep_pipeline_emu_mc(*args)
+    if ind_shard_count(mesh) > 1:
+        return _sweep_ind_hybrid_mc(*args, mesh=mesh)
+    return blockgibbs.sweep_mc(*args)
+
+
+def _run_sweep_k1(spec: GibbsSpec, data: GibbsData, pre: dict, g, mesh=None):
     """Run the K-chain sweep as one chain (add and strip the K = 1 axis)."""
-    consts_b = {k: v.reshape((1,) + tuple(v.shape)) for k, v in pre["consts"].items()}
-    out = blockgibbs.sweep_mc(
-        spec, consts_b, data.X_blocks, data.W_blocks, data.xpx, data.vx,
-        pre["vei"][None], g[None], *(r[None] for r in pre["rnd"]),
-        pre["vargL_in"][None], pre["yadj"][None], pre["u"][None],
-    )
-    return tuple(o[0] for o in out)
+    if spec.shard_schedule == "pipeline" and spec.emulate_shards > 1 \
+            and snp_shard_count(spec.nblocks, mesh) <= 1:
+        raise ValueError(
+            "shard_schedule='pipeline' needs a multi-chain batch (run_chains with "
+            "nchains a multiple of the shard count); a single chain has no chain "
+            "groups to rotate")
+    one = lambda v: v.reshape((1,) + tuple(v.shape))
+    pre_b = dict(pre, consts={k: one(v) for k, v in pre["consts"].items()},
+                 vei=one(pre["vei"]), rnd=tuple(one(r) for r in pre["rnd"]),
+                 vargL_in=one(pre["vargL_in"]), yadj=one(pre["yadj"]), u=one(pre["u"]))
+    return tuple(o[0] for o in _sweep(spec, data, pre_b, one(g), mesh))
 
 
 def _recompute_residuals(spec: GibbsSpec, data: GibbsData, mu, beta, estR, g,
-                         J_beta=None, epsl_estR=None, k_estR=None):
+                         J_beta=None, epsl_estR=None, k_estR=None, mesh=None):
     """Exact recompute of (yadj, u) from the current effects: the periodic
     f32 drift correction (hibayes_tpu/engine/gibbs.py:1674-1704), for one
     chain or a batch.  ``u`` carries the polygenic, J and epsilon terms
-    too, as in the JAX engine."""
+    too, as in the JAX engine.  On a mesh each rank forms its rows, X g
+    over its SNP blocks summed over ``snp``."""
     dt = data.y.dtype
     n = spec.n
-    pred = torch.zeros(tuple(mu.shape) + (n,), dtype=dt, device=data.y.device) + mu[..., None]
+    r0, nr = local_rows(spec, data, mesh)
+    dev = data.y.device
+    pred = torch.zeros(tuple(mu.shape) + (nr,), dtype=dt, device=dev) + mu[..., None]
     if spec.nc:
         pred = pred + (data.C @ beta if beta.dim() == 1 else beta @ data.C.T)
     for i in range(len(spec.nlevels)):
         pred = pred + estR[i][..., data.r_codes[i]]
-    if g.dim() == 1:
-        u_new = genotype_matmul(data.X_blocks, g[:, None], dt, data.block)[:, 0]
+    gl = g
+    b0, nbl = local_blocks(spec, data, mesh)
+    if nbl != spec.nblocks:
+        gl = g[..., b0 * data.block:(b0 + nbl) * data.block]
+    if gl.dim() == 1:
+        u_new = genotype_matmul(data.X_blocks, gl[:, None], dt, data.block)[:, 0]
     else:
-        u_new = genotype_matmul(data.X_blocks, g.T, dt, data.block).T
+        u_new = genotype_matmul(data.X_blocks, gl.T, dt, data.block).T
+    if gl is not g:
+        u_new = axis_sum(u_new.contiguous(), mesh, "snp")
     if spec.use_bslmm:
         u_new = u_new + k_estR
     if spec.qe:
         u_new = u_new + J_beta[..., None] * data.epsl_yJ
-        u_new[..., n - spec.ne:] += epsl_estR[..., data.epsl_codes]
+        t0 = min(max(n - spec.ne - r0, 0), nr)
+        c0 = r0 + t0 - (n - spec.ne)
+        u_new[..., t0:] += epsl_estR[..., data.epsl_codes[c0:c0 + nr - t0]]
     yadj_new = data.y - (pred + u_new)
     if spec.row_padded:
-        yadj_new = torch.where(torch.arange(n, device=data.y.device) < spec.n_obs,
+        yadj_new = torch.where(torch.arange(r0, r0 + nr, device=dev) < spec.n_obs,
                                yadj_new, 0.0)
     return yadj_new, u_new
 
 
 def _post_sweep(spec: GibbsSpec, data: GibbsData, noise, state: ChainState,
-                pre: dict, sweep_out) -> ChainState:
+                pre: dict, sweep_out, mesh=None) -> ChainState:
     """Model-level updates, Vg/Ve draws, PIP/WPPA counters, drift resync,
     state assembly (hibayes_tpu/engine/gibbs.py:1707-1806), for one chain or
     a batch (``_post_sweep_batch``, :2442-2469): every chain shares the
-    iteration counter, so the resync is one predicate for all of them."""
+    iteration counter, so the resync is one predicate for all of them.  On
+    an ind mesh the sums over individuals are summed over the axis."""
     dt = data.y.dtype
+    isum = lambda x: axis_sum(x, mesh, "ind")
     g, track, vargL_new, yadj, u, vargi_acc, vargR_acc = sweep_out
     vargL = vargL_new if state.vargL.numel() else state.vargL
     varg, pi, vara_fold, lambda2 = alphabet_global_updates(
@@ -997,12 +1287,15 @@ def _post_sweep(spec: GibbsSpec, data: GibbsData, noise, state: ChainState,
 
     # --- genetic + residual variances (src/Bayes.cpp:819-823) ---
     if spec.row_padded:
-        su = u.sum(-1)
-        vara = (_dot(u, u) - su * su / spec.n_obs) / (spec.n_obs - 1)
+        su = isum(u.sum(-1))
+        vara = (isum(_dot(u, u)) - su * su / spec.n_obs) / (spec.n_obs - 1)
+    elif rows_cut(spec, data):
+        c = u - (isum(u.sum(-1)) / spec.n)[..., None]
+        vara = isum((c * c).sum(-1)) / (spec.n - 1)
     else:
         vara = _var(u)
     chi_e = _draw(noise, lambda nz: nz.chisq(STREAM_VE, spec.n_obs + spec.dfvare))
-    vare = (_dot(yadj, yadj) + spec.s2vare * spec.dfvare) / chi_e
+    vare = (isum(_dot(yadj, yadj)) + spec.s2vare * spec.dfvare) / chi_e
 
     nzrate, wppa = pip_counters(spec, data, state, track)
 
@@ -1011,7 +1304,7 @@ def _post_sweep(spec: GibbsSpec, data: GibbsData, noise, state: ChainState,
     if (spec.resync_every and dt == torch.float32
             and state.it % spec.resync_every == spec.resync_every - 1):
         yadj, u = _recompute_residuals(spec, data, mu, beta, estR, g,
-                                       pre["J_beta"], pre["epsl_estR"], pre["k_estR"])
+                                       pre["J_beta"], pre["epsl_estR"], pre["k_estR"], mesh)
 
     return contiguous_state(ChainState(
         it=state.it + 1, mu=mu, beta=beta, estR=estR, vrtmp=pre["vrtmp"],
@@ -1034,13 +1327,13 @@ def contiguous_state(state):
         for name, v in state._asdict().items() if name != "it"})
 
 
-def _check_ported(spec: GibbsSpec, mesh) -> None:
+def _check_ported(spec: GibbsSpec, mesh=None) -> None:
     """Raise for the configurations whose code paths are still to be ported
-    (ROADMAP.md, queue 1)."""
-    if mesh is not None or spec.emulate_shards > 1 or spec.shard_schedule != "turn":
+    (ROADMAP.md, queue 1) or belong to the summary engine."""
+    if spec.shard_schedule == "concurrent":
         raise NotImplementedError(
-            "meshes and shard schedules are not ported yet (ROADMAP queue 1, "
-            "items 13-14: multi-GPU and the concurrent schedule)")
+            "shard_schedule='concurrent' (and emulate_shards with it) is not ported "
+            "yet (ROADMAP queue 1, item 14: the relaxed concurrent schedule)")
     if spec.reject_guard or spec.seg_sizes:
         raise NotImplementedError(
             "a summary-level spec (reject_guard or seg_sizes) runs on the summary "
@@ -1048,37 +1341,53 @@ def _check_ported(spec: GibbsSpec, mesh) -> None:
             "individual-level one")
 
 
+def _on_mesh(spec: GibbsSpec, data: GibbsData, state, mesh):
+    """``data`` and ``state`` as this rank's parts of the mesh (cut here
+    where they are whole), and the mesh (None where it has one rank: the
+    one-device chain)."""
+    if mesh is None or mesh.world == 1:
+        return data, state, None
+    from ..parallel.mesh import shard_gibbs_data, shard_state
+
+    state = None if state is None else shard_state(state, mesh, spec.n)
+    return shard_gibbs_data(data, mesh, spec), state, mesh
+
+
 def one_iteration(spec: GibbsSpec, data: GibbsData, seed: int,
                   state: ChainState, noise=None, mesh=None) -> ChainState:
-    """One MCMC iteration of one chain on one device: pre-sweep effects, the
-    SNP sweep at K = 1, global updates.  ``noise`` defaults to the port's
-    own streams for (seed, state.it)."""
+    """One MCMC iteration of one chain: pre-sweep effects, the SNP sweep at
+    K = 1, global updates.  ``noise`` defaults to the port's own streams
+    for (seed, state.it).  On a mesh (parallel/mesh.py) ``data`` and
+    ``state`` are this rank's parts (``shard_gibbs_data``,
+    ``shard_state``; whole data is cut here) and every rank of the mesh
+    calls it alike."""
     _check_ported(spec, mesh)
+    data, state, mesh = _on_mesh(spec, data, state, mesh)
     if noise is None:
         noise = IterNoise(seed, state.it, data.y.device, data.y.dtype)
-    pre = _pre_sweep(spec, data, noise, state)
-    sweep_out = _run_sweep_k1(spec, data, pre, state.g)
-    return _post_sweep(spec, data, noise, state, pre, sweep_out)
+    pre = _pre_sweep(spec, data, noise, state, mesh)
+    sweep_out = _run_sweep_k1(spec, data, pre, state.g, mesh)
+    return _post_sweep(spec, data, noise, state, pre, sweep_out, mesh)
 
 
 def one_iteration_batch(spec: GibbsSpec, data: GibbsData, seed: int,
                         states: ChainState, noise=None, mesh=None) -> ChainState:
     """One iteration of K chains (``one_iteration_batch``,
-    hibayes_tpu/engine/gibbs.py:2382-2439, without a mesh): ``states`` holds
-    a leading chain axis.  The pre- and post-sweep run as tensor ops over
-    all chains; the sweep is ``blockgibbs.sweep_mc`` over the K chains,
-    which share each genotype block, and the single-step epsilon term's
-    sweep one ``blockgibbs.mme_sweep`` over them.  ``noise`` defaults to each chain's
+    hibayes_tpu/engine/gibbs.py:2382-2439): ``states`` holds a leading
+    chain axis.  The pre- and post-sweep run as tensor ops over all chains;
+    the sweep is ``blockgibbs.sweep_mc`` over the K chains, which share each
+    genotype block (on a mesh, or with ``emulate_shards``, the schedule of
+    :func:`_sweep`), and the single-step epsilon term's sweep one
+    ``blockgibbs.mme_sweep`` over them.  ``noise`` defaults to each chain's
     own streams (:func:`chain_noise`); a test may pass any list of K."""
     K = int(states.mu.shape[0])
     _check_ported(spec, mesh)
+    data, states, mesh = _on_mesh(spec, data, states, mesh)
     if noise is None:
         noise = chain_noise(seed, states.it, K, data.y.device, data.y.dtype)
-    pre = _pre_sweep(spec, data, noise, states)
-    sweep_out = blockgibbs.sweep_mc(
-        spec, pre["consts"], data.X_blocks, data.W_blocks, data.xpx, data.vx,
-        pre["vei"], states.g, *pre["rnd"], pre["vargL_in"], pre["yadj"], pre["u"])
-    return _post_sweep(spec, data, noise, states, pre, sweep_out)
+    pre = _pre_sweep(spec, data, noise, states, mesh)
+    sweep_out = _sweep(spec, data, pre, states.g, mesh)
+    return _post_sweep(spec, data, noise, states, pre, sweep_out, mesh)
 
 
 # ---------------------------------------------------------------------------
@@ -1120,7 +1429,7 @@ def _concat_records(parts: list) -> dict:
 
 
 def run_loop(spec, state, step, snapshot, progress=False, chunk_records=0,
-             checkpoint_path=None, carry=None):
+             checkpoint_path=None, carry=None, mesh=None):
     """Burn-in, thinning and records of one chain or a batch (either
     engine), in chunks as the JAX engine's ``_run_segmented``
     (hibayes_tpu/engine/gibbs.py:2216-2280): ``state = step(state)`` until
@@ -1133,16 +1442,27 @@ def run_loop(spec, state, step, snapshot, progress=False, chunk_records=0,
     state, the tensors of ``carry`` (name -> tensor that ``step`` updates
     in place, such as the summary guard's tally) and the records so far.
     A checkpoint found there is resumed from its iteration, bit for bit
-    the uninterrupted chain.  Returns (state, samples, seconds): numpy
-    samples with a leading records axis, and this call's wall time once
-    the device has finished."""
+    the uninterrupted chain.  On a mesh (``state`` this rank's part of
+    it) the file holds the whole state (the fields over individuals
+    gathered), rank 0 writes it and every rank reads it and keeps its part;
+    rank 0 alone prints.  Returns (state, samples, seconds): numpy samples
+    with a leading records axis, and this call's wall time once the device
+    has finished."""
     if chunk_records <= 0:
         chunk_records = max(spec.n_records // 10, 1)
     parts, pending = [], []
     n_done = 0
     held = lambda st: (st, carry) if carry else st
+    whole, part, lead = lambda st: st, lambda st: st, True
+    if mesh is not None:
+        from ..parallel.mesh import gather_state, shard_state
+
+        whole = lambda st: gather_state(st, mesh, spec.n)
+        part = lambda st: shard_state(st, mesh, spec.n)
+        lead = mesh.rank == 0
+        progress = progress and lead
     if checkpoint_path:
-        loaded = checkpoint.load_checkpoint(checkpoint_path, held(state))
+        loaded = checkpoint.load_checkpoint(checkpoint_path, held(whole(state)))
         if loaded is not None:
             got, prev = loaded
             if carry:
@@ -1151,6 +1471,7 @@ def run_loop(spec, state, step, snapshot, progress=False, chunk_records=0,
                     t.copy_(got_carry[k])
             else:
                 state = got
+            state = part(state)
             if prev:
                 parts.append(prev)
                 n_done = len(next(iter(prev.values())))
@@ -1169,7 +1490,11 @@ def run_loop(spec, state, step, snapshot, progress=False, chunk_records=0,
     def chunk_done(state):
         if checkpoint_path:
             flush()
-            checkpoint.save_checkpoint(checkpoint_path, held(state), _concat_records(parts))
+            full = whole(state)
+            if lead:
+                checkpoint.save_checkpoint(checkpoint_path, held(full), _concat_records(parts))
+            if mesh is not None:
+                barrier(mesh)
         if progress:
             sec = int((time.time() - t0) / max(state.it - it0, 1) * (total - state.it))
             _print_progress(spec, state,
@@ -1209,7 +1534,8 @@ def posterior_rates(spec: GibbsSpec, state):
 
 
 def run_chain(spec: GibbsSpec, data: GibbsData, priors: Priors, pi_init,
-              seed=666666, progress=False, chunk_records=0, checkpoint_path=None):
+              seed=666666, progress=False, chunk_records=0, checkpoint_path=None,
+              mesh=None):
     """Run the full chain; returns (final_state, samples dict, summaries dict).
     The summaries hold pip, wppa, nzct and the chain's wall ``seconds``, taken
     once the device has finished its iterations.
@@ -1217,11 +1543,21 @@ def run_chain(spec: GibbsSpec, data: GibbsData, priors: Priors, pi_init,
     Samples are numpy arrays with a leading axis of n_records; alpha is cut
     to the real m.  With ``progress``, a reference-style row is printed
     every ``chunk_records`` records; with ``checkpoint_path``, the chain is
-    saved there as often and resumed from there (:func:`run_loop`)."""
+    saved there as often and resumed from there (:func:`run_loop`).  On a
+    mesh every rank calls it alike with the whole data (or its part): each
+    runs its part of the chain and returns the whole final state and the
+    same records."""
+    _check_ported(spec, mesh)
+    data, _, mesh = _on_mesh(spec, data, None, mesh)
     state, samples, seconds = run_loop(
-        spec, init_state(spec, data, priors, pi_init),
-        lambda st: one_iteration(spec, data, seed, st), lambda st: _snapshot(spec, st),
-        progress, chunk_records, checkpoint_path)
+        spec, init_state(spec, data, priors, pi_init, mesh),
+        lambda st: one_iteration(spec, data, seed, st, mesh=mesh),
+        lambda st: _snapshot(spec, st, mesh),
+        progress, chunk_records, checkpoint_path, mesh=mesh)
+    if mesh is not None:
+        from ..parallel.mesh import gather_state
+
+        state = gather_state(state, mesh, spec.n)
     if not bool(torch.isfinite(state.vare)):
         warnings.warn("chain diverged: residual variance is non-finite at the "
                       "final iteration", UserWarning, stacklevel=2)
@@ -1233,13 +1569,10 @@ def run_chain(spec: GibbsSpec, data: GibbsData, priors: Priors, pi_init,
     return state, samples, extras
 
 
-def check_chain_options(nchains: int, mesh) -> None:
-    """Raise for the options of a chain batch that are still to be ported."""
+def check_chain_options(nchains: int, mesh=None) -> None:
+    """Raise for the options of a chain batch that no engine takes."""
     if nchains < 1:
         raise ValueError(f"nchains must be at least 1, got {nchains}")
-    if mesh is not None:
-        raise NotImplementedError(
-            "a mesh is not ported yet (ROADMAP queue 1, item 13: multi-GPU)")
 
 
 def batch_results(spec, states, samples, extras_real, seconds):
@@ -1274,20 +1607,26 @@ def run_chains(spec: GibbsSpec, data: GibbsData, priors: Priors, pi_init,
     and resumes the batch (its leading chain axis), ``progress`` prints
     chain 0's rows (:func:`run_loop`).  One chain runs :func:`run_chain`
     (chain 0's streams are the single chain's), with the chain axis
-    added."""
+    added.  ``mesh`` as in :func:`run_chain`."""
     check_chain_options(nchains, mesh)
     if nchains == 1:
         state, samples, extras = run_chain(spec, data, priors, pi_init, seed=seed,
                                            progress=progress, chunk_records=chunk_records,
-                                           checkpoint_path=checkpoint_path)
+                                           checkpoint_path=checkpoint_path, mesh=mesh)
         samples = {k: v[None] for k, v in samples.items()}
         return (stack_state(state, 1), samples,
                 {**extras, "rhat": rhat_diagnostics(samples)})
     _check_ported(spec, mesh)
+    data, _, mesh = _on_mesh(spec, data, None, mesh)
     states, samples, seconds = run_loop(
-        spec, stack_state(init_state(spec, data, priors, pi_init), nchains),
-        lambda ss: one_iteration_batch(spec, data, seed, ss),
-        lambda ss: _snapshot(spec, ss), progress, chunk_records, checkpoint_path)
+        spec, stack_state(init_state(spec, data, priors, pi_init, mesh), nchains),
+        lambda ss: one_iteration_batch(spec, data, seed, ss, mesh=mesh),
+        lambda ss: _snapshot(spec, ss, mesh), progress, chunk_records, checkpoint_path,
+        mesh=mesh)
+    if mesh is not None:
+        from ..parallel.mesh import gather_state
+
+        states = gather_state(states, mesh, spec.n)
     samples, extras = batch_results(spec, states, samples, slice(0, spec.m), seconds)
     return states, samples, extras
 

@@ -27,6 +27,11 @@ Every random number of iteration ``it`` comes from an
 :class:`~hibayes_tpu_torch.engine.rng.IterNoise`, as in engine/gibbs.py;
 an iteration's functions take one chain's state or a batch's (a leading
 chain axis, ``noise`` a list of one IterNoise per chain), as there.
+
+On a mesh with a ``snp`` axis (parallel/mesh.py) each rank holds a
+contiguous run of a tiled LD's tile rows and the ranks sweep them in turn
+against the whole r_hat (``sweep_s_tiled(..., row_base=)``), one chain;
+the rest of the chain runs replicated.
 """
 
 from __future__ import annotations
@@ -41,6 +46,7 @@ from ..data.ld import BlockDiagLD, as_numpy
 from ..data.sparse_ld import TiledSparseLD, _tensor
 from ..math.distributions import inv_gaussian_from
 from ..ops import blockgibbs
+from ..parallel.distributed import all_gather, axis_sum, broadcast
 from .gibbs import (_dot, _draw, alphabet_global_updates, batch_results, chain_noise,
                     check_chain_options, contiguous_state, pad_to_block, pip_counters,
                     posterior_rates, rhat_diagnostics, run_loop, stack_state)
@@ -210,10 +216,58 @@ def _s_snapshot(spec, state: SChainState) -> dict:
 def _check_ported(spec, data: SGibbsData, mesh=None) -> None:
     """Raise for the summary configurations whose code paths are still to
     be ported (ROADMAP.md, queue 1)."""
-    if mesh is not None or spec.emulate_shards > 1 or spec.shard_schedule != "turn":
+    if spec.shard_schedule == "concurrent":
         raise NotImplementedError(
-            "meshes and shard schedules are not ported yet (ROADMAP queue 1, "
-            "items 13-14)")
+            "shard_schedule='concurrent' is not ported yet (ROADMAP queue 1, item 14: "
+            "the relaxed concurrent schedule)")
+
+
+def _on_mesh(data: SGibbsData, mesh):
+    """This rank's part of ``data`` and the mesh (None where it has one
+    rank)."""
+    if mesh is None or mesh.world == 1:
+        return data, None
+    from ..parallel.mesh import shard_sgibbs_data
+
+    return shard_sgibbs_data(data, mesh), mesh
+
+
+def tiles_cut(spec, data: SGibbsData) -> bool:
+    """Whether ``data`` holds a part of its tiled LD's tile rows."""
+    return (data.ld_tiles is not None
+            and int(data.ld_tiles.shape[0]) * int(data.ld_tiles.shape[2]) != spec.m_pad)
+
+
+def _tiled_sweep_snp_sharded(spec, data: SGibbsData, r_hat, P, mesh, tally=None):
+    """The SNP-sharded tiled sweep of one chain, turn schedule
+    (``_tiled_sweep_snp_sharded``, hibayes_tpu/engine/sgibbs.py:470-648):
+    rank s of the ``snp`` axis holds tile rows [s nl, (s + 1) nl); in turn
+    t the rank of index t sweeps them against the whole r_hat (TPU kernel 9
+    at ``row_base`` t nl: ``blockgibbs.sweep_s_tiled``), the others wait,
+    and r_hat reaches every rank by a broadcast from it (the owner's values
+    bit for bit, where the JAX package merges r + psum(r2 - r)).  ``P`` holds
+    the packed and guard rows of all m_pad SNPs (the guard's candidates
+    drawn over the whole m_pad, stream 15, as one device draws them).
+    Returns (dg, track, r_hat) over all SNPs, gathered on every rank; the
+    guard counts of every shard go into ``tally``."""
+    if spec.shard_schedule == "pipeline":
+        raise ValueError(
+            "shard_schedule='pipeline' is an individual-level (ibrm) schedule; the "
+            "summary engine supports 'turn' (exact)")
+    S, s = mesh.size("snp"), mesh.index("snp")
+    nl, B = int(data.ld_tiles.shape[0]), int(data.ld_tiles.shape[2])
+    base = s * nl
+    P_loc = P[..., base * B:(base + nl) * B]
+    own = None if tally is None else torch.zeros_like(tally)
+    for t in range(S):
+        if t == s:
+            dg, track, r_hat, _ = blockgibbs.sweep_s_tiled(
+                spec, data.ld_tiles, data.ld_cols, data.ld_valid, r_hat, P_loc, spec.n,
+                tally=own, row_base=base)
+        r_hat = broadcast(r_hat, mesh, "snp", t)
+    if tally is not None:
+        tally += axis_sum(own, mesh, "snp")
+    return (all_gather(dg, mesh, "snp"), all_gather(track, mesh, "snp"), r_hat)
 
 
 def _s_pre_sweep(spec, data: SGibbsData, noise, state: SChainState) -> dict:
@@ -323,11 +377,14 @@ def one_s_iteration(spec, data: SGibbsData, seed: int, state: SChainState,
     packed rows, the segment or tiled sweep, the global updates.  ``noise``
     defaults to the port's own streams for (seed, state.it).  ``tally``
     (optional, int64 (2,) on the chain's device) gets the guard's counts
-    added (first draws rejected, draws whose every candidate failed)."""
+    added (first draws rejected, draws whose every candidate failed).  On
+    a mesh every rank calls it alike (``data`` whole or this rank's part:
+    ``shard_sgibbs_data``)."""
     _check_ported(spec, data, mesh)
+    data, mesh = _on_mesh(data, mesh)
     if noise is None:
         noise = IterNoise(seed, state.it, data.xy.device, data.xy.dtype)
-    return _s_iteration(spec, data, noise, state, tally)
+    return _s_iteration(spec, data, noise, state, tally, mesh)
 
 
 def one_s_iteration_batch(spec, data: SGibbsData, seed: int, states: SChainState,
@@ -348,10 +405,12 @@ def one_s_iteration_batch(spec, data: SGibbsData, seed: int, states: SChainState
 
 
 def _s_iteration(spec, data: SGibbsData, noise, state: SChainState,
-                 tally=None) -> SChainState:
+                 tally=None, mesh=None) -> SChainState:
     pre = _s_pre_sweep(spec, data, noise, state)
     P = pre["P"]
-    if data.ld_tiles is not None:
+    if mesh is not None and tiles_cut(spec, data):
+        dg, track, r_hat = _tiled_sweep_snp_sharded(spec, data, state.r_hat, P, mesh, tally)
+    elif data.ld_tiles is not None:
         dg, track, r_hat, _ = blockgibbs.sweep_s_tiled(
             spec, data.ld_tiles, data.ld_cols, data.ld_valid, state.r_hat, P, spec.n,
             tally=tally)
@@ -388,14 +447,16 @@ def run_s_chain(spec, data: SGibbsData, priors, pi_init, seed=666666,
     device has finished its iterations, and ``guard``: the guard's counts
     over the chain (first draws rejected, draws whose every candidate
     failed; zeros without the guard).  ``checkpoint_path`` saves and
-    resumes the chain with its guard counts (:func:`~.gibbs.run_loop`)."""
+    resumes the chain with its guard counts (:func:`~.gibbs.run_loop`).  On
+    a mesh every rank calls it alike; rank 0 writes the checkpoint."""
     _check_ported(spec, data, mesh)
+    data, mesh = _on_mesh(data, mesh)
     tally = torch.zeros((2,), dtype=torch.int64, device=data.xy.device)
     state, samples, seconds = run_loop(
         spec, init_s_state(spec, data, priors, pi_init),
-        lambda st: one_s_iteration(spec, data, seed, st, tally=tally),
+        lambda st: one_s_iteration(spec, data, seed, st, tally=tally, mesh=mesh),
         lambda st: _s_snapshot(spec, st), progress, chunk_records, checkpoint_path,
-        carry={"tally": tally})
+        carry={"tally": tally}, mesh=mesh)
     if not bool(torch.isfinite(state.vare)):
         warnings.warn("chain diverged: residual variance is non-finite at the "
                       "final iteration", UserWarning, stacklevel=2)
@@ -416,12 +477,16 @@ def run_s_chains(spec, data: SGibbsData, priors, pi_init, seed=666666, nchains=4
     (nchains, n_records, ...), pip and wppa averaged over chains, ``rhat``,
     the wall ``seconds`` and ``guard`` (nchains, 2), each chain's guard
     counts, which a checkpoint carries.  One chain runs :func:`run_s_chain`,
-    with the chain axis added."""
+    with the chain axis added (on ``mesh``, where given); a batch runs on
+    one device."""
     check_chain_options(nchains, mesh)
+    if nchains > 1 and mesh is not None:
+        raise ValueError("run_s_chains(nchains > 1, mesh=...): the summary chain batch "
+                         "runs on one device; run one chain on a mesh")
     if nchains == 1:
         state, samples, extras = run_s_chain(spec, data, priors, pi_init, seed=seed,
                                              progress=progress, chunk_records=chunk_records,
-                                             checkpoint_path=checkpoint_path)
+                                             checkpoint_path=checkpoint_path, mesh=mesh)
         samples = {k: v[None] for k, v in samples.items()}
         return (stack_state(state, 1), samples,
                 {**extras, "rhat": rhat_diagnostics(samples), "guard": extras["guard"][None]})

@@ -200,17 +200,24 @@ def ibrm(
     ``threads`` (its host codec threads) is accepted and unused;
     ``lambda_`` is BSLMM's GRM ridge; ``checkpoint`` (a path prefix) saves
     the chain or batch after every ``printfreq`` iterations (a tenth of the
-    records for a batch) and resumes it from there, bit for bit; the mesh
-    keywords (``mesh``, ``shard_schedule``, ``merge_rounds``,
-    ``emulate_shards``) raise NotImplementedError away from their defaults
-    until ported."""
+    records for a batch) and resumes it from there, bit for bit.
+
+    ``mesh`` (parallel/mesh.py:make_mesh, every rank of a torchrun job
+    calling ibrm alike) shards the individuals over its ``ind`` axis and
+    the SNP blocks over its ``snp`` axis; ``shard_schedule`` is how the
+    SNP shards sweep: "turn" (exact: one shard at a time) or "pipeline"
+    (exact: all shards busy, chain groups ring-rotating; ``nchains`` a
+    multiple of the shards); ``emulate_shards`` > 1 runs the pipeline with
+    that many shards on one device.  "concurrent" (and ``merge_rounds``
+    with it) is not ported (ROADMAP queue 1, item 14).  Rank 0 alone
+    prints."""
     if method not in METHODS:
         raise ValueError(f"unknown method '{method}'; choose from {METHODS}")
-    if (mesh is not None or shard_schedule != "turn" or merge_rounds != 1
-            or emulate_shards > 1):
+    if shard_schedule == "concurrent":
         raise NotImplementedError(
-            "meshes and shard schedules are not ported yet (ROADMAP queue 1, "
-            "items 13-14)")
+            "shard_schedule='concurrent' (and emulate_shards with it) is not ported "
+            "yet (ROADMAP queue 1, item 14: the relaxed concurrent schedule)")
+    verbose = verbose and (mesh is None or mesh.rank == 0)
     if data is None:
         raise ValueError("no data assigned.")
     if M is None:
@@ -251,10 +258,15 @@ def ibrm(
 
     nc = mf.X.shape[1] if mf.X is not None else 0
     nlevels = tuple(int(len(lv)) for lv in mf.R_levels)
+    # SNP-sharded meshes and the pipeline emulation need the shards to
+    # divide the block count
+    snp_shards = mesh.size("snp") if mesh is not None else 1
+    nbm = snp_shards if snp_shards > 1 else max(int(emulate_shards), 1)
     gdata = G.prepare_gibbs_data(
         y, M_phen, C=mf.X, r_codes=tuple(mf.R_codes), r_nlevels=nlevels,
         fold=fold, windindx=windindx, nw=nw, K=K, Kval=Kval, block=block, dtype=dtype,
         geno_dtype="int8" if _is_integer(M_phen) else None, device=device,
+        nblocks_multiple=nbm,
     )
     vx = gdata.vx.cpu().numpy()
     nvar0 = int((vx[:m] == 0).sum())
@@ -270,7 +282,8 @@ def ibrm(
         thin=thin, nvar0=nvar0, nw=nw, fixpi=fixpi,
         dfvara=pr.dfvara, s2vara=pr.s2vara, dfvare=pr.dfvare, s2vare=pr.s2vare,
         dfr=pr.dfr, s2r=pr.s2r, s2varg=pr.s2varg, lambda_rate0=pr.lambda_rate0,
-        use_bslmm=use_bslmm,
+        use_bslmm=use_bslmm, shard_schedule=shard_schedule,
+        merge_rounds=int(merge_rounds), emulate_shards=int(emulate_shards),
     )
 
     if verbose:
@@ -278,7 +291,7 @@ def ibrm(
     if nchains > 1:
         state, samples, extras = G.run_chains(spec, gdata, pr, Pi, seed=seed,
                                               nchains=nchains, progress=progress,
-                                              checkpoint_path=checkpoint)
+                                              checkpoint_path=checkpoint, mesh=mesh)
         samples = pool_chains(samples)
     else:
         # reference UX: per-printfreq progress rows (Bayes.cpp:884-914)
@@ -286,7 +299,7 @@ def ibrm(
         chunk_records = max(int(printfreq) // max(thin, 1), 1) if printfreq else 0
         state, samples, extras = G.run_chain(
             spec, gdata, pr, Pi, seed=seed, progress=progress,
-            chunk_records=chunk_records, checkpoint_path=checkpoint,
+            chunk_records=chunk_records, checkpoint_path=checkpoint, mesh=mesh,
         )
     elapsed = extras["seconds"]
     if verbose:

@@ -112,7 +112,10 @@ def sbrm(
     prefix) saves the chain or batch, with those counts, after every
     ``printfreq`` iterations (a tenth of the records for a batch) and
     resumes it from there, bit for bit.  ``threads`` (the JAX package's host codec
-    threads) is accepted and unused."""
+    threads) is accepted and unused.  ``mesh`` (parallel/mesh.py, every rank
+    calling sbrm alike) shards a tiled LD's tile rows over its ``snp`` axis,
+    swept in turn ("turn", the one schedule of the summary engine); one
+    chain only, as in the JAX package.  Rank 0 alone prints."""
     if method not in S_METHODS:
         raise ValueError(f"unknown method '{method}'; choose from {S_METHODS}")
     device = resolve_device(device)
@@ -130,9 +133,16 @@ def sbrm(
     if method == "CG":
         return _fit_cg(ss, ld, lambda_, verbose, device)
 
-    if mesh is not None or shard_schedule != "turn" or merge_rounds != 1:
+    if shard_schedule == "concurrent":
         raise NotImplementedError(
-            "meshes and shard schedules are not ported yet (ROADMAP queue 1, item 13)")
+            "shard_schedule='concurrent' is not ported yet (ROADMAP queue 1, item 14: "
+            "the relaxed concurrent schedule)")
+    if nchains > 1 and mesh is not None:
+        raise ValueError(
+            "sbrm(nchains>1, mesh=...) is not supported: the summary "
+            "multi-chain runner executes single-device.  Run one chain "
+            "with mesh=, or multiple chains without a mesh.")
+    verbose = verbose and (mesh is None or mesh.rank == 0)
     if device.type == "cuda" and dtype != torch.float32:
         raise TypeError("on the card the sbrm sweep kernels take float32 only")
 
@@ -161,7 +171,8 @@ def sbrm(
         s2varg=pr.s2varg, lambda_rate0=pr.lambda_rate0,
         vargl_strict_pos=True, real_excl_nvar0=True,
         reject_guard=sparse_semantics, vary=vary,
-        seg_sizes=seg_sizes, seg_real=seg_real,
+        seg_sizes=seg_sizes, seg_real=seg_real, shard_schedule=shard_schedule,
+        merge_rounds=int(merge_rounds),
     )
     if verbose:
         kind = "sparse/block" if sparse_semantics else "dense"
@@ -181,7 +192,7 @@ def sbrm(
         chunk_records = max(int(printfreq) // max(thin, 1), 1) if printfreq else 0
         state, samples, extras = SG.run_s_chain(
             spec, data, pr, Pi, seed=seed, progress=progress, chunk_records=chunk_records,
-            checkpoint_path=checkpoint)
+            checkpoint_path=checkpoint, mesh=mesh)
     elapsed = extras["seconds"]
     if verbose:
         print(f"MCMC finished: {spec.niter_eff} iterations of {nchains} chain(s) in "

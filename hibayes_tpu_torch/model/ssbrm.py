@@ -124,14 +124,15 @@ def ssbrm(
     every ``printfreq`` iterations (a batch after a tenth of its records)
     and resumes it from there, bit for bit; the set-up (pedigree,
     imputation) is redone on resume, as in the JAX package, and only the
-    chain resumes."""
+    chain resumes.  ``mesh`` (parallel/mesh.py, every rank calling ssbrm
+    alike) shards the phenotyped individuals over its ``ind`` axis and the
+    SNP blocks over its ``snp`` axis, as ``ibrm``; the epsilon sweep runs
+    replicated.  Rank 0 alone prints."""
     if method == "BSLMM":
         raise ValueError("BSLMM is not supported for the single-step model.")
     if method not in METHODS:
         raise ValueError(f"unknown method '{method}'")
-    if mesh is not None:
-        raise NotImplementedError(
-            "meshes are not ported yet (ROADMAP queue 1, item 13)")
+    verbose = verbose and (mesh is None or mesh.rank == 0)
     if data is None:
         raise ValueError("no data assigned.")
     if M is None:
@@ -302,6 +303,7 @@ def ssbrm(
         epsl_A=(Ai_nn if scale_path else np.asarray(Ai_nn.todense())) if ne else None,
         epsl_codes=y_Mn_indx if ne else None,
         qe=qe if ne else 0,
+        nblocks_multiple=mesh.size("snp") if mesh is not None else 1,
         block=block, dtype=dt, device=device,
     )
     del yM
@@ -338,14 +340,14 @@ def ssbrm(
     if nchains > 1:
         state, samples, extras = G.run_chains(spec, gdata, pr, Pi, seed=seed,
                                               nchains=nchains, progress=progress,
-                                              checkpoint_path=checkpoint)
+                                              checkpoint_path=checkpoint, mesh=mesh)
         samples = pool_chains(samples)
     else:
         progress = progress or (verbose and printfreq > 0)
         chunk_records = max(int(printfreq) // max(thin, 1), 1) if printfreq else 0
         state, samples, extras = G.run_chain(
             spec, gdata, pr, Pi, seed=seed, progress=progress, chunk_records=chunk_records,
-            checkpoint_path=checkpoint,
+            checkpoint_path=checkpoint, mesh=mesh,
         )
     elapsed = extras["seconds"]
     if verbose:

@@ -99,6 +99,16 @@ def padded_stride(r: int) -> int:
     return -(-r // 4) * 4
 
 
+def snp_major_rows(rows):
+    """The SNP-major copy (K, m, padded_stride(R)) of packed rows given as
+    a (K, m, R) view: what the draw chains read in place where one SNP's
+    rows do not fit shared memory (``SubBlocks.rows_global``)."""
+    K, m, R = rows.shape
+    Pg = torch.zeros((K, m, padded_stride(R)), dtype=F32, device=rows.device)
+    Pg[..., :R] = rows
+    return Pg
+
+
 def snp_owner(j: int) -> tuple:
     """(lane, slot) of the warp that holds SNP ``j``'s r_local, Gram-row
     slice and outputs in the draw chain (csrc/draws.cuh warp_block_draws):
@@ -354,11 +364,14 @@ class SubBlocks:
     block count, the packing and every output's shape: only the width the
     kernels see changes.  The choice depends on B and the rows a SNP alone
     (:func:`kernel_width`), so the plain versions on the CPU run the route
-    the card runs.  S = 1 and W = B where the kernels take B as it is."""
+    the card runs.  S = 1 and W = B where the kernels take B as it is.
+    ``rows_global``: the kernel's draws read the packed rows from global
+    memory (one SNP's rows overflow shared memory even at 4 SNPs)."""
 
     B: int
     S: int
     W: int
+    rows_global: bool = False
 
     @classmethod
     def of(cls, B: int, W: int) -> "SubBlocks":
@@ -394,24 +407,31 @@ class SubBlocks:
         return t.reshape(lead + (nb, self.span))[..., :self.B].reshape(lead + (nb * self.B,))
 
 
-def kernel_width(B: int, fits, what: str) -> SubBlocks:
+def kernel_width(B: int, fits, what: str, fits_global=None) -> SubBlocks:
     """The sub-blocks of a block of B: the fewest sub-blocks S (from
     ceil(B / MAX_BLOCK) up) of W = ceil(B / S) rounded up to 4 for which
     ``fits(W)`` (the kernel's shared memory at W, from the H100's limits).
     A block of at most MAX_BLOCK that is a multiple of 4 and fits stays as
-    it is.  Raises where not even 4 SNPs a sub-block fit (a BayesR fold
-    count whose rows overflow shared memory; ROADMAP queue 3, item 25)."""
-    S = max(1, -(-B // MAX_BLOCK))
-    while True:
-        W = -(-B // S)
-        W += -W % 4
-        if fits(W):
-            return SubBlocks(B, S, W)
-        if W <= 4:
-            raise ValueError(f"{what}: the packed rows of one SNP do not fit the kernel's "
-                             "shared memory even at sub-blocks of 4 SNPs (ROADMAP queue 3, "
-                             "item 25)")
-        S += 1
+    it is.  Where not even 4 SNPs a sub-block fit (BayesR with hundreds of
+    folds), the kernel's draws read the packed rows from global memory
+    (through L2): the fewest sub-blocks for which ``fits_global(W)``, the
+    kernel's shared memory without the rows, with ``rows_global`` set.
+    Raises only for a kernel without that mode (``fits_global`` None)."""
+    S0 = max(1, -(-B // MAX_BLOCK))
+    for test, flag in ((fits, False), (fits_global, True)):
+        if test is None:
+            continue
+        S = S0
+        while True:
+            W = -(-B // S)
+            W += -W % 4
+            if test(W):
+                return SubBlocks(B, S, W, flag)
+            if W <= 4:
+                break
+            S += 1
+    raise ValueError(f"{what}: the packed rows of one SNP do not fit the kernel's "
+                     "shared memory even at sub-blocks of 4 SNPs")
 
 
 def inert_rows(spec, rows: int, dtype, device) -> torch.Tensor:
@@ -438,35 +458,39 @@ def _spread_rows(spec, sb, P):
 
 def draws_smem(B: int, R: int) -> int:
     """Shared memory bytes of a draws_kernel CTA (csrc/blockgibbs.cu
-    draws_smem): the Gram block, the packed rows at padded_stride and eight
-    warps' sums."""
+    draws_smem): the Gram block, the packed rows at padded_stride (R 0:
+    read from global memory) and eight warps' sums."""
     return 4 * (B * B + B * padded_stride(R) + 8 * B)
 
 
-def tiled_smem(B: int, R: int, stage_next: bool = False) -> int:
-    """Shared memory bytes of a tiled-sweep CTA (csrc/sgibbs.cu tiled_smem)."""
+def tiled_smem(B: int, R: int, stage_next: bool = False, rows_smem: bool = True) -> int:
+    """Shared memory bytes of a tiled-sweep CTA (csrc/sgibbs.cu tiled_smem):
+    without the packed rows where the draws read them from global memory."""
     return 4 * (8 + 11 * MAX_BLOCK + B * B * (3 if stage_next else 2)
-                + 2 * B * padded_stride(R))
+                + (2 * B * padded_stride(R) if rows_smem else 0))
 
 
-def mc_fits(R: int, n: int, W: int, xbytes: int) -> bool:
+def mc_fits(R: int, n: int, W: int, xbytes: int, rows_smem: bool = True) -> bool:
     """Whether the individual-level sweeps take sub-blocks of W SNPs of R
     packed rows over n rows of X of ``xbytes`` bytes: W <= MAX_BLOCK a
     multiple of 4, and the one-chain sweep's plan (:func:`sweep1_plan`)
-    and the K-chain draws both fit at W."""
+    and the K-chain draws both fit at W, the rows in shared memory or
+    (``rows_smem`` False) read from global memory."""
     if W > MAX_BLOCK or W % 4:
         return False
     try:
-        sweep1_plan(n, W, R, xbytes, H100_SMS)
+        sweep1_plan(n, W, R, xbytes, H100_SMS, rows_smem=rows_smem)
     except ValueError:
         return False
-    return draws_smem(W, R) <= SMEM_OPTIN
+    return draws_smem(W, R if rows_smem else 0) <= SMEM_OPTIN
 
 
 def mc_sub_blocks(R: int, n: int, B: int, xbytes: int) -> SubBlocks:
     """The sub-blocks in which ``prepare_gibbs_data`` lays out a genotype in
-    blocks of B (:func:`mc_fits` at R rows a SNP)."""
-    return kernel_width(B, lambda W: mc_fits(R, n, W, xbytes), "sweep_mc")
+    blocks of B (:func:`mc_fits` at R rows a SNP, or the rows read from
+    global memory where a SNP's rows overflow shared memory at 4 SNPs)."""
+    return kernel_width(B, lambda W: mc_fits(R, n, W, xbytes), "sweep_mc",
+                        lambda W: mc_fits(R, n, W, xbytes, rows_smem=False))
 
 
 def genotype_rows(n_fold: int) -> int:
@@ -482,26 +506,33 @@ def mc_layout(spec, X_blocks) -> SubBlocks:
     where the sweeps do not take W at the spec's rows."""
     _, n, W = X_blocks.shape
     sb = SubBlocks.of(spec.block, W)
-    if not mc_fits(n_rows(spec), n, W, X_blocks.element_size()):
+    R, xb = n_rows(spec), X_blocks.element_size()
+    if mc_fits(R, n, W, xb):
+        return sb
+    if not mc_fits(R, n, W, xb, rows_smem=False) or mc_fits(R, n, 4, xb):
         raise ValueError(
             f"sweep_mc: a genotype of width {W} for blocks of {spec.block} is not one the "
-            f"kernels take at {n_rows(spec)} packed rows a SNP: lay it out with "
-            "prepare_gibbs_data or sub_block_genotype (a fold count whose rows overflow "
-            "shared memory even at 4 SNPs: ROADMAP queue 3, item 25)")
-    return sb
+            f"kernels take at {R} packed rows a SNP: lay it out with prepare_gibbs_data or "
+            "sub_block_genotype")
+    return SubBlocks(sb.B, sb.S, W, rows_global=True)
 
 
 def segment_sub_blocks(spec, B: int) -> SubBlocks:
-    """The segment sweep's sub-blocks: a drawer CTA of one chain fits at W."""
+    """The segment sweep's sub-blocks: a drawer CTA of one chain fits at W,
+    the packed rows staged in shared memory, or else read from global
+    memory."""
     RP = padded_stride(summary_rows(spec))
     return kernel_width(B, lambda W: max(segment_smem(W, RP, 1, 4, 1, W)) <= SMEM_OPTIN,
-                        "sweep_s_segment")
+                        "sweep_s_segment",
+                        lambda W: max(segment_smem(W, 0, 1, 4, 1, W)) <= SMEM_OPTIN)
 
 
 def tiled_sub_blocks(spec, B: int) -> SubBlocks:
-    """The tiled sweep's tiles: its CTA fits at tiles of W."""
+    """The tiled sweep's tiles: its CTA fits at tiles of W, the packed rows
+    staged in shared memory, or else read from global memory."""
     R = summary_rows(spec)
-    return kernel_width(B, lambda W: tiled_smem(W, R) <= SMEM_OPTIN, "sweep_s_tiled")
+    return kernel_width(B, lambda W: tiled_smem(W, R) <= SMEM_OPTIN, "sweep_s_tiled",
+                        lambda W: tiled_smem(W, R, rows_smem=False) <= SMEM_OPTIN)
 
 
 # the kernels' layout of each segment and tile store (by the identity and
@@ -649,21 +680,22 @@ def sweep1_tiles(c: int, grid: int, ntiles: int) -> range:
 
 
 def sweep1_smem(B: int, R: int, rpt: int, xbytes: int, T: int, nb: int, drawer: bool,
-                wb: int = 2) -> int:
+                wb: int = 2, rows_smem: bool = True) -> int:
     """Shared memory bytes of a sweep1_kernel CTA (csrc/blockgibbs.cu
     s1_layout): the drawer's two mbarriers, ``wb`` buffers of W, the packed
     rows double-buffered at padded_stride and eight warps' sums; for T row
     tiles of ``rpt`` rows, yadj and u of its rows (each padded to 4
     floats), dg of the block before, the 32 row classes' sums and ``nb`` X
     tile buffers a tile."""
-    draw = 4 * (4 + wb * B * B + 2 * B * padded_stride(R) + 8 * B) if drawer else 0
+    RS = padded_stride(R) if rows_smem else 0
+    draw = 4 * (4 + wb * B * B + 2 * B * RS + 8 * B) if drawer else 0
     yu = -(-(T * rpt) // 4) * 4
     rows = 4 * (2 * yu + (S1_CLASSES + 1) * B) + T * nb * rpt * B * xbytes if T > 0 else 0
     return draw + rows
 
 
 def sweep1_plan(n: int, B: int, R: int, xbytes: int, sms: int,
-                optin: int = SMEM_OPTIN) -> dict:
+                optin: int = SMEM_OPTIN, rows_smem: bool = True) -> dict:
     """The persistent one-chain sweep's launch: the parent's row tiles
     (:func:`rows_per_tile` at K = 1: about one per SM), a grid of one CTA
     per tile plus the drawer, at most one CTA per SM (every CTA must be
@@ -674,7 +706,8 @@ def sweep1_plan(n: int, B: int, R: int, xbytes: int, sms: int,
     prefetch, 0 reads both from global memory.  The drawer keeps two
     buffers of W (``wb``: W_{b+1} lands under block b's chain) unless one
     buffer lets its own tile hold more X (W_{b+1} then lands under the row
-    work that follows the chain).  Returns rpt, ntiles, grid, nb0, nbr, wb
+    work that follows the chain).  ``rows_smem`` False: the drawer reads the
+    packed rows from global memory.  Returns rpt, ntiles, grid, nb0, nbr, wb
     and smem (bytes a CTA)."""
     rpt = rows_per_tile(n, sms, 1)
     ntiles = -(-n // rpt)
@@ -682,12 +715,13 @@ def sweep1_plan(n: int, B: int, R: int, xbytes: int, sms: int,
     t0 = len(sweep1_tiles(0, grid, ntiles))
     tc = len(sweep1_tiles(1, grid, ntiles)) if grid > 1 else 0
     def buffers(T, drawer, wb=2):
-        return next((nb for nb in (2, 1) if sweep1_smem(B, R, rpt, xbytes, T, nb, drawer, wb)
-                     <= optin), 0)
+        return next((nb for nb in (2, 1)
+                     if sweep1_smem(B, R, rpt, xbytes, T, nb, drawer, wb, rows_smem) <= optin),
+                    0)
 
     nbr = buffers(tc, False)
     nb0, wb = max((buffers(t0, True, wb), wb) for wb in (2, 1))
-    smem = max(sweep1_smem(B, R, rpt, xbytes, t0, nb0, True, wb),
+    smem = max(sweep1_smem(B, R, rpt, xbytes, t0, nb0, True, wb, rows_smem),
                sweep1_smem(B, R, rpt, xbytes, tc, nbr, False) if grid > 1 else 0)
     if smem > optin:
         raise ValueError(f"sweep_mc: a one-chain sweep at n={n}, B={B} needs {smem} bytes "
@@ -763,9 +797,11 @@ def _sub_block_draws(spec, P_b, W_b, r0, sb: SubBlocks, draw):
 
 
 def block_sub_blocks(spec, B: int) -> SubBlocks:
-    """:func:`block_draws`' sub-blocks: the draws kernel fits at W."""
+    """:func:`block_draws`' sub-blocks: the draws kernel fits at W, the
+    packed rows staged in shared memory, or else read from global memory."""
     R = n_rows(spec)
-    return kernel_width(B, lambda W: draws_smem(W, R) <= SMEM_OPTIN, "block_draws")
+    return kernel_width(B, lambda W: draws_smem(W, R) <= SMEM_OPTIN, "block_draws",
+                        lambda W: draws_smem(W, 0) <= SMEM_OPTIN)
 
 
 def block_draws_plain(spec, logpi_row, P_b, W_b, r0):
@@ -783,18 +819,20 @@ def block_draws_plain(spec, logpi_row, P_b, W_b, r0):
 block_draws_plain.calls = 0
 
 
-def _block_draws_launch(spec, P_b, W_b, r0):
+def _block_draws_launch(spec, P_b, W_b, r0, rows_global=False):
     lib = build.library()
     B, K = r0.shape
     R = P_b.shape[1]
     r0t = r0.t().contiguous()
     W = W_b.contiguous()
     P = P_b.contiguous()
+    Pg = snp_major_rows(P.permute(2, 0, 1)) if rows_global else None
     dg = torch.empty((B, K), dtype=F32, device=r0.device)
     track = torch.empty((B, K), dtype=F32, device=r0.device)
     code = lib.hb_block_draws(
         r0t.data_ptr(), W.data_ptr(), P.data_ptr(), B, R, K,
         spec.model_index, spec.n_fold, dg.data_ptr(), track.data_ptr(),
+        None if Pg is None else Pg.data_ptr(),
         torch.cuda.current_stream(r0.device).cuda_stream)
     build.check(lib, code, "block_draws")
     block_draws.launches += 1
@@ -820,9 +858,10 @@ def block_draws(spec, logpi_row, P_b, W_b, r0):
         raise TypeError("block_draws: the kernel takes float32")
     sb = block_sub_blocks(spec, B)
     if sb.same:
-        return _block_draws_launch(spec, P_b, W_b, r0)
+        return _block_draws_launch(spec, P_b, W_b, r0, sb.rows_global)
     return _sub_block_draws(spec, P_b, W_b, r0, sb,
-                            lambda P, W, r: _block_draws_launch(spec, P, W, r))
+                            lambda P, W, r: _block_draws_launch(spec, P, W, r,
+                                                                sb.rows_global))
 
 
 block_draws.launches = 0
@@ -833,16 +872,18 @@ block_draws.launches = 0
 # ---------------------------------------------------------------------------
 
 
-def sweep_mc_plain(spec, consts_b, X_blocks, W_blocks, xpx, vx, vei_b, g_b,
-                   z_b, u_b, chi_b, z2_b, vargL_b, yadj_b, u_vec_b,
-                   block_range=None):
-    """Plain version of :func:`sweep_mc`, in the dtype of ``yadj_b``, by the
-    same sub-blocks (:func:`mc_layout`).  On the CPU it takes the role of
-    the JAX engine's ``_sweep_xla``.  At K >= 2 a chain's products are an
-    elementwise product and a sum of its own: a matrix product over the
-    chain batch may sum in an order that depends on K, and chain k must not
-    depend on the other chains."""
-    sweep_mc_plain.calls += 1
+def sweep_blocks(spec, consts_b, X_blocks, W_blocks, xpx, vx, vei_b, g_b, z_b, u_b,
+                 chi_b, z2_b, vargL_b, yadj_b, u_vec_b, draws, block_range=None,
+                 reduce_r0=None):
+    """The block loop of the K-chain sweep with library products, in the
+    dtype of ``yadj_b``, by :func:`mc_layout`'s sub-blocks: per kernel
+    block r0 = X_b' yadj (then ``reduce_r0(r0)``, e.g. a sum over the ranks
+    holding other individuals), ``draws(P_b, W_b, r0)`` -> (g, dg, track),
+    each (W, K) (g None where the draws give only dg: then g = g_b - dg),
+    and yadj += X_b dg.  At K >= 2 a chain's products are an elementwise
+    product and a sum of its own: a matrix product over the chain batch may
+    sum in an order that depends on K, and chain k must not depend on the
+    other chains.  Returns sweep_mc's outputs."""
     sb = mc_layout(spec, X_blocks)
     off, nbg = block_range if block_range is not None else (0, X_blocks.shape[0] // sb.S)
     dt = yadj_b.dtype
@@ -858,14 +899,29 @@ def sweep_mc_plain(spec, consts_b, X_blocks, W_blocks, xpx, vx, vei_b, g_b,
     for b in range(nbk):
         Xb = X_blocks[offk + b].to(dt)
         r0 = (yadj @ Xb).T if K == 1 else (yadj[:, :, None] * Xb).sum(1).T
-        gi, dg, tr = _draws_plain(spec, P_blocks[b], W_blocks[offk + b].to(dt), r0)
+        if reduce_r0 is not None:
+            r0 = reduce_r0(r0.contiguous())
+        gi, dg, tr = draws(P_blocks[b], W_blocks[offk + b].to(dt), r0)
         delta = (Xb @ dg).T if K == 1 else (Xb * dg.T[:, None, :]).sum(2)
         yadj += delta
         u -= delta
-        g_new[:, b * Bk:(b + 1) * Bk] = gi.T
+        g_new[:, b * Bk:(b + 1) * Bk] = (P_blocks[b][:, 1] - dg if gi is None else gi).T
         track[:, b * Bk:(b + 1) * Bk] = tr.T.to(torch.int32)
     return phase_c_mc(spec, consts_b, vx, vei_b, sb.gather(g_new), sb.gather(track), u_b,
                       z2_b, vargL_b, yadj, u)
+
+
+def sweep_mc_plain(spec, consts_b, X_blocks, W_blocks, xpx, vx, vei_b, g_b,
+                   z_b, u_b, chi_b, z2_b, vargL_b, yadj_b, u_vec_b,
+                   block_range=None):
+    """Plain version of :func:`sweep_mc`, in the dtype of ``yadj_b``, by the
+    same sub-blocks (:func:`mc_layout`): :func:`sweep_blocks` with the
+    plain draws.  On the CPU it takes the role of the JAX engine's
+    ``_sweep_xla``."""
+    sweep_mc_plain.calls += 1
+    return sweep_blocks(spec, consts_b, X_blocks, W_blocks, xpx, vx, vei_b, g_b, z_b, u_b,
+                        chi_b, z2_b, vargL_b, yadj_b, u_vec_b,
+                        lambda P, W, r: _draws_plain(spec, P, W, r), block_range)
 
 
 sweep_mc_plain.calls = 0
@@ -928,7 +984,9 @@ def sweep_mc(spec, consts_b, X_blocks, W_blocks, xpx, vx, vei_b, g_b, z_b,
                          f"{(K, n_rows(spec), nbg * B)} for block_range {block_range}")
     nbg, off = nbg * sb.S, off * sb.S
     m_loc = nbg * Bk
-    P_blocks = to_block_layout(_spread_rows(spec, sb, P), nbg, Bk)
+    Pk = _spread_rows(spec, sb, P)
+    P_blocks = to_block_layout(Pk, nbg, Bk)
+    Pg = snp_major_rows(Pk.transpose(1, 2)) if sb.rows_global else None
     W = W_blocks.contiguous()
     yadj = yadj_b.contiguous().clone()
     u = u_vec_b.to(F32).contiguous().clone()
@@ -946,7 +1004,8 @@ def sweep_mc(spec, consts_b, X_blocks, W_blocks, xpx, vx, vei_b, g_b, z_b,
         props = torch.cuda.get_device_properties(dev)
         plan = sweep1_plan(n, Bk, P.shape[1], X_blocks.element_size(),
                            props.multi_processor_count,
-                           getattr(props, "shared_memory_per_block_optin", SMEM_OPTIN))
+                           getattr(props, "shared_memory_per_block_optin", SMEM_OPTIN),
+                           rows_smem=not sb.rows_global)
         fl = _sweep1_flags(dev, ntiles)
         one = (fl["flags"].data_ptr(), fl["epoch"] & 0xFFFFFFFF, plan["grid"], plan["nb0"],
                plan["nbr"], plan["wb"])
@@ -959,7 +1018,7 @@ def sweep_mc(spec, consts_b, X_blocks, W_blocks, xpx, vx, vei_b, g_b, z_b,
         spec.model_index,
         spec.n_fold, yadj.data_ptr(), u.data_ptr(), g_new.data_ptr(),
         dg.data_ptr(), track_f.data_ptr(), partial.data_ptr(), *one,
-        None if stamps is None else stamps.data_ptr(),
+        None if stamps is None else stamps.data_ptr(), None if Pg is None else Pg.data_ptr(),
         torch.cuda.current_stream(dev).cuda_stream)
     if code != 0 and fl is not None:
         _SWEEP1_FLAGS.pop(str(dev), None)
@@ -972,6 +1031,10 @@ def sweep_mc(spec, consts_b, X_blocks, W_blocks, xpx, vx, vei_b, g_b, z_b,
 
 
 sweep_mc.launches = 0
+# capability flag: sweep_mc (and its plain version) sweeps blocks [off, off
+# + nbg) of the whole genotype in place (``block_range``), so a caller that
+# sweeps part of the blocks passes the whole X, never a copy of a slice
+sweep_mc.block_range_in_place = sweep_mc_plain.block_range_in_place = True
 
 
 # ---------------------------------------------------------------------------
@@ -1117,7 +1180,7 @@ def segment_smem(B: int, RP: int, cpc: int, rw: int, kch: int, lds: int) -> tupl
 
 
 def segment_plan(mc: int, B: int, K: int, R: int, sms: int,
-                 optin: int = SMEM_OPTIN) -> dict:
+                 optin: int = SMEM_OPTIN, rows_smem: bool = True) -> dict:
     """The persistent segment sweep's launch for a segment of mc rows,
     blocks of B, K chains, R packed rows: drawer CTAs of cpc chains (8, or
     fewer where their shared memory would not fit), the drawer's tile
@@ -1126,9 +1189,11 @@ def segment_plan(mc: int, B: int, K: int, R: int, sms: int,
     warps, each warp rw rows (a multiple of 4, so that the owners fill the
     SMs the drawers leave) in tiles of segment_tile_rows(B), and kch chains
     a row-owner pass (all K where they fit, else as many as fit).  At most
-    one CTA an SM.  Returns cpc, ndraw, rw, nown, kch, trows, lds and smem
-    (bytes a CTA); raises if no split fits."""
-    RP = padded_stride(R)
+    one CTA an SM.  ``rows_smem`` False: the draws read the packed rows
+    from global memory, none in the drawer's shared memory.  Returns cpc,
+    ndraw, rw, nown, kch, trows, lds and smem (bytes a CTA); raises if no
+    split fits."""
+    RP = padded_stride(R) if rows_smem else 0
     cpc = next((c for c in (8, 4, 2, 1) if segment_smem(B, RP, c, 4, 1, B)[0] <= optin), None)
     if cpc is None:
         raise ValueError(f"sweep_s_segment: blocks of {B} do not fit a drawer CTA")
@@ -1248,19 +1313,21 @@ def sweep_s_segment(spec, LD_seg, r_seg, P, n, stamps=None, tally=None):
     props = torch.cuda.get_device_properties(dev)
     sms = props.multi_processor_count
     optin = getattr(props, "shared_memory_per_block_optin", SMEM_OPTIN)
-    G = segment_group(mck, Bk, K, R, sms, optin)
+    glob = sb.rows_global
+    G = segment_group(mck, Bk, K, R, sms, optin, not glob)
     if not chains:
         out = _segment_launch(spec, LDk, rk[None], Pk[None], n, Bk, G, sms, optin, stamps,
-                              tally if tally is None else tally[None])
+                              tally if tally is None else tally[None], glob)
         return tuple(sb.gather(t[0]) for t in out)
     parts = [_segment_launch(spec, LDk, rk[g], Pk[g], n, Bk, min(G, g.stop - g.start), sms,
                              optin, stamps if g.start == 0 else None,
-                             None if tally is None else tally[g])
+                             None if tally is None else tally[g], glob)
              for g in _chain_groups(K, G)]
     return tuple(sb.gather(torch.cat(t, dim=0)) for t in zip(*parts))
 
 
-def segment_group(mc: int, B: int, K: int, R: int, sms: int, optin: int = SMEM_OPTIN) -> int:
+def segment_group(mc: int, B: int, K: int, R: int, sms: int, optin: int = SMEM_OPTIN,
+                  rows_smem: bool = True) -> int:
     """The most chains of a segment sweep's launch (at most K) for which
     :func:`segment_plan` fits the card: a batch whose drawer CTAs would
     leave no SM for the rows runs in groups of that many chains, a launch
@@ -1268,7 +1335,7 @@ def segment_group(mc: int, B: int, K: int, R: int, sms: int, optin: int = SMEM_O
     G = K
     while True:
         try:
-            segment_plan(mc, B, G, R, sms, optin)
+            segment_plan(mc, B, G, R, sms, optin, rows_smem)
             return G
         except ValueError:
             if G == 1:
@@ -1276,17 +1343,21 @@ def segment_group(mc: int, B: int, K: int, R: int, sms: int, optin: int = SMEM_O
             G = -(-G // 2)
 
 
-def _segment_launch(spec, LD_seg, r_seg, P, n, B, K, sms, optin, stamps, tally):
+def _segment_launch(spec, LD_seg, r_seg, P, n, B, K, sms, optin, stamps, tally,
+                    rows_global=False):
     """One launch of the segment sweep for K chains (r_seg (K, mc), P (K, R,
-    mc)) at blocks of B; returns (dg, track int32, r), each (K, mc)."""
+    mc)) at blocks of B; returns (dg, track int32, r), each (K, mc).
+    ``rows_global``: the draws read the packed rows from a SNP-major copy at
+    padded_stride(R) in global memory."""
     guard = guard_on(spec)
     mc, R = LD_seg.shape[0], P.shape[1]
     nb = mc // B
     lib = build.library("sgibbs.cu")
     dev = r_seg.device
-    plan = segment_plan(mc, B, K, R, sms, optin)
+    plan = segment_plan(mc, B, K, R, sms, optin, not rows_global)
     fl = _segment_flags(dev, K + plan["nown"])
     Pc = P.contiguous()
+    Pg = snp_major_rows(Pc.transpose(1, 2)) if rows_global else None
     r = r_seg.clone(memory_format=torch.contiguous_format)
     dg = torch.empty((K, mc), dtype=F32, device=dev)
     track = torch.empty((K, mc), dtype=F32, device=dev)
@@ -1298,7 +1369,7 @@ def _segment_launch(spec, LD_seg, r_seg, P, n, B, K, sms, optin, stamps, tally):
         nrej.data_ptr() if guard else None, r.data_ptr(), dg.data_ptr(), track.data_ptr(),
         snap.data_ptr(), fl["flags"].data_ptr(), fl["epoch"] & 0xFFFFFFFF, plan["ndraw"],
         plan["cpc"], plan["nown"], plan["rw"], plan["kch"], plan["trows"], plan["lds"],
-        None if stamps is None else stamps.data_ptr(),
+        None if stamps is None else stamps.data_ptr(), None if Pg is None else Pg.data_ptr(),
         torch.cuda.current_stream(dev).cuda_stream)
     if code != 0:
         _SEGMENT_FLAGS.pop(str(dev), None)
@@ -1325,17 +1396,29 @@ class TiledSchedule:
     ``items`` (nitems, 4) = (row, slot, target block, sequence number) are
     the other valid slots, row by row, and a contribution's sequence number
     is its place, by row, among the contributions to its block: it lands
-    after every earlier one.  ``total[t]`` contributions reach block t."""
+    after every earlier one.  ``total[t]`` contributions reach block t.
+
+    A shard's schedule (``row_base`` > 0, or fewer rows than blocks): rows
+    i are local, global row row_base + i; targets, ``total`` and the
+    counters run over all ``nblocks`` global blocks; ``need[i]`` counts
+    only the shard's own rows before it (an earlier shard's contributions
+    are in r_hat when its sweep starts), and the last local row's
+    contribution to the next block, another shard's, is an item."""
 
     need: np.ndarray
     nxt: np.ndarray
     items: np.ndarray
     total: np.ndarray
+    row_base: int = 0
     _state: dict = field(default_factory=dict, repr=False)
 
     @property
     def nbr(self) -> int:
         return int(self.need.shape[0])
+
+    @property
+    def nblocks(self) -> int:
+        return int(self.total.shape[0])
 
     def device_state(self, dev, chains: int = 1):
         """The schedule's tensors and the counters of a sweep of ``chains``
@@ -1349,7 +1432,7 @@ class TiledSchedule:
             self._state[key] = {
                 "need": i32(self.need), "nxt": i32(self.nxt), "total": i32(self.total),
                 "items": i32(self.items.reshape(-1, 4)),
-                "cnt": torch.zeros((chains, self.nbr), dtype=torch.int32, device=dev),
+                "cnt": torch.zeros((chains, self.nblocks), dtype=torch.int32, device=dev),
                 "flags": torch.zeros((chains, self.nbr), dtype=torch.int32, device=dev),
                 "epoch": 0}
         return self._state[key]
@@ -1360,37 +1443,45 @@ class TiledSchedule:
         self._state.pop((str(dev), chains), None)
 
 
-def tiled_schedule(cols, valid) -> TiledSchedule:
+def tiled_schedule(cols, valid, row_base: int = 0, nblocks=None) -> TiledSchedule:
     """The contribution order of the tiled sweep for a layout's (nbr, K)
     ``cols`` and ``valid`` (tensors or arrays; bands, bands with gaps and
     columns that are not a band alike).  Invalid slots (which point at their
-    own row's block) carry no contribution.  Raises if a valid slot points
-    outside the blocks or two valid slots of a row at one block."""
+    own row's block) carry no contribution.  ``row_base`` and ``nblocks``
+    (default nbr): the rows are global rows row_base .. row_base + nbr - 1
+    of a store of ``nblocks`` tile rows, whose block indices ``cols``
+    holds (a shard of the rows, :class:`TiledSchedule`).  Raises if a valid
+    slot points outside the blocks or two valid slots of a row at one
+    block."""
     as_np = lambda a: (a.detach().cpu().numpy() if isinstance(a, torch.Tensor)
                        else np.asarray(a))
     cols, valid = as_np(cols).astype(np.int64), as_np(valid).astype(bool)
     if cols.ndim != 2 or cols.shape != valid.shape:
         raise ValueError(f"cols {cols.shape} and valid {valid.shape} must be one (nbr, K) shape")
     nbr = cols.shape[0]
+    nb = nbr if nblocks is None else int(nblocks)
+    if row_base < 0 or row_base + nbr > nb:
+        raise ValueError(f"rows {row_base} .. {row_base + nbr - 1} outside {nb} blocks")
     rows, slots = np.nonzero(valid)          # row-major: the sweep's order
+    grow = rows + row_base
     tgt = cols[rows, slots]
-    if ((tgt < 0) | (tgt >= nbr)).any():
+    if ((tgt < 0) | (tgt >= nb)).any():
         raise ValueError("a valid slot points outside the tile rows' blocks")
-    if np.unique(rows * nbr + tgt).size != tgt.size:
+    if np.unique(rows * nb + tgt).size != tgt.size:
         raise ValueError("two valid slots of one tile row point at one block")
     order = np.lexsort((rows, tgt))          # by block, then by row
     t_sorted = tgt[order]
     seq = np.empty_like(tgt)
     seq[order] = np.arange(tgt.size) - np.searchsorted(t_sorted, t_sorted, side="left")
-    need = np.bincount(tgt[rows < tgt], minlength=nbr)
+    need_all = np.bincount(tgt[grow < tgt], minlength=nb)
     nxt = np.full(nbr, -1, dtype=np.int64)
-    is_next = tgt == rows + 1
+    is_next = (tgt == grow + 1) & (rows + 1 < nbr)
     nxt[rows[is_next]] = slots[is_next]
     # the drawer's contribution is the last one block i + 1 waits for
-    assert (seq[is_next] == need[tgt[is_next]] - 1).all()
+    assert (seq[is_next] == need_all[tgt[is_next]] - 1).all()
     items = np.stack([rows, slots, tgt, seq], axis=1)[~is_next]
-    return TiledSchedule(need=need, nxt=nxt, items=items,
-                         total=np.bincount(tgt, minlength=nbr))
+    return TiledSchedule(need=need_all[row_base:row_base + nbr], nxt=nxt, items=items,
+                         total=np.bincount(tgt, minlength=nb), row_base=int(row_base))
 
 
 # the schedule of each layout's cols tensor (by identity), with weak
@@ -1399,31 +1490,32 @@ def tiled_schedule(cols, valid) -> TiledSchedule:
 _SCHEDULES = {}
 
 
-def _layout_schedule(cols, valid) -> TiledSchedule:
-    versions = (cols._version, valid._version)
+def _layout_schedule(cols, valid, row_base: int = 0, nblocks=None) -> TiledSchedule:
+    versions = (cols._version, valid._version, row_base, nblocks)
     hit = _SCHEDULES.get(id(cols))
     if hit is None or hit[0]() is not cols or hit[1]() is not valid or hit[2] != versions:
-        hit = (weakref.ref(cols), weakref.ref(valid), versions, tiled_schedule(cols, valid))
+        hit = (weakref.ref(cols), weakref.ref(valid), versions,
+               tiled_schedule(cols, valid, row_base, nblocks))
         _SCHEDULES[id(cols)] = hit
         weakref.finalize(cols, _SCHEDULES.pop, id(cols), None)
     return hit[3]
 
 
-def sweep_s_tiled_plain(spec, tiles, cols, valid, r_hat, P, n, tally=None):
+def sweep_s_tiled_plain(spec, tiles, cols, valid, r_hat, P, n, tally=None, row_base=0):
     """Plain version of :func:`sweep_s_tiled`, in the dtype of ``r_hat``, on
     the same tiles (:func:`tiled_sub_blocks`): one chain, or C chains drawn
     side by side (each chain's draws elementwise, each contribution a
     product of its own), chain c bit for bit the one-chain call on chain c's
-    inputs."""
+    inputs.  ``row_base`` as there."""
     sweep_s_tiled_plain.calls += 1
     sb = tiled_sub_blocks(spec, tiles.shape[2])
     tk, ck, vk = sub_block_tiles(tiles, cols, valid, sb)
     dg, track, r, rej = _tiled_plain(spec, tk, ck, vk, sb.spread(r_hat),
-                                     _spread_rows(spec, sb, P), n, tally)
+                                     _spread_rows(spec, sb, P), n, tally, row_base * sb.S)
     return sb.gather(dg), sb.gather(track), sb.gather(r), rej
 
 
-def _tiled_plain(spec, tiles, cols, valid, r_hat, P, n, tally):
+def _tiled_plain(spec, tiles, cols, valid, r_hat, P, n, tally, row_base=0):
     nbr, K, B, _ = tiles.shape
     dt, dev = r_hat.dtype, r_hat.device
     one = r_hat.dim() == 1
@@ -1431,14 +1523,15 @@ def _tiled_plain(spec, tiles, cols, valid, r_hat, P, n, tally):
     P_blocks = to_block_layout((P[None] if one else P).to(dt), nbr, B)   # (nbr, B, R, C)
     r = (r_hat[None] if one else r_hat).clone()
     C = r.shape[0]
-    rb = r.view(C, nbr, B)
+    rb = r.view(C, -1, B)   # every block of the store: rows draw at row_base + i
     cols_l, valid_l = cols.tolist(), valid.tolist()
     dg = torch.empty((C, nbr * B), dtype=dt, device=dev)
     track = torch.empty((C, nbr * B), dtype=dt, device=dev)
     guard = torch.zeros((C, 2), dtype=torch.int64, device=dev)
     for i in range(nbr):
         T = tiles[i].to(dt)
-        _, d, t = _draws_plain(spec, P_blocks[i], n * T[0], rb[:, i].T, vary, guard)
+        _, d, t = _draws_plain(spec, P_blocks[i], n * T[0], rb[:, row_base + i].T, vary,
+                               guard)
         d = d.T.contiguous()   # (C, B): each chain's dg a contiguous row
         for k in range(K):
             if valid_l[i][k]:   # invalid slots point at the own row: skipped
@@ -1454,18 +1547,24 @@ def _tiled_plain(spec, tiles, cols, valid, r_hat, P, n, tally):
 sweep_s_tiled_plain.calls = 0
 
 
-def sweep_s_tiled(spec, tiles, cols, valid, r_hat, P, n, stamps=None, tally=None):
+def sweep_s_tiled(spec, tiles, cols, valid, r_hat, P, n, stamps=None, tally=None,
+                  row_base=0):
     """Summary sweep of one chain or a batch of C chains over every tile row
-    of a tiled sparse LD; the contract of ``sweep_s_tiled``
-    (hibayes_tpu/ops/blockgibbs.py:1730-1792) at row_base 0, for each
+    of a tiled sparse LD, or over a shard of its rows; the contract of
+    ``sweep_s_tiled`` (hibayes_tpu/ops/blockgibbs.py:1730-1792), for each
     chain.
 
     tiles (nbr, K, B, B) with the diagonal tile in slot 0; cols, valid
-    (nbr, K); r_hat (nbr * B,), or (C, nbr * B) for C chains; P (R, nbr * B)
-    (or (C, R, nbr * B)) the packed rows, followed by the guard rows
-    (:func:`pack_retry_rows`) when :func:`guard_on`.  Per tile row i: B
-    draws against n tiles[i, 0] (guarded), then for each valid slot
-    r_hat[block cols[i, k]] += n tiles[i, k]^T dg.  Returns (dg, track int32,
+    (nbr, K) with global block indices; r_hat (nb * B,), or (C, nb * B)
+    for C chains, the whole state (nb >= row_base + nbr blocks); P (R, nbr
+    * B) (or (C, R, nbr * B)) the packed rows of the swept rows, followed
+    by the guard rows (:func:`pack_retry_rows`) when :func:`guard_on`.  Per
+    tile row i, global row ``row_base`` + i: B draws against n tiles[i, 0]
+    (guarded) from r_hat of that block, then for each valid slot
+    r_hat[block cols[i, k]] += n tiles[i, k]^T dg.  ``row_base`` 0 with nb
+    = nbr sweeps the whole store; a shard of the rows (the SNP-sharded
+    sweep) gives its first global row, and r_hat returns with every
+    contribution of the shard's rows, to any block.  Returns (dg, track int32,
     r_hat_new, rejected), each with r_hat's leading chain axis:
     ``rejected`` (0-d, or (C,)) counts the draws whose first candidate the
     guard rejected; ``tally`` (optional, int64 (2,) or (C, 2)) gets that
@@ -1492,61 +1591,65 @@ def sweep_s_tiled(spec, tiles, cols, valid, r_hat, P, n, stamps=None, tally=None
     own contribution), then %globaltimer ns and clock64 at the sweep's
     start and end, nbr the rows of the re-tiled store."""
     if r_hat.device.type == "cpu":
-        return sweep_s_tiled_plain(spec, tiles, cols, valid, r_hat, P, n, tally)
+        return sweep_s_tiled_plain(spec, tiles, cols, valid, r_hat, P, n, tally, row_base)
     _require_cuda(r_hat, tiles, cols, valid, P)
     nbr, K, B, _ = tiles.shape
     lead = tuple(r_hat.shape[:-1])
     C = r_hat.shape[0] if lead else 1
     R = summary_rows(spec)
+    nb = r_hat.shape[-1] // B
     if tiles.dtype != F32 or r_hat.dtype != F32 or P.dtype != F32:
         raise TypeError("sweep_s_tiled: the kernel takes float32 (other float "
                         "types run on the CPU)")
     if (tuple(tiles.shape) != (nbr, K, B, B) or tuple(cols.shape) != (nbr, K)
             or tuple(valid.shape) != (nbr, K) or r_hat.dim() > 2 or C < 1
-            or tuple(r_hat.shape) != lead + (nbr * B,)
+            or tuple(r_hat.shape) != lead + (nb * B,) or not 0 <= row_base <= nb - nbr
             or tuple(P.shape) != lead + (R, nbr * B)):
         raise ValueError(f"sweep_s_tiled: tiles {tuple(tiles.shape)}, cols/valid "
                          f"{tuple(cols.shape)}/{tuple(valid.shape)}, r_hat "
                          f"{tuple(r_hat.shape)} and packed rows {tuple(P.shape)} "
-                         f"do not fit (R = {R})")
+                         f"do not fit (R = {R}, row_base = {row_base})")
     if not tiles.is_contiguous() or tiles.data_ptr() % 16:
         raise ValueError("sweep_s_tiled: tiles must be contiguous and 16-byte aligned")
     sb = tiled_sub_blocks(spec, B)
     tk, ck, vk = sub_block_tiles(tiles, cols, valid, sb)
-    schedule = _layout_schedule(ck, vk)
+    schedule = _layout_schedule(ck, vk, row_base * sb.S, nb * sb.S)
     if stamps is not None and (stamps.dtype != torch.int64
                                or stamps.numel() < 4 * tk.shape[0] + 4):
         raise ValueError("sweep_s_tiled: stamps must be int64, 4 per row + 4")
     rk, Pk = sb.spread(r_hat), _spread_rows(spec, sb, P)
-    G = tiled_group(spec, sb.W, schedule.items.shape[0])
+    glob = sb.rows_global
+    G = tiled_group(spec, sb.W, schedule.items.shape[0], glob)
     if not lead:
         out = _tiled_launch(spec, tk, schedule, rk[None], Pk[None], n, stamps,
-                            tally if tally is None else tally[None])
+                            tally if tally is None else tally[None], glob)
         dg, track, r, counts = (t[0] for t in out)
     else:
         parts = [_tiled_launch(spec, tk, schedule, rk[g], Pk[g], n,
                                stamps if g.start == 0 else None,
-                               None if tally is None else tally[g])
+                               None if tally is None else tally[g], glob)
                  for g in _chain_groups(C, G)]
         dg, track, r, counts = (torch.cat(t, dim=0) for t in zip(*parts))
     return sb.gather(dg), sb.gather(track), sb.gather(r), counts[..., 0]
 
 
-def tiled_group(spec, B: int, nitems: int) -> int:
+def tiled_group(spec, B: int, nitems: int, rows_global: bool = False) -> int:
     """The most chains of one tiled-sweep launch at tiles of B on this
     card: the CTAs it holds at once (``hb_tiled_resident``), less the one
     item CTA when the layout has contributions to scatter."""
     lib = build.library("sgibbs.cu")
     out = ctypes.c_longlong()
     code = lib.hb_tiled_resident(B, spec.model_index, spec.n_fold, int(guard_on(spec)),
-                                 ctypes.byref(out))
+                                 int(not rows_global), ctypes.byref(out))
     build.check(lib, code, "tiled_group")
     return max(1, out.value - (1 if nitems else 0))
 
 
-def _tiled_launch(spec, tiles, schedule, r_hat, P, n, stamps, tally):
-    """One launch of the tiled sweep for C chains (r_hat (C, m), P (C, R,
-    m)); returns (dg, track int32, r_hat, guard counts (C, 2))."""
+def _tiled_launch(spec, tiles, schedule, r_hat, P, n, stamps, tally, rows_global=False):
+    """One launch of the tiled sweep for C chains (r_hat (C, nb B), P (C,
+    R, nbr B)) over the schedule's rows; returns (dg, track int32, r_hat,
+    guard counts (C, 2)).  ``rows_global``: the draws read the packed rows
+    from a SNP-major copy at padded_stride(R) in global memory."""
     nbr, K, B, _ = tiles.shape
     C, R = r_hat.shape[0], P.shape[1]
     guard = guard_on(spec)
@@ -1554,17 +1657,19 @@ def _tiled_launch(spec, tiles, schedule, r_hat, P, n, stamps, tally):
     dev = r_hat.device
     st = schedule.device_state(dev, C)
     Pc = P.contiguous()
+    Pg = snp_major_rows(Pc.transpose(1, 2)) if rows_global else None
     r = r_hat.clone(memory_format=torch.contiguous_format)
     dg = torch.empty((C, nbr * B), dtype=F32, device=dev)
     track = torch.empty((C, nbr * B), dtype=F32, device=dev)
     nrej = torch.empty((C, nbr), dtype=torch.int32, device=dev)
     code = lib.hb_sweep_s_tiled(
-        tiles.data_ptr(), nbr, K, B, R, C, spec.model_index, spec.n_fold, int(guard),
+        tiles.data_ptr(), nbr, schedule.row_base, schedule.nblocks, K, B, R, C,
+        spec.model_index, spec.n_fold, int(guard),
         float(n), float(spec.vary), Pc.data_ptr(), r.data_ptr(), dg.data_ptr(),
         track.data_ptr(), nrej.data_ptr(), st["need"].data_ptr(), st["nxt"].data_ptr(),
         st["items"].data_ptr(), st["items"].shape[0], st["total"].data_ptr(),
         st["cnt"].data_ptr(), st["flags"].data_ptr(), st["epoch"] & 0xFFFFFFFF,
-        None if stamps is None else stamps.data_ptr(),
+        None if stamps is None else stamps.data_ptr(), None if Pg is None else Pg.data_ptr(),
         torch.cuda.current_stream(dev).cuda_stream)
     if code != 0:
         schedule.forget(dev, C)

@@ -91,10 +91,10 @@ def library(source: str = SOURCES[0]) -> ctypes.CDLL:
     lib.hb_error_string.argtypes = [_I]
     lib.hb_error_string.restype = ctypes.c_char_p
     if source == "blockgibbs.cu":
-        lib.hb_block_draws.argtypes = [_P, _P, _P, _I, _I, _I, _I, _I, _P, _P, _P]
+        lib.hb_block_draws.argtypes = [_P, _P, _P, _I, _I, _I, _I, _I, _P, _P, _P, _P]
         lib.hb_block_draws.restype = _I
         lib.hb_sweep_mc.argtypes = ([_P, _I, _P, _P] + [_I] * 13 + [_P] * 7
-                                    + [ctypes.c_uint, _I, _I, _I, _I, _P, _P])
+                                    + [ctypes.c_uint, _I, _I, _I, _I, _P, _P, _P])
         lib.hb_sweep_mc.restype = _I
         lib.hb_launch_counts.argtypes = [ctypes.POINTER(ctypes.c_longlong)] * 3
         lib.hb_launch_counts.restype = None
@@ -103,16 +103,17 @@ def library(source: str = SOURCES[0]) -> ctypes.CDLL:
     elif source == "sgibbs.cu":
         lib.hb_sweep_s_segment.argtypes = [_P, _P, _I, _I, _I, _I, _I, _I, _I, _F,
                                            _F, _P, _P, _P, _P, _P, _P, ctypes.c_uint,
-                                           _I, _I, _I, _I, _I, _I, _I, _P, _P]
+                                           _I, _I, _I, _I, _I, _I, _I, _P, _P, _P]
         lib.hb_sweep_s_segment.restype = _I
-        lib.hb_sweep_s_tiled.argtypes = [_P, _I, _I, _I, _I, _I, _I, _I, _I, _F, _F,
+        lib.hb_sweep_s_tiled.argtypes = [_P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _F, _F,
                                          _P, _P, _P, _P, _P, _P, _P, _P, _I, _P,
-                                         _P, _P, ctypes.c_uint, _P, _P]
+                                         _P, _P, ctypes.c_uint, _P, _P, _P]
         lib.hb_sweep_s_tiled.restype = _I
         lib.hb_chain_latency.argtypes = [_P, _P, _P, _I, _I, _I, _I, _I, _F, _I,
                                          _P, _P, _P]
         lib.hb_chain_latency.restype = _I
-        lib.hb_tiled_resident.argtypes = [_I, _I, _I, _I, ctypes.POINTER(ctypes.c_longlong)]
+        lib.hb_tiled_resident.argtypes = [_I, _I, _I, _I, _I,
+                                          ctypes.POINTER(ctypes.c_longlong)]
         lib.hb_tiled_resident.restype = _I
         lib.hb_s_launch_counts.argtypes = [ctypes.POINTER(ctypes.c_longlong)]
         lib.hb_s_launch_counts.restype = None

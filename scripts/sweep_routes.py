@@ -23,6 +23,11 @@ SNPs of an int8 genotype, and the tiled summary sweep
                 a 9-tile band of 0.9^|i-j| (row 9), and
     tiled_256_guard_fires  the same at vary lowered 1,000-fold, so the
                 guard's retries run (its rejection count is hashed too)
+    k1_n50k_r640, tiled_256_r640  BayesR at 640 folds (where the tree runs
+                it, ``snp_major_rows``): k1_n50k's sweep, and tiled_256's
+                guarded, whose 30 KB of rows a SNP overflow shared memory,
+                so its draws read them from global memory; with
+                tiled_256_r640_copy, the SNP-major copy of its rows alone
     segment_32k the dense segment sweep of phase 6, m=32,768 AR(1) LD, B=64
                 (row 6), and
     segment_32k_k4  the same segment with 4 chains (phase 6b's sweep)
@@ -97,15 +102,18 @@ def main(argv=None) -> int:
     dev = torch.device("cuda", 0)
     B = 128
     runs, digests, chains = {}, {}, {}
-    for key, n, K, model, nblocks in CASES:
+    many = hasattr(TB, "snp_major_rows")
+    cases = CASES + ((("k1_n50k_r640", 50_000, 1, "BayesR", 16, 640),) if many else ())
+    for key, n, K, model, nblocks, *nf in cases:
+        nf = nf[0] if nf else 4
         m = nblocks * B
         gen = torch.Generator(device=dev).manual_seed(31)
         M = cs.make_genotype(torch, n, m, gen, dev)
         y = (M[:, :64].float() @ (0.1 * torch.randn(64, generator=gen, device=dev))
              + torch.randn(n, generator=gen, device=dev)).cpu().numpy()
-        fold = np.array([0.0, 1e-4, 1e-3, 1e-2]) if model == "BayesR" else None
+        fold = cs.fold_prior(nf)[1] if model == "BayesR" else None
         data = TG.prepare_gibbs_data(y, M, block=B, fold=fold, geno_dtype="int8", device=dev)
-        spec, pr, pi = cs.make_spec(TG, model, data, m, n)
+        spec, pr, pi = cs.make_spec(TG, model, data, m, n, nf=nf)
         sargs = cs.sweep_args(torch, TG, spec, data, pr, pi, K, seed=K)
         out = TB.sweep_mc(spec, *sargs)
         torch.cuda.synchronize()
@@ -167,6 +175,21 @@ def main(argv=None) -> int:
         h.update(t.float().cpu().numpy().tobytes())
     digests["tiled_256_guard_fires"] = h.hexdigest()[:16]
     runs["tiled_256_guard_fires"] = lambda full=full: TB.sweep_s_tiled(low, *full)
+    if many:
+        rdata, rspec, rpr, rpi = cs.s_setup(torch, TG, TSG, ss, tld, "BayesR", B, dev, True,
+                                            nf=640)
+        _, rr, rP = cs.s_sweep_inputs(torch, TSG, rspec, rdata, rpr, rpi,
+                                      cs.tiled_matvec(torch, tld), 9)
+        rfull = (rdata.ld_tiles, rdata.ld_cols, rdata.ld_valid, rr, rP, rspec.n)
+        out = TB.sweep_s_tiled(rspec, *rfull)
+        torch.cuda.synchronize()
+        h = hashlib.sha256()
+        for t in out:
+            h.update(t.float().cpu().numpy().tobytes())
+        digests["tiled_256_r640"] = h.hexdigest()[:16]
+        runs["tiled_256_r640"] = lambda: TB.sweep_s_tiled(rspec, *rfull)
+        rows3 = rP.reshape(-1, *rP.shape[-2:])
+        runs["tiled_256_r640_copy"] = lambda: TB.snp_major_rows(rows3.transpose(1, 2))
     Wn = sspec.n * sdata.ld_tiles[0, 0]
     Pg = P[:, :B].T.contiguous()
     chains["chain_bayescpi"] = (sspec, Wn, Pg[:, :TB.n_rows(sspec)].contiguous(), r[:B], None)

@@ -1,6 +1,7 @@
 """The port's sweep module (hibayes_tpu_torch/ops/blockgibbs.py) against the
 JAX reference: packed rows, the draw-only kernel contract, the fused sweep
-contract, f64 exactness against the XLA scan, and offset group sweeps.
+contract, f64 exactness against the XLA scan, offset group sweeps, and the
+ind-sharded sweep's block loop.
 
 Pallas kernels run in interpret mode at B=16, n=128 (a few seconds each);
 the port runs its plain versions, which is what a wrapper does on the CPU.
@@ -16,6 +17,7 @@ import torch
 
 from hibayes_tpu.engine import gibbs as G
 from hibayes_tpu.ops import blockgibbs as JB
+from hibayes_tpu_torch.engine import gibbs as TG
 from hibayes_tpu_torch.ops import blockgibbs as TB
 
 from .torch_parity import (MODELS, SWEEP_NAMES, assert_kernel_bar,
@@ -148,3 +150,26 @@ def test_cpu_tensors_take_the_plain_version():
     before = (TB.sweep_mc_plain.calls, TB.sweep_mc.launches)
     TB.sweep_mc(port_spec(s["spec"]), *targs)
     assert (TB.sweep_mc_plain.calls, TB.sweep_mc.launches) == (before[0] + 1, before[1])
+
+
+@pytest.mark.parametrize("K", [1, 2])
+def test_ind_hybrid_on_one_rank_is_the_plain_sweep(K):
+    """The ind-sharded sweep runs the plain sweep's block loop
+    (``sweep_blocks``) and draws through ``block_draws``, on CPU tensors its
+    plain version, one call a block: on a one-rank axis its mixture draws,
+    residuals and variances are the plain sweep's bit for bit, and its
+    effects, g - dg where the plain draws give g, within float32 rounding."""
+    s = _setup("BayesR")
+    _, targs = sweep_inputs(s, K=K)
+    spec = port_spec(s["spec"])
+    calls = TB.block_draws_plain.calls
+    hyb = TG._sweep_ind_hybrid_mc(spec, *targs, mesh=None)
+    assert TB.block_draws_plain.calls - calls == spec.nblocks
+    plain = TB.sweep_mc_plain(spec, *targs)
+    for name, a, b in zip(SWEEP_NAMES, plain, hyb):
+        if name == "g":
+            torch.testing.assert_close(b, a, rtol=0, atol=1e-6 * float(a.abs().max()))
+        elif name in ("track", "yadj", "u"):
+            assert torch.equal(a, b), name
+        else:
+            torch.testing.assert_close(b, a, rtol=1e-5, atol=1e-30, msg=name)

@@ -212,13 +212,14 @@ def test_checkpoint_resume_through_a_subprocess(files, tmp_path, monkeypatch):
 def test_shard_options_are_refused(files, capsys):
     """A shard schedule other than 'turn' with one shard is refused with a
     clear error (the JAX CLI runs the plain sweep there silently); more
-    than one shard is not ported, naming items 13-14."""
+    than one shard outside torchrun is refused, naming torchrun (it runs
+    under torchrun: tests/test_torch_multihost.py)."""
     base = fit_args("ibrm", files) + ["--device", "cpu"]
     with pytest.raises(SystemExit) as e:
         cli.main(base + ["--shards", "1", "--shard-schedule", "pipeline"])
     assert e.value.code == 2
     assert "--shard-schedule pipeline needs --shards > 1" in capsys.readouterr().err
-    with pytest.raises(NotImplementedError, match="items 13-14"):
+    with pytest.raises(RuntimeError, match="torchrun --nproc-per-node 2"):
         cli.main(base + ["--shards", "2"])
 
 

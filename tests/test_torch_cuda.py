@@ -1002,7 +1002,7 @@ def test_segment_sweep_refuses_a_grid_not_resident(dev):
     code = lib.hb_sweep_s_segment(
         seg.data_ptr(), P[0].data_ptr(), mc, B, TB.n_rows(spec), 1, spec.model_index,
         spec.n_fold, 0, float(spec.n), 0.0, None, rr.data_ptr(), dg.data_ptr(), tr.data_ptr(),
-        snap.data_ptr(), fl.data_ptr(), 0, 1, 8, 4 * sms, 4, 1, 32, B + 4, None,
+        snap.data_ptr(), fl.data_ptr(), 0, 1, 8, 4 * sms, 4, 1, 32, B + 4, None, None,
         torch.cuda.current_stream(dev).cuda_stream)
     assert code != 0 and "too many blocks" in lib.hb_error_string(code).decode()
     assert TB.kernel_launches()["segment_sweep"] == 0
@@ -1646,3 +1646,120 @@ def test_device_trace_records_cuda_kernels(dev, tmp_path):
               for k in kernels]
     assert max(dev_us) > 0
     assert (tmp_path / "trace.json").exists()
+
+
+@pytest.mark.parametrize("C", [1, 2])
+@pytest.mark.parametrize("kind", ["band", "gaps", "nonband"])
+@pytest.mark.parametrize("S", [2, 4])
+def test_tiled_sweep_row_base_shards(S, kind, C, dev):
+    """TPU kernel 9 on a shard of tile rows: each shard of S swept at its
+    row_base against the whole r_hat (the SNP-sharded sweep's turn, one
+    chain or two), against the plain version at the kernel bar with equal
+    guard counts, bit-identical on a second launch, one tiled_sweep launch
+    a shard; the shards in turn reach the whole sweep's r_hat at the
+    bar."""
+    spec, data, g, r, P, _, _ = _s_problem("BayesR", "tiled", dev, m=2000)
+    cols, valid = ((data.ld_cols, data.ld_valid) if kind == "band"
+                   else _tiled_layout(data, kind, dev))
+    B = spec.block
+    nbr = cols.shape[0]
+    if nbr % S:
+        pytest.skip(f"{nbr} tile rows")
+    if C > 1:
+        r, P, g = (torch.stack([x, x * 0.5]).contiguous() for x in (r, P, g))
+    nl = nbr // S
+    r_k, r_p = r, r
+    for k in range(S):
+        b0 = k * nl
+        rows = slice(b0, b0 + nl)
+        args = (spec, data.ld_tiles[rows].contiguous(), cols[rows], valid[rows])
+        Pk = P[..., b0 * B:(b0 + nl) * B].contiguous()
+        TB.reset_kernel_launches()
+        out = TB.sweep_s_tiled(*args, r_p, Pk, spec.n, row_base=b0)
+        assert TB.kernel_launches()["tiled_sweep"] == 1
+        plain = TB.sweep_s_tiled_plain(*args, r_p, Pk, spec.n, row_base=b0)
+        gk = g[..., b0 * B:(b0 + nl) * B]
+        for c in range(C):
+            pick = (lambda t: t) if C == 1 else (lambda t, c=c: t[c])
+            _assert_bar((pick(gk) - pick(plain[0]), pick(plain[1]), None, pick(plain[2])),
+                        (pick(gk) - pick(out[0]), pick(out[1]), None, pick(out[2])))
+        assert torch.equal(out[3].cpu(), plain[3].cpu())
+        again = TB.sweep_s_tiled(*args, r_p, Pk, spec.n, row_base=b0)
+        assert all(torch.equal(a, b) for a, b in zip(out, again))
+        r_k = TB.sweep_s_tiled(*args, r_k, Pk, spec.n, row_base=b0)[2]
+        r_p = plain[2]
+    whole = TB.sweep_s_tiled_plain(spec, data.ld_tiles, cols, valid, r, P, spec.n)
+    assert torch.equal(r_p, whole[2]) or C > 0
+    pick = (lambda t: t) if C == 1 else (lambda t: t[0])
+    _assert_bar((pick(g), pick(g), None, pick(whole[2])), (pick(g), pick(g), None, pick(r_k)))
+
+
+def test_tiled_sweep_reads_rows_from_global_memory(dev):
+    """BayesR with 640 folds and the guard (30 KB of rows a SNP, more than
+    a CTA's shared memory at 4 SNPs): the tiled sweep's draws read the
+    packed rows from global memory; against the plain version at the bar,
+    bit-identical on a second launch, and at a row_base."""
+    spec, data, g, r, P, _, _ = _s_problem("BayesR", "tiled", dev, m=600, nf=640)
+    assert TB.tiled_sub_blocks(spec, spec.block).rows_global
+    args = (spec, data.ld_tiles, data.ld_cols, data.ld_valid, r, P, spec.n)
+    out, again = TB.sweep_s_tiled(*args), TB.sweep_s_tiled(*args)
+    plain = TB.sweep_s_tiled_plain(*args)
+    _assert_bar((g - plain[0], plain[1], None, plain[2]), (g - out[0], out[1], None, out[2]))
+    assert all(torch.equal(a, b) for a, b in zip(out, again))
+    assert int(out[3]) == int(plain[3])
+    B, b0 = spec.block, 2
+    rows = slice(b0, None)
+    sh = (spec, data.ld_tiles[rows].contiguous(), data.ld_cols[rows], data.ld_valid[rows],
+          r, P[:, b0 * B:].contiguous(), spec.n)
+    out = TB.sweep_s_tiled(*sh, row_base=b0)
+    plain = TB.sweep_s_tiled_plain(*sh, row_base=b0)
+    _assert_bar((g[b0 * B:] - plain[0], plain[1], None, plain[2]),
+                (g[b0 * B:] - out[0], out[1], None, out[2]))
+
+
+@pytest.mark.parametrize("K", [1, 2])
+def test_segment_sweep_reads_rows_from_global_memory(K, dev):
+    """The guarded segment sweep at 640 folds reads the packed rows from
+    global memory: one chain and two, against the plain version at the bar
+    with equal guard counts, bit-identical on a second launch."""
+    spec, data, g, r, P, _, _ = _s_problem("BayesR", "dense", dev, m=600, guard=True, nf=640)
+    assert TB.segment_sub_blocks(spec, spec.block).rows_global
+    if K > 1:
+        r, P, g = (torch.stack([x, 0.5 * x]).contiguous() for x in (r, P, g))
+    tk, tp = torch.zeros((K, 2) if K > 1 else (2,), dtype=torch.int64, device=dev), \
+        torch.zeros((K, 2) if K > 1 else (2,), dtype=torch.int64, device=dev)
+    out = TB.sweep_s_segment(spec, data.ld_segs[0], r, P, spec.n, tally=tk)
+    again = TB.sweep_s_segment(spec, data.ld_segs[0], r, P, spec.n)
+    plain = TB.sweep_s_segment_plain(spec, data.ld_segs[0], r, P, spec.n, tally=tp)
+    for k in range(K):
+        pick = (lambda t: t) if K == 1 else (lambda t, k=k: t[k])
+        _assert_bar((pick(g) - pick(plain[0]), pick(plain[1]), None, pick(plain[2])),
+                    (pick(g) - pick(out[0]), pick(out[1]), None, pick(out[2])))
+    assert all(torch.equal(a, b) for a, b in zip(out, again))
+    assert torch.equal(tk.cpu(), tp.cpu())
+
+
+@pytest.mark.parametrize("nf", [640, 2000])
+def test_ibrm_sweeps_many_folds_match_plain(nf, dev):
+    """BayesR with 640 folds on the individual-level sweeps (their rows
+    narrow the sub-blocks, staged in shared memory) and 2,000 (past 4 SNPs
+    a sub-block: the draws read the rows from global memory): sweep_mc at
+    one chain and K=2, and block_draws, against the plain versions at the
+    bar, bit-identical on a second launch."""
+    for K in (1, 2):
+        spec, args = _inputs("BayesR", dev, K=K, n=1000, m=64, B=32, nf=nf)
+        assert TB.mc_layout(spec, args[1]).rows_global == (nf == 2000)
+        out = TB.sweep_mc(spec, *args)
+        _assert_bar(TB.sweep_mc_plain(spec, *args), out)
+        assert all(torch.equal(a, b) for a, b in zip(out, TB.sweep_mc(spec, *args)))
+    consts, X, W, xpx, vx, *per = args
+    P = TB.pack_rows(spec, consts, xpx, vx, per[0], per[1], per[2], per[3], per[4], per[6],
+                     torch.float32)
+    P_b = TB.to_block_layout(P, spec.nblocks, 32)[0].contiguous()
+    Xb = X[:1].float()[0] if TB.mc_layout(spec, X).same else _whole_block(spec, X, 0)[0]
+    Wb = (Xb.T @ Xb).contiguous()
+    r0 = (per[7] @ Xb).T.contiguous()
+    logpi = consts["logpi"][:, :1].T.contiguous()
+    dg_k, tr_k = TB.block_draws(spec, logpi, P_b, Wb, r0)
+    dg_p, tr_p = TB.block_draws_plain(spec, logpi, P_b, Wb, r0)
+    _assert_bar((P_b[:, 1] - dg_p, tr_p), (P_b[:, 1] - dg_k, tr_k))

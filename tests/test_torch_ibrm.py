@@ -136,6 +136,12 @@ def test_port_never_imports_jax():
             fit = ht.sbrm(ss, ld, method="BayesCpi", niter=12, nburn=6, thin=2,
                           verbose=False, device="cpu")
             assert np.isfinite(fit.alpha).all() and fit.guard.shape == (1, 2)
+        # the device mesh and its collectives, and a fit on a one-rank mesh
+        import hibayes_tpu_torch.parallel.distributed
+        from hibayes_tpu_torch.parallel.mesh import make_mesh
+        fit = ht.ibrm("T1 ~ 1", data=data, M=M, M_id=data["id"], niter=12, nburn=6,
+                      thin=2, mesh=make_mesh(), verbose=False, device="cpu")
+        assert np.isfinite(fit.h2)
         bad = sorted(k for k in sys.modules
                      if k.split(".")[0] in ("jax", "jaxlib", "hibayes_tpu"))
         assert not bad, bad

@@ -150,12 +150,14 @@ def test_batch_resync_in_f32():
 
 
 def test_run_chains_refuses_what_is_not_ported(tmp_path, capsys):
-    """A mesh is still refused, naming item 13.  A batch's checkpoint and
+    """The concurrent shard schedule is still refused, naming item 14 (a
+    mesh runs: tests/test_torch_mesh.py).  A batch's checkpoint and
     progress rows (item 7) now run: the checkpoint is written and the rows
     show chain 0 of 2."""
     spec, data, pr, pi = _chain_setup()
-    with pytest.raises(NotImplementedError, match="item 13"):
-        TG.run_chains(spec, data, pr, pi, nchains=2, mesh=object())
+    with pytest.raises(NotImplementedError, match="item 14"):
+        TG.run_chains(spec.__class__(**{**spec.__dict__, "shard_schedule": "concurrent"}),
+                      data, pr, pi, nchains=2)
     ck = str(tmp_path / "ck")
     TG.run_chains(spec, data, pr, pi, nchains=2, checkpoint_path=ck, progress=True)
     assert os.path.exists(ck + ".npz") and os.path.exists(ck + ".meta.json")

@@ -11,6 +11,7 @@ import hibayes_tpu as hj
 import hibayes_tpu_torch as ht
 from hibayes_tpu.data.ld import BlockDiagLD as JBlockDiagLD
 from hibayes_tpu.data.sparse_ld import TiledSparseLD as JTiledSparseLD
+from hibayes_tpu_torch.parallel.mesh import make_mesh
 
 from .torch_parity import s_sumstats
 
@@ -78,18 +79,19 @@ def _refusal_inputs():
 
 @pytest.mark.parametrize("kw,item", [
     (dict(nchains=2), None),
-    (dict(mesh=object()), "item 13"),
-    (dict(shard_schedule="concurrent"), "item 13"),
+    (dict(mesh=make_mesh()), None),
+    (dict(shard_schedule="concurrent"), "item 14"),
 ])
 def test_sbrm_refuses_what_is_not_ported(kw, item):
-    """Meshes and shard schedules raise, naming item 13; a chain batch runs
-    on every layout, a tiled LD included (item None: the fit runs, with
-    each chain's guard counts)."""
+    """The concurrent shard schedule raises, naming item 14; a chain batch
+    runs on every layout, a tiled LD included, and so does a mesh (item
+    None: the fit runs, with each chain's guard counts)."""
     ss, R, Rp = _refusal_inputs()
-    ld = ht.TiledSparseLD.from_scipy(sp.csr_matrix(Rp), tile=128) if "nchains" in kw else R
+    ld = ht.TiledSparseLD.from_scipy(sp.csr_matrix(Rp), tile=128) if item is None else R
     if item is None:
         fit = ht.sbrm(ss, ld, niter=20, nburn=10, verbose=False, device="cpu", **kw)
-        assert fit.guard.shape == (2, 2) and np.isfinite([fit.Vg, fit.Ve]).all()
+        assert fit.guard.shape == (kw.get("nchains", 1), 2)
+        assert np.isfinite([fit.Vg, fit.Ve]).all()
         return
     with pytest.raises(NotImplementedError, match=item):
         ht.sbrm(ss, ld, niter=20, nburn=10, verbose=False, device="cpu", **kw)

@@ -23,6 +23,7 @@ from hibayes_tpu_torch.engine.convert import (chain_state_from_numpy,
                                               gibbs_data_from_numpy)
 from hibayes_tpu_torch.math import solvers as TS
 from hibayes_tpu_torch.ops import blockgibbs as TB
+from hibayes_tpu_torch.parallel.mesh import make_mesh
 
 from .torch_parity import MODELS, JaxNoise, port_spec
 
@@ -425,16 +426,17 @@ def test_ssbrm_ne0_large_n_row_padding():
 
 
 def test_ssbrm_refusals():
-    """BSLMM is refused as in JAX (ValueError); meshes are not ported
-    (NotImplementedError, citing ROADMAP item 13); without a card,
-    device=None raises.  (Checkpoints and chain batches are ported:
+    """BSLMM is refused as in JAX (ValueError); a mesh runs (a one-rank
+    mesh: the one-device fit bit for bit); without a card, device=None
+    raises.  (Checkpoints and chain batches are ported:
     tests/test_torch_checkpoint.py, tests/test_torch_multichain_ssbrm.py.)"""
     prob = _ss_problem(nkid=120, n_g=60, m=20, n_pg=30, n_pn=40)
     kw = {k: prob[k] for k in ("data", "M", "M_id", "pedigree")}
     with pytest.raises(ValueError, match="BSLMM"):
         htt.ssbrm("y~1", method="BSLMM", device="cpu", **kw)
-    with pytest.raises(NotImplementedError, match="item 13"):
-        htt.ssbrm("y~1", device="cpu", mesh=object(), **kw)
+    fit_kw = dict(niter=20, nburn=10, verbose=False, device="cpu", **kw)
+    np.testing.assert_array_equal(htt.ssbrm("y~1", mesh=make_mesh(), **fit_kw).alpha,
+                                  htt.ssbrm("y~1", **fit_kw).alpha)
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="no CUDA device"):
             htt.ssbrm("y~1", niter=20, nburn=10, **kw)

@@ -1,0 +1,307 @@
+"""Ranks of the port's multi-process tests, on the CPU: gloo process groups
+spawned from a test, without JAX.
+
+A spawned rank imports this module afresh (torch.multiprocessing's spawn
+start method), so it imports neither JAX nor the JAX package: a test
+computes the JAX reference in its own process and hands the ranks numpy
+arrays, JAX's random numbers included (:class:`TableNoise`).  The ranks
+meet at a ``file://`` rendezvous under the test's tmp_path (no port for
+parallel test workers to race for), and :func:`spawn` joins them under a
+time limit, so a hang fails the test.
+"""
+
+from __future__ import annotations
+
+import importlib
+import os
+import pickle
+import traceback
+
+import numpy as np
+import torch
+
+from hibayes_tpu_torch.engine.rng import IterNoise
+
+
+class TableNoise(IterNoise):
+    """The draws of one iteration read from a table {stream: array}, each
+    stream's numbers as some other source drew them (JAX's, recorded by
+    :class:`RecordNoise` in the test's process).  A gamma draw's entry
+    holds its shape parameter too, which must be the one asked for: the
+    numbers were drawn for it."""
+
+    def __init__(self, table, it=0, dtype=torch.float64):
+        super().__init__(0, it, "cpu", dtype)
+        self.table = table
+
+    def _get(self, stream, shape):
+        a = torch.from_numpy(np.array(self.table[stream]))
+        assert tuple(a.shape) == tuple(shape), (stream, a.shape, shape)
+        return a
+
+    def normal(self, stream, shape=()):
+        return self._get(stream, shape)
+
+    def uniform(self, stream, shape=()):
+        return self._get(stream, shape)
+
+    def gamma(self, stream, alpha, shape=None):
+        want, x = self.table[stream]
+        got = torch.as_tensor(alpha, dtype=torch.float64).cpu().numpy()
+        np.testing.assert_allclose(got, want, rtol=1e-12, err_msg=f"stream {stream}")
+        shape = tuple(got.shape) if shape is None else tuple(shape)
+        assert tuple(np.shape(x)) == shape, (stream, np.shape(x), shape)
+        return torch.from_numpy(np.array(x))
+
+
+class RecordNoise(IterNoise):
+    """Wraps another IterNoise and records every draw by stream, for a
+    :class:`TableNoise` elsewhere."""
+
+    def __init__(self, inner):
+        super().__init__(0, inner.it, "cpu", inner.dtype)
+        self.inner, self.table = inner, {}
+
+    def _keep(self, stream, x):
+        assert stream not in self.table, f"stream {stream} drawn twice"
+        self.table[stream] = x.numpy().copy()
+        return x
+
+    def normal(self, stream, shape=()):
+        return self._keep(stream, self.inner.normal(stream, shape))
+
+    def uniform(self, stream, shape=()):
+        return self._keep(stream, self.inner.uniform(stream, shape))
+
+    def gamma(self, stream, alpha, shape=None):
+        x = self.inner.gamma(stream, alpha, shape)
+        assert stream not in self.table, f"stream {stream} drawn twice"
+        self.table[stream] = (torch.as_tensor(alpha, dtype=torch.float64).cpu().numpy(),
+                              x.numpy().copy())
+        return x
+
+
+def _rank_main(rank, world, init, target, payload, out, threads):
+    import torch.distributed as dist
+
+    torch.set_num_threads(threads)
+    try:
+        if isinstance(payload, dict) and payload.get("init") == "own":
+            payload = dict(payload, init=init)   # the rank joins by itself
+        else:
+            dist.init_process_group("gloo", init_method=init, world_size=world, rank=rank)
+        mod, name = target.rsplit(":", 1)
+        result = getattr(importlib.import_module(mod), name)(rank, world, payload)
+        dist.barrier()
+        dist.destroy_process_group()
+        with open(f"{out}.{rank}", "wb") as f:
+            pickle.dump(("ok", result), f)
+    except BaseException:
+        with open(f"{out}.{rank}", "wb") as f:
+            pickle.dump(("error", traceback.format_exc()), f)
+        raise
+
+
+def spawn(target: str, world: int, tmp_path, payload=None, timeout=120, threads=1):
+    """Run ``target`` ("module:function", called as fn(rank, world,
+    payload)) on ``world`` gloo ranks, each a spawned process joined to
+    the others by a file:// rendezvous in ``tmp_path``; returns each rank's
+    result, in rank order.  Raises with the rank's traceback if a rank
+    fails, and kills the ranks if they have not finished in ``timeout``
+    seconds.
+
+    The ranks fork from a server process that has imported this module (and
+    so torch and the port) once, not JAX: a rank starts in a fraction of a
+    second instead of importing torch anew."""
+    import multiprocessing
+
+    import torch.multiprocessing as mp
+
+    multiprocessing.set_forkserver_preload([__name__])
+    tmp = str(tmp_path)
+    init = "file://" + os.path.join(tmp, f"rendezvous_{os.getpid()}_{id(payload)}")
+    out = os.path.join(tmp, f"result_{os.getpid()}_{id(payload)}")
+    ctx = mp.start_processes(_rank_main, args=(world, init, target, payload, out, threads),
+                             nprocs=world, join=False, start_method="forkserver")
+    import time
+
+    t_end = time.time() + timeout
+    try:
+        while not ctx.join(timeout=max(0.1, t_end - time.time())):
+            if time.time() > t_end:
+                raise TimeoutError(f"{target} on {world} ranks: no end in {timeout} s")
+    except mp.ProcessRaisedException:
+        pass
+    finally:
+        for p in ctx.processes:
+            if p.is_alive():
+                p.kill()
+    results = []
+    for r in range(world):
+        try:
+            with open(f"{out}.{r}", "rb") as f:
+                kind, val = pickle.load(f)
+        except FileNotFoundError:
+            raise RuntimeError(f"{target}: rank {r} left no result") from None
+        if kind != "ok":
+            raise RuntimeError(f"{target}: rank {r} failed:\n{val}")
+        results.append(val)
+    return results
+
+
+def as_numpy(x):
+    """A state, tuple or dict of tensors as numpy, for the test process."""
+    if isinstance(x, torch.Tensor):
+        return x.detach().cpu().numpy()
+    if hasattr(x, "_asdict"):
+        return {k: as_numpy(v) for k, v in x._asdict().items()}
+    if isinstance(x, dict):
+        return {k: as_numpy(v) for k, v in x.items()}
+    if isinstance(x, (tuple, list)):
+        return type(x)(as_numpy(v) for v in x)
+    return x
+
+
+# ---------------------------------------------------------------------------
+# the ranks of tests/test_torch_mesh.py and tests/test_torch_mesh_sbrm.py
+# ---------------------------------------------------------------------------
+
+
+class Killed(Exception):
+    """Raised on every rank after a checkpoint, to stop a chain mid-run."""
+
+
+def _gibbs_case(mesh, spec, data, case):
+    import dataclasses
+
+    from hibayes_tpu_torch.engine import gibbs as TG
+    from hibayes_tpu_torch.engine.convert import chain_state_from_numpy
+    from hibayes_tpu_torch.parallel.mesh import gather_state
+
+    sp = dataclasses.replace(spec, **case.get("spec", {}))
+    kind = case["kind"]
+    if kind == "one":
+        out = TG.one_iteration(sp, data, 0, chain_state_from_numpy(case["state"]),
+                               noise=TableNoise(case["table"], dtype=data.y.dtype), mesh=mesh)
+        return as_numpy(gather_state(out, mesh, sp.n))
+    if kind == "batch":
+        noise = [TableNoise(t, dtype=data.y.dtype) for t in case["tables"]]
+        out = TG.one_iteration_batch(sp, data, 0, chain_state_from_numpy(case["state"]),
+                                     noise=noise, mesh=mesh)
+        return as_numpy(gather_state(out, mesh, sp.n))
+    pr = TG.Priors(**case["priors"])
+    if kind == "chains":
+        st, smp, ex = TG.run_chains(sp, data, pr, case["pi"], seed=case["seed"],
+                                    nchains=case["nchains"], mesh=mesh)
+        return as_numpy(st), smp, {k: ex[k] for k in ("pip", "wppa")}
+    if kind == "resume":
+        path = case["path"]
+        real = TG.barrier
+        calls = [0]
+
+        def stop(m):
+            real(m)
+            calls[0] += 1
+            if calls[0] == case["stop_after"]:
+                raise Killed()
+
+        TG.barrier = stop
+        try:
+            TG.run_chain(sp, data, pr, case["pi"], seed=case["seed"], mesh=mesh,
+                         checkpoint_path=path, chunk_records=1)
+            killed = False
+        except Killed:
+            killed = True
+        finally:
+            TG.barrier = real
+        st, smp, _ = TG.run_chain(sp, data, pr, case["pi"], seed=case["seed"], mesh=mesh,
+                                  checkpoint_path=path, chunk_records=1)
+        return killed, as_numpy(st), smp
+    raise ValueError(kind)
+
+
+def gibbs_cases(rank, world, payload):
+    """For each job of ``payload["jobs"]`` ({"shape", "cases"}), every case
+    of it (one_iteration, one_iteration_batch, run_chains, a killed and
+    resumed run_chain) on a mesh of that shape over these ranks: one spawn
+    serves every mesh shape of its world size.  Returns [{name: result}],
+    a dict per job."""
+    from hibayes_tpu_torch.engine import gibbs as TG
+    from hibayes_tpu_torch.engine.convert import gibbs_data_from_numpy
+    from hibayes_tpu_torch.parallel.mesh import make_mesh
+
+    spec = TG.GibbsSpec(**payload["spec"])
+    data = gibbs_data_from_numpy(payload["data"])
+    out = []
+    for job in payload["jobs"]:
+        mesh = make_mesh(shape=job["shape"], device="cpu")
+        out.append({c["name"]: _gibbs_case(mesh, spec, data, c) for c in job["cases"]})
+    return out
+
+
+def sgibbs_cases(rank, world, payload):
+    """One summary iteration (``one_s_iteration`` with JAX's numbers) and a
+    short chain (``run_s_chain``) on a mesh of ``payload["shape"]``;
+    returns {"one": (state, tally), "chain": (samples, guard)}."""
+    from hibayes_tpu_torch.engine import gibbs as TG
+    from hibayes_tpu_torch.engine import sgibbs as TSG
+    from hibayes_tpu_torch.engine.convert import s_chain_state_from_numpy, sgibbs_data_from_numpy
+    from hibayes_tpu_torch.parallel.mesh import make_mesh
+
+    mesh = make_mesh(shape=payload["shape"], device="cpu")
+    spec = TG.GibbsSpec(**payload["spec"])
+    data = sgibbs_data_from_numpy(payload["data"])
+    tally = torch.zeros(2, dtype=torch.int64)
+    one = TSG.one_s_iteration(spec, data, 0, s_chain_state_from_numpy(payload["state"]),
+                              noise=TableNoise(payload["table"]), mesh=mesh, tally=tally)
+    _, smp, ex = TSG.run_s_chain(spec, data, TG.Priors(**payload["priors"]), payload["pi"],
+                                 seed=3, mesh=mesh)
+    return {"one": (as_numpy(one), tally.numpy()), "chain": (smp, ex["guard"])}
+
+
+def multihost_case(rank, world, payload):
+    """tests/test_torch_multihost.py: join the group by ``init_multihost``
+    (a file:// address), read this rank's rows of a PLINK fileset, run a
+    short chain on the (2, 1) mesh and an ibrm fit on (1, 2)."""
+    import hibayes_tpu_torch as htt
+    from hibayes_tpu_torch.data.plink import read_plink
+    from hibayes_tpu_torch.engine import gibbs as TG
+    from hibayes_tpu_torch.parallel.distributed import (init_multihost,
+                                                        load_plink_host_sharded,
+                                                        process_row_range)
+    from hibayes_tpu_torch.parallel.mesh import make_mesh
+
+    nproc, me = init_multihost(payload["init"], world, rank, backend="gloo")
+    assert (nproc, me) == (world, rank)
+    mesh = make_mesh(shape=(world, 1), device="cpu")
+    bfile = payload["bfile"]
+    fileset, local = load_plink_host_sharded(bfile, mesh)
+    M = read_plink(bfile)["geno"].values
+    n = M.shape[0]
+    rows = process_row_range(n, mesh)
+    rng = np.random.default_rng(0)
+    y = M.astype(np.float64) @ rng.normal(0, 0.2, M.shape[1]) + rng.normal(0, 1, n)
+    spec, data, pr, pi = _multihost_chain(y, M)
+    _, smp, ex = TG.run_chain(spec, data, pr, pi, seed=5, mesh=mesh)
+    ids = np.array([f"i{k}" for k in range(n)])
+    fit = htt.ibrm("y ~ 1", data={"id": ids, "y": y}, M=M, M_id=ids, method="BayesCpi",
+                   niter=30, nburn=10, block=8, dtype=torch.float64, verbose=False,
+                   device="cpu", mesh=make_mesh(shape=(1, world), device="cpu"))
+    return {"rows": rows, "local": local.numpy(), "values": fileset["geno"].values,
+            "samples": smp, "pip": ex["pip"], "fit_alpha": fit.alpha, "fit_vg": fit.Vg}
+
+
+def _multihost_chain(y, M):
+    """The short BayesCpi chain of multihost_case, in float64, blocks of 8."""
+    from hibayes_tpu_torch.engine import gibbs as TG
+
+    pi = np.array([0.95, 0.05])
+    data = TG.prepare_gibbs_data(y, M, block=8, dtype=torch.float64, geno_dtype="int8")
+    pr = TG.resolve_priors(y, float(data.vx.sum()), pi[0], nr=0)
+    m = M.shape[1]
+    spec = TG.GibbsSpec(model="BayesCpi", n=len(y), m=m, m_pad=int(data.xpx.shape[0]),
+                        block=8, nc=0, nlevels=(), n_fold=2, niter=40, nburn=20, thin=5,
+                        nvar0=int((data.vx[:m] == 0).sum()), dfvara=pr.dfvara,
+                        s2vara=pr.s2vara, dfvare=pr.dfvare, s2vare=pr.s2vare,
+                        s2varg=pr.s2varg, lambda_rate0=pr.lambda_rate0)
+    return spec, data, pr, pi
