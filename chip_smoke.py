@@ -34,7 +34,10 @@ Phases, each printing as it goes:
      fold instance), the dense segment sweep at those blocks, the guarded
      segment and tiled sweeps at 12 and 16 folds, and the tiled sweep on
      stores of tiles of 10 and 256 (re-tiled to 12 and 128), one chain
-     and four.
+     and four.  The concurrent schedule's one-card emulation at
+     emulate_shards=4, merge_rounds=2 (8 sweep_mc launches a sweep at their
+     block ranges) against the same emulation through the plain sweep, K in
+     {1, 4} x {int8, f32} x {BayesCpi, BayesR}.
      Bar: at most 1% mixture draws flip, effects within 5e-5 max|g| where
      the draws agree, residuals (r_hat) within 1e-4 max|.| when none flips;
      a second kernel sweep on the same inputs must be bit-identical.  Then
@@ -123,7 +126,8 @@ Phases, each printing as it goes:
      iteration), finite Vg/Ve, 0 < h2 < 1, the accuracy of X alpha against
      the simulated genetic values (chromosome 1's part for the SparseLD),
      and the guard's counts (first draws rejected, all 8 candidates failed);
-  9. checkpoints, the command line and BSLMM.  (9a) on phase 8's fileset,
+  9. checkpoints, the command line and BSLMM.  (9a) on the first 4
+     chromosomes of phase 8's fileset (written again on their own),
      ``python -m hibayes_tpu_torch ibrm`` (the quick start's call, 400
      iterations, --checkpoint, --quiet) in a subprocess, killed with SIGKILL
      once its checkpoint is past burn-in and run again: its TSVs byte for
@@ -176,7 +180,7 @@ Phases, each printing as it goes:
      50 iterations, each chain's GEBV accuracy against phase 4's bar.
      (12b) two ranks spawned here (NCCL with a card each where there are
      two, else gloo with both on cuda:0, time-slicing it), each running
-     rank12: (vi) its rows of phase 8's fileset by load_plink_host_sharded,
+     rank12: (vi) its rows of 9a's fileset by load_plink_host_sharded,
      bit for bit the whole read's; (i) the flagship on (1, 2), turn: one
      iteration at the bar against one device, then phase 4's recipe
      through ibrm(mesh=) with its GEBV bar; (ii) on (2, 1), the ind hybrid:
@@ -188,8 +192,28 @@ Phases, each printing as it goes:
      accuracy bar; (v) a small ssbrm (the epsilon term on) on both meshes,
      3 iterations, finite Ve.  Each run prints ms/iter and its share in
      collectives; each kernel of each run must launch; a failed rank
-     fails the run.  Then a JSON line of kernels, each phase's seconds and
-     the whole run's, the nvidia-smi line, and the last line {"ok": true,
+     fails the run.
+ 13. the relaxed concurrent shard schedule.  (13b, in 12b's spawn) (vii)
+     the flagship on (1, 2), concurrent, one merge round: one iteration
+     bit for bit the one-card emulation at 2 shards (made before the
+     spawn), 10 iterations timed; (viii) a 64-row store of phase 5's recipe
+     swept on (1, 2) in 2 merge rounds (kernel 9 at each rank's row_base
+     + r nl/2), at the bar against the same rounds through the plain
+     sweep, guard counts equal, bit-identical twice; then sbrm(mesh=,
+     shard_schedule="concurrent", merge_rounds=2) on (iv)'s m=500,224 LD
+     with phase 5's accuracy bar.  (13a, after 12b) on the flagship cohort
+     of phase 12: (i) one sweep emulated on 4 shards (four sweep1 launches
+     of 128 blocks): group 0 bit for bit the one-device sweep's first
+     16,384 SNPs, group 1 at the bar against its plain version, the merged
+     yadj against the recomputed residual, bit-identical twice; (ii)
+     ibrm(shard_schedule="concurrent", emulate_shards=4) with phase 4's
+     recipe: the m > n warning caught, sweep1 4 times an iteration,
+     ms/iter, the GEBV's correlation with 12b(i)'s exact chain and its
+     accuracy against its bar; (iii) the same with 4 chains and 2 merge
+     rounds for 50 iterations, each chain's accuracy.  Each phase-13 run's
+     kernels must launch as the schedule says.  Then a JSON line of
+     kernels, each phase's seconds and the whole run's (phase 13's
+     printed apart), the nvidia-smi line, and the last line {"ok": true,
      "device": {...}}.
 
 Any failed check raises, so the script exits non-zero and prints no result.
@@ -927,6 +951,65 @@ def check_kernels_mc(torch, TG, TB, dev, errs, n=4096, m=1024, B=128):
                 log("  ok sweep_mc block_range=(2, 3) BayesR int8 K=8")
 
 
+class plain_route:
+    """Within it ``TB.<name>`` is its plain version, so a schedule built on
+    the wrapper (an emulation, a mesh's rounds) runs its plain counterpart
+    on the same tensors: only to hold a kernel path against it."""
+
+    def __init__(self, TB, name):
+        self.TB, self.name = TB, name
+
+    def __enter__(self):
+        self.real = getattr(self.TB, self.name)
+        setattr(self.TB, self.name, getattr(self.TB, self.name + "_plain"))
+
+    def __exit__(self, *exc):
+        setattr(self.TB, self.name, self.real)
+
+
+def check_concurrent_emulation(torch, TG, TB, dev, errs, n=4096, m=1024, B=128, S=4, Rm=2):
+    """The concurrent schedule's one-card emulation at emulate_shards=4,
+    merge_rounds=2 (8 groups of one block, each a sweep_mc launch at its
+    block_range from the round-start residual, the deltas merged) against
+    the same emulation through the plain sweep: K in {1, 4} x {int8, f32}
+    x {BayesCpi, BayesR}, each at the bar, bit-identical on a second run,
+    S Rm sweep_mc launches a sweep (sweep1 at K=1)."""
+    gen = torch.Generator(device=dev).manual_seed(27)
+    M = make_genotype(torch, n, m, gen, dev)
+    y = (M[:, :64].float() @ (0.1 * torch.randn(64, generator=gen, device=dev))
+         + torch.randn(n, generator=gen, device=dev)).cpu().numpy()
+    errs["concurrent_emulation"] = 0.0
+    for x_int8 in (True, False):
+        for model in ("BayesCpi", "BayesR"):
+            fold = np.array([0.0, 1e-4, 1e-3, 1e-2]) if model == "BayesR" else None
+            data = TG.prepare_gibbs_data(
+                y, M if x_int8 else M.float(), block=B, fold=fold,
+                geno_dtype="int8" if x_int8 else None, device=dev)
+            spec, pr, pi = make_spec(TG, model, data, m, n)
+            spec = spec.__class__(**{**spec.__dict__, "shard_schedule": "concurrent",
+                                     "emulate_shards": S, "merge_rounds": Rm})
+            for K in (1, 4):
+                args = sweep_args(torch, TG, spec, data, pr, pi, K, seed=30 + K)
+                reset_counts(TB)
+                out = TG._sweep_concurrent_emu_mc(spec, *args)
+                torch.cuda.synchronize()
+                launches = read_counts(TB)[0]
+                again = TG._sweep_concurrent_emu_mc(spec, *args)
+                with plain_route(TB, "sweep_mc"):
+                    ref = TG._sweep_concurrent_emu_mc(spec, *args)
+                torch.cuda.synchronize()
+                what = (f"concurrent emulation S={S} Rm={Rm} {model} "
+                        f"{'int8' if x_int8 else 'f32'} K={K}")
+                errs["concurrent_emulation"] = max(errs["concurrent_emulation"],
+                                                   bar(ref, out, what))
+                if not all(torch.equal(a, b) for a, b in zip(out, again)):
+                    raise AssertionError(f"{what}: two runs differ (not deterministic)")
+                want = {"sweep_mc": S * Rm, **({"sweep1": S * Rm} if K == 1 else {})}
+                if any(launches[k] != v for k, v in want.items()):
+                    raise AssertionError(f"{what}: launches {launches}, expected {want}")
+                log(f"  ok {what}")
+
+
 def time_k5(torch, TG, TB, dev, errs, B=128, nbg=16):
     """Rows 2 and 8 of PERF.md's kernel table, each at its TPU kernel's own
     shapes over nbg blocks, held to the bar and timed with CUDA events
@@ -1419,7 +1502,13 @@ def time_tiled(torch, TSG, TB, spec, data, pr, pi, ld, errs, rows=16, key="sweep
     chain = {"chain_bayescpi_guard": chain_us(torch, TB, spec, Wn, Pg, r[:B], spec.vary),
              "chain_bayescpi": chain_us(torch, TB, spec, Wn,
                                         Pg[:, :TB.n_rows(spec)].contiguous(), r[:B])}
+    # the library yardstick: every slot's product tiles[i, k]^T dg_i of these
+    # rows as one torch.bmm (the sweep's products without its sequence)
+    Kt = args[0].shape[1]
+    tl = args[0].reshape(rows * Kt, T, T)
+    dgv = out[0].reshape(rows, 1, 1, T).expand(rows, Kt, 1, T).reshape(rows * Kt, 1, T)
     t = {"sweep_s_tiled": cuda_ms(torch, lambda: TB.sweep_s_tiled(sub, *args), 10),
+         "sweep_s_tiled_library": cuda_ms(torch, lambda: torch.bmm(dgv, tl), 10),
          "sweep_s_tiled_plain": cuda_ms(torch, lambda: TB.sweep_s_tiled_plain(sub, *args), 1),
          "sweep_s_tiled_full": cuda_ms(torch, lambda: TB.sweep_s_tiled(spec, *full), 3),
          "sweep_s_tiled_full_host": host_ms(torch, lambda: TB.sweep_s_tiled(spec, *full)),
@@ -1453,7 +1542,10 @@ def time_tiled(torch, TSG, TB, spec, data, pr, pi, ld, errs, rows=16, key="sweep
                 raise AssertionError(f"sweep_s_tiled K={K}: chain {k} differs from its K=1 "
                                      f"launch at the main path's shapes")
         kk = f"sweep_s_tiled_k{K}"
+        dgK = out[0].reshape(K, rows, 1, T).permute(1, 2, 0, 3).expand(rows, Kt, K, T)
+        dgK = dgK.reshape(rows * Kt, K, T)
         t.update({kk: cuda_ms(torch, lambda: TB.sweep_s_tiled(sub, *kargs), 10),
+                  kk + "_library": cuda_ms(torch, lambda: torch.bmm(dgK, tl), 10),
                   kk + "_plain": cuda_ms(torch, lambda: TB.sweep_s_tiled_plain(sub, *kargs), 1),
                   kk + "_full": cuda_ms(torch, lambda: TB.sweep_s_tiled(spec, *kfull), 3),
                   kk + "_full_host": host_ms(torch, lambda: TB.sweep_s_tiled(spec, *kfull)),
@@ -1880,6 +1972,12 @@ def quickstart(torch, ht, TG, TSG, TB, dev, gen, args, smi, errs, thin, after=No
 # comes once the checkpoint reports 200 or 300, a save past burn-in before
 # the end.
 CLI_NITER, CLI_NBURN = 400, 100
+# 9a's CLI and 12b(vi) read the first CLI_CHR chromosomes of phase 8's
+# fileset, written again on their own (16,384 SNPs at the full size): the
+# whole 0.82 GB .bed, read twice in 9a and once more in 12b(vi), took about
+# 170 s of a 1,031 s run on an H100 host, time spent in reads that phase 8
+# already makes, not in the paths 9a and 12b(vi) check.
+CLI_CHR = 4
 
 # Phase 9b, BSLMM at the flagship's width m = 65,536 with n cut to 20,000:
 # the GRM is a dense n x n matrix (1.6 GB in float32 at 20,000; 10 GB at
@@ -1916,11 +2014,12 @@ def output_line(path, start):
 
 def cli_resume(torch, ht, TB, dev, stem, bed, pheno, args, smi, thin):
     """Phase 9a: ``python -m hibayes_tpu_torch ibrm`` (the quick start's call,
-    --checkpoint, --quiet) on phase 8's fileset, killed with SIGKILL once
-    its checkpoint reports an iteration past burn-in, then run again to the
-    end.  Its .alpha/.gebv/.var/.gwas files must equal, byte for byte, what
-    the CLI's writer makes of an uninterrupted ibrm with the same arguments
-    in this process on the genotype phase 8 read.  Returns its numbers."""
+    --checkpoint, --quiet) on ``stem`` (phase 8's first CLI_CHR chromosomes),
+    killed with SIGKILL once its checkpoint reports an iteration past
+    burn-in, then run again to the end.  Its .alpha/.gebv/.var/.gwas files
+    must equal, byte for byte, what the CLI's writer makes of an
+    uninterrupted ibrm with the same arguments in this process on ``bed``,
+    the same fileset read here.  Returns its numbers."""
     import signal
 
     from hibayes_tpu_torch import cli
@@ -3374,6 +3473,27 @@ RANK_TIMEOUT_S = 600      # the spawn's limit: a rank that hangs fails the run
 # 4's bar (11b measured 0.93-0.97 after 50 iterations of a chain of this
 # cohort's recipe).
 PIPE_GEBV_CORR_MIN = GEBV_CORR_MIN
+# Phase 13, the relaxed concurrent schedule: merge rounds of 13a(iii) and
+# 13b(viii), and 13a(i)'s bar on the merged yadj of one emulated f32 sweep
+# against _recompute_residuals of its effects: the kernel bar's residual
+# term (each of 512 blocks adds X_b dg in f32, and the recompute sums
+# 65,536 SNPs' products in f32; both are rounding, far below it).
+CONC_ROUNDS = 2
+CONC_RESYNC_REL = 1e-4
+# 13a(ii)/(iii)'s GEBV bar.  The concurrent kernel is biased where m > n
+# (PARITY.md: GEBV corr 0.947 with the exact chain, Vg -32%, Ve +52% at
+# n=4,096 x m=65,536, S=8), so its bar rests on a study at this cell's
+# m/n: scripts/concurrent_accuracy.py (the flagship recipe on the CPU at
+# n=1,000, m=1,311, 10 causal SNPs, seeds 2024 and 1212, and at n=2,000,
+# seed 2024) read GEBV accuracy at S=4, Rm=1 0.9838, 0.9759 and 0.9797
+# against the exact chain's 0.9829, 0.9708 and 0.9716 (200 iterations);
+# at Rm=2 0.9624, 0.9610 and 0.9484, or after 50 iterations 0.9502,
+# 0.9425 and 0.9306 (exact 0.9672, 0.9635, 0.9410): a loss of at most
+# 0.023, not growing with n.  Phase 4's exact chain reads 0.978 and 12b(i)'s 0.977 on
+# the card, so phase 4's bar (and PIPE_GEBV_CORR_MIN's, after 50
+# iterations) still leaves room, and a sweep that draws against the wrong
+# residual falls far below it.
+CONC_GEBV_CORR_MIN = GEBV_CORR_MIN
 
 
 def flagship12(torch, dev, args):
@@ -3383,24 +3503,22 @@ def flagship12(torch, dev, args):
     return simulate(torch, args.n, args.m, gen, dev)
 
 
-def flagship12_chain(torch, TG, M, y, dev, K, B=128, schedule="turn", emulate=0):
-    """The flagship's data, spec (BayesR, nblocks a multiple of the ranks),
-    priors, pi and a mid-run state of K chains (one chain: no chain axis)
-    made from the engine's own iteration 0."""
+def flagship12_chain(torch, TG, M, y, dev, K, B=128, schedule="turn", emulate=0, rounds=1):
+    """The flagship's data, spec (BayesR, nblocks a multiple of the ranks;
+    ``schedule``, ``emulate`` shards and merge ``rounds``), priors, pi and
+    a mid-run state of K chains (one chain: no chain axis) made from the
+    exact engine's own iteration 0, whatever the schedule."""
     data = TG.prepare_gibbs_data(y, M, block=B, geno_dtype="int8", device=dev,
                                  fold=fold_prior(4)[1], nblocks_multiple=MESH_RANKS)
     spec, pr, pi = make_spec(TG, "BayesR", data, M.shape[1], M.shape[0])
-    spec = spec.__class__(**{**spec.__dict__, "shard_schedule": schedule,
-                             "emulate_shards": emulate, "resync_every": 0})
-    st = TG.init_state(spec, data, pr, pi)
+    exact = spec.__class__(**{**spec.__dict__, "resync_every": 0})
+    spec = exact.__class__(**{**exact.__dict__, "shard_schedule": schedule,
+                              "emulate_shards": emulate, "merge_rounds": rounds})
+    st = TG.init_state(exact, data, pr, pi)
     if K > 1:
-        st = TG.stack_state(st, K)
-        st = TG.one_iteration_batch(spec.__class__(**{**spec.__dict__,
-                                                      "shard_schedule": "turn",
-                                                      "emulate_shards": 0}),
-                                    data, MESH_SEED, st)
+        st = TG.one_iteration_batch(exact, data, MESH_SEED, TG.stack_state(st, K))
     else:
-        st = TG.one_iteration(spec, data, MESH_SEED, st)
+        st = TG.one_iteration(exact, data, MESH_SEED, st)
     return data, spec, pr, pi, st
 
 
@@ -3482,6 +3600,164 @@ def pipeline_emulation(torch, ht, TG, TB, dev, args, smi, errs):
             "emulate2": ref2}
 
 
+def concurrent_s2(torch, TG, dev, args):
+    """13b(vii)'s reference: one iteration of the flagship's one chain from
+    flagship12_chain's state (MESH_SEED's noise) under the concurrent
+    emulation at S = 2, Rm = 1, the fields the ranks' (1, 2) run must equal
+    bit for bit."""
+    M, data, _ = flagship12(torch, dev, args)
+    gd, spec, _, _, st = flagship12_chain(torch, TG, M, data["y"], dev, 1,
+                                          schedule="concurrent", emulate=MESH_RANKS)
+    out = TG.one_iteration(spec, gd, MESH_SEED, st)
+    ref = {k: getattr(out, k).cpu().numpy() for k in ("g", "track", "yadj", "u", "vara",
+                                                     "vare", "pi")}
+    del M, data, gd, st, out
+    torch.cuda.empty_cache()
+    return ref
+
+
+def concurrent_emulation(torch, ht, TG, TB, dev, args, smi, errs, exact_gebv):
+    """13a, the concurrent schedule emulated on one card on the flagship
+    cohort of phase 12 (n=50,000 x m=65,536, BayesR, int8, 512 blocks of
+    128).  (i) One emulated sweep at S=4, Rm=1, K=1 from flagship12_chain's
+    state: four sweep1 launches of 128 blocks; group 0 bit for bit the
+    one-device sweep's first 16,384 SNPs; group 1 bit for bit its own
+    launch and at the bar against its plain version; the merged yadj
+    within CONC_RESYNC_REL of _recompute_residuals of the new effects;
+    bit-identical twice.  (ii) ibrm(shard_schedule="concurrent",
+    emulate_shards=4) with phase 4's recipe: the m > n warning, sweep1 S
+    times an iteration, ms/iter, the GEBV's correlation with 12b(i)'s exact
+    chain on this cohort (``exact_gebv``) and its accuracy against
+    CONC_GEBV_CORR_MIN.  (iii) ibrm(nchains=4, ..., merge_rounds=2) for
+    PIPE_ITERS iterations: the K-chain kernels at every group, each chain's
+    accuracy against CONC_GEBV_CORR_MIN.  Returns its results."""
+    import warnings
+
+    from hibayes_tpu_torch.engine.rng import IterNoise
+
+    M, data, gv = flagship12(torch, dev, args)
+    gd, spec, pr, pi, st = flagship12_chain(torch, TG, M, data["y"], dev, 1)
+    S = 4
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore", UserWarning)   # m > n: checked in (ii)
+        emu_spec = spec.__class__(**{**spec.__dict__, "shard_schedule": "concurrent",
+                                     "emulate_shards": S})
+    pre = TG._pre_sweep(spec, gd, IterNoise(MESH_SEED, st.it, dev), st)
+    reset_counts(TB)
+    emu = TG._run_sweep_k1(emu_spec, gd, pre, st.g)
+    torch.cuda.synchronize()
+    launches = read_counts(TB)[0]
+    if launches["sweep1"] != S or launches["sweep_mc"] != S:
+        raise AssertionError(f"13a(i): the emulated sweep made {launches}; expected {S} sweep1")
+    again = TG._run_sweep_k1(emu_spec, gd, pre, st.g)
+    if not all(torch.equal(a, b) for a, b in zip(emu, again)):
+        raise AssertionError("13a(i): two emulated sweeps differ (not deterministic)")
+    one = TG._run_sweep_k1(spec, gd, pre, st.g)
+    mg = spec.m_pad // S
+    same0 = all(torch.equal(a[:mg], b[:mg]) for a, b in zip(emu[:3], one[:3]))
+    if not same0:
+        raise AssertionError("13a(i): group 0 is not the one-device sweep's first "
+                             f"{mg} SNPs bit for bit")
+    b = lambda v: v[None]
+    sl = slice(mg, 2 * mg)
+    g1 = (spec, {k: b(v) for k, v in pre["consts"].items()}, gd.X_blocks, gd.W_blocks,
+          gd.xpx[sl], gd.vx[sl],
+          *(b(a)[:, sl] for a in (pre["vei"], st.g, *pre["rnd"], pre["vargL_in"])),
+          b(pre["yadj"]), b(pre["u"]))
+    nbg = spec.nblocks // S
+    kern = TB.sweep_mc(*g1, block_range=(nbg, nbg))
+    t0 = time.perf_counter()
+    ref = TB.sweep_mc_plain(*g1, block_range=(nbg, nbg))
+    torch.cuda.synchronize()
+    t_plain = time.perf_counter() - t0
+    if not all(torch.equal(a[0], e[sl]) for a, e in zip(kern[:3], emu[:3])):
+        raise AssertionError("13a(i): group 1 of the emulation is not its own launch")
+    errs["concurrent_group1"] = bar((ref[0][0], ref[1][0], None, ref[3][0]),
+                                    (kern[0][0], kern[1][0], None, kern[3][0]),
+                                    "13a(i) group 1 against its plain version")
+    ya_rec, _ = TG._recompute_residuals(spec, gd, pre["mu"], pre["beta"], pre["estR"],
+                                        emu[0], pre["J_beta"], pre["epsl_estR"],
+                                        pre["k_estR"])
+    drift = float((emu[3] - ya_rec).abs().max() / ya_rec.abs().max())
+    if not drift <= CONC_RESYNC_REL:
+        raise AssertionError(f"13a(i): merged yadj {drift:.3g} of max|yadj| from the "
+                             f"recomputed one (bar {CONC_RESYNC_REL})")
+    t_emu = cuda_ms(torch, lambda: TG._run_sweep_k1(emu_spec, gd, pre, st.g), 3)
+    t_one = cuda_ms(torch, lambda: TG._run_sweep_k1(spec, gd, pre, st.g), 3)
+    log(f"[13a] (i) one emulated concurrent sweep (S={S}, Rm=1, K=1): {S} sweep1 launches of "
+        f"{nbg} blocks, bit-identical twice; group 0 bit for bit the one-device sweep's first "
+        f"{mg} SNPs; group 1 at the bar against its plain version (max |g| error "
+        f"{errs['concurrent_group1']:.3g}; plain {t_plain:.1f} s); merged yadj {drift:.3g} "
+        f"of max|yadj| from the recomputed residual (bar {CONC_RESYNC_REL}); the sweep "
+        f"{t_emu:.3f} ms against the one-device sweep {t_one:.3f} ms on {smi}")
+    del pre, emu, again, one, kern, ref, g1, ya_rec, gd, st
+    torch.cuda.empty_cache()
+    res = {"i": {"group0_bit_for_bit": same0, "group1_max_abs_err": errs["concurrent_group1"],
+                 "yadj_drift_rel": drift, "sweep_ms": t_emu, "one_device_sweep_ms": t_one,
+                 "plain_group1_s": t_plain}}
+
+    thin = 5
+    niter_eff = args.nburn + ((args.niter - args.nburn) // thin) * thin
+    gvn = gv.cpu().numpy()
+    reset_counts(TB)
+    with warnings.catch_warnings(record=True) as w:
+        warnings.simplefilter("always")
+        fit = ht.ibrm("y ~ x1 + (1|grp)", data=data, M=M, M_id=data["id"], method="BayesR",
+                      niter=args.niter, nburn=args.nburn, thin=thin, block=128, seed=args.seed,
+                      device=dev, verbose=False, shard_schedule="concurrent", emulate_shards=S)
+    torch.cuda.synchronize()
+    warned = [str(x.message) for x in w if "block-Jacobi" in str(x.message)]
+    if (args.m > args.n) != bool(warned) or (
+            warned and f"m ({args.m}) > n ({args.n})" not in warned[0]):
+        raise AssertionError(f"13a(ii): the m > n warning where m={args.m}, n={args.n}: "
+                             f"{[str(x.message) for x in w]}")
+    launches, plain = read_counts(TB)
+    expect_counts(launches, plain, {"sweep_mc": S * niter_eff, "sweep1": S * niter_eff},
+                  "13a(ii)")
+    acc = corr(fit.g["gebv"], gvn)
+    with_exact = corr(fit.g["gebv"], exact_gebv)
+    ms = 1e3 * fit.chain_seconds / niter_eff
+    res["ii"] = {"ms_per_iter": ms, "gebv_acc": acc, "corr_with_exact": with_exact,
+                 "Vg": fit.Vg, "Ve": fit.Ve, "launches": launches, "warned": bool(warned)}
+    log(f"[13a] (ii) ibrm BayesR, concurrent emulated on {S} shards, {niter_eff} iterations: "
+        f"the m > n warning {'caught' if warned else 'not raised (m <= n)'}; {ms:.2f} ms/iter "
+        f"on {smi}; GEBV accuracy {acc:.4f} (bar "
+        f"{CONC_GEBV_CORR_MIN}), corr with 12b(i)'s exact chain {with_exact:.4f}; Vg "
+        f"{fit.Vg:.4f} Ve {fit.Ve:.4f}")
+    if not acc >= CONC_GEBV_CORR_MIN:
+        raise AssertionError(f"13a(ii): GEBV accuracy {acc} below {CONC_GEBV_CORR_MIN}")
+    del fit
+
+    reset_counts(TB)
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore", UserWarning)
+        fit = ht.ibrm("y ~ x1 + (1|grp)", data=data, M=M, M_id=data["id"], method="BayesR",
+                      niter=PIPE_ITERS, nburn=PIPE_ITERS // 2, thin=5, block=128, nchains=4,
+                      seed=args.seed, device=dev, verbose=False, shard_schedule="concurrent",
+                      emulate_shards=S, merge_rounds=CONC_ROUNDS)
+    torch.cuda.synchronize()
+    launches, plain = read_counts(TB)
+    groups = S * CONC_ROUNDS
+    nbg = spec.nblocks // groups
+    expect_counts(launches, plain, {"sweep_mc": groups * PIPE_ITERS,
+                                    "rows_mc_kernel": groups * PIPE_ITERS * (nbg + 1),
+                                    "draws_kernel": groups * PIPE_ITERS * nbg}, "13a(iii)")
+    n_rec = (PIPE_ITERS - PIPE_ITERS // 2) // 5
+    accs = [corr(g, gvn) for g in chain_gebv(fit, 4, n_rec)]
+    ms3 = 1e3 * fit.chain_seconds / PIPE_ITERS
+    res["iii"] = {"ms_per_iter": ms3, "gebv_acc": accs, "launches": launches}
+    log(f"[13a] (iii) ibrm BayesR 4 chains, concurrent emulated on {S} shards x "
+        f"{CONC_ROUNDS} rounds ({groups} groups of {nbg} blocks), {PIPE_ITERS} iterations: "
+        f"{ms3:.2f} ms/iter on {smi}; GEBV accuracy per chain "
+        f"{[round(a, 4) for a in accs]} (bar {CONC_GEBV_CORR_MIN})")
+    if not min(accs) >= CONC_GEBV_CORR_MIN:
+        raise AssertionError(f"13a(iii): a chain's GEBV accuracy {min(accs)} below "
+                             f"{CONC_GEBV_CORR_MIN}")
+    del fit, M, data, gv
+    torch.cuda.empty_cache()
+    return res
+
+
 def row_base_kernel(torch, TSLD, TSG, TG, TB, dev, errs, sspec, sdata, spr, spi, tld):
     """The tiled sweep at a row_base: a store of 64 tile rows of phase 5's
     recipe swept as each shard of 2 and of 4 against the whole r_hat, the
@@ -3552,7 +3828,7 @@ def row_base_kernel(torch, TSLD, TSG, TG, TB, dev, errs, sspec, sdata, spr, spi,
     return t, bnd
 
 
-def mesh_ranks(torch, args, after8, emu12a):
+def mesh_ranks(torch, args, after8, emu12a, emu13):
     """12b: MESH_RANKS processes (spawned here) run the port's mesh paths
     (rank12); a rank that fails fails the run.  Returns rank 0's results
     with every rank's launch counts."""
@@ -3565,7 +3841,7 @@ def mesh_ranks(torch, args, after8, emu12a):
     try:
         init = "file://" + os.path.join(tmp, "rendezvous")
         payload = {"args": vars(args), "backend": backend, "init": init, "out": tmp,
-                   "fileset": after8, "emu2": emu12a}
+                   "fileset": after8, "emu2": emu12a, "emu13": emu13}
         log(f"[12b] {MESH_RANKS} ranks, backend {backend}, "
             f"{'a card each' if backend == 'nccl' else 'both on cuda:0 (time-sliced)'}")
         ctx = mp.start_processes(rank12, args=(MESH_RANKS, payload), nprocs=MESH_RANKS,
@@ -3596,7 +3872,7 @@ def mesh_ranks(torch, args, after8, emu12a):
 
 
 def rank12(rank, world, payload):
-    """One rank of 12b: (vi) its rows of phase 8's fileset, then (i)-(v)
+    """One rank of 12b: (vi) its rows of 9a's fileset, then (i)-(v)
     on the meshes (1, 2) and (2, 1).  Writes its results to
     <out>/rank<r>.pkl; raises (so the spawn fails) on any failed check."""
     import pickle
@@ -3640,7 +3916,7 @@ def rank12(rank, world, payload):
         D.reset_collective_timer(timed=False)
         return out, wall, coll
 
-    # (vi) this rank's rows of phase 8's fileset
+    # (vi) this rank's rows of 9a's fileset
     import hashlib
 
     t0 = time.perf_counter()
@@ -3649,9 +3925,9 @@ def rank12(rank, world, payload):
     digest = hashlib.sha256(np.ascontiguousarray(fs["geno"].values).tobytes()).hexdigest()
     if digest != payload["fileset"]["rows_sha256"][rank] or local.shape[0] != rc:
         raise AssertionError(f"12b(vi) rank {rank}: rows {r0}..{r0 + rc} differ from "
-                             "phase 8's whole read")
+                             "9a's whole read")
     del fs, local
-    say(f"[12b] (vi) load_plink_host_sharded: each rank's rows of phase 8's fileset bit "
+    say(f"[12b] (vi) load_plink_host_sharded: each rank's rows of 9a's fileset bit "
         f"for bit the whole read's ({time.perf_counter() - t0:.1f} s)")
 
     # (i) the flagship on (1, 2), turn, one chain
@@ -3668,6 +3944,7 @@ def rank12(rank, world, payload):
     acc = corr(fit.g["gebv"], gv.cpu().numpy())
     res["i"] = {"max_abs_err": err_i, "ms_per_iter": 1e3 * fit.chain_seconds / niter_eff,
                 "collective_share": coll / max(fit.chain_seconds, 1e-9), "gebv_acc": acc}
+    res["exact_gebv"] = fit.g["gebv"]   # 13a(ii) correlates the concurrent chain with it
     say(f"[12b] (i) flagship on (1, 2), turn: one iteration at the bar against one device "
         f"(max |g| error {err_i:.3g}); {niter_eff} iterations {res['i']['ms_per_iter']:.2f} "
         f"ms/iter, collectives {100 * res['i']['collective_share']:.1f}% of it; GEBV "
@@ -3716,8 +3993,29 @@ def rank12(rank, world, payload):
     say(f"[12b] (iii) flagship 4 chains on (1, 2), ring pipeline: one iteration bit for bit "
         f"12a's emulation at emulate_shards=2; {res['iii']['ms_per_iter']:.2f} ms/iter, "
         f"collectives {100 * res['iii']['collective_share']:.1f}%")
-    del gd, st4, out, M, data, gv
+    del gd, st4, out
+
+    # 13b (vii) the flagship on (1, 2), the concurrent schedule, one merge round
+    t13 = time.perf_counter()
+    gd, specc, pr, pi, stc = flagship12_chain(torch, TG, M, data["y"], dev, 1,
+                                              schedule="concurrent")
+    out, wall, coll = run("vii_one", lambda: gather_state(
+        TG.one_iteration(specc, gd, MESH_SEED, stc, mesh=m12), m12, specc.n))
+    emu = payload["emu13"]
+    same = {k: bool(np.array_equal(getattr(out, k).cpu().numpy(), emu[k])) for k in emu}
+    if not all(same.values()):
+        raise AssertionError(f"13b(vii): the concurrent sweep on 2 ranks is not the emulation "
+                             f"at S=2 bit for bit: {same}")
+    _, wall, coll = run("vii", lambda: iters(m12, specc, stc, RANK_ITERS))
+    res["vii"] = {"bit_for_bit_emulation": True, "ms_per_iter": 1e3 * wall / RANK_ITERS,
+                  "collective_share": coll / wall}
+    say(f"[13b] (vii) flagship on (1, 2), concurrent, one merge round (ya + all_reduce of the "
+        f"ranks' deltas): one iteration bit for bit the emulation at S=2; "
+        f"{res['vii']['ms_per_iter']:.2f} ms/iter, collectives "
+        f"{100 * res['vii']['collective_share']:.1f}% on {smi_line()}")
+    del gd, stc, out, M, data, gv
     torch.cuda.empty_cache()
+    t13 = time.perf_counter() - t13
 
     # (iv) phase 5's LD on (1, 2), turn, kernel 9 at its row_base: its
     # recipe at the nearest m whose tile rows the ranks divide (500,224 for
@@ -3753,7 +4051,55 @@ def rank12(rank, world, payload):
         f"{100 * res['iv']['collective_share']:.1f}%; accuracy {acc:.4f} (bar {SBAYES_CORR_MIN})")
     if not acc >= SBAYES_CORR_MIN:
         raise AssertionError(f"12b(iv): accuracy {acc} below {SBAYES_CORR_MIN}")
-    del fit, sdata, tld
+    del fit, sdata
+
+    # 13b (viii) phase 5's LD on (1, 2), concurrent in CONC_ROUNDS merge rounds:
+    # one sweep of a 64-row store of its recipe against the plain version of
+    # the same rounds, then the fit on the m=500,224 store
+    t0 = time.perf_counter()
+    small = banded_ld(torch, TSLD, 64 * 128, dev)
+    ss_s, _ = summary_stats(torch, tiled_matvec(torch, small), small.m, small.m_pad,
+                            torch.Generator(device=dev).manual_seed(77), dev)
+    d_s, sp_s, pr_s, pi_s = s_setup(torch, TG, TSG, ss_s, small, "BayesCpi", 128, dev, True)
+    sp_c = sp_s.__class__(**{**sp_s.__dict__, "shard_schedule": "concurrent",
+                             "merge_rounds": CONC_ROUNDS})
+    g_s, r_s, P_s = s_sweep_inputs(torch, TSG, sp_c, d_s, pr_s, pi_s,
+                                   tiled_matvec(torch, small), 5)
+    part_s = TSG._on_mesh(d_s, m12)[0]
+    tallies = [torch.zeros(2, dtype=torch.int64, device=dev) for _ in range(3)]
+    outc, _, _ = run("viii_one", lambda: TSG._tiled_sweep_snp_sharded(
+        sp_c, part_s, r_s, P_s, m12, tallies[0]))
+    again = TSG._tiled_sweep_snp_sharded(sp_c, part_s, r_s, P_s, m12, tallies[1])
+    with plain_route(TB, "sweep_s_tiled"):
+        refc = TSG._tiled_sweep_snp_sharded(sp_c, part_s, r_s, P_s, m12, tallies[2])
+    if not all(torch.equal(a, b) for a, b in zip(outc, again)):
+        raise AssertionError("13b(viii): two concurrent tiled sweeps differ")
+    if not (torch.equal(tallies[0], tallies[1]) and torch.equal(tallies[0], tallies[2])):
+        raise AssertionError(f"13b(viii): guard counts {[t.tolist() for t in tallies]} "
+                             "(kernel, again, plain)")
+    err_viii = bar((g_s - refc[0], refc[1], refc[2]), (g_s - outc[0], outc[1], outc[2]),
+                   "13b(viii) one concurrent sweep on (1, 2)", r_index=2)
+    del small, d_s, part_s, outc, again, refc, g_s, r_s, P_s
+    fit, wall, coll = run("viii", lambda: ht.sbrm(
+        ss, tld, method="BayesCpi", fold=np.array([0.0, 1.0]), niter=args.niter,
+        nburn=args.nburn, thin=thin, seed=args.seed, device=dev, verbose=False, mesh=m12,
+        shard_schedule="concurrent", merge_rounds=CONC_ROUNDS))
+    acc = check_fit(fit, b_true, "13b(viii) sbrm concurrent on (1, 2)")
+    res["viii"] = {"max_abs_err": err_viii, "guard": tallies[0].tolist(),
+                   "ms_per_iter": 1e3 * fit.chain_seconds / niter_eff,
+                   "collective_share": coll / max(fit.chain_seconds, 1e-9), "acc": acc,
+                   "s": time.perf_counter() - t0}
+    say(f"[13b] (viii) sbrm tiled on (1, 2), concurrent in {CONC_ROUNDS} merge rounds: one "
+        f"sweep of a 64-row store at the bar against the plain rounds (max |g| error "
+        f"{err_viii:.3g}, guard counts equal: {tallies[0].tolist()}), bit-identical twice; "
+        f"m={sm}: {res['viii']['ms_per_iter']:.2f} ms/iter, collectives "
+        f"{100 * res['viii']['collective_share']:.1f}%; accuracy {acc:.4f} (bar "
+        f"{SBAYES_CORR_MIN})")
+    if not acc >= SBAYES_CORR_MIN:
+        raise AssertionError(f"13b(viii): accuracy {acc} below {SBAYES_CORR_MIN}")
+    t13 += time.perf_counter() - t0
+    res["seconds_13b"] = t13
+    del fit, tld
     torch.cuda.empty_cache()
 
     # (v) a small ssbrm, the epsilon term on, on (2, 1) and (1, 2)
@@ -3864,6 +4210,9 @@ def main(argv=None) -> int:
     fired_k = check_tiled_mc(torch, TG, TSG, TSLD, TB, dev, errs)
     check_mme_mc(torch, TG, TB, dev, errs)
     fired_shapes = check_shapes(torch, TG, TSG, TLD, TSLD, TB, dev, errs)
+    t13_phase3 = time.perf_counter()
+    check_concurrent_emulation(torch, TG, TB, dev, errs)
+    t13_phase3 = time.perf_counter() - t13_phase3
     log(f"[3] kernel checks passed in {time.perf_counter() - t0:.1f} s: {errs}; "
         f"the guard rejected {nrej} first draws at the lowered vary (tile 128); "
         f"guarded segment and tile-64 counts at the lowered vary {json.dumps(fired)}; "
@@ -4214,19 +4563,29 @@ def main(argv=None) -> int:
         os.path.dirname(os.path.abspath(__file__)), "build"))
 
     def after8(stem, bed, pheno):
-        # phase 12b(vi) reads this fileset again: its files are linked into
-        # another directory (no copy) with the whole read's rows by rank
+        # 9a and 12b(vi) read the first CLI_CHR chromosomes of this fileset,
+        # written again into a directory kept until 12b, with their rows by
+        # rank
         import hashlib
 
-        for ext in (".bed", ".bim", ".fam"):
-            os.link(stem + ext, os.path.join(kept, "cohort" + ext))
-        vals = bed["geno"].values
+        from hibayes_tpu_torch.data.plink import encode_bed_bytes
+
+        nchr = min(CLI_CHR, args.qs_chr)
+        vals = bed["geno"].values[:, :bed["geno"].values.shape[1] // args.qs_chr * nchr]
+        sub = os.path.join(kept, "cohort")
+        t0 = time.perf_counter()
+        write_fileset(np.ascontiguousarray(vals), pheno, nchr, sub, encode_bed_bytes)
+        sbed = hibayes_tpu_torch.read_plink(sub)
+        if not np.array_equal(sbed["geno"].values, vals):
+            raise AssertionError("phase 9a: the chromosomes' fileset reads back otherwise")
+        log(f"[9a] the first {nchr} chromosomes ({vals.shape[1]} SNPs) written and read "
+            f"back bit for bit in {time.perf_counter() - t0:.1f} s")
         per = -(-vals.shape[0] // MESH_RANKS)
-        keep = {"stem": os.path.join(kept, "cohort"), "n": int(vals.shape[0]),
+        keep = {"stem": sub, "n": int(vals.shape[0]),
                 "rows_sha256": [hashlib.sha256(np.ascontiguousarray(
                     vals[r * per:(r + 1) * per]).tobytes()).hexdigest()
                     for r in range(MESH_RANKS)]}
-        return cli_resume(torch, hibayes_tpu_torch, TB, dev, stem, bed, pheno, args, smi,
+        return cli_resume(torch, hibayes_tpu_torch, TB, dev, sub, sbed, pheno, args, smi,
                           thin), keep
 
     qs, t_qs, b_qs = quickstart(
@@ -4257,21 +4616,43 @@ def main(argv=None) -> int:
     torch.cuda.empty_cache()
     pipe = pipeline_emulation(torch, hibayes_tpu_torch, TG, TB, dev, args, smi, errs)
     mark("12a")
+    t0 = time.perf_counter()
+    emu13 = concurrent_s2(torch, TG, dev, args)
+    t13_s2 = time.perf_counter() - t0
     try:
-        mesh12 = mesh_ranks(torch, args, fileset12, pipe.pop("emulate2"))
+        mesh12 = mesh_ranks(torch, args, fileset12, pipe.pop("emulate2"), emu13)
     finally:
         shutil.rmtree(kept, ignore_errors=True)
     want12 = {"i": ("sweep1",), "ii": ("draws_kernel",), "iii": ("rows_mc_kernel",
                                                                   "draws_kernel"),
               "iv": ("tiled_sweep",), "v_2x1": ("draws_kernel", "mme_sweep_kernel"),
-              "v_1x2": ("sweep1", "mme_sweep_kernel")}
+              "v_1x2": ("sweep1", "mme_sweep_kernel"), "vii": ("sweep1",),
+              "viii_one": ("tiled_sweep",), "viii": ("tiled_sweep",)}
     for run_, names in want12.items():
         got = mesh12["launches_all_ranks"][run_]
         if not all(got[k] > 0 for k in names):
             raise AssertionError(f"12b({run_}): kernels {names} not launched: {got}")
+    # 13b's counts exactly: a local sweep a rank and merge round, an iteration
+    want13 = {"vii": ("sweep1", MESH_RANKS * RANK_ITERS),
+              "viii_one": ("tiled_sweep", MESH_RANKS * CONC_ROUNDS),
+              "viii": ("tiled_sweep", MESH_RANKS * CONC_ROUNDS * niter_eff)}
+    for run_, (k, n_) in want13.items():
+        if mesh12["launches_all_ranks"][run_][k] != n_:
+            raise AssertionError(f"13b({run_}): {k} launched "
+                                 f"{mesh12['launches_all_ranks'][run_][k]} times, not {n_}")
     log(f"[12b] launches by run, summed over the ranks: "
         f"{json.dumps(mesh12['launches_all_ranks'])}")
     mark("12b")
+
+    # ---- 13a. the concurrent schedule emulated on one card ----
+    conc = concurrent_emulation(torch, hibayes_tpu_torch, TG, TB, dev, args, smi, errs,
+                                mesh12.pop("exact_gebv"))
+    mark("13a")
+    t13 = t13_phase3 + t13_s2 + phase_s["13a"] + mesh12["seconds_13b"]
+    log(f"[13] phase 13 took {t13:.1f} s: its phase 3 cases {t13_phase3:.1f}, 13b(vii)'s "
+        f"reference {t13_s2:.1f}, 13a {phase_s['13a']:.1f}, 13b on the ranks "
+        f"{mesh12['seconds_13b']:.1f}; the whole run so far "
+        f"{time.perf_counter() - t_main:.1f} s")
 
     # ---- 10. results ----
     src = "hibayes_tpu_torch/csrc/blockgibbs.cu"
@@ -4300,7 +4681,9 @@ def main(argv=None) -> int:
               chain_us_per_block={"BayesR_4_folds": times["chain_bayesr_us"],
                                   "BayesCpi": times["chain_bayescpi_us"]},
               resumed_ibrm_4_chains_launches=rs["ibrm_4_chains"]["launches"]["rows_mc_kernel"],
-              ssbrm_4_chains_launches=ss4["launches"]["rows_mc_kernel"]),
+              ssbrm_4_chains_launches=ss4["launches"]["rows_mc_kernel"],
+              concurrent_4_chains_launches=conc["iii"]["launches"]["rows_mc_kernel"],
+              concurrent_4_chains_ms_per_iter=conc["iii"]["ms_per_iter"]),
         entry("sweep1_kernel_for_kernel1", src, "hibayes_tpu/ops/blockgibbs.py:138",
               launches["sweep1"], errs["sweep_mc"], "sweep_mc",
               library_ms=times["sweep_mc_library"],
@@ -4331,11 +4714,17 @@ def main(argv=None) -> int:
               bslmm_bound_ms=bounds["sweep_mc_bslmm"][0],
               bslmm_timed=f"BSLMM's int8 genotype, B=64, n={args.bs_n} not padded, 16 blocks, K=1",
               cli_uninterrupted_launches=cli_res["launches"]["sweep1"],
-              resumed_ssbrm_launches=rs["ssbrm"]["launches"]["sweep1"]),
+              resumed_ssbrm_launches=rs["ssbrm"]["launches"]["sweep1"],
+              concurrent_emulation_launches=conc["ii"]["launches"]["sweep1"],
+              concurrent_emulation_max_abs_err=errs["concurrent_group1"],
+              concurrent_emulation_sweep_ms=conc["i"]["sweep_ms"],
+              concurrent_mesh_launches=mesh12["launches_all_ranks"]["vii"]["sweep1"],
+              concurrent_phase3_max_abs_err=errs["concurrent_emulation"]),
         entry("draws_kernel", src, "hibayes_tpu/ops/blockgibbs.py:1264",
               flag["launches"]["draws_kernel"], errs["block_draws"], "block_draws",
               launches_from="phase 4b (4 chains; one chain sweeps through sweep1_kernel)",
               resumed_ibrm_4_chains_launches=rs["ibrm_4_chains"]["launches"]["draws_kernel"],
+              concurrent_4_chains_launches=conc["iii"]["launches"]["draws_kernel"],
               segment_draw_chains_in="segment_sweep (phases 6 and 6b)",
               chain_cycles_per_draw={
                   "BayesR_4_folds": times["chain_bayesr_cycles"] / B,
@@ -4369,6 +4758,8 @@ def main(argv=None) -> int:
               resumed_blockdiag_4_chains_guard=rs["sbrm_blockdiag_4_chains"]["guard"]),
         entry("tiled_sweep_tile64", ssrc, "hibayes_tpu/ops/blockgibbs.py:1635",
               qs["sbrm_tiled"]["launches"]["tiled_sweep"], errs["sweep_s_tiled64"], "tiled64",
+              library_ms=times["tiled64_library"],
+              library="torch.bmm of the 16 rows' tiles, every slot, with their row's dg",
               timed="phase 8's tiled LD, first 16 tile rows of 64",
               guard_counts=qs["sbrm_tiled"]["guard"],
               full_sweep_ms=times["tiled64_full"],
@@ -4379,6 +4770,8 @@ def main(argv=None) -> int:
                                             times["tiled64_chain_bayescpi_guard_us"]}),
         entry("sweep_s_tiled", ssrc, "hibayes_tpu/ops/blockgibbs.py:1635",
               s_launches["sweep_s_tiled"], errs["sweep_s_tiled"], "sweep_s_tiled",
+              library_ms=times["sweep_s_tiled_library"],
+              library="torch.bmm of the 16 rows' tiles, every slot, with their row's dg",
               tiled_sweep_launches=s_launches["tiled_sweep"],
               full_sweep_ms=times["sweep_s_tiled_full"],
               full_sweep_bound_ms=bounds["sweep_s_tiled_full"][0],
@@ -4401,6 +4794,8 @@ def main(argv=None) -> int:
               resumed_launches=rs["ssbrm"]["launches"]["mme_sweep_kernel"]),
         entry("tiled_sweep_k_chains", ssrc, "hibayes_tpu/ops/blockgibbs.py:1635",
               tiled4["launches"]["tiled_sweep"], errs["sweep_s_tiled_k"], "sweep_s_tiled_k4",
+              library_ms=times["sweep_s_tiled_k4_library"],
+              library="torch.bmm of the 16 rows' tiles, every slot, with the 4 chains' dg",
               timed="phase 5's tiled LD, first 16 tile rows of 128, K=4 chains, BayesCpi, guard",
               launches_from="phase 10b (sbrm, 4 chains, m=500,000)",
               k1_ms=times["sweep_s_tiled"], full_sweep_ms=times["sweep_s_tiled_k4_full"],
@@ -4477,8 +4872,14 @@ def main(argv=None) -> int:
         shard_of_phase5_ms=times["tiled_row_base_shard"],
         shard_of_phase5_bound_ms=bounds["tiled_row_base_shard"][0],
         mesh_ms_per_iter=mesh12["iv"]["ms_per_iter"],
-        mesh_collective_share=mesh12["iv"]["collective_share"]))
+        mesh_collective_share=mesh12["iv"]["collective_share"],
+        concurrent_launches=mesh12["launches_all_ranks"]["viii"]["tiled_sweep"],
+        concurrent_max_abs_err=mesh12["viii"]["max_abs_err"],
+        concurrent_ms_per_iter=mesh12["viii"]["ms_per_iter"],
+        concurrent_collective_share=mesh12["viii"]["collective_share"]))
     log(f"[12] results: 12a {json.dumps(pipe)}; 12b {json.dumps({k: mesh12[k] for k in ('i', 'ii', 'iii', 'iv', 'v')})}")
+    log(f"[13] results: 13a {json.dumps(conc)}; 13b "
+        f"{json.dumps({k: mesh12[k] for k in ('vii', 'viii')})}")
     idle = [k["name"] for k in kernels if not k["launches"]]
     if idle:
         raise AssertionError(f"kernels not launched on their main path: {idle}")

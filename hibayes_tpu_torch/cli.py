@@ -20,8 +20,9 @@ CLI silently runs the plain sweep.  ``ibrm --shards S`` runs on S cards
 under ``torchrun --nproc-per-node S -m hibayes_tpu_torch ibrm --shards S
 ...``: every rank joins the process group (parallel/distributed.py,
 ``env://``), the fit runs on a (1, S) mesh (``make_mesh(shape=(1, S))``,
-as the JAX CLI's) and rank 0 alone prints and writes the files; the
-``concurrent`` schedule is not ported (ROADMAP queue 1, item 14).
+as the JAX CLI's) and rank 0 alone prints and writes the files, under
+any ``--shard-schedule`` (``concurrent``: one merge round an iteration,
+as the JAX CLI's; it warns where m > n, its biased regime).
 Besides the JAX CLI's lines, each fitting run prints the read_plink
 seconds, the iteration it resumes at, and the chain's seconds.
 """
@@ -209,10 +210,6 @@ def main(argv=None):
     if getattr(a, "shards", 1) == 1 and getattr(a, "shard_schedule", "turn") != "turn":
         ap.error(f"--shard-schedule {a.shard_schedule} needs --shards > 1; with one shard "
                  "only 'turn' runs (the JAX CLI runs the plain sweep there silently)")
-    if getattr(a, "shard_schedule", "turn") == "concurrent":
-        raise NotImplementedError(
-            "--shard-schedule concurrent is not ported yet (ROADMAP queue 1, item 14: "
-            "the relaxed concurrent schedule)")
     mesh = _shard_mesh(getattr(a, "shards", 1), a.device)
     lead = mesh is None or mesh.rank == 0
 

@@ -117,6 +117,21 @@ class GibbsSpec:
                 f"got {self.shard_schedule!r}")
         if self.merge_rounds < 1:
             raise ValueError("merge_rounds must be >= 1")
+        # individual-level engine only (seg_sizes marks a summary-LD spec,
+        # where cross-shard coupling is bounded by the LD tile overlap, not
+        # by the X'X rank deficiency)
+        if (self.shard_schedule == "concurrent" and self.m > self.n_obs
+                and not self.seg_sizes):
+            warnings.warn(
+                f"shard_schedule='concurrent' with m ({self.m}) > n "
+                f"({self.n_obs}): the relaxed kernel is a block-Jacobi "
+                "splitting whose iteration operator can exceed spectral "
+                "radius 1 in this rank-deficient regime — measured Vg "
+                "deflation ~30% / Ve inflation ~50% at n=4096 x m=65536, "
+                "and divergence (NaN) at high shard x merge-round counts.  "
+                "Use shard_schedule='pipeline' (exact, all shards busy, "
+                "nchains a multiple of the shard count) or 'turn' (exact).",
+                UserWarning, stacklevel=2)
 
     @property
     def model_index(self) -> int:
@@ -1054,8 +1069,9 @@ def _sweep_ind_hybrid_mc(spec: GibbsSpec, consts_b, X_blocks, W_blocks, xpx, vx,
 def _sweep_local_blocks(spec, consts_b, X, W, xpx, vx, per_chain, yadj, u, mesh,
                         block_range=None):
     """Sweep the SNP blocks this rank holds (or ``block_range`` of them) for
-    K chains against (yadj, u): the unit of the turn and pipeline
-    schedules (``_sweep_local_blocks``, hibayes_tpu/engine/gibbs.py:1139).
+    K chains against (yadj, u): the unit of the turn, pipeline and
+    concurrent schedules (``_sweep_local_blocks``,
+    hibayes_tpu/engine/gibbs.py:1139).
     ``per_chain`` = (vei, g, z, u, chi, z2, vargL), each (K, m_loc[, nf]).
     ``sweep_mc`` (TPU kernels 1-5, 8 at K = 1; kernel 2 at K >= 2), or the
     ind hybrid on a 2-D mesh."""
@@ -1121,12 +1137,59 @@ def _sweep_pipeline_emu_mc(spec: GibbsSpec, consts_b, X_blocks, W_blocks, xpx, v
     return tuple(torch.cat([o[i] for o in outs], dim=0) for i in range(7))
 
 
+def _sweep_concurrent_emu_mc(spec: GibbsSpec, consts_b, X_blocks, W_blocks, xpx, vx,
+                             vei_b, g_b, z_b, u_b, chi_b, z2_b, vargL_b, yadj_b, u_vec_b):
+    """One-device emulation of the concurrent schedule
+    (``_sweep_concurrent_emu_mc``, hibayes_tpu/engine/gibbs.py:1255-1332)
+    with S = ``spec.emulate_shards`` virtual shards and Rm =
+    ``spec.merge_rounds`` merge rounds: the Markov kernel of the mesh run
+    (:func:`_sweep_snp_sharded_mc`), its shards swept one after another.
+    Group (s, r) owns blocks [(s Rm + r) nbg, + nbg) (shard-major, as the
+    mesh splits the blocks).  In round r the groups (0, r) .. (S - 1, r)
+    each sweep from the round-start (yadj, u) by ``sweep_mc(...,
+    block_range=)`` on the whole genotype (no copy of X), and their deltas
+    are summed in group order and added: ya + (0 + d_0 + ... + d_{S-1}),
+    the JAX package's association (at S = 2 the mesh's a + (d_0 + d_1)
+    bit for bit).  The group sweeps run in order on one stream."""
+    nb = spec.nblocks
+    S, Rm = spec.emulate_shards, spec.merge_rounds
+    if nb % (S * Rm):
+        raise ValueError(f"emulate_shards*merge_rounds ({S}x{Rm}) must divide the {nb} SNP "
+                         "blocks (prepare_gibbs_data(nblocks_multiple=...))")
+    dt = yadj_b.dtype
+    K = yadj_b.shape[0]
+    nbg = nb // (S * Rm)
+    mg = nbg * spec.block
+    ya, uu = yadj_b, u_vec_b.to(dt)
+    vi = torch.zeros((K,), dtype=dt, device=ya.device)
+    vR = torch.zeros((K,), dtype=dt, device=ya.device)
+    groups = [None] * (S * Rm)
+    for r in range(Rm):
+        dya, du = torch.zeros_like(ya), torch.zeros_like(uu)
+        for s in range(S):
+            gi = s * Rm + r
+            sl = slice(gi * mg, (gi + 1) * mg)
+            per = tuple(a[:, sl] for a in (vei_b, g_b, z_b, u_b, chi_b, z2_b, vargL_b))
+            gn, tr, vl, ya2, u2, vi_s, vR_s = blockgibbs.sweep_mc(
+                spec, consts_b, X_blocks, W_blocks, xpx[sl], vx[sl], *per, ya, uu,
+                block_range=(gi * nbg, nbg))
+            dya = dya + (ya2 - ya)
+            du = du + (u2 - uu)
+            vi = vi + vi_s.to(dt)
+            vR = vR + vR_s.to(dt)
+            groups[gi] = (gn.to(dt), tr.to(torch.int32), vl.to(dt))
+        ya = ya + dya
+        uu = uu + du
+    cat = lambda i: torch.cat([grp[i] for grp in groups], dim=1)
+    return cat(0), cat(1), cat(2), ya, uu, vi, vR
+
+
 def _sweep_snp_sharded_mc(spec: GibbsSpec, data: GibbsData, consts_b, rnd_b, vei_b, g_b,
                           vargL_b, yadj_b, u_vec_b, mesh):
-    """The exact SNP-sharded sweep for K chains (``_sweep_snp_sharded_mc``,
-    hibayes_tpu/engine/gibbs.py:1434-1671), its turn and ring-pipeline
-    schedules.  Rank s of the ``snp`` axis holds SNP blocks [s nb/S,
-    (s + 1) nb/S) of X and W (``shard_gibbs_data``).
+    """The SNP-sharded sweep for K chains (``_sweep_snp_sharded_mc``,
+    hibayes_tpu/engine/gibbs.py:1434-1671): the exact turn and ring-pipeline
+    schedules and the relaxed concurrent one.  Rank s of the ``snp`` axis
+    holds SNP blocks [s nb/S, (s + 1) nb/S) of X and W (``shard_gibbs_data``).
 
     turn: in turn t the rank of snp index t sweeps its blocks for all K
     chains (:func:`_sweep_local_blocks`), the others wait; then (yadj, u)
@@ -1142,6 +1205,14 @@ def _sweep_snp_sharded_mc(spec: GibbsSpec, data: GibbsData, consts_b, rnd_b, vei
     ranks work every turn; a chain visits the shards in the order c, c +
     1, ... (group 0 in the blocks' own order).  It does not compose with an
     ind axis, and K must be a multiple of S (the JAX package's refusals).
+
+    concurrent (relaxed, :class:`GibbsSpec`'s warning): in each of Rm =
+    ``spec.merge_rounds`` rounds every rank sweeps its next nb/(S Rm) local
+    blocks at once from the round-start (yadj, u) (a ``block_range`` of its
+    X; on an ind axis the hybrid), and the ranks merge by ya + axis_sum(ya2
+    - ya) (hibayes_tpu/engine/gibbs.py:1512-1549), the Markov kernel of
+    :func:`_sweep_concurrent_emu_mc`; the variance sums add over the rounds,
+    then over the axis.
 
     g, track and vargL of the shards are then gathered over the axis on
     every rank.  Returns sweep_mc's outputs for the K chains."""
@@ -1181,6 +1252,30 @@ def _sweep_snp_sharded_mc(spec: GibbsSpec, data: GibbsData, consts_b, rnd_b, vei
         gat = lambda x, d: all_gather(x, mesh, "snp", dim=d)
         return (gat(g_cur, 1), gat(tr_cur, 1), gat(vl_cur, 1), gat(ya, 0), gat(uu, 0),
                 gat(vi, 0), gat(vR, 0))
+    if spec.shard_schedule == "concurrent":
+        Rm = spec.merge_rounds
+        nb_loc = spec.nblocks // S
+        if nb_loc % Rm:
+            raise ValueError(f"merge_rounds ({Rm}) must divide the {nb_loc} local SNP blocks "
+                             "(prepare_gibbs_data(nblocks_multiple=...))")
+        nbg = nb_loc // Rm
+        mg = nbg * spec.block
+        ya, uu = yadj_b, u_vec_b.to(dt)
+        vi = torch.zeros((K,), dtype=dt, device=ya.device)
+        vR = torch.zeros((K,), dtype=dt, device=ya.device)
+        parts = []
+        for r in range(Rm):
+            rs = slice(r * mg, (r + 1) * mg)
+            gn, tr, vl, ya2, u2, vi_s, vR_s = _sweep_local_blocks(
+                spec, consts_b, data.X_blocks, data.W_blocks, xpx[rs], vx[rs],
+                tuple(a[:, rs] for a in per), ya, uu, mesh, block_range=(r * nbg, nbg))
+            ya = ya + axis_sum(ya2 - ya, mesh, "snp")
+            uu = uu + axis_sum(u2 - uu, mesh, "snp")
+            vi, vR = vi + vi_s.to(dt), vR + vR_s.to(dt)
+            parts.append((gn.to(dt), tr, vl.to(dt)))
+        gat = lambda i: all_gather(torch.cat([p[i] for p in parts], dim=1), mesh, "snp", dim=1)
+        return (gat(0), gat(1), gat(2), ya, uu, axis_sum(vi, mesh, "snp"),
+                axis_sum(vR, mesh, "snp"))
     ya, uu = yadj_b, u_vec_b.to(dt)
     for t in range(S):
         if t == s:
@@ -1196,8 +1291,10 @@ def _sweep_snp_sharded_mc(spec: GibbsSpec, data: GibbsData, consts_b, rnd_b, vei
 def _sweep(spec: GibbsSpec, data: GibbsData, pre: dict, g, mesh=None):
     """The SNP sweep of a batch of K chains (``pre`` and ``g`` with a
     leading chain axis), by the mesh and the spec's schedule: the SNP-sharded
-    turn or ring pipeline, the one-device pipeline emulation
-    (``emulate_shards``), the ind-sharded hybrid, or ``sweep_mc``."""
+    turn, ring pipeline or concurrent rounds, the one-device pipeline or
+    concurrent emulation (``emulate_shards``), the ind-sharded hybrid, or
+    ``sweep_mc`` (also "concurrent" with neither shards nor emulation, as in
+    the JAX package: the exact chain)."""
     args = (spec, pre["consts"], data.X_blocks, data.W_blocks, data.xpx, data.vx,
             pre["vei"], g, *pre["rnd"], pre["vargL_in"], pre["yadj"], pre["u"])
     if snp_shard_count(spec.nblocks, mesh) > 1:
@@ -1208,6 +1305,9 @@ def _sweep(spec: GibbsSpec, data: GibbsData, pre: dict, g, mesh=None):
             raise ValueError("shard_schedule='pipeline' does not compose with an "
                              "ind-sharded mesh")
         return _sweep_pipeline_emu_mc(*args)
+    if (spec.shard_schedule == "concurrent" and spec.emulate_shards > 1
+            and ind_shard_count(mesh) <= 1):
+        return _sweep_concurrent_emu_mc(*args)
     if ind_shard_count(mesh) > 1:
         return _sweep_ind_hybrid_mc(*args, mesh=mesh)
     return blockgibbs.sweep_mc(*args)
@@ -1328,12 +1428,7 @@ def contiguous_state(state):
 
 
 def _check_ported(spec: GibbsSpec, mesh=None) -> None:
-    """Raise for the configurations whose code paths are still to be ported
-    (ROADMAP.md, queue 1) or belong to the summary engine."""
-    if spec.shard_schedule == "concurrent":
-        raise NotImplementedError(
-            "shard_schedule='concurrent' (and emulate_shards with it) is not ported "
-            "yet (ROADMAP queue 1, item 14: the relaxed concurrent schedule)")
+    """Raise for the configurations that belong to the summary engine."""
     if spec.reject_guard or spec.seg_sizes:
         raise NotImplementedError(
             "a summary-level spec (reject_guard or seg_sizes) runs on the summary "
@@ -1560,13 +1655,22 @@ def run_chain(spec: GibbsSpec, data: GibbsData, priors: Priors, pi_init,
         state = gather_state(state, mesh, spec.n)
     if not bool(torch.isfinite(state.vare)):
         warnings.warn("chain diverged: residual variance is non-finite at the "
-                      "final iteration", UserWarning, stacklevel=2)
+                      "final iteration" + concurrent_note(spec), UserWarning, stacklevel=2)
     pip, wppa, nzct = posterior_rates(spec, state)
     if samples:
         samples["alpha"] = samples["alpha"][:, : spec.m]
     extras = {"pip": pip[: spec.m].cpu().numpy(), "wppa": wppa.cpu().numpy(),
               "nzct": nzct, "seconds": seconds}
     return state, samples, extras
+
+
+def concurrent_note(spec) -> str:
+    """The divergence warning's suffix under the relaxed concurrent schedule
+    (hibayes_tpu/engine/gibbs.py:2355-2358); empty for the others."""
+    if spec.shard_schedule != "concurrent" or spec.seg_sizes:
+        return ""
+    return (" — the relaxed shard_schedule='concurrent' kernel is a known divergence "
+            "source in the m > n regime; rerun with 'pipeline' or 'turn'")
 
 
 def check_chain_options(nchains: int, mesh=None) -> None:
@@ -1583,8 +1687,8 @@ def batch_results(spec, states, samples, extras_real, seconds):
     bad = ~torch.isfinite(states.vare)
     if bool(bad.any()):
         warnings.warn(f"{int(bad.sum())}/{bad.numel()} chains diverged (non-finite "
-                      "residual variance at the final iteration)", UserWarning,
-                      stacklevel=3)
+                      "residual variance at the final iteration)" + concurrent_note(spec),
+                      UserWarning, stacklevel=3)
     samples = {k: np.swapaxes(v, 0, 1) for k, v in samples.items()}
     samples["alpha"] = samples["alpha"][:, :, extras_real]
     pip, wppa, nzct = posterior_rates(spec, states)

@@ -29,9 +29,10 @@ an iteration's functions take one chain's state or a batch's (a leading
 chain axis, ``noise`` a list of one IterNoise per chain), as there.
 
 On a mesh with a ``snp`` axis (parallel/mesh.py) each rank holds a
-contiguous run of a tiled LD's tile rows and the ranks sweep them in turn
-against the whole r_hat (``sweep_s_tiled(..., row_base=)``), one chain;
-the rest of the chain runs replicated.
+contiguous run of a tiled LD's tile rows and the ranks sweep them in turn,
+or at once in merge rounds (``concurrent``), against the whole r_hat
+(``sweep_s_tiled(..., row_base=)``), one chain; the rest of the chain
+runs replicated.
 """
 
 from __future__ import annotations
@@ -213,15 +214,6 @@ def _s_snapshot(spec, state: SChainState) -> dict:
     }
 
 
-def _check_ported(spec, data: SGibbsData, mesh=None) -> None:
-    """Raise for the summary configurations whose code paths are still to
-    be ported (ROADMAP.md, queue 1)."""
-    if spec.shard_schedule == "concurrent":
-        raise NotImplementedError(
-            "shard_schedule='concurrent' is not ported yet (ROADMAP queue 1, item 14: "
-            "the relaxed concurrent schedule)")
-
-
 def _on_mesh(data: SGibbsData, mesh):
     """This rank's part of ``data`` and the mesh (None where it has one
     rank)."""
@@ -239,32 +231,58 @@ def tiles_cut(spec, data: SGibbsData) -> bool:
 
 
 def _tiled_sweep_snp_sharded(spec, data: SGibbsData, r_hat, P, mesh, tally=None):
-    """The SNP-sharded tiled sweep of one chain, turn schedule
+    """The SNP-sharded tiled sweep of one chain
     (``_tiled_sweep_snp_sharded``, hibayes_tpu/engine/sgibbs.py:470-648):
-    rank s of the ``snp`` axis holds tile rows [s nl, (s + 1) nl); in turn
-    t the rank of index t sweeps them against the whole r_hat (TPU kernel 9
-    at ``row_base`` t nl: ``blockgibbs.sweep_s_tiled``), the others wait,
-    and r_hat reaches every rank by a broadcast from it (the owner's values
-    bit for bit, where the JAX package merges r + psum(r2 - r)).  ``P`` holds
-    the packed and guard rows of all m_pad SNPs (the guard's candidates
-    drawn over the whole m_pad, stream 15, as one device draws them).
-    Returns (dg, track, r_hat) over all SNPs, gathered on every rank; the
-    guard counts of every shard go into ``tally``."""
+    rank s of the ``snp`` axis holds tile rows [s nl, (s + 1) nl), swept by
+    TPU kernel 9 at their ``row_base`` (``blockgibbs.sweep_s_tiled``).
+
+    turn (exact): in turn t the rank of index t sweeps its rows against the
+    whole r_hat, the others wait, and r_hat reaches every rank by a
+    broadcast from it (the owner's values bit for bit, where the JAX
+    package merges r + psum(r2 - r)).
+
+    concurrent: in each of Rm = ``spec.merge_rounds`` rounds every rank
+    sweeps its next nl/Rm rows at once against the round-start r_hat, and
+    the ranks merge by r + axis_sum(r2 - r) (hibayes_tpu/engine/sgibbs.py:
+    573-614).  Near-exact here: only LD tiles that span a shard boundary
+    couple the shards.  The rounds' rows are views made once per store
+    (``blockgibbs.tile_row_runs``), so every sweep finds its schedule.
+
+    ``P`` holds the packed and guard rows of all m_pad SNPs (the guard's
+    candidates drawn over the whole m_pad, stream 15, as one device draws
+    them).  Returns (dg, track, r_hat) over all SNPs, gathered on every
+    rank; the guard counts of every shard go into ``tally``."""
     if spec.shard_schedule == "pipeline":
         raise ValueError(
             "shard_schedule='pipeline' is an individual-level (ibrm) schedule; the "
-            "summary engine supports 'turn' (exact)")
+            "summary engine supports 'turn' (exact) and 'concurrent' (near-exact here: "
+            "cross-shard coupling is bounded by LD tiles spanning shard boundaries)")
     S, s = mesh.size("snp"), mesh.index("snp")
     nl, B = int(data.ld_tiles.shape[0]), int(data.ld_tiles.shape[2])
     base = s * nl
     P_loc = P[..., base * B:(base + nl) * B]
     own = None if tally is None else torch.zeros_like(tally)
-    for t in range(S):
-        if t == s:
-            dg, track, r_hat, _ = blockgibbs.sweep_s_tiled(
-                spec, data.ld_tiles, data.ld_cols, data.ld_valid, r_hat, P_loc, spec.n,
-                tally=own, row_base=base)
-        r_hat = broadcast(r_hat, mesh, "snp", t)
+    if spec.shard_schedule == "concurrent":
+        Rm = spec.merge_rounds
+        if nl % Rm:
+            raise ValueError(f"merge_rounds ({Rm}) must divide the {nl} local LD tile rows")
+        nb_g = nl // Rm
+        parts = []
+        for r, rows in enumerate(blockgibbs.tile_row_runs(data.ld_tiles, data.ld_cols,
+                                                          data.ld_valid, Rm)):
+            dg, track, rh2, _ = blockgibbs.sweep_s_tiled(
+                spec, *rows, r_hat, P_loc[..., r * nb_g * B:(r + 1) * nb_g * B], spec.n,
+                tally=own, row_base=base + r * nb_g)
+            r_hat = r_hat + axis_sum(rh2 - r_hat, mesh, "snp")
+            parts.append((dg, track))
+        dg, track = (torch.cat(x) for x in zip(*parts))
+    else:
+        for t in range(S):
+            if t == s:
+                dg, track, r_hat, _ = blockgibbs.sweep_s_tiled(
+                    spec, data.ld_tiles, data.ld_cols, data.ld_valid, r_hat, P_loc, spec.n,
+                    tally=own, row_base=base)
+            r_hat = broadcast(r_hat, mesh, "snp", t)
     if tally is not None:
         tally += axis_sum(own, mesh, "snp")
     return (all_gather(dg, mesh, "snp"), all_gather(track, mesh, "snp"), r_hat)
@@ -380,7 +398,6 @@ def one_s_iteration(spec, data: SGibbsData, seed: int, state: SChainState,
     added (first draws rejected, draws whose every candidate failed).  On
     a mesh every rank calls it alike (``data`` whole or this rank's part:
     ``shard_sgibbs_data``)."""
-    _check_ported(spec, data, mesh)
     data, mesh = _on_mesh(data, mesh)
     if noise is None:
         noise = IterNoise(seed, state.it, data.xy.device, data.xy.dtype)
@@ -398,7 +415,6 @@ def one_s_iteration_batch(spec, data: SGibbsData, seed: int, states: SChainState
     counts).  ``noise`` defaults to each chain's own streams; ``tally`` is
     (K, 2)."""
     K = int(states.vara.shape[0])
-    _check_ported(spec, data)
     if noise is None:
         noise = chain_noise(seed, states.it, K, data.xy.device, data.xy.dtype)
     return _s_iteration(spec, data, noise, states, tally)
@@ -449,7 +465,6 @@ def run_s_chain(spec, data: SGibbsData, priors, pi_init, seed=666666,
     failed; zeros without the guard).  ``checkpoint_path`` saves and
     resumes the chain with its guard counts (:func:`~.gibbs.run_loop`).  On
     a mesh every rank calls it alike; rank 0 writes the checkpoint."""
-    _check_ported(spec, data, mesh)
     data, mesh = _on_mesh(data, mesh)
     tally = torch.zeros((2,), dtype=torch.int64, device=data.xy.device)
     state, samples, seconds = run_loop(
@@ -490,7 +505,6 @@ def run_s_chains(spec, data: SGibbsData, priors, pi_init, seed=666666, nchains=4
         samples = {k: v[None] for k, v in samples.items()}
         return (stack_state(state, 1), samples,
                 {**extras, "rhat": rhat_diagnostics(samples), "guard": extras["guard"][None]})
-    _check_ported(spec, data, mesh)
     tally = torch.zeros((nchains, 2), dtype=torch.int64, device=data.xy.device)
     states, samples, seconds = run_loop(
         spec, stack_state(init_s_state(spec, data, priors, pi_init), nchains),

@@ -205,18 +205,16 @@ def ibrm(
     ``mesh`` (parallel/mesh.py:make_mesh, every rank of a torchrun job
     calling ibrm alike) shards the individuals over its ``ind`` axis and
     the SNP blocks over its ``snp`` axis; ``shard_schedule`` is how the
-    SNP shards sweep: "turn" (exact: one shard at a time) or "pipeline"
+    SNP shards sweep: "turn" (exact: one shard at a time), "pipeline"
     (exact: all shards busy, chain groups ring-rotating; ``nchains`` a
-    multiple of the shards); ``emulate_shards`` > 1 runs the pipeline with
-    that many shards on one device.  "concurrent" (and ``merge_rounds``
-    with it) is not ported (ROADMAP queue 1, item 14).  Rank 0 alone
-    prints."""
+    multiple of the shards) or "concurrent" (relaxed: all shards sweep
+    against the residual of the round's start, ``merge_rounds`` merges an
+    iteration; it warns where m > n, its biased regime: prefer "pipeline"
+    or "turn" there); ``emulate_shards`` > 1 runs the pipeline or the
+    concurrent schedule with that many shards on one device.  Rank 0
+    alone prints."""
     if method not in METHODS:
         raise ValueError(f"unknown method '{method}'; choose from {METHODS}")
-    if shard_schedule == "concurrent":
-        raise NotImplementedError(
-            "shard_schedule='concurrent' (and emulate_shards with it) is not ported "
-            "yet (ROADMAP queue 1, item 14: the relaxed concurrent schedule)")
     verbose = verbose and (mesh is None or mesh.rank == 0)
     if data is None:
         raise ValueError("no data assigned.")
@@ -258,10 +256,11 @@ def ibrm(
 
     nc = mf.X.shape[1] if mf.X is not None else 0
     nlevels = tuple(int(len(lv)) for lv in mf.R_levels)
-    # SNP-sharded meshes and the pipeline emulation need the shards to
-    # divide the block count
+    # SNP-sharded meshes and the emulations need the shards (times the
+    # merge rounds of the concurrent schedule) to divide the block count
     snp_shards = mesh.size("snp") if mesh is not None else 1
-    nbm = snp_shards if snp_shards > 1 else max(int(emulate_shards), 1)
+    s_eff = snp_shards if snp_shards > 1 else max(int(emulate_shards), 1)
+    nbm = s_eff * (int(merge_rounds) if shard_schedule == "concurrent" else 1)
     gdata = G.prepare_gibbs_data(
         y, M_phen, C=mf.X, r_codes=tuple(mf.R_codes), r_nlevels=nlevels,
         fold=fold, windindx=windindx, nw=nw, K=K, Kval=Kval, block=block, dtype=dtype,

@@ -114,8 +114,12 @@ def sbrm(
     resumes it from there, bit for bit.  ``threads`` (the JAX package's host codec
     threads) is accepted and unused.  ``mesh`` (parallel/mesh.py, every rank
     calling sbrm alike) shards a tiled LD's tile rows over its ``snp`` axis,
-    swept in turn ("turn", the one schedule of the summary engine); one
-    chain only, as in the JAX package.  Rank 0 alone prints."""
+    one chain only, as in the JAX package; ``shard_schedule`` is how the
+    shards sweep: "turn" (exact, in turn) or "concurrent" (all shards sweep
+    against the r_hat of the round's start, ``merge_rounds`` merges an
+    iteration; near-exact here, as only LD tiles that span a shard boundary
+    couple the shards).  Without a mesh, or on an LD that is not tiled,
+    both run the exact sweep.  Rank 0 alone prints."""
     if method not in S_METHODS:
         raise ValueError(f"unknown method '{method}'; choose from {S_METHODS}")
     device = resolve_device(device)
@@ -133,10 +137,6 @@ def sbrm(
     if method == "CG":
         return _fit_cg(ss, ld, lambda_, verbose, device)
 
-    if shard_schedule == "concurrent":
-        raise NotImplementedError(
-            "shard_schedule='concurrent' is not ported yet (ROADMAP queue 1, item 14: "
-            "the relaxed concurrent schedule)")
     if nchains > 1 and mesh is not None:
         raise ValueError(
             "sbrm(nchains>1, mesh=...) is not supported: the summary "

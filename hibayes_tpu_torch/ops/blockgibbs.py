@@ -629,6 +629,20 @@ def sub_block_tiles(tiles, cols, valid, sb: SubBlocks) -> tuple:
     return _layout((tiles, cols, valid), sb, make)
 
 
+def tile_row_runs(tiles, cols, valid, runs: int) -> tuple:
+    """A tile store's rows in ``runs`` contiguous runs of equal length, each
+    (tiles, cols, valid) views of the store, made once per store
+    (:func:`_layout`): the tiled sweep keeps its schedule per cols tensor,
+    so a sweep over each run finds it from the second sweep on."""
+    nl = tiles.shape[0] // runs
+
+    def make():
+        return tuple(tuple(t[r * nl:(r + 1) * nl] for t in (tiles, cols, valid))
+                     for r in range(runs))
+
+    return _layout((tiles, cols, valid), ("runs", runs), make)
+
+
 def _chain_groups(C: int, G: int) -> list:
     """Slices of C chains, in order, in the fewest groups of at most G,
     their sizes at most one apart: a launch of fewer drawers leaves more

@@ -11,7 +11,9 @@ the mesh says which part of the data each rank holds:
   (distributed.axis_sum), so the chain is the same Markov kernel.
 * ``snp`` -- markers (m).  A rank holds a contiguous run of SNP blocks of X
   and W, or of tile rows of a tiled LD (their columns stay global); the
-  sweep visits the shards in turn (engine/gibbs.py, engine/sgibbs.py).
+  sweep visits the shards in turn, in a ring of chain groups, or all at
+  once in merge rounds (the schedules of engine/gibbs.py and
+  engine/sgibbs.py).
 
 Everything else is replicated.  Ranks are laid out row-major over
 ``shape`` (rank r at (r // S, r % S) on (ind, snp)), as the JAX package

@@ -3,8 +3,8 @@ hibayes_tpu_torch``) on a synthetic PLINK fileset with ``--device cpu``:
 the JAX CLI's files and columns for ibrm, sbrm and ssbrm, values equal to
 the port's API called with the same arguments, ``ldmat --out`` equal to
 the JAX CLI's npz bit for bit on int8 input, a ``--checkpoint`` run killed
-and resumed through ``main`` and through a subprocess, and the shard
-refusals."""
+and resumed through ``main`` and through a subprocess, the shard
+refusals, and ``--shards 2 --shard-schedule concurrent`` under torchrun."""
 
 import os
 import subprocess
@@ -21,6 +21,7 @@ from hibayes_tpu_torch.data.pedigree import read_pedigree
 
 from .test_torch_checkpoint import Killed, kill_after
 from .test_torch_ldmat import _fileset
+from .torch_dist import spawn
 
 torch.set_num_threads(2)
 
@@ -221,6 +222,30 @@ def test_shard_options_are_refused(files, capsys):
     assert "--shard-schedule pipeline needs --shards > 1" in capsys.readouterr().err
     with pytest.raises(RuntimeError, match="torchrun --nproc-per-node 2"):
         cli.main(base + ["--shards", "2"])
+
+
+def test_shards_concurrent_under_torchrun(files, tmp_path):
+    """``torchrun --nproc-per-node 2 -m hibayes_tpu_torch ibrm --shards 2
+    --shard-schedule concurrent`` (gloo on the CPU) writes the JAX CLI's
+    files, each byte for byte what rank 0 of a (1, 2) mesh writes through
+    the CLI's writer for ``ibrm(mesh=..., shard_schedule="concurrent")``
+    with the same arguments (ranks of tests/torch_dist.py, one torch
+    thread each, as torchrun's workers)."""
+    out, api = str(tmp_path / "cli"), str(tmp_path / "api")
+    env = {k: v for k, v in os.environ.items()
+           if k not in ("WORLD_SIZE", "RANK", "LOCAL_RANK", "MASTER_ADDR", "MASTER_PORT")}
+    env.update(PYTHONPATH=REPO, OMP_NUM_THREADS="1")
+    proc = subprocess.run(
+        [sys.executable, "-m", "torch.distributed.run", "--standalone", "--nproc-per-node",
+         "2", "-m", "hibayes_tpu_torch"] + fit_args("ibrm", files)
+        + ["--shards", "2", "--shard-schedule", "concurrent", "--device", "cpu",
+           "--out-prefix", out],
+        cwd=REPO, env=env, capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stderr
+    spawn("tests.torch_dist:cli_fit_case", 2, tmp_path, {"stem": files, "prefix": api})
+    assert written(out) == written(api) == [".alpha.tsv", ".gebv.tsv", ".gwas.tsv", ".var.tsv"]
+    for suffix in written(out):
+        assert open(api + suffix, "rb").read() == open(out + suffix, "rb").read(), suffix
 
 
 @pytest.mark.parametrize("tile", [256, 10])

@@ -1763,3 +1763,59 @@ def test_ibrm_sweeps_many_folds_match_plain(nf, dev):
     dg_k, tr_k = TB.block_draws(spec, logpi, P_b, Wb, r0)
     dg_p, tr_p = TB.block_draws_plain(spec, logpi, P_b, Wb, r0)
     _assert_bar((P_b[:, 1] - dg_p, tr_p), (P_b[:, 1] - dg_k, tr_k))
+
+
+@pytest.mark.parametrize("K", [1, 3])
+@pytest.mark.parametrize("S,Rm", [(2, 2), (4, 1)])
+def test_concurrent_emulation_matches_plain(S, Rm, K, dev, monkeypatch):
+    """The concurrent schedule's one-card emulation (S shards, Rm merge
+    rounds: S Rm sweep_mc launches at their block ranges from the
+    round-start residual) against the same emulation through the plain
+    sweep, at the kernel bar; bit-identical on a second run; group 0 bit
+    for bit the one-device sweep's first blocks."""
+    spec, args = _inputs("BayesR", dev, K=K, m=128)
+    spec = dataclasses.replace(spec, shard_schedule="concurrent", emulate_shards=S,
+                               merge_rounds=Rm)
+    TB.reset_kernel_launches()
+    out = TG._sweep_concurrent_emu_mc(spec, *args)
+    launches = TB.kernel_launches()
+    assert launches["sweep1" if K == 1 else "draws_kernel"] == (S * Rm if K == 1 else 8)
+    again = TG._sweep_concurrent_emu_mc(spec, *args)
+    assert all(torch.equal(a, b) for a, b in zip(out, again))
+    mg = spec.m_pad // (S * Rm)
+    one = TB.sweep_mc(spec, *args)
+    assert torch.equal(out[0][:, :mg], one[0][:, :mg])
+    assert torch.equal(out[1][:, :mg], one[1][:, :mg])
+    monkeypatch.setattr(TB, "sweep_mc", TB.sweep_mc_plain)
+    ref = TG._sweep_concurrent_emu_mc(spec, *args)
+    for k in range(K):
+        _assert_bar(tuple(t[k] for t in ref), tuple(t[k] for t in out))
+
+
+def test_tiled_rounds_build_each_schedule_once(dev, monkeypatch):
+    """sbrm's concurrent rounds (``_tiled_sweep_snp_sharded`` at Rm = 2 on a
+    one-rank mesh: two tiled_sweep launches at row_base 0 and nl/2) against
+    the same rounds through the plain sweep at the bar with equal guard
+    counts; over three sweeps each round's schedule is built once (the
+    rounds' rows are the same views every time)."""
+    from hibayes_tpu_torch.parallel.mesh import make_mesh
+
+    spec, data, g, r, P, _, _ = _s_problem("BayesR", "tiled", dev, m=2000)
+    spec = dataclasses.replace(spec, shard_schedule="concurrent", merge_rounds=2)
+    if data.ld_tiles.shape[0] % 2:
+        pytest.skip("odd tile rows")
+    mesh = make_mesh(device=dev)
+    built = []
+    real = TB.tiled_schedule
+    monkeypatch.setattr(TB, "tiled_schedule", lambda *a, **k: built.append(1) or real(*a, **k))
+    tally = torch.zeros(2, dtype=torch.int64, device=dev)
+    TB.reset_kernel_launches()
+    outs = [TSG._tiled_sweep_snp_sharded(spec, data, r, P, mesh, tally) for _ in range(3)]
+    assert TB.kernel_launches()["tiled_sweep"] == 6 and len(built) == 2
+    assert all(torch.equal(a, b) for a, b in zip(outs[0], outs[2]))
+    ptally = torch.zeros(2, dtype=torch.int64, device=dev)
+    monkeypatch.setattr(TB, "sweep_s_tiled", TB.sweep_s_tiled_plain)
+    ref = TSG._tiled_sweep_snp_sharded(spec, data, r, P, mesh, ptally)
+    _assert_bar((g - ref[0], ref[1], None, ref[2]), (g - outs[0][0], outs[0][1], None,
+                                                     outs[0][2]))
+    assert torch.equal(tally, 3 * ptally)

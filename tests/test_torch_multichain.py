@@ -150,14 +150,19 @@ def test_batch_resync_in_f32():
 
 
 def test_run_chains_refuses_what_is_not_ported(tmp_path, capsys):
-    """The concurrent shard schedule is still refused, naming item 14 (a
-    mesh runs: tests/test_torch_mesh.py).  A batch's checkpoint and
-    progress rows (item 7) now run: the checkpoint is written and the rows
-    show chain 0 of 2."""
+    """Nothing is refused any more (the name is from when it was).  The
+    concurrent shard schedule without a mesh or emulate_shards runs the
+    exact sweep, as the JAX package does: a batch of 2 bit for bit the
+    "turn" batch (its emulation and meshes: tests/test_torch_concurrent.py).
+    A batch's checkpoint and progress rows run: the checkpoint is written
+    and the rows show chain 0 of 2."""
     spec, data, pr, pi = _chain_setup()
-    with pytest.raises(NotImplementedError, match="item 14"):
-        TG.run_chains(spec.__class__(**{**spec.__dict__, "shard_schedule": "concurrent"}),
-                      data, pr, pi, nchains=2)
+    conc = TG.run_chains(spec.__class__(**{**spec.__dict__, "shard_schedule": "concurrent"}),
+                         data, pr, pi, nchains=2)
+    turn = TG.run_chains(spec, data, pr, pi, nchains=2)
+    for k in turn[1]:
+        np.testing.assert_array_equal(conc[1][k], turn[1][k], err_msg=k)
+    assert torch.equal(conc[0].g, turn[0].g) and torch.equal(conc[0].yadj, turn[0].yadj)
     ck = str(tmp_path / "ck")
     TG.run_chains(spec, data, pr, pi, nchains=2, checkpoint_path=ck, progress=True)
     assert os.path.exists(ck + ".npz") and os.path.exists(ck + ".meta.json")

@@ -112,26 +112,74 @@ def test_mesh_keywords_run_on_one_rank():
 
 @pytest.mark.parametrize("call", ["ibrm", "sbrm", "run_chains", "emulate"])
 def test_concurrent_schedule_cites_item_14(call):
-    """shard_schedule='concurrent' (and emulate_shards with it) is the one
-    schedule not ported: it raises NotImplementedError citing ROADMAP item
-    14 alone, and no refusal of the port cites item 13."""
-    with pytest.raises(NotImplementedError, match="item 14") as e:
-        if call == "ibrm":
-            htt.ibrm("T1~1", shard_schedule="concurrent", niter=4, nburn=2, verbose=False,
-                     device="cpu", **_ibrm_inputs())
-        elif call == "sbrm":
-            m = 16
-            ss = np.column_stack([np.full(m, .3), np.zeros(m), np.full(m, .01),
-                                  np.full(m, 1e4)])
-            htt.sbrm(ss, np.eye(m), shard_schedule="concurrent", niter=4, nburn=2,
-                     verbose=False, device="cpu")
-        else:
-            spec = TG.GibbsSpec(model="BayesCpi", n=10, m=8, m_pad=8, block=8, nc=0,
-                                nlevels=(), n_fold=2, niter=2, nburn=1, thin=1, nvar0=0,
-                                shard_schedule="concurrent",
-                                emulate_shards=2 if call == "emulate" else 0)
-            TG._check_ported(spec, None)
-    assert "13" not in str(e.value)
+    """shard_schedule='concurrent' runs wherever the JAX package runs it
+    (the name is from when it was refused, citing ROADMAP item 14).
+    Without a mesh or emulate_shards ibrm, sbrm and run_chains run the
+    exact sweep, as the JAX package does: bit for bit the "turn" fit.  With
+    emulate_shards=2 one iteration is the JAX package's emulation on JAX's
+    numbers to rtol 1e-10, and both specs warn of m > n (every case:
+    tests/test_torch_concurrent.py)."""
+    if call == "ibrm":
+        kw = dict(niter=20, nburn=10, verbose=False, device="cpu", **_ibrm_inputs(n=80))
+        np.testing.assert_array_equal(htt.ibrm("T1~1", shard_schedule="concurrent", **kw).alpha,
+                                      htt.ibrm("T1~1", **kw).alpha)
+    elif call == "sbrm":
+        m = 16
+        ss = np.column_stack([np.full(m, .3), np.zeros(m), np.full(m, .01), np.full(m, 1e4)])
+        kw = dict(niter=20, nburn=10, verbose=False, device="cpu")
+        np.testing.assert_array_equal(
+            htt.sbrm(ss, np.eye(m), shard_schedule="concurrent", merge_rounds=2, **kw).alpha,
+            htt.sbrm(ss, np.eye(m), **kw).alpha)
+    elif call == "run_chains":
+        spec, data, pr, pi = _multihost_chain(*_chain_inputs())
+        with pytest.warns(UserWarning, match="block-Jacobi"):   # m (32) > n (20)
+            conc = dataclasses.replace(spec, shard_schedule="concurrent")
+        _, a, _ = TG.run_chains(conc, data, pr, pi, seed=2, nchains=1)
+        _, b, _ = TG.run_chains(spec, data, pr, pi, seed=2, nchains=1)
+        for k in b:
+            np.testing.assert_array_equal(a[k], b[k], err_msg=k)
+    else:
+        import jax
+
+        from hibayes_tpu.engine import gibbs as G
+        from hibayes_tpu_torch.engine.convert import chain_state_from_numpy
+
+        from .torch_parity import JaxNoise, port_spec
+
+        jspec, data, pr, pi = _jax_chain(*_chain_inputs())
+        with pytest.warns(UserWarning, match="block-Jacobi"):   # m (32) > n (20)
+            jspec = dataclasses.replace(jspec, shard_schedule="concurrent", emulate_shards=2)
+        with pytest.warns(UserWarning, match="block-Jacobi"):
+            pspec = port_spec(jspec)
+        st = G.init_state(jspec, data, pr, pi)
+        key = jax.random.PRNGKey(4)
+        ref = jax.jit(lambda s: G.one_iteration(jspec, data, key, s))(st)
+        out = TG.one_iteration(pspec, TG.prepare_gibbs_data(
+            *_chain_inputs(), block=8, dtype=torch.float64, geno_dtype="int8"), 0,
+            chain_state_from_numpy(jax.tree_util.tree_map(np.asarray, st)),
+            noise=JaxNoise(key, 0))
+        for k in ("g", "yadj", "u", "vara", "vare"):
+            np.testing.assert_allclose(getattr(out, k).numpy(), np.asarray(getattr(ref, k)),
+                                       rtol=1e-10, atol=1e-12, err_msg=k)
+        np.testing.assert_array_equal(out.track.numpy(), np.asarray(ref.track))
+
+
+def _jax_chain(y, M):
+    """The JAX package's counterpart of ``_multihost_chain``'s chain."""
+    import jax.numpy as jnp
+
+    from hibayes_tpu.engine import gibbs as G
+
+    pi = np.array([0.95, 0.05])
+    data = G.prepare_gibbs_data(y, M, block=8, dtype=jnp.float64, geno_dtype="int8")
+    pr = G.resolve_priors(y, float(np.asarray(data.vx).sum()), pi[0], nr=0)
+    m = M.shape[1]
+    spec = G.GibbsSpec(model="BayesCpi", n=len(y), m=m, m_pad=int(data.xpx.shape[0]),
+                       block=8, nc=0, nlevels=(), n_fold=2, niter=40, nburn=20, thin=5,
+                       nvar0=int((np.asarray(data.vx)[:m] == 0).sum()), dfvara=pr.dfvara,
+                       s2vara=pr.s2vara, dfvare=pr.dfvare, s2vare=pr.s2vare,
+                       s2varg=pr.s2varg, lambda_rate0=pr.lambda_rate0)
+    return spec, data, pr, pi
 
 
 def test_pipeline_refusals():

@@ -83,18 +83,23 @@ def _refusal_inputs():
     (dict(shard_schedule="concurrent"), "item 14"),
 ])
 def test_sbrm_refuses_what_is_not_ported(kw, item):
-    """The concurrent shard schedule raises, naming item 14; a chain batch
-    runs on every layout, a tiled LD included, and so does a mesh (item
-    None: the fit runs, with each chain's guard counts)."""
+    """Nothing is refused any more (the name and the ids are from when the
+    concurrent schedule was, citing item 14): a chain batch runs on every
+    layout, a tiled LD included, and so does a mesh (the fit runs, with
+    each chain's guard counts); the concurrent schedule without a mesh runs
+    the exact sweep, as the JAX package does: bit for bit the "turn" fit
+    (on a mesh: tests/test_torch_concurrent.py)."""
     ss, R, Rp = _refusal_inputs()
     ld = ht.TiledSparseLD.from_scipy(sp.csr_matrix(Rp), tile=128) if item is None else R
+    fit = ht.sbrm(ss, ld, niter=20, nburn=10, verbose=False, device="cpu", **kw)
     if item is None:
-        fit = ht.sbrm(ss, ld, niter=20, nburn=10, verbose=False, device="cpu", **kw)
         assert fit.guard.shape == (kw.get("nchains", 1), 2)
         assert np.isfinite([fit.Vg, fit.Ve]).all()
         return
-    with pytest.raises(NotImplementedError, match=item):
-        ht.sbrm(ss, ld, niter=20, nburn=10, verbose=False, device="cpu", **kw)
+    turn = ht.sbrm(ss, ld, niter=20, nburn=10, verbose=False, device="cpu")
+    for k in ("Vg", "Ve", "h2"):
+        np.testing.assert_array_equal(fit.MCMCsamples[k], turn.MCMCsamples[k], err_msg=k)
+    np.testing.assert_array_equal(fit.alpha, turn.alpha)
 
 
 @pytest.mark.parametrize("layout", ["sparse", "blockdiag", "tile64"])

@@ -59,16 +59,17 @@ def _ibrm_data(n=60, m=40, seed=0):
     ({"lambda_": 0.5}, "item 9"),
     ({"checkpoint": "fit.ckpt"}, "item 7"),
     ({"mesh": make_mesh()}, None),
-    ({"shard_schedule": "concurrent"}, "item 14"),
+    ({"shard_schedule": "concurrent"}, None),
     ({"merge_rounds": 2}, None),
     ({"emulate_shards": 2}, None),
 ], ids=["lambda_", "checkpoint", "mesh", "shard_schedule", "merge_rounds",
         "emulate_shards"])
 def test_ibrm_refuses_unported_keywords_by_item(kw, item, tmp_path, monkeypatch):
-    """The concurrent shard schedule is refused, naming item 14 alone; the
-    other mesh keywords run as in the JAX package (a one-rank mesh; with
+    """Every mesh keyword runs as in the JAX package (a one-rank mesh; with
     the "turn" schedule ``merge_rounds`` changes nothing, and
-    ``emulate_shards`` only pads the blocks to a multiple of it).  ``lambda_`` (item 9, BSLMM) and ``checkpoint`` (item 7) are
+    ``emulate_shards`` only pads the blocks to a multiple of it;
+    "concurrent" without a mesh or emulate_shards is the exact chain: the
+    "turn" fit bit for bit).  ``lambda_`` (item 9, BSLMM) and ``checkpoint`` (item 7) are
     ported: the keyword reaches the engine.  A BSLMM fit with lambda_=0.5 runs on the ridged GRM (its
     eigenvalues, all at least 0.5, in the chain's data); checkpoint= writes
     <path>.npz with the finished chain."""
@@ -93,15 +94,10 @@ def test_ibrm_refuses_unported_keywords_by_item(kw, item, tmp_path, monkeypatch)
         assert os.path.exists(ck + ".npz")
         assert json.load(open(ck + ".meta.json"))["it"] == 20
         return
-    if item is None:
-        fit = ht.ibrm("T1~1", **fit_kw, **kw)
-        assert np.isfinite(fit.alpha).all()
-        if "emulate_shards" not in kw:   # which pads the blocks to a multiple of 2
-            np.testing.assert_array_equal(fit.alpha, ht.ibrm("T1~1", **fit_kw).alpha)
-        return
-    with pytest.raises(NotImplementedError, match=item) as e:
-        ht.ibrm("T1~1", **fit_kw, **kw)
-    assert "13" not in str(e.value)
+    fit = ht.ibrm("T1~1", **fit_kw, **kw)
+    assert np.isfinite(fit.alpha).all()
+    if "emulate_shards" not in kw:   # which pads the blocks to a multiple of 2
+        np.testing.assert_array_equal(fit.alpha, ht.ibrm("T1~1", **fit_kw).alpha)
 
 
 def test_threads_is_accepted_and_unused():

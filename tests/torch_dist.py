@@ -259,6 +259,56 @@ def sgibbs_cases(rank, world, payload):
     return {"one": (as_numpy(one), tally.numpy()), "chain": (smp, ex["guard"])}
 
 
+def concurrent_cases(rank, world, payload):
+    """tests/test_torch_concurrent.py, in one spawn a world size: the
+    individual-level jobs of ``payload["gibbs"]`` (:func:`gibbs_cases`) and
+    the summary ones of ``payload["sgibbs"]`` ({"spec", "data", "jobs":
+    [{"shape", "cases"}]}, each case one ``one_s_iteration`` from its
+    state with a spec override and JAX's numbers).  Returns {"gibbs":
+    [{name: result}], "sgibbs": [{name: (state, tally)}]}, a dict per job."""
+    import dataclasses
+
+    from hibayes_tpu_torch.engine import gibbs as TG
+    from hibayes_tpu_torch.engine import sgibbs as TSG
+    from hibayes_tpu_torch.engine.convert import s_chain_state_from_numpy, sgibbs_data_from_numpy
+    from hibayes_tpu_torch.parallel.mesh import make_mesh
+
+    out = {"gibbs": gibbs_cases(rank, world, payload["gibbs"]), "sgibbs": []}
+    sp = payload["sgibbs"]
+    spec = TG.GibbsSpec(**sp["spec"])
+    data = sgibbs_data_from_numpy(sp["data"])
+    for job in sp["jobs"]:
+        mesh = make_mesh(shape=job["shape"], device="cpu")
+        res = {}
+        for c in job["cases"]:
+            tally = torch.zeros(2, dtype=torch.int64)
+            st = TSG.one_s_iteration(dataclasses.replace(spec, **c["spec"]), data, 0,
+                                     s_chain_state_from_numpy(c["state"]),
+                                     noise=TableNoise(c["table"]), mesh=mesh, tally=tally)
+            res[c["name"]] = (as_numpy(st), tally.numpy())
+        out["sgibbs"].append(res)
+    return out
+
+
+def cli_fit_case(rank, world, payload):
+    """tests/test_torch_cli.py: the CLI's ``ibrm`` call through the API on a
+    (1, world) mesh with the concurrent schedule; rank 0 writes the fit
+    through the CLI's writer under ``payload["prefix"]``."""
+    import hibayes_tpu_torch as ht
+    from hibayes_tpu_torch import cli
+    from hibayes_tpu_torch.parallel.mesh import make_mesh
+
+    stem = payload["stem"]
+    bed = ht.read_plink(stem)
+    fit = ht.ibrm("y ~ x1 + (1|grp)", data=ht.read_pheno(stem + ".phe"),
+                  M=bed["geno"].values, M_id=bed["fam"][1], map=bed["map"], windsize=20000.0,
+                  windnum=None, method="BayesCpi", niter=60, nburn=20, thin=5, seed=7,
+                  verbose=False, device="cpu", mesh=make_mesh(shape=(1, world), device="cpu"),
+                  shard_schedule="concurrent")
+    if rank == 0:
+        cli.save_fit(fit, payload["prefix"], map_=bed["map"])
+
+
 def multihost_case(rank, world, payload):
     """tests/test_torch_multihost.py: join the group by ``init_multihost``
     (a file:// address), read this rank's rows of a PLINK fileset, run a
