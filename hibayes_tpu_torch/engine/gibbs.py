@@ -45,6 +45,7 @@ import torch
 from ..math.solvers import segment_matmul
 from ..ops import blockgibbs
 from ..parallel.distributed import all_gather, axis_sum, barrier, broadcast, ring_hop
+from ..utils.profiling import span, spanned
 from . import checkpoint
 from .rng import (STREAM_BSLMM_CHI, STREAM_BSLMM_Z, STREAM_COV, STREAM_EPSL_CHI,
                   STREAM_EPSL_J, STREAM_EPSL_Z, STREAM_FACTOR, STREAM_LAMBDA, STREAM_MU,
@@ -318,6 +319,7 @@ def _columns(M, c0: int, c1: int, dtype, device) -> torch.Tensor:
         device=device, dtype=dtype)
 
 
+@spanned("model.prepare")
 def prepare_gibbs_data(
     y, M, *, C=None, r_codes=(), r_nlevels=(), fold=None, windindx=None, nw=0,
     K=None, Kval=None, epsl_yJ=None, epsl_A=None, epsl_codes=None, qe=0,
@@ -401,12 +403,13 @@ def prepare_gibbs_data(
         x_dtype = dtype
     sb = genotype_layout(block, n, x_dtype.itemsize, 2 if fold is None else len(fold))
     nbk, W = nblocks * sb.S, sb.W
-    X_blocks = torch.zeros((nbk, n, W), dtype=x_dtype, device=device)
-    for k in range(nbk):
-        c0 = (k // sb.S) * block + (k % sb.S) * W
-        c1 = min(m, (k // sb.S) * block + min(block, (k % sb.S + 1) * W))
-        if c0 < c1:
-            X_blocks[k, :n_real, : c1 - c0] = _columns(M, c0, c1, x_dtype, device)
+    with span("model.layout"):
+        X_blocks = torch.zeros((nbk, n, W), dtype=x_dtype, device=device)
+        for k in range(nbk):
+            c0 = (k // sb.S) * block + (k % sb.S) * W
+            c1 = min(m, (k // sb.S) * block + min(block, (k % sb.S + 1) * W))
+            if c0 < c1:
+                X_blocks[k, :n_real, : c1 - c0] = _columns(M, c0, c1, x_dtype, device)
 
     gram_dt = torch.float32 if use_int8 else dtype
     W_blocks = torch.empty((nbk, W, W), dtype=dtype, device=device)
@@ -415,17 +418,18 @@ def prepare_gibbs_data(
     vx = torch.empty((nbk, W), dtype=dtype, device=device)
     row_real = (torch.arange(n, device=device) < n_real)[None, :, None]
     per = max(1, GRAM_BATCH_BYTES // (n * W * gram_dt.itemsize))
-    for b0 in range(0, nbk, per):
-        b1 = min(nbk, b0 + per)
-        Xf = X_blocks[b0:b1].to(gram_dt)
-        W_blocks[b0:b1] = torch.bmm(Xf.transpose(1, 2), Xf).to(dtype)
-        s1[b0:b1] = Xf.sum(dim=1)
-        if not use_int8:
-            # centred two-pass variance: exact 0 for monomorphic columns;
-            # padded rows are left out of the centring
-            xpx[b0:b1] = (Xf * Xf).sum(dim=1)
-            Mc = torch.where(row_real, Xf - s1[b0:b1, None, :] / n_real, 0.0)
-            vx[b0:b1] = (Mc * Mc).sum(dim=1) / (n_real - 1)
+    with span("model.gram"):
+        for b0 in range(0, nbk, per):
+            b1 = min(nbk, b0 + per)
+            Xf = X_blocks[b0:b1].to(gram_dt)
+            W_blocks[b0:b1] = torch.bmm(Xf.transpose(1, 2), Xf).to(dtype)
+            s1[b0:b1] = Xf.sum(dim=1)
+            if not use_int8:
+                # centred two-pass variance: exact 0 for monomorphic columns;
+                # padded rows are left out of the centring
+                xpx[b0:b1] = (Xf * Xf).sum(dim=1)
+                Mc = torch.where(row_real, Xf - s1[b0:b1, None, :] / n_real, 0.0)
+                vx[b0:b1] = (Mc * Mc).sum(dim=1) / (n_real - 1)
     if use_int8:
         # exact in float64: all integers < 2^53
         s2 = torch.diagonal(W_blocks, dim1=1, dim2=2).to(torch.float64)
@@ -1403,8 +1407,9 @@ def _post_sweep(spec: GibbsSpec, data: GibbsData, noise, state: ChainState,
     # --- periodic drift resync (f32 only; exact recompute of yadj and u) ---
     if (spec.resync_every and dt == torch.float32
             and state.it % spec.resync_every == spec.resync_every - 1):
-        yadj, u = _recompute_residuals(spec, data, mu, beta, estR, g,
-                                       pre["J_beta"], pre["epsl_estR"], pre["k_estR"], mesh)
+        with span("engine.resync"):
+            yadj, u = _recompute_residuals(spec, data, mu, beta, estR, g, pre["J_beta"],
+                                           pre["epsl_estR"], pre["k_estR"], mesh)
 
     return contiguous_state(ChainState(
         it=state.it + 1, mu=mu, beta=beta, estR=estR, vrtmp=pre["vrtmp"],
@@ -1457,12 +1462,16 @@ def one_iteration(spec: GibbsSpec, data: GibbsData, seed: int,
     ``shard_state``; whole data is cut here) and every rank of the mesh
     calls it alike."""
     _check_ported(spec, mesh)
-    data, state, mesh = _on_mesh(spec, data, state, mesh)
-    if noise is None:
-        noise = IterNoise(seed, state.it, data.y.device, data.y.dtype)
-    pre = _pre_sweep(spec, data, noise, state, mesh)
-    sweep_out = _run_sweep_k1(spec, data, pre, state.g, mesh)
-    return _post_sweep(spec, data, noise, state, pre, sweep_out, mesh)
+    with span("engine.iteration", it=state.it):
+        data, state, mesh = _on_mesh(spec, data, state, mesh)
+        if noise is None:
+            noise = IterNoise(seed, state.it, data.y.device, data.y.dtype)
+        with span("engine.pre_sweep"):
+            pre = _pre_sweep(spec, data, noise, state, mesh)
+        with span("engine.sweep"):
+            sweep_out = _run_sweep_k1(spec, data, pre, state.g, mesh)
+        with span("engine.post_sweep"):
+            return _post_sweep(spec, data, noise, state, pre, sweep_out, mesh)
 
 
 def one_iteration_batch(spec: GibbsSpec, data: GibbsData, seed: int,
@@ -1477,12 +1486,16 @@ def one_iteration_batch(spec: GibbsSpec, data: GibbsData, seed: int,
     own streams (:func:`chain_noise`); a test may pass any list of K."""
     K = int(states.mu.shape[0])
     _check_ported(spec, mesh)
-    data, states, mesh = _on_mesh(spec, data, states, mesh)
-    if noise is None:
-        noise = chain_noise(seed, states.it, K, data.y.device, data.y.dtype)
-    pre = _pre_sweep(spec, data, noise, states, mesh)
-    sweep_out = _sweep(spec, data, pre, states.g, mesh)
-    return _post_sweep(spec, data, noise, states, pre, sweep_out, mesh)
+    with span("engine.iteration", it=states.it):
+        data, states, mesh = _on_mesh(spec, data, states, mesh)
+        if noise is None:
+            noise = chain_noise(seed, states.it, K, data.y.device, data.y.dtype)
+        with span("engine.pre_sweep"):
+            pre = _pre_sweep(spec, data, noise, states, mesh)
+        with span("engine.sweep"):
+            sweep_out = _sweep(spec, data, pre, states.g, mesh)
+        with span("engine.post_sweep"):
+            return _post_sweep(spec, data, noise, states, pre, sweep_out, mesh)
 
 
 # ---------------------------------------------------------------------------
@@ -1576,20 +1589,23 @@ def run_loop(spec, state, step, snapshot, progress=False, chunk_records=0,
     def flush():
         # the device records of the chunks so far, to one numpy part
         if pending:
-            parts.append({k: torch.stack([r[k] for r in pending]).cpu().numpy()
-                          for k in pending[0]})
-            pending.clear()
+            with span("engine.flush"):
+                parts.append({k: torch.stack([r[k] for r in pending]).cpu().numpy()
+                              for k in pending[0]})
+                pending.clear()
 
     t0, it0, total = time.time(), state.it, spec.niter_eff
 
     def chunk_done(state):
         if checkpoint_path:
             flush()
-            full = whole(state)
-            if lead:
-                checkpoint.save_checkpoint(checkpoint_path, held(full), _concat_records(parts))
-            if mesh is not None:
-                barrier(mesh)
+            with span("engine.checkpoint"):
+                full = whole(state)
+                if lead:
+                    checkpoint.save_checkpoint(checkpoint_path, held(full),
+                                               _concat_records(parts))
+                if mesh is not None:
+                    barrier(mesh)
         if progress:
             sec = int((time.time() - t0) / max(state.it - it0, 1) * (total - state.it))
             _print_progress(spec, state,
@@ -1604,7 +1620,8 @@ def run_loop(spec, state, step, snapshot, progress=False, chunk_records=0,
         for _ in range(k):
             for _ in range(spec.thin):
                 state = step(state)
-            pending.append(snapshot(state))
+            with span("engine.record"):
+                pending.append(snapshot(state))
         n_done += k
         chunk_done(state)
     if state.vare.is_cuda:

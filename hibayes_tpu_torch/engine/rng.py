@@ -25,6 +25,7 @@ from __future__ import annotations
 import torch
 
 from ..math.distributions import gamma
+from ..utils.profiling import count
 
 STREAM_MU = 0
 STREAM_COV = 1
@@ -72,6 +73,9 @@ def stream_seed(seed: int, it: int, stream: int, chain: int = 0) -> int:
 
 def stream_generator(seed: int, it: int, stream: int, device,
                      chain: int = 0) -> torch.Generator:
+    """The seeded generator of one stream; counted as ``rng.generators``
+    (utils/profiling.py) while a profiler records."""
+    count("rng.generators")
     gen = torch.Generator(device=torch.device(device))
     gen.manual_seed(stream_seed(seed, it, stream, chain))
     return gen

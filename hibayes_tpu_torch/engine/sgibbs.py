@@ -48,6 +48,7 @@ from ..data.sparse_ld import TiledSparseLD, _tensor
 from ..math.distributions import inv_gaussian_from
 from ..ops import blockgibbs
 from ..parallel.distributed import all_gather, axis_sum, broadcast
+from ..utils.profiling import span, spanned
 from .gibbs import (_dot, _draw, alphabet_global_updates, batch_results, chain_noise,
                     check_chain_options, contiguous_state, pad_to_block, pip_counters,
                     posterior_rates, rhat_diagnostics, run_loop, stack_state)
@@ -103,6 +104,7 @@ def _segment(values, mc_pad: int, dtype, device) -> torch.Tensor:
     return seg
 
 
+@spanned("model.prepare")
 def prepare_sgibbs_data(sumstat, ld, *, fold=None, windindx=None, nw=0,
                         block=64, dtype=torch.float32, device="cpu"):
     """Initialise from COJO-style summary statistics and an LD object.
@@ -398,10 +400,11 @@ def one_s_iteration(spec, data: SGibbsData, seed: int, state: SChainState,
     added (first draws rejected, draws whose every candidate failed).  On
     a mesh every rank calls it alike (``data`` whole or this rank's part:
     ``shard_sgibbs_data``)."""
-    data, mesh = _on_mesh(data, mesh)
-    if noise is None:
-        noise = IterNoise(seed, state.it, data.xy.device, data.xy.dtype)
-    return _s_iteration(spec, data, noise, state, tally, mesh)
+    with span("engine.iteration", it=state.it):
+        data, mesh = _on_mesh(data, mesh)
+        if noise is None:
+            noise = IterNoise(seed, state.it, data.xy.device, data.xy.dtype)
+        return _s_iteration(spec, data, noise, state, tally, mesh)
 
 
 def one_s_iteration_batch(spec, data: SGibbsData, seed: int, states: SChainState,
@@ -415,35 +418,40 @@ def one_s_iteration_batch(spec, data: SGibbsData, seed: int, states: SChainState
     counts).  ``noise`` defaults to each chain's own streams; ``tally`` is
     (K, 2)."""
     K = int(states.vara.shape[0])
-    if noise is None:
-        noise = chain_noise(seed, states.it, K, data.xy.device, data.xy.dtype)
-    return _s_iteration(spec, data, noise, states, tally)
+    with span("engine.iteration", it=states.it):
+        if noise is None:
+            noise = chain_noise(seed, states.it, K, data.xy.device, data.xy.dtype)
+        return _s_iteration(spec, data, noise, states, tally)
 
 
 def _s_iteration(spec, data: SGibbsData, noise, state: SChainState,
                  tally=None, mesh=None) -> SChainState:
-    pre = _s_pre_sweep(spec, data, noise, state)
+    with span("engine.pre_sweep"):
+        pre = _s_pre_sweep(spec, data, noise, state)
     P = pre["P"]
-    if mesh is not None and tiles_cut(spec, data):
-        dg, track, r_hat = _tiled_sweep_snp_sharded(spec, data, state.r_hat, P, mesh, tally)
-    elif data.ld_tiles is not None:
-        dg, track, r_hat, _ = blockgibbs.sweep_s_tiled(
-            spec, data.ld_tiles, data.ld_cols, data.ld_valid, state.r_hat, P, spec.n,
-            tally=tally)
-    else:
-        parts, off = [], 0
-        for seg, mc in zip(data.ld_segs, spec.seg_sizes):
-            sl = slice(off, off + mc)
-            parts.append(blockgibbs.sweep_s_segment(spec, seg, state.r_hat[..., sl],
-                                                    P[..., sl], spec.n, tally=tally))
-            off += mc
-        dg, track, r_hat = (torch.cat(x, dim=-1) for x in zip(*parts))
-    g = state.g - dg.to(state.g.dtype)
-    _, u_snp, _, z2_snp = pre["rnd"]
-    vargi_acc, vargR_acc, vargL = _s_sweep_accums(
-        spec, data, state, pre["vei"], g, track, u_snp, z2_snp, pre["vargL_full"])
-    return _s_finish(spec, data, noise, state, g, track, vargL,
-                     r_hat.to(state.r_hat.dtype), vargi_acc, vargR_acc)
+    with span("engine.sweep"):
+        if mesh is not None and tiles_cut(spec, data):
+            dg, track, r_hat = _tiled_sweep_snp_sharded(spec, data, state.r_hat, P, mesh,
+                                                        tally)
+        elif data.ld_tiles is not None:
+            dg, track, r_hat, _ = blockgibbs.sweep_s_tiled(
+                spec, data.ld_tiles, data.ld_cols, data.ld_valid, state.r_hat, P, spec.n,
+                tally=tally)
+        else:
+            parts, off = [], 0
+            for seg, mc in zip(data.ld_segs, spec.seg_sizes):
+                sl = slice(off, off + mc)
+                parts.append(blockgibbs.sweep_s_segment(spec, seg, state.r_hat[..., sl],
+                                                        P[..., sl], spec.n, tally=tally))
+                off += mc
+            dg, track, r_hat = (torch.cat(x, dim=-1) for x in zip(*parts))
+    with span("engine.post_sweep"):
+        g = state.g - dg.to(state.g.dtype)
+        _, u_snp, _, z2_snp = pre["rnd"]
+        vargi_acc, vargR_acc, vargL = _s_sweep_accums(
+            spec, data, state, pre["vei"], g, track, u_snp, z2_snp, pre["vargL_full"])
+        return _s_finish(spec, data, noise, state, g, track, vargL,
+                         r_hat.to(state.r_hat.dtype), vargi_acc, vargR_acc)
 
 
 def segment_unpad_index(spec) -> np.ndarray:

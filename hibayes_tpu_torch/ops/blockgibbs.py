@@ -53,7 +53,9 @@ loops over blocks and SNPs in Python with tensor ops (across the K chains
 for the individual-level ones), in any float dtype.  A wrapper takes its
 plain version only for tensors on the CPU; for CUDA tensors it launches the
 kernel or raises.  Each wrapper counts its own launches in a plain integer
-attribute (``.launches``), and each plain version its calls (``.calls``).
+attribute (``.launches``), and each plain version its calls (``.calls``);
+each call of a wrapper, card route or plain version, is a span
+``ops.<wrapper>`` (utils/profiling.py) while a profiler records.
 The libraries count every launch of each CUDA kernel where it is made
 (:func:`kernel_launches`): a one-chain sweep over nbg blocks is one
 persistent ``sweep1`` launch (:func:`sweep1_plan`); a K-chain sweep (K >= 2)
@@ -76,6 +78,7 @@ import numpy as np
 import torch
 
 from ..math.distributions import inv_gaussian_from
+from ..utils.profiling import spanned
 from . import build
 
 F32 = torch.float32
@@ -853,6 +856,7 @@ def _block_draws_launch(spec, P_b, W_b, r0, rows_global=False):
     return dg, track
 
 
+@spanned("ops.block_draws")
 def block_draws(spec, logpi_row, P_b, W_b, r0):
     """(dg, track) of one block of B sequential draws for K chains:
     r0 (B, K) = X_b' yadj, W_b (B, B), P_b (B, R, K) from :func:`pack_rows`.
@@ -941,6 +945,7 @@ def sweep_mc_plain(spec, consts_b, X_blocks, W_blocks, xpx, vx, vei_b, g_b,
 sweep_mc_plain.calls = 0
 
 
+@spanned("ops.sweep_mc")
 def sweep_mc(spec, consts_b, X_blocks, W_blocks, xpx, vx, vei_b, g_b, z_b,
              u_b, chi_b, z2_b, vargL_b, yadj_b, u_vec_b, block_range=None,
              stamps=None):
@@ -1262,6 +1267,7 @@ def _guard_counts(nrej) -> torch.Tensor:
                         (c >> EXHAUST_SHIFT).sum(-1)], dim=-1)
 
 
+@spanned("ops.sweep_s_segment")
 def sweep_s_segment(spec, LD_seg, r_seg, P, n, stamps=None, tally=None):
     """Summary sweep of one or K chains over one padded dense LD segment;
     the contract of ``sweep_s_segment`` (hibayes_tpu/ops/blockgibbs.py:1207-1254)
@@ -1561,6 +1567,7 @@ def _tiled_plain(spec, tiles, cols, valid, r_hat, P, n, tally, row_base=0):
 sweep_s_tiled_plain.calls = 0
 
 
+@spanned("ops.sweep_s_tiled")
 def sweep_s_tiled(spec, tiles, cols, valid, r_hat, P, n, stamps=None, tally=None,
                   row_base=0):
     """Summary sweep of one chain or a batch of C chains over every tile row
@@ -1955,6 +1962,7 @@ def mme_plan(sp, nbr: int) -> MmePlan:
     return plan
 
 
+@spanned("ops.mme_sweep")
 def mme_sweep(sp, counts, scale, ve, z, x, res, stamps=None):
     """The epsilon sweep of ``blocked_mme_gibbs_sparse``
     (hibayes_tpu/engine/gibbs.py:576-654) after its residual, for one chain

@@ -18,6 +18,8 @@ import shutil
 import subprocess
 from pathlib import Path
 
+from ..utils.profiling import span
+
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent.parent / "build"
 SOURCES = ("blockgibbs.cu", "sgibbs.cu", "mme.cu")
@@ -52,26 +54,28 @@ def library_path(source: str = SOURCES[0]) -> Path:
 
 def build(verbose: bool = False) -> list:
     """Compile every source whose library for these sources is missing, one
-    nvcc per source, all started together.  Returns the library paths."""
+    nvcc per source, all started together (span ``ops.build``).  Returns
+    the library paths."""
     todo = [s for s in SOURCES if not library_path(s).exists()]
     if todo:
-        nvcc = _nvcc()
-        BUILD_DIR.mkdir(parents=True, exist_ok=True)
-        jobs = []
-        for src in todo:
-            tmp = library_path(src).with_suffix(f".{os.getpid()}.tmp")
-            cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(CSRC / src)]
-            jobs.append((src, tmp, subprocess.Popen(
-                cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)))
-        failed = []
-        for src, tmp, proc in jobs:
-            _, err = proc.communicate()
-            if proc.returncode != 0:
-                failed.append(f"{src} ({proc.returncode}):\n{err}")
-                continue
-            if verbose:
-                print(f"{src}:\n{err.strip()}")
-            os.replace(tmp, library_path(src))
+        with span("ops.build"):
+            nvcc = _nvcc()
+            BUILD_DIR.mkdir(parents=True, exist_ok=True)
+            jobs = []
+            for src in todo:
+                tmp = library_path(src).with_suffix(f".{os.getpid()}.tmp")
+                cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(CSRC / src)]
+                jobs.append((src, tmp, subprocess.Popen(
+                    cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)))
+            failed = []
+            for src, tmp, proc in jobs:
+                _, err = proc.communicate()
+                if proc.returncode != 0:
+                    failed.append(f"{src} ({proc.returncode}):\n{err}")
+                    continue
+                if verbose:
+                    print(f"{src}:\n{err.strip()}")
+                os.replace(tmp, library_path(src))
         if failed:
             raise RuntimeError("nvcc failed: " + "\n".join(failed))
     return [library_path(s) for s in SOURCES]

@@ -1,3 +1,3 @@
-from .profiling import PhaseTimer, annotate, device_trace
+from .profiling import PhaseTimer, annotate, count, device_trace, span, spanned, spans
 
-__all__ = ["PhaseTimer", "device_trace", "annotate"]
+__all__ = ["PhaseTimer", "device_trace", "annotate", "span", "spanned", "count", "spans"]
