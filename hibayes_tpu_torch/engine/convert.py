@@ -25,7 +25,7 @@ import torch
 
 from ..ops.blockgibbs import sub_block_genotype
 from .gibbs import (MAX_EPSL_TILE, ChainState, EpslSparse, GibbsData, _build_epsl_sparse,
-                    _epsl_layout, genotype_layout)
+                    _epsl_layout, genotype_layout, segments)
 from .sgibbs import SChainState, SGibbsData
 
 
@@ -91,6 +91,8 @@ def gibbs_data_from_numpy(data, device="cpu") -> GibbsData:
         cpc=_t(f["cpc"], device),
         r_codes=tuple(_t(c, device, torch.int64) for c in f["r_codes"]),
         r_counts=tuple(_t(c, device) for c in f["r_counts"]),
+        r_segs=tuple(segments(c, np.asarray(k).shape[0], device)
+                     for c, k in zip(f["r_codes"], f["r_counts"])),
         fold=_t(f["fold"], device),
         windindx0=_t(f["windindx0"], device, torch.int64),
         K=opt("K", (0, 0)),
@@ -98,6 +100,8 @@ def gibbs_data_from_numpy(data, device="cpu") -> GibbsData:
         epsl_yJ=opt("epsl_yJ", (0,)),
         epsl_codes=opt("epsl_codes", (0,), torch.int64),
         epsl_counts=opt("epsl_counts", (0,)),
+        epsl_segs=segments(f.get("epsl_codes", ()), np.asarray(f.get("epsl_counts", ())).shape[0],
+                           device),
         block=B,
         epsl_sp=sp,
     )

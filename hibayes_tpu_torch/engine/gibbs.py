@@ -216,6 +216,16 @@ class EpslSparse(NamedTuple):
     coo_len: torch.Tensor      # (nbr * T,) int64 entries per row (0 on padded rows)
 
 
+class Segments(NamedTuple):
+    """The rows of each level of a vector of codes, for sums by level
+    (:func:`_segment_sum`): ``order`` the codes' stable sort order,
+    ``offsets`` (nlev + 1,) int64 where each level's rows start in it.
+    Made once, where the codes are (:func:`segments`)."""
+
+    order: torch.Tensor
+    offsets: torch.Tensor
+
+
 class GibbsData(NamedTuple):
     """Device-resident inputs.  X_blocks is the genotype in blocks of B =
     ``block``, each laid out as the S sub-blocks of W SNPs that the sweeps
@@ -233,6 +243,7 @@ class GibbsData(NamedTuple):
     cpc: torch.Tensor          # (nc,)
     r_codes: tuple             # per factor (n,) int64
     r_counts: tuple            # per factor (nlev_i,)
+    r_segs: tuple              # per factor Segments of r_codes (padded rows in level 0)
     fold: torch.Tensor         # (n_fold,)
     windindx0: torch.Tensor    # (m_pad,) int64 0-based window ids (pad -> nw)
     K: torch.Tensor            # (n, n) eigenvectors of the GRM (BSLMM)
@@ -240,6 +251,7 @@ class GibbsData(NamedTuple):
     epsl_yJ: torch.Tensor      # (n,) J covariate
     epsl_codes: torch.Tensor   # (ne,) int64 level of each imputed individual
     epsl_counts: torch.Tensor  # (qe_pad,)
+    epsl_segs: Segments        # of the epsl_codes of the rows held, over qe_pad levels
     block: int                 # B: SNPs a block (spec.block)
     # A-inverse(nn), sparse (the scale path) or dense (the direct path),
     # packed in diagonal blocks: the epsilon sweep's input
@@ -305,6 +317,29 @@ def resolve_priors(
 
 GRAM_BATCH_BYTES = 1 << 30  # f32 genotype blocks cast at once for the Gram
 MAX_EPSL_TILE = 128         # sites per diagonal block of the epsilon system
+
+
+def checked_lengths(ids, nseg: int, what: str) -> np.ndarray:
+    """Entries per segment (nseg,) of the segment ids ``ids`` (numpy).  The
+    one check of the lengths, made where they are made: an id outside
+    [0, nseg) is refused, so no length is negative and they sum to the ids
+    held.  The iteration's sums then reduce without a check (a check reads
+    the lengths back to the host)."""
+    ids = np.asarray(ids, dtype=np.int64)
+    if ids.size and (ids.min() < 0 or ids.max() >= nseg):
+        raise ValueError(f"{what} must lie in [0, {nseg}); they span "
+                         f"[{ids.min()}, {ids.max()}]")
+    return np.bincount(ids, minlength=nseg)
+
+
+def segments(codes, nlev: int, device) -> Segments:
+    """:class:`Segments` of ``codes`` (numpy or a tensor, every row held,
+    padded rows included) over ``nlev`` levels, made on the host."""
+    c = np.asarray(codes.cpu() if isinstance(codes, torch.Tensor) else codes, np.int64)
+    lengths = checked_lengths(c, nlev, "level codes")
+    as_t = lambda a: torch.as_tensor(a, dtype=torch.int64, device=device)
+    return Segments(as_t(np.argsort(c, kind="stable")),
+                    as_t(np.concatenate([[0], np.cumsum(lengths)])))
 
 
 def pad_to_block(m: int, block: int) -> int:
@@ -448,10 +483,12 @@ def prepare_gibbs_data(
     cpc = (C_t * C_t).sum(dim=0)
 
     row_w = (torch.arange(n, device=device) < n_real).to(dtype)
-    codes_t, counts_t = [], []
+    codes_t, counts_t, segs_t = [], [], []
     for c, nl in zip(r_codes, r_nlevels):
-        ct = torch.zeros((n,), dtype=torch.int64, device=device)
-        ct[:n_real] = torch.as_tensor(np.asarray(c), dtype=torch.int64, device=device)
+        c_np = np.zeros((n,), dtype=np.int64)
+        c_np[:n_real] = np.asarray(c)
+        segs_t.append(segments(c_np, int(nl), device))
+        ct = torch.as_tensor(c_np, device=device)
         codes_t.append(ct)
         # padded rows carry code 0 but must not inflate the level counts
         counts_t.append(torch.zeros((int(nl),), dtype=dtype, device=device)
@@ -470,16 +507,18 @@ def prepare_gibbs_data(
                 else torch.as_tensor(a, dtype=dt, device=device))
 
     codes_np = None if epsl_codes is None else np.asarray(epsl_codes, dtype=np.int64)
+    epsl_segs = segments(codes_np if qe else (), qe_pad, device)
     return GibbsData(
         y=y_t, X_blocks=X_blocks, W_blocks=W_blocks, xpx=xpx, vx=vx,
         real=real, C=C_t, cpc=cpc, r_codes=tuple(codes_t),
-        r_counts=tuple(counts_t), fold=fold_t, windindx0=wind0,
+        r_counts=tuple(counts_t), r_segs=tuple(segs_t), fold=fold_t, windindx0=wind0,
         K=tensor(K, dtype, (0, 0)), Kval=tensor(Kval, dtype, (0,)),
         epsl_yJ=tensor(None if epsl_yJ is None else np.asarray(epsl_yJ, np.float64),
                        dtype, (0,)),
         epsl_codes=tensor(codes_np, torch.int64, (0,)),
         epsl_counts=tensor(np.bincount(codes_np, minlength=qe_pad) if qe else None,
                            dtype, (0,)),
+        epsl_segs=epsl_segs,
         block=block,
         epsl_sp=epsl_sp,
     )
@@ -497,7 +536,8 @@ def genotype_layout(block: int, n: int, xbytes: int, n_fold: int):
 def _epsl_layout(diag_blocks, fwd, coo, qe_pad, dtype, device) -> EpslSparse:
     """EpslSparse from host parts: ``diag_blocks`` (nbr, T, T); ``fwd`` per
     block the forward triplets (global rows, in-block cols, vals); ``coo``
-    (rows, cols, vals) of the whole A in any order."""
+    (rows, cols, vals) of the whole A in any order.  ``coo_len`` is checked
+    here, once (:func:`checked_lengths`): the matvecs reduce without a check."""
     urow, cnts, ecol, evals, blk_ptr = [], [], [], [], [0]
     for r, c, v in fwd:
         order = np.lexsort((c, r))
@@ -521,7 +561,7 @@ def _epsl_layout(diag_blocks, fwd, coo, qe_pad, dtype, device) -> EpslSparse:
         row_ptr=as_t(row_ptr, i32), ent_col=as_t(cat(ecol, np.int64), i32),
         ent_val=as_t(cat(evals, np.float64), dtype),
         coo_cols=as_t(cols[order], torch.int64), coo_vals=as_t(vals[order], dtype),
-        coo_len=as_t(np.bincount(rows, minlength=qe_pad), torch.int64),
+        coo_len=as_t(checked_lengths(rows, qe_pad, "A's row indices"), torch.int64),
     )
 
 
@@ -564,6 +604,13 @@ def local_rows(spec: GibbsSpec, data: GibbsData, mesh=None) -> tuple:
     if not rows_cut(spec, data):
         return 0, spec.n
     return mesh.row_range(spec.n)
+
+
+def epsl_part(n: int, ne: int, r0: int, nr: int) -> tuple:
+    """(t0, c0): of local rows [r0, r0 + nr) of n, the non-genotyped ones
+    (the last ne) start at local row t0, and their codes at epsl_codes[c0]."""
+    t0 = min(max(n - ne - r0, 0), nr)
+    return t0, r0 + t0 - (n - ne)
 
 
 def local_blocks(spec: GibbsSpec, data: GibbsData, mesh=None) -> tuple:
@@ -786,15 +833,18 @@ def pip_counters(spec: GibbsSpec, data, state, track):
     return nzrate, wppa
 
 
-def _segment_sum(values, codes, lengths):
+def _segment_sum(values, seg: Segments):
     """Per-level sums of ``values`` over its last axis, added in a fixed
-    order.  index_add_ adds with atomics on a GPU, in an order that changes
-    from run to run; a chain must be reproducible for its seed.  ``lengths``
-    (int64) counts every row of each level, padded rows included."""
-    order = torch.argsort(codes, stable=True)
+    order: its rows in ``seg.order``, each level's summed by segment_reduce.
+    index_add_ adds with atomics on a GPU, in an order that changes from run
+    to run; a chain must be reproducible for its seed.  The offsets were
+    checked where they were made (:func:`segments`), so nothing here reads
+    back to the host."""
     if values.dim() == 1:
-        return torch.segment_reduce(values[order], "sum", lengths=lengths)
-    return torch.segment_reduce(values[:, order].T, "sum", lengths=lengths).T
+        return torch.segment_reduce(values[seg.order], "sum", offsets=seg.offsets,
+                                    unsafe=True)
+    return torch.segment_reduce(values[:, seg.order].T, "sum", offsets=seg.offsets,
+                                unsafe=True).T
 
 
 # ---------------------------------------------------------------------------
@@ -804,10 +854,10 @@ def _segment_sum(values, codes, lengths):
 
 def _epsl_matvec(sp: EpslSparse, x):
     """A @ x for the sparse A-inverse(nn), row by row (no atomics), for one
-    chain's x (q,) or a batch's (K, q)."""
-    if x.dim() == 1:
-        return segment_matmul(sp.coo_len, sp.coo_cols, sp.coo_vals, x)
-    return segment_matmul(sp.coo_len, sp.coo_cols, sp.coo_vals, x.T).T
+    chain's x (q,) or a batch's (K, q).  ``coo_len`` was checked where
+    :func:`_epsl_layout` made it, so the sums read nothing back to the host."""
+    mm = lambda v: segment_matmul(sp.coo_len, sp.coo_cols, sp.coo_vals, v, checked=False)
+    return mm(x) if x.dim() == 1 else mm(x.T).T
 
 
 def blocked_mme_gibbs_sparse(sp: EpslSparse, counts, scale, x, b, ve, z):
@@ -845,15 +895,9 @@ def _epsilon_draw(spec: GibbsSpec, data: GibbsData, noise, J_beta, epsl_estR,
     yadj = yadj + (J_beta - J_new)[..., None] * yJ
     u = u - (J_beta - J_new)[..., None] * yJ
     qe_p = spec.qe_pad or qe
-    # this part's non-genotyped rows: local rows t0 .. nr, codes from c0
-    t0 = min(max(n - ne - r0, 0), nr)
-    c0 = r0 + t0 - (n - ne)
+    t0, c0 = epsl_part(n, ne, r0, nr)
     codes = data.epsl_codes[c0:c0 + nr - t0]
-    if rows_cut(spec, data):
-        lengths = torch.bincount(codes, minlength=data.epsl_counts.shape[0])
-    else:
-        lengths = data.epsl_counts.to(torch.int64)
-    rhs_e = (isum(_segment_sum(yadj[..., t0:], codes, lengths))
+    rhs_e = (isum(_segment_sum(yadj[..., t0:], data.epsl_segs))
              + data.epsl_counts * epsl_estR)
     scale = ve / vepstmp
     # qe normals on the direct path, qe_pad with the padding frozen on the
@@ -969,13 +1013,7 @@ def _pre_sweep(spec: GibbsSpec, data: GibbsData, noise, state: ChainState,
     for i, nlev in enumerate(spec.nlevels):
         codes, counts, old = data.r_codes[i], data.r_counts[i], state.estR[i]
         # padded rows carry code 0 (and yadj 0) but are not in the counts
-        if cut:
-            lengths = torch.bincount(codes, minlength=nlev)
-        else:
-            lengths = counts.to(torch.int64)
-            if spec.row_padded:
-                lengths = torch.cat([lengths[:1] + (n - n_obs), lengths[1:]])
-        rhs = isum(_segment_sum(yadj, codes, lengths)) + counts * old
+        rhs = isum(_segment_sum(yadj, data.r_segs[i])) + counts * old
         lhs = counts + ve[..., None] / vrtmp[..., i, None]
         zr = _draw(noise, lambda nz: nz.normal(STREAM_FACTOR + 2 * i, (nlev,)))
         new = rhs / lhs + torch.sqrt(ve[..., None] / lhs) * zr
@@ -1362,8 +1400,7 @@ def _recompute_residuals(spec: GibbsSpec, data: GibbsData, mu, beta, estR, g,
         u_new = u_new + k_estR
     if spec.qe:
         u_new = u_new + J_beta[..., None] * data.epsl_yJ
-        t0 = min(max(n - spec.ne - r0, 0), nr)
-        c0 = r0 + t0 - (n - spec.ne)
+        t0, c0 = epsl_part(n, spec.ne, r0, nr)
         u_new[..., t0:] += epsl_estR[..., data.epsl_codes[c0:c0 + nr - t0]]
     yadj_new = data.y - (pred + u_new)
     if spec.row_padded:

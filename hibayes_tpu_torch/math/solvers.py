@@ -92,16 +92,18 @@ def pcg(matvec, b, x0=None, tol=1e-6, maxiter=None, nprobes=16):
     return pcg_with_diag(matvec, b, diag, x0=x0, tol=tol, maxiter=maxiter)
 
 
-def segment_matmul(lengths, cols, vals, X):
+def segment_matmul(lengths, cols, vals, X, *, checked=True):
     """A @ X for a sparse A given row by row: ``cols``/``vals`` hold the
     entries of row 0, then row 1, ... (``lengths`` int64 counts per row, as
     :func:`~hibayes_tpu_torch.data.pedigree.coo_device` returns them).  Each
     row's products are summed in stored order by ``segment_reduce``, with no
     atomics, so the result does not vary from run to run.  X is (n, ...);
-    memory O(nnz * X[0].numel())."""
+    memory O(nnz * X[0].numel()).  ``checked=False`` skips segment_reduce's
+    check of ``lengths`` (two reads back to the host), for lengths checked
+    once where they were made."""
     G = X.index_select(0, cols)
     G.mul_(vals.to(X.dtype).reshape((-1,) + (1,) * (X.dim() - 1)))
-    return torch.segment_reduce(G, "sum", lengths=lengths, axis=0)
+    return torch.segment_reduce(G, "sum", lengths=lengths, axis=0, unsafe=not checked)
 
 
 def pcg_batched(matvec, B, diag=None, tol=1e-8, maxiter=None):

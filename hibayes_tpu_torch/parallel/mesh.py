@@ -139,9 +139,11 @@ def _rows(t, lo, cnt, dim=0):
 
 def shard_gibbs_data(data, mesh: Mesh, spec=None):
     """This rank's part of a GibbsData (engine/gibbs.py): rows of y, X, C,
-    the factor codes, K and epsl_yJ over ``ind``; the SNP blocks of X and W
-    over ``snp`` where the axis divides the blocks (else they stay whole
-    and the sweep runs replicated on the axis); the rest replicated.
+    the factor codes, K and epsl_yJ over ``ind``, and the segments of the
+    sums by level over the rows kept (``engine.gibbs.segments``); the SNP
+    blocks of X and W over ``snp`` where the axis divides the blocks (else
+    they stay whole and the sweep runs replicated on the axis); the rest
+    replicated.
     ``prepare_gibbs_data`` is run alike on every rank and this cuts it, as
     the JAX package's device_put places it.  With the chain's ``spec`` a
     part already cut is returned as it is."""
@@ -161,10 +163,21 @@ def shard_gibbs_data(data, mesh: Mesh, spec=None):
     X = data.X_blocks[b0 * sub:(b0 + nbl) * sub, r0:r0 + nr].contiguous()
     Wb = data.W_blocks[b0 * sub:(b0 + nbl) * sub].contiguous()
     cut = (lambda t: _rows(t, r0, nr)) if rows else (lambda t: t)
+    part = {}
+    if rows and nr != n:
+        # the sums by level over this rank's rows (padded rows in level 0)
+        from ..engine.gibbs import epsl_part, segments
+
+        dev = data.y.device
+        part["r_segs"] = tuple(segments(cut(c), int(k.shape[0]), dev)
+                               for c, k in zip(data.r_codes, data.r_counts))
+        t0, c0 = epsl_part(n, int(data.epsl_codes.shape[0]), r0, nr)
+        part["epsl_segs"] = segments(data.epsl_codes[c0:c0 + nr - t0],
+                                     int(data.epsl_counts.shape[0]), dev)
     return data._replace(
         y=cut(data.y), X_blocks=X, W_blocks=Wb, C=cut(data.C),
         r_codes=tuple(cut(c) for c in data.r_codes),
-        K=cut(data.K), epsl_yJ=cut(data.epsl_yJ))
+        K=cut(data.K), epsl_yJ=cut(data.epsl_yJ), **part)
 
 
 def shard_sgibbs_data(data, mesh: Mesh):

@@ -33,13 +33,21 @@ def _port_data(s, dtype, int8):
 
 def _assert_data_equal(ref, out, int8):
     """Every field of the port's GibbsData equal to JAX's, the genotype and
-    its Gram blocks laid out in the port's sub-blocks."""
+    its Gram blocks laid out in the port's sub-blocks; the port's own
+    segments of the sums by level are the stable sort order and the level
+    counts of JAX's codes, every row held (padded ones in level 0)."""
     assert out.block == np.asarray(ref.X_blocks).shape[2]
     lay = TB.sub_block_genotype(torch.from_numpy(np.array(ref.X_blocks)),
                                 torch.from_numpy(np.array(ref.W_blocks)),
                                 TB.SubBlocks.of(out.block, out.X_blocks.shape[2]))
+    for c, k, seg in zip(ref.r_codes, ref.r_counts, out.r_segs):
+        c = np.asarray(c)
+        np.testing.assert_array_equal(seg.order.numpy(), np.argsort(c, kind="stable"))
+        np.testing.assert_array_equal(np.diff(seg.offsets.numpy()),
+                                      np.bincount(c, minlength=np.asarray(k).shape[0]))
+        assert seg.offsets[0] == 0 and seg.offsets[-1] == c.shape[0]
     for name in TG.GibbsData._fields:
-        if name == "block":
+        if name in ("block", "r_segs", "epsl_segs"):
             continue
         r, o = getattr(ref, name), getattr(out, name)
         if name in ("X_blocks", "W_blocks"):

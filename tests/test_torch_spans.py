@@ -308,3 +308,31 @@ def test_sweep_launches_lie_inside_their_span():
     assert len(launches) >= 2 * spec.niter_eff
     for op in launches:
         assert any(_within(op, iv) for iv in sweeps), op
+
+
+@pytest.mark.gpu
+def test_iterations_make_no_host_sync():
+    """On the card: a small ibrm with a factor, one chain and four, makes no
+    synchronising runtime call inside an engine.iteration span, so
+    host_syncs_per_iter (port_bench/metrics) reads 0: the factor's sums
+    read nothing back to the host."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from port_bench.program_spans import SYNCS
+
+    spec, data, pr, pi = ibrm(niter=6, device="cuda")
+
+    def run():
+        TG.run_chain(spec, data, pr, pi, seed=4)
+        TG.run_chains(spec, data, pr, pi, seed=4, nchains=4)
+        torch.cuda.synchronize()
+
+    run()   # builds and loads the kernels
+    _, recs, events = traced(run, (ProfilerActivity.CPU, ProfilerActivity.CUDA))
+    iv = _mapped(recs, events)
+    its = [iv[r.index] for r in iterations(recs)]
+    assert len(its) == 2 * spec.niter_eff
+    syncs = [e for e in events if e.get("cat") == "cuda_runtime" and SYNCS.match(e["name"])]
+    assert syncs, "the trace holds the chain's closing synchronise"
+    inside = [e["name"] for e in syncs if any(a <= e["ts"] <= b for a, b in its)]
+    assert inside == []
