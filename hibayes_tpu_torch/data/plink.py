@@ -347,6 +347,7 @@ def read_plink(
     max_chunk_bytes: int = 1 << 30,
     threads: int = 0,
     rows: tuple | None = None,
+    snps: tuple | None = None,
 ):
     """Load a PLINK binary fileset with bounded peak memory.
 
@@ -363,6 +364,13 @@ def read_plink(
     (fam/map are still returned in full; missing genotypes are imputed by the
     GLOBAL major genotype computed from the packed bytes, identical to a
     full-matrix load).
+
+    ``snps=(start, count)`` decodes only that SNP range: the payload is
+    SNP-major, so the range is one contiguous byte range of the memory map,
+    and each SNP is imputed by its own counts, as in a full load (fam/map
+    are returned in full; ``out`` is refused, its files describing one
+    matrix).  ``parallel.distributed.load_plink_snp_sharded`` reads a
+    rank's SNP shard with it.
     """
     if mode not in ("A", "D"):
         raise ValueError("mode must be 'A' (additive) or 'D' (dominant)")
@@ -374,6 +382,14 @@ def read_plink(
     r0, rc = rows if rows is not None else (0, n)
     if r0 < 0 or rc < 0 or r0 + rc > n:
         raise ValueError(f"rows=({r0}, {rc}) out of bounds for n={n}")
+    if snps is not None:
+        s0, sc = snps
+        if s0 < 0 or sc < 0 or s0 + sc > m:
+            raise ValueError(f"snps=({s0}, {sc}) out of bounds for m={m}")
+        if out is not None:
+            raise ValueError("read_plink: 'out' writes a whole matrix; it does not "
+                             "take 'snps'")
+        payload2d, m = payload2d[s0:s0 + sc], sc
     binpath = None
     if out is not None:
         os.makedirs(os.path.dirname(out) or ".", exist_ok=True)
@@ -382,7 +398,7 @@ def read_plink(
     else:
         geno = np.empty((rc, m), dtype=np.int8)
     counts = bed_geno_counts(payload2d, n, mode, max_chunk_bytes) if impute else None
-    chunk_cols = min(m, max(1, int(max_chunk_bytes // max(rc, 1))))
+    chunk_cols = max(1, min(m, int(max_chunk_bytes // max(rc, 1))))
     for c0 in range(0, m, chunk_cols):
         cc = min(chunk_cols, m - c0)
         block = decode_bed_region(

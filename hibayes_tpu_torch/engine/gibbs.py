@@ -45,6 +45,7 @@ import torch
 from ..math.solvers import segment_matmul
 from ..ops import blockgibbs
 from ..parallel.distributed import all_gather, axis_sum, barrier, broadcast, ring_hop
+from ..parallel.mesh import SnpShard, snp_blocks
 from ..utils.profiling import span, spanned
 from . import checkpoint
 from .rng import (STREAM_BSLMM_CHI, STREAM_BSLMM_Z, STREAM_COV, STREAM_EPSL_CHI,
@@ -359,7 +360,7 @@ def prepare_gibbs_data(
     y, M, *, C=None, r_codes=(), r_nlevels=(), fold=None, windindx=None, nw=0,
     K=None, Kval=None, epsl_yJ=None, epsl_A=None, epsl_codes=None, qe=0,
     block=64, dtype=torch.float32, geno_dtype=None, pad_n="auto",
-    device="cpu", nblocks_multiple=1,
+    device="cpu", nblocks_multiple=1, mesh=None,
 ) -> GibbsData:
     """Build the device-resident GibbsData (block layout, Gram matrices, stats).
 
@@ -393,6 +394,16 @@ def prepare_gibbs_data(
     ``nblocks_multiple`` pads the block count to a multiple of it with
     all-zero blocks (vx 0: never active), as a SNP-sharded mesh or the
     pipeline emulation needs the shards to divide the blocks.
+
+    ``M`` may be a :class:`~hibayes_tpu_torch.parallel.mesh.SnpShard`, this
+    rank's columns over the ``snp`` axis of ``mesh`` (a genotype larger
+    than one device, which no rank holds whole): the columns of
+    ``mesh.snp_range(m, block, nblocks_multiple)``, the block count padded
+    to a multiple of the axis too.  ``X_blocks`` and ``W_blocks`` then hold
+    this rank's blocks alone (``shard_gibbs_data`` keeps them), and ``xpx``,
+    ``vx`` and ``real`` the whole m_pad, gathered over ``snp`` (span
+    ``model.shard_stats``): every rank's, bit for bit the whole genotype's.
+    Every rank calls it alike.
     """
     device = torch.device(device)
     y_np = np.asarray(y)
@@ -408,13 +419,24 @@ def prepare_gibbs_data(
     y_t = torch.zeros((n,), dtype=dtype, device=device)
     y_t[:n_real] = torch.as_tensor(y_np, dtype=dtype, device=device)
     use_int8 = geno_dtype in ("int8", torch.int8, np.int8)
-    m = int(M.shape[1])
-    block = int(min(block, pad_to_block(m, 8)))
-    m_pad = pad_to_block(m, block)
-    nblocks = m_pad // block
-    if nblocks_multiple > 1:
-        nblocks = -(-nblocks // int(nblocks_multiple)) * int(nblocks_multiple)
-        m_pad = nblocks * block
+    shard = M if isinstance(M, SnpShard) else None
+    S = 1
+    if shard is not None:
+        M, m = shard.values, int(shard.m)
+        S = mesh.size("snp") if mesh is not None else 1
+        if S <= 1:
+            raise ValueError("prepare_gibbs_data: a SnpShard needs a mesh with an snp axis")
+        want = mesh.snp_range(m, block, nblocks_multiple)
+        if (int(shard.start), int(M.shape[1])) != want:
+            raise ValueError(f"prepare_gibbs_data: this rank holds columns (start, count) = "
+                             f"{want} of the {m} SNPs (Mesh.snp_range), not "
+                             f"({shard.start}, {M.shape[1]})")
+    else:
+        m = int(M.shape[1])
+    block, nblocks = snp_blocks(m, block, S, nblocks_multiple)
+    m_pad = nblocks * block
+    nbl = nblocks // S   # the blocks this rank holds, from column c_off
+    c_off = (mesh.index("snp") * nbl if shard is not None else 0) * block
 
     epsl_sp, qe_pad = None, qe
     if epsl_A is not None and qe:
@@ -437,14 +459,15 @@ def prepare_gibbs_data(
     else:
         x_dtype = dtype
     sb = genotype_layout(block, n, x_dtype.itemsize, 2 if fold is None else len(fold))
-    nbk, W = nblocks * sb.S, sb.W
+    nbk, W = nbl * sb.S, sb.W
     with span("model.layout"):
         X_blocks = torch.zeros((nbk, n, W), dtype=x_dtype, device=device)
         for k in range(nbk):
-            c0 = (k // sb.S) * block + (k % sb.S) * W
-            c1 = min(m, (k // sb.S) * block + min(block, (k % sb.S + 1) * W))
+            c0 = c_off + (k // sb.S) * block + (k % sb.S) * W
+            c1 = min(m, c_off + (k // sb.S) * block + min(block, (k % sb.S + 1) * W))
             if c0 < c1:
-                X_blocks[k, :n_real, : c1 - c0] = _columns(M, c0, c1, x_dtype, device)
+                X_blocks[k, :n_real, : c1 - c0] = _columns(M, c0 - c_off, c1 - c_off,
+                                                           x_dtype, device)
 
     gram_dt = torch.float32 if use_int8 else dtype
     W_blocks = torch.empty((nbk, W, W), dtype=dtype, device=device)
@@ -472,8 +495,13 @@ def prepare_gibbs_data(
         xpx = s2.to(dtype)
         vx = ((s2 - s1d * s1d / n_real) / (n_real - 1)).to(dtype)
     xpx = sb.gather(xpx.reshape(nbk * W))
+    vx = sb.gather(vx.reshape(nbk * W))
+    if shard is not None:
+        with span("model.shard_stats"):
+            xpx = all_gather(xpx, mesh, "snp", dim=0)
+            vx = all_gather(vx, mesh, "snp", dim=0)
     real = torch.arange(m_pad, device=device) < m
-    vx = torch.where(real, sb.gather(vx.reshape(nbk * W)), 0.0)
+    vx = torch.where(real, vx, 0.0)
 
     if C is None:
         C_t = torch.zeros((n, 0), dtype=dtype, device=device)
@@ -721,12 +749,14 @@ def genotype_rmatmul(X_blocks, w, dtype, block: int) -> torch.Tensor:
     return blockgibbs.SubBlocks.of(block, W).gather(out.reshape(nbk * W))
 
 
-def genotype_matmul(X_blocks, G, dtype, block: int) -> torch.Tensor:
+def genotype_matmul(X_blocks, G, dtype, block: int, out=None) -> torch.Tensor:
     """X @ G for X in the layout of ``prepare_gibbs_data`` (blocks of
     ``block``) and G (nblocks * B, r), block by block, so that no copy of
-    the whole genotype in ``dtype`` ever exists."""
+    the whole genotype in ``dtype`` ever exists.  ``out`` (n, r), where
+    given, is the sum to add onto, in place (zeros otherwise)."""
     nbk, n, W = X_blocks.shape
-    out = torch.zeros((n, G.shape[1]), dtype=dtype, device=X_blocks.device)
+    if out is None:
+        out = torch.zeros((n, G.shape[1]), dtype=dtype, device=X_blocks.device)
     G = blockgibbs.SubBlocks.of(block, W).spread(G.to(dtype).T).T
     for b in range(nbk):
         out.addmm_(X_blocks[b].to(dtype), G[b * W:(b + 1) * W])

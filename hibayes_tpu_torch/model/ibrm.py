@@ -15,6 +15,8 @@ import torch
 from ..data.windows import build_windows
 from ..engine import gibbs as G
 from ..math.grm import make_grm
+from ..ops import blockgibbs
+from ..parallel.mesh import SnpShard
 from .formula import build_model_frame
 from .results import BlrMod
 
@@ -126,31 +128,64 @@ def _compute_dtype(device: torch.device):
     return torch.float64 if device.type == "cpu" else torch.float32
 
 
-def _genotype_products(M, A: np.ndarray, device) -> np.ndarray:
+def _in_snp_order(mesh, add, out):
+    """``add(out)`` summed over the ranks of ``mesh``'s snp axis in their
+    order, every rank getting the sum: rank s adds its part onto the sum of
+    ranks 0 .. s - 1 and hands it on (a broadcast), so that the additions
+    are the one-device loop's, in its order, bit for bit.  ``add(out)``
+    where the genotype is not sharded (mesh None)."""
+    if mesh is None:
+        return add(out)
+    from ..parallel.distributed import broadcast
+
+    for t in range(mesh.size("snp")):
+        if t == mesh.index("snp"):
+            out = add(out)
+        out = broadcast(out, mesh, "snp", t)
+    return out
+
+
+def _genotype_products(M, A: np.ndarray, device, mesh=None, start: int = 0) -> np.ndarray:
     """M @ A.T for an (n, m) genotype (numpy or torch, any device) and
     A (r, m), on ``device`` in column chunks of M of at most 256 MB in the
     compute type, each cast from its storage type there: no f32 or f64 copy
-    of the whole genotype is made."""
+    of the whole genotype is made.  On a SNP-sharded ``mesh`` M holds
+    columns [start, start + M.shape[1]) of A's m: the chunks are the whole
+    genotype's cut at the shards' edges, summed in SNP order
+    (:func:`_in_snp_order`)."""
     device = torch.device(device)
     cdt = _compute_dtype(device)
-    n, m = M.shape
+    n, m_here = M.shape
     At = torch.as_tensor(np.asarray(A).T, dtype=cdt, device=device)
-    out = torch.zeros((n, At.shape[1]), dtype=cdt, device=device)
     step = max(1, (1 << 28) // (max(n, 1) * cdt.itemsize))
-    for c0 in range(0, m, step):
-        c1 = min(m, c0 + step)
-        out.addmm_(G._columns(M, c0, c1, cdt, device), At[c0:c1])
+
+    def add(out):
+        c0 = 0
+        while c0 < m_here:
+            c1 = min(m_here, (start + c0) // step * step + step - start)
+            out.addmm_(G._columns(M, c0, c1, cdt, device), At[start + c0:start + c1])
+            c0 = c1
+        return out
+
+    out = _in_snp_order(mesh, add, torch.zeros((n, At.shape[1]), dtype=cdt, device=device))
     return out.to(torch.float64).cpu().numpy()
 
 
-def _block_products(gdata: G.GibbsData, n: int, A: np.ndarray) -> np.ndarray:
-    """X_phen @ A.T from the chain's own block-layout genotype, A (r, m)."""
+def _block_products(gdata: G.GibbsData, n: int, A: np.ndarray, mesh=None) -> np.ndarray:
+    """X_phen @ A.T from the chain's own block-layout genotype, A (r, m); on
+    a SNP-sharded ``mesh`` (``gdata`` of a SnpShard: this rank's blocks)
+    summed over the shards in block order (:func:`_in_snp_order`)."""
     device = gdata.X_blocks.device
     cdt = _compute_dtype(device)
     Gm = torch.zeros((gdata.xpx.shape[0], A.shape[0]), dtype=cdt, device=device)
     Gm[: A.shape[1]] = torch.as_tensor(np.asarray(A).T, dtype=cdt, device=device)
-    return (G.genotype_matmul(gdata.X_blocks, Gm, cdt, gdata.block)[:n]
-            .to(torch.float64).cpu().numpy())
+    S = blockgibbs.SubBlocks.of(gdata.block, gdata.X_blocks.shape[2]).S
+    cols = gdata.X_blocks.shape[0] // S * gdata.block
+    c0 = mesh.index("snp") * cols if mesh is not None else 0
+    out = torch.zeros((gdata.X_blocks.shape[1], A.shape[0]), dtype=cdt, device=device)
+    out = _in_snp_order(mesh, lambda o: G.genotype_matmul(
+        gdata.X_blocks, Gm[c0:c0 + cols], cdt, gdata.block, out=o), out)
+    return out[:n].to(torch.float64).cpu().numpy()
 
 
 def ibrm(
@@ -212,7 +247,20 @@ def ibrm(
     iteration; it warns where m > n, its biased regime: prefer "pipeline"
     or "turn" there); ``emulate_shards`` > 1 runs the pipeline or the
     concurrent schedule with that many shards on one device.  Rank 0
-    alone prints."""
+    alone prints.
+
+    A genotype larger than one device is given on a mesh with an ``snp``
+    axis as each rank's own columns: ``M`` a
+    :class:`~hibayes_tpu_torch.parallel.mesh.SnpShard` (values, start, m)
+    holding columns ``mesh.snp_range(m, block, multiple)`` of the m SNPs,
+    ``multiple`` being ``merge_rounds`` for the concurrent schedule and 1
+    otherwise (``parallel.distributed.load_plink_snp_sharded`` reads one
+    from a .bed).  No rank then holds the whole genotype, on the host or on
+    its device: set-up lays out this rank's blocks (``prepare_gibbs_data``),
+    and the GEBV and residuals sum each rank's products in SNP order, every
+    rank getting the fit, bit for bit the fit from the whole genotype.
+    ``map`` stays whole (m rows).  BSLMM, whose GRM needs every SNP, is
+    refused."""
     if method not in METHODS:
         raise ValueError(f"unknown method '{method}'; choose from {METHODS}")
     verbose = verbose and (mesh is None or mesh.rank == 0)
@@ -223,6 +271,14 @@ def ibrm(
     if M_id is None:
         raise ValueError("please assign the individuals id to 'M.id'.")
     device = resolve_device(device)
+    shard = M if isinstance(M, SnpShard) else None
+    if shard is not None:
+        if mesh is None or mesh.size("snp") <= 1:
+            raise ValueError("a SnpShard genotype needs a mesh with an snp axis")
+        if method == "BSLMM":
+            raise ValueError("BSLMM's GRM needs every SNP on each rank: give it the whole "
+                             "genotype, not a SnpShard")
+        M = shard.values
     M_values = M if isinstance(M, torch.Tensor) else (
         M.values if hasattr(M, "values") else np.asarray(M))
     M_id = np.asarray(M_id).astype(str)
@@ -234,7 +290,7 @@ def ibrm(
     keep = mf.keep_mask
     y = mf.y
     n = len(y)
-    m = M_values.shape[1]
+    m = M_values.shape[1] if shard is None else int(shard.m)
 
     windindx, windinfo, nw = _resolve_windows(method, map, windsize, windnum, m)
     niter, nburn, Pi, fold = resolve_iteration_defaults(method, niter, nburn, thin, Pi, fold)
@@ -262,10 +318,11 @@ def ibrm(
     s_eff = snp_shards if snp_shards > 1 else max(int(emulate_shards), 1)
     nbm = s_eff * (int(merge_rounds) if shard_schedule == "concurrent" else 1)
     gdata = G.prepare_gibbs_data(
-        y, M_phen, C=mf.X, r_codes=tuple(mf.R_codes), r_nlevels=nlevels,
+        y, M_phen if shard is None else shard._replace(values=M_phen), C=mf.X,
+        r_codes=tuple(mf.R_codes), r_nlevels=nlevels,
         fold=fold, windindx=windindx, nw=nw, K=K, Kval=Kval, block=block, dtype=dtype,
         geno_dtype="int8" if _is_integer(M_phen) else None, device=device,
-        nblocks_multiple=nbm,
+        nblocks_multiple=nbm, mesh=mesh if shard is not None else None,
     )
     vx = gdata.vx.cpu().numpy()
     nvar0 = int((vx[:m] == 0).sum())
@@ -310,6 +367,7 @@ def ibrm(
         method, formula, spec, samples, extras, mf, y, M_id, keep, gdata, Mp,
         windinfo, sumvx=float(vx.sum()),
         model_desc=f"Individual level Bayesian model fit by [{method}]",
+        snp_mesh=None if shard is None else mesh, start=0 if shard is None else shard.start,
     )
     res.rhat = extras.get("rhat")
     return res
@@ -366,7 +424,11 @@ def bslmm_snp_effects(gdata: G.GibbsData, n: int, m: int, k_mean, sumvx: float):
 
 
 def _assemble_results(method, formula, spec, samples, extras, mf, y, M_id,
-                      keep, gdata, Mp, windinfo, sumvx=1.0, model_desc=""):
+                      keep, gdata, Mp, windinfo, sumvx=1.0, model_desc="", snp_mesh=None,
+                      start=0):
+    """The fit's results.  With ``snp_mesh``, ``gdata`` and ``Mp`` hold a
+    rank's SNP columns alone (from column ``start``), and the GEBV and
+    residuals sum the ranks' products in SNP order."""
     s = dict(samples)
     alpha_s = s["alpha"]  # (records, m)
     if method == "BSLMM" and "k_estR" in s:
@@ -386,9 +448,10 @@ def _assemble_results(method, formula, spec, samples, extras, mf, y, M_id,
     # on the device from the int8 genotype
     n = len(y)
     g_samples = np.zeros((len(M_id), alpha_s.shape[0]))
-    g_samples[keep] = _block_products(gdata, n, alpha_s)
+    g_samples[keep] = _block_products(gdata, n, alpha_s, snp_mesh)
     if Mp is not None:
-        g_samples[~keep] = _genotype_products(Mp, alpha_s, gdata.X_blocks.device)
+        g_samples[~keep] = _genotype_products(Mp, alpha_s, gdata.X_blocks.device, snp_mesh,
+                                              start)
     s["g"] = g_samples
     gebv = {"id": M_id, "gebv": g_samples.mean(axis=1)}
 
@@ -401,7 +464,7 @@ def _assemble_results(method, formula, spec, samples, extras, mf, y, M_id,
         for i, lv in enumerate(mf.R_levels):
             e = e - r_est[off: off + len(lv)][mf.R_codes[i]]
             off += len(lv)
-    e = e - _block_products(gdata, n, alpha[None, :])[:, 0]
+    e = e - _block_products(gdata, n, alpha[None, :], snp_mesh)[:, 0]
 
     r_dict = None
     if r_est is not None:

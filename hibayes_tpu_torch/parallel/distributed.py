@@ -18,11 +18,19 @@ share one card, which NCCL refuses).
   (scripts/gloo_cuda_probe.py on an H100), so :func:`ring_hop` stages its
   tensors through the host there, explicitly and for gloo only.
 * :func:`process_row_range` and :func:`load_plink_host_sharded` read only
-  this rank's individuals of a .bed file.
+  this rank's individuals of a .bed file; :func:`load_plink_snp_sharded`
+  only this rank's SNPs.
 
-``COLLECTIVES``, when ``timed`` is set, sums the seconds spent in the
-collectives (the device synchronised before and after each, so a rank's
-wait for another is counted): a measurement hook, off in use.
+Each collective that runs (an axis of more than one rank) is a span of
+the program's store (utils/profiling.py): ``parallel.axis_sum``,
+``parallel.broadcast``, ``parallel.all_gather`` or ``parallel.ring_hop``,
+around the copies it makes and the call into torch.distributed, with the
+counter ``parallel.bytes``: the bytes of this rank's own part (the tensor
+it sums, its part of a gather, what it sends a hop; a broadcast's bytes on
+its source rank alone).  ``COLLECTIVES``, when ``timed`` is set, sums the
+seconds spent in the collectives (the device synchronised before and after
+each, so a rank's wait for another is counted): a measurement hook, off in
+use.
 """
 
 from __future__ import annotations
@@ -32,6 +40,8 @@ import time
 
 import numpy as np
 import torch
+
+from ..utils.profiling import count, span
 
 COLLECTIVES = {"timed": False, "seconds": 0.0}
 
@@ -72,6 +82,10 @@ def init_multihost(coordinator_address=None, num_processes=None, process_id=None
     return dist.get_world_size(), dist.get_rank()
 
 
+def _nbytes(t: torch.Tensor) -> int:
+    return t.numel() * t.element_size()
+
+
 def _timed(fn, dev):
     if not COLLECTIVES["timed"]:
         return fn()
@@ -93,13 +107,15 @@ def axis_sum(t: torch.Tensor, mesh, axis: str) -> torch.Tensor:
         return t
     import torch.distributed as dist
 
-    buf = t.contiguous().clone()
+    with span("parallel.axis_sum"):
+        count("parallel.bytes", _nbytes(t))
+        buf = t.contiguous().clone()
 
-    def run():
-        dist.all_reduce(buf, group=mesh.group(axis))
-        return buf
+        def run():
+            dist.all_reduce(buf, group=mesh.group(axis))
+            return buf
 
-    return _timed(run, t.device)
+        return _timed(run, t.device)
 
 
 def broadcast(t: torch.Tensor, mesh, axis: str, src: int) -> torch.Tensor:
@@ -110,13 +126,15 @@ def broadcast(t: torch.Tensor, mesh, axis: str, src: int) -> torch.Tensor:
         return t
     import torch.distributed as dist
 
-    buf = t.contiguous().clone()
+    with span("parallel.broadcast"):
+        count("parallel.bytes", _nbytes(t) if mesh.index(axis) == src else 0)
+        buf = t.contiguous().clone()
 
-    def run():
-        dist.broadcast(buf, src=mesh.ranks(axis)[src], group=mesh.group(axis))
-        return buf
+        def run():
+            dist.broadcast(buf, src=mesh.ranks(axis)[src], group=mesh.group(axis))
+            return buf
 
-    return _timed(run, t.device)
+        return _timed(run, t.device)
 
 
 def all_gather(t: torch.Tensor, mesh, axis: str, dim: int = -1,
@@ -130,25 +148,27 @@ def all_gather(t: torch.Tensor, mesh, axis: str, dim: int = -1,
         return t
     import torch.distributed as dist
 
-    dim = dim % t.dim()
-    per = t.shape[dim] if total is None else -(-total // S)
-    x = t
-    if x.shape[dim] < per:
-        pad = list(x.shape)
-        pad[dim] = per - x.shape[dim]
-        x = torch.cat([x, torch.zeros(pad, dtype=x.dtype, device=x.device)], dim=dim)
-    x = x.contiguous()
-    parts = [torch.empty_like(x) for _ in range(S)]
+    with span("parallel.all_gather"):
+        count("parallel.bytes", _nbytes(t))
+        dim = dim % t.dim()
+        per = t.shape[dim] if total is None else -(-total // S)
+        x = t
+        if x.shape[dim] < per:
+            pad = list(x.shape)
+            pad[dim] = per - x.shape[dim]
+            x = torch.cat([x, torch.zeros(pad, dtype=x.dtype, device=x.device)], dim=dim)
+        x = x.contiguous()
+        parts = [torch.empty_like(x) for _ in range(S)]
 
-    def run():
-        dist.all_gather(parts, x, group=mesh.group(axis))
-        return parts
+        def run():
+            dist.all_gather(parts, x, group=mesh.group(axis))
+            return parts
 
-    _timed(run, t.device)
-    if total is not None:
-        parts = [p.narrow(dim, 0, max(0, min(per, total - i * per)))
-                 for i, p in enumerate(parts)]
-    return torch.cat(parts, dim=dim)
+        _timed(run, t.device)
+        if total is not None:
+            parts = [p.narrow(dim, 0, max(0, min(per, total - i * per)))
+                     for i, p in enumerate(parts)]
+        return torch.cat(parts, dim=dim)
 
 
 def barrier(mesh) -> None:
@@ -168,25 +188,27 @@ def ring_hop(tensors, mesh, axis: str) -> tuple:
         return tuple(tensors)
     import torch.distributed as dist
 
-    i = mesh.index(axis)
-    nxt, prv = mesh.ranks(axis)[(i + 1) % S], mesh.ranks(axis)[(i - 1) % S]
-    grp = mesh.group(axis)
-    dev = tensors[0].device
-    host = dev.type == "cuda" and dist.get_backend(grp) == "gloo"   # no CUDA send/recv
-    send = [t.contiguous().cpu() if host else t.contiguous() for t in tensors]
-    recv = [torch.empty_like(t) for t in send]
+    with span("parallel.ring_hop"):
+        count("parallel.bytes", sum(_nbytes(t) for t in tensors))
+        i = mesh.index(axis)
+        nxt, prv = mesh.ranks(axis)[(i + 1) % S], mesh.ranks(axis)[(i - 1) % S]
+        grp = mesh.group(axis)
+        dev = tensors[0].device
+        host = dev.type == "cuda" and dist.get_backend(grp) == "gloo"   # no CUDA send/recv
+        send = [t.contiguous().cpu() if host else t.contiguous() for t in tensors]
+        recv = [torch.empty_like(t) for t in send]
 
-    def run():
-        ops = []
-        for s, r in zip(send, recv):
-            ops.append(dist.P2POp(dist.isend, s, nxt, grp))
-            ops.append(dist.P2POp(dist.irecv, r, prv, grp))
-        for w in dist.batch_isend_irecv(ops):
-            w.wait()
-        return recv
+        def run():
+            ops = []
+            for s, r in zip(send, recv):
+                ops.append(dist.P2POp(dist.isend, s, nxt, grp))
+                ops.append(dist.P2POp(dist.irecv, r, prv, grp))
+            for w in dist.batch_isend_irecv(ops):
+                w.wait()
+            return recv
 
-    _timed(run, dev)
-    return tuple(r.to(dev) if host else r for r in recv)
+        _timed(run, dev)
+        return tuple(r.to(dev) if host else r for r in recv)
 
 
 # ---------------------------------------------------------------------------
@@ -224,3 +246,25 @@ def load_plink_host_sharded(bfile: str, mesh, axis="ind", mode="A", impute=True,
     fileset = read_plink(bfile, impute=impute, mode=mode, max_chunk_bytes=max_chunk_bytes,
                          threads=threads, rows=rows)
     return fileset, host_sharded_genotype(fileset["geno"].values, mesh, axis=axis)
+
+
+def load_plink_snp_sharded(bfile: str, mesh, block: int, mode="A", impute=True,
+                           max_chunk_bytes=1 << 30, threads=0, multiple: int = 1):
+    """SNP-sharded PLINK ingestion for a genotype larger than one device:
+    this rank decodes only its own columns, :meth:`Mesh.snp_range` of the
+    .bim's m SNPs in blocks of ``block`` (``multiple`` as ibrm's block
+    padding: the merge rounds of the concurrent schedule), by
+    ``read_plink(snps=...)``.  Returns ``(fileset, shard)``: the read_plink
+    dict (fam and map whole, ``geno.values`` this rank's columns) and a
+    :class:`~hibayes_tpu_torch.parallel.mesh.SnpShard` of those columns as
+    an int8 tensor on the mesh's device, which ``ibrm(M=shard, mesh=mesh,
+    block=block)`` takes."""
+    from ..data.plink import read_bim, read_plink
+    from .mesh import SnpShard
+
+    m = len(read_bim(bfile + ".bim")["SNP"])
+    start, cnt = mesh.snp_range(m, block, multiple)
+    fileset = read_plink(bfile, impute=impute, mode=mode, max_chunk_bytes=max_chunk_bytes,
+                         threads=threads, snps=(start, cnt))
+    values = torch.as_tensor(np.ascontiguousarray(fileset["geno"].values), device=mesh.device)
+    return fileset, SnpShard(values, start, m)

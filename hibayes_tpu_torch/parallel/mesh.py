@@ -15,7 +15,10 @@ the mesh says which part of the data each rank holds:
   once in merge rounds (the schedules of engine/gibbs.py and
   engine/sgibbs.py).
 
-Everything else is replicated.  Ranks are laid out row-major over
+Everything else is replicated.  A genotype too large for one device is
+given to each rank as its own columns alone (:class:`SnpShard`, the range
+of :func:`snp_column_range`), and ``prepare_gibbs_data`` lays out only
+those.  Ranks are laid out row-major over
 ``shape`` (rank r at (r // S, r % S) on (ind, snp)), as the JAX package
 reshapes its device list; each rank belongs to one group per axis: the
 ranks that differ from it on that axis alone.
@@ -25,6 +28,7 @@ from __future__ import annotations
 
 import os
 import warnings
+from typing import NamedTuple
 
 import numpy as np
 import torch
@@ -68,6 +72,11 @@ class Mesh:
         split of a sharded axis)."""
         return _chunk(n, self.size(axis), self.index(axis))
 
+    def snp_range(self, m: int, block: int, multiple: int = 1) -> tuple:
+        """(start, count) of the SNP columns this rank holds over ``snp``:
+        :func:`snp_column_range` of this rank's coordinate."""
+        return snp_column_range(m, block, self.size("snp"), self.index("snp"), multiple)
+
     def __repr__(self) -> str:
         return (f"Mesh(shape={self.shape}, rank={self.rank}, coords={self._coords}, "
                 f"device={self.device})")
@@ -77,6 +86,40 @@ def _chunk(n: int, parts: int, i: int) -> tuple:
     per = -(-n // max(parts, 1))
     lo = min(n, i * per)
     return lo, min(n, lo + per) - lo
+
+
+def snp_blocks(m: int, block: int, shards: int, multiple: int = 1) -> tuple:
+    """(block, blocks): the block size ``prepare_gibbs_data`` takes for m
+    SNPs (``block`` at most m rounded up to 8) and the block count, ceil(m /
+    block) padded with all-zero blocks to a multiple of ``shards`` and of
+    ``multiple`` (its ``nblocks_multiple``)."""
+    block = int(min(block, -(-m // 8) * 8))
+    step = int(np.lcm(max(int(shards), 1), max(int(multiple), 1)))
+    nb = -(-m // block)
+    return block, -(-nb // step) * step
+
+
+def snp_column_range(m: int, block: int, shards: int, index: int,
+                     multiple: int = 1) -> tuple:
+    """(start, count) of the columns of an m-SNP genotype that SNP shard
+    ``index`` of ``shards`` holds: whole blocks, shard s holding blocks
+    [s nb / S, (s + 1) nb / S) of the nb of :func:`snp_blocks`, less the
+    padding past m (the last shards may hold fewer columns, or none)."""
+    block, nb = snp_blocks(m, block, shards, multiple)
+    per = nb // max(int(shards), 1) * block
+    lo = min(m, int(index) * per)
+    return lo, min(m, lo + per) - lo
+
+
+class SnpShard(NamedTuple):
+    """Columns [start, start + values.shape[1]) of an (n, m) genotype: a
+    rank's part over ``snp`` (:meth:`Mesh.snp_range`), what
+    ``prepare_gibbs_data(mesh=...)`` and ``ibrm(M=..., mesh=...)`` take in
+    place of the whole.  ``values``: a numpy array or a tensor."""
+
+    values: object
+    start: int
+    m: int
 
 
 def default_device(rank: int = 0):
@@ -145,8 +188,9 @@ def shard_gibbs_data(data, mesh: Mesh, spec=None):
     they stay whole and the sweep runs replicated on the axis); the rest
     replicated.
     ``prepare_gibbs_data`` is run alike on every rank and this cuts it, as
-    the JAX package's device_put places it.  With the chain's ``spec`` a
-    part already cut is returned as it is."""
+    the JAX package's device_put places it.  A part already cut keeps its
+    rows with the chain's ``spec``, and its blocks where X_blocks holds
+    fewer than xpx covers (``prepare_gibbs_data`` of a :class:`SnpShard`)."""
     if mesh is None:
         return data
     n = int(data.y.shape[0]) if spec is None else spec.n

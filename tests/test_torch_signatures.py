@@ -28,12 +28,13 @@ def test_entry_point_keywords_match_the_reference(name):
     assert port == ref + ["device"]
 
 
-@pytest.mark.parametrize("name,extra", [("read_plink", []), ("read_pheno", []),
+@pytest.mark.parametrize("name,extra", [("read_plink", ["snps"]), ("read_pheno", []),
                                         ("ldmat", ["device"]),
                                         ("build_tiled_ld", ["device"])])
 def test_io_and_ld_keywords_match_the_reference(name, extra):
     """The host I/O and LD construction take the JAX package's keywords in
-    its order; ldmat and build_tiled_ld add only ``device``, last."""
+    its order; read_plink adds only ``snps`` (a rank's SNP range), ldmat and
+    build_tiled_ld only ``device``, last."""
     ref = list(inspect.signature(getattr(hj, name)).parameters)
     port = list(inspect.signature(getattr(ht, name)).parameters)
     assert port == ref + extra

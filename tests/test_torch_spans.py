@@ -282,6 +282,36 @@ def test_store_is_bounded_and_resets_each_session(monkeypatch):
     assert [r.name for r in recs] == ["t"]
 
 
+def test_collectives_open_their_spans_and_count_their_bytes(tmp_path):
+    """Each collective of parallel/distributed.py that runs (an axis of more
+    than one rank) is one ``parallel.*`` span, inside the caller's, with the
+    counter ``parallel.bytes``: the bytes of this rank's own part (the
+    tensor summed, its part of a gather, the tensors a hop sends; a
+    broadcast's on its source alone).  A SnpShard set-up's gathers of xpx
+    and vx lie in ``model.shard_stats``.  On a one-rank axis nothing runs
+    and no span opens.  Two gloo ranks (tests/torch_dist.py)."""
+    from .torch_dist import spawn
+
+    rng = np.random.default_rng(4)
+    M = rng.binomial(2, 0.3, (30, 40)).astype(np.int8)
+    outs = spawn("tests.torch_dist:collective_spans", 2, tmp_path,
+                 {"M": M, "y": rng.normal(size=30)}, timeout=120)
+    for rank, (recs, one) in enumerate(outs):
+        mine = [(n, p, (c or {}).get("parallel.bytes")) for n, p, c in recs
+                if n.startswith("parallel.") and p == "test.calls"]
+        assert mine == [("parallel.axis_sum", "test.calls", 48),
+                        ("parallel.broadcast", "test.calls", 48 if rank == 0 else 0),
+                        ("parallel.broadcast", "test.calls", 16 if rank == 1 else 0),
+                        ("parallel.all_gather", "test.calls", 24),
+                        ("parallel.all_gather", "test.calls", 32 - 8 * rank),
+                        ("parallel.ring_hop", "test.calls", 52)]
+        stats = [(n, p, (c or {}).get("parallel.bytes")) for n, p, c in recs
+                 if p == "model.shard_stats"]
+        assert stats == [("parallel.all_gather", "model.shard_stats", 4 * 24)] * 2
+        assert any(n == "model.shard_stats" and p == "model.prepare" for n, p, _ in recs)
+        assert [n for n, _, _ in one] == ["test.calls"]
+
+
 @pytest.mark.gpu
 def test_sweep_launches_lie_inside_their_span():
     """On the card: each CUDA launch of a one-chain and a four-chain sweep

@@ -92,8 +92,9 @@ def _rank_main(rank, world, init, target, payload, out, threads):
             dist.init_process_group("gloo", init_method=init, world_size=world, rank=rank)
         mod, name = target.rsplit(":", 1)
         result = getattr(importlib.import_module(mod), name)(rank, world, payload)
-        dist.barrier()
-        dist.destroy_process_group()
+        if dist.is_initialized():   # a rank that joined by itself may have left
+            dist.barrier()
+            dist.destroy_process_group()
         with open(f"{out}.{rank}", "wb") as f:
             pickle.dump(("ok", result), f)
     except BaseException:
@@ -355,3 +356,150 @@ def _multihost_chain(y, M):
                         s2vara=pr.s2vara, dfvare=pr.dfvare, s2vare=pr.s2vare,
                         s2varg=pr.s2varg, lambda_rate0=pr.lambda_rate0)
     return spec, data, pr, pi
+
+
+# ---------------------------------------------------------------------------
+# the ranks of tests/test_torch_snp_shards.py
+# ---------------------------------------------------------------------------
+
+
+def _snp_shard_layout(mesh, p):
+    """(a): the set-up of this rank's columns against the whole set-up's
+    cut, for each genotype type of ``p["layouts"]``."""
+    from hibayes_tpu_torch.engine import gibbs as TG
+    from hibayes_tpu_torch.parallel.mesh import SnpShard, shard_gibbs_data
+
+    y, M, B = p["y"], p["M"], p["block"]
+    out = {}
+    for name, geno, dtype in p["layouts"]:
+        Mg = M.astype(np.float64) if geno is None else M
+        kw = dict(block=B, dtype=getattr(torch, dtype), geno_dtype=geno,
+                  fold=p["fold"], nblocks_multiple=mesh.size("snp"))
+        whole = shard_gibbs_data(TG.prepare_gibbs_data(y, Mg, **kw), mesh)
+        c0, cnt = mesh.snp_range(M.shape[1], B)
+        part = TG.prepare_gibbs_data(y, SnpShard(Mg[:, c0:c0 + cnt], c0, M.shape[1]),
+                                     mesh=mesh, **kw)
+        out[name] = {f: (getattr(whole, f).numpy(), getattr(part, f).numpy())
+                     for f in ("X_blocks", "W_blocks", "xpx", "vx", "real")}
+    return out
+
+
+def _snp_shard_fits(mesh, p):
+    """(b): a 4-chain pipeline run (run_chains, then ibrm) from the whole
+    genotype and from this rank's columns."""
+    import hibayes_tpu_torch as htt
+    from hibayes_tpu_torch.engine import gibbs as TG
+    from hibayes_tpu_torch.parallel.distributed import load_plink_snp_sharded
+
+    y, M, B, ids = p["fit_y"], p["fit_M"], p["block"], p["ids"]
+    m = M.shape[1]
+    _, shard = load_plink_snp_sharded(p["bfile"], mesh, B)   # a .bed of M
+    c0, cnt = mesh.snp_range(m, B)
+    assert (shard.start, shard.m) == (c0, m)
+    assert np.array_equal(shard.values.numpy(), M[:, c0:c0 + cnt])
+    pi, fold = np.array([0.95, 0.02, 0.02, 0.01]), np.array([0.0, 1e-4, 1e-3, 1e-2])
+    runs = {}
+    for name, geno, kw in (("whole", M, {}), ("shard", shard, {"mesh": mesh})):
+        data = TG.prepare_gibbs_data(y, geno, block=B, dtype=torch.float32,
+                                     geno_dtype="int8", fold=fold, nblocks_multiple=4, **kw)
+        vx = data.vx.numpy()
+        pr = TG.resolve_priors(y, float(vx.sum()), pi[0], nr=0)
+        spec = TG.GibbsSpec(model="BayesR", n=len(y), m=m, m_pad=int(data.xpx.shape[0]),
+                            block=B, nc=0, nlevels=(), n_fold=4, niter=12, nburn=4, thin=2,
+                            nvar0=int((vx[:m] == 0).sum()), dfvara=pr.dfvara,
+                            s2vara=pr.s2vara, dfvare=pr.dfvare, s2vare=pr.s2vare,
+                            s2varg=pr.s2varg, lambda_rate0=pr.lambda_rate0,
+                            shard_schedule="pipeline", resync_every=5)
+        st, smp, _ = TG.run_chains(spec, data, pr, pi, seed=11, nchains=4, mesh=mesh)
+        fit = htt.ibrm("y ~ 1", data={"id": ids, "y": p["y_na"]}, M=geno, M_id=ids,
+                       method="BayesR", niter=12, nburn=4, thin=2, block=B,
+                       dtype=torch.float64, nchains=4, seed=13, verbose=False,
+                       device="cpu", mesh=mesh, shard_schedule="pipeline")
+        runs[name] = {"state": as_numpy(st), "samples": smp, "gebv": fit.g["gebv"],
+                      "g": fit.MCMCsamples["g"], "e": fit.e["e"], "alpha": fit.alpha,
+                      "X_rows": int(data.X_blocks.shape[0])}
+    return runs
+
+
+def snp_shard_cases(rank, world, payload):
+    """tests/test_torch_snp_shards.py on a (1, world) mesh: {"layout": (a),
+    "fits": (b)}."""
+    from hibayes_tpu_torch.parallel.mesh import make_mesh
+
+    mesh = make_mesh(shape=(1, world), device="cpu")
+    return {"layout": _snp_shard_layout(mesh, payload), "fits": _snp_shard_fits(mesh, payload)}
+
+
+def collective_spans(rank, world, payload):
+    """tests/test_torch_spans.py: each collective of parallel/distributed.py
+    on a (1, world) mesh, and a SnpShard set-up, under torch.profiler;
+    returns the spans as (name, parent's name, counts), and the spans of
+    the same calls on a one-rank axis (ind)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from hibayes_tpu_torch.engine import gibbs as TG
+    from hibayes_tpu_torch.parallel import distributed as D
+    from hibayes_tpu_torch.parallel.mesh import SnpShard, make_mesh
+    from hibayes_tpu_torch.utils.profiling import span, spans
+
+    mesh = make_mesh(shape=(1, world), device="cpu")
+    x = torch.arange(6, dtype=torch.float64) + rank
+    M, y = payload["M"], payload["y"]
+    c0, cnt = mesh.snp_range(M.shape[1], 8)
+
+    def calls(axis):
+        with span("test.calls"):
+            D.axis_sum(x, mesh, axis)
+            D.broadcast(x, mesh, axis, 0)
+            D.broadcast(x[:2], mesh, axis, 1 % mesh.size(axis))
+            D.all_gather(x.to(torch.int32), mesh, axis)
+            D.all_gather(x[:4 - rank], mesh, axis, total=7)
+            D.ring_hop((x, x[:1].to(torch.float32)), mesh, axis)
+
+    with profile(activities=[ProfilerActivity.CPU]):
+        calls("snp")
+        TG.prepare_gibbs_data(y, SnpShard(M[:, c0:c0 + cnt], c0, M.shape[1]), block=8,
+                              geno_dtype="int8", mesh=mesh)
+    recs = spans()
+    with profile(activities=[ProfilerActivity.CPU]):
+        calls("ind")
+    one = spans()
+    name = lambda recs, i: None if i is None else recs[i].name
+    return ([(r.name, name(recs, r.parent), r.counts) for r in recs],
+            [(r.name, name(one, r.parent), r.counts) for r in one])
+
+
+def _altered_rank(rank, *args):
+    """port_bench's ibrm_mesh rank with one effect of its shard altered
+    after each of its sweeps, on rank 2 alone."""
+    from hibayes_tpu_torch.ops import blockgibbs
+    from port_bench.entries import ibrm_mesh
+
+    if rank == 2:
+        orig = blockgibbs.sweep_mc
+
+        def altered(*a, **kw):
+            out = list(orig(*a, **kw))
+            g = out[0].clone()
+            g[..., 7] += 0.5
+            return (g, *out[1:])
+
+        blockgibbs.sweep_mc = altered
+    return ibrm_mesh.rank_main(rank, *args)
+
+
+def harness_mesh_case(rank, world, payload):
+    """tests/test_torch_snp_shards.py: port_bench's harness on the CPU at a
+    small size of the SNP-sharded cell (its ranks 1-3 spawned by the entry,
+    over gloo); with ``payload["alter"]`` rank 2's sweeps altered.  Returns
+    the result line and the ranks' processes left alive."""
+    import multiprocessing
+
+    from port_bench import harness
+    from port_bench.entries import ibrm_mesh
+
+    if payload["alter"]:
+        ibrm_mesh.Fit.rank_main = staticmethod(_altered_rank)
+    r = harness.run(payload["cell"]["name"], payload["seed"], 1.0, False, device="cpu",
+                    require_chip=False, cell=payload["cell"], cfg=payload["cfg"])
+    return r, [p.pid for p in multiprocessing.active_children()]
