@@ -570,10 +570,17 @@ def chain_us(torch, TB, spec, W, Pb, r0, vary=None, reps=400):
 def sweep_split(torch, TB, spec, part, nbg):
     """Where a sweep's time goes, per block (us, means over the blocks),
     from its timer stamps (sweep_mc(stamps=...)).  One chain (the persistent
-    sweep1 launch): the drawer's wait for block b's partials and their sum,
-    its wait for W_b, the draw chain, its own row work after it; the first
-    rows CTA's start after dg_b is published (the hand-off), its row work
-    (the correction yadj += X_b dg_b, then the partials of X_{b+1}), the hand-off of its partials to the drawer's sum; the block's period.
+    sweep1 launch, its right-hand side one block ahead): the chain side, the
+    draw chain and dg_b's publication, the drawer's wait after it for block
+    b+1's summed partials (and C_{b+1}), the matvec C_{b+1} dg_b that
+    completes rhs_{b+1},
+    its own row work, the start of chain b+1 (W_{b+1} and rhs_{b+1} read);
+    the drawer's summing warps' wait for block b+1's flags and their sum;
+    the first rows CTA's start after dg_b is published (the hand-off), its
+    row work (the correction yadj += X_b dg_b, then the partials of
+    X_{b+2}), the hand-off of its partials to the drawer's sum; the row side
+    (dg_b published to block b+2's partials summed) against the block's
+    period (dg_b to dg_{b+1}).
     K >= 2 chains: the rows launch from its start to its wait (its first X
     chunks in flight, then the draws before it) and on to its end; the
     draws launch's W and packed-row load, its wait for the rows launch (the
@@ -588,21 +595,27 @@ def sweep_split(torch, TB, spec, part, nbg):
     b, nxt = s[:nbg] / 1e3, s[1:] / 1e3
     mean = lambda x: round(float(np.mean(x)), 3)
     if part[-2].shape[0] == 1:
-        return {"drawer_partials_wait_us": mean(b[:, 1] - b[:, 0]),
-                "drawer_flags_us": mean(b[:, 5] - b[:, 0]),
-                "drawer_w_wait_us": mean(b[:, 2] - b[:, 1]),
-                "chain_us": mean(b[:, 3] - b[:, 2]),
+        a, c = b[:-1], b[1:]        # blocks with a next block: b and b + 1
+        r = s[1:nbg - 1] / 1e3      # row steps that form partials (of block b + 1)
+        return {"chain_us": mean(b[:, 3] - b[:, 2]),
                 "chain_draws_us": mean(b[:, 6] - b[:, 2]),
-                "drawer_own_rows_us": mean(b[:, 4] - b[:, 3]),
+                "publish_us": mean(b[:, 3] - b[:, 6]),
+                "drawer_wait_after_chain_us": mean(a[:, 15] - a[:, 3]),
+                "rhs_matvec_us": mean(a[:, 7] - a[:, 15]),
+                "drawer_own_rows_us": mean(b[:, 4] - b[:, 7]),
+                "next_chain_start_us": mean(c[:, 2] - a[:, 4]),
+                "sums_flags_wait_us": mean(a[:, 5] - a[:, 0]),
+                "sums_us": mean(a[:, 14] - a[:, 5]),
                 "dg_to_rows_start_us": mean(nxt[:, 9] - b[:, 3]),
                 "rows_work_us": mean(nxt[:, 10] - nxt[:, 9]),
                 "rows_correction_us": mean(nxt[:, 11] - nxt[:, 9]),
                 "rows_partials_us": mean(nxt[:, 10] - nxt[:, 11]),
-                "rows_partials_formed_us": mean(nxt[:-1, 12] - nxt[:-1, 11]),
-                "rows_partials_summed_us": mean(nxt[:-1, 13] - nxt[:-1, 12]),
-                "rows_publish_us": mean(nxt[:-1, 10] - nxt[:-1, 13]),
-                "rows_to_partials_summed_us": mean(b[1:, 1] - b[1:, 10]),
-                "block_period_us": mean(np.diff(b[:, 0]))}
+                "rows_partials_formed_us": mean(r[:, 12] - r[:, 11]),
+                "rows_partials_summed_us": mean(r[:, 13] - r[:, 12]),
+                "rows_publish_us": mean(r[:, 10] - r[:, 13]),
+                "rows_to_partials_summed_us": mean(r[:, 14] - r[:, 10]),
+                "row_side_us": mean(b[1:-1, 14] - b[:-2, 3]),
+                "block_period_us": mean(np.diff(b[:, 3]))}
     out = {"rows_start_to_wait_us": mean(b[:, 1] - b[:, 0]),
            "rows_cta0_work_us": mean(b[:, 2] - b[:, 1]),
            "draws_load_us": mean(b[:, 4] - b[:, 3]),

@@ -25,35 +25,49 @@
 // occupancy API), ordered by release/acquire flags whose values run on
 // across sweeps by an epoch; a wait of 10 s traps instead of hanging the
 // card (pdl.cuh).  The rows of n are cut into the row tiles the caller
-// picks (about one per SM), and each CTA owns some of them for the whole
-// sweep, keeping their yadj and u in shared memory.
+// picks (about one per SM but the drawer's), and each CTA owns some of
+// them for the whole sweep, keeping their yadj and u in shared memory.
+//
+// The right-hand side runs one block ahead.  Block b+1's draws need
+// X_{b+1}' yadj_b, where yadj_b = yadj_{b-1} + X_b dg_b; that is
+// X_{b+1}' yadj_{b-1} + C_{b+1} dg_b, with C_{b+1} = X_{b+1}' X_b the
+// cross-Gram of consecutive blocks (made at set-up, GibbsData.C_blocks).
+// The first term, the row work, needs only dg_{b-1}, so it runs under
+// block b's draw chain; the second is a B x B matvec the drawer makes
+// between two chains.  The same conditional, in float32 as before.
 //   - CTA 0, the drawer: warp 0 runs block b's B draws (draws.cuh) and
-//     publishes dg_b; meanwhile the other warps stage the packed rows
-//     P_{b+1}, and one thread has the copy engine bring W_{b+1} (64 KB at
+//     publishes dg_b.  Meanwhile warps 1-7 stage the packed rows P_{b+1},
+//     one of their threads has the copy engine bring W_{b+1} (64 KB at
 //     B = 128) into the other half of a double buffer (cp.async.bulk and
-//     an mbarrier), or, where the drawer needs that room for its own row
-//     tile, into the one buffer once the chain is done (it lands under the
-//     row work).  Then it waits for block b+1's row-tile partials and sums
-//     them in a fixed order (warp w the tiles w, w + 8, ... in order, the
-//     eight sums in warp order).
-//   - every CTA with tiles (the drawer too, when the tiles outnumber the
-//     other CTAs): once dg_b is published, applies yadj += X_b dg_b,
-//     u -= X_b dg_b to its rows (a row a thread pair), then writes its
-//     tiles' partials X_{b+1}' yadj (a warp a row class, a lane a column
-//     group), each published by a flag.  X_b and X_{b+1} are staged in
-//     shared memory under the chain (cp.async, 16-byte units rotated by
-//     the row so both access patterns spread over the banks) where two
-//     tiles fit; where one fits it holds X_b and X_{b+1} is read from
-//     global memory after an L2 prefetch.
-// Bound: the dependent draw chain (one warp, B draws) plus, per block, two
-// flag hand-offs and a row tile's work from shared memory; X moves at
-// 3.35 TB/s under the chain.  Every sum is the one the two-launch design
-// this replaced formed, in its order: a row's correction is a lane's four
-// columns then a shuffle tree over the warp (here evaluated by the thread
-// pair, the same tree); a tile's partial is, for each of 32 row classes
-// (row mod 32 within the tile, that design's warps), a sum over the
-// class's rows in order, then the 32 added in class order; so the outputs
-// are bit for bit the same.
+//     an mbarrier; where the drawer lacks the room, into the one buffer
+//     once the chain is done), and they wait for block b+1's row-tile
+//     partials and sum them (warp w the tiles w - 1, w + 6, ... in order).
+//     Once dg_b is out and the sums are in, warps 1-4 form rhs_{b+1} = (the
+//     seven sums in warp order) + C_{b+1} dg_b (a warp 32 rows of C, a lane
+//     four columns, halving shuffles), and warp 0 starts chain b+1.
+//     C_{b+1} lands next to W_{b+1} in shared memory (a third mbarrier), or,
+//     where it does not fit, is read from L2; both reach L2 a block ahead.
+//   - every CTA with tiles (the drawer too, where the tiles outnumber the
+//     other CTAs): before any dg, writes its tiles' partials of blocks 0
+//     and 1 against the starting yadj; then, once dg_b is published,
+//     applies yadj += X_b dg_b, u -= X_b dg_b to its rows (a row a thread
+//     pair) and writes its partials X_{b+2}' yadj (a warp a row class, a
+//     lane a column group) into the half of a double buffer that block
+//     b+2's parity names, each tile's published by a flag.  X_b, X_{b+1}
+//     and X_{b+2} are staged in shared memory under the chain (cp.async,
+//     16-byte units rotated by the row so both access patterns spread over
+//     the banks) where three tiles fit; where one fits it holds X_b (the
+//     correction's) and X_{b+2} is read from global memory after an L2
+//     prefetch.
+// Bound: the larger of the chain side (the draw chain, the matvec, a
+// barrier) and the row side (a flag hand-off, a row tile's correction and
+// partials, the flags and the drawer's sums); X moves at 3.35 TB/s under
+// both.  Every sum runs in an order fixed by n, B and the tiling: a row's
+// correction is a lane's four columns then a shuffle tree over the warp
+// (evaluated by the thread pair); a tile's partial is, for each of 32 row
+// classes (row mod 32 within the tile), a sum over the class's rows in
+// order, then the 32 added in class order; so a relaunch is bit for bit
+// the same.
 //
 // K >= 2 chains are a sequence of launches on one stream, two per SNP
 // block:
@@ -131,7 +145,9 @@ constexpr int kS1Warps = 8;
 constexpr int kS1Threads = kWarp * kS1Warps;
 constexpr int kS1Classes = 32;
 constexpr int kS1PerWarp = kS1Classes / kS1Warps;
-constexpr int kS1BarFloats = 4;   // the drawer's two mbarriers
+constexpr int kS1BarFloats = 8;   // the drawer's three mbarriers (W's two, C's), 16-byte padded
+constexpr int kS1SumWarps = kS1Warps - 1;   // the drawer's warps that sum the partials
+constexpr int kS1SumLoads = 20;             // partials' loads a summing lane keeps in flight
 
 // rows_mc_kernel: 8 warps; a CTA serves up to kMcChains chains (grid.y =
 // ceil(K / kMcChains)).
@@ -145,14 +161,19 @@ constexpr int kMcChains = 64;
 // rows_mc_kernel's first CTA: after its wait, and through its first chunk
 // after the first barrier, after the next chunk's copies are issued, after
 // the residual update, after the second barrier and after the partials; at
-// its end.  K = 1 (sweep1_kernel), %globaltimer ns, record b: the drawer
-// before it waits for block b's partials (0), once they are summed (1),
-// once W_b has landed, as the chain starts (2), once dg_b is published
-// (3), after its own row work of step b + 1 (4), once warp 0's tiles are
-// published (5), after the chain's draws (6); CTA 1 at step b: before
-// its wait for dg_{b-1} (8), once dg and its X tile are in (9), after its
+// its end.  K = 1 (sweep1_kernel), %globaltimer ns, record b: the drawer's
+// warp 0 once W_b has landed, as chain b starts (2), after its draws (6),
+// once dg_b is published (3); its warp 1 as it starts block b's round (0),
+// once the flags of its first tiles of block b+1 are seen (5), once its
+// sum of block b+1's partials is stored (14), once dg_b is published,
+// every warp's sum is stored and C_{b+1} has landed (15: after the wait
+// for C, since a timer read that follows a barrier alone may be scheduled
+// before it); thread 0 once rhs_{b+1} = partials + C_{b+1} dg_b is formed
+// (7), after its own row work of step b + 1 (4); CTA 1 at step b: before
+// its wait for dg_{b-1} (8), once dg and its X tiles are in (9), after its
 // correction yadj += X_{b-1} dg_{b-1} (11), after its first tile's
-// partials are formed (12) and written (13), once they are published (10).
+// partials of block b+1 (at b = 0: of blocks 0 and 1) are formed (12) and
+// written (13), once all are published (10).
 constexpr int kStamps = 16;
 
 // Launches of each kernel, counted where it is launched (hb_launch_counts).
@@ -192,21 +213,22 @@ __device__ __forceinline__ void stamp_clock(long long* s, int i) {
 // ---------------------------------------------------------------------------
 
 // Shared memory of a sweep1_kernel CTA, in bytes: the drawer's part (CTA 0
-// only: two mbarriers, wb buffers of W_b (wb B B), the packed rows
-// double-buffered at padded_stride (2 B RP), the eight warps' partial sums
-// (8 B)); then, for a CTA with T row tiles of rpt rows, yadj and u of its
-// rows (each padded to 4 floats), dg of the block before (B), the 32 row
-// classes' sums (32 B) and nb X tile buffers per tile
-// (ops/blockgibbs.py:sweep1_smem mirrors it).
+// only: three mbarriers, wb buffers of W_b and cb of C_b (each B B), the
+// packed rows double-buffered at padded_stride (2 B RP), the seven summing
+// warps' partial sums, dg_b and rhs_{b+1} (9 B)); then, for a CTA with T
+// row tiles of rpt rows, yadj and u of its rows (each padded to 4 floats),
+// dg of the block before (B), the 32 row classes' sums (32 B) and nb X
+// tile buffers per tile (ops/blockgibbs.py:sweep1_smem mirrors it).
 struct S1Layout {
   size_t draw_bytes, yu_floats, tile_bytes, total;
 };
 
 __host__ __device__ inline S1Layout s1_layout(int B, int RP, int rpt, int xbytes, int T,
-                                              int nb, bool drawer, int wb) {
+                                              int nb, bool drawer, int wb, int cb) {
   S1Layout L;
-  L.draw_bytes = drawer ? sizeof(float) * (kS1BarFloats + static_cast<size_t>(wb) * B * B +
-                                           2 * static_cast<size_t>(B) * RP + kS1Warps * B)
+  L.draw_bytes = drawer ? sizeof(float) * (kS1BarFloats + static_cast<size_t>(wb + cb) * B * B +
+                                           2 * static_cast<size_t>(B) * RP +
+                                           (kS1SumWarps + 2) * B)
                         : 0;
   L.yu_floats = (static_cast<size_t>(T) * rpt + 3) / 4 * 4;
   L.tile_bytes = static_cast<size_t>(rpt) * B * xbytes;
@@ -221,16 +243,18 @@ template <typename XT>
 struct Sweep1Args {
   const XT* X;        // (nb_tot, n, B)
   const float* W;     // (nb_tot, B, B)
+  const float* C;     // (nb_tot, B, B): C[k] = X_k' X_{k-1}
   const float* P;     // (nbg, B, R) packed rows
   int off, nbg, n, B, rpt, ntiles;
   float *yadj, *u;    // (n,), updated
   float *g_out, *dg_out, *tr_out;   // (nbg B,)
-  float* partial;     // (ntiles, B)
-  unsigned* flags;    // [0] dg published; [1 + t] tile t's partials published
-  unsigned epoch;     // this sweep publishes epoch + s + 1 for step s
-  int nb0, nbr;       // X tile buffers a tile of the drawer / of another CTA has
+  float* partial;     // (2, ntiles, B): block b's in half b mod 2
+  unsigned* flags;    // [0] dg_b published; [1 + t] tile t's partials of block b published
+  unsigned epoch;     // this sweep publishes epoch + b + 1 for block b
+  int nb0, nbr;       // X tile buffers a tile of the drawer / of another CTA has (3, 1 or 0)
   int wb;             // buffers of W: 2, W_{b+1} lands under block b's chain;
                       // 1, after it (the drawer then has room for its tile's X)
+  int cb;             // buffers of C: 1, C_{b+1} lands under block b's chain; 0, read from L2
   long long* stamps;  // measurement only (null in use)
   int nf;             // BayesR folds (read by the NF = kRuntimeFold instance)
   // the packed rows in global memory, SNP-major at padded_stride(R) (nbg B,
@@ -275,10 +299,11 @@ struct S1Tile {
 };
 
 // The row tiles of one CTA: t_first, t_first + G, ..., T of them, each with
-// yadj and u in shared memory and nb buffers of X: 2, X_s and X_{s-1} both
-// in shared memory, alternating by step; 1, X_{s-1} (the correction's) in
-// shared memory, X_s (the partials') read from global memory after an L2
-// prefetch under the chain; 0, both read from global memory.
+// yadj and u in shared memory and nb buffers of X: 3, block b in buffer
+// b mod 3 (step s reads X_{s-1} and X_{s+1} and keeps X_s for the next);
+// 1, X_{s-1} (the correction's) in shared memory, X_{s+1} (the partials')
+// read from global memory after an L2 prefetch under the chain; 0, both
+// read from global memory.
 template <typename XT>
 struct S1Rows {
   int t_first, T, nb, G;
@@ -286,8 +311,8 @@ struct S1Rows {
   unsigned char* xbuf;
   size_t tile_bytes;
 
-  __device__ unsigned char* buf(int k, int parity) const {
-    return xbuf + (static_cast<size_t>(k) * nb + (nb == 2 ? parity : 0)) * tile_bytes;
+  __device__ unsigned char* buf(int k, int blk) const {
+    return xbuf + (static_cast<size_t>(k) * nb + (nb == 3 ? blk % 3 : 0)) * tile_bytes;
   }
 };
 
@@ -303,36 +328,66 @@ __device__ __forceinline__ const unsigned char* s1_global(const Sweep1Args<XT>& 
       a.X + (static_cast<size_t>(a.off + sb) * a.n + r0) * a.B);
 }
 
-// After step s (s = -1 before the first): the X tiles the next step reads
-// start on their way under the chain.  nb 2: X_{s+1} into the free buffer;
-// nb 1: X_s into the buffer (the next correction's) and X_{s+1} into L2;
-// nb 0: X_{s+1} into L2.  Copies into shared memory go by cp.async (16
-// bytes to the rotated place, or 4 bytes as stored), one commit group.
+// The X tiles later steps read, started on their way.  Before the first
+// step (s = -1): X_0 and X_1, into the buffers (nb 3) or into L2.  At nb 1,
+// once step s no longer reads the buffer (``copies``: at s = 0 its start,
+// else after its correction), X_s into it (the next correction's), so that
+// its 1-2 MB land under the step's partials.  At the end of step s, under
+// the wait for dg_s: nb 3, X_{s+2} into the buffer of X_{s-1} (a tile of a
+// few hundred rows); nb 1, X_{s+2} into L2 (the next partials'); nb 0, X_s
+// and X_{s+2} into L2.  Copies into shared memory go by cp.async (16 bytes
+// to the rotated place, or 4 bytes as stored), one commit group.
 template <typename XT>
-__device__ __forceinline__ void s1_stage(const Sweep1Args<XT>& a, const S1Rows<XT>& w, int s) {
+__device__ __forceinline__ void s1_stage(const Sweep1Args<XT>& a, const S1Rows<XT>& w, int s,
+                                         bool copies) {
   const int rb = a.B * static_cast<int>(sizeof(XT));
   const int U = rb % 16 == 0 ? rb / 16 : 0;
-  const int into = w.nb == 2 ? s + 1 : s;   // the block copied into shared memory
-  const bool copy = w.nb >= 1 && into >= 0 && into < a.nbg;
-  const bool l2 = w.nb <= 1 && s + 1 < a.nbg;
+  int into[2] = {-1, -1}, l2[2] = {-1, -1};   // blocks into shared memory, into L2
+  if (s < 0) {
+    int* both = w.nb == 3 ? into : l2;
+    both[0] = 0;
+    both[1] = 1;
+  } else if (copies) {
+    into[0] = w.nb == 1 ? s : -1;
+  } else if (w.nb == 3) {
+    into[0] = s + 2;
+  } else {
+    l2[0] = w.nb == 0 ? s : -1;
+    l2[1] = s + 2;
+  }
   for (int k = 0; k < w.T; ++k) {
     const int r0 = (w.t_first + k * w.G) * a.rpt;
     const int nr = min(a.rpt, a.n - r0);
-    if (copy) {
-      const unsigned char* src = s1_global(a, into, r0);
-      unsigned char* dst = w.buf(k, into & 1);
+    for (int i = 0; i < 2; ++i) {
+      const int blk = into[i];
+      if (blk < 0 || blk >= a.nbg) continue;
+      const unsigned char* src = s1_global(a, blk, r0);
+      unsigned char* dst = w.buf(k, blk);
       if (U > 0) {
-        for (int e = threadIdx.x; e < nr * U; e += kS1Threads) {
-          const int r = e / U, u = e - r * U;
-          const int p = u + r % U;
-          cp_async16(dst + r * rb + 16 * (p >= U ? p - U : p), src + r * rb + 16 * u);
+        // unit u of row r to place p = (u + r) mod U; a thread's units step
+        // by kS1Threads: (r, u, p) advance with a carry, no division a unit
+        const int dr = kS1Threads / U, du = kS1Threads % U, dp = (dr + du) % U;
+        int r = threadIdx.x / U, u = threadIdx.x % U, p = (u + r) % U;
+        while (r < nr) {
+          cp_async16(dst + r * rb + 16 * p, src + r * rb + 16 * u);
+          r += dr;
+          u += du;
+          p += dp;
+          if (p >= U) p -= U;
+          if (u >= U) {
+            u -= U;
+            ++r;
+            if (++p == U) p = 0;
+          }
         }
       } else {
         for (int e = 4 * threadIdx.x; e < nr * rb; e += 4 * kS1Threads) cp_async4(dst + e, src + e);
       }
     }
-    if (l2) {
-      const unsigned char* src = s1_global(a, s + 1, r0);
+    for (int i = 0; i < 2; ++i) {
+      const int blk = l2[i];
+      if (blk < 0 || blk >= a.nbg) continue;
+      const unsigned char* src = s1_global(a, blk, r0);
       for (int e = 128 * threadIdx.x; e < nr * rb; e += 128 * kS1Threads) prefetch_l2(src + e);
     }
   }
@@ -425,11 +480,12 @@ __device__ __forceinline__ void s1_partials(const S1Tile<XT>& X, const float* yk
 
 // Step s of a CTA's row tiles (s = 0 .. nbg): once dg_{s-1} is published,
 // yadj += X_{s-1} dg_{s-1}, u -= X_{s-1} dg_{s-1} on its rows (s > 0); then
-// each tile's partial X_s' yadj (s < nbg), its 32 row classes added in
-// order, published by the tile's flag; then the next step's X tiles are
-// staged.  Row r of a tile is in class r mod 32, the warp of the two-launch
-// design this replaced that summed it, so every sum is that design's.  All
-// threads of the CTA call it.
+// each tile's partial X_{s+1}' yadj, one block ahead (at s = 0, before any
+// dg: X_0' yadj and X_1' yadj), its 32 row classes added in order, written
+// to the half of the partials that the block's parity names and published
+// by the tile's flag; the X tiles of later steps are staged as their
+// buffers come free (s1_stage).  Row r of a tile is in class r mod 32.
+// All threads of the CTA call it.
 template <typename XT>
 __device__ __forceinline__ void s1_rows_step(const Sweep1Args<XT>& a, const S1Rows<XT>& w, int s,
                              long long* st) {
@@ -444,32 +500,36 @@ __device__ __forceinline__ void s1_rows_step(const Sweep1Args<XT>& a, const S1Ro
   cp_async_wait<0>();
   __syncthreads();   // dg_{s-1} visible; this step's X tiles landed
   if (st != nullptr && threadIdx.x == 0) st[s * kStamps + 9] = global_ns();
+  if (s == 0) s1_stage(a, w, 0, true);
   if (s > 0) {
     for (int i = threadIdx.x; i < B; i += kS1Threads)
       w.dgs[i] = __ldcg(a.dg_out + static_cast<long long>(s - 1) * B + i);
     __syncthreads();
     for (int k = 0; k < w.T; ++k) {
       const int r0 = (w.t_first + k * w.G) * a.rpt;
-      const S1Tile<XT> Xp = w.nb >= 1 ? S1Tile<XT>{w.buf(k, (s - 1) & 1), rb, U, U > 0}
+      const S1Tile<XT> Xp = w.nb >= 1 ? S1Tile<XT>{w.buf(k, s - 1), rb, U, U > 0}
                                       : S1Tile<XT>{s1_global(a, s - 1, r0), rb, U, false};
       s1_correct(Xp, w.ys + k * a.rpt, w.us + k * a.rpt, min(a.rpt, a.n - r0), B, w.dgs);
     }
-    __syncthreads();   // yadj of every row updated
+    __syncthreads();   // yadj of every row updated; X_{s-1}'s buffer read
+    s1_stage(a, w, s, true);
   }
   if (st != nullptr && threadIdx.x == 0) st[s * kStamps + 11] = global_ns();
-  if (s < a.nbg) {
+  for (int blk = s == 0 ? 0 : s + 1; blk <= s + 1 && blk < a.nbg; ++blk) {
+    float* part = a.partial + static_cast<long long>(blk & 1) * a.ntiles * B;
     for (int k = 0; k < w.T; ++k) {
       const int t = w.t_first + k * w.G;
       const int r0 = t * a.rpt;
-      const S1Tile<XT> Xc = w.nb == 2 ? S1Tile<XT>{w.buf(k, s & 1), rb, U, U > 0}
-                                      : S1Tile<XT>{s1_global(a, s, r0), rb, U, false};
+      const S1Tile<XT> Xc = w.nb == 3 ? S1Tile<XT>{w.buf(k, blk), rb, U, U > 0}
+                                      : S1Tile<XT>{s1_global(a, blk, r0), rb, U, false};
       float acc[kS1PerWarp][4];
 #pragma unroll
       for (int v = 0; v < kS1PerWarp; ++v)
 #pragma unroll
         for (int q = 0; q < 4; ++q) acc[v][q] = 0.f;
       s1_partials(Xc, w.ys + k * a.rpt, min(a.rpt, a.n - r0), B, acc);
-      if (st != nullptr && threadIdx.x == 0 && k == 0) st[s * kStamps + 12] = global_ns();
+      const bool mark = st != nullptr && threadIdx.x == 0 && k == 0 && blk == s + 1;
+      if (mark) st[s * kStamps + 12] = global_ns();
       if (c0 < B) {
 #pragma unroll
         for (int v = 0; v < kS1PerWarp; ++v)
@@ -481,16 +541,116 @@ __device__ __forceinline__ void s1_rows_step(const Sweep1Args<XT>& a, const S1Ro
         float sum = 0.f;
 #pragma unroll 8
         for (int r = 0; r < kS1Classes; ++r) sum += w.red[r * B + c];
-        a.partial[static_cast<long long>(t) * B + c] = sum;
+        part[static_cast<long long>(t) * B + c] = sum;
       }
       __syncthreads();   // the partial written; red free again
-      if (st != nullptr && threadIdx.x == 0 && k == 0) st[s * kStamps + 13] = global_ns();
-      if (threadIdx.x == 0) publish(a.flags + 1 + t, a.epoch + s + 1);
+      if (mark) st[s * kStamps + 13] = global_ns();
+      if (threadIdx.x == 0) publish(a.flags + 1 + t, a.epoch + blk + 1);
     }
   }
   __syncthreads();   // every X buffer of this step read
   if (st != nullptr && threadIdx.x == 0) st[s * kStamps + 10] = global_ns();
-  s1_stage(a, w, s);
+  s1_stage(a, w, s, false);
+}
+
+// The drawer's warps 1-7 sum block blk's row-tile partials: warp w the
+// tiles w - 1, w + 6, ... in order (lane l the columns 4l .. 4l + 3) into
+// red[w - 1]; lane l waits for the flag of the warp's (l + 1)-th tile of
+// each 32 (polling with naps, so that warp 0's chain keeps the issue slots),
+// kS1SumLoads tiles' loads in flight at a time (one round at 131 tiles).
+// sb (warp 1's lane 0, measurement only): stamps 5 and 14.
+template <typename XT>
+__device__ __forceinline__ void s1_sum_partials(const Sweep1Args<XT>& a, float* red, int blk,
+                                                long long* sb) {
+  const int v = threadIdx.x / kWarp - 1;
+  const int lane = threadIdx.x % kWarp;
+  const int B = a.B, c0 = 4 * lane;
+  const float* part = a.partial + static_cast<long long>(blk & 1) * a.ntiles * B;
+  float4 acc = make_float4(0.f, 0.f, 0.f, 0.f);
+  for (int t0 = v; t0 < a.ntiles; t0 += kS1SumWarps * kWarp) {
+    const int t = t0 + kS1SumWarps * lane;
+    if (t < a.ntiles) await_nap(a.flags + 1 + t, a.epoch + blk + 1);
+    __syncwarp();   // every tile this warp sums is published
+    if (t0 == v) stamp(sb, 5);
+    const int tend = min(a.ntiles, t0 + kS1SumWarps * kWarp);
+    if (c0 < B) {
+      for (int tb = t0; tb < tend; tb += kS1SumLoads * kS1SumWarps) {
+        float4 x[kS1SumLoads];
+#pragma unroll
+        for (int i = 0; i < kS1SumLoads; ++i) {
+          const int tt = tb + i * kS1SumWarps;
+          if (tt < tend)
+            x[i] = __ldcg(
+                reinterpret_cast<const float4*>(part + static_cast<long long>(tt) * B + c0));
+        }
+#pragma unroll
+        for (int i = 0; i < kS1SumLoads; ++i) {
+          if (tb + i * kS1SumWarps < tend) {
+            acc.x += x[i].x; acc.y += x[i].y; acc.z += x[i].z; acc.w += x[i].w;
+          }
+        }
+      }
+    }
+  }
+  if (c0 < B) *reinterpret_cast<float4*>(red + v * B + c0) = acc;
+  stamp(sb, 14);
+}
+
+// Entry i of a block's summed partials: the seven warps' sums in warp order.
+__device__ __forceinline__ float s1_psum(const float* red, int B, int i) {
+  float sum = 0.f;
+#pragma unroll
+  for (int v = 0; v < kS1SumWarps; ++v) sum += red[v * B + i];
+  return sum;
+}
+
+// One halving exchange of s1_rhs: a lane keeps rows [0, H) or [H, 2H) of
+// its 2H (by its lane bit O) and adds its partner's values of them.
+template <int H, int O>
+__device__ __forceinline__ void s1_halve(float* p, int lane) {
+  const bool up = (lane & O) != 0;
+#pragma unroll
+  for (int k = 0; k < H; ++k) {
+    const float keep = up ? p[k + H] : p[k];
+    const float give = up ? p[k] : p[k + H];
+    p[k] = keep + __shfl_xor_sync(0xffffffffu, give, O);
+  }
+  if constexpr (H > 1) s1_halve<H / 2, O / 2>(p, lane);
+}
+
+// Warps a drawer forms rhs_{b+1} with (warps 1 .. kS1RhsWarps), rows a warp.
+constexpr int kS1RhsWarps = 4;
+constexpr int kS1RhsRows = kMaxBlock / kS1RhsWarps;   // 32
+
+// rhs_{b+1} = block b+1's summed partials (X_{b+1}' yadj before dg_b) +
+// C_{b+1} dg_b, by the drawer's warp v = 1 .. 4 (call it from those): rows
+// i = v - 1 + 4k (k < 32) of C (in shared memory or in global memory),
+// lane l columns 4l .. 4l + 3 against dg_b's; the 32 rows' lane products
+// are summed over the warp by halving exchanges (lane bit 4, 3, 2, 1, 0
+// keeps half of the rows and adds its partner's half of them), so lane l
+// holds row k = 16 b4 + 8 b3 + 4 b2 + 2 b1 + b0 (b the lane's bits), which
+// it adds to the partials' sum.  An order fixed by B.
+__device__ __forceinline__ void s1_rhs(const float* C, const float* dgs, const float* red,
+                                       float* rhs, int B) {
+  const int v = threadIdx.x / kWarp - 1;
+  const int lane = threadIdx.x % kWarp;
+  const bool on = 4 * lane < B;
+  const float4 d = on ? *reinterpret_cast<const float4*>(dgs + 4 * lane)
+                      : make_float4(0.f, 0.f, 0.f, 0.f);
+  float p[kS1RhsRows];
+#pragma unroll
+  for (int k = 0; k < kS1RhsRows; ++k) {
+    const int i = v + kS1RhsWarps * k;
+    const float4 c = on && i < B ? *reinterpret_cast<const float4*>(
+                                       C + static_cast<long long>(i) * B + 4 * lane)
+                                 : make_float4(0.f, 0.f, 0.f, 0.f);
+    p[k] = fmaf(c.w, d.w, fmaf(c.z, d.z, fmaf(c.y, d.y, c.x * d.x)));
+  }
+  s1_halve<kS1RhsRows / 2, kWarp / 2>(p, lane);
+  const int k = 16 * ((lane >> 4) & 1) + 8 * ((lane >> 3) & 1) + 4 * ((lane >> 2) & 1) +
+                2 * ((lane >> 1) & 1) + (lane & 1);
+  const int i = v + kS1RhsWarps * k;
+  if (i < B) rhs[i] = s1_psum(red, B, i) + p[0];
 }
 
 // grid G <= the CTAs the card holds at once (every CTA resident, so the
@@ -515,7 +675,7 @@ __global__ void __launch_bounds__(kS1Threads, 1) sweep1_kernel(Sweep1Args<XT> a)
   w.t_first = (blockIdx.x + G - 1) % G;
   w.T = w.t_first < a.ntiles ? (a.ntiles - 1 - w.t_first) / G + 1 : 0;
   w.nb = drawer ? a.nb0 : a.nbr;
-  const S1Layout L = s1_layout(B, RS, a.rpt, sizeof(XT), w.T, w.nb, drawer, a.wb);
+  const S1Layout L = s1_layout(B, RS, a.rpt, sizeof(XT), w.T, w.nb, drawer, a.wb, a.cb);
   w.ys = reinterpret_cast<float*>(s1_smem + L.draw_bytes);
   w.us = w.ys + L.yu_floats;
   w.dgs = w.us + L.yu_floats;
@@ -525,10 +685,13 @@ __global__ void __launch_bounds__(kS1Threads, 1) sweep1_kernel(Sweep1Args<XT> a)
   long long* st_rows = blockIdx.x == 1 || G == 1 ? a.stamps : nullptr;
 
   // the drawer's buffers
-  uint64_t* bar = reinterpret_cast<uint64_t*>(s1_smem);
+  uint64_t* bar = reinterpret_cast<uint64_t*>(s1_smem);           // W's two, C's
   float* Wb = reinterpret_cast<float*>(s1_smem) + kS1BarFloats;   // + buf B B
-  float* Pb = Wb + a.wb * B * B;                                  // + buf B RP
-  float* red8 = Pb + 2 * B * RS;
+  float* Cb = Wb + a.wb * B * B;                                  // cb B B
+  float* Pb = Cb + a.cb * B * B;                                  // + buf B RP
+  float* red7 = Pb + 2 * B * RS;                                  // + v B
+  float* dgd = red7 + kS1SumWarps * B;                            // dg_b
+  float* rhs = dgd + B;                                           // rhs_{b+1}
   const unsigned w_bytes = static_cast<unsigned>(sizeof(float)) * B * B;
   // W_sb into buffer sb mod wb, its arrival counted on that buffer's mbarrier
   auto stage_w = [&](int sb) {   // one thread
@@ -536,6 +699,17 @@ __global__ void __launch_bounds__(kS1Threads, 1) sweep1_kernel(Sweep1Args<XT> a)
     const int q = sb % a.wb;
     mbar_expect(bar + q, w_bytes);
     bulk_copy(Wb + q * B * B, a.W + static_cast<size_t>(a.off + sb) * B * B, w_bytes, bar + q);
+  };
+  // C_sb into its buffer (counted on the third mbarrier), or into L2
+  auto stage_c = [&](int sb) {   // one thread
+    const float* src = a.C + static_cast<size_t>(a.off + sb) * B * B;
+    if (a.cb == 0) {
+      prefetch_l2(src, static_cast<long long>(w_bytes));
+      return;
+    }
+    fence_async();
+    mbar_expect(bar + 2, w_bytes);
+    bulk_copy(Cb, src, w_bytes, bar + 2);
   };
   auto stage_p = [&](int sb, int t0, int nt) {   // packed rows at padded_stride
     float* dst = Pb + (sb & 1) * B * RP;
@@ -551,7 +725,9 @@ __global__ void __launch_bounds__(kS1Threads, 1) sweep1_kernel(Sweep1Args<XT> a)
     if (threadIdx.x == 0) {
       mbar_init(bar);
       mbar_init(bar + 1);
+      mbar_init(bar + 2);
       stage_w(0);
+      if (a.nbg > 1) stage_c(1);
     }
     stage_p(0, threadIdx.x, kS1Threads);
   }
@@ -562,7 +738,7 @@ __global__ void __launch_bounds__(kS1Threads, 1) sweep1_kernel(Sweep1Args<XT> a)
       w.us[i] = a.u[row];
     }
   }
-  if (w.T > 0) s1_stage(a, w, -1);   // X_0's tiles on their way
+  if (w.T > 0) s1_stage(a, w, -1, true);   // X_0's and X_1's tiles on their way
   // (s1_rows_step waits for the copies and synchronises first)
   if (w.T > 0) s1_rows_step(a, w, 0, st_rows);
   else {
@@ -570,56 +746,26 @@ __global__ void __launch_bounds__(kS1Threads, 1) sweep1_kernel(Sweep1Args<XT> a)
     __syncthreads();
   }
   if (drawer) {
-    long long* st = a.stamps != nullptr && threadIdx.x == 0 ? a.stamps : nullptr;
-    const int c0 = 4 * lane;
+    long long* st = a.stamps;
+    const bool t0 = threadIdx.x == 0, t1 = threadIdx.x == kWarp;
+    // rhs_0: block 0's partials summed
+    if (warp > 0) s1_sum_partials(a, red7, 0, nullptr);
+    __syncthreads();
+    for (int i = threadIdx.x; i < B; i += kS1Threads) rhs[i] = s1_psum(red7, B, i);
+    __syncthreads();
     for (int s = 0; s < a.nbg; ++s) {
       long long* sb = st != nullptr ? st + s * kStamps : nullptr;
-      stamp(sb, 0);
-      // block s's partials, warp w the tiles w, w + 8, ... in order; lane l
-      // waits for the flag of the warp's (l + 1)-th tile
-      float4 acc = make_float4(0.f, 0.f, 0.f, 0.f);
-      for (int t0 = warp; t0 < a.ntiles; t0 += kS1Warps * kWarp) {
-        const int t = t0 + kS1Warps * lane;
-        if (t < a.ntiles) spin_acquire(a.flags + 1 + t, a.epoch + s + 1);
-        __syncwarp();   // every tile this warp sums is published
-        if (t0 == 0) stamp(sb, 5);
-        const int tend = min(a.ntiles, t0 + kS1Warps * kWarp);
-        if (c0 < B) {
-          // sixteen tiles' loads in flight at a time, added in tile order
-          for (int tb = t0; tb < tend; tb += 16 * kS1Warps) {
-            float4 x[16];
-#pragma unroll
-            for (int i = 0; i < 16; ++i) {
-              const int tt = tb + i * kS1Warps;
-              if (tt < tend)
-                x[i] = __ldcg(reinterpret_cast<const float4*>(
-                    a.partial + static_cast<long long>(tt) * B + c0));
-            }
-#pragma unroll
-            for (int i = 0; i < 16; ++i) {
-              if (tb + i * kS1Warps < tend) {
-                acc.x += x[i].x; acc.y += x[i].y; acc.z += x[i].z; acc.w += x[i].w;
-              }
-            }
-          }
-        }
-      }
-      if (c0 < B) *reinterpret_cast<float4*>(red8 + warp * B + c0) = acc;
-      __syncthreads();
-      stamp(sb, 1);
+      const bool more = s + 1 < a.nbg;
       if (warp == 0) {
         float r[kSlots], gi[kSlots], dg[kSlots], tr[kSlots];
 #pragma unroll
         for (int q = 0; q < kSlots; ++q) {
           const int i = kSlots * lane + q;
-          float sum = 0.f;
-          if (i < B)
-            for (int v = 0; v < kS1Warps; ++v) sum += red8[v * B + i];
-          r[q] = sum;
+          r[q] = i < B ? rhs[i] : 0.f;
           gi[q] = dg[q] = tr[q] = 0.f;
         }
         mbar_wait(bar + s % a.wb, (s / a.wb) & 1);   // W_s has landed
-        stamp(sb, 2);
+        if (t0) stamp(sb, 2);
         // two call sites, so that the shared-memory one keeps its rows'
         // loads shared-memory loads (a pointer that may be either is generic)
         if (rows_smem)
@@ -629,30 +775,62 @@ __global__ void __launch_bounds__(kS1Threads, 1) sweep1_kernel(Sweep1Args<XT> a)
           warp_block_draws<MI, NF>(B, Wb + (s % a.wb) * B * B,
                                    a.Pg + static_cast<long long>(s) * B * RP, r, gi, dg, tr,
                                    0.f, 1.f, a.nf);
-        stamp(sb, 6);
+        if (t0) stamp(sb, 6);
         const long long lb = static_cast<long long>(s) * B;
 #pragma unroll
         for (int q = 0; q < kSlots; ++q) {
           const int j = kSlots * lane + q;
           if (j < B) {
-            a.g_out[lb + j] = gi[q];
             a.dg_out[lb + j] = dg[q];
-            a.tr_out[lb + j] = tr[q];
+            dgd[j] = dg[q];
           }
         }
         __syncwarp();
         if (lane == 0) publish(a.flags, a.epoch + s + 1);
-        stamp(sb, 3);
-      } else if (s + 1 < a.nbg) {
-        // under the chain: W_{s+1} by the copy engine, P_{s+1} by cp.async
-        if (threadIdx.x == kWarp && a.wb == 2) stage_w(s + 1);
-        stage_p(s + 1, threadIdx.x - kWarp, kS1Threads - kWarp);
-        cp_async_wait<0>();
+        if (t0) stamp(sb, 3);
+#pragma unroll
+        for (int q = 0; q < kSlots; ++q) {
+          const int j = kSlots * lane + q;
+          if (j < B) {
+            a.g_out[lb + j] = gi[q];
+            a.tr_out[lb + j] = tr[q];
+          }
+        }
+      } else {
+        if (t1) stamp(sb, 0);
+        if (more) {
+          // under the chain: W_{s+1} by the copy engine, P_{s+1} by
+          // cp.async, the next block's W and C into L2, and block s+1's
+          // partials summed as they arrive
+          if (t1) {
+            if (a.wb == 2) stage_w(s + 1);
+            if (s + 2 < a.nbg) {
+              prefetch_l2(a.W + static_cast<size_t>(a.off + s + 2) * B * B,
+                          static_cast<long long>(w_bytes));
+              prefetch_l2(a.C + static_cast<size_t>(a.off + s + 2) * B * B,
+                          static_cast<long long>(w_bytes));
+            }
+          }
+          stage_p(s + 1, threadIdx.x - kWarp, kS1Threads - kWarp);
+          s1_sum_partials(a, red7, s + 1, t1 ? sb : nullptr);
+          cp_async_wait<0>();
+        }
       }
-      __syncthreads();   // dg_s published; P_{s+1} staged
-      if (a.wb == 1 && s + 1 < a.nbg && threadIdx.x == kWarp) stage_w(s + 1);
+      __syncthreads();   // dg_s published and in dgd; block s+1's partials summed; P_{s+1} staged
+      if (more) {
+        if (t1 && a.wb == 1) stage_w(s + 1);
+        if (warp >= 1 && warp <= kS1RhsWarps) {   // rhs_{s+1} by warps 1-4
+          if (a.cb) mbar_wait(bar + 2, s & 1);   // C_{s+1} has landed
+          if (t1) stamp(sb, 15);
+          s1_rhs(a.cb ? Cb : a.C + static_cast<size_t>(a.off + s + 1) * B * B, dgd, red7,
+                 rhs, B);
+        }
+      }
+      __syncthreads();   // rhs_{s+1} formed; C_{s+1} read
+      if (more && a.cb && t1 && s + 2 < a.nbg) stage_c(s + 2);
+      if (t0) stamp(sb, 7);
       if (w.T > 0) s1_rows_step(a, w, s + 1, nullptr);
-      stamp(sb, 4);
+      if (t0) stamp(sb, 4);
     }
   } else {
     for (int s = 1; s <= a.nbg; ++s) s1_rows_step(a, w, s, st_rows);
@@ -1173,10 +1351,10 @@ cudaError_t sweep1_launch(const Sweep1Args<XT>& a, int grid, cudaStream_t stream
     e = cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
   if (e != cudaSuccess) return e;
   const int xb = static_cast<int>(sizeof(XT));
-  const size_t s0 =
-      s1_layout(a.B, RP, a.rpt, xb, s1_tiles(0, grid, a.ntiles), a.nb0, true, a.wb).total;
+  const size_t s0 = s1_layout(a.B, RP, a.rpt, xb, s1_tiles(0, grid, a.ntiles), a.nb0, true,
+                              a.wb, a.cb).total;
   const size_t s1 = grid > 1 ? s1_layout(a.B, RP, a.rpt, xb, s1_tiles(1, grid, a.ntiles),
-                                         a.nbr, false, a.wb).total
+                                         a.nbr, false, a.wb, a.cb).total
                              : 0;
   const size_t smem = s0 > s1 ? s0 : s1;
   if (smem > static_cast<size_t>(optin)) return cudaErrorInvalidValue;
@@ -1297,11 +1475,14 @@ int hb_block_draws(const float* r0t, const float* W, const float* P, int B,
 // W (nb_tot, B, B).  P (nbg, B, R, K) packed rows; yadj, u (K, n) updated in
 // place; g_out, dg_out, track (K, nbg * B) outputs; partial is scratch of
 // ceil(n / rows_per_tile) * K * B floats.
-// K = 1: one sweep1_kernel launch of `grid` CTAs; nb0 and nbr are the X
-// tile buffers of the drawer's and the other CTAs' tiles, wb the drawer's
-// buffers of W (ops/blockgibbs.py:sweep1_plan), flags (1 + ceil(n / rows_per_tile)
+// K = 1: one sweep1_kernel launch of `grid` CTAs; C (nb_tot, B, B) the
+// cross-Grams of consecutive blocks, C[k] = X_k' X_{k-1}, indexed globally
+// like W; nb0 and nbr are the X tile buffers of the drawer's and the other
+// CTAs' tiles (3, 1 or 0), wb and cb the drawer's buffers of W and C
+// (ops/blockgibbs.py:sweep1_plan), flags (1 + ceil(n / rows_per_tile)
 // unsigned, 16-byte aligned) the launch's flags, whose values this sweep
-// takes from epoch + 1 to epoch + nbg.
+// takes from epoch + 1 to epoch + nbg; partial holds 2 ceil(n /
+// rows_per_tile) B floats.
 // K >= 2: (tk, tr, rb, tc) is rows_mc_kernel's register-tile shape
 // (rows_mc_instance).
 // stamps (measurement only; null in use): nbg + 1 records of hb::kStamps.
@@ -1311,28 +1492,29 @@ int hb_sweep_mc(const void* X, int x_int8, const float* W, const float* P,
                 int off, int nbg, int n, int rows_per_tile, int tk, int tr,
                 int rb, int tc, int B, int R, int K, int mi, int nf, float* yadj,
                 float* u, float* g_out, float* dg_out, float* track, float* partial,
-                unsigned* flags, unsigned epoch, int grid, int nb0, int nbr, int wb,
-                long long* stamps, const float* Pg, void* stream) {
+                const float* C, unsigned* flags, unsigned epoch, int grid, int nb0, int nbr,
+                int wb, int cb, long long* stamps, const float* Pg, void* stream) {
   if (!hb::shapes_ok(B, R, K, mi, nf) || n <= 0 || rows_per_tile <= 0 ||
       off < 0 || nbg < 0 || (Pg != nullptr && !hb::global_rows_ok(mi, nf)))
     return cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int shape[4] = {tk, tr, rb, tc};
   if (K == 1) {
-    if (grid < 1 || flags == nullptr || nb0 < 0 || nb0 > 2 || nbr < 0 || nbr > 2 || wb < 1 ||
-        wb > 2)
+    const auto buffers_ok = [](int nb) { return nb == 0 || nb == 1 || nb == 3; };
+    if (grid < 1 || flags == nullptr || C == nullptr || !buffers_ok(nb0) || !buffers_ok(nbr) ||
+        wb < 1 || wb > 2 || cb < 0 || cb > 1)
       return cudaErrorInvalidValue;
     if (nbg == 0) return cudaSuccess;   // nothing to sweep
     const int ntiles = (n + rows_per_tile - 1) / rows_per_tile;
     if (x_int8) {
-      const hb::Sweep1Args<int8_t> a{static_cast<const int8_t*>(X), W, P, off, nbg, n, B,
+      const hb::Sweep1Args<int8_t> a{static_cast<const int8_t*>(X), W, C, P, off, nbg, n, B,
                                      rows_per_tile, ntiles, yadj, u, g_out, dg_out, track,
-                                     partial, flags, epoch, nb0, nbr, wb, stamps, nf, Pg};
+                                     partial, flags, epoch, nb0, nbr, wb, cb, stamps, nf, Pg};
       return hb::sweep1(a, grid, mi, nf, s);
     }
-    const hb::Sweep1Args<float> a{static_cast<const float*>(X), W, P, off, nbg, n, B,
+    const hb::Sweep1Args<float> a{static_cast<const float*>(X), W, C, P, off, nbg, n, B,
                                   rows_per_tile, ntiles, yadj, u, g_out, dg_out, track,
-                                  partial, flags, epoch, nb0, nbr, wb, stamps, nf, Pg};
+                                  partial, flags, epoch, nb0, nbr, wb, cb, stamps, nf, Pg};
     return hb::sweep1(a, grid, mi, nf, s);
   }
   if (x_int8)

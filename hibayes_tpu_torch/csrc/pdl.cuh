@@ -205,4 +205,21 @@ __device__ __forceinline__ void spin_acquire(const unsigned* p, unsigned target)
   }
 }
 
+// Spin until *p has reached `target` (modulo 2^32) by relaxed loads, a
+// short nap between them, then one acquire load: for a reader beside a
+// latency-bound warp of its CTA, which keeps the issue slots and the
+// memory pipe; await's 10 s trap.
+__device__ __forceinline__ void await_nap(const unsigned* p, unsigned target) {
+  long long t0 = 0;
+  for (;;) {
+    unsigned v;
+    asm volatile("ld.relaxed.gpu.global.u32 %0, [%1];" : "=r"(v) : "l"(p) : "memory");
+    if (static_cast<int>(v - target) >= 0) break;
+    __nanosleep(64);
+    if (t0 == 0) t0 = global_ns();
+    else if (global_ns() - t0 > 10000000000LL) __trap();
+  }
+  (void)load_acquire(p);
+}
+
 }  // namespace hb

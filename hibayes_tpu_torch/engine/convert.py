@@ -23,7 +23,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from ..ops.blockgibbs import sub_block_genotype
+from ..ops.blockgibbs import cross_grams, sub_block_genotype
 from .gibbs import (MAX_EPSL_TILE, ChainState, EpslSparse, GibbsData, _build_epsl_sparse,
                     _epsl_layout, genotype_layout, segments)
 from .sgibbs import SChainState, SGibbsData
@@ -80,10 +80,12 @@ def gibbs_data_from_numpy(data, device="cpu") -> GibbsData:
     B = int(X.shape[2])
     X, W = sub_block_genotype(X, W, genotype_layout(B, int(X.shape[1]), X.element_size(),
                                                     int(np.asarray(f["fold"]).shape[0])))
+    C = cross_grams(X, W.dtype)
     return GibbsData(
         y=_t(f["y"], device),
         X_blocks=X,
         W_blocks=W,
+        C_blocks=C,
         xpx=_t(f["xpx"], device),
         vx=_t(f["vx"], device),
         real=_t(f["real"], device, torch.bool),

@@ -237,6 +237,7 @@ class GibbsData(NamedTuple):
     y: torch.Tensor            # (n,)
     X_blocks: torch.Tensor     # (nblocks S, n, W) int8 or float, pad columns 0
     W_blocks: torch.Tensor     # (nblocks S, W, W) each sub-block's Gram matrix
+    C_blocks: torch.Tensor     # (nblocks S, W, W) X_k' X_{k-1}, consecutive sub-blocks (0 first)
     xpx: torch.Tensor          # (m_pad,)
     vx: torch.Tensor           # (m_pad,)
     real: torch.Tensor         # (m_pad,) bool: real (non-padding) SNPs
@@ -386,6 +387,11 @@ def prepare_gibbs_data(
     integer below 4n < 2^24 (TF32 is off), taken over batches of blocks of
     at most GRAM_BATCH_BYTES so that no f32 copy of the whole genotype
     exists; xpx and vx come exactly from diag(W) and the column sums.
+    ``C_blocks`` holds the cross-Grams X_k' X_{k-1} of consecutive kernel
+    blocks (entry 0 zero; a shard's first block too), formed in the same
+    cast batches and dtype as the Gram blocks: a batch is one block smaller
+    than GRAM_BATCH_BYTES allows, since it is formed with the block before
+    it (the one-chain sweep's lookahead reads them).
 
     pad_n="auto" zero-pads the individual axis to a multiple of 512 for
     n > 4096, as the JAX engine does, so arrays and statistics match it;
@@ -471,16 +477,21 @@ def prepare_gibbs_data(
 
     gram_dt = torch.float32 if use_int8 else dtype
     W_blocks = torch.empty((nbk, W, W), dtype=dtype, device=device)
+    C_blocks = torch.empty((nbk, W, W), dtype=dtype, device=device)
     s1 = torch.empty((nbk, W), dtype=gram_dt, device=device)
     xpx = torch.empty((nbk, W), dtype=dtype, device=device)
     vx = torch.empty((nbk, W), dtype=dtype, device=device)
     row_real = (torch.arange(n, device=device) < n_real)[None, :, None]
-    per = max(1, GRAM_BATCH_BYTES // (n * W * gram_dt.itemsize))
+    # a batch is formed with the block before it: one block fewer
+    per = max(1, GRAM_BATCH_BYTES // (n * W * gram_dt.itemsize) - 1)
+    prev = None
     with span("model.gram"):
         for b0 in range(0, nbk, per):
             b1 = min(nbk, b0 + per)
             Xf = X_blocks[b0:b1].to(gram_dt)
             W_blocks[b0:b1] = torch.bmm(Xf.transpose(1, 2), Xf).to(dtype)
+            C_blocks[b0:b1] = blockgibbs.cross_gram_batch(Xf, prev).to(dtype)
+            prev = Xf[-1]
             s1[b0:b1] = Xf.sum(dim=1)
             if not use_int8:
                 # centred two-pass variance: exact 0 for monomorphic columns;
@@ -537,7 +548,7 @@ def prepare_gibbs_data(
     codes_np = None if epsl_codes is None else np.asarray(epsl_codes, dtype=np.int64)
     epsl_segs = segments(codes_np if qe else (), qe_pad, device)
     return GibbsData(
-        y=y_t, X_blocks=X_blocks, W_blocks=W_blocks, xpx=xpx, vx=vx,
+        y=y_t, X_blocks=X_blocks, W_blocks=W_blocks, C_blocks=C_blocks, xpx=xpx, vx=vx,
         real=real, C=C_t, cpc=cpc, r_codes=tuple(codes_t),
         r_counts=tuple(counts_t), r_segs=tuple(segs_t), fold=fold_t, windindx0=wind0,
         K=tensor(K, dtype, (0, 0)), Kval=tensor(Kval, dtype, (0,)),
@@ -1139,19 +1150,19 @@ def _sweep_ind_hybrid_mc(spec: GibbsSpec, consts_b, X_blocks, W_blocks, xpx, vx,
 
 
 def _sweep_local_blocks(spec, consts_b, X, W, xpx, vx, per_chain, yadj, u, mesh,
-                        block_range=None):
+                        block_range=None, C=None):
     """Sweep the SNP blocks this rank holds (or ``block_range`` of them) for
     K chains against (yadj, u): the unit of the turn, pipeline and
     concurrent schedules (``_sweep_local_blocks``,
     hibayes_tpu/engine/gibbs.py:1139).
     ``per_chain`` = (vei, g, z, u, chi, z2, vargL), each (K, m_loc[, nf]).
-    ``sweep_mc`` (TPU kernels 1-5, 8 at K = 1; kernel 2 at K >= 2), or the
-    ind hybrid on a 2-D mesh."""
+    ``sweep_mc`` (TPU kernels 1-5, 8 at K = 1, with the cross-Grams ``C``;
+    kernel 2 at K >= 2), or the ind hybrid on a 2-D mesh."""
     if ind_shard_count(mesh) > 1:
         return _sweep_ind_hybrid_mc(spec, consts_b, X, W, xpx, vx, *per_chain, yadj, u,
                                     mesh=mesh, block_range=block_range)
     return blockgibbs.sweep_mc(spec, consts_b, X, W, xpx, vx, *per_chain, yadj, u,
-                               block_range=block_range)
+                               block_range=block_range, C_blocks=C)
 
 
 def _rows_of(consts_b, rsel):
@@ -1159,7 +1170,7 @@ def _rows_of(consts_b, rsel):
 
 
 def _sweep_pipeline_emu_mc(spec: GibbsSpec, consts_b, X_blocks, W_blocks, xpx, vx, vei_b,
-                           g_b, z_b, u_b, chi_b, z2_b, vargL_b, yadj_b, u_vec_b):
+                           g_b, z_b, u_b, chi_b, z2_b, vargL_b, yadj_b, u_vec_b, C_blocks=None):
     """One-device emulation of the ring-pipeline schedule
     (``_sweep_pipeline_emu_mc``, hibayes_tpu/engine/gibbs.py:1347-1431):
     chain group c (batch rows [c Kg, (c + 1) Kg)) sweeps the S =
@@ -1200,7 +1211,7 @@ def _sweep_pipeline_emu_mc(spec: GibbsSpec, consts_b, X_blocks, W_blocks, xpx, v
             per = tuple(a[rsel, sl] for a in (vei_b, g_b, z_b, u_b, chi_b, z2_b, vargL_b))
             gn, tr, vl, ya, uu, vi_s, vR_s = sweep(
                 spec, consts_c, X_blocks, W_blocks, xpx[sl], vx[sl], *per, ya, uu,
-                block_range=(sblk * nbg, nbg))
+                block_range=(sblk * nbg, nbg), C_blocks=C_blocks)
             vi = vi + vi_s.to(dt)
             vR = vR + vR_s.to(dt)
             pieces[sblk] = (gn.to(dt), tr.to(torch.int32), vl.to(dt))
@@ -1210,7 +1221,8 @@ def _sweep_pipeline_emu_mc(spec: GibbsSpec, consts_b, X_blocks, W_blocks, xpx, v
 
 
 def _sweep_concurrent_emu_mc(spec: GibbsSpec, consts_b, X_blocks, W_blocks, xpx, vx,
-                             vei_b, g_b, z_b, u_b, chi_b, z2_b, vargL_b, yadj_b, u_vec_b):
+                             vei_b, g_b, z_b, u_b, chi_b, z2_b, vargL_b, yadj_b, u_vec_b,
+                             C_blocks=None):
     """One-device emulation of the concurrent schedule
     (``_sweep_concurrent_emu_mc``, hibayes_tpu/engine/gibbs.py:1255-1332)
     with S = ``spec.emulate_shards`` virtual shards and Rm =
@@ -1244,7 +1256,7 @@ def _sweep_concurrent_emu_mc(spec: GibbsSpec, consts_b, X_blocks, W_blocks, xpx,
             per = tuple(a[:, sl] for a in (vei_b, g_b, z_b, u_b, chi_b, z2_b, vargL_b))
             gn, tr, vl, ya2, u2, vi_s, vR_s = blockgibbs.sweep_mc(
                 spec, consts_b, X_blocks, W_blocks, xpx[sl], vx[sl], *per, ya, uu,
-                block_range=(gi * nbg, nbg))
+                block_range=(gi * nbg, nbg), C_blocks=C_blocks)
             dya = dya + (ya2 - ya)
             du = du + (u2 - uu)
             vi = vi + vi_s.to(dt)
@@ -1317,7 +1329,7 @@ def _sweep_snp_sharded_mc(spec: GibbsSpec, data: GibbsData, consts_b, rnd_b, vei
             rsel = slice(c * Kg, (c + 1) * Kg)
             gn, tr, vl, ya, uu, vi_s, vR_s = blockgibbs.sweep_mc(
                 spec, _rows_of(consts_b, rsel), data.X_blocks, data.W_blocks, xpx, vx,
-                *(a[rsel] for a in per), ya, uu)
+                *(a[rsel] for a in per), ya, uu, C_blocks=data.C_blocks)
             g_cur[rsel], tr_cur[rsel], vl_cur[rsel] = gn.to(dt), tr, vl.to(dt)
             vi, vR = vi + vi_s.to(dt), vR + vR_s.to(dt)
             ya, uu, vi, vR = ring_hop((ya, uu, vi, vR), mesh, "snp")
@@ -1340,7 +1352,8 @@ def _sweep_snp_sharded_mc(spec: GibbsSpec, data: GibbsData, consts_b, rnd_b, vei
             rs = slice(r * mg, (r + 1) * mg)
             gn, tr, vl, ya2, u2, vi_s, vR_s = _sweep_local_blocks(
                 spec, consts_b, data.X_blocks, data.W_blocks, xpx[rs], vx[rs],
-                tuple(a[:, rs] for a in per), ya, uu, mesh, block_range=(r * nbg, nbg))
+                tuple(a[:, rs] for a in per), ya, uu, mesh, block_range=(r * nbg, nbg),
+                C=data.C_blocks)
             ya = ya + axis_sum(ya2 - ya, mesh, "snp")
             uu = uu + axis_sum(u2 - uu, mesh, "snp")
             vi, vR = vi + vi_s.to(dt), vR + vR_s.to(dt)
@@ -1352,7 +1365,8 @@ def _sweep_snp_sharded_mc(spec: GibbsSpec, data: GibbsData, consts_b, rnd_b, vei
     for t in range(S):
         if t == s:
             gn, tr, vl, ya, uu, vi, vR = _sweep_local_blocks(
-                spec, consts_b, data.X_blocks, data.W_blocks, xpx, vx, per, ya, uu, mesh)
+                spec, consts_b, data.X_blocks, data.W_blocks, xpx, vx, per, ya, uu, mesh,
+                C=data.C_blocks)
         ya = broadcast(ya, mesh, "snp", t)
         uu = broadcast(uu, mesh, "snp", t)
     gat = lambda x: all_gather(x, mesh, "snp", dim=1)
@@ -1376,13 +1390,13 @@ def _sweep(spec: GibbsSpec, data: GibbsData, pre: dict, g, mesh=None):
         if ind_shard_count(mesh) > 1:
             raise ValueError("shard_schedule='pipeline' does not compose with an "
                              "ind-sharded mesh")
-        return _sweep_pipeline_emu_mc(*args)
+        return _sweep_pipeline_emu_mc(*args, C_blocks=data.C_blocks)
     if (spec.shard_schedule == "concurrent" and spec.emulate_shards > 1
             and ind_shard_count(mesh) <= 1):
-        return _sweep_concurrent_emu_mc(*args)
+        return _sweep_concurrent_emu_mc(*args, C_blocks=data.C_blocks)
     if ind_shard_count(mesh) > 1:
         return _sweep_ind_hybrid_mc(*args, mesh=mesh)
-    return blockgibbs.sweep_mc(*args)
+    return blockgibbs.sweep_mc(*args, C_blocks=data.C_blocks)
 
 
 def _run_sweep_k1(spec: GibbsSpec, data: GibbsData, pre: dict, g, mesh=None):

@@ -78,7 +78,7 @@ import numpy as np
 import torch
 
 from ..math.distributions import inv_gaussian_from
-from ..utils.profiling import spanned
+from ..utils.profiling import count, spanned
 from . import build
 
 F32 = torch.float32
@@ -576,6 +576,38 @@ def sub_block_genotype(X_blocks, W_blocks, sb: SubBlocks) -> tuple:
     return Xk, Wk
 
 
+def cross_gram_batch(Xf, prev=None):
+    """The cross-Grams X_k' X_{k-1} (nb, W, W) of a batch of consecutive
+    kernel blocks Xf (nb, n, W), the first against ``prev`` (n, W), the
+    block before the batch, or zero where there is none (the first block of
+    a genotype or of a shard), in the dtype of Xf."""
+    C = torch.empty((Xf.shape[0],) + (Xf.shape[2],) * 2, dtype=Xf.dtype, device=Xf.device)
+    C[0] = 0.0 if prev is None else Xf[0].T @ prev
+    if Xf.shape[0] > 1:
+        torch.bmm(Xf[1:].transpose(1, 2), Xf[:-1], out=C[1:])
+    return C
+
+
+def cross_grams(X_blocks, dtype=F32, batch_bytes: int = 1 << 30):
+    """C (nb S, W, W), C[k] = X_k' X_{k-1} over consecutive kernel blocks of
+    a genotype in the sweeps' layout (C[0] zero), in ``dtype``, cast in
+    batches of at most ``batch_bytes`` (``prepare_gibbs_data`` makes the
+    same as ``GibbsData.C_blocks``).  Made once per genotype tensor for a
+    one-chain sweep called without them (:func:`_layout`)."""
+    def make():
+        nbk, n, W = X_blocks.shape
+        per = max(1, batch_bytes // (n * W * torch.finfo(dtype).bits // 8) - 1)
+        C = torch.empty((nbk, W, W), dtype=dtype, device=X_blocks.device)
+        prev = None
+        for b0 in range(0, nbk, per):
+            Xf = X_blocks[b0:b0 + per].to(dtype)
+            C[b0:b0 + per] = cross_gram_batch(Xf, prev)
+            prev = Xf[-1]
+        return C
+
+    return _layout((X_blocks,), ("cross", dtype), make)
+
+
 def sub_block_segment(LD_seg, sb: SubBlocks):
     """A dense LD segment (nb B, nb B) in the kernels' layout (nb S W, nb S
     W), pad rows and columns zero: the segment itself where S W = B (its
@@ -657,17 +689,17 @@ def _chain_groups(C: int, G: int) -> list:
 
 
 def rows_per_tile(n: int, device, K: int = 1) -> int:
-    """Rows of n per row tile of the sweep: about one tile per SM
-    (``device`` a CUDA device, or its SM count), so every SM takes part in
-    each block's row work.  A chain's partial sums follow the tiling, so
-    the one-chain sweep keeps the tiling of the two-launch sweep it
-    replaced (its outputs are bit for bit that sweep's).  The K-chain kernel's tiles are a multiple of
-    MC_CHUNK_ROWS rows and the same for every K >= 2, so that they do not
-    depend on K."""
+    """Rows of n per row tile of the sweep (``device`` a CUDA device, or its
+    SM count).  One chain: about one tile per SM but the drawer's, so every
+    other SM takes part in each block's row work and the drawer, which owns
+    no tile, keeps W, C and the packed rows in its shared memory (a chain's
+    partial sums follow the tiling).  The K-chain kernel's tiles, about one
+    per SM, are a multiple of MC_CHUNK_ROWS rows and the same for every
+    K >= 2, so that they do not depend on K."""
     sms = (device if isinstance(device, int)
            else torch.cuda.get_device_properties(device).multi_processor_count)
     if K == 1:
-        return max(MIN_TILE_ROWS, -(-n // sms))
+        return max(MIN_TILE_ROWS, -(-n // max(sms - 1, 1)))
     return -(-n // (sms * MC_CHUNK_ROWS)) * MC_CHUNK_ROWS
 
 
@@ -697,15 +729,16 @@ def sweep1_tiles(c: int, grid: int, ntiles: int) -> range:
 
 
 def sweep1_smem(B: int, R: int, rpt: int, xbytes: int, T: int, nb: int, drawer: bool,
-                wb: int = 2, rows_smem: bool = True) -> int:
+                wb: int = 2, rows_smem: bool = True, cb: int = 1) -> int:
     """Shared memory bytes of a sweep1_kernel CTA (csrc/blockgibbs.cu
-    s1_layout): the drawer's two mbarriers, ``wb`` buffers of W, the packed
-    rows double-buffered at padded_stride and eight warps' sums; for T row
-    tiles of ``rpt`` rows, yadj and u of its rows (each padded to 4
-    floats), dg of the block before, the 32 row classes' sums and ``nb`` X
-    tile buffers a tile."""
+    s1_layout): the drawer's three mbarriers, ``wb`` buffers of W and
+    ``cb`` of C, the packed rows double-buffered at padded_stride, seven
+    warps' sums, dg and the next right-hand side; for T row tiles of
+    ``rpt`` rows, yadj and u of its rows (each padded to 4 floats), dg of
+    the block before, the 32 row classes' sums and ``nb`` X tile buffers a
+    tile."""
     RS = padded_stride(R) if rows_smem else 0
-    draw = 4 * (4 + wb * B * B + 2 * B * RS + 8 * B) if drawer else 0
+    draw = 4 * (8 + (wb + cb) * B * B + 2 * B * RS + 9 * B) if drawer else 0
     yu = -(-(T * rpt) // 4) * 4
     rows = 4 * (2 * yu + (S1_CLASSES + 1) * B) + T * nb * rpt * B * xbytes if T > 0 else 0
     return draw + rows
@@ -713,38 +746,40 @@ def sweep1_smem(B: int, R: int, rpt: int, xbytes: int, T: int, nb: int, drawer: 
 
 def sweep1_plan(n: int, B: int, R: int, xbytes: int, sms: int,
                 optin: int = SMEM_OPTIN, rows_smem: bool = True) -> dict:
-    """The persistent one-chain sweep's launch: the parent's row tiles
-    (:func:`rows_per_tile` at K = 1: about one per SM), a grid of one CTA
-    per tile plus the drawer, at most one CTA per SM (every CTA must be
-    resident); and how many X buffers each tile gets in shared memory
-    (``nbr`` for the other CTAs' tiles, ``nb0`` for the drawer's): 2 holds
-    X_b and X_{b+1} (the correction's and the partials'), 1 holds X_b (the
-    correction's) and reads X_{b+1} from global memory after an L2
-    prefetch, 0 reads both from global memory.  The drawer keeps two
-    buffers of W (``wb``: W_{b+1} lands under block b's chain) unless one
-    buffer lets its own tile hold more X (W_{b+1} then lands under the row
-    work that follows the chain).  ``rows_smem`` False: the drawer reads the
-    packed rows from global memory.  Returns rpt, ntiles, grid, nb0, nbr, wb
-    and smem (bytes a CTA)."""
+    """The persistent one-chain sweep's launch: its row tiles
+    (:func:`rows_per_tile` at K = 1: about one per SM but the drawer's), a
+    grid of one CTA per tile plus the drawer, at most one CTA per SM (every
+    CTA must be resident); and how many X buffers each tile gets in shared
+    memory (``nbr`` for the other CTAs' tiles, ``nb0`` for the drawer's,
+    where it owns any): 3 holds X_{b-1}, X_b and X_{b+1} (step b's
+    correction's, the next correction's and its partials'), 1 holds X_{b-1}
+    and reads X_{b+1} from global memory after an L2 prefetch, 0 reads both
+    from global memory.  The drawer keeps two buffers of W (``wb``: W_{b+1}
+    lands under block b's chain) and one of the cross-Gram C (``cb``:
+    C_{b+1} lands there too), in that order of preference, where they fit
+    beside its own tiles' X; else W_{b+1} lands after the chain and C is
+    read from L2.  ``rows_smem`` False: the drawer reads the packed rows
+    from global memory.  Returns rpt, ntiles, grid, nb0, nbr, wb, cb and
+    smem (bytes a CTA)."""
     rpt = rows_per_tile(n, sms, 1)
     ntiles = -(-n // rpt)
     grid = min(1 + ntiles, sms)
     t0 = len(sweep1_tiles(0, grid, ntiles))
     tc = len(sweep1_tiles(1, grid, ntiles)) if grid > 1 else 0
-    def buffers(T, drawer, wb=2):
-        return next((nb for nb in (2, 1)
-                     if sweep1_smem(B, R, rpt, xbytes, T, nb, drawer, wb, rows_smem) <= optin),
-                    0)
+    def fits(T, nb, drawer, wb=2, cb=1):
+        return sweep1_smem(B, R, rpt, xbytes, T, nb, drawer, wb, rows_smem, cb) <= optin
 
-    nbr = buffers(tc, False)
-    nb0, wb = max((buffers(t0, True, wb), wb) for wb in (2, 1))
-    smem = max(sweep1_smem(B, R, rpt, xbytes, t0, nb0, True, wb, rows_smem),
+    nbr = next((nb for nb in (3, 1) if fits(tc, nb, False)), 0)
+    options = [(nb, wb, cb) for nb in ((3, 1, 0) if t0 else (0,)) for wb in (2, 1)
+               for cb in (1, 0)]
+    nb0, wb, cb = next((o for o in options if fits(t0, o[0], True, o[1], o[2])), options[-1])
+    smem = max(sweep1_smem(B, R, rpt, xbytes, t0, nb0, True, wb, rows_smem, cb),
                sweep1_smem(B, R, rpt, xbytes, tc, nbr, False) if grid > 1 else 0)
     if smem > optin:
         raise ValueError(f"sweep_mc: a one-chain sweep at n={n}, B={B} needs {smem} bytes "
                          f"of shared memory a CTA, more than the {optin} the card has")
     return {"rpt": rpt, "ntiles": ntiles, "grid": grid, "nb0": nb0, "nbr": nbr, "wb": wb,
-            "smem": smem}
+            "cb": cb, "smem": smem}
 
 
 # the flags of the one-chain sweep on each device: 1 + ntiles unsigned
@@ -931,11 +966,12 @@ def sweep_blocks(spec, consts_b, X_blocks, W_blocks, xpx, vx, vei_b, g_b, z_b, u
 
 def sweep_mc_plain(spec, consts_b, X_blocks, W_blocks, xpx, vx, vei_b, g_b,
                    z_b, u_b, chi_b, z2_b, vargL_b, yadj_b, u_vec_b,
-                   block_range=None):
+                   block_range=None, C_blocks=None):
     """Plain version of :func:`sweep_mc`, in the dtype of ``yadj_b``, by the
     same sub-blocks (:func:`mc_layout`): :func:`sweep_blocks` with the
     plain draws.  On the CPU it takes the role of the JAX engine's
-    ``_sweep_xla``."""
+    ``_sweep_xla``.  ``C_blocks`` is taken and not read: each block's
+    right-hand side is formed from the residual after the block before."""
     sweep_mc_plain.calls += 1
     return sweep_blocks(spec, consts_b, X_blocks, W_blocks, xpx, vx, vei_b, g_b, z_b, u_b,
                         chi_b, z2_b, vargL_b, yadj_b, u_vec_b,
@@ -948,7 +984,7 @@ sweep_mc_plain.calls = 0
 @spanned("ops.sweep_mc")
 def sweep_mc(spec, consts_b, X_blocks, W_blocks, xpx, vx, vei_b, g_b, z_b,
              u_b, chi_b, z2_b, vargL_b, yadj_b, u_vec_b, block_range=None,
-             stamps=None):
+             stamps=None, C_blocks=None):
     """Fused K-chain sweep; the contract of ``sweep_mc_t``
     (hibayes_tpu/ops/blockgibbs.py:695-764).
 
@@ -964,7 +1000,14 @@ def sweep_mc(spec, consts_b, X_blocks, W_blocks, xpx, vx, vei_b, g_b, z_b,
     On the card one chain (K = 1) is one persistent launch of
     ``sweep1_kernel`` (:func:`sweep1_plan`; its flags run on across sweeps
     on each device, so two one-chain sweeps must not run at once on one
-    device); K >= 2 chains two launches a (sub-)block.
+    device), which forms each block's right-hand side one block ahead and
+    corrects it by the cross-Gram of consecutive blocks: ``C_blocks`` (nb_tot
+    S, W, W), C[k] = X_k' X_{k-1}, indexed globally like W
+    (``GibbsData.C_blocks``; made once per X where not given,
+    :func:`cross_grams`); it counts ``ops.sweep1.blocks`` (blocks launched)
+    and ``ops.sweep1.lookahead`` (blocks whose right-hand side the lookahead
+    formed: all but a launch's first).  K >= 2 chains two launches a
+    (sub-)block (``C_blocks`` unused).
     ``stamps`` (measurement only, on the card): an int64 tensor of at least
     16 (nbg S + 1) entries that gets, for each kernel block, %globaltimer ns at the
     stages of the sweep (csrc/blockgibbs.cu kStamps: at K = 1 the drawer's
@@ -1015,7 +1058,8 @@ def sweep_mc(spec, consts_b, X_blocks, W_blocks, xpx, vx, vei_b, g_b, z_b,
     track_f = torch.empty((K, m_loc), dtype=F32, device=dev)
     tile = rows_per_tile(n, dev, K)
     ntiles = -(-n // tile)
-    partial = torch.empty((ntiles, K, Bk), dtype=F32, device=dev)
+    # one chain: two halves, block b's partials in half b mod 2
+    partial = torch.empty((2 if K == 1 else 1, ntiles, K, Bk), dtype=F32, device=dev)
     if stamps is not None and (stamps.dtype != torch.int64 or stamps.device != dev
                                or stamps.numel() < 16 * (nbg + 1)):
         raise ValueError("sweep_mc: stamps must be int64 on the card, 16 per block + 16")
@@ -1025,11 +1069,17 @@ def sweep_mc(spec, consts_b, X_blocks, W_blocks, xpx, vx, vei_b, g_b, z_b,
                            props.multi_processor_count,
                            getattr(props, "shared_memory_per_block_optin", SMEM_OPTIN),
                            rows_smem=not sb.rows_global)
+        C = cross_grams(X_blocks) if C_blocks is None else C_blocks
+        if C.dtype != F32 or tuple(C.shape) != (nbk, Bk, Bk) or C.device != dev:
+            raise ValueError("sweep_mc: C_blocks must be float32 (nb_tot S, W, W) on X's device")
+        C = C.contiguous()
         fl = _sweep1_flags(dev, ntiles)
-        one = (fl["flags"].data_ptr(), fl["epoch"] & 0xFFFFFFFF, plan["grid"], plan["nb0"],
-               plan["nbr"], plan["wb"])
+        one = (C.data_ptr(), fl["flags"].data_ptr(), fl["epoch"] & 0xFFFFFFFF, plan["grid"],
+               plan["nb0"], plan["nbr"], plan["wb"], plan["cb"])
+        count("ops.sweep1.blocks", nbg)
+        count("ops.sweep1.lookahead", max(nbg - 1, 0))
     else:
-        fl, one = None, (None, 0, 0, 0, 0, 0)
+        fl, one = None, (None, None, 0, 0, 0, 0, 0, 0)
     code = lib.hb_sweep_mc(
         X_blocks.data_ptr(), int(X_blocks.dtype == torch.int8), W.data_ptr(),
         P_blocks.data_ptr(), off, nbg, n, tile,

@@ -97,8 +97,8 @@ def library(source: str = SOURCES[0]) -> ctypes.CDLL:
     if source == "blockgibbs.cu":
         lib.hb_block_draws.argtypes = [_P, _P, _P, _I, _I, _I, _I, _I, _P, _P, _P, _P]
         lib.hb_block_draws.restype = _I
-        lib.hb_sweep_mc.argtypes = ([_P, _I, _P, _P] + [_I] * 13 + [_P] * 7
-                                    + [ctypes.c_uint, _I, _I, _I, _I, _P, _P, _P])
+        lib.hb_sweep_mc.argtypes = ([_P, _I, _P, _P] + [_I] * 13 + [_P] * 8
+                                    + [ctypes.c_uint] + [_I] * 5 + [_P] * 3)
         lib.hb_sweep_mc.restype = _I
         lib.hb_launch_counts.argtypes = [ctypes.POINTER(ctypes.c_longlong)] * 3
         lib.hb_launch_counts.restype = None

@@ -184,7 +184,8 @@ def shard_gibbs_data(data, mesh: Mesh, spec=None):
     """This rank's part of a GibbsData (engine/gibbs.py): rows of y, X, C,
     the factor codes, K and epsl_yJ over ``ind``, and the segments of the
     sums by level over the rows kept (``engine.gibbs.segments``); the SNP
-    blocks of X and W over ``snp`` where the axis divides the blocks (else
+    blocks of X, W and the cross-Grams C over ``snp`` where the axis divides
+    the blocks, C's first entry zero as a shard's own set-up makes it (else
     they stay whole and the sweep runs replicated on the axis); the rest
     replicated.
     ``prepare_gibbs_data`` is run alike on every rank and this cuts it, as
@@ -206,6 +207,10 @@ def shard_gibbs_data(data, mesh: Mesh, spec=None):
         b0 = mesh.index("snp") * nbl
     X = data.X_blocks[b0 * sub:(b0 + nbl) * sub, r0:r0 + nr].contiguous()
     Wb = data.W_blocks[b0 * sub:(b0 + nbl) * sub].contiguous()
+    Cb = data.C_blocks[b0 * sub:(b0 + nbl) * sub]
+    if b0 > 0:   # a shard's first block follows none of its own
+        Cb = Cb.clone()
+        Cb[0] = 0.0
     cut = (lambda t: _rows(t, r0, nr)) if rows else (lambda t: t)
     part = {}
     if rows and nr != n:
@@ -219,7 +224,7 @@ def shard_gibbs_data(data, mesh: Mesh, spec=None):
         part["epsl_segs"] = segments(data.epsl_codes[c0:c0 + nr - t0],
                                      int(data.epsl_counts.shape[0]), dev)
     return data._replace(
-        y=cut(data.y), X_blocks=X, W_blocks=Wb, C=cut(data.C),
+        y=cut(data.y), X_blocks=X, W_blocks=Wb, C_blocks=Cb, C=cut(data.C),
         r_codes=tuple(cut(c) for c in data.r_codes),
         K=cut(data.K), epsl_yJ=cut(data.epsl_yJ), **part)
 

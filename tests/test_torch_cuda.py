@@ -769,11 +769,12 @@ def test_chain_latency_and_stamps(dev):
 @pytest.mark.parametrize("int8", [True, False], ids=["int8", "f32"])
 @pytest.mark.parametrize("n", [4096, 9001, 50_176, 131_072])
 def test_one_chain_sweep_shapes(n, int8, B, model, dev):
-    """sweep_mc at K = 1 (one sweep1 launch) against its plain version at the
-    kernel bar, over the whole range and an offset block range, and
-    bit-identical on a second launch; n=9,001 unpadded leaves the last row
-    tile ragged; at n=50,176 the drawer owns a tile, at n=131,072 X_b is
-    read again from global memory."""
+    """sweep_mc at K = 1 (one sweep1 launch, the right-hand side one block
+    ahead) against its plain version at the kernel bar, over the whole
+    range and an offset block range, and bit-identical on a second launch;
+    n=9,001 unpadded leaves the last row tile ragged; at n=50,176 every row
+    CTA holds three X tiles (int8), at n=131,072 X_{b+1} is read from
+    global memory."""
     spec, args = _inputs(model, dev, K=1, n=n, m=384, B=B, int8=int8, pad_n=False)
     TB.reset_kernel_launches()
     out = TB.sweep_mc(spec, *args)
@@ -792,6 +793,62 @@ def test_one_chain_sweep_shapes(n, int8, B, model, dev):
     assert all(torch.equal(a, b) for a, b in zip(out, TB.sweep_mc(
         spec, consts, X, W, xpx[cols], vx[cols], *loc, per[7], per[8],
         block_range=(off, nbg))))
+
+
+@pytest.mark.parametrize("int8,B", [(True, 128), (False, 64), (True, 256)],
+                         ids=["int8_B128", "f32_B64", "int8_B256"])
+def test_one_chain_sweep_from_mid_sweep(int8, B, dev):
+    """A one-chain block range that starts mid-sweep (blocks 3 .. 8 of 10 at
+    n=50,176; at B=256, sub-blocks of 128): its first block's right-hand
+    side takes no correction, the others C indexed globally; against the
+    plain version at the bar, bit-identical on a second launch, and the same
+    with the cross-Grams passed as prepare_gibbs_data makes them."""
+    spec, args = _inputs("BayesR", dev, K=1, n=50_176, m=10 * B, B=B, int8=int8, pad_n=False)
+    consts, X, W, xpx, vx, *per = args
+    off, nbg = 3, 6
+    cols = slice(off * B, (off + nbg) * B)
+    part = (consts, X, W, xpx[cols], vx[cols], *(a[:, cols] for a in per[:7]), per[7], per[8])
+    out = TB.sweep_mc(spec, *part, block_range=(off, nbg))
+    S = X.shape[0] // 10
+    ref = TB.sweep_mc_plain(spec, consts, X[off * S:(off + nbg) * S], W[off * S:(off + nbg) * S],
+                            *part[3:])
+    _assert_bar(ref, out)
+    again = TB.sweep_mc(spec, *part, block_range=(off, nbg), C_blocks=TB.cross_grams(X))
+    assert all(torch.equal(a, b) for a, b in zip(out, again))
+
+
+def test_one_chain_iteration_emulated_on_four_shards(dev, monkeypatch):
+    """One chain's iteration under the concurrent schedule emulated on four
+    shards (GibbsSpec(emulate_shards=4): four sweep1 launches of a quarter
+    of the blocks each, from the round-start residual, with the cross-Grams
+    of GibbsData) against the same iteration through the plain sweep, at
+    the kernel bar; bit-identical on a second run."""
+    rng = np.random.default_rng(21)
+    n, m, B = 6000, 16 * 64, 64
+    M = rng.binomial(2, 0.3, size=(n, m)).astype(np.int8)
+    y = M[:, :40] @ rng.normal(0, 0.2, 40) + rng.normal(size=n)
+    pi, fold = _fold_prior(4)
+    data = TG.prepare_gibbs_data(y, M, block=B, fold=fold, geno_dtype="int8",
+                                 nblocks_multiple=4, device=dev)
+    pr = TG.resolve_priors(y, float(data.vx.sum()), pi[0], nr=0)
+    spec = TG.GibbsSpec(
+        model="BayesR", n=int(data.y.shape[0]), n_real=n, m=m, m_pad=int(data.xpx.shape[0]),
+        block=B, nc=0, nlevels=(), n_fold=4, niter=10, nburn=5, thin=5,
+        nvar0=int((data.vx[:m] == 0).sum()), dfvara=pr.dfvara, s2vara=pr.s2vara,
+        dfvare=pr.dfvare, s2vare=pr.s2vare, s2varg=pr.s2varg,
+        lambda_rate0=pr.lambda_rate0, shard_schedule="concurrent", emulate_shards=4)
+    state = TG.init_state(spec, data, pr, pi)
+    for _ in range(3):
+        state = TG.one_iteration(spec, data, 1, state)
+    TB.reset_kernel_launches()
+    kern = TG.one_iteration(spec, data, 1, state)
+    assert TB.kernel_launches()["sweep1"] == 4
+    assert all(torch.equal(a, b) for a, b in zip(
+        kern, TG.one_iteration(spec, data, 1, state)) if isinstance(a, torch.Tensor))
+    monkeypatch.setattr(TB, "sweep_mc", TB.sweep_mc_plain)
+    plain = TG.one_iteration(spec, data, 1, state)
+    monkeypatch.undo()
+    _assert_bar((plain.g, plain.track, None, plain.yadj), (kern.g, kern.track, None, kern.yadj))
 
 
 def test_one_chain_sweeps_of_other_shapes_in_turn(dev):
@@ -852,18 +909,27 @@ def test_guard_out_of_line_path(model, dev):
 
 
 def test_one_chain_sweep_stamps(dev):
-    """The one-chain sweep's stamps (drawer: partials waited for and summed,
-    chain started and dg published; the first rows CTA: waited for dg,
-    worked) are ordered in time, block after block."""
+    """The one-chain sweep's stamps (drawer: chain started, drawn, dg
+    published, then block b+1's partials summed and rhs_{b+1} formed; its
+    summing warps: flags seen, partials summed; the first rows CTA: waited
+    for dg, corrected, formed the partials one block ahead) are ordered in
+    time, block after block."""
     spec, args = _inputs("BayesR", dev, K=1, n=9001, m=512, B=128, pad_n=False)
     nbg = spec.nblocks
     stamps = torch.zeros(16 * (nbg + 1), dtype=torch.int64, device=dev)
     TB.sweep_mc(spec, *args, stamps=stamps)
     st = stamps.cpu().numpy().reshape(nbg + 1, 16)
-    assert (st[:nbg, 0:5] > 0).all() and (np.diff(st[:nbg, 0:5], axis=1) >= 0).all()
-    assert (np.diff(st[:, 8:11], axis=1) >= 0).all()
-    assert (np.diff(st[:nbg, 0]) > 0).all()
+    chain = st[:nbg][:, [2, 6, 3, 7, 4]]
+    assert (chain > 0).all() and (np.diff(chain, axis=1) >= 0).all()
+    rhs = st[:nbg - 1][:, [3, 15, 7]]   # dg out; the sums and C in; rhs formed
+    assert (rhs > 0).all() and (np.diff(rhs, axis=1) >= 0).all()
+    sums = st[:nbg - 1][:, [0, 5, 14, 15]]
+    assert (sums > 0).all() and (np.diff(sums, axis=1) >= 0).all()
+    assert (np.diff(st[:, [8, 9, 11, 10]], axis=1) >= 0).all()
+    assert (np.diff(st[:nbg, 3]) > 0).all() and (np.diff(st[:nbg, 0]) > 0).all()
     assert (st[1:, 9] >= st[:nbg, 3]).all()   # a row step starts after dg is published
+    # block b+1's partials (row step b) are out before chain b+1 starts
+    assert (st[1:nbg - 1, 10] <= st[2:nbg, 2]).all()
 
 
 # ---------------------------------------------------------------------------

@@ -35,7 +35,9 @@ def _assert_data_equal(ref, out, int8):
     """Every field of the port's GibbsData equal to JAX's, the genotype and
     its Gram blocks laid out in the port's sub-blocks; the port's own
     segments of the sums by level are the stable sort order and the level
-    counts of JAX's codes, every row held (padded ones in level 0)."""
+    counts of JAX's codes, every row held (padded ones in level 0); the
+    port's own cross-Grams of consecutive sub-blocks are the float64
+    products of its genotype's."""
     assert out.block == np.asarray(ref.X_blocks).shape[2]
     lay = TB.sub_block_genotype(torch.from_numpy(np.array(ref.X_blocks)),
                                 torch.from_numpy(np.array(ref.W_blocks)),
@@ -46,8 +48,12 @@ def _assert_data_equal(ref, out, int8):
         np.testing.assert_array_equal(np.diff(seg.offsets.numpy()),
                                       np.bincount(c, minlength=np.asarray(k).shape[0]))
         assert seg.offsets[0] == 0 and seg.offsets[-1] == c.shape[0]
+    Xd = out.X_blocks.to(torch.float64)
+    assert float(out.C_blocks[0].abs().max()) == 0.0
+    assert torch.equal(out.C_blocks[1:].to(torch.float64),
+                       torch.bmm(Xd[1:].transpose(1, 2), Xd[:-1]))
     for name in TG.GibbsData._fields:
-        if name in ("block", "r_segs", "epsl_segs"):
+        if name in ("block", "r_segs", "epsl_segs", "C_blocks"):
             continue
         r, o = getattr(ref, name), getattr(out, name)
         if name in ("X_blocks", "W_blocks"):

@@ -2,8 +2,8 @@
 own SNP columns alone (parallel/mesh.py:SnpShard), on gloo ranks on the CPU.
 
 (a) The set-up of a rank's columns (``prepare_gibbs_data(SnpShard,
-mesh=...)``) against the whole set-up cut by ``shard_gibbs_data``: X_blocks
-and W_blocks equal, xpx, vx and the real mask gathered whole, bit for bit,
+mesh=...)``) against the whole set-up cut by ``shard_gibbs_data``: X_blocks,
+W_blocks and C_blocks equal, xpx, vx and the real mask gathered whole, bit for bit,
 for an int8 genotype in blocks of 16 (n=600 x m=2,000: 125 blocks padded to
 128, the last rank holding 464 columns) and a float64 one.  (b) A 4-chain
 ring pipeline (``run_chains``, float32 with a resync every 5 iterations)
@@ -75,7 +75,9 @@ def test_column_ranges_are_whole_blocks():
 @pytest.mark.parametrize("layout", ["int8", "float64"])
 def test_shard_setup_is_the_whole_setups_cut(outs, layout):
     """(a) Each rank's set-up of its columns equals the whole set-up cut
-    for that rank, bit for bit; xpx, vx and real are whole on every rank."""
+    for that rank, bit for bit; xpx, vx and real are whole on every rank;
+    its cross-Grams are the float64 products of its own blocks, the first
+    zero (it follows none of the rank's blocks)."""
     res, _ = outs
     for r in res:
         for f, (whole, part) in r["layout"][layout].items():

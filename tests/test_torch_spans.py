@@ -366,3 +366,27 @@ def test_iterations_make_no_host_sync():
     assert syncs, "the trace holds the chain's closing synchronise"
     inside = [e["name"] for e in syncs if any(a <= e["ts"] <= b for a, b in its)]
     assert inside == []
+
+
+@pytest.mark.gpu
+def test_one_chain_sweeps_count_their_lookahead():
+    """On the card: each one-chain sweep counts its kernel blocks launched
+    (ops.sweep1.blocks, nbg) and the blocks whose right-hand side the
+    lookahead formed (ops.sweep1.lookahead, nbg - 1) in its ops.sweep_mc
+    span; a four-chain sweep counts neither; sweep1_lookahead_pct reads
+    100 (nbg - 1) / nbg of a chain's iterations."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    spec, data, pr, pi = ibrm(niter=4, device="cuda")
+    nbg = data.X_blocks.shape[0]
+    TG.run_chain(spec, data, pr, pi, seed=4)   # builds and loads the kernels
+    _, recs, _ = traced(lambda: (TG.run_chain(spec, data, pr, pi, seed=4),
+                                 TG.run_chains(spec, data, pr, pi, seed=4, nchains=4)))
+    counts = [r.counts or {} for r in recs if r.name == "ops.sweep_mc"]
+    assert len(counts) == 2 * spec.niter_eff
+    one, four = counts[:spec.niter_eff], counts[spec.niter_eff:]
+    assert all(c == {"ops.sweep1.blocks": nbg, "ops.sweep1.lookahead": nbg - 1} for c in one)
+    assert all("ops.sweep1.blocks" not in c and "ops.sweep1.lookahead" not in c for c in four)
+    blocks = sum(c.get("ops.sweep1.blocks", 0) for c in counts)
+    ahead = sum(c.get("ops.sweep1.lookahead", 0) for c in counts)
+    assert 100.0 * ahead / blocks == pytest.approx(100.0 * (nbg - 1) / nbg)

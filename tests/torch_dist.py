@@ -380,7 +380,11 @@ def _snp_shard_layout(mesh, p):
         part = TG.prepare_gibbs_data(y, SnpShard(Mg[:, c0:c0 + cnt], c0, M.shape[1]),
                                      mesh=mesh, **kw)
         out[name] = {f: (getattr(whole, f).numpy(), getattr(part, f).numpy())
-                     for f in ("X_blocks", "W_blocks", "xpx", "vx", "real")}
+                     for f in ("X_blocks", "W_blocks", "C_blocks", "xpx", "vx", "real")}
+        Xd = part.X_blocks.to(torch.float64)
+        ref = torch.zeros_like(part.C_blocks, dtype=torch.float64)
+        ref[1:] = torch.bmm(Xd[1:].transpose(1, 2), Xd[:-1])
+        out[name]["C_blocks_float64"] = (ref.numpy(), part.C_blocks.to(torch.float64).numpy())
     return out
 
 
