@@ -58,8 +58,10 @@ Phases, each printing as it goes:
      method="BayesR") on one chain at n=50,000 x m=65,536 (int8 genotype made
      on the card, h2=0.5 from 500 causal SNPs), niter=200, nburn=100,
      thin=5; checks that the sweep ran through the kernels only (each CUDA
-     kernel's launch count, kept by the library where it launches, is what
-     the chain needs, and no plain version ran), finite 0 < h2 < 1, and the
+     kernel's launch count, the ``ops.launch.<kernel>`` counter added where
+     it launches, is what the chain needs, and no plain version ran; counted
+     with no profiler recording, so the timed fit runs as it does uncounted),
+     finite 0 < h2 < 1, and the
      GEBV accuracy against the simulated truth;
   4b. the same fit with nchains=4 (after a torch.profiler split of the
      batch's iteration): launches through the K-chain rows kernel only,
@@ -222,7 +224,10 @@ Any failed check raises, so the script exits non-zero and prints no result.
 from __future__ import annotations
 
 import argparse
+import contextlib
+import functools
 import gc
+import inspect
 import json
 import os
 import shutil
@@ -502,6 +507,14 @@ def host_ms(torch, fn):
     t = 1e3 * (time.perf_counter() - t0)
     torch.cuda.synchronize()
     return t
+
+
+def kept(sweep, *args, **kw):
+    """A call of ``sweep`` on these inputs, to repeat, with one plans dict
+    across its calls, as the engine passes its data's: a timed loop times
+    the sweeps, never the layouts they make at their first call."""
+    plans = {}
+    return lambda: sweep(*args, plans=plans, **kw)
 
 
 def cuda_ms(torch, fn, reps):
@@ -821,7 +834,7 @@ def time_kernels(torch, TG, TB, dev, M, y, B, errs, nbg=16):
         raise AssertionError(f"{what}: two runs differ (not deterministic)")
     log(f"  ok {what}")
     t = {}
-    t["sweep_mc_k4"] = cuda_ms(torch, lambda: TB.sweep_mc(*part4, block_range=(0, nbg)), 10)
+    t["sweep_mc_k4"] = cuda_ms(torch, kept(TB.sweep_mc, *part4, block_range=(0, nbg)), 10)
     t["sweep_mc_k4_split"] = sweep_split(torch, TB, spec, part4, nbg)
     # torch.matmul of the K=4 sweep's two products per block, (4, n) x (n, B)
     # and (4, B) x (B, n) in float32: the library yardstick at this K
@@ -839,11 +852,11 @@ def time_kernels(torch, TG, TB, dev, M, y, B, errs, nbg=16):
     # and X_b dg per block on a float32 copy of the int8 blocks
     t["sweep_mc_library"] = cuda_ms(torch, mv_products(torch, Xf, per[7][0], B), 10)
     del Xf
-    t["sweep_mc"] = cuda_ms(torch, lambda: TB.sweep_mc(*part, block_range=(0, nbg)), 10)
+    t["sweep_mc"] = cuda_ms(torch, kept(TB.sweep_mc, *part, block_range=(0, nbg)), 10)
     t["sweep_mc_split"] = sweep_split(torch, TB, spec, part, nbg)
     t["sweep_mc_plain"] = cuda_ms(
         torch, lambda: TB.sweep_mc_plain(*part, block_range=(0, nbg)), 2)
-    t["sweep_full"] = cuda_ms(torch, lambda: TB.sweep_mc(spec, *args), 3)
+    t["sweep_full"] = cuda_ms(torch, kept(TB.sweep_mc, spec, *args), 3)
     P = TB.pack_rows(spec, consts, xpx, vx, per[0], per[1], per[2], per[3],
                      per[4], per[6], torch.float32)
     P_b = TB.to_block_layout(P, spec.nblocks, B)[0].contiguous()
@@ -967,14 +980,23 @@ def check_kernels_mc(torch, TG, TB, dev, errs, n=4096, m=1024, B=128):
 class plain_route:
     """Within it ``TB.<name>`` is its plain version, so a schedule built on
     the wrapper (an emulation, a mesh's rounds) runs its plain counterpart
-    on the same tensors: only to hold a kernel path against it."""
+    on the same tensors: only to hold a kernel path against it.  The
+    wrapper's keywords that the plain version does not take (those only
+    the card's route reads) are dropped."""
 
     def __init__(self, TB, name):
         self.TB, self.name = TB, name
 
     def __enter__(self):
         self.real = getattr(self.TB, self.name)
-        setattr(self.TB, self.name, getattr(self.TB, self.name + "_plain"))
+        plain = getattr(self.TB, self.name + "_plain")
+        takes = inspect.signature(plain).parameters
+
+        def route(*args, **kw):
+            return plain(*args, **{k: v for k, v in kw.items() if k in takes})
+
+        route.block_range_in_place = getattr(plain, "block_range_in_place", False)
+        setattr(self.TB, self.name, route)
 
     def __exit__(self, *exc):
         setattr(self.TB, self.name, self.real)
@@ -1051,7 +1073,7 @@ def time_k5(torch, TG, TB, dev, errs, B=128, nbg=16):
         errs["sweep_mc_" + key] = bar(TB.sweep_mc_plain(spec, *args),
                                       TB.sweep_mc(spec, *args), what)
         log(f"  ok {what}")
-        t["sweep_mc_" + key] = cuda_ms(torch, lambda: TB.sweep_mc(spec, *args), 10)
+        t["sweep_mc_" + key] = cuda_ms(torch, kept(TB.sweep_mc, spec, *args), 10)
         t["sweep_mc_" + key + "_split"] = sweep_split(torch, TB, spec, (spec, *args), nbg)
         t["sweep_mc_" + key + "_plain"] = cuda_ms(torch, lambda: TB.sweep_mc_plain(spec, *args), 1)
         bounds["sweep_mc_" + key] = sweep_bound(args, B)
@@ -1072,7 +1094,7 @@ def time_k5(torch, TG, TB, dev, errs, B=128, nbg=16):
             t["sweep_mc_k2_library"] = cuda_ms(torch, products, 10)
             # host time to enqueue each: where it nears the device time, the
             # host bounds the 16-block loop
-            t["sweep_mc_k2_host"] = host_ms(torch, lambda: TB.sweep_mc(spec, *args))
+            t["sweep_mc_k2_host"] = host_ms(torch, kept(TB.sweep_mc, spec, *args))
             t["sweep_mc_k2_library_host"] = host_ms(torch, products)
             del Xf
         del data, args
@@ -1520,11 +1542,11 @@ def time_tiled(torch, TSG, TB, spec, data, pr, pi, ld, errs, rows=16, key="sweep
     Kt = args[0].shape[1]
     tl = args[0].reshape(rows * Kt, T, T)
     dgv = out[0].reshape(rows, 1, 1, T).expand(rows, Kt, 1, T).reshape(rows * Kt, 1, T)
-    t = {"sweep_s_tiled": cuda_ms(torch, lambda: TB.sweep_s_tiled(sub, *args), 10),
+    t = {"sweep_s_tiled": cuda_ms(torch, kept(TB.sweep_s_tiled, sub, *args), 10),
          "sweep_s_tiled_library": cuda_ms(torch, lambda: torch.bmm(dgv, tl), 10),
-         "sweep_s_tiled_plain": cuda_ms(torch, lambda: TB.sweep_s_tiled_plain(sub, *args), 1),
-         "sweep_s_tiled_full": cuda_ms(torch, lambda: TB.sweep_s_tiled(spec, *full), 3),
-         "sweep_s_tiled_full_host": host_ms(torch, lambda: TB.sweep_s_tiled(spec, *full)),
+         "sweep_s_tiled_plain": cuda_ms(torch, kept(TB.sweep_s_tiled_plain, sub, *args), 1),
+         "sweep_s_tiled_full": cuda_ms(torch, kept(TB.sweep_s_tiled, spec, *full), 3),
+         "sweep_s_tiled_full_host": host_ms(torch, kept(TB.sweep_s_tiled, spec, *full)),
          "sweep_s_tiled_split": tiled_split(torch, TB, spec, full)}
     for k, (us, cyc) in chain.items():
         t[k + "_us"], t[k + "_cycles"] = us, cyc
@@ -1557,11 +1579,11 @@ def time_tiled(torch, TSG, TB, spec, data, pr, pi, ld, errs, rows=16, key="sweep
         kk = f"sweep_s_tiled_k{K}"
         dgK = out[0].reshape(K, rows, 1, T).permute(1, 2, 0, 3).expand(rows, Kt, K, T)
         dgK = dgK.reshape(rows * Kt, K, T)
-        t.update({kk: cuda_ms(torch, lambda: TB.sweep_s_tiled(sub, *kargs), 10),
+        t.update({kk: cuda_ms(torch, kept(TB.sweep_s_tiled, sub, *kargs), 10),
                   kk + "_library": cuda_ms(torch, lambda: torch.bmm(dgK, tl), 10),
-                  kk + "_plain": cuda_ms(torch, lambda: TB.sweep_s_tiled_plain(sub, *kargs), 1),
-                  kk + "_full": cuda_ms(torch, lambda: TB.sweep_s_tiled(spec, *kfull), 3),
-                  kk + "_full_host": host_ms(torch, lambda: TB.sweep_s_tiled(spec, *kfull)),
+                  kk + "_plain": cuda_ms(torch, kept(TB.sweep_s_tiled_plain, sub, *kargs), 1),
+                  kk + "_full": cuda_ms(torch, kept(TB.sweep_s_tiled, spec, *kfull), 3),
+                  kk + "_full_host": host_ms(torch, kept(TB.sweep_s_tiled, spec, *kfull)),
                   kk + "_split": tiled_split(torch, TB, spec, kfull)})
         bnd[kk] = bounds_at(K, kargs)
         bnd[kk + "_full"] = bounds_at(K, kfull)
@@ -1607,12 +1629,12 @@ def time_segment(torch, TSG, TB, spec, data, pr, pi, errs):
     if not (torch.isfinite(lib[0]).all() and torch.isfinite(lib[1]).all()):
         raise AssertionError("torch.mv of the segment is not finite")
     t = {"sweep_s_segment_k4": cuda_ms(
-             torch, lambda: TB.sweep_s_segment(spec, seg, r4, P4, spec.n), 3),
-         "sweep_s_segment": cuda_ms(torch, lambda: TB.sweep_s_segment(spec, seg, r, P, spec.n), 3),
+             torch, kept(TB.sweep_s_segment, spec, seg, r4, P4, spec.n), 3),
+         "sweep_s_segment": cuda_ms(torch, kept(TB.sweep_s_segment, spec, seg, r, P, spec.n), 3),
          "sweep_s_segment_host": host_ms(
-             torch, lambda: TB.sweep_s_segment(spec, seg, r, P, spec.n)),
+             torch, kept(TB.sweep_s_segment, spec, seg, r, P, spec.n)),
          "sweep_s_segment_plain": cuda_ms(
-             torch, lambda: TB.sweep_s_segment_plain(spec, seg, r, P, spec.n), 1),
+             torch, kept(TB.sweep_s_segment_plain, spec, seg, r, P, spec.n), 1),
          "sweep_s_segment_library": cuda_ms(torch, lambda: torch.mv(seg, dg1), 5),
          "sweep_s_segment_k4_library": cuda_ms(torch, lambda: torch.mm(seg, dg4.T), 5),
          "sweep_s_segment_split": segment_split(torch, TB, spec, seg, r, P),
@@ -1738,12 +1760,12 @@ def time_guarded_segment(torch, TSG, TB, spec, data, pr, pi, errs):
                  "sweep_s_segment_guard", False)
     dg1 = TB.sweep_s_segment(sub, seg, r, P, sub.n)[0]
     dg4 = TB.sweep_s_segment(sub, seg, r4, P4, sub.n)[0]
-    t = {"seg_guard": cuda_ms(torch, lambda: TB.sweep_s_segment(sub, seg, r, P, sub.n), 10),
+    t = {"seg_guard": cuda_ms(torch, kept(TB.sweep_s_segment, sub, seg, r, P, sub.n), 10),
          "seg_guard_plain": cuda_ms(
-             torch, lambda: TB.sweep_s_segment_plain(sub, seg, r, P, sub.n), 1),
-         "seg_guard_k4": cuda_ms(torch, lambda: TB.sweep_s_segment(sub, seg, r4, P4, sub.n), 10),
+             torch, kept(TB.sweep_s_segment_plain, sub, seg, r, P, sub.n), 1),
+         "seg_guard_k4": cuda_ms(torch, kept(TB.sweep_s_segment, sub, seg, r4, P4, sub.n), 10),
          "seg_guard_k4_plain": cuda_ms(
-             torch, lambda: TB.sweep_s_segment_plain(sub, seg, r4, P4, sub.n), 1),
+             torch, kept(TB.sweep_s_segment_plain, sub, seg, r4, P4, sub.n), 1),
          "seg_guard_library": cuda_ms(torch, lambda: torch.mv(seg, dg1), 10),
          "seg_guard_k4_library": cuda_ms(torch, lambda: torch.mm(seg, dg4.T), 10),
          "seg_guard_split": segment_split(torch, TB, sub, seg, r, P)}
@@ -1772,7 +1794,7 @@ def check_sweep_qs(torch, TG, TB, dev, M, y, errs, B=64, nbg=16, key="sweep_mc_q
     if not all(torch.equal(a, b) for a, b in zip(out, again)):
         raise AssertionError(f"{what}: two runs differ (not deterministic)")
     log(f"  ok {what}")
-    t = {key: cuda_ms(torch, lambda: TB.sweep_mc(spec, *args), 10),
+    t = {key: cuda_ms(torch, kept(TB.sweep_mc, spec, *args), 10),
          key + "_plain": cuda_ms(torch, lambda: TB.sweep_mc_plain(spec, *args), 1)}
     consts, X_b, W, xpx, vx, *per = args
     by = nbytes(X_b, W, xpx, vx, *per) + 4 * nbg * B * 3 + nbytes(per[7], per[8])
@@ -2630,9 +2652,9 @@ def profile_chains(torch, TG, TB, M, y, nchains, model, smi, B=128):
     pre = {}
     split["host_pre_sweep"] = host_ms(
         torch, lambda: pre.update(TG._pre_sweep(spec, data, noise, states)))
-    sweep = lambda: TB.sweep_mc(spec, pre["consts"], data.X_blocks, data.W_blocks, data.xpx,
-                                data.vx, pre["vei"], states.g, *pre["rnd"], pre["vargL_in"],
-                                pre["yadj"], pre["u"])
+    sweep = kept(TB.sweep_mc, spec, pre["consts"], data.X_blocks, data.W_blocks, data.xpx,
+                 data.vx, pre["vei"], states.g, *pre["rnd"], pre["vargL_in"], pre["yadj"],
+                 pre["u"])
     split["host_sweep"] = host_ms(torch, sweep)
     out = sweep()
     split["host_post_sweep"] = host_ms(
@@ -2650,19 +2672,84 @@ def profile_chains(torch, TG, TB, M, y, nchains, model, smi, B=128):
 KERNELS = ("sweep_mc", "block_draws", "sweep_s_segment", "sweep_s_tiled", "mme_sweep")
 PLAINS = ("sweep_mc_plain", "block_draws_plain", "sweep_s_segment_plain",
           "sweep_s_tiled_plain", "mme_sweep_plain", "mme_block_draws_plain")
+# the launch counters (ops.launch.<kernel>) under the names the checks read
+KERNEL_NAMES = {"sweep1_kernel": "sweep1", "rows_mc_kernel": "rows_mc_kernel",
+                "draws_kernel": "draws_kernel", "seg_sweep_kernel": "segment_sweep",
+                "tiled_sweep_kernel": "tiled_sweep", "mme_sweep_kernel": "mme_sweep_kernel"}
+# the count since reset_counts: whether it is open, each wrapper's and plain
+# version's calls, each counter's total and the collectives' host seconds
+COUNTING = {"open": False, "calls": {}, "counts": {}, "parallel_s": 0.0}
+
+
+def _counted(f, name):
+    """``f`` with each call, while a count is open, added to ``name``."""
+    def call(*args, **kw):
+        if COUNTING["open"]:
+            COUNTING["calls"][name] = COUNTING["calls"].get(name, 0) + 1
+        return f(*args, **kw)
+    call = functools.wraps(f)(call)
+    call.counts_calls = True
+    return call
+
+
+def _count_into(real):
+    """The ops module's ``count`` (the span store's counter) that, while a
+    count is open, also adds to it: ``ops.launch.<kernel>`` at each launch
+    that returned no error."""
+    def count(name, n=1):
+        if COUNTING["open"]:
+            COUNTING["counts"][name] = COUNTING["counts"].get(name, 0) + n
+        real(name, n)
+    count.counts_calls = True
+    return count
+
+
+def _span_into(real):
+    """The collectives' ``span`` that, while a count is open, also adds the
+    host seconds of each ``parallel.*`` span to it."""
+    @contextlib.contextmanager
+    def timed(name, it):
+        t0 = time.perf_counter()
+        try:
+            with real(name, it):
+                yield
+        finally:
+            COUNTING["parallel_s"] += time.perf_counter() - t0
+
+    def span(name, it=None):
+        return timed(name, it) if COUNTING["open"] else real(name, it)
+    span.counts_calls = True
+    return span
 
 
 def reset_counts(TB):
-    for k in KERNELS:
-        getattr(TB, k).launches = 0
-    for k in PLAINS:
-        getattr(TB, k).calls = 0
-    TB.reset_kernel_launches()
+    """Count from here, with no profiler recording (a fit timed inside a
+    count runs as it does uncounted): each wrapper's and plain version's
+    calls (each wrapped, once), each kernel's launches (the counters
+    ``ops.launch.<kernel>`` that the ops module adds at its launch sites,
+    read as they are added) and the host seconds of the collectives'
+    ``parallel.*`` spans."""
+    from hibayes_tpu_torch.parallel import distributed as D
+
+    for k in KERNELS + PLAINS:
+        if not getattr(getattr(TB, k), "counts_calls", False):
+            setattr(TB, k, _counted(getattr(TB, k), k))
+    if not getattr(TB.count, "counts_calls", False):
+        TB.count = _count_into(TB.count)
+    if not getattr(D.span, "counts_calls", False):
+        D.span = _span_into(D.span)
+    COUNTING.update(open=True, calls={}, counts={}, parallel_s=0.0)
 
 
 def read_counts(TB):
-    return ({**{k: getattr(TB, k).launches for k in KERNELS}, **TB.kernel_launches()},
-            sum(getattr(TB, k).calls for k in PLAINS))
+    """Since :func:`reset_counts`: ({wrapper or kernel: launches}, plain
+    calls); the count ends, and ``COUNTING["parallel_s"]`` keeps its
+    collectives' seconds until the next."""
+    COUNTING["open"] = False
+    calls, launched = COUNTING["calls"], COUNTING["counts"]
+    return ({**{k: calls.get(k, 0) for k in KERNELS},
+             **{v: launched.get("ops.launch." + k, 0) for k, v in KERNEL_NAMES.items()}},
+            sum(calls.get(k, 0) for k in PLAINS))
 
 
 def expect_counts(got, plain, expect, what):
@@ -2815,11 +2902,11 @@ def check_mme(torch, TG, TB, lay, counts, gen, dev, errs, nb=16, K=4):
         worst = max(worst, err)
         log(f"  ok {what}: max |x| error {err:.3g}, residual {rerr:.3g}")
     errs["mme_sweep"] = worst
-    t = {"mme_sweep": cuda_ms(torch, lambda: TB.mme_sweep(*runs[nb]), 20),
+    t = {"mme_sweep": cuda_ms(torch, kept(TB.mme_sweep, *runs[nb]), 20),
          "mme_sweep_plain": cuda_ms(torch, lambda: TB.mme_sweep_plain(*runs[nb]), 2),
-         "mme_sweep_full": cuda_ms(torch, lambda: TB.mme_sweep(*runs[nbr]), 5),
-         "mme_sweep_cold": cold_ms(torch, lambda: TB.mme_sweep(*runs[nb]), 10),
-         "mme_sweep_full_cold": cold_ms(torch, lambda: TB.mme_sweep(*runs[nbr]), 5),
+         "mme_sweep_full": cuda_ms(torch, kept(TB.mme_sweep, *runs[nbr]), 5),
+         "mme_sweep_cold": cold_ms(torch, kept(TB.mme_sweep, *runs[nb]), 10),
+         "mme_sweep_full_cold": cold_ms(torch, kept(TB.mme_sweep, *runs[nbr]), 5),
          "mme_sweep_split": mme_split(torch, TB, runs[nbr])}
     # the epsilon chain alone (one warp, block 0 staged), cycles a draw,
     # and its time a block from CUDA events around one launch of 400
@@ -2870,10 +2957,10 @@ def check_mme(torch, TG, TB, lay, counts, gen, dev, errs, nb=16, K=4):
     for k, args in kruns.items():
         check_mme_case(torch, TB, args, f"mme_sweep K={K} over {k} of {nbr} blocks of {T}",
                        errs, "mme_sweep_k")
-    t.update({f"mme_sweep_k{K}": cuda_ms(torch, lambda: TB.mme_sweep(*kruns[nb]), 20),
+    t.update({f"mme_sweep_k{K}": cuda_ms(torch, kept(TB.mme_sweep, *kruns[nb]), 20),
               f"mme_sweep_k{K}_plain": cuda_ms(torch, lambda: TB.mme_sweep_plain(*kruns[nb]), 1),
-              f"mme_sweep_k{K}_full": cuda_ms(torch, lambda: TB.mme_sweep(*kruns[nbr]), 5),
-              f"mme_sweep_k{K}_full_cold": cold_ms(torch, lambda: TB.mme_sweep(*kruns[nbr]),
+              f"mme_sweep_k{K}_full": cuda_ms(torch, kept(TB.mme_sweep, *kruns[nbr]), 5),
+              f"mme_sweep_k{K}_full_cold": cold_ms(torch, kept(TB.mme_sweep, *kruns[nbr]),
                                                    5)})
     t[f"mme_k{K}_library"], lib_err = tri(sc, vv, zK[:, :T], rK[:, :T])
     log(f"  ok batched solve_triangular on block 0 of {K} chains matches the block draws "
@@ -2933,7 +3020,7 @@ def check_sweep_ssbrm_shapes(torch, TG, TB, dev, gen, errs, n=10_000, B=64, nbg=
     errs["sweep_mc"] = max(errs["sweep_mc"], bar(
         TB.sweep_mc_plain(spec, *args), TB.sweep_mc(spec, *args),
         "sweep_mc at the ssbrm shapes (f32, B=64, n=10,000)"))
-    t = {"sweep_mc_ssbrm": cuda_ms(torch, lambda: TB.sweep_mc(spec, *args), 10),
+    t = {"sweep_mc_ssbrm": cuda_ms(torch, kept(TB.sweep_mc, spec, *args), 10),
          "sweep_mc_ssbrm_plain": cuda_ms(torch, lambda: TB.sweep_mc_plain(spec, *args), 1)}
     consts, X_b, W, xpx, vx, *per = args
     by = nbytes(X_b, W, xpx, vx, *per) + 4 * nbg * B * 3 + nbytes(per[7], per[8])
@@ -3175,10 +3262,10 @@ def time_sweep_shape(torch, TG, TB, dev, M, y, B, nf, errs, key, nbg=16):
     errs[key] = max(errs.get(key, 0.0), bar(TB.sweep_mc_plain(*part, block_range=(0, nbg)),
                                             outs[0], what))
     same(outs, what)
-    t = {key: cuda_ms(torch, lambda: TB.sweep_mc(*part, block_range=(0, nbg)), 10),
+    t = {key: cuda_ms(torch, kept(TB.sweep_mc, *part, block_range=(0, nbg)), 10),
          key + "_plain": cuda_ms(torch, lambda: TB.sweep_mc_plain(*part, block_range=(0, nbg)),
                                  2),
-         key + "_full": cuda_ms(torch, lambda: TB.sweep_mc(spec, *args), 3)}
+         key + "_full": cuda_ms(torch, kept(TB.sweep_mc, spec, *args), 3)}
     sb = TB.mc_layout(spec, X)   # X and W hold nbg S sub-blocks of W
     nbk = nbg * sb.S
     Xf = X[:nbk].float()
@@ -3283,11 +3370,11 @@ def tiled_shapes(torch, ht, TSLD, TSG, TG, TB, dev, ss, b_true, args, thin, smi,
     errs["tiled256"] = bar((g[:cut] - ref[0], ref[1], ref[2]),
                            (g[:cut] - outs[0][0], outs[0][1], outs[0][2]), what, r_index=2)
     same(outs, what)
-    times = {"tiled256": cuda_ms(torch, lambda: TB.sweep_s_tiled(
+    times = {"tiled256": cuda_ms(torch, kept(TB.sweep_s_tiled,
                  sspec, *part, r[:cut].contiguous(), pr_, sspec.n), 10),
-             "tiled256_plain": cuda_ms(torch, lambda: TB.sweep_s_tiled_plain(
+             "tiled256_plain": cuda_ms(torch, kept(TB.sweep_s_tiled_plain,
                  sspec, *part, r[:cut].contiguous(), pr_, sspec.n), 1),
-             "tiled256_full": cuda_ms(torch, lambda: TB.sweep_s_tiled(
+             "tiled256_full": cuda_ms(torch, kept(TB.sweep_s_tiled,
                  sspec, *lay, r, P, sspec.n), 3),
              "retile_s": t_retile}
     R = TB.summary_rows(sspec)
@@ -3326,10 +3413,10 @@ def tiled_shapes(torch, ht, TSLD, TSG, TG, TB, dev, ss, b_true, args, thin, smi,
     torch.cuda.synchronize()
     launches, plain = read_counts(TB)
     sdata, sspec, spr, spi = s_setup(torch, TG, TSG, ss, tld, "BayesCpi", 256, dev, True)
-    ck, vk = TB.sub_block_tiles(sdata.ld_tiles, sdata.ld_cols, sdata.ld_valid, sb)[1:]
-    G = TB.tiled_group(sspec, sb.W, TB._layout_schedule(ck, vk).items.shape[0])
+    sched = TB.tiled_plan(sspec, sdata.ld_tiles, sdata.ld_cols, sdata.ld_valid)[2]
+    G = TB.tiled_group(sspec, sb.W, sched.items.shape[0])
     groups = TB._chain_groups(C, G)
-    expect_counts(launches, plain, {"sweep_s_tiled": n_eff * len(groups),
+    expect_counts(launches, plain, {"sweep_s_tiled": n_eff,
                                     "tiled_sweep": n_eff * len(groups)}, "11d")
     alpha = per_chain(fit, "alpha", C, (niter - nburn) // thin)
     if not np.isfinite(alpha).all() or np.asarray(fit.guard).shape != (C, 2):
@@ -3353,7 +3440,7 @@ def tiled_shapes(torch, ht, TSLD, TSG, TG, TB, dev, ss, b_true, args, thin, smi,
         if not all(torch.equal(a[k], b) for a, b in zip(batch, one)):
             raise AssertionError(f"11d: chain {k} of the grouped launches differs from its "
                                  f"K=1 launch")
-    times["tiled_grouped_full"] = cuda_ms(torch, lambda: TB.sweep_s_tiled(
+    times["tiled_grouped_full"] = cuda_ms(torch, kept(TB.sweep_s_tiled,
         sspec, *lay, rs, Ps, sspec.n), 1)
     # the bar and the times on the first 16 rows of 256, all C chains
     gs = torch.stack([ins[k % 2][0][:cut] for k in range(C)])
@@ -3364,9 +3451,9 @@ def tiled_shapes(torch, ht, TSLD, TSG, TG, TB, dev, ss, b_true, args, thin, smi,
     errs["tiled_grouped"] = bar((gs - ref[0], ref[1], ref[2]),
                                 (gs - outs[0][0], outs[0][1], outs[0][2]), what, r_index=2)
     same(outs, what)
-    times["tiled_grouped"] = cuda_ms(torch, lambda: TB.sweep_s_tiled(
+    times["tiled_grouped"] = cuda_ms(torch, kept(TB.sweep_s_tiled,
         sspec, *part, rc, Pc, sspec.n), 5)
-    times["tiled_grouped_plain"] = cuda_ms(torch, lambda: TB.sweep_s_tiled_plain(
+    times["tiled_grouped_plain"] = cuda_ms(torch, kept(TB.sweep_s_tiled_plain,
         sspec, *part, rc, Pc, sspec.n), 1)
     bounds["tiled_grouped"] = bound(nv * 256 * 256 * 4 + C * 4 * cut * (R + 4),
                                     C * 2.0 * nv * 256 * 256)
@@ -3582,7 +3669,7 @@ def pipeline_emulation(torch, ht, TG, TB, dev, args, smi, errs):
     emu2 = TG.one_iteration_batch(spec2, gd, MESH_SEED, st)
     ref2 = {k: getattr(emu2, k).cpu().numpy() for k in ("g", "track", "yadj", "u", "vare")}
     t_emu = cuda_ms(torch, lambda: TG._sweep_pipeline_emu_mc(spec, *ins), 3)
-    t_one = cuda_ms(torch, lambda: TB.sweep_mc(spec, {k: v[:1] for k, v in ins[0].items()},
+    t_one = cuda_ms(torch, kept(TB.sweep_mc, spec, {k: v[:1] for k, v in ins[0].items()},
                                                *ins[1:5], *(a[:1] for a in ins[5:])), 3)
     del ins, gd, st, emu, emu2
     torch.cuda.empty_cache()
@@ -3814,9 +3901,9 @@ def row_base_kernel(torch, TSLD, TSG, TG, TB, dev, errs, sspec, sdata, spr, spi,
     rows = slice(b0, b0 + nl)
     a = (data.ld_tiles[rows].contiguous(), data.ld_cols[rows].contiguous(),
          data.ld_valid[rows].contiguous(), r, P[:, b0 * T:].contiguous(), spec.n)
-    t = {"tiled_row_base": cuda_ms(torch, lambda: TB.sweep_s_tiled(spec, *a, row_base=b0), 10),
+    t = {"tiled_row_base": cuda_ms(torch, kept(TB.sweep_s_tiled, spec, *a, row_base=b0), 10),
          "tiled_row_base_plain": cuda_ms(
-             torch, lambda: TB.sweep_s_tiled_plain(spec, *a, row_base=b0), 1)}
+             torch, kept(TB.sweep_s_tiled_plain, spec, *a, row_base=b0), 1)}
     nv = int(a[2].sum())
     bnd = {"tiled_row_base": bound(nv * T * T * 4 + nbytes(*a[1:5]) + 4 * (r.numel() * 2
                                                                          + 2 * nl * T + nl),
@@ -3828,7 +3915,7 @@ def row_base_kernel(torch, TSLD, TSG, TG, TB, dev, errs, sspec, sdata, spr, spi,
     rows = slice(h, nbr5)
     a5 = (sdata.ld_tiles[rows], sdata.ld_cols[rows].contiguous(),
           sdata.ld_valid[rows].contiguous(), r5, P5[:, h * T:].contiguous(), sspec.n)
-    t["tiled_row_base_shard"] = cuda_ms(torch, lambda: TB.sweep_s_tiled(sspec, *a5, row_base=h),
+    t["tiled_row_base_shard"] = cuda_ms(torch, kept(TB.sweep_s_tiled, sspec, *a5, row_base=h),
                                         3)
     nv5 = int(a5[2].sum())
     bnd["tiled_row_base_shard"] = bound(
@@ -3915,9 +4002,9 @@ def rank12(rank, world, payload):
     niter_eff = args.nburn + ((args.niter - args.nburn) // thin) * thin
 
     def run(what, fn):
-        """fn() with the launch counts from 0 and the collectives timed."""
+        """fn() with the launch counts from 0, and the seconds of its
+        collectives: the host time of their ``parallel.*`` spans."""
         reset_counts(TB)
-        D.reset_collective_timer(timed=True)
         torch.cuda.synchronize()
         dist.barrier()
         t0 = time.perf_counter()
@@ -3925,8 +4012,7 @@ def rank12(rank, world, payload):
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
         launches[what] = read_counts(TB)[0]
-        coll = D.COLLECTIVES["seconds"]
-        D.reset_collective_timer(timed=False)
+        coll = COUNTING["parallel_s"]
         return out, wall, coll
 
     # (vi) this rank's rows of 9a's fileset

@@ -176,11 +176,6 @@ constexpr int kMcChains = 64;
 // written (13), once all are published (10).
 constexpr int kStamps = 16;
 
-// Launches of each kernel, counted where it is launched (hb_launch_counts).
-long long g_sweep1_launches = 0;
-long long g_rows_mc_launches = 0;
-long long g_draws_launches = 0;
-
 __device__ __forceinline__ void load4(const int8_t* p, float v[4]) {
   const char4 c = *reinterpret_cast<const char4*>(p);
   v[0] = c.x; v[1] = c.y; v[2] = c.z; v[3] = c.w;
@@ -1280,7 +1275,6 @@ cudaError_t launch_draws_t(const DrawArgs& a, bool overlap, cudaStream_t stream)
   e = launch(overlap, draws_kernel<MI, NF>, dim3(a.K), kDrawThreads, smem, stream,
              a.partial, a.ntiles, a.W, a.P, a.B, a.K, a.gi, a.dg, a.tr, a.sj, a.sk,
              a.stamps, a.nf, a.Pg, a.pg_stride);
-  if (e == cudaSuccess) ++g_draws_launches;
   return e;
 }
 
@@ -1365,9 +1359,7 @@ cudaError_t sweep1_launch(const Sweep1Args<XT>& a, int grid, cudaStream_t stream
   if (e != cudaSuccess) return e;
   if (static_cast<long long>(per_sm) * sms < grid) return cudaErrorCooperativeLaunchTooLarge;
   sweep1_kernel<XT, MI, NF><<<grid, kS1Threads, smem, stream>>>(a);
-  e = cudaGetLastError();
-  if (e == cudaSuccess) ++g_sweep1_launches;
-  return e;
+  return cudaGetLastError();
 }
 
 template <typename XT>
@@ -1399,7 +1391,8 @@ cudaError_t sweep_mc_launches(const XT* X, const float* W, const float* P, int o
                               int nbg, int n, int rows_per_tile, const int shape[4], int B,
                               int R, int K, int mi, int nf, float* yadj, float* u,
                               float* g_out, float* dg_out, float* tr_out, float* partial,
-                              long long* stamps, const float* Pg, cudaStream_t stream) {
+                              long long* stamps, const float* Pg, long long* launched,
+                              cudaStream_t stream) {
   const long long RP = padded_stride(R);
   const int ntiles = (n + rows_per_tile - 1) / rows_per_tile;
   const size_t xblk = static_cast<size_t>(n) * B;
@@ -1423,7 +1416,7 @@ cudaError_t sweep_mc_launches(const XT* X, const float* W, const float* P, int o
     // the first launch of the sweep is ordinary: it follows pack_rows
     e = launch(b > 0, rows_mc, rows_grid, kMcThreads, mc_smem, stream, Xp, dgp, m_loc, Xc, n,
                B, rows_per_tile, K, yadj, u, part, sb);
-    if (e == cudaSuccess) ++g_rows_mc_launches;
+    if (e == cudaSuccess) ++launched[1];
     if (e != cudaSuccess || b == nbg) return e;
     const long long lb = static_cast<long long>(b) * B;
     const DrawArgs a{partial, ntiles,
@@ -1433,6 +1426,7 @@ cudaError_t sweep_mc_launches(const XT* X, const float* W, const float* P, int o
                      Pg == nullptr ? nullptr : Pg + lb * RP, m_loc * RP};
     e = launch_draws(a, mi, nf, true, stream);
     if (e != cudaSuccess) return e;
+    ++launched[2];
   }
   return cudaSuccess;
 }
@@ -1443,18 +1437,6 @@ extern "C" {
 
 const char* hb_error_string(int code) {
   return cudaGetErrorString(static_cast<cudaError_t>(code));
-}
-
-// Launches of sweep1_kernel, rows_mc_kernel and draws_kernel since the
-// last reset.
-void hb_launch_counts(long long* sweep1, long long* rows_mc, long long* draws) {
-  *sweep1 = hb::g_sweep1_launches;
-  *rows_mc = hb::g_rows_mc_launches;
-  *draws = hb::g_draws_launches;
-}
-
-void hb_reset_launch_counts() {
-  hb::g_sweep1_launches = hb::g_rows_mc_launches = hb::g_draws_launches = 0;
 }
 
 // One block of B sequential draws for K chains.
@@ -1488,14 +1470,18 @@ int hb_block_draws(const float* r0t, const float* W, const float* P, int B,
 // stamps (measurement only; null in use): nbg + 1 records of hb::kStamps.
 // Pg (null, or the packed rows (K, nbg * B, padded_stride(R)) SNP-major):
 // the draws read the rows there instead of staging P in shared memory.
+// launched (3 long longs, zeroed by the caller) gets the launches of
+// sweep1_kernel, rows_mc_kernel and draws_kernel that returned no error.
 int hb_sweep_mc(const void* X, int x_int8, const float* W, const float* P,
                 int off, int nbg, int n, int rows_per_tile, int tk, int tr,
                 int rb, int tc, int B, int R, int K, int mi, int nf, float* yadj,
                 float* u, float* g_out, float* dg_out, float* track, float* partial,
                 const float* C, unsigned* flags, unsigned epoch, int grid, int nb0, int nbr,
-                int wb, int cb, long long* stamps, const float* Pg, void* stream) {
+                int wb, int cb, long long* stamps, const float* Pg, long long* launched,
+                void* stream) {
   if (!hb::shapes_ok(B, R, K, mi, nf) || n <= 0 || rows_per_tile <= 0 ||
-      off < 0 || nbg < 0 || (Pg != nullptr && !hb::global_rows_ok(mi, nf)))
+      off < 0 || nbg < 0 || (Pg != nullptr && !hb::global_rows_ok(mi, nf)) ||
+      launched == nullptr)
     return cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int shape[4] = {tk, tr, rb, tc};
@@ -1506,24 +1492,28 @@ int hb_sweep_mc(const void* X, int x_int8, const float* W, const float* P,
       return cudaErrorInvalidValue;
     if (nbg == 0) return cudaSuccess;   // nothing to sweep
     const int ntiles = (n + rows_per_tile - 1) / rows_per_tile;
+    cudaError_t e;
     if (x_int8) {
       const hb::Sweep1Args<int8_t> a{static_cast<const int8_t*>(X), W, C, P, off, nbg, n, B,
                                      rows_per_tile, ntiles, yadj, u, g_out, dg_out, track,
                                      partial, flags, epoch, nb0, nbr, wb, cb, stamps, nf, Pg};
-      return hb::sweep1(a, grid, mi, nf, s);
+      e = hb::sweep1(a, grid, mi, nf, s);
+    } else {
+      const hb::Sweep1Args<float> a{static_cast<const float*>(X), W, C, P, off, nbg, n, B,
+                                    rows_per_tile, ntiles, yadj, u, g_out, dg_out, track,
+                                    partial, flags, epoch, nb0, nbr, wb, cb, stamps, nf, Pg};
+      e = hb::sweep1(a, grid, mi, nf, s);
     }
-    const hb::Sweep1Args<float> a{static_cast<const float*>(X), W, C, P, off, nbg, n, B,
-                                  rows_per_tile, ntiles, yadj, u, g_out, dg_out, track,
-                                  partial, flags, epoch, nb0, nbr, wb, cb, stamps, nf, Pg};
-    return hb::sweep1(a, grid, mi, nf, s);
+    if (e == cudaSuccess) ++launched[0];
+    return e;
   }
   if (x_int8)
     return hb::sweep_mc_launches(static_cast<const int8_t*>(X), W, P, off, nbg, n,
                                  rows_per_tile, shape, B, R, K, mi, nf, yadj, u, g_out,
-                                 dg_out, track, partial, stamps, Pg, s);
+                                 dg_out, track, partial, stamps, Pg, launched, s);
   return hb::sweep_mc_launches(static_cast<const float*>(X), W, P, off, nbg, n,
                                rows_per_tile, shape, B, R, K, mi, nf, yadj, u, g_out,
-                               dg_out, track, partial, stamps, Pg, s);
+                               dg_out, track, partial, stamps, Pg, launched, s);
 }
 
 }  // extern "C"

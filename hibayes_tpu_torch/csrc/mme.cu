@@ -91,9 +91,6 @@ constexpr int kStamps = 6;              // stamps a phase
 constexpr int kPfEnt = 4;               // entries of a scatter row read a phase ahead
 constexpr unsigned kFull = 0xffffffffu;
 
-// Launches of the sweep kernel, counted where it is launched (hb_mme_launch_counts).
-long long g_mme_sweep = 0;
-
 // A block's record (ints, built by mme_plan): [0] fr0, [1] fr1: its rows
 // far_rows[fr0 .. fr1) for the scatter; [4 .. 8) a mask of the rows of
 // block i + 2 among them (bit k: row k of that block); [kRecHead ..
@@ -554,11 +551,6 @@ const char* hb_error_string(int code) {
   return cudaGetErrorString(static_cast<cudaError_t>(code));
 }
 
-// Launches since the last reset.
-void hb_mme_launch_counts(long long* out) { out[0] = hb::g_mme_sweep; }
-
-void hb_mme_reset_launch_counts() { hb::g_mme_sweep = 0; }
-
 // Shared memory bytes of a sweep over blocks of T sites with records of RI
 // ints (the plan's check before a launch).
 long long hb_mme_smem_bytes(int T, int RI) {
@@ -589,14 +581,11 @@ int hb_mme_sweep(const float* Dt, const int* rec, const int* far_rows, const int
                       reinterpret_cast<const int2*>(ent), counts, z, x_in, x_out, res,
                       scale, ve, res_len, n_far, n_ent, nbr, T, RI, stamps};
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  cudaError_t e;
   switch (hb::tile_of(T)) {
-    case 32: e = hb::sweep_tm<32>(a, chains, s); break;
-    case 64: e = hb::sweep_tm<64>(a, chains, s); break;
-    default: e = hb::sweep_tm<128>(a, chains, s); break;
+    case 32: return hb::sweep_tm<32>(a, chains, s);
+    case 64: return hb::sweep_tm<64>(a, chains, s);
+    default: return hb::sweep_tm<128>(a, chains, s);
   }
-  if (e == cudaSuccess) ++hb::g_mme_sweep;
-  return e;
 }
 
 // The epsilon chain alone (measurement): reps chains of one block W (T, T)

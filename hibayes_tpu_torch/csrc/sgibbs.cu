@@ -102,9 +102,6 @@ constexpr int kSegChains = kSegWarps;  // chains a drawer CTA can draw (a warp e
 constexpr int kTiles = 3;              // row tiles in flight a row-owner warp
 constexpr int kSegStamps = 12;         // stamps a block
 
-// Launches of each kernel, counted where it is launched (hb_s_launch_counts).
-long long g_segment_sweep = 0, g_tiled_sweep = 0;
-
 // Inputs of the persistent segment sweep (csrc comment at seg_sweep_kernel;
 // the plan is ops/blockgibbs.py:segment_plan).
 struct SegArgs {
@@ -515,9 +512,7 @@ cudaError_t seg_sweep(const SegArgs& a, cudaStream_t stream) {
   const long long grid = static_cast<long long>(a.ndraw) + a.nown;
   if (grid > static_cast<long long>(per_sm) * sms) return cudaErrorCooperativeLaunchTooLarge;
   seg_sweep_kernel<MI, NF, GUARD><<<static_cast<int>(grid), kSegThreads, smem, stream>>>(a);
-  e = cudaGetLastError();
-  if (e == cudaSuccess) ++g_segment_sweep;
-  return e;
+  return cudaGetLastError();
 }
 
 // ---------------------------------------------------------------------------
@@ -908,9 +903,7 @@ cudaError_t tiled_sweep(TiledArgs a, cudaStream_t stream) {
       a.chains + (a.nitems == 0 ? 0 : (a.nitems < spare ? a.nitems : (spare > 1 ? spare : 1)));
   if (grid > resident) return cudaErrorCooperativeLaunchTooLarge;
   tiled_sweep_kernel<MI, NF, GUARD><<<static_cast<int>(grid), kTiledThreads, smem, stream>>>(a);
-  e = cudaGetLastError();
-  if (e == cudaSuccess) ++g_tiled_sweep;
-  return e;
+  return cudaGetLastError();
 }
 
 // The draw chain alone: one warp runs `reps` blocks of B draws (draws.cuh)
@@ -1068,14 +1061,6 @@ extern "C" {
 const char* hb_error_string(int code) {
   return cudaGetErrorString(static_cast<cudaError_t>(code));
 }
-
-// Launches since the last reset: segment sweeps, tiled sweeps.
-void hb_s_launch_counts(long long* out) {
-  out[0] = hb::g_segment_sweep;
-  out[1] = hb::g_tiled_sweep;
-}
-
-void hb_s_reset_launch_counts() { hb::g_segment_sweep = hb::g_tiled_sweep = 0; }
 
 // Sweep one dense LD segment for K chains in one launch.  LD (mc, mc)
 // row-major; P (K, R, mc) packed rows (with the guard rows when guard); r

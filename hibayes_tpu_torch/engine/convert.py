@@ -106,6 +106,7 @@ def gibbs_data_from_numpy(data, device="cpu") -> GibbsData:
                            device),
         block=B,
         epsl_sp=sp,
+        plans={},
     )
 
 
@@ -136,6 +137,7 @@ def sgibbs_data_from_numpy(data, device="cpu") -> SGibbsData:
         fold=_t(f["fold"], device),
         windindx0=_t(f["windindx0"], device, torch.int64),
         yy=_t(f["yy"], device),
+        plans={},
         **opt,
     )
 

@@ -258,6 +258,10 @@ class GibbsData(NamedTuple):
     # A-inverse(nn), sparse (the scale path) or dense (the direct path),
     # packed in diagonal blocks: the epsilon sweep's input
     epsl_sp: EpslSparse | None = None
+    # what the sweeps keep between calls (ops/blockgibbs.py: flags, layouts,
+    # plans), made at the first sweep over this data: every builder gives a
+    # fresh dict, and a part cut from it (parallel/mesh.py) gets its own
+    plans: dict | None = None
 
 
 # ---------------------------------------------------------------------------
@@ -560,6 +564,7 @@ def prepare_gibbs_data(
         epsl_segs=epsl_segs,
         block=block,
         epsl_sp=epsl_sp,
+        plans={},
     )
 
 
@@ -901,17 +906,18 @@ def _epsl_matvec(sp: EpslSparse, x):
     return mm(x) if x.dim() == 1 else mm(x.T).T
 
 
-def blocked_mme_gibbs_sparse(sp: EpslSparse, counts, scale, x, b, ve, z):
+def blocked_mme_gibbs_sparse(sp: EpslSparse, counts, scale, x, b, ve, z, plans=None):
     """Single-site Gibbs sweep over LHS = scale A + diag(counts) for A in
     the packed layout (``blocked_mme_gibbs_sparse``,
     hibayes_tpu/engine/gibbs.py:576-654): per diagonal block, T in-block
     draws (TPU kernel 10), then the block's forward triplets into the
     residual.  The sweep is ``blockgibbs.mme_sweep``: one CUDA launch on a
     GPU, its plain version on the CPU.  Zero-padded sites stay frozen.
-    One chain, or a batch (x, b, z (K, q); scale, ve (K,)).
+    One chain, or a batch (x, b, z (K, q); scale, ve (K,)).  ``plans``: the
+    dict of the data that holds ``sp`` (``GibbsData.plans``).
     Returns (x_new, A @ x_new); the matvec feeds the Veps quadratic form."""
     res = b - scale[..., None] * _epsl_matvec(sp, x) - counts * x
-    x_new, _ = blockgibbs.mme_sweep(sp, counts, scale, ve, z, x, res)
+    x_new, _ = blockgibbs.mme_sweep(sp, counts, scale, ve, z, x, res, plans=plans)
     return x_new, _epsl_matvec(sp, x_new)
 
 
@@ -949,7 +955,7 @@ def _epsilon_draw(spec: GibbsSpec, data: GibbsData, noise, J_beta, epsl_estR,
     sp = data.epsl_sp
     pad = lambda v: torch.nn.functional.pad(v, (0, sp.coo_len.shape[0] - qe_p))
     new_e, Ae = blocked_mme_gibbs_sparse(sp, pad(data.epsl_counts), scale, pad(epsl_estR),
-                                         pad(rhs_e), ve, pad(ze))
+                                         pad(rhs_e), ve, pad(ze), data.plans)
     new_e = new_e[..., :qe_p]
     quad = _dot(new_e, Ae[..., :qe_p])
     diff_e = (epsl_estR - new_e)[..., codes]
@@ -1150,19 +1156,20 @@ def _sweep_ind_hybrid_mc(spec: GibbsSpec, consts_b, X_blocks, W_blocks, xpx, vx,
 
 
 def _sweep_local_blocks(spec, consts_b, X, W, xpx, vx, per_chain, yadj, u, mesh,
-                        block_range=None, C=None):
+                        block_range=None, C=None, plans=None):
     """Sweep the SNP blocks this rank holds (or ``block_range`` of them) for
     K chains against (yadj, u): the unit of the turn, pipeline and
     concurrent schedules (``_sweep_local_blocks``,
     hibayes_tpu/engine/gibbs.py:1139).
     ``per_chain`` = (vei, g, z, u, chi, z2, vargL), each (K, m_loc[, nf]).
-    ``sweep_mc`` (TPU kernels 1-5, 8 at K = 1, with the cross-Grams ``C``;
-    kernel 2 at K >= 2), or the ind hybrid on a 2-D mesh."""
+    ``sweep_mc`` (TPU kernels 1-5, 8 at K = 1, with the cross-Grams ``C``
+    and the data's ``plans``; kernel 2 at K >= 2), or the ind hybrid on a
+    2-D mesh."""
     if ind_shard_count(mesh) > 1:
         return _sweep_ind_hybrid_mc(spec, consts_b, X, W, xpx, vx, *per_chain, yadj, u,
                                     mesh=mesh, block_range=block_range)
     return blockgibbs.sweep_mc(spec, consts_b, X, W, xpx, vx, *per_chain, yadj, u,
-                               block_range=block_range, C_blocks=C)
+                               block_range=block_range, C_blocks=C, plans=plans)
 
 
 def _rows_of(consts_b, rsel):
@@ -1170,7 +1177,8 @@ def _rows_of(consts_b, rsel):
 
 
 def _sweep_pipeline_emu_mc(spec: GibbsSpec, consts_b, X_blocks, W_blocks, xpx, vx, vei_b,
-                           g_b, z_b, u_b, chi_b, z2_b, vargL_b, yadj_b, u_vec_b, C_blocks=None):
+                           g_b, z_b, u_b, chi_b, z2_b, vargL_b, yadj_b, u_vec_b, C_blocks=None,
+                           plans=None):
     """One-device emulation of the ring-pipeline schedule
     (``_sweep_pipeline_emu_mc``, hibayes_tpu/engine/gibbs.py:1347-1431):
     chain group c (batch rows [c Kg, (c + 1) Kg)) sweeps the S =
@@ -1211,7 +1219,7 @@ def _sweep_pipeline_emu_mc(spec: GibbsSpec, consts_b, X_blocks, W_blocks, xpx, v
             per = tuple(a[rsel, sl] for a in (vei_b, g_b, z_b, u_b, chi_b, z2_b, vargL_b))
             gn, tr, vl, ya, uu, vi_s, vR_s = sweep(
                 spec, consts_c, X_blocks, W_blocks, xpx[sl], vx[sl], *per, ya, uu,
-                block_range=(sblk * nbg, nbg), C_blocks=C_blocks)
+                block_range=(sblk * nbg, nbg), C_blocks=C_blocks, plans=plans)
             vi = vi + vi_s.to(dt)
             vR = vR + vR_s.to(dt)
             pieces[sblk] = (gn.to(dt), tr.to(torch.int32), vl.to(dt))
@@ -1222,7 +1230,7 @@ def _sweep_pipeline_emu_mc(spec: GibbsSpec, consts_b, X_blocks, W_blocks, xpx, v
 
 def _sweep_concurrent_emu_mc(spec: GibbsSpec, consts_b, X_blocks, W_blocks, xpx, vx,
                              vei_b, g_b, z_b, u_b, chi_b, z2_b, vargL_b, yadj_b, u_vec_b,
-                             C_blocks=None):
+                             C_blocks=None, plans=None):
     """One-device emulation of the concurrent schedule
     (``_sweep_concurrent_emu_mc``, hibayes_tpu/engine/gibbs.py:1255-1332)
     with S = ``spec.emulate_shards`` virtual shards and Rm =
@@ -1256,7 +1264,7 @@ def _sweep_concurrent_emu_mc(spec: GibbsSpec, consts_b, X_blocks, W_blocks, xpx,
             per = tuple(a[:, sl] for a in (vei_b, g_b, z_b, u_b, chi_b, z2_b, vargL_b))
             gn, tr, vl, ya2, u2, vi_s, vR_s = blockgibbs.sweep_mc(
                 spec, consts_b, X_blocks, W_blocks, xpx[sl], vx[sl], *per, ya, uu,
-                block_range=(gi * nbg, nbg), C_blocks=C_blocks)
+                block_range=(gi * nbg, nbg), C_blocks=C_blocks, plans=plans)
             dya = dya + (ya2 - ya)
             du = du + (u2 - uu)
             vi = vi + vi_s.to(dt)
@@ -1329,7 +1337,7 @@ def _sweep_snp_sharded_mc(spec: GibbsSpec, data: GibbsData, consts_b, rnd_b, vei
             rsel = slice(c * Kg, (c + 1) * Kg)
             gn, tr, vl, ya, uu, vi_s, vR_s = blockgibbs.sweep_mc(
                 spec, _rows_of(consts_b, rsel), data.X_blocks, data.W_blocks, xpx, vx,
-                *(a[rsel] for a in per), ya, uu, C_blocks=data.C_blocks)
+                *(a[rsel] for a in per), ya, uu, C_blocks=data.C_blocks, plans=data.plans)
             g_cur[rsel], tr_cur[rsel], vl_cur[rsel] = gn.to(dt), tr, vl.to(dt)
             vi, vR = vi + vi_s.to(dt), vR + vR_s.to(dt)
             ya, uu, vi, vR = ring_hop((ya, uu, vi, vR), mesh, "snp")
@@ -1353,7 +1361,7 @@ def _sweep_snp_sharded_mc(spec: GibbsSpec, data: GibbsData, consts_b, rnd_b, vei
             gn, tr, vl, ya2, u2, vi_s, vR_s = _sweep_local_blocks(
                 spec, consts_b, data.X_blocks, data.W_blocks, xpx[rs], vx[rs],
                 tuple(a[:, rs] for a in per), ya, uu, mesh, block_range=(r * nbg, nbg),
-                C=data.C_blocks)
+                C=data.C_blocks, plans=data.plans)
             ya = ya + axis_sum(ya2 - ya, mesh, "snp")
             uu = uu + axis_sum(u2 - uu, mesh, "snp")
             vi, vR = vi + vi_s.to(dt), vR + vR_s.to(dt)
@@ -1366,7 +1374,7 @@ def _sweep_snp_sharded_mc(spec: GibbsSpec, data: GibbsData, consts_b, rnd_b, vei
         if t == s:
             gn, tr, vl, ya, uu, vi, vR = _sweep_local_blocks(
                 spec, consts_b, data.X_blocks, data.W_blocks, xpx, vx, per, ya, uu, mesh,
-                C=data.C_blocks)
+                C=data.C_blocks, plans=data.plans)
         ya = broadcast(ya, mesh, "snp", t)
         uu = broadcast(uu, mesh, "snp", t)
     gat = lambda x: all_gather(x, mesh, "snp", dim=1)
@@ -1390,13 +1398,13 @@ def _sweep(spec: GibbsSpec, data: GibbsData, pre: dict, g, mesh=None):
         if ind_shard_count(mesh) > 1:
             raise ValueError("shard_schedule='pipeline' does not compose with an "
                              "ind-sharded mesh")
-        return _sweep_pipeline_emu_mc(*args, C_blocks=data.C_blocks)
+        return _sweep_pipeline_emu_mc(*args, C_blocks=data.C_blocks, plans=data.plans)
     if (spec.shard_schedule == "concurrent" and spec.emulate_shards > 1
             and ind_shard_count(mesh) <= 1):
-        return _sweep_concurrent_emu_mc(*args, C_blocks=data.C_blocks)
+        return _sweep_concurrent_emu_mc(*args, C_blocks=data.C_blocks, plans=data.plans)
     if ind_shard_count(mesh) > 1:
         return _sweep_ind_hybrid_mc(*args, mesh=mesh)
-    return blockgibbs.sweep_mc(*args, C_blocks=data.C_blocks)
+    return blockgibbs.sweep_mc(*args, C_blocks=data.C_blocks, plans=data.plans)
 
 
 def _run_sweep_k1(spec: GibbsSpec, data: GibbsData, pre: dict, g, mesh=None):

@@ -89,6 +89,10 @@ class SGibbsData(NamedTuple):
     ld_tiles: torch.Tensor | None = None   # (nbr, K_max, T, T)
     ld_cols: torch.Tensor | None = None    # (nbr, K_max) int32
     ld_valid: torch.Tensor | None = None   # (nbr, K_max) bool
+    # what the sweeps keep between calls (ops/blockgibbs.py: re-tiled
+    # stores, schedules, flags), made at the first sweep over this data:
+    # every builder gives a fresh dict, and a part cut from it its own
+    plans: dict | None = None
 
 
 def _segment(values, mc_pad: int, dtype, device) -> torch.Tensor:
@@ -167,6 +171,7 @@ def prepare_sgibbs_data(sumstat, ld, *, fold=None, windindx=None, nw=0,
             ld_tiles=_tensor(ld.tiles, device, dtype).contiguous(),
             ld_cols=_tensor(ld.col_idx, device, torch.int32),
             ld_valid=_tensor(ld.valid, device, torch.bool),
+            plans={},
         )
         return data, n_eff, vary, nvar0, (m_pad,), (m,)
 
@@ -176,7 +181,7 @@ def prepare_sgibbs_data(sumstat, ld, *, fold=None, windindx=None, nw=0,
     seg_sizes = tuple(pad_to_block(mc, block) for mc in seg_real)
     offs = np.cumsum((0,) + seg_real[:-1])
     segs = tuple(_segment(b, p, dtype, device) for b, p in zip(raw, seg_sizes))
-    data = SGibbsData(ld_segs=segs,
+    data = SGibbsData(ld_segs=segs, plans={},
                       **common(list(zip(offs, seg_real, seg_sizes)), sum(seg_sizes)))
     return data, n_eff, vary, nvar0, seg_sizes, seg_real
 
@@ -247,8 +252,8 @@ def _tiled_sweep_snp_sharded(spec, data: SGibbsData, r_hat, P, mesh, tally=None)
     sweeps its next nl/Rm rows at once against the round-start r_hat, and
     the ranks merge by r + axis_sum(r2 - r) (hibayes_tpu/engine/sgibbs.py:
     573-614).  Near-exact here: only LD tiles that span a shard boundary
-    couple the shards.  The rounds' rows are views made once per store
-    (``blockgibbs.tile_row_runs``), so every sweep finds its schedule.
+    couple the shards.  Each round's schedule is kept in the data's plans
+    by its ``row_base``.
 
     ``P`` holds the packed and guard rows of all m_pad SNPs (the guard's
     candidates drawn over the whole m_pad, stream 15, as one device draws
@@ -270,11 +275,12 @@ def _tiled_sweep_snp_sharded(spec, data: SGibbsData, r_hat, P, mesh, tally=None)
             raise ValueError(f"merge_rounds ({Rm}) must divide the {nl} local LD tile rows")
         nb_g = nl // Rm
         parts = []
-        for r, rows in enumerate(blockgibbs.tile_row_runs(data.ld_tiles, data.ld_cols,
-                                                          data.ld_valid, Rm)):
+        for r in range(Rm):
+            rows = slice(r * nb_g, (r + 1) * nb_g)
             dg, track, rh2, _ = blockgibbs.sweep_s_tiled(
-                spec, *rows, r_hat, P_loc[..., r * nb_g * B:(r + 1) * nb_g * B], spec.n,
-                tally=own, row_base=base + r * nb_g)
+                spec, data.ld_tiles[rows], data.ld_cols[rows], data.ld_valid[rows], r_hat,
+                P_loc[..., r * nb_g * B:(r + 1) * nb_g * B], spec.n, tally=own,
+                row_base=base + r * nb_g, plans=data.plans)
             r_hat = r_hat + axis_sum(rh2 - r_hat, mesh, "snp")
             parts.append((dg, track))
         dg, track = (torch.cat(x) for x in zip(*parts))
@@ -283,7 +289,7 @@ def _tiled_sweep_snp_sharded(spec, data: SGibbsData, r_hat, P, mesh, tally=None)
             if t == s:
                 dg, track, r_hat, _ = blockgibbs.sweep_s_tiled(
                     spec, data.ld_tiles, data.ld_cols, data.ld_valid, r_hat, P_loc, spec.n,
-                    tally=own, row_base=base)
+                    tally=own, row_base=base, plans=data.plans)
             r_hat = broadcast(r_hat, mesh, "snp", t)
     if tally is not None:
         tally += axis_sum(own, mesh, "snp")
@@ -424,6 +430,12 @@ def one_s_iteration_batch(spec, data: SGibbsData, seed: int, states: SChainState
         return _s_iteration(spec, data, noise, states, tally)
 
 
+def _segment_plans(data: SGibbsData, i: int):
+    """The plans of segment ``i``'s sweeps: a dict of its own in the data's
+    plans (None where the data has none)."""
+    return None if data.plans is None else data.plans.setdefault(("segment", i), {})
+
+
 def _s_iteration(spec, data: SGibbsData, noise, state: SChainState,
                  tally=None, mesh=None) -> SChainState:
     with span("engine.pre_sweep"):
@@ -436,13 +448,14 @@ def _s_iteration(spec, data: SGibbsData, noise, state: SChainState,
         elif data.ld_tiles is not None:
             dg, track, r_hat, _ = blockgibbs.sweep_s_tiled(
                 spec, data.ld_tiles, data.ld_cols, data.ld_valid, state.r_hat, P, spec.n,
-                tally=tally)
+                tally=tally, plans=data.plans)
         else:
             parts, off = [], 0
-            for seg, mc in zip(data.ld_segs, spec.seg_sizes):
+            for i, (seg, mc) in enumerate(zip(data.ld_segs, spec.seg_sizes)):
                 sl = slice(off, off + mc)
                 parts.append(blockgibbs.sweep_s_segment(spec, seg, state.r_hat[..., sl],
-                                                        P[..., sl], spec.n, tally=tally))
+                                                        P[..., sl], spec.n, tally=tally,
+                                                        plans=_segment_plans(data, i)))
                 off += mc
             dg, track, r_hat = (torch.cat(x, dim=-1) for x in zip(*parts))
     with span("engine.post_sweep"):

@@ -52,27 +52,38 @@ Each has a plain PyTorch version with the same contract (``*_plain``):
 loops over blocks and SNPs in Python with tensor ops (across the K chains
 for the individual-level ones), in any float dtype.  A wrapper takes its
 plain version only for tensors on the CPU; for CUDA tensors it launches the
-kernel or raises.  Each wrapper counts its own launches in a plain integer
-attribute (``.launches``), and each plain version its calls (``.calls``);
-each call of a wrapper, card route or plain version, is a span
-``ops.<wrapper>`` (utils/profiling.py) while a profiler records.
-The libraries count every launch of each CUDA kernel where it is made
-(:func:`kernel_launches`): a one-chain sweep over nbg blocks is one
-persistent ``sweep1`` launch (:func:`sweep1_plan`); a K-chain sweep (K >= 2)
+kernel or raises.
+
+What a sweep keeps between calls (a re-tiled store or sub-blocked segment,
+the tiled sweep's schedule and counters, the epsilon sweep's plan, the
+cross-Grams where the caller gives none, the persistent sweeps' flags and
+epochs) lives in the ``plans`` dict its caller passes: the engine passes
+its data's (``GibbsData.plans``, ``SGibbsData.plans``), so each entry is
+made at the first sweep over that data and goes with it.  Without
+``plans`` a sweep makes what it needs for that call alone.  This module
+keeps no state.
+
+Each call of a wrapper, card route or plain version, is a span
+``ops.<wrapper>`` (utils/profiling.py) while a profiler records, and each
+launch that returns no error adds to the span's counter
+``ops.launch.<kernel>`` (the profiler's own kernel records can lose some
+on the card; ``hb_sweep_mc``, which launches in a loop, reports its
+launches through an out-parameter, the other entry points launch once and
+return that launch's status): a one-chain sweep over nbg blocks is one persistent
+``sweep1_kernel`` launch (:func:`sweep1_plan`); a K-chain sweep (K >= 2)
 launches ``rows_mc_kernel`` nbg + 1 times and ``draws_kernel`` nbg times;
 ``block_draws`` launches ``draws_kernel`` once; a segment sweep, one or K
-chains, ``segment_sweep`` once (one persistent launch, :func:`segment_plan`);
-a tiled sweep, one or K chains, ``tiled_sweep`` once (one persistent
-launch for every tile row, in the order of :func:`tiled_schedule`); an
-epsilon sweep, one or K chains, ``mme_sweep_kernel`` once (ordered by
-:func:`mme_plan`).
+chains, ``seg_sweep_kernel`` once (one persistent launch,
+:func:`segment_plan`); a tiled sweep, one or K chains,
+``tiled_sweep_kernel`` once (one persistent launch for every tile row, in
+the order of :func:`tiled_schedule`); an epsilon sweep, one or K chains,
+``mme_sweep_kernel`` once (ordered by :func:`mme_plan`).
 """
 
 from __future__ import annotations
 
 import ctypes
-import weakref
-from dataclasses import dataclass, field
+from dataclasses import dataclass
 
 import numpy as np
 import torch
@@ -538,23 +549,27 @@ def tiled_sub_blocks(spec, B: int) -> SubBlocks:
                         lambda W: tiled_smem(W, R, rows_smem=False) <= SMEM_OPTIN)
 
 
-# the kernels' layout of each segment and tile store (by the identity and
-# version of its tensors): made at the first sweep over it and kept for the
-# sweeps after it; an entry goes with any of its tensors
-_LAYOUTS = {}
+def _kept(plans, key, make):
+    """``plans[key]``, made by ``make()`` at the first call that asks for
+    it; without ``plans`` (None), made for this call alone."""
+    if plans is None:
+        return make()
+    if key not in plans:
+        plans[key] = make()
+    return plans[key]
 
 
-def _layout(tensors, sb: SubBlocks, make):
-    key = tuple(id(t) for t in tensors) + (sb,)
-    versions = tuple(t._version for t in tensors)
-    hit = _LAYOUTS.get(key)
-    if hit is not None and all(r() is t for r, t in zip(hit[0], tensors)) and hit[1] == versions:
-        return hit[2]
-    out = make()
-    _LAYOUTS[key] = (tuple(weakref.ref(t) for t in tensors), versions, out)
-    for t in tensors:
-        weakref.finalize(t, _LAYOUTS.pop, key, None)
-    return out
+def _flags(plans, key, n: int, dev) -> dict:
+    """A persistent sweep's flags: at least ``n`` int32 counters whose
+    values run on across sweeps, and the next sweep's epoch (the sweep
+    publishes epoch + 1 ...), kept in ``plans`` under ``key``; without
+    ``plans``, zeroed for this call alone."""
+    st = None if plans is None else plans.get(key)
+    if st is None or st["flags"].numel() < n:
+        st = {"flags": torch.zeros(max(n, 256), dtype=torch.int32, device=dev), "epoch": 0}
+        if plans is not None:
+            plans[key] = st
+    return st
 
 
 def sub_block_genotype(X_blocks, W_blocks, sb: SubBlocks) -> tuple:
@@ -592,36 +607,37 @@ def cross_grams(X_blocks, dtype=F32, batch_bytes: int = 1 << 30):
     """C (nb S, W, W), C[k] = X_k' X_{k-1} over consecutive kernel blocks of
     a genotype in the sweeps' layout (C[0] zero), in ``dtype``, cast in
     batches of at most ``batch_bytes`` (``prepare_gibbs_data`` makes the
-    same as ``GibbsData.C_blocks``).  Made once per genotype tensor for a
-    one-chain sweep called without them (:func:`_layout`)."""
-    def make():
-        nbk, n, W = X_blocks.shape
-        per = max(1, batch_bytes // (n * W * torch.finfo(dtype).bits // 8) - 1)
-        C = torch.empty((nbk, W, W), dtype=dtype, device=X_blocks.device)
-        prev = None
-        for b0 in range(0, nbk, per):
-            Xf = X_blocks[b0:b0 + per].to(dtype)
-            C[b0:b0 + per] = cross_gram_batch(Xf, prev)
-            prev = Xf[-1]
-        return C
+    same as ``GibbsData.C_blocks``)."""
+    nbk, n, W = X_blocks.shape
+    per = max(1, batch_bytes // (n * W * torch.finfo(dtype).bits // 8) - 1)
+    C = torch.empty((nbk, W, W), dtype=dtype, device=X_blocks.device)
+    prev = None
+    for b0 in range(0, nbk, per):
+        Xf = X_blocks[b0:b0 + per].to(dtype)
+        C[b0:b0 + per] = cross_gram_batch(Xf, prev)
+        prev = Xf[-1]
+    return C
 
-    return _layout((X_blocks,), ("cross", dtype), make)
+
+def lookahead_grams(X_blocks, C_blocks=None, plans=None):
+    """The cross-Grams a one-chain sweep's lookahead reads: ``C_blocks``
+    where given (``GibbsData.C_blocks``), else :func:`cross_grams` of the
+    genotype, made at the first sweep and kept in ``plans``."""
+    if C_blocks is not None:
+        return C_blocks
+    return _kept(plans, "cross_grams", lambda: cross_grams(X_blocks))
 
 
 def sub_block_segment(LD_seg, sb: SubBlocks):
     """A dense LD segment (nb B, nb B) in the kernels' layout (nb S W, nb S
     W), pad rows and columns zero: the segment itself where S W = B (its
-    blocks of B are then S blocks of W as stored); else a copy made once."""
+    blocks of B are then S blocks of W as stored); else a copy."""
     if sb.span == sb.B:
         return LD_seg
-
-    def make():
-        nb = LD_seg.shape[0] // sb.B
-        out = torch.zeros((nb * sb.span,) * 2, dtype=LD_seg.dtype, device=LD_seg.device)
-        out.view(nb, sb.span, nb, sb.span)[:, :sb.B, :, :sb.B] = LD_seg.view(nb, sb.B, nb, sb.B)
-        return out
-
-    return _layout((LD_seg,), sb, make)
+    nb = LD_seg.shape[0] // sb.B
+    out = torch.zeros((nb * sb.span,) * 2, dtype=LD_seg.dtype, device=LD_seg.device)
+    out.view(nb, sb.span, nb, sb.span)[:, :sb.B, :, :sb.B] = LD_seg.view(nb, sb.B, nb, sb.B)
+    return out
 
 
 def sub_block_tiles(tiles, cols, valid, sb: SubBlocks) -> tuple:
@@ -631,51 +647,33 @@ def sub_block_tiles(tiles, cols, valid, sb: SubBlocks) -> tuple:
     of row i, in slot order with its diagonal sub-tile (a, a) first, at
     block cols[i, k] S + b, valid as the slot; invalid slots point at their
     own row.  The same SNP order, the same LD entries; pad rows and columns
-    zero.  Made once per store (:func:`_layout`)."""
+    zero."""
     if sb.same:
         return tiles, cols, valid
-
-    def make():
-        nbr, K, B, _ = tiles.shape
-        S, W, span = sb.S, sb.W, sb.span
-        dev = tiles.device
-        if span != B:
-            tp = torch.zeros((nbr, K, span, span), dtype=tiles.dtype, device=dev)
-            tp[:, :, :B, :B] = tiles
-        else:
-            tp = tiles
-        t6 = tp.view(nbr, K, S, W, S, W)
-        out = torch.empty((nbr, S, K * S, W, W), dtype=tiles.dtype, device=dev)
-        c = cols.to(device=dev, dtype=torch.int64)
-        v = valid.to(device=dev, dtype=torch.bool)
-        own = torch.arange(nbr, device=dev)[:, None] * S
-        cols_k = torch.empty((nbr, S, K * S), dtype=torch.int64, device=dev)
-        valid_k = torch.empty((nbr, S, K * S), dtype=torch.bool, device=dev)
-        for a in range(S):
-            slots = [(0, a)] + [(k, b) for k in range(K) for b in range(S) if (k, b) != (0, a)]
-            for q, (k, b) in enumerate(slots):
-                out[:, a, q] = t6[:, k, a, :, b, :]
-                valid_k[:, a, q] = v[:, k]
-                cols_k[:, a, q] = torch.where(v[:, k], c[:, k] * S + b, own[:, 0] + a)
-        return (out.reshape(nbr * S, K * S, W, W).contiguous(),
-                cols_k.reshape(nbr * S, K * S).to(cols.dtype),
-                valid_k.reshape(nbr * S, K * S).to(valid.dtype))
-
-    return _layout((tiles, cols, valid), sb, make)
-
-
-def tile_row_runs(tiles, cols, valid, runs: int) -> tuple:
-    """A tile store's rows in ``runs`` contiguous runs of equal length, each
-    (tiles, cols, valid) views of the store, made once per store
-    (:func:`_layout`): the tiled sweep keeps its schedule per cols tensor,
-    so a sweep over each run finds it from the second sweep on."""
-    nl = tiles.shape[0] // runs
-
-    def make():
-        return tuple(tuple(t[r * nl:(r + 1) * nl] for t in (tiles, cols, valid))
-                     for r in range(runs))
-
-    return _layout((tiles, cols, valid), ("runs", runs), make)
+    nbr, K, B, _ = tiles.shape
+    S, W, span = sb.S, sb.W, sb.span
+    dev = tiles.device
+    if span != B:
+        tp = torch.zeros((nbr, K, span, span), dtype=tiles.dtype, device=dev)
+        tp[:, :, :B, :B] = tiles
+    else:
+        tp = tiles
+    t6 = tp.view(nbr, K, S, W, S, W)
+    out = torch.empty((nbr, S, K * S, W, W), dtype=tiles.dtype, device=dev)
+    c = cols.to(device=dev, dtype=torch.int64)
+    v = valid.to(device=dev, dtype=torch.bool)
+    own = torch.arange(nbr, device=dev)[:, None] * S
+    cols_k = torch.empty((nbr, S, K * S), dtype=torch.int64, device=dev)
+    valid_k = torch.empty((nbr, S, K * S), dtype=torch.bool, device=dev)
+    for a in range(S):
+        slots = [(0, a)] + [(k, b) for k in range(K) for b in range(S) if (k, b) != (0, a)]
+        for q, (k, b) in enumerate(slots):
+            out[:, a, q] = t6[:, k, a, :, b, :]
+            valid_k[:, a, q] = v[:, k]
+            cols_k[:, a, q] = torch.where(v[:, k], c[:, k] * S + b, own[:, 0] + a)
+    return (out.reshape(nbr * S, K * S, W, W).contiguous(),
+            cols_k.reshape(nbr * S, K * S).to(cols.dtype),
+            valid_k.reshape(nbr * S, K * S).to(valid.dtype))
 
 
 def _chain_groups(C: int, G: int) -> list:
@@ -782,42 +780,6 @@ def sweep1_plan(n: int, B: int, R: int, xbytes: int, sms: int,
             "cb": cb, "smem": smem}
 
 
-# the flags of the one-chain sweep on each device: 1 + ntiles unsigned
-# counters (dg published; each tile's partials) whose values run on across
-# sweeps, and the next sweep's epoch (it publishes epoch + 1 .. epoch + nbg)
-_SWEEP1_FLAGS = {}
-
-
-def _sweep1_flags(dev, ntiles: int) -> dict:
-    st = _SWEEP1_FLAGS.get(str(dev))
-    if st is None or st["flags"].numel() < 1 + ntiles:
-        st = {"flags": torch.zeros(1 + max(ntiles, 256), dtype=torch.int32, device=dev),
-              "epoch": 0}
-        _SWEEP1_FLAGS[str(dev)] = st
-    return st
-
-
-def kernel_launches() -> dict:
-    """Launches of each CUDA kernel since :func:`reset_kernel_launches`,
-    counted in the libraries where each kernel is launched."""
-    sweep1, rows_mc, draws = ctypes.c_longlong(), ctypes.c_longlong(), ctypes.c_longlong()
-    build.library().hb_launch_counts(ctypes.byref(sweep1), ctypes.byref(rows_mc),
-                                     ctypes.byref(draws))
-    s = (ctypes.c_longlong * 2)()
-    build.library("sgibbs.cu").hb_s_launch_counts(s)
-    e = ctypes.c_longlong()
-    build.library("mme.cu").hb_mme_launch_counts(ctypes.byref(e))
-    return {"sweep1": sweep1.value, "rows_mc_kernel": rows_mc.value,
-            "draws_kernel": draws.value, "segment_sweep": s[0],
-            "tiled_sweep": s[1], "mme_sweep_kernel": e.value}
-
-
-def reset_kernel_launches() -> None:
-    build.library().hb_reset_launch_counts()
-    build.library("sgibbs.cu").hb_s_reset_launch_counts()
-    build.library("mme.cu").hb_mme_reset_launch_counts()
-
-
 def _require_cuda(*tensors):
     for t in tensors:
         if t.device.type != "cuda":
@@ -859,16 +821,12 @@ def block_sub_blocks(spec, B: int) -> SubBlocks:
 def block_draws_plain(spec, logpi_row, P_b, W_b, r0):
     """Plain version of :func:`block_draws`, in the dtype of ``r0``, by the
     same sub-blocks."""
-    block_draws_plain.calls += 1
     dt = r0.dtype
     draw = lambda P, W, r: _draws_plain(spec, P.to(dt), W.to(dt), r)[1:]
     sb = block_sub_blocks(spec, r0.shape[0])
     if sb.same:
         return draw(P_b, W_b, r0)
     return _sub_block_draws(spec, P_b, W_b, r0, sb, draw)
-
-
-block_draws_plain.calls = 0
 
 
 def _block_draws_launch(spec, P_b, W_b, r0, rows_global=False):
@@ -887,7 +845,7 @@ def _block_draws_launch(spec, P_b, W_b, r0, rows_global=False):
         None if Pg is None else Pg.data_ptr(),
         torch.cuda.current_stream(r0.device).cuda_stream)
     build.check(lib, code, "block_draws")
-    block_draws.launches += 1
+    count("ops.launch.draws_kernel")
     return dg, track
 
 
@@ -915,9 +873,6 @@ def block_draws(spec, logpi_row, P_b, W_b, r0):
     return _sub_block_draws(spec, P_b, W_b, r0, sb,
                             lambda P, W, r: _block_draws_launch(spec, P, W, r,
                                                                 sb.rows_global))
-
-
-block_draws.launches = 0
 
 
 # ---------------------------------------------------------------------------
@@ -966,25 +921,22 @@ def sweep_blocks(spec, consts_b, X_blocks, W_blocks, xpx, vx, vei_b, g_b, z_b, u
 
 def sweep_mc_plain(spec, consts_b, X_blocks, W_blocks, xpx, vx, vei_b, g_b,
                    z_b, u_b, chi_b, z2_b, vargL_b, yadj_b, u_vec_b,
-                   block_range=None, C_blocks=None):
+                   block_range=None):
     """Plain version of :func:`sweep_mc`, in the dtype of ``yadj_b``, by the
     same sub-blocks (:func:`mc_layout`): :func:`sweep_blocks` with the
     plain draws.  On the CPU it takes the role of the JAX engine's
-    ``_sweep_xla``.  ``C_blocks`` is taken and not read: each block's
-    right-hand side is formed from the residual after the block before."""
-    sweep_mc_plain.calls += 1
+    ``_sweep_xla``.  Each block's right-hand side is formed from the
+    residual after the block before (no cross-Grams), and nothing is kept
+    between calls."""
     return sweep_blocks(spec, consts_b, X_blocks, W_blocks, xpx, vx, vei_b, g_b, z_b, u_b,
                         chi_b, z2_b, vargL_b, yadj_b, u_vec_b,
                         lambda P, W, r: _draws_plain(spec, P, W, r), block_range)
 
 
-sweep_mc_plain.calls = 0
-
-
 @spanned("ops.sweep_mc")
 def sweep_mc(spec, consts_b, X_blocks, W_blocks, xpx, vx, vei_b, g_b, z_b,
              u_b, chi_b, z2_b, vargL_b, yadj_b, u_vec_b, block_range=None,
-             stamps=None, C_blocks=None):
+             stamps=None, C_blocks=None, plans=None):
     """Fused K-chain sweep; the contract of ``sweep_mc_t``
     (hibayes_tpu/ops/blockgibbs.py:695-764).
 
@@ -998,13 +950,12 @@ def sweep_mc(spec, consts_b, X_blocks, W_blocks, xpx, vx, vei_b, g_b, z_b,
     local slice.  Any B and fold count: the kernels sweep each block as its
     sub-blocks, the same SNPs in the same order.
     On the card one chain (K = 1) is one persistent launch of
-    ``sweep1_kernel`` (:func:`sweep1_plan`; its flags run on across sweeps
-    on each device, so two one-chain sweeps must not run at once on one
-    device), which forms each block's right-hand side one block ahead and
-    corrects it by the cross-Gram of consecutive blocks: ``C_blocks`` (nb_tot
-    S, W, W), C[k] = X_k' X_{k-1}, indexed globally like W
-    (``GibbsData.C_blocks``; made once per X where not given,
-    :func:`cross_grams`); it counts ``ops.sweep1.blocks`` (blocks launched)
+    ``sweep1_kernel`` (:func:`sweep1_plan`; its flags, kept in ``plans``,
+    run on across sweeps), which forms each block's right-hand side one
+    block ahead and corrects it by the cross-Gram of consecutive blocks:
+    ``C_blocks`` (nb_tot S, W, W), C[k] = X_k' X_{k-1}, indexed globally
+    like W (``GibbsData.C_blocks``; where not given, :func:`cross_grams`,
+    kept in ``plans``); it counts ``ops.sweep1.blocks`` (blocks launched)
     and ``ops.sweep1.lookahead`` (blocks whose right-hand side the lookahead
     formed: all but a launch's first).  K >= 2 chains two launches a
     (sub-)block (``C_blocks`` unused).
@@ -1069,17 +1020,18 @@ def sweep_mc(spec, consts_b, X_blocks, W_blocks, xpx, vx, vei_b, g_b, z_b,
                            props.multi_processor_count,
                            getattr(props, "shared_memory_per_block_optin", SMEM_OPTIN),
                            rows_smem=not sb.rows_global)
-        C = cross_grams(X_blocks) if C_blocks is None else C_blocks
+        C = lookahead_grams(X_blocks, C_blocks, plans)
         if C.dtype != F32 or tuple(C.shape) != (nbk, Bk, Bk) or C.device != dev:
             raise ValueError("sweep_mc: C_blocks must be float32 (nb_tot S, W, W) on X's device")
         C = C.contiguous()
-        fl = _sweep1_flags(dev, ntiles)
+        fl = _flags(plans, "sweep1_flags", 1 + ntiles, dev)
         one = (C.data_ptr(), fl["flags"].data_ptr(), fl["epoch"] & 0xFFFFFFFF, plan["grid"],
                plan["nb0"], plan["nbr"], plan["wb"], plan["cb"])
         count("ops.sweep1.blocks", nbg)
         count("ops.sweep1.lookahead", max(nbg - 1, 0))
     else:
         fl, one = None, (None, None, 0, 0, 0, 0, 0, 0)
+    launched = (ctypes.c_longlong * 3)()
     code = lib.hb_sweep_mc(
         X_blocks.data_ptr(), int(X_blocks.dtype == torch.int8), W.data_ptr(),
         P_blocks.data_ptr(), off, nbg, n, tile,
@@ -1088,18 +1040,19 @@ def sweep_mc(spec, consts_b, X_blocks, W_blocks, xpx, vx, vei_b, g_b, z_b,
         spec.n_fold, yadj.data_ptr(), u.data_ptr(), g_new.data_ptr(),
         dg.data_ptr(), track_f.data_ptr(), partial.data_ptr(), *one,
         None if stamps is None else stamps.data_ptr(), None if Pg is None else Pg.data_ptr(),
-        torch.cuda.current_stream(dev).cuda_stream)
-    if code != 0 and fl is not None:
-        _SWEEP1_FLAGS.pop(str(dev), None)
+        ctypes.addressof(launched), torch.cuda.current_stream(dev).cuda_stream)
+    for kernel, k in zip(("sweep1_kernel", "rows_mc_kernel", "draws_kernel"), launched):
+        if k:
+            count(f"ops.launch.{kernel}", k)
+    if code != 0 and fl is not None and plans is not None:
+        plans.pop("sweep1_flags", None)
     build.check(lib, code, "sweep_mc")
     if fl is not None:
         fl["epoch"] += nbg
-    sweep_mc.launches += 1
     return phase_c_mc(spec, consts_b, vx, vei_b, sb.gather(g_new),
                       sb.gather(track_f).to(torch.int32), u_b, z2_b, vargL_b, yadj, u)
 
 
-sweep_mc.launches = 0
 # capability flag: sweep_mc (and its plain version) sweeps blocks [off, off
 # + nbg) of the whole genotype in place (``block_range``), so a caller that
 # sweeps part of the blocks passes the whole X, never a copy of a slice
@@ -1176,15 +1129,16 @@ def _summary_blocks(P, nb: int, B: int, dt):
     return P.to(dt).reshape(P.shape[0], nb, B).permute(1, 2, 0).unsqueeze(-1)
 
 
-def sweep_s_segment_plain(spec, LD_seg, r_seg, P, n, tally=None):
+def sweep_s_segment_plain(spec, LD_seg, r_seg, P, n, tally=None, plans=None):
     """Plain version of :func:`sweep_s_segment`, in the dtype of ``r_seg``,
-    by the same sub-blocks (:func:`segment_sub_blocks`).  With K chains each
-    chain's update is an elementwise product and a sum of its own, so that
-    it does not depend on the other chains."""
-    sweep_s_segment_plain.calls += 1
+    by the same sub-blocks (:func:`segment_sub_blocks`, the copy kept in
+    ``plans`` as there).  With K chains each chain's update is an
+    elementwise product and a sum of its own, so that it does not depend on
+    the other chains."""
     sb = segment_sub_blocks(spec, spec.block)
-    out = _segment_plain(spec, sb.W, sub_block_segment(LD_seg, sb), sb.spread(r_seg),
-                         _spread_rows(spec, sb, P), n, tally)
+    LDk = _kept(plans, ("segment", sb), lambda: sub_block_segment(LD_seg, sb))
+    out = _segment_plain(spec, sb.W, LDk, sb.spread(r_seg), _spread_rows(spec, sb, P), n,
+                         tally)
     return tuple(sb.gather(t) for t in out)
 
 
@@ -1220,9 +1174,6 @@ def _segment_plain(spec, B, LD_seg, r_seg, P, n, tally):
         dg[:, sl], track[:, sl] = d.T, t.T
     _tally(tally, guard)
     return dg, track.to(torch.int32), r
-
-
-sweep_s_segment_plain.calls = 0
 
 
 SEG_WARPS = 8         # warps of a segment-sweep CTA (csrc/sgibbs.cu kSegWarps)
@@ -1292,20 +1243,6 @@ def segment_rows(o: int, w: int, rw: int, mc: int) -> range:
     return range(min(r0, mc), min(r0 + rw, mc))
 
 
-# the flags of the segment sweep on each device: each chain's and each
-# row-owner CTA's progress, values that run on across sweeps, and the next
-# sweep's epoch (it publishes epoch + 1 .. epoch + nb)
-_SEGMENT_FLAGS = {}
-
-
-def _segment_flags(dev, n: int) -> dict:
-    st = _SEGMENT_FLAGS.get(str(dev))
-    if st is None or st["flags"].numel() < n:
-        st = {"flags": torch.zeros(max(n, 256), dtype=torch.int32, device=dev), "epoch": 0}
-        _SEGMENT_FLAGS[str(dev)] = st
-    return st
-
-
 EXHAUST_SHIFT = 16   # the kernels' guard counts: rejected + (exhausted << 16) (draws.cuh)
 
 
@@ -1318,7 +1255,7 @@ def _guard_counts(nrej) -> torch.Tensor:
 
 
 @spanned("ops.sweep_s_segment")
-def sweep_s_segment(spec, LD_seg, r_seg, P, n, stamps=None, tally=None):
+def sweep_s_segment(spec, LD_seg, r_seg, P, n, stamps=None, tally=None, plans=None):
     """Summary sweep of one or K chains over one padded dense LD segment;
     the contract of ``sweep_s_segment`` (hibayes_tpu/ops/blockgibbs.py:1207-1254)
     for one chain and of ``sweep_s_segment_t`` (:1325-1362) for K.
@@ -1339,23 +1276,24 @@ def sweep_s_segment(spec, LD_seg, r_seg, P, n, stamps=None, tally=None):
 
     Any B and fold count: the kernel sees the blocks as the sub-blocks of
     :func:`segment_sub_blocks` (the segment itself where they tile it, else
-    a copy with inert pad rows made once per segment).
-    On the card the sweep is one persistent launch (:func:`segment_plan`;
-    its flags, per device, run on by an epoch: two segment sweeps must not
-    run at once on one device); a batch whose drawers would leave no SM for
-    the rows runs in groups of chains (:func:`segment_group`), a launch
-    each.  ``stamps`` (the first group's) (measurement only): an int64
-    tensor of at least 12 (mc / B) + 4 entries that gets, per block, the
-    first drawer CTA's clock64 at the chain's start, after the barrier that
-    follows its chains (dg published, the next block staged), after its
-    contribution's sums, after the wait for the rows' owners and with r of
-    the next block ready; the first row-owner CTA's once dg is seen, once
-    the block is applied, after dg is loaded into shared memory, and its
-    first warp's after its tile's wait and after its tile's sums; the
-    first drawer warp's after its draws and after it published dg; then
-    %globaltimer ns and clock64 at the drawer's start and end."""
+    a copy with inert pad rows).  ``plans`` (a dict given to this one
+    segment's sweeps) keeps that copy and the kernel's flags for the sweeps
+    after the first.
+    On the card the sweep is one persistent launch (:func:`segment_plan`; its
+    flags run on across sweeps by an epoch); a batch whose drawers would leave
+    no SM for the rows runs in groups of chains (:func:`segment_group`), a
+    launch each.  ``stamps`` (the first group's) (measurement only): an int64
+    tensor of at least 12 (mc / B) + 4 entries that gets, per block, the first
+    drawer CTA's clock64 at the chain's start, after the barrier that follows
+    its chains (dg published, the next block staged), after its contribution's
+    sums, after the wait for the rows' owners and with r of the next block
+    ready; the first row-owner CTA's once dg is seen, once the block is
+    applied, after dg is loaded into shared memory, and its first warp's after
+    its tile's wait and after its tile's sums; the first drawer warp's after
+    its draws and after it published dg; then %globaltimer ns and clock64 at
+    the drawer's start and end."""
     if r_seg.device.type == "cpu":
-        return sweep_s_segment_plain(spec, LD_seg, r_seg, P, n, tally)
+        return sweep_s_segment_plain(spec, LD_seg, r_seg, P, n, tally, plans)
     _require_cuda(r_seg, LD_seg, P)
     chains = r_seg.dim() == 2
     mc, B, R = LD_seg.shape[0], spec.block, summary_rows(spec)
@@ -1372,7 +1310,7 @@ def sweep_s_segment(spec, LD_seg, r_seg, P, n, stamps=None, tally=None):
     if not LD_seg.is_contiguous() or LD_seg.data_ptr() % 16:
         raise ValueError("sweep_s_segment: LD must be contiguous and 16-byte aligned")
     sb = segment_sub_blocks(spec, B)
-    LDk = sub_block_segment(LD_seg, sb)
+    LDk = _kept(plans, ("segment", sb), lambda: sub_block_segment(LD_seg, sb))
     rk, Pk = sb.spread(r_seg), _spread_rows(spec, sb, P)
     mck, Bk = LDk.shape[0], sb.W
     nb = mck // Bk
@@ -1387,11 +1325,11 @@ def sweep_s_segment(spec, LD_seg, r_seg, P, n, stamps=None, tally=None):
     G = segment_group(mck, Bk, K, R, sms, optin, not glob)
     if not chains:
         out = _segment_launch(spec, LDk, rk[None], Pk[None], n, Bk, G, sms, optin, stamps,
-                              tally if tally is None else tally[None], glob)
+                              tally if tally is None else tally[None], glob, plans)
         return tuple(sb.gather(t[0]) for t in out)
     parts = [_segment_launch(spec, LDk, rk[g], Pk[g], n, Bk, min(G, g.stop - g.start), sms,
                              optin, stamps if g.start == 0 else None,
-                             None if tally is None else tally[g], glob)
+                             None if tally is None else tally[g], glob, plans)
              for g in _chain_groups(K, G)]
     return tuple(sb.gather(torch.cat(t, dim=0)) for t in zip(*parts))
 
@@ -1414,18 +1352,19 @@ def segment_group(mc: int, B: int, K: int, R: int, sms: int, optin: int = SMEM_O
 
 
 def _segment_launch(spec, LD_seg, r_seg, P, n, B, K, sms, optin, stamps, tally,
-                    rows_global=False):
+                    rows_global=False, plans=None):
     """One launch of the segment sweep for K chains (r_seg (K, mc), P (K, R,
     mc)) at blocks of B; returns (dg, track int32, r), each (K, mc).
     ``rows_global``: the draws read the packed rows from a SNP-major copy at
-    padded_stride(R) in global memory."""
+    padded_stride(R) in global memory.  The flags (each chain's and each
+    row-owner CTA's progress) are kept in ``plans``."""
     guard = guard_on(spec)
     mc, R = LD_seg.shape[0], P.shape[1]
     nb = mc // B
     lib = build.library("sgibbs.cu")
     dev = r_seg.device
     plan = segment_plan(mc, B, K, R, sms, optin, not rows_global)
-    fl = _segment_flags(dev, K + plan["nown"])
+    fl = _flags(plans, "segment_flags", K + plan["nown"], dev)
     Pc = P.contiguous()
     Pg = snp_major_rows(Pc.transpose(1, 2)) if rows_global else None
     r = r_seg.clone(memory_format=torch.contiguous_format)
@@ -1441,23 +1380,20 @@ def _segment_launch(spec, LD_seg, r_seg, P, n, B, K, sms, optin, stamps, tally,
         plan["cpc"], plan["nown"], plan["rw"], plan["kch"], plan["trows"], plan["lds"],
         None if stamps is None else stamps.data_ptr(), None if Pg is None else Pg.data_ptr(),
         torch.cuda.current_stream(dev).cuda_stream)
-    if code != 0:
-        _SEGMENT_FLAGS.pop(str(dev), None)
+    if code != 0 and plans is not None:
+        plans.pop("segment_flags", None)
     build.check(lib, code, "sweep_s_segment")
     fl["epoch"] += nb
-    sweep_s_segment.launches += 1
+    count("ops.launch.seg_sweep_kernel")
     if guard:
         _tally(tally, _guard_counts(nrej))
     return dg, track.to(torch.int32), r
 
 
-sweep_s_segment.launches = 0
-
-
 @dataclass
 class TiledSchedule:
     """The order of the tiled sweep's contributions, built on the host once
-    per layout (:func:`tiled_schedule`), and its counters on each device.
+    per layout (:func:`tiled_schedule`).
 
     A contribution is a valid slot (i, k): r_hat[block cols[i, k]] += n
     tiles[i, k]^T dg_i.  ``need[i]`` contributions reach block i from rows
@@ -1480,7 +1416,6 @@ class TiledSchedule:
     items: np.ndarray
     total: np.ndarray
     row_base: int = 0
-    _state: dict = field(default_factory=dict, repr=False)
 
     @property
     def nbr(self) -> int:
@@ -1490,27 +1425,19 @@ class TiledSchedule:
     def nblocks(self) -> int:
         return int(self.total.shape[0])
 
-    def device_state(self, dev, chains: int = 1):
-        """The schedule's tensors and the counters of a sweep of ``chains``
-        chains on ``dev`` (made, zeroed, once for each chain count: a batch
-        never shares the one-chain sweep's counters) and the next sweep's
-        epoch: sweep e starts with cnt[c, t] = e total[t] and publishes row
-        flags e + 1, so nothing is reset between sweeps."""
-        key = (str(dev), chains)
-        if key not in self._state:
-            i32 = lambda a: torch.as_tensor(np.ascontiguousarray(a, dtype=np.int32), device=dev)
-            self._state[key] = {
-                "need": i32(self.need), "nxt": i32(self.nxt), "total": i32(self.total),
-                "items": i32(self.items.reshape(-1, 4)),
-                "cnt": torch.zeros((chains, self.nblocks), dtype=torch.int32, device=dev),
-                "flags": torch.zeros((chains, self.nbr), dtype=torch.int32, device=dev),
-                "epoch": 0}
-        return self._state[key]
 
-    def forget(self, dev, chains: int = 1) -> None:
-        """Drop the counters of ``chains`` chains on ``dev`` (after a failed
-        sweep)."""
-        self._state.pop((str(dev), chains), None)
+def tiled_counters(schedule: TiledSchedule, dev, chains: int = 1) -> dict:
+    """The schedule's tensors on ``dev`` and the counters of a sweep of
+    ``chains`` chains (zeroed; a batch never shares the one-chain sweep's
+    counters) with the next sweep's epoch: sweep e starts with cnt[c, t] =
+    e total[t] and publishes row flags e + 1, so nothing is reset between
+    sweeps."""
+    i32 = lambda a: torch.as_tensor(np.ascontiguousarray(a, dtype=np.int32), device=dev)
+    return {"need": i32(schedule.need), "nxt": i32(schedule.nxt),
+            "total": i32(schedule.total), "items": i32(schedule.items.reshape(-1, 4)),
+            "cnt": torch.zeros((chains, schedule.nblocks), dtype=torch.int32, device=dev),
+            "flags": torch.zeros((chains, schedule.nbr), dtype=torch.int32, device=dev),
+            "epoch": 0}
 
 
 def tiled_schedule(cols, valid, row_base: int = 0, nblocks=None) -> TiledSchedule:
@@ -1554,32 +1481,38 @@ def tiled_schedule(cols, valid, row_base: int = 0, nblocks=None) -> TiledSchedul
                          total=np.bincount(tgt, minlength=nb), row_base=int(row_base))
 
 
-# the schedule of each layout's cols tensor (by identity), with weak
-# references to it and its valid tensor and both tensors' versions: a sweep
-# over the same layout reuses it; an entry goes with its cols tensor
-_SCHEDULES = {}
+def _tiled_store(spec, tiles, cols, valid, row_base: int, plans) -> tuple:
+    """The tiled sweep's tiles (:func:`tiled_sub_blocks`), the key of the
+    store's rows (``row_base`` and their count) in ``plans``, and the store
+    re-tiled into them (:func:`sub_block_tiles`), kept there."""
+    sb = tiled_sub_blocks(spec, tiles.shape[2])
+    key = ("tiles", sb, row_base, tiles.shape[0])
+    return sb, key, _kept(plans, key, lambda: sub_block_tiles(tiles, cols, valid, sb))
 
 
-def _layout_schedule(cols, valid, row_base: int = 0, nblocks=None) -> TiledSchedule:
-    versions = (cols._version, valid._version, row_base, nblocks)
-    hit = _SCHEDULES.get(id(cols))
-    if hit is None or hit[0]() is not cols or hit[1]() is not valid or hit[2] != versions:
-        hit = (weakref.ref(cols), weakref.ref(valid), versions,
-               tiled_schedule(cols, valid, row_base, nblocks))
-        _SCHEDULES[id(cols)] = hit
-        weakref.finalize(cols, _SCHEDULES.pop, id(cols), None)
-    return hit[3]
+def tiled_plan(spec, tiles, cols, valid, row_base: int = 0, nblocks=None, plans=None) -> tuple:
+    """What the tiled sweep launches on the card from the rows of a store
+    at ``row_base`` of ``nblocks`` blocks of B (default: the store's rows):
+    (sub-blocks, the store re-tiled into them, the schedule of its
+    contributions (:func:`tiled_schedule`), the key of its counters in
+    ``plans``), made at the first call for these rows and kept in
+    ``plans``."""
+    nb = tiles.shape[0] if nblocks is None else int(nblocks)
+    sb, key, (tk, ck, vk) = _tiled_store(spec, tiles, cols, valid, row_base, plans)
+    key += (nb,)
+    schedule = _kept(plans, key + ("schedule",),
+                     lambda: tiled_schedule(ck, vk, row_base * sb.S, nb * sb.S))
+    return sb, tk, schedule, key
 
 
-def sweep_s_tiled_plain(spec, tiles, cols, valid, r_hat, P, n, tally=None, row_base=0):
+def sweep_s_tiled_plain(spec, tiles, cols, valid, r_hat, P, n, tally=None, row_base=0,
+                        plans=None):
     """Plain version of :func:`sweep_s_tiled`, in the dtype of ``r_hat``, on
     the same tiles (:func:`tiled_sub_blocks`): one chain, or C chains drawn
     side by side (each chain's draws elementwise, each contribution a
     product of its own), chain c bit for bit the one-chain call on chain c's
-    inputs.  ``row_base`` as there."""
-    sweep_s_tiled_plain.calls += 1
-    sb = tiled_sub_blocks(spec, tiles.shape[2])
-    tk, ck, vk = sub_block_tiles(tiles, cols, valid, sb)
+    inputs.  ``row_base`` and ``plans`` as there."""
+    sb, _, (tk, ck, vk) = _tiled_store(spec, tiles, cols, valid, row_base, plans)
     dg, track, r, rej = _tiled_plain(spec, tk, ck, vk, sb.spread(r_hat),
                                      _spread_rows(spec, sb, P), n, tally, row_base * sb.S)
     return sb.gather(dg), sb.gather(track), sb.gather(r), rej
@@ -1614,12 +1547,9 @@ def _tiled_plain(spec, tiles, cols, valid, r_hat, P, n, tally, row_base=0):
     return dg, track.to(torch.int32), r, guard[:, 0].clone()
 
 
-sweep_s_tiled_plain.calls = 0
-
-
 @spanned("ops.sweep_s_tiled")
 def sweep_s_tiled(spec, tiles, cols, valid, r_hat, P, n, stamps=None, tally=None,
-                  row_base=0):
+                  row_base=0, plans=None):
     """Summary sweep of one chain or a batch of C chains over every tile row
     of a tiled sparse LD, or over a shard of its rows; the contract of
     ``sweep_s_tiled`` (hibayes_tpu/ops/blockgibbs.py:1730-1792), for each
@@ -1642,27 +1572,28 @@ def sweep_s_tiled(spec, tiles, cols, valid, r_hat, P, n, stamps=None, tally=None
     count and the count of draws whose every candidate failed added.  Any
     tile and fold count: the kernel sweeps the store re-tiled into the
     tiles of :func:`tiled_sub_blocks` (the store itself where it takes B as
-    it is: 64 or 128 from ``ldmat``; else :func:`sub_block_tiles`, made
-    once per store), the same SNPs in the same order.
+    it is: 64 or 128 from ``ldmat``; else :func:`sub_block_tiles`), the
+    same SNPs in the same order.  ``plans`` (the dict of the data whose
+    store this is) keeps the re-tiled store, the schedule and its counters
+    for the sweeps after the first, keyed by ``row_base``, the blocks and
+    (the counters) the chain count.
 
-    On the card the sweep is one launch that applies the contributions in
-    the order of :func:`tiled_schedule` of cols and valid, built at the
-    first sweep over these two tensors (anew if either is changed in
-    place) and kept with its counters (per chain count) for the sweeps
-    after it.  A batch is the same launch with a drawer CTA per chain and
-    each contribution's tile read once for all chains; chain c is bit for
-    bit a one-chain launch on chain c's inputs.  The grid (the drawers and
-    at least one CTA for the contributions) must be resident at once, so a
-    batch larger than that runs in groups of
-    chains, a launch each, in order (:func:`tiled_group`), which changes
-    no number.  ``stamps`` (measurement only;
-    chain 0's): an int64 tensor of at least 4 nbr + 4 entries that gets the
-    drawer's clock64 at four points of each row (before its draws, after
-    them, after the barrier that waits for the next row's loads, after its
-    own contribution), then %globaltimer ns and clock64 at the sweep's
-    start and end, nbr the rows of the re-tiled store."""
+    On the card the sweep is one launch that applies the contributions in the
+    order of :func:`tiled_schedule` of cols and valid.  A batch is the same
+    launch with a drawer CTA per chain and each contribution's tile read once
+    for all chains; chain c is bit for bit a one-chain launch on chain c's
+    inputs.  The grid (the drawers and at least one CTA for the contributions)
+    must be resident at once, so a batch larger than that runs in groups of
+    chains, a launch each, in order (:func:`tiled_group`), which changes no
+    number.  ``stamps`` (measurement only; chain 0's): an int64 tensor of at
+    least 4 nbr + 4 entries that gets the drawer's clock64 at four points of
+    each row (before its draws, after them, after the barrier that waits for
+    the next row's loads, after its own contribution), then %globaltimer ns and
+    clock64 at the sweep's start and end, nbr the rows of the re-tiled
+    store."""
     if r_hat.device.type == "cpu":
-        return sweep_s_tiled_plain(spec, tiles, cols, valid, r_hat, P, n, tally, row_base)
+        return sweep_s_tiled_plain(spec, tiles, cols, valid, r_hat, P, n, tally, row_base,
+                                   plans)
     _require_cuda(r_hat, tiles, cols, valid, P)
     nbr, K, B, _ = tiles.shape
     lead = tuple(r_hat.shape[:-1])
@@ -1682,9 +1613,7 @@ def sweep_s_tiled(spec, tiles, cols, valid, r_hat, P, n, stamps=None, tally=None
                          f"do not fit (R = {R}, row_base = {row_base})")
     if not tiles.is_contiguous() or tiles.data_ptr() % 16:
         raise ValueError("sweep_s_tiled: tiles must be contiguous and 16-byte aligned")
-    sb = tiled_sub_blocks(spec, B)
-    tk, ck, vk = sub_block_tiles(tiles, cols, valid, sb)
-    schedule = _layout_schedule(ck, vk, row_base * sb.S, nb * sb.S)
+    sb, tk, schedule, key = tiled_plan(spec, tiles, cols, valid, row_base, nb, plans)
     if stamps is not None and (stamps.dtype != torch.int64
                                or stamps.numel() < 4 * tk.shape[0] + 4):
         raise ValueError("sweep_s_tiled: stamps must be int64, 4 per row + 4")
@@ -1693,12 +1622,12 @@ def sweep_s_tiled(spec, tiles, cols, valid, r_hat, P, n, stamps=None, tally=None
     G = tiled_group(spec, sb.W, schedule.items.shape[0], glob)
     if not lead:
         out = _tiled_launch(spec, tk, schedule, rk[None], Pk[None], n, stamps,
-                            tally if tally is None else tally[None], glob)
+                            tally if tally is None else tally[None], glob, plans, key)
         dg, track, r, counts = (t[0] for t in out)
     else:
         parts = [_tiled_launch(spec, tk, schedule, rk[g], Pk[g], n,
                                stamps if g.start == 0 else None,
-                               None if tally is None else tally[g], glob)
+                               None if tally is None else tally[g], glob, plans, key)
                  for g in _chain_groups(C, G)]
         dg, track, r, counts = (torch.cat(t, dim=0) for t in zip(*parts))
     return sb.gather(dg), sb.gather(track), sb.gather(r), counts[..., 0]
@@ -1716,17 +1645,21 @@ def tiled_group(spec, B: int, nitems: int, rows_global: bool = False) -> int:
     return max(1, out.value - (1 if nitems else 0))
 
 
-def _tiled_launch(spec, tiles, schedule, r_hat, P, n, stamps, tally, rows_global=False):
+def _tiled_launch(spec, tiles, schedule, r_hat, P, n, stamps, tally, rows_global=False,
+                  plans=None, key=()):
     """One launch of the tiled sweep for C chains (r_hat (C, nb B), P (C,
     R, nbr B)) over the schedule's rows; returns (dg, track int32, r_hat,
     guard counts (C, 2)).  ``rows_global``: the draws read the packed rows
-    from a SNP-major copy at padded_stride(R) in global memory."""
+    from a SNP-major copy at padded_stride(R) in global memory.  The
+    counters (:func:`tiled_counters`) are kept in ``plans`` under ``key``
+    and the chain count."""
     nbr, K, B, _ = tiles.shape
     C, R = r_hat.shape[0], P.shape[1]
     guard = guard_on(spec)
     lib = build.library("sgibbs.cu")
     dev = r_hat.device
-    st = schedule.device_state(dev, C)
+    ck = key + ("counters", C)
+    st = _kept(plans, ck, lambda: tiled_counters(schedule, dev, C))
     Pc = P.contiguous()
     Pg = snp_major_rows(Pc.transpose(1, 2)) if rows_global else None
     r = r_hat.clone(memory_format=torch.contiguous_format)
@@ -1742,17 +1675,14 @@ def _tiled_launch(spec, tiles, schedule, r_hat, P, n, stamps, tally, rows_global
         st["cnt"].data_ptr(), st["flags"].data_ptr(), st["epoch"] & 0xFFFFFFFF,
         None if stamps is None else stamps.data_ptr(), None if Pg is None else Pg.data_ptr(),
         torch.cuda.current_stream(dev).cuda_stream)
-    if code != 0:
-        schedule.forget(dev, C)
+    if code != 0 and plans is not None:
+        plans.pop(ck, None)
     build.check(lib, code, "sweep_s_tiled")
     st["epoch"] += 1
-    sweep_s_tiled.launches += 1
+    count("ops.launch.tiled_sweep_kernel")
     counts = _guard_counts(nrej)
     _tally(tally, counts)
     return dg, track.to(torch.int32), r, counts
-
-
-sweep_s_tiled.launches = 0
 
 
 def chain_latency(spec, W_b, P_b, r0, reps, vary=None):
@@ -1805,12 +1735,8 @@ def mme_block_draws_plain(W, r0, invd, noise):
     block's T sequential single-site draw deltas
     dx_j = (r0_j - sum_{i<j} W[j, i] dx_i) invd_j + noise_j.  W (T, T);
     r0, invd, noise (T,); padded sites carry invd = noise = 0, so dx = 0."""
-    mme_block_draws_plain.calls += 1
     dt = r0.dtype
     return _mme_draws(W.to(dt), r0.clone(), invd.to(dt), noise.to(dt))
-
-
-mme_block_draws_plain.calls = 0
 
 
 def _block_constants(Wd_i, cnt, scale, ve, z):
@@ -1833,7 +1759,6 @@ def mme_sweep_plain(sp, counts, scale, ve, z, x, res):
     chain, or K chains drawn side by side (each chain's draws elementwise,
     its scatter sums on their own), chain k bit for bit the one-chain call
     on chain k's inputs."""
-    mme_sweep_plain.calls += 1
     dt, dev = res.dtype, res.device
     nbr, T, _ = sp.diag_blocks.shape
     one = res.dim() == 1
@@ -1860,9 +1785,6 @@ def mme_sweep_plain(sp, counts, scale, ve, z, x, res):
                 res[k, rows] -= scale[k] * torch.segment_reduce(terms[k], "sum",
                                                                 lengths=lengths)
     return (x_new[0], res[0]) if one else (x_new, res)
-
-
-mme_sweep_plain.calls = 0
 
 
 MME_RECORD_HEAD = 8   # ints of an epsilon record before its row pointers (csrc/mme.cu kRecHead)
@@ -1979,22 +1901,8 @@ class MmePlan:
     ent: torch.Tensor       # (nent, 2) int32: (column, value bits) of every triplet
 
 
-# the plan of each layout (by the identity of its tensors and the blocks
-# swept), with weak references to them and their versions: a sweep over the
-# same layout reuses it; an entry goes with its diagonal blocks
-_MME_PLANS = {}
-
-
 def mme_plan(sp, nbr: int) -> MmePlan:
-    """The plan of layout ``sp`` swept over blocks 0 .. nbr - 1, built on
-    the first sweep (anew if one of its tensors is changed in place) and
-    kept for the sweeps after it."""
-    ts = (sp.diag_blocks, sp.blk_ptr, sp.urow, sp.row_ptr, sp.ent_col, sp.ent_val)
-    key = tuple(id(t) for t in ts) + (nbr,)
-    versions = tuple(t._version for t in ts)
-    hit = _MME_PLANS.get(key)
-    if hit is not None and all(r() is t for r, t in zip(hit[0], ts)) and hit[1] == versions:
-        return hit[2]
+    """The plan of layout ``sp`` swept over blocks 0 .. nbr - 1."""
     T = sp.diag_blocks.shape[1]
     host = mme_plan_host(sp.blk_ptr, sp.urow, sp.row_ptr, sp.ent_col, sp.ent_val, nbr, T)
     dev, TM = sp.diag_blocks.device, host["TM"]
@@ -2004,16 +1912,12 @@ def mme_plan(sp, nbr: int) -> MmePlan:
                       dim=1).contiguous()
     if ent.shape[0] == 0:
         ent = torch.zeros((1, 2), dtype=torch.int32, device=dev)
-    plan = MmePlan(host=host, Dt=Dt,
-                   rec=torch.as_tensor(host["rec"], device=dev),
+    return MmePlan(host=host, Dt=Dt, rec=torch.as_tensor(host["rec"], device=dev),
                    far_rows=torch.as_tensor(host["far_rows"], device=dev), ent=ent)
-    _MME_PLANS[key] = (tuple(weakref.ref(t) for t in ts), versions, plan)
-    weakref.finalize(sp.diag_blocks, _MME_PLANS.pop, key, None)
-    return plan
 
 
 @spanned("ops.mme_sweep")
-def mme_sweep(sp, counts, scale, ve, z, x, res, stamps=None):
+def mme_sweep(sp, counts, scale, ve, z, x, res, stamps=None, plans=None):
     """The epsilon sweep of ``blocked_mme_gibbs_sparse``
     (hibayes_tpu/engine/gibbs.py:576-654) after its residual, for one chain
     or a batch of K: for each diagonal block i in order, the T site draws
@@ -2032,8 +1936,9 @@ def mme_sweep(sp, counts, scale, ve, z, x, res, stamps=None):
     layout with diag_blocks[:k] and blk_ptr[:k + 1], and counts, z, x cut
     to k T.  On the card: float32 only, T <= 128, one launch (a CTA a
     chain, each chain bit for bit a one-chain launch on its inputs),
-    ordered by :func:`mme_plan` of the layout (built at the first sweep
-    over it).  ``stamps`` (measurement only; chain 0's): an int64 tensor of
+    ordered by :func:`mme_plan` of the layout (made at the first sweep over
+    it and kept in ``plans``, the dict of the data that holds the layout,
+    by the blocks swept).  ``stamps`` (measurement only; chain 0's): an int64 tensor of
     at least 6 (nbr + 1) + 4 entries that gets clock64 stamps per block
     (its chain's start and end and the drawer's end, the end of its
     scatter, and the ends of warp 3's and the loader's work in its phase),
@@ -2064,7 +1969,7 @@ def mme_sweep(sp, counts, scale, ve, z, x, res, stamps=None):
                                or stamps.numel() < 6 * (nbr + 1) + 4):
         raise ValueError("mme_sweep: stamps must be int64 on the card, 6 per block + 10")
     dev = res.device
-    plan = mme_plan(sp, nbr)
+    plan = _kept(plans, ("mme", nbr), lambda: mme_plan(sp, nbr))
     if plan.host["max_row"] >= res.shape[-1]:
         raise ValueError(f"mme_sweep: a triplet row ({plan.host['max_row']}) lies past "
                          f"res ({res.shape[-1]})")
@@ -2091,11 +1996,8 @@ def mme_sweep(sp, counts, scale, ve, z, x, res, stamps=None):
         None if stamps is None else stamps.data_ptr(),
         torch.cuda.current_stream(dev).cuda_stream)
     build.check(lib, code, "mme_sweep")
-    mme_sweep.launches += 1
+    count("ops.launch.mme_sweep_kernel")
     return x_new, r
-
-
-mme_sweep.launches = 0
 
 
 def mme_chain_latency(W, counts, z, scale, ve, r0, reps):

@@ -98,12 +98,8 @@ def library(source: str = SOURCES[0]) -> ctypes.CDLL:
         lib.hb_block_draws.argtypes = [_P, _P, _P, _I, _I, _I, _I, _I, _P, _P, _P, _P]
         lib.hb_block_draws.restype = _I
         lib.hb_sweep_mc.argtypes = ([_P, _I, _P, _P] + [_I] * 13 + [_P] * 8
-                                    + [ctypes.c_uint] + [_I] * 5 + [_P] * 3)
+                                    + [ctypes.c_uint] + [_I] * 5 + [_P] * 4)
         lib.hb_sweep_mc.restype = _I
-        lib.hb_launch_counts.argtypes = [ctypes.POINTER(ctypes.c_longlong)] * 3
-        lib.hb_launch_counts.restype = None
-        lib.hb_reset_launch_counts.argtypes = []
-        lib.hb_reset_launch_counts.restype = None
     elif source == "sgibbs.cu":
         lib.hb_sweep_s_segment.argtypes = [_P, _P, _I, _I, _I, _I, _I, _I, _I, _F,
                                            _F, _P, _P, _P, _P, _P, _P, ctypes.c_uint,
@@ -119,10 +115,6 @@ def library(source: str = SOURCES[0]) -> ctypes.CDLL:
         lib.hb_tiled_resident.argtypes = [_I, _I, _I, _I, _I,
                                           ctypes.POINTER(ctypes.c_longlong)]
         lib.hb_tiled_resident.restype = _I
-        lib.hb_s_launch_counts.argtypes = [ctypes.POINTER(ctypes.c_longlong)]
-        lib.hb_s_launch_counts.restype = None
-        lib.hb_s_reset_launch_counts.argtypes = []
-        lib.hb_s_reset_launch_counts.restype = None
     else:
         _L = ctypes.c_longlong
         lib.hb_mme_sweep.argtypes = [_P] * 11 + [_L, _L, _L, _I, _I, _I, _I, _P, _P]
@@ -131,10 +123,6 @@ def library(source: str = SOURCES[0]) -> ctypes.CDLL:
         lib.hb_mme_smem_bytes.restype = _L
         lib.hb_mme_chain_latency.argtypes = [_P] * 6 + [_I, _I, _P, _P, _P]
         lib.hb_mme_chain_latency.restype = _I
-        lib.hb_mme_launch_counts.argtypes = [ctypes.POINTER(ctypes.c_longlong)]
-        lib.hb_mme_launch_counts.restype = None
-        lib.hb_mme_reset_launch_counts.argtypes = []
-        lib.hb_mme_reset_launch_counts.restype = None
     return lib
 
 

@@ -27,27 +27,20 @@ the program's store (utils/profiling.py): ``parallel.axis_sum``,
 around the copies it makes and the call into torch.distributed, with the
 counter ``parallel.bytes``: the bytes of this rank's own part (the tensor
 it sums, its part of a gather, what it sends a hop; a broadcast's bytes on
-its source rank alone).  ``COLLECTIVES``, when ``timed`` is set, sums the
-seconds spent in the collectives (the device synchronised before and after
-each, so a rank's wait for another is counted): a measurement hook, off in
-use.
+its source rank alone).  Those spans are the only record of what the
+collectives did and how long they took (``scripts/span_breakdown.py``, the
+benchmark's ``collective_ms`` and ``collective_mb_per_iter``); this module
+keeps no state.
 """
 
 from __future__ import annotations
 
 import os
-import time
 
 import numpy as np
 import torch
 
 from ..utils.profiling import count, span
-
-COLLECTIVES = {"timed": False, "seconds": 0.0}
-
-
-def reset_collective_timer(timed: bool = False) -> None:
-    COLLECTIVES.update(timed=timed, seconds=0.0)
 
 
 def init_multihost(coordinator_address=None, num_processes=None, process_id=None,
@@ -86,20 +79,6 @@ def _nbytes(t: torch.Tensor) -> int:
     return t.numel() * t.element_size()
 
 
-def _timed(fn, dev):
-    if not COLLECTIVES["timed"]:
-        return fn()
-    cuda = dev.type == "cuda"
-    if cuda:
-        torch.cuda.synchronize(dev)
-    t0 = time.perf_counter()
-    out = fn()
-    if cuda:
-        torch.cuda.synchronize(dev)
-    COLLECTIVES["seconds"] += time.perf_counter() - t0
-    return out
-
-
 def axis_sum(t: torch.Tensor, mesh, axis: str) -> torch.Tensor:
     """The sum of ``t`` over the ranks of ``axis`` (every rank gets it);
     ``t`` itself where the axis has one rank."""
@@ -110,12 +89,8 @@ def axis_sum(t: torch.Tensor, mesh, axis: str) -> torch.Tensor:
     with span("parallel.axis_sum"):
         count("parallel.bytes", _nbytes(t))
         buf = t.contiguous().clone()
-
-        def run():
-            dist.all_reduce(buf, group=mesh.group(axis))
-            return buf
-
-        return _timed(run, t.device)
+        dist.all_reduce(buf, group=mesh.group(axis))
+        return buf
 
 
 def broadcast(t: torch.Tensor, mesh, axis: str, src: int) -> torch.Tensor:
@@ -129,12 +104,8 @@ def broadcast(t: torch.Tensor, mesh, axis: str, src: int) -> torch.Tensor:
     with span("parallel.broadcast"):
         count("parallel.bytes", _nbytes(t) if mesh.index(axis) == src else 0)
         buf = t.contiguous().clone()
-
-        def run():
-            dist.broadcast(buf, src=mesh.ranks(axis)[src], group=mesh.group(axis))
-            return buf
-
-        return _timed(run, t.device)
+        dist.broadcast(buf, src=mesh.ranks(axis)[src], group=mesh.group(axis))
+        return buf
 
 
 def all_gather(t: torch.Tensor, mesh, axis: str, dim: int = -1,
@@ -159,12 +130,7 @@ def all_gather(t: torch.Tensor, mesh, axis: str, dim: int = -1,
             x = torch.cat([x, torch.zeros(pad, dtype=x.dtype, device=x.device)], dim=dim)
         x = x.contiguous()
         parts = [torch.empty_like(x) for _ in range(S)]
-
-        def run():
-            dist.all_gather(parts, x, group=mesh.group(axis))
-            return parts
-
-        _timed(run, t.device)
+        dist.all_gather(parts, x, group=mesh.group(axis))
         if total is not None:
             parts = [p.narrow(dim, 0, max(0, min(per, total - i * per)))
                      for i, p in enumerate(parts)]
@@ -197,17 +163,12 @@ def ring_hop(tensors, mesh, axis: str) -> tuple:
         host = dev.type == "cuda" and dist.get_backend(grp) == "gloo"   # no CUDA send/recv
         send = [t.contiguous().cpu() if host else t.contiguous() for t in tensors]
         recv = [torch.empty_like(t) for t in send]
-
-        def run():
-            ops = []
-            for s, r in zip(send, recv):
-                ops.append(dist.P2POp(dist.isend, s, nxt, grp))
-                ops.append(dist.P2POp(dist.irecv, r, prv, grp))
-            for w in dist.batch_isend_irecv(ops):
-                w.wait()
-            return recv
-
-        _timed(run, dev)
+        ops = []
+        for s, r in zip(send, recv):
+            ops.append(dist.P2POp(dist.isend, s, nxt, grp))
+            ops.append(dist.P2POp(dist.irecv, r, prv, grp))
+        for w in dist.batch_isend_irecv(ops):
+            w.wait()
         return tuple(r.to(dev) if host else r for r in recv)
 
 

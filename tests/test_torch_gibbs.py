@@ -52,8 +52,9 @@ def _assert_data_equal(ref, out, int8):
     assert float(out.C_blocks[0].abs().max()) == 0.0
     assert torch.equal(out.C_blocks[1:].to(torch.float64),
                        torch.bmm(Xd[1:].transpose(1, 2), Xd[:-1]))
+    assert out.plans == {}   # the sweeps' state, made at the first sweep
     for name in TG.GibbsData._fields:
-        if name in ("block", "r_segs", "epsl_segs", "C_blocks"):
+        if name in ("block", "r_segs", "epsl_segs", "C_blocks", "plans"):
             continue
         r, o = getattr(ref, name), getattr(out, name)
         if name in ("X_blocks", "W_blocks"):

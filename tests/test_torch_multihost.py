@@ -22,7 +22,6 @@ import hibayes_tpu_torch as htt
 from hibayes_tpu_torch import cli
 from hibayes_tpu_torch.data.plink import encode_bed_bytes, read_plink
 from hibayes_tpu_torch.engine import gibbs as TG
-from hibayes_tpu_torch.parallel import distributed
 from hibayes_tpu_torch.parallel.mesh import make_mesh
 
 from .torch_dist import _multihost_chain, spawn
@@ -222,4 +221,3 @@ def test_cli_shards_outside_torchrun(tmp_path):
     assert not os.path.exists(tmp_path / "fit.alpha.tsv")
     with pytest.raises(RuntimeError, match="torchrun"):
         cli._shard_mesh(2, "cpu")
-    assert not distributed.COLLECTIVES["timed"]

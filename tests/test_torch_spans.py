@@ -373,8 +373,10 @@ def test_one_chain_sweeps_count_their_lookahead():
     """On the card: each one-chain sweep counts its kernel blocks launched
     (ops.sweep1.blocks, nbg) and the blocks whose right-hand side the
     lookahead formed (ops.sweep1.lookahead, nbg - 1) in its ops.sweep_mc
-    span; a four-chain sweep counts neither; sweep1_lookahead_pct reads
-    100 (nbg - 1) / nbg of a chain's iterations."""
+    span, beside its one sweep1_kernel launch; a four-chain sweep counts
+    neither, only its launches (nbg + 1 of rows_mc_kernel, nbg of
+    draws_kernel); sweep1_lookahead_pct reads 100 (nbg - 1) / nbg of a
+    chain's iterations."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device")
     spec, data, pr, pi = ibrm(niter=4, device="cuda")
@@ -385,8 +387,10 @@ def test_one_chain_sweeps_count_their_lookahead():
     counts = [r.counts or {} for r in recs if r.name == "ops.sweep_mc"]
     assert len(counts) == 2 * spec.niter_eff
     one, four = counts[:spec.niter_eff], counts[spec.niter_eff:]
-    assert all(c == {"ops.sweep1.blocks": nbg, "ops.sweep1.lookahead": nbg - 1} for c in one)
-    assert all("ops.sweep1.blocks" not in c and "ops.sweep1.lookahead" not in c for c in four)
+    assert all(c == {"ops.sweep1.blocks": nbg, "ops.sweep1.lookahead": nbg - 1,
+                     "ops.launch.sweep1_kernel": 1} for c in one)
+    assert all(c == {"ops.launch.rows_mc_kernel": nbg + 1, "ops.launch.draws_kernel": nbg}
+               for c in four)
     blocks = sum(c.get("ops.sweep1.blocks", 0) for c in counts)
     ahead = sum(c.get("ops.sweep1.lookahead", 0) for c in counts)
     assert 100.0 * ahead / blocks == pytest.approx(100.0 * (nbg - 1) / nbg)

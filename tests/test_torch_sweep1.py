@@ -354,12 +354,18 @@ def test_prepare_gibbs_data_cross_grams(int8, B, n, batch_blocks, monkeypatch):
 
 
 def test_cross_grams_are_made_once_per_genotype():
-    """A one-chain sweep called without C_blocks reads cross_grams, made once
-    per genotype tensor (and anew for another)."""
+    """A one-chain sweep called without C_blocks reads cross_grams
+    (``lookahead_grams``), made once per ``plans`` and kept there, afresh
+    for another ``plans`` or without; given C_blocks, it reads them and
+    keeps nothing."""
     X = torch.from_numpy(np.random.default_rng(2).integers(0, 3, (5, 40, 8)).astype(np.int8))
-    a, b = TB.cross_grams(X), TB.cross_grams(X)
+    plans = {}
+    a, b = TB.lookahead_grams(X, plans=plans), TB.lookahead_grams(X, plans=plans)
     assert a is b and torch.equal(a.double(), _cross_reference(X))
-    assert TB.cross_grams(X.clone()) is not a
+    for other in (TB.lookahead_grams(X, plans={}), TB.lookahead_grams(X)):
+        assert other is not a and torch.equal(other, a)
+    given, kept = TB.cross_grams(X), {}
+    assert TB.lookahead_grams(X, given, kept) is given and kept == {}
 
 
 # ---------------------------------------------------------------------------

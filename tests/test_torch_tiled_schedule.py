@@ -276,19 +276,25 @@ def test_k_chain_register_shapes_cover_each_output_once(tile):
 
 
 def test_layout_schedule_is_built_once_per_layout():
-    """A sweep over one layout's cols and valid tensors reuses the schedule
-    built at its first sweep; another valid tensor, or cols changed in
-    place, gets a new one, and the cache lets go of a freed layout."""
-    import gc
-
-    cols, valid = (torch.as_tensor(x) for x in _layout("gaps", nbr=12, K=5, seed=5))
-    first = TB._layout_schedule(cols, valid)
-    assert TB._layout_schedule(cols, valid) is first
-    other = valid.clone()
-    assert TB._layout_schedule(cols, other) is not first
-    cols[0, 0] = 0   # in place: the tensor's version moves on
-    assert TB._layout_schedule(cols, other) is not TB._layout_schedule(cols, valid)
-    n0 = len(TB._SCHEDULES)
-    del cols
-    gc.collect()
-    assert len(TB._SCHEDULES) == n0 - 1
+    """The tiled sweep's layout on the card (``tiled_plan``: the store
+    re-tiled and its schedule) is made once per ``plans`` for the rows at
+    one row_base, kept there, and made afresh for another ``plans``, for
+    other rows and without ``plans``."""
+    spec, tiles, cols, valid, r, P, n = _problem("gaps", True, T=30)
+    sb = TB.tiled_sub_blocks(spec, 30)
+    assert not sb.same
+    plans = {}
+    first = TB.tiled_plan(spec, tiles, cols, valid, plans=plans)
+    again = TB.tiled_plan(spec, tiles, cols, valid, plans=plans)
+    assert again[1] is first[1] and again[2] is first[2] and again[3] == first[3]
+    assert len(plans) == 2
+    for other in (TB.tiled_plan(spec, tiles, cols, valid, plans={}),
+                  TB.tiled_plan(spec, tiles, cols, valid)):
+        assert other[1] is not first[1] and other[2] is not first[2]
+        assert torch.equal(other[1], first[1])
+        np.testing.assert_array_equal(other[2].items, first[2].items)
+    half = tiles.shape[0] // 2
+    shard = TB.tiled_plan(spec, tiles[half:], cols[half:], valid[half:], half,
+                          tiles.shape[0], plans)
+    assert shard[2] is not first[2] and shard[2].row_base == half * sb.S
+    assert len(plans) == 4
